@@ -1,0 +1,175 @@
+"""ScorePosNet and the DDPM sampler, counterpart of
+targetdiff_tpu/models/score_model.py (reference:
+models/molopt_score_model.py:198-703).
+
+`ScorePosNet` is the network (atom embeddings, node indicator, refine net,
+v_inference head) with the reference's parameter names. `DiffusionModel`
+owns it and the schedules; `sample_step` is one pure reverse step that takes
+its noise as arguments, and `sample_diffusion` loops over the time sequence
+drawing that noise from a `torch.Generator`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..config import Config
+from ..data.batch import ComplexBatch
+from ..ops import diffusion as D
+from ..ops import graph as G
+from ..ops.kernels.block_denoiser import PackedBlock, pack_block_params
+from ..ops.schedules import make_categorical_schedule, make_gaussian_schedule
+from .common import ShiftedSoftplus
+from .fast_forward import fast_forward, fast_forward_supported
+from .uni_transformer import UniTransformerO2TwoUpdateGeneral
+
+
+class ScorePosNet(nn.Module):
+    """The denoiser network (reference: models/molopt_score_model.py:272-368)."""
+
+    def __init__(self, config: Config, protein_atom_feature_dim: int,
+                 ligand_atom_feature_dim: int):
+        super().__init__()
+        ok, reason = fast_forward_supported(config)
+        if not ok:
+            raise NotImplementedError(f"the PyTorch port supports only the released "
+                                      f"uni_o2 architecture ({reason})")
+        self.node_indicator = bool(config.node_indicator)
+        self.num_classes = ligand_atom_feature_dim
+        hidden = config.hidden_dim
+        emb_dim = hidden - 1 if self.node_indicator else hidden
+        self.protein_atom_emb = nn.Linear(protein_atom_feature_dim, emb_dim)
+        self.ligand_atom_emb = nn.Linear(ligand_atom_feature_dim, emb_dim)
+        self.refine_net = UniTransformerO2TwoUpdateGeneral(
+            num_blocks=config.num_blocks, num_layers=config.num_layers, hidden_dim=hidden,
+            n_heads=config.n_heads, k=config.knn, num_r_gaussian=config.num_r_gaussian,
+            edge_feat_dim=config.edge_feat_dim,
+        )
+        self.v_inference = nn.Sequential(
+            nn.Linear(hidden, hidden), ShiftedSoftplus(),
+            nn.Linear(hidden, ligand_atom_feature_dim),
+        )
+
+    def embed(self, protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v, ligand_mask):
+        """Atom embeddings + node indicator, composed into one context.
+        Returns (h, x, node_mask, mask_ligand)."""
+        h_protein = self.protein_atom_emb(protein_feat)
+        h_ligand = self.ligand_atom_emb(F.one_hot(ligand_v.long(), self.num_classes).float())
+        if self.node_indicator:
+            h_protein = torch.cat([h_protein, h_protein.new_zeros(h_protein.shape[:2] + (1,))], -1)
+            h_ligand = torch.cat([h_ligand, h_ligand.new_ones(h_ligand.shape[:2] + (1,))], -1)
+        return G.compose_context(h_protein, h_ligand, protein_pos, ligand_pos,
+                                 protein_mask, ligand_mask)
+
+    def head(self, h, x, ligand_mask, n_protein: int) -> Dict[str, torch.Tensor]:
+        """Ligand outputs; padded ligand rows of final_ligand_h are zero."""
+        final_ligand_h = h[:, n_protein:] * ligand_mask[..., None].to(h.dtype)
+        return {
+            "pred_ligand_pos": x[:, n_protein:],
+            "pred_ligand_v": self.v_inference(final_ligand_h),
+            "final_ligand_h": final_ligand_h,
+            "final_h": h,
+        }
+
+    def forward(self, protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v,
+                ligand_mask) -> Dict[str, torch.Tensor]:
+        h, x, node_mask, mask_ligand = self.embed(
+            protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v, ligand_mask)
+        h, x = self.refine_net(h, x, mask_ligand, node_mask)
+        return self.head(h, x, ligand_mask, protein_pos.shape[1])
+
+
+class SampleResult(NamedTuple):
+    pos: torch.Tensor  # [B, NL, 3] final ligand coordinates (uncentered)
+    v: torch.Tensor  # [B, NL] final atom-type indices
+
+
+class DiffusionModel:
+    """Owns the network and the schedules on one device."""
+
+    def __init__(self, config: Config, protein_atom_feature_dim: int,
+                 ligand_atom_feature_dim: int, device="cpu",
+                 max_protein: int = 384, max_ligand: int = 64):
+        self.config = config
+        self.device = torch.device(device)
+        self.model_mean_type = config.model_mean_type
+        self.center_pos_mode = config.get("center_pos_mode", "protein")
+        self.num_classes = ligand_atom_feature_dim
+        self.max_protein, self.max_ligand = max_protein, max_ligand
+        self.pos_sched = make_gaussian_schedule(
+            beta_schedule=config.beta_schedule,
+            num_diffusion_timesteps=config.num_diffusion_timesteps,
+            beta_start=config.get("beta_start"), beta_end=config.get("beta_end"),
+            pos_beta_s=config.get("pos_beta_s"), device=self.device,
+        )
+        self.v_sched = make_categorical_schedule(
+            v_beta_schedule=config.v_beta_schedule,
+            num_diffusion_timesteps=config.num_diffusion_timesteps,
+            v_beta_s=config.get("v_beta_s", 0.01), device=self.device,
+        )
+        self.num_timesteps = self.pos_sched.num_timesteps
+        self.net = ScorePosNet(config, protein_atom_feature_dim, ligand_atom_feature_dim)
+        self.net.to(self.device).eval()
+
+    def apply(self, batch: ComplexBatch, ligand_pos, ligand_v):
+        """Eager forward (the reference-semantics path)."""
+        return self.net(batch.protein_pos, batch.protein_feat, batch.protein_mask,
+                        ligand_pos, ligand_v, batch.ligand_mask)
+
+    def fast_apply(self, batch: ComplexBatch, ligand_pos, ligand_v,
+                   packed: Optional[PackedBlock] = None):
+        """Kernel-backed forward (the sampling path)."""
+        return fast_forward(self.net, batch.protein_pos, batch.protein_feat,
+                            batch.protein_mask, ligand_pos, ligand_v, batch.ligand_mask,
+                            packed=packed)
+
+    @torch.no_grad()
+    def sample_step(self, cbatch: ComplexBatch, ligand_pos, ligand_v, t: int,
+                    pos_noise, type_uniform, packed: Optional[PackedBlock] = None):
+        """One ancestral DDPM step t -> t-1 on the protein-centered batch
+        (reference: molopt_score_model.py:649-693). `pos_noise` [B,NL,3] is
+        standard normal and `type_uniform` [B,NL,C] is U[0,1). Returns
+        (ligand_pos, ligand_v) at t-1."""
+        tt = torch.full((cbatch.num_graphs,), t, dtype=torch.long, device=ligand_pos.device)
+        preds = self.fast_apply(cbatch, ligand_pos, ligand_v, packed=packed)
+        if self.model_mean_type == "noise":
+            pos0 = D.predict_x0_from_eps(self.pos_sched, ligand_pos,
+                                         preds["pred_ligand_pos"] - ligand_pos, tt)
+        elif self.model_mean_type == "C0":
+            pos0 = preds["pred_ligand_pos"]
+        else:
+            raise ValueError(self.model_mean_type)
+        pos_mean = D.q_pos_posterior(self.pos_sched, pos0, ligand_pos, tt)
+        pos_log_variance = D.extract(self.pos_sched.posterior_logvar, tt, 3)
+        nonzero = float(t != 0)
+        lmask_f = cbatch.ligand_mask.to(ligand_pos.dtype)[..., None]
+        pos_next = (pos_mean + nonzero * torch.exp(0.5 * pos_log_variance) * pos_noise) * lmask_f
+
+        log_v_recon = F.log_softmax(preds["pred_ligand_v"], dim=-1)
+        log_v = D.index_to_log_onehot(ligand_v, self.num_classes)
+        log_model_prob = D.q_v_posterior(self.v_sched, log_v_recon, log_v, tt, self.num_classes)
+        return pos_next, D.log_sample_categorical(log_model_prob, type_uniform)
+
+    @torch.no_grad()
+    def sample_diffusion(self, batch: ComplexBatch, init_ligand_pos, init_ligand_v,
+                         generator: torch.Generator,
+                         num_steps: Optional[int] = None) -> SampleResult:
+        """Reverse DDPM over the last `num_steps` timesteps of the schedule
+        (reference: molopt_score_model.py:633-703, truncation at :649)."""
+        T = self.num_timesteps
+        num_steps = T if num_steps is None else num_steps
+        protein_pos, pos, offset = D.center_pos_protein(
+            batch.protein_pos, init_ligand_pos, batch.protein_mask, self.center_pos_mode)
+        cbatch = batch._replace(protein_pos=protein_pos)
+        packed = pack_block_params(self.net.refine_net)
+        v = init_ligand_v
+        for t in range(T - 1, T - num_steps - 1, -1):
+            pos_noise = torch.randn(pos.shape, generator=generator, device=pos.device)
+            type_uniform = torch.rand(v.shape + (self.num_classes,), generator=generator,
+                                      device=pos.device)
+            pos, v = self.sample_step(cbatch, pos, v, t, pos_noise, type_uniform, packed=packed)
+        return SampleResult(pos=pos + offset, v=v)

@@ -1,0 +1,206 @@
+"""Whole-block denoiser: the CUDA kernels of csrc/block_denoiser.cu for CUDA
+tensors, the eager `UniTransformerO2TwoUpdateGeneral.block_forward` for CPU
+tensors. Replaces targetdiff_tpu/ops/pallas/block_denoiser.py
+(`block_denoiser`, inference mode, every tile live).
+
+The CUDA path runs one edge-weight kernel per block and, per layer, a node
+kernel + x2h edge kernel, then a node kernel + h2x edge kernel on the ligand
+rows. Its weights come from `pack_block_params`, which regroups the module's
+Linear weights as [in, out] blocks: the destination (h_i) and source (h_j)
+parts of each edge MLP's first layer become per-node projections, and its
+edge-feature part becomes one [4, R, 2H] table indexed by edge type (the
+outer product rbf x onehot(type) picks one R-row block).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from .. import graph as G
+from ..rbf import gaussian_smearing_offsets
+from . import build
+
+LAUNCHES = 0  # block_denoiser calls that launched the kernels since the last reset
+
+# the kernels are specialised to the released architecture's widths
+HIDDEN, HEADS, MAX_K = 128, 16, 32
+
+
+class PackedBlock(NamedTuple):
+    """Kernel weights of one refine_net, float32, contiguous.
+    ew: (w1 [R,H], b1 [H], ln [2,H], w2 [H], b2 [1]).
+    x2h / h2x: dicts of [L, ...] stacks (see `_pack_pass`)."""
+
+    ew: tuple
+    x2h: dict
+    h2x: dict
+
+
+class _PassParams(ctypes.Structure):
+    """Mirror of `PassParams` in csrc/block_denoiser.cu (one layer, one pass)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "w_node", "b_node", "q_ln", "w_q2", "b_q2", "w_rbf", "w_et", "kv_ln",
+        "w2k", "b2k", "w2v", "b2v")]
+
+
+class _EwParams(ctypes.Structure):
+    """Mirror of `EwParams` in csrc/block_denoiser.cu."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in ("w1", "b1", "ln", "w2", "b2")]
+
+
+def _pack_pass(layers, prefix: str) -> dict:
+    """Stack one pass (prefix 'h' = x2h, 'x' = h2x) over layers. The first
+    Linear of each edge MLP takes [edge type (4) | rbf x type (4R) | h_i | h_j]:
+      w_node [H, 5H]  columns [k.h_i | v.h_i | k.h_j | v.h_j | q first layer]
+      b_node [5H]     [k bias | v bias | 0 | 0 | q bias]
+      w_rbf [4, R, 2H], w_et [4, 2H]  edge-feature rows of k|v per edge type
+      kv_ln [2, 2H]   LayerNorm scale and bias of k|v
+      q_ln [2, H], w_q2 [H, H], b_q2 [H]  rest of the query MLP
+      w2k [H, H], b2k [H], w2v [H, V], b2v [V]  second layers (V = H or heads)
+    """
+    out = {name: [] for name, _ in _PassParams._fields_}
+    for layer in layers:
+        att = layer.x2h_layers[0] if prefix == "h" else layer.h2x_layers[0]
+        mk = getattr(att, f"{prefix}k_func").net
+        mv = getattr(att, f"{prefix}v_func").net
+        mq = getattr(att, f"{prefix}q_func").net
+        H = mq[0].weight.shape[0]
+        w1k, w1v = mk[0].weight, mv[0].weight  # [H, 4 + 4R + 2H]
+        E, RF = 4, w1k.shape[1] - 4 - 2 * H
+        hi, hj = slice(E + RF, E + RF + H), slice(E + RF + H, E + RF + 2 * H)
+        out["w_node"].append(torch.cat([w1k[:, hi].t(), w1v[:, hi].t(), w1k[:, hj].t(),
+                                        w1v[:, hj].t(), mq[0].weight.t()], dim=1))
+        out["b_node"].append(torch.cat([mk[0].bias, mv[0].bias, mk[0].bias.new_zeros(2 * H),
+                                        mq[0].bias]))
+        out["q_ln"].append(torch.stack([mq[1].weight, mq[1].bias]))
+        out["w_q2"].append(mq[3].weight.t())
+        out["b_q2"].append(mq[3].bias)
+        w_rf = torch.cat([w1k[:, E:E + RF], w1v[:, E:E + RF]], dim=0)  # [2H, 4R], a-major
+        out["w_rbf"].append(w_rf.reshape(2 * H, E, RF // E).permute(1, 2, 0))
+        out["w_et"].append(torch.cat([w1k[:, :E], w1v[:, :E]], dim=0).t())
+        out["kv_ln"].append(torch.stack([torch.cat([mk[1].weight, mv[1].weight]),
+                                         torch.cat([mk[1].bias, mv[1].bias])]))
+        out["w2k"].append(mk[3].weight.t())
+        out["b2k"].append(mk[3].bias)
+        out["w2v"].append(mv[3].weight.t())
+        out["b2v"].append(mv[3].bias)
+    return {k: torch.stack(v).float().contiguous() for k, v in out.items()}
+
+
+@torch.no_grad()
+def pack_block_params(refine_net) -> PackedBlock:
+    """Regroup a UniTransformerO2TwoUpdateGeneral's weights for the kernels
+    (counterpart of targetdiff_tpu/models/fast_forward.py:extract_block_params)."""
+    ep = refine_net.edge_pred_layer.net
+    ew = (ep[0].weight.t().float().contiguous(), ep[0].bias.float().contiguous(),
+          torch.stack([ep[1].weight, ep[1].bias]).float().contiguous(),
+          ep[3].weight.reshape(-1).float().contiguous(), ep[3].bias.float().contiguous())
+    return PackedBlock(ew=ew, x2h=_pack_pass(refine_net.base_block, "h"),
+                       h2x=_pack_pass(refine_net.base_block, "x"))
+
+
+@functools.lru_cache(maxsize=None)
+def _entries():
+    lib = build.load_library()
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    sigs = {
+        # x, idx, B, N, K, offsets, coeff, EwParams, ew, stream
+        "td_block_ew": [vp, vp, i32, i32, i32, vp, f32, _EwParams, vp, vp],
+        # h, rows, PassParams, ni, nj, q, stream
+        "td_block_node": [vp, i32, _PassParams, vp, vp, vp, vp],
+        # h, x, idx, nmask, mlig, ew, ni, nj, q, offsets, coeff, PassParams,
+        # B, N, K, row0, out, stream
+        "td_block_x2h": [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, f32, _PassParams,
+                         i32, i32, i32, i32, vp, vp],
+        "td_block_h2x": [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, f32, _PassParams,
+                         i32, i32, i32, i32, vp, vp],
+    }
+    fns = {}
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def _pass_structs(stacks: dict, num_layers: int):
+    return [_PassParams(*[stacks[name][l].data_ptr() for name, _ in _PassParams._fields_])
+            for l in range(num_layers)]
+
+
+def block_denoiser(refine_net, h, x, nbh: G.Neighborhood, mask_ligand, n_ligand: int,
+                   packed: PackedBlock = None):
+    """All layers of one UniTransformerO2 block. h [B,N,H] f32, x [B,N,3]
+    f32, nbh [B,N,K], mask_ligand [B,N] bool (ligand rows are the last
+    `n_ligand` rows). Returns (h, x) after the block. Inference only: the
+    CUDA path records no autograd graph."""
+    if h.device.type == "cpu":
+        return refine_net.block_forward(h, x, nbh, mask_ligand)
+    return block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed)
+
+
+def block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed=None):
+    global LAUNCHES
+    for name, t in (("h", h), ("x", x), ("idx", nbh.idx), ("nbr_mask", nbh.mask),
+                    ("mask_ligand", mask_ligand)):
+        build.require_cuda(t, name)
+        if t.device != h.device:
+            raise ValueError(f"{name} is on {t.device}, h on {h.device}")
+    B, N, H = h.shape
+    K = nbh.idx.shape[-1]
+    if (H, refine_net.n_heads) != (HIDDEN, HEADS):
+        raise ValueError(f"the block kernels take hidden={HIDDEN}, heads={HEADS}; "
+                         f"got {H}, {refine_net.n_heads}")
+    if not 0 < K <= MAX_K:
+        raise ValueError(f"the block kernels take 1 <= K <= {MAX_K}, got K={K}")
+    if not 0 < n_ligand <= N:
+        raise ValueError(f"n_ligand={n_ligand} must lie in [1, N={N}]")
+    if h.dtype != torch.float32 or x.dtype != torch.float32 or x.shape != (B, N, 3):
+        raise ValueError("h [B,N,H] and x [B,N,3] must be float32")
+    if nbh.idx.dtype != torch.int64 or nbh.idx.shape != (B, N, K) or nbh.mask.shape != (B, N, K):
+        raise ValueError("idx must be int64 [B,N,K] with a bool mask of the same shape")
+    if nbh.mask.dtype != torch.bool or mask_ligand.dtype != torch.bool or mask_ligand.shape != (B, N):
+        raise ValueError("nbr_mask and mask_ligand must be bool")
+    packed = pack_block_params(refine_net) if packed is None else packed
+    if packed.ew[0].device != h.device:
+        raise ValueError(f"packed weights are on {packed.ew[0].device}, h on {h.device}")
+
+    dev = h.device
+    L = packed.x2h["w_node"].shape[0]
+    fns = _entries()
+    stream = build.stream_ptr(dev)
+    offsets, coeff = gaussian_smearing_offsets(device=dev)
+    idx, nmask, mlig = nbh.idx.contiguous(), nbh.mask.contiguous(), mask_ligand.contiguous()
+    h_a, h_b = h.contiguous().clone(), torch.empty_like(h)
+    x_a, x_b = x.contiguous().clone(), x.contiguous().clone()  # protein rows never move
+    ew = torch.empty((B, N, K), dtype=torch.float32, device=dev)
+    ni = torch.empty((B * N, 2 * H), dtype=torch.float32, device=dev)
+    nj = torch.empty_like(ni)
+    q = torch.empty((B * N, H), dtype=torch.float32, device=dev)
+    x2h_p, h2x_p = _pass_structs(packed.x2h, L), _pass_structs(packed.h2x, L)
+
+    build.check(fns["td_block_ew"](x_a.data_ptr(), idx.data_ptr(), B, N, K, offsets.data_ptr(),
+                                   coeff, _EwParams(*[t.data_ptr() for t in packed.ew]),
+                                   ew.data_ptr(), stream), "td_block_ew")
+    common = (idx.data_ptr(), nmask.data_ptr(), mlig.data_ptr(), ew.data_ptr(),
+              ni.data_ptr(), nj.data_ptr(), q.data_ptr(), offsets.data_ptr(), coeff)
+    for l in range(L):
+        build.check(fns["td_block_node"](h_a.data_ptr(), B * N, x2h_p[l], ni.data_ptr(),
+                                         nj.data_ptr(), q.data_ptr(), stream), "td_block_node")
+        build.check(fns["td_block_x2h"](h_a.data_ptr(), x_a.data_ptr(), *common, x2h_p[l],
+                                        B, N, K, 0, h_b.data_ptr(), stream), "td_block_x2h")
+        build.check(fns["td_block_node"](h_b.data_ptr(), B * N, h2x_p[l], ni.data_ptr(),
+                                         nj.data_ptr(), q.data_ptr(), stream), "td_block_node")
+        build.check(fns["td_block_h2x"](h_b.data_ptr(), x_a.data_ptr(), *common, h2x_p[l],
+                                        B, N, K, N - n_ligand, x_b.data_ptr(), stream),
+                    "td_block_h2x")
+        h_a, h_b = h_b, h_a
+        x_a, x_b = x_b, x_a
+    LAUNCHES += 1
+    return h_a, x_a

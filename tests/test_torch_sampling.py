@@ -1,0 +1,132 @@
+"""The port's DDPM step against the JAX package's `_sample_step` (XLA path)
+with the same noise: the JAX noise is derived from the key split of
+score_model.py:491 and diffusion.py:88 and passed to the port explicitly.
+Plus the schedules and the posterior helpers against the JAX functions,
+and a short end-to-end sampling run on the CPU."""
+
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from targetdiff_tpu.ops import diffusion as JD
+from targetdiff_tpu_torch.ops import diffusion as D
+from targetdiff_tpu_torch.sampling import sample_diffusion_ligand
+from tests.test_torch_score_model import small_setup
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+
+# key seed whose Gumbel argmax margins all exceed 1e-3 on the steps below
+NOISE_SEED = 0
+
+
+def _jax_noise(key, pos_shape, num_classes):
+    k, k_pos, k_v = jax.random.split(key, 3)
+    noise = jax.random.normal(k_pos, pos_shape, jnp.float32)
+    uniform = jax.random.uniform(k_v, pos_shape[:2] + (num_classes,))
+    return k, np.asarray(noise), np.asarray(uniform)
+
+
+def _gumbel_margin(jmodel, params, cbatch, pos, v, t, uniform):
+    """Smallest top-1 minus top-2 gap of gumbel + log q(v_{t-1}|v_t, v0) on
+    the JAX side."""
+    tt = jnp.full((cbatch.num_graphs,), t, jnp.int32)
+    preds = jmodel.apply(params, cbatch, pos, v, tt)
+    log_recon = jax.nn.log_softmax(preds["pred_ligand_v"], -1)
+    log_prob = JD.q_v_posterior(jmodel.v_sched, log_recon,
+                                JD.index_to_log_onehot(v, jmodel.num_classes), tt,
+                                jmodel.num_classes)
+    g = np.asarray(-jnp.log(-jnp.log(uniform + 1e-30) + 1e-30) + log_prob)
+    top2 = np.sort(g, -1)[..., -2:]
+    return float((top2[..., 1] - top2[..., 0]).min())
+
+
+@pytest.mark.parametrize("ts", [(9,), (4,), (0,), (9, 8, 7)])
+def test_sample_steps_match_jax(ts):
+    _, jmodel, params, jbatch, model, batch = small_setup()
+    ppos, lpos, _ = JD.center_pos_protein(jbatch.protein_pos, jbatch.ligand_pos,
+                                          jbatch.protein_mask, "protein")
+    jcb = jbatch._replace(protein_pos=ppos)
+    cbatch = batch._replace(protein_pos=torch.tensor(np.asarray(ppos)))
+    lmask_f = jbatch.ligand_mask.astype(jnp.float32)[..., None]
+    carry = (lpos * lmask_f, jbatch.ligand_v, jax.random.PRNGKey(NOISE_SEED))
+    pos = torch.tensor(np.asarray(carry[0]))
+    v = torch.from_numpy(np.asarray(carry[1]).astype(np.int64))
+    for t in ts:
+        _, noise, uniform = _jax_noise(carry[2], carry[0].shape, jmodel.num_classes)
+        assert _gumbel_margin(jmodel, params, jcb, carry[0], carry[1], t, uniform) > 1e-3
+        carry, _ = jmodel._sample_step(
+            params, jcb, lmask_f, jnp.zeros((2, 1, 3)), carry, {"t": t, "s": t - 1},
+            impl="xla", dtype=jnp.float32, pos_only=False, return_traj=False,
+            return_v_probs=False)
+        pos, v = model.sample_step(cbatch, pos, v, t, torch.tensor(noise),
+                                   torch.tensor(uniform))
+        np.testing.assert_array_equal(v.numpy(), np.asarray(carry[1]))
+        np.testing.assert_allclose(pos.numpy(), np.asarray(carry[0]), atol=1e-3)
+
+
+def test_schedules_and_posteriors_match_jax():
+    _, jmodel, _, jbatch, model, batch = small_setup()
+    for name in jmodel.pos_sched._fields:
+        np.testing.assert_allclose(getattr(model.pos_sched, name).numpy(),
+                                   np.asarray(getattr(jmodel.pos_sched, name)), rtol=1e-6)
+    for name in jmodel.v_sched._fields:
+        np.testing.assert_allclose(getattr(model.v_sched, name).numpy(),
+                                   np.asarray(getattr(jmodel.v_sched, name)), rtol=1e-6,
+                                   atol=1e-6)
+    rng = np.random.default_rng(0)
+    C = jmodel.num_classes
+    log_v0 = jax.nn.log_softmax(jnp.asarray(rng.normal(size=(2, 8, C)).astype(np.float32)))
+    vt = rng.integers(0, C, (2, 8))
+    t = np.array([0, 6])
+    ref = JD.q_v_posterior(jmodel.v_sched, log_v0, JD.index_to_log_onehot(jnp.asarray(vt), C),
+                           jnp.asarray(t), C)
+    out = D.q_v_posterior(model.v_sched, torch.tensor(np.asarray(log_v0)),
+                          D.index_to_log_onehot(torch.from_numpy(vt), C), torch.from_numpy(t), C)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6, rtol=1e-6)
+
+    ref_c = JD.center_pos_protein(jbatch.protein_pos, jbatch.ligand_pos, jbatch.protein_mask)
+    out_c = D.center_pos_protein(batch.protein_pos, batch.ligand_pos, batch.protein_mask)
+    for a, b in zip(out_c, ref_c):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+
+
+def test_sample_diffusion_ligand_runs_on_cpu():
+    _, _, _, _, model, _ = small_setup()
+    rng = np.random.default_rng(5)
+    pocket = {"protein_pos": rng.normal(size=(14, 3)).astype(np.float32) * 3 + 10.0,
+              "protein_feat": (rng.random((14, 27)) > 0.7).astype(np.float32)}
+    out = sample_diffusion_ligand(model, pocket, num_samples=3,
+                                  generator=torch.Generator().manual_seed(0), batch_size=2,
+                                  num_steps=4, max_protein=16, max_ligand=8,
+                                  rng=np.random.default_rng(0))
+    assert len(out["pos"]) == 3 and len(out["time"]) == 2
+    for pos, v in zip(out["pos"], out["v"]):
+        assert pos.shape == (len(v), 3) and 1 <= len(v) <= 8
+        assert np.isfinite(pos).all() and ((v >= 0) & (v < model.num_classes)).all()
+        assert np.linalg.norm(pos.mean(0) - pocket["protein_pos"].mean(0)) < 20
+
+
+def test_sample_for_pocket_cli_on_cpu(tmp_path):
+    from targetdiff_tpu.utils.checkpoint import save_checkpoint
+    from targetdiff_tpu_torch.cli import sample_for_pocket
+
+    cfg, _, params, _, _, _ = small_setup()
+    ckpt = tmp_path / "ckpt.npz"
+    train_cfg = {"data": {"transform": {"ligand_atom_mode": "add_aromatic"}},
+                 "model": dict(cfg)}
+    save_checkpoint(str(ckpt), train_cfg, jax.device_get(params))
+    sample_yml = tmp_path / "sampling.yml"
+    sample_yml.write_text(f"model:\n  checkpoint: {ckpt}\nsample:\n  seed: 3\n  num_steps: 2\n")
+    out = tmp_path / "out"
+    sample_for_pocket.main([
+        str(sample_yml), "--pdb_path",
+        str(REPO / "examples" / "1h36_A_rec_1h36_r88_lig_tt_docked_0_pocket10.pdb"),
+        "--num_samples", "2",
+        "--result_path", str(out), "--max_ligand", "8", "--device", "cpu"])
+    assert (out / "samples.smi").exists()
