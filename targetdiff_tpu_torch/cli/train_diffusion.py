@@ -1,0 +1,199 @@
+"""Train the pocket-conditioned diffusion model.
+
+Usage: python -m targetdiff_tpu_torch.cli.train_diffusion configs/training.yml
+       [--device cuda|cpu] [--logdir ./logs_diffusion] [--resume ckpt.npz]
+       [--max_protein 640] [--max_ligand 64] [--train_report_iter 200]
+
+Counterpart of targetdiff_tpu/cli/train_diffusion.py (reference:
+scripts/train_diffusion.py) with the same loop: protein-position noise,
+Adam behind global-norm clipping, validation over 10 fixed timesteps with
+the atom-type AUROC, a checkpoint at each new best validation loss, and
+resume from a checkpoint. The training step runs the denoiser through the
+block kernels and their backward (`DiffusionModel.get_diffusion_loss`,
+impl='fast'). `main` reads the YAML config (PyYAML is imported there only);
+`run` takes a Config built in code.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..config import load_config
+from ..data.datasets import PaddedLoader, get_dataset, inf_iterator
+from ..data.transforms import (
+    Compose,
+    FeaturizeLigandAtom,
+    FeaturizeLigandBond,
+    FeaturizeProteinAtom,
+    RandomRotation,
+)
+from ..models.score_model import DiffusionModel
+from ..trainer import atom_auroc, create_train_state, make_eval_step, make_train_step
+from ..utils import train as train_utils
+from ..utils.checkpoint import load_checkpoint, save_checkpoint
+
+
+def build_transform(cfg_data, seed: int = 0):
+    protein_featurizer = FeaturizeProteinAtom()
+    ligand_featurizer = FeaturizeLigandAtom(cfg_data.transform.ligand_atom_mode)
+    tfs = [protein_featurizer, ligand_featurizer, FeaturizeLigandBond()]
+    if cfg_data.transform.get("random_rot", False):
+        tfs.append(RandomRotation(np.random.default_rng(seed)))
+    return Compose(tfs), protein_featurizer, ligand_featurizer
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("config")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--logdir", default="./logs_diffusion")
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--resume", default=None)
+    ap.add_argument("--max_protein", type=int, default=640)
+    ap.add_argument("--max_ligand", type=int, default=64)
+    ap.add_argument("--train_report_iter", type=int, default=200)
+    return ap
+
+
+def _logger(log_dir: str) -> logging.Logger:
+    logger = logging.getLogger(f"train_diffusion.{log_dir}")
+    logger.setLevel(logging.INFO)
+    fmt = logging.Formatter("[%(asctime)s::train] %(message)s")
+    for handler in (logging.StreamHandler(), logging.FileHandler(os.path.join(log_dir, "log.txt"))):
+        handler.setFormatter(fmt)
+        logger.addHandler(handler)
+    return logger
+
+
+def run(config, args) -> dict:
+    """Train as `config` says. Returns the log dir, the checkpoints written,
+    the best validation loss, the final TrainState and the last step's
+    metrics."""
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: torch.cuda.is_available() is False")
+    device = torch.device(args.device)
+    seed = int(config.train.seed)
+    torch.manual_seed(seed)
+    log_dir = os.path.join(args.logdir, "training_" + time.strftime("%Y_%m_%d__%H_%M_%S")
+                           + (f"_{args.tag}" if args.tag else ""))
+    os.makedirs(log_dir, exist_ok=True)
+    with open(os.path.join(log_dir, "config.json"), "w") as f:
+        json.dump(config, f, indent=1)
+    logger = _logger(log_dir)
+    try:
+        return _train(config, args, device, log_dir, logger)
+    finally:
+        for handler in logger.handlers[:]:
+            handler.close()
+            logger.removeHandler(handler)
+
+
+def _train(config, args, device, log_dir, logger) -> dict:
+    seed = int(config.train.seed)
+    logger.info(f"log dir: {log_dir}; device: {device}")
+    transform, protein_feat, ligand_feat = build_transform(config.data, seed)
+    _, subsets = get_dataset(config.data, transform=transform)
+    train_set, val_set = subsets["train"], subsets["test"]
+    logger.info(f"train {len(train_set)} / val {len(val_set)}")
+    bs = config.train.batch_size
+    loader = PaddedLoader(train_set, bs, args.max_protein, args.max_ligand, shuffle=True,
+                          seed=seed, device=device)
+    val_loader = PaddedLoader(val_set, bs, args.max_protein, args.max_ligand, shuffle=False,
+                              drop_last=False, device=device)
+    train_iter = inf_iterator(loader)
+
+    model = DiffusionModel(config.model, protein_feat.feature_dim, ligand_feat.feature_dim,
+                           device=device, max_protein=args.max_protein,
+                           max_ligand=args.max_ligand)
+    opt_cfg = dict(config.train.optimizer, max_grad_norm=config.train.max_grad_norm)
+    optimizer = train_utils.get_optimizer(type(config)(opt_cfg), model.parameters())
+    scheduler = train_utils.get_scheduler(config.train.scheduler, config.train.optimizer)
+    state = create_train_state(model, optimizer)
+    logger.info(f"parameters: {sum(p.numel() for p in model.parameters()):,}")
+
+    start_iter = 1
+    if args.resume:
+        ck = load_checkpoint(args.resume, device=device)
+        model.net.load_state_dict(ck["state_dict"])
+        if ck["opt_state"] is not None:
+            optimizer.load_state_dict(ck["opt_state"])
+        if ck["scheduler"]:
+            scheduler.load_state_dict(ck["scheduler"])
+        state.step = ck["iteration"]
+        start_iter = ck["iteration"] + 1
+        logger.info(f"resumed from {args.resume} at iter {start_iter}")
+
+    train_step = make_train_step(model, config.train.pos_noise_std)
+    eval_step = make_eval_step(model)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    best_val, ckpts, metrics = float("inf"), [], {}
+    it = start_iter
+    try:
+        while it <= config.train.max_iters:
+            state, metrics = train_step(state, next(train_iter), gen)
+            if it % args.train_report_iter == 0 or it == start_iter:
+                m = {k: float(v) for k, v in metrics.items()}
+                logger.info(f"[train] iter {it} loss {m['loss']:.4f} pos {m['loss_pos']:.4f} "
+                            f"v {m['loss_v']:.4f} grad {m['grad_norm']:.2f} "
+                            f"lr {train_utils.get_learning_rate(optimizer):.2e}")
+            if it % config.train.val_freq == 0:
+                val_loss = validate(model, eval_step, val_loader, seed, logger, it)
+                scheduler.step(val_loss, train_utils.get_learning_rate(optimizer))
+                train_utils.set_learning_rate(optimizer, scheduler.lr)
+                if val_loss < best_val:
+                    best_val = val_loss
+                    ckpt = os.path.join(log_dir, f"ckpt_{it}.npz")
+                    save_checkpoint(ckpt, config, model.net, optimizer, scheduler.state_dict(), it)
+                    ckpts.append(ckpt)
+                    logger.info(f"[val] new best {val_loss:.4f} -> {ckpt}")
+            it += 1
+    except KeyboardInterrupt:
+        logger.info("interrupted; saving last checkpoint")
+        ckpt = os.path.join(log_dir, f"ckpt_last_{it}.npz")
+        save_checkpoint(ckpt, config, model.net, optimizer, scheduler.state_dict(), it)
+        ckpts.append(ckpt)
+    return {"log_dir": log_dir, "checkpoints": ckpts, "best_val": best_val, "state": state,
+            "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+def validate(model, eval_step, val_loader, seed, logger, it, num_t=10) -> float:
+    """Loss at fixed timesteps and atom-type AUROC
+    (reference: scripts/train_diffusion.py:153-208)."""
+    ts = np.linspace(0, model.num_timesteps - 1, num_t).astype(np.int64)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    tot = tot_pos = tot_v = 0.0
+    n = 0
+    ys, ps, ms = [], [], []
+    for batch in val_loader:
+        for t in ts:
+            out = eval_step(batch, int(t), gen)
+            B = batch.num_graphs
+            tot += float(out["loss"]) * B
+            tot_pos += float(out["loss_pos"]) * B
+            tot_v += float(out["loss_v"]) * B
+            n += B
+        ys.append(batch.ligand_v.cpu().numpy().ravel())
+        probs = torch.softmax(out["pred_v"], -1)
+        ps.append(probs.reshape(-1, probs.shape[-1]).cpu().numpy())
+        ms.append(batch.ligand_mask.cpu().numpy().ravel())
+    val_loss = tot / max(n, 1)
+    auroc = atom_auroc(np.concatenate(ys), np.concatenate(ps), np.concatenate(ms))
+    logger.info(f"[val] iter {it} loss {val_loss:.4f} pos {tot_pos / max(n, 1):.4f} "
+                f"v {tot_v / max(n, 1):.4f} auroc {auroc:.4f}")
+    return val_loss
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    return run(load_config(args.config), args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,16 +1,22 @@
-"""The featurization subset the sampling path needs, counterpart of
-targetdiff_tpu/data/transforms.py:64-133.
+"""Featurization for the sampling and training paths, counterpart of
+targetdiff_tpu/data/transforms.py: the ligand atom-type vocabularies, the
+protein atom featurizer, the ligand atom and bond featurizers, the random
+rotation augmentation and `Compose`.
 
 Kept here rather than imported because importing `targetdiff_tpu.data`
-imports jax (its `__init__` pulls in `batch.py`). Only the protein atom
-featurizer and the ligand class-index decoders are ported.
+imports jax (its `__init__` pulls in `batch.py`). The jax-free
+`targetdiff_tpu.chem` supplies the aromatic feature column.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
+
+from targetdiff_tpu.chem.perception import ATOM_FAMILIES_ID
+
+AROMATIC_FEAT_IDX = ATOM_FAMILIES_ID["Aromatic"]
 
 # class index maps (reference: utils/transforms.py:11-62)
 MAP_ATOM_TYPE_FULL_TO_INDEX = {
@@ -36,6 +42,16 @@ MAP_INDEX_TO_ATOM_TYPE_FULL = {v: k for k, v in MAP_ATOM_TYPE_FULL_TO_INDEX.item
 
 def num_ligand_classes(mode: str) -> int:
     return {"basic": 8, "add_aromatic": 13, "full": 23}[mode]
+
+
+def get_index(atom_num: int, hybridization: Optional[str], is_aromatic: bool, mode: str) -> int:
+    """(reference: utils/transforms.py:101-112)."""
+    if mode == "basic":
+        return MAP_ATOM_TYPE_ONLY_TO_INDEX[int(atom_num)]
+    if mode == "add_aromatic":
+        key = (int(atom_num), bool(is_aromatic))
+        return MAP_ATOM_TYPE_AROMATIC_TO_INDEX.get(key, MAP_ATOM_TYPE_AROMATIC_TO_INDEX[(1, False)])
+    return MAP_ATOM_TYPE_FULL_TO_INDEX[(int(atom_num), str(hybridization), bool(is_aromatic))]
 
 
 def get_atomic_number_from_index(index, mode: str) -> List[int]:
@@ -80,4 +96,64 @@ class FeaturizeProteinAtom:
         onehot_aa = np.eye(MAX_NUM_AA, dtype=np.float32)[np.asarray(data["protein_atom_to_aa_type"])]
         backbone = np.asarray(data["protein_is_backbone"]).astype(np.float32)[:, None]
         data["protein_atom_feature"] = np.concatenate([onehot_el, onehot_aa, backbone], axis=-1)
+        return data
+
+
+class FeaturizeLigandAtom:
+    """Ligand atom class indices in the chosen vocabulary
+    (reference: utils/transforms.py:135-159)."""
+
+    def __init__(self, mode: str = "basic"):
+        if mode not in ("basic", "add_aromatic", "full"):
+            raise ValueError(f"unknown ligand atom mode {mode!r}")
+        self.mode = mode
+
+    @property
+    def feature_dim(self) -> int:
+        return num_ligand_classes(self.mode)
+
+    def __call__(self, data: Dict) -> Dict:
+        elements = np.asarray(data["ligand_element"])
+        hybrid = data.get("ligand_hybridization", [None] * len(elements))
+        aromatic = np.asarray(data["ligand_atom_feature"])[:, AROMATIC_FEAT_IDX]
+        data["ligand_atom_feature_full"] = np.array(
+            [get_index(e, h, a, self.mode) for e, h, a in zip(elements, hybrid, aromatic)],
+            np.int64)
+        return data
+
+
+NUM_BOND_TYPES = 5  # unspecified, single, double, triple, aromatic
+
+
+class FeaturizeLigandBond:
+    """One-hot over bond types 1..4 (reference: utils/transforms.py:162-169)."""
+
+    def __call__(self, data: Dict) -> Dict:
+        bt = np.asarray(data["ligand_bond_type"]) - 1
+        data["ligand_bond_feature"] = np.eye(NUM_BOND_TYPES, dtype=np.float32)[bt]
+        return data
+
+
+class RandomRotation:
+    """Random QR-orthogonal rotation of the whole complex
+    (reference: utils/transforms.py:172-183)."""
+
+    def __init__(self, rng: Optional[np.random.Generator] = None):
+        self.rng = rng or np.random.default_rng()
+
+    def __call__(self, data: Dict) -> Dict:
+        Q, _ = np.linalg.qr(self.rng.normal(size=(3, 3)))
+        Q = Q.astype(np.float32)
+        data["ligand_pos"] = np.asarray(data["ligand_pos"]) @ Q
+        data["protein_pos"] = np.asarray(data["protein_pos"]) @ Q
+        return data
+
+
+class Compose:
+    def __init__(self, transforms):
+        self.transforms = list(transforms)
+
+    def __call__(self, data):
+        for t in self.transforms:
+            data = t(data)
         return data

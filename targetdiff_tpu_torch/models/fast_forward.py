@@ -1,10 +1,11 @@
-"""Kernel-backed forward pass, counterpart of targetdiff_tpu/models/fast_forward.py.
+"""Kernel-backed forward passes, counterpart of targetdiff_tpu/models/fast_forward.py.
 
-`fast_forward` computes what `ScorePosNet.forward` computes, with the kNN
-graph and the whole UniTransformerO2 block running on the hand-written CUDA
-kernels for CUDA tensors (ops/kernels/) and on their plain PyTorch versions
-for CPU tensors. Unlike the JAX fast path it neither sorts protein rows nor
-skips tiles: every row of every layer is computed.
+`fast_forward` (inference) and `fast_train_forward` (differentiable) compute
+what `ScorePosNet.forward` computes, with the kNN graph and the whole
+UniTransformerO2 block running on the hand-written CUDA kernels for CUDA
+tensors (ops/kernels/) and on their plain PyTorch versions for CPU tensors.
+Unlike the JAX fast paths they neither sort protein rows nor skip tiles:
+every row of every layer is computed.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from ..config import Config
 from ..ops.kernels.block_denoiser import PackedBlock, block_denoiser
+from ..ops.kernels.block_vjp import block_layers_trainable
 from ..ops.kernels.knn import knn_graph
 from ..ops.rbf import FIXED_OFFSETS
 
@@ -56,4 +58,23 @@ def fast_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos, ligan
         nbh = knn_graph(x, node_mask, rn.k)
         h, x = block_denoiser(rn, h, x, nbh, mask_ligand, n_ligand=ligand_pos.shape[1],
                               packed=packed)
+    return net.head(h, x, ligand_mask, protein_pos.shape[1])
+
+
+def fast_train_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v,
+                       ligand_mask) -> Dict[str, torch.Tensor]:
+    """Differentiable kernel-backed forward (training). The embeddings, the
+    kNN kernel (integer indices, no gradient), the edge types, the eager
+    global edge-weight MLP and the v_inference head surround
+    `block_layers_trainable`, whose backward is the block-VJP kernel.
+    Returns pred_ligand_pos, pred_ligand_v, final_ligand_h (padded ligand
+    rows zero) and final_h."""
+    h, x, node_mask, mask_ligand = net.embed(
+        protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v, ligand_mask)
+    rn = net.refine_net
+    for _ in range(rn.num_blocks):
+        nbh = knn_graph(x.detach(), node_mask, rn.k)
+        e_w = rn.edge_weights(x, nbh)[..., 0]
+        h, x = block_layers_trainable(rn, h, x, nbh, mask_ligand, e_w,
+                                      n_ligand=ligand_pos.shape[1])
     return net.head(h, x, ligand_mask, protein_pos.shape[1])

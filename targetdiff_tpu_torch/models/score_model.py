@@ -4,9 +4,10 @@ models/molopt_score_model.py:198-703).
 
 `ScorePosNet` is the network (atom embeddings, node indicator, refine net,
 v_inference head) with the reference's parameter names. `DiffusionModel`
-owns it and the schedules; `sample_step` is one pure reverse step that takes
-its noise as arguments, and `sample_diffusion` loops over the time sequence
-drawing that noise from a `torch.Generator`.
+owns it and the schedules; `get_diffusion_loss` is the training loss (its
+draws injectable as tensors), `sample_step` is one pure reverse step that
+takes its noise as arguments, and `sample_diffusion` loops over the time
+sequence drawing that noise from a `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from ..ops import graph as G
 from ..ops.kernels.block_denoiser import PackedBlock, pack_block_params
 from ..ops.schedules import make_categorical_schedule, make_gaussian_schedule
 from .common import ShiftedSoftplus
-from .fast_forward import fast_forward, fast_forward_supported
+from .fast_forward import fast_forward, fast_forward_supported, fast_train_forward
 from .uni_transformer import UniTransformerO2TwoUpdateGeneral
 
 
@@ -97,6 +98,7 @@ class DiffusionModel:
         self.config = config
         self.device = torch.device(device)
         self.model_mean_type = config.model_mean_type
+        self.loss_v_weight = config.get("loss_v_weight", 100.0)
         self.center_pos_mode = config.get("center_pos_mode", "protein")
         self.num_classes = ligand_atom_feature_dim
         self.max_protein, self.max_ligand = max_protein, max_ligand
@@ -115,6 +117,16 @@ class DiffusionModel:
         self.net = ScorePosNet(config, protein_atom_feature_dim, ligand_atom_feature_dim)
         self.net.to(self.device).eval()
 
+    def parameters(self):
+        return self.net.parameters()
+
+    def train(self, mode: bool = True) -> "DiffusionModel":
+        self.net.train(mode)
+        return self
+
+    def eval(self) -> "DiffusionModel":
+        return self.train(False)
+
     def apply(self, batch: ComplexBatch, ligand_pos, ligand_v):
         """Eager forward (the reference-semantics path)."""
         return self.net(batch.protein_pos, batch.protein_feat, batch.protein_mask,
@@ -126,6 +138,71 @@ class DiffusionModel:
         return fast_forward(self.net, batch.protein_pos, batch.protein_feat,
                             batch.protein_mask, ligand_pos, ligand_v, batch.ligand_mask,
                             packed=packed)
+
+    def get_diffusion_loss(self, batch: ComplexBatch, time_step=None, pos_noise=None,
+                           v_uniform=None, generator: Optional[torch.Generator] = None,
+                           impl: str = "fast") -> Dict[str, torch.Tensor]:
+        """Training loss (reference: molopt_score_model.py:485-563).
+        time_step [B] int, pos_noise [B,NL,3] standard normal and v_uniform
+        [B,NL,C] U[0,1) may be given; each one that is not is drawn from
+        `generator`. impl='fast' runs the denoiser through the
+        differentiable kernels (fast_train_forward), impl='eager' through
+        ScorePosNet.forward."""
+        B, dev = batch.num_graphs, batch.device
+        lmask = batch.ligand_mask
+        protein_pos, ligand_pos, _ = D.center_pos_protein(
+            batch.protein_pos, batch.ligand_pos, batch.protein_mask, self.center_pos_mode)
+        cbatch = batch._replace(protein_pos=protein_pos)
+        if time_step is None:
+            time_step, _ = D.sample_time_symmetric(B, self.num_timesteps, generator, dev)
+        if pos_noise is None:
+            pos_noise = torch.randn(ligand_pos.shape, generator=generator, device=dev)
+        if v_uniform is None:
+            v_uniform = torch.rand(batch.ligand_v.shape + (self.num_classes,),
+                                   generator=generator, device=dev)
+
+        ligand_pos_perturbed = D.perturb_pos(self.pos_sched, ligand_pos, time_step, pos_noise)
+        log_ligand_v0 = D.index_to_log_onehot(batch.ligand_v, self.num_classes)
+        ligand_v_perturbed, log_ligand_vt = D.q_v_sample(
+            self.v_sched, log_ligand_v0, time_step, self.num_classes, v_uniform)
+        if impl == "fast":
+            preds = fast_train_forward(self.net, cbatch.protein_pos, cbatch.protein_feat,
+                                       cbatch.protein_mask, ligand_pos_perturbed,
+                                       ligand_v_perturbed, lmask)
+        elif impl == "eager":
+            preds = self.net(cbatch.protein_pos, cbatch.protein_feat, cbatch.protein_mask,
+                             ligand_pos_perturbed, ligand_v_perturbed, lmask)
+        else:
+            raise ValueError(f"impl must be 'fast' or 'eager', got {impl!r}")
+        pred_ligand_pos, pred_ligand_v = preds["pred_ligand_pos"], preds["pred_ligand_v"]
+        pred_pos_noise = pred_ligand_pos - ligand_pos_perturbed
+
+        if self.model_mean_type == "C0":
+            target, pred = ligand_pos, pred_ligand_pos
+        elif self.model_mean_type == "noise":
+            target, pred = pos_noise, pred_pos_noise
+        else:
+            raise ValueError(self.model_mean_type)
+        loss_pos_graph = D.masked_mean(((pred - target) ** 2).sum(-1), lmask)
+        loss_pos = loss_pos_graph.mean()
+
+        log_ligand_v_recon = F.log_softmax(pred_ligand_v, dim=-1)
+        log_v_model_prob = D.q_v_posterior(self.v_sched, log_ligand_v_recon, log_ligand_vt,
+                                           time_step, self.num_classes)
+        log_v_true_prob = D.q_v_posterior(self.v_sched, log_ligand_v0, log_ligand_vt, time_step,
+                                          self.num_classes)
+        kl_v = D.compute_v_Lt(log_v_model_prob, log_ligand_v0, log_v_true_prob, time_step, lmask)
+        loss_v = kl_v.mean()
+        return {
+            "loss_pos": loss_pos,
+            "loss_v": loss_v,
+            "loss": loss_pos + loss_v * self.loss_v_weight,
+            "loss_pos_graph": loss_pos_graph,
+            "loss_v_graph": kl_v,
+            "pred_ligand_pos": pred_ligand_pos,
+            "pred_ligand_v": pred_ligand_v,
+            "time_step": time_step,
+        }
 
     @torch.no_grad()
     def sample_step(self, cbatch: ComplexBatch, ligand_pos, ligand_v, t: int,

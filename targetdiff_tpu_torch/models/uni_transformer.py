@@ -130,11 +130,16 @@ class UniTransformerO2TwoUpdateGeneral(nn.Module):
         _, dist = G.rel_geometry(x, nbh)
         return torch.sigmoid(self.edge_pred_layer(gaussian_smearing(dist, offsets, coeff)))
 
-    def block_forward(self, h, x, nbh: G.Neighborhood, mask_ligand):
+    def block_forward(self, h, x, nbh: G.Neighborhood, mask_ligand, e_w=None):
         """All layers of one block on a given neighborhood; the plain version
-        of the block-denoiser kernel. Returns (h, x)."""
+        of the block-denoiser kernel. With e_w [B,N,K] given (train mode,
+        computed outside by `edge_weights`), the block uses it as it is.
+        Returns (h, x)."""
         edge_attr = G.edge_types(nbh, mask_ligand)
-        e_w = self.edge_weights(x, nbh)
+        if e_w is None:
+            e_w = self.edge_weights(x, nbh)
+        else:
+            e_w = e_w[..., None]
         for layer in self.base_block:
             h, x = layer(h, x, edge_attr, nbh, mask_ligand, e_w)
         return h, x

@@ -1,9 +1,11 @@
-"""DDPM math on dense padded tensors, counterpart of the sampling subset of
-targetdiff_tpu/ops/diffusion.py (reference: models/molopt_score_model.py).
+"""DDPM math on dense padded tensors, counterpart of the sampling and
+training subsets of targetdiff_tpu/ops/diffusion.py (reference:
+models/molopt_score_model.py).
 
 `t` is an int tensor of shape [B]; coordinates are [B, N, 3]; atom-type
 log-probabilities are [B, N, C]. Functions that need randomness take it as an
-argument so that the caller owns the generator.
+argument (noise tensors, or a torch.Generator) so that the caller owns the
+generator.
 """
 
 from __future__ import annotations
@@ -87,3 +89,69 @@ def center_pos_protein(protein_pos, ligand_pos, protein_mask, mode: str = "prote
     m = protein_mask.to(protein_pos.dtype)[..., None]
     offset = (protein_pos * m).sum(1, keepdim=True) / m.sum(1, keepdim=True).clamp(min=1.0)
     return protein_pos - offset, ligand_pos - offset, offset
+
+
+# ---- training: perturbation, KL terms, time sampling (reference: :440-563) ----
+
+
+def perturb_pos(sched: GaussianSchedule, pos0, t, eps):
+    """x_t = sqrt(a_bar) x_0 + sqrt(1 - a_bar) eps, with eps [B,N,3]
+    standard normal given (reference: :497-504)."""
+    a = extract(sched.alphas_cumprod, t, pos0.ndim)
+    return torch.sqrt(a) * pos0 + torch.sqrt(1.0 - a) * eps
+
+
+def q_v_sample(sched: CategoricalSchedule, log_v0, t, num_classes: int, uniform):
+    """v_t ~ q(v_t | v_0) by Gumbel-max on the uniforms [B,N,C]; returns
+    (indices, log one-hot) (reference: :394-398)."""
+    idx = log_sample_categorical(q_v_pred(sched, log_v0, t, num_classes), uniform)
+    return idx, index_to_log_onehot(idx, num_classes)
+
+
+def categorical_kl(log_prob1, log_prob2):
+    """KL(p1 || p2) per atom over the class axis (reference: :137-139)."""
+    return (torch.exp(log_prob1) * (log_prob1 - log_prob2)).sum(-1)
+
+
+def log_categorical(log_x_start, log_prob):
+    """E_{x0}[log p(x0)] per atom (reference: :142-143)."""
+    return (torch.exp(log_x_start) * log_prob).sum(-1)
+
+
+def masked_mean(x, mask, dim: int = -1):
+    """Mean of x over `dim` counting only mask == True entries."""
+    m = mask.to(x.dtype)
+    return (x * m).sum(dim) / m.sum(dim).clamp(min=1.0)
+
+
+def compute_v_Lt(log_v_model_prob, log_v0, log_v_true_prob, t, mask):
+    """Per-graph atom-type KL (t > 0) or decoder NLL (t = 0), [B]
+    (reference: :477-483)."""
+    kl_v = categorical_kl(log_v_true_prob, log_v_model_prob)
+    decoder_nll_v = -log_categorical(log_v0, log_v_model_prob)
+    t_is_0 = (t == 0).to(kl_v.dtype)[:, None]
+    return masked_mean(t_is_0 * decoder_nll_v + (1.0 - t_is_0) * kl_v, mask)
+
+
+def sample_time_symmetric(num_graphs: int, num_timesteps: int, generator, device):
+    """Antithetic timesteps t and T-1-t (reference: :453-459). Returns
+    (t [B] int64, pt [B])."""
+    half = num_graphs // 2 + 1
+    t_half = torch.randint(0, num_timesteps, (half,), generator=generator, device=device)
+    t = torch.cat([t_half, num_timesteps - t_half - 1])[:num_graphs]
+    return t, torch.full((num_graphs,), 1.0 / num_timesteps, device=device)
+
+
+def sample_time_importance(num_graphs: int, Lt_history, Lt_count, generator):
+    """Timesteps weighted by sqrt(E[L_t^2]) once every bucket has more than
+    10 samples, symmetric before that (reference: :440-451). Both draws are
+    made either way, so the generator advances alike, and the choice is made
+    on the device, so the host does not wait for it. Returns (t, pt)."""
+    T = Lt_history.shape[0]
+    ready = (Lt_count > 10).all()
+    Lt_sqrt = torch.sqrt(Lt_history + 1e-10) + 0.0001
+    Lt_sqrt[0] = Lt_sqrt[1]
+    pt_all = Lt_sqrt / Lt_sqrt.sum()
+    t_imp = torch.multinomial(pt_all, num_graphs, replacement=True, generator=generator)
+    t_sym, pt_sym = sample_time_symmetric(num_graphs, T, generator, Lt_history.device)
+    return torch.where(ready, t_imp, t_sym), torch.where(ready, pt_all[t_imp], pt_sym)

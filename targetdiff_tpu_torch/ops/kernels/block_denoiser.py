@@ -1,7 +1,10 @@
 """Whole-block denoiser: the CUDA kernels of csrc/block_denoiser.cu for CUDA
 tensors, the eager `UniTransformerO2TwoUpdateGeneral.block_forward` for CPU
 tensors. Replaces targetdiff_tpu/ops/pallas/block_denoiser.py
-(`block_denoiser`, inference mode, every tile live).
+(`block_denoiser`, every tile live) in inference mode (`block_denoiser`) and
+in train mode (`block_denoiser_train_cuda`: edge weights given, per-layer
+checkpoints of h and x returned for the backward of ops/kernels/block_vjp.py;
+its plain version is `block_denoiser_train_plain`).
 
 The CUDA path runs one edge-weight kernel per block and, per layer, a node
 kernel + x2h edge kernel, then a node kernel + h2x edge kernel on the ligand
@@ -9,7 +12,9 @@ rows. Its weights come from `pack_block_params`, which regroups the module's
 Linear weights as [in, out] blocks: the destination (h_i) and source (h_j)
 parts of each edge MLP's first layer become per-node projections, and its
 edge-feature part becomes one [4, R, 2H] table indexed by edge type (the
-outer product rbf x onehot(type) picks one R-row block).
+outer product rbf x onehot(type) picks one R-row block). The packing is
+differentiable: gradients of the packed stacks reach the module's
+parameters through autograd's cat/transpose/stack backward.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from ..rbf import gaussian_smearing_offsets
 from . import build
 
 LAUNCHES = 0  # block_denoiser calls that launched the kernels since the last reset
+TRAIN_LAUNCHES = 0  # block_denoiser_train_cuda launches since the last reset
 
 # the kernels are specialised to the released architecture's widths
 HIDDEN, HEADS, MAX_K = 128, 16, 32
@@ -93,16 +99,22 @@ def _pack_pass(layers, prefix: str) -> dict:
     return {k: torch.stack(v).float().contiguous() for k, v in out.items()}
 
 
-@torch.no_grad()
+def pack_pass_params(refine_net):
+    """(x2h, h2x) stacks of a UniTransformerO2TwoUpdateGeneral's layers, as
+    `_pack_pass` lays them out; differentiable."""
+    return _pack_pass(refine_net.base_block, "h"), _pack_pass(refine_net.base_block, "x")
+
+
 def pack_block_params(refine_net) -> PackedBlock:
     """Regroup a UniTransformerO2TwoUpdateGeneral's weights for the kernels
-    (counterpart of targetdiff_tpu/models/fast_forward.py:extract_block_params)."""
+    (counterpart of targetdiff_tpu/models/fast_forward.py:extract_block_params);
+    differentiable, so callers that only infer run it under no_grad."""
     ep = refine_net.edge_pred_layer.net
     ew = (ep[0].weight.t().float().contiguous(), ep[0].bias.float().contiguous(),
           torch.stack([ep[1].weight, ep[1].bias]).float().contiguous(),
           ep[3].weight.reshape(-1).float().contiguous(), ep[3].bias.float().contiguous())
-    return PackedBlock(ew=ew, x2h=_pack_pass(refine_net.base_block, "h"),
-                       h2x=_pack_pass(refine_net.base_block, "x"))
+    x2h, h2x = pack_pass_params(refine_net)
+    return PackedBlock(ew=ew, x2h=x2h, h2x=h2x)
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,6 +132,11 @@ def _entries():
                          i32, i32, i32, i32, vp, vp],
         "td_block_h2x": [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, f32, _PassParams,
                          i32, i32, i32, i32, vp, vp],
+        # h0, x0, idx, nmask, mlig, ew, offsets, coeff, x2h[L], h2x[L], L, B, N, K,
+        # n_ligand, ni, nj, q, hck, xck, stream
+        "td_block_train_fwd": [vp, vp, vp, vp, vp, vp, vp, f32, ctypes.POINTER(_PassParams),
+                               ctypes.POINTER(_PassParams), i32, i32, i32, i32, i32, vp, vp,
+                               vp, vp, vp, vp],
     }
     fns = {}
     for name, argtypes in sigs.items():
@@ -145,8 +162,8 @@ def block_denoiser(refine_net, h, x, nbh: G.Neighborhood, mask_ligand, n_ligand:
     return block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed)
 
 
-def block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed=None):
-    global LAUNCHES
+def check_block_inputs(refine_net, h, x, nbh, mask_ligand, n_ligand):
+    """Raise unless the inputs are what the block kernels take."""
     for name, t in (("h", h), ("x", x), ("idx", nbh.idx), ("nbr_mask", nbh.mask),
                     ("mask_ligand", mask_ligand)):
         build.require_cuda(t, name)
@@ -165,9 +182,19 @@ def block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed=Non
         raise ValueError("h [B,N,H] and x [B,N,3] must be float32")
     if nbh.idx.dtype != torch.int64 or nbh.idx.shape != (B, N, K) or nbh.mask.shape != (B, N, K):
         raise ValueError("idx must be int64 [B,N,K] with a bool mask of the same shape")
-    if nbh.mask.dtype != torch.bool or mask_ligand.dtype != torch.bool or mask_ligand.shape != (B, N):
+    if (nbh.mask.dtype != torch.bool or mask_ligand.dtype != torch.bool
+            or mask_ligand.shape != (B, N)):
         raise ValueError("nbr_mask and mask_ligand must be bool")
-    packed = pack_block_params(refine_net) if packed is None else packed
+
+
+def block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed=None):
+    global LAUNCHES
+    check_block_inputs(refine_net, h, x, nbh, mask_ligand, n_ligand)
+    B, N, H = h.shape
+    K = nbh.idx.shape[-1]
+    if packed is None:
+        with torch.no_grad():
+            packed = pack_block_params(refine_net)
     if packed.ew[0].device != h.device:
         raise ValueError(f"packed weights are on {packed.ew[0].device}, h on {h.device}")
 
@@ -204,3 +231,52 @@ def block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed=Non
         x_a, x_b = x_b, x_a
     LAUNCHES += 1
     return h_a, x_a
+
+
+@torch.no_grad()
+def block_denoiser_train_plain(refine_net, h, x, nbh, mask_ligand, e_w):
+    """The plain version of the train-mode kernels (eager layers, any
+    device), with their outputs: the checkpoints hck [L+1,B,N,H] and xck
+    [L+1,B,N,3], slot 0 the input and slot l + 1 the output of layer l."""
+    edge_attr = G.edge_types(nbh, mask_ligand)
+    hs, xs = [h], [x]
+    for layer in refine_net.base_block:
+        h, x = layer(h, x, edge_attr, nbh, mask_ligand, e_w[..., None])
+        hs.append(h)
+        xs.append(x)
+    return torch.stack(hs), torch.stack(xs)
+
+
+def block_denoiser_train_cuda(refine_net, h, x, nbh, mask_ligand, e_w, n_ligand, x2h, h2x):
+    """Train-mode forward of all layers of one block with the edge weights
+    e_w [B,N,K] given; x2h / h2x are `pack_pass_params` stacks. Returns the
+    checkpoints hck [L+1,B,N,H] and xck [L+1,B,N,3] (the block's output is
+    slot L). No autograd graph: ops/kernels/block_vjp.py differentiates it."""
+    global TRAIN_LAUNCHES
+    check_block_inputs(refine_net, h, x, nbh, mask_ligand, n_ligand)
+    B, N, H = h.shape
+    K = nbh.idx.shape[-1]
+    if e_w.shape != (B, N, K) or e_w.dtype != torch.float32 or e_w.device != h.device:
+        raise ValueError(f"e_w must be float32 [B,N,K] on {h.device}")
+    L = x2h["w_node"].shape[0]
+    if x2h["w_node"].device != h.device:
+        raise ValueError(f"packed weights are on {x2h['w_node'].device}, h on {h.device}")
+    dev = h.device
+    offsets, coeff = gaussian_smearing_offsets(device=dev)
+    h0, x0 = h.detach().contiguous(), x.detach().contiguous()
+    idx, nmask, mlig = nbh.idx.contiguous(), nbh.mask.contiguous(), mask_ligand.contiguous()
+    ew = e_w.detach().contiguous()
+    hck = torch.empty((L + 1, B, N, H), dtype=torch.float32, device=dev)
+    xck = torch.empty((L + 1, B, N, 3), dtype=torch.float32, device=dev)
+    ni = torch.empty((B * N, 2 * H), dtype=torch.float32, device=dev)
+    nj = torch.empty_like(ni)
+    q = torch.empty((B * N, H), dtype=torch.float32, device=dev)
+    x2h_p = (_PassParams * L)(*_pass_structs(x2h, L))
+    h2x_p = (_PassParams * L)(*_pass_structs(h2x, L))
+    build.check(_entries()["td_block_train_fwd"](
+        h0.data_ptr(), x0.data_ptr(), idx.data_ptr(), nmask.data_ptr(), mlig.data_ptr(),
+        ew.data_ptr(), offsets.data_ptr(), coeff, x2h_p, h2x_p, L, B, N, K, n_ligand,
+        ni.data_ptr(), nj.data_ptr(), q.data_ptr(), hck.data_ptr(), xck.data_ptr(),
+        build.stream_ptr(dev)), "td_block_train_fwd")
+    TRAIN_LAUNCHES += 1
+    return hck, xck

@@ -1,0 +1,164 @@
+"""Differentiable whole block: `block_layers_trainable` runs all L layers of
+one UniTransformerO2 block with gradients to h, x, the edge weights and the
+module's parameters. Replaces targetdiff_tpu/ops/pallas/block_vjp.py
+(`block_layers_trainable`, its forward rule and the fused backward
+`_block_bwd_kernel`).
+
+For CUDA tensors, `_BlockLayers` (a torch.autograd.Function) runs the
+train-mode forward of csrc/block_denoiser.cu, which writes per-layer
+checkpoints, and its backward runs csrc/block_vjp.cu once over all layers. It
+returns the gradients of h, x, e_w and of the packed weight stacks
+(`pack_pass_params`); autograd carries those back through the packing into
+the nn.Parameters. For CPU tensors the plain version runs: the eager
+`block_forward` with the given e_w under ordinary autograd.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from .. import graph as G
+from ..rbf import FIXED_OFFSETS, gaussian_smearing_offsets
+from . import build
+from .block_denoiser import _PassParams, _pass_structs, block_denoiser_train_cuda, pack_pass_params
+
+LAUNCHES = 0  # backward kernel runs since the last reset
+
+FIELDS = [name for name, _ in _PassParams._fields_]
+R = len(FIXED_OFFSETS)
+
+
+class _PassGrads(ctypes.Structure):
+    """Mirror of `PassGrads` in csrc/block_vjp.cu."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "w_node", "b_node", "q_ln", "w_q2", "b_q2", "tab", "kv_ln", "w2k", "b2k", "w2v", "b2v")]
+
+
+class _PassT(ctypes.Structure):
+    """Mirror of `PassT` in csrc/block_vjp.cu (transposed weights)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in ("w_nodeT", "w_q2T", "w2kT", "w2vT")]
+
+
+@functools.lru_cache(maxsize=None)
+def _entries():
+    lib = build.load_library()
+    vp, i32, f32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    ws = lib.td_block_bwd_workspace
+    ws.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i64), ctypes.POINTER(i64)]
+    ws.restype = None
+    bwd = lib.td_block_bwd
+    bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, f32,
+                    ctypes.POINTER(_PassParams), ctypes.POINTER(_PassParams),
+                    ctypes.POINTER(_PassT), ctypes.POINTER(_PassT),
+                    ctypes.POINTER(_PassGrads), ctypes.POINTER(_PassGrads),
+                    i32, i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, i64, vp, i64, vp]
+    bwd.restype = ctypes.c_int
+    return ws, bwd
+
+
+def block_layers_trainable(refine_net, h, x, nbh: G.Neighborhood, mask_ligand, e_w,
+                           n_ligand: int):
+    """All layers of one block, differentiable. h [B,N,H], x [B,N,3], e_w
+    [B,N,K] (the global edge weights, computed by the caller), ligand rows
+    the last `n_ligand` of N. Returns (h, x) after the block."""
+    if h.device.type == "cpu":
+        return refine_net.block_forward(h, x, nbh, mask_ligand, e_w=e_w)
+    x2h, h2x = pack_pass_params(refine_net)
+    return _BlockLayers.apply(h, x, e_w, nbh.idx, nbh.mask, mask_ligand, refine_net, n_ligand,
+                              *[x2h[f] for f in FIELDS], *[h2x[f] for f in FIELDS])
+
+
+class _BlockLayers(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, x, e_w, idx, nmask, mlig, refine_net, n_ligand, *flat):
+        n = len(FIELDS)
+        x2h, h2x = dict(zip(FIELDS, flat[:n])), dict(zip(FIELDS, flat[n:]))
+        hck, xck = block_denoiser_train_cuda(refine_net, h, x, G.Neighborhood(idx, nmask), mlig,
+                                             e_w, n_ligand, x2h, h2x)
+        ctx.save_for_backward(hck, xck, e_w, idx, nmask, mlig, *flat)
+        ctx.n_ligand = n_ligand
+        return hck[-1].clone(), xck[-1].clone()
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gh, gx):
+        hck, xck, e_w, idx, nmask, mlig, *flat = ctx.saved_tensors
+        n = len(FIELDS)
+        x2h, h2x = dict(zip(FIELDS, flat[:n])), dict(zip(FIELDS, flat[n:]))
+        dh0, dx0, dew, gx2h, gh2x = block_bwd_cuda(hck, xck, idx, nmask, mlig, e_w, ctx.n_ligand,
+                                                   x2h, h2x, gh, gx)
+        return (dh0, dx0, dew, None, None, None, None, None,
+                *[gx2h[f] for f in FIELDS], *[gh2x[f] for f in FIELDS])
+
+
+def _grad_stacks(stacks: dict):
+    """Gradient tensors shaped like one pass's stacks; w_rbf and w_et are
+    views of one [L, 4R+4, 2H] table, as the kernel writes them."""
+    L, H2 = stacks["w_et"].shape[0], stacks["w_et"].shape[-1]
+    g = {f: torch.empty_like(stacks[f], memory_format=torch.contiguous_format) for f in FIELDS}
+    tab = torch.empty((L, 4 * R + 4, H2), dtype=torch.float32, device=stacks["w_et"].device)
+    g["w_rbf"] = tab[:, :4 * R].reshape(stacks["w_rbf"].shape)
+    g["w_et"] = tab[:, 4 * R:]
+    g["tab"] = tab
+    return g
+
+
+def _grad_structs(g: dict, L: int):
+    return [_PassGrads(*[g[name][l].data_ptr() for name, _ in _PassGrads._fields_])
+            for l in range(L)]
+
+
+def _transposed(stacks: dict):
+    return {name: stacks[src].detach().transpose(1, 2).contiguous()
+            for name, src in (("w_nodeT", "w_node"), ("w_q2T", "w_q2"), ("w2kT", "w2k"),
+                              ("w2vT", "w2v"))}
+
+
+def block_bwd_cuda(hck, xck, idx, nmask, mlig, e_w, n_ligand, x2h, h2x, gh, gx):
+    """The backward kernel. hck [L+1,B,N,H] and xck [L+1,B,N,3] are the
+    train-mode checkpoints, gh [B,N,H] / gx [B,N,3] the output cotangents.
+    Returns (dh0, dx0, de_w, x2h grads, h2x grads)."""
+    global LAUNCHES
+    L1, B, N, H = hck.shape
+    L, K = L1 - 1, idx.shape[-1]
+    dev = hck.device
+    for name, t in (("hck", hck), ("xck", xck), ("idx", idx), ("nbr_mask", nmask),
+                    ("mask_ligand", mlig), ("e_w", e_w)):
+        build.require_cuda(t, name)
+    hck, xck = hck.contiguous(), xck.contiguous()
+    if xck.shape != (L1, B, N, 3) or e_w.shape != (B, N, K) or idx.shape != (B, N, K):
+        raise ValueError("checkpoints, e_w and idx disagree on their shapes")
+    gh, gx = gh.float().contiguous(), gx.float().contiguous()
+    ws_size, bwd = _entries()
+    nf, ni = ctypes.c_longlong(), ctypes.c_longlong()
+    ws_size(B, N, K, n_ligand, ctypes.byref(nf), ctypes.byref(ni))
+    work = torch.empty(nf.value, dtype=torch.float32, device=dev)
+    iwork = torch.empty(ni.value, dtype=torch.int32, device=dev)
+    offsets, coeff = gaussian_smearing_offsets(device=dev)
+    gx2h, gh2x = _grad_stacks(x2h), _grad_stacks(h2x)
+    tx2h, th2x = _transposed(x2h), _transposed(h2x)
+    arr = lambda cls, items: (cls * L)(*items)  # noqa: E731
+    dh0 = torch.empty((B, N, H), dtype=torch.float32, device=dev)
+    dx0 = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
+    dew = torch.empty((B, N, K), dtype=torch.float32, device=dev)
+    ewc, idxc, nmc, mlc = e_w.contiguous(), idx.contiguous(), nmask.contiguous(), mlig.contiguous()
+    build.check(bwd(
+        hck.data_ptr(), xck.data_ptr(), idxc.data_ptr(), nmc.data_ptr(), mlc.data_ptr(),
+        ewc.data_ptr(), offsets.data_ptr(), coeff,
+        arr(_PassParams, _pass_structs(x2h, L)), arr(_PassParams, _pass_structs(h2x, L)),
+        arr(_PassT, [_PassT(*[tx2h[f][l].data_ptr() for f, _ in _PassT._fields_])
+                     for l in range(L)]),
+        arr(_PassT, [_PassT(*[th2x[f][l].data_ptr() for f, _ in _PassT._fields_])
+                     for l in range(L)]),
+        arr(_PassGrads, _grad_structs(gx2h, L)), arr(_PassGrads, _grad_structs(gh2x, L)),
+        L, B, N, K, n_ligand, gh.data_ptr(), gx.data_ptr(), dh0.data_ptr(), dx0.data_ptr(),
+        dew.data_ptr(), work.data_ptr(), nf.value, iwork.data_ptr(), ni.value,
+        build.stream_ptr(dev)), "td_block_bwd")
+    LAUNCHES += 1
+    return dh0, dx0, dew, gx2h, gh2x

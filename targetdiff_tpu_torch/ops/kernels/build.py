@@ -3,6 +3,7 @@
 At first CUDA use, `load_library` compiles every `csrc/*.cu` with nvcc for
 sm_90a into `targetdiff_tpu_torch/_build/<hash of sources and flags>/`, so a
 checkout builds its own kernels and a changed source gets a fresh directory.
+The sources compile in parallel, one nvcc each, and link into one library.
 A missing nvcc or a failed compile raises with the compiler's output.
 """
 
@@ -22,7 +23,7 @@ CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 NVCC_CANDIDATES = ["/usr/local/cuda/bin/nvcc"]  # tried when nvcc is not on PATH
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 class KernelBuildError(RuntimeError):
@@ -61,18 +62,28 @@ def load_library() -> ctypes.CDLL:
     if not lib_path.exists():
         nvcc = find_nvcc()
         out.mkdir(parents=True, exist_ok=True)
-        tmp = out / f"libtdkernels.{os.getpid()}.tmp.so"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in _sources() if s.suffix == ".cu"]]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
+        srcs = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [out / f"{s.stem}.{os.getpid()}.o" for s in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(srcs, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        outputs = [proc.communicate() for proc in procs]  # waits for every compile
+        logs = [f"{' '.join(c)}\n{o}\n{e}" for c, (o, e) in zip(cmds, outputs)]
+        for proc, log in zip(procs, logs):
+            if proc.returncode != 0:
+                raise KernelBuildError(f"nvcc failed with exit code {proc.returncode}:\n{log}")
+        tmp = out / f"libtdkernels.{os.getpid()}.tmp.so"
+        link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp), *[str(o) for o in objs]]
+        proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise KernelBuildError(
-                f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        (out / "build.log").write_text(
-            f"build_seconds {seconds:.3f}\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+            raise KernelBuildError(f"nvcc link failed with exit code {proc.returncode}:\n"
+                                   f"{' '.join(link)}\n{proc.stdout}\n{proc.stderr}")
+        seconds = time.perf_counter() - t0
+        (out / "build.log").write_text(f"build_seconds {seconds:.3f}\n" + "\n".join(logs))
         os.replace(tmp, lib_path)
+        for o in objs:
+            o.unlink()
     return ctypes.CDLL(str(lib_path))
 
 

@@ -7,8 +7,9 @@ backwards turns a flax parameter tree into the port's state_dict:
   refine_net.edge_pred_layer.{lin_0,norm_0,lin_1} -> .net.{0,1,3}
   refine_net.block_{l}.{x2h_0,h2x_0}.* -> refine_net.base_block.{l}.{x2h,h2x}_layers.0.*
   ew_net -> ew_net.0, LayerNorm scale -> weight.
-`load_npz_params` reads a targetdiff_tpu checkpoint (utils/checkpoint.py)
-with numpy alone.
+`state_dict_to_flax_params` is the inverse, for writing checkpoints the JAX
+package reads. `load_npz_params` reads a targetdiff_tpu checkpoint
+(utils/checkpoint.py) with numpy alone.
 """
 
 from __future__ import annotations
@@ -65,6 +66,44 @@ def flax_params_to_state_dict(params) -> Dict[str, torch.Tensor]:
     return out
 
 
+_PAIR = {"base_block": "block_{}", "x2h_layers": "x2h_{}", "h2x_layers": "h2x_{}",
+         "v_inference": "v_inference_{}"}
+_MLP = {"0": "lin_0", "1": "norm_0", "3": "lin_1"}
+
+
+def state_dict_to_flax_params(state_dict) -> Dict:
+    """The port's state_dict -> {'params': nested flax tree of numpy arrays};
+    the inverse of `flax_params_to_state_dict`."""
+    tree: Dict = {}
+    for name, tensor in state_dict.items():
+        toks = name.split(".")
+        segs, i = [], 0
+        while i < len(toks) - 1:
+            tok = toks[i]
+            if tok in _PAIR:
+                segs.append(_PAIR[tok].format(toks[i + 1]))
+                i += 2
+            elif tok == "net":
+                segs.append(_MLP[toks[i + 1]])
+                i += 2
+            elif tok == "ew_net":
+                segs.append("ew_net")
+                i += 2
+            else:
+                segs.append(tok)
+                i += 1
+        arr = tensor.detach().cpu().numpy()
+        leaf = toks[-1]
+        if leaf == "weight":
+            leaf = "kernel" if arr.ndim == 2 else "scale"
+            arr = arr.T if arr.ndim == 2 else arr
+        node = tree
+        for seg in segs:
+            node = node.setdefault(seg, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return {"params": tree}
+
+
 def load_npz_params(path: str):
     """The `params/...` arrays of a targetdiff_tpu .npz checkpoint as the
     nested tree `flax_params_to_state_dict` takes."""
@@ -82,10 +121,18 @@ def load_npz_params(path: str):
 
 
 def load_npz_config(path: str) -> Config:
-    """The training config embedded in a targetdiff_tpu checkpoint (YAML
-    text in its `__meta__`; PyYAML is imported here only)."""
-    import yaml
-
+    """The training config embedded in a checkpoint's `__meta__`: JSON text
+    in the port's checkpoints, YAML text in the JAX package's (PyYAML is
+    imported for those only)."""
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["__meta__"]))
-    return Config(yaml.safe_load(meta["config"]))
+    return parse_config_text(meta["config"])
+
+
+def parse_config_text(text: str) -> Config:
+    try:
+        return Config(json.loads(text))
+    except json.JSONDecodeError:
+        import yaml
+
+        return Config(yaml.safe_load(text))

@@ -1,0 +1,291 @@
+"""The training slice's block, on the CPU: the block-VJP kernel's algorithm
+(csrc/block_vjp.cu), replayed by hand in PyTorch on the packed weights and
+held against autograd of the plain block; the train-mode forward's
+checkpoints against the JAX megakernel in interpret mode; and the port's
+loss and every parameter gradient against jax.value_and_grad of the JAX
+XLA loss, with the JAX draws injected."""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from targetdiff_tpu.models.fast_forward import extract_block_params
+from targetdiff_tpu.ops.pallas.block_denoiser import block_denoiser as jax_block_denoiser
+from targetdiff_tpu.ops.rbf import gaussian_smearing_offsets as jax_offsets
+from targetdiff_tpu_torch.ops import graph as G
+from targetdiff_tpu_torch.ops.kernels.block_denoiser import (
+    block_denoiser_train_plain,
+    pack_pass_params,
+)
+from targetdiff_tpu_torch.ops.kernels.block_vjp import FIELDS, block_layers_trainable
+from targetdiff_tpu_torch.ops.rbf import gaussian_smearing, gaussian_smearing_offsets
+from targetdiff_tpu_torch.utils.port import flax_params_to_state_dict
+from tests.test_torch_block import _block_inputs
+from tests.test_torch_score_model import small_setup
+
+torch.set_num_threads(2)
+
+
+def _ln_bwd(dy, zhat, rstd, scale):
+    """LayerNorm backward to its input, given d(output) after ReLU's mask."""
+    dzh = dy * scale
+    return rstd * (dzh - dzh.mean(-1, keepdim=True) - zhat * (dzh * zhat).mean(-1, keepdim=True))
+
+
+def _ln(z, eps=1e-5):
+    mu = z.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((z - mu) ** 2).mean(-1, keepdim=True) + eps)
+    return (z - mu) * rstd, rstd
+
+
+def _pass_bwd(P, l, h, x, idx, nmask, mlig, e_w, row0, h2x, dh, dx, dew, grads, n_heads):
+    """One pass of layer l, as edge_bwd_kernel + gather_kernel +
+    node_bwd_kernel + the weight-gradient reductions compute it."""
+    B, N, H = h.shape
+    NH, DH = n_heads, H // n_heads
+    offsets, coeff = gaussian_smearing_offsets()
+    w = {f: P[f][l] for f in FIELDS}
+    g = {f: grads[f][l] for f in FIELDS}
+    # node projections and the query MLP (node_kernel)
+    proj = h @ w["w_node"] + w["b_node"]
+    ni, nj, q1 = proj[..., :2 * H], proj[..., 2 * H:4 * H], proj[..., 4 * H:]
+    q1hat, q1rstd = _ln(q1)
+    yq = q1hat * w["q_ln"][0] + w["q_ln"][1]
+    qa = yq.relu()
+    q = qa @ w["w_q2"] + w["b_q2"]
+    # edges of the pass's destination rows (edge_bwd_kernel, forward part)
+    rows = slice(row0, N)
+    idx_r, valid, ew = idx[:, rows], nmask[:, rows], e_w[:, rows]
+    rel = x[:, rows, None] - G.gather_nodes(x, idx_r)
+    dist = torch.sqrt((rel * rel).sum(-1) + 1e-16)
+    rbf = gaussian_smearing(dist, offsets, coeff)
+    src_lig = torch.gather(mlig[:, None, :].expand(-1, N - row0, -1), 2, idx_r)
+    dst_lig = mlig[:, rows, None]
+    et = torch.where(src_lig, torch.where(dst_lig, 0, 1), torch.where(dst_lig, 2, 3))
+    z = (ni[:, rows, None] + G.gather_nodes(nj, idx_r) + w["w_et"][et]
+         + torch.einsum("bnkr,bnkrc->bnkc", rbf, w["w_rbf"][et]))
+    zh_k, rs_k = _ln(z[..., :H])
+    zh_v, rs_v = _ln(z[..., H:])
+    kvs, kvb = w["kv_ln"]
+    y_k, y_v = zh_k * kvs[:H] + kvb[:H], zh_v * kvs[H:] + kvb[H:]
+    a_k, a_v = y_k.relu(), y_v.relu()
+    k = a_k @ w["w2k"] + w["b2k"]
+    v = a_v @ w["w2v"] + w["b2v"]
+    logits = (q[:, rows, None] * k).reshape(*k.shape[:3], NH, DH).sum(-1) / math.sqrt(DH)
+    logits = torch.where(valid[..., None], logits, torch.full((), -1e30))
+    unnorm = torch.where(valid[..., None], torch.exp(logits - logits.amax(2, keepdim=True)), 0.0)
+    alpha = unnorm / unnorm.sum(2, keepdim=True).clamp(min=1e-16)
+    # output cotangent -> P (d alpha = e_w P) and dv
+    if not h2x:
+        gc = dh[:, rows, None]
+        Pm = (gc * v).reshape(*v.shape[:3], NH, DH).sum(-1)
+        dv = gc * alpha.repeat_interleave(DH, -1) * ew[..., None]
+        gd = sdir = None
+    else:
+        gd = dx[:, rows] * mlig[:, rows, None]
+        ds = (gd[:, :, None] * rel).sum(-1) / NH
+        Pm = ds[..., None] * v
+        dv = ds[..., None] * alpha * ew[..., None]
+        sdir = (alpha * ew[..., None] * v).sum(-1) / NH
+    dew[:, rows] += (alpha * Pm).sum(-1)
+    dot = (alpha * ew[..., None] * Pm).sum(2, keepdim=True)
+    dl = (alpha * (ew[..., None] * Pm - dot) / math.sqrt(DH)).repeat_interleave(DH, -1)
+    dq = torch.zeros_like(q)
+    dq[:, rows] = (dl * k).sum(2)
+    dk = dl * q[:, rows, None]
+    # second layers and LayerNorm+ReLU
+    g["w2k"] += torch.einsum("bnki,bnkj->ij", a_k, dk)
+    g["b2k"] += dk.sum((0, 1, 2))
+    g["w2v"] += torch.einsum("bnki,bnkj->ij", a_v, dv)
+    g["b2v"] += dv.sum((0, 1, 2))
+    dy_k = (dk @ w["w2k"].T) * (y_k > 0)
+    dy_v = (dv @ w["w2v"].T) * (y_v > 0)
+    dz = torch.cat([_ln_bwd(dy_k, zh_k, rs_k, kvs[:H]), _ln_bwd(dy_v, zh_v, rs_v, kvs[H:])], -1)
+    g["kv_ln"][0] += torch.cat([(dy_k * zh_k).sum((0, 1, 2)), (dy_v * zh_v).sum((0, 1, 2))])
+    g["kv_ln"][1] += torch.cat([dy_k.sum((0, 1, 2)), dy_v.sum((0, 1, 2))])
+    # edge-type tables and the geometry
+    oh = F.one_hot(et, 4).to(dz.dtype)
+    g["w_rbf"] += torch.einsum("bnke,bnkr,bnkc->erc", oh, rbf, dz)
+    g["w_et"] += torch.einsum("bnke,bnkc->ec", oh, dz)
+    drbf = torch.einsum("bnkc,bnkrc->bnkr", dz, w["w_rbf"][et])
+    ddist = (drbf * 2.0 * coeff * (dist[..., None] - offsets) * rbf).sum(-1)
+    drel = (ddist / dist.clamp(min=1e-16))[..., None] * rel
+    if h2x:
+        drel = drel + gd[:, :, None] * sdir[..., None]
+    dx[:, rows] += drel.sum(2)
+    # the source side (gather_kernel): sums per source node
+    dproj = torch.zeros_like(proj)
+    dproj[:, rows, :2 * H] = dz.sum(2)
+    flat = (idx_r + N * torch.arange(B)[:, None, None]).reshape(-1)
+    dnj = torch.zeros(B * N, 2 * H).index_add_(0, flat, dz.reshape(-1, 2 * H))
+    dproj[..., 2 * H:4 * H] = dnj.reshape(B, N, 2 * H)
+    dx -= torch.zeros(B * N, 3).index_add_(0, flat, drel.reshape(-1, 3)).reshape(B, N, 3)
+    # query MLP and node projections backward (node_bwd_kernel)
+    dyq = (dq @ w["w_q2"].T) * (yq > 0)
+    dproj[..., 4 * H:] = _ln_bwd(dyq, q1hat, q1rstd, w["q_ln"][0])
+    g["w_q2"] += torch.einsum("bni,bnj->ij", qa, dq)
+    g["b_q2"] += dq.sum((0, 1))
+    g["q_ln"][0] += (dyq * q1hat).sum((0, 1))
+    g["q_ln"][1] += dyq.sum((0, 1))
+    g["w_node"] += torch.einsum("bni,bnj->ij", h, dproj)
+    g["b_node"] += dproj.sum((0, 1))
+    dh += dproj @ w["w_node"].T
+
+
+@torch.no_grad()
+def replay_block_bwd(x2h, h2x, hck, xck, nbh, mlig, e_w, n_ligand, gh, gx, n_heads):
+    """The backward kernel's algorithm: layers L-1..0, h2x pass on the
+    ligand tail from hck[l+1], then x2h on every row from hck[l] (hck
+    [L+1,B,N,H], xck [L+1,B,N,3]). Returns (dh0, dx0, de_w, x2h grads, h2x
+    grads)."""
+    L, N = hck.shape[0] - 1, hck.shape[2]
+    dh, dx, dew = gh.clone(), gx.clone(), torch.zeros_like(e_w)
+    gx2h = {f: torch.zeros_like(x2h[f]) for f in FIELDS}
+    gh2x = {f: torch.zeros_like(h2x[f]) for f in FIELDS}
+    for l in reversed(range(L)):
+        _pass_bwd(h2x, l, hck[l + 1], xck[l], nbh.idx, nbh.mask, mlig, e_w, N - n_ligand,
+                  True, dh, dx, dew, gh2x, n_heads)
+        _pass_bwd(x2h, l, hck[l], xck[l], nbh.idx, nbh.mask, mlig, e_w, 0, False, dh, dx,
+                  dew, gx2h, n_heads)
+    return dh, dx, dew, gx2h, gh2x
+
+
+def _train_inputs():
+    cfg, params, model, h, x, node_mask, mlig, idx, nmask = _block_inputs()
+    rn = model.net.refine_net
+    nbh = G.Neighborhood(torch.tensor(idx, dtype=torch.int64), torch.tensor(nmask))
+    th, tx, tm = torch.from_numpy(h), torch.from_numpy(x), torch.from_numpy(mlig)
+    with torch.no_grad():
+        e_w = rn.edge_weights(tx, nbh)[..., 0]
+    rng = np.random.default_rng(11)
+    gh = torch.from_numpy(rng.normal(size=h.shape).astype(np.float32))
+    gx = torch.from_numpy(rng.normal(size=x.shape).astype(np.float32))
+    return cfg, params, model, rn, th, tx, tm, nbh, e_w, gh, gx, node_mask
+
+
+def _close(got, want, name, atol_scale=1e-5, rtol=1e-4):
+    got, want = got.detach().numpy(), want.detach().numpy()
+    scale = max(np.abs(want).max(), 1e-6)
+    np.testing.assert_allclose(got, want, atol=atol_scale * scale, rtol=rtol, err_msg=name)
+
+
+def test_backward_replay_matches_autograd_of_plain_block():
+    cfg, _, model, rn, h, x, mlig, nbh, e_w, gh, gx, _ = _train_inputs()
+    NL = model.max_ligand
+    # autograd of the plain block
+    h_leaf, x_leaf, ew_leaf = (t.clone().requires_grad_() for t in (h, x, e_w))
+    model.net.zero_grad()
+    h_out, x_out = rn.block_forward(h_leaf, x_leaf, nbh, mlig, e_w=ew_leaf)
+    ((h_out * gh).sum() + (x_out * gx).sum()).backward()
+    want = {n: p.grad.clone() for n, p in rn.named_parameters() if p.grad is not None}
+    # the replay on the packed weights, from the train-mode checkpoints
+    x2h, h2x = pack_pass_params(rn)
+    hck, xck = block_denoiser_train_plain(rn, h, x, nbh, mlig, e_w)
+    dh0, dx0, dew, gx2h, gh2x = replay_block_bwd(
+        {f: t.detach() for f, t in x2h.items()}, {f: t.detach() for f, t in h2x.items()},
+        hck, xck, nbh, mlig, e_w, NL, gh, gx, cfg.n_heads)
+    _close(dh0, h_leaf.grad, "dh0")
+    _close(dx0, x_leaf.grad, "dx0")
+    _close(dew, ew_leaf.grad, "de_w")
+    # every packed gradient, carried to the parameters by the packing's backward
+    model.net.zero_grad()
+    torch.autograd.backward([x2h[f] for f in FIELDS] + [h2x[f] for f in FIELDS],
+                            [gx2h[f] for f in FIELDS] + [gh2x[f] for f in FIELDS])
+    got = {n: p.grad for n, p in rn.named_parameters() if p.grad is not None}
+    assert sorted(got) == sorted(want) and len(got) == 36 * cfg.num_layers
+    top = max(float(g.abs().max()) for g in want.values())
+    for name in want:
+        if name.endswith("k_func.net.3.bias"):
+            # zero in exact arithmetic (softmax shift invariance): both sides
+            # are float32 cancellation noise, held to the block's largest grad
+            assert float(got[name].abs().max()) < 1e-6 * top, name
+            assert float(want[name].abs().max()) < 1e-6 * top, name
+        else:
+            _close(got[name], want[name], name)
+
+
+def test_train_checkpoints_match_jax_megakernel():
+    cfg, params, model, rn, h, x, mlig, nbh, e_w, _, _, node_mask = _train_inputs()
+    L, H, NL = cfg.num_layers, cfg.hidden_dim, model.max_ligand
+    hck, xck = block_denoiser_train_plain(rn, h, x, nbh, mlig, e_w)
+    ew_p, block_p = extract_block_params(params["params"]["refine_net"], L, H,
+                                         cfg.num_r_gaussian, dtype=jnp.float32,
+                                         n_heads=cfg.n_heads)
+    offsets, coeff = jax_offsets(0.0, cfg.r_max, cfg.num_r_gaussian)
+    _, _, jhck, jxck = jax_block_denoiser(
+        jnp.asarray(h.numpy()), jnp.asarray(x.numpy()), jnp.asarray(nbh.idx.numpy()),
+        jnp.asarray(nbh.mask.numpy()), jnp.asarray(mlig.numpy()), offsets, ew_p, block_p,
+        num_layers=L, n_heads=cfg.n_heads, coeff=coeff, dtype=jnp.float32, interpret=True,
+        n_ligand=NL, ew_in=jnp.asarray(e_w.numpy()), train_checkpoints=True)
+    m = node_mask[:, None, :, None]  # fully masked rows are implementation-defined
+    assert hck.shape == (L + 1, *h.shape) and xck.shape == (L + 1, *x.shape)
+    # the JAX kernel lays its checkpoints out as [B,L+1,...]
+    np.testing.assert_allclose(xck.transpose(0, 1).numpy() * m, np.asarray(jxck) * m,
+                               atol=2e-4, rtol=1e-3)
+    np.testing.assert_allclose(hck.transpose(0, 1).numpy() * m, np.asarray(jhck) * m,
+                               atol=2e-3, rtol=1e-2)
+    with torch.no_grad():
+        h_out, x_out = rn.block_forward(h, x, nbh, mlig, e_w=e_w)
+    assert torch.equal(hck[-1], h_out) and torch.equal(xck[-1], x_out)
+    assert torch.equal(hck[0], h) and torch.equal(xck[0], x)
+
+
+def test_trainable_block_on_cpu_is_the_plain_block():
+    _, _, model, rn, h, x, mlig, nbh, e_w, _, _, _ = _train_inputs()
+    with torch.no_grad():
+        got = block_layers_trainable(rn, h, x, nbh, mlig, e_w, model.max_ligand)
+        want = rn.block_forward(h, x, nbh, mlig, e_w=e_w)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def jax_draws(key, batch, num_classes):
+    """The draws of the JAX get_diffusion_loss for `key`
+    (targetdiff_tpu/models/score_model.py:325-336)."""
+    _, key_pos, key_v = jax.random.split(key, 3)
+    eps = np.asarray(jax.random.normal(key_pos, batch.ligand_pos.shape))
+    u = np.asarray(jax.random.uniform(key_v, batch.ligand_v.shape + (num_classes,)))
+    return torch.from_numpy(eps), torch.from_numpy(u)
+
+
+@pytest.mark.parametrize("impl", ["fast", "eager"])
+def test_loss_and_grads_match_jax_xla(impl):
+    _, jmodel, params, jbatch, model, batch = small_setup()
+    key, t = jax.random.PRNGKey(5), np.array([2, 7])
+
+    def loss_fn(p):
+        return jmodel.get_diffusion_loss(p, key, jbatch, time_step=jnp.asarray(t))["loss"]
+
+    la, ga = jax.value_and_grad(loss_fn)(params)
+    eps, u = jax_draws(key, jbatch, jmodel.num_classes)
+    model.net.zero_grad()
+    out = model.get_diffusion_loss(batch, time_step=torch.from_numpy(t), pos_noise=eps,
+                                   v_uniform=u, impl=impl)
+    out["loss"].backward()
+    assert abs(float(out["loss"]) - float(la)) / abs(float(la)) < 1e-4
+    want = flax_params_to_state_dict(jax.device_get(ga))
+    got = dict(model.net.named_parameters())
+    assert sorted(got) == sorted(want)
+    for name, a in want.items():
+        a, b = a.numpy(), got[name].grad.numpy()
+        scale = max(np.abs(a).max(), 1e-3)
+        np.testing.assert_allclose(b, a, atol=5e-3 * scale, rtol=5e-3, err_msg=name)
+
+
+def test_training_kernel_wrappers_refuse_cpu_tensors():
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+    from targetdiff_tpu_torch.ops.kernels import block_vjp
+
+    _, _, model, rn, h, x, mlig, nbh, e_w, gh, gx, _ = _train_inputs()
+    x2h, h2x = pack_pass_params(rn)
+    with pytest.raises(ValueError, match="CUDA"):
+        kblock.block_denoiser_train_cuda(rn, h, x, nbh, mlig, e_w, model.max_ligand, x2h, h2x)
+    hck, xck = block_denoiser_train_plain(rn, h, x, nbh, mlig, e_w)
+    with pytest.raises(ValueError, match="CUDA"):
+        block_vjp.block_bwd_cuda(hck, xck, nbh.idx, nbh.mask,
+                                 mlig, e_w, model.max_ligand, x2h, h2x, gh, gx)
+    assert kblock.TRAIN_LAUNCHES == 0 and block_vjp.LAUNCHES == 0

@@ -101,3 +101,94 @@ def test_kernel_backed_step_matches_eager(cuda):
     res = model.sample_diffusion(batch, batch.ligand_pos, batch.ligand_v,
                                  torch.Generator(device=cuda).manual_seed(0), num_steps=5)
     assert bool(res.pos.isfinite().all())
+
+
+def grads_close(got: dict, want: dict, atol_scale=5e-3, rtol=5e-3):
+    """Every gradient within atol_scale * max|want| + rtol |want|. The k
+    second-layer biases get zero gradient in exact arithmetic (softmax shift
+    invariance), so theirs are float32 noise, held to the largest gradient."""
+    top = max(float(w.abs().max()) for w in want.values())
+    for name, w in want.items():
+        g = got[name]
+        if name.endswith("k_func.net.3.bias"):
+            assert float(g.abs().max()) < 1e-5 * top, name
+            continue
+        torch.testing.assert_close(g, w, atol=atol_scale * float(w.abs().max()), rtol=rtol,
+                                   msg=lambda m, n=name: f"{n}: {m}")
+
+
+def _train_block_setup(cuda, k, batch_size, seed=0):
+    torch.manual_seed(seed)
+    model = DiffusionModel(Config(CONFIG), 27, 13, device=cuda)
+    rn = model.net.refine_net
+    batch = _complexes(cuda, seed)
+    batch = type(batch)(*[t[:batch_size] for t in batch])
+    with torch.no_grad():
+        h, x, node_mask, mlig = model.net.embed(*batch)
+        nbh = G.knn_graph(x, node_mask, k)
+        e_w = rn.edge_weights(x, nbh)[..., 0]
+    return rn, h, x, node_mask, mlig, nbh, e_w
+
+
+@pytest.mark.parametrize("k", [8, 32])
+def test_train_forward_kernel_matches_plain(cuda, k):
+    rn, h, x, node_mask, mlig, nbh, e_w = _train_block_setup(cuda, k, B)
+    with torch.no_grad():
+        x2h, h2x = kblock.pack_pass_params(rn)
+        want = kblock.block_denoiser_train_plain(rn, h, x, nbh, mlig, e_w)
+        got = kblock.block_denoiser_train_cuda(rn, h, x, nbh, mlig, e_w, NL, x2h, h2x)
+    torch.cuda.synchronize()
+    m = node_mask[None, :, :, None]  # checkpoints are [L+1,B,N,.]
+    torch.testing.assert_close(got[0] * m, want[0] * m, atol=2e-3, rtol=1e-2)
+    torch.testing.assert_close(got[1] * m, want[1] * m, atol=2e-4, rtol=1e-3)
+    assert torch.equal(got[1][:, :, :NP_], x[None, :, :NP_].expand(got[1].shape[0], -1, -1, -1))
+
+
+@pytest.mark.parametrize("k,batch_size", [(8, B), (32, B), (32, 1)])
+def test_block_vjp_kernel_matches_autograd(cuda, k, batch_size):
+    from targetdiff_tpu_torch.ops.kernels import block_vjp
+
+    rn, h, x, node_mask, mlig, nbh, e_w = _train_block_setup(cuda, k, batch_size)
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    gh = torch.randn(h.shape, generator=gen, device=cuda) * node_mask[..., None]
+    gx = torch.randn(x.shape, generator=gen, device=cuda)
+
+    def run(trainable):
+        leaves = [t.clone().requires_grad_() for t in (h, x, e_w)]
+        rn.zero_grad()
+        if trainable:
+            ho, xo = block_vjp.block_layers_trainable(rn, *leaves[:2], nbh, mlig, leaves[2], NL)
+        else:
+            ho, xo = rn.block_forward(leaves[0], leaves[1], nbh, mlig, e_w=leaves[2])
+        ((ho * gh).sum() + (xo * gx).sum()).backward()
+        grads = {n: p.grad.clone() for n, p in rn.named_parameters() if p.grad is not None}
+        grads.update(dh0=leaves[0].grad, dx0=leaves[1].grad, de_w=leaves[2].grad)
+        return grads
+
+    launches = block_vjp.LAUNCHES
+    got, again, want = run(True), run(True), run(False)
+    torch.cuda.synchronize()
+    assert block_vjp.LAUNCHES == launches + 2
+    assert all(torch.equal(got[n], again[n]) for n in got)  # fixed summation order
+    assert sorted(got) == sorted(want)
+    assert all(bool(g.isfinite().all()) for g in got.values())
+    grads_close(got, want)
+
+
+def test_train_loss_kernel_path_matches_eager(cuda):
+    torch.manual_seed(0)
+    model = DiffusionModel(Config(CONFIG), 27, 13, device=cuda)
+    batch = _complexes(cuda, seed=2)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    t = torch.tensor([0, 7, 19], device=cuda)
+    eps = torch.randn(batch.ligand_pos.shape, generator=gen, device=cuda)
+    u = torch.rand(batch.ligand_v.shape + (13,), generator=gen, device=cuda)
+    out = {}
+    for impl in ("fast", "eager"):
+        model.net.zero_grad()
+        loss = model.get_diffusion_loss(batch, time_step=t, pos_noise=eps, v_uniform=u,
+                                        impl=impl)["loss"]
+        loss.backward()
+        out[impl] = (float(loss), {n: p.grad.clone() for n, p in model.net.named_parameters()})
+    assert abs(out["fast"][0] - out["eager"][0]) <= 1e-4 * abs(out["eager"][0])
+    grads_close(out["fast"][1], out["eager"][1])
