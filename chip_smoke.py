@@ -2,8 +2,10 @@
 """Smoke run of the PyTorch port (targetdiff_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py profile [hybrid|knn]
+    python3 chip_smoke.py duel [CHECKOUT]
 
-Builds the CUDA kernels from targetdiff_tpu_torch/csrc, holds each kernel
+With no arguments: builds the CUDA kernels from targetdiff_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version at the main path's shapes (the example
 pocket: 572 atoms padded to 576, 32 ligand slots, K = 32, four complexes;
 flagship width: 9 layers, hidden 128, 16 heads), then samples molecules for
@@ -13,9 +15,26 @@ path: the train-mode block kernel and the block-VJP kernel against autograd
 of the plain block, the whole loss and its gradients on the kernel path
 against the eager path, `make_train_step` at the bench's train shape (B=32,
 384-slot synthetic pockets), a short fit, and the train CLI's `run` on a
-six-entry dataset, whose checkpoint is reloaded and sampled from. Every
+six-entry dataset, whose checkpoint is reloaded and sampled from. Then the
+per-layer path: the per-layer attention kernels and their backwards against
+the plain layers on the hybrid graph (the example pocket with 64 ligand
+slots: N = 640, K = 95) and the kNN graph, 1000 DDPM steps of a hybrid model
+through `sample_diffusion_ligand`, and the per-layer training loss
+(`impl='fast_pl'`) against the eager one and its train step at B=32. Every
 phase prints one line; any failure exits non-zero. The last two lines are a
-JSON record of the kernels and the contract line {"ok": true, "device": {...}}.
+JSON record of the kernels (each with its time, its plain version's time and
+the least time the card could take for its work) and the contract line
+{"ok": true, "device": {...}}.
+
+`profile` traces 10 DDPM steps of hybrid (64 ligand slots: N = 640, K = 95)
+or kNN (32 slots: N = 608, K = 32) sampling with torch.profiler: the device
+time of each kernel and of the step, beside the host time of the same steps
+run just before without the profiler. `duel` times, by CUDA events, the
+whole-block kernels (B=4, N=608, K=32) and 50 kNN sampling steps of the port
+found in CHECKOUT (this checkout by default), through entry points every
+version of the port has: run it once per checkout, in turns, within one call,
+to compare two versions on one card. Both print one JSON line that starts
+with the card's name and power limit.
 
 Needs a CUDA device and the CUDA toolkit (nvcc); there is no CPU path.
 """
@@ -58,6 +77,38 @@ GRAD_ATOL_SCALE, GRAD_RTOL = 5e-3, 5e-3  # atol = 5e-3 * max|plain grad| per ten
 OPTIMIZER = dict(type="adam", lr=5e-4, weight_decay=0.0, beta1=0.95, beta2=0.999,
                  max_grad_norm=8.0)
 TRAIN_B, TRAIN_PROTEIN, TRAIN_VALID, TRAIN_STEPS, TRAIN_WARMUP = 32, 384, 330, 20, 3
+HYBRID_LIGAND = 64  # the sampling CLI's default ligand slots: hybrid K = 64 - 1 + 32 = 95
+HYBRID_SIZES = [64, 45, 27, 14]  # ligand atoms per complex in the [layers] phase
+TRAIN_PL_STEPS = 10
+
+# The card's published peaks (NVIDIA H100 SXM data sheet): float32 outside
+# the tensor cores, which every kernel here runs on, and device memory.
+PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+# FLOP per live edge and per real node, counted from the kernels' arithmetic
+# at the released widths (hidden 128, 16 heads, 20 RBF knots). Edge forward:
+# the first layer from the node projections and the edge-type table, both
+# LayerNorms, the k and v second layers, the logits and the weighted sum.
+# Backward: the forward again, the transposed second layers, their weight
+# gradients, the RBF-table gradient and d rbf. Node: the five projections
+# and the query MLP; backward adds their transposes and weight gradients.
+HW, NHEADS, RK = 128, 16, 20
+_FIRST = 2 * 2 * HW * (RK + 3) + 2 * 8 * HW
+FLOP_EDGE = {"x2h": _FIRST + 4 * HW * HW + 4 * HW,
+             "h2x": _FIRST + 2 * HW * HW + 2 * HW * NHEADS + 2 * HW + 8 * NHEADS}
+_EDGE_BWD_EXTRA = 2 * (RK + 1) * 2 * HW + 2 * RK * 2 * HW + 2 * 10 * HW
+FLOP_EDGE_BWD = {"x2h": FLOP_EDGE["x2h"] + 8 * HW * HW + _EDGE_BWD_EXTRA,
+                 "h2x": FLOP_EDGE["h2x"] + 4 * HW * HW + 4 * HW * NHEADS + _EDGE_BWD_EXTRA}
+FLOP_NODE = 2 * HW * 5 * HW + 2 * HW * HW + 8 * HW
+FLOP_NODE_BWD = FLOP_NODE + 4 * HW * HW + 4 * 5 * HW * HW + 16 * HW  # = 3 * FLOP_NODE
+FLOP_SRC = 2 * HW * 2 * HW  # a source row's k and v first-layer projections
+FLOP_EW_EDGE = 2 * RK * HW + 10 * HW + 3 * RK  # global edge-weight MLP
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def phase(label: str, **fields) -> None:
@@ -78,6 +129,48 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of tensors (and of the values of dicts of tensors)."""
+    total = 0
+    for t in tensors:
+        for u in (t.values() if isinstance(t, dict) else [t]):
+            total += u.numel() * u.element_size()
+    return total
+
+
+def bound(flops: float, bytes_moved: float) -> dict:
+    """The least time the card could take: the larger of the operations over
+    the float32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, bytes_moved / PEAK_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def layer_work(nbh, mask_ligand, node_mask):
+    """(real nodes, real ligand nodes, live x2h edges, live h2x edges) of a graph."""
+    return (int(node_mask.sum()), int((mask_ligand & node_mask).sum()), int(nbh.mask.sum()),
+            int(nbh.mask[mask_ligand].sum()))
+
+
+def node_flops(sub, nodes, lig_nodes, bwd=False):
+    """FLOP of one pass's node work. x2h updates every real row. h2x moves
+    only the ligand rows and needs of the other rows only their source
+    projections. A backward is three times its forward (recompute, input
+    and weight gradients)."""
+    full = FLOP_NODE_BWD if bwd else FLOP_NODE
+    if sub == "x2h":
+        return nodes * full
+    src = 3 * FLOP_SRC if bwd else FLOP_SRC
+    return nodes * src + lig_nodes * (full - src)
+
+
+def block_flops(nodes, lig_nodes, edges, lig_edges, bwd=False):
+    """FLOP of one layer's x2h and h2x passes over a graph."""
+    flop_edge = FLOP_EDGE_BWD if bwd else FLOP_EDGE
+    return (node_flops("x2h", nodes, lig_nodes, bwd) + node_flops("h2x", nodes, lig_nodes, bwd)
+            + edges * flop_edge["x2h"] + lig_edges * flop_edge["h2x"])
 
 
 def check_close(name, got, want, atol, rtol) -> float:
@@ -118,27 +211,30 @@ def loss_draws(torch, model, batch, gen):
     return t, eps, u
 
 
-def loss_vs_eager(torch, model, batch, t, eps, u, label) -> dict:
-    """get_diffusion_loss and every parameter gradient on the kernel path
-    against the eager path, same draws: loss within relative 1e-4, grads to
-    `check_grads`. Returns the phase's fields."""
+def loss_vs_eager(torch, model, batch, t, eps, u, label, impls=("fast",)) -> dict:
+    """get_diffusion_loss and every parameter gradient on each kernel path
+    of `impls` against one eager run, same draws: loss within relative 1e-4,
+    grads to `check_grads`. Returns each path's fields, by impl."""
     out = {}
-    for impl in ("fast", "eager"):
+    for name in (*impls, "eager"):
         model.net.zero_grad(set_to_none=True)
         loss = model.get_diffusion_loss(batch, time_step=t, pos_noise=eps, v_uniform=u,
-                                        impl=impl)["loss"]
+                                        impl=name)["loss"]
         loss.backward()
-        out[impl] = (float(loss.detach()), {n: p.grad for n, p in model.net.named_parameters()})
+        out[name] = (float(loss.detach()), {n: p.grad for n, p in model.net.named_parameters()})
     model.net.zero_grad(set_to_none=True)
-    loss_rel = abs(out["fast"][0] - out["eager"][0]) / abs(out["eager"][0])
-    if not loss_rel < 1e-4:
-        raise AssertionError(f"{label}: relative loss error {loss_rel}")
-    return dict(loss=out["fast"][0], loss_eager=out["eager"][0], rel_err=loss_rel,
-                max_grad_err_over_scale=check_grads(out["fast"][1], out["eager"][1]),
-                params=len(out["fast"][1]))
+    eager, fields = out.pop("eager"), {}
+    for impl, fast in out.items():
+        loss_rel = abs(fast[0] - eager[0]) / abs(eager[0])
+        if not loss_rel < 1e-4:
+            raise AssertionError(f"{label} {impl}: relative loss error {loss_rel}")
+        fields[impl] = dict(loss=fast[0], loss_eager=eager[0], rel_err=loss_rel,
+                            max_grad_err_over_scale=check_grads(fast[1], eager[1]),
+                            params=len(fast[1]))
+    return fields
 
 
-def main() -> int:
+def main(argv) -> int:
     if not (REPO / "targetdiff_tpu_torch").is_dir() or not POCKET_PDB.is_file():
         raise RuntimeError(f"chip_smoke.py runs from a checkout of the repository; {REPO} "
                            "lacks targetdiff_tpu_torch/ or the example pocket")
@@ -146,10 +242,11 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device: torch.cuda.is_available() is False")
+    if argv:
+        return measure(torch, argv)
     sys.path.insert(0, str(REPO))
     from targetdiff_tpu_torch.cli.sample_for_pocket import pdb_to_pocket_data, reconstruct_all
     from targetdiff_tpu_torch.config import Config
-    from targetdiff_tpu_torch.data.batch import ComplexBatch
     from targetdiff_tpu_torch.data.transforms import FeaturizeProteinAtom
     from targetdiff_tpu_torch.models.score_model import DiffusionModel
     from targetdiff_tpu_torch.ops import graph as G
@@ -162,9 +259,7 @@ def main() -> int:
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name()
     phase("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
           torch=torch.__version__, cuda=torch.version.cuda)
     print(card, flush=True)
@@ -184,26 +279,15 @@ def main() -> int:
     feat = FeaturizeProteinAtom()
     data = pdb_to_pocket_data(str(POCKET_PDB), feat)
     pocket = {"protein_pos": data["protein_pos"], "protein_feat": data["protein_atom_feature"]}
-    n_prot = len(pocket["protein_pos"])
-    gen = torch.Generator(device=dev).manual_seed(0)
-    ppos = torch.zeros((B, MAX_PROTEIN, 3), device=dev)
-    pfeat = torch.zeros((B, MAX_PROTEIN, feat.feature_dim), device=dev)
-    ppos[:, :n_prot] = torch.as_tensor(pocket["protein_pos"], dtype=torch.float32, device=dev)
-    pfeat[:, :n_prot] = torch.as_tensor(pocket["protein_feat"], device=dev)
-    pmask = torch.zeros((B, MAX_PROTEIN), dtype=torch.bool, device=dev)
-    pmask[:, :n_prot] = True
-    com = ppos[:, :n_prot].mean(1, keepdim=True)
-    ppos = torch.where(pmask[..., None], ppos - com, 0.0)
-    lpos = torch.randn((B, MAX_LIGAND, 3), generator=gen, device=dev)
-    lmask = torch.arange(MAX_LIGAND, device=dev)[None] < torch.tensor(LIGAND_SIZES, device=dev)[:, None]
-    lv = torch.randint(0, NUM_CLASSES, (B, MAX_LIGAND), generator=gen, device=dev)
+    batch = pocket_batch(torch, dev, pocket, feat.feature_dim, MAX_LIGAND, LIGAND_SIZES, 0)
+    lpos, lv, lmask = batch.ligand_pos, batch.ligand_v, batch.ligand_mask
 
     torch.manual_seed(0)
     model = DiffusionModel(Config(FLAGSHIP), feat.feature_dim, NUM_CLASSES, device=dev,
                            max_protein=MAX_PROTEIN, max_ligand=MAX_LIGAND)
     rn = model.net.refine_net
     with torch.no_grad():
-        h, x, node_mask, mask_ligand = model.net.embed(ppos, pfeat, pmask, lpos, lv, lmask)
+        h, x, node_mask, mask_ligand = model.net.embed(*batch)
     N = x.shape[1]
 
     # 3. kNN kernel against the plain version (tie-tolerant)
@@ -229,8 +313,10 @@ def main() -> int:
     same = float((nbh.idx == plain_nbh.idx)[nbh.mask].float().mean())
     knn_ms = cuda_ms(torch, lambda: kknn.knn_graph_cuda(x, node_mask, K))
     knn_plain_ms = cuda_ms(torch, lambda: G.knn_graph(x, node_mask, K))
+    # every pair's distance (8 FLOP) and a log2 K-deep selection per candidate
+    knn_bound = bound(B * N * N * (8 + np.log2(K)), nbytes(x, node_mask, nbh.idx, nbh.mask))
     phase("knn", shape=f"B={B},N={N},K={K}", max_abs_err_kth_d2=knn_err,
-          same_index_fraction=same, ms=knn_ms, plain_ms=knn_plain_ms)
+          same_index_fraction=same, ms=knn_ms, plain_ms=knn_plain_ms, **knn_bound)
 
     # 4. block kernels against the plain block, f32, flagship width
     packed = kblock.pack_block_params(rn)
@@ -250,12 +336,17 @@ def main() -> int:
             rn, h, x, plain_nbh, mask_ligand, MAX_LIGAND, packed), reps=10)
         block_plain_ms = cuda_ms(torch, lambda: rn.block_forward(h, x, plain_nbh, mask_ligand),
                                  reps=10)
-    phase("block", shape=f"B={B},N={N},K={K},L={FLAGSHIP['num_layers']},H=128,heads=16",
+    work = layer_work(plain_nbh, mask_ligand, node_mask)
+    L = FLAGSHIP["num_layers"]
+    block_bound = bound(
+        L * block_flops(*work) + work[2] * FLOP_EW_EDGE,
+        nbytes(h, x, plain_nbh.idx, plain_nbh.mask, mask_ligand, packed.x2h, packed.h2x,
+               *packed.ew, h_k, x_k))
+    phase("block", shape=f"B={B},N={N},K={K},L={L},H=128,heads=16",
           max_abs_err_x=x_err, max_abs_err_h=h_err, max_abs_err_h_valid_rows=h_err_all,
-          ms=block_ms, plain_ms=block_plain_ms)
+          ms=block_ms, plain_ms=block_plain_ms, **block_bound)
 
     # whole forward: kernel-backed against eager, same inputs
-    batch = ComplexBatch(ppos, pfeat, pmask, lpos, lv, lmask)
     with torch.no_grad():
         fk = model.fast_apply(batch, lpos, lv, packed=packed)
         fp = model.apply(batch, lpos, lv)
@@ -299,23 +390,46 @@ def main() -> int:
           knn_launches=knn_launches, block_launches=block_launches,
           max_centroid_offset_A=dist, reconstructed=f"{len(rebuilt)}/{B}")
 
+    layers = layer_phases(torch, dev, feat, pocket, rn, h, x, plain_nbh, mask_ligand, node_mask)
+    failures = []
+    hybrid_launches = hybrid_sample_phase(torch, dev, pocket, layers["model"], failures)
     train = train_phases(torch, dev, model, rn, h, x, plain_nbh, mask_ligand, node_mask, batch,
-                         pocket, feat)
+                         pocket, feat, layers["model"], layers["batch"])
+    if failures:
+        raise AssertionError("; ".join(failures))
 
+    no_library = {"library_ms": None}  # no single PyTorch call computes any of these functions
     print(json.dumps({"kernels": [
         {"name": "knn_graph", "route": "cuda", "source": "targetdiff_tpu_torch/csrc/knn.cu",
          "replaces": "targetdiff_tpu/ops/pallas/knn.py:27", "launches": knn_launches,
-         "max_abs_err": knn_err, "ms": knn_ms, "plain_ms": knn_plain_ms},
+         "max_abs_err": knn_err, "ms": knn_ms, "plain_ms": knn_plain_ms, **knn_bound,
+         **no_library},
         {"name": "block_denoiser", "route": "cuda",
          "source": "targetdiff_tpu_torch/csrc/block_denoiser.cu",
          "replaces": "targetdiff_tpu/ops/pallas/block_denoiser.py:154",
          "launches": block_launches, "max_abs_err": max(x_err, h_err), "ms": block_ms,
-         "plain_ms": block_plain_ms},
+         "plain_ms": block_plain_ms, **block_bound, **no_library},
         {"name": "block_denoiser_train", "route": "cuda",
          "source": "targetdiff_tpu_torch/csrc/block_denoiser.cu",
-         "replaces": "targetdiff_tpu/ops/pallas/block_denoiser.py:154", **train["fwd"]},
+         "replaces": "targetdiff_tpu/ops/pallas/block_denoiser.py:154", **train["fwd"],
+         **no_library},
         {"name": "block_vjp", "route": "cuda", "source": "targetdiff_tpu_torch/csrc/block_vjp.cu",
-         "replaces": "targetdiff_tpu/ops/pallas/block_vjp.py:113", **train["bwd"]},
+         "replaces": "targetdiff_tpu/ops/pallas/block_vjp.py:113", **train["bwd"],
+         **no_library},
+        {"name": "x2h_layer", "route": "cuda", "source": "targetdiff_tpu_torch/csrc/edge_layer.cu",
+         "replaces": "targetdiff_tpu/ops/pallas/edge_layer.py:189",
+         "launches": hybrid_launches["x2h"], **layers["x2h"], **no_library},
+        {"name": "h2x_layer", "route": "cuda", "source": "targetdiff_tpu_torch/csrc/edge_layer.cu",
+         "replaces": "targetdiff_tpu/ops/pallas/edge_layer.py:235",
+         "launches": hybrid_launches["h2x"], **layers["h2x"], **no_library},
+        {"name": "x2h_layer_bwd", "route": "cuda",
+         "source": "targetdiff_tpu_torch/csrc/edge_layer_vjp.cu",
+         "replaces": "targetdiff_tpu/ops/pallas/edge_layer_vjp.py:231",
+         "launches": train["pl_launches"]["x2h_bwd"], **layers["x2h_bwd"], **no_library},
+        {"name": "h2x_layer_bwd", "route": "cuda",
+         "source": "targetdiff_tpu_torch/csrc/edge_layer_vjp.cu",
+         "replaces": "targetdiff_tpu/ops/pallas/edge_layer_vjp.py:351",
+         "launches": train["pl_launches"]["h2x_bwd"], **layers["h2x_bwd"], **no_library},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -323,9 +437,191 @@ def main() -> int:
     return 0
 
 
-def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch, pocket, feat):
-    """[train-block], [train-loss], [train], [train-cli]. Returns the two
-    training kernels' JSON fields."""
+def pocket_batch(torch, dev, pocket, feat_dim, n_ligand_slots, sizes, seed):
+    """B copies of the example pocket (572 atoms padded to MAX_PROTEIN,
+    centred) with ligands of `sizes` atoms at the centre plus unit noise."""
+    from targetdiff_tpu_torch.data.batch import ComplexBatch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_prot = len(pocket["protein_pos"])
+    ppos = torch.zeros((B, MAX_PROTEIN, 3), device=dev)
+    pfeat = torch.zeros((B, MAX_PROTEIN, feat_dim), device=dev)
+    ppos[:, :n_prot] = torch.as_tensor(pocket["protein_pos"], dtype=torch.float32, device=dev)
+    pfeat[:, :n_prot] = torch.as_tensor(pocket["protein_feat"], device=dev)
+    pmask = torch.zeros((B, MAX_PROTEIN), dtype=torch.bool, device=dev)
+    pmask[:, :n_prot] = True
+    ppos = torch.where(pmask[..., None], ppos - ppos[:, :n_prot].mean(1, keepdim=True), 0.0)
+    lpos = torch.randn((B, n_ligand_slots, 3), generator=gen, device=dev)
+    lmask = (torch.arange(n_ligand_slots, device=dev)[None]
+             < torch.tensor(sizes, device=dev)[:, None])
+    lv = torch.randint(0, NUM_CLASSES, (B, n_ligand_slots), generator=gen, device=dev)
+    return ComplexBatch(ppos, pfeat, pmask, lpos, lv, lmask)
+
+
+def layer_phases(torch, dev, feat, pocket, rn, h, x, nbh, mask_ligand, node_mask):
+    """[layers]: the per-layer kernels against their plain versions, forward
+    and backward (with two backward runs bitwise equal), on the hybrid graph
+    of a hybrid flagship model (the example pocket with 64 ligand slots,
+    N = 640, K = 95) and on the kNN graph of the sampling phases (N = 608,
+    K = 32); times at the hybrid shape. Returns the four kernels' JSON fields
+    and the hybrid model and batch."""
+    from targetdiff_tpu_torch.config import Config
+    from targetdiff_tpu_torch.models.score_model import DiffusionModel
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+    from targetdiff_tpu_torch.ops.kernels import edge_layer_vjp as kelv
+
+    torch.manual_seed(6)
+    hmodel = DiffusionModel(Config(dict(FLAGSHIP, cutoff_mode="hybrid")), feat.feature_dim,
+                            NUM_CLASSES, device=dev, max_protein=MAX_PROTEIN,
+                            max_ligand=HYBRID_LIGAND)
+    hbatch = pocket_batch(torch, dev, pocket, feat.feature_dim, HYBRID_LIGAND, HYBRID_SIZES, 7)
+    hrn = hmodel.net.refine_net
+    with torch.no_grad():
+        hh, hx, hnode, hmlig = hmodel.net.embed(*hbatch)
+        hnbh = hrn.graph(hx, hnode, hmlig)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    out, fields = {}, {}
+    for shape, (net, h0, x0, g, mlig, nmask_rows, n_lig) in (
+            ("hybrid", (hrn, hh, hx, hnbh, hmlig, hnode, HYBRID_LIGAND)),
+            ("knn", (rn, h, x, nbh, mask_ligand, node_mask, MAX_LIGAND))):
+        layer = net.base_block[0]
+        with torch.no_grad():
+            e_w = net.edge_weights(x0, g)[..., 0]
+            px, ph = kel.pack_layer_params(layer)
+            h_ref = kel.x2h_layer_plain(layer, h0, x0, g, mlig, e_w)
+            h_k = kel.x2h_layer_cuda(h0, x0, g, mlig, e_w, px)
+            x_ref = kel.h2x_layer_plain(layer, h_ref, x0, g, mlig, e_w)
+            x_k = kel.h2x_layer_cuda(h_ref, x0, g, mlig, e_w, n_lig, ph)
+        torch.cuda.synchronize()
+        errs = {"x2h": check_close(f"{shape} x2h layer", h_k, h_ref, **H_TOL),
+                "h2x": check_close(f"{shape} h2x layer", x_k, x_ref, **POS_TOL)}
+        cot = {"x2h": torch.randn(h0.shape, generator=gen, device=dev) * nmask_rows[..., None],
+               "h2x": torch.randn(x0.shape, generator=gen, device=dev)}
+
+        def grads(sub, trainable):
+            h_in = h0 if sub == "x2h" else h_ref
+            leaves = [t.clone().requires_grad_() for t in (h_in, x0, e_w)]
+            net.zero_grad(set_to_none=True)
+            if sub == "x2h":
+                fn = kelv.x2h_layer_trainable if trainable else kel.x2h_layer_plain
+                o = fn(layer, leaves[0], leaves[1], g, mlig, leaves[2])
+            elif trainable:
+                o = kelv.h2x_layer_trainable(layer, leaves[0], leaves[1], g, mlig, leaves[2],
+                                             n_lig)
+            else:
+                o = kel.h2x_layer_plain(layer, leaves[0], leaves[1], g, mlig, leaves[2])
+            (o * cot[sub]).sum().backward()
+            r = {n: p.grad.clone() for n, p in net.named_parameters() if p.grad is not None}
+            r.update(dh=leaves[0].grad, dx=leaves[1].grad, de_w=leaves[2].grad)
+            return r
+
+        for sub in ("x2h", "h2x"):
+            got, again, want = grads(sub, True), grads(sub, True), grads(sub, False)
+            torch.cuda.synchronize()
+            if sorted(got) != sorted(want) or not all(torch.equal(got[n], again[n]) for n in got):
+                raise AssertionError(f"{shape} {sub} backward: other parameters reached, or two "
+                                     "runs differ")
+            rel = check_grads(got, want)
+            errs[f"{sub}_bwd"] = max(float((got[n] - want[n]).abs().max())
+                                     for n in ("dh", "dx", "de_w"))
+            errs[f"{sub}_bwd_over_scale"] = rel
+        out[shape] = errs
+        if shape != "hybrid":
+            continue
+        # times at the hybrid shape; bounds from this graph's live edges
+        nodes, lig_nodes, edges, lig_edges = layer_work(g, mlig, nmask_rows)
+        inputs = (h0, x0, g.idx, g.mask, mlig, e_w)
+        with torch.no_grad():
+            f_ms = {"x2h": cuda_ms(torch, lambda: kel.x2h_layer_cuda(h0, x0, g, mlig, e_w, px)),
+                    "h2x": cuda_ms(torch, lambda: kel.h2x_layer_cuda(h_ref, x0, g, mlig, e_w,
+                                                                     n_lig, ph))}
+            f_plain = {"x2h": cuda_ms(torch, lambda: kel.x2h_layer_plain(layer, h0, x0, g, mlig,
+                                                                         e_w)),
+                       "h2x": cuda_ms(torch, lambda: kel.h2x_layer_plain(layer, h_ref, x0, g,
+                                                                         mlig, e_w))}
+            b_ms = {"x2h": cuda_ms(torch, lambda: kelv.x2h_layer_bwd_cuda(
+                        h0, x0, g, mlig, e_w, px, cot["x2h"]), reps=10),
+                    "h2x": cuda_ms(torch, lambda: kelv.h2x_layer_bwd_cuda(
+                        h_ref, x0, g, mlig, e_w, n_lig, ph, cot["h2x"]), reps=10)}
+        b_plain = {}
+        for sub, fn, hin in (("x2h", kel.x2h_layer_plain, h0),
+                             ("h2x", kel.h2x_layer_plain, h_ref)):
+            leaves = [t.clone().requires_grad_() for t in (hin, x0, e_w)]
+            o = fn(layer, leaves[0], leaves[1], g, mlig, leaves[2])
+            wrt = leaves + [p for n, p in layer.named_parameters() if f"{sub}_layers" in n]
+            b_plain[sub] = cuda_ms(torch, lambda: torch.autograd.grad(o, wrt, cot[sub],
+                                                                      retain_graph=True), reps=10)
+            del o
+        e = {"x2h": edges, "h2x": lig_edges}
+        for sub, params, y in (("x2h", px, h_k), ("h2x", ph, x_k)):
+            fields[sub] = dict(max_abs_err=errs[sub], ms=f_ms[sub], plain_ms=f_plain[sub],
+                               **bound(node_flops(sub, nodes, lig_nodes)
+                                       + e[sub] * FLOP_EDGE[sub], nbytes(*inputs, params, y)))
+            fields[f"{sub}_bwd"] = dict(
+                max_abs_err=errs[f"{sub}_bwd"], ms=b_ms[sub], plain_ms=b_plain[sub],
+                **bound(node_flops(sub, nodes, lig_nodes, bwd=True)
+                        + e[sub] * FLOP_EDGE_BWD[sub],
+                        nbytes(*inputs, params, cot[sub], h0, x0, e_w, params)))
+        shape_str = f"B={B},N={h0.shape[1]},K={g.idx.shape[-1]}"
+        live = dict(live_edges_x2h=edges, live_edges_h2x=lig_edges,
+                    slots=int(g.mask.numel()), ms=f_ms, plain_ms=f_plain, bwd_ms=b_ms,
+                    bwd_plain_ms=b_plain)
+    phase("layers", hybrid_shape=shape_str, hybrid=out["hybrid"],
+          knn_shape=f"B={B},N={h.shape[1]},K={nbh.idx.shape[-1]}", knn=out["knn"], **live,
+          bound_ms={k: v["bound_ms"] for k, v in fields.items()})
+    return dict(fields, model=hmodel, batch=hbatch)
+
+
+def hybrid_sample_phase(torch, dev, pocket, hmodel, failures):
+    """[hybrid-sample]: 1000 DDPM steps of the hybrid model (64 ligand slots,
+    K = 95) through `sample_diffusion_ligand`, on the per-layer kernels
+    only. Returns the forward kernels' launches; a check that fails after
+    the run is added to `failures`."""
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+    from targetdiff_tpu_torch.ops.kernels import knn as kknn
+    from targetdiff_tpu_torch.sampling import sample_diffusion_ligand
+
+    steps = hmodel.num_timesteps
+    kknn.LAUNCHES = kblock.LAUNCHES = kel.X2H_LAUNCHES = kel.H2X_LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = sample_diffusion_ligand(
+        hmodel, pocket, num_samples=B, generator=torch.Generator(device=dev).manual_seed(9),
+        batch_size=B, num_steps=steps, max_protein=MAX_PROTEIN, max_ligand=HYBRID_LIGAND,
+        rng=np.random.default_rng(9))
+    wall = time.perf_counter() - t0
+    launches = {"x2h": kel.X2H_LAUNCHES, "h2x": kel.H2X_LAUNCHES, "block": kblock.LAUNCHES,
+                "knn": kknn.LAUNCHES}
+    per_run = steps * FLAGSHIP["num_layers"]
+    if launches["x2h"] != per_run or launches["h2x"] != per_run or launches["block"] or \
+            launches["knn"]:
+        raise AssertionError(f"hybrid-sample: expected the per-layer kernels once per layer and "
+                             f"step and no block or kNN kernel, {launches}")
+    for pos, v in zip(res["pos"], res["v"]):
+        if pos.shape != (len(v), 3) or not np.isfinite(pos).all():
+            raise AssertionError("hybrid-sample: a non-finite or misshaped molecule")
+        if not ((v >= 0) & (v < NUM_CLASSES)).all():
+            raise AssertionError("hybrid-sample: an atom type outside the vocabulary")
+    centre = pocket["protein_pos"].mean(0)
+    radius = float(np.linalg.norm(pocket["protein_pos"] - centre, axis=1).max())
+    dist = float(max(np.linalg.norm(p.mean(0) - centre) for p in res["pos"]))
+    near = dist < radius
+    sample_s = res["time"][0]
+    phase("hybrid-sample", samples=B, steps=steps, ligand_atoms=[len(v) for v in res["v"]],
+          K=hmodel.net.refine_net.num_neighbors(), seconds=sample_s, wall_seconds=wall,
+          ms_per_step=1e3 * sample_s / steps, mol_per_s=B / sample_s, launches=launches,
+          max_centroid_offset_A=dist, pocket_radius_A=radius, near_pocket=near)
+    if not near:  # raised after the remaining phases have run and printed
+        failures.append(f"hybrid-sample: a molecule's centroid lies {dist} A from the "
+                        f"pocket's centre, outside its {radius} A radius")
+    return launches
+
+
+def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch, pocket, feat,
+                 hmodel, hbatch):
+    """[train-block], [train-loss], [train], [train-pl], [train-cli]. Returns
+    the two whole-block training kernels' JSON fields and the per-layer
+    backwards' launches in the [train-pl] steps."""
     from targetdiff_tpu_torch.cli import train_diffusion
     from targetdiff_tpu_torch.config import Config
     from targetdiff_tpu_torch.data.datasets import PaddedLoader, get_dataset
@@ -333,6 +629,8 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     from targetdiff_tpu_torch.models.score_model import DiffusionModel
     from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
     from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+    from targetdiff_tpu_torch.ops.kernels import edge_layer_vjp as kelv
     from targetdiff_tpu_torch.ops.kernels import knn as kknn
     from targetdiff_tpu_torch.sampling import sample_diffusion_ligand
     from targetdiff_tpu_torch.trainer import create_train_state, make_eval_step, make_train_step
@@ -393,14 +691,27 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     del outs
     step_ms = cuda_ms(torch, lambda: fwd_bwd(True), reps=10)
     step_plain_ms = cuda_ms(torch, lambda: fwd_bwd(False), reps=10)
-    phase("train-block", shape=f"B={B},N={h.shape[1]},K={K},L={FLAGSHIP['num_layers']}",
+    work = layer_work(nbh, mask_ligand, node_mask)
+    L = FLAGSHIP["num_layers"]
+    fwd_bound = bound(
+        L * block_flops(*work),
+        nbytes(h, x, nbh.idx, nbh.mask, mask_ligand, e_w, x2h, h2x, hck_k, xck_k))
+    bwd_bound = bound(
+        L * block_flops(*work, bwd=True),
+        nbytes(hck_k, xck_k, nbh.idx, nbh.mask, mask_ligand, e_w, x2h, h2x, gh, gx)
+        + nbytes(h, x, e_w, x2h, h2x))  # outputs: dh0, dx0, de_w and the weight gradients
+    phase("train-block", shape=f"B={B},N={h.shape[1]},K={K},L={L}",
           max_abs_err_fwd=fwd_err, max_abs_err_dh_dx_dew=bwd_err, max_grad_err_over_scale=bwd_rel,
           fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms, bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms,
-          fwd_bwd_ms=step_ms, fwd_bwd_plain_ms=step_plain_ms)
+          fwd_bwd_ms=step_ms, fwd_bwd_plain_ms=step_plain_ms, fwd_bound_ms=fwd_bound["bound_ms"],
+          bwd_bound_ms=bwd_bound["bound_ms"])
 
     # ---- [train-loss]: the whole loss, kernel path vs eager path, injected draws ----
+    # (the per-layer path's parity on the same draws is reported in [train-pl])
     t, eps, u = loss_draws(torch, model, batch, gen)
-    phase("train-loss", **loss_vs_eager(torch, model, batch, t, eps, u, "train-loss"))
+    loss_parity = loss_vs_eager(torch, model, batch, t, eps, u, "train-loss",
+                                impls=("fast", "fast_pl"))
+    phase("train-loss", **loss_parity["fast"])
 
     # ---- [train]: make_train_step at the bench's train shape ----
     tb = synth_batch(np.random.default_rng(3), TRAIN_B, max_protein=TRAIN_PROTEIN,
@@ -412,9 +723,11 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     state = create_train_state(tmodel, train_utils.get_optimizer(Config(OPTIMIZER),
                                                                  tmodel.parameters()))
     step = make_train_step(tmodel, pos_noise_std=0.1, time_sampling="importance")
-    # the loss and every gradient at this shape, kernel path against eager
+    # the loss and every gradient at this shape, both kernel paths against eager
     torch.cuda.reset_peak_memory_stats()
-    parity = loss_vs_eager(torch, tmodel, tb, *loss_draws(torch, tmodel, tb, gen), "train")
+    step_parity = loss_vs_eager(torch, tmodel, tb, *loss_draws(torch, tmodel, tb, gen), "train",
+                                impls=("fast", "fast_pl"))
+    parity = step_parity["fast"]
     parity_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.empty_cache()
     tgen = torch.Generator(device=dev).manual_seed(0)
@@ -455,6 +768,59 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
           parity_max_grad_err_over_scale=parity["max_grad_err_over_scale"],
           parity_peak_mem_gib=parity_peak_gib)
     train_launches = dict(launches)
+
+    # ---- [train-pl]: the per-layer training path ----
+    # the loss and every gradient against eager: the kNN graph at B=4 ([train-loss]'s
+    # run), the hybrid graph at B=4, and the B=32 step's batch ([train]'s run)
+    knn_parity, pl_parity = loss_parity["fast_pl"], step_parity["fast_pl"]
+    ht, heps, hu = loss_draws(torch, hmodel, hbatch, gen)
+    hybrid_parity = loss_vs_eager(torch, hmodel, hbatch, ht, heps, hu, "train-pl hybrid",
+                                  impls=("fast_pl",))["fast_pl"]
+    # the per-layer train step at the [train] shape, beside the whole-block one
+    pl_state = create_train_state(tmodel, train_utils.get_optimizer(Config(OPTIMIZER),
+                                                                    tmodel.parameters()))
+    pl_step = make_train_step(tmodel, pos_noise_std=0.1, time_sampling="importance",
+                              impl="fast_pl")
+    before = [p.detach().clone() for p in tmodel.parameters()]
+    for _ in range(TRAIN_WARMUP):
+        pl_state, _ = pl_step(pl_state, tb, tgen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kknn.LAUNCHES = kblock.TRAIN_LAUNCHES = kvjp.LAUNCHES = 0
+    kel.X2H_LAUNCHES = kel.H2X_LAUNCHES = kelv.X2H_BWD_LAUNCHES = kelv.H2X_BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_PL_STEPS):
+        pl_state, pl_metrics = pl_step(pl_state, tb, tgen)
+    torch.cuda.synchronize()
+    pl_s = time.perf_counter() - t0
+    pl_launches = {"knn": kknn.LAUNCHES, "x2h": kel.X2H_LAUNCHES, "h2x": kel.H2X_LAUNCHES,
+                   "x2h_bwd": kelv.X2H_BWD_LAUNCHES, "h2x_bwd": kelv.H2X_BWD_LAUNCHES,
+                   "block_fwd": kblock.TRAIN_LAUNCHES, "block_vjp": kvjp.LAUNCHES}
+    pl_peak = torch.cuda.max_memory_allocated() / 2**30
+    per_step = TRAIN_PL_STEPS * FLAGSHIP["num_layers"]
+    if (any(pl_launches[k] != per_step for k in ("x2h", "h2x", "x2h_bwd", "h2x_bwd"))
+            or pl_launches["block_fwd"] or pl_launches["block_vjp"]
+            or pl_launches["knn"] != TRAIN_PL_STEPS):
+        raise AssertionError(f"train-pl: expected each per-layer kernel once per layer and "
+                             f"step and no block kernel, {pl_launches}")
+    if not all(np.isfinite(float(v)) for v in pl_metrics.values()):
+        raise AssertionError(f"train-pl: bad metrics {pl_metrics}")
+    moved = max(float((p.detach() - b).abs().max()) for p, b in zip(tmodel.parameters(), before))
+    if not moved > 0:
+        raise AssertionError("train-pl: the parameters did not move")
+    pl_ms = 1e3 * pl_s / TRAIN_PL_STEPS
+    phase("train-pl", knn_loss_rel_err=knn_parity["rel_err"],
+          knn_max_grad_err_over_scale=knn_parity["max_grad_err_over_scale"],
+          hybrid_shape=f"B={B},N={hbatch.protein_pos.shape[1] + HYBRID_LIGAND},"
+                       f"K={hmodel.net.refine_net.num_neighbors()}",
+          hybrid_loss_rel_err=hybrid_parity["rel_err"],
+          hybrid_max_grad_err_over_scale=hybrid_parity["max_grad_err_over_scale"],
+          step_shape=f"B={TRAIN_B},N={TRAIN_PROTEIN + MAX_LIGAND},K={K}",
+          step_loss_rel_err=pl_parity["rel_err"],
+          step_max_grad_err_over_scale=pl_parity["max_grad_err_over_scale"], steps=TRAIN_PL_STEPS,
+          ms_per_step=pl_ms, complexes_per_s=TRAIN_B * 1e3 / pl_ms, peak_mem_gib=pl_peak,
+          fast_ms_per_step=ms_step, fast_peak_mem_gib=peak_gib, launches=pl_launches,
+          loss=float(pl_metrics["loss"]))
 
     # ---- [train-cli]: the train CLI's run on a six-entry dataset, reload, sample ----
     root = REPO / "outputs" / "chip_smoke_train"
@@ -529,10 +895,108 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
           launches=cli_launches, sample_launches=kblock.LAUNCHES)
 
     return {"fwd": {"launches": train_launches["train_fwd"], "max_abs_err": fwd_err,
-                    "ms": fwd_ms, "plain_ms": fwd_plain_ms},
+                    "ms": fwd_ms, "plain_ms": fwd_plain_ms, **fwd_bound},
             "bwd": {"launches": train_launches["vjp"], "max_abs_err": bwd_err, "ms": bwd_ms,
-                    "plain_ms": bwd_plain_ms}}
+                    "plain_ms": bwd_plain_ms, **bwd_bound},
+            "pl_launches": pl_launches}
+
+
+def measure(torch, argv) -> int:
+    """The `profile` and `duel` modes (module docstring)."""
+    what, arg = argv[0], (argv[1:] or [None])[0]
+    if what not in ("profile", "duel") or len(argv) > 2 or (
+            what == "profile" and arg not in (None, "hybrid", "knn")):
+        raise SystemExit("usage: chip_smoke.py [profile [hybrid|knn] | duel [CHECKOUT]]")
+    checkout = Path(arg).resolve() if what == "duel" and arg else REPO
+    sys.path.insert(0, str(checkout))
+    from targetdiff_tpu_torch.cli.sample_for_pocket import pdb_to_pocket_data
+    from targetdiff_tpu_torch.config import Config
+    from targetdiff_tpu_torch.data.transforms import FeaturizeProteinAtom
+    from targetdiff_tpu_torch.models.score_model import DiffusionModel
+    from targetdiff_tpu_torch.sampling import sample_diffusion_ligand
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    cutoff = (arg or "hybrid") if what == "profile" else "knn"
+    n_ligand = HYBRID_LIGAND if cutoff == "hybrid" else MAX_LIGAND
+    feat = FeaturizeProteinAtom()
+    data = pdb_to_pocket_data(str(POCKET_PDB), feat)
+    pocket = {"protein_pos": data["protein_pos"], "protein_feat": data["protein_atom_feature"]}
+    torch.manual_seed(0)
+    model = DiffusionModel(Config(dict(FLAGSHIP, cutoff_mode=cutoff)), feat.feature_dim,
+                           NUM_CLASSES, device=dev, max_protein=MAX_PROTEIN, max_ligand=n_ligand)
+
+    def sample(steps, seed):
+        t0 = time.perf_counter()
+        sample_diffusion_ligand(model, pocket, num_samples=B,
+                                generator=torch.Generator(device=dev).manual_seed(seed),
+                                batch_size=B, num_steps=steps, max_protein=MAX_PROTEIN,
+                                max_ligand=n_ligand, rng=np.random.default_rng(seed))
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / steps
+
+    out = profile(torch, sample, cutoff) if what == "profile" else duel(
+        torch, dev, model, pocket, feat.feature_dim, sample)
+    print(json.dumps({"card": card_name(), "checkout": str(checkout), what: out}), flush=True)
+    return 0
+
+
+def profile(torch, sample, cutoff) -> dict:
+    """Device time by kernel over 10 traced sampling steps, beside the host
+    time of the same 10 steps run just before without the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    steps = 10
+    sample(3, 2)  # warm up
+    host_ms = sample(steps, 2)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced_host_ms = sample(steps, 2)
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:  # host ranges repeat their kernels' time
+            continue
+        if ev.self_device_time_total > 0:
+            kernels[ev.key] = {"ms_per_step": ev.self_device_time_total / 1e3 / steps,
+                               "calls_per_step": ev.count / steps}
+    device_ms = sum(k["ms_per_step"] for k in kernels.values())
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms_per_step"])[:25])
+    return {"cutoff": cutoff, "steps": steps, "host_ms_per_step": host_ms,
+            "traced_host_ms_per_step": traced_host_ms, "device_ms_per_step": device_ms,
+            "idle_share_estimate": 1 - device_ms / host_ms, "kernels": top}
+
+
+def duel(torch, dev, model, pocket, feat_dim, sample) -> dict:
+    """CUDA-event times of the whole-block kernels and of 50 kNN sampling steps."""
+    from targetdiff_tpu_torch.ops import graph as G
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+    from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
+
+    rn = model.net.refine_net
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        h, x, node_mask, mlig = model.net.embed(
+            *pocket_batch(torch, dev, pocket, feat_dim, MAX_LIGAND, [MAX_LIGAND] * B, 0))
+        nbh = G.knn_graph(x, node_mask, K)
+        packed = kblock.pack_block_params(rn)
+        block_ms = cuda_ms(torch, lambda: kblock.block_denoiser_cuda(rn, h, x, nbh, mlig,
+                                                                     MAX_LIGAND, packed))
+        e_w = rn.edge_weights(x, nbh)[..., 0]
+        x2h, h2x = kblock.pack_pass_params(rn)
+        train_ms = cuda_ms(torch, lambda: kblock.block_denoiser_train_cuda(
+            rn, h, x, nbh, mlig, e_w, MAX_LIGAND, x2h, h2x), reps=10)
+        hck, xck = kblock.block_denoiser_train_cuda(rn, h, x, nbh, mlig, e_w, MAX_LIGAND, x2h,
+                                                    h2x)
+        gh = torch.randn(h.shape, generator=gen, device=dev)
+        gx = torch.randn(x.shape, generator=gen, device=dev)
+        bwd_ms = cuda_ms(torch, lambda: kvjp.block_bwd_cuda(
+            hck, xck, nbh.idx, nbh.mask, mlig, e_w, MAX_LIGAND, x2h, h2x, gh, gx), reps=10)
+    sample(3, 1)  # warm up
+    return {"block_ms": block_ms, "train_fwd_ms": train_ms, "block_bwd_ms": bwd_ms,
+            "sample_ms_per_step": sample(50, 1)}
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -18,10 +18,9 @@ import os
 import numpy as np
 import torch
 
-from targetdiff_tpu.chem.pdb import PDBProtein
-from targetdiff_tpu.chem.reconstruct import MolReconsError, reconstruct_from_generated
-from targetdiff_tpu.chem.sdf import write_sdf
-
+from ..chem.pdb import PDBProtein
+from ..chem.reconstruct import MolReconsError, reconstruct_from_generated
+from ..chem.sdf import write_sdf
 from ..config import load_config
 from ..data.transforms import (
     FeaturizeProteinAtom,

@@ -1,8 +1,18 @@
-// Shared pieces of the block-denoiser forward (block_denoiser.cu) and its
-// whole-block backward (block_vjp.cu): the released TargetDiff widths, the
-// packed weights of one layer's pass, and the device code both recompute
-// identically (node projections, per-edge geometry, the edge MLPs' first
-// layer and LayerNorm, the second layers, the masked softmax over K).
+// Shared pieces of the attention-pass forward (block_denoiser.cu,
+// edge_layer.cu) and its backward (pass_bwd.cuh): the released TargetDiff
+// widths, the packed weights of one layer's pass, the device code every
+// kernel recomputes identically (node projections, per-edge geometry, the
+// edge MLPs' first layer and LayerNorm, the second layers, the attention
+// logits and the masked softmax over a row's edges), and the forward edge
+// kernel itself.
+//
+// A destination row's K edges are processed in chunks of KC = 32: one chunk
+// of edges lives in shared memory and registers at a time, and the row's
+// per-edge attention logits (then weights) sit in a [K][heads] shared array,
+// so any K up to kMaxLayerK works. A chunk without a valid edge is skipped:
+// it contributes nothing (its attention weights are exactly zero), and the
+// hybrid graph's rows keep their valid edges first, so most of their masked
+// slots fall in skipped chunks.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -11,15 +21,17 @@
 
 namespace {
 
-constexpr int H = 128;        // hidden width
-constexpr int H2 = 2 * H;     // k|v first-layer width
-constexpr int H5 = 5 * H;     // node projection width
-constexpr int NH = 16;        // heads
-constexpr int DH = H / NH;    // head width (8)
-constexpr int R = 20;         // RBF knots
-constexpr int KMAX = 32;      // max neighbours per row
+constexpr int H = 128;          // hidden width
+constexpr int H2 = 2 * H;       // k|v first-layer width
+constexpr int H5 = 5 * H;       // node projection width
+constexpr int NH = 16;          // heads
+constexpr int DH = H / NH;      // head width (8)
+constexpr int R = 20;           // RBF knots
+constexpr int KC = 32;          // edges per chunk
+constexpr int kMaxBlockK = 32;  // neighbours per row, whole-block entry points
+constexpr int kMaxLayerK = 256; // neighbours per row, per-layer entry points
 constexpr int kThreads = 256;
-constexpr int kNodes = 8;     // nodes per node_kernel block
+constexpr int kNodes = 8;       // nodes per node_kernel block
 constexpr float kLnEps = 1e-5f;
 
 }  // namespace
@@ -41,11 +53,30 @@ struct PassParams {
   const float* b2v;     // [V]
 };
 
+// The graph and node inputs every edge kernel reads.
+struct EdgeInputs {
+  const float* x;        // [B*N][3]
+  const int64_t* idx;    // [B*N][K]
+  const bool* nmask;     // [B*N][K]
+  const bool* mlig;      // [B*N]
+  const float* ew;       // [B*N][K]
+  const float* ni;       // [B*N][2H] destination projections
+  const float* nj;       // [B*N][2H] source projections
+  const float* offsets;  // [R]
+  float coeff;
+};
+
 namespace {
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 
@@ -134,37 +165,34 @@ node_kernel(const float* __restrict__ h, int rows, PassParams p, float* __restri
   }
 }
 
-// The K edges of destination node bn (complex b): source, edge type
-// (0 l->l, 1 l->p, 2 p->l, 3 p->p by (src, dst) ligand), validity, edge
-// weight, rel = x_dst - x_src, dist = sqrt(|rel|^2 + 1e-16) and its RBF
-// features. Slots K..KMAX-1 are inert (invalid, zero geometry). Threads
-// [0, KMAX) of the block; the caller synchronises.
+// One chunk of the edges of destination node bn (complex b): slot s holds
+// edge e0 + s with its source, edge type (0 l->l, 1 l->p, 2 p->l, 3 p->p by
+// (src, dst) ligand), validity, edge weight, rel = x_dst - x_src,
+// dist = sqrt(|rel|^2 + 1e-16) and its RBF features. Slots past the row's K
+// edges are inert (invalid, zero weight and geometry).
 struct EdgeGeometry {
-  float rbf[KMAX][R];
-  float rel[KMAX][3];
-  float dist[KMAX];
-  float w[KMAX];
-  int j[KMAX];
-  int et[KMAX];
-  bool valid[KMAX];
+  float rbf[KC][R];
+  float rel[KC][3];
+  float dist[KC];
+  float w[KC];
+  int j[KC];
+  int et[KC];
+  bool valid[KC];
 };
 
-__device__ __forceinline__ void load_edges(EdgeGeometry& g, const float* __restrict__ x,
-                                           const int64_t* __restrict__ idx,
-                                           const bool* __restrict__ nmask,
-                                           const bool* __restrict__ mlig,
-                                           const float* __restrict__ ew,
-                                           const float* __restrict__ offsets, float coeff,
-                                           long long b, long long bn, int N, int K, int t) {
-  if (t >= KMAX) return;
-  if (t < K) {
-    const long long e = bn * K + t;
-    const long long jn = b * N + idx[e];
-    const bool src_lig = mlig[jn], dst_lig = mlig[bn];
+// Threads [0, KC) of the block fill slot t; the caller synchronises.
+__device__ __forceinline__ void load_edges(EdgeGeometry& g, const EdgeInputs& in, long long b,
+                                           long long bn, int N, int K, int e0, int t) {
+  if (t >= KC) return;
+  if (e0 + t < K) {
+    const long long e = bn * K + e0 + t;
+    const long long jn = b * N + in.idx[e];
+    const bool src_lig = in.mlig[jn], dst_lig = in.mlig[bn];
     g.j[t] = (int)(jn - b * N);
     g.et[t] = src_lig ? (dst_lig ? 0 : 1) : (dst_lig ? 2 : 3);
-    g.valid[t] = nmask[e];
-    g.w[t] = ew[e];
+    g.valid[t] = in.nmask[e];
+    g.w[t] = in.ew[e];
+    const float* x = in.x;
     const float rx = x[3 * bn] - x[3 * jn], ry = x[3 * bn + 1] - x[3 * jn + 1],
                 rz = x[3 * bn + 2] - x[3 * jn + 2];
     g.rel[t][0] = rx;
@@ -174,8 +202,8 @@ __device__ __forceinline__ void load_edges(EdgeGeometry& g, const float* __restr
     g.dist[t] = dist;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const float d = dist - offsets[r];
-      g.rbf[t][r] = expf(coeff * d * d);
+      const float d = dist - in.offsets[r];
+      g.rbf[t][r] = expf(in.coeff * d * d);
     }
   } else {
     g.j[t] = 0;
@@ -189,18 +217,17 @@ __device__ __forceinline__ void load_edges(EdgeGeometry& g, const float* __restr
   }
 }
 
-// First layer of k|v for every edge slot: thread c of 2H writes
-// z[e][c] = ni_i + nj_src + w_et[type] + sum_r rbf_r w_rbf[type][r] (0 for e >= K).
+// First layer of k|v for the chunk's n live slots: thread c of 2H writes
+// z[e][c] = ni_i + nj_src + w_et[type] + sum_r rbf_r w_rbf[type][r] (0 for e >= n).
 __device__ __forceinline__ void first_layer(float (*z)[H2], const EdgeGeometry& g,
-                                            const float* __restrict__ ni,
-                                            const float* __restrict__ nj, const PassParams& p,
-                                            long long b, long long bn, int N, int K, int c) {
-  const float zi = ni[bn * H2 + c];
-  for (int e = 0; e < KMAX; ++e) {
+                                            const EdgeInputs& in, const PassParams& p,
+                                            long long b, long long bn, int N, int n, int c) {
+  const float zi = in.ni[bn * H2 + c];
+  for (int e = 0; e < KC; ++e) {
     float v = 0.f;
-    if (e < K) {
+    if (e < n) {
       const int et = g.et[e];
-      v = zi + nj[(b * N + g.j[e]) * H2 + c] + p.w_et[et * H2 + c];
+      v = zi + in.nj[(b * N + g.j[e]) * H2 + c] + p.w_et[et * H2 + c];
       const float* wr = p.w_rbf + (size_t)et * R * H2 + c;
 #pragma unroll
       for (int r = 0; r < R; ++r) v += g.rbf[e][r] * wr[r * H2];
@@ -210,12 +237,12 @@ __device__ __forceinline__ void first_layer(float (*z)[H2], const EdgeGeometry& 
 }
 
 // LayerNorm + ReLU of each (edge, k|v half) row of z in place, a warp per
-// row. With zhat non-null, also keeps the normalised rows (before scale and
-// bias) and their 1/std for the backward.
-__device__ __forceinline__ void ln_relu_edges(float (*z)[H2], const float* kv_ln, int K,
+// row, for the first n edges. With zhat non-null, also keeps the normalised
+// rows (before scale and bias) and their 1/std for the backward.
+__device__ __forceinline__ void ln_relu_edges(float (*z)[H2], const float* kv_ln, int n,
                                               float (*zhat)[H2], float (*rstd_out)[2], int t) {
   const int warp = t >> 5, lane = t & 31;
-  for (int pair = warp; pair < 2 * K; pair += kThreads / 32) {
+  for (int pair = warp; pair < 2 * n; pair += kThreads / 32) {
     const int e = pair >> 1, half = pair & 1;
     float v[4];
 #pragma unroll
@@ -235,34 +262,72 @@ __device__ __forceinline__ void ln_relu_edges(float (*z)[H2], const float* kv_ln
   }
 }
 
-// Second layer of one output channel cc for all KMAX edge slots:
+// Loads chunk e0 of row bn and, when it holds a valid edge, computes its
+// post-LayerNorm first-layer activations into z (and zhat / rstd, if given).
+// Block-wide; returns whether the chunk holds a valid edge (the same on
+// every thread). A chunk without one is left as loaded: its attention
+// weights are zero, so it contributes nothing.
+__device__ __forceinline__ bool edge_chunk(EdgeGeometry& g, float (*z)[H2], float (*zhat)[H2],
+                                           float (*rstd)[2], const EdgeInputs& in,
+                                           const PassParams& p, long long b, long long bn, int N,
+                                           int K, int e0, int t) {
+  load_edges(g, in, b, bn, N, K, e0, t);
+  if (!__syncthreads_or(t < KC && g.valid[t])) return false;
+  const int n = min(KC, K - e0);
+  first_layer(z, g, in, p, b, bn, N, n, t);
+  __syncthreads();
+  ln_relu_edges(z, p.kv_ln, n, zhat, rstd, t);
+  __syncthreads();
+  return true;
+}
+
+// Second layer of one output channel cc for all KC edge slots:
 // out[e] = bias + sum_m a[e][zoff + m] W[m][cc] (W is [H][ldw]).
-__device__ __forceinline__ void second_layer(float (&out)[KMAX], const float (*a)[H2], int zoff,
+__device__ __forceinline__ void second_layer(float (&out)[KC], const float (*a)[H2], int zoff,
                                              const float* __restrict__ W, int ldw, float bias,
                                              int cc) {
 #pragma unroll
-  for (int e = 0; e < KMAX; ++e) out[e] = bias;
+  for (int e = 0; e < KC; ++e) out[e] = bias;
   for (int m = 0; m < H; m += 4) {
     const float w0 = W[(m + 0) * ldw + cc], w1 = W[(m + 1) * ldw + cc],
                 w2 = W[(m + 2) * ldw + cc], w3 = W[(m + 3) * ldw + cc];
 #pragma unroll
-    for (int e = 0; e < KMAX; ++e) {
+    for (int e = 0; e < KC; ++e) {
       const float4 z4 = *reinterpret_cast<const float4*>(&a[e][zoff + m]);
       out[e] += z4.x * w0 + z4.y * w1 + z4.z * w2 + z4.w * w3;
     }
   }
 }
 
-// Attention weights of one head for a k-channel thread (threads [0, H), whole
-// warps): k[e] holds channel cc of k for every edge; on return it holds
-// alpha[e] of the channel's head (a max-shifted softmax over the valid
-// edges; 0 for invalid ones, all 0 when the row has none), and lanes with
-// cc % DH == 0 store it to alpha_out[e][head].
-__device__ __forceinline__ void head_softmax(float (&k)[KMAX], float qc, const bool* valid,
+// Attention logits of one chunk for a k-channel thread (threads [0, H),
+// whole warps): k[e] holds channel cc of k for each slot; lanes with
+// cc % DH == 0 store q.k / sqrt(dh) of their head to logit[e][head], or
+// -inf for an invalid slot.
+__device__ __forceinline__ void head_logits(const float (&k)[KC], float qc, const bool* valid,
+                                            float (*logit)[NH], int cc) {
+  const float scale = rsqrtf((float)DH);
+#pragma unroll
+  for (int e = 0; e < KC; ++e) {
+    float l = k[e] * qc;
+    l += __shfl_xor_sync(0xffffffffu, l, 4);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    if (cc % DH == 0) logit[e][cc / DH] = valid[e] ? l * scale : -INFINITY;
+  }
+}
+
+// Attention weights of one head for a k-channel thread when the row has a
+// single chunk (threads [0, H), whole warps): k[e] holds channel cc of k for
+// every slot; on return it holds alpha[e] of the channel's head (a
+// max-shifted softmax over the valid slots; 0 for invalid ones, all 0 when
+// the row has none), and lanes with cc % DH == 0 store it to
+// alpha_out[e][head]. Registers only: the weights of head_logits +
+// row_softmax without their shared-memory round trip.
+__device__ __forceinline__ void head_softmax(float (&k)[KC], float qc, const bool* valid,
                                              float (*alpha_out)[NH], int cc) {
   const float scale = rsqrtf((float)DH);
 #pragma unroll
-  for (int e = 0; e < KMAX; ++e) {
+  for (int e = 0; e < KC; ++e) {
     float l = k[e] * qc;
     l += __shfl_xor_sync(0xffffffffu, l, 4);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
@@ -271,21 +336,169 @@ __device__ __forceinline__ void head_softmax(float (&k)[KMAX], float qc, const b
   }
   float mx = -INFINITY;
 #pragma unroll
-  for (int e = 0; e < KMAX; ++e)
+  for (int e = 0; e < KC; ++e)
     if (valid[e]) mx = fmaxf(mx, k[e]);
   float den = 0.f;
 #pragma unroll
-  for (int e = 0; e < KMAX; ++e) {
+  for (int e = 0; e < KC; ++e) {
     k[e] = valid[e] ? expf(k[e] - mx) : 0.f;
     den += k[e];
   }
   const float inv = 1.f / fmaxf(den, 1e-16f);
 #pragma unroll
-  for (int e = 0; e < KMAX; ++e) k[e] *= inv;
+  for (int e = 0; e < KC; ++e) k[e] *= inv;
   if (cc % DH == 0) {
 #pragma unroll
-    for (int e = 0; e < KMAX; ++e) alpha_out[e][cc / DH] = k[e];
+    for (int e = 0; e < KC; ++e) alpha_out[e][cc / DH] = k[e];
   }
+}
+
+// In place, logits [KP][NH] -> attention weights: per head a max-shifted
+// softmax over the row's K edges; invalid edges (-inf) get 0, a row without
+// a valid edge all 0, and slots [K, KP) 0. A warp per head, block-wide.
+__device__ __forceinline__ void row_softmax(float (*a)[NH], int K, int KP, int t) {
+  const int warp = t >> 5, lane = t & 31;
+  for (int hh = warp; hh < NH; hh += kThreads / 32) {
+    float mx = -INFINITY;
+    for (int e = lane; e < K; e += 32) mx = fmaxf(mx, a[e][hh]);
+    mx = warp_max(mx);
+    float den = 0.f;
+    for (int e = lane; e < K; e += 32) {
+      const float v = mx == -INFINITY ? 0.f : expf(a[e][hh] - mx);
+      a[e][hh] = v;
+      den += v;
+    }
+    const float inv = 1.f / fmaxf(warp_sum(den), 1e-16f);
+    for (int e = lane; e < KP; e += 32) a[e][hh] = e < K ? a[e][hh] * inv : 0.f;
+  }
+}
+
+// Dynamic shared memory of edge_kernel: the row's attention weights.
+__host__ __device__ constexpr int edge_smem(int K) {
+  return (K + KC - 1) / KC * KC * NH * (int)sizeof(float);
+}
+
+// One attention sub-layer for one destination row per block (blockIdx.x =
+// row - row0, blockIdx.y = complex). kH2X = false: x2h, writes
+// out = h + attention average of e_w * v (all rows). kH2X = true: h2x,
+// writes out = x + mask_ligand * sum_k mean_h(alpha * e_w * v) * rel (rows
+// from row0). kOneChunk (K <= 32): one pass, k and v together and the
+// softmax in registers. Otherwise pass 1 walks the chunks for the logits,
+// and after the row softmax pass 2 recomputes each chunk's values and sums
+// them.
+template <bool kH2X, bool kOneChunk>
+__global__ void __launch_bounds__(kThreads)
+edge_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restrict__ qn,
+            PassParams p, int N, int K, int row0, float* __restrict__ out) {
+  constexpr int V = kH2X ? NH : H;  // value width
+  __shared__ __align__(16) float s_z[KC][H2];
+  __shared__ EdgeGeometry s_g;
+  extern __shared__ float smem_alpha[];
+  float(*s_alpha)[NH] = reinterpret_cast<float(*)[NH]>(smem_alpha);  // [KP][NH]
+
+  const int t = threadIdx.x;
+  const int warp = t >> 5, lane = t & 31;
+  const long long b = blockIdx.y;
+  const long long bn = b * N + row0 + blockIdx.x;
+  const int nchunk = kOneChunk ? 1 : (K + KC - 1) / KC;
+
+  // threads [0, H) own k channel t, threads [H, H + V) value channel t - H
+  const bool is_k = t < H;
+  const int cc = is_k ? t : t - H;
+  const bool active = is_k || cc < V;
+  const float qc = is_k ? qn[bn * H + cc] : 0.f;
+  float acc[KC];
+  bool live0 = false;
+  if (kOneChunk) {  // k and v together, the softmax in registers
+    live0 = edge_chunk(s_g, s_z, nullptr, nullptr, in, p, b, bn, N, K, 0, t);
+    if (live0 && active) {
+      if (is_k) {
+        second_layer(acc, s_z, 0, p.w2k, H, p.b2k[cc], cc);
+        head_softmax(acc, qc, s_g.valid, s_alpha, cc);
+      } else {
+        second_layer(acc, s_z, H, p.w2v, V, p.b2v[cc], cc);
+      }
+    }
+  } else {  // the logits of every chunk, then the row softmax
+    for (int c = 0; c < nchunk; ++c) {
+      const int e0 = c * KC;
+      const bool live = edge_chunk(s_g, s_z, nullptr, nullptr, in, p, b, bn, N, K, e0, t);
+      if (live && is_k) {
+        second_layer(acc, s_z, 0, p.w2k, H, p.b2k[cc], cc);
+        head_logits(acc, qc, s_g.valid, s_alpha + e0, cc);
+      } else if (!live && is_k && cc % DH == 0) {
+        for (int e = 0; e < KC; ++e) s_alpha[e0 + e][cc / DH] = -INFINITY;
+      }
+      __syncthreads();
+    }
+    row_softmax(s_alpha, K, nchunk * KC, t);
+  }
+  __syncthreads();
+
+  float o = 0.f, d0 = 0.f, d1 = 0.f, d2 = 0.f;
+  for (int c = 0; c < nchunk; ++c) {
+    const int e0 = c * KC;
+    bool live = live0;
+    if (!kOneChunk) {
+      live = edge_chunk(s_g, s_z, nullptr, nullptr, in, p, b, bn, N, K, e0, t);
+      if (live && !is_k && active) second_layer(acc, s_z, H, p.w2v, V, p.b2v[cc], cc);
+    }
+    if (live) {
+      if (!kH2X) {
+        if (!is_k) {
+          const int head = cc / DH;
+#pragma unroll
+          for (int e = 0; e < KC; ++e) o += s_alpha[e0 + e][head] * s_g.w[e] * acc[e];
+        }
+      } else if (warp == H / 32) {  // value channels 0..NH-1 are lanes 0..NH-1
+#pragma unroll
+        for (int e = 0; e < KC; ++e) {
+          float g = cc < NH ? s_alpha[e0 + e][cc] * s_g.w[e] * acc[e] : 0.f;
+          g = warp_sum(g) * (1.f / NH);
+          d0 += g * s_g.rel[e][0];
+          d1 += g * s_g.rel[e][1];
+          d2 += g * s_g.rel[e][2];
+        }
+      }
+    }
+    if (!kOneChunk) __syncthreads();  // the next chunk overwrites s_g and s_z
+  }
+
+  const float* x = in.x;
+  if (!kH2X) {
+    if (!is_k) out[bn * H + cc] = h[bn * H + cc] + o;
+  } else if (warp == H / 32 && lane == 0) {
+    const float gate = in.mlig[bn] ? 1.f : 0.f;
+    out[3 * bn] = x[3 * bn] + gate * d0;
+    out[3 * bn + 1] = x[3 * bn + 1] + gate * d1;
+    out[3 * bn + 2] = x[3 * bn + 2] + gate * d2;
+  }
+}
+
+template <bool kH2X>
+int launch_edge(const float* h, const EdgeInputs& in, const float* q, const PassParams& p, int B,
+                int N, int K, int row0, float* out, cudaStream_t s) {
+  if (B <= 0 || N <= 0 || K <= 0 || K > kMaxLayerK || row0 < 0 || row0 >= N)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(N - row0, B);
+  if (K <= KC) {
+    edge_kernel<kH2X, true><<<grid, kThreads, edge_smem(K), s>>>(h, in, q, p, N, K, row0, out);
+  } else {
+    // the largest dynamic shared memory any K takes, set once per process (one device)
+    static const int attr = (int)cudaFuncSetAttribute(
+        edge_kernel<kH2X, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        edge_smem(kMaxLayerK));
+    if (attr) return attr;
+    edge_kernel<kH2X, false><<<grid, kThreads, edge_smem(K), s>>>(h, in, q, p, N, K, row0, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+int launch_node(const float* h, int rows, const PassParams& p, float* ni, float* nj, float* q,
+                float* q1, cudaStream_t s) {
+  if (rows <= 0) return (int)cudaErrorInvalidValue;
+  node_kernel<<<(rows + kNodes - 1) / kNodes, kThreads, 0, s>>>(h, rows, p, ni, nj, q, q1);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -23,15 +23,16 @@
 //   node_kernel  per pass: h @ [k.h_i | v.h_i | k.h_j | v.h_j | q1] plus the
 //                query MLP's LayerNorm and second layer (8 nodes per block),
 //                so the edge kernels never multiply h per edge.
-//   edge_kernel  per pass: one block per destination row. It builds the K
-//                edges' geometry and RBF features, sums the first layer
-//                from the node projections (gathering the source's) and the
-//                edge-type table, applies LayerNorm+ReLU, runs both second
-//                layers from shared memory with every thread holding all K
-//                edges of one output channel in registers, then the
-//                per-head softmax over K by shuffles and the weighted sum.
-//                x2h writes h' for every row; h2x runs on the ligand rows
-//                (the tail of the composed layout) and writes x'.
+//   edge_kernel  per pass (block_common.cuh, shared with the per-layer
+//                kernels of edge_layer.cu): one block per destination row.
+//                It builds the K edges' geometry and RBF features, sums the
+//                first layer from the node projections (gathering the
+//                source's) and the edge-type table, applies LayerNorm+ReLU,
+//                runs both second layers from shared memory with every
+//                thread holding the edges of one output channel in
+//                registers, then the per-head softmax over K and the
+//                weighted sum. x2h writes h' for every row; h2x runs on the
+//                ligand rows (the tail of the composed layout) and writes x'.
 // All intermediates of an edge stay in shared memory or registers; only the
 // [B, N, K] edge weights and the per-node projections reach device memory.
 // Train mode (td_block_train_fwd) drives the same node and edge kernels over
@@ -90,97 +91,6 @@ ew_kernel(const float* __restrict__ x, const int64_t* __restrict__ idx, int N, i
   }
 }
 
-// One attention sub-layer for one destination row per block (blockIdx.x =
-// row - row0, blockIdx.y = complex). kH2X = false: x2h, writes
-// out = h + attention average of v (all rows). kH2X = true: h2x, writes
-// out = x + mask_ligand * sum_k mean_h(alpha * e_w * v) * rel (rows from row0).
-template <bool kH2X>
-__global__ void __launch_bounds__(kThreads)
-edge_kernel(const float* __restrict__ h, const float* __restrict__ x,
-            const int64_t* __restrict__ idx, const bool* __restrict__ nmask,
-            const bool* __restrict__ mlig, const float* __restrict__ ew,
-            const float* __restrict__ ni, const float* __restrict__ nj,
-            const float* __restrict__ qn, const float* __restrict__ offsets, float coeff,
-            PassParams p, int N, int K, int row0, float* __restrict__ out) {
-  constexpr int V = kH2X ? NH : H;  // value width
-  __shared__ __align__(16) float s_z[KMAX][H2];
-  __shared__ EdgeGeometry s_g;
-  __shared__ float s_alpha[KMAX][NH];
-
-  const int t = threadIdx.x;
-  const int warp = t >> 5, lane = t & 31;
-  const long long b = blockIdx.y;
-  const long long bn = b * N + row0 + blockIdx.x;
-
-  load_edges(s_g, x, idx, nmask, mlig, ew, offsets, coeff, b, bn, N, K, t);
-  __syncthreads();
-  first_layer(s_z, s_g, ni, nj, p, b, bn, N, K, t);
-  __syncthreads();
-  ln_relu_edges(s_z, p.kv_ln, K, nullptr, nullptr, t);
-  __syncthreads();
-
-  // second layers: threads [0, H) compute k channel t, threads [H, H + V)
-  // value channel t - H, each for all KMAX edges
-  const bool is_k = t < H;
-  const int cc = is_k ? t : t - H;
-  const bool active = is_k || cc < V;
-  float acc[KMAX];
-  if (active) {
-    if (is_k) second_layer(acc, s_z, 0, p.w2k, H, p.b2k[cc], cc);
-    else second_layer(acc, s_z, H, p.w2v, V, p.b2v[cc], cc);
-  }
-  // logits q.k / sqrt(dh) per head (8-lane groups), max-shifted softmax over K
-  if (is_k) head_softmax(acc, qn[bn * H + cc], s_g.valid, s_alpha, cc);  // warps 0-3
-  __syncthreads();
-
-  if (!kH2X) {
-    if (!is_k) {
-      const int head = cc / DH;
-      float o = 0.f;
-#pragma unroll
-      for (int e = 0; e < KMAX; ++e) o += s_alpha[e][head] * s_g.w[e] * acc[e];
-      out[bn * H + cc] = h[bn * H + cc] + o;
-    }
-  } else if (warp == H / 32) {  // value channels 0..NH-1 are lanes 0..NH-1
-    float d0 = 0.f, d1 = 0.f, d2 = 0.f;
-#pragma unroll
-    for (int e = 0; e < KMAX; ++e) {
-      float g = cc < NH ? s_alpha[e][cc] * s_g.w[e] * acc[e] : 0.f;
-      g = warp_sum(g) * (1.f / NH);
-      d0 += g * s_g.rel[e][0];
-      d1 += g * s_g.rel[e][1];
-      d2 += g * s_g.rel[e][2];
-    }
-    if (lane == 0) {
-      const float gate = mlig[bn] ? 1.f : 0.f;
-      out[3 * bn] = x[3 * bn] + gate * d0;
-      out[3 * bn + 1] = x[3 * bn + 1] + gate * d1;
-      out[3 * bn + 2] = x[3 * bn + 2] + gate * d2;
-    }
-  }
-}
-
-template <bool kH2X>
-int launch_edge(const float* h, const float* x, const int64_t* idx, const bool* nmask,
-                const bool* mlig, const float* ew, const float* ni, const float* nj,
-                const float* q, const float* offsets, float coeff, PassParams p, int B, int N,
-                int K, int row0, float* out, void* stream) {
-  if (B <= 0 || N <= 0 || K <= 0 || K > KMAX || row0 < 0 || row0 >= N)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(N - row0, B);
-  edge_kernel<kH2X><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      h, x, idx, nmask, mlig, ew, ni, nj, q, offsets, coeff, p, N, K, row0, out);
-  return (int)cudaGetLastError();
-}
-
-int launch_node(const float* h, int rows, PassParams p, float* ni, float* nj, float* q,
-                void* stream) {
-  if (rows <= 0) return (int)cudaErrorInvalidValue;
-  node_kernel<<<(rows + kNodes - 1) / kNodes, kThreads, 0, (cudaStream_t)stream>>>(
-      h, rows, p, ni, nj, q, nullptr);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" int td_block_ew(const float* x, const int64_t* idx, int B, int N, int K,
@@ -197,7 +107,7 @@ extern "C" int td_block_ew(const float* x, const int64_t* idx, int B, int N, int
 
 extern "C" int td_block_node(const float* h, int rows, PassParams p, float* ni, float* nj,
                              float* q, void* stream) {
-  return launch_node(h, rows, p, ni, nj, q, stream);
+  return launch_node(h, rows, p, ni, nj, q, nullptr, (cudaStream_t)stream);
 }
 
 extern "C" int td_block_x2h(const float* h, const float* x, const int64_t* idx,
@@ -205,8 +115,9 @@ extern "C" int td_block_x2h(const float* h, const float* x, const int64_t* idx,
                             const float* ni, const float* nj, const float* q,
                             const float* offsets, float coeff, PassParams p, int B, int N,
                             int K, int row0, float* h_out, void* stream) {
-  return launch_edge<false>(h, x, idx, nmask, mlig, ew, ni, nj, q, offsets, coeff, p, B, N, K,
-                            row0, h_out, stream);
+  if (K > kMaxBlockK) return (int)cudaErrorInvalidValue;
+  const EdgeInputs in{x, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
+  return launch_edge<false>(h, in, q, p, B, N, K, row0, h_out, (cudaStream_t)stream);
 }
 
 extern "C" int td_block_h2x(const float* h, const float* x, const int64_t* idx,
@@ -214,8 +125,9 @@ extern "C" int td_block_h2x(const float* h, const float* x, const int64_t* idx,
                             const float* ni, const float* nj, const float* q,
                             const float* offsets, float coeff, PassParams p, int B, int N,
                             int K, int row0, float* x_out, void* stream) {
-  return launch_edge<true>(h, x, idx, nmask, mlig, ew, ni, nj, q, offsets, coeff, p, B, N, K,
-                           row0, x_out, stream);
+  if (K > kMaxBlockK) return (int)cudaErrorInvalidValue;
+  const EdgeInputs in{x, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
+  return launch_edge<true>(h, in, q, p, B, N, K, row0, x_out, (cudaStream_t)stream);
 }
 
 // Train-mode forward of all L layers. hck [L+1][B][N][H] and xck
@@ -228,7 +140,7 @@ extern "C" int td_block_train_fwd(const float* h0, const float* x0, const int64_
                                   const PassParams* h2x, int L, int B, int N, int K,
                                   int n_ligand, float* ni, float* nj, float* q, float* hck,
                                   float* xck, void* stream) {
-  if (L <= 0 || B <= 0 || N <= 0 || K <= 0 || K > KMAX || n_ligand <= 0 || n_ligand > N)
+  if (L <= 0 || B <= 0 || N <= 0 || K <= 0 || K > kMaxBlockK || n_ligand <= 0 || n_ligand > N)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t hsz = (size_t)B * N * H, xsz = (size_t)B * N * 3;
@@ -241,16 +153,12 @@ extern "C" int td_block_train_fwd(const float* h0, const float* x0, const int64_
   for (int l = 0; l < L && err == 0; ++l) {
     const float* h_in = hck + l * hsz;
     float* h_mid = hck + (l + 1) * hsz;
-    const float* x_in = xck + l * xsz;
-    float* x_out = xck + (l + 1) * xsz;
-    err = launch_node(h_in, B * N, x2h[l], ni, nj, q, stream);
+    const EdgeInputs in{xck + l * xsz, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
+    err = launch_node(h_in, B * N, x2h[l], ni, nj, q, nullptr, s);
+    if (err == 0) err = launch_edge<false>(h_in, in, q, x2h[l], B, N, K, 0, h_mid, s);
+    if (err == 0) err = launch_node(h_mid, B * N, h2x[l], ni, nj, q, nullptr, s);
     if (err == 0)
-      err = launch_edge<false>(h_in, x_in, idx, nmask, mlig, ew, ni, nj, q, offsets, coeff,
-                               x2h[l], B, N, K, 0, h_mid, stream);
-    if (err == 0) err = launch_node(h_mid, B * N, h2x[l], ni, nj, q, stream);
-    if (err == 0)
-      err = launch_edge<true>(h_mid, x_in, idx, nmask, mlig, ew, ni, nj, q, offsets, coeff,
-                              h2x[l], B, N, K, row0, x_out, stream);
+      err = launch_edge<true>(h_mid, in, q, h2x[l], B, N, K, row0, xck + (l + 1) * xsz, s);
   }
   return err;
 }

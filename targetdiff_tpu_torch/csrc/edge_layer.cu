@@ -1,0 +1,56 @@
+// Per-layer attention kernels for Hopper (sm_90a): one x2h or one h2x
+// sub-layer of the UniTransformerO2 (released widths: hidden 128, 16 heads,
+// 20 RBF knots), float32 throughout, for any K up to kMaxLayerK (256).
+//
+// Replaces: targetdiff_tpu/ops/pallas/edge_layer.py:_x2h_kernel
+// (x2h_attention_layer) and :_h2x_kernel (h2x_attention_layer). They carry
+// the paths the whole-block kernels do not take: the hybrid graph (ligand
+// rows see every other ligand atom plus their k nearest protein atoms, so
+// K = max_ligand - 1 + k, 95 at the sampling CLI's defaults) and the
+// per-layer training path. They compute what the TPU kernels compute, not
+// their TPU encodings: neighbours are gathered natively (no one-hot matmuls,
+// no hi|lo split), the head sums are shuffles instead of [H, heads] matrices,
+// and the edge weights come in as an input, as there.
+//
+// What bounds it: as the block kernels' edge passes, the two 128x128 second
+// layers of every live edge on the float32 FMA pipes (~66k FLOP per x2h
+// edge, ~35k per h2x edge); device memory moves only node rows, the
+// [B, N, K] graph and the weights.
+//
+// Design: node_kernel (per-node projections) then edge_kernel (one block per
+// destination row), both in block_common.cuh and shared with the whole-block
+// path. The row's edges go in chunks of 32; the logits of all K edges stay
+// in shared memory for the softmax, and a second walk over the chunks
+// recomputes the values (first layer, LayerNorm, v second layer) rather than
+// keeping [K, 128] of them. Chunks without a valid edge are skipped, which
+// is exact: under the hybrid graph a protein row's 32 valid slots come
+// first, so two of its three chunks at K = 95 cost nothing.
+
+#include "block_common.cuh"
+
+// h_out = x2h(h) for every row. ni, nj [B*N][2H] and q [B*N][H] are scratch.
+extern "C" int td_x2h_layer(const float* h, const float* x, const int64_t* idx,
+                            const bool* nmask, const bool* mlig, const float* ew,
+                            const float* offsets, float coeff, PassParams p, int B, int N,
+                            int K, float* ni, float* nj, float* q, float* h_out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const EdgeInputs in{x, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
+  int err = launch_node(h, B * N, p, ni, nj, q, nullptr, s);
+  if (err == 0) err = launch_edge<false>(h, in, q, p, B, N, K, 0, h_out, s);
+  return err;
+}
+
+// The ligand tail (the last n_ligand rows) of x_out = h2x(h, x); x_out must
+// hold x on entry, and its protein rows are left as they are.
+extern "C" int td_h2x_layer(const float* h, const float* x, const int64_t* idx,
+                            const bool* nmask, const bool* mlig, const float* ew,
+                            const float* offsets, float coeff, PassParams p, int B, int N,
+                            int K, int n_ligand, float* ni, float* nj, float* q, float* x_out,
+                            void* stream) {
+  if (n_ligand <= 0 || n_ligand > N) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const EdgeInputs in{x, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
+  int err = launch_node(h, B * N, p, ni, nj, q, nullptr, s);
+  if (err == 0) err = launch_edge<true>(h, in, q, p, B, N, K, N - n_ligand, x_out, s);
+  return err;
+}

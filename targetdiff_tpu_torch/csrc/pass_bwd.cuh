@@ -1,0 +1,764 @@
+// One attention pass's backward, shared by the whole-block backward
+// (block_vjp.cu) and the per-layer backwards (edge_layer_vjp.cu): the exact
+// VJP of edge_kernel (block_common.cuh) for any K up to kMaxLayerK, float32.
+//
+// Per pass (run_pass):
+//   node_kernel     recomputes the per-node projections ni, nj, q (and q's
+//                   first-layer output q1) of the pass.
+//   edge_bwd_kernel one block per destination row. Pass 1 walks the row's
+//                   edges in chunks of 32, recomputing the forward (geometry,
+//                   first layer, LayerNorm, second layers) for the logits
+//                   and P = d alpha / e_w of every edge, kept in shared
+//                   memory; after the row softmax, pass 2 walks the chunks
+//                   again backward: softmax, second layers (transposed
+//                   weights), LayerNorm+ReLU, the RBF table and the
+//                   geometry. With one chunk (K <= 32) pass 2 reuses pass 1's
+//                   activations; with more it recomputes the chunk and its
+//                   k. It writes per-row sums (the destination projection's
+//                   gradient, dq, bias and LayerNorm partials) to a row
+//                   buffer, and per-edge rows (post-LN activations, their
+//                   output gradients, the first layer's gradient dz, the
+//                   edge-feature row and d rel) for the passes below; d e_w
+//                   and the destination's d x in place. A chunk without a
+//                   valid edge has exactly zero gradient: its rows are
+//                   written as zeros and its work skipped.
+//   gather_kernel   the source side, deterministic: an inverse adjacency
+//                   (edges grouped by source, ascending, built by
+//                   adj_kernel) sums each source's dz rows into its d nj and
+//                   subtracts its d rel rows from its d x.
+//   node_bwd_kernel the query MLP's backward and dh += dproj @ w_node^T.
+//   atb_kernel      weight gradients X^T Y (second layers over edges, RBF
+//                   and edge-type tables over edges, w_node and q's second
+//                   layer over nodes), split over row chunks into partial
+//                   tiles that reduce_kernel sums in a fixed order; bias and
+//                   LayerNorm gradients are column sums of the row buffer.
+// Every sum has a fixed order, so the result is deterministic.
+#pragma once
+
+#include "block_common.cuh"
+
+// Gradient outputs of one layer's pass, laid out as PassParams; tab is the
+// [4R + 4][2H] table of w_rbf ([4][R][2H]) followed by w_et ([4][2H]).
+struct PassGrads {
+  float* w_node;
+  float* b_node;
+  float* q_ln;
+  float* w_q2;
+  float* b_q2;
+  float* tab;
+  float* kv_ln;
+  float* w2k;
+  float* b2k;
+  float* w2v;
+  float* b2v;
+};
+
+// Transposed copies of one layer's pass weights for the backward products.
+struct PassT {
+  const float* w_nodeT;  // [5H][H]
+  const float* w_q2T;    // [H][H]
+  const float* w2kT;     // [H][H]
+  const float* w2vT;     // [V][H]
+};
+
+namespace {
+
+constexpr int FE = 4 * R + 4;              // edge-feature row: rbf x type | type
+constexpr long long kPartialCap = 1 << 22;  // floats of split-reduction scratch
+constexpr int kAdjMaxN = 4096;             // nodes per complex for adj_kernel
+
+// Row-buffer layout of one pass (V = value width): per node
+// [dproj 5H | kv_ln scale 2H, bias 2H | b2k H, b2v V | dq H | q_ln scale H, bias H].
+__host__ __device__ constexpr int off_kvln() { return H5; }
+__host__ __device__ constexpr int off_db2() { return H5 + 2 * H2; }
+__host__ __device__ constexpr int off_dq(int V) { return off_db2() + H + V; }
+__host__ __device__ constexpr int off_qln(int V) { return off_dq(V) + H; }
+__host__ __device__ constexpr int row_width(int V) { return off_qln(V) + 2 * H; }
+
+struct EdgeBwdArgs {
+  const float* h;  // [B*N][H] the pass's input h
+  EdgeInputs in;   // x = the pass's input x
+  const float* q;  // [B*N][H]
+  PassParams p;
+  PassT pt;
+  int N, K, row0;
+  const float* dh;  // [B*N][H] x2h: cotangent of the pass output
+  float* dx;        // [B*N][3] in place: h2x reads it as the cotangent
+  float* dew;       // [B*N][K] accumulated
+  float* rowbuf;    // [B*N][row_width(V)]
+  float* A;         // [Ep][2H] post-LN k|v activations
+  float* dKV;       // [Ep][H + V] gradients of k|v
+  float* dZ;        // [Ep][2H] gradients of the first layer's output
+  float* F;         // [Ep][FE] edge-feature rows
+  float* drel;      // [Ep][3]
+};
+
+// Dynamic shared memory of edge_bwd_kernel: three [KC][2H] chunk buffers,
+// then per edge of the row alpha and P (and, for h2x, v) [KP][NH], e_w and
+// the h2x gate [KP], KP = K rounded up to chunks.
+__host__ __device__ constexpr int bwd_smem(int K, bool h2x) {
+  return (3 * KC * H2 + (K + KC - 1) / KC * KC * (NH * (h2x ? 3 : 2) + 2)) * (int)sizeof(float);
+}
+
+template <bool kH2X>
+__global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
+  constexpr int V = kH2X ? NH : H;
+  constexpr int W = row_width(V);
+  const int N = a.N, K = a.K, row0 = a.row0;
+  const int nchunk = (K + KC - 1) / KC, KP = nchunk * KC;
+  extern __shared__ __align__(16) float smem[];
+  float(*s_a)[H2] = reinterpret_cast<float(*)[H2]>(smem);               // a, then da, then dy
+  float(*s_zh)[H2] = reinterpret_cast<float(*)[H2]>(smem + KC * H2);     // normalised z
+  float(*s_d)[H2] = reinterpret_cast<float(*)[H2]>(smem + 2 * KC * H2);  // dk|dv, then dz
+  float(*s_alpha)[NH] = reinterpret_cast<float(*)[NH]>(smem + 3 * KC * H2);  // logits, alpha
+  float(*s_P)[NH] = s_alpha + KP;  // d alpha = e_w * P, d e_w = sum_h alpha P
+  float(*s_v)[NH] = s_P + KP;      // h2x: the values
+  float* s_w = reinterpret_cast<float*>(s_P + KP) + (kH2X ? KP * NH : 0);  // e_w
+  float* s_sdir = s_w + KP;        // h2x: s_e = mean_h(alpha e_w v)
+  __shared__ EdgeGeometry s_g;
+  __shared__ float s_rstd[KC][2];
+  __shared__ float s_drbf[KC][R];
+  __shared__ float s_drel[KC][3];
+  __shared__ float s_gx[3];  // h2x: mask_ligand * d x_out of this row
+  __shared__ float s_dot[NH];
+
+  const int t = threadIdx.x;
+  const int warp = t >> 5, lane = t & 31;
+  const long long b = blockIdx.y;
+  const long long bn = b * N + row0 + blockIdx.x;
+  const long long eb = (b * (N - row0) + blockIdx.x) * K;  // first pass-local edge of the row
+  const PassParams& p = a.p;
+  float* rb = a.rowbuf + bn * W;
+  const bool is_k = t < H;
+  const int cc = is_k ? t : t - H;
+  const bool active = is_k || cc < V;
+  const float qc = is_k ? a.q[bn * H + cc] : 0.f;
+  const float gc = (!kH2X && !is_k) ? a.dh[bn * H + cc] : 0.f;
+  if (kH2X && t < 3) s_gx[t] = a.in.mlig[bn] ? a.dx[3 * bn + t] : 0.f;
+
+  // ---- pass 1: logits and P of every edge (h2x: and v) ----
+  float acc[KC];
+  bool live0 = false;
+  for (int c = 0; c < nchunk; ++c) {
+    const int e0 = c * KC;
+    const bool live = edge_chunk(s_g, s_a, s_zh, s_rstd, a.in, p, b, bn, N, K, e0, t);
+    if (c == 0) live0 = live;
+    if (t < KC) s_w[e0 + t] = s_g.w[t];
+    if (live) {
+      if (active) {
+        if (is_k) second_layer(acc, s_a, 0, p.w2k, H, p.b2k[cc], cc);
+        else second_layer(acc, s_a, H, p.w2v, V, p.b2v[cc], cc);
+      }
+      if (is_k) {
+        head_logits(acc, qc, s_g.valid, s_alpha + e0, cc);
+      } else if (!kH2X) {  // value channel cc, warps 4-7; heads are 8-lane groups
+#pragma unroll
+        for (int e = 0; e < KC; ++e) {
+          float pv = gc * acc[e];
+          pv += __shfl_xor_sync(0xffffffffu, pv, 4);
+          pv += __shfl_xor_sync(0xffffffffu, pv, 2);
+          pv += __shfl_xor_sync(0xffffffffu, pv, 1);
+          if (cc % DH == 0) s_P[e0 + e][cc / DH] = pv;
+        }
+      } else if (cc < NH) {  // value channels 0..NH-1: lanes 0..NH-1 of warp 4
+#pragma unroll
+        for (int e = 0; e < KC; ++e) {
+          const float ds = (s_gx[0] * s_g.rel[e][0] + s_gx[1] * s_g.rel[e][1] +
+                            s_gx[2] * s_g.rel[e][2]) * (1.f / NH);
+          s_v[e0 + e][cc] = acc[e];
+          s_P[e0 + e][cc] = ds * acc[e];
+        }
+      }
+    } else {
+      for (int u = t; u < KC * NH; u += kThreads) {
+        const int e = e0 + u / NH, hh = u % NH;
+        s_alpha[e][hh] = -INFINITY;
+        s_P[e][hh] = 0.f;
+        if (kH2X) s_v[e][hh] = 0.f;
+      }
+    }
+    __syncthreads();
+  }
+  row_softmax(s_alpha, K, KP, t);
+  __syncthreads();
+
+  // ---- d e_w, the softmax dot per head, h2x gates ----
+  for (int e = t; e < K; e += kThreads) {
+    float d = 0.f, sv = 0.f;
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) {
+      d += s_alpha[e][hh] * s_P[e][hh];
+      if (kH2X) sv += s_alpha[e][hh] * s_v[e][hh];
+    }
+    a.dew[bn * K + e] += d;
+    if (kH2X) s_sdir[e] = sv * s_w[e] * (1.f / NH);
+  }
+  for (int hh = warp; hh < NH; hh += kThreads / 32) {
+    float s = 0.f;
+    for (int e = lane; e < K; e += 32) s += s_alpha[e][hh] * s_w[e] * s_P[e][hh];
+    s = warp_sum(s);
+    if (lane == 0) s_dot[hh] = s;
+  }
+  __syncthreads();
+
+  // ---- pass 2: each chunk backward ----
+  const float scale = rsqrtf((float)DH);
+  float dq = 0.f;
+  for (int c = 0; c < nchunk; ++c) {
+    const int e0 = c * KC;
+    const int n = min(KC, K - e0);
+    const long long ec = eb + e0;  // the chunk's first pass-local edge
+    bool live = live0;
+    if (nchunk > 1) {
+      live = edge_chunk(s_g, s_a, s_zh, s_rstd, a.in, p, b, bn, N, K, e0, t);
+      if (live && is_k) second_layer(acc, s_a, 0, p.w2k, H, p.b2k[cc], cc);
+    }
+    if (!live) {  // zero gradient: zero rows for the products below
+      for (int u = t; u < n * H2; u += kThreads) {
+        a.A[ec * H2 + u] = 0.f;
+        a.dZ[ec * H2 + u] = 0.f;
+      }
+      for (int u = t; u < n * (H + V); u += kThreads) a.dKV[ec * (H + V) + u] = 0.f;
+      for (int u = t; u < n * FE; u += kThreads) a.F[ec * FE + u] = 0.f;
+      for (int u = t; u < n * 3; u += kThreads) a.drel[ec * 3 + u] = 0.f;
+      continue;
+    }
+    for (int u = t; u < n * H2; u += kThreads) a.A[ec * H2 + u] = s_a[u / H2][u % H2];
+
+    // softmax backward -> dk (and dq); dv
+    if (is_k) {
+      const int head = cc / DH;
+#pragma unroll
+      for (int e = 0; e < KC; ++e) {
+        const float al = s_alpha[e0 + e][head];
+        const float dl = al * (s_w[e0 + e] * s_P[e0 + e][head] - s_dot[head]) * scale;
+        dq += dl * acc[e];
+        s_d[e][cc] = dl * qc;
+      }
+    } else if (!kH2X) {
+      const int head = cc / DH;
+#pragma unroll
+      for (int e = 0; e < KC; ++e) s_d[e][H + cc] = gc * s_alpha[e0 + e][head] * s_w[e0 + e];
+    } else if (cc < NH) {
+#pragma unroll
+      for (int e = 0; e < KC; ++e) {
+        const float ds = (s_gx[0] * s_g.rel[e][0] + s_gx[1] * s_g.rel[e][1] +
+                          s_gx[2] * s_g.rel[e][2]) * (1.f / NH);
+        s_d[e][H + cc] = ds * s_alpha[e0 + e][cc] * s_w[e0 + e];
+      }
+    }
+    __syncthreads();
+
+    // second layers backward: da = d @ W2^T
+    for (int u = t; u < n * (H + V); u += kThreads) {
+      const int e = u / (H + V), cl = u % (H + V);
+      a.dKV[(ec + e) * (H + V) + cl] = s_d[e][cl];
+    }
+    if (t < H + V) {
+      float s = 0.f;
+      for (int e = 0; e < n; ++e) s += s_d[e][t];
+      rb[off_db2() + t] += s;
+    }
+    {
+      const int m = cc;  // output row of W2 (an input channel of the second layer)
+      const float* WT = is_k ? a.pt.w2kT : a.pt.w2vT;  // [C][H]
+      const int C = is_k ? H : V;
+      const int doff = is_k ? 0 : H;
+#pragma unroll
+      for (int e = 0; e < KC; ++e) acc[e] = 0.f;
+      for (int cl = 0; cl < C; cl += 4) {
+        const float w0 = WT[(cl + 0) * H + m], w1 = WT[(cl + 1) * H + m],
+                    w2 = WT[(cl + 2) * H + m], w3 = WT[(cl + 3) * H + m];
+#pragma unroll
+        for (int e = 0; e < KC; ++e) {
+          const float4 d4 = *reinterpret_cast<const float4*>(&s_d[e][doff + cl]);
+          acc[e] += d4.x * w0 + d4.y * w1 + d4.z * w2 + d4.w * w3;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < KC; ++e) s_a[e][t] = acc[e];
+    }
+    __syncthreads();
+
+    // LayerNorm + ReLU backward per (edge, half): dy -> s_a, dz -> s_d
+    for (int pair = warp; pair < 2 * n; pair += kThreads / 32) {
+      const int e = pair >> 1, half = pair & 1;
+      const float* lsc = p.kv_ln + half * H;
+      const float* lbi = p.kv_ln + H2 + half * H;
+      float dy[4], zh[4], m1 = 0.f, m2 = 0.f;
+#pragma unroll
+      for (int q4 = 0; q4 < 4; ++q4) {
+        const int cl = half * H + lane + 32 * q4;
+        const int cs = lane + 32 * q4;
+        zh[q4] = s_zh[e][cl];
+        const float y = zh[q4] * lsc[cs] + lbi[cs];
+        dy[q4] = y > 0.f ? s_a[e][cl] : 0.f;
+        s_a[e][cl] = dy[q4];
+        const float dzh = dy[q4] * lsc[cs];
+        m1 += dzh;
+        m2 += dzh * zh[q4];
+      }
+      m1 = warp_sum(m1) * (1.f / H);
+      m2 = warp_sum(m2) * (1.f / H);
+      const float rstd = s_rstd[e][half];
+#pragma unroll
+      for (int q4 = 0; q4 < 4; ++q4) {
+        const int cs = lane + 32 * q4;
+        s_d[e][half * H + cs] = rstd * (dy[q4] * lsc[cs] - m1 - zh[q4] * m2);
+      }
+    }
+    __syncthreads();
+
+    // per-channel sums: kv LayerNorm partials, d ni; per-edge rows
+    {
+      const int cl = t;  // kThreads == 2H
+      float dsc = 0.f, dbi = 0.f, dn = 0.f;
+      for (int e = 0; e < n; ++e) {
+        dsc += s_a[e][cl] * s_zh[e][cl];
+        dbi += s_a[e][cl];
+        dn += s_d[e][cl];
+      }
+      rb[off_kvln() + cl] += dsc;
+      rb[off_kvln() + H2 + cl] += dbi;
+      rb[cl] += dn;
+    }
+    for (int u = t; u < n * H2; u += kThreads) a.dZ[ec * H2 + u] = s_d[u / H2][u % H2];
+    for (int u = t; u < n * FE; u += kThreads) {
+      const int e = u / FE, f = u % FE;
+      const int et = s_g.et[e];
+      float v;
+      if (f < 4 * R) v = (f / R == et) ? s_g.rbf[e][f % R] : 0.f;
+      else v = (f - 4 * R == et) ? 1.f : 0.f;
+      a.F[(ec + e) * FE + f] = v;
+    }
+    // d rbf[e][r] = dz[e] . w_rbf[type][r], a warp per (edge, knot)
+    for (int pr = warp; pr < n * R; pr += kThreads / 32) {
+      const int e = pr / R, r = pr % R;
+      const float* wr = p.w_rbf + ((size_t)s_g.et[e] * R + r) * H2;
+      float s = 0.f;
+#pragma unroll
+      for (int q8 = 0; q8 < 8; ++q8) s += s_d[e][lane + 32 * q8] * wr[lane + 32 * q8];
+      s = warp_sum(s);
+      if (lane == 0) s_drbf[e][r] = s;
+    }
+    __syncthreads();
+
+    // geometry: d dist -> d rel (x_dst gets +, x_src gets - in gather_kernel)
+    if (t < KC) {
+      float d3[3] = {0.f, 0.f, 0.f};
+      if (t < n) {
+        const float dist = s_g.dist[t];
+        float dd = 0.f;
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          dd += s_drbf[t][r] * 2.f * a.in.coeff * (dist - a.in.offsets[r]) * s_g.rbf[t][r];
+        const float f = dd / fmaxf(dist, 1e-16f);
+#pragma unroll
+        for (int k3 = 0; k3 < 3; ++k3) {
+          d3[k3] = f * s_g.rel[t][k3] + (kH2X ? s_gx[k3] * s_sdir[e0 + t] : 0.f);
+          a.drel[(ec + t) * 3 + k3] = d3[k3];
+        }
+      }
+#pragma unroll
+      for (int k3 = 0; k3 < 3; ++k3) s_drel[t][k3] = d3[k3];
+    }
+    __syncthreads();
+    if (t < 3) {
+      float s = 0.f;
+      for (int e = 0; e < n; ++e) s += s_drel[e][t];
+      a.dx[3 * bn + t] += s;
+    }
+    __syncthreads();  // the next chunk overwrites the chunk buffers
+  }
+  if (is_k) rb[off_dq(V) + cc] = dq;
+}
+
+// Inverse adjacency of one pass, one block per complex: off [N+1] and list
+// [(N - row0) * K] group the valid edges whose destination lies in
+// [row0, N) by source, each group ascending by pass-local edge id.
+__global__ void __launch_bounds__(1024)
+adj_kernel(const int64_t* __restrict__ idx, const bool* __restrict__ nmask, int N, int K,
+           int row0, int* __restrict__ off_all, int* __restrict__ list_all) {
+  __shared__ int s_cnt[kAdjMaxN];
+  __shared__ int s_off[kAdjMaxN + 1];
+  const int t = threadIdx.x;
+  const long long b = blockIdx.x;
+  const int E = (N - row0) * K;
+  int* off = off_all + b * (N + 1);
+  int* list = list_all + b * E;
+  for (int j = t; j < N; j += blockDim.x) s_cnt[j] = 0;
+  __syncthreads();
+  for (int u = t; u < E; u += blockDim.x) {
+    const long long e = (b * N + row0) * K + u;
+    if (nmask[e]) atomicAdd(&s_cnt[idx[e]], 1);
+  }
+  __syncthreads();
+  if (t == 0) {
+    int run = 0;
+    for (int j = 0; j < N; ++j) {
+      s_off[j] = run;
+      run += s_cnt[j];
+    }
+    s_off[N] = run;
+  }
+  __syncthreads();
+  for (int j = t; j <= N; j += blockDim.x) off[j] = s_off[j];
+  for (int j = t; j < N; j += blockDim.x) s_cnt[j] = 0;
+  __syncthreads();
+  for (int u = t; u < E; u += blockDim.x) {
+    const long long e = (b * N + row0) * K + u;
+    if (nmask[e]) {
+      const int j = (int)idx[e];
+      list[s_off[j] + atomicAdd(&s_cnt[j], 1)] = u;
+    }
+  }
+  __syncthreads();
+  for (int j = t; j < N; j += blockDim.x) {  // insertion sort: a fixed order per source
+    int* seg = list + s_off[j];
+    const int n = s_off[j + 1] - s_off[j];
+    for (int u = 1; u < n; ++u) {
+      const int v = seg[u];
+      int w = u - 1;
+      while (w >= 0 && seg[w] > v) {
+        seg[w + 1] = seg[w];
+        --w;
+      }
+      seg[w + 1] = v;
+    }
+  }
+}
+
+// Source side of one pass, one block per (source node, complex):
+// rowbuf[2H, 4H) = sum of its edges' dz rows (d nj), dx -= sum of their d rel.
+__global__ void __launch_bounds__(kThreads)
+gather_kernel(const int* __restrict__ off_all, const int* __restrict__ list_all, int N, int K,
+              int rows_pass, const float* __restrict__ dZ, const float* __restrict__ drel,
+              float* __restrict__ rowbuf, int W, float* __restrict__ dx) {
+  const int t = threadIdx.x;
+  const long long b = blockIdx.y;
+  const int j = blockIdx.x;
+  const long long bn = b * N + j;
+  const int* off = off_all + b * (N + 1);
+  const int* list = list_all + b * (long long)rows_pass * K;
+  const long long ebase = b * (long long)rows_pass * K;
+  const int beg = off[j], end = off[j + 1];
+  float s = 0.f;
+  for (int u = beg; u < end; ++u) s += dZ[(ebase + list[u]) * H2 + t];
+  rowbuf[bn * W + H2 + t] = s;
+  if (t < 3) {
+    float r = 0.f;
+    for (int u = beg; u < end; ++u) r += drel[(ebase + list[u]) * 3 + t];
+    dx[3 * bn + t] -= r;
+  }
+}
+
+// Query MLP backward and the node projections' input gradient, 8 nodes per
+// block: dq (rowbuf) -> dq1 (rowbuf dproj[4H, 5H)), q LayerNorm partials and
+// qa = relu(LN(q1)) for the w_q2 gradient; then dh += dproj @ w_node^T.
+__global__ void __launch_bounds__(kThreads)
+node_bwd_kernel(const float* __restrict__ q1, PassParams p, PassT pt, int rows, int W,
+                int off_dq_, int off_qln_, float* __restrict__ rowbuf, float* __restrict__ qa,
+                float* __restrict__ dh) {
+  __shared__ float s_dp[kNodes][H5];
+  __shared__ float s_dq[kNodes][H];
+  __shared__ float s_da[kNodes][H];
+  const int t = threadIdx.x;
+  const int warp = t >> 5, lane = t & 31;
+  const long long n0 = (long long)blockIdx.x * kNodes;
+  for (int u = t; u < kNodes * H; u += kThreads) {
+    const int nn = u / H, c = u % H;
+    s_dq[nn][c] = (n0 + nn < rows) ? rowbuf[(n0 + nn) * W + off_dq_ + c] : 0.f;
+  }
+  for (int u = t; u < kNodes * 4 * H; u += kThreads) {
+    const int nn = u / (4 * H), c = u % (4 * H);
+    s_dp[nn][c] = (n0 + nn < rows) ? rowbuf[(n0 + nn) * W + c] : 0.f;
+  }
+  __syncthreads();
+  if (t < H) {  // d qa = dq @ w_q2^T
+    float acc[kNodes];
+#pragma unroll
+    for (int nn = 0; nn < kNodes; ++nn) acc[nn] = 0.f;
+    for (int c = 0; c < H; ++c) {
+      const float w = pt.w_q2T[c * H + t];
+#pragma unroll
+      for (int nn = 0; nn < kNodes; ++nn) acc[nn] += s_dq[nn][c] * w;
+    }
+#pragma unroll
+    for (int nn = 0; nn < kNodes; ++nn) s_da[nn][t] = acc[nn];
+  }
+  __syncthreads();
+  {  // a warp per node: LayerNorm + ReLU of q1, its backward
+    const int nn = warp;  // kThreads / 32 == kNodes
+    const long long n = n0 + nn;
+    float v[4], zh[4], dy[4];
+#pragma unroll
+    for (int q4 = 0; q4 < 4; ++q4) v[q4] = n < rows ? q1[n * H + lane + 32 * q4] : 0.f;
+    float mean, rstd;
+    ln_stats(v, mean, rstd);
+    float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int q4 = 0; q4 < 4; ++q4) {
+      const int c = lane + 32 * q4;
+      zh[q4] = (v[q4] - mean) * rstd;
+      const float y = zh[q4] * p.q_ln[c] + p.q_ln[H + c];
+      dy[q4] = y > 0.f ? s_da[nn][c] : 0.f;
+      if (n < rows) {
+        qa[n * H + c] = fmaxf(y, 0.f);
+        rowbuf[n * W + off_qln_ + c] = dy[q4] * zh[q4];
+        rowbuf[n * W + off_qln_ + H + c] = dy[q4];
+      }
+      const float dzh = dy[q4] * p.q_ln[c];
+      m1 += dzh;
+      m2 += dzh * zh[q4];
+    }
+    m1 = warp_sum(m1) * (1.f / H);
+    m2 = warp_sum(m2) * (1.f / H);
+#pragma unroll
+    for (int q4 = 0; q4 < 4; ++q4) {
+      const int c = lane + 32 * q4;
+      const float dq1 = rstd * (dy[q4] * p.q_ln[c] - m1 - zh[q4] * m2);
+      s_dp[nn][4 * H + c] = dq1;
+      if (n < rows) rowbuf[n * W + 4 * H + c] = dq1;
+    }
+  }
+  __syncthreads();
+  {  // dh[n][m] += sum_c dproj[n][c] w_node[m][c], two threads per channel m
+    const int m = t % H, sub = t / H;
+    float acc[kNodes / 2];
+#pragma unroll
+    for (int i = 0; i < kNodes / 2; ++i) acc[i] = 0.f;
+    for (int c = 0; c < H5; ++c) {
+      const float w = pt.w_nodeT[c * H + m];
+#pragma unroll
+      for (int i = 0; i < kNodes / 2; ++i) acc[i] += s_dp[sub + 2 * i][c] * w;
+    }
+#pragma unroll
+    for (int i = 0; i < kNodes / 2; ++i) {
+      const long long n = n0 + sub + 2 * i;
+      if (n < rows) dh[n * H + m] += acc[i];
+    }
+  }
+}
+
+// partial[z] = X[rows of chunk z]^T Y[rows of chunk z], X [M][ldx] (first P
+// columns), Y [M][ldy] (first Q columns); 128x128 output tile per block,
+// 8x8 per thread.
+constexpr int kTile = 128, kTM = 8;
+
+__global__ void __launch_bounds__(kThreads)
+atb_kernel(const float* __restrict__ X, int ldx, const float* __restrict__ Y, int ldy,
+           long long M, int P, int Q, long long chunk, float* __restrict__ partial) {
+  __shared__ __align__(16) float sx[kTM][kTile];
+  __shared__ __align__(16) float sy[kTM][kTile];
+  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
+  const int p0 = blockIdx.x * kTile, q0 = blockIdx.y * kTile;
+  const long long mb = blockIdx.z * chunk;
+  const long long me = mb + chunk < M ? mb + chunk : M;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  for (long long m0 = mb; m0 < me; m0 += kTM) {
+    for (int u = t; u < kTM * kTile; u += kThreads) {
+      const int mm = u / kTile, c = u % kTile;
+      const long long m = m0 + mm;
+      sx[mm][c] = (m < me && p0 + c < P) ? X[m * ldx + p0 + c] : 0.f;
+      sy[mm][c] = (m < me && q0 + c < Q) ? Y[m * ldy + q0 + c] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int mm = 0; mm < kTM; ++mm) {
+      const float4 xa = *reinterpret_cast<const float4*>(&sx[mm][ty * 4]);
+      const float4 xb = *reinterpret_cast<const float4*>(&sx[mm][64 + ty * 4]);
+      const float4 ya = *reinterpret_cast<const float4*>(&sy[mm][tx * 4]);
+      const float4 yb = *reinterpret_cast<const float4*>(&sy[mm][64 + tx * 4]);
+      const float xv[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+      const float yv[8] = {ya.x, ya.y, ya.z, ya.w, yb.x, yb.y, yb.z, yb.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] += xv[i] * yv[j];
+    }
+    __syncthreads();
+  }
+  float* out = partial + (size_t)blockIdx.z * P * Q;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int pp = p0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (pp >= P) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int qq = q0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+      if (qq < Q) out[(size_t)pp * Q + qq] = acc[i][j];
+    }
+  }
+}
+
+// partial[z][c] = sum of Y[m][c] over the rows of chunk z.
+__global__ void __launch_bounds__(kThreads)
+colsum_kernel(const float* __restrict__ Y, int ldy, long long M, int Q, long long chunk,
+              float* __restrict__ partial) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= Q) return;
+  const long long mb = blockIdx.y * chunk;
+  const long long me = mb + chunk < M ? mb + chunk : M;
+  float s = 0.f;
+  for (long long m = mb; m < me; ++m) s += Y[m * ldy + c];
+  partial[(size_t)blockIdx.y * Q + c] = s;
+}
+
+// out[i] = sum over z of partial[z][i], z ascending.
+__global__ void __launch_bounds__(kThreads)
+reduce_kernel(const float* __restrict__ partial, int S, long long n, float* __restrict__ out) {
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += (long long)gridDim.x * kThreads) {
+    float s = 0.f;
+    for (int z = 0; z < S; ++z) s += partial[(size_t)z * n + i];
+    out[i] = s;
+  }
+}
+
+int grid_for(long long n) {
+  const long long g = (n + kThreads - 1) / kThreads;
+  return (int)(g < 4096 ? g : 4096);
+}
+
+// Number of row chunks for a split reduction over M rows of `tiles` output
+// tiles of n floats: enough blocks for the card, >= 256 rows per chunk, and
+// partials within the scratch.
+long long chunks_for(long long M, long long tiles, long long n) {
+  long long s = (M + 255) / 256;
+  const long long target = (528 + tiles - 1) / tiles;
+  if (s > target) s = target;
+  if (s > kPartialCap / n) s = kPartialCap / n;
+  return s < 1 ? 1 : s;
+}
+
+int atb(const float* X, int ldx, const float* Y, int ldy, long long M, int P, int Q, float* out,
+        float* partial, cudaStream_t s) {
+  const int tp = (P + kTile - 1) / kTile, tq = (Q + kTile - 1) / kTile;
+  const long long S = chunks_for(M, (long long)tp * tq, (long long)P * Q);
+  const long long chunk = (M + S - 1) / S;
+  atb_kernel<<<dim3(tp, tq, (unsigned)S), kThreads, 0, s>>>(X, ldx, Y, ldy, M, P, Q, chunk,
+                                                           partial);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  reduce_kernel<<<grid_for((long long)P * Q), kThreads, 0, s>>>(partial, (int)S,
+                                                                (long long)P * Q, out);
+  return (int)cudaGetLastError();
+}
+
+int colsum(const float* Y, int ldy, long long M, int Q, float* out, float* partial,
+           cudaStream_t s) {
+  const int tq = (Q + kThreads - 1) / kThreads;
+  const long long S = chunks_for(M, tq, Q);
+  const long long chunk = (M + S - 1) / S;
+  colsum_kernel<<<dim3(tq, (unsigned)S), kThreads, 0, s>>>(Y, ldy, M, Q, chunk, partial);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  reduce_kernel<<<grid_for(Q), kThreads, 0, s>>>(partial, (int)S, Q, out);
+  return (int)cudaGetLastError();
+}
+
+struct Workspace {
+  float *ni, *nj, *q, *q1, *qa, *rowbuf, *A, *dKV, *dZ, *F, *drel, *vec, *partial;
+  int *off_x, *list_x, *off_h, *list_h;
+};
+
+void carve(float* w, int* iw, long long B, long long N, long long K, long long nl, Workspace* ws,
+           long long* floats, long long* ints) {
+  const long long BN = B * N, Ep = B * N * K;
+  long long o = 0;
+  auto take = [&](long long n) {
+    float* ptr = w ? w + o : nullptr;
+    o += (n + 3) / 4 * 4;
+    return ptr;
+  };
+  ws->ni = take(BN * H2);
+  ws->nj = take(BN * H2);
+  ws->q = take(BN * H);
+  ws->q1 = take(BN * H);
+  ws->qa = take(BN * H);
+  ws->rowbuf = take(BN * row_width(H));
+  ws->A = take(Ep * H2);
+  ws->dKV = take(Ep * H2);
+  ws->dZ = take(Ep * H2);
+  ws->F = take(Ep * FE);
+  ws->drel = take(Ep * 3);
+  ws->vec = take(row_width(H));
+  ws->partial = take(kPartialCap);
+  *floats = o;
+  long long io = 0;
+  auto itake = [&](long long n) {
+    int* ptr = iw ? iw + io : nullptr;
+    io += n;
+    return ptr;
+  };
+  ws->off_x = itake(B * (N + 1));
+  ws->list_x = itake(B * N * K);
+  ws->off_h = itake(B * (N + 1));
+  ws->list_h = itake(B * nl * K);
+  *ints = io;
+}
+
+template <bool kH2X>
+int run_pass(const float* h, const EdgeInputs& in0, const PassParams& p, const PassT& pt,
+             const PassGrads& g, int B, int N, int K, int row0, const int* off, const int* list,
+             float* dh, float* dx, float* dew, const Workspace& ws, cudaStream_t s) {
+  constexpr int V = kH2X ? NH : H;
+  constexpr int W = row_width(V);
+  const long long BN = (long long)B * N;
+  const long long Ep = (long long)B * (N - row0) * K;
+  int err = (int)cudaMemsetAsync(ws.rowbuf, 0, BN * W * sizeof(float), s);
+  if (err) return err;
+  if ((err = launch_node(h, (int)BN, p, ws.ni, ws.nj, ws.q, ws.q1, s))) return err;
+
+  EdgeInputs in = in0;
+  in.ni = ws.ni;
+  in.nj = ws.nj;
+  EdgeBwdArgs a{h, in, ws.q, p, pt, N, K, row0, dh, dx, dew, ws.rowbuf, ws.A, ws.dKV, ws.dZ,
+                ws.F, ws.drel};
+  // the largest dynamic shared memory any K takes, set once per process (one device)
+  static const int attr = (int)cudaFuncSetAttribute(
+      edge_bwd_kernel<kH2X>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_smem(kMaxLayerK, kH2X));
+  if (attr) return attr;
+  edge_bwd_kernel<kH2X><<<dim3(N - row0, B), kThreads, bwd_smem(K, kH2X), s>>>(a);
+  if ((err = (int)cudaGetLastError())) return err;
+  gather_kernel<<<dim3(N, B), kThreads, 0, s>>>(off, list, N, K, N - row0, ws.dZ, ws.drel,
+                                                ws.rowbuf, W, dx);
+  if ((err = (int)cudaGetLastError())) return err;
+  node_bwd_kernel<<<(unsigned)((BN + kNodes - 1) / kNodes), kThreads, 0, s>>>(
+      ws.q1, p, pt, (int)BN, W, off_dq(V), off_qln(V), ws.rowbuf, ws.qa, dh);
+  if ((err = (int)cudaGetLastError())) return err;
+
+  if ((err = atb(ws.A, H2, ws.dKV, H + V, Ep, H, H, g.w2k, ws.partial, s))) return err;
+  if ((err = atb(ws.A + H, H2, ws.dKV + H, H + V, Ep, H, V, g.w2v, ws.partial, s))) return err;
+  if ((err = atb(ws.F, FE, ws.dZ, H2, Ep, FE, H2, g.tab, ws.partial, s))) return err;
+  if ((err = atb(h, H, ws.rowbuf, W, BN, H, H5, g.w_node, ws.partial, s))) return err;
+  if ((err = atb(ws.qa, H, ws.rowbuf + off_dq(V), W, BN, H, H, g.w_q2, ws.partial, s)))
+    return err;
+  if ((err = colsum(ws.rowbuf, W, BN, W, ws.vec, ws.partial, s))) return err;
+  const struct {
+    float* dst;
+    int off, n;
+  } segs[] = {{g.b_node, 0, H5},          {g.kv_ln, off_kvln(), 2 * H2},
+              {g.b2k, off_db2(), H},      {g.b2v, off_db2() + H, V},
+              {g.b_q2, off_dq(V), H},     {g.q_ln, off_qln(V), 2 * H}};
+  for (const auto& sg : segs) {
+    err = (int)cudaMemcpyAsync(sg.dst, ws.vec + sg.off, sg.n * sizeof(float),
+                               cudaMemcpyDeviceToDevice, s);
+    if (err) return err;
+  }
+  return 0;
+}
+
+// Inverse adjacency of the destination rows [row0, N) of every complex.
+int build_adjacency(const int64_t* idx, const bool* nmask, int B, int N, int K, int row0,
+                    int* off, int* list, cudaStream_t s) {
+  adj_kernel<<<B, 1024, 0, s>>>(idx, nmask, N, K, row0, off, list);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

@@ -4,7 +4,7 @@ and a shuffling loader; counterpart of targetdiff_tpu/data/datasets.py
 
 Samples are plain dicts of numpy arrays with `protein_*` / `ligand_*` key
 prefixes; batches are the port's ComplexBatch of torch tensors on a given
-device. The parsers are the JAX package's jax-free `chem.pdb` and `chem.sdf`.
+device. The parsers are the port's copies of `chem.pdb` and `chem.sdf`.
 The PDBBind dataset belongs to the property models and is not ported yet.
 """
 
@@ -17,9 +17,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from targetdiff_tpu.chem.pdb import PDBProtein
-from targetdiff_tpu.chem.sdf import parse_sdf_file
-
+from ..chem.pdb import PDBProtein
+from ..chem.sdf import parse_sdf_file
 from .batch import ComplexBatch, from_numpy
 from .store import RecordStore, RecordStoreWriter
 

@@ -3,9 +3,8 @@ targetdiff_tpu/data/transforms.py: the ligand atom-type vocabularies, the
 protein atom featurizer, the ligand atom and bond featurizers, the random
 rotation augmentation and `Compose`.
 
-Kept here rather than imported because importing `targetdiff_tpu.data`
-imports jax (its `__init__` pulls in `batch.py`). The jax-free
-`targetdiff_tpu.chem` supplies the aromatic feature column.
+The port's copy of the chemistry modules (`chem/`) supplies the aromatic
+feature column.
 """
 
 from __future__ import annotations
@@ -14,7 +13,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from targetdiff_tpu.chem.perception import ATOM_FAMILIES_ID
+from ..chem.perception import ATOM_FAMILIES_ID
 
 AROMATIC_FEAT_IDX = ATOM_FAMILIES_ID["Aromatic"]
 

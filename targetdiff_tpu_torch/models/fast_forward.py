@@ -1,33 +1,40 @@
 """Kernel-backed forward passes, counterpart of targetdiff_tpu/models/fast_forward.py.
 
 `fast_forward` (inference) and `fast_train_forward` (differentiable) compute
-what `ScorePosNet.forward` computes, with the kNN graph and the whole
-UniTransformerO2 block running on the hand-written CUDA kernels for CUDA
-tensors (ops/kernels/) and on their plain PyTorch versions for CPU tensors.
-Unlike the JAX fast paths they neither sort protein rows nor skip tiles:
-every row of every layer is computed.
+what `ScorePosNet.forward` computes, with the graph and the UniTransformerO2
+layers running on the hand-written CUDA kernels for CUDA tensors
+(ops/kernels/) and on their plain PyTorch versions for CPU tensors. The kNN
+graph is a kernel; the hybrid graph is plain PyTorch, as it is XLA in the
+JAX package. A block runs either on the whole-block kernels (K <= 32) or on
+the per-layer kernels, whose edge weights come from the eager edge-weight
+MLP. Unlike the JAX fast paths they neither sort protein rows nor skip
+tiles: every row of every layer is computed.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Optional
 
 import torch
 
 from ..config import Config
-from ..ops.kernels.block_denoiser import PackedBlock, block_denoiser
+from ..ops.kernels.block_denoiser import MAX_K, PackedBlock, block_denoiser, pack_block_params
 from ..ops.kernels.block_vjp import block_layers_trainable
+from ..ops.kernels.edge_layer import h2x_attention_layer, x2h_attention_layer
+from ..ops.kernels.edge_layer_vjp import h2x_layer_trainable, x2h_layer_trainable
 from ..ops.kernels.knn import knn_graph
 from ..ops.rbf import FIXED_OFFSETS
 
 
 def fast_forward_supported(config: Config) -> tuple:
     """Whether the port supports this model config: the released TargetDiff
-    architecture (reference: configs/training.yml:9-42). Returns (ok, reason)."""
+    architecture (reference: configs/training.yml:9-42) over a kNN or a
+    hybrid graph. Returns (ok, reason)."""
     cfg = config
     checks = [
         (cfg.model_type == "uni_o2", f"model_type={cfg.model_type!r} (need uni_o2)"),
-        (cfg.cutoff_mode == "knn", f"cutoff_mode={cfg.cutoff_mode!r} (need knn)"),
+        (cfg.cutoff_mode in ("knn", "hybrid"), f"cutoff_mode={cfg.cutoff_mode!r}"),
         (cfg.ew_net_type == "global", f"ew_net_type={cfg.ew_net_type!r}"),
         (not cfg.x2h_out_fc, "x2h_out_fc=True"),
         (cfg.num_x2h == 1 and cfg.num_h2x == 1,
@@ -46,35 +53,79 @@ def fast_forward_supported(config: Config) -> tuple:
     return True, ""
 
 
+def _graph(rn, x, node_mask, mask_ligand):
+    """The block's graph: the kNN kernel, or the plain hybrid graph."""
+    if rn.cutoff_mode == "hybrid":
+        return rn.graph(x, node_mask, mask_ligand)
+    return knn_graph(x, node_mask, rn.k)
+
+
 def fast_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v,
-                 ligand_mask, packed: Optional[PackedBlock] = None) -> Dict[str, torch.Tensor]:
+                 ligand_mask, packed: Optional[PackedBlock] = None,
+                 mode: str = "mega") -> Dict[str, torch.Tensor]:
     """`net` is a ScorePosNet; `packed` its refine_net's kernel weights
-    (packed on the fly when None). Returns pred_ligand_pos, pred_ligand_v,
+    (packed on the fly when None). mode 'mega' runs each block on the
+    whole-block kernels, 'layers' on the per-layer kernels; a graph wider
+    than the block kernels take (K > 32, as the hybrid graph at the CLI's
+    64 ligand slots) runs on the per-layer kernels with a warning, as the
+    JAX package does. Returns pred_ligand_pos, pred_ligand_v,
     final_ligand_h and final_h."""
+    if mode not in ("mega", "layers"):
+        raise ValueError(f"mode must be 'mega' or 'layers', got {mode!r}")
     h, x, node_mask, mask_ligand = net.embed(
         protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v, ligand_mask)
     rn = net.refine_net
+    n_ligand = ligand_pos.shape[1]
+    K = rn.num_neighbors()
+    if mode == "mega" and K > MAX_K:
+        warnings.warn(f"the whole-block kernels take K <= {MAX_K}, this graph has K={K}: "
+                      "running the per-layer kernels (mode='layers')", stacklevel=2)
+        mode = "layers"
+    if mode == "layers" and packed is None and h.device.type != "cpu":
+        with torch.no_grad():
+            packed = pack_block_params(rn)
     for _ in range(rn.num_blocks):
-        nbh = knn_graph(x, node_mask, rn.k)
-        h, x = block_denoiser(rn, h, x, nbh, mask_ligand, n_ligand=ligand_pos.shape[1],
-                              packed=packed)
+        nbh = _graph(rn, x, node_mask, mask_ligand)
+        if mode == "mega":
+            h, x = block_denoiser(rn, h, x, nbh, mask_ligand, n_ligand=n_ligand, packed=packed)
+            continue
+        e_w = rn.edge_weights(x, nbh)[..., 0]
+        for l, layer in enumerate(rn.base_block):
+            px = ph = None
+            if packed is not None:
+                px = {f: t[l:l + 1] for f, t in packed.x2h.items()}
+                ph = {f: t[l:l + 1] for f, t in packed.h2x.items()}
+            h = x2h_attention_layer(layer, h, x, nbh, mask_ligand, e_w, params=px)
+            x = h2x_attention_layer(layer, h, x, nbh, mask_ligand, e_w, n_ligand, params=ph)
     return net.head(h, x, ligand_mask, protein_pos.shape[1])
 
 
 def fast_train_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v,
-                       ligand_mask) -> Dict[str, torch.Tensor]:
+                       ligand_mask, whole_block_bwd: bool = True) -> Dict[str, torch.Tensor]:
     """Differentiable kernel-backed forward (training). The embeddings, the
-    kNN kernel (integer indices, no gradient), the edge types, the eager
-    global edge-weight MLP and the v_inference head surround
-    `block_layers_trainable`, whose backward is the block-VJP kernel.
-    Returns pred_ligand_pos, pred_ligand_v, final_ligand_h (padded ligand
-    rows zero) and final_h."""
+    graph (integer indices, no gradient), the eager global edge-weight MLP
+    and the v_inference head surround the attention layers.
+    whole_block_bwd=True runs each block as `block_layers_trainable`, whose
+    backward is the block-VJP kernel; False runs the per-layer trainables
+    (forward and backward per-layer kernels), as does a graph wider than the
+    block kernels take (K > 32), with a warning. Returns pred_ligand_pos,
+    pred_ligand_v, final_ligand_h (padded ligand rows zero) and final_h."""
     h, x, node_mask, mask_ligand = net.embed(
         protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v, ligand_mask)
     rn = net.refine_net
+    n_ligand = ligand_pos.shape[1]
+    K = rn.num_neighbors()
+    if whole_block_bwd and K > MAX_K:
+        warnings.warn(f"the whole-block kernels take K <= {MAX_K}, this graph has K={K}: "
+                      "training on the per-layer kernels and their backwards", stacklevel=2)
+        whole_block_bwd = False
     for _ in range(rn.num_blocks):
-        nbh = knn_graph(x.detach(), node_mask, rn.k)
+        nbh = _graph(rn, x.detach(), node_mask, mask_ligand)
         e_w = rn.edge_weights(x, nbh)[..., 0]
-        h, x = block_layers_trainable(rn, h, x, nbh, mask_ligand, e_w,
-                                      n_ligand=ligand_pos.shape[1])
+        if whole_block_bwd:
+            h, x = block_layers_trainable(rn, h, x, nbh, mask_ligand, e_w, n_ligand=n_ligand)
+            continue
+        for layer in rn.base_block:
+            h = x2h_layer_trainable(layer, h, x, nbh, mask_ligand, e_w)
+            x = h2x_layer_trainable(layer, h, x, nbh, mask_ligand, e_w, n_ligand)
     return net.head(h, x, ligand_mask, protein_pos.shape[1])

@@ -33,7 +33,7 @@ class ScorePosNet(nn.Module):
     """The denoiser network (reference: models/molopt_score_model.py:272-368)."""
 
     def __init__(self, config: Config, protein_atom_feature_dim: int,
-                 ligand_atom_feature_dim: int):
+                 ligand_atom_feature_dim: int, max_ligand: int = 0):
         super().__init__()
         ok, reason = fast_forward_supported(config)
         if not ok:
@@ -48,7 +48,8 @@ class ScorePosNet(nn.Module):
         self.refine_net = UniTransformerO2TwoUpdateGeneral(
             num_blocks=config.num_blocks, num_layers=config.num_layers, hidden_dim=hidden,
             n_heads=config.n_heads, k=config.knn, num_r_gaussian=config.num_r_gaussian,
-            edge_feat_dim=config.edge_feat_dim,
+            edge_feat_dim=config.edge_feat_dim, cutoff_mode=config.cutoff_mode,
+            max_ligand=max_ligand,
         )
         self.v_inference = nn.Sequential(
             nn.Linear(hidden, hidden), ShiftedSoftplus(),
@@ -57,7 +58,12 @@ class ScorePosNet(nn.Module):
 
     def embed(self, protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v, ligand_mask):
         """Atom embeddings + node indicator, composed into one context.
-        Returns (h, x, node_mask, mask_ligand)."""
+        Returns (h, x, node_mask, mask_ligand). Under the hybrid cutoff the
+        ligand slots must number the refine net's max_ligand."""
+        rn = self.refine_net
+        if rn.cutoff_mode == "hybrid" and ligand_pos.shape[1] != rn.max_ligand:
+            raise ValueError(f"the hybrid graph is built for max_ligand={rn.max_ligand} ligand "
+                             f"slots, got {ligand_pos.shape[1]}")
         h_protein = self.protein_atom_emb(protein_feat)
         h_ligand = self.ligand_atom_emb(F.one_hot(ligand_v.long(), self.num_classes).float())
         if self.node_indicator:
@@ -90,10 +96,11 @@ class SampleResult(NamedTuple):
 
 
 class DiffusionModel:
-    """Owns the network and the schedules on one device."""
+    """Owns the network and the schedules on one device: the CUDA card
+    unless the caller asks for another (CPU callers pass device='cpu')."""
 
     def __init__(self, config: Config, protein_atom_feature_dim: int,
-                 ligand_atom_feature_dim: int, device="cpu",
+                 ligand_atom_feature_dim: int, device="cuda",
                  max_protein: int = 384, max_ligand: int = 64):
         self.config = config
         self.device = torch.device(device)
@@ -114,7 +121,8 @@ class DiffusionModel:
             v_beta_s=config.get("v_beta_s", 0.01), device=self.device,
         )
         self.num_timesteps = self.pos_sched.num_timesteps
-        self.net = ScorePosNet(config, protein_atom_feature_dim, ligand_atom_feature_dim)
+        self.net = ScorePosNet(config, protein_atom_feature_dim, ligand_atom_feature_dim,
+                               max_ligand=max_ligand)
         self.net.to(self.device).eval()
 
     def parameters(self):
@@ -133,11 +141,12 @@ class DiffusionModel:
                         ligand_pos, ligand_v, batch.ligand_mask)
 
     def fast_apply(self, batch: ComplexBatch, ligand_pos, ligand_v,
-                   packed: Optional[PackedBlock] = None):
-        """Kernel-backed forward (the sampling path)."""
+                   packed: Optional[PackedBlock] = None, mode: str = "mega"):
+        """Kernel-backed forward (the sampling path); mode 'mega' runs the
+        whole-block kernels, 'layers' the per-layer ones (see fast_forward)."""
         return fast_forward(self.net, batch.protein_pos, batch.protein_feat,
                             batch.protein_mask, ligand_pos, ligand_v, batch.ligand_mask,
-                            packed=packed)
+                            packed=packed, mode=mode)
 
     def get_diffusion_loss(self, batch: ComplexBatch, time_step=None, pos_noise=None,
                            v_uniform=None, generator: Optional[torch.Generator] = None,
@@ -146,8 +155,11 @@ class DiffusionModel:
         time_step [B] int, pos_noise [B,NL,3] standard normal and v_uniform
         [B,NL,C] U[0,1) may be given; each one that is not is drawn from
         `generator`. impl='fast' runs the denoiser through the
-        differentiable kernels (fast_train_forward), impl='eager' through
-        ScorePosNet.forward."""
+        differentiable kernels with the whole-block backward
+        (fast_train_forward), impl='fast_pl' through the per-layer kernels and
+        their backwards, impl='eager' through ScorePosNet.forward."""
+        if impl not in ("fast", "fast_pl", "eager"):
+            raise ValueError(f"impl must be 'fast', 'fast_pl' or 'eager', got {impl!r}")
         B, dev = batch.num_graphs, batch.device
         lmask = batch.ligand_mask
         protein_pos, ligand_pos, _ = D.center_pos_protein(
@@ -165,15 +177,14 @@ class DiffusionModel:
         log_ligand_v0 = D.index_to_log_onehot(batch.ligand_v, self.num_classes)
         ligand_v_perturbed, log_ligand_vt = D.q_v_sample(
             self.v_sched, log_ligand_v0, time_step, self.num_classes, v_uniform)
-        if impl == "fast":
-            preds = fast_train_forward(self.net, cbatch.protein_pos, cbatch.protein_feat,
-                                       cbatch.protein_mask, ligand_pos_perturbed,
-                                       ligand_v_perturbed, lmask)
-        elif impl == "eager":
+        if impl == "eager":
             preds = self.net(cbatch.protein_pos, cbatch.protein_feat, cbatch.protein_mask,
                              ligand_pos_perturbed, ligand_v_perturbed, lmask)
         else:
-            raise ValueError(f"impl must be 'fast' or 'eager', got {impl!r}")
+            preds = fast_train_forward(self.net, cbatch.protein_pos, cbatch.protein_feat,
+                                       cbatch.protein_mask, ligand_pos_perturbed,
+                                       ligand_v_perturbed, lmask,
+                                       whole_block_bwd=impl == "fast")
         pred_ligand_pos, pred_ligand_v = preds["pred_ligand_pos"], preds["pred_ligand_v"]
         pred_pos_noise = pred_ligand_pos - ligand_pos_perturbed
 

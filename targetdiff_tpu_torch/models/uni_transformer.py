@@ -3,9 +3,12 @@ targetdiff_tpu/models/uni_transformer.py (reference:
 models/uni_transformer.py:11-328) on dense [B, N, K] neighborhoods.
 
 Only the released architecture is built (global edge weights, no x2h output
-MLP, one x2h and one h2x per layer, two-update order); `ScorePosNet` refuses
-any other config. `UniTransformerO2TwoUpdateGeneral.block_forward` is the
-plain version of the block-denoiser kernel (ops/kernels/block_denoiser.py).
+MLP, one x2h and one h2x per layer, two-update order), over a kNN or a hybrid
+graph; `ScorePosNet` refuses any other config.
+`UniTransformerO2TwoUpdateGeneral.block_forward` is the plain version of the
+block-denoiser kernel (ops/kernels/block_denoiser.py); one layer's x2h and
+h2x sub-layers with the edge weights given are the plain versions of the
+per-layer kernels (ops/kernels/edge_layer.py).
 """
 
 from __future__ import annotations
@@ -30,6 +33,14 @@ def masked_neighbor_softmax(logits: torch.Tensor, nbr_mask: torch.Tensor) -> tor
     logits = logits - logits.amax(dim=2, keepdim=True)
     unnorm = torch.where(m, torch.exp(logits), torch.zeros((), device=logits.device))
     return unnorm / unnorm.sum(dim=2, keepdim=True).clamp(min=1e-16)
+
+
+def edge_geometry(x, nbh, edge_attr):
+    """rel [B,N,K,3] = x_dst - x_src and the edge features r_feat [B,N,K,4R]
+    = edge type (x) RBF(distance) of a graph."""
+    offsets, coeff = gaussian_smearing_offsets(device=x.device)
+    rel_x, dist = G.rel_geometry(x, nbh)
+    return rel_x, outer_product(edge_attr, gaussian_smearing(dist, offsets, coeff))
 
 
 class _EdgeAttention(nn.Module):
@@ -100,22 +111,28 @@ class AttentionLayerO2TwoUpdateNodeGeneral(nn.Module):
             [BaseH2XAttLayer(hidden_dim, n_heads, edge_feat_dim, r_feat_dim)])
 
     def forward(self, h, x, edge_attr, nbh, mask_ligand, e_w):
-        offsets, coeff = gaussian_smearing_offsets(device=x.device)
-        rel_x, dist = G.rel_geometry(x, nbh)
-        r_feat = outer_product(edge_attr, gaussian_smearing(dist, offsets, coeff))
+        rel_x, r_feat = edge_geometry(x, nbh, edge_attr)
         h = self.x2h_layers[0](h, r_feat, edge_attr, nbh, e_w)
         delta_x = self.h2x_layers[0](h, rel_x, r_feat, edge_attr, nbh, e_w)
         return h, x + delta_x * mask_ligand[..., None].to(x.dtype)
 
 
 class UniTransformerO2TwoUpdateGeneral(nn.Module):
-    """num_blocks kNN rebuilds x num_layers shared attention layers
-    (reference: :213-328)."""
+    """num_blocks graph rebuilds x num_layers shared attention layers
+    (reference: :213-328). cutoff_mode 'knn' connects each row to its k
+    nearest atoms; 'hybrid' (targetdiff_tpu/models/uni_transformer.py:
+    240-259) connects a ligand row to every other ligand atom and its k
+    nearest protein atoms, over max_ligand ligand slots."""
 
     def __init__(self, num_blocks, num_layers, hidden_dim, n_heads, k, num_r_gaussian,
-                 edge_feat_dim):
+                 edge_feat_dim, cutoff_mode: str = "knn", max_ligand: int = 0):
         super().__init__()
+        if cutoff_mode not in ("knn", "hybrid"):
+            raise ValueError(f"cutoff_mode must be 'knn' or 'hybrid', got {cutoff_mode!r}")
+        if cutoff_mode == "hybrid" and max_ligand <= 0:
+            raise ValueError("the hybrid cutoff needs max_ligand > 0")
         self.num_blocks, self.k = num_blocks, k
+        self.cutoff_mode, self.max_ligand = cutoff_mode, max_ligand
         self.n_heads = n_heads
         self.base_block = nn.ModuleList([
             AttentionLayerO2TwoUpdateNodeGeneral(hidden_dim, n_heads, num_r_gaussian,
@@ -123,6 +140,16 @@ class UniTransformerO2TwoUpdateGeneral(nn.Module):
             for _ in range(num_layers)
         ])
         self.edge_pred_layer = MLP(num_r_gaussian, 1, hidden_dim)
+
+    def num_neighbors(self) -> int:
+        """K, the width of the graph's neighbour lists."""
+        return self.max_ligand - 1 + self.k if self.cutoff_mode == "hybrid" else self.k
+
+    def graph(self, x, node_mask, mask_ligand) -> G.Neighborhood:
+        """The plain graph of the cutoff mode on positions x [B,N,3]."""
+        if self.cutoff_mode == "hybrid":
+            return G.hybrid_graph(x, node_mask, mask_ligand, self.k, self.max_ligand)
+        return G.knn_graph(x, node_mask, self.k)
 
     def edge_weights(self, x, nbh):
         """Global edge weights from block-start distances (reference: :312-318)."""
@@ -146,5 +173,5 @@ class UniTransformerO2TwoUpdateGeneral(nn.Module):
 
     def forward(self, h, x, mask_ligand, node_mask):
         for _ in range(self.num_blocks):
-            h, x = self.block_forward(h, x, G.knn_graph(x, node_mask, self.k), mask_ligand)
+            h, x = self.block_forward(h, x, self.graph(x, node_mask, mask_ligand), mask_ligand)
         return h, x

@@ -4,7 +4,8 @@ Each complex is a padded node set [B, N, ...] with a validity mask [B, N];
 neighborhoods are [B, N, K] source indices per destination row with a
 neighbor mask (torch_cluster `knn_graph`, flow='source_to_target').
 `knn_graph` here is the plain version of the kNN kernel
-(ops/kernels/knn.py).
+(ops/kernels/knn.py); `hybrid_graph` is plain PyTorch on every device, as
+it is XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -42,6 +43,43 @@ def knn_graph(pos: torch.Tensor, mask: torch.Tensor, k: int) -> Neighborhood:
     d2 = torch.where(valid, pairwise_sq_dists(pos), torch.full((), BIG, device=pos.device))
     vals, idx = torch.sort(d2, dim=-1, stable=True)
     return Neighborhood(idx=idx[..., :k], mask=vals[..., :k] < BIG / 2)
+
+
+def hybrid_graph(pos: torch.Tensor, node_mask: torch.Tensor, mask_ligand: torch.Tensor, k: int,
+                 max_ligand: int) -> Neighborhood:
+    """Hybrid connectivity (reference: models/common.py:165-212): a ligand
+    row connects to every other ligand atom and its k nearest protein atoms,
+    a protein row to its k nearest atoms. Dense form of width
+    K = max_ligand - 1 + k, valid slots first, nearest first; ties go to the
+    lower index (a stable sort, as lax.top_k does in the JAX package), so
+    both packages pick the same neighbours. mask_ligand [B, N] is True on
+    real ligand rows."""
+    B, N, _ = pos.shape
+    K = max_ligand - 1 + k
+    if K > N:
+        raise ValueError(f"hybrid K = max_ligand - 1 + k = {K} exceeds the {N} nodes per complex")
+    big = torch.full((), BIG, device=pos.device)
+    d2 = pairwise_sq_dists(pos)
+    valid = node_mask[:, None, :] & node_mask[:, :, None] & ~torch.eye(
+        N, dtype=torch.bool, device=pos.device)
+    lig_src = mask_ligand[:, None, :].expand(B, N, N)
+    # ligand rows: every ligand source ranks ahead of the protein ones (the
+    # +1e6 offset exceeds any real squared distance); keep them all plus the
+    # k nearest protein sources
+    vals_l, idx_l = torch.sort(torch.where(valid, torch.where(lig_src, d2, d2 + 1e6), big),
+                               dim=-1, stable=True)
+    vals_l, idx_l = vals_l[..., :K], idx_l[..., :K]
+    src_is_lig = torch.gather(lig_src, 2, idx_l)
+    protein_rank = torch.cumsum((~src_is_lig).to(torch.int32), dim=-1)
+    keep_l = (vals_l < BIG / 2) & (src_is_lig | (protein_rank <= k))
+    # protein rows: the first k valid of a plain nearest-first order
+    vals_p, idx_p = torch.sort(torch.where(valid, d2, big), dim=-1, stable=True)
+    vals_p, idx_p = vals_p[..., :K], idx_p[..., :K]
+    keep_p = vals_p < BIG / 2
+    keep_p = keep_p & (torch.cumsum(keep_p.to(torch.int32), dim=-1) <= k)
+    lig_dst = mask_ligand[:, :, None]
+    return Neighborhood(idx=torch.where(lig_dst, idx_l, idx_p),
+                        mask=torch.where(lig_dst, keep_l, keep_p))
 
 
 def edge_types(nbh: Neighborhood, mask_ligand: torch.Tensor) -> torch.Tensor:

@@ -15,10 +15,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from targetdiff_tpu.utils import atom_num
-
 from .data.batch import ComplexBatch
 from .models.score_model import DiffusionModel
+from .utils import atom_num
 
 
 def init_ligand_state(batch: ComplexBatch, num_classes: int, generator: torch.Generator):

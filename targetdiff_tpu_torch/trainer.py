@@ -58,12 +58,14 @@ def update_Lt_ema(state: TrainState, t: torch.Tensor, vlb_graph: torch.Tensor) -
 
 
 def make_train_step(model: DiffusionModel, pos_noise_std: float = 0.0,
-                    time_sampling: str = "symmetric"):
+                    time_sampling: str = "symmetric", impl: str = "fast"):
     """Returns train_step(state, batch, generator, time_step=None,
     pos_noise=None, v_uniform=None) -> (state, metrics). Draws not given
     come from `generator`; metrics (loss, loss_pos, loss_v, grad_norm, the
     norm before clipping) are 0-d tensors on the device. The denoiser runs
-    on the kernel path (`get_diffusion_loss(impl='fast')`)."""
+    as `get_diffusion_loss(impl=impl)`: 'fast' on the kernels with the
+    whole-block backward, 'fast_pl' on the per-layer kernels, 'eager' on
+    the plain network (targetdiff_tpu/trainer.py:81)."""
     if time_sampling not in ("symmetric", "importance"):
         raise ValueError(f"time_sampling must be 'symmetric' or 'importance', "
                          f"got {time_sampling!r}")
@@ -81,7 +83,7 @@ def make_train_step(model: DiffusionModel, pos_noise_std: float = 0.0,
                                                     state.Lt_count, generator)
         state.optimizer.zero_grad()
         out = model.get_diffusion_loss(batch, time_step=time_step, pos_noise=pos_noise,
-                                       v_uniform=v_uniform, generator=generator)
+                                       v_uniform=v_uniform, generator=generator, impl=impl)
         out["loss"].backward()
         grad_norm = state.optimizer.step()
         update_Lt_ema(state, out["time_step"],

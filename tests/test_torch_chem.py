@@ -1,0 +1,142 @@
+"""The port's own copies of the host-side chemistry (PDB and SDF parsing,
+reconstruction, bond orders, the ligand-size prior and their data files)
+against the JAX package's modules they were copied from, and the rule that
+no module of the port, nor chip_smoke.py, imports the JAX package."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from targetdiff_tpu.chem import pdb as jax_pdb
+from targetdiff_tpu.chem import reconstruct as jax_reconstruct
+from targetdiff_tpu.chem import sdf as jax_sdf
+from targetdiff_tpu.evaluation import analyze as jax_analyze
+from targetdiff_tpu.utils import atom_num as jax_atom_num
+from targetdiff_tpu_torch.chem import pdb, reconstruct, sdf
+from targetdiff_tpu_torch.evaluation import analyze
+from targetdiff_tpu_torch.utils import atom_num
+
+REPO = Path(__file__).resolve().parents[1]
+EXAMPLES = REPO / "examples"
+
+
+def _assert_dicts_equal(got, want):
+    assert sorted(got) == sorted(want)
+    for key, w in want.items():
+        g = got[key]
+        if isinstance(w, np.ndarray):
+            np.testing.assert_array_equal(g, w, err_msg=key)
+        else:
+            assert g == w, key
+
+
+@pytest.mark.parametrize("name", ["1h36_A_rec_1h36_r88_lig_tt_docked_0_pocket10.pdb",
+                                  "3ug2_protein.pdb"])
+def test_pdb_copy_parses_as_the_jax_module(name):
+    path = str(EXAMPLES / name)
+    got, want = pdb.PDBProtein(path), jax_pdb.PDBProtein(path)
+    _assert_dicts_equal(got.to_dict_atom(), want.to_dict_atom())
+    _assert_dicts_equal(got.to_dict_residue(), want.to_dict_residue())
+    ligand = {"pos": np.asarray(want.to_dict_atom()["pos"][:5]) + 1.0}
+    assert ([r["atoms"] for r in got.query_residues_ligand(ligand, 8.0)]
+            == [r["atoms"] for r in want.query_residues_ligand(ligand, 8.0)])
+
+
+@pytest.mark.parametrize("name", ["3ug2_ligand.sdf", "1h36_A_rec_1h36_r88_lig_tt_docked_0.sdf"])
+def test_sdf_copy_parses_as_the_jax_module(name):
+    path = str(EXAMPLES / name)
+    _assert_dicts_equal(sdf.parse_sdf_file(path), jax_sdf.parse_sdf_file(path))
+
+
+def _clouds():
+    """Fixed point clouds: the example ligands as they are and with seeded
+    noise of 0.05 and 0.15 A, as atomic numbers and positions."""
+    out = []
+    for i, name in enumerate(["3ug2_ligand.sdf", "1h36_A_rec_1h36_r88_lig_tt_docked_0.sdf"]):
+        lig = jax_sdf.parse_sdf_file(str(EXAMPLES / name))
+        rng = np.random.default_rng(i)
+        for noise in (0.0, 0.05, 0.15):
+            out.append((lig["element"], lig["pos"] + noise * rng.normal(size=lig["pos"].shape)))
+    return out
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_reconstruct_copy_matches_the_jax_module(case, tmp_path):
+    z, pos = _clouds()[case]
+    try:
+        want = jax_reconstruct.reconstruct_from_generated(pos, z)
+    except jax_reconstruct.MolReconsError:
+        with pytest.raises(reconstruct.MolReconsError):
+            reconstruct.reconstruct_from_generated(pos, z)
+        return
+    got = reconstruct.reconstruct_from_generated(pos, z)
+    assert got.to_smiles() == want.to_smiles()
+    assert ([(b.a1, b.a2, b.order, b.aromatic) for b in got.bonds]
+            == [(b.a1, b.a2, b.order, b.aromatic) for b in want.bonds])
+    sdf.write_sdf(got, str(tmp_path / "got.sdf"), name="m")
+    jax_sdf.write_sdf(want, str(tmp_path / "want.sdf"), name="m")
+    assert (tmp_path / "got.sdf").read_text() == (tmp_path / "want.sdf").read_text()
+
+
+def test_bond_orders_and_atom_count_prior_match_the_jax_modules():
+    for a1, a2 in [("C", "C"), ("C", "N"), ("C", "O"), ("N", "N"), ("C", "S"), ("P", "O"),
+                   ("H", "C"), ("Cl", "C")]:
+        for d in np.linspace(0.9, 2.2, 27):
+            assert analyze.get_bond_order(a1, a2, d) == jax_analyze.get_bond_order(a1, a2, d)
+    pocket = pdb.PDBProtein(str(EXAMPLES / "3ug2_protein.pdb")).to_dict_atom()["pos"][:300]
+    space = atom_num.get_space_size(pocket)
+    assert space == jax_atom_num.get_space_size(pocket)
+    for size in (space, 8.0, 15.0, 30.0):
+        rng_a, rng_b = np.random.default_rng(7), np.random.default_rng(7)
+        assert ([atom_num.sample_atom_num(size, rng_a) for _ in range(20)]
+                == [jax_atom_num.sample_atom_num(size, rng_b) for _ in range(20)])
+
+
+@pytest.mark.parametrize("name", ["atom_num_prior.json.gz", "bond_order_tables.json.gz"])
+def test_resource_files_are_byte_copies(name):
+    assert ((REPO / "targetdiff_tpu_torch" / "resources" / name).read_bytes()
+            == (REPO / "targetdiff_tpu" / "resources" / name).read_bytes())
+
+
+_NO_JAX_PACKAGE = """
+import importlib, pkgutil, sys
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name == "targetdiff_tpu" or name.startswith("targetdiff_tpu."):
+            raise ImportError(f"{name} is not available")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import targetdiff_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(targetdiff_tpu_torch.__path__,
+                                                "targetdiff_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert not [m for m in sys.modules if m == "targetdiff_tpu" or m.startswith("targetdiff_tpu.")]
+print(len(names))
+"""
+
+
+def test_port_imports_without_the_jax_package():
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX_PACKAGE], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) > 30  # every module of the port was imported
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    roots = {n.split(".")[0] for n in names}
+    assert "targetdiff_tpu_torch" in roots
+    assert not roots & {"targetdiff_tpu", "jax", "jaxlib", "flax", "optax"}, roots

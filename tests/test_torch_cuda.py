@@ -192,3 +192,145 @@ def test_train_loss_kernel_path_matches_eager(cuda):
         out[impl] = (float(loss), {n: p.grad.clone() for n, p in model.net.named_parameters()})
     assert abs(out["fast"][0] - out["eager"][0]) <= 1e-4 * abs(out["eager"][0])
     grads_close(out["fast"][1], out["eager"][1])
+
+
+def _layer_setup(cuda, cutoff_mode, k, max_ligand, n_protein, seed=0):
+    """A two-layer model at the released widths on a graph of K = k (knn) or
+    max_ligand - 1 + k (hybrid), with padded protein rows (no valid
+    neighbour), padded ligand slots and a one-atom ligand; one layer's
+    inputs (h, x, graph, e_w)."""
+    torch.manual_seed(seed)
+    cfg = Config(dict(CONFIG, cutoff_mode=cutoff_mode, knn=k))
+    model = DiffusionModel(cfg, 27, 13, device=cuda, max_protein=n_protein, max_ligand=max_ligand)
+    rng = np.random.default_rng(seed)
+    pmask = np.ones((B, n_protein), bool)
+    pmask[0, n_protein - 6:] = False
+    sizes = np.array([max_ligand, max_ligand // 2 + 3, 1])
+    batch = from_numpy(rng.normal(size=(B, n_protein, 3)) * 4,
+                       rng.random((B, n_protein, 27)) > 0.7, pmask,
+                       rng.normal(size=(B, max_ligand, 3)) * 1.5,
+                       rng.integers(0, 13, (B, max_ligand)),
+                       np.arange(max_ligand)[None] < sizes[:, None], device=cuda)
+    rn = model.net.refine_net
+    with torch.no_grad():
+        h, x, node_mask, mlig = model.net.embed(*batch)
+        nbh = rn.graph(x, node_mask, mlig)
+        e_w = rn.edge_weights(x, nbh)[..., 0]
+    return model, batch, rn, h, x, node_mask, mlig, nbh, e_w
+
+
+LAYER_CASES = [("knn", 8, 8, 40), ("hybrid", 32, 64, 64), ("hybrid", 32, 128, 40)]
+
+
+@pytest.mark.parametrize("cutoff_mode,k,max_ligand,n_protein", LAYER_CASES)
+def test_layer_kernels_match_plain(cuda, cutoff_mode, k, max_ligand, n_protein):
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+
+    _, _, rn, h, x, node_mask, mlig, nbh, e_w = _layer_setup(cuda, cutoff_mode, k, max_ligand,
+                                                              n_protein)
+    assert nbh.idx.shape[-1] == rn.num_neighbors()
+    layer = rn.base_block[1]
+    with torch.no_grad():
+        px, ph = kel.pack_layer_params(layer)
+        h_ref = kel.x2h_layer_plain(layer, h, x, nbh, mlig, e_w)
+        h_out = kel.x2h_layer_cuda(h, x, nbh, mlig, e_w, px)
+        x_ref = kel.h2x_layer_plain(layer, h_ref, x, nbh, mlig, e_w)
+        x_out = kel.h2x_layer_cuda(h_ref, x, nbh, mlig, e_w, max_ligand, ph)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(h_out, h_ref, atol=2e-3, rtol=1e-2)
+    torch.testing.assert_close(x_out, x_ref, atol=2e-4, rtol=1e-3)
+    # rows without a valid neighbour keep h exactly; protein and padded rows keep x
+    empty = ~nbh.mask.any(-1)
+    assert bool(empty.any()) and torch.equal(h_out[empty], h[empty])
+    assert torch.equal(x_out[~mlig], x[~mlig])
+
+
+@pytest.mark.parametrize("cutoff_mode,k,max_ligand,n_protein", LAYER_CASES)
+def test_layer_vjp_kernels_match_autograd(cuda, cutoff_mode, k, max_ligand, n_protein):
+    from targetdiff_tpu_torch.ops.kernels import edge_layer_vjp as kvjp
+
+    _, _, rn, h, x, node_mask, mlig, nbh, e_w = _layer_setup(cuda, cutoff_mode, k, max_ligand,
+                                                              n_protein, seed=1)
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    layer = rn.base_block[0]
+
+    def run(sub, trainable):
+        leaves = [t.clone().requires_grad_() for t in (h, x, e_w)]
+        rn.zero_grad()
+        if sub == "x2h":
+            fn = kvjp.x2h_layer_trainable if trainable else kvjp.x2h_layer_plain
+            out = fn(layer, leaves[0], leaves[1], nbh, mlig, leaves[2])
+        else:
+            fn = kvjp.h2x_layer_trainable if trainable else kvjp.h2x_layer_plain
+            args = (max_ligand,) if trainable else ()
+            out = fn(layer, leaves[0], leaves[1], nbh, mlig, leaves[2], *args)
+        (out * cot[sub]).sum().backward()
+        grads = {n: p.grad.clone() for n, p in rn.named_parameters() if p.grad is not None}
+        grads.update(dh=leaves[0].grad, dx=leaves[1].grad, de_w=leaves[2].grad)
+        return grads
+
+    cot = {"x2h": torch.randn(h.shape, generator=gen, device=cuda) * node_mask[..., None],
+           "h2x": torch.randn(x.shape, generator=gen, device=cuda)}
+    for sub in ("x2h", "h2x"):
+        launches = (kvjp.X2H_BWD_LAUNCHES, kvjp.H2X_BWD_LAUNCHES)
+        got, again, want = run(sub, True), run(sub, True), run(sub, False)
+        torch.cuda.synchronize()
+        assert (kvjp.X2H_BWD_LAUNCHES - launches[0], kvjp.H2X_BWD_LAUNCHES - launches[1]) == (
+            (2, 0) if sub == "x2h" else (0, 2))
+        assert all(torch.equal(got[n], again[n]) for n in got)  # fixed summation order
+        assert sorted(got) == sorted(want)
+        assert all(bool(g.isfinite().all()) for g in got.values())
+        grads_close(got, want)
+        empty = ~nbh.mask.any(-1)
+        assert bool((got["de_w"][empty] == 0).all())
+
+
+def test_layer_forward_kernels_take_more_nodes_than_the_backwards(cuda):
+    """N = 4104, above the backwards' inverse-adjacency limit: the forward
+    kernels still match the plain layers; the backwards refuse, naming it."""
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+    from targetdiff_tpu_torch.ops.kernels import edge_layer_vjp as kvjp
+
+    _, _, rn, h, x, _, mlig, nbh, e_w = _layer_setup(cuda, "knn", 8, 8, kvjp.MAX_NODES)
+    assert h.shape[1] > kvjp.MAX_NODES
+    layer = rn.base_block[0]
+    with torch.no_grad():
+        px, ph = kel.pack_layer_params(layer)
+        h_ref = kel.x2h_layer_plain(layer, h, x, nbh, mlig, e_w)
+        h_out = kel.x2h_layer_cuda(h, x, nbh, mlig, e_w, px)
+        x_ref = kel.h2x_layer_plain(layer, h_ref, x, nbh, mlig, e_w)
+        x_out = kel.h2x_layer_cuda(h_ref, x, nbh, mlig, e_w, 8, ph)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(h_out, h_ref, atol=2e-3, rtol=1e-2)
+    torch.testing.assert_close(x_out, x_ref, atol=2e-4, rtol=1e-3)
+    with pytest.raises(ValueError, match=f"N <= {kvjp.MAX_NODES}"):
+        kvjp.x2h_layer_bwd_cuda(h, x, nbh, mlig, e_w, px, h)
+
+
+def test_hybrid_train_loss_per_layer_path_matches_eager(cuda):
+    model, batch, *_ = _layer_setup(cuda, "hybrid", 32, 64, 64, seed=2)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    t = torch.tensor([0, 7, 19], device=cuda)
+    eps = torch.randn(batch.ligand_pos.shape, generator=gen, device=cuda)
+    u = torch.rand(batch.ligand_v.shape + (13,), generator=gen, device=cuda)
+    out = {}
+    for impl in ("fast_pl", "eager"):
+        model.net.zero_grad()
+        loss = model.get_diffusion_loss(batch, time_step=t, pos_noise=eps, v_uniform=u,
+                                        impl=impl)["loss"]
+        loss.backward()
+        out[impl] = (float(loss), {n: p.grad.clone() for n, p in model.net.named_parameters()})
+    assert abs(out["fast_pl"][0] - out["eager"][0]) <= 1e-4 * abs(out["eager"][0])
+    grads_close(out["fast_pl"][1], out["eager"][1])
+
+
+def test_hybrid_sampling_runs_the_layer_kernels(cuda):
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+
+    model, batch, *_ = _layer_setup(cuda, "hybrid", 32, 64, 64, seed=3)
+    launches, block = kel.X2H_LAUNCHES, kblock.LAUNCHES
+    with pytest.warns(UserWarning, match="per-layer"):
+        res = model.sample_diffusion(batch, batch.ligand_pos, batch.ligand_v,
+                                     torch.Generator(device=cuda).manual_seed(0), num_steps=3)
+    assert kel.X2H_LAUNCHES - launches == 3 * 2 and kblock.LAUNCHES == block
+    assert bool(res.pos.isfinite().all())

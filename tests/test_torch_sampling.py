@@ -130,3 +130,26 @@ def test_sample_for_pocket_cli_on_cpu(tmp_path):
         "--num_samples", "2",
         "--result_path", str(out), "--max_ligand", "8", "--device", "cpu"])
     assert (out / "samples.smi").exists()
+
+
+def test_sample_for_pocket_cli_runs_a_hybrid_checkpoint(tmp_path):
+    """A hybrid-cutoff checkpoint samples from its config unchanged: the
+    model's max_ligand is the CLI's ligand slot count."""
+    from targetdiff_tpu.utils.checkpoint import save_checkpoint
+    from targetdiff_tpu_torch.cli import sample_for_pocket
+
+    cfg, _, params, _, _, _ = small_setup(cutoff_mode="hybrid")
+    ckpt = tmp_path / "ckpt.npz"
+    save_checkpoint(str(ckpt), {"data": {"transform": {"ligand_atom_mode": "add_aromatic"}},
+                                "model": dict(cfg)}, jax.device_get(params))
+    sample_yml = tmp_path / "sampling.yml"
+    sample_yml.write_text(f"model:\n  checkpoint: {ckpt}\nsample:\n  seed: 4\n  num_steps: 2\n")
+    model, _, _ = sample_for_pocket.load_model_from_checkpoint(str(ckpt), "cpu", max_ligand=8)
+    assert model.net.refine_net.cutoff_mode == "hybrid"
+    assert model.net.refine_net.num_neighbors() == 8 - 1 + cfg.knn
+    out = tmp_path / "out"
+    sample_for_pocket.main([
+        str(sample_yml), "--pdb_path",
+        str(REPO / "examples" / "1h36_A_rec_1h36_r88_lig_tt_docked_0_pocket10.pdb"),
+        "--num_samples", "2", "--result_path", str(out), "--max_ligand", "8", "--device", "cpu"])
+    assert (out / "samples.smi").exists()

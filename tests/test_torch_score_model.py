@@ -62,7 +62,7 @@ def test_forward_matches_jax_xla_and_pallas(path):
     assert np.isfinite(out["pred_ligand_v"].numpy()).all()
 
 
-@pytest.mark.parametrize("override", [dict(cutoff_mode="hybrid"), dict(ew_net_type="r"),
+@pytest.mark.parametrize("override", [dict(cutoff_mode="radius"), dict(ew_net_type="r"),
                                       dict(x2h_out_fc=True), dict(time_emb_dim=4),
                                       dict(num_r_gaussian=16)])
 def test_unsupported_config_raises(override):
