@@ -2,13 +2,14 @@
 """Smoke run of the PyTorch port (targetdiff_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py profile [hybrid|knn]
+    python3 chip_smoke.py profile [hybrid|knn|block] [BATCH]
     python3 chip_smoke.py duel [CHECKOUT]
 
 With no arguments: builds the CUDA kernels from targetdiff_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version at the main path's shapes (the example
 pocket: 572 atoms padded to 576, 32 ligand slots, K = 32, four complexes;
-flagship width: 9 layers, hidden 128, 16 heads), then samples molecules for
+flagship width: 9 layers, hidden 128, 16 heads), times the x2h edge launch
+alone, then samples molecules for
 that pocket through the port's entry point `sample_diffusion_ligand` with
 seeded random flagship weights, and checks the outputs. Then the training
 path: the train-mode block kernel and the block-VJP kernel against autograd
@@ -18,7 +19,8 @@ against the eager path, `make_train_step` at the bench's train shape (B=32,
 six-entry dataset, whose checkpoint is reloaded and sampled from. Then the
 per-layer path: the per-layer attention kernels and their backwards against
 the plain layers on the hybrid graph (the example pocket with 64 ligand
-slots: N = 640, K = 95) and the kNN graph, 1000 DDPM steps of a hybrid model
+slots: N = 640, K = 95) and the kNN graph, the x2h edge launch alone at the
+hybrid shape, 1000 DDPM steps of a hybrid model
 through `sample_diffusion_ligand`, and the per-layer training loss
 (`impl='fast_pl'`) against the eager one and its train step at B=32. Every
 phase prints one line; any failure exits non-zero. The last two lines are a
@@ -27,12 +29,18 @@ the least time the card could take for its work) and the contract line
 {"ok": true, "device": {...}}.
 
 `profile` traces 10 DDPM steps of hybrid (64 ligand slots: N = 640, K = 95)
-or kNN (32 slots: N = 608, K = 32) sampling with torch.profiler: the device
+or kNN (32 slots: N = 608, K = 32) sampling of BATCH molecules (default 4)
+with torch.profiler: the device
 time of each kernel and of the step, beside the host time of the same steps
-run just before without the profiler. `duel` times, by CUDA events, the
-whole-block kernels (B=4, N=608, K=32) and 50 kNN sampling steps of the port
-found in CHECKOUT (this checkout by default), through entry points every
-version of the port has: run it once per checkout, in turns, within one call,
+run just before without the profiler; `profile block` the inference block
+and the train-mode block forward on the same inputs, in turns, kernel by
+kernel.
+`duel` times the whole-block kernels (B=4, N=608, K=32), the x2h edge
+launch at the kNN and hybrid shapes, one per-layer x2h call at the hybrid
+shape, 50 kNN and 50 hybrid sampling steps and the B=32 train step of the
+port found in CHECKOUT (this checkout by default), through entry points
+every version of the port since the per-layer slice has: run it once per
+checkout, in turns, within one call,
 to compare two versions on one card. Both print one JSON line that starts
 with the card's name and power limit.
 
@@ -81,27 +89,28 @@ HYBRID_LIGAND = 64  # the sampling CLI's default ligand slots: hybrid K = 64 - 1
 HYBRID_SIZES = [64, 45, 27, 14]  # ligand atoms per complex in the [layers] phase
 TRAIN_PL_STEPS = 10
 
-# The card's published peaks (NVIDIA H100 SXM data sheet): float32 outside
-# the tensor cores, which every kernel here runs on, and device memory.
-PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
-# FLOP per live edge and per real node, counted from the kernels' arithmetic
-# at the released widths (hidden 128, 16 heads, 20 RBF knots). Edge forward:
-# the first layer from the node projections and the edge-type table, both
-# LayerNorms, the k and v second layers, the logits and the weighted sum.
-# Backward: the forward again, the transposed second layers, their weight
-# gradients, the RBF-table gradient and d rbf. Node: the five projections
-# and the query MLP; backward adds their transposes and weight gradients.
+# The card's published peaks (NVIDIA H100 SXM data sheet): TF32 on the tensor
+# cores, float32 outside them, and device memory.
+PEAK_TF32_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 495e12, 67e12, 3.35e12
+# FLOP per live edge and per real node as (dense products, the rest), counted
+# from the kernels' arithmetic at the released widths (hidden 128, 16 heads,
+# 20 RBF knots). Dense products, each counted once at the TF32 rate: the
+# second layers, the node projections and the query MLP's second layer, and
+# in the backwards their transposes and weight gradients. The rest, at the
+# float32 rate: the edge first layer from the node projections and the
+# edge-type table, the LayerNorms, the logits, softmax and weighted sums, and
+# in the backwards the RBF-table gradient and d rbf.
 HW, NHEADS, RK = 128, 16, 20
 _FIRST = 2 * 2 * HW * (RK + 3) + 2 * 8 * HW
-FLOP_EDGE = {"x2h": _FIRST + 4 * HW * HW + 4 * HW,
-             "h2x": _FIRST + 2 * HW * HW + 2 * HW * NHEADS + 2 * HW + 8 * NHEADS}
-_EDGE_BWD_EXTRA = 2 * (RK + 1) * 2 * HW + 2 * RK * 2 * HW + 2 * 10 * HW
-FLOP_EDGE_BWD = {"x2h": FLOP_EDGE["x2h"] + 8 * HW * HW + _EDGE_BWD_EXTRA,
-                 "h2x": FLOP_EDGE["h2x"] + 4 * HW * HW + 4 * HW * NHEADS + _EDGE_BWD_EXTRA}
-FLOP_NODE = 2 * HW * 5 * HW + 2 * HW * HW + 8 * HW
-FLOP_NODE_BWD = FLOP_NODE + 4 * HW * HW + 4 * 5 * HW * HW + 16 * HW  # = 3 * FLOP_NODE
-FLOP_SRC = 2 * HW * 2 * HW  # a source row's k and v first-layer projections
-FLOP_EW_EDGE = 2 * RK * HW + 10 * HW + 3 * RK  # global edge-weight MLP
+FLOP_EDGE = {"x2h": np.array([4 * HW * HW, _FIRST + 4 * HW]),
+             "h2x": np.array([2 * HW * HW + 2 * HW * NHEADS, _FIRST + 2 * HW + 8 * NHEADS])}
+_EDGE_BWD_EXTRA = np.array([0, 2 * (RK + 1) * 2 * HW + 2 * RK * 2 * HW + 2 * 10 * HW])
+FLOP_EDGE_BWD = {"x2h": FLOP_EDGE["x2h"] + [8 * HW * HW, 0] + _EDGE_BWD_EXTRA,
+                 "h2x": FLOP_EDGE["h2x"] + [4 * HW * HW + 4 * HW * NHEADS, 0] + _EDGE_BWD_EXTRA}
+FLOP_NODE = np.array([2 * HW * 5 * HW + 2 * HW * HW, 8 * HW])
+FLOP_NODE_BWD = 3 * FLOP_NODE  # recompute, input gradients, weight gradients
+FLOP_SRC = np.array([2 * HW * 2 * HW, 0])  # a source row's k and v first-layer projections
+FLOP_EW_EDGE = np.array([0, 2 * RK * HW + 10 * HW + 3 * RK])  # global edge-weight MLP
 
 
 def card_name() -> str:
@@ -140,12 +149,55 @@ def nbytes(*tensors) -> int:
     return total
 
 
-def bound(flops: float, bytes_moved: float) -> dict:
-    """The least time the card could take: the larger of the operations over
-    the float32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, bytes_moved / PEAK_BYTES_PER_S
-    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+def bound(flops, bytes_moved: float) -> dict:
+    """The least time the card could take: the largest of the dense products
+    at the TF32 tensor-core rate, the other operations at the float32 rate
+    and the bytes at the memory rate. `flops` is (dense products, rest)."""
+    t_tc, t_f32 = flops[0] / PEAK_TF32_FLOPS, flops[1] / PEAK_F32_FLOPS
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S
+    return {"bound_ms": float(1e3 * max(t_tc, t_f32, t_bytes)),
+            "bound_by": "bytes" if t_bytes > max(t_tc, t_f32) else "operations"}
+
+
+def tc_share(flops) -> float:
+    """The dense products' share of the operations."""
+    return float(flops[0] / (flops[0] + flops[1]))
+
+
+def x2h_edge_launcher(torch, kblock, h, x, nbh, mask_ligand, e_w, stacks):
+    """The x2h edge kernel alone (`td_block_x2h`) on the node projections of
+    the first layer of `stacks`, computed once here (`td_block_node`):
+    `.launch()` writes `.out`; `.bytes` is what the launch must read and
+    write (each input once)."""
+    from types import SimpleNamespace
+
+    from targetdiff_tpu_torch.ops.rbf import gaussian_smearing_offsets
+
+    B, N, H = h.shape
+    K = nbh.idx.shape[-1]
+    dev = h.device
+    offsets, coeff = gaussian_smearing_offsets(device=dev)
+    fns, pp = kblock._entries(), kblock._pass_structs(stacks, 1)[0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    t = SimpleNamespace(h=h.contiguous(), x=x.contiguous(), idx=nbh.idx.contiguous(),
+                        nmask=nbh.mask.contiguous(), mlig=mask_ligand.contiguous(),
+                        ew=e_w.contiguous(), ni=torch.empty((B * N, 2 * H), device=dev),
+                        nj=torch.empty((B * N, 2 * H), device=dev),
+                        q=torch.empty((B * N, H), device=dev), out=torch.empty_like(h))
+    args = (t.h.data_ptr(), t.x.data_ptr(), t.idx.data_ptr(), t.nmask.data_ptr(),
+            t.mlig.data_ptr(), t.ew.data_ptr(), t.ni.data_ptr(), t.nj.data_ptr(), t.q.data_ptr(),
+            offsets.data_ptr(), coeff, pp, B, N, K, 0, t.out.data_ptr(), stream)
+
+    def launch():
+        kblock.build.check(fns["td_block_x2h"](*args), "td_block_x2h")
+
+    kblock.build.check(fns["td_block_node"](t.h.data_ptr(), B * N, pp, t.ni.data_ptr(),
+                                            t.nj.data_ptr(), t.q.data_ptr(), stream),
+                       "td_block_node")
+    edge_weights = {k: v[0] for k, v in stacks.items()
+                    if k not in ("w_node", "b_node", "q_ln", "w_q2", "b_q2")}
+    return SimpleNamespace(launch=launch, out=t.out, tensors=(t, offsets),
+                           bytes=nbytes(*vars(t).values(), edge_weights, offsets))
 
 
 def layer_work(nbh, mask_ligand, node_mask):
@@ -314,9 +366,10 @@ def main(argv) -> int:
     knn_ms = cuda_ms(torch, lambda: kknn.knn_graph_cuda(x, node_mask, K))
     knn_plain_ms = cuda_ms(torch, lambda: G.knn_graph(x, node_mask, K))
     # every pair's distance (8 FLOP) and a log2 K-deep selection per candidate
-    knn_bound = bound(B * N * N * (8 + np.log2(K)), nbytes(x, node_mask, nbh.idx, nbh.mask))
+    knn_bound = bound((0, B * N * N * (8 + np.log2(K))), nbytes(x, node_mask, nbh.idx, nbh.mask))
     phase("knn", shape=f"B={B},N={N},K={K}", max_abs_err_kth_d2=knn_err,
-          same_index_fraction=same, ms=knn_ms, plain_ms=knn_plain_ms, **knn_bound)
+          same_index_fraction=same, ms=knn_ms, plain_ms=knn_plain_ms, **knn_bound,
+          tensor_core_share=0.0)
 
     # 4. block kernels against the plain block, f32, flagship width
     packed = kblock.pack_block_params(rn)
@@ -338,13 +391,20 @@ def main(argv) -> int:
                                  reps=10)
     work = layer_work(plain_nbh, mask_ligand, node_mask)
     L = FLAGSHIP["num_layers"]
-    block_bound = bound(
-        L * block_flops(*work) + work[2] * FLOP_EW_EDGE,
-        nbytes(h, x, plain_nbh.idx, plain_nbh.mask, mask_ligand, packed.x2h, packed.h2x,
-               *packed.ew, h_k, x_k))
+    block_work = L * block_flops(*work) + work[2] * FLOP_EW_EDGE
+    block_bound = bound(block_work, nbytes(h, x, plain_nbh.idx, plain_nbh.mask, mask_ligand,
+                                           packed.x2h, packed.h2x, *packed.ew, h_k, x_k))
+    # the x2h edge launch alone: layer 0's x2h pass on its node projections
+    with torch.no_grad():
+        e_w0 = rn.edge_weights(x, plain_nbh)[..., 0]
+        edge = x2h_edge_launcher(torch, kblock, h, x, plain_nbh, mask_ligand, e_w0, packed.x2h)
+        edge_ms = cuda_ms(torch, edge.launch)
+    edge_bound = bound(work[2] * FLOP_EDGE["x2h"], edge.bytes)
     phase("block", shape=f"B={B},N={N},K={K},L={L},H=128,heads=16",
           max_abs_err_x=x_err, max_abs_err_h=h_err, max_abs_err_h_valid_rows=h_err_all,
-          ms=block_ms, plain_ms=block_plain_ms, **block_bound)
+          ms=block_ms, plain_ms=block_plain_ms, **block_bound,
+          tensor_core_share=tc_share(block_work), x2h_edge_ms=edge_ms,
+          x2h_edge_bound_ms=edge_bound["bound_ms"], x2h_edge_bound_by=edge_bound["bound_by"])
 
     # whole forward: kernel-backed against eager, same inputs
     with torch.no_grad():
@@ -467,6 +527,7 @@ def layer_phases(torch, dev, feat, pocket, rn, h, x, nbh, mask_ligand, node_mask
     and the hybrid model and batch."""
     from targetdiff_tpu_torch.config import Config
     from targetdiff_tpu_torch.models.score_model import DiffusionModel
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
     from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
     from targetdiff_tpu_torch.ops.kernels import edge_layer_vjp as kelv
 
@@ -532,6 +593,15 @@ def layer_phases(torch, dev, feat, pocket, rn, h, x, nbh, mask_ligand, node_mask
         nodes, lig_nodes, edges, lig_edges = layer_work(g, mlig, nmask_rows)
         inputs = (h0, x0, g.idx, g.mask, mlig, e_w)
         with torch.no_grad():
+            # the x2h edge launch alone, on the layer's node projections: its
+            # output is the layer kernel's, bit for bit
+            edge = x2h_edge_launcher(torch, kblock, h0, x0, g, mlig, e_w, px)
+            edge.launch()
+            torch.cuda.synchronize()
+            if not torch.equal(edge.out, h_k):
+                raise AssertionError("hybrid x2h edge launch alone differs from td_x2h_layer")
+            edge_ms = cuda_ms(torch, edge.launch)
+            edge_bound = bound(edges * FLOP_EDGE["x2h"], edge.bytes)
             f_ms = {"x2h": cuda_ms(torch, lambda: kel.x2h_layer_cuda(h0, x0, g, mlig, e_w, px)),
                     "h2x": cuda_ms(torch, lambda: kel.h2x_layer_cuda(h_ref, x0, g, mlig, e_w,
                                                                      n_lig, ph))}
@@ -553,22 +623,26 @@ def layer_phases(torch, dev, feat, pocket, rn, h, x, nbh, mask_ligand, node_mask
                                                                       retain_graph=True), reps=10)
             del o
         e = {"x2h": edges, "h2x": lig_edges}
+        shares = {}
         for sub, params, y in (("x2h", px, h_k), ("h2x", ph, x_k)):
+            fwd = node_flops(sub, nodes, lig_nodes) + e[sub] * FLOP_EDGE[sub]
+            bwd = node_flops(sub, nodes, lig_nodes, bwd=True) + e[sub] * FLOP_EDGE_BWD[sub]
+            shares.update({sub: tc_share(fwd), f"{sub}_bwd": tc_share(bwd)})
             fields[sub] = dict(max_abs_err=errs[sub], ms=f_ms[sub], plain_ms=f_plain[sub],
-                               **bound(node_flops(sub, nodes, lig_nodes)
-                                       + e[sub] * FLOP_EDGE[sub], nbytes(*inputs, params, y)))
+                               **bound(fwd, nbytes(*inputs, params, y)))
             fields[f"{sub}_bwd"] = dict(
                 max_abs_err=errs[f"{sub}_bwd"], ms=b_ms[sub], plain_ms=b_plain[sub],
-                **bound(node_flops(sub, nodes, lig_nodes, bwd=True)
-                        + e[sub] * FLOP_EDGE_BWD[sub],
-                        nbytes(*inputs, params, cot[sub], h0, x0, e_w, params)))
+                **bound(bwd, nbytes(*inputs, params, cot[sub], h0, x0, e_w, params)))
         shape_str = f"B={B},N={h0.shape[1]},K={g.idx.shape[-1]}"
         live = dict(live_edges_x2h=edges, live_edges_h2x=lig_edges,
                     slots=int(g.mask.numel()), ms=f_ms, plain_ms=f_plain, bwd_ms=b_ms,
-                    bwd_plain_ms=b_plain)
+                    bwd_plain_ms=b_plain, x2h_edge_ms=edge_ms,
+                    x2h_edge_bound_ms=edge_bound["bound_ms"],
+                    x2h_edge_bound_by=edge_bound["bound_by"])
     phase("layers", hybrid_shape=shape_str, hybrid=out["hybrid"],
           knn_shape=f"B={B},N={h.shape[1]},K={nbh.idx.shape[-1]}", knn=out["knn"], **live,
-          bound_ms={k: v["bound_ms"] for k, v in fields.items()})
+          bound_ms={k: v["bound_ms"] for k, v in fields.items()},
+          bound_by={k: v["bound_by"] for k, v in fields.items()}, tensor_core_share=shares)
     return dict(fields, model=hmodel, batch=hbatch)
 
 
@@ -693,18 +767,20 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     step_plain_ms = cuda_ms(torch, lambda: fwd_bwd(False), reps=10)
     work = layer_work(nbh, mask_ligand, node_mask)
     L = FLAGSHIP["num_layers"]
+    fwd_work, bwd_work = L * block_flops(*work), L * block_flops(*work, bwd=True)
     fwd_bound = bound(
-        L * block_flops(*work),
-        nbytes(h, x, nbh.idx, nbh.mask, mask_ligand, e_w, x2h, h2x, hck_k, xck_k))
+        fwd_work, nbytes(h, x, nbh.idx, nbh.mask, mask_ligand, e_w, x2h, h2x, hck_k, xck_k))
     bwd_bound = bound(
-        L * block_flops(*work, bwd=True),
+        bwd_work,
         nbytes(hck_k, xck_k, nbh.idx, nbh.mask, mask_ligand, e_w, x2h, h2x, gh, gx)
         + nbytes(h, x, e_w, x2h, h2x))  # outputs: dh0, dx0, de_w and the weight gradients
     phase("train-block", shape=f"B={B},N={h.shape[1]},K={K},L={L}",
           max_abs_err_fwd=fwd_err, max_abs_err_dh_dx_dew=bwd_err, max_grad_err_over_scale=bwd_rel,
           fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms, bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms,
           fwd_bwd_ms=step_ms, fwd_bwd_plain_ms=step_plain_ms, fwd_bound_ms=fwd_bound["bound_ms"],
-          bwd_bound_ms=bwd_bound["bound_ms"])
+          bwd_bound_ms=bwd_bound["bound_ms"], fwd_bound_by=fwd_bound["bound_by"],
+          bwd_bound_by=bwd_bound["bound_by"], fwd_tensor_core_share=tc_share(fwd_work),
+          bwd_tensor_core_share=tc_share(bwd_work))
 
     # ---- [train-loss]: the whole loss, kernel path vs eager path, injected draws ----
     # (the per-layer path's parity on the same draws is reported in [train-pl])
@@ -904,9 +980,13 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
 def measure(torch, argv) -> int:
     """The `profile` and `duel` modes (module docstring)."""
     what, arg = argv[0], (argv[1:] or [None])[0]
-    if what not in ("profile", "duel") or len(argv) > 2 or (
-            what == "profile" and arg not in (None, "hybrid", "knn")):
-        raise SystemExit("usage: chip_smoke.py [profile [hybrid|knn] | duel [CHECKOUT]]")
+    sized = what == "profile" and arg in ("hybrid", "knn") and len(argv) == 3
+    if what not in ("profile", "duel") or len(argv) > (3 if sized else 2) or (
+            what == "profile" and arg not in (None, "hybrid", "knn", "block")) or (
+            sized and not argv[2].isdigit()):
+        raise SystemExit("usage: chip_smoke.py [profile [hybrid|knn|block] [BATCH] | "
+                         "duel [CHECKOUT]]")
+    batch = int(argv[2]) if sized else B
     checkout = Path(arg).resolve() if what == "duel" and arg else REPO
     sys.path.insert(0, str(checkout))
     from targetdiff_tpu_torch.cli.sample_for_pocket import pdb_to_pocket_data
@@ -918,34 +998,56 @@ def measure(torch, argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
-    cutoff = (arg or "hybrid") if what == "profile" else "knn"
-    n_ligand = HYBRID_LIGAND if cutoff == "hybrid" else MAX_LIGAND
     feat = FeaturizeProteinAtom()
     data = pdb_to_pocket_data(str(POCKET_PDB), feat)
     pocket = {"protein_pos": data["protein_pos"], "protein_feat": data["protein_atom_feature"]}
-    torch.manual_seed(0)
-    model = DiffusionModel(Config(dict(FLAGSHIP, cutoff_mode=cutoff)), feat.feature_dim,
-                           NUM_CLASSES, device=dev, max_protein=MAX_PROTEIN, max_ligand=n_ligand)
 
-    def sample(steps, seed):
-        t0 = time.perf_counter()
-        sample_diffusion_ligand(model, pocket, num_samples=B,
-                                generator=torch.Generator(device=dev).manual_seed(seed),
-                                batch_size=B, num_steps=steps, max_protein=MAX_PROTEIN,
-                                max_ligand=n_ligand, rng=np.random.default_rng(seed))
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0) / steps
+    def setup(cutoff):
+        """A flagship model of `cutoff` with seeded weights, and sample(steps,
+        seed): ms per step of `batch` molecules for the pocket over `steps`
+        DDPM steps, host clock ending in a synchronise."""
+        n_ligand = HYBRID_LIGAND if cutoff == "hybrid" else MAX_LIGAND
+        torch.manual_seed(0)
+        model = DiffusionModel(Config(dict(FLAGSHIP, cutoff_mode=cutoff)), feat.feature_dim,
+                               NUM_CLASSES, device=dev, max_protein=MAX_PROTEIN,
+                               max_ligand=n_ligand)
 
-    out = profile(torch, sample, cutoff) if what == "profile" else duel(
-        torch, dev, model, pocket, feat.feature_dim, sample)
+        def sample(steps, seed):
+            t0 = time.perf_counter()
+            sample_diffusion_ligand(model, pocket, num_samples=batch,
+                                    generator=torch.Generator(device=dev).manual_seed(seed),
+                                    batch_size=batch, num_steps=steps, max_protein=MAX_PROTEIN,
+                                    max_ligand=n_ligand, rng=np.random.default_rng(seed))
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0) / steps
+
+        return model, sample
+
+    if what == "duel":
+        out = duel(torch, dev, setup, pocket, feat.feature_dim)
+    elif arg == "block":
+        out = profile_block(torch, dev, setup("knn")[0], pocket, feat.feature_dim)
+    else:
+        out = profile(torch, setup(arg or "hybrid")[1], arg or "hybrid", batch)
     print(json.dumps({"card": card_name(), "checkout": str(checkout), what: out}), flush=True)
     return 0
 
 
-def profile(torch, sample, cutoff) -> dict:
+def device_times(prof, calls) -> dict:
+    """Device milliseconds and launches of each kernel per call, largest
+    first (device events only: host ranges repeat their kernels' time)."""
+    from torch.autograd import DeviceType
+
+    kernels = {ev.key: {"ms": ev.self_device_time_total / 1e3 / calls,
+                        "launches": ev.count / calls}
+               for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0}
+    return dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"]))
+
+
+def profile(torch, sample, cutoff, batch) -> dict:
     """Device time by kernel over 10 traced sampling steps, beside the host
     time of the same 10 steps run just before without the profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -954,48 +1056,136 @@ def profile(torch, sample, cutoff) -> dict:
     host_ms = sample(steps, 2)
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced_host_ms = sample(steps, 2)
-    kernels = {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:  # host ranges repeat their kernels' time
-            continue
-        if ev.self_device_time_total > 0:
-            kernels[ev.key] = {"ms_per_step": ev.self_device_time_total / 1e3 / steps,
-                               "calls_per_step": ev.count / steps}
-    device_ms = sum(k["ms_per_step"] for k in kernels.values())
-    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms_per_step"])[:25])
-    return {"cutoff": cutoff, "steps": steps, "host_ms_per_step": host_ms,
+    kernels = device_times(prof, steps)
+    device_ms = sum(k["ms"] for k in kernels.values())
+    return {"cutoff": cutoff, "batch": batch, "steps": steps, "host_ms_per_step": host_ms,
             "traced_host_ms_per_step": traced_host_ms, "device_ms_per_step": device_ms,
-            "idle_share_estimate": 1 - device_ms / host_ms, "kernels": top}
+            "idle_share_estimate": 1 - device_ms / host_ms,
+            "kernels_per_step": dict(list(kernels.items())[:25])}
 
 
-def duel(torch, dev, model, pocket, feat_dim, sample) -> dict:
-    """CUDA-event times of the whole-block kernels and of 50 kNN sampling steps."""
+def profile_block(torch, dev, model, pocket, feat_dim) -> list:
+    """The inference block and the train-mode block forward on the same
+    inputs (B=4, N=608, K=32, L=9), in turns (inference, train, train,
+    inference): CUDA-event ms per call and, over 10 traced calls each,
+    device time by kernel."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from targetdiff_tpu_torch.ops import graph as G
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+
+    rn = model.net.refine_net
+    out = []
+    with torch.no_grad():
+        h, x, node_mask, mlig = model.net.embed(
+            *pocket_batch(torch, dev, pocket, feat_dim, MAX_LIGAND, LIGAND_SIZES, 0))
+        nbh = G.knn_graph(x, node_mask, K)
+        packed = kblock.pack_block_params(rn)
+        e_w = rn.edge_weights(x, nbh)[..., 0]
+        x2h, h2x = kblock.pack_pass_params(rn)
+        runs = {"inference": lambda: kblock.block_denoiser_cuda(rn, h, x, nbh, mlig, MAX_LIGAND,
+                                                                packed),
+                "train_fwd": lambda: kblock.block_denoiser_train_cuda(
+                    rn, h, x, nbh, mlig, e_w, MAX_LIGAND, x2h, h2x)}
+        for name in ("inference", "train_fwd", "train_fwd", "inference"):
+            ms = cuda_ms(torch, runs[name])
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    runs[name]()
+                torch.cuda.synchronize()
+            kernels = device_times(prof, 10)
+            out.append({"run": name, "ms": ms, "device_ms": sum(k["ms"] for k in kernels.values()),
+                        "kernels_per_call": kernels})
+    return out
+
+
+def duel(torch, dev, setup, pocket, feat_dim) -> dict:
+    """CUDA-event times of the whole-block kernels, of the x2h edge launch
+    at the kNN shape (alone) and of one td_x2h_layer call at the hybrid
+    shape; the device time of the x2h edge kernel in that call (torch.profiler,
+    10 calls: the call itself is host-bound once the kernel is fast); 50 kNN
+    and 50 hybrid sampling steps (host clock) and the B=32 `fast` train step
+    (host clock, 10 steps after 3)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from targetdiff_tpu_torch.config import Config
+    from targetdiff_tpu_torch.data.synth import synth_batch
+    from targetdiff_tpu_torch.models.score_model import DiffusionModel
     from targetdiff_tpu_torch.ops import graph as G
     from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
     from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+    from targetdiff_tpu_torch.trainer import create_train_state, make_train_step
+    from targetdiff_tpu_torch.utils import train as train_utils
 
+    model, sample = setup("knn")
     rn = model.net.refine_net
     gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
     with torch.no_grad():
         h, x, node_mask, mlig = model.net.embed(
             *pocket_batch(torch, dev, pocket, feat_dim, MAX_LIGAND, [MAX_LIGAND] * B, 0))
         nbh = G.knn_graph(x, node_mask, K)
         packed = kblock.pack_block_params(rn)
-        block_ms = cuda_ms(torch, lambda: kblock.block_denoiser_cuda(rn, h, x, nbh, mlig,
-                                                                     MAX_LIGAND, packed))
+        out["block_ms"] = cuda_ms(torch, lambda: kblock.block_denoiser_cuda(
+            rn, h, x, nbh, mlig, MAX_LIGAND, packed))
         e_w = rn.edge_weights(x, nbh)[..., 0]
         x2h, h2x = kblock.pack_pass_params(rn)
-        train_ms = cuda_ms(torch, lambda: kblock.block_denoiser_train_cuda(
+        out["train_fwd_ms"] = cuda_ms(torch, lambda: kblock.block_denoiser_train_cuda(
             rn, h, x, nbh, mlig, e_w, MAX_LIGAND, x2h, h2x), reps=10)
         hck, xck = kblock.block_denoiser_train_cuda(rn, h, x, nbh, mlig, e_w, MAX_LIGAND, x2h,
                                                     h2x)
         gh = torch.randn(h.shape, generator=gen, device=dev)
         gx = torch.randn(x.shape, generator=gen, device=dev)
-        bwd_ms = cuda_ms(torch, lambda: kvjp.block_bwd_cuda(
+        out["block_bwd_ms"] = cuda_ms(torch, lambda: kvjp.block_bwd_cuda(
             hck, xck, nbh.idx, nbh.mask, mlig, e_w, MAX_LIGAND, x2h, h2x, gh, gx), reps=10)
+        out["x2h_edge_knn_ms"] = cuda_ms(torch, x2h_edge_launcher(
+            torch, kblock, h, x, nbh, mlig, e_w, x2h).launch)
     sample(3, 1)  # warm up
-    return {"block_ms": block_ms, "train_fwd_ms": train_ms, "block_bwd_ms": bwd_ms,
-            "sample_ms_per_step": sample(50, 1)}
+    out["sample_ms_per_step"] = sample(50, 1)
+
+    hmodel, hsample = setup("hybrid")
+    hrn = hmodel.net.refine_net
+    with torch.no_grad():
+        hh, hx, hnode, hmlig = hmodel.net.embed(
+            *pocket_batch(torch, dev, pocket, feat_dim, HYBRID_LIGAND, HYBRID_SIZES, 7))
+        hnbh = hrn.graph(hx, hnode, hmlig)
+        he_w = hrn.edge_weights(hx, hnbh)[..., 0]
+        px, _ = kel.pack_layer_params(hrn.base_block[0])
+        out["x2h_layer_hybrid_ms"] = cuda_ms(torch, lambda: kel.x2h_layer_cuda(
+            hh, hx, hnbh, hmlig, he_w, px))
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                kel.x2h_layer_cuda(hh, hx, hnbh, hmlig, he_w, px)
+            torch.cuda.synchronize()
+        # the x2h edge kernel by name: x2h_edge_kernel, or edge_kernel<false, .> before it
+        out["x2h_edge_hybrid_device_ms"] = sum(
+            v["ms"] for k, v in device_times(prof, 10).items()
+            if "x2h_edge_kernel" in k or "edge_kernel<false" in k)
+    hsample(3, 1)  # warm up
+    out["hybrid_sample_ms_per_step"] = hsample(50, 1)
+
+    tb = synth_batch(np.random.default_rng(3), TRAIN_B, max_protein=TRAIN_PROTEIN,
+                     max_ligand=MAX_LIGAND, n_protein_range=(TRAIN_VALID, TRAIN_VALID + 1),
+                     n_ligand_range=(18, 28), device=dev)
+    torch.manual_seed(1)
+    tmodel = DiffusionModel(Config(FLAGSHIP), feat_dim, NUM_CLASSES, device=dev,
+                            max_protein=TRAIN_PROTEIN, max_ligand=MAX_LIGAND)
+    state = create_train_state(tmodel, train_utils.get_optimizer(Config(OPTIMIZER),
+                                                                 tmodel.parameters()))
+    step = make_train_step(tmodel, pos_noise_std=0.1, time_sampling="importance")
+    tgen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(TRAIN_WARMUP):
+        state, _ = step(state, tb, tgen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        state, _ = step(state, tb, tgen)
+    torch.cuda.synchronize()
+    out["train_step_ms"] = 1e3 * (time.perf_counter() - t0) / 10
+    return out
 
 
 if __name__ == "__main__":

@@ -3,8 +3,8 @@
 // widths, the packed weights of one layer's pass, the device code every
 // kernel recomputes identically (node projections, per-edge geometry, the
 // edge MLPs' first layer and LayerNorm, the second layers, the attention
-// logits and the masked softmax over a row's edges), and the forward edge
-// kernel itself.
+// logits and the masked softmax over a row's edges), and the h2x edge
+// kernel. The x2h edge kernel is x2h_edge.cuh.
 //
 // A destination row's K edges are processed in chunks of KC = 32: one chunk
 // of edges lives in shared memory and registers at a time, and the row's
@@ -373,24 +373,23 @@ __device__ __forceinline__ void row_softmax(float (*a)[NH], int K, int KP, int t
   }
 }
 
-// Dynamic shared memory of edge_kernel: the row's attention weights.
+// Dynamic shared memory of h2x_edge_kernel: the row's attention weights.
 __host__ __device__ constexpr int edge_smem(int K) {
   return (K + KC - 1) / KC * KC * NH * (int)sizeof(float);
 }
 
-// One attention sub-layer for one destination row per block (blockIdx.x =
-// row - row0, blockIdx.y = complex). kH2X = false: x2h, writes
-// out = h + attention average of e_w * v (all rows). kH2X = true: h2x,
-// writes out = x + mask_ligand * sum_k mean_h(alpha * e_w * v) * rel (rows
-// from row0). kOneChunk (K <= 32): one pass, k and v together and the
-// softmax in registers. Otherwise pass 1 walks the chunks for the logits,
-// and after the row softmax pass 2 recomputes each chunk's values and sums
-// them.
-template <bool kH2X, bool kOneChunk>
+// The h2x attention sub-layer for one destination row per block (blockIdx.x
+// = row - row0, blockIdx.y = complex): writes out = x + mask_ligand *
+// sum_k mean_h(alpha * e_w * v) * rel on rows from row0. kOneChunk (K <= 32):
+// one pass, k and v together and the softmax in registers. Otherwise pass 1
+// walks the chunks for the logits, and after the row softmax pass 2
+// recomputes each chunk's values and sums them. (The x2h pass has its own
+// kernel, x2h_edge.cuh.)
+template <bool kOneChunk>
 __global__ void __launch_bounds__(kThreads)
-edge_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restrict__ qn,
-            PassParams p, int N, int K, int row0, float* __restrict__ out) {
-  constexpr int V = kH2X ? NH : H;  // value width
+h2x_edge_kernel(EdgeInputs in, const float* __restrict__ qn, PassParams p, int N, int K, int row0,
+                float* __restrict__ out) {
+  constexpr int V = NH;  // value width
   __shared__ __align__(16) float s_z[KC][H2];
   __shared__ EdgeGeometry s_g;
   extern __shared__ float smem_alpha[];
@@ -435,7 +434,7 @@ edge_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restrict_
   }
   __syncthreads();
 
-  float o = 0.f, d0 = 0.f, d1 = 0.f, d2 = 0.f;
+  float d0 = 0.f, d1 = 0.f, d2 = 0.f;
   for (int c = 0; c < nchunk; ++c) {
     const int e0 = c * KC;
     bool live = live0;
@@ -443,31 +442,21 @@ edge_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restrict_
       live = edge_chunk(s_g, s_z, nullptr, nullptr, in, p, b, bn, N, K, e0, t);
       if (live && !is_k && active) second_layer(acc, s_z, H, p.w2v, V, p.b2v[cc], cc);
     }
-    if (live) {
-      if (!kH2X) {
-        if (!is_k) {
-          const int head = cc / DH;
+    if (live && warp == H / 32) {  // value channels 0..NH-1 are lanes 0..NH-1
 #pragma unroll
-          for (int e = 0; e < KC; ++e) o += s_alpha[e0 + e][head] * s_g.w[e] * acc[e];
-        }
-      } else if (warp == H / 32) {  // value channels 0..NH-1 are lanes 0..NH-1
-#pragma unroll
-        for (int e = 0; e < KC; ++e) {
-          float g = cc < NH ? s_alpha[e0 + e][cc] * s_g.w[e] * acc[e] : 0.f;
-          g = warp_sum(g) * (1.f / NH);
-          d0 += g * s_g.rel[e][0];
-          d1 += g * s_g.rel[e][1];
-          d2 += g * s_g.rel[e][2];
-        }
+      for (int e = 0; e < KC; ++e) {
+        float g = cc < NH ? s_alpha[e0 + e][cc] * s_g.w[e] * acc[e] : 0.f;
+        g = warp_sum(g) * (1.f / NH);
+        d0 += g * s_g.rel[e][0];
+        d1 += g * s_g.rel[e][1];
+        d2 += g * s_g.rel[e][2];
       }
     }
     if (!kOneChunk) __syncthreads();  // the next chunk overwrites s_g and s_z
   }
 
-  const float* x = in.x;
-  if (!kH2X) {
-    if (!is_k) out[bn * H + cc] = h[bn * H + cc] + o;
-  } else if (warp == H / 32 && lane == 0) {
+  if (warp == H / 32 && lane == 0) {
+    const float* x = in.x;
     const float gate = in.mlig[bn] ? 1.f : 0.f;
     out[3 * bn] = x[3 * bn] + gate * d0;
     out[3 * bn + 1] = x[3 * bn + 1] + gate * d1;
@@ -475,21 +464,20 @@ edge_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restrict_
   }
 }
 
-template <bool kH2X>
-int launch_edge(const float* h, const EdgeInputs& in, const float* q, const PassParams& p, int B,
-                int N, int K, int row0, float* out, cudaStream_t s) {
+int launch_h2x(const EdgeInputs& in, const float* q, const PassParams& p, int B, int N, int K,
+               int row0, float* out, cudaStream_t s) {
   if (B <= 0 || N <= 0 || K <= 0 || K > kMaxLayerK || row0 < 0 || row0 >= N)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(N - row0, B);
   if (K <= KC) {
-    edge_kernel<kH2X, true><<<grid, kThreads, edge_smem(K), s>>>(h, in, q, p, N, K, row0, out);
+    h2x_edge_kernel<true><<<grid, kThreads, edge_smem(K), s>>>(in, q, p, N, K, row0, out);
   } else {
     // the largest dynamic shared memory any K takes, set once per process (one device)
     static const int attr = (int)cudaFuncSetAttribute(
-        edge_kernel<kH2X, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        h2x_edge_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         edge_smem(kMaxLayerK));
     if (attr) return attr;
-    edge_kernel<kH2X, false><<<grid, kThreads, edge_smem(K), s>>>(h, in, q, p, N, K, row0, out);
+    h2x_edge_kernel<false><<<grid, kThreads, edge_smem(K), s>>>(in, q, p, N, K, row0, out);
   }
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // Block-denoiser kernels for Hopper (sm_90a): all layers of one
 // UniTransformerO2 block (released TargetDiff widths: hidden 128, 16 heads,
-// 20 RBF knots, K <= 32 neighbours), float32 throughout.
+// 20 RBF knots, K <= 32 neighbours), float32 (the x2h second layers as
+// three-term TF32 products, float32-accurate).
 //
 // Replaces: targetdiff_tpu/ops/pallas/block_denoiser.py:_block_kernel
 // (block_denoiser) with every tile live, in inference mode (the edge-weight
@@ -11,11 +12,13 @@
 // max-shifted instead of clipped.
 //
 // What bounds it: per layer and complex the x2h edge MLPs cost about
-// N*K*37k multiply-adds (two 128x128 second layers per edge dominate; the
+// N*K*76k FLOP, 65.5k of them the two 128x128 second layers per edge (the
 // first layers collapse to per-node projections plus a 20-row table lookup
 // per edge), about 0.7 GFLOP at N = 608, K = 32. Device memory traffic is
-// small (node rows and weights, both L2-resident), so the kernels are bound
-// by the float32 FMA pipes and the shared-memory operand reads feeding them.
+// small (node rows and weights, both L2-resident). The x2h edge kernel runs
+// its second layers on the tensor cores (x2h_edge.cuh); the node kernel and
+// the h2x edge kernel are bound by the float32 FMA pipes and the
+// shared-memory operand reads feeding them.
 //
 // Design, per block:
 //   ew_kernel    once: the global edge-weight MLP on block-start distances
@@ -23,16 +26,20 @@
 //   node_kernel  per pass: h @ [k.h_i | v.h_i | k.h_j | v.h_j | q1] plus the
 //                query MLP's LayerNorm and second layer (8 nodes per block),
 //                so the edge kernels never multiply h per edge.
-//   edge_kernel  per pass (block_common.cuh, shared with the per-layer
-//                kernels of edge_layer.cu): one block per destination row.
-//                It builds the K edges' geometry and RBF features, sums the
-//                first layer from the node projections (gathering the
-//                source's) and the edge-type table, applies LayerNorm+ReLU,
-//                runs both second layers from shared memory with every
-//                thread holding the edges of one output channel in
-//                registers, then the per-head softmax over K and the
-//                weighted sum. x2h writes h' for every row; h2x runs on the
-//                ligand rows (the tail of the composed layout) and writes x'.
+//   x2h_edge_kernel  per layer (x2h_edge.cuh, shared with the per-layer
+//                kernels of edge_layer.cu): persistent blocks with both
+//                second layers staged in shared memory, two rows' chunks of
+//                32 edges per step as the M of three-term TF32 tensor-core
+//                products, an online softmax over a row's chunks; writes h'
+//                for every row.
+//   h2x_edge_kernel  per layer (block_common.cuh): one block per ligand row
+//                (the tail of the composed layout). It builds the K edges'
+//                geometry and RBF features, sums the first layer from the
+//                node projections (gathering the source's) and the
+//                edge-type table, applies LayerNorm+ReLU, runs both second
+//                layers from shared memory with every thread holding the
+//                edges of one output channel in registers, then the
+//                per-head softmax over K and the weighted sum; writes x'.
 // All intermediates of an edge stay in shared memory or registers; only the
 // [B, N, K] edge weights and the per-node projections reach device memory.
 // Train mode (td_block_train_fwd) drives the same node and edge kernels over
@@ -40,6 +47,7 @@
 // straight into checkpoint slot l + 1.
 
 #include "block_common.cuh"
+#include "x2h_edge.cuh"
 
 struct EwParams {
   const float* w1;  // [R][H]
@@ -110,24 +118,23 @@ extern "C" int td_block_node(const float* h, int rows, PassParams p, float* ni, 
   return launch_node(h, rows, p, ni, nj, q, nullptr, (cudaStream_t)stream);
 }
 
+// The x2h edge pass alone (any K <= kMaxLayerK; the block path passes K <= 32).
 extern "C" int td_block_x2h(const float* h, const float* x, const int64_t* idx,
                             const bool* nmask, const bool* mlig, const float* ew,
                             const float* ni, const float* nj, const float* q,
                             const float* offsets, float coeff, PassParams p, int B, int N,
                             int K, int row0, float* h_out, void* stream) {
-  if (K > kMaxBlockK) return (int)cudaErrorInvalidValue;
   const EdgeInputs in{x, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
-  return launch_edge<false>(h, in, q, p, B, N, K, row0, h_out, (cudaStream_t)stream);
+  return launch_x2h(h, in, q, p, B, N, K, row0, h_out, (cudaStream_t)stream);
 }
 
-extern "C" int td_block_h2x(const float* h, const float* x, const int64_t* idx,
-                            const bool* nmask, const bool* mlig, const float* ew,
-                            const float* ni, const float* nj, const float* q,
-                            const float* offsets, float coeff, PassParams p, int B, int N,
-                            int K, int row0, float* x_out, void* stream) {
+extern "C" int td_block_h2x(const float* x, const int64_t* idx, const bool* nmask,
+                            const bool* mlig, const float* ew, const float* ni, const float* nj,
+                            const float* q, const float* offsets, float coeff, PassParams p,
+                            int B, int N, int K, int row0, float* x_out, void* stream) {
   if (K > kMaxBlockK) return (int)cudaErrorInvalidValue;
   const EdgeInputs in{x, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
-  return launch_edge<true>(h, in, q, p, B, N, K, row0, x_out, (cudaStream_t)stream);
+  return launch_h2x(in, q, p, B, N, K, row0, x_out, (cudaStream_t)stream);
 }
 
 // Train-mode forward of all L layers. hck [L+1][B][N][H] and xck
@@ -155,10 +162,9 @@ extern "C" int td_block_train_fwd(const float* h0, const float* x0, const int64_
     float* h_mid = hck + (l + 1) * hsz;
     const EdgeInputs in{xck + l * xsz, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
     err = launch_node(h_in, B * N, x2h[l], ni, nj, q, nullptr, s);
-    if (err == 0) err = launch_edge<false>(h_in, in, q, x2h[l], B, N, K, 0, h_mid, s);
+    if (err == 0) err = launch_x2h(h_in, in, q, x2h[l], B, N, K, 0, h_mid, s);
     if (err == 0) err = launch_node(h_mid, B * N, h2x[l], ni, nj, q, nullptr, s);
-    if (err == 0)
-      err = launch_edge<true>(h_mid, in, q, h2x[l], B, N, K, row0, xck + (l + 1) * xsz, s);
+    if (err == 0) err = launch_h2x(in, q, h2x[l], B, N, K, row0, xck + (l + 1) * xsz, s);
   }
   return err;
 }

@@ -1,6 +1,7 @@
 // Per-layer attention kernels for Hopper (sm_90a): one x2h or one h2x
 // sub-layer of the UniTransformerO2 (released widths: hidden 128, 16 heads,
-// 20 RBF knots), float32 throughout, for any K up to kMaxLayerK (256).
+// 20 RBF knots), float32 (x2h's second layers as three-term TF32 products,
+// float32-accurate), for any K up to kMaxLayerK (256).
 //
 // Replaces: targetdiff_tpu/ops/pallas/edge_layer.py:_x2h_kernel
 // (x2h_attention_layer) and :_h2x_kernel (h2x_attention_layer). They carry
@@ -13,20 +14,23 @@
 // and the edge weights come in as an input, as there.
 //
 // What bounds it: as the block kernels' edge passes, the two 128x128 second
-// layers of every live edge on the float32 FMA pipes (~66k FLOP per x2h
-// edge, ~35k per h2x edge); device memory moves only node rows, the
-// [B, N, K] graph and the weights.
+// layers of every live edge (~66k FLOP per x2h edge, ~35k per h2x edge):
+// x2h runs them on the tensor cores, h2x on the float32 FMA pipes; device
+// memory moves only node rows, the [B, N, K] graph and the weights.
 //
-// Design: node_kernel (per-node projections) then edge_kernel (one block per
-// destination row), both in block_common.cuh and shared with the whole-block
-// path. The row's edges go in chunks of 32; the logits of all K edges stay
-// in shared memory for the softmax, and a second walk over the chunks
-// recomputes the values (first layer, LayerNorm, v second layer) rather than
-// keeping [K, 128] of them. Chunks without a valid edge are skipped, which
-// is exact: under the hybrid graph a protein row's 32 valid slots come
-// first, so two of its three chunks at K = 95 cost nothing.
+// Design: node_kernel (per-node projections, block_common.cuh) then the edge
+// kernel of the pass, both shared with the whole-block path. x2h:
+// x2h_edge_kernel (x2h_edge.cuh), one walk over a row's live chunks of 32
+// edges with an online softmax. h2x: h2x_edge_kernel (block_common.cuh), one
+// block per ligand row; the logits of all K edges stay in shared memory for
+// the softmax, and a second walk over the chunks recomputes the values
+// (first layer, LayerNorm, v second layer) rather than keeping [K, 16] of
+// them. Chunks without a valid edge are skipped, which is exact: under the
+// hybrid graph a protein row's 32 valid slots come first, so two of its
+// three chunks at K = 95 cost nothing.
 
 #include "block_common.cuh"
+#include "x2h_edge.cuh"
 
 // h_out = x2h(h) for every row. ni, nj [B*N][2H] and q [B*N][H] are scratch.
 extern "C" int td_x2h_layer(const float* h, const float* x, const int64_t* idx,
@@ -36,7 +40,7 @@ extern "C" int td_x2h_layer(const float* h, const float* x, const int64_t* idx,
   cudaStream_t s = (cudaStream_t)stream;
   const EdgeInputs in{x, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
   int err = launch_node(h, B * N, p, ni, nj, q, nullptr, s);
-  if (err == 0) err = launch_edge<false>(h, in, q, p, B, N, K, 0, h_out, s);
+  if (err == 0) err = launch_x2h(h, in, q, p, B, N, K, 0, h_out, s);
   return err;
 }
 
@@ -51,6 +55,6 @@ extern "C" int td_h2x_layer(const float* h, const float* x, const int64_t* idx,
   cudaStream_t s = (cudaStream_t)stream;
   const EdgeInputs in{x, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
   int err = launch_node(h, B * N, p, ni, nj, q, nullptr, s);
-  if (err == 0) err = launch_edge<true>(h, in, q, p, B, N, K, N - n_ligand, x_out, s);
+  if (err == 0) err = launch_h2x(in, q, p, B, N, K, N - n_ligand, x_out, s);
   return err;
 }

@@ -1,6 +1,7 @@
 // One attention pass's backward, shared by the whole-block backward
 // (block_vjp.cu) and the per-layer backwards (edge_layer_vjp.cu): the exact
-// VJP of edge_kernel (block_common.cuh) for any K up to kMaxLayerK, float32.
+// VJP of the x2h and h2x edge passes (x2h_edge.cuh, block_common.cuh) for
+// any K up to kMaxLayerK, float32.
 //
 // Per pass (run_pass):
 //   node_kernel     recomputes the per-node projections ni, nj, q (and q's

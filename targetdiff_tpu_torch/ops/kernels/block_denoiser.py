@@ -127,10 +127,10 @@ def _entries():
         # h, rows, PassParams, ni, nj, q, stream
         "td_block_node": [vp, i32, _PassParams, vp, vp, vp, vp],
         # h, x, idx, nmask, mlig, ew, ni, nj, q, offsets, coeff, PassParams,
-        # B, N, K, row0, out, stream
+        # B, N, K, row0, out, stream (td_block_h2x: no h)
         "td_block_x2h": [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, f32, _PassParams,
                          i32, i32, i32, i32, vp, vp],
-        "td_block_h2x": [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, f32, _PassParams,
+        "td_block_h2x": [vp, vp, vp, vp, vp, vp, vp, vp, vp, f32, _PassParams,
                          i32, i32, i32, i32, vp, vp],
         # h0, x0, idx, nmask, mlig, ew, offsets, coeff, x2h[L], h2x[L], L, B, N, K,
         # n_ligand, ni, nj, q, hck, xck, stream
@@ -224,7 +224,7 @@ def block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed=Non
                                         B, N, K, 0, h_b.data_ptr(), stream), "td_block_x2h")
         build.check(fns["td_block_node"](h_b.data_ptr(), B * N, h2x_p[l], ni.data_ptr(),
                                          nj.data_ptr(), q.data_ptr(), stream), "td_block_node")
-        build.check(fns["td_block_h2x"](h_b.data_ptr(), x_a.data_ptr(), *common, h2x_p[l],
+        build.check(fns["td_block_h2x"](x_a.data_ptr(), *common, h2x_p[l],
                                         B, N, K, N - n_ligand, x_b.data_ptr(), stream),
                     "td_block_h2x")
         h_a, h_b = h_b, h_a

@@ -219,7 +219,8 @@ def _layer_setup(cuda, cutoff_mode, k, max_ligand, n_protein, seed=0):
     return model, batch, rn, h, x, node_mask, mlig, nbh, e_w
 
 
-LAYER_CASES = [("knn", 8, 8, 40), ("hybrid", 32, 64, 64), ("hybrid", 32, 128, 40)]
+LAYER_CASES = [("knn", 8, 8, 40), ("knn", 32, 8, 40), ("hybrid", 32, 64, 64),
+               ("hybrid", 32, 128, 40)]
 
 
 @pytest.mark.parametrize("cutoff_mode,k,max_ligand,n_protein", LAYER_CASES)
@@ -243,6 +244,46 @@ def test_layer_kernels_match_plain(cuda, cutoff_mode, k, max_ligand, n_protein):
     empty = ~nbh.mask.any(-1)
     assert bool(empty.any()) and torch.equal(h_out[empty], h[empty])
     assert torch.equal(x_out[~mlig], x[~mlig])
+
+
+@pytest.mark.parametrize("cutoff_mode,k,max_ligand,n_protein", LAYER_CASES)
+def test_x2h_kernel_callers_match_plain_and_repeat(cuda, cutoff_mode, k, max_ligand, n_protein):
+    """The x2h edge kernel through its three callers, each against its plain
+    version and each run twice bitwise equal (no atomics: a fixed summation
+    order): td_x2h_layer at any K, and at K <= 32 the inference block
+    (td_block_x2h) and the train-mode block forward (td_block_train_fwd)."""
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+
+    _, _, rn, h, x, node_mask, mlig, nbh, e_w = _layer_setup(cuda, cutoff_mode, k, max_ligand,
+                                                              n_protein, seed=4)
+    layer = rn.base_block[0]
+    with torch.no_grad():
+        px, _ = kel.pack_layer_params(layer)
+        runs = [kel.x2h_layer_cuda(h, x, nbh, mlig, e_w, px) for _ in range(2)]
+        ref = kel.x2h_layer_plain(layer, h, x, nbh, mlig, e_w)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    torch.testing.assert_close(runs[0], ref, atol=2e-3, rtol=1e-2)
+    empty = ~nbh.mask.any(-1)
+    assert bool(empty.any()) and torch.equal(runs[0][empty], h[empty])
+    if nbh.idx.shape[-1] > kblock.MAX_K:
+        return
+    with torch.no_grad():
+        blocks = [kblock.block_denoiser(rn, h, x, nbh, mlig, n_ligand=max_ligand)
+                  for _ in range(2)]
+        h_ref, x_ref = rn.block_forward(h, x, nbh, mlig)
+        x2h, h2x = kblock.pack_pass_params(rn)
+        trains = [kblock.block_denoiser_train_cuda(rn, h, x, nbh, mlig, e_w, max_ligand, x2h, h2x)
+                  for _ in range(2)]
+        want = kblock.block_denoiser_train_plain(rn, h, x, nbh, mlig, e_w)
+    torch.cuda.synchronize()
+    m, mk = node_mask[..., None], node_mask[None, :, :, None]
+    assert all(torch.equal(a, b) for a, b in zip(*blocks))
+    torch.testing.assert_close(blocks[0][0] * m, h_ref * m, atol=2e-3, rtol=1e-2)
+    torch.testing.assert_close(blocks[0][1] * m, x_ref * m, atol=2e-4, rtol=1e-3)
+    assert all(torch.equal(a, b) for a, b in zip(*trains))
+    torch.testing.assert_close(trains[0][0] * mk, want[0] * mk, atol=2e-3, rtol=1e-2)
+    torch.testing.assert_close(trains[0][1] * mk, want[1] * mk, atol=2e-4, rtol=1e-3)
 
 
 @pytest.mark.parametrize("cutoff_mode,k,max_ligand,n_protein", LAYER_CASES)
