@@ -1,7 +1,7 @@
 // Block-denoiser kernels for Hopper (sm_90a): all layers of one
 // UniTransformerO2 block (released TargetDiff widths: hidden 128, 16 heads,
 // 20 RBF knots, K <= 32 neighbours), float32 (the x2h second layers as
-// three-term TF32 products, float32-accurate).
+// three-term fp16 tensor-core products, float32-accurate).
 //
 // Replaces: targetdiff_tpu/ops/pallas/block_denoiser.py:_block_kernel
 // (block_denoiser) with every tile live, in inference mode (the edge-weight
@@ -28,10 +28,10 @@
 //                so the edge kernels never multiply h per edge.
 //   x2h_edge_kernel  per layer (x2h_edge.cuh, shared with the per-layer
 //                kernels of edge_layer.cu): persistent blocks with both
-//                second layers staged in shared memory, two rows' chunks of
-//                32 edges per step as the M of three-term TF32 tensor-core
-//                products, an online softmax over a row's chunks; writes h'
-//                for every row.
+//                second layers staged in shared memory, four pipelines per
+//                block each taking one row's chunk of 32 edges per step as
+//                the M of three-term fp16 tensor-core products, an online
+//                softmax over a row's chunks; writes h' for every row.
 //   h2x_edge_kernel  per layer (block_common.cuh): one block per ligand row
 //                (the tail of the composed layout). It builds the K edges'
 //                geometry and RBF features, sums the first layer from the
@@ -119,13 +119,16 @@ extern "C" int td_block_node(const float* h, int rows, PassParams p, float* ni, 
 }
 
 // The x2h edge pass alone (any K <= kMaxLayerK; the block path passes K <= 32).
+// x2h updates every row: row0 must be 0 (the argument keeps the entry's
+// signature that of td_block_h2x and of earlier builds).
 extern "C" int td_block_x2h(const float* h, const float* x, const int64_t* idx,
                             const bool* nmask, const bool* mlig, const float* ew,
                             const float* ni, const float* nj, const float* q,
                             const float* offsets, float coeff, PassParams p, int B, int N,
                             int K, int row0, float* h_out, void* stream) {
+  if (row0 != 0) return (int)cudaErrorInvalidValue;
   const EdgeInputs in{x, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
-  return launch_x2h(h, in, q, p, B, N, K, row0, h_out, (cudaStream_t)stream);
+  return launch_x2h(h, in, q, p, B, N, K, h_out, (cudaStream_t)stream);
 }
 
 extern "C" int td_block_h2x(const float* x, const int64_t* idx, const bool* nmask,
@@ -162,7 +165,7 @@ extern "C" int td_block_train_fwd(const float* h0, const float* x0, const int64_
     float* h_mid = hck + (l + 1) * hsz;
     const EdgeInputs in{xck + l * xsz, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
     err = launch_node(h_in, B * N, x2h[l], ni, nj, q, nullptr, s);
-    if (err == 0) err = launch_x2h(h_in, in, q, x2h[l], B, N, K, 0, h_mid, s);
+    if (err == 0) err = launch_x2h(h_in, in, q, x2h[l], B, N, K, h_mid, s);
     if (err == 0) err = launch_node(h_mid, B * N, h2x[l], ni, nj, q, nullptr, s);
     if (err == 0) err = launch_h2x(in, q, h2x[l], B, N, K, row0, xck + (l + 1) * xsz, s);
   }

@@ -1,7 +1,7 @@
 // Per-layer attention kernels for Hopper (sm_90a): one x2h or one h2x
 // sub-layer of the UniTransformerO2 (released widths: hidden 128, 16 heads,
-// 20 RBF knots), float32 (x2h's second layers as three-term TF32 products,
-// float32-accurate), for any K up to kMaxLayerK (256).
+// 20 RBF knots), float32 (x2h's second layers as three-term fp16 tensor-core
+// products, float32-accurate), for any K up to kMaxLayerK (256).
 //
 // Replaces: targetdiff_tpu/ops/pallas/edge_layer.py:_x2h_kernel
 // (x2h_attention_layer) and :_h2x_kernel (h2x_attention_layer). They carry
@@ -40,7 +40,7 @@ extern "C" int td_x2h_layer(const float* h, const float* x, const int64_t* idx,
   cudaStream_t s = (cudaStream_t)stream;
   const EdgeInputs in{x, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
   int err = launch_node(h, B * N, p, ni, nj, q, nullptr, s);
-  if (err == 0) err = launch_x2h(h, in, q, p, B, N, K, 0, h_out, s);
+  if (err == 0) err = launch_x2h(h, in, q, p, B, N, K, h_out, s);
   return err;
 }
 

@@ -131,12 +131,6 @@ __device__ __forceinline__ void lane_sync(int l) {
   asm volatile("bar.sync %0, %1;" ::"r"(1 + l), "r"(kLaneThreads) : "memory");
 }
 
-// Destination node of flattened row r (rows row0..N-1 of every complex).
-__device__ __forceinline__ long long x2h_node(long long r, int N, int row0) {
-  const int per = N - row0;
-  return r / per * N + row0 + r % per;
-}
-
 // Bit c set when chunk c of row bn holds a valid edge. Warp-wide.
 __device__ __forceinline__ unsigned live_chunks(const bool* nmask, long long bn, int K, int lane) {
   unsigned bits = 0;
@@ -177,7 +171,7 @@ __device__ __forceinline__ void first_layer_slots(X2hLane& L, unsigned todo, con
 
 __global__ void __launch_bounds__(kX2hThreads, 1)
 x2h_edge_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restrict__ qn,
-                PassParams p, int B, int N, int K, int row0, float* __restrict__ out) {
+                PassParams p, int B, int N, int K, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char x2h_smem_raw[];
   X2hSmem& s = *reinterpret_cast<X2hSmem*>(x2h_smem_raw);
   const int t = threadIdx.x, lane = t & 31;
@@ -201,8 +195,9 @@ x2h_edge_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restr
   __syncthreads();  // the weights are read-only from here; the pipelines run on their own
 
   // warp 0 of each pipeline walks its rows: cursor, its live chunks not yet
-  // taken; the next chunk's first-round loads (take) and geometry (settle)
-  const long long total = (long long)B * (N - row0);
+  // taken; the next chunk's first-round loads (take) and geometry (settle).
+  // Row r is destination node r = b*N + i.
+  const long long total = (long long)B * N;
   const long long stride = (long long)gridDim.x * kX2hLanes;
   long long cur = (long long)blockIdx.x * kX2hLanes + l;
   unsigned todo = 0;
@@ -213,17 +208,16 @@ x2h_edge_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restr
   float new_w = 0.f;
   auto next_row = [&]() {
     cur += stride;
-    todo = cur < total ? live_chunks(in.nmask, x2h_node(cur, N, row0), K, lane) : 0;
+    todo = cur < total ? live_chunks(in.nmask, cur, K, lane) : 0;
     fresh = true;
   };
   auto take = [&]() {  // the next live chunk; a row without a valid edge keeps h
     while (cur < total && todo == 0) {
-      const long long bn = x2h_node(cur, N, row0);
-      reinterpret_cast<float4*>(out + bn * H)[lane] =
-          reinterpret_cast<const float4*>(h + bn * H)[lane];
+      reinterpret_cast<float4*>(out + cur * H)[lane] =
+          reinterpret_cast<const float4*>(h + cur * H)[lane];
       next_row();
     }
-    nbn = cur < total ? x2h_node(cur, N, row0) : -1;
+    nbn = cur < total ? cur : -1;
     const int e = (cur < total ? (__ffs(todo) - 1) * KC : K) + lane;
     nvalid = false;
     if (e < K) {
@@ -282,7 +276,7 @@ x2h_edge_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restr
     }
   };
   if (qd == 0) {
-    if (cur < total) todo = live_chunks(in.nmask, x2h_node(cur, N, row0), K, lane);
+    if (cur < total) todo = live_chunks(in.nmask, cur, K, lane);
     take();
     settle();
   }
@@ -493,10 +487,10 @@ x2h_edge_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restr
   }
 }
 
-// out = x2h(h) on rows row0..N-1 of every complex, for any K <= kMaxLayerK.
+// out = x2h(h) on every row, for any K <= kMaxLayerK.
 int launch_x2h(const float* h, const EdgeInputs& in, const float* q, const PassParams& p, int B,
-               int N, int K, int row0, float* out, cudaStream_t s) {
-  if (B <= 0 || N <= 0 || K <= 0 || K > kMaxLayerK || row0 < 0 || row0 >= N)
+               int N, int K, float* out, cudaStream_t s) {
+  if (B <= 0 || N <= 0 || K <= 0 || K > kMaxLayerK)
     return (int)cudaErrorInvalidValue;
   static int n_sm = 0;  // the SMs of the (one) device, with the shared-memory limit raised
   if (n_sm == 0) {
@@ -509,9 +503,9 @@ int launch_x2h(const float* h, const EdgeInputs& in, const float* q, const PassP
     if (err) return err;
     n_sm = sms;
   }
-  const long long steps = ((long long)B * (N - row0) + kX2hLanes - 1) / kX2hLanes;
+  const long long steps = ((long long)B * N + kX2hLanes - 1) / kX2hLanes;
   const int grid = (int)(steps < n_sm ? steps : n_sm);
-  x2h_edge_kernel<<<grid, kX2hThreads, sizeof(X2hSmem), s>>>(h, in, q, p, B, N, K, row0, out);
+  x2h_edge_kernel<<<grid, kX2hThreads, sizeof(X2hSmem), s>>>(h, in, q, p, B, N, K, out);
   return (int)cudaGetLastError();
 }
 
