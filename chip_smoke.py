@@ -8,11 +8,13 @@
 With no arguments: builds the CUDA kernels from targetdiff_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version at the main path's shapes (the example
 pocket: 572 atoms padded to 576, 32 ligand slots, K = 32, four complexes;
-flagship width: 9 layers, hidden 128, 16 heads), holds the x2h edge launch
-alone against the plain x2h layer at a float32-grade bar and times it, then
-samples molecules for
-that pocket through the port's entry point `sample_diffusion_ligand` with
-seeded random flagship weights, and checks the outputs. Then the training
+flagship width: 9 layers, hidden 128, 16 heads), holds the node launch, the
+x2h edge launch and the h2x edge launch alone against their plain versions
+(the edge launches at float32-grade bars) and times each beside its bound
+(the node launch also beside `torch.addmm` of its projection), then samples
+molecules for that pocket through the port's entry point
+`sample_diffusion_ligand` with seeded random flagship weights, and checks the
+outputs. Then the training
 path: the train-mode block kernel and the block-VJP kernel against autograd
 of the plain block, the whole loss and its gradients on the kernel path
 against the eager path, `make_train_step` at the bench's train shape (B=32,
@@ -20,8 +22,8 @@ against the eager path, `make_train_step` at the bench's train shape (B=32,
 six-entry dataset, whose checkpoint is reloaded and sampled from. Then the
 per-layer path: the per-layer attention kernels and their backwards against
 the plain layers on the hybrid graph (the example pocket with 64 ligand
-slots: N = 640, K = 95) and the kNN graph, the x2h edge launch alone at the
-hybrid shape, 1000 DDPM steps of a hybrid model
+slots: N = 640, K = 95) and the kNN graph, the node and edge launches alone
+at the hybrid shape, 1000 DDPM steps of a hybrid model
 through `sample_diffusion_ligand`, and the per-layer training loss
 (`impl='fast_pl'`) against the eager one and its train step at B=32. Every
 phase prints one line; any failure exits non-zero. The last two lines are a
@@ -36,10 +38,11 @@ time of each kernel and of the step, beside the host time of the same steps
 run just before without the profiler; `profile block` the inference block
 and the train-mode block forward on the same inputs, in turns, kernel by
 kernel.
-`duel` times the whole-block kernels (B=4, N=608, K=32), the x2h edge
-launch at the kNN and hybrid shapes, one per-layer x2h call at the hybrid
-shape, 50 kNN and 50 hybrid sampling steps and the B=32 train step of the
-port found in CHECKOUT (this checkout by default), through entry points
+`duel` times the whole-block kernels (B=4, N=608, K=32), the node launch
+and the x2h and h2x edge launches alone at the kNN shape, one per-layer x2h
+and one h2x call at the hybrid shape with their kernels' device time, 50 kNN
+and 50 hybrid sampling steps and the B=32 train step of the port found in
+CHECKOUT (this checkout by default), through entry points
 every version of the port since the per-layer slice has: run it once per
 checkout, in turns, within one call,
 to compare two versions on one card. Both print one JSON line that starts
@@ -87,6 +90,14 @@ H_TOL = dict(atol=2e-3, rtol=1e-2)
 # One fp16 product per term lands ~2e-4 away; tests/test_torch_x2h_edge.py
 # holds replays of one fp16 or one bf16 product per term outside this bar.
 X2H_TOL = dict(atol=1e-5, rtol=0.0)
+# The h2x edge kernel alone against the plain layer, on positions: its k and
+# v products are float32-grade too; one fp16 product per term lands ~5e-5 to
+# ~1e-4 away (tests/test_torch_h2x_edge.py; on the card: PERF.md).
+H2X_TOL = dict(atol=1e-5, rtol=0.0)
+# The node kernel's projections against float64: the largest error over the
+# largest |exact| entry of each output (three-term fp16 on rows scaled by a
+# power of two; float32 itself sits ~1e-7 there).
+NODE_REL = 4e-6
 GRAD_ATOL_SCALE, GRAD_RTOL = 5e-3, 5e-3  # atol = 5e-3 * max|plain grad| per tensor
 OPTIMIZER = dict(type="adam", lr=5e-4, weight_decay=0.0, beta1=0.95, beta2=0.999,
                  max_grad_norm=8.0)
@@ -151,6 +162,23 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def device_ms(torch, fn, calls: int = 20) -> float:
+    """Device milliseconds per call of fn: every kernel it launches, summed
+    over `calls` calls traced by torch.profiler after one warm-up call. Where
+    a call's host time exceeds its kernels' (a single ctypes launch of a
+    kernel of a few microseconds), CUDA events around the call time the host."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(k["ms"] for k in device_times(prof, calls).values())
+
+
 def nbytes(*tensors) -> int:
     """Bytes of tensors (and of the values of dicts of tensors)."""
     total = 0
@@ -175,11 +203,19 @@ def tc_share(flops) -> float:
     return float(flops[0] / (flops[0] + flops[1]))
 
 
-def x2h_edge_launcher(torch, kblock, h, x, nbh, mask_ligand, e_w, stacks):
-    """The x2h edge kernel alone (`td_block_x2h`) on the node projections of
-    the first layer of `stacks`, computed once here (`td_block_node`):
-    `.launch()` writes `.out`; `.bytes` is what the launch must read and
-    write (each input once)."""
+NODE_FIELDS = ("w_node", "b_node", "q_ln", "w_q2", "b_q2")
+
+
+def pass_launcher(torch, kblock, h, x, nbh, mask_ligand, e_w, stacks, n_ligand):
+    """The first layer of `stacks` launched piece by piece through the C
+    entries: `.node()` the node kernel on every row (`td_block_node`, as the
+    x2h pass launches it), `.node_rows()` as the h2x pass launches it (rows
+    below row0 = N - n_ligand get only nj: `td_block_node_rows`; a tree
+    without that entry launches `td_block_node`), `.x2h()` and `.h2x()` the
+    edge launches alone (`td_block_x2h`, `td_block_h2x`) on the projections
+    of the last node launch, into `.out` (h') and `.xout` (x', protein rows
+    as x). `.bytes[name]` is what a launch must read and write (each input
+    once, the rows it needs)."""
     from types import SimpleNamespace
 
     from targetdiff_tpu_torch.ops.rbf import gaussian_smearing_offsets
@@ -187,6 +223,7 @@ def x2h_edge_launcher(torch, kblock, h, x, nbh, mask_ligand, e_w, stacks):
     B, N, H = h.shape
     K = nbh.idx.shape[-1]
     dev = h.device
+    row0 = N - n_ligand
     offsets, coeff = gaussian_smearing_offsets(device=dev)
     fns, pp = kblock._entries(), kblock._pass_structs(stacks, 1)[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -194,21 +231,114 @@ def x2h_edge_launcher(torch, kblock, h, x, nbh, mask_ligand, e_w, stacks):
                         nmask=nbh.mask.contiguous(), mlig=mask_ligand.contiguous(),
                         ew=e_w.contiguous(), ni=torch.empty((B * N, 2 * H), device=dev),
                         nj=torch.empty((B * N, 2 * H), device=dev),
-                        q=torch.empty((B * N, H), device=dev), out=torch.empty_like(h))
-    args = (t.h.data_ptr(), t.x.data_ptr(), t.idx.data_ptr(), t.nmask.data_ptr(),
-            t.mlig.data_ptr(), t.ew.data_ptr(), t.ni.data_ptr(), t.nj.data_ptr(), t.q.data_ptr(),
-            offsets.data_ptr(), coeff, pp, B, N, K, 0, t.out.data_ptr(), stream)
+                        q=torch.empty((B * N, H), device=dev), out=torch.empty_like(h),
+                        xout=x.contiguous().clone())
+    graph = (t.idx.data_ptr(), t.nmask.data_ptr(), t.mlig.data_ptr(), t.ew.data_ptr(),
+             t.ni.data_ptr(), t.nj.data_ptr(), t.q.data_ptr(), offsets.data_ptr(), coeff, pp, B,
+             N, K)
+    node_args = (pp, t.ni.data_ptr(), t.nj.data_ptr(), t.q.data_ptr())
 
-    def launch():
-        kblock.build.check(fns["td_block_x2h"](*args), "td_block_x2h")
+    def node():
+        kblock.build.check(fns["td_block_node"](t.h.data_ptr(), B * N, *node_args, stream),
+                           "td_block_node")
 
-    kblock.build.check(fns["td_block_node"](t.h.data_ptr(), B * N, pp, t.ni.data_ptr(),
-                                            t.nj.data_ptr(), t.q.data_ptr(), stream),
-                       "td_block_node")
-    edge_weights = {k: v[0] for k, v in stacks.items()
-                    if k not in ("w_node", "b_node", "q_ln", "w_q2", "b_q2")}
-    return SimpleNamespace(launch=launch, out=t.out, tensors=(t, offsets),
-                           bytes=nbytes(*vars(t).values(), edge_weights, offsets))
+    def node_rows():
+        if "td_block_node_rows" not in fns:
+            return node()
+        kblock.build.check(fns["td_block_node_rows"](t.h.data_ptr(), B, N, row0, *node_args,
+                                                     None, stream), "td_block_node_rows")
+
+    def x2h():
+        kblock.build.check(fns["td_block_x2h"](t.h.data_ptr(), t.x.data_ptr(), *graph, 0,
+                                               t.out.data_ptr(), stream), "td_block_x2h")
+
+    def h2x():
+        kblock.build.check(fns["td_block_h2x"](t.x.data_ptr(), *graph, row0, t.xout.data_ptr(),
+                                               stream), "td_block_h2x")
+
+    weights = {k: v[0] for k, v in stacks.items()}
+    node_w = {k: v for k, v in weights.items() if k in NODE_FIELDS}
+    edge_w = {k: v for k, v in weights.items() if k not in NODE_FIELDS}
+    lig, src, either = h2x_rows(torch, nbh, row0)
+    row_bytes = {"ni": 2 * H * 4, "q": H * 4, "graph": K * (8 + 1 + 4), "x": 3 * 4 + 1}
+    node_bytes = nbytes(t.h, node_w)
+    sizes = {
+        "node": node_bytes + nbytes(t.ni, t.nj, t.q),
+        "node_rows": node_bytes + nbytes(t.nj) + lig * (row_bytes["ni"] + row_bytes["q"]),
+        "x2h": nbytes(t.x, t.mlig, t.nj, edge_w, offsets, t.h, t.idx, t.nmask, t.ew, t.ni, t.q,
+                      t.out),
+        # x' of the ligand rows; nj of the distinct sources of their valid
+        # edges; x and the ligand flag of both
+        "h2x": nbytes(edge_w, offsets) + src * 2 * H * 4 + either * row_bytes["x"]
+        + lig * (row_bytes["graph"] + row_bytes["ni"] + row_bytes["q"] + 3 * 4),
+    }
+    return SimpleNamespace(node=node, node_rows=node_rows, x2h=x2h, h2x=h2x, out=t.out,
+                           xout=t.xout, ni=t.ni, nj=t.nj, q=t.q, tensors=(t, offsets),
+                           bytes=sizes)
+
+
+def h2x_rows(torch, nbh, row0):
+    """(destination rows, distinct sources of their valid edges, rows that are
+    either) of an h2x pass over rows [row0, N) of each complex, summed over
+    the complexes: the rows whose data the pass must read."""
+    B, N, _ = nbh.idx.shape
+    src = either = 0
+    for b in range(B):
+        s = torch.unique(nbh.idx[b, row0:][nbh.mask[b, row0:]])
+        src += s.numel()
+        either += int((s < row0).sum()) + N - row0
+    return B * (N - row0), src, either
+
+
+def piece_fields(torch, kblock, kel, layer, h, x, nbh, mask_ligand, e_w, px, ph, n_ligand,
+                 work, label):
+    """The node launch and the x2h and h2x edge launches alone on one layer's
+    inputs (`pass_launcher`; h2x on the plain x2h layer's output), each held
+    against its plain version: the edge launches at their float32-grade
+    bars, the node projections (every row) at NODE_REL against float64.
+    CUDA-event ms, device ms (`device_ms`) and bounds of each, the h2x pass's
+    node launch (source-only protein rows) beside the full one, and
+    `torch.addmm` for the node projection's [rows, 128] @ [128, 640] part (the
+    library yardstick; float32, TF32 off). Returns the fields and the two
+    launchers."""
+    nodes, lig_nodes, edges, lig_edges = work
+    H = h.shape[-1]
+    with torch.no_grad():
+        xl = pass_launcher(torch, kblock, h, x, nbh, mask_ligand, e_w, px, n_ligand)
+        xl.node()
+        xl.x2h()
+        h_ref = kel.x2h_layer_plain(layer, h, x, nbh, mask_ligand, e_w)
+        hl = pass_launcher(torch, kblock, h_ref, x, nbh, mask_ligand, e_w, ph, n_ligand)
+        hl.node_rows()
+        hl.h2x()
+        x_ref = kel.h2x_layer_plain(layer, h_ref, x, nbh, mask_ligand, e_w)
+        want = kblock.node_projections_plain(h.double().reshape(-1, H),
+                                             {k: v.double() for k, v in px.items()})
+        torch.cuda.synchronize()
+        f = {"x2h_edge_max_abs_err": check_close(f"{label} x2h edge launch", xl.out, h_ref,
+                                                 **X2H_TOL),
+             "h2x_edge_max_abs_err": check_close(f"{label} h2x edge launch", hl.xout, x_ref,
+                                                 **H2X_TOL)}
+        rel = max(float((g.double() - w).abs().max() / w.abs().max())
+                  for g, w in zip((xl.ni, xl.nj, xl.q), want))
+        if not rel < NODE_REL:
+            raise AssertionError(f"{label} node launch: relative error {rel} (bar {NODE_REL})")
+        f["node_max_rel_err"] = rel
+        h2d, w_node, b_node = h.reshape(-1, H), px["w_node"][0], px["b_node"][0]
+        runs = {"x2h_edge": xl.x2h, "h2x_edge": hl.h2x, "node": xl.node,
+                "node_h2x": hl.node_rows,
+                "node_addmm": lambda: torch.addmm(b_node, h2d, w_node)}
+        for name, fn in runs.items():
+            f[f"{name}_ms"] = cuda_ms(torch, fn)
+            f[f"{name}_device_ms"] = device_ms(torch, fn)
+    for name, flops, nb in (("x2h_edge", edges * FLOP_EDGE["x2h"], xl.bytes["x2h"]),
+                            ("h2x_edge", lig_edges * FLOP_EDGE["h2x"], hl.bytes["h2x"]),
+                            ("node", node_flops("x2h", nodes, lig_nodes), xl.bytes["node"]),
+                            ("node_h2x", node_flops("h2x", nodes, lig_nodes),
+                             hl.bytes["node_rows"])):
+        b = bound(flops, nb)
+        f.update({f"{name}_bound_ms": b["bound_ms"], f"{name}_bound_by": b["bound_by"]})
+    return f, xl, hl
 
 
 def layer_work(nbh, mask_ligand, node_mask):
@@ -406,23 +536,17 @@ def main(argv) -> int:
     block_work = L * block_flops(*work) + work[2] * FLOP_EW_EDGE
     block_bound = bound(block_work, nbytes(h, x, plain_nbh.idx, plain_nbh.mask, mask_ligand,
                                            packed.x2h, packed.h2x, *packed.ew, h_k, x_k))
-    # the x2h edge launch alone: layer 0's x2h pass on its node projections,
-    # against the plain x2h layer at the float32-grade bar
+    # the node, x2h edge and h2x edge launches alone on layer 0's inputs,
+    # each against its plain version
     with torch.no_grad():
         e_w0 = rn.edge_weights(x, plain_nbh)[..., 0]
-        edge = x2h_edge_launcher(torch, kblock, h, x, plain_nbh, mask_ligand, e_w0, packed.x2h)
-        edge.launch()
-        edge_ref = kel.x2h_layer_plain(rn.base_block[0], h, x, plain_nbh, mask_ligand, e_w0)
-        torch.cuda.synchronize()
-        edge_err = check_close("block x2h edge launch", edge.out, edge_ref, **X2H_TOL)
-        edge_ms = cuda_ms(torch, edge.launch)
-    edge_bound = bound(work[2] * FLOP_EDGE["x2h"], edge.bytes)
+    px0, ph0 = ({k: v[:1] for k, v in st.items()} for st in (packed.x2h, packed.h2x))
+    pieces, _, _ = piece_fields(torch, kblock, kel, rn.base_block[0], h, x, plain_nbh,
+                                mask_ligand, e_w0, px0, ph0, MAX_LIGAND, work, "block")
     phase("block", shape=f"B={B},N={N},K={K},L={L},H=128,heads=16",
           max_abs_err_x=x_err, max_abs_err_h=h_err, max_abs_err_h_valid_rows=h_err_all,
           ms=block_ms, plain_ms=block_plain_ms, **block_bound,
-          tensor_core_share=tc_share(block_work), x2h_edge_max_abs_err=edge_err,
-          x2h_edge_ms=edge_ms,
-          x2h_edge_bound_ms=edge_bound["bound_ms"], x2h_edge_bound_by=edge_bound["bound_by"])
+          tensor_core_share=tc_share(block_work), **pieces)
 
     # whole forward: kernel-backed against eager, same inputs
     with torch.no_grad():
@@ -573,8 +697,9 @@ def layer_phases(torch, dev, feat, pocket, rn, h, x, nbh, mask_ligand, node_mask
             x_k = kel.h2x_layer_cuda(h_ref, x0, g, mlig, e_w, n_lig, ph)
         torch.cuda.synchronize()
         check_close(f"{shape} x2h layer", h_k, h_ref, **H_TOL)
+        check_close(f"{shape} h2x layer", x_k, x_ref, **POS_TOL)
         errs = {"x2h": check_close(f"{shape} x2h layer (float32-grade)", h_k, h_ref, **X2H_TOL),
-                "h2x": check_close(f"{shape} h2x layer", x_k, x_ref, **POS_TOL)}
+                "h2x": check_close(f"{shape} h2x layer (float32-grade)", x_k, x_ref, **H2X_TOL)}
         cot = {"x2h": torch.randn(h0.shape, generator=gen, device=dev) * nmask_rows[..., None],
                "h2x": torch.randn(x0.shape, generator=gen, device=dev)}
 
@@ -611,16 +736,12 @@ def layer_phases(torch, dev, feat, pocket, rn, h, x, nbh, mask_ligand, node_mask
         # times at the hybrid shape; bounds from this graph's live edges
         nodes, lig_nodes, edges, lig_edges = layer_work(g, mlig, nmask_rows)
         inputs = (h0, x0, g.idx, g.mask, mlig, e_w)
+        pieces, xl, hl = piece_fields(torch, kblock, kel, layer, h0, x0, g, mlig, e_w, px, ph,
+                                      n_lig, (nodes, lig_nodes, edges, lig_edges), "hybrid")
         with torch.no_grad():
-            # the x2h edge launch alone, on the layer's node projections: its
-            # output is the layer kernel's, bit for bit
-            edge = x2h_edge_launcher(torch, kblock, h0, x0, g, mlig, e_w, px)
-            edge.launch()
-            torch.cuda.synchronize()
-            if not torch.equal(edge.out, h_k):
-                raise AssertionError("hybrid x2h edge launch alone differs from td_x2h_layer")
-            edge_ms = cuda_ms(torch, edge.launch)
-            edge_bound = bound(edges * FLOP_EDGE["x2h"], edge.bytes)
+            # the launches alone give the layer kernels' outputs, bit for bit
+            if not torch.equal(xl.out, h_k) or not torch.equal(hl.xout, x_k):
+                raise AssertionError("hybrid edge launches alone differ from the layer kernels")
             f_ms = {"x2h": cuda_ms(torch, lambda: kel.x2h_layer_cuda(h0, x0, g, mlig, e_w, px)),
                     "h2x": cuda_ms(torch, lambda: kel.h2x_layer_cuda(h_ref, x0, g, mlig, e_w,
                                                                      n_lig, ph))}
@@ -642,22 +763,26 @@ def layer_phases(torch, dev, feat, pocket, rn, h, x, nbh, mask_ligand, node_mask
                                                                       retain_graph=True), reps=10)
             del o
         e = {"x2h": edges, "h2x": lig_edges}
+        # h2x reads the graph of its destination rows, and h, x and the
+        # ligand flag of those rows and of their valid edges' sources
+        lig, _, either = h2x_rows(torch, g, h0.shape[1] - n_lig)
+        fwd_bytes = {"x2h": nbytes(*inputs, px, h_k),
+                     "h2x": nbytes(ph, x_k) + lig * g.idx.shape[-1] * (8 + 1 + 4)
+                     + either * (h0.shape[-1] * 4 + 3 * 4 + 1)}
         shares = {}
-        for sub, params, y in (("x2h", px, h_k), ("h2x", ph, x_k)):
+        for sub, params in (("x2h", px), ("h2x", ph)):
             fwd = node_flops(sub, nodes, lig_nodes) + e[sub] * FLOP_EDGE[sub]
             bwd = node_flops(sub, nodes, lig_nodes, bwd=True) + e[sub] * FLOP_EDGE_BWD[sub]
             shares.update({sub: tc_share(fwd), f"{sub}_bwd": tc_share(bwd)})
             fields[sub] = dict(max_abs_err=errs[sub], ms=f_ms[sub], plain_ms=f_plain[sub],
-                               **bound(fwd, nbytes(*inputs, params, y)))
+                               **bound(fwd, fwd_bytes[sub]))
             fields[f"{sub}_bwd"] = dict(
                 max_abs_err=errs[f"{sub}_bwd"], ms=b_ms[sub], plain_ms=b_plain[sub],
                 **bound(bwd, nbytes(*inputs, params, cot[sub], h0, x0, e_w, params)))
         shape_str = f"B={B},N={h0.shape[1]},K={g.idx.shape[-1]}"
         live = dict(live_edges_x2h=edges, live_edges_h2x=lig_edges,
                     slots=int(g.mask.numel()), ms=f_ms, plain_ms=f_plain, bwd_ms=b_ms,
-                    bwd_plain_ms=b_plain, x2h_edge_ms=edge_ms,
-                    x2h_edge_bound_ms=edge_bound["bound_ms"],
-                    x2h_edge_bound_by=edge_bound["bound_by"])
+                    bwd_plain_ms=b_plain, **pieces)
     phase("layers", hybrid_shape=shape_str, hybrid=out["hybrid"],
           knn_shape=f"B={B},N={h.shape[1]},K={nbh.idx.shape[-1]}", knn=out["knn"], **live,
           bound_ms={k: v["bound_ms"] for k, v in fields.items()},
@@ -1129,12 +1254,14 @@ def profile_block(torch, dev, model, pocket, feat_dim) -> list:
 
 
 def duel(torch, dev, setup, pocket, feat_dim) -> dict:
-    """CUDA-event times of the whole-block kernels, of the x2h edge launch
-    at the kNN shape (alone) and of one td_x2h_layer call at the hybrid
-    shape; the device time of the x2h edge kernel in that call (torch.profiler,
-    10 calls: the call itself is host-bound once the kernel is fast); 50 kNN
-    and 50 hybrid sampling steps (host clock) and the B=32 `fast` train step
-    (host clock, 10 steps after 3)."""
+    """CUDA-event times of the whole-block kernels; CUDA-event and device
+    times of the node launch (every row, and as the h2x pass launches it) and
+    of the x2h and h2x edge launches alone at the kNN shape; CUDA-event times
+    of one td_x2h_layer and one td_h2x_layer call at the hybrid shape and the
+    device time of the edge kernel and of node_kernel in those calls
+    (torch.profiler, 10 calls: the calls themselves are host-bound once the
+    kernels are fast); 50 kNN and 50 hybrid sampling steps (host clock) and
+    the B=32 `fast` train step (host clock, 10 steps after 3)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -1169,8 +1296,18 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
         gx = torch.randn(x.shape, generator=gen, device=dev)
         out["block_bwd_ms"] = cuda_ms(torch, lambda: kvjp.block_bwd_cuda(
             hck, xck, nbh.idx, nbh.mask, mlig, e_w, MAX_LIGAND, x2h, h2x, gh, gx), reps=10)
-        out["x2h_edge_knn_ms"] = cuda_ms(torch, x2h_edge_launcher(
-            torch, kblock, h, x, nbh, mlig, e_w, x2h).launch)
+        # the launches alone at the kNN shape: td_block_node (every row), the
+        # h2x pass's node launch (td_block_node_rows where the tree has it),
+        # the x2h and h2x edge launches
+        xl, hl = (pass_launcher(torch, kblock, h, x, nbh, mlig, e_w,
+                                {k: v[:1] for k, v in st.items()}, MAX_LIGAND)
+                  for st in (x2h, h2x))
+        xl.node()
+        hl.node_rows()
+        for name, fn in (("x2h_edge", xl.x2h), ("h2x_edge", hl.h2x), ("node", xl.node),
+                         ("node_h2x", hl.node_rows)):
+            out[f"{name}_knn_ms"] = cuda_ms(torch, fn)
+            out[f"{name}_knn_device_ms"] = device_ms(torch, fn)
     sample(3, 1)  # warm up
     out["sample_ms_per_step"] = sample(50, 1)
 
@@ -1181,17 +1318,23 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
             *pocket_batch(torch, dev, pocket, feat_dim, HYBRID_LIGAND, HYBRID_SIZES, 7))
         hnbh = hrn.graph(hx, hnode, hmlig)
         he_w = hrn.edge_weights(hx, hnbh)[..., 0]
-        px, _ = kel.pack_layer_params(hrn.base_block[0])
-        out["x2h_layer_hybrid_ms"] = cuda_ms(torch, lambda: kel.x2h_layer_cuda(
-            hh, hx, hnbh, hmlig, he_w, px))
-        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                kel.x2h_layer_cuda(hh, hx, hnbh, hmlig, he_w, px)
-            torch.cuda.synchronize()
-        # the x2h edge kernel by name: x2h_edge_kernel, or edge_kernel<false, .> before it
-        out["x2h_edge_hybrid_device_ms"] = sum(
-            v["ms"] for k, v in device_times(prof, 10).items()
-            if "x2h_edge_kernel" in k or "edge_kernel<false" in k)
+        px, ph = kel.pack_layer_params(hrn.base_block[0])
+        layers = {"x2h": lambda: kel.x2h_layer_cuda(hh, hx, hnbh, hmlig, he_w, px),
+                  "h2x": lambda: kel.h2x_layer_cuda(hh, hx, hnbh, hmlig, he_w, HYBRID_LIGAND, ph)}
+        for sub, fn in layers.items():
+            out[f"{sub}_layer_hybrid_ms"] = cuda_ms(torch, fn)
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    fn()
+                torch.cuda.synchronize()
+            # device time by kernel name: the edge kernel (x2h_edge_kernel, or
+            # edge_kernel<false, .> before it; h2x_edge_kernel) and node_kernel
+            times = device_times(prof, 10).items()
+            out[f"{sub}_edge_hybrid_device_ms"] = sum(
+                v["ms"] for k, v in times
+                if f"{sub}_edge_kernel" in k or (sub == "x2h" and "edge_kernel<false" in k))
+            out[f"node_{sub}_hybrid_device_ms"] = sum(v["ms"] for k, v in times
+                                                      if "node_kernel" in k)
     hsample(3, 1)  # warm up
     out["hybrid_sample_ms_per_step"] = hsample(50, 1)
 

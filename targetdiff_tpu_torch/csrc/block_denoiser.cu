@@ -1,7 +1,8 @@
 // Block-denoiser kernels for Hopper (sm_90a): all layers of one
 // UniTransformerO2 block (released TargetDiff widths: hidden 128, 16 heads,
-// 20 RBF knots, K <= 32 neighbours), float32 (the x2h second layers as
-// three-term fp16 tensor-core products, float32-accurate).
+// 20 RBF knots, K <= 32 neighbours), float32 (the second layers
+// and node projections as three-term fp16 tensor-core products,
+// float32-accurate).
 //
 // Replaces: targetdiff_tpu/ops/pallas/block_denoiser.py:_block_kernel
 // (block_denoiser) with every tile live, in inference mode (the edge-weight
@@ -15,31 +16,28 @@
 // N*K*76k FLOP, 65.5k of them the two 128x128 second layers per edge (the
 // first layers collapse to per-node projections plus a 20-row table lookup
 // per edge), about 0.7 GFLOP at N = 608, K = 32. Device memory traffic is
-// small (node rows and weights, both L2-resident). The x2h edge kernel runs
-// its second layers on the tensor cores (x2h_edge.cuh); the node kernel and
-// the h2x edge kernel are bound by the float32 FMA pipes and the
-// shared-memory operand reads feeding them.
+// small (node rows and weights, both L2-resident). Every dense product runs
+// on the tensor cores as three-term fp16 products, float32-grade
+// (tc_common.cuh).
 //
 // Design, per block:
 //   ew_kernel    once: the global edge-weight MLP on block-start distances
 //                (a warp per edge).
-//   node_kernel  per pass: h @ [k.h_i | v.h_i | k.h_j | v.h_j | q1] plus the
-//                query MLP's LayerNorm and second layer (8 nodes per block),
-//                so the edge kernels never multiply h per edge.
+//   node_kernel  per pass (node_proj.cuh): h @ [k.h_i | v.h_i | k.h_j | v.h_j
+//                | q1] plus the query MLP's LayerNorm and second layer, a
+//                64-row tile and one 128-column slice of w_node per block,
+//                so the edge kernels never multiply h per edge. For the h2x
+//                pass the protein rows get only their source projections.
 //   x2h_edge_kernel  per layer (x2h_edge.cuh, shared with the per-layer
 //                kernels of edge_layer.cu): persistent blocks with both
 //                second layers staged in shared memory, four pipelines per
 //                block each taking one row's chunk of 32 edges per step as
-//                the M of three-term fp16 tensor-core products, an online
-//                softmax over a row's chunks; writes h' for every row.
-//   h2x_edge_kernel  per layer (block_common.cuh): one block per ligand row
-//                (the tail of the composed layout). It builds the K edges'
-//                geometry and RBF features, sums the first layer from the
-//                node projections (gathering the source's) and the
-//                edge-type table, applies LayerNorm+ReLU, runs both second
-//                layers from shared memory with every thread holding the
-//                edges of one output channel in registers, then the
-//                per-head softmax over K and the weighted sum; writes x'.
+//                the M of the tensor-core products, an online softmax over a
+//                row's chunks; writes h' for every row.
+//   h2x_edge_kernel  per layer (h2x_edge.cuh): persistent blocks whose four
+//                pipelines take (ligand row, live chunk) units, each
+//                yielding per-head softmax partials; a warp per row merges
+//                them in chunk order and writes x' on the ligand tail.
 // All intermediates of an edge stay in shared memory or registers; only the
 // [B, N, K] edge weights and the per-node projections reach device memory.
 // Train mode (td_block_train_fwd) drives the same node and edge kernels over
@@ -47,6 +45,8 @@
 // straight into checkpoint slot l + 1.
 
 #include "block_common.cuh"
+#include "h2x_edge.cuh"
+#include "node_proj.cuh"
 #include "x2h_edge.cuh"
 
 struct EwParams {
@@ -115,7 +115,15 @@ extern "C" int td_block_ew(const float* x, const int64_t* idx, int B, int N, int
 
 extern "C" int td_block_node(const float* h, int rows, PassParams p, float* ni, float* nj,
                              float* q, void* stream) {
-  return launch_node(h, rows, p, ni, nj, q, nullptr, (cudaStream_t)stream);
+  return launch_node(h, 1, rows, 0, p, ni, nj, q, nullptr, (cudaStream_t)stream);
+}
+
+// The node projections of B complexes of N rows where the rows below row0 of
+// each complex need only nj (the h2x pass: row0 = N - n_ligand); q1 may be
+// null.
+extern "C" int td_block_node_rows(const float* h, int B, int N, int row0, PassParams p, float* ni,
+                                  float* nj, float* q, float* q1, void* stream) {
+  return launch_node(h, B, N, row0, p, ni, nj, q, q1, (cudaStream_t)stream);
 }
 
 // The x2h edge pass alone (any K <= kMaxLayerK; the block path passes K <= 32).
@@ -131,11 +139,13 @@ extern "C" int td_block_x2h(const float* h, const float* x, const int64_t* idx,
   return launch_x2h(h, in, q, p, B, N, K, h_out, (cudaStream_t)stream);
 }
 
+// The h2x edge pass alone on the rows [row0, N) of each complex (any
+// K <= kMaxLayerK; the block path passes K <= 32). ni and q are read on those
+// rows only, nj on every row.
 extern "C" int td_block_h2x(const float* x, const int64_t* idx, const bool* nmask,
                             const bool* mlig, const float* ew, const float* ni, const float* nj,
                             const float* q, const float* offsets, float coeff, PassParams p,
                             int B, int N, int K, int row0, float* x_out, void* stream) {
-  if (K > kMaxBlockK) return (int)cudaErrorInvalidValue;
   const EdgeInputs in{x, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
   return launch_h2x(in, q, p, B, N, K, row0, x_out, (cudaStream_t)stream);
 }
@@ -164,9 +174,9 @@ extern "C" int td_block_train_fwd(const float* h0, const float* x0, const int64_
     const float* h_in = hck + l * hsz;
     float* h_mid = hck + (l + 1) * hsz;
     const EdgeInputs in{xck + l * xsz, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
-    err = launch_node(h_in, B * N, x2h[l], ni, nj, q, nullptr, s);
+    err = launch_node(h_in, B, N, 0, x2h[l], ni, nj, q, nullptr, s);
     if (err == 0) err = launch_x2h(h_in, in, q, x2h[l], B, N, K, h_mid, s);
-    if (err == 0) err = launch_node(h_mid, B * N, h2x[l], ni, nj, q, nullptr, s);
+    if (err == 0) err = launch_node(h_mid, B, N, row0, h2x[l], ni, nj, q, nullptr, s);
     if (err == 0) err = launch_h2x(in, q, h2x[l], B, N, K, row0, xck + (l + 1) * xsz, s);
   }
   return err;

@@ -1,11 +1,12 @@
 // One attention pass's backward, shared by the whole-block backward
 // (block_vjp.cu) and the per-layer backwards (edge_layer_vjp.cu): the exact
-// VJP of the x2h and h2x edge passes (x2h_edge.cuh, block_common.cuh) for
+// VJP of the x2h and h2x edge passes (x2h_edge.cuh, h2x_edge.cuh) for
 // any K up to kMaxLayerK, float32.
 //
 // Per pass (run_pass):
-//   node_kernel     recomputes the per-node projections ni, nj, q (and q's
-//                   first-layer output q1) of the pass.
+//   node_kernel     (node_proj.cuh) recomputes the per-node projections ni,
+//                   nj, q (and q's first-layer output q1) of the pass on
+//                   every row.
 //   edge_bwd_kernel one block per destination row. Pass 1 walks the row's
 //                   edges in chunks of 32, recomputing the forward (geometry,
 //                   first layer, LayerNorm, second layers) for the logits
@@ -37,6 +38,7 @@
 #pragma once
 
 #include "block_common.cuh"
+#include "node_proj.cuh"
 
 // Gradient outputs of one layer's pass, laid out as PassParams; tab is the
 // [4R + 4][2H] table of w_rbf ([4][R][2H]) followed by w_et ([4][2H]).
@@ -713,7 +715,7 @@ int run_pass(const float* h, const EdgeInputs& in0, const PassParams& p, const P
   const long long Ep = (long long)B * (N - row0) * K;
   int err = (int)cudaMemsetAsync(ws.rowbuf, 0, BN * W * sizeof(float), s);
   if (err) return err;
-  if ((err = launch_node(h, (int)BN, p, ws.ni, ws.nj, ws.q, ws.q1, s))) return err;
+  if ((err = launch_node(h, 1, (int)BN, 0, p, ws.ni, ws.nj, ws.q, ws.q1, s))) return err;
 
   EdgeInputs in = in0;
   in.ni = ws.ni;

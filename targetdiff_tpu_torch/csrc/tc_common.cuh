@@ -1,0 +1,351 @@
+// Tensor-core pieces shared by the Hopper (sm_90a) forward kernels: the node
+// projections (node_proj.cuh) and the x2h and h2x edge passes (x2h_edge.cuh,
+// h2x_edge.cuh).
+//
+// Products. Every bar the port is held to is float32, so each dense product
+// runs as three fp16 mma.sync.m16n8k16 products, lo*hi + hi*lo + hi*hi
+// (hi = x rounded to fp16, lo = the remainder rounded again: ~2^-21
+// relative, as a three-term TF32 split, with half its mma instructions),
+// accumulated in float32. Weights are staged times kWScale = 2^8 (exact) so
+// that the lo parts of small weights stay normal fp16 numbers; activations
+// are LayerNorm outputs, or rows scaled by a power of two (node_proj.cuh),
+// far inside fp16's range. (A bf16 split is ~2^-16: too coarse for the
+// training gradients' bars.)
+//
+// Edge chunks. An edge pass walks a destination row's K edges in chunks of
+// KC = 32 slots; a chunk without a valid edge is skipped (exact: its
+// attention weights are zero). A pipeline of four warps computes one chunk's
+// geometry (chunk_geometry), then per half (k or v) of the edge MLPs
+// (chunk_half) gathers the sources' projections nj with cp.async, adds the
+// first layer (ni, the edge-type row, the RBF-table sum), applies LayerNorm
+// + ReLU and stores the activations as fp16 (hi, lo) column pairs, the A
+// operand of tile_mma.
+#pragma once
+
+#include <cuda_fp16.h>
+
+#include "block_common.cuh"
+
+namespace {
+
+constexpr int kLaneThreads = 128;            // 4 warps per pipeline
+constexpr int kLdz = H + 8;                  // padded activation row: conflict-free A fragments
+constexpr int kKSteps = H / 16;              // 16-deep k-steps of a 128-deep product
+constexpr int kNTiles = H / 8;               // 8-wide n-tiles of a 128-wide output (one per head)
+
+// Weights are staged times 2^8 (exact); the products are scaled back.
+constexpr float kWScale = 256.f;
+
+// x = hi + lo to ~2^-22: hi is x rounded to fp16, lo the remainder rounded
+// (for |x| below fp16's range).
+__device__ __forceinline__ void split_f16(float x, __half& hi, __half& lo) {
+  hi = __float2half_rn(x);
+  lo = __float2half_rn(x - __half2float(hi));
+}
+
+__device__ __forceinline__ uint32_t f16_pair(__half lower, __half upper) {
+  return (uint32_t)__half_as_ushort(lower) | ((uint32_t)__half_as_ushort(upper) << 16);
+}
+
+// d += a b for one m16n8k16 tile, fp16 operands, float32 accumulation.
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Barrier of one pipeline's threads (named barrier 1 + pipeline).
+__device__ __forceinline__ void lane_sync(int l) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + l), "r"(kLaneThreads) : "memory");
+}
+
+// Stages the 128-deep weight W[:, 0 .. 8 ntiles) (row-major, leading
+// dimension ldw) times kWScale as mma B fragments, split into fp16 hi and lo,
+// by threads t of nthreads: dst[(ks * ntiles + nt) * 32 + lane] holds fp16
+// pairs (b0 hi, b1 hi, b0 lo, b1 lo), b0 = W[16 ks + 2 tig (+1)][8 nt + g],
+// b1 = W[16 ks + 2 tig + 8 (+9)][8 nt + g], the lower k in the lower half.
+// W2, when given, is a second weight of the same shape, staged after W in the
+// same loop (PERF.md §6 compares one loop with two).
+__device__ __forceinline__ void stage_frags(uint4* dst, const float* __restrict__ W, int ldw,
+                                            int ntiles, int t, int nthreads,
+                                            const float* __restrict__ W2 = nullptr) {
+  const int per = kKSteps * ntiles * 32;
+#pragma unroll 8
+  for (int u = t; u < (W2 ? 2 * per : per); u += nthreads) {
+    const int v = u % per, ks = v / (ntiles * 32), nt = v / 32 % ntiles, fl = v % 32;
+    const float* w = (u < per ? W : W2) + (16 * ks + 2 * (fl & 3)) * ldw + 8 * nt + (fl >> 2);
+    __half hi[4], lo[4];  // rows 0, 1, 8, 9 of the k-step (from 2 tig)
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+      split_f16(kWScale * w[((f & 1) + 8 * (f >> 1)) * ldw], hi[f], lo[f]);
+    dst[u] = make_uint4(f16_pair(hi[0], hi[1]), f16_pair(hi[2], hi[3]), f16_pair(lo[0], lo[1]),
+                        f16_pair(lo[2], lo[3]));
+  }
+}
+
+// A row's four values per lane (channel lane + 32 q) stored in place as fp16
+// (hi, lo) column pairs: (hi c, hi c+1) at even c, (lo c-1, lo c) at odd c.
+// Warp-wide.
+__device__ __forceinline__ void store_split_row(uint32_t* zrow, const float (&v)[4], int lane) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    __half hi, lo;
+    split_f16(v[q], hi, lo);
+    const uint32_t other = __shfl_xor_sync(0xffffffffu, f16_pair(hi, lo), 1);
+    const __half o_hi = __ushort_as_half((unsigned short)(other & 0xffffu));
+    const __half o_lo = __ushort_as_half((unsigned short)(other >> 16));
+    zrow[lane + 32 * q] = (lane & 1) ? f16_pair(o_lo, lo) : f16_pair(hi, o_hi);
+  }
+}
+
+// LayerNorm + ReLU of rows r0 + rstep i (i < 8) of z (float, row stride kLdz)
+// in place, each stored as fp16 (hi, lo) column pairs. Warp-wide: the eight
+// rows' loads are in flight together.
+__device__ __forceinline__ void ln_split_rows(float* z, int r0, int rstep,
+                                              const float* __restrict__ scale,
+                                              const float* __restrict__ bias, int lane) {
+  float ln_scale[4], ln_bias[4], v[8][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    ln_scale[q] = scale[lane + 32 * q];
+    ln_bias[q] = bias[lane + 32 * q];
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[i][q] = z[(r0 + rstep * i) * kLdz + lane + 32 * q];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float mean, rstd;
+    ln_stats(v[i], mean, rstd);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      v[i][q] = fmaxf((v[i][q] - mean) * rstd * ln_scale[q] + ln_bias[q], 0.f);
+    store_split_row(reinterpret_cast<uint32_t*>(z + (r0 + rstep * i) * kLdz), v[i], lane);
+  }
+}
+
+// acc += a (W kWScale) for a warp's 32 x 32 tile of a 128-deep product, three
+// fp16 products (small terms first). a: 32 rows of (hi, lo) column pairs,
+// row stride kLdz; w: the staged fragments of the tile's four n-tiles,
+// w + (ks * ldn + nt) * 32 for n-tile nt of k-step ks. C fragment: acc[mt][nt]
+// holds rows 16 mt + g (0, 1) and 16 mt + g + 8 (2, 3), columns
+// 8 nt + 2 tig (+1).
+__device__ __forceinline__ void tile_mma(float (&acc)[2][4][4], const float* a, const uint4* w,
+                                         int ldn, int lane) {
+  const int g = lane >> 2, tig = lane & 3;
+#pragma unroll 2
+  for (int ks = 0; ks < kKSteps; ++ks) {
+    uint32_t ahi[2][4], alo[2][4];  // a0..a3: rows g, g + 8 x columns 2 tig, 2 tig + 8
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const uint2 pr = *reinterpret_cast<const uint2*>(
+            a + (16 * mt + g + 8 * (f & 1)) * kLdz + 16 * ks + 2 * tig + 8 * (f >> 1));
+        ahi[mt][f] = pr.x;
+        alo[mt][f] = pr.y;
+      }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const uint4 wf = w[(ks * ldn + nt) * 32 + lane];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        mma_f16(acc[mt][nt], alo[mt], wf.x, wf.y);
+        mma_f16(acc[mt][nt], ahi[mt], wf.z, wf.w);
+        mma_f16(acc[mt][nt], ahi[mt], wf.x, wf.y);
+      }
+    }
+  }
+}
+
+// One pipeline's chunk: its row, geometry and the activations of one half
+// (k or v) of the edge MLPs.
+struct EdgeLane {
+  alignas(16) float z[KC][kLdz];  // gathered nj, first layer; then fp16 (hi, lo) column pairs
+  alignas(16) float rbf[KC][R];
+  float ew[KC];
+  int src[KC];                    // source node b*N + j
+  float pw[KC][NH];               // e_w * exp(logit - max), from the k half
+  unsigned valid;                 // valid slots of the chunk
+  unsigned tmask[4];              // valid slots of each edge type
+  long long row;                  // destination node b*N + i; -1: no row left
+  int first, last;
+  int lig;                        // the row is a ligand atom
+};
+
+// Bit c set when chunk c of row bn holds a valid edge. Warp-wide.
+__device__ __forceinline__ unsigned live_chunks(const bool* nmask, long long bn, int K, int lane) {
+  unsigned bits = 0;
+  for (int e0 = 0, c = 0; e0 < K; e0 += KC, ++c)
+    if (__ballot_sync(0xffffffffu, e0 + lane < K && nmask[bn * K + e0 + lane])) bits |= 1u << c;
+  return bits;
+}
+
+// One slot of a chunk, as loaded from the graph.
+struct EdgeSlot {
+  bool valid;
+  int idx;  // source j within the complex
+  float w;  // edge weight
+};
+
+// Slot e of destination row bn (none past K or for bn < 0).
+__device__ __forceinline__ EdgeSlot load_slot(const EdgeInputs& in, long long bn, int K, int e) {
+  EdgeSlot s{false, 0, 0.f};
+  if (bn >= 0 && e < K) {
+    const long long ei = bn * K + e;
+    s.valid = in.nmask[ei];
+    s.idx = (int)in.idx[ei];
+    s.w = in.ew[ei];
+  }
+  return s;
+}
+
+// The chunk's geometry into L from each lane's slot, warp-wide: source, edge
+// weight and RBF features of the valid slots (e_w 0 elsewhere), the valid
+// slots of each edge type (0 l->l, 1 l->p, 2 p->l, 3 p->p by (src, dst)
+// ligand), whether the row is a ligand atom, and, when rel is given,
+// rel = x_dst - x_src (0 in invalid slots).
+__device__ __forceinline__ void chunk_geometry(EdgeLane& L, float (*rel)[3], const EdgeInputs& in,
+                                               int N, long long bn, const EdgeSlot& s, int lane) {
+  int et = 0;
+  bool dst_lig = false;
+  float rx = 0.f, ry = 0.f, rz = 0.f;
+  if (s.valid) {
+    const long long jn = bn / N * N + s.idx;
+    const bool src_lig = in.mlig[jn];
+    dst_lig = in.mlig[bn];
+    et = src_lig ? (dst_lig ? 0 : 1) : (dst_lig ? 2 : 3);
+    L.src[lane] = (int)jn;
+    L.ew[lane] = s.w;
+    const float* x = in.x;
+    rx = x[3 * bn] - x[3 * jn];
+    ry = x[3 * bn + 1] - x[3 * jn + 1];
+    rz = x[3 * bn + 2] - x[3 * jn + 2];
+    const float dist = sqrtf(rx * rx + ry * ry + rz * rz + 1e-16f);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float d = dist - in.offsets[r];
+      L.rbf[lane][r] = expf(in.coeff * d * d);
+    }
+  } else {
+    L.ew[lane] = 0.f;
+  }
+  if (rel != nullptr) {
+    rel[lane][0] = rx;
+    rel[lane][1] = ry;
+    rel[lane][2] = rz;
+  }
+  const unsigned vmask = __ballot_sync(0xffffffffu, s.valid);
+  const bool any_lig_dst = __ballot_sync(0xffffffffu, dst_lig) != 0;
+#pragma unroll
+  for (int ty = 0; ty < 4; ++ty) {
+    const unsigned tm = __ballot_sync(0xffffffffu, s.valid && et == ty);
+    if (lane == 0) L.tmask[ty] = tm;
+  }
+  if (lane == 0) {
+    L.row = bn;
+    L.valid = vmask;
+    L.lig = any_lig_dst;
+  }
+}
+
+// First layer of the slots in `todo` (one edge type) for channel tl of the
+// pipeline's half: z[slot][tl] += base + sum_r rbf[slot][r] w[r], two slots
+// at a time, each as two partial sums.
+__device__ __forceinline__ void first_layer_slots(EdgeLane& L, unsigned todo, const float (&w)[R],
+                                                  float base, int tl) {
+  while (todo) {
+    const int s0 = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const int s1 = todo ? __ffs(todo) - 1 : s0;
+    todo &= todo - 1;
+    const float4* f0 = reinterpret_cast<const float4*>(L.rbf[s0]);
+    const float4* f1 = reinterpret_cast<const float4*>(L.rbf[s1]);
+    float a0 = base + L.z[s0][tl], b0 = 0.f, a1 = base + L.z[s1][tl], b1 = 0.f;
+#pragma unroll
+    for (int r4 = 0; r4 < R / 4; ++r4) {
+      const float4 x0 = f0[r4], x1 = f1[r4];
+      a0 = fmaf(x0.x, w[4 * r4], a0);
+      b0 = fmaf(x0.y, w[4 * r4 + 1], b0);
+      a1 = fmaf(x1.x, w[4 * r4], a1);
+      b1 = fmaf(x1.y, w[4 * r4 + 1], b1);
+      a0 = fmaf(x0.z, w[4 * r4 + 2], a0);
+      b0 = fmaf(x0.w, w[4 * r4 + 3], b0);
+      a1 = fmaf(x1.z, w[4 * r4 + 2], a1);
+      b1 = fmaf(x1.w, w[4 * r4 + 3], b1);
+    }
+    L.z[s0][tl] = a0 + b0;
+    L.z[s1][tl] = a1 + b1;  // s1 == s0 when one slot was left: the same value
+  }
+}
+
+// One half (kv: 0 k, 1 v) of the chunk's edge MLPs up to the second layer's
+// input, by the pipeline's 128 threads (tl; warp qd; pipeline l), from the
+// geometry in L: gather the half of the sources' projections nj (zeros in
+// invalid slots) while loading the first layer's node and table columns; the
+// first layer z += ni_i + w_et[type] + sum_r rbf_r w_rbf[type][r] of the
+// valid slots; LayerNorm + ReLU of the warp's eight slots (qd + 4 i), stored
+// as fp16 (hi, lo) column pairs in place. Ends at a pipeline barrier.
+__device__ __forceinline__ void chunk_half(EdgeLane& L, const EdgeInputs& in, const PassParams& p,
+                                           long long bn, int kv, int tl, int qd, int lane, int l) {
+  const unsigned vmask = L.valid;
+  const int ta = L.lig ? 0 : 1;  // the row's edge types: ta (ligand source), ta + 2 (protein)
+  for (int u = tl; u < KC * (H / 4); u += kLaneThreads) {
+    const int slot = u / (H / 4), piece = u % (H / 4);
+    float* dst = &L.z[slot][4 * piece];
+    if ((vmask >> slot) & 1u)
+      cp_async16(dst, in.nj + (size_t)L.src[slot] * H2 + kv * H + 4 * piece);
+    else
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const int c = kv * H + tl;  // this thread's first-layer channel
+  float wa[R], wb[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    wa[r] = p.w_rbf[(ta * R + r) * H2 + c];
+    wb[r] = p.w_rbf[((ta + 2) * R + r) * H2 + c];
+  }
+  const float zi = in.ni[bn * H2 + c];
+  const float base_a = zi + p.w_et[ta * H2 + c], base_b = zi + p.w_et[(ta + 2) * H2 + c];
+  cp_async_wait_all();
+  lane_sync(l);
+
+  first_layer_slots(L, L.tmask[ta], wa, base_a, tl);
+  first_layer_slots(L, L.tmask[ta + 2], wb, base_b, tl);
+  lane_sync(l);
+
+  ln_split_rows(&L.z[0][0], qd, 4, p.kv_ln + kv * H, p.kv_ln + H2 + kv * H, lane);
+  lane_sync(l);
+}
+
+// The SMs of the (one) device, with the shared-memory limit of `kernel`
+// raised to `smem` bytes on the first call.
+template <typename Kernel>
+int sm_count(Kernel kernel, int smem, int& n_sm) {
+  if (n_sm == 0) {
+    int dev = 0, sms = 0;
+    int err = (int)cudaGetDevice(&dev);
+    if (err == 0) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == 0)
+      err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err) return err;
+    n_sm = sms;
+  }
+  return 0;
+}
+
+}  // namespace

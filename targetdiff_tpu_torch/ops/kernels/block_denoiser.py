@@ -7,14 +7,16 @@ checkpoints of h and x returned for the backward of ops/kernels/block_vjp.py;
 its plain version is `block_denoiser_train_plain`).
 
 The CUDA path runs one edge-weight kernel per block and, per layer, a node
-kernel + x2h edge kernel, then a node kernel + h2x edge kernel on the ligand
-rows. Its weights come from `pack_block_params`, which regroups the module's
-Linear weights as [in, out] blocks: the destination (h_i) and source (h_j)
-parts of each edge MLP's first layer become per-node projections, and its
-edge-feature part becomes one [4, R, 2H] table indexed by edge type (the
-outer product rbf x onehot(type) picks one R-row block). The packing is
-differentiable: gradients of the packed stacks reach the module's
-parameters through autograd's cat/transpose/stack backward.
+kernel + x2h edge kernel, then a node kernel (the protein rows' source
+projections only) + h2x edge kernel on the ligand rows.
+`node_projections_cuda` launches the node kernel alone (the card tests'
+launcher), beside its plain version. Its weights come from `pack_block_params`, which regroups the
+module's Linear weights as [in, out] blocks: the destination (h_i) and
+source (h_j) parts of each edge MLP's first layer become per-node
+projections, and its edge-feature part becomes one [4, R, 2H] table indexed
+by edge type (the outer product rbf x onehot(type) picks one R-row block).
+The packing is differentiable: gradients of the packed stacks reach the
+module's parameters through autograd's cat/transpose/stack backward.
 """
 
 from __future__ import annotations
@@ -126,6 +128,8 @@ def _entries():
         "td_block_ew": [vp, vp, i32, i32, i32, vp, f32, _EwParams, vp, vp],
         # h, rows, PassParams, ni, nj, q, stream
         "td_block_node": [vp, i32, _PassParams, vp, vp, vp, vp],
+        # h, B, N, row0, PassParams, ni, nj, q, q1, stream
+        "td_block_node_rows": [vp, i32, i32, i32, _PassParams, vp, vp, vp, vp, vp],
         # h, x, idx, nmask, mlig, ew, ni, nj, q, offsets, coeff, PassParams,
         # B, N, K, row0, out, stream (td_block_h2x: no h)
         "td_block_x2h": [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, f32, _PassParams,
@@ -222,8 +226,10 @@ def block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed=Non
                                          nj.data_ptr(), q.data_ptr(), stream), "td_block_node")
         build.check(fns["td_block_x2h"](h_a.data_ptr(), x_a.data_ptr(), *common, x2h_p[l],
                                         B, N, K, 0, h_b.data_ptr(), stream), "td_block_x2h")
-        build.check(fns["td_block_node"](h_b.data_ptr(), B * N, h2x_p[l], ni.data_ptr(),
-                                         nj.data_ptr(), q.data_ptr(), stream), "td_block_node")
+        # the h2x pass needs of the protein rows only their source projections
+        build.check(fns["td_block_node_rows"](h_b.data_ptr(), B, N, N - n_ligand, h2x_p[l],
+                                              ni.data_ptr(), nj.data_ptr(), q.data_ptr(), None,
+                                              stream), "td_block_node_rows")
         build.check(fns["td_block_h2x"](x_a.data_ptr(), *common, h2x_p[l],
                                         B, N, K, N - n_ligand, x_b.data_ptr(), stream),
                     "td_block_h2x")
@@ -231,6 +237,48 @@ def block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed=Non
         x_a, x_b = x_b, x_a
     LAUNCHES += 1
     return h_a, x_a
+
+
+def node_projections_plain(h, stacks, layer: int = 0):
+    """The per-node projections of one pass (csrc/node_proj.cuh) in plain
+    PyTorch: h [..., H] -> ni [..., 2H], nj [..., 2H], q [..., H] and the
+    query MLP's first-layer output q1 [..., H], from layer `layer` of
+    `pack_pass_params`-style stacks."""
+    p = {k: v[layer] for k, v in stacks.items()}
+    H = h.shape[-1]
+    proj = h @ p["w_node"] + p["b_node"]  # [k.h_i | v.h_i | k.h_j | v.h_j | q1]
+    q1 = proj[..., 4 * H:]
+    qn = torch.nn.functional.layer_norm(q1, (H,), p["q_ln"][0], p["q_ln"][1], 1e-5)
+    q = torch.relu(qn) @ p["w_q2"] + p["b_q2"]
+    return proj[..., :2 * H], proj[..., 2 * H:4 * H], q, q1
+
+
+def node_projections_cuda(h, stacks, layer: int = 0, row0: int = 0, want_q1: bool = False):
+    """The node kernel alone (csrc/node_proj.cuh): (ni, nj, q, q1) of h
+    [B,N,H] for layer `layer` of `pack_pass_params`-style stacks, each
+    [B*N, width]. With row0 > 0 the rows below row0 of each complex get only
+    nj (as the h2x pass launches it; their ni and q are left unset). q1 is
+    None unless asked for. CUDA tensors only; `node_projections_plain` is
+    its plain version."""
+    build.require_cuda(h, "h")
+    B, N, H = h.shape
+    if H != HIDDEN or h.dtype != torch.float32:
+        raise ValueError(f"the node kernel takes float32 h of width {HIDDEN}, got {h.dtype} "
+                         f"{tuple(h.shape)}")
+    if not 0 <= row0 < N:
+        raise ValueError(f"row0={row0} must lie in [0, N={N})")
+    if stacks["w_node"].device != h.device:
+        raise ValueError(f"packed weights are on {stacks['w_node'].device}, h on {h.device}")
+    h = h.detach().contiguous()
+    ni = torch.empty((B * N, 2 * H), dtype=torch.float32, device=h.device)
+    nj = torch.empty_like(ni)
+    q = torch.empty((B * N, H), dtype=torch.float32, device=h.device)
+    q1 = torch.empty_like(q) if want_q1 else None
+    build.check(_entries()["td_block_node_rows"](
+        h.data_ptr(), B, N, row0, _pass_structs(stacks, layer + 1)[layer], ni.data_ptr(),
+        nj.data_ptr(), q.data_ptr(), None if q1 is None else q1.data_ptr(),
+        build.stream_ptr(h.device)), "td_block_node_rows")
+    return ni, nj, q, q1
 
 
 @torch.no_grad()

@@ -31,6 +31,13 @@ NP_, NL, B = 34, 8, 3
 # ~1e-6 from plain, where one fp16 product per term sits ~2e-4 away
 # (tests/test_torch_x2h_edge.py replays it).
 X2H_TOL = dict(atol=1e-5, rtol=0.0)
+# So are the h2x edge kernel's (three-term fp16, k and v): x' sits ~2e-7 from
+# plain, one fp16 product per term ~5e-5 away (tests/test_torch_h2x_edge.py).
+H2X_TOL = dict(atol=1e-5, rtol=0.0)
+# The node kernel's projections against float64: the largest error over the
+# largest |exact| entry of each output (three-term fp16 on rows scaled by a
+# power of two; tests/test_torch_h2x_edge.py replays them).
+NODE_REL = 4e-6
 
 
 @pytest.fixture
@@ -293,6 +300,108 @@ def test_x2h_kernel_callers_match_plain_and_repeat(cuda, cutoff_mode, k, max_lig
     torch.testing.assert_close(trains[0][0] * mk, want[0] * mk, atol=2e-3, rtol=1e-2)
     torch.testing.assert_close(trains[0][0] * mk, want[0] * mk, **X2H_TOL)
     torch.testing.assert_close(trains[0][1] * mk, want[1] * mk, atol=2e-4, rtol=1e-3)
+
+
+def _h2x_edge_alone(rn, h, x, nbh, mlig, e_w, n_ligand, stacks):
+    """The h2x edge launch alone (td_block_h2x) with the first layer of
+    `stacks`, on node projections from the node kernel (row0 = N - n_ligand);
+    x' with the protein rows of x."""
+    from targetdiff_tpu_torch.ops.rbf import gaussian_smearing_offsets
+
+    B_, N = h.shape[:2]
+    K = nbh.idx.shape[-1]
+    ni, nj, q, _ = kblock.node_projections_cuda(h, stacks, row0=N - n_ligand)
+    offsets, coeff = gaussian_smearing_offsets(device=h.device)
+    x, ew = x.contiguous(), e_w.contiguous()
+    idx, nmask, ml = nbh.idx.contiguous(), nbh.mask.contiguous(), mlig.contiguous()
+    out = x.clone()
+    kblock.build.check(kblock._entries()["td_block_h2x"](
+        x.data_ptr(), idx.data_ptr(), nmask.data_ptr(), ml.data_ptr(), ew.data_ptr(),
+        ni.data_ptr(), nj.data_ptr(), q.data_ptr(), offsets.data_ptr(), coeff,
+        kblock._pass_structs(stacks, 1)[0], B_, N, K, N - n_ligand, out.data_ptr(),
+        kblock.build.stream_ptr(h.device)), "td_block_h2x")
+    return out
+
+
+@pytest.mark.parametrize("cutoff_mode,k,max_ligand,n_protein", LAYER_CASES)
+def test_h2x_kernel_callers_match_plain_and_repeat(cuda, cutoff_mode, k, max_ligand, n_protein):
+    """The h2x edge kernel through its three callers, each against its plain
+    version at the float32-grade bar H2X_TOL and each run twice bitwise
+    equal ((row, chunk) units merged in chunk order): td_h2x_layer at any K,
+    and at K <= 32 the h2x edge launch alone (td_block_h2x), the inference
+    block and the train-mode block forward (td_block_train_fwd)."""
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+
+    _, _, rn, h, x, node_mask, mlig, nbh, e_w = _layer_setup(cuda, cutoff_mode, k, max_ligand,
+                                                              n_protein, seed=5)
+    layer = rn.base_block[0]
+    with torch.no_grad():
+        _, ph = kel.pack_layer_params(layer)
+        runs = [kel.h2x_layer_cuda(h, x, nbh, mlig, e_w, max_ligand, ph) for _ in range(2)]
+        ref = kel.h2x_layer_plain(layer, h, x, nbh, mlig, e_w)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    torch.testing.assert_close(runs[0], ref, atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(runs[0], ref, **H2X_TOL)
+    assert torch.equal(runs[0][~mlig], x[~mlig])  # protein and padded ligand rows keep x
+    tail = torch.arange(h.shape[1], device=cuda) >= h.shape[1] - max_ligand
+    assert bool((tail & ~nbh.mask.any(-1)).any())  # ligand-tail rows without a valid edge
+    if nbh.idx.shape[-1] > kblock.MAX_K:
+        return
+    with torch.no_grad():
+        alone = [_h2x_edge_alone(rn, h, x, nbh, mlig, e_w, max_ligand, ph) for _ in range(2)]
+        blocks = [kblock.block_denoiser(rn, h, x, nbh, mlig, n_ligand=max_ligand)
+                  for _ in range(2)]
+        h_ref, x_ref = rn.block_forward(h, x, nbh, mlig)
+        x2h, h2x = kblock.pack_pass_params(rn)
+        trains = [kblock.block_denoiser_train_cuda(rn, h, x, nbh, mlig, e_w, max_ligand, x2h, h2x)
+                  for _ in range(2)]
+        want = kblock.block_denoiser_train_plain(rn, h, x, nbh, mlig, e_w)
+    torch.cuda.synchronize()
+    assert torch.equal(alone[0], alone[1]) and torch.equal(alone[0], runs[0])
+    m, mk = node_mask[..., None], node_mask[None, :, :, None]
+    assert all(torch.equal(a, b) for a, b in zip(*blocks))
+    torch.testing.assert_close(blocks[0][1] * m, x_ref * m, atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(blocks[0][1] * m, x_ref * m, **H2X_TOL)
+    assert all(torch.equal(a, b) for a, b in zip(*trains))
+    torch.testing.assert_close(trains[0][1] * mk, want[1] * mk, atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(trains[0][1] * mk, want[1] * mk, **H2X_TOL)
+
+
+@pytest.mark.parametrize("magnitude", [1.0, 1e5, 1e-5])
+def test_node_kernel_matches_plain(cuda, magnitude):
+    """The node kernel against float64 on rows of largest |h| near
+    `magnitude` (1e5 lies above fp16's range, 1e-5 in its subnormals; a row
+    of zeros too), for both passes' weights; a launch with q1 gives q1 at the
+    same bar and ni, nj, q bitwise those of a launch without; with
+    row0 > 0 every row's nj and the rows >= row0's ni and q are the full
+    launch's, bitwise."""
+    torch.manual_seed(0)
+    model = DiffusionModel(Config(CONFIG), 27, 13, device=cuda)
+    stacks = kblock.pack_pass_params(model.net.refine_net)
+    rng = np.random.default_rng(1)
+    nb, n, nl = 3, 75, 11
+    hv = rng.normal(size=(nb, n, 128)) * 10.0 ** rng.uniform(-3, 0, size=(nb, n, 128))
+    hv = hv / np.abs(hv).max(-1, keepdims=True) * magnitude * rng.uniform(0.6, 1.0, (nb, n, 1))
+    hv[0, 3] = 0.0
+    h = torch.tensor(hv, dtype=torch.float32, device=cuda)
+    for st in stacks:
+        with torch.no_grad():
+            full = kblock.node_projections_cuda(h, st, layer=1, want_q1=True)
+            plain_launch = kblock.node_projections_cuda(h, st, layer=1)
+            part = kblock.node_projections_cuda(h, st, layer=1, row0=n - nl)
+            want = kblock.node_projections_plain(
+                h.double().reshape(-1, 128), {k: v.double() for k, v in st.items()}, layer=1)
+        torch.cuda.synchronize()
+        for name, got, w in zip(("ni", "nj", "q", "q1"), full, want):
+            assert bool(got.isfinite().all()), name
+            rel = float((got.double() - w).abs().max() / w.abs().max())
+            assert rel < NODE_REL, (name, rel)
+        assert all(torch.equal(a, b) for a, b in zip(full[:3], plain_launch[:3]))
+        assert plain_launch[3] is None
+        dst = (torch.arange(nb * n, device=cuda) % n) >= n - nl
+        assert torch.equal(part[1], full[1])
+        assert torch.equal(part[0][dst], full[0][dst]) and torch.equal(part[2][dst], full[2][dst])
 
 
 @pytest.mark.parametrize("cutoff_mode,k,max_ligand,n_protein", LAYER_CASES)
