@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (targetdiff_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py profile [hybrid|knn|block] [BATCH]
+    python3 chip_smoke.py profile [hybrid|knn|block|train] [BATCH]
     python3 chip_smoke.py duel [CHECKOUT]
 
 With no arguments: builds the CUDA kernels from targetdiff_tpu_torch/csrc, holds each kernel
@@ -16,7 +16,9 @@ molecules for that pocket through the port's entry point
 `sample_diffusion_ligand` with seeded random flagship weights, and checks the
 outputs. Then the training
 path: the train-mode block kernel and the block-VJP kernel against autograd
-of the plain block, the whole loss and its gradients on the kernel path
+of the plain block, the backwards' weight-gradient kernel alone against
+float64 at the shapes of the B=32 step's products (each timed beside its
+bound and `torch.mm`), the whole loss and its gradients on the kernel path
 against the eager path, `make_train_step` at the bench's train shape (B=32,
 384-slot synthetic pockets), a short fit, and the train CLI's `run` on a
 six-entry dataset, whose checkpoint is reloaded and sampled from. Then the
@@ -37,7 +39,8 @@ with torch.profiler: the device
 time of each kernel and of the step, beside the host time of the same steps
 run just before without the profiler; `profile block` the inference block
 and the train-mode block forward on the same inputs, in turns, kernel by
-kernel.
+kernel; `profile train` 5 `fast` B=32 train steps ([train]'s batch) after 3
+warm-up steps, by kernel, beside the host time of 5 steps run just before.
 `duel` times the whole-block kernels (B=4, N=608, K=32), the node launch
 and the x2h and h2x edge launches alone at the kNN shape, one per-layer x2h
 and one h2x call at the hybrid shape with their kernels' device time, 50 kNN
@@ -99,6 +102,13 @@ H2X_TOL = dict(atol=1e-5, rtol=0.0)
 # power of two; float32 itself sits ~1e-7 there).
 NODE_REL = 4e-6
 GRAD_ATOL_SCALE, GRAD_RTOL = 5e-3, 5e-3  # atol = 5e-3 * max|plain grad| per tensor
+# The weight-gradient kernel alone against float64: |got - want| <= WG_BAR * s
+# elementwise, s[p][q] = sqrt(sum_m X[m][p]^2 Y[m][q]^2) (float64), the
+# root-sum-square of the entry's terms: rounding errors add like sqrt(M),
+# so a bar on |X|^T |Y| would shrink with M. Float32-grade products
+# (three-term TF32, the old FMA kernel) sit ~1e-7..3e-6 s from it, one TF32
+# product per term ~3e-4 s (tests/test_torch_weight_grad.py).
+WG_BAR = 1e-5
 OPTIMIZER = dict(type="adam", lr=5e-4, weight_decay=0.0, beta1=0.95, beta2=0.999,
                  max_grad_norm=8.0)
 TRAIN_B, TRAIN_PROTEIN, TRAIN_VALID, TRAIN_STEPS, TRAIN_WARMUP = 32, 384, 330, 20, 3
@@ -618,6 +628,10 @@ def main(argv) -> int:
         {"name": "block_vjp", "route": "cuda", "source": "targetdiff_tpu_torch/csrc/block_vjp.cu",
          "replaces": "targetdiff_tpu/ops/pallas/block_vjp.py:113", **train["bwd"],
          **no_library},
+        *[{"name": f"block_vjp.weight_grad_{cls}", "route": "cuda",
+           "source": "targetdiff_tpu_torch/csrc/weight_grad.cuh",
+           "replaces": "targetdiff_tpu/ops/pallas/block_vjp.py:113", **fields}
+          for cls, fields in train["weight_grad"].items()],
         {"name": "x2h_layer", "route": "cuda", "source": "targetdiff_tpu_torch/csrc/edge_layer.cu",
          "replaces": "targetdiff_tpu/ops/pallas/edge_layer.py:189",
          "launches": hybrid_launches["x2h"], **layers["x2h"], **no_library},
@@ -835,6 +849,120 @@ def hybrid_sample_phase(torch, dev, pocket, hmodel, failures):
     return launches
 
 
+def weight_grad_products():
+    """The weight-gradient products of the timed B=32 `fast` step's passes
+    (csrc/pass_bwd.cuh run_pass; N = 416, K = 32, 32 ligand slots), and one
+    M that is not a whole number of 32-row stages: (class, name, M, P, Q, X's
+    row length, its first column, Y's row length, its first column). Row
+    lengths and offsets are run_pass's: k|v activations and their gradients
+    [2H] (h2x: [H + 16]), edge features [84], node rows [H], the row buffer
+    [1792] (h2x: [1680]) whose dq starts at 1408 (1296)."""
+    n = TRAIN_PROTEIN + MAX_LIGAND
+    ex, eh, bn = TRAIN_B * n * K, TRAIN_B * MAX_LIGAND * K, TRAIN_B * n
+    fe = 4 * RK + 4
+    return [("x2h_edge", "w2k", ex, HW, HW, 2 * HW, 0, 2 * HW, 0),
+            ("x2h_edge", "w2v", ex, HW, HW, 2 * HW, HW, 2 * HW, HW),
+            ("x2h_edge", "table", ex, fe, 2 * HW, fe, 0, 2 * HW, 0),
+            ("h2x_edge", "w2k", eh, HW, HW, 2 * HW, 0, HW + NHEADS, 0),
+            ("h2x_edge", "w2v", eh, HW, NHEADS, 2 * HW, HW, HW + NHEADS, HW),
+            ("h2x_edge", "table", eh, fe, 2 * HW, fe, 0, 2 * HW, 0),
+            ("node", "w_node x2h", bn, HW, 5 * HW, HW, 0, 1792, 0),
+            ("node", "w_q2 x2h", bn, HW, HW, HW, 0, 1792, 1408),
+            ("node", "w_node h2x", bn, HW, 5 * HW, HW, 0, 1680, 0),
+            ("node", "w_q2 h2x", bn, HW, HW, HW, 0, 1680, 1296),
+            ("odd", "w2k", ex + 7, HW, HW, 2 * HW, 0, 2 * HW, 0)]
+
+
+def weight_grad_operands(torch, dev):
+    """(class, name, M, P, Q, X, Y) of each of `weight_grad_products`, one at a
+    time: zero-mean operands from one seeded generator whose columns span
+    1e-9 to 1e5 in a seeded order, X and Y column slices of wider rows as
+    run_pass passes them."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def operand(M, ld, off, n):
+        order = torch.randperm(n, generator=gen, device=dev)
+        rows = torch.randn((M, ld), generator=gen, device=dev)
+        rows[:, off:off + n] *= 10.0 ** torch.linspace(-9, 5, n, device=dev)[order]
+        return rows[:, off:off + n]
+
+    for cls, name, M, P, Q, ldx, ox, ldy, oy in weight_grad_products():
+        yield cls, name, M, P, Q, operand(M, ldx, ox, P), operand(M, ldy, oy, Q)
+
+
+def weight_grad_phase(torch, dev) -> dict:
+    """The weight-gradient kernel alone (`weight_grad_cuda`) at each of
+    `weight_grad_products`, on `weight_grad_operands`: within WG_BAR of float64 (the plain version's error beside it), two
+    launches bitwise equal; each timed by CUDA events and by profiler
+    device time beside its bound (2MPQ FLOP at the TF32 rate; X's P and Y's
+    Q columns read once, the output written once) and the library call
+    `torch.mm(X.T, Y)` (float32, TF32 off). Returns the products' fields and,
+    per class, the mean per launch of ms, plain_ms, bound_ms and library_ms."""
+    from targetdiff_tpu_torch.ops.kernels import weight_grad as kwg
+
+    products = {}
+    for cls, name, M, P, Q, X, Y in weight_grad_operands(torch, dev):
+        with torch.no_grad():
+            got, again = kwg.weight_grad_cuda(X, Y), kwg.weight_grad_cuda(X, Y)
+            plain = kwg.weight_grad_plain(X, Y)
+            x, y = X.double(), Y.double()
+            want, scale = x.T @ y, ((x * x).T @ (y * y)).sqrt()
+            del x, y
+        torch.cuda.synchronize()
+        label = f"{cls} {name} M={M} P={P} Q={Q}"
+        if not torch.equal(got, again):
+            raise AssertionError(f"weight-grad {label}: two launches differ")
+        err = (got.double() - want).abs()
+        over = float((err / scale).max())
+        if not over <= WG_BAR or not bool(got.isfinite().all()):
+            raise AssertionError(f"weight-grad {label}: error {over} of s (bar {WG_BAR})")
+        f = {"class": cls, "M": M, "P": P, "Q": Q, "max_err_over_s": over,
+             "plain_max_err_over_s": float(((plain.double() - want).abs() / scale).max()),
+             "max_abs_err": float(err.max())}
+        del want, scale, err, plain
+        runs = {"": lambda: kwg.weight_grad_cuda(X, Y, got),
+                "plain_": lambda: kwg.weight_grad_plain(X, Y),
+                "library_": lambda: torch.mm(X.T, Y)}
+        for key, fn in runs.items():
+            f[f"{key}ms"] = cuda_ms(torch, fn)
+            f[f"{key}device_ms"] = device_ms(torch, fn)
+        f.update(bound((2 * M * P * Q, 0), 4 * (M * P + M * Q + P * Q)))
+        products[f"{cls} {name}"] = f
+        del X, Y, got, again
+        torch.cuda.empty_cache()
+    classes = {}
+    for cls in ("x2h_edge", "h2x_edge", "node"):
+        rows = [f for f in products.values() if f["class"] == cls]
+        mean = {k: float(np.mean([f[k] for f in rows]))
+                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        classes[cls] = dict(max_abs_err=max(f["max_abs_err"] for f in rows), **mean,
+                            bound_by="bytes" if all(f["bound_by"] == "bytes" for f in rows)
+                            else "operations")
+    return {"products": products, "classes": classes}
+
+
+def train_setup(torch, dev, feat_dim):
+    """The `fast` train step at the bench's train shape: [train]'s batch (B=32
+    synthetic complexes, data/synth.py, seed 3), a flagship model of seeded
+    random weights, its Adam state, the step and the step's generator."""
+    from targetdiff_tpu_torch.config import Config
+    from targetdiff_tpu_torch.data.synth import synth_batch
+    from targetdiff_tpu_torch.models.score_model import DiffusionModel
+    from targetdiff_tpu_torch.trainer import create_train_state, make_train_step
+    from targetdiff_tpu_torch.utils import train as train_utils
+
+    tb = synth_batch(np.random.default_rng(3), TRAIN_B, max_protein=TRAIN_PROTEIN,
+                     max_ligand=MAX_LIGAND, n_protein_range=(TRAIN_VALID, TRAIN_VALID + 1),
+                     n_ligand_range=(18, 28), device=dev)
+    torch.manual_seed(1)
+    tmodel = DiffusionModel(Config(FLAGSHIP), feat_dim, NUM_CLASSES, device=dev,
+                            max_protein=TRAIN_PROTEIN, max_ligand=MAX_LIGAND)
+    state = create_train_state(tmodel, train_utils.get_optimizer(Config(OPTIMIZER),
+                                                                 tmodel.parameters()))
+    step = make_train_step(tmodel, pos_noise_std=0.1, time_sampling="importance")
+    return tb, tmodel, state, step, torch.Generator(device=dev).manual_seed(0)
+
+
 def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch, pocket, feat,
                  hmodel, hbatch):
     """[train-block], [train-loss], [train], [train-pl], [train-cli]. Returns
@@ -843,13 +971,13 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     from targetdiff_tpu_torch.cli import train_diffusion
     from targetdiff_tpu_torch.config import Config
     from targetdiff_tpu_torch.data.datasets import PaddedLoader, get_dataset
-    from targetdiff_tpu_torch.data.synth import synth_batch
     from targetdiff_tpu_torch.models.score_model import DiffusionModel
     from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
     from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
     from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
     from targetdiff_tpu_torch.ops.kernels import edge_layer_vjp as kelv
     from targetdiff_tpu_torch.ops.kernels import knn as kknn
+    from targetdiff_tpu_torch.ops.kernels import weight_grad as kwg
     from targetdiff_tpu_torch.sampling import sample_diffusion_ligand
     from targetdiff_tpu_torch.trainer import create_train_state, make_eval_step, make_train_step
     from targetdiff_tpu_torch.utils import train as train_utils
@@ -925,6 +1053,10 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
           bwd_bound_ms=bwd_bound["bound_ms"], fwd_bound_by=fwd_bound["bound_by"],
           bwd_bound_by=bwd_bound["bound_by"], fwd_tensor_core_share=tc_share(fwd_work),
           bwd_tensor_core_share=tc_share(bwd_work))
+    wgrad = weight_grad_phase(torch, dev)
+    phase("train-block weight-grad", bar_over_s=WG_BAR,
+          worst_err_over_s=max(f["max_err_over_s"] for f in wgrad["products"].values()),
+          products=wgrad["products"])
 
     # ---- [train-loss]: the whole loss, kernel path vs eager path, injected draws ----
     # (the per-layer path's parity on the same draws is reported in [train-pl])
@@ -934,15 +1066,7 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     phase("train-loss", **loss_parity["fast"])
 
     # ---- [train]: make_train_step at the bench's train shape ----
-    tb = synth_batch(np.random.default_rng(3), TRAIN_B, max_protein=TRAIN_PROTEIN,
-                     max_ligand=MAX_LIGAND, n_protein_range=(TRAIN_VALID, TRAIN_VALID + 1),
-                     n_ligand_range=(18, 28), device=dev)
-    torch.manual_seed(1)
-    tmodel = DiffusionModel(Config(FLAGSHIP), feat.feature_dim, NUM_CLASSES, device=dev,
-                            max_protein=TRAIN_PROTEIN, max_ligand=MAX_LIGAND)
-    state = create_train_state(tmodel, train_utils.get_optimizer(Config(OPTIMIZER),
-                                                                 tmodel.parameters()))
-    step = make_train_step(tmodel, pos_noise_std=0.1, time_sampling="importance")
+    tb, tmodel, state, step, tgen = train_setup(torch, dev, feat.feature_dim)
     # the loss and every gradient at this shape, both kernel paths against eager
     torch.cuda.reset_peak_memory_stats()
     step_parity = loss_vs_eager(torch, tmodel, tb, *loss_draws(torch, tmodel, tb, gen), "train",
@@ -950,9 +1074,9 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     parity = step_parity["fast"]
     parity_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.empty_cache()
-    tgen = torch.Generator(device=dev).manual_seed(0)
     before = [p.detach().clone() for p in tmodel.parameters()]
     kknn.LAUNCHES = kblock.LAUNCHES = kblock.TRAIN_LAUNCHES = kvjp.LAUNCHES = 0
+    kwg.LAUNCHES.update(dict.fromkeys(kwg.LAUNCHES, 0))
     for _ in range(TRAIN_WARMUP):
         state, metrics = step(state, tb, tgen)
     torch.cuda.synchronize()
@@ -962,7 +1086,8 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
         state, metrics = step(state, tb, tgen)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = {"knn": kknn.LAUNCHES, "train_fwd": kblock.TRAIN_LAUNCHES, "vjp": kvjp.LAUNCHES}
+    launches = {"knn": kknn.LAUNCHES, "train_fwd": kblock.TRAIN_LAUNCHES, "vjp": kvjp.LAUNCHES,
+                "weight_grad": dict(kwg.LAUNCHES)}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     m = {k: float(v) for k, v in metrics.items()}
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
@@ -970,6 +1095,11 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
         raise AssertionError(f"train: bad metrics {m}")
     if launches["vjp"] != n_steps or launches["train_fwd"] != n_steps or launches["knn"] != n_steps:
         raise AssertionError(f"train: expected one launch of each kernel per step, {launches}")
+    # per step and layer: three edge products in each pass, two node products in each
+    if launches["weight_grad"] != {"x2h_edge": 3 * L * n_steps, "h2x_edge": 3 * L * n_steps,
+                                   "node": 4 * L * n_steps, "alone": 0}:
+        raise AssertionError(f"train: expected ten weight-gradient products per layer and step, "
+                             f"{launches['weight_grad']}")
     moved = max(float((p.detach() - b).abs().max()) for p, b in zip(tmodel.parameters(), before))
     if not moved > 0:
         raise AssertionError("train: the parameters did not move")
@@ -1008,6 +1138,7 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     torch.cuda.reset_peak_memory_stats()
     kknn.LAUNCHES = kblock.TRAIN_LAUNCHES = kvjp.LAUNCHES = 0
     kel.X2H_LAUNCHES = kel.H2X_LAUNCHES = kelv.X2H_BWD_LAUNCHES = kelv.H2X_BWD_LAUNCHES = 0
+    kwg.LAUNCHES.update(dict.fromkeys(kwg.LAUNCHES, 0))
     t0 = time.perf_counter()
     for _ in range(TRAIN_PL_STEPS):
         pl_state, pl_metrics = pl_step(pl_state, tb, tgen)
@@ -1015,14 +1146,18 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     pl_s = time.perf_counter() - t0
     pl_launches = {"knn": kknn.LAUNCHES, "x2h": kel.X2H_LAUNCHES, "h2x": kel.H2X_LAUNCHES,
                    "x2h_bwd": kelv.X2H_BWD_LAUNCHES, "h2x_bwd": kelv.H2X_BWD_LAUNCHES,
-                   "block_fwd": kblock.TRAIN_LAUNCHES, "block_vjp": kvjp.LAUNCHES}
+                   "block_fwd": kblock.TRAIN_LAUNCHES, "block_vjp": kvjp.LAUNCHES,
+                   "weight_grad": dict(kwg.LAUNCHES)}
     pl_peak = torch.cuda.max_memory_allocated() / 2**30
     per_step = TRAIN_PL_STEPS * FLAGSHIP["num_layers"]
     if (any(pl_launches[k] != per_step for k in ("x2h", "h2x", "x2h_bwd", "h2x_bwd"))
             or pl_launches["block_fwd"] or pl_launches["block_vjp"]
-            or pl_launches["knn"] != TRAIN_PL_STEPS):
+            or pl_launches["knn"] != TRAIN_PL_STEPS
+            or pl_launches["weight_grad"] != {"x2h_edge": 3 * per_step, "h2x_edge": 3 * per_step,
+                                              "node": 4 * per_step, "alone": 0}):
         raise AssertionError(f"train-pl: expected each per-layer kernel once per layer and "
-                             f"step and no block kernel, {pl_launches}")
+                             f"step, its weight-gradient products, and no block kernel, "
+                             f"{pl_launches}")
     if not all(np.isfinite(float(v)) for v in pl_metrics.values()):
         raise AssertionError(f"train-pl: bad metrics {pl_metrics}")
     moved = max(float((p.detach() - b).abs().max()) for p, b in zip(tmodel.parameters(), before))
@@ -1118,6 +1253,8 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
                     "ms": fwd_ms, "plain_ms": fwd_plain_ms, **fwd_bound},
             "bwd": {"launches": train_launches["vjp"], "max_abs_err": bwd_err, "ms": bwd_ms,
                     "plain_ms": bwd_plain_ms, **bwd_bound},
+            "weight_grad": {cls: {"launches": train_launches["weight_grad"][cls], **fields}
+                            for cls, fields in wgrad["classes"].items()},
             "pl_launches": pl_launches}
 
 
@@ -1126,9 +1263,9 @@ def measure(torch, argv) -> int:
     what, arg = argv[0], (argv[1:] or [None])[0]
     sized = what == "profile" and arg in ("hybrid", "knn") and len(argv) == 3
     if what not in ("profile", "duel") or len(argv) > (3 if sized else 2) or (
-            what == "profile" and arg not in (None, "hybrid", "knn", "block")) or (
+            what == "profile" and arg not in (None, "hybrid", "knn", "block", "train")) or (
             sized and not argv[2].isdigit()):
-        raise SystemExit("usage: chip_smoke.py [profile [hybrid|knn|block] [BATCH] | "
+        raise SystemExit("usage: chip_smoke.py [profile [hybrid|knn|block|train] [BATCH] | "
                          "duel [CHECKOUT]]")
     batch = int(argv[2]) if sized else B
     checkout = Path(arg).resolve() if what == "duel" and arg else REPO
@@ -1171,6 +1308,8 @@ def measure(torch, argv) -> int:
         out = duel(torch, dev, setup, pocket, feat.feature_dim)
     elif arg == "block":
         out = profile_block(torch, dev, setup("knn")[0], pocket, feat.feature_dim)
+    elif arg == "train":
+        out = profile_train(torch, dev, feat.feature_dim)
     else:
         out = profile(torch, setup(arg or "hybrid")[1], arg or "hybrid", batch)
     print(json.dumps({"card": card_name(), "checkout": str(checkout), what: out}), flush=True)
@@ -1179,13 +1318,16 @@ def measure(torch, argv) -> int:
 
 def device_times(prof, calls) -> dict:
     """Device milliseconds and launches of each kernel per call, largest
-    first (device events only: host ranges repeat their kernels' time)."""
+    first (device events only: host ranges repeat their kernels' time, and
+    so do the device-side copies of annotated host ranges, such as
+    `Optimizer.step#Adam.step`)."""
     from torch.autograd import DeviceType
 
     kernels = {ev.key: {"ms": ev.self_device_time_total / 1e3 / calls,
                         "launches": ev.count / calls}
                for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0}
+               if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+               and not getattr(ev, "is_user_annotation", False)}
     return dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"]))
 
 
@@ -1206,6 +1348,66 @@ def profile(torch, sample, cutoff, batch) -> dict:
             "traced_host_ms_per_step": traced_host_ms, "device_ms_per_step": device_ms,
             "idle_share_estimate": 1 - device_ms / host_ms,
             "kernels_per_step": dict(list(kernels.items())[:25])}
+
+
+# kernels of the `fast` train step by name: (row, pieces of the profiler's
+# kernel names), matched in this order; every other kernel is eager glue
+TRAIN_KERNELS = (
+    ("edge_bwd_kernel<x2h>", ("edge_bwd_kernel<false",)),
+    ("edge_bwd_kernel<h2x>", ("edge_bwd_kernel<true",)),
+    ("weight_grad_kernel", ("weight_grad_kernel", "atb_kernel")),
+    ("reduce_kernel", ("reduce_kernel",)),
+    ("colsum_kernel", ("colsum_kernel",)),
+    ("gather_kernel", ("gather_kernel",)),
+    ("node_bwd_kernel", ("node_bwd_kernel",)),
+    ("adj_kernel", ("adj_kernel",)),
+    ("node_kernel", ("node_kernel",)),
+    ("x2h_edge_kernel", ("x2h_edge_kernel",)),
+    ("h2x_edge_kernel", ("h2x_edge_kernel",)),
+    ("ew_kernel", ("ew_kernel",)),
+    ("knn_kernel", ("knn_kernel",)),
+)
+PROFILE_TRAIN_STEPS = 5
+
+
+def profile_train(torch, dev, feat_dim) -> dict:
+    """Device time by kernel of PROFILE_TRAIN_STEPS `fast` B=32 train steps
+    ([train]'s batch and model) traced by torch.profiler after TRAIN_WARMUP
+    steps, beside the host time of as many steps run just before without
+    the profiler. node_kernel counts the forward's launches and the
+    backward's recompute together; `glue` is every other kernel (eager
+    PyTorch), its largest listed in `glue_top`."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    tb, _, state, step, tgen = train_setup(torch, dev, feat_dim)
+    steps = PROFILE_TRAIN_STEPS
+    for _ in range(TRAIN_WARMUP):
+        state, _ = step(state, tb, tgen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = step(state, tb, tgen)
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / steps
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = step(state, tb, tgen)
+        torch.cuda.synchronize()
+    rows = {label: {"ms": 0.0, "launches": 0.0} for label, _ in TRAIN_KERNELS}
+    rows["glue"] = {"ms": 0.0, "launches": 0.0}
+    glue = {}
+    for name, k in device_times(prof, steps).items():
+        label = next((lab for lab, pieces in TRAIN_KERNELS if any(p in name for p in pieces)),
+                     "glue")
+        rows[label]["ms"] += k["ms"]
+        rows[label]["launches"] += k["launches"]
+        if label == "glue":
+            glue[name] = k
+    device_ms = sum(r["ms"] for r in rows.values())
+    return {"batch": TRAIN_B, "steps": steps, "host_ms_per_step": host_ms,
+            "device_ms_per_step": device_ms, "idle_share_estimate": 1 - device_ms / host_ms,
+            "kernels_per_step": rows, "glue_top": dict(list(glue.items())[:12])}
 
 
 def profile_block(torch, dev, model, pocket, feat_dim) -> list:
@@ -1253,6 +1455,27 @@ def profile_block(torch, dev, model, pocket, feat_dim) -> list:
     return out
 
 
+def weight_grad_device_ms(torch, label, fn, calls=10) -> dict:
+    """Device ms per call of fn spent in the weight-gradient products
+    (weight_grad_kernel, or atb_kernel before it) and in reduce_kernel (which
+    also sums the bias and LayerNorm column sums), over `calls` traced calls
+    after one warm-up call."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = device_times(prof, calls)
+    return {f"wgrad_{label}_device_ms": sum(v["ms"] for k, v in times.items()
+                                            if "weight_grad_kernel" in k or "atb_kernel" in k),
+            f"reduce_{label}_device_ms": sum(v["ms"] for k, v in times.items()
+                                             if "reduce_kernel" in k)}
+
+
 def duel(torch, dev, setup, pocket, feat_dim) -> dict:
     """CUDA-event times of the whole-block kernels; CUDA-event and device
     times of the node launch (every row, and as the h2x pass launches it) and
@@ -1260,20 +1483,19 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
     of one td_x2h_layer and one td_h2x_layer call at the hybrid shape and the
     device time of the edge kernel and of node_kernel in those calls
     (torch.profiler, 10 calls: the calls themselves are host-bound once the
-    kernels are fast); 50 kNN and 50 hybrid sampling steps (host clock) and
-    the B=32 `fast` train step (host clock, 10 steps after 3)."""
+    kernels are fast); the device time of the weight-gradient products and
+    of reduce_kernel in one block backward (kNN shape) and in one per-layer
+    x2h and one h2x backward (hybrid shape), and those backwards' CUDA-event
+    times; 50 kNN and 50 hybrid sampling steps (host
+    clock) and the B=32 `fast` train step (host clock, 10 steps after 3)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    from targetdiff_tpu_torch.config import Config
-    from targetdiff_tpu_torch.data.synth import synth_batch
-    from targetdiff_tpu_torch.models.score_model import DiffusionModel
     from targetdiff_tpu_torch.ops import graph as G
     from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
     from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
     from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
-    from targetdiff_tpu_torch.trainer import create_train_state, make_train_step
-    from targetdiff_tpu_torch.utils import train as train_utils
+    from targetdiff_tpu_torch.ops.kernels import edge_layer_vjp as kelv
 
     model, sample = setup("knn")
     rn = model.net.refine_net
@@ -1296,6 +1518,8 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
         gx = torch.randn(x.shape, generator=gen, device=dev)
         out["block_bwd_ms"] = cuda_ms(torch, lambda: kvjp.block_bwd_cuda(
             hck, xck, nbh.idx, nbh.mask, mlig, e_w, MAX_LIGAND, x2h, h2x, gh, gx), reps=10)
+        out.update(weight_grad_device_ms(torch, "block_bwd", lambda: kvjp.block_bwd_cuda(
+            hck, xck, nbh.idx, nbh.mask, mlig, e_w, MAX_LIGAND, x2h, h2x, gh, gx)))
         # the launches alone at the kNN shape: td_block_node (every row), the
         # h2x pass's node launch (td_block_node_rows where the tree has it),
         # the x2h and h2x edge launches
@@ -1321,6 +1545,15 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
         px, ph = kel.pack_layer_params(hrn.base_block[0])
         layers = {"x2h": lambda: kel.x2h_layer_cuda(hh, hx, hnbh, hmlig, he_w, px),
                   "h2x": lambda: kel.h2x_layer_cuda(hh, hx, hnbh, hmlig, he_w, HYBRID_LIGAND, ph)}
+        cot = {"x2h": torch.randn(hh.shape, generator=gen, device=dev) * hnode[..., None],
+               "h2x": torch.randn(hx.shape, generator=gen, device=dev)}
+        bwds = {"x2h": lambda: kelv.x2h_layer_bwd_cuda(hh, hx, hnbh, hmlig, he_w, px,
+                                                       cot["x2h"]),
+                "h2x": lambda: kelv.h2x_layer_bwd_cuda(hh, hx, hnbh, hmlig, he_w, HYBRID_LIGAND,
+                                                       ph, cot["h2x"])}
+        for sub, fn in bwds.items():
+            out[f"{sub}_layer_bwd_hybrid_ms"] = cuda_ms(torch, fn, reps=10)
+            out.update(weight_grad_device_ms(torch, f"{sub}_layer_bwd_hybrid", fn))
         for sub, fn in layers.items():
             out[f"{sub}_layer_hybrid_ms"] = cuda_ms(torch, fn)
             with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1338,16 +1571,7 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
     hsample(3, 1)  # warm up
     out["hybrid_sample_ms_per_step"] = hsample(50, 1)
 
-    tb = synth_batch(np.random.default_rng(3), TRAIN_B, max_protein=TRAIN_PROTEIN,
-                     max_ligand=MAX_LIGAND, n_protein_range=(TRAIN_VALID, TRAIN_VALID + 1),
-                     n_ligand_range=(18, 28), device=dev)
-    torch.manual_seed(1)
-    tmodel = DiffusionModel(Config(FLAGSHIP), feat_dim, NUM_CLASSES, device=dev,
-                            max_protein=TRAIN_PROTEIN, max_ligand=MAX_LIGAND)
-    state = create_train_state(tmodel, train_utils.get_optimizer(Config(OPTIMIZER),
-                                                                 tmodel.parameters()))
-    step = make_train_step(tmodel, pos_noise_std=0.1, time_sampling="importance")
-    tgen = torch.Generator(device=dev).manual_seed(0)
+    tb, _, state, step, tgen = train_setup(torch, dev, feat_dim)
     for _ in range(TRAIN_WARMUP):
         state, _ = step(state, tb, tgen)
     torch.cuda.synchronize()

@@ -72,3 +72,15 @@ extern "C" int td_block_bwd(const float* hck, const float* xck, const int64_t* i
   }
   return 0;
 }
+
+// The weight-gradient product of run_pass alone (weight_grad.cuh): out [P][Q]
+// = X^T Y over M rows of X [M][ldx] (first P columns) and Y [M][ldy] (first
+// Q columns); partial holds td_weight_grad_partial_floats() floats. Refuses
+// (cudaErrorInvalidValue) bases, leading dimensions, P or Q that are not
+// multiples of 16 bytes.
+extern "C" long long td_weight_grad_partial_floats() { return kPartialCap; }
+
+extern "C" int td_weight_grad(const float* X, int ldx, const float* Y, int ldy, long long M,
+                              int P, int Q, float* out, float* partial, void* stream) {
+  return weight_grad(X, ldx, Y, ldy, M, P, Q, out, partial, (cudaStream_t)stream);
+}

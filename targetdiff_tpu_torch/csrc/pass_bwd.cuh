@@ -29,16 +29,18 @@
 //                   adj_kernel) sums each source's dz rows into its d nj and
 //                   subtracts its d rel rows from its d x.
 //   node_bwd_kernel the query MLP's backward and dh += dproj @ w_node^T.
-//   atb_kernel      weight gradients X^T Y (second layers over edges, RBF
+//   weight_grad     weight gradients X^T Y (second layers over edges, RBF
 //                   and edge-type tables over edges, w_node and q's second
-//                   layer over nodes), split over row chunks into partial
-//                   tiles that reduce_kernel sums in a fixed order; bias and
-//                   LayerNorm gradients are column sums of the row buffer.
+//                   layer over nodes) on the tensor cores (weight_grad.cuh),
+//                   split over row chunks into partial tiles that
+//                   reduce_kernel sums in a fixed order; bias and LayerNorm
+//                   gradients are column sums of the row buffer.
 // Every sum has a fixed order, so the result is deterministic.
 #pragma once
 
 #include "block_common.cuh"
 #include "node_proj.cuh"
+#include "weight_grad.cuh"
 
 // Gradient outputs of one layer's pass, laid out as PassParams; tab is the
 // [4R + 4][2H] table of w_rbf ([4][R][2H]) followed by w_et ([4][2H]).
@@ -66,9 +68,8 @@ struct PassT {
 
 namespace {
 
-constexpr int FE = 4 * R + 4;              // edge-feature row: rbf x type | type
-constexpr long long kPartialCap = 1 << 22;  // floats of split-reduction scratch
-constexpr int kAdjMaxN = 4096;             // nodes per complex for adj_kernel
+constexpr int FE = 4 * R + 4;   // edge-feature row: rbf x type | type
+constexpr int kAdjMaxN = 4096;  // nodes per complex for adj_kernel
 
 // Row-buffer layout of one pass (V = value width): per node
 // [dproj 5H | kv_ln scale 2H, bias 2H | b2k H, b2v V | dq H | q_ln scale H, bias H].
@@ -543,61 +544,6 @@ node_bwd_kernel(const float* __restrict__ q1, PassParams p, PassT pt, int rows, 
   }
 }
 
-// partial[z] = X[rows of chunk z]^T Y[rows of chunk z], X [M][ldx] (first P
-// columns), Y [M][ldy] (first Q columns); 128x128 output tile per block,
-// 8x8 per thread.
-constexpr int kTile = 128, kTM = 8;
-
-__global__ void __launch_bounds__(kThreads)
-atb_kernel(const float* __restrict__ X, int ldx, const float* __restrict__ Y, int ldy,
-           long long M, int P, int Q, long long chunk, float* __restrict__ partial) {
-  __shared__ __align__(16) float sx[kTM][kTile];
-  __shared__ __align__(16) float sy[kTM][kTile];
-  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
-  const int p0 = blockIdx.x * kTile, q0 = blockIdx.y * kTile;
-  const long long mb = blockIdx.z * chunk;
-  const long long me = mb + chunk < M ? mb + chunk : M;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (long long m0 = mb; m0 < me; m0 += kTM) {
-    for (int u = t; u < kTM * kTile; u += kThreads) {
-      const int mm = u / kTile, c = u % kTile;
-      const long long m = m0 + mm;
-      sx[mm][c] = (m < me && p0 + c < P) ? X[m * ldx + p0 + c] : 0.f;
-      sy[mm][c] = (m < me && q0 + c < Q) ? Y[m * ldy + q0 + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int mm = 0; mm < kTM; ++mm) {
-      const float4 xa = *reinterpret_cast<const float4*>(&sx[mm][ty * 4]);
-      const float4 xb = *reinterpret_cast<const float4*>(&sx[mm][64 + ty * 4]);
-      const float4 ya = *reinterpret_cast<const float4*>(&sy[mm][tx * 4]);
-      const float4 yb = *reinterpret_cast<const float4*>(&sy[mm][64 + tx * 4]);
-      const float xv[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-      const float yv[8] = {ya.x, ya.y, ya.z, ya.w, yb.x, yb.y, yb.z, yb.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] += xv[i] * yv[j];
-    }
-    __syncthreads();
-  }
-  float* out = partial + (size_t)blockIdx.z * P * Q;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int pp = p0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (pp >= P) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int qq = q0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (qq < Q) out[(size_t)pp * Q + qq] = acc[i][j];
-    }
-  }
-}
-
 // partial[z][c] = sum of Y[m][c] over the rows of chunk z.
 __global__ void __launch_bounds__(kThreads)
 colsum_kernel(const float* __restrict__ Y, int ldy, long long M, int Q, long long chunk,
@@ -611,22 +557,6 @@ colsum_kernel(const float* __restrict__ Y, int ldy, long long M, int Q, long lon
   partial[(size_t)blockIdx.y * Q + c] = s;
 }
 
-// out[i] = sum over z of partial[z][i], z ascending.
-__global__ void __launch_bounds__(kThreads)
-reduce_kernel(const float* __restrict__ partial, int S, long long n, float* __restrict__ out) {
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += (long long)gridDim.x * kThreads) {
-    float s = 0.f;
-    for (int z = 0; z < S; ++z) s += partial[(size_t)z * n + i];
-    out[i] = s;
-  }
-}
-
-int grid_for(long long n) {
-  const long long g = (n + kThreads - 1) / kThreads;
-  return (int)(g < 4096 ? g : 4096);
-}
-
 // Number of row chunks for a split reduction over M rows of `tiles` output
 // tiles of n floats: enough blocks for the card, >= 256 rows per chunk, and
 // partials within the scratch.
@@ -636,20 +566,6 @@ long long chunks_for(long long M, long long tiles, long long n) {
   if (s > target) s = target;
   if (s > kPartialCap / n) s = kPartialCap / n;
   return s < 1 ? 1 : s;
-}
-
-int atb(const float* X, int ldx, const float* Y, int ldy, long long M, int P, int Q, float* out,
-        float* partial, cudaStream_t s) {
-  const int tp = (P + kTile - 1) / kTile, tq = (Q + kTile - 1) / kTile;
-  const long long S = chunks_for(M, (long long)tp * tq, (long long)P * Q);
-  const long long chunk = (M + S - 1) / S;
-  atb_kernel<<<dim3(tp, tq, (unsigned)S), kThreads, 0, s>>>(X, ldx, Y, ldy, M, P, Q, chunk,
-                                                           partial);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  reduce_kernel<<<grid_for((long long)P * Q), kThreads, 0, s>>>(partial, (int)S,
-                                                                (long long)P * Q, out);
-  return (int)cudaGetLastError();
 }
 
 int colsum(const float* Y, int ldy, long long M, int Q, float* out, float* partial,
@@ -736,12 +652,21 @@ int run_pass(const float* h, const EdgeInputs& in0, const PassParams& p, const P
       ws.q1, p, pt, (int)BN, W, off_dq(V), off_qln(V), ws.rowbuf, ws.qa, dh);
   if ((err = (int)cudaGetLastError())) return err;
 
-  if ((err = atb(ws.A, H2, ws.dKV, H + V, Ep, H, H, g.w2k, ws.partial, s))) return err;
-  if ((err = atb(ws.A + H, H2, ws.dKV + H, H + V, Ep, H, V, g.w2v, ws.partial, s))) return err;
-  if ((err = atb(ws.F, FE, ws.dZ, H2, Ep, FE, H2, g.tab, ws.partial, s))) return err;
-  if ((err = atb(h, H, ws.rowbuf, W, BN, H, H5, g.w_node, ws.partial, s))) return err;
-  if ((err = atb(ws.qa, H, ws.rowbuf + off_dq(V), W, BN, H, H, g.w_q2, ws.partial, s)))
-    return err;
+  const struct {
+    const float *X, *Y;
+    int ldx, ldy;
+    long long M;
+    int P, Q;
+    float* out;
+  } products[] = {{ws.A, ws.dKV, H2, H + V, Ep, H, H, g.w2k},
+                  {ws.A + H, ws.dKV + H, H2, H + V, Ep, H, V, g.w2v},
+                  {ws.F, ws.dZ, FE, H2, Ep, FE, H2, g.tab},
+                  {h, ws.rowbuf, H, W, BN, H, H5, g.w_node},
+                  {ws.qa, ws.rowbuf + off_dq(V), H, W, BN, H, H, g.w_q2}};
+  for (const auto& pr : products) {
+    err = weight_grad(pr.X, pr.ldx, pr.Y, pr.ldy, pr.M, pr.P, pr.Q, pr.out, ws.partial, s);
+    if (err) return err;
+  }
   if ((err = colsum(ws.rowbuf, W, BN, W, ws.vec, ws.partial, s))) return err;
   const struct {
     float* dst;

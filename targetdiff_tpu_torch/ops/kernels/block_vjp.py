@@ -23,7 +23,7 @@ from torch.autograd.function import once_differentiable
 
 from .. import graph as G
 from ..rbf import FIXED_OFFSETS, gaussian_smearing_offsets
-from . import build
+from . import build, weight_grad
 from .block_denoiser import _PassParams, _pass_structs, block_denoiser_train_cuda, pack_pass_params
 
 LAUNCHES = 0  # backward kernel runs since the last reset
@@ -161,4 +161,6 @@ def block_bwd_cuda(hck, xck, idx, nmask, mlig, e_w, n_ligand, x2h, h2x, gh, gx):
         dew.data_ptr(), work.data_ptr(), nf.value, iwork.data_ptr(), ni.value,
         build.stream_ptr(dev)), "td_block_bwd")
     LAUNCHES += 1
+    weight_grad.count_passes("x2h", L)
+    weight_grad.count_passes("h2x", L)
     return dh0, dx0, dew, gx2h, gh2x

@@ -22,7 +22,7 @@ from torch.autograd.function import once_differentiable
 
 from .. import graph as G
 from ..rbf import gaussian_smearing_offsets
-from . import build
+from . import build, weight_grad
 from .block_denoiser import _pack_pass, _pass_structs, _PassParams
 from .block_vjp import FIELDS, _grad_stacks, _grad_structs, _PassGrads, _PassT, _transposed
 from .edge_layer import (
@@ -149,6 +149,7 @@ def x2h_layer_bwd_cuda(h, x, nbh, mask_ligand, e_w, params, g):
     global X2H_BWD_LAUNCHES
     out = _layer_bwd("td_x2h_layer_bwd", h, x, nbh, mask_ligand, e_w, params, g, None)
     X2H_BWD_LAUNCHES += 1
+    weight_grad.count_passes("x2h", 1)
     return out
 
 
@@ -160,4 +161,5 @@ def h2x_layer_bwd_cuda(h, x, nbh, mask_ligand, e_w, n_ligand: int, params, g):
         raise ValueError(f"n_ligand={n_ligand} must lie in [1, N={h.shape[1]}]")
     out = _layer_bwd("td_h2x_layer_bwd", h, x, nbh, mask_ligand, e_w, params, g, n_ligand)
     H2X_BWD_LAUNCHES += 1
+    weight_grad.count_passes("h2x", 1)
     return out

@@ -1,7 +1,8 @@
 """The port's own copies of the host-side chemistry (PDB and SDF parsing,
 reconstruction, bond orders, the ligand-size prior and their data files)
 against the JAX package's modules they were copied from, and the rule that
-no module of the port, nor chip_smoke.py, imports the JAX package."""
+no module of the port, nor chip_smoke.py or weight_grad_variants.py, imports
+the JAX package."""
 
 import ast
 import subprocess
@@ -129,14 +130,24 @@ def test_port_imports_without_the_jax_package():
     assert int(proc.stdout.split()[-1]) > 30  # every module of the port was imported
 
 
-def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
-    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+def _imported_roots(script: str) -> set:
+    tree = ast.parse((REPO / script).read_text())
     names = []
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom):
             names.append(node.module or "")
-    roots = {n.split(".")[0] for n in names}
+    return {n.split(".")[0] for n in names}
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    roots = _imported_roots("chip_smoke.py")
     assert "targetdiff_tpu_torch" in roots
+    assert not roots & {"targetdiff_tpu", "jax", "jaxlib", "flax", "optax"}, roots
+
+
+def test_weight_grad_variants_imports_neither_jax_nor_the_jax_package():
+    roots = _imported_roots("weight_grad_variants.py")
+    assert {"targetdiff_tpu_torch", "chip_smoke"} <= roots
     assert not roots & {"targetdiff_tpu", "jax", "jaxlib", "flax", "optax"}, roots

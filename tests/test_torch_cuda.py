@@ -404,6 +404,61 @@ def test_node_kernel_matches_plain(cuda, magnitude):
         assert torch.equal(part[0][dst], full[0][dst]) and torch.equal(part[2][dst], full[2][dst])
 
 
+# The weight-gradient kernel (three-term TF32) against float64: |got - want|
+# <= WG_BAR * s elementwise, s[p][q] the root-sum-square of the entry's M
+# terms (a float32-grade product sits ~1e-7..3e-6 s from it, one TF32
+# product per term ~3e-4 s: tests/test_torch_weight_grad.py).
+WG_BAR = 1e-5
+# run_pass's products (csrc/pass_bwd.cuh), M cut down: M, P, Q, then X's and
+# Y's row length and the first column taken
+WG_CASES = {
+    "w2k": (4096, 128, 128, 256, 0, 256, 0),
+    "w2v_h2x": (4096, 128, 16, 256, 128, 144, 128),
+    "table": (4096, 84, 256, 84, 0, 256, 0),
+    "w_node": (2048, 128, 640, 128, 0, 1680, 0),
+    "w_q2": (2048, 128, 128, 128, 0, 1792, 1408),
+    "odd_rows": (4096 + 7, 128, 128, 256, 128, 256, 128),
+}
+
+
+@pytest.mark.parametrize("case", list(WG_CASES))
+def test_weight_grad_kernel_matches_float64_and_repeats(cuda, case):
+    """X^T Y on the kernel, operands as column slices of wider rows (as
+    run_pass passes them) whose columns span 1e-9 to 1e5, zero-mean: within
+    WG_BAR of float64 entry by entry, and two launches bitwise equal."""
+    from targetdiff_tpu_torch.ops.kernels import weight_grad as kwg
+
+    M, P, Q, ldx, ox, ldy, oy = WG_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(M + P + Q)
+
+    def operand(ld, off, n):
+        order = torch.randperm(n, generator=gen, device=cuda)
+        rows = torch.randn((M, ld), generator=gen, device=cuda)
+        rows[:, off:off + n] *= 10.0 ** torch.linspace(-9, 5, n, device=cuda)[order]
+        return rows[:, off:off + n]
+
+    X, Y = operand(ldx, ox, P), operand(ldy, oy, Q)
+    launches = kwg.LAUNCHES["alone"]
+    got, again = kwg.weight_grad_cuda(X, Y), kwg.weight_grad_cuda(X, Y)
+    x, y = X.double(), Y.double()
+    want, s = x.T @ y, ((x * x).T @ (y * y)).sqrt()
+    torch.cuda.synchronize()
+    assert kwg.LAUNCHES["alone"] == launches + 2
+    assert torch.equal(got, again)
+    err = float(((got.double() - want).abs() / s).max())
+    assert err <= WG_BAR, err
+
+
+def test_weight_grad_kernel_refuses_unaligned_operands(cuda):
+    from targetdiff_tpu_torch.ops.kernels import weight_grad as kwg
+
+    rows = torch.randn((64, 132), device=cuda)
+    Y = torch.randn((64, 16), device=cuda)
+    for X in (rows[:, 1:129], rows[:, :126]):  # base 4 bytes off; P not a multiple of 4
+        with pytest.raises(RuntimeError, match="td_weight_grad"):
+            kwg.weight_grad_cuda(X, Y)
+
+
 @pytest.mark.parametrize("cutoff_mode,k,max_ligand,n_protein", LAYER_CASES)
 def test_layer_vjp_kernels_match_autograd(cuda, cutoff_mode, k, max_ligand, n_protein):
     from targetdiff_tpu_torch.ops.kernels import edge_layer_vjp as kvjp
