@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py profile [hybrid|knn|block|train] [BATCH]
     python3 chip_smoke.py duel [CHECKOUT]
+    python3 chip_smoke.py margins [CHECKOUT]
 
 With no arguments: builds the CUDA kernels from targetdiff_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version at the main path's shapes (the example
@@ -16,14 +17,16 @@ molecules for that pocket through the port's entry point
 `sample_diffusion_ligand` with seeded random flagship weights, and checks the
 outputs. Then the training
 path: the train-mode block kernel and the block-VJP kernel against autograd
-of the plain block, the backwards' weight-gradient kernel alone against
+of the plain block and, within BWD64_BAR, of its float64 copy (two backward
+runs bitwise equal), the backwards' weight-gradient kernel alone against
 float64 at the shapes of the B=32 step's products (each timed beside its
 bound and `torch.mm`), the whole loss and its gradients on the kernel path
 against the eager path, `make_train_step` at the bench's train shape (B=32,
 384-slot synthetic pockets), a short fit, and the train CLI's `run` on a
 six-entry dataset, whose checkpoint is reloaded and sampled from. Then the
 per-layer path: the per-layer attention kernels and their backwards against
-the plain layers on the hybrid graph (the example pocket with 64 ligand
+the plain layers (the backwards also against their float64 copies, within
+BWD64_BAR) on the hybrid graph (the example pocket with 64 ligand
 slots: N = 640, K = 95) and the kNN graph, the node and edge launches alone
 at the hybrid shape, 1000 DDPM steps of a hybrid model
 through `sample_diffusion_ligand`, and the per-layer training loss
@@ -40,22 +43,29 @@ time of each kernel and of the step, beside the host time of the same steps
 run just before without the profiler; `profile block` the inference block
 and the train-mode block forward on the same inputs, in turns, kernel by
 kernel; `profile train` 5 `fast` B=32 train steps ([train]'s batch) after 3
-warm-up steps, by kernel, beside the host time of 5 steps run just before.
+warm-up steps, by kernel, beside the host time of 5 steps run just before,
+and the backwards' own kernels per launch beside their bounds and the
+PyTorch calls that compute the same function.
 `duel` times the whole-block kernels (B=4, N=608, K=32), the node launch
 and the x2h and h2x edge launches alone at the kNN shape, one per-layer x2h
-and one h2x call at the hybrid shape with their kernels' device time, 50 kNN
-and 50 hybrid sampling steps and the B=32 train step of the port found in
+and one h2x call at the hybrid shape with their kernels' device time, the
+backwards' kernels' device time, 50 kNN and 50 hybrid sampling steps and
+the B=32 `fast` and `fast_pl` train steps of the port found in
 CHECKOUT (this checkout by default), through entry points
 every version of the port since the per-layer slice has: run it once per
 checkout, in turns, within one call,
-to compare two versions on one card. Both print one JSON line that starts
-with the card's name and power limit.
+to compare two versions on one card. `margins` gives the gradient margins
+of [train-block] and of [layers]' hybrid backwards (against the plain
+float32 versions and against float64, worst tensor of each) of CHECKOUT on
+those phases' inputs. Each prints one JSON line that starts with the card's
+name and power limit.
 
 Needs a CUDA device and the CUDA toolkit (nvcc); there is no CPU path.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import logging
 import pickle
@@ -102,6 +112,22 @@ H2X_TOL = dict(atol=1e-5, rtol=0.0)
 # power of two; float32 itself sits ~1e-7 there).
 NODE_REL = 4e-6
 GRAD_ATOL_SCALE, GRAD_RTOL = 5e-3, 5e-3  # atol = 5e-3 * max|plain grad| per tensor
+# The backwards' gradients against float64 autograd of the plain layers (a
+# float64 copy of the module) at the same inputs; for the block, the chain of
+# its sub-layers' VJPs at the kernel's own checkpoints (block_vjp_chain).
+# Per tensor the largest error over the tensor's largest |exact| entry, the
+# k biases (zero in exact arithmetic) left out. The median over the tensors
+# stays within BWD64_MEDIAN; a per-layer backward's every tensor within
+# BWD64_BAR, or within BWD64_F32 times the plain float32 version's own error
+# where that is larger (a sum that cancels, such as d x at the kNN shape,
+# loses digits in any float32 order). Not so the block's every tensor: over
+# nine layers any float32 order, the plain one too, lands a few tensors
+# ~2e-3 from float64, each order others. Float32-grade backwards (the FMA
+# recompute, the three-term fp16 one) sit at medians ~3e-6 and per-layer
+# worsts ~1.5e-6; one fp16 product per term in the recompute at ~2e-4 to
+# ~6e-4, which the bar of 5e-3 of scale against the plain float32 version
+# above lets through (PERF.md §6; edge_bwd_variants.py `one_term`).
+BWD64_BAR, BWD64_F32, BWD64_MEDIAN = 1e-4, 4.0, 2e-5
 # The weight-gradient kernel alone against float64: |got - want| <= WG_BAR * s
 # elementwise, s[p][q] = sqrt(sum_m X[m][p]^2 Y[m][q]^2) (float64), the
 # root-sum-square of the entry's terms: rounding errors add like sqrt(M),
@@ -139,6 +165,10 @@ FLOP_EDGE = {"x2h": np.array([4 * HW * HW + _RBF, _FIRST + 4 * HW]),
 _EDGE_BWD_EXTRA = np.array([2 * _RBF, 2 * 2 * HW + 2 * 10 * HW])
 FLOP_EDGE_BWD = {"x2h": FLOP_EDGE["x2h"] + [8 * HW * HW, 0] + _EDGE_BWD_EXTRA,
                  "h2x": FLOP_EDGE["h2x"] + [4 * HW * HW + 4 * HW * NHEADS, 0] + _EDGE_BWD_EXTRA}
+# edge_bwd_kernel alone per live edge: the backward less its weight-gradient
+# products (second layers, RBF table)
+FLOP_EDGE_KERNEL_BWD = {"x2h": FLOP_EDGE_BWD["x2h"] - [4 * HW * HW + _RBF, 0],
+                        "h2x": FLOP_EDGE_BWD["h2x"] - [2 * HW * HW + 2 * HW * NHEADS + _RBF, 0]}
 FLOP_NODE = np.array([2 * HW * 5 * HW + 2 * HW * HW, 8 * HW])
 FLOP_NODE_BWD = 3 * FLOP_NODE  # recompute, input gradients, weight gradients
 FLOP_SRC = np.array([2 * HW * 2 * HW, 0])  # a source row's k and v first-layer projections
@@ -449,9 +479,7 @@ def main(argv) -> int:
         return measure(torch, argv)
     sys.path.insert(0, str(REPO))
     from targetdiff_tpu_torch.cli.sample_for_pocket import pdb_to_pocket_data, reconstruct_all
-    from targetdiff_tpu_torch.config import Config
     from targetdiff_tpu_torch.data.transforms import FeaturizeProteinAtom
-    from targetdiff_tpu_torch.models.score_model import DiffusionModel
     from targetdiff_tpu_torch.ops import graph as G
     from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
     from targetdiff_tpu_torch.ops.kernels import build
@@ -483,19 +511,13 @@ def main(argv) -> int:
     feat = FeaturizeProteinAtom()
     data = pdb_to_pocket_data(str(POCKET_PDB), feat)
     pocket = {"protein_pos": data["protein_pos"], "protein_feat": data["protein_atom_feature"]}
-    batch = pocket_batch(torch, dev, pocket, feat.feature_dim, MAX_LIGAND, LIGAND_SIZES, 0)
+    model, batch, h, x, node_mask, mask_ligand, plain_nbh = knn_setup(torch, dev, pocket,
+                                                                      feat.feature_dim)
     lpos, lv, lmask = batch.ligand_pos, batch.ligand_v, batch.ligand_mask
-
-    torch.manual_seed(0)
-    model = DiffusionModel(Config(FLAGSHIP), feat.feature_dim, NUM_CLASSES, device=dev,
-                           max_protein=MAX_PROTEIN, max_ligand=MAX_LIGAND)
     rn = model.net.refine_net
-    with torch.no_grad():
-        h, x, node_mask, mask_ligand = model.net.embed(*batch)
     N = x.shape[1]
 
     # 3. kNN kernel against the plain version (tie-tolerant)
-    plain_nbh = G.knn_graph(x, node_mask, K)
     nbh = kknn.knn_graph_cuda(x, node_mask, K)
     torch.cuda.synchronize()
     if not torch.equal(nbh.mask, plain_nbh.mask):
@@ -653,6 +675,208 @@ def main(argv) -> int:
     return 0
 
 
+def knn_setup(torch, dev, pocket, feat_dim):
+    """The kNN phases' inputs: a flagship model of seeded random weights, the
+    example pocket with ligands of LIGAND_SIZES atoms, its embedding and its
+    plain kNN graph: (model, batch, h, x, node_mask, mask_ligand, nbh)."""
+    from targetdiff_tpu_torch.config import Config
+    from targetdiff_tpu_torch.models.score_model import DiffusionModel
+    from targetdiff_tpu_torch.ops import graph as G
+
+    batch = pocket_batch(torch, dev, pocket, feat_dim, MAX_LIGAND, LIGAND_SIZES, 0)
+    torch.manual_seed(0)
+    model = DiffusionModel(Config(FLAGSHIP), feat_dim, NUM_CLASSES, device=dev,
+                           max_protein=MAX_PROTEIN, max_ligand=MAX_LIGAND)
+    with torch.no_grad():
+        h, x, node_mask, mask_ligand = model.net.embed(*batch)
+    return model, batch, h, x, node_mask, mask_ligand, G.knn_graph(x, node_mask, K)
+
+
+def hybrid_setup(torch, dev, pocket, feat_dim):
+    """[layers]' hybrid inputs: a hybrid flagship model of seeded random
+    weights, the example pocket with 64 ligand slots (N = 640, K = 95), its
+    embedding and hybrid graph: (model, batch, h, x, node_mask, mask_ligand,
+    nbh)."""
+    from targetdiff_tpu_torch.config import Config
+    from targetdiff_tpu_torch.models.score_model import DiffusionModel
+
+    torch.manual_seed(6)
+    model = DiffusionModel(Config(dict(FLAGSHIP, cutoff_mode="hybrid")), feat_dim, NUM_CLASSES,
+                           device=dev, max_protein=MAX_PROTEIN, max_ligand=HYBRID_LIGAND)
+    batch = pocket_batch(torch, dev, pocket, feat_dim, HYBRID_LIGAND, HYBRID_SIZES, 7)
+    rn = model.net.refine_net
+    with torch.no_grad():
+        h, x, node_mask, mask_ligand = model.net.embed(*batch)
+        nbh = rn.graph(x, node_mask, mask_ligand)
+    return model, batch, h, x, node_mask, mask_ligand, nbh
+
+
+def block_grads(torch, rn, h, x, nbh, mask_ligand, e_w, gh, gx, trainable):
+    """Every parameter gradient of the block `rn` and dh0, dx0, de_w for the
+    output cotangents (gh, gx): through the block-VJP kernel (`trainable`)
+    or autograd of the plain block, in the dtype of rn and the inputs (a
+    float64 copy gives the float64 reference)."""
+    from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
+
+    leaves = [t.clone().requires_grad_() for t in (h, x, e_w)]
+    rn.zero_grad(set_to_none=True)
+    if trainable:
+        ho, xo = kvjp.block_layers_trainable(rn, leaves[0], leaves[1], nbh, mask_ligand,
+                                             leaves[2], MAX_LIGAND)
+    else:
+        ho, xo = rn.block_forward(leaves[0], leaves[1], nbh, mask_ligand, e_w=leaves[2])
+    ((ho * gh).sum() + (xo * gx).sum()).backward()
+    grads = {n: p.grad for n, p in rn.named_parameters() if p.grad is not None}
+    grads.update(dh0=leaves[0].grad, dx0=leaves[1].grad, de_w=leaves[2].grad)
+    return grads
+
+
+def train_block_cotangents(torch, dev, rn, x, nbh, h):
+    """[train-block]'s edge weights and output cotangents (seed 5)."""
+    with torch.no_grad():
+        e_w = rn.edge_weights(x, nbh)[..., 0]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    return (e_w, gen, torch.randn(h.shape, generator=gen, device=dev),
+            torch.randn(x.shape, generator=gen, device=dev))
+
+
+def layer_grads(torch, net, sub, trainable, h, x, nbh, mask_ligand, e_w, cot, n_ligand):
+    """Every parameter gradient of layer 0 of `net` and dh, dx, de_w for the
+    cotangent `cot` of one sub-layer (`sub`: x2h or h2x): through its
+    backward kernel (`trainable`) or autograd of the plain layer, in the
+    dtype of net and the inputs."""
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+    from targetdiff_tpu_torch.ops.kernels import edge_layer_vjp as kelv
+
+    layer = net.base_block[0]
+    leaves = [t.clone().requires_grad_() for t in (h, x, e_w)]
+    net.zero_grad(set_to_none=True)
+    if sub == "x2h":
+        fn = kelv.x2h_layer_trainable if trainable else kel.x2h_layer_plain
+        o = fn(layer, leaves[0], leaves[1], nbh, mask_ligand, leaves[2])
+    elif trainable:
+        o = kelv.h2x_layer_trainable(layer, leaves[0], leaves[1], nbh, mask_ligand, leaves[2],
+                                     n_ligand)
+    else:
+        o = kel.h2x_layer_plain(layer, leaves[0], leaves[1], nbh, mask_ligand, leaves[2])
+    (o * cot).sum().backward()
+    r = {n: p.grad.clone() for n, p in net.named_parameters() if p.grad is not None}
+    r.update(dh=leaves[0].grad, dx=leaves[1].grad, de_w=leaves[2].grad)
+    return r
+
+
+def tensor_errs(got: dict, want: dict) -> dict:
+    """Per tensor |got - want| max over max|want|, the k biases (zero in
+    exact arithmetic) left out."""
+    return {n: float((got[n].double() - w.double()).abs().max())
+            / max(float(w.abs().max()), 1e-30)
+            for n, w in want.items() if not n.endswith("k_func.net.3.bias")}
+
+
+def bwd64_fields(label, got, want32, plain32, want64, per_tensor=True, check=True) -> dict:
+    """A backward's margins: against the plain float32 version `want32` (the
+    bar of 5e-3 of scale) and against float64 `want64`, each with its worst
+    tensor, and the median against float64; `plain32` is the float64
+    reference's function in float32, whose own error floors the per-tensor
+    bar (BWD64_BAR, BWD64_F32). Raises (with `check`) if the median misses
+    BWD64_MEDIAN or, with `per_tensor`, a tensor misses its bar."""
+    vs32, vs64, p64 = (tensor_errs(got, want32), tensor_errs(got, want64),
+                       tensor_errs(plain32, want64))
+    bar = {n: max(BWD64_BAR, BWD64_F32 * p64[n]) for n in vs64}
+    w32, w64, wp = (max(e, key=e.get) for e in (vs32, vs64, p64))
+    tight = max(vs64, key=lambda n: vs64[n] / bar[n])
+    median = float(np.median(list(vs64.values())))
+    if check and not median < BWD64_MEDIAN:
+        raise AssertionError(f"{label}: the median tensor is {median} of its scale from float64 "
+                             f"(bar {BWD64_MEDIAN})")
+    if check and per_tensor and not vs64[tight] < bar[tight]:
+        raise AssertionError(f"{label}: {tight} is {vs64[tight]} of its scale from float64 "
+                             f"(bar {bar[tight]}; plain float32 {p64[tight]})")
+    return {"over_scale": vs32[w32], "worst_tensor": w32,
+            "f64_over_scale": vs64[w64], "f64_worst_tensor": w64,
+            "f64_median": median,
+            "f64_over_bar": vs64[tight] / bar[tight], "f64_tightest_tensor": tight,
+            "plain_f64_over_scale": p64[wp], "plain_f64_worst_tensor": wp,
+            "plain_f64_median": float(np.median(list(p64.values()))),
+            "f64_floored_tensors": sum(b > BWD64_BAR for b in bar.values())}
+
+
+def block_vjp_chain(torch, rn, hck, xck, nbh, mask_ligand, e_w, gh, gx):
+    """The block's VJP as the block-VJP kernel composes it, by autograd of
+    the plain sub-layers of `rn` at the checkpoints hck [L+1,B,N,H] and
+    xck [L+1,B,N,3] (layer l: h_{l+1} = x2h(hck[l], xck[l]), x_{l+1} =
+    h2x(hck[l+1], xck[l])), layers L-1 .. 0, in the dtype of rn and the
+    inputs: every parameter gradient and dh0, dx0, de_w."""
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+
+    rn.zero_grad(set_to_none=True)
+    ew = e_w.clone().requires_grad_()
+    dh, dx = gh, gx
+    for l in reversed(range(len(rn.base_block))):
+        layer = rn.base_block[l]
+        h1, x0 = (t.clone().requires_grad_() for t in (hck[l + 1], xck[l]))
+        (kel.h2x_layer_plain(layer, h1, x0, nbh, mask_ligand, ew) * dx).sum().backward()
+        h0, x0b = (t.clone().requires_grad_() for t in (hck[l], xck[l]))
+        (kel.x2h_layer_plain(layer, h0, x0b, nbh, mask_ligand, ew) * (dh + h1.grad)).sum() \
+            .backward()
+        dh, dx = h0.grad, x0.grad + x0b.grad
+    grads = {n: p.grad for n, p in rn.named_parameters() if p.grad is not None}
+    grads.update(dh0=dh, dx0=dx, de_w=ew.grad)
+    return grads
+
+
+def block_f64_refs(torch, rn, h, x, nbh, mask_ligand, e_w, gh, gx):
+    """(plain32, want64): `block_vjp_chain` in float32 and in float64 at the
+    checkpoints of the train-mode block kernel, as the block-VJP kernel
+    gets them."""
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+
+    with torch.no_grad():
+        x2h, h2x = kblock.pack_pass_params(rn)
+        hck, xck = kblock.block_denoiser_train_cuda(rn, h, x, nbh, mask_ligand, e_w, MAX_LIGAND,
+                                                    x2h, h2x)
+    plain32 = block_vjp_chain(torch, rn, hck, xck, nbh, mask_ligand, e_w, gh, gx)
+    want64 = block_vjp_chain(torch, copy.deepcopy(rn).double(), hck.double(), xck.double(), nbh,
+                             mask_ligand, e_w.double(), gh.double(), gx.double())
+    return plain32, want64
+
+
+def margins(torch, dev, pocket, feat_dim, check=True) -> dict:
+    """`bwd64_fields` of [train-block]'s block backward (B=4, N=608, K=32,
+    L=9) and of [layers]' per-layer x2h and h2x backwards at the hybrid
+    shape (N = 640, K = 95), on the inputs those phases make."""
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+
+    out = {}
+    model, _, h, x, _, mlig, nbh = knn_setup(torch, dev, pocket, feat_dim)
+    rn = model.net.refine_net
+    e_w, _, gh, gx = train_block_cotangents(torch, dev, rn, x, nbh, h)
+    got, want = (block_grads(torch, rn, h, x, nbh, mlig, e_w, gh, gx, tr) for tr in (True, False))
+    plain32, want64 = block_f64_refs(torch, rn, h, x, nbh, mlig, e_w, gh, gx)
+    out["train_block"] = bwd64_fields("train-block backward", got, want, plain32, want64,
+                                      per_tensor=False, check=check)
+    del model, got, want, plain32, want64
+    hmodel, _, hh, hx, hnode, hmlig, hnbh = hybrid_setup(torch, dev, pocket, feat_dim)
+    net = hmodel.net.refine_net
+    net64 = copy.deepcopy(net).double()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    with torch.no_grad():  # as layer_phases: its e_w, cotangents and the h2x pass's input
+        e_w = net.edge_weights(hx, hnbh)[..., 0]
+        h_ref = kel.x2h_layer_plain(net.base_block[0], hh, hx, hnbh, hmlig, e_w)
+    cot = {"x2h": torch.randn(hh.shape, generator=gen, device=dev) * hnode[..., None],
+           "h2x": torch.randn(hx.shape, generator=gen, device=dev)}
+    for sub in ("x2h", "h2x"):
+        args = (hh if sub == "x2h" else h_ref, hx, hnbh, hmlig, e_w, cot[sub], HYBRID_LIGAND)
+        got, want = (layer_grads(torch, net, sub, tr, *args) for tr in (True, False))
+        want64 = layer_grads(torch, net64, sub, False,
+                             *[a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+                               for a in args])
+        out[f"layers_hybrid_{sub}_bwd"] = bwd64_fields(f"hybrid {sub} backward", got, want,
+                                                       want, want64, check=check)
+    torch.cuda.synchronize()
+    return out
+
+
 def pocket_batch(torch, dev, pocket, feat_dim, n_ligand_slots, sizes, seed):
     """B copies of the example pocket (572 atoms padded to MAX_PROTEIN,
     centred) with ligands of `sizes` atoms at the centre plus unit noise."""
@@ -681,21 +905,13 @@ def layer_phases(torch, dev, feat, pocket, rn, h, x, nbh, mask_ligand, node_mask
     N = 640, K = 95) and on the kNN graph of the sampling phases (N = 608,
     K = 32); times at the hybrid shape. Returns the four kernels' JSON fields
     and the hybrid model and batch."""
-    from targetdiff_tpu_torch.config import Config
-    from targetdiff_tpu_torch.models.score_model import DiffusionModel
     from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
     from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
     from targetdiff_tpu_torch.ops.kernels import edge_layer_vjp as kelv
 
-    torch.manual_seed(6)
-    hmodel = DiffusionModel(Config(dict(FLAGSHIP, cutoff_mode="hybrid")), feat.feature_dim,
-                            NUM_CLASSES, device=dev, max_protein=MAX_PROTEIN,
-                            max_ligand=HYBRID_LIGAND)
-    hbatch = pocket_batch(torch, dev, pocket, feat.feature_dim, HYBRID_LIGAND, HYBRID_SIZES, 7)
+    hmodel, hbatch, hh, hx, hnode, hmlig, hnbh = hybrid_setup(torch, dev, pocket,
+                                                              feat.feature_dim)
     hrn = hmodel.net.refine_net
-    with torch.no_grad():
-        hh, hx, hnode, hmlig = hmodel.net.embed(*hbatch)
-        hnbh = hrn.graph(hx, hnode, hmlig)
     gen = torch.Generator(device=dev).manual_seed(8)
     out, fields = {}, {}
     for shape, (net, h0, x0, g, mlig, nmask_rows, n_lig) in (
@@ -716,26 +932,15 @@ def layer_phases(torch, dev, feat, pocket, rn, h, x, nbh, mask_ligand, node_mask
                 "h2x": check_close(f"{shape} h2x layer (float32-grade)", x_k, x_ref, **H2X_TOL)}
         cot = {"x2h": torch.randn(h0.shape, generator=gen, device=dev) * nmask_rows[..., None],
                "h2x": torch.randn(x0.shape, generator=gen, device=dev)}
-
-        def grads(sub, trainable):
-            h_in = h0 if sub == "x2h" else h_ref
-            leaves = [t.clone().requires_grad_() for t in (h_in, x0, e_w)]
-            net.zero_grad(set_to_none=True)
-            if sub == "x2h":
-                fn = kelv.x2h_layer_trainable if trainable else kel.x2h_layer_plain
-                o = fn(layer, leaves[0], leaves[1], g, mlig, leaves[2])
-            elif trainable:
-                o = kelv.h2x_layer_trainable(layer, leaves[0], leaves[1], g, mlig, leaves[2],
-                                             n_lig)
-            else:
-                o = kel.h2x_layer_plain(layer, leaves[0], leaves[1], g, mlig, leaves[2])
-            (o * cot[sub]).sum().backward()
-            r = {n: p.grad.clone() for n, p in net.named_parameters() if p.grad is not None}
-            r.update(dh=leaves[0].grad, dx=leaves[1].grad, de_w=leaves[2].grad)
-            return r
+        net64 = copy.deepcopy(net).double()
 
         for sub in ("x2h", "h2x"):
-            got, again, want = grads(sub, True), grads(sub, True), grads(sub, False)
+            args = (h0 if sub == "x2h" else h_ref, x0, g, mlig, e_w, cot[sub], n_lig)
+            got, again, want = (layer_grads(torch, net, sub, tr, *args)
+                                for tr in (True, True, False))
+            want64 = layer_grads(torch, net64, sub, False,
+                                 *[a.double() if torch.is_tensor(a) and a.is_floating_point()
+                                   else a for a in args])
             torch.cuda.synchronize()
             if sorted(got) != sorted(want) or not all(torch.equal(got[n], again[n]) for n in got):
                 raise AssertionError(f"{shape} {sub} backward: other parameters reached, or two "
@@ -744,6 +949,9 @@ def layer_phases(torch, dev, feat, pocket, rn, h, x, nbh, mask_ligand, node_mask
             errs[f"{sub}_bwd"] = max(float((got[n] - want[n]).abs().max())
                                      for n in ("dh", "dx", "de_w"))
             errs[f"{sub}_bwd_over_scale"] = rel
+            errs[f"{sub}_bwd_margins"] = bwd64_fields(f"{shape} {sub} backward", got, want,
+                                                      want, want64)
+            del want64
         out[shape] = errs
         if shape != "hybrid":
             continue
@@ -984,12 +1192,9 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     from targetdiff_tpu_torch.utils.port import flax_params_to_state_dict, load_npz_params
 
     # ---- [train-block]: train-mode forward and backward kernels vs the plain block ----
+    e_w, gen, gh, gx = train_block_cotangents(torch, dev, rn, x, nbh, h)
     with torch.no_grad():
-        e_w = rn.edge_weights(x, nbh)[..., 0]
         x2h, h2x = kblock.pack_pass_params(rn)
-    gen = torch.Generator(device=dev).manual_seed(5)
-    gh = torch.randn(h.shape, generator=gen, device=dev)
-    gx = torch.randn(x.shape, generator=gen, device=dev)
     # checkpoints [L+1,B,N,.]: slot 0 the input, slot L the block's output
     want = kblock.block_denoiser_train_plain(rn, h, x, nbh, mask_ligand, e_w)
     with torch.no_grad():
@@ -1001,23 +1206,18 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
                   check_close("train fwd xck", xck_k * ck, want[1] * ck, **POS_TOL))
 
     def fwd_bwd(trainable):
-        leaves = [t.clone().requires_grad_() for t in (h, x, e_w)]
-        rn.zero_grad(set_to_none=True)
-        if trainable:
-            ho, xo = kvjp.block_layers_trainable(rn, leaves[0], leaves[1], nbh, mask_ligand,
-                                                 leaves[2], MAX_LIGAND)
-        else:
-            ho, xo = rn.block_forward(leaves[0], leaves[1], nbh, mask_ligand, e_w=leaves[2])
-        ((ho * gh).sum() + (xo * gx).sum()).backward()
-        grads = {n: p.grad for n, p in rn.named_parameters() if p.grad is not None}
-        grads.update(dh0=leaves[0].grad, dx0=leaves[1].grad, de_w=leaves[2].grad)
-        return grads
+        return block_grads(torch, rn, h, x, nbh, mask_ligand, e_w, gh, gx, trainable)
 
-    g_k, g_p = fwd_bwd(True), fwd_bwd(False)
+    g_k, g_again, g_p = fwd_bwd(True), fwd_bwd(True), fwd_bwd(False)
+    g_32, g_64 = block_f64_refs(torch, rn, h, x, nbh, mask_ligand, e_w, gh, gx)
     torch.cuda.synchronize()
     if sorted(g_k) != sorted(g_p):
         raise AssertionError("train-block: the kernel path reached other parameters")
+    if not all(torch.equal(g_k[n], g_again[n]) for n in g_k):
+        raise AssertionError("train-block: two backward runs differ")
     bwd_rel = check_grads(g_k, g_p)
+    bwd_margins = bwd64_fields("train-block backward", g_k, g_p, g_32, g_64, per_tensor=False)
+    del g_again, g_32, g_64
     bwd_err = max(float((g_k[n] - g_p[n]).abs().max()) for n in ("dh0", "dx0", "de_w"))
     with torch.no_grad():
         fwd_ms = cuda_ms(torch, lambda: kblock.block_denoiser_train_cuda(
@@ -1048,6 +1248,7 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
         + nbytes(h, x, e_w, x2h, h2x))  # outputs: dh0, dx0, de_w and the weight gradients
     phase("train-block", shape=f"B={B},N={h.shape[1]},K={K},L={L}",
           max_abs_err_fwd=fwd_err, max_abs_err_dh_dx_dew=bwd_err, max_grad_err_over_scale=bwd_rel,
+          bwd_margins=bwd_margins,
           fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms, bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms,
           fwd_bwd_ms=step_ms, fwd_bwd_plain_ms=step_plain_ms, fwd_bound_ms=fwd_bound["bound_ms"],
           bwd_bound_ms=bwd_bound["bound_ms"], fwd_bound_by=fwd_bound["bound_by"],
@@ -1259,16 +1460,16 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
 
 
 def measure(torch, argv) -> int:
-    """The `profile` and `duel` modes (module docstring)."""
+    """The `profile`, `duel` and `margins` modes (module docstring)."""
     what, arg = argv[0], (argv[1:] or [None])[0]
     sized = what == "profile" and arg in ("hybrid", "knn") and len(argv) == 3
-    if what not in ("profile", "duel") or len(argv) > (3 if sized else 2) or (
+    if what not in ("profile", "duel", "margins") or len(argv) > (3 if sized else 2) or (
             what == "profile" and arg not in (None, "hybrid", "knn", "block", "train")) or (
             sized and not argv[2].isdigit()):
         raise SystemExit("usage: chip_smoke.py [profile [hybrid|knn|block|train] [BATCH] | "
-                         "duel [CHECKOUT]]")
+                         "duel [CHECKOUT] | margins [CHECKOUT]]")
     batch = int(argv[2]) if sized else B
-    checkout = Path(arg).resolve() if what == "duel" and arg else REPO
+    checkout = Path(arg).resolve() if what in ("duel", "margins") and arg else REPO
     sys.path.insert(0, str(checkout))
     from targetdiff_tpu_torch.cli.sample_for_pocket import pdb_to_pocket_data
     from targetdiff_tpu_torch.config import Config
@@ -1306,6 +1507,8 @@ def measure(torch, argv) -> int:
 
     if what == "duel":
         out = duel(torch, dev, setup, pocket, feat.feature_dim)
+    elif what == "margins":
+        out = margins(torch, dev, pocket, feat.feature_dim, check=False)
     elif arg == "block":
         out = profile_block(torch, dev, setup("knn")[0], pocket, feat.feature_dim)
     elif arg == "train":
@@ -1355,6 +1558,7 @@ def profile(torch, sample, cutoff, batch) -> dict:
 TRAIN_KERNELS = (
     ("edge_bwd_kernel<x2h>", ("edge_bwd_kernel<false",)),
     ("edge_bwd_kernel<h2x>", ("edge_bwd_kernel<true",)),
+    ("stage_w2_kernel", ("stage_w2_kernel",)),
     ("weight_grad_kernel", ("weight_grad_kernel", "atb_kernel")),
     ("reduce_kernel", ("reduce_kernel",)),
     ("colsum_kernel", ("colsum_kernel",)),
@@ -1380,7 +1584,7 @@ def profile_train(torch, dev, feat_dim) -> dict:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    tb, _, state, step, tgen = train_setup(torch, dev, feat_dim)
+    tb, tmodel, state, step, tgen = train_setup(torch, dev, feat_dim)
     steps = PROFILE_TRAIN_STEPS
     for _ in range(TRAIN_WARMUP):
         state, _ = step(state, tb, tgen)
@@ -1407,7 +1611,82 @@ def profile_train(torch, dev, feat_dim) -> dict:
     device_ms = sum(r["ms"] for r in rows.values())
     return {"batch": TRAIN_B, "steps": steps, "host_ms_per_step": host_ms,
             "device_ms_per_step": device_ms, "idle_share_estimate": 1 - device_ms / host_ms,
-            "kernels_per_step": rows, "glue_top": dict(list(glue.items())[:12])}
+            "kernels_per_step": rows, "glue_top": dict(list(glue.items())[:12]),
+            "bwd_kernels": bwd_kernel_rows(torch, tb, tmodel, rows)}
+
+
+def bwd_kernel_rows(torch, tb, tmodel, rows) -> dict:
+    """The backwards' own kernels per launch at the B=32 step's shapes:
+    device ms (from the traced steps' `rows`), launches per step, the bound
+    (`bound`, from this batch's kNN graph: live edges, the h2x pass's ligand
+    rows and their sources; each input read once, each output written once)
+    and, where one PyTorch call computes the same function, its device time:
+    index_add_ of the dz rows by source for gather_kernel's d nj,
+    torch.sum(rowbuf, 0) for colsum_kernel and its reduce_kernel launch.
+    node_bwd_kernel, gather_kernel and colsum_kernel run once per pass:
+    their bound and library time are the mean of an x2h and an h2x pass."""
+    from targetdiff_tpu_torch.ops import graph as G
+
+    with torch.no_grad():
+        _, x, node_mask, _ = tmodel.net.embed(*tb)
+        nbh = G.knn_graph(x, node_mask, K)
+    nb, n = x.shape[:2]
+    bn, row0, fe, f4 = nb * n, n - MAX_LIGAND, 4 * RK + 4, 4
+    lig_rows, src, _ = h2x_rows(torch, nbh, row0)
+    live = {"x2h": int(nbh.mask.sum()), "h2x": int(nbh.mask[:, row0:].sum())}
+    dst = {"x2h": bn, "h2x": lig_rows}
+    width = {"x2h": HW, "h2x": NHEADS}
+    weights = f4 * (2 * HW * HW + 2 * HW * HW + 4 * RK * 2 * HW + 4 * 2 * HW + 4 * 2 * HW)
+    per_pass = {}
+    for sub, v in width.items():
+        slots = dst[sub] * K
+        # destination rows: ni, q, x, and dh (x2h) or d x (h2x); source rows:
+        # nj and x; slots: idx, mask, e_w. Written: the per-edge rows (A, dKV,
+        # dZ, F, d rel), d e_w, the row buffer's partials and d x.
+        reads = (dst[sub] * (3 * HW + 3 + (HW if sub == "x2h" else 3))
+                 + (bn if sub == "x2h" else src) * (2 * HW + 3)) * f4 + slots * 13 + weights
+        writes = (slots * (2 * HW + HW + v + 2 * HW + fe + 3 + 1)
+                  + dst[sub] * (8 * HW + v + 3)) * f4
+        row_w = 13 * HW + v  # run_pass's row buffer
+        per_pass[sub] = {
+            "edge": bound(live[sub] * FLOP_EDGE_KERNEL_BWD[sub], reads + writes),
+            "node": bound(bn * np.array([12 * HW * HW, 10 * HW]),
+                          f4 * (bn * 12 * HW + 6 * HW * HW)),
+            "gather": bound((0, live[sub] * (2 * HW + 3)),
+                            f4 * (live[sub] * (2 * HW + 4) + bn * (2 * HW + 4))),
+            "colsum": bound((0, bn * row_w), f4 * (bn * row_w + row_w)),
+        }
+        # the library calls on operands of these shapes
+        offs = (torch.arange(nb, device=x.device) * n)[:, None, None]
+        srcs = (nbh.idx + offs)[:, row0:] if sub == "h2x" else nbh.idx + offs
+        srcs = srcs[nbh.mask[:, row0:] if sub == "h2x" else nbh.mask]
+        dz = torch.randn((live[sub], 2 * HW), device=x.device)
+        dnj = torch.empty((bn, 2 * HW), device=x.device)
+        rowbuf = torch.randn((bn, row_w), device=x.device)
+        per_pass[sub]["gather_library_ms"] = device_ms(
+            torch, lambda: dnj.zero_().index_add_(0, srcs, dz))
+        per_pass[sub]["colsum_library_ms"] = device_ms(torch, lambda: torch.sum(rowbuf, 0))
+        del dz, dnj, rowbuf
+
+    def mean(key, field):
+        return float(np.mean([per_pass[sub][key][field] if field else per_pass[sub][key]
+                              for sub in width]))
+
+    out = {}
+    for name, key, sub, library in (
+            ("edge_bwd_kernel<x2h>", "edge", "x2h", None),
+            ("edge_bwd_kernel<h2x>", "edge", "h2x", None),
+            ("node_bwd_kernel", "node", None, None),
+            ("gather_kernel", "gather", None, "gather_library_ms"),
+            ("colsum_kernel", "colsum", None, "colsum_library_ms")):
+        r = rows[name]
+        b = per_pass[sub][key] if sub else {"bound_ms": mean(key, "bound_ms"),
+                                            "bound_by": per_pass["x2h"][key]["bound_by"]}
+        out[name] = {"ms_per_launch": r["ms"] / max(r["launches"], 1),
+                     "launches_per_step": r["launches"], **b,
+                     "library_ms": mean(library, None) if library else None}
+    out["live_edges"], out["h2x_rows"], out["h2x_sources"] = live, lig_rows, src
+    return out
 
 
 def profile_block(torch, dev, model, pocket, feat_dim) -> list:
@@ -1455,11 +1734,18 @@ def profile_block(torch, dev, model, pocket, feat_dim) -> list:
     return out
 
 
-def weight_grad_device_ms(torch, label, fn, calls=10) -> dict:
+# kernels of the backwards timed by `bwd_device_ms`: (key, pieces of the
+# profiler's kernel names)
+BWD_PIECES = (("wgrad", ("weight_grad_kernel", "atb_kernel")), ("reduce", ("reduce_kernel",)),
+              ("edge_bwd_x2h", ("edge_bwd_kernel<false",)),
+              ("edge_bwd_h2x", ("edge_bwd_kernel<true",)))
+
+
+def bwd_device_ms(torch, label, fn, calls=10) -> dict:
     """Device ms per call of fn spent in the weight-gradient products
-    (weight_grad_kernel, or atb_kernel before it) and in reduce_kernel (which
-    also sums the bias and LayerNorm column sums), over `calls` traced calls
-    after one warm-up call."""
+    (weight_grad_kernel, or atb_kernel before it), in reduce_kernel (which
+    also sums the bias and LayerNorm column sums) and in the x2h and h2x
+    edge_bwd_kernel, over `calls` traced calls after one warm-up call."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -1470,10 +1756,9 @@ def weight_grad_device_ms(torch, label, fn, calls=10) -> dict:
             fn()
         torch.cuda.synchronize()
     times = device_times(prof, calls)
-    return {f"wgrad_{label}_device_ms": sum(v["ms"] for k, v in times.items()
-                                            if "weight_grad_kernel" in k or "atb_kernel" in k),
-            f"reduce_{label}_device_ms": sum(v["ms"] for k, v in times.items()
-                                             if "reduce_kernel" in k)}
+    return {f"{key}_{label}_device_ms": sum(v["ms"] for k, v in times.items()
+                                            if any(pc in k for pc in pieces))
+            for key, pieces in BWD_PIECES}
 
 
 def duel(torch, dev, setup, pocket, feat_dim) -> dict:
@@ -1484,18 +1769,24 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
     device time of the edge kernel and of node_kernel in those calls
     (torch.profiler, 10 calls: the calls themselves are host-bound once the
     kernels are fast); the device time of the weight-gradient products and
-    of reduce_kernel in one block backward (kNN shape) and in one per-layer
-    x2h and one h2x backward (hybrid shape), and those backwards' CUDA-event
-    times; 50 kNN and 50 hybrid sampling steps (host
-    clock) and the B=32 `fast` train step (host clock, 10 steps after 3)."""
+    of reduce_kernel and the x2h and h2x edge_bwd_kernel in one block
+    backward (kNN shape) and in one per-layer x2h and one h2x backward
+    (hybrid shape), and those backwards' CUDA-event times; 50 kNN and 50
+    hybrid sampling steps (host clock); the B=32 `fast` train step (host
+    clock, 10 steps after 3), the device time per step of the same kernels
+    over 3 more traced steps, and the `fast_pl` step on the same batch
+    (host clock, 10 steps after 3)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
+    from targetdiff_tpu_torch.config import Config
     from targetdiff_tpu_torch.ops import graph as G
     from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
     from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
     from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
     from targetdiff_tpu_torch.ops.kernels import edge_layer_vjp as kelv
+    from targetdiff_tpu_torch.trainer import create_train_state, make_train_step
+    from targetdiff_tpu_torch.utils import train as train_utils
 
     model, sample = setup("knn")
     rn = model.net.refine_net
@@ -1518,7 +1809,7 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
         gx = torch.randn(x.shape, generator=gen, device=dev)
         out["block_bwd_ms"] = cuda_ms(torch, lambda: kvjp.block_bwd_cuda(
             hck, xck, nbh.idx, nbh.mask, mlig, e_w, MAX_LIGAND, x2h, h2x, gh, gx), reps=10)
-        out.update(weight_grad_device_ms(torch, "block_bwd", lambda: kvjp.block_bwd_cuda(
+        out.update(bwd_device_ms(torch, "block_bwd", lambda: kvjp.block_bwd_cuda(
             hck, xck, nbh.idx, nbh.mask, mlig, e_w, MAX_LIGAND, x2h, h2x, gh, gx)))
         # the launches alone at the kNN shape: td_block_node (every row), the
         # h2x pass's node launch (td_block_node_rows where the tree has it),
@@ -1553,7 +1844,7 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
                                                        ph, cot["h2x"])}
         for sub, fn in bwds.items():
             out[f"{sub}_layer_bwd_hybrid_ms"] = cuda_ms(torch, fn, reps=10)
-            out.update(weight_grad_device_ms(torch, f"{sub}_layer_bwd_hybrid", fn))
+            out.update(bwd_device_ms(torch, f"{sub}_layer_bwd_hybrid", fn))
         for sub, fn in layers.items():
             out[f"{sub}_layer_hybrid_ms"] = cuda_ms(torch, fn)
             with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1571,7 +1862,7 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
     hsample(3, 1)  # warm up
     out["hybrid_sample_ms_per_step"] = hsample(50, 1)
 
-    tb, _, state, step, tgen = train_setup(torch, dev, feat_dim)
+    tb, tmodel, state, step, tgen = train_setup(torch, dev, feat_dim)
     for _ in range(TRAIN_WARMUP):
         state, _ = step(state, tb, tgen)
     torch.cuda.synchronize()
@@ -1580,6 +1871,29 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
         state, _ = step(state, tb, tgen)
     torch.cuda.synchronize()
     out["train_step_ms"] = 1e3 * (time.perf_counter() - t0) / 10
+    # the backwards' kernels in 3 traced `fast` steps
+    step_out = {}
+
+    def three_steps():
+        nonlocal state
+        for _ in range(3):
+            state, _ = step(state, tb, tgen)
+
+    for key, ms in bwd_device_ms(torch, "train_step", three_steps, calls=1).items():
+        out[key.replace("_device_ms", "_device_ms_per_step")] = ms / 3
+    # the `fast_pl` step on the same batch and model
+    pl_state = create_train_state(tmodel, train_utils.get_optimizer(Config(OPTIMIZER),
+                                                                    tmodel.parameters()))
+    pl_step = make_train_step(tmodel, pos_noise_std=0.1, time_sampling="importance",
+                              impl="fast_pl")
+    for _ in range(TRAIN_WARMUP):
+        pl_state, _ = pl_step(pl_state, tb, tgen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        pl_state, _ = pl_step(pl_state, tb, tgen)
+    torch.cuda.synchronize()
+    out["train_pl_step_ms"] = 1e3 * (time.perf_counter() - t0) / 10
     return out
 
 

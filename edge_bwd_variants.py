@@ -1,0 +1,241 @@
+#!/usr/bin/env python3
+"""Variants of the backward's edge kernel (edge_bwd_kernel in
+targetdiff_tpu_torch/csrc/pass_bwd.cuh) on one NVIDIA GPU: the mutation check
+of the backwards' float64 bar and a phase split of the kernel's time, each
+variant held against the unchanged kernel in one run.
+
+    python3 edge_bwd_variants.py [--base CHECKOUT] [VARIANT ...]
+
+Each variant is a temporary copy of the targetdiff_tpu_torch package of
+CHECKOUT (this checkout by default) whose pass_bwd.cuh is changed by
+VARIANTS; the copies are built in parallel and measured one after the
+other, the unchanged kernel first and last. A phase is taken out by
+skipping its loop or, for the recompute's second layers, by loading its
+input in place of its output, so that nothing downstream folds away; the
+results of those copies are wrong and only their times are read. Each
+prints one JSON line: the device ms per launch of edge_bwd_kernel<x2h> and
+<h2x> in one block backward at the B=32 train step's shapes (chip_smoke.py
+train_setup; N = 416, K = 32, L = 9), that backward's CUDA-event ms, the
+kernels' registers, spills and shared memory from `-Xptxas -v` and, for the
+unchanged kernel and the mutants, chip_smoke.margins (the gradients of
+[train-block] and [layers]' hybrid backwards against float64, bar
+chip_smoke.BWD64_BAR). The card's name and power limit come first. Patches
+that name the earlier FMA recompute apply to a checkout from before the
+tensor-core recompute, so one command splits both. Needs a CUDA device and
+nvcc.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+KERNEL = Path("targetdiff_tpu_torch/csrc/pass_bwd.cuh")
+ERRORS = ("kernel", "one_term")  # variants whose gradients are held to float64
+
+OPAQUE = "for (int e = 0; e < KC; ++e) acc[e] = s_a[e][t];"
+ONE_TERM = """// one fp16 product per term (the mutant of the three-term tile_mma)
+template <int NT = 4>
+__device__ __forceinline__ void one_term(float (&acc)[2][4][4], const float* a, const uint4* w,
+                                         int ldn, int lane) {
+  const int g = lane >> 2, tig = lane & 3;
+  for (int ks = 0; ks < kKSteps; ++ks) {
+    uint32_t ahi[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+        ahi[mt][f] = *reinterpret_cast<const uint32_t*>(
+            a + (16 * mt + g + 8 * (f & 1)) * kLdz + 16 * ks + 2 * tig + 8 * (f >> 1));
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const uint4 wf = w[(ks * ldn + nt) * 32 + lane];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) mma_f16(acc[mt][nt], ahi[mt], wf.x, wf.y);
+    }
+  }
+}
+
+"""
+SECOND_LAYERS = "template <int V>\n__device__ __forceinline__ void second_layers("
+
+# Each variant: groups of alternatives (old, new); in each group exactly one
+# alternative's `old` occurs, once, and is replaced.
+VARIANTS = {
+    "kernel": [],
+    # mutant: the bar must hold the kernel and miss this
+    "one_term": [
+        [(SECOND_LAYERS, ONE_TERM + SECOND_LAYERS)],
+        [("    if (half) tile_mma<kVT>(acc, as, wv + 4 * qd * 32, V / 8, lane);\n"
+          "    else tile_mma(acc, as, wk + 4 * qd * 32, kNTiles, lane);",
+          "    if (half) one_term<kVT>(acc, as, wv + 4 * qd * 32, V / 8, lane);\n"
+          "    else one_term(acc, as, wk + 4 * qd * 32, kNTiles, lane);")]],
+    # phases taken out (time only)
+    "no_recompute": [
+        [("      second_layers<V>(acc, s_a, s_buf, a.w2kf, a.w2vf, p, 2, t);",
+          f"#pragma unroll\n      {OPAQUE}"),
+         ("      if (active) {\n"
+          "        if (is_k) second_layer(acc, s_a, 0, p.w2k, H, p.b2k[cc], cc);\n"
+          "        else second_layer(acc, s_a, H, p.w2v, V, p.b2v[cc], cc);\n"
+          "      }", f"#pragma unroll\n      {OPAQUE}")],
+        [("      if (live) second_layers<V>(acc, s_a, s_buf, a.w2kf, a.w2vf, p, 1, t);",
+          f"      if (live) {OPAQUE}"),
+         ("      if (live && is_k) second_layer(acc, s_a, 0, p.w2k, H, p.b2k[cc], cc);",
+          f"      if (live) {OPAQUE}")]],
+    # the recompute's parts: its products (tile_mma), its activation split
+    "no_products": [[("    if (half) tile_mma<kVT>(acc, as, wv + 4 * qd * 32, V / 8, lane);\n"
+                      "    else tile_mma(acc, as, wk + 4 * qd * 32, kNTiles, lane);",
+                      "    (void)as;")]],
+    "no_split": [[("    store_split_row(reinterpret_cast<uint32_t*>(buf + pr * kLdz), v, lane);",
+                   "    (void)v;")]],
+    "no_transposed": [[("""      for (int cl = 0; cl < C; cl += 4) {
+        const float w0 = WT[(cl + 0) * H + m], w1 = WT[(cl + 1) * H + m],
+                    w2 = WT[(cl + 2) * H + m], w3 = WT[(cl + 3) * H + m];
+#pragma unroll
+        for (int e = 0; e < KC; ++e) {
+          const float4 d4 = *reinterpret_cast<const float4*>(&s_d[e][doff + cl]);
+          acc[e] += d4.x * w0 + d4.y * w1 + d4.z * w2 + d4.w * w3;
+        }
+      }""", "      for (int e = 0; e < KC; ++e) acc[e] = s_d[e][t];")]],
+    "no_ln_bwd": [[("    for (int pair = warp; pair < 2 * n; pair += kThreads / 32) {",
+                    "    for (int pair = warp; pair < 0; pair += kThreads / 32) {")]],
+    "no_drbf": [[("    for (int pr = warp; pr < n * R; pr += kThreads / 32) {",
+                  "    for (int pr = warp; pr < 0; pr += kThreads / 32) {")]],
+    "no_edge_writes": [
+        [("    for (int u = t; u < n * H2; u += kThreads) "
+          "a.A[ec * H2 + u] = s_a[u / H2][u % H2];\n", "")],
+        [("""    for (int u = t; u < n * (H + V); u += kThreads) {
+      const int e = u / (H + V), cl = u % (H + V);
+      a.dKV[(ec + e) * (H + V) + cl] = s_d[e][cl];
+    }
+""", "")],
+        [("    for (int u = t; u < n * H2; u += kThreads) "
+          "a.dZ[ec * H2 + u] = s_d[u / H2][u % H2];\n", "")],
+        [("      a.F[(ec + e) * FE + f] = v;", "      (void)v;")],
+        [("          a.drel[(ec + t) * 3 + k3] = d3[k3];\n", "")]],
+    # one block per SM: the compiler's register limit doubles (no spills)
+    "one_block_per_sm": [[("__launch_bounds__(kThreads, 2) edge_bwd_kernel",
+                           "__launch_bounds__(kThreads, 1) edge_bwd_kernel")]],
+}
+
+
+def apply(text: str, groups) -> str:
+    for group in groups:
+        hits = [(old, new) for old, new in group if text.count(old) == 1]
+        if len(hits) != 1:
+            raise ValueError(f"pass_bwd.cuh holds {len(hits)} of these, not one:\n"
+                             + "\n---\n".join(old for old, _ in group))
+        text = text.replace(*hits[0])
+    return text
+
+
+def make_copy(base: Path, root: Path, name: str) -> Path:
+    dst = root / name
+    shutil.copytree(base / "targetdiff_tpu_torch", dst / "targetdiff_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    f = dst / KERNEL
+    f.write_text(apply(f.read_text(), VARIANTS[name]))
+    return dst
+
+
+def ptxas(log: list, kernel: str) -> str:
+    """The `-Xptxas -v` lines of `kernel` as block_vjp.cu compiles it."""
+    entry = next(i for i, ln in enumerate(log)
+                 if "Compiling entry" in ln and "block_vjp" in ln and kernel in ln)
+    return "; ".join(ln.strip() for ln in log[entry + 1:entry + 4]
+                     if "registers" in ln or "spill" in ln)
+
+
+def measure(copy: Path, name: str) -> dict:
+    """The variant in `copy`: its edge kernels' device time in one block
+    backward at the B=32 step's shapes and, for ERRORS, chip_smoke.margins."""
+    sys.path.insert(0, str(copy))
+    import torch
+
+    import chip_smoke as cs
+    from targetdiff_tpu_torch.cli.sample_for_pocket import pdb_to_pocket_data
+    from targetdiff_tpu_torch.data.transforms import FeaturizeProteinAtom
+    from targetdiff_tpu_torch.ops import graph as G
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+    from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
+    from targetdiff_tpu_torch.ops.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    feat = FeaturizeProteinAtom()
+    tb, tmodel, *_ = cs.train_setup(torch, dev, feat.feature_dim)
+    rn = tmodel.net.refine_net
+    with torch.no_grad():
+        h, x, node_mask, mlig = tmodel.net.embed(*tb)
+        nbh = G.knn_graph(x, node_mask, cs.K)
+        e_w = rn.edge_weights(x, nbh)[..., 0]
+        x2h, h2x = kblock.pack_pass_params(rn)
+        hck, xck = kblock.block_denoiser_train_cuda(rn, h, x, nbh, mlig, e_w, cs.MAX_LIGAND,
+                                                    x2h, h2x)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    gh = torch.randn(h.shape, generator=gen, device=dev)
+    gx = torch.randn(x.shape, generator=gen, device=dev)
+
+    def bwd():
+        return kvjp.block_bwd_cuda(hck, xck, nbh.idx, nbh.mask, mlig, e_w, cs.MAX_LIGAND, x2h,
+                                   h2x, gh, gx)
+
+    L = cs.FLAGSHIP["num_layers"]
+    out = {"variant": name, "block_bwd_b32_ms": cs.cuda_ms(torch, bwd, reps=5)}
+    for key, ms in cs.bwd_device_ms(torch, "b32", bwd, calls=5).items():
+        out[key.replace("_device_ms", "_device_ms_per_launch")] = ms / L
+    del hck, xck, tb, tmodel, rn, x2h, h2x
+    torch.cuda.empty_cache()
+    if name in ERRORS:
+        data = pdb_to_pocket_data(str(cs.POCKET_PDB), feat)
+        pocket = {"protein_pos": data["protein_pos"],
+                  "protein_feat": data["protein_atom_feature"]}
+        out["margins"] = cs.margins(torch, dev, pocket, feat.feature_dim, check=False)
+    log = (build.build_dir() / "build.log").read_text().splitlines()
+    out["ptxas"] = {k: ptxas(log, f"edge_bwd_kernelILb{b}E") for k, b in (("x2h", 0), ("h2x", 1))}
+    return out
+
+
+def main(argv) -> int:
+    if argv[:1] == ["--measure"]:
+        print(json.dumps(measure(Path(argv[1]), argv[2])), flush=True)
+        return 0
+    base = REPO
+    if argv[:1] == ["--base"]:
+        base, argv = Path(argv[1]).resolve(), argv[2:]
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("edge_bwd_variants needs a CUDA device")
+    names = argv or list(VARIANTS)
+    if any(n not in VARIANTS for n in names):
+        raise SystemExit(f"variants: {', '.join(VARIANTS)}")
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+
+    print(cs.card_name(), json.dumps({"base": str(base)}), flush=True)
+    root = Path(tempfile.mkdtemp(prefix="edge_bwd_variants_"))
+    try:
+        order = ["kernel", *[n for n in names if n != "kernel"], "kernel"]
+        copies = {n: make_copy(base, root, n) for n in dict.fromkeys(order)}
+        builds = [subprocess.Popen(
+            [sys.executable, "-c", "from targetdiff_tpu_torch.ops.kernels import build; "
+             "build.load_library()"], cwd=c) for c in copies.values()]
+        if any(b.wait() for b in builds):
+            raise RuntimeError("a variant failed to build")
+        for n in order:
+            subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure",
+                            str(copies[n]), n], check=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

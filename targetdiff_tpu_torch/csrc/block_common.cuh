@@ -3,8 +3,8 @@
 // and of their backward (pass_bwd.cuh): the released TargetDiff widths, the
 // packed weights of one layer's pass, and the device code the backward
 // recomputes the forward with (per-edge geometry, the edge MLPs' first layer
-// and LayerNorm, the second layers, the attention logits and the masked
-// softmax over a row's edges).
+// and LayerNorm, the attention logits and the masked softmax over a row's
+// edges; its second layers run on tc_common.cuh's products).
 //
 // A destination row's K edges are processed in chunks of KC = 32: one chunk
 // of edges lives in shared memory and registers at a time, so any K up to
@@ -215,24 +215,6 @@ __device__ __forceinline__ bool edge_chunk(EdgeGeometry& g, float (*z)[H2], floa
   ln_relu_edges(z, p.kv_ln, n, zhat, rstd, t);
   __syncthreads();
   return true;
-}
-
-// Second layer of one output channel cc for all KC edge slots:
-// out[e] = bias + sum_m a[e][zoff + m] W[m][cc] (W is [H][ldw]).
-__device__ __forceinline__ void second_layer(float (&out)[KC], const float (*a)[H2], int zoff,
-                                             const float* __restrict__ W, int ldw, float bias,
-                                             int cc) {
-#pragma unroll
-  for (int e = 0; e < KC; ++e) out[e] = bias;
-  for (int m = 0; m < H; m += 4) {
-    const float w0 = W[(m + 0) * ldw + cc], w1 = W[(m + 1) * ldw + cc],
-                w2 = W[(m + 2) * ldw + cc], w3 = W[(m + 3) * ldw + cc];
-#pragma unroll
-    for (int e = 0; e < KC; ++e) {
-      const float4 z4 = *reinterpret_cast<const float4*>(&a[e][zoff + m]);
-      out[e] += z4.x * w0 + z4.y * w1 + z4.z * w2 + z4.w * w3;
-    }
-  }
 }
 
 // Attention logits of one chunk for a k-channel thread (threads [0, H),

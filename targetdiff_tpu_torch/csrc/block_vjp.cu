@@ -14,8 +14,11 @@
 // What bounds it: per layer and complex the x2h pass recomputes both
 // 128x128 second layers per edge, multiplies their output gradients back
 // through them, and forms the weight gradients A^T dY over all edges: about
-// N*K*128k multiply-adds, ~1 TFLOP per step at B=32, N=416, K=32, L=9. All
-// of it runs on the float32 CUDA cores; operands come from shared memory.
+// N*K*128k multiply-adds, ~1 TFLOP per step at B=32, N=416, K=32, L=9. The
+// recompute and the weight gradients run on the tensor cores, the
+// transposed second layers and the rest on the float32 pipes; with one
+// block per destination row the second layers wait on their weights, 128 KB
+// per 32-edge chunk from L2 (PERF.md).
 //
 // Design: per layer l = L-1 .. 0, first the h2x pass (ligand-tail rows,
 // h = hck[l+1], x = xck[l]) then the x2h pass (all rows, h = hck[l]), each

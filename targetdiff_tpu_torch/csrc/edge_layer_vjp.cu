@@ -12,8 +12,9 @@
 //
 // What bounds it: per live edge the x2h backward recomputes both 128x128
 // second layers, multiplies their output gradients back through them and
-// forms the weight gradients A^T dY (~230k FLOP per edge, float32 CUDA
-// cores); the h2x one about two thirds of that. Device memory carries the
+// forms the weight gradients A^T dY (~230k FLOP per edge; the recompute
+// and the weight gradients on the tensor cores, the rest on the float32
+// pipes); the h2x one about two thirds of that. Device memory carries the
 // per-edge rows between the edge kernel and the weight-gradient products.
 //
 // Design: one run_pass of pass_bwd.cuh, shared with the whole-block

@@ -7,6 +7,10 @@
 //   node_kernel     (node_proj.cuh) recomputes the per-node projections ni,
 //                   nj, q (and q's first-layer output q1) of the pass on
 //                   every row.
+//   stage_w2_kernel stages the pass's second layers w2k, w2v times 2^8 as
+//                   fp16 (hi, lo) mma B fragments in the workspace
+//                   (tc_common.cuh: stage_frags), 64 KB each, read by every
+//                   edge_bwd_kernel block from L2.
 //   edge_bwd_kernel one block per destination row. Pass 1 walks the row's
 //                   edges in chunks of 32, recomputing the forward (geometry,
 //                   first layer, LayerNorm, second layers) for the logits
@@ -16,8 +20,12 @@
 //                   weights), LayerNorm+ReLU, the RBF table and the
 //                   geometry. With one chunk (K <= 32) pass 2 reuses pass 1's
 //                   activations; with more it recomputes the chunk and its
-//                   k. It writes per-row sums (the destination projection's
-//                   gradient, dq, bias and LayerNorm partials) to a row
+//                   k. The recompute's second layers run on the tensor
+//                   cores (second_layers: three fp16 products per term,
+//                   float32-grade, as in the forward kernels), the rest on
+//                   the float32 pipes. It writes per-row sums (the
+//                   destination projection's gradient, dq, bias and
+//                   LayerNorm partials) to a row
 //                   buffer, and per-edge rows (post-LN activations, their
 //                   output gradients, the first layer's gradient dz, the
 //                   edge-feature row and d rel) for the passes below; d e_w
@@ -40,6 +48,7 @@
 
 #include "block_common.cuh"
 #include "node_proj.cuh"
+#include "tc_common.cuh"
 #include "weight_grad.cuh"
 
 // Gradient outputs of one layer's pass, laid out as PassParams; tab is the
@@ -70,6 +79,12 @@ namespace {
 
 constexpr int FE = 4 * R + 4;   // edge-feature row: rbf x type | type
 constexpr int kAdjMaxN = 4096;  // nodes per complex for adj_kernel
+constexpr int kW2Frags = kKSteps * kNTiles * 32;  // uint4 B fragments of a staged 128x128 weight
+constexpr int kLdc = H2 + 8;    // padded row of the products' k|v output: conflict-free C stores
+// floats of edge_bwd_kernel's third chunk buffer: dk|dv then dz [KC][2H], or
+// the recompute's split activations [2][KC][kLdz], then its output [KC][kLdc]
+constexpr int kChunkBuf = 2 * KC * kLdz;
+static_assert(kChunkBuf >= KC * kLdc && kChunkBuf >= KC * H2, "third chunk buffer too small");
 
 // Row-buffer layout of one pass (V = value width): per node
 // [dproj 5H | kv_ln scale 2H, bias 2H | b2k H, b2v V | dq H | q_ln scale H, bias H].
@@ -95,13 +110,94 @@ struct EdgeBwdArgs {
   float* dZ;        // [Ep][2H] gradients of the first layer's output
   float* F;         // [Ep][FE] edge-feature rows
   float* drel;      // [Ep][3]
+  const uint4* w2kf;  // w2k, w2v as staged by stage_w2_kernel
+  const uint4* w2vf;
 };
 
-// Dynamic shared memory of edge_bwd_kernel: three [KC][2H] chunk buffers,
-// then per edge of the row alpha and P (and, for h2x, v) [KP][NH], e_w and
-// the h2x gate [KP], KP = K rounded up to chunks.
+// Dynamic shared memory of edge_bwd_kernel: two [KC][2H] chunk buffers and
+// a third of kChunkBuf floats, then per edge of the row alpha and P (and,
+// for h2x, v) [KP][NH], e_w and the h2x gate [KP], KP = K rounded up to
+// chunks.
 __host__ __device__ constexpr int bwd_smem(int K, bool h2x) {
-  return (3 * KC * H2 + (K + KC - 1) / KC * KC * (NH * (h2x ? 3 : 2) + 2)) * (int)sizeof(float);
+  return (2 * KC * H2 + kChunkBuf + (K + KC - 1) / KC * KC * (NH * (h2x ? 3 : 2) + 2)) *
+         (int)sizeof(float);
+}
+
+// Both second layers of a pass times kWScale as mma B fragments in global
+// memory (stage_frags' layout): wk [kKSteps][kNTiles][32], wv
+// [kKSteps][V / 8][32].
+__global__ void __launch_bounds__(kThreads)
+stage_w2_kernel(PassParams p, int V, uint4* __restrict__ wk, uint4* __restrict__ wv) {
+  const int t = blockIdx.x * kThreads + threadIdx.x, n = gridDim.x * kThreads;
+  stage_frags(wk, p.w2k, H, kNTiles, t, n);
+  stage_frags(wv, p.w2v, V, V / 8, t, n);
+}
+
+// The chunk's second layers on the tensor cores, block-wide, ending at a
+// barrier: out[e] = b[cc] + sum_m a[e][half H + m] W[m][cc] for every slot e,
+// in thread t = half H + cc (k: threads [0, H), v: [H, H + V)), for the
+// halves below `halves` (1: k only, 2: k and v). The float32 activations a
+// stay as they are (the A rows); their fp16 (hi, lo) column pairs go to buf
+// (row stride kLdz). Warp w runs the 32 x 32 tile of half w / 4, channels
+// 32 (w % 4) .. (h2x's 16-wide v: warp 4 alone, two n-tiles), three fp16
+// products per term on the staged fragments wk, wv (tile_mma), as the
+// forward kernels compute k and v; the C fragments return through buf (row
+// stride kLdc) to each channel's thread (every thread's out is written: a
+// thread past the computed halves gets stale words it does not read). Every
+// sum has a fixed order.
+template <int V>
+__device__ __forceinline__ void second_layers(float (&out)[KC], const float (*a)[H2], float* buf,
+                                              const uint4* wk, const uint4* wv,
+                                              const PassParams& p, int halves, int t) {
+  constexpr int kVT = V < 32 ? V / 8 : 4;  // n-tiles of a v warp's tile
+  const int warp = t >> 5, lane = t & 31, g = lane >> 2, tig = lane & 3;
+  for (int pr = warp; pr < halves * KC; pr += kThreads / 32) {  // (half, slot) rows
+    const int half = pr / KC, e = pr % KC;
+    float v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = a[e][half * H + lane + 32 * q];
+    store_split_row(reinterpret_cast<uint32_t*>(buf + pr * kLdz), v, lane);
+  }
+  __syncthreads();
+  const int half = warp >> 2, qd = warp & 3;
+  const bool mine = half < halves && 32 * qd < (half ? V : H);
+  const int nts = half ? kVT : 4;
+  float acc[2][4][4];
+  if (mine) {
+    const float* bias = (half ? p.b2v : p.b2k) + 32 * qd + 2 * tig;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      if (nt >= nts) continue;
+      const float b0 = kWScale * bias[8 * nt], b1 = kWScale * bias[8 * nt + 1];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        acc[mt][nt][0] = acc[mt][nt][2] = b0;
+        acc[mt][nt][1] = acc[mt][nt][3] = b1;
+      }
+    }
+    const float* as = buf + half * KC * kLdz;
+    if (half) tile_mma<kVT>(acc, as, wv + 4 * qd * 32, V / 8, lane);
+    else tile_mma(acc, as, wk + 4 * qd * 32, kNTiles, lane);
+  }
+  __syncthreads();  // every tile has read the split activations
+  if (mine) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      if (nt >= nts) continue;
+      const int col = half * H + 32 * qd + 8 * nt + 2 * tig;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          *reinterpret_cast<float2*>(buf + (16 * mt + 8 * hf + g) * kLdc + col) =
+              make_float2(acc[mt][nt][2 * hf] * (1.f / kWScale),
+                          acc[mt][nt][2 * hf + 1] * (1.f / kWScale));
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < KC; ++e) out[e] = buf[e * kLdc + t];
+  __syncthreads();  // buf is free again
 }
 
 template <bool kH2X>
@@ -113,8 +209,9 @@ __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
   extern __shared__ __align__(16) float smem[];
   float(*s_a)[H2] = reinterpret_cast<float(*)[H2]>(smem);               // a, then da, then dy
   float(*s_zh)[H2] = reinterpret_cast<float(*)[H2]>(smem + KC * H2);     // normalised z
-  float(*s_d)[H2] = reinterpret_cast<float(*)[H2]>(smem + 2 * KC * H2);  // dk|dv, then dz
-  float(*s_alpha)[NH] = reinterpret_cast<float(*)[NH]>(smem + 3 * KC * H2);  // logits, alpha
+  float* s_buf = smem + 2 * KC * H2;                                      // second_layers' operands
+  float(*s_d)[H2] = reinterpret_cast<float(*)[H2]>(s_buf);               // dk|dv, then dz
+  float(*s_alpha)[NH] = reinterpret_cast<float(*)[NH]>(s_buf + kChunkBuf);  // logits, alpha
   float(*s_P)[NH] = s_alpha + KP;  // d alpha = e_w * P, d e_w = sum_h alpha P
   float(*s_v)[NH] = s_P + KP;      // h2x: the values
   float* s_w = reinterpret_cast<float*>(s_P + KP) + (kH2X ? KP * NH : 0);  // e_w
@@ -135,7 +232,6 @@ __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
   float* rb = a.rowbuf + bn * W;
   const bool is_k = t < H;
   const int cc = is_k ? t : t - H;
-  const bool active = is_k || cc < V;
   const float qc = is_k ? a.q[bn * H + cc] : 0.f;
   const float gc = (!kH2X && !is_k) ? a.dh[bn * H + cc] : 0.f;
   if (kH2X && t < 3) s_gx[t] = a.in.mlig[bn] ? a.dx[3 * bn + t] : 0.f;
@@ -149,10 +245,7 @@ __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
     if (c == 0) live0 = live;
     if (t < KC) s_w[e0 + t] = s_g.w[t];
     if (live) {
-      if (active) {
-        if (is_k) second_layer(acc, s_a, 0, p.w2k, H, p.b2k[cc], cc);
-        else second_layer(acc, s_a, H, p.w2v, V, p.b2v[cc], cc);
-      }
+      second_layers<V>(acc, s_a, s_buf, a.w2kf, a.w2vf, p, 2, t);
       if (is_k) {
         head_logits(acc, qc, s_g.valid, s_alpha + e0, cc);
       } else if (!kH2X) {  // value channel cc, warps 4-7; heads are 8-lane groups
@@ -215,7 +308,7 @@ __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
     bool live = live0;
     if (nchunk > 1) {
       live = edge_chunk(s_g, s_a, s_zh, s_rstd, a.in, p, b, bn, N, K, e0, t);
-      if (live && is_k) second_layer(acc, s_a, 0, p.w2k, H, p.b2k[cc], cc);
+      if (live) second_layers<V>(acc, s_a, s_buf, a.w2kf, a.w2vf, p, 1, t);
     }
     if (!live) {  // zero gradient: zero rows for the products below
       for (int u = t; u < n * H2; u += kThreads) {
@@ -582,6 +675,7 @@ int colsum(const float* Y, int ldy, long long M, int Q, float* out, float* parti
 
 struct Workspace {
   float *ni, *nj, *q, *q1, *qa, *rowbuf, *A, *dKV, *dZ, *F, *drel, *vec, *partial;
+  uint4* w2f;  // stage_w2_kernel's fragments: w2k, then w2v
   int *off_x, *list_x, *off_h, *list_h;
 };
 
@@ -607,6 +701,7 @@ void carve(float* w, int* iw, long long B, long long N, long long K, long long n
   ws->drel = take(Ep * 3);
   ws->vec = take(row_width(H));
   ws->partial = take(kPartialCap);
+  ws->w2f = reinterpret_cast<uint4*>(take(2 * kW2Frags * 4));
   *floats = o;
   long long io = 0;
   auto itake = [&](long long n) {
@@ -633,11 +728,14 @@ int run_pass(const float* h, const EdgeInputs& in0, const PassParams& p, const P
   if (err) return err;
   if ((err = launch_node(h, 1, (int)BN, 0, p, ws.ni, ws.nj, ws.q, ws.q1, s))) return err;
 
+  stage_w2_kernel<<<kW2Frags / kThreads, kThreads, 0, s>>>(p, V, ws.w2f, ws.w2f + kW2Frags);
+  if ((err = (int)cudaGetLastError())) return err;
+
   EdgeInputs in = in0;
   in.ni = ws.ni;
   in.nj = ws.nj;
   EdgeBwdArgs a{h, in, ws.q, p, pt, N, K, row0, dh, dx, dew, ws.rowbuf, ws.A, ws.dKV, ws.dZ,
-                ws.F, ws.drel};
+                ws.F, ws.drel, ws.w2f, ws.w2f + kW2Frags};
   // the largest dynamic shared memory any K takes, set once per process (one device)
   static const int attr = (int)cudaFuncSetAttribute(
       edge_bwd_kernel<kH2X>, cudaFuncAttributeMaxDynamicSharedMemorySize,

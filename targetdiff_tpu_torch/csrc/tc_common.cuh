@@ -1,6 +1,7 @@
-// Tensor-core pieces shared by the Hopper (sm_90a) forward kernels: the node
-// projections (node_proj.cuh) and the x2h and h2x edge passes (x2h_edge.cuh,
-// h2x_edge.cuh).
+// Tensor-core pieces shared by the Hopper (sm_90a) kernels: the node
+// projections (node_proj.cuh), the x2h and h2x edge passes (x2h_edge.cuh,
+// h2x_edge.cuh) and the backward's recompute of their second layers
+// (pass_bwd.cuh).
 //
 // Products. Every bar the port is held to is float32, so each dense product
 // runs as three fp16 mma.sync.m16n8k16 products, lo*hi + hi*lo + hi*hi
@@ -138,12 +139,14 @@ __device__ __forceinline__ void ln_split_rows(float* z, int r0, int rstep,
   }
 }
 
-// acc += a (W kWScale) for a warp's 32 x 32 tile of a 128-deep product, three
-// fp16 products (small terms first). a: 32 rows of (hi, lo) column pairs,
-// row stride kLdz; w: the staged fragments of the tile's four n-tiles,
-// w + (ks * ldn + nt) * 32 for n-tile nt of k-step ks. C fragment: acc[mt][nt]
-// holds rows 16 mt + g (0, 1) and 16 mt + g + 8 (2, 3), columns
-// 8 nt + 2 tig (+1).
+// acc += a (W kWScale) for a warp's 32 x 8 NT tile of a 128-deep product,
+// three fp16 products (small terms first). a: 32 rows of (hi, lo) column
+// pairs, row stride kLdz; w: the staged fragments of the tile's NT n-tiles
+// (in shared or global memory), w + (ks * ldn + nt) * 32 for n-tile nt of
+// k-step ks. C fragment: acc[mt][nt] holds rows 16 mt + g (0, 1) and
+// 16 mt + g + 8 (2, 3), columns 8 nt + 2 tig (+1); n-tiles from NT on are
+// left as they are.
+template <int NT = 4>
 __device__ __forceinline__ void tile_mma(float (&acc)[2][4][4], const float* a, const uint4* w,
                                          int ldn, int lane) {
   const int g = lane >> 2, tig = lane & 3;
@@ -160,7 +163,7 @@ __device__ __forceinline__ void tile_mma(float (&acc)[2][4][4], const float* a, 
         alo[mt][f] = pr.y;
       }
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
+    for (int nt = 0; nt < NT; ++nt) {
       const uint4 wf = w[(ks * ldn + nt) * 32 + lane];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {

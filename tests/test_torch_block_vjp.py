@@ -1,6 +1,12 @@
 """The training slice's block, on the CPU: the block-VJP kernel's algorithm
 (csrc/block_vjp.cu), replayed by hand in PyTorch on the packed weights and
-held against autograd of the plain block; the train-mode forward's
+held against autograd of the plain block; the same replay with the
+recompute's k and v second layers as the kernel computes them (three fp16
+products per term, split3_matmul), on kNN and hybrid graphs of K = 8, 15
+and 40 (two 32-slot chunks: the kernel's pass 2 recomputes k), against
+autograd of the plain block at the float32-grade bar and, as the block's
+backward inside the loss, against the JAX XLA loss's gradients, while one
+fp16 product per term misses that bar; the train-mode forward's
 checkpoints against the JAX megakernel in interpret mode; and the port's
 loss and every parameter gradient against jax.value_and_grad of the JAX
 XLA loss, with the JAX draws injected."""
@@ -15,8 +21,12 @@ import torch
 import torch.nn.functional as F
 
 from targetdiff_tpu.models.fast_forward import extract_block_params
+from targetdiff_tpu.models.score_model import DiffusionModel as JaxDiffusionModel
 from targetdiff_tpu.ops.pallas.block_denoiser import block_denoiser as jax_block_denoiser
 from targetdiff_tpu.ops.rbf import gaussian_smearing_offsets as jax_offsets
+from targetdiff_tpu_torch.data.batch import from_numpy
+from targetdiff_tpu_torch.models import fast_forward
+from targetdiff_tpu_torch.models.score_model import DiffusionModel
 from targetdiff_tpu_torch.ops import graph as G
 from targetdiff_tpu_torch.ops.kernels.block_denoiser import (
     block_denoiser_train_plain,
@@ -25,8 +35,10 @@ from targetdiff_tpu_torch.ops.kernels.block_denoiser import (
 from targetdiff_tpu_torch.ops.kernels.block_vjp import FIELDS, block_layers_trainable
 from targetdiff_tpu_torch.ops.rbf import gaussian_smearing, gaussian_smearing_offsets
 from targetdiff_tpu_torch.utils.port import flax_params_to_state_dict
+from tests.test_fast_forward import NUM_CLASSES, PROTEIN_DIM, batch_mult8, small_flagship
 from tests.test_torch_block import _block_inputs
 from tests.test_torch_score_model import small_setup
+from tests.test_torch_x2h_edge import W_SCALE, f16, split3_matmul
 
 torch.set_num_threads(2)
 
@@ -43,9 +55,11 @@ def _ln(z, eps=1e-5):
     return (z - mu) * rstd, rstd
 
 
-def _pass_bwd(P, l, h, x, idx, nmask, mlig, e_w, row0, h2x, dh, dx, dew, grads, n_heads):
+def _pass_bwd(P, l, h, x, idx, nmask, mlig, e_w, row0, h2x, dh, dx, dew, grads, n_heads,
+              matmul=torch.matmul):
     """One pass of layer l, as edge_bwd_kernel + gather_kernel +
-    node_bwd_kernel + the weight-gradient reductions compute it."""
+    node_bwd_kernel + the weight-gradient reductions compute it; the
+    recompute's k and v second layers through `matmul`."""
     B, N, H = h.shape
     NH, DH = n_heads, H // n_heads
     offsets, coeff = gaussian_smearing_offsets()
@@ -74,8 +88,8 @@ def _pass_bwd(P, l, h, x, idx, nmask, mlig, e_w, row0, h2x, dh, dx, dew, grads, 
     kvs, kvb = w["kv_ln"]
     y_k, y_v = zh_k * kvs[:H] + kvb[:H], zh_v * kvs[H:] + kvb[H:]
     a_k, a_v = y_k.relu(), y_v.relu()
-    k = a_k @ w["w2k"] + w["b2k"]
-    v = a_v @ w["w2v"] + w["b2v"]
+    k = matmul(a_k, w["w2k"]) + w["b2k"]
+    v = matmul(a_v, w["w2v"]) + w["b2v"]
     logits = (q[:, rows, None] * k).reshape(*k.shape[:3], NH, DH).sum(-1) / math.sqrt(DH)
     logits = torch.where(valid[..., None], logits, torch.full((), -1e30))
     unnorm = torch.where(valid[..., None], torch.exp(logits - logits.amax(2, keepdim=True)), 0.0)
@@ -138,20 +152,21 @@ def _pass_bwd(P, l, h, x, idx, nmask, mlig, e_w, row0, h2x, dh, dx, dew, grads, 
 
 
 @torch.no_grad()
-def replay_block_bwd(x2h, h2x, hck, xck, nbh, mlig, e_w, n_ligand, gh, gx, n_heads):
+def replay_block_bwd(x2h, h2x, hck, xck, nbh, mlig, e_w, n_ligand, gh, gx, n_heads,
+                     matmul=torch.matmul):
     """The backward kernel's algorithm: layers L-1..0, h2x pass on the
     ligand tail from hck[l+1], then x2h on every row from hck[l] (hck
-    [L+1,B,N,H], xck [L+1,B,N,3]). Returns (dh0, dx0, de_w, x2h grads, h2x
-    grads)."""
+    [L+1,B,N,H], xck [L+1,B,N,3]), the recompute's second layers through
+    `matmul`. Returns (dh0, dx0, de_w, x2h grads, h2x grads)."""
     L, N = hck.shape[0] - 1, hck.shape[2]
     dh, dx, dew = gh.clone(), gx.clone(), torch.zeros_like(e_w)
     gx2h = {f: torch.zeros_like(x2h[f]) for f in FIELDS}
     gh2x = {f: torch.zeros_like(h2x[f]) for f in FIELDS}
     for l in reversed(range(L)):
         _pass_bwd(h2x, l, hck[l + 1], xck[l], nbh.idx, nbh.mask, mlig, e_w, N - n_ligand,
-                  True, dh, dx, dew, gh2x, n_heads)
+                  True, dh, dx, dew, gh2x, n_heads, matmul)
         _pass_bwd(x2h, l, hck[l], xck[l], nbh.idx, nbh.mask, mlig, e_w, 0, False, dh, dx,
-                  dew, gx2h, n_heads)
+                  dew, gx2h, n_heads, matmul)
     return dh, dx, dew, gx2h, gh2x
 
 
@@ -174,30 +189,35 @@ def _close(got, want, name, atol_scale=1e-5, rtol=1e-4):
     np.testing.assert_allclose(got, want, atol=atol_scale * scale, rtol=rtol, err_msg=name)
 
 
-def test_backward_replay_matches_autograd_of_plain_block():
-    cfg, _, model, rn, h, x, mlig, nbh, e_w, gh, gx, _ = _train_inputs()
-    NL = model.max_ligand
-    # autograd of the plain block
+def _replay_and_autograd(model, rn, h, x, mlig, nbh, e_w, gh, gx, n_heads,
+                         matmul=torch.matmul):
+    """(replay, autograd): dh0, dx0, de_w and every parameter gradient of the
+    block for the output cotangents (gh, gx), from `replay_block_bwd` (its
+    recompute through `matmul`) on the packed weights and the train-mode
+    checkpoints, and from autograd of the plain block."""
     h_leaf, x_leaf, ew_leaf = (t.clone().requires_grad_() for t in (h, x, e_w))
     model.net.zero_grad()
     h_out, x_out = rn.block_forward(h_leaf, x_leaf, nbh, mlig, e_w=ew_leaf)
     ((h_out * gh).sum() + (x_out * gx).sum()).backward()
     want = {n: p.grad.clone() for n, p in rn.named_parameters() if p.grad is not None}
-    # the replay on the packed weights, from the train-mode checkpoints
+    want.update(dh0=h_leaf.grad, dx0=x_leaf.grad, de_w=ew_leaf.grad)
     x2h, h2x = pack_pass_params(rn)
     hck, xck = block_denoiser_train_plain(rn, h, x, nbh, mlig, e_w)
     dh0, dx0, dew, gx2h, gh2x = replay_block_bwd(
         {f: t.detach() for f, t in x2h.items()}, {f: t.detach() for f, t in h2x.items()},
-        hck, xck, nbh, mlig, e_w, NL, gh, gx, cfg.n_heads)
-    _close(dh0, h_leaf.grad, "dh0")
-    _close(dx0, x_leaf.grad, "dx0")
-    _close(dew, ew_leaf.grad, "de_w")
+        hck, xck, nbh, mlig, e_w, model.max_ligand, gh, gx, n_heads, matmul)
     # every packed gradient, carried to the parameters by the packing's backward
     model.net.zero_grad()
     torch.autograd.backward([x2h[f] for f in FIELDS] + [h2x[f] for f in FIELDS],
                             [gx2h[f] for f in FIELDS] + [gh2x[f] for f in FIELDS])
-    got = {n: p.grad for n, p in rn.named_parameters() if p.grad is not None}
-    assert sorted(got) == sorted(want) and len(got) == 36 * cfg.num_layers
+    got = {n: p.grad.clone() for n, p in rn.named_parameters() if p.grad is not None}
+    got.update(dh0=dh0, dx0=dx0, de_w=dew)
+    return got, want
+
+
+def _hold_replay(got, want, n_params):
+    """Every gradient of the replay within `_close` of autograd's."""
+    assert sorted(got) == sorted(want) and len(got) == n_params + 3
     top = max(float(g.abs().max()) for g in want.values())
     for name in want:
         if name.endswith("k_func.net.3.bias"):
@@ -207,6 +227,147 @@ def test_backward_replay_matches_autograd_of_plain_block():
             assert float(want[name].abs().max()) < 1e-6 * top, name
         else:
             _close(got[name], want[name], name)
+
+
+def test_backward_replay_matches_autograd_of_plain_block():
+    cfg, _, model, rn, h, x, mlig, nbh, e_w, gh, gx, _ = _train_inputs()
+    got, want = _replay_and_autograd(model, rn, h, x, mlig, nbh, e_w, gh, gx, cfg.n_heads)
+    _hold_replay(got, want, 36 * cfg.num_layers)
+
+
+# The recompute's second layers as the kernel computes them (csrc/pass_bwd.cuh
+# second_layers): three fp16 products per term, weights times 2^8. Cases:
+# cutoff mode, knn, protein slots, ligand slots; K = knn (kNN) or ligand
+# slots - 1 + knn (hybrid). K = 40 is two chunks of 32: the kernel's pass 2
+# recomputes k (the replay's chunks give the same values).
+SPLIT_CASES = {"knn_K8": ("knn", 8, 16, 8), "knn_K40": ("knn", 40, 40, 8),
+               "hybrid_K15": ("hybrid", 8, 16, 8), "hybrid_K40": ("hybrid", 8, 16, 33)}
+
+
+def _split_setup(cutoff_mode, knn, n_protein, n_ligand):
+    """A small flagship model (H=32, 4 heads, L=2) of the case with its JAX
+    twin (same parameters) and batch_mult8's batch at these slots; the
+    block's inputs (h, x, graph, e_w) and output cotangents from numpy seeds."""
+    cfg = small_flagship()
+    cfg.update(dict(cutoff_mode=cutoff_mode, knn=knn))
+    jbatch = batch_mult8(NP_=n_protein, NL=n_ligand)
+    jmodel = JaxDiffusionModel(cfg, PROTEIN_DIM, NUM_CLASSES, max_protein=n_protein,
+                               max_ligand=n_ligand)
+    params = jmodel.init(jax.random.PRNGKey(0), jbatch)
+    model = DiffusionModel(cfg, PROTEIN_DIM, NUM_CLASSES, device="cpu", max_protein=n_protein,
+                           max_ligand=n_ligand)
+    model.net.load_state_dict(flax_params_to_state_dict(jax.device_get(params)))
+    batch = from_numpy(*[np.asarray(a) for a in jbatch])
+    rn = model.net.refine_net
+    rng = np.random.default_rng(13)
+    with torch.no_grad():
+        _, x, node_mask, mlig = model.net.embed(*batch)
+        h = torch.from_numpy(rng.normal(size=(*x.shape[:2], cfg.hidden_dim)).astype(np.float32))
+        nbh = rn.graph(x, node_mask, mlig)
+        e_w = rn.edge_weights(x, nbh)[..., 0]
+    gh = torch.from_numpy(rng.normal(size=h.shape).astype(np.float32))
+    gx = torch.from_numpy(rng.normal(size=x.shape).astype(np.float32))
+    assert nbh.idx.shape[-1] == rn.num_neighbors()
+    return cfg, jmodel, params, jbatch, model, batch, rn, h, x, mlig, nbh, e_w, gh, gx
+
+
+def _worst_over_scale(got, want):
+    """The largest |got - want| / max|want| over the tensors (the k biases,
+    zero in exact arithmetic, left out)."""
+    return max(float((got[n] - w).abs().max()) / max(float(w.abs().max()), 1e-6)
+               for n, w in want.items() if not n.endswith("k_func.net.3.bias"))
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split3_backward_replay_matches_autograd_of_plain_block(case):
+    """The kernel's algorithm with its three-term fp16 recompute holds the
+    float32-grade bar of the float32 replay (`_close`: 1e-5 of each tensor's
+    scale, rtol 1e-4) against autograd of the plain block."""
+    cfg, _, _, _, model, _, rn, h, x, mlig, nbh, e_w, gh, gx = _split_setup(*SPLIT_CASES[case])
+    got, want = _replay_and_autograd(model, rn, h, x, mlig, nbh, e_w, gh, gx, cfg.n_heads,
+                                     split3_matmul)
+    _hold_replay(got, want, 36 * cfg.num_layers)
+
+
+def test_one_fp16_product_backward_replay_misses_the_bar():
+    """One fp16 product per term (weights times 2^8) in the recompute lands
+    well outside the bar the three-term replay holds."""
+    def single(a, w):
+        return f16(a) @ f16(w * W_SCALE) / W_SCALE
+
+    cfg, _, _, _, model, _, rn, h, x, mlig, nbh, e_w, gh, gx = _split_setup(
+        *SPLIT_CASES["knn_K40"])
+    three, want = _replay_and_autograd(model, rn, h, x, mlig, nbh, e_w, gh, gx, cfg.n_heads,
+                                       split3_matmul)
+    one, _ = _replay_and_autograd(model, rn, h, x, mlig, nbh, e_w, gh, gx, cfg.n_heads, single)
+    assert _worst_over_scale(three, want) < 1e-5
+    assert _worst_over_scale(one, want) > 10 * 1e-5
+    with pytest.raises(AssertionError):
+        _hold_replay(one, want, 36 * cfg.num_layers)
+
+
+class _SplitReplayBlock(torch.autograd.Function):
+    """The block on the CPU: the plain train-mode forward, and as backward
+    the kernel's algorithm with the three-term fp16 recompute
+    (`replay_block_bwd`), returning the packed weights' gradients as
+    `_BlockLayers` does."""
+
+    @staticmethod
+    def forward(ctx, h, x, e_w, refine_net, nbh, mlig, n_ligand, n_heads, *flat):
+        hck, xck = block_denoiser_train_plain(refine_net, h, x, nbh, mlig, e_w)
+        ctx.save_for_backward(hck, xck, e_w, mlig, *flat)
+        ctx.nbh, ctx.n_ligand, ctx.n_heads = nbh, n_ligand, n_heads
+        return hck[-1].clone(), xck[-1].clone()
+
+    @staticmethod
+    def backward(ctx, gh, gx):
+        hck, xck, e_w, mlig, *flat = ctx.saved_tensors
+        n = len(FIELDS)
+        x2h, h2x = dict(zip(FIELDS, flat[:n])), dict(zip(FIELDS, flat[n:]))
+        dh0, dx0, dew, gx2h, gh2x = replay_block_bwd(x2h, h2x, hck, xck, ctx.nbh, mlig, e_w,
+                                                     ctx.n_ligand, gh, gx, ctx.n_heads,
+                                                     split3_matmul)
+        return (dh0, dx0, dew, None, None, None, None, None,
+                *[gx2h[f] for f in FIELDS], *[gh2x[f] for f in FIELDS])
+
+
+@pytest.mark.parametrize("case", ["knn_K8", "hybrid_K40"])
+def test_split3_backward_replay_loss_and_grads_match_jax_xla(case, monkeypatch):
+    """The loss's gradients with the split3 replay as the whole block's
+    backward (any K) against jax.value_and_grad of the JAX XLA loss, held as
+    `test_loss_and_grads_match_jax_xla` holds the port's."""
+    cfg, jmodel, params, jbatch, model, batch, *_ = _split_setup(*SPLIT_CASES[case])
+    calls = []
+
+    def trainable(refine_net, h, x, nbh, mask_ligand, e_w, n_ligand):
+        calls.append(nbh.idx.shape[-1])
+        x2h, h2x = pack_pass_params(refine_net)
+        return _SplitReplayBlock.apply(h, x, e_w, refine_net, nbh, mask_ligand, n_ligand,
+                                       cfg.n_heads, *[x2h[f] for f in FIELDS],
+                                       *[h2x[f] for f in FIELDS])
+
+    monkeypatch.setattr(fast_forward, "block_layers_trainable", trainable)
+    monkeypatch.setattr(fast_forward, "MAX_K", 256)  # K = 40 stays on the whole block
+    key, t = jax.random.PRNGKey(5), np.array([2, 7])
+
+    def loss_fn(p):
+        return jmodel.get_diffusion_loss(p, key, jbatch, time_step=jnp.asarray(t))["loss"]
+
+    la, ga = jax.value_and_grad(loss_fn)(params)
+    eps, u = jax_draws(key, jbatch, jmodel.num_classes)
+    model.net.zero_grad()
+    out = model.get_diffusion_loss(batch, time_step=torch.from_numpy(t), pos_noise=eps,
+                                   v_uniform=u, impl="fast")
+    out["loss"].backward()
+    assert calls == [model.net.refine_net.num_neighbors()]
+    assert abs(float(out["loss"]) - float(la)) / abs(float(la)) < 1e-4
+    want = flax_params_to_state_dict(jax.device_get(ga))
+    got = dict(model.net.named_parameters())
+    assert sorted(got) == sorted(want)
+    for name, a in want.items():
+        a, b = a.numpy(), got[name].grad.numpy()
+        scale = max(np.abs(a).max(), 1e-3)
+        np.testing.assert_allclose(b, a, atol=5e-3 * scale, rtol=5e-3, err_msg=name)
 
 
 def test_train_checkpoints_match_jax_megakernel():

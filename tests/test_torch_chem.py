@@ -1,8 +1,8 @@
 """The port's own copies of the host-side chemistry (PDB and SDF parsing,
 reconstruction, bond orders, the ligand-size prior and their data files)
 against the JAX package's modules they were copied from, and the rule that
-no module of the port, nor chip_smoke.py or weight_grad_variants.py, imports
-the JAX package."""
+no module of the port, nor chip_smoke.py, weight_grad_variants.py or
+edge_bwd_variants.py, imports the JAX package."""
 
 import ast
 import subprocess
@@ -149,5 +149,11 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
 
 def test_weight_grad_variants_imports_neither_jax_nor_the_jax_package():
     roots = _imported_roots("weight_grad_variants.py")
+    assert {"targetdiff_tpu_torch", "chip_smoke"} <= roots
+    assert not roots & {"targetdiff_tpu", "jax", "jaxlib", "flax", "optax"}, roots
+
+
+def test_edge_bwd_variants_imports_neither_jax_nor_the_jax_package():
+    roots = _imported_roots("edge_bwd_variants.py")
     assert {"targetdiff_tpu_torch", "chip_smoke"} <= roots
     assert not roots & {"targetdiff_tpu", "jax", "jaxlib", "flax", "optax"}, roots

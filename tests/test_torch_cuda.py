@@ -5,6 +5,8 @@ unless a CUDA device is present. On a GPU host, run
 `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q`
 (the suite's conftest imports jax, which GPU hosts need not have)."""
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -184,6 +186,84 @@ def test_block_vjp_kernel_matches_autograd(cuda, k, batch_size):
     assert sorted(got) == sorted(want)
     assert all(bool(g.isfinite().all()) for g in got.values())
     grads_close(got, want)
+
+
+def _grads(module, fn, leaves_in, cot):
+    """Every parameter gradient of `module` and of the inputs (d0, d1, d2)
+    for the cotangents `cot` of fn(*leaves)."""
+    leaves = [t.clone().requires_grad_() for t in leaves_in]
+    module.zero_grad(set_to_none=True)
+    out = fn(*leaves)
+    out = out if isinstance(out, tuple) else (out,)
+    sum((o * c).sum() for o, c in zip(out, cot)).backward()
+    grads = {n: p.grad.clone() for n, p in module.named_parameters() if p.grad is not None}
+    grads.update({f"d{i}": t.grad for i, t in enumerate(leaves)})
+    return grads
+
+
+@pytest.mark.parametrize("case", ["block_K32", "x2h_hybrid_K95", "h2x_hybrid_K95"])
+def test_backward_kernels_hold_the_float64_bar_and_repeat(cuda, case):
+    """The block backward (K = 32) and the per-layer backwards on a hybrid
+    graph (K = 95: three chunks, pass 2 recomputes k) against float64
+    autograd of the plain layers at the same inputs (the block: at the
+    kernel's checkpoints), as chip_smoke.py holds them: the median tensor
+    within BWD64_MEDIAN of its scale and, per layer, every tensor within
+    BWD64_BAR or BWD64_F32 times the plain float32 version's own error; two
+    runs bitwise equal."""
+    from chip_smoke import BWD64_BAR, BWD64_F32, BWD64_MEDIAN, block_vjp_chain, tensor_errs
+    from targetdiff_tpu_torch.ops.kernels import block_vjp
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+    from targetdiff_tpu_torch.ops.kernels import edge_layer_vjp as kelv
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    if case == "block_K32":
+        rn, h, x, node_mask, mlig, nbh, e_w = _train_block_setup(cuda, 32, B)
+        cot = (torch.randn(h.shape, generator=gen, device=cuda) * node_mask[..., None],
+               torch.randn(x.shape, generator=gen, device=cuda))
+
+        def kernel(hh, xx, ee):
+            return block_vjp.block_layers_trainable(rn, hh, xx, nbh, mlig, ee, NL)
+
+        with torch.no_grad():
+            x2h, h2x = kblock.pack_pass_params(rn)
+            hck, xck = kblock.block_denoiser_train_cuda(rn, h, x, nbh, mlig, e_w, NL, x2h, h2x)
+        plain32 = block_vjp_chain(torch, rn, hck, xck, nbh, mlig, e_w, *cot)
+        want64 = block_vjp_chain(torch, copy.deepcopy(rn).double(), hck.double(), xck.double(),
+                                 nbh, mlig, e_w.double(), *[c.double() for c in cot])
+        names = {"dh0": "d0", "dx0": "d1", "de_w": "d2"}
+        plain32, want64 = ({names.get(n, n): t for n, t in g.items()} for g in (plain32, want64))
+    else:
+        _, _, rn, h, x, node_mask, mlig, nbh, e_w = _layer_setup(cuda, "hybrid", 32, 64, 64,
+                                                                  seed=1)
+        assert nbh.idx.shape[-1] == 95
+        sub = case[:3]
+        cot = ((torch.randn(h.shape, generator=gen, device=cuda) * node_mask[..., None],)
+               if sub == "x2h" else (torch.randn(x.shape, generator=gen, device=cuda),))
+
+        def kernel(hh, xx, ee):
+            if sub == "x2h":
+                return kelv.x2h_layer_trainable(rn.base_block[0], hh, xx, nbh, mlig, ee)
+            return kelv.h2x_layer_trainable(rn.base_block[0], hh, xx, nbh, mlig, ee, 64)
+
+        def plain(m):
+            fn = kel.x2h_layer_plain if sub == "x2h" else kel.h2x_layer_plain
+            return lambda hh, xx, ee: fn(m.base_block[0], hh, xx, nbh, mlig, ee)
+
+        rn64 = copy.deepcopy(rn).double()
+        plain32 = _grads(rn, plain(rn), (h, x, e_w), cot)
+        want64 = _grads(rn64, plain(rn64), [t.double() for t in (h, x, e_w)],
+                        [c.double() for c in cot])
+
+    got = _grads(rn, kernel, (h, x, e_w), cot)
+    again = _grads(rn, kernel, (h, x, e_w), cot)
+    torch.cuda.synchronize()
+    assert sorted(got) == sorted(want64)
+    assert all(torch.equal(got[n], again[n]) for n in got)  # fixed summation order
+    errs, floor = tensor_errs(got, want64), tensor_errs(plain32, want64)
+    assert np.median(list(errs.values())) < BWD64_MEDIAN
+    if case != "block_K32":
+        for n, e in errs.items():
+            assert e < max(BWD64_BAR, BWD64_F32 * floor[n]), (n, e, floor[n])
 
 
 def test_train_loss_kernel_path_matches_eager(cuda):
