@@ -1559,6 +1559,7 @@ TRAIN_KERNELS = (
     ("edge_bwd_kernel<x2h>", ("edge_bwd_kernel<false",)),
     ("edge_bwd_kernel<h2x>", ("edge_bwd_kernel<true",)),
     ("stage_w2_kernel", ("stage_w2_kernel",)),
+    ("stage_rbf_kernel", ("stage_rbf_kernel",)),
     ("weight_grad_kernel", ("weight_grad_kernel", "atb_kernel")),
     ("reduce_kernel", ("reduce_kernel",)),
     ("colsum_kernel", ("colsum_kernel",)),

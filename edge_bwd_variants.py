@@ -7,12 +7,15 @@ variant held against the unchanged kernel in one run.
     python3 edge_bwd_variants.py [--base CHECKOUT] [VARIANT ...]
 
 Each variant is a temporary copy of the targetdiff_tpu_torch package of
-CHECKOUT (this checkout by default) whose pass_bwd.cuh is changed by
-VARIANTS; the copies are built in parallel and measured one after the
-other, the unchanged kernel first and last. A phase is taken out by
-skipping its loop or, for the recompute's second layers, by loading its
-input in place of its output, so that nothing downstream folds away; the
-results of those copies are wrong and only their times are read. Each
+CHECKOUT (this checkout by default) whose pass_bwd.cuh or block_common.cuh
+(the recompute's first layer) is changed by VARIANTS; the copies are built
+in parallel and measured one after the other, the unchanged kernel first
+and last. A phase is taken out by skipping its loop or, for the
+recompute's second layers, by loading its input in place of its output, so
+that nothing downstream folds away; the results of those copies are wrong
+and only their times are read. `fp32_table_drbf` is the d rbf product with
+its B operand read from the float32 table and split in the loop, in place
+of the staged fragments: right, and timed beside them. Each
 prints one JSON line: the device ms per launch of edge_bwd_kernel<x2h> and
 <h2x> in one block backward at the B=32 train step's shapes (chip_smoke.py
 train_setup; N = 416, K = 32, L = 9), that backward's CUDA-event ms, the
@@ -20,8 +23,9 @@ kernels' registers, spills and shared memory from `-Xptxas -v` and, for the
 unchanged kernel and the mutants, chip_smoke.margins (the gradients of
 [train-block] and [layers]' hybrid backwards against float64, bar
 chip_smoke.BWD64_BAR). The card's name and power limit come first. Patches
-that name the earlier FMA recompute apply to a checkout from before the
-tensor-core recompute, so one command splits both. Needs a CUDA device and
+that name the earlier FMA recompute, d rbf loop or first layer apply to a
+checkout from before those changes, so one command splits both (the d rbf
+mutant and `fp32_table_drbf` have no earlier form). Needs a CUDA device and
 nvcc.
 """
 
@@ -35,8 +39,9 @@ import tempfile
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-KERNEL = Path("targetdiff_tpu_torch/csrc/pass_bwd.cuh")
-ERRORS = ("kernel", "one_term")  # variants whose gradients are held to float64
+CSRC = Path("targetdiff_tpu_torch/csrc")
+SOURCES = ("pass_bwd.cuh", "block_common.cuh")  # the files a variant may change
+ERRORS = ("kernel", "one_term", "one_term_drbf")  # variants whose gradients are held to float64
 
 OPAQUE = "for (int e = 0; e < KC; ++e) acc[e] = s_a[e][t];"
 ONE_TERM = """// one fp16 product per term (the mutant of the three-term tile_mma)
@@ -63,9 +68,42 @@ __device__ __forceinline__ void one_term(float (&acc)[2][4][4], const float* a, 
 
 """
 SECOND_LAYERS = "template <int V>\n__device__ __forceinline__ void second_layers("
+TWO_PASS = """  for (int e = n; e < KC; ++e) z[e][c] = 0.f;
+  for (int ty = ta; ty < 4; ty += 2) {
+    float w[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) w[r] = p.w_rbf[(ty * R + r) * H2 + c];
+    const float wet = p.w_et[ty * H2 + c];
+    for (int e = 0; e < n; ++e) {
+      if (g.et[e] != ty) continue;
+      float v = zi + in.nj[(b * N + g.j[e]) * H2 + c] + wet;
+#pragma unroll
+      for (int r = 0; r < R; ++r) v += g.rbf[e][r] * w[r];
+      z[e][c] = v;
+    }
+  }
+"""
+SELECT = """  float wa[R], wb[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    wa[r] = p.w_rbf[(ta * R + r) * H2 + c];
+    wb[r] = p.w_rbf[((ta + 2) * R + r) * H2 + c];
+  }
+  const float eta = p.w_et[ta * H2 + c], etb = p.w_et[(ta + 2) * H2 + c];
+  for (int e = 0; e < KC; ++e) {
+    float v = 0.f;
+    if (e < n) {
+      const bool is_a = g.et[e] == ta;
+      v = zi + in.nj[(b * N + g.j[e]) * H2 + c] + (is_a ? eta : etb);
+#pragma unroll
+      for (int r = 0; r < R; ++r) v += g.rbf[e][r] * (is_a ? wa[r] : wb[r]);
+    }
+    z[e][c] = v;
+  }
+"""
 
 # Each variant: groups of alternatives (old, new); in each group exactly one
-# alternative's `old` occurs, once, and is replaced.
+# alternative's `old` occurs, once, in one of SOURCES, and is replaced.
 VARIANTS = {
     "kernel": [],
     # mutant: the bar must hold the kernel and miss this
@@ -105,7 +143,25 @@ VARIANTS = {
     "no_ln_bwd": [[("    for (int pair = warp; pair < 2 * n; pair += kThreads / 32) {",
                     "    for (int pair = warp; pair < 0; pair += kThreads / 32) {")]],
     "no_drbf": [[("    for (int pr = warp; pr < n * R; pr += kThreads / 32) {",
-                  "    for (int pr = warp; pr < 0; pr += kThreads / 32) {")]],
+                  "    for (int pr = warp; pr < 0; pr += kThreads / 32) {"),
+                 ("    drbf_chunk(s_drbf, &s_a[0][0], s_d, a.rbff, p.w_rbf, s_g.et, ta, n, t);\n",
+                  "")]],
+    # the recompute's first layer without its RBF-table sum (and the table's loads)
+    "no_first_layer": [[("#pragma unroll\n      for (int r = 0; r < R; ++r) "
+                         "v += g.rbf[e][r] * wr[r * H2];\n", "      (void)wr;\n"),
+                        ("#pragma unroll\n      for (int r = 0; r < R; ++r) "
+                         "v += g.rbf[e][r] * w[r];\n", "")]],
+    # mutant: one TF32 product per term in d rbf
+    "one_term_drbf": [[("        mma_tf32(d, al, b[nt].x, b[nt].y);\n"
+                        "        mma_tf32(d, ah, b[nt].z, b[nt].w);\n", "")]],
+    # design alternatives (right, timed): the d rbf k-step loop unrolled; the
+    # first layer with both types' table columns in registers, selected per slot
+    "unrolled_drbf": [[("#pragma unroll 1\n  for (int i = 0; i < kSteps; ++i) {",
+                        "#pragma unroll\n  for (int i = 0; i < kSteps; ++i) {")]],
+    "select_first_layer": [[(TWO_PASS, SELECT)]],
+    # d rbf's B operand from the float32 table, split in the loop (option b)
+    "fp32_table_drbf": [[("  return frags[((ta * kDrbfKSteps + ks) * kDrbfNTiles + nt) * 32 "
+                          "+ lane];", "  return rbf_frag(w_rbf, ta, ks, nt, lane);")]],
     "no_edge_writes": [
         [("    for (int u = t; u < n * H2; u += kThreads) "
           "a.A[ec * H2 + u] = s_a[u / H2][u % H2];\n", "")],
@@ -124,22 +180,26 @@ VARIANTS = {
 }
 
 
-def apply(text: str, groups) -> str:
+def apply(texts: dict, groups) -> dict:
+    """`texts` (file name -> source) with each group's one alternative replaced."""
+    texts = dict(texts)
     for group in groups:
-        hits = [(old, new) for old, new in group if text.count(old) == 1]
-        if len(hits) != 1:
-            raise ValueError(f"pass_bwd.cuh holds {len(hits)} of these, not one:\n"
+        hits = [(f, old, new) for old, new in group for f in texts if texts[f].count(old) == 1]
+        if len(hits) != 1 or sum(t.count(hits[0][1]) for t in texts.values()) != 1:
+            raise ValueError(f"{', '.join(texts)} hold {len(hits)} of these, not one:\n"
                              + "\n---\n".join(old for old, _ in group))
-        text = text.replace(*hits[0])
-    return text
+        f, old, new = hits[0]
+        texts[f] = texts[f].replace(old, new)
+    return texts
 
 
 def make_copy(base: Path, root: Path, name: str) -> Path:
     dst = root / name
     shutil.copytree(base / "targetdiff_tpu_torch", dst / "targetdiff_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    f = dst / KERNEL
-    f.write_text(apply(f.read_text(), VARIANTS[name]))
+    texts = {f: (dst / CSRC / f).read_text() for f in SOURCES}
+    for f, text in apply(texts, VARIANTS[name]).items():
+        (dst / CSRC / f).write_text(text)
     return dst
 
 

@@ -154,21 +154,30 @@ __device__ __forceinline__ void load_edges(EdgeGeometry& g, const EdgeInputs& in
 }
 
 // First layer of k|v for the chunk's n live slots: thread c of 2H writes
-// z[e][c] = ni_i + nj_src + w_et[type] + sum_r rbf_r w_rbf[type][r] (0 for e >= n).
+// z[e][c] = ni_i + nj_src + w_et[type] + sum_r rbf_r w_rbf[type][r], r
+// ascending (0 for e >= n). A destination row's edges have two types, ta
+// (ligand source) and ta + 2 (protein source): one type at a time, the
+// thread loads its column of that type's table into registers once per
+// chunk and applies it to the slots of that type (both types' columns at
+// once, selected per slot, spilled more and ran slower: PERF.md).
 __device__ __forceinline__ void first_layer(float (*z)[H2], const EdgeGeometry& g,
                                             const EdgeInputs& in, const PassParams& p,
                                             long long b, long long bn, int N, int n, int c) {
+  const int ta = in.mlig[bn] ? 0 : 1;
   const float zi = in.ni[bn * H2 + c];
-  for (int e = 0; e < KC; ++e) {
-    float v = 0.f;
-    if (e < n) {
-      const int et = g.et[e];
-      v = zi + in.nj[(b * N + g.j[e]) * H2 + c] + p.w_et[et * H2 + c];
-      const float* wr = p.w_rbf + (size_t)et * R * H2 + c;
+  for (int e = n; e < KC; ++e) z[e][c] = 0.f;
+  for (int ty = ta; ty < 4; ty += 2) {
+    float w[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) v += g.rbf[e][r] * wr[r * H2];
+    for (int r = 0; r < R; ++r) w[r] = p.w_rbf[(ty * R + r) * H2 + c];
+    const float wet = p.w_et[ty * H2 + c];
+    for (int e = 0; e < n; ++e) {
+      if (g.et[e] != ty) continue;
+      float v = zi + in.nj[(b * N + g.j[e]) * H2 + c] + wet;
+#pragma unroll
+      for (int r = 0; r < R; ++r) v += g.rbf[e][r] * w[r];
+      z[e][c] = v;
     }
-    z[e][c] = v;
   }
 }
 

@@ -15,10 +15,12 @@
 // 128x128 second layers per edge, multiplies their output gradients back
 // through them, and forms the weight gradients A^T dY over all edges: about
 // N*K*128k multiply-adds, ~1 TFLOP per step at B=32, N=416, K=32, L=9. The
-// recompute and the weight gradients run on the tensor cores, the
-// transposed second layers and the rest on the float32 pipes; with one
-// block per destination row the second layers wait on their weights, 128 KB
-// per 32-edge chunk from L2 (PERF.md).
+// recompute's second layers, d rbf and the weight gradients run on the
+// tensor cores, the transposed second layers and the rest on the float32
+// pipes; with one block per destination row the second layers wait on their
+// weights, 128 KB per 32-edge chunk from L2 (PERF.md). The RBF table is read
+// once per chunk: 80 KB of staged fragments for d rbf, and each thread's
+// column of the row's two type tables for the recompute's first layer.
 //
 // Design: per layer l = L-1 .. 0, first the h2x pass (ligand-tail rows,
 // h = hck[l+1], x = xck[l]) then the x2h pass (all rows, h = hck[l]), each
@@ -74,6 +76,15 @@ extern "C" int td_block_bwd(const float* hck, const float* xck, const int64_t* i
     if (err) return err;
   }
   return 0;
+}
+
+// run_pass's staging of the d rbf product's B fragments alone: frags (16-byte
+// aligned) receives kRbfFrags uint4 from w_rbf [4][R][2H] (stage_rbf_kernel).
+extern "C" int td_stage_rbf(const float* w_rbf, void* frags, void* stream) {
+  if ((uintptr_t)frags & 15) return (int)cudaErrorInvalidValue;
+  stage_rbf_kernel<<<(kRbfFrags + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
+      w_rbf, reinterpret_cast<uint4*>(frags));
+  return (int)cudaGetLastError();
 }
 
 // The weight-gradient product of run_pass alone (weight_grad.cuh): out [P][Q]

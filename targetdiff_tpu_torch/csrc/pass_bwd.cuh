@@ -11,6 +11,9 @@
 //                   fp16 (hi, lo) mma B fragments in the workspace
 //                   (tc_common.cuh: stage_frags), 64 KB each, read by every
 //                   edge_bwd_kernel block from L2.
+//   stage_rbf_kernel stages the RBF table w_rbf as TF32 (hi, lo) B fragments
+//                   of the d rbf product, one layout per destination kind
+//                   (types 0|2 and 1|3), 80 KB each.
 //   edge_bwd_kernel one block per destination row. Pass 1 walks the row's
 //                   edges in chunks of 32, recomputing the forward (geometry,
 //                   first layer, LayerNorm, second layers) for the logits
@@ -20,10 +23,14 @@
 //                   weights), LayerNorm+ReLU, the RBF table and the
 //                   geometry. With one chunk (K <= 32) pass 2 reuses pass 1's
 //                   activations; with more it recomputes the chunk and its
-//                   k. The recompute's second layers run on the tensor
-//                   cores (second_layers: three fp16 products per term,
-//                   float32-grade, as in the forward kernels), the rest on
-//                   the float32 pipes. It writes per-row sums (the
+//                   k. The recompute's first layer applies each thread's
+//                   columns of the row's two RBF type tables, loaded once
+//                   per chunk; its second layers run on the tensor cores
+//                   (second_layers: three fp16 products per term,
+//                   float32-grade, as in the forward kernels), and so does d
+//                   rbf (drbf_chunk: one three-term TF32 product per chunk
+//                   over the row's two type tables); the rest runs on the
+//                   float32 pipes. It writes per-row sums (the
 //                   destination projection's gradient, dq, bias and
 //                   LayerNorm partials) to a row
 //                   buffer, and per-edge rows (post-LN activations, their
@@ -81,10 +88,20 @@ constexpr int FE = 4 * R + 4;   // edge-feature row: rbf x type | type
 constexpr int kAdjMaxN = 4096;  // nodes per complex for adj_kernel
 constexpr int kW2Frags = kKSteps * kNTiles * 32;  // uint4 B fragments of a staged 128x128 weight
 constexpr int kLdc = H2 + 8;    // padded row of the products' k|v output: conflict-free C stores
-// floats of edge_bwd_kernel's third chunk buffer: dk|dv then dz [KC][2H], or
+constexpr int kLdd = H2 + 4;    // padded row of dk|dv and dz: conflict-free TF32 A fragments
+// floats of edge_bwd_kernel's third chunk buffer: dk|dv then dz [KC][kLdd], or
 // the recompute's split activations [2][KC][kLdz], then its output [KC][kLdc]
 constexpr int kChunkBuf = 2 * KC * kLdz;
-static_assert(kChunkBuf >= KC * kLdc && kChunkBuf >= KC * H2, "third chunk buffer too small");
+static_assert(kChunkBuf >= KC * kLdc && kChunkBuf >= KC * kLdd, "third chunk buffer too small");
+// The d rbf product D [KC][kDrbfCols] = dz [KC][2H] [W_ta | W_ta+2]: 32 k-steps
+// of m16n8k8, 5 n-tiles; its staged B fragments, both destination kinds
+constexpr int kDrbfCols = 2 * R;
+constexpr int kDrbfKSteps = H2 / 8;
+constexpr int kDrbfNTiles = kDrbfCols / 8;
+constexpr int kRbfFrags = 2 * kDrbfKSteps * kDrbfNTiles * 32;
+constexpr int kWarps = kThreads / 32;
+static_assert(kDrbfCols % 8 == 0 && kDrbfKSteps % kWarps == 0, "d rbf tiling");
+static_assert(kWarps * KC * kDrbfCols <= 2 * KC * H2, "d rbf partials exceed two chunk buffers");
 
 // Row-buffer layout of one pass (V = value width): per node
 // [dproj 5H | kv_ln scale 2H, bias 2H | b2k H, b2v V | dq H | q_ln scale H, bias H].
@@ -112,6 +129,7 @@ struct EdgeBwdArgs {
   float* drel;      // [Ep][3]
   const uint4* w2kf;  // w2k, w2v as staged by stage_w2_kernel
   const uint4* w2vf;
+  const uint4* rbff;  // w_rbf as staged by stage_rbf_kernel
 };
 
 // Dynamic shared memory of edge_bwd_kernel: two [KC][2H] chunk buffers and
@@ -133,6 +151,114 @@ stage_w2_kernel(PassParams p, int V, uint4* __restrict__ wk, uint4* __restrict__
   stage_frags(wv, p.w2v, V, V / 8, t, n);
 }
 
+// B fragment (b0 hi, b1 hi, b0 lo, b1 lo; TF32, split_tf32) of k-step ks,
+// n-tile nt of the d rbf product for one destination kind (ta: 0 ligand, 1
+// protein row) and lane: B[k][j] = w_rbf[j < R ? ta : ta + 2][j % R][k],
+// b0 = B[8 ks + tig][8 nt + g], b1 = B[8 ks + tig + 4][8 nt + g].
+__device__ __forceinline__ uint4 rbf_frag(const float* __restrict__ w_rbf, int ta, int ks,
+                                          int nt, int lane) {
+  const int j = 8 * nt + (lane >> 2);
+  const float* w = w_rbf + ((j < R ? ta : ta + 2) * R + j % R) * H2 + 8 * ks + (lane & 3);
+  uint32_t h0, l0, h1, l1;
+  split_tf32(w[0], h0, l0);
+  split_tf32(w[4], h1, l1);
+  return make_uint4(h0, h1, l0, l1);
+}
+
+// Both kinds' fragments of w_rbf ([4][R][2H]) in global memory:
+// frags[((ta * kDrbfKSteps + ks) * kDrbfNTiles + nt) * 32 + lane].
+__global__ void __launch_bounds__(kThreads)
+stage_rbf_kernel(const float* __restrict__ w_rbf, uint4* __restrict__ frags) {
+  const int u = blockIdx.x * kThreads + threadIdx.x;
+  if (u >= kRbfFrags) return;
+  const int per_kind = kDrbfKSteps * kDrbfNTiles * 32;
+  frags[u] = rbf_frag(w_rbf, u / per_kind, u % per_kind / (kDrbfNTiles * 32),
+                      u / 32 % kDrbfNTiles, u % 32);
+}
+
+// The d rbf product's B fragment of (ks, nt) for the row's kind ta, as staged.
+__device__ __forceinline__ uint4 drbf_frag(const uint4* frags, const float* w_rbf, int ta, int ks,
+                                           int nt, int lane) {
+  return frags[((ta * kDrbfKSteps + ks) * kDrbfNTiles + nt) * 32 + lane];
+}
+
+// d rbf of the chunk's n slots, block-wide: drbf[e][r] = dz[e] . w_rbf[type e][r]
+// for e < n. A destination row's edges have two types, ta (ligand source) and
+// ta + 2, so the chunk's d rbf is one product D [KC][2R] = dz [KC][2H]
+// [W_ta | W_ta+2] (W_t[c][r] = w_rbf[t][r][c]), of which slot e takes the R
+// columns of its type. Warp w forms the partial product over k-steps
+// [4 w, 4 w + 4) (channels 32 w ..) of both 16-row m-tiles (the second only
+// when n > 16) and all five n-tiles: three TF32 mma.sync per term (dz is a
+// gradient: no range to scale into fp16), each k-step's three summed from zero
+// and added in float32 (as weight_grad.cuh). The partials go to red
+// [kWarps][KC][2R] and are summed in warp order, a fixed order. dz: the
+// third chunk buffer, row stride kLdd. Starts at a barrier (red may alias
+// what the block read before) and ends at one.
+__device__ __forceinline__ void drbf_chunk(float (*drbf)[R], float* red, const float (*dz)[kLdd],
+                                           const uint4* frags, const float* w_rbf,
+                                           const int* et, int ta, int n, int t) {
+  constexpr int kSteps = kDrbfKSteps / kWarps;
+  const int warp = t >> 5, lane = t & 31, g = lane >> 2, tig = lane & 3;
+  const int mts = n > 16 ? 2 : 1;
+  __syncthreads();
+  float acc[2][kDrbfNTiles][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kDrbfNTiles; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
+  // one k-step at a time: unrolled, the B fragments in flight spilled (PERF.md)
+#pragma unroll 1
+  for (int i = 0; i < kSteps; ++i) {
+    const int ks = warp * kSteps + i;
+    uint4 b[kDrbfNTiles];
+#pragma unroll
+    for (int nt = 0; nt < kDrbfNTiles; ++nt) b[nt] = drbf_frag(frags, w_rbf, ta, ks, nt, lane);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      if (mt >= mts) continue;
+      // A: (g, tig), (g + 8, tig), (g, tig + 4), (g + 8, tig + 4)
+      const float* ar = &dz[16 * mt + g][8 * ks + tig];
+      uint32_t ah[4], al[4];
+      split_tf32(ar[0], ah[0], al[0]);
+      split_tf32(ar[8 * kLdd], ah[1], al[1]);
+      split_tf32(ar[4], ah[2], al[2]);
+      split_tf32(ar[8 * kLdd + 4], ah[3], al[3]);
+#pragma unroll
+      for (int nt = 0; nt < kDrbfNTiles; ++nt) {
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(d, al, b[nt].x, b[nt].y);
+        mma_tf32(d, ah, b[nt].z, b[nt].w);
+        mma_tf32(d, ah, b[nt].x, b[nt].y);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[mt][nt][c] += d[c];
+      }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    if (mt >= mts) continue;
+#pragma unroll
+    for (int nt = 0; nt < kDrbfNTiles; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float2*>(red + (warp * KC + 16 * mt + 8 * hf + g) * kDrbfCols +
+                                   8 * nt + 2 * tig) =
+            make_float2(acc[mt][nt][2 * hf], acc[mt][nt][2 * hf + 1]);
+  }
+  __syncthreads();
+  for (int u = t; u < n * R; u += kThreads) {
+    const int e = u / R, r = u % R;
+    const float* col = red + e * kDrbfCols + (et[e] == ta ? 0 : R) + r;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += col[w * KC * kDrbfCols];
+    drbf[e][r] = s;
+  }
+  __syncthreads();
+}
+
 // The chunk's second layers on the tensor cores, block-wide, ending at a
 // barrier: out[e] = b[cc] + sum_m a[e][half H + m] W[m][cc] for every slot e,
 // in thread t = half H + cc (k: threads [0, H), v: [H, H + V)), for the
@@ -143,7 +269,8 @@ stage_w2_kernel(PassParams p, int V, uint4* __restrict__ wk, uint4* __restrict__
 // products per term on the staged fragments wk, wv (tile_mma), as the
 // forward kernels compute k and v; the C fragments return through buf (row
 // stride kLdc) to each channel's thread (every thread's out is written: a
-// thread past the computed halves gets stale words it does not read). Every
+// thread past the computed halves gets stale words it does not read) and stay
+// in buf, out[e] = buf[e * kLdc + t], until the block writes buf again. Every
 // sum has a fixed order.
 template <int V>
 __device__ __forceinline__ void second_layers(float (&out)[KC], const float (*a)[H2], float* buf,
@@ -197,7 +324,7 @@ __device__ __forceinline__ void second_layers(float (&out)[KC], const float (*a)
   __syncthreads();
 #pragma unroll
   for (int e = 0; e < KC; ++e) out[e] = buf[e * kLdc + t];
-  __syncthreads();  // buf is free again
+  __syncthreads();  // every thread has its out
 }
 
 template <bool kH2X>
@@ -210,7 +337,7 @@ __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
   float(*s_a)[H2] = reinterpret_cast<float(*)[H2]>(smem);               // a, then da, then dy
   float(*s_zh)[H2] = reinterpret_cast<float(*)[H2]>(smem + KC * H2);     // normalised z
   float* s_buf = smem + 2 * KC * H2;                                      // second_layers' operands
-  float(*s_d)[H2] = reinterpret_cast<float(*)[H2]>(s_buf);               // dk|dv, then dz
+  float(*s_d)[kLdd] = reinterpret_cast<float(*)[kLdd]>(s_buf);           // dk|dv, then dz
   float(*s_alpha)[NH] = reinterpret_cast<float(*)[NH]>(s_buf + kChunkBuf);  // logits, alpha
   float(*s_P)[NH] = s_alpha + KP;  // d alpha = e_w * P, d e_w = sum_h alpha P
   float(*s_v)[NH] = s_P + KP;      // h2x: the values
@@ -234,6 +361,7 @@ __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
   const int cc = is_k ? t : t - H;
   const float qc = is_k ? a.q[bn * H + cc] : 0.f;
   const float gc = (!kH2X && !is_k) ? a.dh[bn * H + cc] : 0.f;
+  const int ta = a.in.mlig[bn] ? 0 : 1;  // the row's edge types: ta, ta + 2
   if (kH2X && t < 3) s_gx[t] = a.in.mlig[bn] ? a.dx[3 * bn + t] : 0.f;
 
   // ---- pass 1: logits and P of every edge (h2x: and v) ----
@@ -322,18 +450,28 @@ __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
     }
     for (int u = t; u < n * H2; u += kThreads) a.A[ec * H2 + u] = s_a[u / H2][u % H2];
 
-    // softmax backward -> dk (and dq); dv
+    // softmax backward -> dk (and dq); dv. k is second_layers' output, still
+    // in the third chunk buffer (pass 1's when the row has one chunk): read
+    // there, not kept in registers across the passes, so that no register
+    // array stays live through the recompute's first layer and d rbf.
+    const int head = cc / DH;
     if (is_k) {
-      const int head = cc / DH;
 #pragma unroll
       for (int e = 0; e < KC; ++e) {
         const float al = s_alpha[e0 + e][head];
         const float dl = al * (s_w[e0 + e] * s_P[e0 + e][head] - s_dot[head]) * scale;
-        dq += dl * acc[e];
+        dq += dl * s_buf[e * kLdc + cc];
+      }
+    }
+    __syncthreads();  // k is read: dk|dv overwrite it
+    if (is_k) {
+#pragma unroll
+      for (int e = 0; e < KC; ++e) {
+        const float al = s_alpha[e0 + e][head];
+        const float dl = al * (s_w[e0 + e] * s_P[e0 + e][head] - s_dot[head]) * scale;
         s_d[e][cc] = dl * qc;
       }
     } else if (!kH2X) {
-      const int head = cc / DH;
 #pragma unroll
       for (int e = 0; e < KC; ++e) s_d[e][H + cc] = gc * s_alpha[e0 + e][head] * s_w[e0 + e];
     } else if (cc < NH) {
@@ -428,17 +566,8 @@ __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
       else v = (f - 4 * R == et) ? 1.f : 0.f;
       a.F[(ec + e) * FE + f] = v;
     }
-    // d rbf[e][r] = dz[e] . w_rbf[type][r], a warp per (edge, knot)
-    for (int pr = warp; pr < n * R; pr += kThreads / 32) {
-      const int e = pr / R, r = pr % R;
-      const float* wr = p.w_rbf + ((size_t)s_g.et[e] * R + r) * H2;
-      float s = 0.f;
-#pragma unroll
-      for (int q8 = 0; q8 < 8; ++q8) s += s_d[e][lane + 32 * q8] * wr[lane + 32 * q8];
-      s = warp_sum(s);
-      if (lane == 0) s_drbf[e][r] = s;
-    }
-    __syncthreads();
+    // d rbf on the tensor cores; its partials take the free s_a and s_zh
+    drbf_chunk(s_drbf, &s_a[0][0], s_d, a.rbff, p.w_rbf, s_g.et, ta, n, t);
 
     // geometry: d dist -> d rel (x_dst gets +, x_src gets - in gather_kernel)
     if (t < KC) {
@@ -676,6 +805,7 @@ int colsum(const float* Y, int ldy, long long M, int Q, float* out, float* parti
 struct Workspace {
   float *ni, *nj, *q, *q1, *qa, *rowbuf, *A, *dKV, *dZ, *F, *drel, *vec, *partial;
   uint4* w2f;  // stage_w2_kernel's fragments: w2k, then w2v
+  uint4* rbff;  // stage_rbf_kernel's fragments
   int *off_x, *list_x, *off_h, *list_h;
 };
 
@@ -702,6 +832,7 @@ void carve(float* w, int* iw, long long B, long long N, long long K, long long n
   ws->vec = take(row_width(H));
   ws->partial = take(kPartialCap);
   ws->w2f = reinterpret_cast<uint4*>(take(2 * kW2Frags * 4));
+  ws->rbff = reinterpret_cast<uint4*>(take(kRbfFrags * 4));
   *floats = o;
   long long io = 0;
   auto itake = [&](long long n) {
@@ -730,12 +861,14 @@ int run_pass(const float* h, const EdgeInputs& in0, const PassParams& p, const P
 
   stage_w2_kernel<<<kW2Frags / kThreads, kThreads, 0, s>>>(p, V, ws.w2f, ws.w2f + kW2Frags);
   if ((err = (int)cudaGetLastError())) return err;
+  stage_rbf_kernel<<<(kRbfFrags + kThreads - 1) / kThreads, kThreads, 0, s>>>(p.w_rbf, ws.rbff);
+  if ((err = (int)cudaGetLastError())) return err;
 
   EdgeInputs in = in0;
   in.ni = ws.ni;
   in.nj = ws.nj;
   EdgeBwdArgs a{h, in, ws.q, p, pt, N, K, row0, dh, dx, dew, ws.rowbuf, ws.A, ws.dKV, ws.dZ,
-                ws.F, ws.drel, ws.w2f, ws.w2f + kW2Frags};
+                ws.F, ws.drel, ws.w2f, ws.w2f + kW2Frags, ws.rbff};
   // the largest dynamic shared memory any K takes, set once per process (one device)
   static const int attr = (int)cudaFuncSetAttribute(
       edge_bwd_kernel<kH2X>, cudaFuncAttributeMaxDynamicSharedMemorySize,

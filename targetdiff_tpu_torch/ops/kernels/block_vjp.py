@@ -62,6 +62,52 @@ def _entries():
     return ws, bwd
 
 
+def tf32(a):
+    """a (float32) rounded to TF32 as the kernels round it (csrc/weight_grad.cuh
+    rna_tf32): to nearest, ties away from zero, on the 13 low mantissa bits."""
+    return ((a.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def stage_rbf_frags(w_rbf):
+    """The d rbf product's B fragments as run_pass stages them for
+    edge_bwd_kernel (csrc/pass_bwd.cuh stage_rbf_kernel) from one pass's
+    w_rbf [4, R, 2H] float32: int32 TF32 bit patterns [2, 2H/8, 2R/8, 32, 4]
+    by destination kind ta (0 ligand row, 1 protein row), k-step ks, n-tile
+    nt, lane 4 g + tig and (b0 hi, b1 hi, b0 lo, b1 lo), where
+    B[k][j] = w_rbf[ta if j < R else ta + 2][j % R][k], b0 = B[8 ks + tig][8 nt + g],
+    b1 = B[8 ks + tig + 4][8 nt + g], hi = tf32(b), lo = tf32(b - hi). A CUDA
+    tensor goes through the staging kernel (td_stage_rbf), a CPU tensor
+    through the same layout in PyTorch."""
+    H2 = w_rbf.shape[-1]
+    if w_rbf.dtype != torch.float32 or w_rbf.shape != (4, R, H2) or H2 % 8:
+        raise ValueError(f"w_rbf must be a float32 [4, {R}, 2H] tensor, got {w_rbf.dtype} "
+                         f"{tuple(w_rbf.shape)}")
+    shape = (2, H2 // 8, 2 * R // 8, 32, 4)
+    if w_rbf.device.type == "cpu":
+        b = torch.stack([torch.cat([w_rbf[ta], w_rbf[ta + 2]]).T for ta in (0, 1)])
+        b = b.reshape(2, H2 // 8, 2, 4, 2 * R // 8, 8)  # kind, ks, b0|b1, tig, nt, g
+        hi = tf32(b)
+        lo = tf32(b - hi)
+        frags = torch.cat([t.permute(0, 1, 4, 5, 3, 2) for t in (hi, lo)], -1)
+        return frags.reshape(shape).contiguous().view(torch.int32)
+    build.require_cuda(w_rbf, "w_rbf")
+    if H2 != 256:
+        raise ValueError(f"the kernel's tables are [4, {R}, 256], got {tuple(w_rbf.shape)}")
+    w_rbf = w_rbf.contiguous()
+    out = torch.empty(shape, dtype=torch.int32, device=w_rbf.device)
+    build.check(_stage_entry()(w_rbf.data_ptr(), out.data_ptr(), build.stream_ptr(w_rbf.device)),
+                "td_stage_rbf")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _stage_entry():
+    fn = build.load_library().td_stage_rbf
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def block_layers_trainable(refine_net, h, x, nbh: G.Neighborhood, mask_ligand, e_w,
                            n_ligand: int):
     """All layers of one block, differentiable. h [B,N,H], x [B,N,3], e_w

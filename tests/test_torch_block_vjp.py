@@ -6,7 +6,12 @@ products per term, split3_matmul), on kNN and hybrid graphs of K = 8, 15
 and 40 (two 32-slot chunks: the kernel's pass 2 recomputes k), against
 autograd of the plain block at the float32-grade bar and, as the block's
 backward inside the loss, against the JAX XLA loss's gradients, while one
-fp16 product per term misses that bar; the train-mode forward's
+fp16 product per term misses that bar; d rbf as the kernel computes it
+(drbf_tf32: one three-term TF32 product over the row's two edge-type tables,
+each slot taking its type's columns) at the same bar on the same graphs,
+while one TF32 product per term misses it, and that two-table form, from
+the port's staged fragments, against the einsum over each edge's table; the
+train-mode forward's
 checkpoints against the JAX megakernel in interpret mode; and the port's
 loss and every parameter gradient against jax.value_and_grad of the JAX
 XLA loss, with the JAX draws injected."""
@@ -32,12 +37,14 @@ from targetdiff_tpu_torch.ops.kernels.block_denoiser import (
     block_denoiser_train_plain,
     pack_pass_params,
 )
+from targetdiff_tpu_torch.ops.kernels import block_vjp
 from targetdiff_tpu_torch.ops.kernels.block_vjp import FIELDS, block_layers_trainable
 from targetdiff_tpu_torch.ops.rbf import gaussian_smearing, gaussian_smearing_offsets
 from targetdiff_tpu_torch.utils.port import flax_params_to_state_dict
 from tests.test_fast_forward import NUM_CLASSES, PROTEIN_DIM, batch_mult8, small_flagship
 from tests.test_torch_block import _block_inputs
 from tests.test_torch_score_model import small_setup
+from tests.test_torch_weight_grad import split3
 from tests.test_torch_x2h_edge import W_SCALE, f16, split3_matmul
 
 torch.set_num_threads(2)
@@ -55,11 +62,56 @@ def _ln(z, eps=1e-5):
     return (z - mu) * rstd, rstd
 
 
+def drbf_einsum(dz, w_rbf, et, ta):
+    """d rbf[e][r] = dz[e] . w_rbf[et[e]][r]: dz [.., 2H], w_rbf [4, R, 2H], et
+    the edge types [..] (ta, the row's kind, unused)."""
+    return torch.einsum("...c,...rc->...r", dz, w_rbf[et])
+
+
+def _two_tables(w_rbf):
+    """[W_ta | W_ta+2] of both row kinds ta = 0 (ligand row: types 0, 2) and 1
+    (protein row: 1, 3): [2, 2R, 2H]."""
+    return torch.stack([torch.cat([w_rbf[t], w_rbf[t + 2]]) for t in (0, 1)])
+
+
+def _by_kind(D, et, ta, R):
+    """Each slot's R columns of its row kind's product D [2, .., 2R]: the first R
+    for an edge of type ta, the last R for type ta + 2."""
+    D = torch.where((ta == 0)[..., None], D[0], D[1])
+    return torch.where((et == ta)[..., None], D[..., :R], D[..., R:])
+
+
+def drbf_tf32(dz, w_rbf, et, ta, terms=3, warps=8):
+    """d rbf as csrc/pass_bwd.cuh drbf_chunk computes it: D = dz [W_ta | W_ta+2]
+    on TF32 operands (split3: hi, lo), each 8-channel k-step's lo*hi + hi*lo +
+    hi*hi summed from zero (terms=1: hi*hi alone), each of `warps` warps' k-steps
+    added in ascending order, then the warps' partials in warp order; each slot
+    takes its type's R columns (_by_kind)."""
+    R, H2 = w_rbf.shape[1], w_rbf.shape[2]
+    ks = H2 // 8
+    ah, al = split3(dz.reshape(*dz.shape[:-1], ks, 8))
+    bh, bl = split3(_two_tables(w_rbf).reshape(2, 2 * R, ks, 8))
+
+    def prod(a, b):  # [.., ks, 8] x [2, 2R, ks, 8] -> [2, .., ks, 2R]
+        return torch.einsum("...ki,tjki->t...kj", a, b)
+
+    d = prod(ah, bh) if terms == 1 else prod(al, bh) + prod(ah, bl) + prod(ah, bh)
+    d = d.reshape(*d.shape[:-2], warps, ks // warps, 2 * R)
+    part = d[..., 0, :]
+    for i in range(1, ks // warps):
+        part = part + d[..., i, :]
+    D = part[..., 0, :]
+    for w in range(1, warps):
+        D = D + part[..., w, :]
+    return _by_kind(D, et, ta, R)
+
+
 def _pass_bwd(P, l, h, x, idx, nmask, mlig, e_w, row0, h2x, dh, dx, dew, grads, n_heads,
-              matmul=torch.matmul):
+              matmul=torch.matmul, drbf_fn=drbf_einsum):
     """One pass of layer l, as edge_bwd_kernel + gather_kernel +
     node_bwd_kernel + the weight-gradient reductions compute it; the
-    recompute's k and v second layers through `matmul`."""
+    recompute's k and v second layers through `matmul`, d rbf through
+    `drbf_fn(dz, w_rbf, et, ta)`."""
     B, N, H = h.shape
     NH, DH = n_heads, H // n_heads
     offsets, coeff = gaussian_smearing_offsets()
@@ -126,7 +178,7 @@ def _pass_bwd(P, l, h, x, idx, nmask, mlig, e_w, row0, h2x, dh, dx, dew, grads, 
     oh = F.one_hot(et, 4).to(dz.dtype)
     g["w_rbf"] += torch.einsum("bnke,bnkr,bnkc->erc", oh, rbf, dz)
     g["w_et"] += torch.einsum("bnke,bnkc->ec", oh, dz)
-    drbf = torch.einsum("bnkc,bnkrc->bnkr", dz, w["w_rbf"][et])
+    drbf = drbf_fn(dz, w["w_rbf"], et, torch.where(dst_lig, 0, 1).expand_as(et))
     ddist = (drbf * 2.0 * coeff * (dist[..., None] - offsets) * rbf).sum(-1)
     drel = (ddist / dist.clamp(min=1e-16))[..., None] * rel
     if h2x:
@@ -153,20 +205,21 @@ def _pass_bwd(P, l, h, x, idx, nmask, mlig, e_w, row0, h2x, dh, dx, dew, grads, 
 
 @torch.no_grad()
 def replay_block_bwd(x2h, h2x, hck, xck, nbh, mlig, e_w, n_ligand, gh, gx, n_heads,
-                     matmul=torch.matmul):
+                     matmul=torch.matmul, drbf_fn=drbf_einsum):
     """The backward kernel's algorithm: layers L-1..0, h2x pass on the
     ligand tail from hck[l+1], then x2h on every row from hck[l] (hck
     [L+1,B,N,H], xck [L+1,B,N,3]), the recompute's second layers through
-    `matmul`. Returns (dh0, dx0, de_w, x2h grads, h2x grads)."""
+    `matmul`, d rbf through `drbf_fn`. Returns (dh0, dx0, de_w, x2h grads,
+    h2x grads)."""
     L, N = hck.shape[0] - 1, hck.shape[2]
     dh, dx, dew = gh.clone(), gx.clone(), torch.zeros_like(e_w)
     gx2h = {f: torch.zeros_like(x2h[f]) for f in FIELDS}
     gh2x = {f: torch.zeros_like(h2x[f]) for f in FIELDS}
     for l in reversed(range(L)):
         _pass_bwd(h2x, l, hck[l + 1], xck[l], nbh.idx, nbh.mask, mlig, e_w, N - n_ligand,
-                  True, dh, dx, dew, gh2x, n_heads, matmul)
+                  True, dh, dx, dew, gh2x, n_heads, matmul, drbf_fn)
         _pass_bwd(x2h, l, hck[l], xck[l], nbh.idx, nbh.mask, mlig, e_w, 0, False, dh, dx,
-                  dew, gx2h, n_heads, matmul)
+                  dew, gx2h, n_heads, matmul, drbf_fn)
     return dh, dx, dew, gx2h, gh2x
 
 
@@ -190,11 +243,12 @@ def _close(got, want, name, atol_scale=1e-5, rtol=1e-4):
 
 
 def _replay_and_autograd(model, rn, h, x, mlig, nbh, e_w, gh, gx, n_heads,
-                         matmul=torch.matmul):
+                         matmul=torch.matmul, drbf_fn=drbf_einsum):
     """(replay, autograd): dh0, dx0, de_w and every parameter gradient of the
     block for the output cotangents (gh, gx), from `replay_block_bwd` (its
-    recompute through `matmul`) on the packed weights and the train-mode
-    checkpoints, and from autograd of the plain block."""
+    recompute through `matmul`, d rbf through `drbf_fn`) on the packed
+    weights and the train-mode checkpoints, and from autograd of the plain
+    block."""
     h_leaf, x_leaf, ew_leaf = (t.clone().requires_grad_() for t in (h, x, e_w))
     model.net.zero_grad()
     h_out, x_out = rn.block_forward(h_leaf, x_leaf, nbh, mlig, e_w=ew_leaf)
@@ -205,7 +259,7 @@ def _replay_and_autograd(model, rn, h, x, mlig, nbh, e_w, gh, gx, n_heads,
     hck, xck = block_denoiser_train_plain(rn, h, x, nbh, mlig, e_w)
     dh0, dx0, dew, gx2h, gh2x = replay_block_bwd(
         {f: t.detach() for f, t in x2h.items()}, {f: t.detach() for f, t in h2x.items()},
-        hck, xck, nbh, mlig, e_w, model.max_ligand, gh, gx, n_heads, matmul)
+        hck, xck, nbh, mlig, e_w, model.max_ligand, gh, gx, n_heads, matmul, drbf_fn)
     # every packed gradient, carried to the parameters by the packing's backward
     model.net.zero_grad()
     torch.autograd.backward([x2h[f] for f in FIELDS] + [h2x[f] for f in FIELDS],
@@ -304,6 +358,82 @@ def test_one_fp16_product_backward_replay_misses_the_bar():
     assert _worst_over_scale(one, want) > 10 * 1e-5
     with pytest.raises(AssertionError):
         _hold_replay(one, want, 36 * cfg.num_layers)
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_tf32_drbf_backward_replay_matches_autograd_of_plain_block(case):
+    """The kernel's algorithm with its three-term fp16 recompute and its d rbf
+    as the kernel computes it (drbf_tf32: three-term TF32 over the row's two
+    type tables, selected by type) holds the float32-grade bar (`_close`)
+    against autograd of the plain block; K = 40 is two chunks, the second
+    partial (8 slots)."""
+    cfg, _, _, _, model, _, rn, h, x, mlig, nbh, e_w, gh, gx = _split_setup(*SPLIT_CASES[case])
+    got, want = _replay_and_autograd(model, rn, h, x, mlig, nbh, e_w, gh, gx, cfg.n_heads,
+                                     split3_matmul, drbf_tf32)
+    _hold_replay(got, want, 36 * cfg.num_layers)
+
+
+def test_one_term_tf32_drbf_backward_replay_misses_the_bar():
+    """One TF32 product per term in d rbf lands well outside the bar that the
+    three-term d rbf holds on the same inputs."""
+    def one_term(dz, w_rbf, et, ta):
+        return drbf_tf32(dz, w_rbf, et, ta, terms=1)
+
+    cfg, _, _, _, model, _, rn, h, x, mlig, nbh, e_w, gh, gx = _split_setup(
+        *SPLIT_CASES["knn_K40"])
+    three, want = _replay_and_autograd(model, rn, h, x, mlig, nbh, e_w, gh, gx, cfg.n_heads,
+                                       split3_matmul, drbf_tf32)
+    one, _ = _replay_and_autograd(model, rn, h, x, mlig, nbh, e_w, gh, gx, cfg.n_heads,
+                                  split3_matmul, one_term)
+    assert _worst_over_scale(three, want) < 1e-5
+    assert _worst_over_scale(one, want) > 10 * 1e-5
+    with pytest.raises(AssertionError):
+        _hold_replay(one, want, 36 * cfg.num_layers)
+
+
+def test_two_table_drbf_from_staged_fragments_equals_einsum_over_edge_types():
+    """The two-table-and-select form of d rbf, on B operands decoded from the
+    port's staged fragments (`stage_rbf_frags`, the layout the kernel reads),
+    equals dz . w_rbf[type] on rows of both destination kinds with invalid
+    slots (dz zero, as the kernel has them) and a partial last chunk (K = 40,
+    slots padded to 64 with type 3 and noise in dz: the kernel reads only the
+    slots below K). Every fragment word is a TF32 number, and hi + lo gives
+    the table to ~2^-22."""
+    rng = np.random.default_rng(5)
+    H2, K, KP, nrow = 64, 40, 64, 6
+    w_rbf = torch.from_numpy(rng.normal(size=(4, 20, H2)) * 10.0 ** rng.uniform(-3, 1, (4, 20, 1)))
+    w_rbf = w_rbf.float()
+    frags = block_vjp.stage_rbf_frags(w_rbf)
+    assert frags.shape == (2, H2 // 8, 5, 32, 4) and frags.dtype == torch.int32
+    assert bool(((frags & 0x1FFF) == 0).all())  # TF32: the 13 low mantissa bits clear
+    # decode: kind, ks, nt, (g, tig), (b0 hi, b1 hi, b0 lo, b1 lo) -> B [2][k][j]
+    f = frags.view(torch.float32).reshape(2, H2 // 8, 5, 8, 4, 2, 2)  # .., g, tig, hi|lo, b0|b1
+    tables = f.permute(5, 0, 1, 6, 4, 2, 3).reshape(2, 2, H2, 40)  # hi|lo, kind, k, j
+    want_b = _two_tables(w_rbf).transpose(1, 2)
+    torch.testing.assert_close(tables[0], split3(want_b)[0], rtol=0, atol=0)
+    torch.testing.assert_close(tables[1], split3(want_b)[1], rtol=0, atol=0)
+    b = tables[0].double() + tables[1].double()
+    assert float(((b - want_b.double()).abs() / want_b.double().abs()).max()) < 2 ** -21
+    # rows: three ligand (kind 0), three protein (kind 1); sources of both kinds
+    dst_lig = torch.tensor([True, True, True, False, False, False])
+    src_lig = torch.from_numpy(rng.random((nrow, KP)) < 0.4)
+    et = torch.where(src_lig, torch.where(dst_lig[:, None], 0, 1),
+                     torch.where(dst_lig[:, None], 2, 3))
+    et[:, K:] = 3
+    ta = torch.where(dst_lig, 0, 1)[:, None].expand(nrow, KP)
+    valid = torch.from_numpy(rng.random((nrow, KP)) < 0.8)
+    valid[:, K:] = False
+    dz = torch.from_numpy(rng.normal(size=(nrow, KP, H2))).float()
+    dz[:, :K] *= valid[:, :K, None]
+    got = _by_kind(torch.einsum("nkc,tcj->tnkj", dz.double(), b), et, ta, 20)[:, :K]
+    want = drbf_einsum(dz[:, :K].double(), w_rbf.double(), et[:, :K], ta[:, :K])
+    scale = torch.einsum("nkc,nkrc->nkr", dz[:, :K].double().abs(),
+                         w_rbf.double().abs()[et[:, :K]])
+    assert float(((got - want).abs() / scale.clamp(min=1e-30)).max()) < 2 ** -20
+    assert bool((got[~valid[:, :K]] == 0).all())
+    # the kernel's arithmetic (three TF32 terms) on the same slots
+    tf = drbf_tf32(dz[:, :K], w_rbf, et[:, :K], ta[:, :K])
+    assert float(((tf.double() - want).abs() / scale.clamp(min=1e-30)).max()) < 1e-5
 
 
 class _SplitReplayBlock(torch.autograd.Function):

@@ -201,15 +201,17 @@ def _grads(module, fn, leaves_in, cot):
     return grads
 
 
-@pytest.mark.parametrize("case", ["block_K32", "x2h_hybrid_K95", "h2x_hybrid_K95"])
+@pytest.mark.parametrize("case", ["block_K32", "x2h_hybrid_K95", "h2x_hybrid_K95",
+                                  "x2h_knn_K40"])
 def test_backward_kernels_hold_the_float64_bar_and_repeat(cuda, case):
     """The block backward (K = 32) and the per-layer backwards on a hybrid
-    graph (K = 95: three chunks, pass 2 recomputes k) against float64
-    autograd of the plain layers at the same inputs (the block: at the
-    kernel's checkpoints), as chip_smoke.py holds them: the median tensor
-    within BWD64_MEDIAN of its scale and, per layer, every tensor within
-    BWD64_BAR or BWD64_F32 times the plain float32 version's own error; two
-    runs bitwise equal."""
+    graph (K = 95: three chunks, pass 2 recomputes k) and, for x2h, on a kNN
+    graph of K = 40 (its last chunk holds 8 slots: the d rbf product's second
+    m-tile is all padding) against float64 autograd of the plain layers at
+    the same inputs (the block: at the kernel's checkpoints), as
+    chip_smoke.py holds them: the median tensor within BWD64_MEDIAN of its
+    scale and, per layer, every tensor within BWD64_BAR or BWD64_F32 times
+    the plain float32 version's own error; two runs bitwise equal."""
     from chip_smoke import BWD64_BAR, BWD64_F32, BWD64_MEDIAN, block_vjp_chain, tensor_errs
     from targetdiff_tpu_torch.ops.kernels import block_vjp
     from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
@@ -233,9 +235,10 @@ def test_backward_kernels_hold_the_float64_bar_and_repeat(cuda, case):
         names = {"dh0": "d0", "dx0": "d1", "de_w": "d2"}
         plain32, want64 = ({names.get(n, n): t for n, t in g.items()} for g in (plain32, want64))
     else:
-        _, _, rn, h, x, node_mask, mlig, nbh, e_w = _layer_setup(cuda, "hybrid", 32, 64, 64,
+        cutoff_mode, k = ("knn", 40) if case.endswith("K40") else ("hybrid", 32)
+        _, _, rn, h, x, node_mask, mlig, nbh, e_w = _layer_setup(cuda, cutoff_mode, k, 64, 64,
                                                                   seed=1)
-        assert nbh.idx.shape[-1] == 95
+        assert nbh.idx.shape[-1] == (40 if cutoff_mode == "knn" else 95)
         sub = case[:3]
         cot = ((torch.randn(h.shape, generator=gen, device=cuda) * node_mask[..., None],)
                if sub == "x2h" else (torch.randn(x.shape, generator=gen, device=cuda),))
@@ -264,6 +267,27 @@ def test_backward_kernels_hold_the_float64_bar_and_repeat(cuda, case):
     if case != "block_K32":
         for n, e in errs.items():
             assert e < max(BWD64_BAR, BWD64_F32 * floor[n]), (n, e, floor[n])
+
+
+def test_staged_rbf_fragments_are_the_tf32_split_of_the_table(cuda):
+    """The d rbf product's B fragments as the backward stages them on the card
+    (stage_rbf_kernel) are, word for word, the TF32 (hi, lo) split of the
+    RBF table in both destination kinds' layouts, as `stage_rbf_frags` lays
+    them out in PyTorch (types 0|2 for ligand rows, 1|3 for protein rows;
+    tests/test_torch_block_vjp.py decodes that layout), on a table whose rows
+    span 1e-6 .. 1e2."""
+    from targetdiff_tpu_torch.ops.kernels import block_vjp
+
+    rng = np.random.default_rng(4)
+    w = rng.normal(size=(4, 20, 256)) * 10.0 ** rng.uniform(-6, 2, (4, 20, 1))
+    w_rbf = torch.tensor(w, dtype=torch.float32)
+    want = block_vjp.stage_rbf_frags(w_rbf)
+    got = block_vjp.stage_rbf_frags(w_rbf.to(cuda))
+    again = block_vjp.stage_rbf_frags(w_rbf.to(cuda))
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (2, 32, 5, 32, 4)
+    assert torch.equal(got.cpu(), want) and torch.equal(got, again)
+    assert bool(((want & 0x1FFF) == 0).all())  # every word a TF32 number
 
 
 def test_train_loss_kernel_path_matches_eager(cuda):
