@@ -1,32 +1,39 @@
 #!/usr/bin/env python3
 """Variants of the backward's edge kernel (edge_bwd_kernel in
 targetdiff_tpu_torch/csrc/pass_bwd.cuh) on one NVIDIA GPU: the mutation check
-of the backwards' float64 bar and a phase split of the kernel's time, each
-variant held against the unchanged kernel in one run.
+of the backwards' float64 bars, a phase split of the kernel's time and the
+design alternatives not taken, each variant held against the unchanged
+kernel in one run.
 
-    python3 edge_bwd_variants.py [--base CHECKOUT] [VARIANT ...]
+    python3 edge_bwd_variants.py [--base CHECKOUT] [--parent CHECKOUT] [VARIANT ...]
 
 Each variant is a temporary copy of the targetdiff_tpu_torch package of
 CHECKOUT (this checkout by default) whose pass_bwd.cuh or block_common.cuh
-(the recompute's first layer) is changed by VARIANTS; the copies are built
-in parallel and measured one after the other, the unchanged kernel first
-and last. A phase is taken out by skipping its loop or, for the
-recompute's second layers, by loading its input in place of its output, so
-that nothing downstream folds away; the results of those copies are wrong
-and only their times are read. `fp32_table_drbf` is the d rbf product with
-its B operand read from the float32 table and split in the loop, in place
-of the staged fragments: right, and timed beside them. Each
-prints one JSON line: the device ms per launch of edge_bwd_kernel<x2h> and
-<h2x> in one block backward at the B=32 train step's shapes (chip_smoke.py
-train_setup; N = 416, K = 32, L = 9), that backward's CUDA-event ms, the
-kernels' registers, spills and shared memory from `-Xptxas -v` and, for the
+(the recompute's first layer) is changed by VARIANTS, or replaced by the
+files of a directory (OVERLAYS); the copies are built in parallel and
+measured one after the other, the unchanged kernel first and last. A phase
+is taken out by skipping its loop or, for the recompute's second layers, by
+loading its input in place of its output, so that nothing downstream folds
+away; the results of those copies are wrong and only their times are read.
+The alternatives are right and timed beside the kernel: `staged_cluster8`
+(edge_bwd_staged/: the second layers staged once per cluster of eight
+blocks in shared memory and read through distributed shared memory),
+`drbf_prefetch`, `gather_first`, `fp32_table_drbf`, `unrolled_drbf`,
+`select_first_layer`. Each prints one JSON line: the device ms per launch
+of edge_bwd_kernel<x2h> and <h2x> in one block backward at the B=32 train
+step's shapes (chip_smoke.py train_setup; N = 416, K = 32, L = 9), that
+backward's CUDA-event ms, the kernels' registers, spills and shared memory
+from `-Xptxas -v`, blocks per SM (block_vjp.edge_bwd_info) and, for the
 unchanged kernel and the mutants, chip_smoke.margins (the gradients of
-[train-block] and [layers]' hybrid backwards against float64, bar
-chip_smoke.BWD64_BAR). The card's name and power limit come first. Patches
+[train-block] and [layers]' hybrid backwards against float64, bars
+chip_smoke.BWD64_MEDIAN and BWD64_BAR). With --parent, the unchanged kernel
+of that checkout runs first too, and a last line gives every variant's
+largest difference from its backward outputs (dh0, dx0, d e_w and every
+weight gradient at those shapes; 0: bitwise equal); without, from the
+unchanged kernel's. The card's name and power limit come first. Patches
 that name the earlier FMA recompute, d rbf loop or first layer apply to a
-checkout from before those changes, so one command splits both (the d rbf
-mutant and `fp32_table_drbf` have no earlier form). Needs a CUDA device and
-nvcc.
+checkout from before those changes (--base), so one command splits both.
+Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -99,6 +106,26 @@ SELECT = """  float wa[R], wb[R];
       for (int r = 0; r < R; ++r) v += g.rbf[e][r] * (is_a ? wa[r] : wb[r]);
     }
     z[e][c] = v;
+  }
+"""
+# the sources' nj of the chunk's slots gathered first, all in flight together
+GATHER_FIRST = """  for (int e = n; e < KC; ++e) z[e][c] = 0.f;
+  float nj[KC];
+#pragma unroll
+  for (int e = 0; e < KC; ++e) nj[e] = e < n ? in.nj[(b * N + g.j[e]) * H2 + c] : 0.f;
+  for (int ty = ta; ty < 4; ty += 2) {
+    float w[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) w[r] = p.w_rbf[(ty * R + r) * H2 + c];
+    const float wet = p.w_et[ty * H2 + c];
+#pragma unroll
+    for (int e = 0; e < KC; ++e) {
+      if (e >= n || g.et[e] != ty) continue;
+      float v = zi + nj[e] + wet;
+#pragma unroll
+      for (int r = 0; r < R; ++r) v += g.rbf[e][r] * w[r];
+      z[e][c] = v;
+    }
   }
 """
 
@@ -177,7 +204,35 @@ VARIANTS = {
     # one block per SM: the compiler's register limit doubles (no spills)
     "one_block_per_sm": [[("__launch_bounds__(kThreads, 2) edge_bwd_kernel",
                            "__launch_bounds__(kThreads, 1) edge_bwd_kernel")]],
+    # latency alternatives (right, timed): d rbf with the next k-step's
+    # fragments in flight; the first layer's source rows gathered before its
+    # sums
+    "drbf_prefetch": [[("""#pragma unroll 1
+  for (int i = 0; i < kSteps; ++i) {
+    const int ks = warp * kSteps + i;
+    uint4 b[kDrbfNTiles];
+#pragma unroll
+    for (int nt = 0; nt < kDrbfNTiles; ++nt) b[nt] = drbf_frag(frags, w_rbf, ta, ks, nt, lane);""",
+                        """  uint4 b[kDrbfNTiles], b2[kDrbfNTiles];
+#pragma unroll
+  for (int nt = 0; nt < kDrbfNTiles; ++nt)
+    b2[nt] = drbf_frag(frags, w_rbf, ta, warp * kSteps, nt, lane);
+#pragma unroll 1
+  for (int i = 0; i < kSteps; ++i) {
+    const int ks = warp * kSteps + i;
+#pragma unroll
+    for (int nt = 0; nt < kDrbfNTiles; ++nt) b[nt] = b2[nt];
+#pragma unroll
+    for (int nt = 0; nt < kDrbfNTiles; ++nt)
+      b2[nt] = drbf_frag(frags, w_rbf, ta, i + 1 < kSteps ? ks + 1 : ks, nt, lane);""")]],
+    "gather_first": [[(TWO_PASS, GATHER_FIRST)]],
+    # the design not taken: the second layers staged once per cluster of
+    # eight blocks in shared memory (edge_bwd_staged/, an overlay of whole
+    # files: OVERLAYS)
+    "staged_cluster8": [],
 }
+# Variants that replace whole files of the package's csrc with a directory's.
+OVERLAYS = {"staged_cluster8": REPO / "edge_bwd_staged"}
 
 
 def apply(texts: dict, groups) -> dict:
@@ -193,10 +248,13 @@ def apply(texts: dict, groups) -> dict:
     return texts
 
 
-def make_copy(base: Path, root: Path, name: str) -> Path:
-    dst = root / name
+def make_copy(base: Path, root: Path, name: str, label: str = None) -> Path:
+    """Variant `name` of the package in `base`, in root / label (default: name)."""
+    dst = root / (label or name)
     shutil.copytree(base / "targetdiff_tpu_torch", dst / "targetdiff_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    for f in OVERLAYS[name].iterdir() if name in OVERLAYS else ():
+        shutil.copy(f, dst / CSRC / f.name)
     texts = {f: (dst / CSRC / f).read_text() for f in SOURCES}
     for f, text in apply(texts, VARIANTS[name]).items():
         (dst / CSRC / f).write_text(text)
@@ -204,16 +262,20 @@ def make_copy(base: Path, root: Path, name: str) -> Path:
 
 
 def ptxas(log: list, kernel: str) -> str:
-    """The `-Xptxas -v` lines of `kernel` as block_vjp.cu compiles it."""
-    entry = next(i for i, ln in enumerate(log)
-                 if "Compiling entry" in ln and "block_vjp" in ln and kernel in ln)
+    """The `-Xptxas -v` lines of `kernel` as block_vjp.cu compiles it (None
+    if it has no such kernel)."""
+    entry = next((i for i, ln in enumerate(log)
+                  if "Compiling entry" in ln and "block_vjp" in ln and kernel in ln), None)
+    if entry is None:
+        return None
     return "; ".join(ln.strip() for ln in log[entry + 1:entry + 4]
                      if "registers" in ln or "spill" in ln)
 
 
-def measure(copy: Path, name: str) -> dict:
+def measure(copy: Path, name: str, out_file: Path) -> dict:
     """The variant in `copy`: its edge kernels' device time in one block
-    backward at the B=32 step's shapes and, for ERRORS, chip_smoke.margins."""
+    backward at the B=32 step's shapes and, for ERRORS, chip_smoke.margins;
+    that backward's outputs go to out_file."""
     sys.path.insert(0, str(copy))
     import torch
 
@@ -246,6 +308,12 @@ def measure(copy: Path, name: str) -> dict:
         return kvjp.block_bwd_cuda(hck, xck, nbh.idx, nbh.mask, mlig, e_w, cs.MAX_LIGAND, x2h,
                                    h2x, gh, gx)
 
+    with torch.no_grad():
+        dh0, dx0, dew, gx2h, gh2x = bwd()
+    outputs = {"dh0": dh0, "dx0": dx0, "de_w": dew,
+               **{f"x2h.{k}": v for k, v in gx2h.items()},
+               **{f"h2x.{k}": v for k, v in gh2x.items()}}
+    torch.save({k: v.cpu() for k, v in outputs.items()}, out_file)
     L = cs.FLAGSHIP["num_layers"]
     out = {"variant": name, "block_bwd_b32_ms": cs.cuda_ms(torch, bwd, reps=5)}
     for key, ms in cs.bwd_device_ms(torch, "b32", bwd, calls=5).items():
@@ -259,16 +327,20 @@ def measure(copy: Path, name: str) -> dict:
         out["margins"] = cs.margins(torch, dev, pocket, feat.feature_dim, check=False)
     log = (build.build_dir() / "build.log").read_text().splitlines()
     out["ptxas"] = {k: ptxas(log, f"edge_bwd_kernelILb{b}E") for k, b in (("x2h", 0), ("h2x", 1))}
+    if hasattr(kvjp, "edge_bwd_info"):
+        out["edge_bwd_info"] = {k: kvjp.edge_bwd_info(cs.K, k == "h2x") for k in ("x2h", "h2x")}
     return out
 
 
 def main(argv) -> int:
     if argv[:1] == ["--measure"]:
-        print(json.dumps(measure(Path(argv[1]), argv[2])), flush=True)
+        print(json.dumps(measure(Path(argv[1]), argv[2], Path(argv[3]))), flush=True)
         return 0
-    base = REPO
-    if argv[:1] == ["--base"]:
-        base, argv = Path(argv[1]).resolve(), argv[2:]
+    base, parent = REPO, None
+    while argv[:1] in (["--base"], ["--parent"]):
+        path = Path(argv[1]).resolve()
+        base, parent = (path, parent) if argv[0] == "--base" else (base, path)
+        argv = argv[2:]
     import torch
 
     if not torch.cuda.is_available():
@@ -279,11 +351,14 @@ def main(argv) -> int:
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs
 
-    print(cs.card_name(), json.dumps({"base": str(base)}), flush=True)
+    print(cs.card_name(), json.dumps({"base": str(base), "parent": str(parent)}), flush=True)
     root = Path(tempfile.mkdtemp(prefix="edge_bwd_variants_"))
     try:
         order = ["kernel", *[n for n in names if n != "kernel"], "kernel"]
         copies = {n: make_copy(base, root, n) for n in dict.fromkeys(order)}
+        if parent is not None:
+            copies["parent"] = make_copy(parent, root, "kernel", "parent")
+            order = ["parent", *order]
         builds = [subprocess.Popen(
             [sys.executable, "-c", "from targetdiff_tpu_torch.ops.kernels import build; "
              "build.load_library()"], cwd=c) for c in copies.values()]
@@ -291,7 +366,14 @@ def main(argv) -> int:
             raise RuntimeError("a variant failed to build")
         for n in order:
             subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure",
-                            str(copies[n]), n], check=True)
+                            str(copies[n]), n, str(root / f"{n}.pt")], check=True)
+        ref = "parent" if parent is not None else "kernel"
+        want = torch.load(root / f"{ref}.pt")
+        diffs = {}
+        for n in dict.fromkeys(order):
+            got = torch.load(root / f"{n}.pt")
+            diffs[n] = max(float((got[k] - want[k]).abs().max()) for k in want)
+        print(json.dumps({"outputs_max_abs_diff_from": ref, "max_abs_diff": diffs}), flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return 0

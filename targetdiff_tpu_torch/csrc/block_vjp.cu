@@ -17,10 +17,12 @@
 // N*K*128k multiply-adds, ~1 TFLOP per step at B=32, N=416, K=32, L=9. The
 // recompute's second layers, d rbf and the weight gradients run on the
 // tensor cores, the transposed second layers and the rest on the float32
-// pipes; with one block per destination row the second layers wait on their
-// weights, 128 KB per 32-edge chunk from L2 (PERF.md). The RBF table is read
-// once per chunk: 80 KB of staged fragments for d rbf, and each thread's
-// column of the row's two type tables for the recompute's first layer.
+// pipes; with one block per destination row the second layers read their
+// weights from L2, 128 KB per 32-edge chunk (staged in shared memory instead,
+// they leave fewer rows in flight per SM or go through the slower distributed
+// shared memory: PERF.md). The RBF table is read once per chunk: 80 KB of
+// staged fragments for d rbf, and each thread's column of the row's two type
+// tables for the recompute's first layer.
 //
 // Design: per layer l = L-1 .. 0, first the h2x pass (ligand-tail rows,
 // h = hck[l+1], x = xck[l]) then the x2h pass (all rows, h = hck[l]), each
@@ -85,6 +87,31 @@ extern "C" int td_stage_rbf(const float* w_rbf, void* frags, void* stream) {
   stage_rbf_kernel<<<(kRbfFrags + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
       w_rbf, reinterpret_cast<uint4*>(frags));
   return (int)cudaGetLastError();
+}
+
+// edge_bwd_kernel as run_pass launches it for one pass of K neighbours per row:
+// info[4] = {shared memory bytes per block (dynamic and static), blocks per
+// SM, registers per thread, local (spill) bytes per thread}.
+template <bool kH2X>
+int edge_bwd_info(int K, int* info) {
+  cudaFuncAttributes fa;
+  int err = (int)cudaFuncSetAttribute(edge_bwd_kernel<kH2X>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      bwd_smem(kMaxLayerK, kH2X));
+  if (!err) err = (int)cudaFuncGetAttributes(&fa, edge_bwd_kernel<kH2X>);
+  if (!err)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], edge_bwd_kernel<kH2X>,
+                                                             kThreads, bwd_smem(K, kH2X));
+  if (err) return err;
+  info[0] = bwd_smem(K, kH2X) + (int)fa.sharedSizeBytes;
+  info[2] = fa.numRegs;
+  info[3] = (int)fa.localSizeBytes;
+  return 0;
+}
+
+extern "C" int td_edge_bwd_info(int h2x, int K, int* info) {
+  if (K <= 0 || K > kMaxLayerK) return (int)cudaErrorInvalidValue;
+  return h2x ? edge_bwd_info<true>(K, info) : edge_bwd_info<false>(K, info);
 }
 
 // The weight-gradient product of run_pass alone (weight_grad.cuh): out [P][Q]

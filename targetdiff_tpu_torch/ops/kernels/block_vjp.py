@@ -40,9 +40,28 @@ class _PassGrads(ctypes.Structure):
 
 
 class _PassT(ctypes.Structure):
-    """Mirror of `PassT` in csrc/block_vjp.cu (transposed weights)."""
+    """Mirror of `PassT` in csrc/pass_bwd.cuh (transposed weights)."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in ("w_nodeT", "w_q2T", "w2kT", "w2vT")]
+
+
+def edge_bwd_info(K: int, h2x: bool) -> dict:
+    """What the card makes of the backward's edge kernel (csrc/pass_bwd.cuh
+    edge_bwd_kernel) for one pass of K neighbours (td_edge_bwd_info): its
+    shared memory per block, blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
+    (spill) bytes per thread."""
+    info = (ctypes.c_int * 4)()
+    build.check(_info_entry()(int(h2x), K, info), "td_edge_bwd_info")
+    return dict(zip(("smem", "blocks_per_sm", "registers", "local_bytes"), info))
+
+
+@functools.lru_cache(maxsize=None)
+def _info_entry():
+    fn = build.load_library().td_edge_bwd_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.lru_cache(maxsize=None)

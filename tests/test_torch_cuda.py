@@ -202,7 +202,7 @@ def _grads(module, fn, leaves_in, cot):
 
 
 @pytest.mark.parametrize("case", ["block_K32", "x2h_hybrid_K95", "h2x_hybrid_K95",
-                                  "x2h_knn_K40"])
+                                  "x2h_knn_K40", "x2h_hybrid_K256", "h2x_hybrid_K256"])
 def test_backward_kernels_hold_the_float64_bar_and_repeat(cuda, case):
     """The block backward (K = 32) and the per-layer backwards on a hybrid
     graph (K = 95: three chunks, pass 2 recomputes k) and, for x2h, on a kNN
@@ -211,7 +211,8 @@ def test_backward_kernels_hold_the_float64_bar_and_repeat(cuda, case):
     the same inputs (the block: at the kernel's checkpoints), as
     chip_smoke.py holds them: the median tensor within BWD64_MEDIAN of its
     scale and, per layer, every tensor within BWD64_BAR or BWD64_F32 times
-    the plain float32 version's own error; two runs bitwise equal."""
+    the plain float32 version's own error; two runs bitwise equal. Also the
+    largest K the per-layer backwards take (256: eight chunks per row)."""
     from chip_smoke import BWD64_BAR, BWD64_F32, BWD64_MEDIAN, block_vjp_chain, tensor_errs
     from targetdiff_tpu_torch.ops.kernels import block_vjp
     from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
@@ -235,10 +236,12 @@ def test_backward_kernels_hold_the_float64_bar_and_repeat(cuda, case):
         names = {"dh0": "d0", "dx0": "d1", "de_w": "d2"}
         plain32, want64 = ({names.get(n, n): t for n, t in g.items()} for g in (plain32, want64))
     else:
+        K = int(case.split("_K")[1])
         cutoff_mode, k = ("knn", 40) if case.endswith("K40") else ("hybrid", 32)
-        _, _, rn, h, x, node_mask, mlig, nbh, e_w = _layer_setup(cuda, cutoff_mode, k, 64, 64,
+        n_lig = 64 if cutoff_mode == "knn" else K + 1 - k  # hybrid K = n_lig - 1 + k
+        _, _, rn, h, x, node_mask, mlig, nbh, e_w = _layer_setup(cuda, cutoff_mode, k, n_lig, 64,
                                                                   seed=1)
-        assert nbh.idx.shape[-1] == (40 if cutoff_mode == "knn" else 95)
+        assert nbh.idx.shape[-1] == K
         sub = case[:3]
         cot = ((torch.randn(h.shape, generator=gen, device=cuda) * node_mask[..., None],)
                if sub == "x2h" else (torch.randn(x.shape, generator=gen, device=cuda),))
@@ -246,7 +249,7 @@ def test_backward_kernels_hold_the_float64_bar_and_repeat(cuda, case):
         def kernel(hh, xx, ee):
             if sub == "x2h":
                 return kelv.x2h_layer_trainable(rn.base_block[0], hh, xx, nbh, mlig, ee)
-            return kelv.h2x_layer_trainable(rn.base_block[0], hh, xx, nbh, mlig, ee, 64)
+            return kelv.h2x_layer_trainable(rn.base_block[0], hh, xx, nbh, mlig, ee, n_lig)
 
         def plain(m):
             fn = kel.x2h_layer_plain if sub == "x2h" else kel.h2x_layer_plain
@@ -267,6 +270,22 @@ def test_backward_kernels_hold_the_float64_bar_and_repeat(cuda, case):
     if case != "block_K32":
         for n, e in errs.items():
             assert e < max(BWD64_BAR, BWD64_F32 * floor[n]), (n, e, floor[n])
+
+
+@pytest.mark.parametrize("h2x,K", [(False, 32), (True, 32), (False, 95), (False, 256),
+                                   (True, 256)])
+def test_edge_bwd_kernel_occupancy(cuda, h2x, K):
+    """The backward's edge kernel as the card makes it: at most 128 registers
+    per thread, two blocks per SM at the whole-block backward's K = 32 (two
+    destination rows in flight) and one at the per-layer K of the hybrid
+    graph and above, within the 232,448 bytes of shared memory one block may
+    take."""
+    from targetdiff_tpu_torch.ops.kernels import block_vjp
+
+    info = block_vjp.edge_bwd_info(K, h2x)
+    assert info["registers"] <= 128
+    assert info["blocks_per_sm"] == (2 if K <= 32 else 1)
+    assert info["smem"] <= 232448
 
 
 def test_staged_rbf_fragments_are_the_tf32_split_of_the_table(cuda):
