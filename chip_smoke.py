@@ -12,7 +12,8 @@ pocket: 572 atoms padded to 576, 32 ligand slots, K = 32, four complexes;
 flagship width: 9 layers, hidden 128, 16 heads), holds the node launch, the
 x2h edge launch and the h2x edge launch alone against their plain versions
 (the edge launches at float32-grade bars) and times each beside its bound
-(the node launch also beside `torch.addmm` of its projection), then samples
+(the node launch also beside `torch.addmm` of its projection), holds the
+edge-weight launch against float64 at B=4 and at the bench's B=100, then samples
 molecules for that pocket through the port's entry point
 `sample_diffusion_ligand` with seeded random flagship weights, and checks the
 outputs. Then the training
@@ -20,7 +21,9 @@ path: the train-mode block kernel and the block-VJP kernel against autograd
 of the plain block and, within BWD64_BAR, of its float64 copy (two backward
 runs bitwise equal), the backwards' weight-gradient kernel alone against
 float64 at the shapes of the B=32 step's products (each timed beside its
-bound and `torch.mm`), the whole loss and its gradients on the kernel path
+bound and `torch.mm`), the backward's node kernel alone against float64 at
+the B=32 step's rows for both passes (timed beside its bound and `torch.mm`
+of its dh product), the whole loss and its gradients on the kernel path
 against the eager path, `make_train_step` at the bench's train shape (B=32,
 384-slot synthetic pockets), a short fit, and the train CLI's `run` on a
 six-entry dataset, whose checkpoint is reloaded and sampled from. Then the
@@ -111,6 +114,16 @@ H2X_TOL = dict(atol=1e-5, rtol=0.0)
 # largest |exact| entry of each output (three-term fp16 on rows scaled by a
 # power of two; float32 itself sits ~1e-7 there).
 NODE_REL = 4e-6
+# The edge-weight kernel alone against float64, on the valid slots: its first
+# layer is three-term TF32 (float32-grade, ~1e-7 from float64); one TF32
+# product per term lands ~1e-4 away (node_ew_variants.py `one_term_ew`,
+# tests/test_torch_edge_weights.py).
+EW_TOL = dict(atol=1e-5, rtol=0.0)
+# The backward's node kernel alone against float64: every output (dq1, the
+# query LayerNorm's partials, qa, dh) within NODE_BWD_BAR of its scale, the
+# largest |exact| entry (three-term TF32 products; one TF32 product per term
+# misses it: node_ew_variants.py `one_term_node_bwd`).
+NODE_BWD_BAR = 1e-5
 GRAD_ATOL_SCALE, GRAD_RTOL = 5e-3, 5e-3  # atol = 5e-3 * max|plain grad| per tensor
 # The backwards' gradients against float64 autograd of the plain layers (a
 # float64 copy of the module) at the same inputs; for the block, the chain of
@@ -386,34 +399,62 @@ def piece_fields(torch, kblock, kel, layer, h, x, nbh, mask_ligand, e_w, px, ph,
     return f, xl, hl
 
 
-def ew_launch_fields(torch, kblock, x, nbh, packed, want, live_edges) -> dict:
-    """The edge-weight launch alone (td_block_ew, once per block call) on the
-    block's positions and graph, held against the plain edge weights `want`
-    on the valid slots: CUDA-event and device ms beside its bound (the
-    edge-weight MLP of every live edge; x, idx, the weights and e_w moved
-    once)."""
-    from targetdiff_tpu_torch.ops.rbf import gaussian_smearing_offsets
-
-    B, N, K = nbh.idx.shape
-    offsets, coeff = gaussian_smearing_offsets(device=x.device)
-    xc, idx = x.contiguous(), nbh.idx.contiguous()
-    out = torch.empty((B, N, K), device=x.device)
-    fn = kblock._entries()["td_block_ew"]
-    params = kblock._EwParams(*[t.data_ptr() for t in packed.ew])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-
-    def run():
-        kblock.build.check(fn(xc.data_ptr(), idx.data_ptr(), B, N, K, offsets.data_ptr(), coeff,
-                              params, out.data_ptr(), stream), "td_block_ew")
-
+def ew_launch_fields(torch, kblock, rn, x, nbh, packed, live_edges, prefix="ew") -> dict:
+    """The edge-weight launch alone (`edge_weights_cuda`: td_block_ew, as the
+    block launches it once per call) on positions x and graph nbh, held on
+    the valid slots against the module's edge weights in float64 (EW_TOL),
+    two launches bitwise equal: CUDA-event and device ms beside its bound
+    (the edge-weight MLP of every live edge; x, idx, the weights and e_w
+    moved once) and the plain version's (`edge_weights`, float32) ms. Keys
+    start with `prefix`."""
     with torch.no_grad():
-        run()
+        got = kblock.edge_weights_cuda(x, nbh, packed)
+        again = kblock.edge_weights_cuda(x, nbh, packed)
+        want = copy.deepcopy(rn).double().edge_weights(x.double(), nbh)[..., 0]
         torch.cuda.synchronize()
-        err = check_close("block ew launch", out[nbh.mask], want[nbh.mask], **H_TOL)
-        ms, dev_ms = cuda_ms(torch, run), device_ms(torch, run)
-    b = bound(live_edges * FLOP_EW_EDGE, nbytes(xc, idx, out, *packed.ew))
-    return {"ew_max_abs_err": err, "ew_ms": ms, "ew_device_ms": dev_ms,
-            "ew_bound_ms": b["bound_ms"], "ew_bound_by": b["bound_by"]}
+        if not torch.equal(got, again):
+            raise AssertionError(f"{prefix} launch: two launches differ")
+        f = {"max_abs_err": check_close(f"{prefix} launch", got[nbh.mask].double(),
+                                        want[nbh.mask], **EW_TOL)}
+        del want
+
+        def run():
+            return kblock.edge_weights_cuda(x, nbh, packed)
+
+        f.update(ms=cuda_ms(torch, run), device_ms=device_ms(torch, run),
+                 plain_ms=cuda_ms(torch, lambda: rn.edge_weights(x, nbh)))
+    f.update(bound(live_edges * FLOP_EW_EDGE, nbytes(x, nbh.idx, got, *packed.ew)))
+    return {f"{prefix}_{k}": v for k, v in f.items()}
+
+
+# The edge-weight kernel's cases off the main path (tests/test_torch_cuda.py,
+# node_ew_variants.py): cutoff mode, complexes, ligand slots.
+EW_CASES = {"knn_K32": ("knn", 4, MAX_LIGAND), "hybrid_K95": ("hybrid", 4, HYBRID_LIGAND),
+            "knn_B100": ("knn", 100, MAX_LIGAND)}
+
+
+def ew_case(torch, dev, case):
+    """(refine_net, x, nbh, packed) of an EW_CASES case: a flagship model of
+    seeded random weights (27 protein features) and its graph over random
+    complexes of MAX_PROTEIN protein slots (the last 6 padded) and the case's
+    ligand slots: kNN (K = 32) or hybrid (K = 64 - 1 + 32 = 95)."""
+    from targetdiff_tpu_torch.config import Config
+    from targetdiff_tpu_torch.models.score_model import DiffusionModel
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+
+    cutoff, nb, n_lig = EW_CASES[case]
+    torch.manual_seed(0)
+    model = DiffusionModel(Config(dict(FLAGSHIP, cutoff_mode=cutoff)), 27, NUM_CLASSES,
+                           device=dev, max_protein=MAX_PROTEIN, max_ligand=n_lig)
+    rn = model.net.refine_net
+    n = MAX_PROTEIN + n_lig
+    x = torch.randn((nb, n, 3), generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev) * 4
+    node_mask = torch.ones((nb, n), dtype=torch.bool, device=dev)
+    node_mask[:, MAX_PROTEIN - 6:MAX_PROTEIN] = False
+    mlig = (torch.arange(n, device=dev) >= MAX_PROTEIN).expand(nb, n)
+    with torch.no_grad():
+        return rn, x, rn.graph(x, node_mask, mlig), kblock.pack_block_params(rn)
 
 
 def layer_work(nbh, mask_ligand, node_mask):
@@ -610,7 +651,15 @@ def main(argv) -> int:
     px0, ph0 = ({k: v[:1] for k, v in st.items()} for st in (packed.x2h, packed.h2x))
     pieces, _, _ = piece_fields(torch, kblock, kel, rn.base_block[0], h, x, plain_nbh,
                                 mask_ligand, e_w0, px0, ph0, MAX_LIGAND, work, "block")
-    pieces.update(ew_launch_fields(torch, kblock, x, plain_nbh, packed, e_w0, work[2]))
+    pieces.update(ew_launch_fields(torch, kblock, rn, x, plain_nbh, packed, work[2]))
+    # the edge-weight launch at the bench's batch: the example pocket 100 times
+    with torch.no_grad():
+        _, x100, mask100, _ = model.net.embed(*pocket_batch(
+            torch, dev, pocket, feat.feature_dim, MAX_LIGAND, LIGAND_SIZES * 25, 0))
+        nbh100 = G.knn_graph(x100, mask100, K)
+    pieces.update(ew_launch_fields(torch, kblock, rn, x100, nbh100, packed,
+                                   int(nbh100.mask.sum()), prefix="ew_b100"))
+    del x100, mask100, nbh100
     phase("block", shape=f"B={B},N={N},K={K},L={L},H=128,heads=16",
           max_abs_err_x=x_err, max_abs_err_h=h_err, max_abs_err_h_valid_rows=h_err_all,
           ms=block_ms, plain_ms=block_plain_ms, **block_bound,
@@ -631,17 +680,17 @@ def main(argv) -> int:
     # 5. sample through the port's entry point
     steps = model.num_timesteps
     kknn.LAUNCHES = 0
-    kblock.LAUNCHES = 0
+    kblock.LAUNCHES = kblock.EW_LAUNCHES = 0
     t0 = time.perf_counter()
     res = sample_diffusion_ligand(
         model, pocket, num_samples=B, generator=torch.Generator(device=dev).manual_seed(2),
         batch_size=B, num_steps=steps, max_protein=MAX_PROTEIN, max_ligand=MAX_LIGAND,
         rng=np.random.default_rng(2))
     wall = time.perf_counter() - t0
-    knn_launches, block_launches = kknn.LAUNCHES, kblock.LAUNCHES
-    if knn_launches == 0 or block_launches == 0:
+    knn_launches, block_launches, ew_launches = kknn.LAUNCHES, kblock.LAUNCHES, kblock.EW_LAUNCHES
+    if knn_launches == 0 or block_launches == 0 or ew_launches != block_launches:
         raise AssertionError(f"sampling did not launch the kernels (knn {knn_launches}, "
-                             f"block {block_launches})")
+                             f"block {block_launches}, edge weights {ew_launches})")
     for pos, v in zip(res["pos"], res["v"]):
         if pos.shape != (len(v), 3) or not np.isfinite(pos).all():
             raise AssertionError("sampling produced a non-finite or misshaped molecule")
@@ -657,7 +706,7 @@ def main(argv) -> int:
     sample_s = res["time"][0]
     phase("sample", samples=B, steps=steps, ligand_atoms=sizes, seconds=sample_s,
           wall_seconds=wall, ms_per_step=1e3 * sample_s / steps, mol_per_s=B / sample_s,
-          knn_launches=knn_launches, block_launches=block_launches,
+          knn_launches=knn_launches, block_launches=block_launches, ew_launches=ew_launches,
           max_centroid_offset_A=dist, reconstructed=f"{len(rebuilt)}/{B}")
 
     layers = layer_phases(torch, dev, feat, pocket, rn, h, x, plain_nbh, mask_ligand, node_mask)
@@ -679,6 +728,11 @@ def main(argv) -> int:
          "replaces": "targetdiff_tpu/ops/pallas/block_denoiser.py:154",
          "launches": block_launches, "max_abs_err": max(x_err, h_err), "ms": block_ms,
          "plain_ms": block_plain_ms, **block_bound, **no_library},
+        {"name": "block_denoiser.ew", "route": "cuda",
+         "source": "targetdiff_tpu_torch/csrc/block_denoiser.cu",
+         "replaces": "targetdiff_tpu/ops/pallas/block_denoiser.py:319", "launches": ew_launches,
+         **{k: pieces[f"ew_{k}"] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                            "bound_by")}, **no_library},
         {"name": "block_denoiser_train", "route": "cuda",
          "source": "targetdiff_tpu_torch/csrc/block_denoiser.cu",
          "replaces": "targetdiff_tpu/ops/pallas/block_denoiser.py:154", **train["fwd"],
@@ -690,6 +744,10 @@ def main(argv) -> int:
            "source": "targetdiff_tpu_torch/csrc/weight_grad.cuh",
            "replaces": "targetdiff_tpu/ops/pallas/block_vjp.py:113", **fields}
           for cls, fields in train["weight_grad"].items()],
+        {"name": "block_vjp.node_bwd", "route": "cuda",
+         "source": "targetdiff_tpu_torch/csrc/node_bwd.cuh",
+         "replaces": "targetdiff_tpu/ops/pallas/edge_layer_vjp.py:153", **train["node_bwd"],
+         **no_library},
         {"name": "x2h_layer", "route": "cuda", "source": "targetdiff_tpu_torch/csrc/edge_layer.cu",
          "replaces": "targetdiff_tpu/ops/pallas/edge_layer.py:189",
          "launches": hybrid_launches["x2h"], **layers["x2h"], **no_library},
@@ -916,10 +974,12 @@ def margins(torch, dev, pocket, feat_dim, check=True) -> dict:
 
 
 def pocket_batch(torch, dev, pocket, feat_dim, n_ligand_slots, sizes, seed):
-    """B copies of the example pocket (572 atoms padded to MAX_PROTEIN,
-    centred) with ligands of `sizes` atoms at the centre plus unit noise."""
+    """len(sizes) copies of the example pocket (572 atoms padded to
+    MAX_PROTEIN, centred) with ligands of `sizes` atoms at the centre plus
+    unit noise."""
     from targetdiff_tpu_torch.data.batch import ComplexBatch
 
+    B = len(sizes)
     gen = torch.Generator(device=dev).manual_seed(seed)
     n_prot = len(pocket["protein_pos"])
     ppos = torch.zeros((B, MAX_PROTEIN, 3), device=dev)
@@ -1188,6 +1248,101 @@ def weight_grad_phase(torch, dev) -> dict:
     return {"products": products, "classes": classes}
 
 
+def node_bwd_operands(torch, dev, rows, V, seed=0):
+    """The backward's node kernel's operands (`node_bwd_cuda` order: rowbuf,
+    q1, dh, q_ln, w_q2T, w_nodeT) for `rows` rows of a pass of value width V,
+    seeded: gradient rows spanning two decades, q1 with a shifted mean."""
+    from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    rowbuf = randn(rows, kvjp.row_layout(HW, V)["width"])
+    rowbuf *= 10.0 ** (torch.rand((rows, 1), generator=gen, device=dev) * 2 - 1)
+    q1 = randn(rows, HW, scale=2.0) + 0.3
+    q_ln = torch.stack([1.0 + randn(HW, scale=0.2), randn(HW, scale=0.3)])
+    return (rowbuf, q1, randn(rows, HW), q_ln, randn(HW, HW, scale=HW ** -0.5),
+            randn(5 * HW, HW, scale=(5 * HW) ** -0.5))
+
+
+def node_bwd_errs(got, want) -> dict:
+    """The largest |got - want| of each output of the node kernel (dq1, the
+    query LayerNorm's partials, qa, dh; `node_bwd_cuda` / `node_bwd_plain`
+    tuples), over that output's largest |want| (`_over_scale`) and alone
+    (`_abs`)."""
+    from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
+
+    lay = kvjp.row_layout(HW, got[0].shape[1] - 13 * HW)
+    pieces = {"dq1": lambda r: r[0][:, 4 * HW:5 * HW],
+              "qln": lambda r: r[0][:, lay["qln"]:lay["qln"] + 2 * HW],
+              "qa": lambda r: r[1], "dh": lambda r: r[2]}
+    out = {}
+    for k, f in pieces.items():
+        err = float((f(got).double() - f(want).double()).abs().max())
+        out[f"{k}_abs"], out[f"{k}_over_scale"] = err, err / float(f(want).abs().max())
+    return out
+
+
+def node_bwd_phase(torch, dev) -> dict:
+    """[train-block node-bwd]: the backward's node kernel alone
+    (`node_bwd_cuda`) at the B=32 step's rows (N = 416: 13,312, 64-row tiles)
+    for both passes' row buffers (x2h V = 128, h2x V = 16) and at the B=4
+    block backward's (2,432, 32-row tiles), on `node_bwd_operands`: every
+    output within NODE_BWD_BAR of its scale from float64 (`node_bwd_plain`
+    on float64 copies, with the kernel's ReLU mask; the plain float32
+    version's error beside it), two launches bitwise equal; CUDA-event,
+    device and plain ms beside its bound (each row's dq, dproj[:, :4H], q1
+    and dh read and dq1, the partials, qa and dh written once, the weights
+    read once; the products at the TF32 rate) and `torch.mm` of its dh
+    product [rows, 5H] [5H, H] (float32, TF32 off), no single PyTorch call
+    computing the whole kernel; `node_bwd_info`."""
+    from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
+
+    train_rows = TRAIN_B * (TRAIN_PROTEIN + MAX_LIGAND)
+    out = {}
+    for label, rows, V in (("x2h", train_rows, HW), ("h2x", train_rows, NHEADS),
+                           ("block_h2x", B * (MAX_PROTEIN + MAX_LIGAND), NHEADS)):
+        ops = node_bwd_operands(torch, dev, rows, V)
+        rowbuf, q1, dh, q_ln, w_q2T, w_nodeT = ops
+        with torch.no_grad():
+            got = kvjp.node_bwd_cuda(rowbuf.clone(), q1, dh.clone(), q_ln, w_q2T, w_nodeT)
+            again = kvjp.node_bwd_cuda(rowbuf.clone(), q1, dh.clone(), q_ln, w_q2T, w_nodeT)
+            mask = got[1] > 0
+            want = kvjp.node_bwd_plain(*[t.double() for t in ops], relu_mask=mask)
+            plain = kvjp.node_bwd_plain(*ops, relu_mask=mask)
+            torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"node-bwd {label}: two launches differ")
+        errs, plain_errs = node_bwd_errs(got, want), node_bwd_errs(plain, want)
+        worst = max(v for k, v in errs.items() if k.endswith("_over_scale"))
+        if not worst < NODE_BWD_BAR or not all(bool(t.isfinite().all()) for t in got):
+            raise AssertionError(f"node-bwd {label}: error {worst} of scale (bar "
+                                 f"{NODE_BWD_BAR}): {errs}")
+        f = {"rows": rows, "V": V, "max_err_over_scale": worst,
+             "plain_max_err_over_scale": max(v for k, v in plain_errs.items()
+                                             if k.endswith("_over_scale")),
+             "max_abs_err": max(v for k, v in errs.items() if k.endswith("_abs"))}
+        del want, plain, again
+        rb, qa, dhc = got
+        dproj = rb[:, :5 * HW].contiguous()
+        runs = {"": lambda: kvjp.node_bwd_cuda(rb, q1, dhc, q_ln, w_q2T, w_nodeT, qa),
+                "plain_": lambda: kvjp.node_bwd_plain(*ops),
+                "dh_mm_": lambda: torch.mm(dproj, w_nodeT)}
+        with torch.no_grad():
+            for key, fn in runs.items():
+                f[f"{key}ms"] = cuda_ms(torch, fn)
+                f[f"{key}device_ms"] = device_ms(torch, fn)
+        f.update(bound((2 * rows * 6 * HW * HW, rows * 10 * HW),
+                       4 * (rows * 12 * HW + 6 * HW * HW + 2 * HW)))
+        f.update(kvjp.node_bwd_info(rows))
+        out[label] = f
+        del ops, rowbuf, q1, dh, got, rb, dhc, qa, dproj
+        torch.cuda.empty_cache()
+    return out
+
+
 def train_setup(torch, dev, feat_dim):
     """The `fast` train step at the bench's train shape: [train]'s batch (B=32
     synthetic complexes, data/synth.py, seed 3), a flagship model of seeded
@@ -1298,6 +1453,8 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     phase("train-block weight-grad", bar_over_s=WG_BAR,
           worst_err_over_s=max(f["max_err_over_s"] for f in wgrad["products"].values()),
           products=wgrad["products"])
+    node_bwd = node_bwd_phase(torch, dev)
+    phase("train-block node-bwd", bar_over_scale=NODE_BWD_BAR, **node_bwd)
 
     # ---- [train-loss]: the whole loss, kernel path vs eager path, injected draws ----
     # (the per-layer path's parity on the same draws is reported in [train-pl])
@@ -1317,6 +1474,7 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     torch.cuda.empty_cache()
     before = [p.detach().clone() for p in tmodel.parameters()]
     kknn.LAUNCHES = kblock.LAUNCHES = kblock.TRAIN_LAUNCHES = kvjp.LAUNCHES = 0
+    kvjp.NODE_BWD_LAUNCHES = 0
     kwg.LAUNCHES.update(dict.fromkeys(kwg.LAUNCHES, 0))
     for _ in range(TRAIN_WARMUP):
         state, metrics = step(state, tb, tgen)
@@ -1328,7 +1486,7 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = {"knn": kknn.LAUNCHES, "train_fwd": kblock.TRAIN_LAUNCHES, "vjp": kvjp.LAUNCHES,
-                "weight_grad": dict(kwg.LAUNCHES)}
+                "node_bwd": kvjp.NODE_BWD_LAUNCHES, "weight_grad": dict(kwg.LAUNCHES)}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     m = {k: float(v) for k, v in metrics.items()}
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
@@ -1336,6 +1494,8 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
         raise AssertionError(f"train: bad metrics {m}")
     if launches["vjp"] != n_steps or launches["train_fwd"] != n_steps or launches["knn"] != n_steps:
         raise AssertionError(f"train: expected one launch of each kernel per step, {launches}")
+    if launches["node_bwd"] != 2 * L * n_steps:
+        raise AssertionError(f"train: expected a node_bwd_kernel launch per pass, {launches}")
     # per step and layer: three edge products in each pass, two node products in each
     if launches["weight_grad"] != {"x2h_edge": 3 * L * n_steps, "h2x_edge": 3 * L * n_steps,
                                    "node": 4 * L * n_steps, "alone": 0}:
@@ -1377,7 +1537,7 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
         pl_state, _ = pl_step(pl_state, tb, tgen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kknn.LAUNCHES = kblock.TRAIN_LAUNCHES = kvjp.LAUNCHES = 0
+    kknn.LAUNCHES = kblock.TRAIN_LAUNCHES = kvjp.LAUNCHES = kvjp.NODE_BWD_LAUNCHES = 0
     kel.X2H_LAUNCHES = kel.H2X_LAUNCHES = kelv.X2H_BWD_LAUNCHES = kelv.H2X_BWD_LAUNCHES = 0
     kwg.LAUNCHES.update(dict.fromkeys(kwg.LAUNCHES, 0))
     t0 = time.perf_counter()
@@ -1388,12 +1548,12 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     pl_launches = {"knn": kknn.LAUNCHES, "x2h": kel.X2H_LAUNCHES, "h2x": kel.H2X_LAUNCHES,
                    "x2h_bwd": kelv.X2H_BWD_LAUNCHES, "h2x_bwd": kelv.H2X_BWD_LAUNCHES,
                    "block_fwd": kblock.TRAIN_LAUNCHES, "block_vjp": kvjp.LAUNCHES,
-                   "weight_grad": dict(kwg.LAUNCHES)}
+                   "node_bwd": kvjp.NODE_BWD_LAUNCHES, "weight_grad": dict(kwg.LAUNCHES)}
     pl_peak = torch.cuda.max_memory_allocated() / 2**30
     per_step = TRAIN_PL_STEPS * FLAGSHIP["num_layers"]
     if (any(pl_launches[k] != per_step for k in ("x2h", "h2x", "x2h_bwd", "h2x_bwd"))
             or pl_launches["block_fwd"] or pl_launches["block_vjp"]
-            or pl_launches["knn"] != TRAIN_PL_STEPS
+            or pl_launches["knn"] != TRAIN_PL_STEPS or pl_launches["node_bwd"] != 2 * per_step
             or pl_launches["weight_grad"] != {"x2h_edge": 3 * per_step, "h2x_edge": 3 * per_step,
                                               "node": 4 * per_step, "alone": 0}):
         raise AssertionError(f"train-pl: expected each per-layer kernel once per layer and "
@@ -1496,6 +1656,11 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
                     "plain_ms": bwd_plain_ms, **bwd_bound},
             "weight_grad": {cls: {"launches": train_launches["weight_grad"][cls], **fields}
                             for cls, fields in wgrad["classes"].items()},
+            "node_bwd": {"launches": train_launches["node_bwd"],
+                         "max_abs_err": max(f["max_abs_err"] for f in node_bwd.values()),
+                         **{k: node_bwd["x2h"][k]
+                            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "dh_mm_ms")},
+                         "timed_case": f"x2h, {node_bwd['x2h']['rows']} rows"},
             "pl_launches": pl_launches}
 
 
@@ -1779,14 +1944,15 @@ def profile_block(torch, dev, model, pocket, feat_dim) -> list:
 # profiler's kernel names)
 BWD_PIECES = (("wgrad", ("weight_grad_kernel", "atb_kernel")), ("reduce", ("reduce_kernel",)),
               ("edge_bwd_x2h", ("edge_bwd_kernel<false",)),
-              ("edge_bwd_h2x", ("edge_bwd_kernel<true",)))
+              ("edge_bwd_h2x", ("edge_bwd_kernel<true",)), ("node_bwd", ("node_bwd_kernel",)))
 
 
 def bwd_device_ms(torch, label, fn, calls=10) -> dict:
     """Device ms per call of fn spent in the weight-gradient products
     (weight_grad_kernel, or atb_kernel before it), in reduce_kernel (which
-    also sums the bias and LayerNorm column sums) and in the x2h and h2x
-    edge_bwd_kernel, over `calls` traced calls after one warm-up call."""
+    also sums the bias and LayerNorm column sums), in the x2h and h2x
+    edge_bwd_kernel and in node_bwd_kernel, over `calls` traced calls after
+    one warm-up call."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -1802,16 +1968,32 @@ def bwd_device_ms(torch, label, fn, calls=10) -> dict:
             for key, pieces in BWD_PIECES}
 
 
+def kernel_device_ms(torch, fn, piece, calls=10) -> float:
+    """Device ms per call of fn in the kernels whose name holds `piece`, over
+    `calls` traced calls after one warm-up call."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(v["ms"] for k, v in device_times(prof, calls).items() if piece in k)
+
+
 def duel(torch, dev, setup, pocket, feat_dim) -> dict:
-    """CUDA-event times of the whole-block kernels; CUDA-event and device
+    """CUDA-event times of the whole-block kernels, and ew_kernel's device
+    time in the inference block at B=4 and B=100; CUDA-event and device
     times of the node launch (every row, and as the h2x pass launches it) and
     of the x2h and h2x edge launches alone at the kNN shape; CUDA-event times
     of one td_x2h_layer and one td_h2x_layer call at the hybrid shape and the
     device time of the edge kernel and of node_kernel in those calls
     (torch.profiler, 10 calls: the calls themselves are host-bound once the
     kernels are fast); the device time of the weight-gradient products and
-    of reduce_kernel and the x2h and h2x edge_bwd_kernel in one block
-    backward (kNN shape) and in one per-layer x2h and one h2x backward
+    of reduce_kernel, the x2h and h2x edge_bwd_kernel and node_bwd_kernel in
+    one block backward (kNN shape) and in one per-layer x2h and one h2x backward
     (hybrid shape), and those backwards' CUDA-event times; 50 kNN and 50
     hybrid sampling steps (host clock); the B=32 `fast` train step (host
     clock, 10 steps after 3), the device time per step of the same kernels
@@ -1840,6 +2022,17 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
         packed = kblock.pack_block_params(rn)
         out["block_ms"] = cuda_ms(torch, lambda: kblock.block_denoiser_cuda(
             rn, h, x, nbh, mlig, MAX_LIGAND, packed))
+        # ew_kernel's device time in the block call, at B=4 and at the
+        # bench's batch of 100 (the example pocket 100 times)
+        out["ew_knn_device_ms"] = kernel_device_ms(torch, lambda: kblock.block_denoiser_cuda(
+            rn, h, x, nbh, mlig, MAX_LIGAND, packed), "ew_kernel")
+        h100, x100, mask100, mlig100 = model.net.embed(*pocket_batch(
+            torch, dev, pocket, feat_dim, MAX_LIGAND, LIGAND_SIZES * 25, 0))
+        nbh100 = G.knn_graph(x100, mask100, K)
+        out["ew_knn_b100_device_ms"] = kernel_device_ms(
+            torch, lambda: kblock.block_denoiser_cuda(rn, h100, x100, nbh100, mlig100, MAX_LIGAND,
+                                                      packed), "ew_kernel", calls=3)
+        del h100, x100, mask100, mlig100, nbh100
         e_w = rn.edge_weights(x, nbh)[..., 0]
         x2h, h2x = kblock.pack_pass_params(rn)
         out["train_fwd_ms"] = cuda_ms(torch, lambda: kblock.block_denoiser_train_cuda(

@@ -30,7 +30,6 @@ constexpr int KC = 32;          // edges per chunk
 constexpr int kMaxBlockK = 32;  // neighbours per row, whole-block entry points
 constexpr int kMaxLayerK = 256; // neighbours per row, per-layer entry points
 constexpr int kThreads = 256;
-constexpr int kNodes = 8;       // nodes per node_bwd_kernel block (pass_bwd.cuh)
 constexpr float kLnEps = 1e-5f;
 
 }  // namespace

@@ -40,13 +40,12 @@ from __future__ import annotations
 
 import json
 import shutil
-import subprocess
 import sys
-import tempfile
 from pathlib import Path
 
-REPO = Path(__file__).resolve().parent
-CSRC = Path("targetdiff_tpu_torch/csrc")
+import variant_harness as vh
+
+REPO = vh.REPO
 SOURCES = ("pass_bwd.cuh", "block_common.cuh")  # the files a variant may change
 ERRORS = ("kernel", "one_term", "one_term_drbf")  # variants whose gradients are held to float64
 
@@ -250,26 +249,15 @@ def apply(texts: dict, groups) -> dict:
 
 def make_copy(base: Path, root: Path, name: str, label: str = None) -> Path:
     """Variant `name` of the package in `base`, in root / label (default: name)."""
-    dst = root / (label or name)
-    shutil.copytree(base / "targetdiff_tpu_torch", dst / "targetdiff_tpu_torch",
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    for f in OVERLAYS[name].iterdir() if name in OVERLAYS else ():
-        shutil.copy(f, dst / CSRC / f.name)
-    texts = {f: (dst / CSRC / f).read_text() for f in SOURCES}
-    for f, text in apply(texts, VARIANTS[name]).items():
-        (dst / CSRC / f).write_text(text)
-    return dst
 
+    def edit(csrc: Path):
+        for f in OVERLAYS[name].iterdir() if name in OVERLAYS else ():
+            shutil.copy(f, csrc / f.name)
+        texts = {f: (csrc / f).read_text() for f in SOURCES}
+        for f, text in apply(texts, VARIANTS[name]).items():
+            (csrc / f).write_text(text)
 
-def ptxas(log: list, kernel: str) -> str:
-    """The `-Xptxas -v` lines of `kernel` as block_vjp.cu compiles it (None
-    if it has no such kernel)."""
-    entry = next((i for i, ln in enumerate(log)
-                  if "Compiling entry" in ln and "block_vjp" in ln and kernel in ln), None)
-    if entry is None:
-        return None
-    return "; ".join(ln.strip() for ln in log[entry + 1:entry + 4]
-                     if "registers" in ln or "spill" in ln)
+    return vh.make_copy(base, root, label or name, edit)
 
 
 def measure(copy: Path, name: str, out_file: Path) -> dict:
@@ -285,7 +273,6 @@ def measure(copy: Path, name: str, out_file: Path) -> dict:
     from targetdiff_tpu_torch.ops import graph as G
     from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
     from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
-    from targetdiff_tpu_torch.ops.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -325,58 +312,35 @@ def measure(copy: Path, name: str, out_file: Path) -> dict:
         pocket = {"protein_pos": data["protein_pos"],
                   "protein_feat": data["protein_atom_feature"]}
         out["margins"] = cs.margins(torch, dev, pocket, feat.feature_dim, check=False)
-    log = (build.build_dir() / "build.log").read_text().splitlines()
-    out["ptxas"] = {k: ptxas(log, f"edge_bwd_kernelILb{b}E") for k, b in (("x2h", 0), ("h2x", 1))}
+    out["ptxas"] = vh.ptxas({k: ("block_vjp", f"edge_bwd_kernelILb{b}E")
+                             for k, b in (("x2h", 0), ("h2x", 1))})
     if hasattr(kvjp, "edge_bwd_info"):
         out["edge_bwd_info"] = {k: kvjp.edge_bwd_info(cs.K, k == "h2x") for k in ("x2h", "h2x")}
     return out
 
 
 def main(argv) -> int:
-    if argv[:1] == ["--measure"]:
-        print(json.dumps(measure(Path(argv[1]), argv[2], Path(argv[3]))), flush=True)
-        return 0
     base, parent = REPO, None
     while argv[:1] in (["--base"], ["--parent"]):
         path = Path(argv[1]).resolve()
         base, parent = (path, parent) if argv[0] == "--base" else (base, path)
         argv = argv[2:]
-    import torch
 
-    if not torch.cuda.is_available():
-        raise RuntimeError("edge_bwd_variants needs a CUDA device")
-    names = argv or list(VARIANTS)
-    if any(n not in VARIANTS for n in names):
-        raise SystemExit(f"variants: {', '.join(VARIANTS)}")
-    sys.path.insert(0, str(REPO))
-    import chip_smoke as cs
+    def diffs(root: Path, order: list):
+        import torch
 
-    print(cs.card_name(), json.dumps({"base": str(base), "parent": str(parent)}), flush=True)
-    root = Path(tempfile.mkdtemp(prefix="edge_bwd_variants_"))
-    try:
-        order = ["kernel", *[n for n in names if n != "kernel"], "kernel"]
-        copies = {n: make_copy(base, root, n) for n in dict.fromkeys(order)}
-        if parent is not None:
-            copies["parent"] = make_copy(parent, root, "kernel", "parent")
-            order = ["parent", *order]
-        builds = [subprocess.Popen(
-            [sys.executable, "-c", "from targetdiff_tpu_torch.ops.kernels import build; "
-             "build.load_library()"], cwd=c) for c in copies.values()]
-        if any(b.wait() for b in builds):
-            raise RuntimeError("a variant failed to build")
-        for n in order:
-            subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure",
-                            str(copies[n]), n, str(root / f"{n}.pt")], check=True)
         ref = "parent" if parent is not None else "kernel"
         want = torch.load(root / f"{ref}.pt")
-        diffs = {}
+        out = {}
         for n in dict.fromkeys(order):
             got = torch.load(root / f"{n}.pt")
-            diffs[n] = max(float((got[k] - want[k]).abs().max()) for k in want)
-        print(json.dumps({"outputs_max_abs_diff_from": ref, "max_abs_diff": diffs}), flush=True)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    return 0
+            out[n] = max(float((got[k] - want[k]).abs().max()) for k in want)
+        print(json.dumps({"outputs_max_abs_diff_from": ref, "max_abs_diff": out}), flush=True)
+
+    return vh.main(__file__, argv, VARIANTS, lambda root, n: make_copy(base, root, n), measure,
+                   parent=None if parent is None else
+                   ("parent", lambda root: make_copy(parent, root, "kernel", "parent")),
+                   header={"base": str(base), "parent": str(parent)}, finish=diffs)
 
 
 if __name__ == "__main__":

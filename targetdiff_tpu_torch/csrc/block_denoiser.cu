@@ -22,7 +22,8 @@
 //
 // Design, per block:
 //   ew_kernel    once: the global edge-weight MLP on block-start distances
-//                (a warp per edge).
+//                (persistent blocks, 32 slots per warp step, the first layer
+//                on the tensor cores as three-term TF32).
 //   node_kernel  per pass (node_proj.cuh): h @ [k.h_i | v.h_i | k.h_j | v.h_j
 //                | q1] plus the query MLP's LayerNorm and second layer, a
 //                64-row tile and one 128-column slice of w_node per block,
@@ -47,6 +48,7 @@
 #include "block_common.cuh"
 #include "h2x_edge.cuh"
 #include "node_proj.cuh"
+#include "weight_grad.cuh"
 #include "x2h_edge.cuh"
 
 struct EwParams {
@@ -59,43 +61,176 @@ struct EwParams {
 
 namespace {
 
+// The edge-weight MLP's first layer as the B operand of an m16n8k8 TF32
+// product, [kEwK][H]: rows [0, R) w1, row R the bias b1 (its A column is 1),
+// the rest zero.
+constexpr int kEwK = 24;                  // three 8-deep k-steps
+constexpr int kEwKSteps = kEwK / 8;
+constexpr int kEwLd = kEwK + 4;           // padded RBF row: conflict-free A fragments
+constexpr int kEwWarps = kThreads / 32;
+constexpr int kEwNT = H / 8;              // 8-column n-tiles of the first layer's output
+constexpr int kEwFrags = kEwKSteps * kEwNT * 32;
+static_assert(R < kEwK, "the RBF knots and the bias column fill the k-steps");
+
+// A block's shared memory: the weights, staged once, and per warp its tile of
+// 32 edges' RBF rows and their e_w.
+struct EwSmem {
+  uint4 w1f[kEwFrags];  // (ks, nt, lane): (b0 hi, b1 hi, b0 lo, b1 lo), split_tf32
+  float ln_scale[H], ln_bias[H], w2[H];
+  float offsets[R];
+  float rbf[kEwWarps][32][kEwLd];
+  float ew[kEwWarps][32];
+};
+
+__device__ __forceinline__ float ew_w1(const EwParams& p, int k, int n) {
+  return k < R ? p.w1[k * H + n] : (k == R ? p.b1[n] : 0.f);
+}
+
 // Global edge weights: e_w = sigmoid(w2 . relu(LN(rbf(d0) @ w1 + b1)) + b2)
-// for every edge of the block-start graph; one warp per edge.
-__global__ void __launch_bounds__(kThreads)
+// for every slot of the block-start graph, valid or not.
+//
+// Replaces: the edge-weight MLP inside targetdiff_tpu/ops/pallas/
+// block_denoiser.py:_block_kernel (:319-327); the XLA one is the global
+// edge_pred_layer of targetdiff_tpu/models/uni_transformer.py:289-301.
+//
+// What bounds it: per slot, 2 R H FLOP of the first layer (a dense product,
+// at the TF32 tensor-core rate) and ~10 H of LayerNorm, ReLU and the dot
+// with w2 (float32 rate), for ~12 bytes of index and output: operations.
+//
+// Design: persistent blocks, the weights staged once per block (w1 and b1 as
+// TF32 hi / lo B fragments, the LayerNorm and w2 as float rows). A warp takes
+// 32 slots at a time: lane e computes slot e's distance and its R RBF values
+// (each expf once) into its row of the warp's tile, [rbf | 1 | 0...], then
+// the warp runs the [32 x kEwK] [kEwK x H] first layer as m16n8k8 TF32
+// products in three terms (lo*hi + hi*lo + hi*hi, ~2^-21 per term,
+// float32-grade; each k-step summed from zero and added in float32), one
+// 16-slot m-tile at a time. Each slot's 128 outputs stay in the C fragments
+// of the four lanes of its quad, which reduce the LayerNorm's statistics and
+// the w2 dot over the quad by shuffles in a fixed order; the 32 e_w are
+// stored together, coalesced. Two runs give the same bits.
+__global__ void __launch_bounds__(kThreads, 2)
 ew_kernel(const float* __restrict__ x, const int64_t* __restrict__ idx, int N, int K,
           long long E, const float* __restrict__ offsets, float coeff, EwParams p,
           float* __restrict__ ew) {
-  __shared__ float s_w1[R * H];
-  __shared__ float s_off[R];
-  for (int t = threadIdx.x; t < R * H; t += kThreads) s_w1[t] = p.w1[t];
-  if (threadIdx.x < R) s_off[threadIdx.x] = offsets[threadIdx.x];
+  extern __shared__ __align__(16) unsigned char ew_smem[];
+  EwSmem& S = *reinterpret_cast<EwSmem*>(ew_smem);
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31, g = lane >> 2, tig = lane & 3;
+  for (int u = t; u < kEwFrags; u += kThreads) {
+    const int ks = u / (kEwNT * 32), nt = u / 32 % kEwNT, fl = u % 32;
+    const int k = 8 * ks + (fl & 3), n = 8 * nt + (fl >> 2);
+    uint32_t h0, l0, h1, l1;
+    split_tf32(ew_w1(p, k, n), h0, l0);
+    split_tf32(ew_w1(p, k + 4, n), h1, l1);
+    S.w1f[u] = make_uint4(h0, h1, l0, l1);
+  }
+  for (int c = t; c < H; c += kThreads) {
+    S.ln_scale[c] = p.ln[c];
+    S.ln_bias[c] = p.ln[H + c];
+    S.w2[c] = p.w2[c];
+  }
+  if (t < R) S.offsets[t] = offsets[t];
   __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float b2 = p.b2[0];
-  for (long long e = (long long)blockIdx.x * (kThreads / 32) + warp; e < E;
-       e += (long long)gridDim.x * (kThreads / 32)) {
-    const long long bn = e / K;        // destination node b*N + i
-    const long long b = bn / N;
-    const long long jn = b * N + idx[e];
-    const float dx = x[3 * bn] - x[3 * jn], dy = x[3 * bn + 1] - x[3 * jn + 1],
-                dz = x[3 * bn + 2] - x[3 * jn + 2];
-    const float dist = sqrtf(dx * dx + dy * dy + dz * dz + 1e-16f);
-    float z[4];
+  float* tile = &S.rbf[warp][0][0];
+  const long long tiles = (E + 31) / 32;
+  for (long long tl = (long long)blockIdx.x * kEwWarps + warp; tl < tiles;
+       tl += (long long)gridDim.x * kEwWarps) {
+    // one lane per slot: its distance and RBF row
+    const long long e = tl * 32 + lane;
+    float* row = tile + lane * kEwLd;
+    if (e < E) {
+      const long long bn = e / K;  // destination node b*N + i
+      const long long jn = bn / N * N + idx[e];
+      const float dx = x[3 * bn] - x[3 * jn], dy = x[3 * bn + 1] - x[3 * jn + 1],
+                  dz = x[3 * bn + 2] - x[3 * jn + 2];
+      const float dist = sqrtf(dx * dx + dy * dy + dz * dz + 1e-16f);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) z[q] = p.b1[lane + 32 * q];
+      for (int r = 0; r < R; ++r) {
+        const float d = dist - S.offsets[r];
+        row[r] = expf(coeff * d * d);
+      }
+      row[R] = 1.f;
+    } else {
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float d = dist - s_off[r];
-      const float rbf = expf(coeff * d * d);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) z[q] += rbf * s_w1[r * H + lane + 32 * q];
+      for (int r = 0; r <= R; ++r) row[r] = 0.f;
     }
-    ln_relu_row(z, p.ln, p.ln + H, lane);
-    float part = 0.f;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) part += z[q] * p.w2[lane + 32 * q];
-    const float logit = warp_sum(part) + b2;
-    if (lane == 0) ew[e] = 1.f / (1.f + expf(-logit));
+    for (int r = R + 1; r < kEwK; ++r) row[r] = 0.f;
+    __syncwarp();
+
+#pragma unroll 1
+    for (int mt = 0; mt < 2; ++mt) {
+      float acc[kEwNT][4];
+#pragma unroll
+      for (int nt = 0; nt < kEwNT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kEwKSteps; ++ks) {
+        // A: (g, tig), (g + 8, tig), (g, tig + 4), (g + 8, tig + 4)
+        const float* ar = tile + (16 * mt + g) * kEwLd + 8 * ks + tig;
+        uint32_t ah[4], al[4];
+        split_tf32(ar[0], ah[0], al[0]);
+        split_tf32(ar[8 * kEwLd], ah[1], al[1]);
+        split_tf32(ar[4], ah[2], al[2]);
+        split_tf32(ar[8 * kEwLd + 4], ah[3], al[3]);
+#pragma unroll
+        for (int nt = 0; nt < kEwNT; ++nt) {
+          const uint4 wf = S.w1f[(ks * kEwNT + nt) * 32 + lane];
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(d, al, wf.x, wf.y);
+          mma_tf32(d, ah, wf.z, wf.w);
+          mma_tf32(d, ah, wf.x, wf.y);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[nt][c] += d[c];
+        }
+      }
+      // slots 16 mt + g + 8 hf (hf = 0, 1): columns 8 nt + 2 tig (+1) of
+      // their quad's lanes, the same columns for both
+      float mean[2], rstd[2], part[2] = {0.f, 0.f};
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float s = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < kEwNT; ++nt) s += acc[nt][2 * hf] + acc[nt][2 * hf + 1];
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        mean[hf] = s * (1.f / H);
+        float sq = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < kEwNT; ++nt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float c = acc[nt][2 * hf + j] - mean[hf];
+            sq += c * c;
+          }
+        sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+        sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+        rstd[hf] = rsqrtf(sq * (1.f / H) + kLnEps);
+      }
+#pragma unroll
+      for (int nt = 0; nt < kEwNT; ++nt) {
+        const int c = 8 * nt + 2 * tig;
+        const float2 sc = *reinterpret_cast<const float2*>(&S.ln_scale[c]);
+        const float2 bi = *reinterpret_cast<const float2*>(&S.ln_bias[c]);
+        const float2 w = *reinterpret_cast<const float2*>(&S.w2[c]);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          part[hf] += fmaxf((acc[nt][2 * hf] - mean[hf]) * rstd[hf] * sc.x + bi.x, 0.f) * w.x;
+          part[hf] += fmaxf((acc[nt][2 * hf + 1] - mean[hf]) * rstd[hf] * sc.y + bi.y, 0.f) * w.y;
+        }
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float v = part[hf];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (tig == 0) S.ew[warp][16 * mt + 8 * hf + g] = 1.f / (1.f + expf(-(v + b2)));
+      }
+    }
+    __syncwarp();
+    if (e < E) ew[e] = S.ew[warp][lane];
+    __syncwarp();  // the tile and e_w are rewritten by the warp's next slots
   }
 }
 
@@ -105,11 +240,13 @@ extern "C" int td_block_ew(const float* x, const int64_t* idx, int B, int N, int
                            const float* offsets, float coeff, EwParams p, float* ew,
                            void* stream) {
   if (B <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  static int n_sm = 0;
+  if (int err = sm_count(ew_kernel, (int)sizeof(EwSmem), n_sm)) return err;
   const long long E = (long long)B * N * K;
-  const long long want = (E + kThreads / 32 - 1) / (kThreads / 32);
-  const int grid = (int)(want < 65535 ? want : 65535);
-  ew_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(x, idx, N, K, E, offsets, coeff, p,
-                                                         ew);
+  const long long want = ((E + 31) / 32 + kEwWarps - 1) / kEwWarps;  // blocks of 8 tiles
+  const int grid = (int)(want < 2 * n_sm ? want : 2 * n_sm);
+  ew_kernel<<<grid, kThreads, sizeof(EwSmem), (cudaStream_t)stream>>>(x, idx, N, K, E, offsets,
+                                                                       coeff, p, ew);
   return (int)cudaGetLastError();
 }
 

@@ -125,3 +125,29 @@ extern "C" int td_weight_grad(const float* X, int ldx, const float* Y, int ldy, 
                               int P, int Q, float* out, float* partial, void* stream) {
   return weight_grad(X, ldx, Y, ldy, M, P, Q, out, partial, (cudaStream_t)stream);
 }
+
+// node_bwd_kernel as run_pass launches it, alone (node_bwd.cuh): over `rows`
+// rows of the row buffer rowbuf [rows][W] (dq at column off_dq, dproj in
+// columns [0, 4H)), writes dq1 into its columns [4H, 5H) and the query
+// LayerNorm partials at off_qln, qa [rows][H], and adds dproj w_node^T to dh
+// [rows][H]. w_q2T [H][H] and w_nodeT [5H][H] are the transposed weights.
+// Refuses (cudaErrorInvalidValue) rows, W or offsets it does not take, and
+// bases that are not 16-byte aligned.
+extern "C" int td_node_bwd(const float* q1, const float* q_ln, const float* w_q2T,
+                           const float* w_nodeT, long long rows, int W, int off_dq, int off_qln,
+                           float* rowbuf, float* qa, float* dh, void* stream) {
+  return launch_node_bwd(q1, q_ln, w_q2T, w_nodeT, rows, W, off_dq, off_qln, rowbuf, qa, dh,
+                         (cudaStream_t)stream);
+}
+
+// node_bwd_kernel launches made so far in this process, by every entry.
+extern "C" long long td_node_bwd_launches() { return node_bwd_launch_count; }
+
+// node_bwd_kernel for `rows` rows: info[5] = {rows per tile, shared memory
+// bytes per block, blocks per SM, registers per thread, local (spill) bytes
+// per thread}.
+extern "C" int td_node_bwd_info(long long rows, int* info) {
+  if (rows <= 0) return (int)cudaErrorInvalidValue;
+  if (int err = node_bwd_tile(rows, info[0])) return err;
+  return info[0] == 64 ? node_bwd_info<64>(info + 1) : node_bwd_info<32>(info + 1);
+}

@@ -43,7 +43,9 @@
 //                   (edges grouped by source, ascending, built by
 //                   adj_kernel) sums each source's dz rows into its d nj and
 //                   subtracts its d rel rows from its d x.
-//   node_bwd_kernel the query MLP's backward and dh += dproj @ w_node^T.
+//   node_bwd_kernel the query MLP's backward and dh += dproj @ w_node^T
+//                   (node_bwd.cuh): row tiles, both products on the tensor
+//                   cores (three-term TF32), the weights read once per tile.
 //   weight_grad     weight gradients X^T Y (second layers over edges, RBF
 //                   and edge-type tables over edges, w_node and q's second
 //                   layer over nodes) on the tensor cores (weight_grad.cuh),
@@ -54,6 +56,7 @@
 #pragma once
 
 #include "block_common.cuh"
+#include "node_bwd.cuh"
 #include "node_proj.cuh"
 #include "tc_common.cuh"
 #include "weight_grad.cuh"
@@ -678,94 +681,6 @@ gather_kernel(const int* __restrict__ off_all, const int* __restrict__ list_all,
   }
 }
 
-// Query MLP backward and the node projections' input gradient, 8 nodes per
-// block: dq (rowbuf) -> dq1 (rowbuf dproj[4H, 5H)), q LayerNorm partials and
-// qa = relu(LN(q1)) for the w_q2 gradient; then dh += dproj @ w_node^T.
-__global__ void __launch_bounds__(kThreads)
-node_bwd_kernel(const float* __restrict__ q1, PassParams p, PassT pt, int rows, int W,
-                int off_dq_, int off_qln_, float* __restrict__ rowbuf, float* __restrict__ qa,
-                float* __restrict__ dh) {
-  __shared__ float s_dp[kNodes][H5];
-  __shared__ float s_dq[kNodes][H];
-  __shared__ float s_da[kNodes][H];
-  const int t = threadIdx.x;
-  const int warp = t >> 5, lane = t & 31;
-  const long long n0 = (long long)blockIdx.x * kNodes;
-  for (int u = t; u < kNodes * H; u += kThreads) {
-    const int nn = u / H, c = u % H;
-    s_dq[nn][c] = (n0 + nn < rows) ? rowbuf[(n0 + nn) * W + off_dq_ + c] : 0.f;
-  }
-  for (int u = t; u < kNodes * 4 * H; u += kThreads) {
-    const int nn = u / (4 * H), c = u % (4 * H);
-    s_dp[nn][c] = (n0 + nn < rows) ? rowbuf[(n0 + nn) * W + c] : 0.f;
-  }
-  __syncthreads();
-  if (t < H) {  // d qa = dq @ w_q2^T
-    float acc[kNodes];
-#pragma unroll
-    for (int nn = 0; nn < kNodes; ++nn) acc[nn] = 0.f;
-    for (int c = 0; c < H; ++c) {
-      const float w = pt.w_q2T[c * H + t];
-#pragma unroll
-      for (int nn = 0; nn < kNodes; ++nn) acc[nn] += s_dq[nn][c] * w;
-    }
-#pragma unroll
-    for (int nn = 0; nn < kNodes; ++nn) s_da[nn][t] = acc[nn];
-  }
-  __syncthreads();
-  {  // a warp per node: LayerNorm + ReLU of q1, its backward
-    const int nn = warp;  // kThreads / 32 == kNodes
-    const long long n = n0 + nn;
-    float v[4], zh[4], dy[4];
-#pragma unroll
-    for (int q4 = 0; q4 < 4; ++q4) v[q4] = n < rows ? q1[n * H + lane + 32 * q4] : 0.f;
-    float mean, rstd;
-    ln_stats(v, mean, rstd);
-    float m1 = 0.f, m2 = 0.f;
-#pragma unroll
-    for (int q4 = 0; q4 < 4; ++q4) {
-      const int c = lane + 32 * q4;
-      zh[q4] = (v[q4] - mean) * rstd;
-      const float y = zh[q4] * p.q_ln[c] + p.q_ln[H + c];
-      dy[q4] = y > 0.f ? s_da[nn][c] : 0.f;
-      if (n < rows) {
-        qa[n * H + c] = fmaxf(y, 0.f);
-        rowbuf[n * W + off_qln_ + c] = dy[q4] * zh[q4];
-        rowbuf[n * W + off_qln_ + H + c] = dy[q4];
-      }
-      const float dzh = dy[q4] * p.q_ln[c];
-      m1 += dzh;
-      m2 += dzh * zh[q4];
-    }
-    m1 = warp_sum(m1) * (1.f / H);
-    m2 = warp_sum(m2) * (1.f / H);
-#pragma unroll
-    for (int q4 = 0; q4 < 4; ++q4) {
-      const int c = lane + 32 * q4;
-      const float dq1 = rstd * (dy[q4] * p.q_ln[c] - m1 - zh[q4] * m2);
-      s_dp[nn][4 * H + c] = dq1;
-      if (n < rows) rowbuf[n * W + 4 * H + c] = dq1;
-    }
-  }
-  __syncthreads();
-  {  // dh[n][m] += sum_c dproj[n][c] w_node[m][c], two threads per channel m
-    const int m = t % H, sub = t / H;
-    float acc[kNodes / 2];
-#pragma unroll
-    for (int i = 0; i < kNodes / 2; ++i) acc[i] = 0.f;
-    for (int c = 0; c < H5; ++c) {
-      const float w = pt.w_nodeT[c * H + m];
-#pragma unroll
-      for (int i = 0; i < kNodes / 2; ++i) acc[i] += s_dp[sub + 2 * i][c] * w;
-    }
-#pragma unroll
-    for (int i = 0; i < kNodes / 2; ++i) {
-      const long long n = n0 + sub + 2 * i;
-      if (n < rows) dh[n * H + m] += acc[i];
-    }
-  }
-}
-
 // partial[z][c] = sum of Y[m][c] over the rows of chunk z.
 __global__ void __launch_bounds__(kThreads)
 colsum_kernel(const float* __restrict__ Y, int ldy, long long M, int Q, long long chunk,
@@ -879,9 +794,9 @@ int run_pass(const float* h, const EdgeInputs& in0, const PassParams& p, const P
   gather_kernel<<<dim3(N, B), kThreads, 0, s>>>(off, list, N, K, N - row0, ws.dZ, ws.drel,
                                                 ws.rowbuf, W, dx);
   if ((err = (int)cudaGetLastError())) return err;
-  node_bwd_kernel<<<(unsigned)((BN + kNodes - 1) / kNodes), kThreads, 0, s>>>(
-      ws.q1, p, pt, (int)BN, W, off_dq(V), off_qln(V), ws.rowbuf, ws.qa, dh);
-  if ((err = (int)cudaGetLastError())) return err;
+  err = launch_node_bwd(ws.q1, p.q_ln, pt.w_q2T, pt.w_nodeT, BN, W, off_dq(V), off_qln(V),
+                        ws.rowbuf, ws.qa, dh, s);
+  if (err) return err;
 
   const struct {
     const float *X, *Y;

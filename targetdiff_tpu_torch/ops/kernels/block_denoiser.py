@@ -10,7 +10,8 @@ The CUDA path runs one edge-weight kernel per block and, per layer, a node
 kernel + x2h edge kernel, then a node kernel (the protein rows' source
 projections only) + h2x edge kernel on the ligand rows.
 `node_projections_cuda` launches the node kernel alone (the card tests'
-launcher), beside its plain version. Its weights come from `pack_block_params`, which regroups the
+launcher), beside its plain version; `edge_weights_cuda` the edge-weight
+kernel alone, whose plain version is the module's `edge_weights`. Its weights come from `pack_block_params`, which regroups the
 module's Linear weights as [in, out] blocks: the destination (h_i) and
 source (h_j) parts of each edge MLP's first layer become per-node
 projections, and its edge-feature part becomes one [4, R, 2H] table indexed
@@ -33,6 +34,7 @@ from . import build
 
 LAUNCHES = 0  # block_denoiser calls that launched the kernels since the last reset
 TRAIN_LAUNCHES = 0  # block_denoiser_train_cuda launches since the last reset
+EW_LAUNCHES = 0  # edge-weight kernel launches since the last reset
 
 # the kernels are specialised to the released architecture's widths
 HIDDEN, HEADS, MAX_K = 128, 16, 32
@@ -216,9 +218,7 @@ def block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed=Non
     q = torch.empty((B * N, H), dtype=torch.float32, device=dev)
     x2h_p, h2x_p = _pass_structs(packed.x2h, L), _pass_structs(packed.h2x, L)
 
-    build.check(fns["td_block_ew"](x_a.data_ptr(), idx.data_ptr(), B, N, K, offsets.data_ptr(),
-                                   coeff, _EwParams(*[t.data_ptr() for t in packed.ew]),
-                                   ew.data_ptr(), stream), "td_block_ew")
+    _launch_ew(x_a, idx, packed, ew)
     common = (idx.data_ptr(), nmask.data_ptr(), mlig.data_ptr(), ew.data_ptr(),
               ni.data_ptr(), nj.data_ptr(), q.data_ptr(), offsets.data_ptr(), coeff)
     for l in range(L):
@@ -279,6 +279,40 @@ def node_projections_cuda(h, stacks, layer: int = 0, row0: int = 0, want_q1: boo
         nj.data_ptr(), q.data_ptr(), None if q1 is None else q1.data_ptr(),
         build.stream_ptr(h.device)), "td_block_node_rows")
     return ni, nj, q, q1
+
+
+def _launch_ew(x, idx, packed: PackedBlock, out):
+    """ew_kernel on contiguous x [B,N,3] and idx [B,N,K] into out [B,N,K]."""
+    global EW_LAUNCHES
+    B, N, K = idx.shape
+    offsets, coeff = gaussian_smearing_offsets(device=x.device)
+    build.check(_entries()["td_block_ew"](
+        x.data_ptr(), idx.data_ptr(), B, N, K, offsets.data_ptr(), coeff,
+        _EwParams(*[t.data_ptr() for t in packed.ew]), out.data_ptr(),
+        build.stream_ptr(x.device)), "td_block_ew")
+    EW_LAUNCHES += 1
+
+
+def edge_weights_cuda(x, nbh: G.Neighborhood, packed: PackedBlock):
+    """The edge-weight kernel alone (csrc/block_denoiser.cu ew_kernel, as
+    `block_denoiser_cuda` launches it once per block call): e_w [B,N,K] =
+    sigmoid(w2 . relu(LN(rbf(d) @ w1 + b1)) + b2) of every slot of the graph
+    on positions x [B,N,3], from `pack_block_params`' edge-weight weights.
+    Slots past a row's valid neighbours get a value too; callers read the
+    valid ones. CUDA tensors only; the module's `edge_weights` is its plain
+    version."""
+    build.require_cuda(x, "x")
+    B, N, _ = x.shape
+    K = nbh.idx.shape[-1]
+    if x.dtype != torch.float32 or x.shape != (B, N, 3):
+        raise ValueError(f"x must be float32 [B,N,3], got {x.dtype} {tuple(x.shape)}")
+    if nbh.idx.dtype != torch.int64 or nbh.idx.shape != (B, N, K) or nbh.idx.device != x.device:
+        raise ValueError(f"idx must be int64 [B,N,K] on {x.device}")
+    if packed.ew[0].device != x.device:
+        raise ValueError(f"packed weights are on {packed.ew[0].device}, x on {x.device}")
+    ew = torch.empty((B, N, K), dtype=torch.float32, device=x.device)
+    _launch_ew(x.detach().contiguous(), nbh.idx.contiguous(), packed, ew)
+    return ew
 
 
 @torch.no_grad()

@@ -11,6 +11,10 @@ returns the gradients of h, x, e_w and of the packed weight stacks
 (`pack_pass_params`); autograd carries those back through the packing into
 the nn.Parameters. For CPU tensors the plain version runs: the eager
 `block_forward` with the given e_w under ordinary autograd.
+
+`node_bwd_cuda` launches the backward's node kernel (csrc/node_bwd.cuh
+node_bwd_kernel, once per pass in run_pass) alone on a pass's row buffer,
+beside its plain version `node_bwd_plain`.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from . import build, weight_grad
 from .block_denoiser import _PassParams, _pass_structs, block_denoiser_train_cuda, pack_pass_params
 
 LAUNCHES = 0  # backward kernel runs since the last reset
+NODE_BWD_LAUNCHES = 0  # node_bwd_kernel launches since the last reset (one per pass)
 
 FIELDS = [name for name, _ in _PassParams._fields_]
 R = len(FIXED_OFFSETS)
@@ -43,6 +48,105 @@ class _PassT(ctypes.Structure):
     """Mirror of `PassT` in csrc/pass_bwd.cuh (transposed weights)."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in ("w_nodeT", "w_q2T", "w2kT", "w2vT")]
+
+
+def node_bwd_launch_count() -> int:
+    """node_bwd_kernel launches the library has made in this process, as
+    launch_node_bwd counts them where it launches (td_node_bwd_launches)."""
+    return _node_bwd_entries()[2]()
+
+
+def count_node_bwd(since: int) -> None:
+    """Count the node_bwd_kernel launches made since the library's count
+    (`node_bwd_launch_count`) read `since`."""
+    global NODE_BWD_LAUNCHES
+    NODE_BWD_LAUNCHES += node_bwd_launch_count() - since
+
+
+def row_layout(H: int, V: int) -> dict:
+    """Columns of a pass's row buffer (csrc/pass_bwd.cuh, V = H for x2h, the
+    heads for h2x): dproj [0, 5H) (the query MLP's dq1 at [4H, 5H)), dq at
+    `dq`, the query LayerNorm's partials (dy * LN(q1), dy) at `qln`, `width`
+    columns in all."""
+    return {"dq": 10 * H + V, "qln": 11 * H + V, "width": 13 * H + V}
+
+
+def node_bwd_plain(rowbuf, q1, dh, q_ln, w_q2T, w_nodeT, relu_mask=None):
+    """node_bwd_kernel's function in plain PyTorch: from a pass's row buffer
+    rowbuf [BN, W] (`row_layout`: dq and dproj[:, :4H]), the query MLP's
+    first-layer output q1 [BN, H], its LayerNorm q_ln [2, H] and the
+    transposed weights w_q2T [H, H], w_nodeT [5H, H], returns (rowbuf with
+    dq1 and the LayerNorm partials written, qa = relu(LN(q1)) [BN, H],
+    dh + dproj w_node^T). relu_mask, if given, stands for the ReLU's y > 0: a
+    float64 reference takes the float32 version's (qa > 0), so that entries
+    with y at zero's rounding distance do not flip."""
+    H = q1.shape[-1]
+    lay = row_layout(H, rowbuf.shape[1] - 13 * H)
+    mean = q1.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((q1 - mean) ** 2).mean(-1, keepdim=True) + 1e-5)
+    zh = (q1 - mean) * rstd
+    y = zh * q_ln[0] + q_ln[1]
+    dy = (rowbuf[:, lay["dq"]:lay["dq"] + H] @ w_q2T) * (y > 0 if relu_mask is None else relu_mask)
+    dzh = dy * q_ln[0]
+    dq1 = rstd * (dzh - dzh.mean(-1, keepdim=True) - zh * (dzh * zh).mean(-1, keepdim=True))
+    out = rowbuf.clone()
+    out[:, 4 * H:5 * H] = dq1
+    out[:, lay["qln"]:lay["qln"] + H] = dy * zh
+    out[:, lay["qln"] + H:lay["qln"] + 2 * H] = dy
+    return out, torch.relu(y), dh + out[:, :5 * H] @ w_nodeT
+
+
+def node_bwd_cuda(rowbuf, q1, dh, q_ln, w_q2T, w_nodeT, qa=None):
+    """node_bwd_kernel alone (td_node_bwd), as run_pass launches it, on the
+    arguments of `node_bwd_plain`: writes dq1 and the LayerNorm partials into
+    rowbuf and adds dproj w_node^T to dh, both in place, and returns (rowbuf,
+    qa, dh), qa written into `qa` if given. Float32 contiguous CUDA tensors
+    at the kernel's width H = 128, V = 128 (x2h) or 16 (h2x)."""
+    for name, t in (("rowbuf", rowbuf), ("q1", q1), ("dh", dh), ("q_ln", q_ln),
+                    ("w_q2T", w_q2T), ("w_nodeT", w_nodeT)):
+        build.require_cuda(t, name)
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != rowbuf.device:
+            raise ValueError(f"{name} must be a contiguous float32 tensor on {rowbuf.device}")
+    BN, W = rowbuf.shape
+    H = 128
+    lay = row_layout(H, W - 13 * H)
+    if (W - 13 * H not in (H, 16) or q1.shape != (BN, H) or dh.shape != (BN, H)
+            or q_ln.shape != (2, H) or w_q2T.shape != (H, H) or w_nodeT.shape != (5 * H, H)):
+        raise ValueError(f"node_bwd takes rowbuf [BN, {14 * H}] or [BN, {13 * H + 16}], q1 and "
+                         f"dh [BN, {H}], q_ln [2, {H}], w_q2T [{H}, {H}], w_nodeT [{5 * H}, {H}]")
+    if qa is None:
+        qa = torch.empty_like(q1)
+    since = node_bwd_launch_count()
+    build.check(_node_bwd_entries()[0](
+        q1.data_ptr(), q_ln.data_ptr(), w_q2T.data_ptr(), w_nodeT.data_ptr(), BN, W, lay["dq"],
+        lay["qln"], rowbuf.data_ptr(), qa.data_ptr(), dh.data_ptr(),
+        build.stream_ptr(rowbuf.device)), "td_node_bwd")
+    count_node_bwd(since)
+    return rowbuf, qa, dh
+
+
+def node_bwd_info(rows: int) -> dict:
+    """What the card makes of node_bwd_kernel for `rows` rows
+    (td_node_bwd_info): its tile's rows, shared memory per block, blocks per
+    SM, registers and local (spill) bytes per thread."""
+    info = (ctypes.c_int * 5)()
+    build.check(_node_bwd_entries()[1](rows, info), "td_node_bwd_info")
+    return dict(zip(("tile_rows", "smem", "blocks_per_sm", "registers", "local_bytes"), info))
+
+
+@functools.lru_cache(maxsize=None)
+def _node_bwd_entries():
+    lib = build.load_library()
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = lib.td_node_bwd
+    fn.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, vp, vp, vp, vp]
+    fn.restype = ctypes.c_int
+    info = lib.td_node_bwd_info
+    info.argtypes = [i64, vp]
+    info.restype = ctypes.c_int
+    count = lib.td_node_bwd_launches
+    count.argtypes, count.restype = [], i64
+    return fn, info, count
 
 
 def edge_bwd_info(K: int, h2x: bool) -> dict:
@@ -213,6 +317,7 @@ def block_bwd_cuda(hck, xck, idx, nmask, mlig, e_w, n_ligand, x2h, h2x, gh, gx):
     dx0 = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
     dew = torch.empty((B, N, K), dtype=torch.float32, device=dev)
     ewc, idxc, nmc, mlc = e_w.contiguous(), idx.contiguous(), nmask.contiguous(), mlig.contiguous()
+    since = node_bwd_launch_count()
     build.check(bwd(
         hck.data_ptr(), xck.data_ptr(), idxc.data_ptr(), nmc.data_ptr(), mlc.data_ptr(),
         ewc.data_ptr(), offsets.data_ptr(), coeff,
@@ -228,4 +333,5 @@ def block_bwd_cuda(hck, xck, idx, nmask, mlig, e_w, n_ligand, x2h, h2x, gh, gx):
     LAUNCHES += 1
     weight_grad.count_passes("x2h", L)
     weight_grad.count_passes("h2x", L)
+    count_node_bwd(since)
     return dh0, dx0, dew, gx2h, gh2x

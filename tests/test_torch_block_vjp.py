@@ -11,7 +11,10 @@ fp16 product per term misses that bar; d rbf as the kernel computes it
 each slot taking its type's columns) at the same bar on the same graphs,
 while one TF32 product per term misses it, and that two-table form, from
 the port's staged fragments, against the einsum over each edge's table; the
-train-mode forward's
+node kernel's two products as it computes them (node_tf32: three-term TF32 in
+its k-step order) at the same bar on the same graphs, while one TF32 product
+per term misses it, and its plain version `node_bwd_plain` against the JAX
+query MLP's backward `_node_mlp_bwd`; the train-mode forward's
 checkpoints against the JAX megakernel in interpret mode; and the port's
 loss and every parameter gradient against jax.value_and_grad of the JAX
 XLA loss, with the JAX draws injected."""
@@ -28,6 +31,7 @@ import torch.nn.functional as F
 from targetdiff_tpu.models.fast_forward import extract_block_params
 from targetdiff_tpu.models.score_model import DiffusionModel as JaxDiffusionModel
 from targetdiff_tpu.ops.pallas.block_denoiser import block_denoiser as jax_block_denoiser
+from targetdiff_tpu.ops.pallas.edge_layer_vjp import _node_mlp_bwd, _node_mlp_fwd
 from targetdiff_tpu.ops.rbf import gaussian_smearing_offsets as jax_offsets
 from targetdiff_tpu_torch.data.batch import from_numpy
 from targetdiff_tpu_torch.models import fast_forward
@@ -106,12 +110,33 @@ def drbf_tf32(dz, w_rbf, et, ta, terms=3, warps=8):
     return _by_kind(D, et, ta, R)
 
 
+def node_tf32(a, b, terms=3):
+    """a [.., K] @ b [K, N] as csrc/node_bwd.cuh node_bwd_kernel computes its
+    two products (d qa = dq w_q2^T, dh += dproj w_node^T): TF32 operands
+    (split3: hi, lo), each 8-deep k-step's lo*hi + hi*lo + hi*hi (terms=1:
+    hi*hi alone) summed from zero, the k-steps added to the float32
+    accumulator in ascending order (every tile and row takes that order)."""
+    ks = a.shape[-1] // 8
+    ah, al = split3(a.reshape(*a.shape[:-1], ks, 8))
+    bh, bl = split3(b.reshape(ks, 8, b.shape[-1]))
+
+    def prod(x, y):  # [.., ks, 8] x [ks, 8, N] -> [.., ks, N]
+        return torch.einsum("...ki,kin->...kn", x, y)
+
+    d = prod(ah, bh) if terms == 1 else prod(al, bh) + prod(ah, bl) + prod(ah, bh)
+    acc = d[..., 0, :]
+    for k in range(1, ks):
+        acc = acc + d[..., k, :]
+    return acc
+
+
 def _pass_bwd(P, l, h, x, idx, nmask, mlig, e_w, row0, h2x, dh, dx, dew, grads, n_heads,
-              matmul=torch.matmul, drbf_fn=drbf_einsum):
+              matmul=torch.matmul, drbf_fn=drbf_einsum, node_matmul=torch.matmul):
     """One pass of layer l, as edge_bwd_kernel + gather_kernel +
     node_bwd_kernel + the weight-gradient reductions compute it; the
     recompute's k and v second layers through `matmul`, d rbf through
-    `drbf_fn(dz, w_rbf, et, ta)`."""
+    `drbf_fn(dz, w_rbf, et, ta)`, the node kernel's two products through
+    `node_matmul`."""
     B, N, H = h.shape
     NH, DH = n_heads, H // n_heads
     offsets, coeff = gaussian_smearing_offsets()
@@ -192,7 +217,7 @@ def _pass_bwd(P, l, h, x, idx, nmask, mlig, e_w, row0, h2x, dh, dx, dew, grads, 
     dproj[..., 2 * H:4 * H] = dnj.reshape(B, N, 2 * H)
     dx -= torch.zeros(B * N, 3).index_add_(0, flat, drel.reshape(-1, 3)).reshape(B, N, 3)
     # query MLP and node projections backward (node_bwd_kernel)
-    dyq = (dq @ w["w_q2"].T) * (yq > 0)
+    dyq = node_matmul(dq, w["w_q2"].T) * (yq > 0)
     dproj[..., 4 * H:] = _ln_bwd(dyq, q1hat, q1rstd, w["q_ln"][0])
     g["w_q2"] += torch.einsum("bni,bnj->ij", qa, dq)
     g["b_q2"] += dq.sum((0, 1))
@@ -200,26 +225,26 @@ def _pass_bwd(P, l, h, x, idx, nmask, mlig, e_w, row0, h2x, dh, dx, dew, grads, 
     g["q_ln"][1] += dyq.sum((0, 1))
     g["w_node"] += torch.einsum("bni,bnj->ij", h, dproj)
     g["b_node"] += dproj.sum((0, 1))
-    dh += dproj @ w["w_node"].T
+    dh += node_matmul(dproj, w["w_node"].T)
 
 
 @torch.no_grad()
 def replay_block_bwd(x2h, h2x, hck, xck, nbh, mlig, e_w, n_ligand, gh, gx, n_heads,
-                     matmul=torch.matmul, drbf_fn=drbf_einsum):
+                     matmul=torch.matmul, drbf_fn=drbf_einsum, node_matmul=torch.matmul):
     """The backward kernel's algorithm: layers L-1..0, h2x pass on the
     ligand tail from hck[l+1], then x2h on every row from hck[l] (hck
     [L+1,B,N,H], xck [L+1,B,N,3]), the recompute's second layers through
-    `matmul`, d rbf through `drbf_fn`. Returns (dh0, dx0, de_w, x2h grads,
-    h2x grads)."""
+    `matmul`, d rbf through `drbf_fn`, the node kernel's products through
+    `node_matmul`. Returns (dh0, dx0, de_w, x2h grads, h2x grads)."""
     L, N = hck.shape[0] - 1, hck.shape[2]
     dh, dx, dew = gh.clone(), gx.clone(), torch.zeros_like(e_w)
     gx2h = {f: torch.zeros_like(x2h[f]) for f in FIELDS}
     gh2x = {f: torch.zeros_like(h2x[f]) for f in FIELDS}
     for l in reversed(range(L)):
         _pass_bwd(h2x, l, hck[l + 1], xck[l], nbh.idx, nbh.mask, mlig, e_w, N - n_ligand,
-                  True, dh, dx, dew, gh2x, n_heads, matmul, drbf_fn)
+                  True, dh, dx, dew, gh2x, n_heads, matmul, drbf_fn, node_matmul)
         _pass_bwd(x2h, l, hck[l], xck[l], nbh.idx, nbh.mask, mlig, e_w, 0, False, dh, dx,
-                  dew, gx2h, n_heads, matmul, drbf_fn)
+                  dew, gx2h, n_heads, matmul, drbf_fn, node_matmul)
     return dh, dx, dew, gx2h, gh2x
 
 
@@ -243,12 +268,12 @@ def _close(got, want, name, atol_scale=1e-5, rtol=1e-4):
 
 
 def _replay_and_autograd(model, rn, h, x, mlig, nbh, e_w, gh, gx, n_heads,
-                         matmul=torch.matmul, drbf_fn=drbf_einsum):
+                         matmul=torch.matmul, drbf_fn=drbf_einsum, node_matmul=torch.matmul):
     """(replay, autograd): dh0, dx0, de_w and every parameter gradient of the
     block for the output cotangents (gh, gx), from `replay_block_bwd` (its
-    recompute through `matmul`, d rbf through `drbf_fn`) on the packed
-    weights and the train-mode checkpoints, and from autograd of the plain
-    block."""
+    recompute through `matmul`, d rbf through `drbf_fn`, the node kernel's
+    products through `node_matmul`) on the packed weights and the
+    train-mode checkpoints, and from autograd of the plain block."""
     h_leaf, x_leaf, ew_leaf = (t.clone().requires_grad_() for t in (h, x, e_w))
     model.net.zero_grad()
     h_out, x_out = rn.block_forward(h_leaf, x_leaf, nbh, mlig, e_w=ew_leaf)
@@ -259,7 +284,8 @@ def _replay_and_autograd(model, rn, h, x, mlig, nbh, e_w, gh, gx, n_heads,
     hck, xck = block_denoiser_train_plain(rn, h, x, nbh, mlig, e_w)
     dh0, dx0, dew, gx2h, gh2x = replay_block_bwd(
         {f: t.detach() for f, t in x2h.items()}, {f: t.detach() for f, t in h2x.items()},
-        hck, xck, nbh, mlig, e_w, model.max_ligand, gh, gx, n_heads, matmul, drbf_fn)
+        hck, xck, nbh, mlig, e_w, model.max_ligand, gh, gx, n_heads, matmul, drbf_fn,
+        node_matmul)
     # every packed gradient, carried to the parameters by the packing's backward
     model.net.zero_grad()
     torch.autograd.backward([x2h[f] for f in FIELDS] + [h2x[f] for f in FIELDS],
@@ -389,6 +415,84 @@ def test_one_term_tf32_drbf_backward_replay_misses_the_bar():
     assert _worst_over_scale(one, want) > 10 * 1e-5
     with pytest.raises(AssertionError):
         _hold_replay(one, want, 36 * cfg.num_layers)
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_tf32_node_bwd_replay_matches_autograd_of_plain_block(case):
+    """The kernel's algorithm with its three-term fp16 recompute, its d rbf and
+    its node kernel's two products as the kernel computes them (node_tf32:
+    three-term TF32 in the kernel's k-step order) holds the float32-grade bar
+    (`_close`) against autograd of the plain block."""
+    cfg, _, _, _, model, _, rn, h, x, mlig, nbh, e_w, gh, gx = _split_setup(*SPLIT_CASES[case])
+    got, want = _replay_and_autograd(model, rn, h, x, mlig, nbh, e_w, gh, gx, cfg.n_heads,
+                                     split3_matmul, drbf_tf32, node_tf32)
+    _hold_replay(got, want, 36 * cfg.num_layers)
+
+
+def test_one_term_tf32_node_bwd_replay_misses_the_bar():
+    """One TF32 product per term in the node kernel's products lands well
+    outside the bar that the three-term products hold on the same inputs."""
+    def one_term(a, b):
+        return node_tf32(a, b, terms=1)
+
+    cfg, _, _, _, model, _, rn, h, x, mlig, nbh, e_w, gh, gx = _split_setup(
+        *SPLIT_CASES["knn_K40"])
+    three, want = _replay_and_autograd(model, rn, h, x, mlig, nbh, e_w, gh, gx, cfg.n_heads,
+                                       split3_matmul, drbf_tf32, node_tf32)
+    one, _ = _replay_and_autograd(model, rn, h, x, mlig, nbh, e_w, gh, gx, cfg.n_heads,
+                                  split3_matmul, drbf_tf32, one_term)
+    assert _worst_over_scale(three, want) < 1e-5
+    assert _worst_over_scale(one, want) > 10 * 1e-5
+    with pytest.raises(AssertionError):
+        _hold_replay(one, want, 36 * cfg.num_layers)
+
+
+@pytest.mark.parametrize("V", [32, 4])
+def test_node_bwd_plain_matches_jax_node_mlp_bwd(V):
+    """`node_bwd_plain` (the node kernel's function on a pass's row buffer,
+    width H = 32, value width V: x2h or h2x) against the JAX query MLP's
+    backward `_node_mlp_bwd` on its `_node_mlp_fwd` residuals, plus a float64
+    numpy dh product for the node projections' other columns, on the same
+    seeded numpy inputs: qa, and dq1 and the LayerNorm partials through the
+    gradients JAX forms from them (d b1 and d w1 = h^T dq1, d lns, d lnb),
+    w_q2's gradient qa^T dq, and dh."""
+    rng = np.random.default_rng(21)
+    n, H = 37, 32
+    f32 = lambda *shape, s=1.0: (rng.normal(size=shape) * s).astype(np.float32)  # noqa: E731
+    h_tile, w_node, b1 = f32(n, H), f32(H, 5 * H, s=H ** -0.5), f32(H, s=0.1)
+    lns, lnb, w_q2, b2 = 1 + f32(H, s=0.2), f32(H, s=0.3), f32(H, H, s=H ** -0.5), f32(H)
+    lay = block_vjp.row_layout(H, V)
+    rowbuf, dh = f32(n, lay["width"]), f32(n, H)
+    dq = rowbuf[:, lay["dq"]:lay["dq"] + H]
+    w1 = w_node[:, 4 * H:]
+    _, res = _node_mlp_fwd(*map(jnp.asarray, (h_tile, w1, b1, lns, lnb, w_q2, b2)))
+    dh_q, (dw1, db1, dlns, dlnb, dw2, _) = _node_mlp_bwd(
+        jnp.asarray(dq), res, jnp.asarray(h_tile), jnp.asarray(w1), jnp.asarray(lns),
+        jnp.asarray(w_q2))
+    q1 = np.array(res[0])
+    out, qa, dh_out = block_vjp.node_bwd_plain(
+        *map(torch.from_numpy, (rowbuf, q1, dh, np.stack([lns, lnb]), w_q2.T.copy(),
+                                w_node.T.copy())))
+    dq1 = out[:, 4 * H:5 * H].numpy()
+    qln = out[:, lay["qln"]:lay["qln"] + 2 * H].numpy()
+
+    def close(got, want, name):
+        want = np.asarray(want, np.float64).reshape(np.shape(got))
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * np.abs(want).max(),
+                                   err_msg=name)
+
+    close(qa.numpy(), res[4], "qa")
+    close(dq1.sum(0), db1, "d b1")
+    close(h_tile.T.astype(np.float64) @ dq1, dw1, "d w1")
+    close(qln[:, :H].sum(0), dlns, "d lns")
+    close(qln[:, H:].sum(0), dlnb, "d lnb")
+    close(qa.numpy().T.astype(np.float64) @ dq, dw2, "d w2")
+    want_dh = (dh.astype(np.float64) + np.asarray(dh_q, np.float64)
+               + rowbuf[:, :4 * H].astype(np.float64) @ w_node[:, :4 * H].T.astype(np.float64))
+    close(dh_out.numpy(), want_dh, "dh")
+    untouched = np.ones(lay["width"], bool)
+    untouched[4 * H:5 * H] = untouched[lay["qln"]:lay["qln"] + 2 * H] = False
+    assert np.array_equal(out.numpy()[:, untouched], rowbuf[:, untouched])
 
 
 def test_two_table_drbf_from_staged_fragments_equals_einsum_over_edge_types():
@@ -580,3 +684,4 @@ def test_training_kernel_wrappers_refuse_cpu_tensors():
         block_vjp.block_bwd_cuda(hck, xck, nbh.idx, nbh.mask,
                                  mlig, e_w, model.max_ligand, x2h, h2x, gh, gx)
     assert kblock.TRAIN_LAUNCHES == 0 and block_vjp.LAUNCHES == 0
+    assert block_vjp.NODE_BWD_LAUNCHES == 0

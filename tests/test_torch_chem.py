@@ -1,8 +1,9 @@
 """The port's own copies of the host-side chemistry (PDB and SDF parsing,
 reconstruction, bond orders, the ligand-size prior and their data files)
 against the JAX package's modules they were copied from, and the rule that
-no module of the port, nor chip_smoke.py, weight_grad_variants.py or
-edge_bwd_variants.py, imports the JAX package."""
+no module of the port, nor chip_smoke.py or the kernel-variant tools
+(weight_grad_variants.py, edge_bwd_variants.py, node_ew_variants.py and
+their variant_harness.py), imports the JAX package."""
 
 import ast
 import subprocess
@@ -156,4 +157,11 @@ def test_weight_grad_variants_imports_neither_jax_nor_the_jax_package():
 def test_edge_bwd_variants_imports_neither_jax_nor_the_jax_package():
     roots = _imported_roots("edge_bwd_variants.py")
     assert {"targetdiff_tpu_torch", "chip_smoke"} <= roots
+    assert not roots & {"targetdiff_tpu", "jax", "jaxlib", "flax", "optax"}, roots
+
+
+@pytest.mark.parametrize("script", ["node_ew_variants.py", "variant_harness.py"])
+def test_variant_tools_import_neither_jax_nor_the_jax_package(script):
+    roots = _imported_roots(script)
+    assert "targetdiff_tpu_torch" in roots
     assert not roots & {"targetdiff_tpu", "jax", "jaxlib", "flax", "optax"}, roots

@@ -671,3 +671,71 @@ def test_hybrid_sampling_runs_the_layer_kernels(cuda):
                                      torch.Generator(device=cuda).manual_seed(0), num_steps=3)
     assert kel.X2H_LAUNCHES - launches == 3 * 2 and kblock.LAUNCHES == block
     assert bool(res.pos.isfinite().all())
+
+
+# The backward's node kernel (csrc/node_bwd.cuh) alone: rows, V (the pass's
+# value width: 128 x2h, 16 h2x). 13,312 rows are the B=32 train step's (N =
+# 416; 64-row tiles); one count that is not a multiple of the 64-row tile and
+# one of the 32-row tile (2,432 rows: the B=4 block backward's).
+NODE_BWD_CASES = {"x2h_B32": (13312, 128), "h2x_B32": (13312, 16),
+                  "x2h_ragged64": (13312 - 5, 128), "h2x_ragged32": (2432 + 7, 16)}
+
+
+@pytest.mark.parametrize("case", list(NODE_BWD_CASES))
+def test_node_bwd_kernel_holds_the_float64_bar_and_repeats(cuda, case):
+    """The backward's node kernel alone against float64 (`node_bwd_plain` on
+    float64 copies, with the kernel's own ReLU mask), as chip_smoke.py
+    [train-block node-bwd] holds it: every output within NODE_BWD_BAR of its
+    scale; the row buffer's other columns untouched; two runs bitwise equal;
+    each run one launch as the library counts them."""
+    from chip_smoke import NODE_BWD_BAR, node_bwd_errs, node_bwd_operands
+    from targetdiff_tpu_torch.ops.kernels import block_vjp
+
+    rows, V = NODE_BWD_CASES[case]
+    ops = node_bwd_operands(torch, cuda, rows, V)
+    rowbuf, q1, dh, q_ln, w_q2T, w_nodeT = ops
+    launched = block_vjp.NODE_BWD_LAUNCHES
+    got = block_vjp.node_bwd_cuda(rowbuf.clone(), q1, dh.clone(), q_ln, w_q2T, w_nodeT)
+    again = block_vjp.node_bwd_cuda(rowbuf.clone(), q1, dh.clone(), q_ln, w_q2T, w_nodeT)
+    torch.cuda.synchronize()
+    assert block_vjp.NODE_BWD_LAUNCHES - launched == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = block_vjp.node_bwd_plain(*[t.double() for t in ops], relu_mask=got[1] > 0)
+    errs = node_bwd_errs(got, want)
+    assert max(v for k, v in errs.items() if k.endswith("_over_scale")) < NODE_BWD_BAR, errs
+    lay = block_vjp.row_layout(128, V)
+    kept = torch.ones(lay["width"], dtype=torch.bool, device=cuda)
+    kept[4 * 128:5 * 128] = kept[lay["qln"]:lay["qln"] + 256] = False
+    assert torch.equal(got[0][:, kept], rowbuf[:, kept])
+
+
+@pytest.mark.parametrize("rows,tile", [(13312, 64), (2432, 32)])
+def test_node_bwd_kernel_occupancy(cuda, rows, tile):
+    """The node kernel as the card makes it: 64-row tiles where they fill the
+    card's SMs, else 32; at most 128 registers, no spills, two blocks per SM."""
+    from targetdiff_tpu_torch.ops.kernels import block_vjp
+
+    info = block_vjp.node_bwd_info(rows)
+    assert info["tile_rows"] == tile
+    assert info["registers"] <= 128 and info["local_bytes"] == 0
+    assert info["blocks_per_sm"] == 2
+
+
+@pytest.mark.parametrize("case", ["knn_K32", "hybrid_K95", "knn_B100"])
+def test_edge_weight_kernel_holds_the_float64_bar_and_repeats(cuda, case):
+    """The edge-weight kernel alone (csrc/block_denoiser.cu ew_kernel) on the
+    kNN graph (K = 32), the hybrid graph (K = 95) and the kNN graph at the
+    bench's batch of 100 (chip_smoke.EW_CASES): e_w of every valid slot
+    within EW_TOL of the module's edge weights in float64; two runs bitwise
+    equal; every slot finite."""
+    from chip_smoke import EW_TOL, ew_case
+
+    rn, x, nbh, packed = ew_case(torch, cuda, case)
+    with torch.no_grad():
+        got = kblock.edge_weights_cuda(x, nbh, packed)
+        again = kblock.edge_weights_cuda(x, nbh, packed)
+        want = copy.deepcopy(rn).double().edge_weights(x.double(), nbh)[..., 0]
+    torch.cuda.synchronize()
+    assert nbh.idx.shape[-1] == (95 if case == "hybrid_K95" else 32)
+    assert torch.equal(got, again) and bool(got.isfinite().all())
+    assert float((got.double() - want)[nbh.mask].abs().max()) < EW_TOL["atol"]

@@ -19,15 +19,13 @@ the card's name and power limit first. Needs a CUDA device and nvcc.
 
 from __future__ import annotations
 
-import json
-import shutil
-import subprocess
 import sys
-import tempfile
 from pathlib import Path
 
-REPO = Path(__file__).resolve().parent
-KERNEL = Path("targetdiff_tpu_torch/csrc/weight_grad.cuh")
+import variant_harness as vh
+from variant_harness import patch
+
+KERNEL = "weight_grad.cuh"
 TIMED = ("x2h_edge w2k", "x2h_edge table", "h2x_edge w2k", "node w_node x2h")
 
 SPLIT = """  hi = rna_tf32(x);
@@ -104,12 +102,6 @@ long long fma_chunks(long long M, long long tiles, long long n) {
 """
 
 
-def patch(text: str, old: str, new: str) -> str:
-    if text.count(old) != 1:
-        raise ValueError(f"weight_grad.cuh no longer holds, once:\n{old}")
-    return text.replace(old, new)
-
-
 VARIANTS = {
     "kernel": lambda s: s,
     # mutants: the bar must hold the kernel and the FMA kernel, and miss these
@@ -138,22 +130,17 @@ VARIANTS = {
 
 
 def make_copy(root: Path, name: str) -> Path:
-    dst = root / name
-    shutil.copytree(REPO / "targetdiff_tpu_torch", dst / "targetdiff_tpu_torch",
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    f = dst / KERNEL
-    f.write_text(VARIANTS[name](f.read_text()))
-    return dst
+    return vh.make_copy(vh.REPO, root, name,
+                        lambda csrc: vh.rewrite(csrc / KERNEL, VARIANTS[name]))
 
 
-def measure(copy: Path, name: str) -> dict:
+def measure(copy: Path, name: str, out_file=None) -> dict:
     """The variant in `copy` on chip_smoke.py's weight-gradient products."""
     sys.path.insert(0, str(copy))
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
-    from targetdiff_tpu_torch.ops.kernels import build
     from targetdiff_tpu_torch.ops.kernels import weight_grad as kwg
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -180,46 +167,14 @@ def measure(copy: Path, name: str) -> dict:
             out[key]["device_ms"] = sum(
                 v["ms"] for k, v in cs.device_times(prof, 20).items()
                 if "weight_grad_kernel" in k or "atb_kernel" in k)
-    log = (build.build_dir() / "build.log").read_text().splitlines()
     kernel = "atb_kernel" if name == "fma_atb" else "weight_grad_kernel"
-    entry = next(i for i, ln in enumerate(log)
-                 if "Compiling entry" in ln and "block_vjp" in ln and kernel in ln)
-    ptxas = "; ".join(ln.strip() for ln in log[entry + 1:entry + 4]
-                      if "registers" in ln or "spill" in ln)
+    ptxas = vh.ptxas({"k": ("block_vjp", kernel)})["k"]
     return {"variant": name, "ptxas": ptxas,
             "worst_err_over_s": max(v["err_over_s"] for v in out.values()), "products": out}
 
 
 def main(argv) -> int:
-    if argv[:1] == ["--measure"]:
-        print(json.dumps(measure(Path(argv[1]), argv[2])), flush=True)
-        return 0
-    import torch
-
-    if not torch.cuda.is_available():
-        raise RuntimeError("weight_grad_variants needs a CUDA device")
-    names = argv or list(VARIANTS)
-    if any(n not in VARIANTS for n in names):
-        raise SystemExit(f"variants: {', '.join(VARIANTS)}")
-    sys.path.insert(0, str(REPO))
-    import chip_smoke as cs
-
-    print(cs.card_name(), flush=True)
-    root = Path(tempfile.mkdtemp(prefix="weight_grad_variants_"))
-    try:
-        order = ["kernel", *[n for n in names if n != "kernel"], "kernel"]
-        copies = {n: make_copy(root, n) for n in dict.fromkeys(order)}
-        builds = [subprocess.Popen(
-            [sys.executable, "-c", "from targetdiff_tpu_torch.ops.kernels import build; "
-             "build.load_library()"], cwd=c) for c in copies.values()]
-        if any(b.wait() for b in builds):
-            raise RuntimeError("a variant failed to build")
-        for n in order:
-            subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure",
-                            str(copies[n]), n], check=True)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    return 0
+    return vh.main(__file__, argv, VARIANTS, make_copy, measure)
 
 
 if __name__ == "__main__":
