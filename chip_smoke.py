@@ -9,7 +9,10 @@
 With no arguments: builds the CUDA kernels from targetdiff_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version at the main path's shapes (the example
 pocket: 572 atoms padded to 576, 32 ligand slots, K = 32, four complexes;
-flagship width: 9 layers, hidden 128, 16 heads), holds the node launch, the
+flagship width: 9 layers, hidden 128, 16 heads), holds the kNN kernel bit
+for bit against knn_graph_exact at B=4, B=100 and the train step's shape
+(each timed beside its bound and torch.topk of a precomputed d2), holds
+the node launch, the
 x2h edge launch and the h2x edge launch alone against their plain versions
 (the edge launches at float32-grade bars) and times each beside its bound
 (the node launch also beside `torch.addmm` of its projection), holds the
@@ -23,7 +26,10 @@ runs bitwise equal), the backwards' weight-gradient kernel alone against
 float64 at the shapes of the B=32 step's products (each timed beside its
 bound and `torch.mm`), the backward's node kernel alone against float64 at
 the B=32 step's rows for both passes (timed beside its bound and `torch.mm`
-of its dh product), the whole loss and its gradients on the kernel path
+of its dh product), the backward's inverse adjacency alone bit for bit
+against its plain version for both passes at the B=32 step's graph (timed
+beside its bound and the plain version's stable torch.sort), the whole
+loss and its gradients on the kernel path
 against the eager path, `make_train_step` at the bench's train shape (B=32,
 384-slot synthetic pockets), a short fit, and the train CLI's `run` on a
 six-entry dataset, whose checkpoint is reloaded and sampled from. Then the
@@ -244,6 +250,18 @@ def nbytes(*tensors) -> int:
         for u in (t.values() if isinstance(t, dict) else [t]):
             total += u.numel() * u.element_size()
     return total
+
+
+def digest(torch, *tensors) -> str:
+    """A short hash of the tensors' bytes (and of dicts' values, in key
+    order): equal digests from two checkouts mean bitwise equal results."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        for u in ([t[k] for k in sorted(t)] if isinstance(t, dict) else [t]):
+            h.update(u.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def bound(flops, bytes_moved: float) -> dict:
@@ -593,7 +611,9 @@ def main(argv) -> int:
     rn = model.net.refine_net
     N = x.shape[1]
 
-    # 3. kNN kernel against the plain version (tie-tolerant)
+    # 3. kNN kernel against the plain version (tie-tolerant), then bit for bit
+    # against knn_graph_exact at the sampling shapes (B=4, the bench's B=100)
+    # and the train step's, each timed beside its bound and torch.topk
     nbh = kknn.knn_graph_cuda(x, node_mask, K)
     torch.cuda.synchronize()
     if not torch.equal(nbh.mask, plain_nbh.mask):
@@ -615,11 +635,16 @@ def main(argv) -> int:
     same = float((nbh.idx == plain_nbh.idx)[nbh.mask].float().mean())
     knn_ms = cuda_ms(torch, lambda: kknn.knn_graph_cuda(x, node_mask, K))
     knn_plain_ms = cuda_ms(torch, lambda: G.knn_graph(x, node_mask, K))
-    # every pair's distance (8 FLOP) and a log2 K-deep selection per candidate
-    knn_bound = bound((0, B * N * N * (8 + np.log2(K))), nbytes(x, node_mask, nbh.idx, nbh.mask))
+    with torch.no_grad():
+        _, x100, mask100, _ = model.net.embed(*pocket_batch(
+            torch, dev, pocket, feat.feature_dim, MAX_LIGAND, LIGAND_SIZES * 25, 0))
+    knn_shapes = {"B4": knn_fields(torch, x, node_mask), "B100": knn_fields(torch, x100, mask100),
+                  "train": knn_fields(torch, *train_positions(torch, dev))}
+    del x100, mask100
+    knn_b4_bound = {k: knn_shapes["B4"][k] for k in ("bound_ms", "bound_by")}
     phase("knn", shape=f"B={B},N={N},K={K}", max_abs_err_kth_d2=knn_err,
-          same_index_fraction=same, ms=knn_ms, plain_ms=knn_plain_ms, **knn_bound,
-          tensor_core_share=0.0)
+          same_index_fraction=same, ms=knn_ms, plain_ms=knn_plain_ms, **knn_b4_bound,
+          tensor_core_share=0.0, exact=knn_shapes)
 
     # 4. block kernels against the plain block, f32, flagship width
     packed = kblock.pack_block_params(rn)
@@ -654,12 +679,21 @@ def main(argv) -> int:
     pieces.update(ew_launch_fields(torch, kblock, rn, x, plain_nbh, packed, work[2]))
     # the edge-weight launch at the bench's batch: the example pocket 100 times
     with torch.no_grad():
-        _, x100, mask100, _ = model.net.embed(*pocket_batch(
+        h100, x100, mask100, mlig100 = model.net.embed(*pocket_batch(
             torch, dev, pocket, feat.feature_dim, MAX_LIGAND, LIGAND_SIZES * 25, 0))
         nbh100 = G.knn_graph(x100, mask100, K)
-    pieces.update(ew_launch_fields(torch, kblock, rn, x100, nbh100, packed,
-                                   int(nbh100.mask.sum()), prefix="ew_b100"))
-    del x100, mask100, nbh100
+    live100 = int(nbh100.mask.sum())
+    pieces.update(ew_launch_fields(torch, kblock, rn, x100, nbh100, packed, live100,
+                                   prefix="ew_b100"))
+    # and the x2h edge launch alone there (device time beside its bound)
+    with torch.no_grad():
+        xl100 = pass_launcher(torch, kblock, h100, x100, nbh100, mlig100,
+                              rn.edge_weights(x100, nbh100)[..., 0], px0, MAX_LIGAND)
+        xl100.node()
+        pieces["x2h_edge_b100_device_ms"] = device_ms(torch, xl100.x2h, calls=5)
+    b100 = bound(live100 * FLOP_EDGE["x2h"], xl100.bytes["x2h"])
+    pieces.update({f"x2h_edge_b100_{k}": v for k, v in b100.items()})
+    del h100, x100, mask100, mlig100, nbh100, xl100
     phase("block", shape=f"B={B},N={N},K={K},L={L},H=128,heads=16",
           max_abs_err_x=x_err, max_abs_err_h=h_err, max_abs_err_h_valid_rows=h_err_all,
           ms=block_ms, plain_ms=block_plain_ms, **block_bound,
@@ -721,8 +755,8 @@ def main(argv) -> int:
     print(json.dumps({"kernels": [
         {"name": "knn_graph", "route": "cuda", "source": "targetdiff_tpu_torch/csrc/knn.cu",
          "replaces": "targetdiff_tpu/ops/pallas/knn.py:27", "launches": knn_launches,
-         "max_abs_err": knn_err, "ms": knn_ms, "plain_ms": knn_plain_ms, **knn_bound,
-         **no_library},
+         "max_abs_err": knn_err, "ms": knn_ms, "plain_ms": knn_plain_ms, **knn_b4_bound,
+         "topk_ms": knn_shapes["B4"]["topk_ms"], **no_library},
         {"name": "block_denoiser", "route": "cuda",
          "source": "targetdiff_tpu_torch/csrc/block_denoiser.cu",
          "replaces": "targetdiff_tpu/ops/pallas/block_denoiser.py:154",
@@ -744,6 +778,10 @@ def main(argv) -> int:
            "source": "targetdiff_tpu_torch/csrc/weight_grad.cuh",
            "replaces": "targetdiff_tpu/ops/pallas/block_vjp.py:113", **fields}
           for cls, fields in train["weight_grad"].items()],
+        {"name": "block_vjp.adjacency", "route": "cuda",
+         "source": "targetdiff_tpu_torch/csrc/pass_bwd.cuh",
+         "replaces": "targetdiff_tpu/ops/pallas/block_vjp.py:113", **train["adjacency"],
+         **no_library},
         {"name": "block_vjp.node_bwd", "route": "cuda",
          "source": "targetdiff_tpu_torch/csrc/node_bwd.cuh",
          "replaces": "targetdiff_tpu/ops/pallas/edge_layer_vjp.py:153", **train["node_bwd"],
@@ -784,6 +822,102 @@ def knn_setup(torch, dev, pocket, feat_dim):
     with torch.no_grad():
         h, x, node_mask, mask_ligand = model.net.embed(*batch)
     return model, batch, h, x, node_mask, mask_ligand, G.knn_graph(x, node_mask, K)
+
+
+def knn_bound(x, mask, nbh) -> dict:
+    """The kNN kernel's bound: every pair's distance (8 FLOP) and a log2
+    K-deep selection per candidate at the float32 rate; positions and mask
+    read, idx and mask written."""
+    nb, n = mask.shape
+    return bound((0, nb * n * n * (8 + np.log2(K))), nbytes(x, mask, nbh.idx, nbh.mask))
+
+
+def train_batch(dev):
+    """[train]'s batch: B=32 synthetic complexes (data/synth.py, seed 3)."""
+    from targetdiff_tpu_torch.data.synth import synth_batch
+
+    return synth_batch(np.random.default_rng(3), TRAIN_B, max_protein=TRAIN_PROTEIN,
+                       max_ligand=MAX_LIGAND, n_protein_range=(TRAIN_VALID, TRAIN_VALID + 1),
+                       n_ligand_range=(18, 28), device=dev)
+
+
+def train_positions(torch, dev):
+    """Positions [32, 416, 3] and node mask of [train]'s batch, protein
+    slots then ligand slots."""
+    tb = train_batch(dev)
+    return (torch.cat([tb.protein_pos, tb.ligand_pos], 1).float(),
+            torch.cat([tb.protein_mask, tb.ligand_mask], 1))
+
+
+def knn_fields(torch, x, mask) -> dict:
+    """The kNN kernel at one shape: idx and mask bitwise equal to
+    knn_graph_exact on every entry (raises otherwise); CUDA-event and device
+    ms per launch beside its bound (`knn_bound`); and topk_ms, torch.topk of
+    the K smallest over a precomputed masked d2 [B, N, N]: the library's
+    selection alone, not the same function (it is handed the distances and
+    promises no order on ties)."""
+    from targetdiff_tpu_torch.ops import graph as G
+    from targetdiff_tpu_torch.ops.kernels import knn as kknn
+
+    got = kknn.knn_graph_cuda(x, mask, K)
+    want = G.knn_graph_exact(x, mask, K)
+    torch.cuda.synchronize()
+    differ = int((got.idx != want.idx).sum() + (got.mask != want.mask).sum())
+    if differ:
+        raise AssertionError(f"knn: {differ} entries differ from knn_graph_exact at "
+                             f"{tuple(mask.shape)}")
+    del want
+    n = mask.shape[1]
+    valid = mask[:, None, :] & mask[:, :, None] & ~torch.eye(n, dtype=torch.bool,
+                                                             device=mask.device)
+    d2 = torch.where(valid, G.pairwise_sq_dists(x), torch.full((), G.BIG, device=mask.device))
+    return {"shape": f"B={mask.shape[0]},N={n},K={K}", "bitwise_equal": True,
+            "ms": cuda_ms(torch, lambda: kknn.knn_graph_cuda(x, mask, K)),
+            "device_ms": device_ms(torch, lambda: kknn.knn_graph_cuda(x, mask, K)),
+            **knn_bound(x, mask, got), "topk_ms": cuda_ms(torch, lambda: torch.topk(
+                d2, K, dim=-1, largest=False))}
+
+
+def adjacency_phase(torch, dev) -> dict:
+    """[train-block adj]: the backward's inverse adjacency (build_adjacency,
+    three kernels) alone through adjacency_cuda on [train]'s kNN graph (B=32,
+    N = 416, K = 32), for the x2h pass (row0 = 0) and the h2x pass (row0 =
+    N - 32): off and every source's list bitwise equal to adjacency_plain,
+    two builds equal (raises otherwise); CUDA-event and device ms per build
+    beside its bound (bytes: idx and nmask of the pass's rows read once,
+    off and the live edges' list entries written once), the plain version's
+    ms, and sort_ms, the stable torch.sort by source that adjacency_plain
+    runs, on its keys: the library's sort alone, not the same function."""
+    from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
+    from targetdiff_tpu_torch.ops.kernels import knn as kknn
+
+    x, mask = train_positions(torch, dev)
+    nbh = kknn.knn_graph_cuda(x, mask, K)
+    nb, n = mask.shape
+    out = {}
+    for sub, row0 in (("x2h", 0), ("h2x", n - MAX_LIGAND)):
+        got = [kvjp.adjacency_cuda(nbh.idx, nbh.mask, row0) for _ in range(2)]
+        want_off, want_lst = kvjp.adjacency_plain(nbh.idx, nbh.mask, row0)
+        torch.cuda.synchronize()
+        live = torch.arange(want_lst.shape[1], device=dev)[None] < want_off[:, -1:]
+        err = max(max(int((off - want_off).abs().max()),
+                      int((lst[live] - want_lst[live]).abs().max())) for off, lst in got)
+        if err:
+            raise AssertionError(f"train-block adj: {sub} lists differ from adjacency_plain")
+        edges, n_live = want_lst.numel(), int(want_off[:, -1].sum())
+        key = torch.where(nbh.mask[:, row0:].reshape(nb, -1), nbh.idx[:, row0:].reshape(nb, -1),
+                          n)
+
+        def build():
+            return kvjp.adjacency_cuda(nbh.idx, nbh.mask, row0)
+
+        out[sub] = {"edges": edges, "live_edges": n_live, "max_abs_err": float(err),
+                    "ms": cuda_ms(torch, build), "device_ms": device_ms(torch, build),
+                    **bound((0, 0), edges * 9 + n_live * 4 + want_off.numel() * 4),
+                    "plain_ms": cuda_ms(torch, lambda: kvjp.adjacency_plain(nbh.idx, nbh.mask,
+                                                                            row0)),
+                    "sort_ms": cuda_ms(torch, lambda: torch.sort(key, dim=-1, stable=True))}
+    return out
 
 
 def hybrid_setup(torch, dev, pocket, feat_dim):
@@ -1348,14 +1482,11 @@ def train_setup(torch, dev, feat_dim):
     synthetic complexes, data/synth.py, seed 3), a flagship model of seeded
     random weights, its Adam state, the step and the step's generator."""
     from targetdiff_tpu_torch.config import Config
-    from targetdiff_tpu_torch.data.synth import synth_batch
     from targetdiff_tpu_torch.models.score_model import DiffusionModel
     from targetdiff_tpu_torch.trainer import create_train_state, make_train_step
     from targetdiff_tpu_torch.utils import train as train_utils
 
-    tb = synth_batch(np.random.default_rng(3), TRAIN_B, max_protein=TRAIN_PROTEIN,
-                     max_ligand=MAX_LIGAND, n_protein_range=(TRAIN_VALID, TRAIN_VALID + 1),
-                     n_ligand_range=(18, 28), device=dev)
+    tb = train_batch(dev)
     torch.manual_seed(1)
     tmodel = DiffusionModel(Config(FLAGSHIP), feat_dim, NUM_CLASSES, device=dev,
                             max_protein=TRAIN_PROTEIN, max_ligand=MAX_LIGAND)
@@ -1455,6 +1586,9 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
           products=wgrad["products"])
     node_bwd = node_bwd_phase(torch, dev)
     phase("train-block node-bwd", bar_over_scale=NODE_BWD_BAR, **node_bwd)
+    adjacency = adjacency_phase(torch, dev)
+    phase("train-block adj", shape=f"B={TRAIN_B},N={TRAIN_PROTEIN + MAX_LIGAND},K={K}",
+          **adjacency)
 
     # ---- [train-loss]: the whole loss, kernel path vs eager path, injected draws ----
     # (the per-layer path's parity on the same draws is reported in [train-pl])
@@ -1474,7 +1608,7 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     torch.cuda.empty_cache()
     before = [p.detach().clone() for p in tmodel.parameters()]
     kknn.LAUNCHES = kblock.LAUNCHES = kblock.TRAIN_LAUNCHES = kvjp.LAUNCHES = 0
-    kvjp.NODE_BWD_LAUNCHES = 0
+    kvjp.NODE_BWD_LAUNCHES = kvjp.ADJ_LAUNCHES = 0
     kwg.LAUNCHES.update(dict.fromkeys(kwg.LAUNCHES, 0))
     for _ in range(TRAIN_WARMUP):
         state, metrics = step(state, tb, tgen)
@@ -1486,7 +1620,8 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = {"knn": kknn.LAUNCHES, "train_fwd": kblock.TRAIN_LAUNCHES, "vjp": kvjp.LAUNCHES,
-                "node_bwd": kvjp.NODE_BWD_LAUNCHES, "weight_grad": dict(kwg.LAUNCHES)}
+                "node_bwd": kvjp.NODE_BWD_LAUNCHES, "adj": kvjp.ADJ_LAUNCHES,
+                "weight_grad": dict(kwg.LAUNCHES)}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     m = {k: float(v) for k, v in metrics.items()}
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
@@ -1496,6 +1631,8 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
         raise AssertionError(f"train: expected one launch of each kernel per step, {launches}")
     if launches["node_bwd"] != 2 * L * n_steps:
         raise AssertionError(f"train: expected a node_bwd_kernel launch per pass, {launches}")
+    if launches["adj"] != 2 * n_steps:
+        raise AssertionError(f"train: expected two adjacency builds per step, {launches}")
     # per step and layer: three edge products in each pass, two node products in each
     if launches["weight_grad"] != {"x2h_edge": 3 * L * n_steps, "h2x_edge": 3 * L * n_steps,
                                    "node": 4 * L * n_steps, "alone": 0}:
@@ -1538,6 +1675,7 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kknn.LAUNCHES = kblock.TRAIN_LAUNCHES = kvjp.LAUNCHES = kvjp.NODE_BWD_LAUNCHES = 0
+    kvjp.ADJ_LAUNCHES = 0
     kel.X2H_LAUNCHES = kel.H2X_LAUNCHES = kelv.X2H_BWD_LAUNCHES = kelv.H2X_BWD_LAUNCHES = 0
     kwg.LAUNCHES.update(dict.fromkeys(kwg.LAUNCHES, 0))
     t0 = time.perf_counter()
@@ -1548,12 +1686,14 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     pl_launches = {"knn": kknn.LAUNCHES, "x2h": kel.X2H_LAUNCHES, "h2x": kel.H2X_LAUNCHES,
                    "x2h_bwd": kelv.X2H_BWD_LAUNCHES, "h2x_bwd": kelv.H2X_BWD_LAUNCHES,
                    "block_fwd": kblock.TRAIN_LAUNCHES, "block_vjp": kvjp.LAUNCHES,
-                   "node_bwd": kvjp.NODE_BWD_LAUNCHES, "weight_grad": dict(kwg.LAUNCHES)}
+                   "node_bwd": kvjp.NODE_BWD_LAUNCHES, "adj": kvjp.ADJ_LAUNCHES,
+                   "weight_grad": dict(kwg.LAUNCHES)}
     pl_peak = torch.cuda.max_memory_allocated() / 2**30
     per_step = TRAIN_PL_STEPS * FLAGSHIP["num_layers"]
     if (any(pl_launches[k] != per_step for k in ("x2h", "h2x", "x2h_bwd", "h2x_bwd"))
             or pl_launches["block_fwd"] or pl_launches["block_vjp"]
             or pl_launches["knn"] != TRAIN_PL_STEPS or pl_launches["node_bwd"] != 2 * per_step
+            or pl_launches["adj"] != 2 * per_step
             or pl_launches["weight_grad"] != {"x2h_edge": 3 * per_step, "h2x_edge": 3 * per_step,
                                               "node": 4 * per_step, "alone": 0}):
         raise AssertionError(f"train-pl: expected each per-layer kernel once per layer and "
@@ -1661,6 +1801,11 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
                          **{k: node_bwd["x2h"][k]
                             for k in ("ms", "plain_ms", "bound_ms", "bound_by", "dh_mm_ms")},
                          "timed_case": f"x2h, {node_bwd['x2h']['rows']} rows"},
+            "adjacency": {"launches": train_launches["adj"],
+                          "max_abs_err": max(f["max_abs_err"] for f in adjacency.values()),
+                          **{k: adjacency["x2h"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                              "bound_by", "sort_ms")},
+                          "timed_case": "x2h pass"},
             "pl_launches": pl_launches}
 
 
@@ -1766,11 +1911,13 @@ TRAIN_KERNELS = (
     ("stage_w2_kernel", ("stage_w2_kernel",)),
     ("stage_rbf_kernel", ("stage_rbf_kernel",)),
     ("weight_grad_kernel", ("weight_grad_kernel", "atb_kernel")),
-    ("reduce_kernel", ("reduce_kernel",)),
+    ("reduce_kernel", ("(anonymous namespace)::reduce_kernel",)),  # not at::native's
     ("colsum_kernel", ("colsum_kernel",)),
     ("gather_kernel", ("gather_kernel",)),
     ("node_bwd_kernel", ("node_bwd_kernel",)),
-    ("adj_kernel", ("adj_kernel",)),
+    # build_adjacency's three kernels; "adj_" also matches the single
+    # adj_kernel of earlier trees, which `profile train` runs on too
+    ("adjacency", ("adj_",)),
     ("node_kernel", ("node_kernel",)),
     ("x2h_edge_kernel", ("x2h_edge_kernel",)),
     ("h2x_edge_kernel", ("h2x_edge_kernel",)),
@@ -1821,6 +1968,21 @@ def profile_train(torch, dev, feat_dim) -> dict:
             "bwd_kernels": bwd_kernel_rows(torch, tb, tmodel, rows)}
 
 
+def reduce_bytes(products, colsum_m, colsum_q) -> float:
+    """Bytes reduce_kernel moves in one pass (csrc/weight_grad.cuh
+    weight_grad and csrc/pass_bwd.cuh colsum, their chunk rules): for each
+    weight-gradient product (M, P, Q) and the column sums of the row buffer
+    [colsum_m, colsum_q], its partials read once and its output written."""
+    cap, total = 1 << 22, 0
+    for m, p, q in products:
+        tiles = -(-p // 128) * -(-q // 128)
+        s = min(-(-2 * 132 // tiles), cap // (p * q))
+        chunk = -(-max(-(-m // s), 256) // 32) * 32
+        total += (-(-m // chunk) + 1) * p * q * 4
+    s = max(min(-(-colsum_m // 256), -(-528 // -(-colsum_q // 256)), cap // colsum_q), 1)
+    return total + (s + 1) * colsum_q * 4
+
+
 def bwd_kernel_rows(torch, tb, tmodel, rows) -> dict:
     """The backwards' own kernels per launch at the B=32 step's shapes:
     device ms (from the traced steps' `rows`), launches per step, the bound
@@ -1828,9 +1990,13 @@ def bwd_kernel_rows(torch, tb, tmodel, rows) -> dict:
     rows and their sources; each input read once, each output written once)
     and, where one PyTorch call computes the same function, its device time:
     index_add_ of the dz rows by source for gather_kernel's d nj,
-    torch.sum(rowbuf, 0) for colsum_kernel and its reduce_kernel launch.
-    node_bwd_kernel, gather_kernel and colsum_kernel run once per pass:
-    their bound and library time are the mean of an x2h and an h2x pass."""
+    torch.sum(rowbuf, 0) for colsum_kernel and its reduce_kernel launch; for
+    the adjacency (per build: build_adjacency's three kernels), the stable
+    torch.sort by source of adjacency_plain (not the same function).
+    node_bwd_kernel, gather_kernel, colsum_kernel, the adjacency,
+    stage_w2_kernel, stage_rbf_kernel and reduce_kernel (six a pass) run
+    per pass: their bound and library time are the mean of an x2h and an
+    h2x pass."""
     from targetdiff_tpu_torch.ops import graph as G
 
     with torch.no_grad():
@@ -1841,6 +2007,7 @@ def bwd_kernel_rows(torch, tb, tmodel, rows) -> dict:
     lig_rows, src, _ = h2x_rows(torch, nbh, row0)
     live = {"x2h": int(nbh.mask.sum()), "h2x": int(nbh.mask[:, row0:].sum())}
     dst = {"x2h": bn, "h2x": lig_rows}
+    adj_edges = {"x2h": bn * K, "h2x": nb * MAX_LIGAND * K}
     width = {"x2h": HW, "h2x": NHEADS}
     weights = f4 * (2 * HW * HW + 2 * HW * HW + 4 * RK * 2 * HW + 4 * 2 * HW + 4 * 2 * HW)
     per_pass = {}
@@ -1861,6 +2028,17 @@ def bwd_kernel_rows(torch, tb, tmodel, rows) -> dict:
             "gather": bound((0, live[sub] * (2 * HW + 3)),
                             f4 * (live[sub] * (2 * HW + 4) + bn * (2 * HW + 4))),
             "colsum": bound((0, bn * row_w), f4 * (bn * row_w + row_w)),
+            # the pass's idx and nmask read, off and the live edges' list entries written
+            "adj": bound((0, 0), adj_edges[sub] * 9 + live[sub] * f4 + nb * (n + 1) * f4),
+            # w2k [H, H] and w2v [H, V] read, their fp16 (hi, lo) fragments written
+            "stage_w2": bound((0, 0), 2 * f4 * HW * (HW + v)),
+            # w_rbf [4, R, 2H] read, its TF32 (hi, lo) fragments (two layouts) written
+            "stage_rbf": bound((0, 0), f4 * 4 * RK * 2 * HW + 16 * 2 * (2 * HW // 8)
+                               * (2 * RK // 8) * 32),
+            # per launch: five products' and the column sums' partials (six a pass)
+            "reduce": bound((0, 0), reduce_bytes(
+                [(adj_edges[sub], HW, HW), (adj_edges[sub], HW, v), (adj_edges[sub], fe, 2 * HW),
+                 (bn, HW, 5 * HW), (bn, HW, HW)], bn, row_w) / 6),
         }
         # the library calls on operands of these shapes
         offs = (torch.arange(nb, device=x.device) * n)[:, None, None]
@@ -1872,6 +2050,11 @@ def bwd_kernel_rows(torch, tb, tmodel, rows) -> dict:
         per_pass[sub]["gather_library_ms"] = device_ms(
             torch, lambda: dnj.zero_().index_add_(0, srcs, dz))
         per_pass[sub]["colsum_library_ms"] = device_ms(torch, lambda: torch.sum(rowbuf, 0))
+        first = row0 if sub == "h2x" else 0
+        key = torch.where(nbh.mask[:, first:].reshape(nb, -1), nbh.idx[:, first:].reshape(nb, -1),
+                          n)
+        per_pass[sub]["adj_library_ms"] = device_ms(
+            torch, lambda: torch.sort(key, dim=-1, stable=True))
         del dz, dnj, rowbuf
 
     def mean(key, field):
@@ -1884,12 +2067,18 @@ def bwd_kernel_rows(torch, tb, tmodel, rows) -> dict:
             ("edge_bwd_kernel<h2x>", "edge", "h2x", None),
             ("node_bwd_kernel", "node", None, None),
             ("gather_kernel", "gather", None, "gather_library_ms"),
-            ("colsum_kernel", "colsum", None, "colsum_library_ms")):
+            ("colsum_kernel", "colsum", None, "colsum_library_ms"),
+            ("adjacency", "adj", None, "adj_library_ms"),
+            ("stage_w2_kernel", "stage_w2", None, None),
+            ("stage_rbf_kernel", "stage_rbf", None, None),
+            ("reduce_kernel", "reduce", None, None)):
         r = rows[name]
         b = per_pass[sub][key] if sub else {"bound_ms": mean(key, "bound_ms"),
                                             "bound_by": per_pass["x2h"][key]["bound_by"]}
-        out[name] = {"ms_per_launch": r["ms"] / max(r["launches"], 1),
-                     "launches_per_step": r["launches"], **b,
+        # the adjacency per build (two a step), whatever its kernels
+        launches = 2 if name == "adjacency" else r["launches"]
+        out[name] = {"ms_per_launch": r["ms"] / max(launches, 1), "launches_per_step": launches,
+                     "kernel_launches_per_step": r["launches"], **b,
                      "library_ms": mean(library, None) if library else None}
     out["live_edges"], out["h2x_rows"], out["h2x_sources"] = live, lig_rows, src
     return out
@@ -1942,17 +2131,20 @@ def profile_block(torch, dev, model, pocket, feat_dim) -> list:
 
 # kernels of the backwards timed by `bwd_device_ms`: (key, pieces of the
 # profiler's kernel names)
-BWD_PIECES = (("wgrad", ("weight_grad_kernel", "atb_kernel")), ("reduce", ("reduce_kernel",)),
+BWD_PIECES = (("wgrad", ("weight_grad_kernel", "atb_kernel")),
+              ("reduce", ("(anonymous namespace)::reduce_kernel",)),
               ("edge_bwd_x2h", ("edge_bwd_kernel<false",)),
-              ("edge_bwd_h2x", ("edge_bwd_kernel<true",)), ("node_bwd", ("node_bwd_kernel",)))
+              ("edge_bwd_h2x", ("edge_bwd_kernel<true",)), ("node_bwd", ("node_bwd_kernel",)),
+              ("adj", ("adj_",)))
 
 
 def bwd_device_ms(torch, label, fn, calls=10) -> dict:
     """Device ms per call of fn spent in the weight-gradient products
     (weight_grad_kernel, or atb_kernel before it), in reduce_kernel (which
     also sums the bias and LayerNorm column sums), in the x2h and h2x
-    edge_bwd_kernel and in node_bwd_kernel, over `calls` traced calls after
-    one warm-up call."""
+    edge_bwd_kernel, in node_bwd_kernel and in the inverse adjacency's
+    kernels (adj_*, or adj_kernel before them), over `calls` traced calls
+    after one warm-up call."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -2008,6 +2200,7 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
     from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
     from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
     from targetdiff_tpu_torch.ops.kernels import edge_layer_vjp as kelv
+    from targetdiff_tpu_torch.ops.kernels import knn as kknn
     from targetdiff_tpu_torch.trainer import create_train_state, make_train_step
     from targetdiff_tpu_torch.utils import train as train_utils
 
@@ -2032,6 +2225,15 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
         out["ew_knn_b100_device_ms"] = kernel_device_ms(
             torch, lambda: kblock.block_denoiser_cuda(rn, h100, x100, nbh100, mlig100, MAX_LIGAND,
                                                       packed), "ew_kernel", calls=3)
+        # knn_kernel's device time at B=4, B=100 and the train step's shape,
+        # and a digest of its outputs there
+        knn_out = []
+        for label, (xk, mk) in (("b4", (x, node_mask)), ("b100", (x100, mask100)),
+                                ("train", train_positions(torch, dev))):
+            out[f"knn_{label}_device_ms"] = kernel_device_ms(
+                torch, lambda: kknn.knn_graph_cuda(xk, mk, K), "knn_", calls=20)
+            knn_out.extend(kknn.knn_graph_cuda(xk, mk, K))
+        out["knn_digest"] = digest(torch, *knn_out)
         del h100, x100, mask100, mlig100, nbh100
         e_w = rn.edge_weights(x, nbh)[..., 0]
         x2h, h2x = kblock.pack_pass_params(rn)
@@ -2045,6 +2247,8 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
             hck, xck, nbh.idx, nbh.mask, mlig, e_w, MAX_LIGAND, x2h, h2x, gh, gx), reps=10)
         out.update(bwd_device_ms(torch, "block_bwd", lambda: kvjp.block_bwd_cuda(
             hck, xck, nbh.idx, nbh.mask, mlig, e_w, MAX_LIGAND, x2h, h2x, gh, gx)))
+        out["block_bwd_digest"] = digest(torch, *kvjp.block_bwd_cuda(
+            hck, xck, nbh.idx, nbh.mask, mlig, e_w, MAX_LIGAND, x2h, h2x, gh, gx))
         # the launches alone at the kNN shape: td_block_node (every row), the
         # h2x pass's node launch (td_block_node_rows where the tree has it),
         # the x2h and h2x edge launches
@@ -2115,6 +2319,27 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
 
     for key, ms in bwd_device_ms(torch, "train_step", three_steps, calls=1).items():
         out[key.replace("_device_ms", "_device_ms_per_step")] = ms / 3
+    # the inverse adjacency's device time per build at this batch: the x2h
+    # pass's (row0 = 0) in a per-layer x2h backward, the h2x pass's in an h2x one
+    trn = tmodel.net.refine_net
+    with torch.no_grad():
+        th, tx, tnode, tmlig = tmodel.net.embed(*tb)
+        tnbh = G.knn_graph(tx, tnode, K)
+        te_w = trn.edge_weights(tx, tnbh)[..., 0]
+        tpx, tph = kel.pack_layer_params(trn.base_block[0])
+        tgh = torch.randn(th.shape, generator=gen, device=dev) * tnode[..., None]
+        tgx = torch.randn(tx.shape, generator=gen, device=dev)
+        out["adj_x2h_b32_device_ms"] = kernel_device_ms(torch, lambda: kelv.x2h_layer_bwd_cuda(
+            th, tx, tnbh, tmlig, te_w, tpx, tgh), "adj_", calls=5)
+        out["adj_h2x_b32_device_ms"] = kernel_device_ms(torch, lambda: kelv.h2x_layer_bwd_cuda(
+            th, tx, tnbh, tmlig, te_w, MAX_LIGAND, tph, tgx), "adj_", calls=5)
+        # the whole-block backward at this batch: a digest of every output
+        tx2h, th2x = kblock.pack_pass_params(trn)
+        thck, txck = kblock.block_denoiser_train_cuda(trn, th, tx, tnbh, tmlig, te_w, MAX_LIGAND,
+                                                      tx2h, th2x)
+        out["train_bwd_digest"] = digest(torch, *kvjp.block_bwd_cuda(
+            thck, txck, tnbh.idx, tnbh.mask, tmlig, te_w, MAX_LIGAND, tx2h, th2x, tgh, tgx))
+        del thck, txck
     # the `fast_pl` step on the same batch and model
     pl_state = create_train_state(tmodel, train_utils.get_optimizer(Config(OPTIMIZER),
                                                                     tmodel.parameters()))
@@ -2128,6 +2353,14 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
         pl_state, _ = pl_step(pl_state, tb, tgen)
     torch.cuda.synchronize()
     out["train_pl_step_ms"] = 1e3 * (time.perf_counter() - t0) / 10
+
+    def three_pl_steps():
+        nonlocal pl_state
+        for _ in range(3):
+            pl_state, _ = pl_step(pl_state, tb, tgen)
+
+    for key, ms in bwd_device_ms(torch, "train_pl_step", three_pl_steps, calls=1).items():
+        out[key.replace("_device_ms", "_device_ms_per_step")] = ms / 3
     return out
 
 

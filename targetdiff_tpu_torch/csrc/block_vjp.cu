@@ -80,6 +80,23 @@ extern "C" int td_block_bwd(const float* hck, const float* xck, const int64_t* i
   return 0;
 }
 
+// build_adjacency alone: the inverse adjacency of the destination rows
+// [row0, N) of idx / nmask [B][N][K]: off [B][N+1] and list, which holds B
+// (N - row0) K ints of lists and then td_adjacency_scratch_ints of scratch.
+extern "C" long long td_adjacency_scratch_ints(int B, int N, int K, int row0) {
+  return adj_scratch_ints(B, N, (long long)(N - row0) * K);
+}
+
+extern "C" int td_adjacency(const int64_t* idx, const bool* nmask, int B, int N, int K, int row0,
+                            int* off, int* list, void* stream) {
+  if (B <= 0 || N <= 0 || N > kAdjMaxN || K <= 0 || row0 < 0 || row0 >= N)
+    return (int)cudaErrorInvalidValue;
+  return build_adjacency(idx, nmask, B, N, K, row0, off, list, (cudaStream_t)stream);
+}
+
+// build_adjacency calls that launched so far in this process, by every entry.
+extern "C" long long td_adj_builds() { return adj_build_count; }
+
 // run_pass's staging of the d rbf product's B fragments alone: frags (16-byte
 // aligned) receives kRbfFrags uint4 from w_rbf [4][R][2H] (stage_rbf_kernel).
 extern "C" int td_stage_rbf(const float* w_rbf, void* frags, void* stream) {

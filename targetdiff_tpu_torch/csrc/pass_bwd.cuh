@@ -40,9 +40,10 @@
 //                   valid edge has exactly zero gradient: its rows are
 //                   written as zeros and its work skipped.
 //   gather_kernel   the source side, deterministic: an inverse adjacency
-//                   (edges grouped by source, ascending, built by
-//                   adj_kernel) sums each source's dz rows into its d nj and
-//                   subtracts its d rel rows from its d x.
+//                   (edges grouped by source, ascending, built once per
+//                   backward by build_adjacency's counting sort) sums each
+//                   source's dz rows into its d nj and subtracts its d rel
+//                   rows from its d x.
 //   node_bwd_kernel the query MLP's backward and dh += dproj @ w_node^T
 //                   (node_bwd.cuh): row tiles, both products on the tensor
 //                   cores (three-term TF32), the weights read once per tile.
@@ -85,10 +86,24 @@ struct PassT {
   const float* w2vT;     // [V][H]
 };
 
+// build_adjacency calls that launched, by every entry of the library.
+inline long long adj_build_count = 0;
+
 namespace {
 
 constexpr int FE = 4 * R + 4;   // edge-feature row: rbf x type | type
-constexpr int kAdjMaxN = 4096;  // nodes per complex for adj_kernel
+constexpr int kAdjMaxN = 4096;  // nodes per complex for the inverse adjacency
+
+// Edges per tile of the inverse adjacency's counting sort (build_adjacency):
+// at least 512 and at least N, a multiple of 32, so that the per-tile
+// counts (N a tile) never outnumber the edges by more than N.
+int adj_tile_edges(int N) { return ((N > 512 ? N : 512) + 31) / 32 * 32; }
+
+// Scratch ints build_adjacency takes after a pass's lists of E edges each.
+long long adj_scratch_ints(long long B, long long N, long long E) {
+  const long long T = adj_tile_edges((int)N);
+  return B * ((E + T - 1) / T) * N;
+}
 constexpr int kW2Frags = kKSteps * kNTiles * 32;  // uint4 B fragments of a staged 128x128 weight
 constexpr int kLdc = H2 + 8;    // padded row of the products' k|v output: conflict-free C stores
 constexpr int kLdd = H2 + 4;    // padded row of dk|dv and dz: conflict-free TF32 A fragments
@@ -602,57 +617,149 @@ __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
   if (is_k) rb[off_dq(V) + cc] = dq;
 }
 
-// Inverse adjacency of one pass, one block per complex: off [N+1] and list
-// [(N - row0) * K] group the valid edges whose destination lies in
-// [row0, N) by source, each group ascending by pass-local edge id.
-__global__ void __launch_bounds__(1024)
-adj_kernel(const int64_t* __restrict__ idx, const bool* __restrict__ nmask, int N, int K,
-           int row0, int* __restrict__ off_all, int* __restrict__ list_all) {
-  __shared__ int s_cnt[kAdjMaxN];
-  __shared__ int s_off[kAdjMaxN + 1];
-  const int t = threadIdx.x;
-  const long long b = blockIdx.x;
+// Inverse adjacency of one pass: off [N+1] and list [(N - row0) * K] of
+// each complex group the valid edges whose destination lies in [row0, N)
+// by source, each group ascending by pass-local edge id u = (i - row0) K + k
+// (gather_kernel sums in that order). A stable counting sort whose order no
+// atomic decides, over tiles of adj_tile_edges(N) edges, one warp each:
+//   adj_count_kernel  each tile's valid edges per source (cnt [B][tiles][N]);
+//   adj_scan_kernel   one block per complex: the exclusive scan of cnt in
+//                     (source, tile) order, a block scan per 512 sources,
+//                     into each tile's start per source, and off;
+//   adj_place_kernel  each tile writes its valid edges at its starts, in
+//                     ascending u: 32 edges a step, each edge's rank among
+//                     the step's edges of its source from __match_any_sync.
+// Bound: reading idx and nmask (9 bytes an edge) and writing list; cnt,
+// N ints a tile, never outnumbers the edges.
+constexpr int kAdjWarps = 4;          // tiles (one warp each) per block
+constexpr int kAdjSteps = 8;          // 32-edge steps whose sources a warp loads at once
+constexpr int kAdjScanThreads = 512;  // adj_scan_kernel's block
+
+// The sources of edges s0 + 32 q + lane (q < kAdjSteps) of a pass's slots
+// from e0, -1 where masked or at u1 and past: every load issued before any
+// is used.
+__device__ __forceinline__ void adj_sources(int (&src)[kAdjSteps], const int64_t* __restrict__ idx,
+                                            const bool* __restrict__ nmask, long long e0, int s0,
+                                            int u1, int lane) {
+  bool m[kAdjSteps];
+  int64_t v[kAdjSteps];
+#pragma unroll
+  for (int q = 0; q < kAdjSteps; ++q) {
+    const int u = s0 + 32 * q + lane;
+    m[q] = u < u1 ? nmask[e0 + u] : false;
+    v[q] = u < u1 ? idx[e0 + u] : 0;
+  }
+#pragma unroll
+  for (int q = 0; q < kAdjSteps; ++q) src[q] = m[q] ? (int)v[q] : -1;
+}
+
+__global__ void __launch_bounds__(kAdjWarps * 32)
+adj_count_kernel(const int64_t* __restrict__ idx, const bool* __restrict__ nmask, int N, int K,
+                 int row0, int T, int nt, int* __restrict__ cnt) {
+  extern __shared__ int s_adj[];  // [kAdjWarps][N]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = blockIdx.x * kAdjWarps + warp;
+  if (t >= nt) return;  // whole warp; the block never synchronises
+  const long long b = blockIdx.y;
   const int E = (N - row0) * K;
+  const long long e0 = (b * N + row0) * K;
+  int* c = s_adj + warp * N;
+  for (int j = lane; j < N; j += 32) c[j] = 0;
+  __syncwarp();
+  const int u1 = min(t * T + T, E);
+  for (int s0 = t * T; s0 < u1; s0 += 32 * kAdjSteps) {
+    int src[kAdjSteps];
+    adj_sources(src, idx, nmask, e0, s0, u1, lane);
+#pragma unroll
+    for (int q = 0; q < kAdjSteps; ++q)
+      if (src[q] >= 0) atomicAdd(&c[src[q]], 1);  // a count: order-free
+  }
+  __syncwarp();
+  int* out = cnt + (b * nt + t) * N;
+  for (int j = lane; j < N; j += 32) out[j] = c[j];
+}
+
+__global__ void __launch_bounds__(kAdjScanThreads)
+adj_scan_kernel(int N, int nt, int* __restrict__ cnt_all, int* __restrict__ off_all) {
+  __shared__ int s_warp[kAdjScanThreads / 32];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long b = blockIdx.x;
+  int* cnt = cnt_all + b * nt * N;
   int* off = off_all + b * (N + 1);
-  int* list = list_all + b * E;
-  for (int j = t; j < N; j += blockDim.x) s_cnt[j] = 0;
-  __syncthreads();
-  for (int u = t; u < E; u += blockDim.x) {
-    const long long e = (b * N + row0) * K + u;
-    if (nmask[e]) atomicAdd(&s_cnt[idx[e]], 1);
-  }
-  __syncthreads();
-  if (t == 0) {
-    int run = 0;
-    for (int j = 0; j < N; ++j) {
-      s_off[j] = run;
-      run += s_cnt[j];
+  int carry = 0;  // edges of the sources before this round's
+  for (int j0 = 0; j0 < N; j0 += kAdjScanThreads) {
+    const int j = j0 + tid;
+    int tot = 0;
+    if (j < N) {
+#pragma unroll 8
+      for (int t = 0; t < nt; ++t) tot += cnt[t * N + j];
     }
-    s_off[N] = run;
-  }
-  __syncthreads();
-  for (int j = t; j <= N; j += blockDim.x) off[j] = s_off[j];
-  for (int j = t; j < N; j += blockDim.x) s_cnt[j] = 0;
-  __syncthreads();
-  for (int u = t; u < E; u += blockDim.x) {
-    const long long e = (b * N + row0) * K + u;
-    if (nmask[e]) {
-      const int j = (int)idx[e];
-      list[s_off[j] + atomicAdd(&s_cnt[j], 1)] = u;
+    int x = tot;  // inclusive scan over the round's sources
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, s);
+      if (lane >= s) x += y;
     }
-  }
-  __syncthreads();
-  for (int j = t; j < N; j += blockDim.x) {  // insertion sort: a fixed order per source
-    int* seg = list + s_off[j];
-    const int n = s_off[j + 1] - s_off[j];
-    for (int u = 1; u < n; ++u) {
-      const int v = seg[u];
-      int w = u - 1;
-      while (w >= 0 && seg[w] > v) {
-        seg[w + 1] = seg[w];
-        --w;
+    if (lane == 31) s_warp[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      int w = lane < kAdjScanThreads / 32 ? s_warp[lane] : 0;
+#pragma unroll
+      for (int s = 1; s < 32; s <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, w, s);
+        if (lane >= s) w += y;
       }
-      seg[w + 1] = v;
+      if (lane < kAdjScanThreads / 32) s_warp[lane] = w;  // inclusive over warps
+    }
+    __syncthreads();
+    if (j < N) {
+      int run = carry + (warp ? s_warp[warp - 1] : 0) + x - tot;
+      off[j] = run;
+      for (int t0 = 0; t0 < nt; t0 += 8) {  // eight tiles' loads in flight
+        int v[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) v[q] = t0 + q < nt ? cnt[(t0 + q) * N + j] : 0;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          if (t0 + q < nt) cnt[(t0 + q) * N + j] = run;
+          run += v[q];
+        }
+      }
+    }
+    carry += s_warp[kAdjScanThreads / 32 - 1];
+    __syncthreads();  // s_warp is rewritten by the next round
+  }
+  if (tid == 0) off[N] = carry;
+}
+
+__global__ void __launch_bounds__(kAdjWarps * 32)
+adj_place_kernel(const int64_t* __restrict__ idx, const bool* __restrict__ nmask, int N, int K,
+                 int row0, int T, int nt, const int* __restrict__ cnt, int* __restrict__ list_all) {
+  extern __shared__ int s_adj[];  // [kAdjWarps][N]: the next free slot of each source
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = blockIdx.x * kAdjWarps + warp;
+  if (t >= nt) return;  // whole warp; the block never synchronises
+  const long long b = blockIdx.y;
+  const int E = (N - row0) * K;
+  const long long e0 = (b * N + row0) * K;
+  int* next = s_adj + warp * N;
+  const int* start = cnt + (b * nt + t) * N;
+  for (int j = lane; j < N; j += 32) next[j] = start[j];
+  __syncwarp();
+  int* list = list_all + b * E;
+  const unsigned below = (1u << lane) - 1u;
+  const int u1 = min(t * T + T, E);
+  for (int s0 = t * T; s0 < u1; s0 += 32 * kAdjSteps) {
+    int src[kAdjSteps];
+    adj_sources(src, idx, nmask, e0, s0, u1, lane);
+#pragma unroll
+    for (int q = 0; q < kAdjSteps; ++q) {
+      const int j = src[q];
+      const unsigned peers = __match_any_sync(0xffffffffu, j);
+      if (j >= 0) list[next[j] + __popc(peers & below)] = s0 + 32 * q + lane;
+      __syncwarp();
+      if (j >= 0 && lane == __ffs(peers) - 1) next[j] += __popc(peers);
+      __syncwarp();
     }
   }
 }
@@ -756,9 +863,9 @@ void carve(float* w, int* iw, long long B, long long N, long long K, long long n
     return ptr;
   };
   ws->off_x = itake(B * (N + 1));
-  ws->list_x = itake(B * N * K);
+  ws->list_x = itake(B * N * K + adj_scratch_ints(B, N, N * K));
   ws->off_h = itake(B * (N + 1));
-  ws->list_h = itake(B * nl * K);
+  ws->list_h = itake(B * nl * K + adj_scratch_ints(B, N, nl * K));
   *ints = io;
 }
 
@@ -828,11 +935,30 @@ int run_pass(const float* h, const EdgeInputs& in0, const PassParams& p, const P
   return 0;
 }
 
-// Inverse adjacency of the destination rows [row0, N) of every complex.
+// Inverse adjacency of the destination rows [row0, N) of every complex:
+// off [B][N+1], list [B][(N - row0) K], then adj_scratch_ints(B, N,
+// (N - row0) K) ints of scratch after list. Counted in adj_build_count.
 int build_adjacency(const int64_t* idx, const bool* nmask, int B, int N, int K, int row0,
                     int* off, int* list, cudaStream_t s) {
-  adj_kernel<<<B, 1024, 0, s>>>(idx, nmask, N, K, row0, off, list);
-  return (int)cudaGetLastError();
+  const int E = (N - row0) * K, T = adj_tile_edges(N), nt = (E + T - 1) / T;
+  int* cnt = list + (size_t)B * E;
+  const int smem = kAdjWarps * N * (int)sizeof(int);
+  int err = 0;
+  if (smem > 48 * 1024) {
+    err = (int)cudaFuncSetAttribute(adj_count_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (!err)
+      err = (int)cudaFuncSetAttribute(adj_place_kernel,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err) return err;
+  }
+  const dim3 grid((nt + kAdjWarps - 1) / kAdjWarps, B);
+  adj_count_kernel<<<grid, kAdjWarps * 32, smem, s>>>(idx, nmask, N, K, row0, T, nt, cnt);
+  adj_scan_kernel<<<B, kAdjScanThreads, 0, s>>>(N, nt, cnt, off);
+  adj_place_kernel<<<grid, kAdjWarps * 32, smem, s>>>(idx, nmask, N, K, row0, T, nt, cnt, list);
+  err = (int)cudaGetLastError();
+  if (!err) ++adj_build_count;
+  return err;
 }
 
 }  // namespace

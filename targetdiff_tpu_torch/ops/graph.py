@@ -36,13 +36,35 @@ def knn_graph(pos: torch.Tensor, mask: torch.Tensor, k: int) -> Neighborhood:
     go to the lower index (a stable sort, as the kernel's first-index
     argmin). Padded rows get fully masked neighborhoods whose indices still
     lie in [0, N)."""
-    N = pos.shape[1]
+    return _nearest(pairwise_sq_dists(pos), mask, k)
+
+
+def _nearest(d2: torch.Tensor, mask: torch.Tensor, k: int) -> Neighborhood:
+    """The k first of a stable sort of each row of d2 [B, N, N], invalid and
+    self pairs at BIG."""
+    N = d2.shape[1]
     if k > N:
         raise ValueError(f"k={k} exceeds the {N} nodes per complex")
-    valid = mask[:, None, :] & mask[:, :, None] & ~torch.eye(N, dtype=torch.bool, device=pos.device)
-    d2 = torch.where(valid, pairwise_sq_dists(pos), torch.full((), BIG, device=pos.device))
+    valid = mask[:, None, :] & mask[:, :, None] & ~torch.eye(N, dtype=torch.bool, device=d2.device)
+    d2 = torch.where(valid, d2, torch.full((), BIG, device=d2.device))
     vals, idx = torch.sort(d2, dim=-1, stable=True)
     return Neighborhood(idx=idx[..., :k], mask=vals[..., :k] < BIG / 2)
+
+
+def knn_graph_exact(pos: torch.Tensor, mask: torch.Tensor, k: int) -> Neighborhood:
+    """knn_graph with the kNN kernel's own rounding (csrc/knn.cu): every
+    squared distance from float32 elementwise operations in the kernel's
+    order, |p_i|^2 = (x x + y y) + z z, cross = (x_i x_j + y_i y_j) + z_i z_j,
+    d2 = max((|p_i|^2 + |p_j|^2) - 2 cross, 0), each operation rounded on
+    its own (no product reduction, no fused multiply-add), then the same
+    stable sort. Its idx and mask equal the kernel's bit for bit; for tests
+    and chip_smoke.py (the main path's CPU route keeps knn_graph)."""
+    x, y, z = pos.unbind(-1)
+    sq = (x * x + y * y) + z * z
+    cross = ((x[:, :, None] * x[:, None, :] + y[:, :, None] * y[:, None, :])
+             + z[:, :, None] * z[:, None, :])
+    return _nearest(torch.clamp((sq[:, :, None] + sq[:, None, :]) - 2.0 * cross, min=0.0),
+                    mask, k)
 
 
 def hybrid_graph(pos: torch.Tensor, node_mask: torch.Tensor, mask_ligand: torch.Tensor, k: int,

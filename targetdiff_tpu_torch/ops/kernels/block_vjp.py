@@ -14,7 +14,10 @@ the nn.Parameters. For CPU tensors the plain version runs: the eager
 
 `node_bwd_cuda` launches the backward's node kernel (csrc/node_bwd.cuh
 node_bwd_kernel, once per pass in run_pass) alone on a pass's row buffer,
-beside its plain version `node_bwd_plain`.
+beside its plain version `node_bwd_plain`. `adjacency_cuda` builds the
+backward's inverse adjacency (csrc/pass_bwd.cuh build_adjacency, a stable
+counting sort in three kernels, once per pass and backward) alone, beside
+its plain version `adjacency_plain`.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from .block_denoiser import _PassParams, _pass_structs, block_denoiser_train_cud
 
 LAUNCHES = 0  # backward kernel runs since the last reset
 NODE_BWD_LAUNCHES = 0  # node_bwd_kernel launches since the last reset (one per pass)
+ADJ_LAUNCHES = 0  # inverse-adjacency builds (build_adjacency) since the last reset
 
 FIELDS = [name for name, _ in _PassParams._fields_]
 R = len(FIXED_OFFSETS)
@@ -50,17 +54,21 @@ class _PassT(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in ("w_nodeT", "w_q2T", "w2kT", "w2vT")]
 
 
-def node_bwd_launch_count() -> int:
-    """node_bwd_kernel launches the library has made in this process, as
-    launch_node_bwd counts them where it launches (td_node_bwd_launches)."""
-    return _node_bwd_entries()[2]()
+def library_launch_counts() -> tuple:
+    """(node_bwd_kernel launches, inverse-adjacency builds) the library has
+    made in this process, as launch_node_bwd and build_adjacency count them
+    where they launch (td_node_bwd_launches, td_adj_builds)."""
+    return _node_bwd_entries()[2](), _adjacency_entries()[2]()
 
 
-def count_node_bwd(since: int) -> None:
-    """Count the node_bwd_kernel launches made since the library's count
-    (`node_bwd_launch_count`) read `since`."""
-    global NODE_BWD_LAUNCHES
-    NODE_BWD_LAUNCHES += node_bwd_launch_count() - since
+def count_library_launches(since: tuple) -> None:
+    """Add the node_bwd_kernel launches and the adjacency builds made since
+    `library_launch_counts` read `since` to NODE_BWD_LAUNCHES and
+    ADJ_LAUNCHES."""
+    global NODE_BWD_LAUNCHES, ADJ_LAUNCHES
+    node, adj = library_launch_counts()
+    NODE_BWD_LAUNCHES += node - since[0]
+    ADJ_LAUNCHES += adj - since[1]
 
 
 def row_layout(H: int, V: int) -> dict:
@@ -116,12 +124,12 @@ def node_bwd_cuda(rowbuf, q1, dh, q_ln, w_q2T, w_nodeT, qa=None):
                          f"dh [BN, {H}], q_ln [2, {H}], w_q2T [{H}, {H}], w_nodeT [{5 * H}, {H}]")
     if qa is None:
         qa = torch.empty_like(q1)
-    since = node_bwd_launch_count()
+    since = library_launch_counts()
     build.check(_node_bwd_entries()[0](
         q1.data_ptr(), q_ln.data_ptr(), w_q2T.data_ptr(), w_nodeT.data_ptr(), BN, W, lay["dq"],
         lay["qln"], rowbuf.data_ptr(), qa.data_ptr(), dh.data_ptr(),
         build.stream_ptr(rowbuf.device)), "td_node_bwd")
-    count_node_bwd(since)
+    count_library_launches(since)
     return rowbuf, qa, dh
 
 
@@ -147,6 +155,63 @@ def _node_bwd_entries():
     count = lib.td_node_bwd_launches
     count.argtypes, count.restype = [], i64
     return fn, info, count
+
+
+def adjacency_plain(idx, nmask, row0: int):
+    """The inverse adjacency of the destination rows [row0, N) of idx [B, N,
+    K] (int64) and nmask [B, N, K] (bool): (off [B, N+1], list [B, (N - row0)
+    K]) int32. The valid edges, by pass-local id u = (i - row0) K + k, in a
+    stable sort by source: source j's edges are list[b, off[b, j]:off[b, j+1]],
+    ascending in u; off from a bincount's cumsum. The slots of list past
+    off[b, N] hold -1 (the kernel leaves them unwritten)."""
+    B, N, K = idx.shape
+    src = idx[:, row0:].reshape(B, -1)
+    valid = nmask[:, row0:].reshape(B, -1)
+    key = torch.where(valid, src, N)  # invalid edges sort last
+    order = torch.sort(key, dim=-1, stable=True).indices
+    lst = torch.where(torch.gather(valid, 1, order), order, -1).to(torch.int32)
+    bins = key + (N + 1) * torch.arange(B, device=idx.device)[:, None]
+    counts = torch.bincount(bins.flatten(), minlength=B * (N + 1)).view(B, N + 1)[:, :N]
+    off = torch.cat([counts.new_zeros(B, 1), counts.cumsum(-1)], -1).to(torch.int32)
+    return off, lst
+
+
+def adjacency_cuda(idx, nmask, row0: int):
+    """build_adjacency alone (td_adjacency), as the backwards run it, on the
+    arguments of `adjacency_plain`: (off, list), list's slots past off[b, N]
+    unwritten. CUDA tensors, N <= edge_layer_vjp.MAX_NODES."""
+    global ADJ_LAUNCHES
+    build.require_cuda(idx, "idx")
+    B, N, K = idx.shape
+    if (idx.dtype != torch.int64 or nmask.dtype != torch.bool or nmask.shape != idx.shape
+            or nmask.device != idx.device):
+        raise ValueError("idx must be int64 [B, N, K] and nmask bool of the same shape and device")
+    if not 0 <= row0 < N:
+        raise ValueError(f"row0={row0} must lie in [0, N={N})")
+    idx, nmask = idx.contiguous(), nmask.contiguous()
+    fn, scratch, count = _adjacency_entries()
+    E = (N - row0) * K
+    off = torch.empty((B, N + 1), dtype=torch.int32, device=idx.device)
+    lst = torch.empty(B * E + scratch(B, N, K, row0), dtype=torch.int32, device=idx.device)
+    before = count()
+    build.check(fn(idx.data_ptr(), nmask.data_ptr(), B, N, K, row0, off.data_ptr(),
+                   lst.data_ptr(), build.stream_ptr(idx.device)), "td_adjacency")
+    ADJ_LAUNCHES += count() - before
+    return off, lst[:B * E].view(B, E)
+
+
+@functools.lru_cache(maxsize=None)
+def _adjacency_entries():
+    lib = build.load_library()
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = lib.td_adjacency
+    fn.argtypes = [vp, vp, i32, i32, i32, i32, vp, vp, vp]
+    fn.restype = ctypes.c_int
+    scratch = lib.td_adjacency_scratch_ints
+    scratch.argtypes, scratch.restype = [i32, i32, i32, i32], i64
+    count = lib.td_adj_builds
+    count.argtypes, count.restype = [], i64
+    return fn, scratch, count
 
 
 def edge_bwd_info(K: int, h2x: bool) -> dict:
@@ -317,7 +382,7 @@ def block_bwd_cuda(hck, xck, idx, nmask, mlig, e_w, n_ligand, x2h, h2x, gh, gx):
     dx0 = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
     dew = torch.empty((B, N, K), dtype=torch.float32, device=dev)
     ewc, idxc, nmc, mlc = e_w.contiguous(), idx.contiguous(), nmask.contiguous(), mlig.contiguous()
-    since = node_bwd_launch_count()
+    since = library_launch_counts()
     build.check(bwd(
         hck.data_ptr(), xck.data_ptr(), idxc.data_ptr(), nmc.data_ptr(), mlc.data_ptr(),
         ewc.data_ptr(), offsets.data_ptr(), coeff,
@@ -333,5 +398,5 @@ def block_bwd_cuda(hck, xck, idx, nmask, mlig, e_w, n_ligand, x2h, h2x, gh, gx):
     LAUNCHES += 1
     weight_grad.count_passes("x2h", L)
     weight_grad.count_passes("h2x", L)
-    count_node_bwd(since)
+    count_library_launches(since)
     return dh0, dx0, dew, gx2h, gh2x

@@ -25,7 +25,7 @@ from ..rbf import gaussian_smearing_offsets
 from . import build, weight_grad
 from .block_denoiser import _pack_pass, _pass_structs, _PassParams
 from .block_vjp import (FIELDS, _grad_stacks, _grad_structs, _PassGrads, _PassT, _transposed,
-                        count_node_bwd, node_bwd_launch_count)
+                        count_library_launches, library_launch_counts)
 from .edge_layer import (
     check_layer_inputs,
     h2x_layer_cuda,
@@ -135,14 +135,14 @@ def _layer_bwd(name, h, x, nbh, mlig, e_w, params, g, n_ligand):
     dx = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
     dew = torch.empty((B, N, K), dtype=torch.float32, device=dev)
     extra = [] if n_ligand is None else [n_ligand]
-    since = node_bwd_launch_count()
+    since = library_launch_counts()
     build.check(fns[name](
         h.data_ptr(), x.data_ptr(), idx.data_ptr(), nmask.data_ptr(), mlig.data_ptr(),
         ew.data_ptr(), offsets.data_ptr(), coeff, _pass_structs(params, 1)[0],
         _PassT(*[pt[f][0].data_ptr() for f, _ in _PassT._fields_]), _grad_structs(grads, 1)[0],
         B, N, K, *extra, g.data_ptr(), dh.data_ptr(), dx.data_ptr(), dew.data_ptr(),
         work.data_ptr(), nf.value, iwork.data_ptr(), ni.value, build.stream_ptr(dev)), name)
-    count_node_bwd(since)
+    count_library_launches(since)
     return dh, dx, dew, grads
 
 

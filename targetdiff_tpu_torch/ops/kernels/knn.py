@@ -1,6 +1,8 @@
-"""kNN graph: the CUDA kernel csrc/knn.cu for CUDA tensors, the plain
+"""kNN graph: the CUDA kernels of csrc/knn.cu for CUDA tensors (one pass of
+a warp-resident top-K for k <= 32, K argmin rounds above), the plain
 `ops.graph.knn_graph` for CPU tensors. Replaces
-targetdiff_tpu/ops/pallas/knn.py (`knn_graph_pallas`)."""
+targetdiff_tpu/ops/pallas/knn.py (`knn_graph_pallas`). The kernels' idx and
+mask equal `ops.graph.knn_graph_exact` bit for bit."""
 
 from __future__ import annotations
 
@@ -16,12 +18,15 @@ LAUNCHES = 0  # kernel launches since the last reset (plain CPU calls not counte
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    fn = build.load_library().td_knn
+def _entries():
+    lib = build.load_library()
+    fn = lib.td_knn
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    max_nodes = lib.td_knn_max_nodes
+    max_nodes.argtypes, max_nodes.restype = [ctypes.c_int], ctypes.c_int
+    return fn, max_nodes
 
 
 def knn_graph(pos: torch.Tensor, mask: torch.Tensor, k: int) -> G.Neighborhood:
@@ -43,11 +48,14 @@ def knn_graph_cuda(pos: torch.Tensor, mask: torch.Tensor, k: int) -> G.Neighborh
         raise ValueError(f"mask must be bool [B, N] on {pos.device}")
     if not 0 < k <= N:
         raise ValueError(f"k={k} must lie in [1, N={N}]")
+    knn, max_nodes = _entries()
+    if N > max_nodes(k):
+        raise ValueError(f"the kNN kernel for k={k} takes N <= {max_nodes(k)} nodes, got N={N}")
     pos, mask = pos.contiguous(), mask.contiguous()
     idx = torch.empty((B, N, k), dtype=torch.int64, device=pos.device)
     nmask = torch.empty((B, N, k), dtype=torch.bool, device=pos.device)
-    status = _entry()(pos.data_ptr(), mask.data_ptr(), B, N, k, idx.data_ptr(),
-                      nmask.data_ptr(), build.stream_ptr(pos.device))
+    status = knn(pos.data_ptr(), mask.data_ptr(), B, N, k, idx.data_ptr(), nmask.data_ptr(),
+                 build.stream_ptr(pos.device))
     build.check(status, "td_knn")
     LAUNCHES += 1
     return G.Neighborhood(idx=idx, mask=nmask)

@@ -739,3 +739,74 @@ def test_edge_weight_kernel_holds_the_float64_bar_and_repeats(cuda, case):
     assert nbh.idx.shape[-1] == (95 if case == "hybrid_K95" else 32)
     assert torch.equal(got, again) and bool(got.isfinite().all())
     assert float((got.double() - want)[nbh.mask].abs().max()) < EW_TOL["atol"]
+
+
+@pytest.mark.parametrize("k,n", [(k, n) for n in (45, 608, 1100) for k in (1, 8, 32, 48)
+                                 if k <= n])
+def test_knn_kernel_bitwise_equal_to_exact_on_ties(cuda, k, n):
+    """Both kNN kernels (the warp list for k <= 32, K rounds for k = 48) on
+    tie-heavy inputs: positions on an integer grid (many equal distances)
+    and on a scaled, shifted one (rounding decides near-ties), scattered
+    masked rows, a complex with 5 valid atoms and an all-masked one; idx and
+    mask bitwise equal to knn_graph_exact on every entry, masked slots too."""
+    rng = np.random.default_rng(k * 10000 + n)
+    for scale, shift in ((1.0, 0.0), (0.37, 10.0)):
+        pos = torch.tensor(rng.integers(0, 6, size=(4, n, 3)) * scale + shift,
+                           dtype=torch.float32, device=cuda)
+        mask = torch.ones((4, n), dtype=torch.bool, device=cuda)
+        mask[1, torch.from_numpy(rng.random(n) < 0.3).to(cuda)] = False
+        mask[2, 5:] = False
+        mask[3] = False
+        want = G.knn_graph_exact(pos, mask, k)
+        got = kknn.knn_graph_cuda(pos, mask, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got.idx, want.idx) and torch.equal(got.mask, want.mask)
+
+
+def _adjacency_case(cuda, case):
+    """(idx, nmask, n_ligand) of an adjacency case: the B=32 train step's
+    kNN graph (N = 416, K = 32), the hybrid graph of four complexes (N =
+    640, K = 95), or random indices repeating sources within rows."""
+    from targetdiff_tpu_torch.data.synth import synth_batch
+
+    rng = np.random.default_rng(5)
+    if case == "train_knn_K32":
+        tb = synth_batch(rng, 32, max_protein=384, max_ligand=32, n_protein_range=(330, 331),
+                         n_ligand_range=(18, 28), device=cuda)
+        pos = torch.cat([tb.protein_pos, tb.ligand_pos], 1).float()
+        mask = torch.cat([tb.protein_mask, tb.ligand_mask], 1)
+        nbh = kknn.knn_graph_cuda(pos, mask, 32)
+        return nbh.idx, nbh.mask, 32
+    if case == "hybrid_K95":
+        pos = torch.tensor(rng.normal(size=(4, 640, 3)) * 5, dtype=torch.float32, device=cuda)
+        mask = torch.ones((4, 640), dtype=torch.bool, device=cuda)
+        mask[:, 572:576] = False
+        mask[1, 576 + 40:] = False
+        mlig = mask.clone()
+        mlig[:, :576] = False
+        nbh = G.hybrid_graph(pos, mask, mlig, 32, 64)
+        return nbh.idx, nbh.mask, 64
+    idx = torch.tensor(rng.integers(0, 9, size=(8, 200, 24)), device=cuda)
+    return idx, torch.tensor(rng.random((8, 200, 24)) < 0.6, device=cuda), 40
+
+
+@pytest.mark.parametrize("case", ["train_knn_K32", "hybrid_K95", "repeats"])
+@pytest.mark.parametrize("h2x", [False, True])
+def test_adjacency_kernel_bitwise_equal_to_plain(cuda, case, h2x):
+    """build_adjacency alone (adjacency_cuda) for the x2h pass (row0 = 0)
+    and the h2x pass (row0 = N - n_ligand): off and each source's list
+    bitwise equal to adjacency_plain, two builds equal, one build counted."""
+    from targetdiff_tpu_torch.ops.kernels import block_vjp
+
+    idx, nmask, n_lig = _adjacency_case(cuda, case)
+    row0 = idx.shape[1] - n_lig if h2x else 0
+    built = block_vjp.ADJ_LAUNCHES
+    off, lst = block_vjp.adjacency_cuda(idx, nmask, row0)
+    off2, lst2 = block_vjp.adjacency_cuda(idx, nmask, row0)
+    want_off, want_lst = block_vjp.adjacency_plain(idx, nmask, row0)
+    torch.cuda.synchronize()
+    assert block_vjp.ADJ_LAUNCHES - built == 2
+    assert torch.equal(off, want_off) and torch.equal(off2, want_off)
+    n = want_off[:, -1]
+    live = torch.arange(lst.shape[1], device=cuda)[None] < n[:, None]
+    assert torch.equal(lst[live], want_lst[live]) and torch.equal(lst2[live], want_lst[live])
