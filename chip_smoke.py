@@ -5,6 +5,7 @@
     python3 chip_smoke.py profile [hybrid|knn|block|train] [BATCH]
     python3 chip_smoke.py duel [CHECKOUT]
     python3 chip_smoke.py margins [CHECKOUT]
+    python3 chip_smoke.py gate [STEPS] [N_MOLS]
 
 With no arguments: builds the CUDA kernels from targetdiff_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version at the main path's shapes (the example
@@ -39,8 +40,13 @@ BWD64_BAR) on the hybrid graph (the example pocket with 64 ligand
 slots: N = 640, K = 95) and the kNN graph, the node and edge launches alone
 at the hybrid shape, 1000 DDPM steps of a hybrid model
 through `sample_diffusion_ligand`, and the per-layer training loss
-(`impl='fast_pl'`) against the eager one and its train step at B=32. Every
-phase prints one line; any failure exits non-zero. The last two lines are a
+(`impl='fast_pl'`) against the eager one and its train step at B=32. [eval]
+writes [sample]'s molecules to a result_0.pkl through the sampling CLI's
+writer and scores them with the evaluation CLI's `evaluate_results`;
+[gate-short] runs the port's quality gate (targetdiff_tpu_torch/tools/
+quality_gate.py) at 200 train steps and 8 pockets x 4 molecules on the
+kernel path and checks that its report is complete, not that its checks
+pass. Every phase prints one line; any failure exits non-zero. The last two lines are a
 JSON record of the kernels (each with its time, its plain version's time and
 the least time the card could take for its work) and the contract line
 {"ok": true, "device": {...}}.
@@ -68,6 +74,14 @@ of [train-block] and of [layers]' hybrid backwards (against the plain
 float32 versions and against float64, worst tensor of each) of CHECKOUT on
 those phases' inputs. Each prints one JSON line that starts with the card's
 name and power limit.
+
+`gate` runs the port's quality gate in full (default 12000 `fast` train
+steps of the flagship on the synthetic corpus, then 256 molecules of 32
+pockets from the untrained and the trained weights, 1000 DDPM steps each,
+scored against the corpus), writes quality_gate_torch.json beside the JAX
+package's quality_gate.json (the report, the card's name and power limit,
+train ms per step, sampling ms per step of each model, evaluation seconds)
+and exits non-zero if any of its checks fails.
 
 Needs a CUDA device and the CUDA toolkit (nvcc); there is no CPU path.
 """
@@ -165,6 +179,7 @@ TRAIN_B, TRAIN_PROTEIN, TRAIN_VALID, TRAIN_STEPS, TRAIN_WARMUP = 32, 384, 330, 2
 HYBRID_LIGAND = 64  # the sampling CLI's default ligand slots: hybrid K = 64 - 1 + 32 = 95
 HYBRID_SIZES = [64, 45, 27, 14]  # ligand atoms per complex in the [layers] phase
 TRAIN_PL_STEPS = 10
+GATE_SHORT = dict(steps=200, n_mols=32, n_pockets=8)  # [gate-short]: 8 pockets x 4 molecules
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): TF32 on the tensor
 # cores, float32 outside them, and device memory.
@@ -569,6 +584,8 @@ def main(argv) -> int:
 
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device: torch.cuda.is_available() is False")
+    if argv and argv[0] == "gate":
+        return gate(torch, argv[1:])
     if argv:
         return measure(torch, argv)
     sys.path.insert(0, str(REPO))
@@ -742,12 +759,14 @@ def main(argv) -> int:
           wall_seconds=wall, ms_per_step=1e3 * sample_s / steps, mol_per_s=B / sample_s,
           knn_launches=knn_launches, block_launches=block_launches, ew_launches=ew_launches,
           max_centroid_offset_A=dist, reconstructed=f"{len(rebuilt)}/{B}")
+    eval_phase(res)
 
     layers = layer_phases(torch, dev, feat, pocket, rn, h, x, plain_nbh, mask_ligand, node_mask)
     failures = []
     hybrid_launches = hybrid_sample_phase(torch, dev, pocket, layers["model"], failures)
     train = train_phases(torch, dev, model, rn, h, x, plain_nbh, mask_ligand, node_mask, batch,
                          pocket, feat, layers["model"], layers["batch"])
+    gate_short_phase(torch, dev)
     if failures:
         raise AssertionError("; ".join(failures))
 
@@ -805,6 +824,121 @@ def main(argv) -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def eval_phase(res) -> None:
+    """[eval]: [sample]'s molecules written to a result_0.pkl by the sampling
+    CLI's writer and scored by the evaluation CLI's `evaluate_results` on
+    the host (seeded random weights: the numbers say that the pipeline runs,
+    not that the molecules are good)."""
+    from targetdiff_tpu_torch.cli.evaluate_diffusion import evaluate_results
+    from targetdiff_tpu_torch.cli.sample_diffusion import write_result
+
+    out = REPO / "outputs" / "chip_smoke_eval"
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / "result_0.pkl"
+    write_result(path, res["pos"], res["v"], "add_aromatic", res["time"])
+    t0 = time.perf_counter()
+    summary, results = evaluate_results([path], "add_aromatic")
+    seconds = time.perf_counter() - t0
+    validity = summary["validity"]
+    n = len(res["pos"])
+    if not (all(0.0 <= x <= 1.0 for x in validity.values())
+            and np.isfinite(summary["atom_type_jsd"]) and len(results) <= n
+            and sum(summary["atom_type_counts"].values()) == sum(len(v) for v in res["v"])):
+        raise AssertionError(f"eval: inconsistent summary {validity}, {len(results)} results")
+    phase("eval", molecules=n, **validity, atom_type_jsd=summary["atom_type_jsd"],
+          pair_length_jsd=summary["pair_length_jsd"],
+          bond_length_jsd={k: v for k, v in summary["bond_length_jsd"].items() if v is not None},
+          num_results=summary["num_results"], host_seconds=seconds)
+
+
+def gate_short_phase(torch, dev) -> None:
+    """[gate-short]: the port's quality gate at GATE_SHORT's size (1000 DDPM
+    steps per model, one sampling chunk) on the kernel path, held by the
+    launch counts of its training and sampling; its report must be complete
+    and finite, its checks need not pass."""
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+    from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
+    from targetdiff_tpu_torch.ops.kernels import knn as kknn
+    from targetdiff_tpu_torch.ops.kernels import weight_grad as kwg
+    from targetdiff_tpu_torch.tools import quality_gate as qg
+
+    kknn.LAUNCHES = kblock.LAUNCHES = kblock.EW_LAUNCHES = kblock.TRAIN_LAUNCHES = 0
+    kvjp.LAUNCHES = kvjp.NODE_BWD_LAUNCHES = kvjp.ADJ_LAUNCHES = 0
+    kwg.LAUNCHES.update(dict.fromkeys(kwg.LAUNCHES, 0))
+    t0 = time.perf_counter()
+    report = qg.run_gate(GATE_SHORT["steps"], GATE_SHORT["n_mols"], dev,
+                         n_pockets=GATE_SHORT["n_pockets"], log=lambda _: None)
+    wall = time.perf_counter() - t0
+    launches = {"knn": kknn.LAUNCHES, "block": kblock.LAUNCHES, "ew": kblock.EW_LAUNCHES,
+                "train_fwd": kblock.TRAIN_LAUNCHES, "vjp": kvjp.LAUNCHES,
+                "node_bwd": kvjp.NODE_BWD_LAUNCHES, "adj": kvjp.ADJ_LAUNCHES,
+                "weight_grad": dict(kwg.LAUNCHES)}
+    steps, L = GATE_SHORT["steps"], FLAGSHIP["num_layers"]
+    sampling = 2 * report["chunks"] * report["num_steps"]  # two models
+    want = {"knn": steps + sampling, "block": sampling, "ew": sampling, "train_fwd": steps,
+            "vjp": steps, "node_bwd": 2 * L * steps, "adj": 2 * steps,
+            "weight_grad": {"x2h_edge": 3 * L * steps, "h2x_edge": 3 * L * steps,
+                            "node": 4 * L * steps, "alone": 0}}
+    if launches != want:
+        raise AssertionError(f"gate-short: launches {launches}, expected {want}")
+    evs = {k: report[k] for k in ("corpus", "untrained", "trained")}
+    keys = set(evs["corpus"])
+    numbers = [x for ev in evs.values() for x in ev.values() if isinstance(x, (int, float))]
+    numbers += report["loss_hist"] + list(report["timing"].values())
+    if (any(set(ev) != keys for ev in evs.values()) or len(report["checks"]) != 12
+            or not all(isinstance(ok, bool) for ok in report["checks"].values())
+            or len(report["loss_hist"]) != 2 or not np.isfinite(numbers).all()
+            or evs["trained"]["n"] != GATE_SHORT["n_mols"]):
+        raise AssertionError(f"gate-short: incomplete or non-finite report {report}")
+    t = report["timing"]
+    phase("gate-short", train_steps=steps, molecules=GATE_SHORT["n_mols"],
+          pockets=GATE_SHORT["n_pockets"], num_steps=report["num_steps"],
+          loss=report["loss_hist"], checks_passed=sum(report["checks"].values()),
+          trained={k: evs["trained"][k] for k in ("mol_stable", "atom_stable", "recon_success",
+                                                   "atom_type_jsd_vs_train")},
+          train_ms_per_step=t["train_ms_per_step"],
+          sample_ms_per_step=[t["untrained_sample_ms_per_step"], t["trained_sample_ms_per_step"]],
+          eval_seconds=[t["corpus_eval_seconds"], t["untrained_eval_seconds"],
+                        t["trained_eval_seconds"]],
+          wall_seconds=wall, launches=launches)
+
+
+def gate(torch, argv) -> int:
+    """The `gate [STEPS] [N_MOLS]` mode (module docstring)."""
+    if len(argv) > 2 or not all(a.isdigit() for a in argv):
+        raise SystemExit("usage: chip_smoke.py gate [STEPS] [N_MOLS]")
+    steps = int(argv[0]) if argv else 12000
+    n_mols = int(argv[1]) if len(argv) > 1 else 256
+    sys.path.insert(0, str(REPO))
+    from targetdiff_tpu_torch.ops.kernels import build
+    from targetdiff_tpu_torch.tools import quality_gate as qg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_name()
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    build.load_library()
+    build_s = time.perf_counter() - t0
+    report = qg.run_gate(steps, n_mols, torch.device("cuda:0"),
+                         log=lambda line: print(line, flush=True))
+    report["card"] = card
+    report["device"] = {"kind": torch.cuda.get_device_name(0),
+                        "count": torch.cuda.device_count()}
+    report["timing"].update(build_seconds=build_s, card=card)  # the card beside its times
+    (REPO / "quality_gate_torch.json").write_text(json.dumps(report, indent=1) + "\n")
+    failed = [k for k, ok in report["checks"].items() if not ok]
+    print(json.dumps({"card": card, "gate": {
+        "checks": report["checks"], "timing": report["timing"],
+        **{k: {m: report[k][m] for m in ("mol_stable", "atom_stable", "recon_success",
+                                         "ring_recovery", "pair_jsd_vs_train",
+                                         "atom_type_jsd_vs_train", "bond_jsd_vs_train",
+                                         "n_classes")}
+           for k in ("corpus", "untrained", "trained")}}}), flush=True)
+    print("GATE", "FAIL: " + ", ".join(failed) if failed else "ok", flush=True)
+    return 1 if failed else 0
 
 
 def knn_setup(torch, dev, pocket, feat_dim):

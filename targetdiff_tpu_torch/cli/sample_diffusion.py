@@ -1,0 +1,130 @@
+"""Sample molecules for pockets of the test split and write one
+result_<id>.pkl per pocket.
+
+Usage: python -m targetdiff_tpu_torch.cli.sample_diffusion configs/sampling.yml
+       -i DATA_ID [--all [--sharded]] [--result_path ./outputs] [--device cuda]
+
+Counterpart of targetdiff_tpu/cli/sample_diffusion.py (reference:
+scripts/sample_diffusion.py): loads the checkpoint (the JAX package's .npz
+layout), rebuilds the model and transforms from the config stored in it,
+samples `sample.num_samples` molecules per pocket with 1000-step DDPM and
+writes the same result fields. With --all --sharded every pocket goes
+through `sampling.sample_testset` on the one device, `--chunk_rows` rows at
+a time. The strided samplers, position-only sampling and saved
+trajectories are not ported: a config that asks for them is refused.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import pickle
+import time
+
+import numpy as np
+import torch
+
+from ..config import load_config
+from ..data.datasets import get_dataset
+from ..data.transforms import Compose, FeaturizeLigandAtom
+from ..sampling import sample_diffusion_ligand, sample_testset
+from .sample_for_pocket import load_model_from_checkpoint
+
+
+def write_result(path, pos_list, v_list, atom_mode, time_list=(), data=None) -> None:
+    """One result file: the sampled molecules' positions and atom-type
+    indices, the sampling seconds and the pocket's `data`, in the fields
+    targetdiff_tpu/cli/evaluate_diffusion.py and the port's evaluate_results
+    read."""
+    out = {"pred_ligand_pos": list(pos_list), "pred_ligand_v": list(v_list),
+           "time": list(time_list), "ligand_atom_mode": atom_mode}
+    if data is not None:
+        out["data"] = data
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def _pocket_data(pocket, data):
+    return {k: np.asarray(v) for k, v in pocket.items()} | {
+        "protein_filename": data.get("protein_filename"),
+        "ligand_filename": data.get("ligand_filename")}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("config")
+    ap.add_argument("-i", "--data_id", type=int, default=0)
+    ap.add_argument("--all", action="store_true", help="sample every test pocket")
+    ap.add_argument("--result_path", default="./outputs")
+    ap.add_argument("--batch_size", type=int, default=100)
+    ap.add_argument("--max_protein", type=int, default=640)
+    ap.add_argument("--max_ligand", type=int, default=64)
+    ap.add_argument("--sharded", action="store_true",
+                    help="with --all: sample every pocket through sample_testset, "
+                    "--chunk_rows pocket x sample rows at a time")
+    ap.add_argument("--chunk_rows", type=int, default=100,
+                    help="largest number of pocket x sample rows in flight")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+    logger = logging.getLogger("sample")
+    config = load_config(args.config)
+    if config.sample.get("sampler", "ddpm") != "ddpm" or config.sample.get("pos_only", False):
+        raise SystemExit("only ddpm sampling of positions and types is ported "
+                         f"(sampler={config.sample.get('sampler')!r}, "
+                         f"pos_only={config.sample.get('pos_only')!r})")
+    seed = int(config.sample.seed)
+    os.makedirs(args.result_path, exist_ok=True)
+
+    model, train_config, protein_feat = load_model_from_checkpoint(
+        config.model.checkpoint, args.device, args.max_protein, args.max_ligand)
+    atom_mode = train_config.data.transform.ligand_atom_mode
+    transform = Compose([protein_feat, FeaturizeLigandAtom(atom_mode)])
+    _, subsets = get_dataset(train_config.data, transform=transform)
+    test_set = subsets["test"]
+    ids = range(len(test_set)) if args.all else [args.data_id]
+    num_atoms = config.sample.get("sample_num_atoms", "prior")
+
+    if args.sharded:
+        datas = [test_set[i] for i in ids]
+        pockets = [{"protein_pos": d["protein_pos"], "protein_feat": d["protein_atom_feature"]}
+                   for d in datas]
+        t0 = time.perf_counter()
+        results = sample_testset(
+            model, pockets, num_samples_per_pocket=config.sample.num_samples,
+            generator=torch.Generator(device=model.device).manual_seed(seed),
+            num_steps=config.sample.num_steps, sample_num_atoms=num_atoms,
+            max_protein=args.max_protein, max_ligand=args.max_ligand,
+            rng=np.random.default_rng(seed), chunk_rows=args.chunk_rows,
+            ref_sizes=[len(d["ligand_pos"]) for d in datas])
+        elapsed = time.perf_counter() - t0
+        for data_id, data, pocket, result in zip(ids, datas, pockets, results):
+            write_result(os.path.join(args.result_path, f"result_{data_id}.pkl"),
+                         result["pos"], result["v"], atom_mode, [result["time"]],
+                         _pocket_data(pocket, data))
+        logger.info(f"sharded: {len(datas)} pockets x {config.sample.num_samples} samples "
+                    f"in {elapsed:.1f}s (chunk_rows={args.chunk_rows})")
+        return
+
+    for data_id in ids:
+        data = test_set[data_id]
+        pocket = {"protein_pos": data["protein_pos"],
+                  "protein_feat": data["protein_atom_feature"]}
+        result = sample_diffusion_ligand(
+            model, pocket, num_samples=config.sample.num_samples,
+            generator=torch.Generator(device=model.device).manual_seed(seed + data_id),
+            batch_size=args.batch_size, num_steps=config.sample.num_steps,
+            sample_num_atoms=num_atoms, ref_size=len(data["ligand_pos"]),
+            max_protein=args.max_protein, max_ligand=args.max_ligand,
+            rng=np.random.default_rng(seed + data_id))
+        out_path = os.path.join(args.result_path, f"result_{data_id}.pkl")
+        write_result(out_path, result["pos"], result["v"], atom_mode, result["time"],
+                     _pocket_data(pocket, data))
+        logger.info(f"pocket {data_id}: {len(result['pos'])} molecules in "
+                    f"{sum(result['time']):.1f}s -> {out_path}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,12 @@
 """Pocket-conditioned sampling pipeline, counterpart of
-targetdiff_tpu/sampling.py:33-217 (reference: scripts/sample_diffusion.py:31-116).
+targetdiff_tpu/sampling.py (reference: scripts/sample_diffusion.py:31-116).
 
 One pocket is padded once and replicated across the batch; ligand sizes come
 from the atom-count prior on the host and become masks; init positions are
 the pocket's centre of mass plus N(0, 1) and init types are uniform. All
-noise is drawn from the caller's `torch.Generator`.
+noise is drawn from the caller's `torch.Generator`. `sample_testset` samples
+many pockets on one device from a pocket bank uploaded once, a bounded
+number of rows at a time.
 """
 
 from __future__ import annotations
@@ -50,6 +52,14 @@ def sample_ligand_sizes(protein_pos: np.ndarray, n: int, mode: str = "prior",
     else:
         raise ValueError(mode)
     return np.clip(sizes, 1, max_ligand).astype(np.int64)
+
+
+def choose_protein_padding(np_max: int, max_protein: int, max_ligand: int) -> int:
+    """Protein padding for a bank of pockets: the next multiple of 64 above
+    the largest pocket, at most `max_protein` (targetdiff_tpu/sampling.py:76)."""
+    if np_max > max_protein:
+        raise ValueError(f"largest pocket has {np_max} atoms but max_protein={max_protein}")
+    return min(max_protein, -(-np_max // 64) * 64)
 
 
 def sample_diffusion_ligand(
@@ -113,3 +123,93 @@ def sample_diffusion_ligand(
             all_v.append(v_np[i, :s])
         done += n
     return {"pos": all_pos, "v": all_v, "time": time_list}
+
+
+def sample_testset(
+    model: DiffusionModel,
+    pockets: List[Dict[str, np.ndarray]],
+    num_samples_per_pocket: int,
+    generator: torch.Generator,
+    num_steps: Optional[int] = None,
+    sample_num_atoms: str = "prior",
+    max_protein: Optional[int] = None,
+    max_ligand: Optional[int] = None,
+    rng: Optional[np.random.Generator] = None,
+    chunk_rows: int = 100,
+    ref_sizes: Optional[List[int]] = None,
+) -> List[Dict[str, Any]]:
+    """`num_samples_per_pocket` molecules for each of `pockets` on
+    `model.device`: the one-device counterpart of
+    targetdiff_tpu/sampling.py:sample_testset_sharded (reference:
+    scripts/batch_sample_diffusion.sh). The pockets are uploaded once, as a
+    bank [P, NPpad, *]; the pocket x sample rows run `chunk_rows` at a time,
+    each chunk's batch gathered on the device from the bank, so peak memory
+    is set by `chunk_rows`, not by the number of pockets. Mode 'ref' takes
+    one reference ligand size per pocket in `ref_sizes`.
+
+    Returns one dict per pocket: 'pos' and 'v' lists of numpy arrays, and
+    'time', the host seconds of the chunks it shared, split by its share of
+    each chunk's rows (each chunk's clock ends in a device-to-host copy)."""
+    max_protein = max_protein or model.max_protein
+    max_ligand = max_ligand or model.max_ligand
+    rng = rng or np.random.default_rng(0)
+    if sample_num_atoms == "ref" and ref_sizes is None:
+        raise ValueError("sample_num_atoms='ref' needs ref_sizes, one per pocket")
+    if chunk_rows < 1:
+        raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
+    P, S = len(pockets), num_samples_per_pocket
+    rows = P * S
+    dev = model.device
+
+    fp = pockets[0]["protein_feat"].shape[-1]
+    np_pad = choose_protein_padding(max(len(p["protein_pos"]) for p in pockets), max_protein,
+                                    max_ligand)
+    bank_pos = np.zeros((P, np_pad, 3), np.float32)
+    bank_feat = np.zeros((P, np_pad, fp), np.float32)
+    bank_len = np.zeros((P,), np.int64)
+    row_sizes = np.ones((rows,), np.int64)
+    for pi, pocket in enumerate(pockets):
+        pp = np.asarray(pocket["protein_pos"], np.float32)
+        bank_pos[pi, :len(pp)] = pp
+        bank_feat[pi, :len(pp)] = np.asarray(pocket["protein_feat"], np.float32)
+        bank_len[pi] = len(pp)
+        row_sizes[pi * S:(pi + 1) * S] = sample_ligand_sizes(
+            pp, S, sample_num_atoms, max_ligand=max_ligand, rng=rng,
+            ref_size=None if ref_sizes is None else ref_sizes[pi])
+    row_pocket = np.repeat(np.arange(P), S)
+    bank_pos_d = torch.as_tensor(bank_pos, device=dev)
+    bank_feat_d = torch.as_tensor(bank_feat, device=dev)
+    bank_len_d = torch.as_tensor(bank_len, device=dev)
+    slots = torch.arange(np_pad, device=dev)
+
+    pos_out: List[np.ndarray] = [None] * rows
+    v_out: List[np.ndarray] = [None] * rows
+    pocket_time = np.zeros((P,), np.float64)
+    for start in range(0, rows, chunk_rows):
+        idx = np.arange(start, min(start + chunk_rows, rows))
+        ids = torch.as_tensor(row_pocket[idx], device=dev)
+        szs = row_sizes[idx]
+        C = len(idx)
+        batch = ComplexBatch(
+            protein_pos=bank_pos_d[ids],
+            protein_feat=bank_feat_d[ids],
+            protein_mask=slots[None, :] < bank_len_d[ids][:, None],
+            ligand_pos=torch.zeros((C, max_ligand, 3), device=dev),
+            ligand_v=torch.zeros((C, max_ligand), dtype=torch.long, device=dev),
+            ligand_mask=torch.as_tensor(np.arange(max_ligand)[None, :] < szs[:, None],
+                                        device=dev),
+        )
+        init_pos, init_v = init_ligand_state(batch, model.num_classes, generator)
+        t1 = time.perf_counter()
+        res = model.sample_diffusion(batch, init_pos, init_v, generator, num_steps=num_steps)
+        pos_np = res.pos.double().cpu().numpy()
+        v_np = res.v.cpu().numpy()
+        chunk_t = time.perf_counter() - t1
+        for pi, cnt in zip(*np.unique(row_pocket[idx], return_counts=True)):
+            pocket_time[pi] += chunk_t * cnt / C
+        for ci, r in enumerate(idx):
+            pos_out[r] = pos_np[ci, :szs[ci]]
+            v_out[r] = v_np[ci, :szs[ci]]
+
+    return [{"pos": pos_out[pi * S:(pi + 1) * S], "v": v_out[pi * S:(pi + 1) * S],
+             "time": float(pocket_time[pi])} for pi in range(P)]

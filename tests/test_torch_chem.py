@@ -3,7 +3,9 @@ reconstruction, bond orders, the ligand-size prior and their data files)
 against the JAX package's modules they were copied from, and the rule that
 no module of the port, nor chip_smoke.py or the kernel-variant tools
 (weight_grad_variants.py, edge_bwd_variants.py, node_ew_variants.py and
-their variant_harness.py), imports the JAX package."""
+their variant_harness.py), imports the JAX package, and that no module of
+the port (the evaluation modules and tools/quality_gate.py included) names
+a path under targetdiff_tpu/ or reads a file there."""
 
 import ast
 import subprocess
@@ -129,6 +131,75 @@ def test_port_imports_without_the_jax_package():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) > 30  # every module of the port was imported
+
+
+def _jax_package_paths(source: str) -> list:
+    """String constants of `source`, docstrings aside, that name a path
+    under targetdiff_tpu/ or the package itself (as in
+    `files("targetdiff_tpu")`; the SDF writer's program line
+    "  targetdiff_tpu" is neither)."""
+    tree = ast.parse(source)
+    docstrings = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            first = node.body[0] if node.body else None
+            if isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant):
+                docstrings.add(id(first.value))
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docstrings
+            and ("targetdiff_tpu/" in node.value or node.value == "targetdiff_tpu")]
+
+
+def test_port_names_no_path_of_the_jax_package():
+    files = sorted((REPO / "targetdiff_tpu_torch").rglob("*.py"))
+    names = {f.relative_to(REPO).as_posix() for f in files}
+    assert {"targetdiff_tpu_torch/tools/quality_gate.py",
+            "targetdiff_tpu_torch/evaluation/eval_bond_length.py",
+            "targetdiff_tpu_torch/chem/sascorer.py"} <= names
+    found = {f.name: _jax_package_paths(f.read_text()) for f in files}
+    assert not {k: v for k, v in found.items() if v}
+    # the rule itself catches both forms
+    assert _jax_package_paths('files("targetdiff_tpu") / "resources"') == ["targetdiff_tpu"]
+    assert _jax_package_paths('open("../targetdiff_tpu/resources/x.npz")')
+
+
+_READS_NO_JAX_FILE = """
+import builtins, io, sys
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name == "targetdiff_tpu" or name.startswith("targetdiff_tpu."):
+            raise ImportError(f"{name} is not available")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+real_open = builtins.open
+
+def guarded_open(file, *args, **kwargs):
+    if "/targetdiff_tpu/" in str(file):
+        raise PermissionError(f"read of {file}")
+    return real_open(file, *args, **kwargs)
+
+builtins.open = io.open = guarded_open
+from targetdiff_tpu_torch.chem import sascorer
+from targetdiff_tpu_torch.evaluation import analyze, eval_atom_type, eval_bond_length
+from targetdiff_tpu_torch.tools import quality_gate as qg
+from targetdiff_tpu_torch.utils import atom_num
+
+analyze._tables(), eval_bond_length._cfg(), eval_atom_type.atom_type_distribution()
+sascorer._table(), atom_num.get_space_size([[0.0, 0.0, 0.0], [5.0, 0.0, 0.0]])
+pool = qg.make_pool(seed=2, pool=6)
+ev = qg.evaluate(qg.corpus_mols(pool, 6), qg.train_profile(pool, 6))
+print(ev["n"], ev["qed_mean"] is not None)
+"""
+
+
+def test_port_reads_no_file_of_the_jax_package():
+    proc = subprocess.run([sys.executable, "-c", _READS_NO_JAX_FILE], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["6", "True"]
 
 
 def _imported_roots(script: str) -> set:

@@ -4,6 +4,7 @@ score_model.py:491 and diffusion.py:88 and passed to the port explicitly.
 Plus the schedules and the posterior helpers against the JAX functions,
 and a short end-to-end sampling run on the CPU."""
 
+import pickle
 from pathlib import Path
 
 import jax
@@ -153,3 +154,104 @@ def test_sample_for_pocket_cli_runs_a_hybrid_checkpoint(tmp_path):
         str(REPO / "examples" / "1h36_A_rec_1h36_r88_lig_tt_docked_0_pocket10.pdb"),
         "--num_samples", "2", "--result_path", str(out), "--max_ligand", "8", "--device", "cpu"])
     assert (out / "samples.smi").exists()
+
+
+@pytest.mark.parametrize("np_max,max_protein", [(1, 640), (64, 640), (65, 640), (572, 640),
+                                                (600, 600), (100, 128), (127, 128)])
+def test_choose_protein_padding_matches_jax(np_max, max_protein):
+    from targetdiff_tpu.sampling import choose_protein_padding as jax_padding
+    from targetdiff_tpu_torch.sampling import choose_protein_padding
+
+    assert choose_protein_padding(np_max, max_protein, 32) == jax_padding(np_max, max_protein, 32)
+    with pytest.raises(ValueError):
+        choose_protein_padding(max_protein + 1, max_protein, 32)
+
+
+def _pockets(counts, seed=5):
+    rng = np.random.default_rng(seed)
+    return [{"protein_pos": rng.normal(size=(n, 3)).astype(np.float32) * 3 + 10.0,
+             "protein_feat": (rng.random((n, 27)) > 0.7).astype(np.float32)} for n in counts]
+
+
+def test_sample_testset_gives_each_pocket_its_samples_at_ref_sizes():
+    from targetdiff_tpu_torch.sampling import sample_testset
+
+    _, _, _, _, model, _ = small_setup()
+    pockets = _pockets([14, 9, 16])
+    out = sample_testset(model, pockets, 2, torch.Generator().manual_seed(0), num_steps=3,
+                         sample_num_atoms="ref", ref_sizes=[3, 5, 8], chunk_rows=4)
+    assert len(out) == 3
+    for entry, pocket, size in zip(out, pockets, [3, 5, 8]):
+        assert len(entry["pos"]) == len(entry["v"]) == 2 and entry["time"] > 0
+        for pos, v in zip(entry["pos"], entry["v"]):
+            assert pos.shape == (size, 3) and v.shape == (size,)
+            assert np.isfinite(pos).all() and ((v >= 0) & (v < model.num_classes)).all()
+            assert np.linalg.norm(pos.mean(0) - pocket["protein_pos"].mean(0)) < 20
+    with pytest.raises(ValueError, match="ref_sizes"):
+        sample_testset(model, pockets, 2, torch.Generator(), num_steps=1, sample_num_atoms="ref")
+
+
+@pytest.mark.parametrize("mode", ["prior", "range"])
+def test_sample_testset_sizes_do_not_depend_on_chunk_rows(mode):
+    from targetdiff_tpu_torch.sampling import sample_testset
+
+    _, _, _, _, model, _ = small_setup()
+    pockets = _pockets([14, 9, 16, 12])
+    sizes = []
+    for chunk_rows in (3, 100):
+        out = sample_testset(model, pockets, 3, torch.Generator().manual_seed(1), num_steps=1,
+                             sample_num_atoms=mode, rng=np.random.default_rng(4),
+                             chunk_rows=chunk_rows)
+        sizes.append([[len(v) for v in entry["v"]] for entry in out])
+    assert sizes[0] == sizes[1]
+    assert all(1 <= s <= model.max_ligand for row in sizes[0] for s in row)
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+def test_sample_diffusion_cli_results_read_in_the_jax_evaluation(sharded, tmp_path):
+    """The port's sampling CLI on the six-entry dataset (test split: two
+    pockets) writes result_*.pkl files with the JAX CLI's fields, which the
+    JAX package's evaluate_results reads as the port's does."""
+    from targetdiff_tpu.cli.evaluate_diffusion import evaluate_results as jax_evaluate_results
+    from targetdiff_tpu.utils.checkpoint import save_checkpoint
+    from targetdiff_tpu_torch.cli import sample_diffusion
+    from targetdiff_tpu_torch.cli.evaluate_diffusion import evaluate_results
+    from tests.test_torch_data import _data_cfg, _mini_raw
+    from tests.test_torch_evaluation import _close
+
+    cfg, _, params, _, _, _ = small_setup()
+    raw, split = _mini_raw(tmp_path)
+    ckpt = tmp_path / "ckpt.npz"
+    save_checkpoint(str(ckpt), {"data": _data_cfg(raw, split), "model": dict(cfg)},
+                    jax.device_get(params))
+    sample_yml = tmp_path / "sampling.yml"
+    sample_yml.write_text(f"model:\n  checkpoint: {ckpt}\nsample:\n  seed: 3\n  num_steps: 2\n"
+                          "  num_samples: 3\n  sample_num_atoms: prior\n")
+    out = tmp_path / "out"
+    sample_diffusion.main([str(sample_yml), "--all", "--result_path", str(out),
+                           "--max_ligand", "8", "--device", "cpu",
+                           *(["--sharded", "--chunk_rows", "2"] if sharded else [])])
+    files = sorted(out.glob("result_*.pkl"))
+    assert [f.name for f in files] == ["result_0.pkl", "result_1.pkl"]
+    for f in files:
+        res = pickle.loads(f.read_bytes())
+        assert set(res) == {"data", "pred_ligand_pos", "pred_ligand_v", "time",
+                            "ligand_atom_mode"}
+        assert len(res["pred_ligand_pos"]) == 3 and res["ligand_atom_mode"] == "add_aromatic"
+        assert res["data"]["protein_pos"].shape == (572, 3)
+        assert res["data"]["ligand_filename"] == "ligand.sdf"
+    got, _ = evaluate_results(files, "add_aromatic")
+    want, _ = jax_evaluate_results(files, "add_aromatic")
+    _close(got, want, "summary")
+
+
+def test_sample_diffusion_cli_refuses_the_strided_samplers(tmp_path):
+    from targetdiff_tpu_torch.cli import sample_diffusion
+
+    sample_yml = tmp_path / "sampling.yml"
+    sample_yml.write_text("model:\n  checkpoint: unused.npz\nsample:\n  seed: 3\n"
+                          "  num_steps: 2\n  num_samples: 3\n  sampler: ddim\n")
+    with pytest.raises(SystemExit, match="ddpm"):
+        sample_diffusion.main([str(sample_yml), "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        sample_diffusion.main([str(sample_yml), "--save_traj", "1"])
