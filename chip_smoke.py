@@ -20,7 +20,12 @@ x2h edge launch and the h2x edge launch alone against their plain versions
 edge-weight launch against float64 at B=4 and at the bench's B=100, then samples
 molecules for that pocket through the port's entry point
 `sample_diffusion_ligand` with seeded random flagship weights, and checks the
-outputs. Then the training
+outputs. [likelihood] holds `batch_likelihood_estimation` on the kernels
+against the eager path with the same draws at tools/likebench.py's shape (8
+synthetic complexes x 10 timesteps, 384 + 32 slots) and [embedding] holds
+`fetch_embedding` (frozen coordinates: no h2x pass) against eager at the
+likelihood CLI's padding (640 + 64 slots, B = 8), each with its launches
+counted exactly and timed. Then the training
 path: the train-mode block kernel and the block-VJP kernel against autograd
 of the plain block and, within BWD64_BAR, of its float64 copy (two backward
 runs bitwise equal), the backwards' weight-gradient kernel alone against
@@ -46,7 +51,8 @@ writer and scores them with the evaluation CLI's `evaluate_results`;
 [gate-short] runs the port's quality gate (targetdiff_tpu_torch/tools/
 quality_gate.py) at 200 train steps and 8 pockets x 4 molecules on the
 kernel path and checks that its report is complete, not that its checks
-pass. Every phase prints one line; any failure exits non-zero. The last two lines are a
+pass. [likelihood-cli] runs the likelihood CLI from [train-cli]'s checkpoint
+and `analyze_affinity` on the pickle it writes. Every phase prints one line; any failure exits non-zero. The last two lines are a
 JSON record of the kernels (each with its time, its plain version's time and
 the least time the card could take for its work) and the contract line
 {"ok": true, "device": {...}}.
@@ -180,6 +186,12 @@ HYBRID_LIGAND = 64  # the sampling CLI's default ligand slots: hybrid K = 64 - 1
 HYBRID_SIZES = [64, 45, 27, 14]  # ligand atoms per complex in the [layers] phase
 TRAIN_PL_STEPS = 10
 GATE_SHORT = dict(steps=200, n_mols=32, n_pockets=8)  # [gate-short]: 8 pockets x 4 molecules
+# [likelihood]: tools/likebench.py's shape, C complexes x T / stride timesteps
+LIKE_C, LIKE_PROTEIN, LIKE_VALID, LIKE_STRIDE = 8, 384, 330, 100
+# [embedding] and [likelihood-cli]: the likelihood CLI's padding
+CLI_PROTEIN, CLI_LIGAND = 640, 64
+EMBED_SIZES = [64, 52, 45, 38, 32, 27, 21, 14]  # ligand atoms per complex in [embedding]
+ELBO_TOL = dict(atol=2e-4, rtol=2e-3)  # the ELBO terms, kernels against eager (JAX's own bar)
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): TF32 on the tensor
 # cores, float32 outside them, and device memory.
@@ -760,32 +772,42 @@ def main(argv) -> int:
           knn_launches=knn_launches, block_launches=block_launches, ew_launches=ew_launches,
           max_centroid_offset_A=dist, reconstructed=f"{len(rebuilt)}/{B}")
     eval_phase(res)
+    like_launches = likelihood_phase(torch, dev, model)
+    embed_launches = embedding_phase(torch, dev, model, pocket, feat.feature_dim)
 
     layers = layer_phases(torch, dev, feat, pocket, rn, h, x, plain_nbh, mask_ligand, node_mask)
     failures = []
     hybrid_launches = hybrid_sample_phase(torch, dev, pocket, layers["model"], failures)
     train = train_phases(torch, dev, model, rn, h, x, plain_nbh, mask_ligand, node_mask, batch,
                          pocket, feat, layers["model"], layers["batch"])
+    cli_launches = likelihood_cli_phase(torch, train["checkpoint"])
     gate_short_phase(torch, dev)
     if failures:
         raise AssertionError("; ".join(failures))
 
     no_library = {"library_ms": None}  # no single PyTorch call computes any of these functions
+
+    def by_path(key):
+        """A kernel's launches on the likelihood, embedding and likelihood-CLI paths."""
+        return {"launches_likelihood": like_launches[key], "launches_embedding":
+                embed_launches[key], "launches_likelihood_cli": cli_launches[key]}
+
     print(json.dumps({"kernels": [
         {"name": "knn_graph", "route": "cuda", "source": "targetdiff_tpu_torch/csrc/knn.cu",
          "replaces": "targetdiff_tpu/ops/pallas/knn.py:27", "launches": knn_launches,
          "max_abs_err": knn_err, "ms": knn_ms, "plain_ms": knn_plain_ms, **knn_b4_bound,
-         "topk_ms": knn_shapes["B4"]["topk_ms"], **no_library},
+         "topk_ms": knn_shapes["B4"]["topk_ms"], **by_path("knn"), **no_library},
         {"name": "block_denoiser", "route": "cuda",
          "source": "targetdiff_tpu_torch/csrc/block_denoiser.cu",
          "replaces": "targetdiff_tpu/ops/pallas/block_denoiser.py:154",
          "launches": block_launches, "max_abs_err": max(x_err, h_err), "ms": block_ms,
-         "plain_ms": block_plain_ms, **block_bound, **no_library},
+         "plain_ms": block_plain_ms, **block_bound, **by_path("block"),
+         "h2x_passes_embedding": embed_launches["h2x_pass"], **no_library},
         {"name": "block_denoiser.ew", "route": "cuda",
          "source": "targetdiff_tpu_torch/csrc/block_denoiser.cu",
          "replaces": "targetdiff_tpu/ops/pallas/block_denoiser.py:319", "launches": ew_launches,
          **{k: pieces[f"ew_{k}"] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                            "bound_by")}, **no_library},
+                                            "bound_by")}, **by_path("ew"), **no_library},
         {"name": "block_denoiser_train", "route": "cuda",
          "source": "targetdiff_tpu_torch/csrc/block_denoiser.cu",
          "replaces": "targetdiff_tpu/ops/pallas/block_denoiser.py:154", **train["fwd"],
@@ -903,6 +925,190 @@ def gate_short_phase(torch, dev) -> None:
           eval_seconds=[t["corpus_eval_seconds"], t["untrained_eval_seconds"],
                         t["trained_eval_seconds"]],
           wall_seconds=wall, launches=launches)
+
+
+def path_launches() -> dict:
+    """The counts of the kernels of the likelihood and embedding paths."""
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+    from targetdiff_tpu_torch.ops.kernels import knn as kknn
+
+    return {"knn": kknn.LAUNCHES, "block": kblock.LAUNCHES, "ew": kblock.EW_LAUNCHES,
+            "x2h_pass": kblock.X2H_PASS_LAUNCHES, "h2x_pass": kblock.H2X_PASS_LAUNCHES}
+
+
+def reset_path_launches() -> None:
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+    from targetdiff_tpu_torch.ops.kernels import knn as kknn
+
+    kknn.LAUNCHES = kblock.LAUNCHES = kblock.EW_LAUNCHES = 0
+    kblock.X2H_PASS_LAUNCHES = kblock.H2X_PASS_LAUNCHES = 0
+
+
+def path_want(calls: int, h2x_calls: int) -> dict:
+    """The launches of `calls` kNN-graph forwards on the whole-block kernels
+    (one block of L layers), `h2x_calls` of them with positions updated."""
+    L = FLAGSHIP["num_layers"]
+    return {"knn": calls, "block": calls, "ew": calls, "x2h_pass": L * calls,
+            "h2x_pass": L * h2x_calls}
+
+
+def likelihood_phase(torch, dev, model) -> dict:
+    """[likelihood]: `batch_likelihood_estimation` at tools/likebench.py's
+    shape (the flagship, LIKE_C synthetic complexes of 330 atoms in 384
+    protein slots and 18-32 ligand atoms in 32 slots, T / LIKE_STRIDE
+    timesteps), on the kernels against the eager path with the same draws
+    at ELBO_TOL; the prior terms bitwise equal. One kNN and one block launch
+    a call (the step terms' [C * n_t]-row forward), none for the prior.
+    Timed by CUDA events (the kernels, eager) and torch.profiler (device)."""
+    from targetdiff_tpu_torch.cli.likelihood_est_diffusion import batch_likelihood_estimation
+    from targetdiff_tpu_torch.data.synth import synth_batch
+
+    b = synth_batch(np.random.default_rng(0), LIKE_C, max_protein=LIKE_PROTEIN,
+                    max_ligand=MAX_LIGAND, n_protein_range=(LIKE_VALID, LIKE_VALID + 1),
+                    n_ligand_range=(18, MAX_LIGAND + 1), device=dev)
+    T = model.num_timesteps
+    ts = list(range(0, T, LIKE_STRIDE))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    noise = torch.randn((LIKE_C * len(ts), MAX_LIGAND, 3), generator=gen, device=dev)
+    uniform = torch.rand((LIKE_C * len(ts), MAX_LIGAND, NUM_CLASSES), generator=gen, device=dev)
+
+    def run(impl):
+        return batch_likelihood_estimation(model, b, ts, None, impl=impl, pos_noise=noise,
+                                           v_uniform=uniform)
+
+    reset_path_launches()
+    fast = run("fast")
+    launches = path_launches()
+    if launches != path_want(1, 1):
+        raise AssertionError(f"likelihood: launches {launches}, expected {path_want(1, 1)}")
+    eager = run("eager")
+    errs = {name: check_close(f"likelihood {name}", torch.from_numpy(f), torch.from_numpy(e),
+                              **ELBO_TOL)
+            for name, f, e in zip(("nll", "kl_pos", "kl_v"), fast, eager)}
+    reset_path_launches()
+    t_prior = torch.full((LIKE_C,), T, device=dev)
+    prior = [model.likelihood_estimation(b, t_prior, impl=impl) for impl in ("fast", "eager")]
+    if any(path_launches().values()) or not all(torch.equal(a, c) for a, c in zip(*prior)):
+        raise AssertionError(f"likelihood: the prior terms launched {path_launches()} or "
+                             "differ between the kernels and eager")
+    ms = cuda_ms(torch, lambda: run("fast"), reps=5, warmup=1)
+    plain_ms = cuda_ms(torch, lambda: run("eager"), reps=3, warmup=1)
+    dev_ms = device_ms(torch, lambda: run("fast"), calls=3)
+    phase("likelihood", shape=f"C={LIKE_C},t={len(ts)},NP={LIKE_PROTEIN},NL={MAX_LIGAND},K={K}",
+          rows=LIKE_C * len(ts), max_abs_err=errs,
+          max_rel_err_nll=float(np.abs(fast[0] - eager[0]).max() / np.abs(eager[0]).min()),
+          nll=[float(v) for v in fast[0]], prior_bitwise_equal=True, launches=launches,
+          ms=ms, device_ms=dev_ms, idle_share=1 - dev_ms / ms, plain_ms=plain_ms,
+          complexes_per_s=LIKE_C * 1e3 / ms)
+    return launches
+
+
+def embedding_phase(torch, dev, model, pocket, feat_dim) -> dict:
+    """[embedding]: `fetch_embedding` at the likelihood CLI's padding (the
+    example pocket in 640 protein slots, EMBED_SIZES ligand atoms in 64
+    slots) on the kernels against the eager path: positions bitwise the
+    input, final_h (valid rows), final_ligand_h and the logits at H_TOL, L
+    x2h and no h2x pass launched. Timed beside the same forward with the
+    positions updated (fast_apply), the eager export and the weight packing
+    (`pack_block_params`) that each call does first."""
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+
+    batch = pocket_batch(torch, dev, pocket, feat_dim, CLI_LIGAND, EMBED_SIZES, 5,
+                         max_protein=CLI_PROTEIN)
+    reset_path_launches()
+    fast = model.fetch_embedding(batch, impl="fast")
+    torch.cuda.synchronize()
+    launches = path_launches()
+    if launches != path_want(1, 0):
+        raise AssertionError(f"embedding: launches {launches}, expected {path_want(1, 0)}")
+    eager = model.fetch_embedding(batch, impl="eager")
+    if not (torch.equal(fast["pred_ligand_pos"], batch.ligand_pos)
+            and torch.equal(eager["pred_ligand_pos"], batch.ligand_pos)):
+        raise AssertionError("embedding: ligand positions moved under fix_x")
+    rows = torch.cat([batch.protein_mask, batch.ligand_mask], 1)
+    lm = batch.ligand_mask
+    errs = {"final_h": check_close("embedding final_h", fast["final_h"][rows],
+                                   eager["final_h"][rows], **H_TOL),
+            "final_ligand_h": check_close("embedding final_ligand_h", fast["final_ligand_h"][lm],
+                                          eager["final_ligand_h"][lm], **H_TOL),
+            "logits": check_close("embedding logits", fast["pred_ligand_v"][lm],
+                                  eager["pred_ligand_v"][lm], **H_TOL)}
+
+    def moving():
+        with torch.no_grad():
+            return model.fast_apply(batch, batch.ligand_pos, batch.ligand_v)
+
+    def frozen():
+        return model.fetch_embedding(batch, impl="fast")
+
+    def pack():
+        with torch.no_grad():
+            return kblock.pack_block_params(model.net.refine_net)
+
+    phase("embedding", shape=f"B={len(EMBED_SIZES)},N={CLI_PROTEIN + CLI_LIGAND},K={K}",
+          max_abs_err=errs, positions_bitwise_input=True, launches=launches,
+          ms=cuda_ms(torch, frozen, reps=10), device_ms=device_ms(torch, frozen, calls=5),
+          unfrozen_ms=cuda_ms(torch, moving, reps=10),
+          unfrozen_device_ms=device_ms(torch, moving, calls=5),
+          plain_ms=cuda_ms(torch, lambda: model.fetch_embedding(batch, impl="eager"), reps=3,
+                           warmup=1),
+          pack_ms=cuda_ms(torch, pack, reps=10), pack_device_ms=device_ms(torch, pack, calls=5))
+    return launches
+
+
+def likelihood_cli_phase(torch, ckpt) -> dict:
+    """[likelihood-cli]: the likelihood CLI's `run` on the card from
+    [train-cli]'s checkpoint over its dataset's train split (four complexes,
+    one padded batch of 8), then `analyze_affinity` on the pickle it wrote
+    with a pK map made from a seed. Two kNN-graph forwards (the step terms,
+    the embedding export) and one h2x pass a layer (the step terms only)."""
+    import contextlib
+    import io
+
+    from targetdiff_tpu_torch.cli import analyze_affinity
+    from targetdiff_tpu_torch.cli import likelihood_est_diffusion as like_cli
+    from targetdiff_tpu_torch.config import Config
+
+    out = REPO / "outputs" / "chip_smoke_likelihood"
+    shutil.rmtree(out, ignore_errors=True)
+    config = Config(model=dict(checkpoint=str(ckpt)), sample=dict(seed=0))
+    args = like_cli.parser().parse_args(["in-code", "--split", "train", "--result_path",
+                                         str(out), "--device", "cuda"])
+    reset_path_launches()
+    t0 = time.perf_counter()
+    path = like_cli.run(config, args)
+    wall = time.perf_counter() - t0
+    launches = path_launches()
+    if launches != path_want(2, 1):
+        raise AssertionError(f"likelihood-cli: launches {launches}, expected {path_want(2, 1)}")
+    with open(path, "rb") as f:
+        entries = pickle.load(f)
+    fields = {"ligand_filename", "protein_filename", "nll", "kl_pos", "kl_v", "final_h",
+              "final_ligand_h", "pred_ligand_v"}
+    n_t = -(-FLAGSHIP["num_diffusion_timesteps"] // args.t_stride)
+    for e in entries:
+        nl = len(e["final_ligand_h"])
+        if (set(e) != fields or not np.isfinite([e["nll"], *e["kl_pos"], *e["kl_v"]]).all()
+                or e["kl_pos"].shape != (n_t,) or e["final_h"].shape != (572 + nl, 128)
+                or not np.isfinite(e["final_h"]).all()
+                or not np.allclose(e["pred_ligand_v"].sum(-1), 1.0, atol=1e-5)):
+            raise AssertionError(f"likelihood-cli: a malformed record {sorted(e)}")
+    if len(entries) != 4 or len({e["ligand_filename"] for e in entries}) != 4:
+        raise AssertionError(f"likelihood-cli: {len(entries)} records, expected 4 ligands")
+    rng = np.random.default_rng(0)
+    pk = {e["ligand_filename"]: float(rng.uniform(2, 11)) for e in entries}
+    pk_path = out / "affinity_info.pkl"
+    pk_path.write_bytes(pickle.dumps(pk))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        analyze_affinity.main([path, "--affinity_pkl", str(pk_path)])
+    lines = buf.getvalue().splitlines()
+    if (len(lines) != 4 or lines[0] != "4 complexes"
+            or not np.isfinite([float(w) for w in lines[1].split()[2::2]]).all()):
+        raise AssertionError(f"likelihood-cli: analyze_affinity printed {lines}")
+    phase("likelihood-cli", records=len(entries), nll=[e["nll"] for e in entries],
+          wall_seconds=wall, launches=launches, analyze_affinity=lines)
+    return launches
 
 
 def gate(torch, argv) -> int:
@@ -1241,20 +1447,21 @@ def margins(torch, dev, pocket, feat_dim, check=True) -> dict:
     return out
 
 
-def pocket_batch(torch, dev, pocket, feat_dim, n_ligand_slots, sizes, seed):
+def pocket_batch(torch, dev, pocket, feat_dim, n_ligand_slots, sizes, seed,
+                 max_protein=MAX_PROTEIN):
     """len(sizes) copies of the example pocket (572 atoms padded to
-    MAX_PROTEIN, centred) with ligands of `sizes` atoms at the centre plus
+    max_protein, centred) with ligands of `sizes` atoms at the centre plus
     unit noise."""
     from targetdiff_tpu_torch.data.batch import ComplexBatch
 
     B = len(sizes)
     gen = torch.Generator(device=dev).manual_seed(seed)
     n_prot = len(pocket["protein_pos"])
-    ppos = torch.zeros((B, MAX_PROTEIN, 3), device=dev)
-    pfeat = torch.zeros((B, MAX_PROTEIN, feat_dim), device=dev)
+    ppos = torch.zeros((B, max_protein, 3), device=dev)
+    pfeat = torch.zeros((B, max_protein, feat_dim), device=dev)
     ppos[:, :n_prot] = torch.as_tensor(pocket["protein_pos"], dtype=torch.float32, device=dev)
     pfeat[:, :n_prot] = torch.as_tensor(pocket["protein_feat"], device=dev)
-    pmask = torch.zeros((B, MAX_PROTEIN), dtype=torch.bool, device=dev)
+    pmask = torch.zeros((B, max_protein), dtype=torch.bool, device=dev)
     pmask[:, :n_prot] = True
     ppos = torch.where(pmask[..., None], ppos - ppos[:, :n_prot].mean(1, keepdim=True), 0.0)
     lpos = torch.randn((B, n_ligand_slots, 3), generator=gen, device=dev)
@@ -1857,9 +2064,10 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     shutil.rmtree(root, ignore_errors=True)
     (root / "raw").mkdir(parents=True)
     shutil.copyfile(POCKET_PDB, root / "raw" / "pocket.pdb")
-    shutil.copyfile(LIGAND_SDF, root / "raw" / "ligand.sdf")
+    for i in range(6):  # one file name per ligand: [likelihood-cli]'s pK map keys on it
+        shutil.copyfile(LIGAND_SDF, root / "raw" / f"ligand_{i}.sdf")
     with open(root / "raw" / "index.pkl", "wb") as f:
-        pickle.dump([("pocket.pdb", "ligand.sdf", 0.5)] * 6, f)
+        pickle.dump([("pocket.pdb", f"ligand_{i}.sdf", 0.5) for i in range(6)], f)
     torch.save({"train": [0, 1, 2, 3], "test": [4, 5]}, root / "split.pt")
     config = Config(
         data=dict(name="pl", path=str(root / "raw"), split=str(root / "split.pt"),
@@ -1940,7 +2148,7 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
                           **{k: adjacency["x2h"][k] for k in ("ms", "plain_ms", "bound_ms",
                                                               "bound_by", "sort_ms")},
                           "timed_case": "x2h pass"},
-            "pl_launches": pl_launches}
+            "pl_launches": pl_launches, "checkpoint": ckpt}
 
 
 def measure(torch, argv) -> int:

@@ -62,14 +62,15 @@ def _graph(rn, x, node_mask, mask_ligand):
 
 def fast_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v,
                  ligand_mask, packed: Optional[PackedBlock] = None,
-                 mode: str = "mega") -> Dict[str, torch.Tensor]:
+                 mode: str = "mega", fix_x: bool = False) -> Dict[str, torch.Tensor]:
     """`net` is a ScorePosNet; `packed` its refine_net's kernel weights
     (packed on the fly when None). mode 'mega' runs each block on the
     whole-block kernels, 'layers' on the per-layer kernels; a graph wider
     than the block kernels take (K > 32, as the hybrid graph at the CLI's
     64 ligand slots) runs on the per-layer kernels with a warning, as the
-    JAX package does. Returns pred_ligand_pos, pred_ligand_v,
-    final_ligand_h and final_h."""
+    JAX package does. fix_x=True freezes the coordinates (the embedding
+    export): neither route runs the h2x pass. Returns pred_ligand_pos,
+    pred_ligand_v, final_ligand_h and final_h."""
     if mode not in ("mega", "layers"):
         raise ValueError(f"mode must be 'mega' or 'layers', got {mode!r}")
     h, x, node_mask, mask_ligand = net.embed(
@@ -87,7 +88,8 @@ def fast_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos, ligan
     for _ in range(rn.num_blocks):
         nbh = _graph(rn, x, node_mask, mask_ligand)
         if mode == "mega":
-            h, x = block_denoiser(rn, h, x, nbh, mask_ligand, n_ligand=n_ligand, packed=packed)
+            h, x = block_denoiser(rn, h, x, nbh, mask_ligand, n_ligand=n_ligand, packed=packed,
+                                  fix_x=fix_x)
             continue
         e_w = rn.edge_weights(x, nbh)[..., 0]
         for l, layer in enumerate(rn.base_block):
@@ -96,7 +98,8 @@ def fast_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos, ligan
                 px = {f: t[l:l + 1] for f, t in packed.x2h.items()}
                 ph = {f: t[l:l + 1] for f, t in packed.h2x.items()}
             h = x2h_attention_layer(layer, h, x, nbh, mask_ligand, e_w, params=px)
-            x = h2x_attention_layer(layer, h, x, nbh, mask_ligand, e_w, n_ligand, params=ph)
+            if not fix_x:
+                x = h2x_attention_layer(layer, h, x, nbh, mask_ligand, e_w, n_ligand, params=ph)
     return net.head(h, x, ligand_mask, protein_pos.shape[1])
 
 

@@ -5,9 +5,11 @@ models/molopt_score_model.py:198-703).
 `ScorePosNet` is the network (atom embeddings, node indicator, refine net,
 v_inference head) with the reference's parameter names. `DiffusionModel`
 owns it and the schedules; `get_diffusion_loss` is the training loss (its
-draws injectable as tensors), `sample_step` is one pure reverse step that
-takes its noise as arguments, and `sample_diffusion` loops over the time
-sequence drawing that noise from a `torch.Generator`.
+draws injectable as tensors), `likelihood_estimation` the per-timestep ELBO
+terms, `fetch_embedding` the hidden states with frozen coordinates,
+`sample_step` is one pure reverse step that takes its noise as arguments,
+and `sample_diffusion` loops over the time sequence drawing that noise from
+a `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -83,10 +85,11 @@ class ScorePosNet(nn.Module):
         }
 
     def forward(self, protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v,
-                ligand_mask) -> Dict[str, torch.Tensor]:
+                ligand_mask, fix_x: bool = False) -> Dict[str, torch.Tensor]:
+        """fix_x=True freezes the coordinates (the embedding export)."""
         h, x, node_mask, mask_ligand = self.embed(
             protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v, ligand_mask)
-        h, x = self.refine_net(h, x, mask_ligand, node_mask)
+        h, x = self.refine_net(h, x, mask_ligand, node_mask, fix_x=fix_x)
         return self.head(h, x, ligand_mask, protein_pos.shape[1])
 
 
@@ -135,18 +138,21 @@ class DiffusionModel:
     def eval(self) -> "DiffusionModel":
         return self.train(False)
 
-    def apply(self, batch: ComplexBatch, ligand_pos, ligand_v):
-        """Eager forward (the reference-semantics path)."""
+    def apply(self, batch: ComplexBatch, ligand_pos, ligand_v, fix_x: bool = False):
+        """Eager forward (the reference-semantics path); fix_x=True freezes
+        the coordinates."""
         return self.net(batch.protein_pos, batch.protein_feat, batch.protein_mask,
-                        ligand_pos, ligand_v, batch.ligand_mask)
+                        ligand_pos, ligand_v, batch.ligand_mask, fix_x=fix_x)
 
     def fast_apply(self, batch: ComplexBatch, ligand_pos, ligand_v,
-                   packed: Optional[PackedBlock] = None, mode: str = "mega"):
+                   packed: Optional[PackedBlock] = None, mode: str = "mega",
+                   fix_x: bool = False):
         """Kernel-backed forward (the sampling path); mode 'mega' runs the
-        whole-block kernels, 'layers' the per-layer ones (see fast_forward)."""
+        whole-block kernels, 'layers' the per-layer ones, fix_x=True freezes
+        the coordinates (see fast_forward)."""
         return fast_forward(self.net, batch.protein_pos, batch.protein_feat,
                             batch.protein_mask, ligand_pos, ligand_v, batch.ligand_mask,
-                            packed=packed, mode=mode)
+                            packed=packed, mode=mode, fix_x=fix_x)
 
     def get_diffusion_loss(self, batch: ComplexBatch, time_step=None, pos_noise=None,
                            v_uniform=None, generator: Optional[torch.Generator] = None,
@@ -214,6 +220,71 @@ class DiffusionModel:
             "pred_ligand_v": pred_ligand_v,
             "time_step": time_step,
         }
+
+    @torch.no_grad()
+    def likelihood_estimation(self, batch: ComplexBatch, time_step, pos_noise=None,
+                              v_uniform=None, generator: Optional[torch.Generator] = None,
+                              impl: str = "fast"):
+        """Per-timestep ELBO terms of each complex (reference:
+        molopt_score_model.py:566-617). time_step [B] int; where every entry
+        is num_timesteps the prior terms come back and the network does not
+        run, else the step terms at min(t, T-1). pos_noise [B,NL,3] standard
+        normal and v_uniform [B,NL,C] U[0,1) may be given; each one that is
+        not is drawn from `generator`. Centres on the protein whatever the
+        config's mode. impl='fast' runs the denoiser on the kernels (float32),
+        'eager' through ScorePosNet.forward. Returns (kl_pos [B], kl_v [B])."""
+        if impl not in ("fast", "eager"):
+            raise ValueError(f"impl must be 'fast' or 'eager', got {impl!r}")
+        if self.model_mean_type != "C0":
+            raise ValueError(self.model_mean_type)
+        T, dev = self.num_timesteps, batch.device
+        lmask = batch.ligand_mask
+        protein_pos, ligand_pos, _ = D.center_pos_protein(
+            batch.protein_pos, batch.ligand_pos, batch.protein_mask, "protein")
+        cbatch = batch._replace(protein_pos=protein_pos)
+        log_ligand_v0 = D.index_to_log_onehot(batch.ligand_v, self.num_classes)
+        time_step = torch.as_tensor(time_step, device=dev).long()
+        if bool((time_step == T).all()):
+            return (D.kl_pos_prior(self.pos_sched, ligand_pos, lmask),
+                    D.kl_v_prior(self.v_sched, log_ligand_v0, lmask, self.num_classes))
+
+        t = time_step.clamp(max=T - 1)
+        if pos_noise is None:
+            pos_noise = torch.randn(ligand_pos.shape, generator=generator, device=dev)
+        if v_uniform is None:
+            v_uniform = torch.rand(batch.ligand_v.shape + (self.num_classes,),
+                                   generator=generator, device=dev)
+        ligand_pos_perturbed = D.perturb_pos(self.pos_sched, ligand_pos, t, pos_noise)
+        ligand_v_perturbed, log_ligand_vt = D.q_v_sample(
+            self.v_sched, log_ligand_v0, t, self.num_classes, v_uniform)
+        if impl == "fast":
+            preds = self.fast_apply(cbatch, ligand_pos_perturbed, ligand_v_perturbed)
+        else:
+            preds = self.apply(cbatch, ligand_pos_perturbed, ligand_v_perturbed)
+        pos_model_mean = D.q_pos_posterior(self.pos_sched, preds["pred_ligand_pos"],
+                                           ligand_pos_perturbed, t)
+        log_v_recon = F.log_softmax(preds["pred_ligand_v"], dim=-1)
+        log_v_model_prob = D.q_v_posterior(self.v_sched, log_v_recon, log_ligand_vt, t,
+                                           self.num_classes)
+        log_v_true_prob = D.q_v_posterior(self.v_sched, log_ligand_v0, log_ligand_vt, t,
+                                          self.num_classes)
+        kl_pos = D.compute_pos_Lt(self.pos_sched, pos_model_mean, ligand_pos,
+                                  ligand_pos_perturbed, t, lmask)
+        kl_v = D.compute_v_Lt(log_v_model_prob, log_ligand_v0, log_v_true_prob, t, lmask)
+        return kl_pos, kl_v
+
+    @torch.no_grad()
+    def fetch_embedding(self, batch: ComplexBatch, impl: str = "fast"):
+        """Hidden states with frozen coordinates, float32 (reference:
+        molopt_score_model.py:619-631): pred_ligand_pos (the input ligand
+        positions), pred_ligand_v, final_ligand_h and final_h. impl='fast'
+        runs the kernels without their h2x pass, 'eager'
+        ScorePosNet.forward."""
+        if impl == "fast":
+            return self.fast_apply(batch, batch.ligand_pos, batch.ligand_v, fix_x=True)
+        if impl != "eager":
+            raise ValueError(f"impl must be 'fast' or 'eager', got {impl!r}")
+        return self.apply(batch, batch.ligand_pos, batch.ligand_v, fix_x=True)
 
     @torch.no_grad()
     def sample_step(self, cbatch: ComplexBatch, ligand_pos, ligand_v, t: int,

@@ -110,9 +110,13 @@ class AttentionLayerO2TwoUpdateNodeGeneral(nn.Module):
         self.h2x_layers = nn.ModuleList(
             [BaseH2XAttLayer(hidden_dim, n_heads, edge_feat_dim, r_feat_dim)])
 
-    def forward(self, h, x, edge_attr, nbh, mask_ligand, e_w):
+    def forward(self, h, x, edge_attr, nbh, mask_ligand, e_w, fix_x: bool = False):
+        """fix_x=True freezes the coordinates: x comes back as given. The
+        h2x output feeds x alone, so it is not computed then."""
         rel_x, r_feat = edge_geometry(x, nbh, edge_attr)
         h = self.x2h_layers[0](h, r_feat, edge_attr, nbh, e_w)
+        if fix_x:
+            return h, x
         delta_x = self.h2x_layers[0](h, rel_x, r_feat, edge_attr, nbh, e_w)
         return h, x + delta_x * mask_ligand[..., None].to(x.dtype)
 
@@ -157,21 +161,24 @@ class UniTransformerO2TwoUpdateGeneral(nn.Module):
         _, dist = G.rel_geometry(x, nbh)
         return torch.sigmoid(self.edge_pred_layer(gaussian_smearing(dist, offsets, coeff)))
 
-    def block_forward(self, h, x, nbh: G.Neighborhood, mask_ligand, e_w=None):
+    def block_forward(self, h, x, nbh: G.Neighborhood, mask_ligand, e_w=None,
+                      fix_x: bool = False):
         """All layers of one block on a given neighborhood; the plain version
         of the block-denoiser kernel. With e_w [B,N,K] given (train mode,
         computed outside by `edge_weights`), the block uses it as it is.
-        Returns (h, x)."""
+        fix_x=True keeps x as given (the embedding export); edge types keep
+        the protein / ligand split of mask_ligand. Returns (h, x)."""
         edge_attr = G.edge_types(nbh, mask_ligand)
         if e_w is None:
             e_w = self.edge_weights(x, nbh)
         else:
             e_w = e_w[..., None]
         for layer in self.base_block:
-            h, x = layer(h, x, edge_attr, nbh, mask_ligand, e_w)
+            h, x = layer(h, x, edge_attr, nbh, mask_ligand, e_w, fix_x)
         return h, x
 
-    def forward(self, h, x, mask_ligand, node_mask):
+    def forward(self, h, x, mask_ligand, node_mask, fix_x: bool = False):
         for _ in range(self.num_blocks):
-            h, x = self.block_forward(h, x, self.graph(x, node_mask, mask_ligand), mask_ligand)
+            h, x = self.block_forward(h, x, self.graph(x, node_mask, mask_ligand), mask_ligand,
+                                      fix_x=fix_x)
         return h, x

@@ -1,5 +1,5 @@
-"""DDPM math on dense padded tensors, counterpart of the sampling and
-training subsets of targetdiff_tpu/ops/diffusion.py (reference:
+"""DDPM math on dense padded tensors, counterpart of the sampling, training
+and likelihood subsets of targetdiff_tpu/ops/diffusion.py (reference:
 models/molopt_score_model.py).
 
 `t` is an int tensor of shape [B]; coordinates are [B, N, 3]; atom-type
@@ -30,6 +30,22 @@ def index_to_log_onehot(x: torch.Tensor, num_classes: int) -> torch.Tensor:
     """Class indices -> log one-hot with log(0) clamped to log(1e-30)."""
     onehot = F.one_hot(x.long(), num_classes).float()
     return torch.log(onehot.clamp(min=LOG_EPS))
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL between diagonal Gaussians, summed over the last axis (reference:
+    :146-151)."""
+    kl = 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                + (mean1 - mean2) ** 2 * torch.exp(-logvar2))
+    return kl.sum(-1)
+
+
+def log_normal(values, means, log_scales):
+    """Gaussian log-density, summed over the last axis (reference: :154-157)."""
+    var = torch.exp(log_scales * 2)
+    log_prob = (-((values - means) ** 2) / (2 * var) - log_scales
+                - math.log(math.sqrt(2 * math.pi)))
+    return log_prob.sum(-1)
 
 
 def log_sample_categorical(logits: torch.Tensor, uniform: torch.Tensor) -> torch.Tensor:
@@ -67,6 +83,16 @@ def q_v_posterior(sched: CategoricalSchedule, log_v0, log_vt, t, num_classes: in
     return unnormed - torch.logsumexp(unnormed, dim=-1, keepdim=True)
 
 
+def kl_v_prior(sched: CategoricalSchedule, log_v0, mask, num_classes: int):
+    """Per-graph mean KL(q(v_T | v_0) || uniform) over real atoms, [B]
+    (reference: :411-417)."""
+    t_last = torch.full((log_v0.shape[0],), sched.num_timesteps - 1, dtype=torch.long,
+                        device=log_v0.device)
+    log_qvT = q_v_pred(sched, log_v0, t_last, num_classes)
+    log_uniform = torch.full_like(log_qvT, -math.log(num_classes))
+    return masked_mean(categorical_kl(log_qvT, log_uniform), mask)
+
+
 def predict_x0_from_eps(sched: GaussianSchedule, xt, eps, t):
     """(reference: :419-422)."""
     return (extract(sched.sqrt_recip_alphas_cumprod, t, xt.ndim) * xt
@@ -77,6 +103,19 @@ def q_pos_posterior(sched: GaussianSchedule, x0, xt, t):
     """Mean of q(x_{t-1} | x_t, x_0) (reference: :424-428)."""
     return (extract(sched.posterior_mean_c0_coef, t, x0.ndim) * x0
             + extract(sched.posterior_mean_ct_coef, t, xt.ndim) * xt)
+
+
+def kl_pos_prior(sched: GaussianSchedule, pos0, mask):
+    """Per-graph mean KL(q(x_T | x_0) || N(0, I)) over real atoms, [B]
+    (reference: :430-438)."""
+    t_last = torch.full((pos0.shape[0],), sched.num_timesteps - 1, dtype=torch.long,
+                        device=pos0.device)
+    a_pos = extract(sched.alphas_cumprod, t_last, pos0.ndim)
+    pos_model_mean = torch.sqrt(a_pos) * pos0
+    pos_log_variance = torch.log(torch.sqrt(1.0 - a_pos))
+    kl = normal_kl(torch.zeros_like(pos_model_mean), torch.zeros_like(pos_model_mean),
+                   pos_model_mean, pos_log_variance.expand_as(pos_model_mean))
+    return masked_mean(kl, mask)
 
 
 def center_pos_protein(protein_pos, ligand_pos, protein_mask, mode: str = "protein"):
@@ -122,6 +161,23 @@ def masked_mean(x, mask, dim: int = -1):
     """Mean of x over `dim` counting only mask == True entries."""
     m = mask.to(x.dtype)
     return (x * m).sum(dim) / m.sum(dim).clamp(min=1.0)
+
+
+def masked_sum(x, mask, dim: int = -1):
+    """Sum of x over `dim` counting only mask == True entries."""
+    return (x * mask.to(x.dtype)).sum(dim)
+
+
+def compute_pos_Lt(sched: GaussianSchedule, pos_model_mean, x0, xt, t, mask):
+    """Per-graph position KL in bits (t > 0) or decoder NLL (t = 0), [B]
+    (reference: :464-475)."""
+    pos_log_variance = extract(sched.posterior_logvar, t, x0.ndim)
+    pos_true_mean = q_pos_posterior(sched, x0, xt, t)
+    logvar = pos_log_variance.expand_as(pos_true_mean)
+    kl_pos = normal_kl(pos_true_mean, logvar, pos_model_mean, logvar) / math.log(2.0)
+    decoder_nll = -log_normal(x0, pos_model_mean, 0.5 * pos_log_variance)
+    t_is_0 = (t == 0).to(x0.dtype)[:, None]
+    return masked_mean(t_is_0 * decoder_nll + (1.0 - t_is_0) * kl_pos, mask)
 
 
 def compute_v_Lt(log_v_model_prob, log_v0, log_v_true_prob, t, mask):

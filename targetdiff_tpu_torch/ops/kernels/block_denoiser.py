@@ -8,7 +8,9 @@ its plain version is `block_denoiser_train_plain`).
 
 The CUDA path runs one edge-weight kernel per block and, per layer, a node
 kernel + x2h edge kernel, then a node kernel (the protein rows' source
-projections only) + h2x edge kernel on the ligand rows.
+projections only) + h2x edge kernel on the ligand rows. With fix_x (the
+embedding export) the positions stay as given, so the h2x pass, whose only
+output is x, is not launched at all.
 `node_projections_cuda` launches the node kernel alone (the card tests'
 launcher), beside its plain version; `edge_weights_cuda` the edge-weight
 kernel alone, whose plain version is the module's `edge_weights`. Its weights come from `pack_block_params`, which regroups the
@@ -35,6 +37,8 @@ from . import build
 LAUNCHES = 0  # block_denoiser calls that launched the kernels since the last reset
 TRAIN_LAUNCHES = 0  # block_denoiser_train_cuda launches since the last reset
 EW_LAUNCHES = 0  # edge-weight kernel launches since the last reset
+X2H_PASS_LAUNCHES = 0  # block_denoiser_cuda's x2h edge launches since the last reset
+H2X_PASS_LAUNCHES = 0  # block_denoiser_cuda's h2x edge launches since the last reset
 
 # the kernels are specialised to the released architecture's widths
 HIDDEN, HEADS, MAX_K = 128, 16, 32
@@ -158,14 +162,15 @@ def _pass_structs(stacks: dict, num_layers: int):
 
 
 def block_denoiser(refine_net, h, x, nbh: G.Neighborhood, mask_ligand, n_ligand: int,
-                   packed: PackedBlock = None):
+                   packed: PackedBlock = None, fix_x: bool = False):
     """All layers of one UniTransformerO2 block. h [B,N,H] f32, x [B,N,3]
     f32, nbh [B,N,K], mask_ligand [B,N] bool (ligand rows are the last
-    `n_ligand` rows). Returns (h, x) after the block. Inference only: the
-    CUDA path records no autograd graph."""
+    `n_ligand` rows). fix_x=True keeps x as given and skips the h2x pass.
+    Returns (h, x) after the block. Inference only: the CUDA path records
+    no autograd graph."""
     if h.device.type == "cpu":
-        return refine_net.block_forward(h, x, nbh, mask_ligand)
-    return block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed)
+        return refine_net.block_forward(h, x, nbh, mask_ligand, fix_x=fix_x)
+    return block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed, fix_x)
 
 
 def check_block_inputs(refine_net, h, x, nbh, mask_ligand, n_ligand):
@@ -193,8 +198,9 @@ def check_block_inputs(refine_net, h, x, nbh, mask_ligand, n_ligand):
         raise ValueError("nbr_mask and mask_ligand must be bool")
 
 
-def block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed=None):
-    global LAUNCHES
+def block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed=None,
+                        fix_x: bool = False):
+    global LAUNCHES, X2H_PASS_LAUNCHES, H2X_PASS_LAUNCHES
     check_block_inputs(refine_net, h, x, nbh, mask_ligand, n_ligand)
     B, N, H = h.shape
     K = nbh.idx.shape[-1]
@@ -211,7 +217,10 @@ def block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed=Non
     offsets, coeff = gaussian_smearing_offsets(device=dev)
     idx, nmask, mlig = nbh.idx.contiguous(), nbh.mask.contiguous(), mask_ligand.contiguous()
     h_a, h_b = h.contiguous().clone(), torch.empty_like(h)
-    x_a, x_b = x.contiguous().clone(), x.contiguous().clone()  # protein rows never move
+    if fix_x:
+        x_a = x_b = x.contiguous()  # read only: no h2x pass writes it
+    else:
+        x_a, x_b = x.contiguous().clone(), x.contiguous().clone()  # protein rows never move
     ew = torch.empty((B, N, K), dtype=torch.float32, device=dev)
     ni = torch.empty((B * N, 2 * H), dtype=torch.float32, device=dev)
     nj = torch.empty_like(ni)
@@ -226,14 +235,18 @@ def block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed=Non
                                          nj.data_ptr(), q.data_ptr(), stream), "td_block_node")
         build.check(fns["td_block_x2h"](h_a.data_ptr(), x_a.data_ptr(), *common, x2h_p[l],
                                         B, N, K, 0, h_b.data_ptr(), stream), "td_block_x2h")
+        X2H_PASS_LAUNCHES += 1
+        h_a, h_b = h_b, h_a
+        if fix_x:
+            continue
         # the h2x pass needs of the protein rows only their source projections
-        build.check(fns["td_block_node_rows"](h_b.data_ptr(), B, N, N - n_ligand, h2x_p[l],
+        build.check(fns["td_block_node_rows"](h_a.data_ptr(), B, N, N - n_ligand, h2x_p[l],
                                               ni.data_ptr(), nj.data_ptr(), q.data_ptr(), None,
                                               stream), "td_block_node_rows")
         build.check(fns["td_block_h2x"](x_a.data_ptr(), *common, h2x_p[l],
                                         B, N, K, N - n_ligand, x_b.data_ptr(), stream),
                     "td_block_h2x")
-        h_a, h_b = h_b, h_a
+        H2X_PASS_LAUNCHES += 1
         x_a, x_b = x_b, x_a
     LAUNCHES += 1
     return h_a, x_a

@@ -810,3 +810,87 @@ def test_adjacency_kernel_bitwise_equal_to_plain(cuda, case, h2x):
     n = want_off[:, -1]
     live = torch.arange(lst.shape[1], device=cuda)[None] < n[:, None]
     assert torch.equal(lst[live], want_lst[live]) and torch.equal(lst2[live], want_lst[live])
+
+
+# fix_x (the embedding export): the whole-block route at kNN K = 32 and the
+# per-layer route at the hybrid graph's K = 95 (64 ligand slots)
+FIX_X_CASES = [("knn", 32, 8, 40), ("hybrid", 32, 64, 64)]
+
+
+@pytest.mark.parametrize("cutoff_mode,k,max_ligand,n_protein", FIX_X_CASES)
+def test_fix_x_kernels_match_plain_without_the_h2x_pass(cuda, cutoff_mode, k, max_ligand,
+                                                        n_protein):
+    """Under fix_x the kernels launch L x2h passes and no h2x pass a block,
+    give back x bitwise as given, and match the plain block_forward(fix_x)
+    on h at the [block] bars (and the x2h kernel's float32-grade bar, h
+    coming from x2h passes alone); fetch_embedding on the kernels matches
+    the eager one the same way."""
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+
+    model, batch, rn, h, x, node_mask, mlig, nbh, e_w = _layer_setup(
+        cuda, cutoff_mode, k, max_ligand, n_protein, seed=6)
+    L = len(rn.base_block)
+    m = node_mask[..., None]
+    if nbh.idx.shape[-1] <= kblock.MAX_K:
+        before = (kblock.LAUNCHES, kblock.X2H_PASS_LAUNCHES, kblock.H2X_PASS_LAUNCHES)
+        with torch.no_grad():
+            h_out, x_out = kblock.block_denoiser(rn, h, x, nbh, mlig, n_ligand=max_ligand,
+                                                 fix_x=True)
+            h_ref, x_ref = rn.block_forward(h, x, nbh, mlig, fix_x=True)
+        torch.cuda.synchronize()
+        after = (kblock.LAUNCHES, kblock.X2H_PASS_LAUNCHES, kblock.H2X_PASS_LAUNCHES)
+        assert tuple(b - a for a, b in zip(before, after)) == (1, L, 0)
+        assert torch.equal(x_out, x) and torch.equal(x_ref, x)
+        torch.testing.assert_close(h_out * m, h_ref * m, atol=2e-3, rtol=1e-2)
+        torch.testing.assert_close(h_out * m, h_ref * m, **X2H_TOL)
+
+    counts = lambda: (kblock.X2H_PASS_LAUNCHES, kblock.H2X_PASS_LAUNCHES,  # noqa: E731
+                      kel.X2H_LAUNCHES, kel.H2X_LAUNCHES)
+    before = counts()
+    if cutoff_mode == "hybrid":
+        with pytest.warns(UserWarning, match="per-layer"):
+            fast = model.fetch_embedding(batch, impl="fast")
+    else:
+        fast = model.fetch_embedding(batch, impl="fast")
+    torch.cuda.synchronize()
+    launched = tuple(b - a for a, b in zip(before, counts()))
+    assert launched == ((L, 0, 0, 0) if cutoff_mode == "knn" else (0, 0, L, 0))
+    ref = model.fetch_embedding(batch, impl="eager")
+    assert torch.equal(fast["pred_ligand_pos"], batch.ligand_pos)
+    rows = torch.cat([batch.protein_mask, batch.ligand_mask], 1)[..., None]
+    torch.testing.assert_close(fast["final_h"] * rows, ref["final_h"] * rows, atol=2e-3,
+                               rtol=1e-2)
+    lm = batch.ligand_mask[..., None]
+    torch.testing.assert_close(fast["pred_ligand_v"] * lm, ref["pred_ligand_v"] * lm,
+                               atol=2e-3, rtol=1e-2)
+
+
+def test_likelihood_on_the_kernels_matches_eager(cuda):
+    """likelihood_estimation on the kernels against the eager path with the
+    same draws, at JAX's bar (rtol 2e-3, atol 2e-4): one kNN and one block
+    launch per step call, none for the prior terms, which are bitwise equal."""
+    from targetdiff_tpu_torch.ops.kernels import knn as kknn
+
+    torch.manual_seed(0)
+    model = DiffusionModel(Config(dict(CONFIG, knn=32)), 27, 13, device=cuda)
+    batch = _complexes(cuda, seed=2)
+    T = model.num_timesteps
+    t = torch.tensor([0, 1, T // 2], device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    noise = torch.randn(batch.ligand_pos.shape, generator=gen, device=cuda)
+    uniform = torch.rand(batch.ligand_v.shape + (13,), generator=gen, device=cuda)
+    before = (kknn.LAUNCHES, kblock.LAUNCHES)
+    fast = model.likelihood_estimation(batch, t, pos_noise=noise, v_uniform=uniform,
+                                       impl="fast")
+    torch.cuda.synchronize()
+    assert (kknn.LAUNCHES - before[0], kblock.LAUNCHES - before[1]) == (1, 1)
+    eager = model.likelihood_estimation(batch, t, pos_noise=noise, v_uniform=uniform,
+                                        impl="eager")
+    for a, b in zip(fast, eager):
+        assert bool(a.isfinite().all())
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-3)
+    before = (kknn.LAUNCHES, kblock.LAUNCHES)
+    prior = [model.likelihood_estimation(batch, torch.full((3,), T, device=cuda), impl=impl)
+             for impl in ("fast", "eager")]
+    assert (kknn.LAUNCHES, kblock.LAUNCHES) == before
+    assert all(torch.equal(a, b) for a, b in zip(*prior))
