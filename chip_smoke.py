@@ -6,6 +6,7 @@
     python3 chip_smoke.py duel [CHECKOUT]
     python3 chip_smoke.py margins [CHECKOUT]
     python3 chip_smoke.py gate [STEPS] [N_MOLS]
+    python3 chip_smoke.py ddim [STEPS] [N_MOLS]
 
 With no arguments: builds the CUDA kernels from targetdiff_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version at the main path's shapes (the example
@@ -20,7 +21,12 @@ x2h edge launch and the h2x edge launch alone against their plain versions
 edge-weight launch against float64 at B=4 and at the bench's B=100, then samples
 molecules for that pocket through the port's entry point
 `sample_diffusion_ligand` with seeded random flagship weights, and checks the
-outputs. [likelihood] holds `batch_likelihood_estimation` on the kernels
+outputs. [ddim-sample] holds single strided jumps of `sample_step` (ddim at
+eta 0 and 1, dpm2, the final jump) on the kernels against the eager path
+with the same noise, then runs ddim-100 (uniform, eta 0), ddim-100
+(quadratic, eta 1), dpm2-50 and a position-only 1000-step DDPM run with its
+trajectory at the same shape, each with its launches counted exactly and
+timed per network evaluation. [likelihood] holds `batch_likelihood_estimation` on the kernels
 against the eager path with the same draws at tools/likebench.py's shape (8
 synthetic complexes x 10 timesteps, 384 + 32 slots) and [embedding] holds
 `fetch_embedding` (frozen coordinates: no h2x pass) against eager at the
@@ -88,6 +94,15 @@ scored against the corpus), writes quality_gate_torch.json beside the JAX
 package's quality_gate.json (the report, the card's name and power limit,
 train ms per step, sampling ms per step of each model, evaluation seconds)
 and exits non-zero if any of its checks fails.
+
+`ddim` runs the port's tools/ddim_eval.py (default 4000 `fast` train steps,
+then 128 molecules of 32 pockets for each of its ten sampler rows, scored as
+the gate scores them), writes ddim_eval_torch.json beside the JAX package's
+ddim_eval.json (the rows, each with seconds, mol/s, network evaluations and
+ms per evaluation of a sampling chunk, the card's name and power limit) and
+exits non-zero if a row is missing, the kernels' launches do not match the
+rows' network evaluations, ddim-100 loses more than 0.10 of ddpm-1000's
+atom stability, or ddpm-100-trunc is not at least 0.30 below ddim-100.
 
 Needs a CUDA device and the CUDA toolkit (nvcc); there is no CPU path.
 """
@@ -192,6 +207,19 @@ LIKE_C, LIKE_PROTEIN, LIKE_VALID, LIKE_STRIDE = 8, 384, 330, 100
 CLI_PROTEIN, CLI_LIGAND = 640, 64
 EMBED_SIZES = [64, 52, 45, 38, 32, 27, 21, 14]  # ligand atoms per complex in [embedding]
 ELBO_TOL = dict(atol=2e-4, rtol=2e-3)  # the ELBO terms, kernels against eager (JAX's own bar)
+POCKET_LIGAND_SDF = REPO / "examples" / "1h36_A_rec_1h36_r88_lig_tt_docked_0.sdf"
+# [ddim-sample]: single jumps (sampler, t, s, eta), kernels against eager
+DDIM_JUMPS = [("ddim", 900, 800, 0.0), ("ddim", 500, 400, 1.0), ("dpm2", 700, 600, 0.0),
+              ("ddim", 30, -1, 0.0)]
+# ... and whole runs through sample_diffusion_ligand (the pos_only run takes
+# the pocket's own ligand's types and keeps its trajectory)
+DDIM_RUNS = [("ddim-100", dict(num_steps=100, sampler="ddim", eta=0.0)),
+             ("ddim-100-quad-eta1", dict(num_steps=100, sampler="ddim", eta=1.0,
+                                         ddim_spacing="quadratic")),
+             ("dpm2-50", dict(num_steps=50, sampler="dpm2", eta=0.0)),
+             ("ddpm-1000-pos-only-traj", dict(num_steps=1000, sampler="ddpm", pos_only=True,
+                                              return_traj=True))]
+GUMBEL_MARGIN = 1e-3  # types are held equal where the sampled class leads by more
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): TF32 on the tensor
 # cores, float32 outside them, and device memory.
@@ -598,6 +626,8 @@ def main(argv) -> int:
         raise RuntimeError("chip_smoke needs a CUDA device: torch.cuda.is_available() is False")
     if argv and argv[0] == "gate":
         return gate(torch, argv[1:])
+    if argv and argv[0] == "ddim":
+        return ddim(torch, argv[1:])
     if argv:
         return measure(torch, argv)
     sys.path.insert(0, str(REPO))
@@ -772,6 +802,7 @@ def main(argv) -> int:
           knn_launches=knn_launches, block_launches=block_launches, ew_launches=ew_launches,
           max_centroid_offset_A=dist, reconstructed=f"{len(rebuilt)}/{B}")
     eval_phase(res)
+    ddim_launches = ddim_sample_phase(torch, dev, model, pocket, batch, 1e3 * sample_s / steps)
     like_launches = likelihood_phase(torch, dev, model)
     embed_launches = embedding_phase(torch, dev, model, pocket, feat.feature_dim)
 
@@ -788,8 +819,10 @@ def main(argv) -> int:
     no_library = {"library_ms": None}  # no single PyTorch call computes any of these functions
 
     def by_path(key):
-        """A kernel's launches on the likelihood, embedding and likelihood-CLI paths."""
-        return {"launches_likelihood": like_launches[key], "launches_embedding":
+        """A kernel's launches on the strided-sampling, likelihood, embedding
+        and likelihood-CLI paths."""
+        return {"launches_ddim_sample": ddim_launches[key],
+                "launches_likelihood": like_launches[key], "launches_embedding":
                 embed_launches[key], "launches_likelihood_cli": cli_launches[key]}
 
     print(json.dumps({"kernels": [
@@ -873,6 +906,131 @@ def eval_phase(res) -> None:
           pair_length_jsd=summary["pair_length_jsd"],
           bond_length_jsd={k: v for k, v in summary["bond_length_jsd"].items() if v is not None},
           num_results=summary["num_results"], host_seconds=seconds)
+
+
+def ddim_jump_fields(torch, model, cbatch, pos, v, packed, sampler, t, s, eta, seed) -> dict:
+    """One jump t -> s of `sample_step` on the kernels against impl='eager'
+    with the same noise and uniforms: positions at POS_TOL, types equal at
+    every slot where the sampled class leads the next by more than
+    GUMBEL_MARGIN (counted, and no slot under it may differ from eager but
+    for those)."""
+    from targetdiff_tpu_torch.ops import diffusion as D
+
+    gen = torch.Generator(device=pos.device).manual_seed(seed)
+    noise = torch.randn(pos.shape, generator=gen, device=pos.device)
+    uniform = torch.rand(v.shape + (NUM_CLASSES,), generator=gen, device=pos.device)
+    coefs = D.ddim_pos_coefficients(model.pos_sched.betas.cpu().numpy(), [t], [s], eta)
+    outs = {impl: model.sample_step(cbatch, pos, v, t, noise, uniform, packed=packed, s=s,
+                                    sampler=sampler, coefs=[float(c[0]) for c in coefs],
+                                    return_v_probs=True, impl=impl)
+            for impl in ("fast", "eager")}
+    torch.cuda.synchronize()
+    lm = cbatch.ligand_mask
+    err = check_close(f"ddim-sample {sampler} {t}->{s} positions", outs["fast"][0][lm],
+                      outs["eager"][0][lm], **POS_TOL)
+    gumbel = -torch.log(-torch.log(uniform + 1e-30) + 1e-30) + outs["eager"][3]
+    top2 = gumbel.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    differ = outs["fast"][1] != outs["eager"][1]
+    if bool((differ & (margin > GUMBEL_MARGIN)).any()):
+        raise AssertionError(f"ddim-sample {sampler} {t}->{s}: types differ from eager where "
+                             f"the Gumbel margin exceeds {GUMBEL_MARGIN}")
+    return {"max_abs_err_pos": err, "min_gumbel_margin": float(margin.min()),
+            "slots_under_margin": int((margin <= GUMBEL_MARGIN).sum()),
+            "types_differing": int(differ.sum()),
+            "logits_max_abs_err": float((outs["fast"][2] - outs["eager"][2]).abs().max())}
+
+
+def ddim_sample_phase(torch, dev, model, pocket, batch, ddpm_ms_per_step) -> dict:
+    """[ddim-sample]: the strided samplers at [sample]'s shape (the example
+    pocket, B = 4, kNN, the seeded flagship). Single jumps of `sample_step`
+    on the kernels against eager (DDIM_JUMPS: ddim at eta 0 and 1, dpm2,
+    the final s = -1 jump); the DDIM_RUNS through `sample_diffusion_ligand`,
+    each with its launches counted exactly (one kNN-graph forward a jump,
+    two a dpm2 jump but the final one), its molecules finite, in the
+    vocabulary and near the pocket, the pos_only run's types the pocket
+    ligand's in every frame of its trajectory; two ddim eta-0 pos_only runs
+    from one initial state with different generators give the same
+    positions. Times: seconds and ms per network evaluation (NFE) of each
+    run, beside [sample]'s ddpm ms per step. Returns the runs' launches,
+    summed."""
+    from targetdiff_tpu_torch.chem.sdf import parse_sdf_file
+    from targetdiff_tpu_torch.data.transforms import FeaturizeLigandAtom
+    from targetdiff_tpu_torch.models.score_model import sampling_schedule
+    from targetdiff_tpu_torch.ops import diffusion as D
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+    from targetdiff_tpu_torch.sampling import sample_diffusion_ligand
+    from targetdiff_tpu_torch.tools.ddim_eval import nfe
+
+    T = model.num_timesteps
+    protein_pos, pos, _ = D.center_pos_protein(batch.protein_pos, batch.ligand_pos,
+                                               batch.protein_mask)
+    cbatch = batch._replace(protein_pos=protein_pos)
+    pos = pos * batch.ligand_mask[..., None]
+    packed = kblock.pack_block_params(model.net.refine_net)
+    jumps = {f"{sampler}_{t}_{s}_eta{eta:g}": ddim_jump_fields(
+        torch, model, cbatch, pos, batch.ligand_v, packed, sampler, t, s, eta, seed)
+        for seed, (sampler, t, s, eta) in enumerate(DDIM_JUMPS)}
+
+    lig = parse_sdf_file(str(POCKET_LIGAND_SDF))
+    ref_v = FeaturizeLigandAtom("add_aromatic")({
+        "ligand_element": lig["element"], "ligand_atom_feature": lig["atom_feature"],
+        "ligand_hybridization": lig["hybridization"]})["ligand_atom_feature_full"]
+    ref_ligand = {"ligand_pos": lig["pos"], "ligand_v": ref_v}
+    centre = pocket["protein_pos"].mean(0)
+    radius = float(np.linalg.norm(pocket["protein_pos"] - centre, axis=1).max())
+    total = dict.fromkeys(path_want(0, 0), 0)
+    runs = {}
+    for i, (name, kw) in enumerate(DDIM_RUNS):
+        n_eval = nfe(T, **{k: kw[k] for k in ("num_steps", "sampler", "ddim_spacing") if k in kw})
+        reset_path_launches()
+        t0 = time.perf_counter()
+        res = sample_diffusion_ligand(
+            model, pocket, num_samples=B, generator=torch.Generator(device=dev).manual_seed(20 + i),
+            batch_size=B, max_protein=MAX_PROTEIN, max_ligand=MAX_LIGAND,
+            rng=np.random.default_rng(20 + i), ref_ligand=ref_ligand,
+            sample_num_atoms="ref" if kw.get("pos_only") else "prior", **kw)
+        wall = time.perf_counter() - t0
+        launches = path_launches()
+        if launches != path_want(n_eval, n_eval):
+            raise AssertionError(f"ddim-sample {name}: launches {launches}, expected "
+                                 f"{path_want(n_eval, n_eval)}")
+        total = {k: total[k] + launches[k] for k in total}
+        for pos_i, v_i in zip(res["pos"], res["v"]):
+            if pos_i.shape != (len(v_i), 3) or not np.isfinite(pos_i).all():
+                raise AssertionError(f"ddim-sample {name}: a non-finite or misshaped molecule")
+            if not ((v_i >= 0) & (v_i < NUM_CLASSES)).all():
+                raise AssertionError(f"ddim-sample {name}: an atom type outside the vocabulary")
+        dist = float(max(np.linalg.norm(p.mean(0) - centre) for p in res["pos"]))
+        if dist >= radius:
+            raise AssertionError(f"ddim-sample {name}: a molecule's centroid lies {dist} A from "
+                                 f"the pocket's centre, outside its {radius} A radius")
+        if kw.get("return_traj"):
+            frames = len(sampling_schedule(T, kw["num_steps"], kw["sampler"])[0])
+            for p_i, v_i, pt, vt in zip(res["pos"], res["v"], res["pos_traj"], res["v_traj"]):
+                if (pt.shape != (frames, len(v_i), 3) or vt.shape != (frames, len(v_i))
+                        or not np.array_equal(pt[-1], p_i) or not np.isfinite(pt).all()):
+                    raise AssertionError(f"ddim-sample {name}: a misshaped trajectory")
+        if kw.get("pos_only") and not all((np.asarray(v_i) == ref_v).all()
+                                          for v_i in res["v"] + res["v_traj"]):
+            raise AssertionError(f"ddim-sample {name}: pos_only changed the ligand's types")
+        sample_s = res["time"][0]
+        runs[name] = {"nfe": n_eval, "seconds": sample_s, "wall_seconds": wall,
+                      "ms_per_nfe": 1e3 * sample_s / n_eval, "mol_per_s": B / sample_s,
+                      "max_centroid_offset_A": dist, "launches": launches}
+
+    # eta 0 with the types held: the noise does not reach the positions
+    init = pos + torch.randn(pos.shape, generator=torch.Generator(device=dev).manual_seed(5),
+                             device=dev)
+    same = [model.sample_diffusion(batch, init, batch.ligand_v,
+                                   torch.Generator(device=dev).manual_seed(seed), num_steps=20,
+                                   sampler="ddim", eta=0.0, pos_only=True).pos
+            for seed in (1, 2)]
+    if not torch.equal(*same):
+        raise AssertionError("ddim-sample: eta-0 positions depend on the generator")
+    phase("ddim-sample", samples=B, jumps=jumps, runs=runs, ddpm_ms_per_step=ddpm_ms_per_step,
+          pocket_radius_A=radius, eta0_positions_bitwise_equal=True)
+    return total
 
 
 def gate_short_phase(torch, dev) -> None:
@@ -1144,6 +1302,49 @@ def gate(torch, argv) -> int:
                                          "n_classes")}
            for k in ("corpus", "untrained", "trained")}}}), flush=True)
     print("GATE", "FAIL: " + ", ".join(failed) if failed else "ok", flush=True)
+    return 1 if failed else 0
+
+
+def ddim(torch, argv) -> int:
+    """The `ddim [STEPS] [N_MOLS]` mode (module docstring)."""
+    if len(argv) > 2 or not all(a.isdigit() for a in argv):
+        raise SystemExit("usage: chip_smoke.py ddim [STEPS] [N_MOLS]")
+    steps = int(argv[0]) if argv else 4000
+    n_mols = int(argv[1]) if len(argv) > 1 else 128
+    sys.path.insert(0, str(REPO))
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+    from targetdiff_tpu_torch.ops.kernels import build
+    from targetdiff_tpu_torch.tools import ddim_eval
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_name()
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    build.load_library()
+    build_s = time.perf_counter() - t0
+    kblock.LAUNCHES = kblock.TRAIN_LAUNCHES = 0
+    report = ddim_eval.run(steps, n_mols, torch.device("cuda:0"),
+                           log=lambda line: print(line, flush=True))
+    rows = [name for name, _ in ddim_eval.ROWS]
+    chunks = report[rows[0]]["chunks"]
+    launches = {"block": kblock.LAUNCHES, "train_fwd": kblock.TRAIN_LAUNCHES}
+    want = {"block": chunks * sum(report[name]["nfe"] for name in rows), "train_fwd": steps}
+    report["checks"] = ddim_eval.checks(report)
+    report["checks"]["launches"] = launches == want
+    report.update(card=card, build_seconds=build_s, launches=launches,
+                  device={"kind": torch.cuda.get_device_name(0),
+                          "count": torch.cuda.device_count()})
+    (REPO / "ddim_eval_torch.json").write_text(json.dumps(report, indent=1) + "\n")
+    failed = [k for k, ok in report["checks"].items() if not ok]
+    print(json.dumps({"card": card, "train_seconds": report["train"]["seconds"],
+                      "launches": launches, "expected_launches": want,
+                      "rows": {name: {k: report[name][k] for k in (
+                          "mol_stable", "atom_stable", "recon_success", "pair_jsd_vs_train",
+                          "sample_seconds", "mols_per_sec", "nfe", "ms_per_nfe")}
+                          for name in rows},
+                      "checks": report["checks"]}), flush=True)
+    print("DDIM", "FAIL: " + ", ".join(failed) if failed else "ok", flush=True)
     return 1 if failed else 0
 
 

@@ -3,15 +3,18 @@ result_<id>.pkl per pocket.
 
 Usage: python -m targetdiff_tpu_torch.cli.sample_diffusion configs/sampling.yml
        -i DATA_ID [--all [--sharded]] [--result_path ./outputs] [--device cuda]
+       [--sampler ddpm|ddim|dpm2] [--eta ETA] [--ddim_spacing uniform|quadratic]
+       [--save_traj STRIDE]
 
 Counterpart of targetdiff_tpu/cli/sample_diffusion.py (reference:
 scripts/sample_diffusion.py): loads the checkpoint (the JAX package's .npz
 layout), rebuilds the model and transforms from the config stored in it,
-samples `sample.num_samples` molecules per pocket with 1000-step DDPM and
-writes the same result fields. With --all --sharded every pocket goes
+samples `sample.num_samples` molecules per pocket and writes the same result
+fields. `sample.sampler`, `eta`, `ddim_spacing` (each overridden by its
+flag) choose the reverse process; `sample.pos_only` samples positions for
+the pocket's own ligand types. With --all --sharded every pocket goes
 through `sampling.sample_testset` on the one device, `--chunk_rows` rows at
-a time. The strided samplers, position-only sampling and saved
-trajectories are not ported: a config that asks for them is refused.
+a time (no trajectories, no pos_only).
 """
 
 from __future__ import annotations
@@ -32,15 +35,19 @@ from ..sampling import sample_diffusion_ligand, sample_testset
 from .sample_for_pocket import load_model_from_checkpoint
 
 
-def write_result(path, pos_list, v_list, atom_mode, time_list=(), data=None) -> None:
+def write_result(path, pos_list, v_list, atom_mode, time_list=(), data=None,
+                 traj=None) -> None:
     """One result file: the sampled molecules' positions and atom-type
-    indices, the sampling seconds and the pocket's `data`, in the fields
+    indices, the sampling seconds, the pocket's `data` and the trajectories
+    `traj` = (pos_traj, v_traj, stride), in the fields
     targetdiff_tpu/cli/evaluate_diffusion.py and the port's evaluate_results
     read."""
     out = {"pred_ligand_pos": list(pos_list), "pred_ligand_v": list(v_list),
            "time": list(time_list), "ligand_atom_mode": atom_mode}
     if data is not None:
         out["data"] = data
+    if traj is not None:
+        out["pred_ligand_pos_traj"], out["pred_ligand_v_traj"], out["traj_stride"] = traj
     with open(path, "wb") as f:
         pickle.dump(out, f)
 
@@ -66,15 +73,30 @@ def main(argv=None):
     ap.add_argument("--chunk_rows", type=int, default=100,
                     help="largest number of pocket x sample rows in flight")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--sampler", default=None, choices=["ddpm", "ddim", "dpm2"],
+                    help="override config.sample.sampler: ddpm = the reference's ancestral "
+                    "sampling; ddim = stride the whole schedule over config.sample.num_steps "
+                    "jumps; dpm2 = the Heun (DPM-Solver-2) correction of the ddim jump, two "
+                    "model evaluations a jump")
+    ap.add_argument("--ddim_spacing", default=None, choices=["uniform", "quadratic"],
+                    help="ddim / dpm2 jump spacing (quadratic: denser at low t)")
+    ap.add_argument("--save_traj", type=int, default=0, metavar="STRIDE",
+                    help="save pred_ligand_{pos,v}_traj every STRIDE steps; not with --sharded")
+    ap.add_argument("--eta", type=float, default=None,
+                    help="ddim / dpm2 position noise (default 0: deterministic positions)")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     logger = logging.getLogger("sample")
     config = load_config(args.config)
-    if config.sample.get("sampler", "ddpm") != "ddpm" or config.sample.get("pos_only", False):
-        raise SystemExit("only ddpm sampling of positions and types is ported "
-                         f"(sampler={config.sample.get('sampler')!r}, "
-                         f"pos_only={config.sample.get('pos_only')!r})")
+    pos_only = bool(config.sample.get("pos_only", False))
+    if args.sharded and (args.save_traj or pos_only):
+        raise SystemExit("--sharded samples neither trajectories (--save_traj) nor "
+                         "positions alone (sample.pos_only); drop one")
+    strided = dict(
+        sampler=args.sampler or config.sample.get("sampler", "ddpm"),
+        eta=args.eta if args.eta is not None else config.sample.get("eta", 0.0),
+        ddim_spacing=args.ddim_spacing or config.sample.get("ddim_spacing", "uniform"))
     seed = int(config.sample.seed)
     os.makedirs(args.result_path, exist_ok=True)
 
@@ -98,7 +120,7 @@ def main(argv=None):
             num_steps=config.sample.num_steps, sample_num_atoms=num_atoms,
             max_protein=args.max_protein, max_ligand=args.max_ligand,
             rng=np.random.default_rng(seed), chunk_rows=args.chunk_rows,
-            ref_sizes=[len(d["ligand_pos"]) for d in datas])
+            ref_sizes=[len(d["ligand_pos"]) for d in datas], **strided)
         elapsed = time.perf_counter() - t0
         for data_id, data, pocket, result in zip(ids, datas, pockets, results):
             write_result(os.path.join(args.result_path, f"result_{data_id}.pkl"),
@@ -116,12 +138,18 @@ def main(argv=None):
             model, pocket, num_samples=config.sample.num_samples,
             generator=torch.Generator(device=model.device).manual_seed(seed + data_id),
             batch_size=args.batch_size, num_steps=config.sample.num_steps,
-            sample_num_atoms=num_atoms, ref_size=len(data["ligand_pos"]),
+            pos_only=pos_only, center_pos_mode=config.sample.get("center_pos_mode", "protein"),
+            sample_num_atoms=num_atoms,
+            ref_ligand={"ligand_pos": data["ligand_pos"],
+                        "ligand_v": data["ligand_atom_feature_full"]},
             max_protein=args.max_protein, max_ligand=args.max_ligand,
-            rng=np.random.default_rng(seed + data_id))
+            return_traj=bool(args.save_traj), traj_stride=max(args.save_traj, 1),
+            rng=np.random.default_rng(seed + data_id), **strided)
         out_path = os.path.join(args.result_path, f"result_{data_id}.pkl")
+        traj = ((result["pos_traj"], result["v_traj"], args.save_traj) if args.save_traj
+                else None)
         write_result(out_path, result["pos"], result["v"], atom_mode, result["time"],
-                     _pocket_data(pocket, data))
+                     _pocket_data(pocket, data), traj)
         logger.info(f"pocket {data_id}: {len(result['pos'])} molecules in "
                     f"{sum(result['time']):.1f}s -> {out_path}")
 

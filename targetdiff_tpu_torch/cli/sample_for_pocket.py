@@ -2,6 +2,7 @@
 
 Usage: python -m targetdiff_tpu_torch.cli.sample_for_pocket configs/sampling.yml
        --pdb_path examples/XXXX_pocket10.pdb [--num_samples 10] [--device cuda]
+       [--sampler ddpm|ddim] [--ddim_spacing uniform|quadratic] [--eta ETA]
 
 Counterpart of targetdiff_tpu/cli/sample_for_pocket.py (reference:
 scripts/sample_for_pocket.py:18-129): PDB -> featurize -> sample ->
@@ -85,6 +86,11 @@ def main(argv=None):
     ap.add_argument("--pdb_path", required=True)
     ap.add_argument("--num_samples", type=int, default=10)
     ap.add_argument("--num_steps", type=int, default=None)
+    ap.add_argument("--sampler", default=None, choices=["ddpm", "ddim"],
+                    help="ddim strides the whole schedule over --num_steps jumps")
+    ap.add_argument("--ddim_spacing", default=None, choices=["uniform", "quadratic"],
+                    help="ddim jump spacing (quadratic: denser at low t)")
+    ap.add_argument("--eta", type=float, default=None, help="ddim position noise (default 0)")
     ap.add_argument("--batch_size", type=int, default=100)
     ap.add_argument("--result_path", default="./outputs_pdb")
     ap.add_argument("--max_protein", type=int, default=640)
@@ -110,6 +116,9 @@ def main(argv=None):
         sample_num_atoms=config.sample.get("sample_num_atoms", "prior"),
         max_protein=args.max_protein, max_ligand=args.max_ligand,
         rng=np.random.default_rng(seed),
+        sampler=args.sampler or config.sample.get("sampler", "ddpm"),
+        eta=args.eta if args.eta is not None else config.sample.get("eta", 0.0),
+        ddim_spacing=args.ddim_spacing or config.sample.get("ddim_spacing", "uniform"),
     )
     sdf_path = os.path.join(args.result_path, "samples.sdf")
     if os.path.exists(sdf_path):

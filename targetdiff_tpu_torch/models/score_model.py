@@ -7,15 +7,16 @@ v_inference head) with the reference's parameter names. `DiffusionModel`
 owns it and the schedules; `get_diffusion_loss` is the training loss (its
 draws injectable as tensors), `likelihood_estimation` the per-timestep ELBO
 terms, `fetch_embedding` the hidden states with frozen coordinates,
-`sample_step` is one pure reverse step that takes its noise as arguments,
-and `sample_diffusion` loops over the time sequence drawing that noise from
-a `torch.Generator`.
+`sample_step` is one pure reverse step (ddpm, ddim or dpm2) that takes its
+noise as arguments, and `sample_diffusion` loops over the jumps of
+`sampling_schedule` drawing that noise from a `torch.Generator`.
 """
 
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -96,6 +97,10 @@ class ScorePosNet(nn.Module):
 class SampleResult(NamedTuple):
     pos: torch.Tensor  # [B, NL, 3] final ligand coordinates (uncentered)
     v: torch.Tensor  # [B, NL] final atom-type indices
+    pos_traj: Optional[torch.Tensor] = None  # [S, B, NL, 3] each step's positions (uncentered)
+    v_traj: Optional[torch.Tensor] = None  # [S, B, NL] each step's types
+    v0_traj: Optional[torch.Tensor] = None  # [S, B, NL, C] each step's recon log-probs
+    vt_traj: Optional[torch.Tensor] = None  # [S, B, NL, C] log-probs the types were drawn from
 
 
 class DiffusionModel:
@@ -286,49 +291,168 @@ class DiffusionModel:
             raise ValueError(f"impl must be 'fast' or 'eager', got {impl!r}")
         return self.apply(batch, batch.ligand_pos, batch.ligand_v, fix_x=True)
 
-    @torch.no_grad()
-    def sample_step(self, cbatch: ComplexBatch, ligand_pos, ligand_v, t: int,
-                    pos_noise, type_uniform, packed: Optional[PackedBlock] = None):
-        """One ancestral DDPM step t -> t-1 on the protein-centered batch
-        (reference: molopt_score_model.py:649-693). `pos_noise` [B,NL,3] is
-        standard normal and `type_uniform` [B,NL,C] is U[0,1). Returns
-        (ligand_pos, ligand_v) at t-1."""
-        tt = torch.full((cbatch.num_graphs,), t, dtype=torch.long, device=ligand_pos.device)
-        preds = self.fast_apply(cbatch, ligand_pos, ligand_v, packed=packed)
+    def _x0_and_logits(self, cbatch: ComplexBatch, pos, v, tt, packed, impl: str):
+        """The model's x0 prediction and type logits at (pos, v, tt): on the
+        kernels (impl='fast') or through ScorePosNet.forward ('eager')."""
+        if impl == "fast":
+            preds = self.fast_apply(cbatch, pos, v, packed=packed)
+        elif impl == "eager":
+            preds = self.apply(cbatch, pos, v)
+        else:
+            raise ValueError(f"impl must be 'fast' or 'eager', got {impl!r}")
         if self.model_mean_type == "noise":
-            pos0 = D.predict_x0_from_eps(self.pos_sched, ligand_pos,
-                                         preds["pred_ligand_pos"] - ligand_pos, tt)
+            pos0 = D.predict_x0_from_eps(self.pos_sched, pos, preds["pred_ligand_pos"] - pos, tt)
         elif self.model_mean_type == "C0":
             pos0 = preds["pred_ligand_pos"]
         else:
             raise ValueError(self.model_mean_type)
-        pos_mean = D.q_pos_posterior(self.pos_sched, pos0, ligand_pos, tt)
-        pos_log_variance = D.extract(self.pos_sched.posterior_logvar, tt, 3)
-        nonzero = float(t != 0)
-        lmask_f = cbatch.ligand_mask.to(ligand_pos.dtype)[..., None]
-        pos_next = (pos_mean + nonzero * torch.exp(0.5 * pos_log_variance) * pos_noise) * lmask_f
+        return pos0, preds["pred_ligand_v"]
 
-        log_v_recon = F.log_softmax(preds["pred_ligand_v"], dim=-1)
-        log_v = D.index_to_log_onehot(ligand_v, self.num_classes)
-        log_model_prob = D.q_v_posterior(self.v_sched, log_v_recon, log_v, tt, self.num_classes)
-        return pos_next, D.log_sample_categorical(log_model_prob, type_uniform)
+    @torch.no_grad()
+    def sample_step(self, cbatch: ComplexBatch, ligand_pos, ligand_v, t: int, pos_noise,
+                    type_uniform, packed: Optional[PackedBlock] = None, s: Optional[int] = None,
+                    sampler: str = "ddpm", coefs=None, pos_only: bool = False,
+                    return_v_probs: bool = False, impl: str = "fast"):
+        """One reverse step from timestep t to s on the protein-centered batch
+        (targetdiff_tpu/models/score_model.py:_sample_step; reference:
+        molopt_score_model.py:649-693). sampler='ddpm' is the ancestral step,
+        s = t-1; 'ddim' jumps to any s < t, positions by the coefficients
+        `coefs` = (c_x0, c_xt, sigma) of D.ddim_pos_coefficients, types by
+        the strided posterior; 'dpm2' adds the Heun correction of the ddim
+        jump (a second model evaluation at s). s < 0 is the final jump to the
+        clean sample: its types come from the recon distribution, and dpm2
+        skips the second evaluation there, whose correction the JAX step
+        multiplies by 0. `pos_noise` [B,NL,3] is standard normal and
+        `type_uniform` [B,NL,C] U[0,1) (None under pos_only, which holds the
+        types). Returns (ligand_pos, ligand_v) at s, and with return_v_probs
+        also the recon log-probabilities and those the types were drawn from."""
+        if sampler not in ("ddpm", "ddim", "dpm2"):
+            raise ValueError(f"unknown sampler {sampler!r} (want 'ddpm', 'ddim' or 'dpm2')")
+        s = t - 1 if s is None else s
+        dev, C = ligand_pos.device, self.num_classes
+        tt = torch.full((cbatch.num_graphs,), t, dtype=torch.long, device=dev)
+        lmask_f = cbatch.ligand_mask.to(ligand_pos.dtype)[..., None]
+        pos0, logits = self._x0_and_logits(cbatch, ligand_pos, ligand_v, tt, packed, impl)
+
+        if sampler == "ddpm":
+            pos_mean = D.q_pos_posterior(self.pos_sched, pos0, ligand_pos, tt)
+            pos_log_variance = D.extract(self.pos_sched.posterior_logvar, tt, 3)
+            nonzero = float(t != 0)
+            pos_next = pos_mean + nonzero * torch.exp(0.5 * pos_log_variance) * pos_noise
+        else:
+            cx0, cxt, sig = coefs
+            if sampler == "dpm2" and s >= 0:
+                # Heun / DPM-Solver-2 in data-prediction form: the
+                # deterministic ddim proposal at s, the model evaluated there
+                # on the greedy strided-posterior types, and the jump redone
+                # from the average of the two x0 predictions (positions) and
+                # of the two type distributions (probabilities)
+                ss = torch.full_like(tt, s)
+                x_prop = (cx0 * pos0 + cxt * ligand_pos) * lmask_f
+                log_post_mid = D.q_v_posterior_strided(
+                    self.v_sched, F.log_softmax(logits, dim=-1),
+                    D.index_to_log_onehot(ligand_v, C), tt, ss, C)
+                pos0_2, logits_2 = self._x0_and_logits(
+                    cbatch, x_prop, torch.argmax(log_post_mid, dim=-1), ss, packed, impl)
+                pos0 = pos0 + 0.5 * (pos0_2 - pos0)
+                p_avg = 0.5 * (F.softmax(logits, dim=-1) + F.softmax(logits_2, dim=-1))
+                log_avg = torch.log(p_avg.clamp(min=D.LOG_EPS))
+                logits = logits + (log_avg - logits)
+            pos_next = cx0 * pos0 + cxt * ligand_pos + sig * pos_noise
+        pos_next = pos_next * lmask_f
+
+        log_v_recon = F.log_softmax(logits, dim=-1)
+        if pos_only:
+            log_model_prob, v_next = log_v_recon, ligand_v
+        else:
+            log_v = D.index_to_log_onehot(ligand_v, C)
+            if sampler == "ddpm":
+                log_model_prob = D.q_v_posterior(self.v_sched, log_v_recon, log_v, tt, C)
+            elif s < 0:
+                log_model_prob = log_v_recon
+            else:
+                log_model_prob = D.q_v_posterior_strided(self.v_sched, log_v_recon, log_v, tt,
+                                                         torch.full_like(tt, s), C)
+            v_next = D.log_sample_categorical(log_model_prob, type_uniform)
+        if return_v_probs:
+            return pos_next, v_next, log_v_recon, log_model_prob
+        return pos_next, v_next
 
     @torch.no_grad()
     def sample_diffusion(self, batch: ComplexBatch, init_ligand_pos, init_ligand_v,
-                         generator: torch.Generator,
-                         num_steps: Optional[int] = None) -> SampleResult:
-        """Reverse DDPM over the last `num_steps` timesteps of the schedule
-        (reference: molopt_score_model.py:633-703, truncation at :649)."""
+                         generator: torch.Generator, num_steps: Optional[int] = None,
+                         center_pos_mode: Optional[str] = None, pos_only: bool = False,
+                         return_traj: bool = False, return_v_probs: bool = False,
+                         sampler: str = "ddpm", eta: float = 0.0,
+                         ddim_spacing: str = "uniform") -> SampleResult:
+        """The reverse process (targetdiff_tpu/models/score_model.py:
+        sample_diffusion; reference: molopt_score_model.py:633-703).
+        sampler='ddpm' runs the last `num_steps` timesteps of the schedule
+        (the reference's truncation at :649); 'ddim' and 'dpm2' stride the
+        whole schedule over `num_steps` jumps (`sampling_schedule`), with
+        position noise scaled by `eta`. The block weights are packed and the
+        jump coefficients uploaded once per run; each step runs on the
+        kernels and draws its noise from `generator`. return_traj keeps every step's positions
+        (uncentered, padded rows at the offset) and types on the device,
+        return_v_probs every step's recon and sampling log-probabilities."""
         T = self.num_timesteps
         num_steps = T if num_steps is None else num_steps
+        time_seq, s_seq = sampling_schedule(T, num_steps, sampler, ddim_spacing)
         protein_pos, pos, offset = D.center_pos_protein(
-            batch.protein_pos, init_ligand_pos, batch.protein_mask, self.center_pos_mode)
+            batch.protein_pos, init_ligand_pos, batch.protein_mask,
+            center_pos_mode or self.center_pos_mode)
         cbatch = batch._replace(protein_pos=protein_pos)
+        dev = pos.device
         packed = pack_block_params(self.net.refine_net)
+        coefs = None
+        if sampler != "ddpm":
+            betas = self.pos_sched.betas.cpu().numpy()
+            coefs = torch.as_tensor(np.stack(D.ddim_pos_coefficients(betas, time_seq, s_seq, eta),
+                                             1), device=dev)
+        S = len(time_seq)
         v = init_ligand_v
-        for t in range(T - 1, T - num_steps - 1, -1):
-            pos_noise = torch.randn(pos.shape, generator=generator, device=pos.device)
-            type_uniform = torch.rand(v.shape + (self.num_classes,), generator=generator,
-                                      device=pos.device)
-            pos, v = self.sample_step(cbatch, pos, v, t, pos_noise, type_uniform, packed=packed)
-        return SampleResult(pos=pos + offset, v=v)
+        traj = {}
+        if return_traj:
+            traj["pos_traj"] = pos.new_empty((S,) + pos.shape)
+            traj["v_traj"] = v.new_empty((S,) + v.shape)
+        if return_v_probs:
+            traj["v0_traj"] = pos.new_empty((S,) + v.shape + (self.num_classes,))
+            traj["vt_traj"] = torch.empty_like(traj["v0_traj"])
+        for i, (t, s) in enumerate(zip(time_seq.tolist(), s_seq.tolist())):
+            pos_noise = torch.randn(pos.shape, generator=generator, device=dev)
+            type_uniform = None if pos_only else torch.rand(
+                v.shape + (self.num_classes,), generator=generator, device=dev)
+            out = self.sample_step(cbatch, pos, v, t, pos_noise, type_uniform, packed=packed,
+                                   s=s, sampler=sampler,
+                                   coefs=None if coefs is None else coefs[i], pos_only=pos_only,
+                                   return_v_probs=return_v_probs)
+            pos, v = out[:2]
+            if return_traj:
+                traj["pos_traj"][i] = pos + offset
+                traj["v_traj"][i] = v
+            if return_v_probs:
+                traj["v0_traj"][i], traj["vt_traj"][i] = out[2:]
+        return SampleResult(pos=pos + offset, v=v, **traj)
+
+
+def sampling_schedule(num_timesteps: int, num_steps: int, sampler: str = "ddpm",
+                      ddim_spacing: str = "uniform"):
+    """The (t, s) jumps of a reverse run, as int64 numpy arrays (time_seq,
+    s_seq) (targetdiff_tpu/models/score_model.py:635-657). ddpm: the last
+    `num_steps` timesteps, s = t-1. ddim and dpm2: `num_steps` grid points
+    over the whole schedule, 'uniform' or 'quadratic' (denser at low t, where
+    the fine geometry is decided), rounded, deduplicated and descending, each
+    jumping to the next; the last jumps to s = -1, the clean sample."""
+    if sampler in ("ddim", "dpm2"):
+        if ddim_spacing == "quadratic":
+            grid = np.linspace(0.0, 1.0, num_steps) ** 2 * (num_timesteps - 1)
+        elif ddim_spacing == "uniform":
+            grid = np.linspace(0, num_timesteps - 1, num_steps)
+        else:
+            raise ValueError(f"unknown ddim_spacing {ddim_spacing!r}")
+        time_seq = np.unique(grid.round().astype(np.int64))[::-1].copy()
+        return time_seq, np.append(time_seq[1:], -1)
+    if sampler == "ddpm":
+        time_seq = np.arange(num_timesteps - num_steps, num_timesteps)[::-1].copy()
+        return time_seq, time_seq - 1
+    raise ValueError(f"unknown sampler {sampler!r} (want 'ddpm', 'ddim' or 'dpm2')")

@@ -1,6 +1,6 @@
-"""DDPM math on dense padded tensors, counterpart of the sampling, training
-and likelihood subsets of targetdiff_tpu/ops/diffusion.py (reference:
-models/molopt_score_model.py).
+"""DDPM math on dense padded tensors, counterpart of the sampling (ddpm and
+the strided samplers), training and likelihood subsets of
+targetdiff_tpu/ops/diffusion.py (reference: models/molopt_score_model.py).
 
 `t` is an int tensor of shape [B]; coordinates are [B, N, 3]; atom-type
 log-probabilities are [B, N, C]. Functions that need randomness take it as an
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -81,6 +82,50 @@ def q_v_posterior(sched: CategoricalSchedule, log_v0, log_vt, t, num_classes: in
         sched, log_vt, t, num_classes
     )
     return unnormed - torch.logsumexp(unnormed, dim=-1, keepdim=True)
+
+
+def q_v_pred_strided(sched: CategoricalSchedule, log_vt, t, s, num_classes: int):
+    """log q(v_t | v_s) for a jump s < t under the uniform-mixture kernel,
+    alpha_{t|s} = abar_t / abar_s (targetdiff_tpu/ops/diffusion.py:142; the
+    reference steps only t -> t-1). s < 0 reads as s = 0."""
+    log_a_ts = (extract(sched.log_alphas_cumprod, t, log_vt.ndim)
+                - extract(sched.log_alphas_cumprod, torch.clamp(s, min=0), log_vt.ndim))
+    # log(1 - a_ts) through -expm1: log1p(-exp(x)) collapses to log(eps) in
+    # float32 once exp(x) rounds to 1
+    log_1_min_a_ts = torch.log(-torch.expm1(log_a_ts) + LOG_EPS)
+    return log_add_exp(log_vt + log_a_ts, log_1_min_a_ts - math.log(num_classes))
+
+
+def q_v_posterior_strided(sched: CategoricalSchedule, log_v0, log_vt, t, s, num_classes: int):
+    """log q(v_s | v_t, v_0) for a jump s < t, normalized over classes; with
+    s = t-1 it equals q_v_posterior. On the final jump (s < 0) samplers use
+    the recon distribution log_v0 itself."""
+    unnormed = (q_v_pred(sched, log_v0, torch.clamp(s, min=0), num_classes)
+                + q_v_pred_strided(sched, log_vt, t, s, num_classes))
+    return unnormed - torch.logsumexp(unnormed, dim=-1, keepdim=True)
+
+
+def ddim_pos_coefficients(betas, time_seq, s_seq, eta: float = 0.0):
+    """Host-side DDIM coefficient tables for the jumps t = time_seq[i] ->
+    s = s_seq[i] (Song et al. 2021), x_s = c_x0 x0 + c_xt x_t + sigma xi with
+    sigma = eta sqrt((1-abar_s)/(1-abar_t)) sqrt(1 - abar_t/abar_s). Computed
+    in float64 from `betas` (the schedule's float32 betas, upcast as the JAX
+    package does), because 1 - abar_t/abar_s underflows float32 where beta
+    ~ 1e-7; s < 0 is the final jump to the clean sample (c_x0 = 1, c_xt =
+    sigma = 0). Returns float32 numpy arrays (c_x0, c_xt, sigma), bitwise
+    targetdiff_tpu/ops/diffusion.py:ddim_pos_coefficients."""
+    acp = np.cumprod(1.0 - np.asarray(betas, np.float64))
+    t = np.asarray(time_seq, np.int64)
+    s = np.asarray(s_seq, np.int64)
+    abar_t = acp[t]
+    abar_s = np.where(s >= 0, acp[np.maximum(s, 0)], 1.0)
+    sigma = eta * np.sqrt(
+        np.clip((1.0 - abar_s) / np.clip(1.0 - abar_t, 1e-300, None), 0.0, None)
+        * np.clip(1.0 - abar_t / abar_s, 0.0, None))
+    dir_coef = np.sqrt(np.clip(1.0 - abar_s - sigma**2, 0.0, None))
+    c_xt = dir_coef / np.sqrt(np.clip(1.0 - abar_t, 1e-300, None))
+    c_x0 = np.sqrt(abar_s) - c_xt * np.sqrt(abar_t)
+    return tuple(np.asarray(a, np.float32) for a in (c_x0, c_xt, sigma))
 
 
 def kl_v_prior(sched: CategoricalSchedule, log_v0, mask, num_classes: int):

@@ -3,10 +3,10 @@ targetdiff_tpu/sampling.py (reference: scripts/sample_diffusion.py:31-116).
 
 One pocket is padded once and replicated across the batch; ligand sizes come
 from the atom-count prior on the host and become masks; init positions are
-the pocket's centre of mass plus N(0, 1) and init types are uniform. All
-noise is drawn from the caller's `torch.Generator`. `sample_testset` samples
-many pockets on one device from a pocket bank uploaded once, a bounded
-number of rows at a time.
+the pocket's centre of mass plus N(0, 1) and init types are uniform (or,
+position-only, the reference ligand's). All noise is drawn from the caller's
+`torch.Generator`. `sample_testset` samples many pockets on one device from
+a pocket bank uploaded once, a bounded number of rows at a time.
 """
 
 from __future__ import annotations
@@ -22,12 +22,17 @@ from .models.score_model import DiffusionModel
 from .utils import atom_num
 
 
-def init_ligand_state(batch: ComplexBatch, num_classes: int, generator: torch.Generator):
-    """(init_pos [B,NL,3], init_v [B,NL]) (reference: scripts/sample_diffusion.py:60-70)."""
+def init_ligand_state(batch: ComplexBatch, num_classes: int, generator: torch.Generator,
+                      pos_only: bool = False):
+    """(init_pos [B,NL,3], init_v [B,NL]): the pocket's centre of mass plus
+    N(0, 1), and uniform types, or under pos_only the batch's own types
+    (reference: scripts/sample_diffusion.py:60-70)."""
     m = batch.protein_mask.float()[..., None]
     com = (batch.protein_pos * m).sum(1, keepdim=True) / m.sum(1, keepdim=True).clamp(min=1.0)
     dev = batch.device
     init_pos = com + torch.randn(batch.ligand_pos.shape, generator=generator, device=dev)
+    if pos_only:
+        return init_pos, batch.ligand_v
     uniform = torch.rand(batch.ligand_v.shape + (num_classes,), generator=generator, device=dev)
     init_v = torch.argmax(-torch.log(-torch.log(uniform + 1e-30) + 1e-30), dim=-1)
     return init_pos, init_v
@@ -69,15 +74,28 @@ def sample_diffusion_ligand(
     generator: torch.Generator,
     batch_size: int = 100,
     num_steps: Optional[int] = None,
+    pos_only: bool = False,
+    center_pos_mode: str = "protein",
     sample_num_atoms: str = "prior",
-    ref_size: Optional[int] = None,
+    ref_ligand: Optional[Dict[str, np.ndarray]] = None,  # for mode 'ref' and pos_only
     max_protein: Optional[int] = None,
     max_ligand: Optional[int] = None,
+    return_traj: bool = False,
+    traj_stride: int = 1,
     rng: Optional[np.random.Generator] = None,
+    sampler: str = "ddpm",
+    eta: float = 0.0,
+    ddim_spacing: str = "uniform",
 ) -> Dict[str, Any]:
-    """Generate `num_samples` molecules for one pocket on `model.device`.
-    Returns per-sample numpy 'pos' [n_atoms, 3] and 'v' [n_atoms] lists and
-    the host seconds of each batch ('time', ending in a device-to-host copy)."""
+    """Generate `num_samples` molecules for one pocket on `model.device`
+    (targetdiff_tpu/sampling.py:sample_diffusion_ligand). Returns per-sample
+    numpy 'pos' [n_atoms, 3] and 'v' [n_atoms] lists, the host seconds of
+    each batch ('time', ending in a device-to-host copy) and, with
+    return_traj, 'pos_traj' [frames, n_atoms, 3] and 'v_traj' [frames,
+    n_atoms], every `traj_stride`-th step, copied from the device once a
+    batch. Mode 'ref' and pos_only take the size and the types of
+    `ref_ligand` ({'ligand_pos', 'ligand_v'}); sampler, eta and ddim_spacing
+    as in DiffusionModel.sample_diffusion."""
     max_protein = max_protein or model.max_protein
     max_ligand = max_ligand or model.max_ligand
     rng = rng or np.random.default_rng(0)
@@ -92,15 +110,18 @@ def sample_diffusion_ligand(
     fpad = torch.zeros((np_pad, pfeat.shape[-1]), device=dev)
     ppad[:n_prot] = torch.as_tensor(ppos, device=dev)
     fpad[:n_prot] = torch.as_tensor(pfeat, device=dev)
+    ligand_v = torch.zeros((max_ligand,), dtype=torch.long, device=dev)
+    if pos_only and ref_ligand is not None:
+        ref_v = np.asarray(ref_ligand["ligand_v"])
+        ligand_v[:len(ref_v)] = torch.as_tensor(ref_v, device=dev)
 
-    all_pos: List[np.ndarray] = []
-    all_v: List[np.ndarray] = []
-    time_list: List[float] = []
+    out: Dict[str, List] = {"pos": [], "v": [], "pos_traj": [], "v_traj": [], "time": []}
     done = 0
     while done < num_samples:
         n = min(batch_size, num_samples - done)
-        sizes = sample_ligand_sizes(ppos, n, sample_num_atoms, ref_size=ref_size,
-                                    max_ligand=max_ligand, rng=rng, start_index=done)
+        sizes = sample_ligand_sizes(
+            ppos, n, sample_num_atoms, max_ligand=max_ligand, rng=rng, start_index=done,
+            ref_size=None if ref_ligand is None else len(ref_ligand["ligand_pos"]))
         pmask = torch.zeros((n, np_pad), dtype=torch.bool, device=dev)
         pmask[:, :n_prot] = True
         batch = ComplexBatch(
@@ -108,21 +129,29 @@ def sample_diffusion_ligand(
             protein_feat=fpad.expand(n, -1, -1).contiguous(),
             protein_mask=pmask,
             ligand_pos=torch.zeros((n, max_ligand, 3), device=dev),
-            ligand_v=torch.zeros((n, max_ligand), dtype=torch.long, device=dev),
+            ligand_v=ligand_v.expand(n, -1).contiguous(),
             ligand_mask=torch.as_tensor(np.arange(max_ligand)[None, :] < sizes[:, None], device=dev),
         )
-        init_pos, init_v = init_ligand_state(batch, model.num_classes, generator)
+        init_pos, init_v = init_ligand_state(batch, model.num_classes, generator, pos_only)
         t1 = time.perf_counter()
-        res = model.sample_diffusion(batch, init_pos, init_v, generator, num_steps=num_steps)
+        res = model.sample_diffusion(batch, init_pos, init_v, generator, num_steps=num_steps,
+                                     center_pos_mode=center_pos_mode, pos_only=pos_only,
+                                     return_traj=return_traj, sampler=sampler, eta=eta,
+                                     ddim_spacing=ddim_spacing)
         pos_np = res.pos.double().cpu().numpy()
         v_np = res.v.cpu().numpy()
-        time_list.append(time.perf_counter() - t1)
-        for i in range(n):
-            s = int(sizes[i])
-            all_pos.append(pos_np[i, :s])
-            all_v.append(v_np[i, :s])
+        if return_traj:
+            pos_traj = res.pos_traj[::traj_stride].double().cpu().numpy()
+            v_traj = res.v_traj[::traj_stride].cpu().numpy()
+        out["time"].append(time.perf_counter() - t1)
+        for i, size in enumerate(sizes.tolist()):
+            out["pos"].append(pos_np[i, :size])
+            out["v"].append(v_np[i, :size])
+            if return_traj:
+                out["pos_traj"].append(pos_traj[:, i, :size])
+                out["v_traj"].append(v_traj[:, i, :size])
         done += n
-    return {"pos": all_pos, "v": all_v, "time": time_list}
+    return out
 
 
 def sample_testset(
@@ -137,6 +166,9 @@ def sample_testset(
     rng: Optional[np.random.Generator] = None,
     chunk_rows: int = 100,
     ref_sizes: Optional[List[int]] = None,
+    sampler: str = "ddpm",
+    eta: float = 0.0,
+    ddim_spacing: str = "uniform",
 ) -> List[Dict[str, Any]]:
     """`num_samples_per_pocket` molecules for each of `pockets` on
     `model.device`: the one-device counterpart of
@@ -145,7 +177,8 @@ def sample_testset(
     bank [P, NPpad, *]; the pocket x sample rows run `chunk_rows` at a time,
     each chunk's batch gathered on the device from the bank, so peak memory
     is set by `chunk_rows`, not by the number of pockets. Mode 'ref' takes
-    one reference ligand size per pocket in `ref_sizes`.
+    one reference ligand size per pocket in `ref_sizes`; sampler, eta and
+    ddim_spacing as in DiffusionModel.sample_diffusion.
 
     Returns one dict per pocket: 'pos' and 'v' lists of numpy arrays, and
     'time', the host seconds of the chunks it shared, split by its share of
@@ -201,7 +234,8 @@ def sample_testset(
         )
         init_pos, init_v = init_ligand_state(batch, model.num_classes, generator)
         t1 = time.perf_counter()
-        res = model.sample_diffusion(batch, init_pos, init_v, generator, num_steps=num_steps)
+        res = model.sample_diffusion(batch, init_pos, init_v, generator, num_steps=num_steps,
+                                     sampler=sampler, eta=eta, ddim_spacing=ddim_spacing)
         pos_np = res.pos.double().cpu().numpy()
         v_np = res.v.cpu().numpy()
         chunk_t = time.perf_counter() - t1

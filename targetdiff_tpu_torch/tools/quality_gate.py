@@ -105,11 +105,14 @@ def train(model, pool, steps, seed=1, impl="fast", log=print):
     return untrained, copy.deepcopy(model.net.state_dict()), loss_hist
 
 
-def sample(model, state_dict, pool, n_mols, seed=3, num_steps=1000, n_pockets=32):
+def sample(model, state_dict, pool, n_mols, seed=3, num_steps=1000, n_pockets=32,
+           sampler="ddpm", eta=0.0, ddim_spacing="uniform"):
     """n_mols ligands from `state_dict` through `sampling.sample_testset`:
     the first n_pockets pockets of the pool, n_mols / n_pockets samples each,
-    ligand sizes those of the pocket's own ligand ('ref'). Returns the
-    molecules and the sampling seconds."""
+    ligand sizes those of the pocket's own ligand ('ref'), `num_steps` steps
+    of `sampler` (sampler, eta, ddim_spacing as in
+    DiffusionModel.sample_diffusion). Returns the molecules and the sampling
+    seconds."""
     model.net.load_state_dict(state_dict)
     S = -(-n_mols // n_pockets)
     pp, pf, pm, lm = (t.cpu().numpy() for t in (pool.protein_pos, pool.protein_feat,
@@ -119,7 +122,8 @@ def sample(model, state_dict, pool, n_mols, seed=3, num_steps=1000, n_pockets=32
     res = sample_testset(model, pockets, S, torch.Generator(device=model.device).manual_seed(seed),
                          num_steps=num_steps, sample_num_atoms="ref",
                          ref_sizes=[int(lm[i].sum()) for i in range(n_pockets)],
-                         max_protein=NP_, max_ligand=NL, chunk_rows=CHUNK_ROWS)
+                         max_protein=NP_, max_ligand=NL, chunk_rows=CHUNK_ROWS,
+                         sampler=sampler, eta=eta, ddim_spacing=ddim_spacing)
     mols = [{"pos": pos, "v": v} for entry in res for pos, v in zip(entry["pos"], entry["v"])]
     return mols[:n_mols], sum(entry["time"] for entry in res)
 

@@ -140,3 +140,63 @@ def test_gate_cli_runs_on_the_card_unless_told_otherwise(tmp_path):
     with pytest.raises((RuntimeError, AssertionError), match="CUDA|cuda"):
         qg.main(["1", "4", str(tmp_path / "out.json")])
     assert not (tmp_path / "out.json").exists()
+
+
+def _jax_ddim_rows():
+    """The `configs` list of tools/ddim_eval.py's main, evaluated."""
+    import ast
+    from pathlib import Path
+
+    tree = ast.parse((Path(__file__).resolve().parents[1] / "tools" / "ddim_eval.py").read_text())
+    node = next(n for n in ast.walk(tree) if isinstance(n, ast.Assign)
+                and getattr(n.targets[0], "id", None) == "configs")
+    return eval(compile(ast.Expression(node.value), "ddim_eval", "eval"), {"dict": dict})
+
+
+def test_ddim_eval_rows_are_the_jax_rows():
+    from targetdiff_tpu_torch.tools import ddim_eval
+
+    assert ddim_eval.ROWS == _jax_ddim_rows()
+
+
+def test_ddim_eval_counts_network_evaluations():
+    from targetdiff_tpu_torch.tools.ddim_eval import nfe
+
+    assert nfe(1000, 1000) == 1000 and nfe(1000, 100) == 100
+    assert nfe(1000, 100, "ddim") == 100 and nfe(1000, 50, "dpm2") == 99
+    # quadratic spacing rounds several low-t grid points onto one timestep
+    assert nfe(1000, 100, "ddim", "quadratic") < 100
+    assert nfe(1000, 50, "dpm2", "quadratic") == 2 * nfe(1000, 50, "ddim", "quadratic") - 1
+
+
+def test_ddim_eval_checks():
+    from targetdiff_tpu_torch.tools.ddim_eval import ROWS, checks
+
+    base = {name: {"atom_stable": 0.85} for name, _ in ROWS}
+    ok = dict(base, **{"ddpm-1000": {"atom_stable": 0.89},
+                       "ddpm-100-trunc": {"atom_stable": 0.23}})
+    assert checks(ok) == {"rows_complete": True, "ddim_keeps_atom_stability": True,
+                          "truncation_collapses": True}
+    lost = dict(ok, **{"ddim-100": {"atom_stable": 0.78}})
+    assert not checks(lost)["ddim_keeps_atom_stability"]
+    assert not checks(dict(ok, **{"ddpm-100-trunc": {"atom_stable": 0.6}}))["truncation_collapses"]
+    assert checks({k: v for k, v in ok.items() if k != "dpm2-25"}) == {"rows_complete": False}
+
+
+def test_tiny_ddim_eval_run_reports_every_row():
+    from targetdiff_tpu_torch.tools import ddim_eval
+
+    rows = [("ddpm-20", dict(num_steps=20, sampler="ddpm")),
+            ("ddpm-2-trunc", dict(num_steps=2, sampler="ddpm")),
+            ("ddim-4-quad-eta1", dict(num_steps=4, sampler="ddim", eta=1.0,
+                                      ddim_spacing="quadratic")),
+            ("dpm2-3", dict(num_steps=3, sampler="dpm2", eta=0.0))]
+    report = ddim_eval.run(2, 4, device="cpu", rows=rows, n_pockets=2, pool_size=24,
+                           corpus_n=24, log=lambda _: None, num_diffusion_timesteps=20, **SMALL)
+    assert report["train"]["steps"] == 2 and len(report["train"]["loss_hist"]) == 2
+    assert [report[name]["nfe"] for name, _ in rows] == [20, 2, 4, 5]
+    for name, _ in rows:
+        ev = report[name]
+        assert ev["n"] == 4 and ev["chunks"] == 1 and 0.0 <= ev["atom_stable"] <= 1.0
+        assert all(math.isfinite(ev[k]) and ev[k] > 0
+                   for k in ("sample_seconds", "mols_per_sec", "ms_per_nfe"))

@@ -245,13 +245,101 @@ def test_sample_diffusion_cli_results_read_in_the_jax_evaluation(sharded, tmp_pa
     _close(got, want, "summary")
 
 
-def test_sample_diffusion_cli_refuses_the_strided_samplers(tmp_path):
+def test_sample_diffusion_cli_runs_the_strided_samplers_and_saves_trajectories(tmp_path):
+    """--sampler ddim --save_traj 1 on the six-entry dataset: result files
+    with the trajectory fields, read by the JAX package's evaluate_results as
+    by the port's, at the final step and at a trajectory step; --sharded
+    refuses --save_traj and sample.pos_only."""
+    from targetdiff_tpu.cli.evaluate_diffusion import evaluate_results as jax_evaluate_results
+    from targetdiff_tpu.utils.checkpoint import save_checkpoint
     from targetdiff_tpu_torch.cli import sample_diffusion
+    from targetdiff_tpu_torch.cli.evaluate_diffusion import evaluate_results
+    from targetdiff_tpu_torch.models.score_model import sampling_schedule
+    from tests.test_torch_data import _data_cfg, _mini_raw
+    from tests.test_torch_evaluation import _close
 
+    cfg, _, params, _, _, _ = small_setup()
+    raw, split = _mini_raw(tmp_path)
+    ckpt = tmp_path / "ckpt.npz"
+    save_checkpoint(str(ckpt), {"data": _data_cfg(raw, split), "model": dict(cfg)},
+                    jax.device_get(params))
     sample_yml = tmp_path / "sampling.yml"
-    sample_yml.write_text("model:\n  checkpoint: unused.npz\nsample:\n  seed: 3\n"
-                          "  num_steps: 2\n  num_samples: 3\n  sampler: ddim\n")
-    with pytest.raises(SystemExit, match="ddpm"):
-        sample_diffusion.main([str(sample_yml), "--device", "cpu"])
-    with pytest.raises(SystemExit):
-        sample_diffusion.main([str(sample_yml), "--save_traj", "1"])
+    sample_yml.write_text(f"model:\n  checkpoint: {ckpt}\nsample:\n  seed: 3\n  num_steps: 4\n"
+                          "  num_samples: 3\n  sample_num_atoms: prior\n")
+    out = tmp_path / "out"
+    sample_diffusion.main([str(sample_yml), "-i", "1", "--result_path", str(out),
+                           "--max_ligand", "8", "--device", "cpu", "--sampler", "ddim",
+                           "--eta", "0.5", "--ddim_spacing", "quadratic", "--save_traj", "1"])
+    files = sorted(out.glob("result_*.pkl"))
+    assert [f.name for f in files] == ["result_1.pkl"]
+    res = pickle.loads(files[0].read_bytes())
+    assert set(res) == {"data", "pred_ligand_pos", "pred_ligand_v", "time", "ligand_atom_mode",
+                        "pred_ligand_pos_traj", "pred_ligand_v_traj", "traj_stride"}
+    frames = len(sampling_schedule(cfg.num_diffusion_timesteps, 4, "ddim", "quadratic")[0])
+    assert res["traj_stride"] == 1 and len(res["pred_ligand_pos_traj"]) == 3
+    for pos, v, pt, vt in zip(res["pred_ligand_pos"], res["pred_ligand_v"],
+                              res["pred_ligand_pos_traj"], res["pred_ligand_v_traj"]):
+        assert pt.shape == (frames,) + pos.shape and vt.shape == (frames,) + v.shape
+        np.testing.assert_array_equal(pt[-1], pos)
+        np.testing.assert_array_equal(vt[-1], v)
+    for step in (-1, 0):
+        got, _ = evaluate_results(files, "add_aromatic", eval_step=step)
+        want, _ = jax_evaluate_results(files, "add_aromatic", eval_step=step)
+        _close(got, want, f"summary at step {step}")
+
+    pos_only_yml = tmp_path / "pos_only.yml"
+    pos_only_yml.write_text(sample_yml.read_text() + "  pos_only: true\n")
+    for yml, extra in ((sample_yml, ["--save_traj", "1"]), (pos_only_yml, [])):
+        with pytest.raises(SystemExit, match="sharded"):
+            sample_diffusion.main([str(yml), "--all", "--sharded", "--device", "cpu", *extra])
+
+
+def test_sample_diffusion_cli_samples_positions_for_the_pocket_ligand(tmp_path):
+    """sample.pos_only: the molecules keep the test ligand's own types."""
+    from targetdiff_tpu.utils.checkpoint import save_checkpoint
+    from targetdiff_tpu_torch.cli import sample_diffusion
+    from targetdiff_tpu_torch.config import Config
+    from targetdiff_tpu_torch.data.datasets import get_dataset
+    from targetdiff_tpu_torch.data.transforms import (Compose, FeaturizeLigandAtom,
+                                                      FeaturizeProteinAtom)
+    from tests.test_torch_data import _data_cfg, _mini_raw
+
+    cfg, _, params, _, _, _ = small_setup()
+    raw, split = _mini_raw(tmp_path)
+    data_cfg = _data_cfg(raw, split)
+    ckpt = tmp_path / "ckpt.npz"
+    save_checkpoint(str(ckpt), {"data": data_cfg, "model": dict(cfg)}, jax.device_get(params))
+    sample_yml = tmp_path / "sampling.yml"
+    sample_yml.write_text(f"model:\n  checkpoint: {ckpt}\nsample:\n  seed: 3\n  num_steps: 3\n"
+                          "  num_samples: 2\n  sample_num_atoms: ref\n  pos_only: true\n")
+    out = tmp_path / "out"
+    sample_diffusion.main([str(sample_yml), "--result_path", str(out), "--max_ligand", "64",
+                           "--device", "cpu", "--sampler", "dpm2"])
+    res = pickle.loads((out / "result_0.pkl").read_bytes())
+    transform = Compose([FeaturizeProteinAtom(), FeaturizeLigandAtom("add_aromatic")])
+    _, subsets = get_dataset(Config(data_cfg), transform=transform)
+    ref_v = subsets["test"][0]["ligand_atom_feature_full"]
+    for pos, v in zip(res["pred_ligand_pos"], res["pred_ligand_v"]):
+        np.testing.assert_array_equal(v, ref_v)
+        assert pos.shape == (len(ref_v), 3) and np.isfinite(pos).all()
+
+
+def test_sample_for_pocket_cli_takes_the_ddim_flags(tmp_path):
+    from targetdiff_tpu.utils.checkpoint import save_checkpoint
+    from targetdiff_tpu_torch.cli import sample_for_pocket
+
+    cfg, _, params, _, _, _ = small_setup()
+    ckpt = tmp_path / "ckpt.npz"
+    save_checkpoint(str(ckpt), {"data": {"transform": {"ligand_atom_mode": "add_aromatic"}},
+                                "model": dict(cfg)}, jax.device_get(params))
+    sample_yml = tmp_path / "sampling.yml"
+    sample_yml.write_text(f"model:\n  checkpoint: {ckpt}\nsample:\n  seed: 3\n  num_steps: 3\n")
+    out = tmp_path / "out"
+    sample_for_pocket.main([
+        str(sample_yml), "--pdb_path",
+        str(REPO / "examples" / "1h36_A_rec_1h36_r88_lig_tt_docked_0_pocket10.pdb"),
+        "--num_samples", "2", "--result_path", str(out), "--max_ligand", "8", "--device", "cpu",
+        "--sampler", "ddim", "--ddim_spacing", "quadratic", "--eta", "1.0"])
+    assert (out / "samples.smi").exists()
+    with pytest.raises(SystemExit):  # JAX's sample_for_pocket offers no dpm2
+        sample_for_pocket.main([str(sample_yml), "--pdb_path", "x.pdb", "--sampler", "dpm2"])
