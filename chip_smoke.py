@@ -7,6 +7,7 @@
     python3 chip_smoke.py margins [CHECKOUT]
     python3 chip_smoke.py gate [STEPS] [N_MOLS]
     python3 chip_smoke.py ddim [STEPS] [N_MOLS]
+    python3 chip_smoke.py prop-gate [EPOCHS] [DIFF_STEPS]
 
 With no arguments: builds the CUDA kernels from targetdiff_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version at the main path's shapes (the example
@@ -58,7 +59,18 @@ writer and scores them with the evaluation CLI's `evaluate_results`;
 quality_gate.py) at 200 train steps and 8 pockets x 4 molecules on the
 kernel path and checks that its report is complete, not that its checks
 pass. [likelihood-cli] runs the likelihood CLI from [train-cli]'s checkpoint
-and `analyze_affinity` on the pickle it writes. Every phase prints one line; any failure exits non-zero. The last two lines are a
+and `analyze_affinity` on the pickle it writes. [egnn-sample] runs the EGNN
+denoiser (the flagship's widths, `model_type: egnn`) on the example pocket
+against the CPU and for 1000 DDPM steps, one kNN launch per layer;
+[egnn-train] its eager train step at [train]'s B=32 batch, the first loss
+against the CPU's; [prop] PropPredNet at configs/prop/pdbbind_general_egnn.
+yml's width (K = 48: the kNN kernel's rounds, bit for bit against
+knn_graph_exact and timed) against the CPU and its Adam steps; [prop-enc]
+PropPredNetEnc fed the flagship's final_h from the block kernels against
+the eager final_h; [prop-cli] pdbbind_preparation -> train_prop -> eval_prop
+-> inference_prop on copies of examples/3ug2; [prop-gate-short] the prop
+gate at 2 epochs and 200 diffusion steps (report complete, checks need not
+pass). Every phase prints one line; any failure exits non-zero. The last two lines are a
 JSON record of the kernels (each with its time, its plain version's time and
 the least time the card could take for its work) and the contract line
 {"ok": true, "device": {...}}.
@@ -103,6 +115,12 @@ ms per evaluation of a sampling chunk, the card's name and power limit) and
 exits non-zero if a row is missing, the kernels' launches do not match the
 rows' network evaluations, ddim-100 loses more than 0.10 of ddpm-1000's
 atom stability, or ddpm-100-trunc is not at least 0.30 below ddim-100.
+
+`prop-gate` runs the port's prop gate (targetdiff_tpu_torch/tools/
+prop_quality_gate.py; default 30 epochs and 1500 diffusion steps, the JAX
+gate's), writes prop_quality_gate_torch.json beside the JAX package's
+prop_quality_gate.json (the report, its checks, host times with the card's
+name and power limit beside them) and exits non-zero if a check fails.
 
 Needs a CUDA device and the CUDA toolkit (nvcc); there is no CPU path.
 """
@@ -628,6 +646,8 @@ def main(argv) -> int:
         return gate(torch, argv[1:])
     if argv and argv[0] == "ddim":
         return ddim(torch, argv[1:])
+    if argv and argv[0] == "prop-gate":
+        return prop_gate(torch, argv[1:])
     if argv:
         return measure(torch, argv)
     sys.path.insert(0, str(REPO))
@@ -813,6 +833,10 @@ def main(argv) -> int:
                          pocket, feat, layers["model"], layers["batch"])
     cli_launches = likelihood_cli_phase(torch, train["checkpoint"])
     gate_short_phase(torch, dev)
+    egnn = egnn_phases(torch, dev, pocket, feat.feature_dim, batch)
+    prop = prop_phases(torch, dev, model, batch)
+    prop_cli_phase(torch, dev)
+    prop_gate_short_phase(torch, dev)
     if failures:
         raise AssertionError("; ".join(failures))
 
@@ -829,7 +853,12 @@ def main(argv) -> int:
         {"name": "knn_graph", "route": "cuda", "source": "targetdiff_tpu_torch/csrc/knn.cu",
          "replaces": "targetdiff_tpu/ops/pallas/knn.py:27", "launches": knn_launches,
          "max_abs_err": knn_err, "ms": knn_ms, "plain_ms": knn_plain_ms, **knn_b4_bound,
-         "topk_ms": knn_shapes["B4"]["topk_ms"], **by_path("knn"), **no_library},
+         "topk_ms": knn_shapes["B4"]["topk_ms"], **by_path("knn"),
+         "launches_egnn_sample": egnn["sample"], "launches_egnn_train": egnn["train"],
+         "launches_prop": prop["train"], "rounds_shape": prop["rounds"]["shape"],
+         **{f"rounds_{k}": prop["rounds"][k] for k in ("ms", "device_ms", "bound_ms",
+                                                       "bound_by", "plain_ms", "topk_ms")},
+         **no_library},
         {"name": "block_denoiser", "route": "cuda",
          "source": "targetdiff_tpu_torch/csrc/block_denoiser.cu",
          "replaces": "targetdiff_tpu/ops/pallas/block_denoiser.py:154",
@@ -1365,12 +1394,12 @@ def knn_setup(torch, dev, pocket, feat_dim):
     return model, batch, h, x, node_mask, mask_ligand, G.knn_graph(x, node_mask, K)
 
 
-def knn_bound(x, mask, nbh) -> dict:
+def knn_bound(x, mask, nbh, k=K) -> dict:
     """The kNN kernel's bound: every pair's distance (8 FLOP) and a log2
-    K-deep selection per candidate at the float32 rate; positions and mask
+    k-deep selection per candidate at the float32 rate; positions and mask
     read, idx and mask written."""
     nb, n = mask.shape
-    return bound((0, nb * n * n * (8 + np.log2(K))), nbytes(x, mask, nbh.idx, nbh.mask))
+    return bound((0, nb * n * n * (8 + np.log2(k))), nbytes(x, mask, nbh.idx, nbh.mask))
 
 
 def train_batch(dev):
@@ -1390,18 +1419,19 @@ def train_positions(torch, dev):
             torch.cat([tb.protein_mask, tb.ligand_mask], 1))
 
 
-def knn_fields(torch, x, mask) -> dict:
+def knn_fields(torch, x, mask, k=K) -> dict:
     """The kNN kernel at one shape: idx and mask bitwise equal to
     knn_graph_exact on every entry (raises otherwise); CUDA-event and device
-    ms per launch beside its bound (`knn_bound`); and topk_ms, torch.topk of
-    the K smallest over a precomputed masked d2 [B, N, N]: the library's
+    ms per launch beside its bound (`knn_bound`) and the plain version's
+    (`ops.graph.knn_graph`) ms; and topk_ms, torch.topk of
+    the k smallest over a precomputed masked d2 [B, N, N]: the library's
     selection alone, not the same function (it is handed the distances and
     promises no order on ties)."""
     from targetdiff_tpu_torch.ops import graph as G
     from targetdiff_tpu_torch.ops.kernels import knn as kknn
 
-    got = kknn.knn_graph_cuda(x, mask, K)
-    want = G.knn_graph_exact(x, mask, K)
+    got = kknn.knn_graph_cuda(x, mask, k)
+    want = G.knn_graph_exact(x, mask, k)
     torch.cuda.synchronize()
     differ = int((got.idx != want.idx).sum() + (got.mask != want.mask).sum())
     if differ:
@@ -1412,11 +1442,12 @@ def knn_fields(torch, x, mask) -> dict:
     valid = mask[:, None, :] & mask[:, :, None] & ~torch.eye(n, dtype=torch.bool,
                                                              device=mask.device)
     d2 = torch.where(valid, G.pairwise_sq_dists(x), torch.full((), G.BIG, device=mask.device))
-    return {"shape": f"B={mask.shape[0]},N={n},K={K}", "bitwise_equal": True,
-            "ms": cuda_ms(torch, lambda: kknn.knn_graph_cuda(x, mask, K)),
-            "device_ms": device_ms(torch, lambda: kknn.knn_graph_cuda(x, mask, K)),
-            **knn_bound(x, mask, got), "topk_ms": cuda_ms(torch, lambda: torch.topk(
-                d2, K, dim=-1, largest=False))}
+    return {"shape": f"B={mask.shape[0]},N={n},K={k}", "bitwise_equal": True,
+            "ms": cuda_ms(torch, lambda: kknn.knn_graph_cuda(x, mask, k)),
+            "device_ms": device_ms(torch, lambda: kknn.knn_graph_cuda(x, mask, k)),
+            **knn_bound(x, mask, got, k), "plain_ms": cuda_ms(torch, lambda: G.knn_graph(
+                x, mask, k), reps=5), "topk_ms": cuda_ms(torch, lambda: torch.topk(
+                    d2, k, dim=-1, largest=False))}
 
 
 def adjacency_phase(torch, dev) -> dict:
@@ -2905,6 +2936,484 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
     for key, ms in bwd_device_ms(torch, "train_pl_step", three_pl_steps, calls=1).items():
         out[key.replace("_device_ms", "_device_ms_per_step")] = ms / 3
     return out
+
+
+# ---- the EGNN denoiser and the affinity models ----------------------------------------
+
+# the flagship's widths with the EGNN refine net (configs/training.yml with
+# model_type: egnn): 9 layers, hidden 128, kNN 32, 4 edge types, one distance
+# feature (d^2), silu, no norm
+EGNN = dict(FLAGSHIP, model_type="egnn")
+EGNN_TRAIN_STEPS, EGNN_TRAIN_WARMUP = 5, 2
+# configs/prop/pdbbind_general_egnn.yml (model, train) and
+# pdbbind_general_egnn_enc_final_h.yml (model), held equal to the files by
+# tests/test_torch_prop_cli.py (the card's machine has no PyYAML)
+PROP_MODEL = dict(hidden_channels=256, encoder=dict(
+    name="egnn", num_layers=6, hidden_dim=256, edge_dim=0, num_r_gaussian=64, act_fn="relu",
+    norm=False, knn=48, cutoff=10.0))
+PROP_TRAIN = dict(seed=2021, batch_size=16, max_epochs=100, pos_noise_std=0.1,
+                  max_grad_norm=8.0,
+                  optimizer=dict(type="adam", lr=1e-4, weight_decay=0, beta1=0.95, beta2=0.999),
+                  scheduler=dict(type="plateau", factor=0.6, patience=10, min_lr=1e-6))
+PROP_ENC_MODEL = dict(hidden_channels=256, enc_ligand_dim=0, enc_node_dim=128, enc_graph_dim=0,
+                      enc_feature_type="final_h",
+                      encoder=dict(PROP_MODEL["encoder"], name="egnn_enc"))
+# [prop]: batches of 16 synthetic complexes at train_prop's default padding
+PROP_B, PROP_PROTEIN, PROP_LIGAND, PROP_K = 16, 512, 96, 48
+PROP_STEPS, PROP_WARMUP, PROP_CPU_ROWS = 5, 2, 2
+PROP_REL = 1e-4  # the prop model on the card against the CPU, relative to the output's scale
+PROP_STEP_REL = 1e-4  # its first loss and gradient norm on the card against the CPU's, relative
+PROP_LIG_DIM = 30  # the prop ligand features (FeaturizeLigandAtomProp)
+# [prop-cli]: 32 copies of examples/3ug2 (a 758-atom pocket: inference_prop's
+# 768 protein slots) split 16 / 16, one epoch of the full-width config
+PROP_CLI_COPIES, PROP_CLI_PROTEIN = 32, 768
+# [prop-gate-short] and `prop-gate`
+PROP_GATE_SHORT = dict(epochs=2, diff_steps=200)
+PROP_GATE = dict(epochs=30, diff_steps=1500)  # tools/prop_quality_gate.py's defaults
+
+
+def peak_gib(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def kernel_split(torch, fn, calls=3, top=6) -> dict:
+    """Where fn's device time goes: device ms and kernel launches per call
+    (torch.profiler, after one warm-up call) and the `top` kernels by device
+    time (name cut to 48 characters, ms and launches per call)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = device_times(prof, calls)
+    return {"device_ms": sum(k["ms"] for k in kernels.values()),
+            "launches": sum(k["launches"] for k in kernels.values()),
+            "top": [(name[:48], k["ms"], k["launches"])
+                    for name, k in list(kernels.items())[:top]]}
+
+
+def egnn_phases(torch, dev, pocket, feat_dim, batch) -> dict:
+    """[egnn-sample]: the EGNN denoiser at the flagship's widths on the
+    example pocket (B = 4, N = 608): one call on the card against the same
+    weights and inputs on the CPU (positions POS_TOL, logits H_TOL) with
+    exactly one kNN launch per layer, timed; then a 1000-step DDPM run
+    through `sample_diffusion_ligand` (the model takes the eager path from
+    its config) with exactly 1000 x 9 kNN launches, molecules finite, in the vocabulary
+    and near the pocket. [egnn-train]: `make_train_step(impl='eager')` on
+    [train]'s B = 32 batch (N = 416): the first step's loss within 1e-4 of
+    the CPU's on the batch's first four complexes with the same draws, then
+    timed steps (9 kNN launches each), loss finite, peak GiB. Returns the
+    kNN launches of the sampling run and of the timed steps."""
+    from targetdiff_tpu_torch.config import Config
+    from targetdiff_tpu_torch.data.batch import ComplexBatch
+    from targetdiff_tpu_torch.models.score_model import DiffusionModel
+    from targetdiff_tpu_torch.ops.kernels import knn as kknn
+    from targetdiff_tpu_torch.sampling import sample_diffusion_ligand
+    from targetdiff_tpu_torch.trainer import create_train_state, make_train_step
+    from targetdiff_tpu_torch.utils import train as train_utils
+
+    L = EGNN["num_layers"]
+
+    def models(seed):
+        torch.manual_seed(seed)
+        card = DiffusionModel(Config(EGNN), feat_dim, NUM_CLASSES, device=dev,
+                              max_protein=MAX_PROTEIN, max_ligand=MAX_LIGAND)
+        cpu = DiffusionModel(Config(EGNN), feat_dim, NUM_CLASSES, device="cpu",
+                             max_protein=MAX_PROTEIN, max_ligand=MAX_LIGAND)
+        cpu.net.load_state_dict({k: v.cpu() for k, v in card.net.state_dict().items()})
+        return card, cpu
+
+    model, cpu = models(7)
+    if model.impl != "eager":
+        raise AssertionError(f"egnn-sample: the EGNN model's path is {model.impl!r}, want eager")
+
+    def call():
+        with torch.no_grad():
+            return model.apply(batch, batch.ligand_pos, batch.ligand_v)
+
+    kknn.LAUNCHES = 0
+    got = call()
+    torch.cuda.synchronize()
+    call_launches = kknn.LAUNCHES
+    if call_launches != L:
+        raise AssertionError(f"egnn-sample: {call_launches} kNN launches in a call, want {L}")
+    with torch.no_grad():
+        want = cpu.apply(batch.to("cpu"), batch.ligand_pos.cpu(), batch.ligand_v.cpu())
+    lm = batch.ligand_mask.cpu()
+    errs = {"pos": check_close("egnn pos", got["pred_ligand_pos"].cpu()[lm],
+                               want["pred_ligand_pos"][lm], **POS_TOL),
+            "logits": check_close("egnn logits", got["pred_ligand_v"].cpu()[lm],
+                                  want["pred_ligand_v"][lm], **H_TOL)}
+    call_ms, call_split = cuda_ms(torch, call, reps=10), kernel_split(torch, call)
+    steps = model.num_timesteps
+    kknn.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = sample_diffusion_ligand(
+        model, pocket, num_samples=B, generator=torch.Generator(device=dev).manual_seed(9),
+        batch_size=B, num_steps=steps, max_protein=MAX_PROTEIN, max_ligand=MAX_LIGAND,
+        rng=np.random.default_rng(9))
+    wall = time.perf_counter() - t0
+    sample_launches = kknn.LAUNCHES
+    if sample_launches != L * steps:
+        raise AssertionError(f"egnn-sample: {sample_launches} kNN launches, want {L * steps}")
+    centre = pocket["protein_pos"].mean(0)
+    for pos, v in zip(res["pos"], res["v"]):
+        if pos.shape != (len(v), 3) or not np.isfinite(pos).all():
+            raise AssertionError("egnn-sample: a non-finite or misshaped molecule")
+        if not ((v >= 0) & (v < NUM_CLASSES)).all():
+            raise AssertionError("egnn-sample: an atom type outside the vocabulary")
+    offset = float(max(np.linalg.norm(p.mean(0) - centre) for p in res["pos"]))
+    if offset > 10.0:
+        raise AssertionError(f"egnn-sample: a centroid lies {offset} A from the pocket's")
+    phase("egnn-sample", shape=f"B={B},N={MAX_PROTEIN + MAX_LIGAND},K={K},L={L},"
+          f"H={EGNN['hidden_dim']}",
+          max_abs_err=errs, call_knn_launches=call_launches, call_ms=call_ms,
+          call_device_ms=call_split["device_ms"], call_kernel_launches=call_split["launches"],
+          call_top_kernels=call_split["top"], steps=steps, seconds=res["time"][0],
+          wall_seconds=wall,
+          ms_per_step=1e3 * res["time"][0] / steps, knn_launches=sample_launches,
+          ligand_atoms=[len(v) for v in res["v"]], max_centroid_offset_A=offset)
+    del model, cpu
+
+    tmodel, tcpu = models(8)
+    tb = train_batch(dev)
+    sub = ComplexBatch(*[t[:4] for t in tb])
+    t, eps, u = loss_draws(torch, tmodel, sub, torch.Generator(device=dev).manual_seed(4))
+    state = create_train_state(tmodel, train_utils.get_optimizer(Config(OPTIMIZER),
+                                                                 tmodel.parameters()))
+    _, first = make_train_step(tmodel, pos_noise_std=0.0, impl="eager")(
+        state, sub, None, time_step=t, pos_noise=eps, v_uniform=u)
+    with torch.no_grad():
+        ref = tcpu.get_diffusion_loss(sub.to("cpu"), time_step=t.cpu(), pos_noise=eps.cpu(),
+                                      v_uniform=u.cpu(), impl="eager")
+    loss_err = abs(float(first["loss"]) - float(ref["loss"])) / abs(float(ref["loss"]))
+    if not loss_err <= 1e-4:
+        raise AssertionError(f"egnn-train: first loss {float(first['loss'])} against the CPU's "
+                             f"{float(ref['loss'])} (rel {loss_err})")
+    step = make_train_step(tmodel, pos_noise_std=0.1, impl="eager")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for _ in range(EGNN_TRAIN_WARMUP):
+        state, metrics = step(state, tb, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kknn.LAUNCHES = 0
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(EGNN_TRAIN_STEPS):
+        state, metrics = step(state, tb, gen)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / EGNN_TRAIN_STEPS
+    train_launches = kknn.LAUNCHES
+    losses = [float(x) for x in losses]
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, tb, gen)
+
+    step_split = kernel_split(torch, one_step, calls=2)
+    if train_launches != L * EGNN_TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"egnn-train: kNN launches {train_launches} (want "
+                             f"{L * EGNN_TRAIN_STEPS}), losses {losses}")
+    phase("egnn-train", shape=f"B={TRAIN_B},N={TRAIN_PROTEIN + MAX_LIGAND},K={K},L={L}",
+          first_loss=float(first["loss"]), cpu_first_loss=float(ref["loss"]),
+          first_loss_rel_err=loss_err, losses=losses, ms_per_step=ms,
+          complexes_per_s=1e3 * TRAIN_B / ms, peak_gib=peak_gib(torch),
+          knn_launches=train_launches, step_device_ms=step_split["device_ms"],
+          step_kernel_launches=step_split["launches"], step_top_kernels=step_split["top"])
+    return {"sample": sample_launches, "train": train_launches}
+
+
+def prop_batch(torch, dev, seed=0):
+    """PROP_B synthetic complexes (data/synth.py) at train_prop's default
+    padding (PROP_PROTEIN + PROP_LIGAND slots), ligand features the one-hot
+    of the atom type in the prop width, kinds round-robin, pK ~ N(6, 1)."""
+    from targetdiff_tpu_torch.data.synth import synth_batch
+    from targetdiff_tpu_torch.models.prop.prop_model import PropBatch
+
+    rng = np.random.default_rng(seed)
+    b = synth_batch(rng, PROP_B, max_protein=PROP_PROTEIN, max_ligand=PROP_LIGAND,
+                    n_protein_range=(380, PROP_PROTEIN + 1), n_ligand_range=(20, 60), device=dev)
+    lfeat = torch.nn.functional.one_hot(b.ligand_v, PROP_LIG_DIM).float()
+    y = torch.tensor(rng.normal(6.0, 1.0, PROP_B), dtype=torch.float32, device=dev)
+    kind = torch.arange(PROP_B, device=dev) % 3 + 1
+    return PropBatch(b.protein_pos, b.protein_feat, b.protein_mask, b.ligand_pos, lfeat,
+                     b.ligand_mask, y, kind)
+
+
+def prop_phases(torch, dev, model, batch) -> dict:
+    """[prop]: PropPredNet at configs/prop/pdbbind_general_egnn.yml's width
+    (hidden 256, 6 layers, 64 RBF knots, K = 48) on PROP_B synthetic
+    complexes (N = 608): its kNN graph from `knn_rounds_kernel`, bitwise
+    equal to knn_graph_exact and timed beside its bound and torch.topk; the
+    forward on the card against the CPU on the first PROP_CPU_ROWS complexes
+    at PROP_REL, one kNN launch, timed (the kNN kernel's share of its device
+    time); the first `prop_loss_fn` loss and gradient norm on those
+    complexes against the CPU's with the same injected noise at
+    PROP_STEP_REL; Adam steps of `prop_loss_fn` (one launch each), loss finite, ms
+    per step, peak GiB. [prop-enc]: PropPredNetEnc at the
+    final_h config's width fed the flagship's final_h from `fetch_embedding`
+    on the block kernels, against the same model fed the eager final_h, at
+    H_TOL. Returns the K = 48 fields and the prop training's launches."""
+    from targetdiff_tpu_torch.config import Config
+    from targetdiff_tpu_torch.models.prop.prop_model import PropBatch, prop_loss_fn
+    from targetdiff_tpu_torch.ops.kernels import knn as kknn
+    from targetdiff_tpu_torch.utils import train as train_utils
+    from targetdiff_tpu_torch.utils.misc_prop import get_prop_model
+
+    pb = prop_batch(torch, dev)
+    x = torch.cat([pb.protein_pos, pb.ligand_pos], 1)
+    mask = torch.cat([pb.protein_mask, pb.ligand_mask], 1)
+    rounds = knn_fields(torch, x, mask, PROP_K)
+    torch.manual_seed(11)
+    prop = get_prop_model(Config(PROP_MODEL), pb.protein_feat.shape[-1], PROP_LIG_DIM).to(dev)
+    cpu = get_prop_model(Config(PROP_MODEL), pb.protein_feat.shape[-1], PROP_LIG_DIM)
+    cpu.load_state_dict({k: v.cpu() for k, v in prop.state_dict().items()})
+
+    def forward():
+        with torch.no_grad():
+            return prop(pb)
+
+    kknn.LAUNCHES = 0
+    got = forward()
+    torch.cuda.synchronize()
+    fwd_launches = kknn.LAUNCHES
+    with torch.no_grad():
+        want = cpu(PropBatch(*[t[:PROP_CPU_ROWS].cpu() for t in pb[:8]]))
+    scale = float(want.abs().max())
+    err = float((got[:PROP_CPU_ROWS].cpu() - want).abs().max())
+    if fwd_launches != 1 or not err <= PROP_REL * scale or not bool(got.isfinite().all()):
+        raise AssertionError(f"prop: forward {got[:PROP_CPU_ROWS]} against the CPU's {want} "
+                             f"(err {err}, scale {scale}); kNN launches {fwd_launches}")
+    fwd_ms, fwd_split = cuda_ms(torch, forward, reps=5), kernel_split(torch, forward)
+
+    # the first prop_loss_fn step on the first PROP_CPU_ROWS complexes, with
+    # the same injected noise on both sides: loss and gradient norm
+    def first_step(m, b, noise):
+        m.train()
+        m.zero_grad()
+        loss, _ = prop_loss_fn(m, b, PROP_TRAIN["pos_noise_std"], noise=noise)
+        loss.backward()
+        grad_norm = torch.sqrt(sum((p.grad.double() ** 2).sum() for p in m.parameters()
+                                   if p.grad is not None))
+        m.zero_grad()
+        return float(loss.detach()), float(grad_norm)
+
+    sub = PropBatch(*[t[:PROP_CPU_ROWS] for t in pb[:8]])
+    ngen = torch.Generator(device=dev).manual_seed(14)
+    noise = (torch.randn(sub.protein_pos.shape, generator=ngen, device=dev),
+             torch.randn(sub.ligand_pos.shape, generator=ngen, device=dev))
+    first = first_step(prop, sub, noise)
+    cpu_first = first_step(cpu, PropBatch(*[t.cpu() for t in sub[:8]]),
+                           tuple(n.cpu() for n in noise))
+    first_rel = [abs(a - b) / abs(b) for a, b in zip(first, cpu_first)]
+    if not (np.isfinite(first).all() and max(first_rel) <= PROP_STEP_REL):
+        raise AssertionError(f"prop: first (loss, grad norm) {first} against the CPU's "
+                             f"{cpu_first} (rel {first_rel})")
+    optimizer = train_utils.get_optimizer(
+        Config(dict(PROP_TRAIN["optimizer"], max_grad_norm=PROP_TRAIN["max_grad_norm"])),
+        prop.parameters())
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def train_step():
+        optimizer.zero_grad()
+        loss, _ = prop_loss_fn(prop, pb, PROP_TRAIN["pos_noise_std"], generator=gen)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    prop.train()
+    for _ in range(PROP_WARMUP):
+        train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kknn.LAUNCHES = 0
+    t0 = time.perf_counter()
+    losses = [train_step() for _ in range(PROP_STEPS)]
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / PROP_STEPS
+    train_launches = kknn.LAUNCHES
+    losses = [float(v) for v in losses]
+    step_split = kernel_split(torch, train_step, calls=2)
+    if train_launches != PROP_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"prop: kNN launches {train_launches} (want {PROP_STEPS}), "
+                             f"losses {losses}")
+    enc_cfg = PROP_MODEL["encoder"]
+    phase("prop", shape=f"B={PROP_B},N={PROP_PROTEIN + PROP_LIGAND},K={PROP_K},"
+          f"L={enc_cfg['num_layers']},H={enc_cfg['hidden_dim']}",
+          knn=rounds, knn_share_of_forward=rounds["device_ms"] / fwd_split["device_ms"],
+          cpu_rows=PROP_CPU_ROWS, max_abs_err=err, scale=scale, forward_ms=fwd_ms,
+          forward_device_ms=fwd_split["device_ms"],
+          forward_kernel_launches=fwd_split["launches"], forward_top_kernels=fwd_split["top"],
+          forward_knn_launches=fwd_launches, first_loss=first[0], cpu_first_loss=cpu_first[0],
+          first_grad_norm=first[1], cpu_first_grad_norm=cpu_first[1],
+          first_rel_err=first_rel, step_top_kernels=step_split["top"],
+          step_device_ms=step_split["device_ms"], losses=losses,
+          ms_per_step=ms, complexes_per_s=1e3 * PROP_B / ms, peak_gib=peak_gib(torch),
+          knn_launches=train_launches)
+    del prop, cpu, optimizer
+
+    # [prop-enc]: the flagship's final_h on the kernels and eagerly
+    fast = model.fetch_embedding(batch, impl="fast")["final_h"]
+    eager = model.fetch_embedding(batch, impl="eager")["final_h"]
+    eb = PropBatch(batch.protein_pos, batch.protein_feat, batch.protein_mask, batch.ligand_pos,
+                   torch.nn.functional.one_hot(batch.ligand_v, PROP_LIG_DIM).float(),
+                   batch.ligand_mask, torch.zeros(batch.num_graphs, device=dev),
+                   torch.ones(batch.num_graphs, dtype=torch.long, device=dev))
+    torch.manual_seed(13)
+    enc = get_prop_model(Config(PROP_ENC_MODEL), batch.protein_feat.shape[-1],
+                         PROP_LIG_DIM).to(dev).eval()
+    kknn.LAUNCHES = 0
+    with torch.no_grad():
+        out_fast = enc(eb._replace(enc_node_feat=fast))
+        out_eager = enc(eb._replace(enc_node_feat=eager))
+    torch.cuda.synchronize()
+    enc_err = check_close("prop-enc", out_fast, out_eager, **H_TOL)
+    if kknn.LAUNCHES != 2 or fast.shape[-1] != PROP_ENC_MODEL["enc_node_dim"]:
+        raise AssertionError(f"prop-enc: kNN launches {kknn.LAUNCHES}, final_h {fast.shape}")
+
+    def enc_forward():
+        with torch.no_grad():
+            return enc(eb._replace(enc_node_feat=fast))
+
+    phase("prop-enc", shape=f"B={batch.num_graphs},N={fast.shape[1]},K={PROP_K},"
+          f"L={enc_cfg['num_layers']},H={enc_cfg['hidden_dim']}",
+          enc_node_dim=fast.shape[-1], pred=out_fast.tolist(), max_abs_err=enc_err,
+          ms=cuda_ms(torch, enc_forward, reps=5))
+    return {"rounds": rounds, "train": train_launches}
+
+
+def prop_cli_phase(torch, dev) -> dict:
+    """[prop-cli]: a PDBBind-style tree of PROP_CLI_COPIES copies of
+    examples/3ug2 through `pdbbind_preparation` (pockets, then a random 16 /
+    16 split), `train_prop` for one epoch of the full-width config,
+    `eval_prop` on its checkpoint and `inference_prop` on examples/3ug2; the
+    checkpoint reloads into a fresh model with bitwise the trained model's
+    predictions."""
+    from targetdiff_tpu_torch.cli import (eval_prop, inference_prop, pdbbind_preparation,
+                                          train_prop)
+    from targetdiff_tpu_torch.config import Config
+    from targetdiff_tpu_torch.data.datasets import get_dataset
+    from targetdiff_tpu_torch.ops.kernels import knn as kknn
+    from targetdiff_tpu_torch.utils.checkpoint import load_checkpoint
+
+    root = REPO / "outputs" / "chip_smoke_prop_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    src = root / "pdbbind"
+    lines = []
+    for i in range(PROP_CLI_COPIES):
+        pid = f"{i:02d}g2"
+        (src / pid).mkdir(parents=True)
+        for part, ext in (("protein", "pdb"), ("ligand", "sdf")):
+            shutil.copyfile(REPO / "examples" / f"3ug2_{part}.{ext}",
+                            src / pid / f"{pid}_{part}.{ext}")
+        kind = ("Kd=3.2nM", "Ki=10uM", "IC50=4mM")[i % 3]
+        lines.append(f"{pid}  2.10  2012   {8.49 - 0.1 * i:.2f}  {kind}  // 3ug2 copy")
+    (root / "INDEX_general_PL_data").write_text("\n".join(lines) + "\n")
+    dest = root / "prepared"
+    kknn.LAUNCHES = 0
+    t0 = time.perf_counter()
+    pdbbind_preparation.main(["pockets", "--root", str(src), "--index",
+                              str(root / "INDEX_general_PL_data"), "--dest", str(dest),
+                              "--num_workers", "1"])
+    pdbbind_preparation.main(["split", "--index_pkl", str(dest / "index.pkl"), "--dest",
+                              str(root / "split.pt"), "--test_frac", "0.5"])
+    prep_s = time.perf_counter() - t0
+    config = Config(dict(data=dict(name="pdbbind", path=str(dest / "index.pkl"),
+                                   split=str(root / "split.pt")),
+                         model=PROP_MODEL, train=dict(PROP_TRAIN, max_epochs=1)))
+    pad = ["--max_protein", str(PROP_CLI_PROTEIN), "--max_ligand", str(PROP_LIGAND)]
+    t0 = time.perf_counter()
+    out = train_prop.run(config, train_prop.parser().parse_args(
+        ["unused.yml", "--logdir", str(root / "logs"), "--device", "cuda", *pad]))
+    train_s = time.perf_counter() - t0
+    if out["iterations"] != 1 or len(out["checkpoints"]) != 1:
+        raise AssertionError(f"prop-cli: train_prop ran {out['iterations']} steps, wrote "
+                             f"{out['checkpoints']}")
+    ck = out["checkpoints"][0]
+    ev = eval_prop.run(eval_prop.parser().parse_args([ck, "--device", "cuda", *pad]))
+    pk = inference_prop.run(inference_prop.parser().parse_args(
+        [ck, "--protein", str(REPO / "examples" / "3ug2_protein.pdb"), "--ligand",
+         str(REPO / "examples" / "3ug2_ligand.sdf")]))
+    fresh = train_prop.build_model(config.model, dev)
+    fresh.load_state_dict(load_checkpoint(ck, device=dev)["state_dict"])
+    _, subsets = get_dataset(config.data, transform=train_prop.prop_transform())
+    vb = next(train_prop.batches(subsets["test"], 16, PROP_CLI_PROTEIN, PROP_LIGAND, None, dev))
+    with torch.no_grad():
+        same = torch.equal(fresh.eval()(vb), out["model"].eval()(vb))
+    numbers = list(ev["overall"].values()) + [pk] + list(out["scores"].values())
+    if not same or ev["n"] != 16 or not np.isfinite(numbers).all():
+        raise AssertionError(f"prop-cli: reload equal {same}, eval {ev}, pK {pk}")
+    phase("prop-cli", complexes=PROP_CLI_COPIES, split="16/16", prep_seconds=prep_s,
+          train_seconds=train_s, val=out["scores"], eval=ev["overall"], eval_n=ev["n"],
+          inference_pk=pk, reload_bitwise=same, knn_launches=kknn.LAUNCHES)
+    return {"knn": kknn.LAUNCHES}
+
+
+def prop_gate_short_phase(torch, dev) -> None:
+    """[prop-gate-short]: the port's prop gate at PROP_GATE_SHORT's size on
+    the card: its report must be complete and finite, its checks need not
+    pass."""
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+    from targetdiff_tpu_torch.ops.kernels import knn as kknn
+    from targetdiff_tpu_torch.tools import prop_quality_gate as pg
+
+    kknn.LAUNCHES = kblock.LAUNCHES = kblock.TRAIN_LAUNCHES = 0
+    t0 = time.perf_counter()
+    report = pg.run_prop_gate(PROP_GATE_SHORT["epochs"], PROP_GATE_SHORT["diff_steps"], dev,
+                              log=lambda _: None)
+    wall = time.perf_counter() - t0
+    launches = {"knn": kknn.LAUNCHES, "block": kblock.LAUNCHES,
+                "train_fwd": kblock.TRAIN_LAUNCHES}
+    scores = [report[k] for k in ("untrained", "trained", "enc_untrained", "enc_trained")]
+    numbers = [v for s in scores for v in s.values()] + [report["nll_distortion_auroc"],
+                                                         report["nll_intact_mean"]]
+    if (len(report["checks"]) != 6 or len(report["per_kind"]) != 3
+            or not np.isfinite(numbers).all()
+            or launches["train_fwd"] != PROP_GATE_SHORT["diff_steps"] or not launches["block"]):
+        raise AssertionError(f"prop-gate-short: incomplete report {report}, launches {launches}")
+    phase("prop-gate-short", epochs=PROP_GATE_SHORT["epochs"],
+          diffusion_steps=PROP_GATE_SHORT["diff_steps"], checks=report["checks"],
+          pearson=report["trained"]["pearson"], enc_pearson=report["enc_trained"]["pearson"],
+          nll_auroc=report["nll_distortion_auroc"], timing=report["timing"],
+          wall_seconds=wall, launches=launches)
+
+
+def prop_gate(torch, argv) -> int:
+    """The `prop-gate [EPOCHS] [DIFF_STEPS]` mode (module docstring)."""
+    if len(argv) > 2 or not all(a.isdigit() for a in argv):
+        raise SystemExit("usage: chip_smoke.py prop-gate [EPOCHS] [DIFF_STEPS]")
+    epochs = int(argv[0]) if argv else PROP_GATE["epochs"]
+    diff_steps = int(argv[1]) if len(argv) > 1 else PROP_GATE["diff_steps"]
+    sys.path.insert(0, str(REPO))
+    from targetdiff_tpu_torch.ops.kernels import build
+    from targetdiff_tpu_torch.tools import prop_quality_gate as pg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_name()
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    build.load_library()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report = pg.run_prop_gate(epochs, diff_steps, torch.device("cuda:0"),
+                              log=lambda line: print(line, flush=True))
+    report["timing"].update(build_seconds=build_s, wall_seconds=time.perf_counter() - t0,
+                            card=card)  # the card beside its times
+    report.update(card=card, device={"kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()})
+    (REPO / "prop_quality_gate_torch.json").write_text(json.dumps(report, indent=1) + "\n")
+    failed = [k for k, ok in report["checks"].items() if not ok]
+    print(json.dumps({"card": card, "checks": report["checks"], "timing": report["timing"],
+                      **{k: report[k] for k in ("trained", "enc_trained",
+                                                "nll_distortion_auroc")}}), flush=True)
+    print("PROP GATE", "FAIL: " + ", ".join(failed) if failed else "ok", flush=True)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

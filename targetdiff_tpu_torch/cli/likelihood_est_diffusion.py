@@ -2,7 +2,6 @@
 
 Usage: python -m targetdiff_tpu_torch.cli.likelihood_est_diffusion configs/sampling.yml
        [--split train|test] [--result_path ./likelihood] [--device cuda|cpu]
-       [--impl fast|eager]
 
 Counterpart of targetdiff_tpu/cli/likelihood_est_diffusion.py (reference:
 scripts/likelihood_est_diffusion.py): for each complex, sums T * mean(KL_t)
@@ -10,11 +9,12 @@ over a strided timestep set plus the t = T prior terms (:18-64), and exports
 the `fetch_embedding` hidden states (:86-109) to crossdocked_{split}.pkl
 with the JAX CLI's fields. Complexes go `--batch_complexes` at a time: one
 [C * n_t]-row call for the step terms and one [C]-row call for the prior.
-impl 'fast' (the default) runs the denoiser on the kernels in float32 for
-both the KL terms and the embedding, whose coordinates stay frozen; a model
-config the kernels do not take is refused, not run eagerly. `main` reads the
-YAML config (PyYAML is imported there only); `run` takes a Config built in
-code.
+The model picks the denoiser's path from the checkpoint's config
+(`DiffusionModel.impl`): the kernels in float32 for the released uni_o2
+architecture, for both the KL terms and the embedding, whose coordinates
+stay frozen; the plain network for the EGNN denoiser. A config the port does
+not build is refused. `main` reads the YAML config (PyYAML is imported there
+only); `run` takes a Config built in code.
 """
 
 from __future__ import annotations
@@ -31,18 +31,20 @@ from ..config import load_config
 from ..data.batch import ComplexBatch
 from ..data.datasets import collate_padded, get_dataset
 from ..data.transforms import Compose, FeaturizeLigandAtom
-from ..models.fast_forward import fast_forward_supported
+from ..models.fast_forward import eager_supported
 from ..utils.port import load_npz_config
+from .common import require_device
 from .sample_for_pocket import load_model_from_checkpoint
 
 
 def batch_likelihood_estimation(model, batch_c: ComplexBatch, time_steps, generator,
-                                impl: str = "fast", pos_noise=None, v_uniform=None):
+                                impl=None, pos_noise=None, v_uniform=None):
     """nll estimates for a batch of C complexes in two calls: one
     [C * n_t]-row call for the strided step terms (complex-major rows) and
     one [C]-row call for the t = T prior terms (JAX :43-76). pos_noise
     [C * n_t, NL, 3] and v_uniform [C * n_t, NL, classes] may be given, else
-    they are drawn from `generator`. Returns (nll [C], kl_pos [C, n_t],
+    they are drawn from `generator`. impl as in
+    DiffusionModel.likelihood_estimation. Returns (nll [C], kl_pos [C, n_t],
     kl_v [C, n_t]) as numpy."""
     C, n_t = batch_c.num_graphs, len(time_steps)
     rep = ComplexBatch(*[f.repeat_interleave(n_t, dim=0) for f in batch_c])
@@ -60,7 +62,7 @@ def batch_likelihood_estimation(model, batch_c: ComplexBatch, time_steps, genera
 
 
 def data_likelihood_estimation(model, batch_one: ComplexBatch, time_steps, generator,
-                               impl: str = "fast"):
+                               impl=None):
     """nll estimate for one complex (reference: likelihood_est_diffusion.py:
     18-64). Returns (nll, kl_pos [n_t], kl_v [n_t])."""
     nll, kl_pos, kl_v = batch_likelihood_estimation(model, batch_one, time_steps, generator,
@@ -80,9 +82,6 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch_complexes", type=int, default=8,
                     help="complexes per call")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--impl", default="fast", choices=["fast", "eager"],
-                    help="fast: the kernels (float32) for the KL terms and the "
-                    "frozen-coordinate embedding export; eager: ScorePosNet.forward")
     return ap
 
 
@@ -114,16 +113,13 @@ def _export_rows(batch_items, nll, kl_pos, kl_v, emb, batch_c):
 def run(config, args) -> str:
     """Estimate and export as `config` (model.checkpoint, sample.seed) and
     `args` say. Returns the path of the pickle written."""
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: torch.cuda.is_available() is False")
+    require_device(args.device)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     logger = logging.getLogger("likelihood")
     ckpt = config.model.checkpoint
-    if args.impl == "fast":
-        ok, reason = fast_forward_supported(load_npz_config(ckpt).model)
-        if not ok:
-            raise SystemExit(f"--impl fast: the kernels do not take this checkpoint's model "
-                             f"({reason})")
+    ok, reason = eager_supported(load_npz_config(ckpt).model)
+    if not ok:
+        raise SystemExit(f"the port does not build this checkpoint's model ({reason})")
     os.makedirs(args.result_path, exist_ok=True)
     model, train_config, protein_feat = load_model_from_checkpoint(
         ckpt, args.device, args.max_protein, args.max_ligand)
@@ -150,9 +146,8 @@ def run(config, args) -> str:
         batch_c = collate_padded(ds + [ds[-1]] * (C - n_real), args.max_protein,
                                  args.max_ligand, device=model.device)
         gen = torch.Generator(device=model.device).manual_seed(seed + batch_items[0][0])
-        nll, kl_pos, kl_v = batch_likelihood_estimation(model, batch_c, time_steps, gen,
-                                                        impl=args.impl)
-        emb = model.fetch_embedding(batch_c, impl=args.impl)
+        nll, kl_pos, kl_v = batch_likelihood_estimation(model, batch_c, time_steps, gen)
+        emb = model.fetch_embedding(batch_c)
         out.extend(_export_rows(batch_items, nll, kl_pos, kl_v, emb, batch_c))
         logger.info(f"{len(out)} complexes done, last nll {float(nll[n_real - 1]):.1f}")
         batch_items = []

@@ -10,15 +10,16 @@ Adam behind global-norm clipping, validation over 10 fixed timesteps with
 the atom-type AUROC, a checkpoint at each new best validation loss, and
 resume from a checkpoint. The training step runs the denoiser through the
 block kernels and their backward (`DiffusionModel.get_diffusion_loss`,
-impl='fast'). `main` reads the YAML config (PyYAML is imported there only);
-`run` takes a Config built in code.
+impl='fast'), or through the plain network on a config the kernels do not
+take, such as the EGNN denoiser: the model picks the path from its config.
+`main` reads the YAML config (PyYAML is imported there only); `run` takes a
+Config built in code.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import logging
 import os
 import time
 
@@ -38,6 +39,7 @@ from ..models.score_model import DiffusionModel
 from ..trainer import atom_auroc, create_train_state, make_eval_step, make_train_step
 from ..utils import train as train_utils
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from .common import require_device, run_logger
 
 
 def build_transform(cfg_data, seed: int = 0):
@@ -62,23 +64,11 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _logger(log_dir: str) -> logging.Logger:
-    logger = logging.getLogger(f"train_diffusion.{log_dir}")
-    logger.setLevel(logging.INFO)
-    fmt = logging.Formatter("[%(asctime)s::train] %(message)s")
-    for handler in (logging.StreamHandler(), logging.FileHandler(os.path.join(log_dir, "log.txt"))):
-        handler.setFormatter(fmt)
-        logger.addHandler(handler)
-    return logger
-
-
 def run(config, args) -> dict:
     """Train as `config` says. Returns the log dir, the checkpoints written,
     the best validation loss, the final TrainState and the last step's
     metrics."""
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: torch.cuda.is_available() is False")
-    device = torch.device(args.device)
+    device = require_device(args.device)
     seed = int(config.train.seed)
     torch.manual_seed(seed)
     log_dir = os.path.join(args.logdir, "training_" + time.strftime("%Y_%m_%d__%H_%M_%S")
@@ -86,7 +76,7 @@ def run(config, args) -> dict:
     os.makedirs(log_dir, exist_ok=True)
     with open(os.path.join(log_dir, "config.json"), "w") as f:
         json.dump(config, f, indent=1)
-    logger = _logger(log_dir)
+    logger = run_logger(log_dir, "train_diffusion")
     try:
         return _train(config, args, device, log_dir, logger)
     finally:

@@ -1,7 +1,9 @@
 """Shared building blocks, counterpart of targetdiff_tpu/models/common.py
 (reference: models/common.py). Parameter names follow the reference so that
-its state_dicts load unchanged: MLP layers are `net.0` (Linear), `net.1`
-(LayerNorm), `net.3` (Linear)."""
+its state_dicts load unchanged: an MLP's modules sit in `net` in the
+reference's nn.Sequential order, so the released MLP (num_layer 2, norm,
+ReLU) is `net.0` (Linear), `net.1` (LayerNorm), `net.3` (Linear), and one
+without norm is `net.0`, `net.2`."""
 
 from __future__ import annotations
 
@@ -22,16 +24,36 @@ class ShiftedSoftplus(nn.Module):
         return shifted_softplus(x)
 
 
-class MLP(nn.Module):
-    """Linear -> LayerNorm -> ReLU -> Linear (reference: models/common.py:60-80
-    with num_layer=2, norm=True, act_fn='relu')."""
+_ACTIVATIONS = {"tanh": nn.Tanh, "relu": nn.ReLU, "softplus": nn.Softplus, "elu": nn.ELU,
+                "silu": nn.SiLU}
 
-    def __init__(self, in_dim: int, out_dim: int, hidden_dim: int):
+
+def get_activation(name: str) -> nn.Module:
+    """The activation module of `name` (targetdiff_tpu/models/common.py:35;
+    the learnable 'swish' is not ported)."""
+    if name not in _ACTIVATIONS:
+        raise NotImplementedError(f"activation {name!r} is not ported "
+                                  f"(have {sorted(_ACTIVATIONS)})")
+    return _ACTIVATIONS[name]()
+
+
+class MLP(nn.Module):
+    """Linear -> [LayerNorm] -> act, num_layer - 1 times, then Linear, and
+    with act_last a [LayerNorm] -> act after it (reference:
+    models/common.py:60-80). The defaults are the released MLP."""
+
+    def __init__(self, in_dim: int, out_dim: int, hidden_dim: int, num_layer: int = 2,
+                 norm: bool = True, act_fn: str = "relu", act_last: bool = False):
         super().__init__()
-        self.net = nn.Sequential(
-            nn.Linear(in_dim, hidden_dim), nn.LayerNorm(hidden_dim), nn.ReLU(),
-            nn.Linear(hidden_dim, out_dim),
-        )
+        layers = []
+        for i in range(num_layer):
+            width = hidden_dim if i < num_layer - 1 else out_dim
+            layers.append(nn.Linear(in_dim if i == 0 else hidden_dim, width))
+            if i < num_layer - 1 or act_last:
+                if norm:
+                    layers.append(nn.LayerNorm(width))
+                layers.append(get_activation(act_fn))
+        self.net = nn.Sequential(*layers)
 
     def forward(self, x):
         return self.net(x)

@@ -13,6 +13,7 @@ tiles: every row of every layer is computed.
 
 from __future__ import annotations
 
+import logging
 import warnings
 from typing import Dict, Optional
 
@@ -53,6 +54,42 @@ def fast_forward_supported(config: Config) -> tuple:
     return True, ""
 
 
+def eager_supported(config: Config) -> tuple:
+    """Whether the port's eager network builds this config: the released
+    uni_o2 architecture (as `fast_forward_supported`) or the EGNN denoiser,
+    over a kNN or a hybrid graph, without a time embedding. Returns
+    (ok, reason)."""
+    if config.model_type == "egnn":
+        if config.get("time_emb_dim", 0) != 0:
+            return False, "time_emb_dim>0"
+        if config.cutoff_mode not in ("knn", "hybrid"):
+            return False, f"cutoff_mode={config.cutoff_mode!r}"
+        return True, ""
+    return fast_forward_supported(config)
+
+
+def require_kernels(config: Config) -> None:
+    """Raise ValueError, with the reason, unless the kernel paths take this
+    config."""
+    ok, reason = fast_forward_supported(config)
+    if not ok:
+        raise ValueError(f"impl='fast' runs the released uni_o2 architecture on the kernels; "
+                         f"this config has {reason}: use impl='eager'")
+
+
+def resolve_impl(config: Config) -> str:
+    """The denoiser's path for this config, chosen once by the model (the
+    port's counterpart of targetdiff_tpu/models/fast_forward.py:195 'auto'):
+    'fast' (the kernels) when the config is supported, else 'eager'. The
+    choice depends on the config alone, never on the device or on a failed
+    build; it is logged."""
+    ok, reason = fast_forward_supported(config)
+    logging.getLogger(__name__).info(
+        "denoiser path: %s",
+        "the kernels (fast)" if ok else f"eager ({reason} is not on the kernels)")
+    return "fast" if ok else "eager"
+
+
 def _graph(rn, x, node_mask, mask_ligand):
     """The block's graph: the kNN kernel, or the plain hybrid graph."""
     if rn.cutoff_mode == "hybrid":
@@ -73,6 +110,7 @@ def fast_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos, ligan
     pred_ligand_v, final_ligand_h and final_h."""
     if mode not in ("mega", "layers"):
         raise ValueError(f"mode must be 'mega' or 'layers', got {mode!r}")
+    require_kernels(net.config)
     h, x, node_mask, mask_ligand = net.embed(
         protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v, ligand_mask)
     rn = net.refine_net
@@ -113,6 +151,7 @@ def fast_train_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos,
     (forward and backward per-layer kernels), as does a graph wider than the
     block kernels take (K > 32), with a warning. Returns pred_ligand_pos,
     pred_ligand_v, final_ligand_h (padded ligand rows zero) and final_h."""
+    require_kernels(net.config)
     h, x, node_mask, mask_ligand = net.embed(
         protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v, ligand_mask)
     rn = net.refine_net

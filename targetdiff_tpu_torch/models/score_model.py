@@ -28,8 +28,26 @@ from ..ops import graph as G
 from ..ops.kernels.block_denoiser import PackedBlock, pack_block_params
 from ..ops.schedules import make_categorical_schedule, make_gaussian_schedule
 from .common import ShiftedSoftplus
-from .fast_forward import fast_forward, fast_forward_supported, fast_train_forward
+from .egnn import EGNN
+from .fast_forward import (eager_supported, fast_forward, fast_train_forward, require_kernels,
+                           resolve_impl)
 from .uni_transformer import UniTransformerO2TwoUpdateGeneral
+
+
+def build_refine_net(config: Config, max_ligand: int) -> nn.Module:
+    """The refine net of `model_type` (targetdiff_tpu/models/score_model.py:
+    58): uni_o2, or the EGNN denoiser, which takes neither the config's
+    RBF knots nor its activation and norm (one distance feature, silu, no
+    norm), as the JAX package builds it."""
+    if config.model_type == "egnn":
+        return EGNN(num_layers=config.num_layers, hidden_dim=config.hidden_dim,
+                    edge_feat_dim=config.edge_feat_dim, k=config.knn,
+                    cutoff_mode=config.cutoff_mode, max_ligand=max_ligand)
+    return UniTransformerO2TwoUpdateGeneral(
+        num_blocks=config.num_blocks, num_layers=config.num_layers,
+        hidden_dim=config.hidden_dim, n_heads=config.n_heads, k=config.knn,
+        num_r_gaussian=config.num_r_gaussian, edge_feat_dim=config.edge_feat_dim,
+        cutoff_mode=config.cutoff_mode, max_ligand=max_ligand)
 
 
 class ScorePosNet(nn.Module):
@@ -38,22 +56,18 @@ class ScorePosNet(nn.Module):
     def __init__(self, config: Config, protein_atom_feature_dim: int,
                  ligand_atom_feature_dim: int, max_ligand: int = 0):
         super().__init__()
-        ok, reason = fast_forward_supported(config)
+        ok, reason = eager_supported(config)
         if not ok:
-            raise NotImplementedError(f"the PyTorch port supports only the released "
-                                      f"uni_o2 architecture ({reason})")
+            raise NotImplementedError(f"the PyTorch port builds the released uni_o2 "
+                                      f"architecture and the EGNN denoiser ({reason})")
+        self.config = config
         self.node_indicator = bool(config.node_indicator)
         self.num_classes = ligand_atom_feature_dim
         hidden = config.hidden_dim
         emb_dim = hidden - 1 if self.node_indicator else hidden
         self.protein_atom_emb = nn.Linear(protein_atom_feature_dim, emb_dim)
         self.ligand_atom_emb = nn.Linear(ligand_atom_feature_dim, emb_dim)
-        self.refine_net = UniTransformerO2TwoUpdateGeneral(
-            num_blocks=config.num_blocks, num_layers=config.num_layers, hidden_dim=hidden,
-            n_heads=config.n_heads, k=config.knn, num_r_gaussian=config.num_r_gaussian,
-            edge_feat_dim=config.edge_feat_dim, cutoff_mode=config.cutoff_mode,
-            max_ligand=max_ligand,
-        )
+        self.refine_net = build_refine_net(config, max_ligand)
         self.v_inference = nn.Sequential(
             nn.Linear(hidden, hidden), ShiftedSoftplus(),
             nn.Linear(hidden, ligand_atom_feature_dim),
@@ -105,7 +119,10 @@ class SampleResult(NamedTuple):
 
 class DiffusionModel:
     """Owns the network and the schedules on one device: the CUDA card
-    unless the caller asks for another (CPU callers pass device='cpu')."""
+    unless the caller asks for another (CPU callers pass device='cpu').
+    `impl` is the denoiser's path that the entry points take when not told
+    otherwise, read from the config once (`resolve_impl`): 'fast' (the
+    kernels) for the released uni_o2 architecture, else 'eager'."""
 
     def __init__(self, config: Config, protein_atom_feature_dim: int,
                  ligand_atom_feature_dim: int, device="cuda",
@@ -132,6 +149,7 @@ class DiffusionModel:
         self.net = ScorePosNet(config, protein_atom_feature_dim, ligand_atom_feature_dim,
                                max_ligand=max_ligand)
         self.net.to(self.device).eval()
+        self.impl = resolve_impl(config)
 
     def parameters(self):
         return self.net.parameters()
@@ -161,14 +179,16 @@ class DiffusionModel:
 
     def get_diffusion_loss(self, batch: ComplexBatch, time_step=None, pos_noise=None,
                            v_uniform=None, generator: Optional[torch.Generator] = None,
-                           impl: str = "fast") -> Dict[str, torch.Tensor]:
+                           impl: Optional[str] = None) -> Dict[str, torch.Tensor]:
         """Training loss (reference: molopt_score_model.py:485-563).
         time_step [B] int, pos_noise [B,NL,3] standard normal and v_uniform
         [B,NL,C] U[0,1) may be given; each one that is not is drawn from
         `generator`. impl='fast' runs the denoiser through the
         differentiable kernels with the whole-block backward
         (fast_train_forward), impl='fast_pl' through the per-layer kernels and
-        their backwards, impl='eager' through ScorePosNet.forward."""
+        their backwards, impl='eager' through ScorePosNet.forward; None
+        takes `self.impl`."""
+        impl = impl or self.impl
         if impl not in ("fast", "fast_pl", "eager"):
             raise ValueError(f"impl must be 'fast', 'fast_pl' or 'eager', got {impl!r}")
         B, dev = batch.num_graphs, batch.device
@@ -229,7 +249,7 @@ class DiffusionModel:
     @torch.no_grad()
     def likelihood_estimation(self, batch: ComplexBatch, time_step, pos_noise=None,
                               v_uniform=None, generator: Optional[torch.Generator] = None,
-                              impl: str = "fast"):
+                              impl: Optional[str] = None):
         """Per-timestep ELBO terms of each complex (reference:
         molopt_score_model.py:566-617). time_step [B] int; where every entry
         is num_timesteps the prior terms come back and the network does not
@@ -237,7 +257,9 @@ class DiffusionModel:
         normal and v_uniform [B,NL,C] U[0,1) may be given; each one that is
         not is drawn from `generator`. Centres on the protein whatever the
         config's mode. impl='fast' runs the denoiser on the kernels (float32),
-        'eager' through ScorePosNet.forward. Returns (kl_pos [B], kl_v [B])."""
+        'eager' through ScorePosNet.forward, None `self.impl`. Returns
+        (kl_pos [B], kl_v [B])."""
+        impl = impl or self.impl
         if impl not in ("fast", "eager"):
             raise ValueError(f"impl must be 'fast' or 'eager', got {impl!r}")
         if self.model_mean_type != "C0":
@@ -279,12 +301,13 @@ class DiffusionModel:
         return kl_pos, kl_v
 
     @torch.no_grad()
-    def fetch_embedding(self, batch: ComplexBatch, impl: str = "fast"):
+    def fetch_embedding(self, batch: ComplexBatch, impl: Optional[str] = None):
         """Hidden states with frozen coordinates, float32 (reference:
         molopt_score_model.py:619-631): pred_ligand_pos (the input ligand
         positions), pred_ligand_v, final_ligand_h and final_h. impl='fast'
         runs the kernels without their h2x pass, 'eager'
-        ScorePosNet.forward."""
+        ScorePosNet.forward, None `self.impl`."""
+        impl = impl or self.impl
         if impl == "fast":
             return self.fast_apply(batch, batch.ligand_pos, batch.ligand_v, fix_x=True)
         if impl != "eager":
@@ -312,7 +335,7 @@ class DiffusionModel:
     def sample_step(self, cbatch: ComplexBatch, ligand_pos, ligand_v, t: int, pos_noise,
                     type_uniform, packed: Optional[PackedBlock] = None, s: Optional[int] = None,
                     sampler: str = "ddpm", coefs=None, pos_only: bool = False,
-                    return_v_probs: bool = False, impl: str = "fast"):
+                    return_v_probs: bool = False, impl: Optional[str] = None):
         """One reverse step from timestep t to s on the protein-centered batch
         (targetdiff_tpu/models/score_model.py:_sample_step; reference:
         molopt_score_model.py:649-693). sampler='ddpm' is the ancestral step,
@@ -325,7 +348,9 @@ class DiffusionModel:
         multiplies by 0. `pos_noise` [B,NL,3] is standard normal and
         `type_uniform` [B,NL,C] U[0,1) (None under pos_only, which holds the
         types). Returns (ligand_pos, ligand_v) at s, and with return_v_probs
-        also the recon log-probabilities and those the types were drawn from."""
+        also the recon log-probabilities and those the types were drawn from.
+        impl 'fast' or 'eager' as in sample_diffusion."""
+        impl = impl or self.impl
         if sampler not in ("ddpm", "ddim", "dpm2"):
             raise ValueError(f"unknown sampler {sampler!r} (want 'ddpm', 'ddim' or 'dpm2')")
         s = t - 1 if s is None else s
@@ -384,15 +409,19 @@ class DiffusionModel:
                          center_pos_mode: Optional[str] = None, pos_only: bool = False,
                          return_traj: bool = False, return_v_probs: bool = False,
                          sampler: str = "ddpm", eta: float = 0.0,
-                         ddim_spacing: str = "uniform") -> SampleResult:
+                         ddim_spacing: str = "uniform",
+                         impl: Optional[str] = None) -> SampleResult:
         """The reverse process (targetdiff_tpu/models/score_model.py:
         sample_diffusion; reference: molopt_score_model.py:633-703).
         sampler='ddpm' runs the last `num_steps` timesteps of the schedule
         (the reference's truncation at :649); 'ddim' and 'dpm2' stride the
         whole schedule over `num_steps` jumps (`sampling_schedule`), with
-        position noise scaled by `eta`. The block weights are packed and the
-        jump coefficients uploaded once per run; each step runs on the
-        kernels and draws its noise from `generator`. return_traj keeps every step's positions
+        position noise scaled by `eta`. impl='fast' runs each step on the
+        kernels, with the block weights packed once per run; 'eager' through
+        ScorePosNet.forward (the EGNN denoiser's path), None `self.impl`.
+        The jump coefficients
+        are uploaded once per run; each step draws its noise from
+        `generator`. return_traj keeps every step's positions
         (uncentered, padded rows at the offset) and types on the device,
         return_v_probs every step's recon and sampling log-probabilities."""
         T = self.num_timesteps
@@ -403,7 +432,13 @@ class DiffusionModel:
             center_pos_mode or self.center_pos_mode)
         cbatch = batch._replace(protein_pos=protein_pos)
         dev = pos.device
-        packed = pack_block_params(self.net.refine_net)
+        impl = impl or self.impl
+        if impl not in ("fast", "eager"):
+            raise ValueError(f"impl must be 'fast' or 'eager', got {impl!r}")
+        packed = None
+        if impl == "fast":
+            require_kernels(self.config)
+            packed = pack_block_params(self.net.refine_net)
         coefs = None
         if sampler != "ddpm":
             betas = self.pos_sched.betas.cpu().numpy()
@@ -425,7 +460,7 @@ class DiffusionModel:
             out = self.sample_step(cbatch, pos, v, t, pos_noise, type_uniform, packed=packed,
                                    s=s, sampler=sampler,
                                    coefs=None if coefs is None else coefs[i], pos_only=pos_only,
-                                   return_v_probs=return_v_probs)
+                                   return_v_probs=return_v_probs, impl=impl)
             pos, v = out[:2]
             if return_traj:
                 traj["pos_traj"][i] = pos + offset

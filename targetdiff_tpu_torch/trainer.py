@@ -58,14 +58,15 @@ def update_Lt_ema(state: TrainState, t: torch.Tensor, vlb_graph: torch.Tensor) -
 
 
 def make_train_step(model: DiffusionModel, pos_noise_std: float = 0.0,
-                    time_sampling: str = "symmetric", impl: str = "fast"):
+                    time_sampling: str = "symmetric", impl: Optional[str] = None):
     """Returns train_step(state, batch, generator, time_step=None,
     pos_noise=None, v_uniform=None) -> (state, metrics). Draws not given
     come from `generator`; metrics (loss, loss_pos, loss_v, grad_norm, the
     norm before clipping) are 0-d tensors on the device. The denoiser runs
     as `get_diffusion_loss(impl=impl)`: 'fast' on the kernels with the
     whole-block backward, 'fast_pl' on the per-layer kernels, 'eager' on
-    the plain network (targetdiff_tpu/trainer.py:81)."""
+    the plain network (targetdiff_tpu/trainer.py:81), None the model's
+    `impl`, read from its config."""
     if time_sampling not in ("symmetric", "importance"):
         raise ValueError(f"time_sampling must be 'symmetric' or 'importance', "
                          f"got {time_sampling!r}")
@@ -96,16 +97,17 @@ def make_train_step(model: DiffusionModel, pos_noise_std: float = 0.0,
     return train_step
 
 
-def make_eval_step(model: DiffusionModel):
+def make_eval_step(model: DiffusionModel, impl: Optional[str] = None):
     """eval_step(batch, t_scalar, generator) -> loss, loss_pos, loss_v and
     pred_v at one fixed timestep (reference: scripts/train_diffusion.py:
-    160-189 loops t over linspace(0, T-1, 10))."""
+    160-189 loops t over linspace(0, T-1, 10)), the denoiser run as
+    `get_diffusion_loss(impl=impl)`."""
 
     @torch.no_grad()
     def eval_step(batch: ComplexBatch, t_scalar: int, generator: Optional[torch.Generator]):
         model.eval()
         t = torch.full((batch.num_graphs,), int(t_scalar), dtype=torch.long, device=batch.device)
-        out = model.get_diffusion_loss(batch, time_step=t, generator=generator)
+        out = model.get_diffusion_loss(batch, time_step=t, generator=generator, impl=impl)
         return {"loss": out["loss"], "loss_pos": out["loss_pos"], "loss_v": out["loss_v"],
                 "pred_v": out["pred_ligand_v"]}
 

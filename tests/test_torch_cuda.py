@@ -894,3 +894,87 @@ def test_likelihood_on_the_kernels_matches_eager(cuda):
              for impl in ("fast", "eager")]
     assert (kknn.LAUNCHES, kblock.LAUNCHES) == before
     assert all(torch.equal(a, b) for a, b in zip(*prior))
+
+
+EGNN_CONFIG = dict(CONFIG, model_type="egnn", num_layers=3, knn=32)
+
+
+def test_egnn_denoiser_on_the_card_matches_the_cpu(cuda):
+    """The EGNN denoiser (kNN kernel, one launch per layer) against the same
+    weights and inputs on the CPU (the plain graph), at the suite's bars."""
+    torch.manual_seed(0)
+    model = DiffusionModel(Config(EGNN_CONFIG), 27, 13, device=cuda, max_ligand=NL)
+    cpu = DiffusionModel(Config(EGNN_CONFIG), 27, 13, device="cpu", max_ligand=NL)
+    cpu.net.load_state_dict({k: v.cpu() for k, v in model.net.state_dict().items()})
+    batch = _complexes(cuda, seed=3)
+    kknn.LAUNCHES = 0
+    with torch.no_grad():
+        got = model.apply(batch, batch.ligand_pos, batch.ligand_v)
+        torch.cuda.synchronize()
+        launches = kknn.LAUNCHES
+        want = cpu.apply(batch.to("cpu"), batch.ligand_pos.cpu(), batch.ligand_v.cpu())
+    assert launches == EGNN_CONFIG["num_layers"]
+    lm = batch.ligand_mask.cpu()[..., None]
+    torch.testing.assert_close(got["pred_ligand_pos"].cpu() * lm, want["pred_ligand_pos"] * lm,
+                               atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(got["pred_ligand_v"].cpu() * lm, want["pred_ligand_v"] * lm,
+                               atol=2e-3, rtol=1e-2)
+    with pytest.raises(ValueError, match="egnn"):
+        model.fast_apply(batch, batch.ligand_pos, batch.ligand_v)
+
+
+def _prop_batch(device, B_=4, NP2=60, NL2=12, seed=4):
+    from targetdiff_tpu_torch.models.prop.prop_model import PropBatch
+
+    rng = np.random.default_rng(seed)
+    pmask = np.ones((B_, NP2), bool)
+    pmask[0, 50:] = False
+    lmask = np.ones((B_, NL2), bool)
+    lmask[1, 7:] = False
+
+    def t(a, dtype=torch.float32):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return PropBatch(t(rng.normal(size=(B_, NP2, 3)) * 4), t(rng.random((B_, NP2, 27)) > 0.7),
+                     t(pmask, torch.bool), t(rng.normal(size=(B_, NL2, 3))),
+                     t(rng.random((B_, NL2, 30))), t(lmask, torch.bool),
+                     t(rng.normal(size=B_) + 6), t(np.arange(B_) % 3 + 1, torch.long))
+
+
+@pytest.mark.parametrize("knn", [24, 48])
+def test_prop_encoder_on_the_card_matches_the_cpu(cuda, knn):
+    """PropPredNet at the PDBBind config's width (hidden 256, 64 knots) with
+    one kNN launch per forward (K = 48: the rounds kernel) against the CPU."""
+    from targetdiff_tpu_torch.models.prop.prop_model import PropPredNet
+
+    cfg = Config(dict(hidden_channels=256, encoder=dict(
+        name="egnn", num_layers=2, hidden_dim=256, edge_dim=0, num_r_gaussian=64,
+        act_fn="relu", norm=False, knn=knn, cutoff=10.0)))
+    torch.manual_seed(1)
+    model = PropPredNet(cfg, 27, 30).to(cuda)
+    cpu = PropPredNet(cfg, 27, 30)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    batch = _prop_batch(cuda)
+    kknn.LAUNCHES = 0
+    with torch.no_grad():
+        got = model(batch).cpu()
+        launches = kknn.LAUNCHES
+        want = cpu(batch.to("cpu"))
+    assert launches == 1
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, atol=1e-4 * scale, rtol=0)
+
+
+def test_knn_rounds_kernel_at_the_prop_shape(cuda):
+    """knn_rounds_kernel (K = 48) on 16 complexes padded to train_prop's
+    512 + 96 slots, bitwise equal to knn_graph_exact."""
+    rng = np.random.default_rng(48)
+    pos = torch.tensor(rng.normal(size=(16, 608, 3)) * 6, dtype=torch.float32, device=cuda)
+    mask = torch.zeros((16, 608), dtype=torch.bool, device=cuda)
+    for i in range(16):
+        mask[i, :int(rng.integers(300, 512))] = True
+        mask[i, 512:512 + int(rng.integers(10, 96))] = True
+    got = kknn.knn_graph_cuda(pos, mask, 48)
+    want = G.knn_graph_exact(pos, mask, 48)
+    torch.cuda.synchronize()
+    assert torch.equal(got.idx, want.idx) and torch.equal(got.mask, want.mask)

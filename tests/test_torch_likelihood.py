@@ -277,14 +277,15 @@ EXPORT_FIELDS = {"ligand_filename", "protein_filename", "nll", "kl_pos", "kl_v",
                  "final_ligand_h", "pred_ligand_v"}
 
 
-def _cli_setup(tmp_path, **saved_overrides):
-    """A checkpoint that loads in both packages (the small flagship) over the
-    six-entry dataset, and a sampling config naming it. `saved_overrides`
-    change the model config written into the checkpoint only."""
+def _cli_setup(tmp_path, setup=small_setup, **saved_overrides):
+    """A checkpoint that loads in both packages (the small flagship, or the
+    model of another `setup`) over the six-entry dataset, and a sampling
+    config naming it. `saved_overrides` change the model config written into
+    the checkpoint only."""
     from targetdiff_tpu.utils.checkpoint import save_checkpoint
     from tests.test_torch_data import _data_cfg, _mini_raw
 
-    cfg, _, params, _, _, _ = small_setup()
+    cfg, _, params, _, _, _ = setup()
     raw, split = _mini_raw(tmp_path)
     ckpt = tmp_path / "ckpt.npz"
     save_checkpoint(str(ckpt), {"data": _data_cfg(raw, split),
@@ -299,14 +300,20 @@ def _cli_setup(tmp_path, **saved_overrides):
 def test_likelihood_cli_writes_the_jax_fields(impl, tmp_path):
     """The port's CLI on the CPU writes crossdocked_test.pkl with the JAX
     CLI's fields; the fields that do not depend on the draws (the embedding
-    export, the file names) match the JAX CLI's at the bars."""
+    export, the file names) match the JAX CLI's at the bars. The model picks
+    the path from the checkpoint's config: 'fast' (the kernels' plain
+    versions) for the small flagship, 'eager' for an EGNN checkpoint, which
+    the CLI takes without a flag."""
     from targetdiff_tpu.cli import likelihood_est_diffusion as jax_cli
     from targetdiff_tpu_torch.cli import likelihood_est_diffusion as cli
+    from targetdiff_tpu_torch.cli.sample_for_pocket import load_model_from_checkpoint
+    from tests.test_torch_egnn import egnn_setup
 
-    yml = _cli_setup(tmp_path)
+    yml = _cli_setup(tmp_path, setup=small_setup if impl == "fast" else egnn_setup)
+    ckpt = str(tmp_path / "ckpt.npz")
+    assert load_model_from_checkpoint(ckpt, "cpu", 640, 40)[0].impl == impl
     common = ["--t_stride", "3", "--max_ligand", "40", "--batch_complexes", "3"]
-    cli.main([yml, "--result_path", str(tmp_path / "port"), "--device", "cpu", "--impl", impl,
-              *common])
+    cli.main([yml, "--result_path", str(tmp_path / "port"), "--device", "cpu", *common])
     jax_cli.main([yml, "--result_path", str(tmp_path / "jax"), "--impl", "xla", *common])
     got = pickle.loads((tmp_path / "port" / "crossdocked_test.pkl").read_bytes())
     want = pickle.loads((tmp_path / "jax" / "crossdocked_test.pkl").read_bytes())
@@ -353,11 +360,10 @@ def test_likelihood_cli_refuses_a_missing_gpu_and_an_unsupported_fast_config(tmp
 
     yml = _cli_setup(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(SystemExit, match="cuda"):
+    with pytest.raises(RuntimeError, match="cuda"):
         cli.main([yml, "--device", "cuda", "--result_path", str(tmp_path / "out")])
     bad = tmp_path / "bad"
     bad.mkdir()
     bad_yml = _cli_setup(bad, ew_net_type="r")
     with pytest.raises(SystemExit, match="ew_net_type"):
-        cli.main([bad_yml, "--device", "cpu", "--impl", "fast",
-                  "--result_path", str(tmp_path / "out")])
+        cli.main([bad_yml, "--device", "cpu", "--result_path", str(tmp_path / "out")])
