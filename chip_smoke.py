@@ -70,7 +70,12 @@ PropPredNetEnc fed the flagship's final_h from the block kernels against
 the eager final_h; [prop-cli] pdbbind_preparation -> train_prop -> eval_prop
 -> inference_prop on copies of examples/3ug2; [prop-gate-short] the prop
 gate at 2 epochs and 200 diffusion steps (report complete, checks need not
-pass). Every phase prints one line; any failure exits non-zero. The last two lines are a
+pass). [dp-train] and [dp-sample] run targetdiff_tpu_torch/tools/dryrun_multi
+at full width: two ranks of one process group on this card over gloo (and,
+on a machine with two cards, one card a rank over NCCL) take [train]'s B=32
+step split 16 / 16 and 8 rows of the example pocket for 20 DDPM steps, each
+held to one process in the same call, with each rank's launches, ms per
+step and the gradient all-reduce's ms and bytes. Every phase prints one line; any failure exits non-zero. The last two lines are a
 JSON record of the kernels (each with its time, its plain version's time and
 the least time the card could take for its work) and the contract line
 {"ok": true, "device": {...}}.
@@ -837,6 +842,7 @@ def main(argv) -> int:
     prop = prop_phases(torch, dev, model, batch)
     prop_cli_phase(torch, dev)
     prop_gate_short_phase(torch, dev)
+    dp = dp_phases(torch, pocket)
     if failures:
         raise AssertionError("; ".join(failures))
 
@@ -855,7 +861,8 @@ def main(argv) -> int:
          "max_abs_err": knn_err, "ms": knn_ms, "plain_ms": knn_plain_ms, **knn_b4_bound,
          "topk_ms": knn_shapes["B4"]["topk_ms"], **by_path("knn"),
          "launches_egnn_sample": egnn["sample"], "launches_egnn_train": egnn["train"],
-         "launches_prop": prop["train"], "rounds_shape": prop["rounds"]["shape"],
+         "launches_prop": prop["train"], "launches_dp_train_rank0": dp["knn"]["train"],
+         "launches_dp_sample_rank0": dp["knn"]["sample"], "rounds_shape": prop["rounds"]["shape"],
          **{f"rounds_{k}": prop["rounds"][k] for k in ("ms", "device_ms", "bound_ms",
                                                        "bound_by", "plain_ms", "topk_ms")},
          **no_library},
@@ -864,6 +871,7 @@ def main(argv) -> int:
          "replaces": "targetdiff_tpu/ops/pallas/block_denoiser.py:154",
          "launches": block_launches, "max_abs_err": max(x_err, h_err), "ms": block_ms,
          "plain_ms": block_plain_ms, **block_bound, **by_path("block"),
+         "launches_dp_sample_rank0": dp["block"]["sample"],
          "h2x_passes_embedding": embed_launches["h2x_pass"], **no_library},
         {"name": "block_denoiser.ew", "route": "cuda",
          "source": "targetdiff_tpu_torch/csrc/block_denoiser.cu",
@@ -873,10 +881,10 @@ def main(argv) -> int:
         {"name": "block_denoiser_train", "route": "cuda",
          "source": "targetdiff_tpu_torch/csrc/block_denoiser.cu",
          "replaces": "targetdiff_tpu/ops/pallas/block_denoiser.py:154", **train["fwd"],
-         **no_library},
+         "launches_dp_train_rank0": dp["block_train"]["train"], **no_library},
         {"name": "block_vjp", "route": "cuda", "source": "targetdiff_tpu_torch/csrc/block_vjp.cu",
          "replaces": "targetdiff_tpu/ops/pallas/block_vjp.py:113", **train["bwd"],
-         **no_library},
+         "launches_dp_train_rank0": dp["block_vjp"]["train"], **no_library},
         *[{"name": f"block_vjp.weight_grad_{cls}", "route": "cuda",
            "source": "targetdiff_tpu_torch/csrc/weight_grad.cuh",
            "replaces": "targetdiff_tpu/ops/pallas/block_vjp.py:113", **fields}
@@ -3381,6 +3389,63 @@ def prop_gate_short_phase(torch, dev) -> None:
           pearson=report["trained"]["pearson"], enc_pearson=report["enc_trained"]["pearson"],
           nll_auroc=report["nll_distortion_auroc"], timing=report["timing"],
           wall_seconds=wall, launches=launches)
+
+
+DP_WORLD = 2  # [dp-train], [dp-sample]: ranks of the data-parallel dry run
+# the launches of one rank: one `fast` train step, and 20 DDPM steps of its rows
+DP_TRAIN_WANT = {"knn": 1, "block": 0, "block_train": 1, "block_vjp": 1}
+DP_SAMPLE_WANT = {"knn": 20, "block": 20, "block_train": 0, "block_vjp": 0}
+
+
+def dp_phases(torch, pocket) -> dict:
+    """[dp-train] and [dp-sample]: targetdiff_tpu_torch/tools/dryrun_multi at
+    full width, DP_WORLD ranks on this card over gloo (and over NCCL, one
+    card a rank, when the machine has DP_WORLD cards): the B=32 train leg
+    split over the ranks and 8 rows of the example pocket for 20 DDPM
+    steps, each held to the one-process run of the same call (the tool's
+    bars; it raises on a mismatch or a dead rank), with each rank's kernel
+    launches, ms per step and the gradient all-reduce's ms and bytes.
+    Returns rank 0's launches of the gloo run."""
+    from targetdiff_tpu_torch.tools import dryrun_multi
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= DP_WORLD else [])
+    reports = {}
+    for backend in backends:
+        t0 = time.perf_counter()
+        rep = dryrun_multi.run(DP_WORLD, "cuda", backend, pocket=pocket)
+        wall = time.perf_counter() - t0
+        for r, rank in enumerate(rep["ranks"]):
+            for leg, want in (("train", DP_TRAIN_WANT), ("sample", DP_SAMPLE_WANT)):
+                if rank[f"{leg}_launches"] != want:
+                    raise AssertionError(f"dp-{leg} ({backend}): rank {r} launched "
+                                         f"{rank[f'{leg}_launches']}, want {want}")
+        one = rep["one_process"]
+        size = dryrun_multi.FULL
+        phase(f"dp-train {backend}", world=DP_WORLD, devices=rep["device"] if backend == "gloo"
+              else "one card a rank", shape=f"B={size['train_b']} ({DP_WORLD}x"
+              f"{size['train_b'] // DP_WORLD}),N={size['train_protein'] + size['max_ligand']},"
+              f"K={K},L={FLAGSHIP['num_layers']}", one_process_ms_per_step=one["train_ms_per_step"],
+              one_process_loss=one["loss"], wall_seconds=wall,
+              one_process_device_ms_per_step=one["train_device_ms_per_step"],
+              ranks=[{k: rank[k] for k in ("loss", "train_errs", "train_ms_per_step",
+                                           "train_device_ms_per_step", "fwd_bwd_ms",
+                                           "all_reduce_ms", "all_reduce_bytes", "train_launches")}
+                     | {"all_reduce_share": rank["all_reduce_ms"] / rank["train_ms_per_step"]}
+                     for rank in rep["ranks"]])
+        phase(f"dp-sample {backend}", world=DP_WORLD,
+              shape=f"rows={size['sample_rows']} ({DP_WORLD}x{size['sample_rows'] // DP_WORLD}),"
+              f"steps={size['sample_steps']},NP={len(pocket['protein_pos'])}",
+              one_process_ms_per_step=one["sample_ms_per_step"],
+              ranks=[{k: rank[k] for k in ("sample_pos_err", "sample_ms_per_step",
+                                           "sample_launches")} for rank in rep["ranks"]])
+        reports[backend] = rep
+    if len(backends) == 1:
+        phase("dp nccl", skipped=f"{torch.cuda.device_count()} card(s): NCCL takes one card a "
+              "rank")
+    rank0 = reports["gloo"]["ranks"][0]
+    return {k: {"train": rank0["train_launches"][k], "sample": rank0["sample_launches"][k]}
+            for k in DP_TRAIN_WANT}
 
 
 def prop_gate(torch, argv) -> int:

@@ -5,6 +5,8 @@ Usage: python -m targetdiff_tpu_torch.cli.sample_diffusion configs/sampling.yml
        -i DATA_ID [--all [--sharded]] [--result_path ./outputs] [--device cuda]
        [--sampler ddpm|ddim|dpm2] [--eta ETA] [--ddim_spacing uniform|quadratic]
        [--save_traj STRIDE]
+       [--dist_coordinator HOST:PORT --dist_num_processes W --dist_process_id R
+        [--dist_backend gloo|nccl]]  (with --all --sharded)
 
 Counterpart of targetdiff_tpu/cli/sample_diffusion.py (reference:
 scripts/sample_diffusion.py): loads the checkpoint (the JAX package's .npz
@@ -13,8 +15,10 @@ samples `sample.num_samples` molecules per pocket and writes the same result
 fields. `sample.sampler`, `eta`, `ddim_spacing` (each overridden by its
 flag) choose the reverse process; `sample.pos_only` samples positions for
 the pocket's own ligand types. With --all --sharded every pocket goes
-through `sampling.sample_testset` on the one device, `--chunk_rows` rows at
-a time (no trajectories, no pos_only).
+through `sampling.sample_testset`, `--chunk_rows` rows at a time (no
+trajectories, no pos_only): on the one device, or, with the --dist_* flags
+(the train CLI's), with each chunk's rows split over W processes, rank 0
+writing the result files.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from ..config import load_config
 from ..data.datasets import get_dataset
 from ..data.transforms import Compose, FeaturizeLigandAtom
 from ..sampling import sample_diffusion_ligand, sample_testset
+from .common import add_dist_args, multi_process, start_mesh
 from .sample_for_pocket import load_model_from_checkpoint
 
 
@@ -84,8 +89,19 @@ def main(argv=None):
                     help="save pred_ligand_{pos,v}_traj every STRIDE steps; not with --sharded")
     ap.add_argument("--eta", type=float, default=None,
                     help="ddim / dpm2 position noise (default 0: deterministic positions)")
+    add_dist_args(ap)
     args = ap.parse_args(argv)
+    if multi_process(args) and not (args.all and args.sharded):
+        raise SystemExit("the --dist_* flags split --all --sharded sampling; add both")
+    device, mesh = start_mesh(args)
+    try:
+        _sample(args, device, mesh)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
 
+
+def _sample(args, device, mesh):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     logger = logging.getLogger("sample")
     config = load_config(args.config)
@@ -101,7 +117,7 @@ def main(argv=None):
     os.makedirs(args.result_path, exist_ok=True)
 
     model, train_config, protein_feat = load_model_from_checkpoint(
-        config.model.checkpoint, args.device, args.max_protein, args.max_ligand)
+        config.model.checkpoint, device, args.max_protein, args.max_ligand)
     atom_mode = train_config.data.transform.ligand_atom_mode
     transform = Compose([protein_feat, FeaturizeLigandAtom(atom_mode)])
     _, subsets = get_dataset(train_config.data, transform=transform)
@@ -120,14 +136,17 @@ def main(argv=None):
             num_steps=config.sample.num_steps, sample_num_atoms=num_atoms,
             max_protein=args.max_protein, max_ligand=args.max_ligand,
             rng=np.random.default_rng(seed), chunk_rows=args.chunk_rows,
-            ref_sizes=[len(d["ligand_pos"]) for d in datas], **strided)
+            ref_sizes=[len(d["ligand_pos"]) for d in datas], mesh=mesh, **strided)
         elapsed = time.perf_counter() - t0
+        if mesh is not None and not mesh.is_main:  # every rank holds the results; 0 writes
+            return
         for data_id, data, pocket, result in zip(ids, datas, pockets, results):
             write_result(os.path.join(args.result_path, f"result_{data_id}.pkl"),
                          result["pos"], result["v"], atom_mode, [result["time"]],
                          _pocket_data(pocket, data))
         logger.info(f"sharded: {len(datas)} pockets x {config.sample.num_samples} samples "
-                    f"in {elapsed:.1f}s (chunk_rows={args.chunk_rows})")
+                    f"in {elapsed:.1f}s (chunk_rows={args.chunk_rows}, "
+                    f"{1 if mesh is None else mesh.world} processes)")
         return
 
     for data_id in ids:

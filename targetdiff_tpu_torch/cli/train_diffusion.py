@@ -3,6 +3,8 @@
 Usage: python -m targetdiff_tpu_torch.cli.train_diffusion configs/training.yml
        [--device cuda|cpu] [--logdir ./logs_diffusion] [--resume ckpt.npz]
        [--max_protein 640] [--max_ligand 64] [--train_report_iter 200]
+       [--dist_coordinator HOST:PORT --dist_num_processes W --dist_process_id R
+        [--dist_backend gloo|nccl]]
 
 Counterpart of targetdiff_tpu/cli/train_diffusion.py (reference:
 scripts/train_diffusion.py) with the same loop: protein-position noise,
@@ -12,8 +14,13 @@ resume from a checkpoint. The training step runs the denoiser through the
 block kernels and their backward (`DiffusionModel.get_diffusion_loss`,
 impl='fast'), or through the plain network on a config the kernels do not
 take, such as the EGNN denoiser: the model picks the path from its config.
-`main` reads the YAML config (PyYAML is imported there only); `run` takes a
-Config built in code.
+With the --dist_* flags, W processes train one model data parallel
+(`parallel/mesh.py`, JAX's --dist_* flags): each builds the same global
+batch from the same loader seed and computes its equal row slice, one card
+a rank when the machine has a card for each (`mesh.rank_device`), all on
+`cuda:0` when it has one; rank 0 alone writes checkpoints. `main` reads the
+YAML config (PyYAML is imported there only); `run` takes a Config built in
+code.
 """
 
 from __future__ import annotations
@@ -36,10 +43,11 @@ from ..data.transforms import (
     RandomRotation,
 )
 from ..models.score_model import DiffusionModel
+from ..parallel import mesh as pmesh
 from ..trainer import atom_auroc, create_train_state, make_eval_step, make_train_step
 from ..utils import train as train_utils
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
-from .common import require_device, run_logger
+from .common import add_dist_args, multi_process, run_logger, start_mesh
 
 
 def build_transform(cfg_data, seed: int = 0):
@@ -61,33 +69,46 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--max_protein", type=int, default=640)
     ap.add_argument("--max_ligand", type=int, default=64)
     ap.add_argument("--train_report_iter", type=int, default=200)
+    add_dist_args(ap)
     return ap
 
 
 def run(config, args) -> dict:
     """Train as `config` says. Returns the log dir, the checkpoints written,
     the best validation loss, the final TrainState and the last step's
-    metrics."""
-    device = require_device(args.device)
-    seed = int(config.train.seed)
-    torch.manual_seed(seed)
-    log_dir = os.path.join(args.logdir, "training_" + time.strftime("%Y_%m_%d__%H_%M_%S")
-                           + (f"_{args.tag}" if args.tag else ""))
-    os.makedirs(log_dir, exist_ok=True)
-    with open(os.path.join(log_dir, "config.json"), "w") as f:
-        json.dump(config, f, indent=1)
-    logger = run_logger(log_dir, "train_diffusion")
+    metrics. With the --dist_* flags, starts the process group, runs as one
+    of its ranks and ends the group when the run ends."""
+    world = args.dist_num_processes or 1
+    if multi_process(args) and config.train.batch_size % world:  # before any rank joins
+        raise ValueError(f"batch_size {config.train.batch_size} does not split over {world} "
+                         "processes")
+    device, mesh = start_mesh(args)
     try:
-        return _train(config, args, device, log_dir, logger)
+        seed = int(config.train.seed)
+        torch.manual_seed(seed)
+        tag = args.tag + (f"p{mesh.rank}" if mesh is not None else "")
+        log_dir = os.path.join(args.logdir, "training_" + time.strftime("%Y_%m_%d__%H_%M_%S")
+                               + (f"_{tag}" if tag else ""))
+        os.makedirs(log_dir, exist_ok=True)
+        with open(os.path.join(log_dir, "config.json"), "w") as f:
+            json.dump(config, f, indent=1)
+        logger = run_logger(log_dir, "train_diffusion")
+        try:
+            return _train(config, args, device, log_dir, logger, mesh)
+        finally:
+            for handler in logger.handlers[:]:
+                handler.close()
+                logger.removeHandler(handler)
     finally:
-        for handler in logger.handlers[:]:
-            handler.close()
-            logger.removeHandler(handler)
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
 
 
-def _train(config, args, device, log_dir, logger) -> dict:
+def _train(config, args, device, log_dir, logger, mesh=None) -> dict:
     seed = int(config.train.seed)
-    logger.info(f"log dir: {log_dir}; device: {device}")
+    is_main = mesh is None or mesh.is_main
+    logger.info(f"log dir: {log_dir}; device: {device}"
+                + (f"; rank {mesh.rank} of {mesh.world}" if mesh is not None else ""))
     transform, protein_feat, ligand_feat = build_transform(config.data, seed)
     _, subsets = get_dataset(config.data, transform=transform)
     train_set, val_set = subsets["train"], subsets["test"]
@@ -119,9 +140,11 @@ def _train(config, args, device, log_dir, logger) -> dict:
         state.step = ck["iteration"]
         start_iter = ck["iteration"] + 1
         logger.info(f"resumed from {args.resume} at iter {start_iter}")
+    if mesh is not None:
+        pmesh.replicate_state(model.net, optimizer, mesh)
 
-    train_step = make_train_step(model, config.train.pos_noise_std)
-    eval_step = make_eval_step(model)
+    train_step = make_train_step(model, config.train.pos_noise_std, mesh=mesh)
+    eval_step = make_eval_step(model, mesh=mesh)
     gen = torch.Generator(device=device).manual_seed(seed)
     best_val, ckpts, metrics = float("inf"), [], {}
     it = start_iter
@@ -139,23 +162,32 @@ def _train(config, args, device, log_dir, logger) -> dict:
                 train_utils.set_learning_rate(optimizer, scheduler.lr)
                 if val_loss < best_val:
                     best_val = val_loss
-                    ckpt = os.path.join(log_dir, f"ckpt_{it}.npz")
-                    save_checkpoint(ckpt, config, model.net, optimizer, scheduler.state_dict(), it)
-                    ckpts.append(ckpt)
-                    logger.info(f"[val] new best {val_loss:.4f} -> {ckpt}")
+                    if is_main:  # rank 0 owns checkpoints
+                        ckpt = os.path.join(log_dir, f"ckpt_{it}.npz")
+                        save_checkpoint(ckpt, config, model.net, optimizer,
+                                        scheduler.state_dict(), it)
+                        ckpts.append(ckpt)
+                        logger.info(f"[val] new best {val_loss:.4f} -> {ckpt}")
+                    if mesh is not None:
+                        pmesh.barrier(mesh)
             it += 1
     except KeyboardInterrupt:
-        logger.info("interrupted; saving last checkpoint")
-        ckpt = os.path.join(log_dir, f"ckpt_last_{it}.npz")
-        save_checkpoint(ckpt, config, model.net, optimizer, scheduler.state_dict(), it)
-        ckpts.append(ckpt)
+        logger.info("interrupted; saving last checkpoint" if is_main else "interrupted")
+        if is_main:
+            ckpt = os.path.join(log_dir, f"ckpt_last_{it}.npz")
+            save_checkpoint(ckpt, config, model.net, optimizer, scheduler.state_dict(), it)
+            ckpts.append(ckpt)
+        if mesh is not None:
+            pmesh.barrier(mesh)
     return {"log_dir": log_dir, "checkpoints": ckpts, "best_val": best_val, "state": state,
             "metrics": {k: float(v) for k, v in metrics.items()}}
 
 
 def validate(model, eval_step, val_loader, seed, logger, it, num_t=10) -> float:
     """Loss at fixed timesteps and atom-type AUROC
-    (reference: scripts/train_diffusion.py:153-208)."""
+    (reference: scripts/train_diffusion.py:153-208). With a data-parallel
+    eval_step the losses and pred_v are global, so every rank returns the
+    one-process value and the schedulers and "new best" agree."""
     ts = np.linspace(0, model.num_timesteps - 1, num_t).astype(np.int64)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     tot = tot_pos = tot_v = 0.0

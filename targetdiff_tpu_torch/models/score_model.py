@@ -14,7 +14,7 @@ noise as arguments, and `sample_diffusion` loops over the jumps of
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -410,7 +410,8 @@ class DiffusionModel:
                          return_traj: bool = False, return_v_probs: bool = False,
                          sampler: str = "ddpm", eta: float = 0.0,
                          ddim_spacing: str = "uniform",
-                         impl: Optional[str] = None) -> SampleResult:
+                         impl: Optional[str] = None,
+                         noise_rows: Optional[Tuple[int, int, int]] = None) -> SampleResult:
         """The reverse process (targetdiff_tpu/models/score_model.py:
         sample_diffusion; reference: molopt_score_model.py:633-703).
         sampler='ddpm' runs the last `num_steps` timesteps of the schedule
@@ -423,7 +424,11 @@ class DiffusionModel:
         are uploaded once per run; each step draws its noise from
         `generator`. return_traj keeps every step's positions
         (uncentered, padded rows at the offset) and types on the device,
-        return_v_probs every step's recon and sampling log-probabilities."""
+        return_v_probs every step's recon and sampling log-probabilities.
+        noise_rows = (n, start, stop) says that `batch` is the rows
+        [start, stop) of n: each step's noise is drawn for all n rows and
+        sliced, as a one-process run draws it (sharded sampling; a rank
+        with no rows only draws)."""
         T = self.num_timesteps
         num_steps = T if num_steps is None else num_steps
         time_seq, s_seq = sampling_schedule(T, num_steps, sampler, ddim_spacing)
@@ -453,10 +458,17 @@ class DiffusionModel:
         if return_v_probs:
             traj["v0_traj"] = pos.new_empty((S,) + v.shape + (self.num_classes,))
             traj["vt_traj"] = torch.empty_like(traj["v0_traj"])
+        n, start, stop = noise_rows or (pos.shape[0], 0, pos.shape[0])
+        if stop - start != pos.shape[0]:
+            raise ValueError(f"noise_rows {noise_rows} do not match a batch of {pos.shape[0]}")
         for i, (t, s) in enumerate(zip(time_seq.tolist(), s_seq.tolist())):
-            pos_noise = torch.randn(pos.shape, generator=generator, device=dev)
+            pos_noise = torch.randn((n,) + pos.shape[1:], generator=generator,
+                                    device=dev)[start:stop]
             type_uniform = None if pos_only else torch.rand(
-                v.shape + (self.num_classes,), generator=generator, device=dev)
+                (n,) + v.shape[1:] + (self.num_classes,), generator=generator,
+                device=dev)[start:stop]
+            if stop == start:
+                continue
             out = self.sample_step(cbatch, pos, v, t, pos_noise, type_uniform, packed=packed,
                                    s=s, sampler=sampler,
                                    coefs=None if coefs is None else coefs[i], pos_only=pos_only,

@@ -5,8 +5,9 @@ One pocket is padded once and replicated across the batch; ligand sizes come
 from the atom-count prior on the host and become masks; init positions are
 the pocket's centre of mass plus N(0, 1) and init types are uniform (or,
 position-only, the reference ligand's). All noise is drawn from the caller's
-`torch.Generator`. `sample_testset` samples many pockets on one device from
-a pocket bank uploaded once, a bounded number of rows at a time.
+`torch.Generator`. `sample_testset` samples many pockets from a pocket bank
+uploaded once, a bounded number of rows at a time, on one device or with
+each chunk's rows split over the ranks of a process group.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from .data.batch import ComplexBatch
 from .models.score_model import DiffusionModel
+from .parallel.mesh import Mesh, gather_rows, row_range, shard_rows
 from .utils import atom_num
 
 
@@ -169,9 +171,10 @@ def sample_testset(
     sampler: str = "ddpm",
     eta: float = 0.0,
     ddim_spacing: str = "uniform",
+    mesh: Optional[Mesh] = None,
 ) -> List[Dict[str, Any]]:
     """`num_samples_per_pocket` molecules for each of `pockets` on
-    `model.device`: the one-device counterpart of
+    `model.device`: the counterpart of
     targetdiff_tpu/sampling.py:sample_testset_sharded (reference:
     scripts/batch_sample_diffusion.sh). The pockets are uploaded once, as a
     bank [P, NPpad, *]; the pocket x sample rows run `chunk_rows` at a time,
@@ -179,6 +182,13 @@ def sample_testset(
     is set by `chunk_rows`, not by the number of pockets. Mode 'ref' takes
     one reference ligand size per pocket in `ref_sizes`; sampler, eta and
     ddim_spacing as in DiffusionModel.sample_diffusion.
+
+    With a `mesh` (parallel/mesh.py), the rows of each chunk are split over
+    the ranks (`chunk_rows` rounded down to a multiple of W; a last chunk
+    may split unequally). Every rank builds the same bank and row sizes
+    from the same `rng` and draws each chunk's noise at the chunk's shape
+    from a generator seeded alike, samples its rows and gathers the rest,
+    so every rank returns the one-process result.
 
     Returns one dict per pocket: 'pos' and 'v' lists of numpy arrays, and
     'time', the host seconds of the chunks it shared, split by its share of
@@ -190,6 +200,8 @@ def sample_testset(
         raise ValueError("sample_num_atoms='ref' needs ref_sizes, one per pocket")
     if chunk_rows < 1:
         raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
+    if mesh is not None:
+        chunk_rows = max(mesh.world, chunk_rows // mesh.world * mesh.world)
     P, S = len(pockets), num_samples_per_pocket
     rows = P * S
     dev = model.device
@@ -233,11 +245,19 @@ def sample_testset(
                                         device=dev),
         )
         init_pos, init_v = init_ligand_state(batch, model.num_classes, generator)
+        start_row, stop_row = (0, C) if mesh is None else row_range(C, mesh)
+        if mesh is not None:
+            batch = shard_rows(batch, mesh, even=False)
+            init_pos, init_v = init_pos[start_row:stop_row], init_v[start_row:stop_row]
         t1 = time.perf_counter()
         res = model.sample_diffusion(batch, init_pos, init_v, generator, num_steps=num_steps,
-                                     sampler=sampler, eta=eta, ddim_spacing=ddim_spacing)
-        pos_np = res.pos.double().cpu().numpy()
-        v_np = res.v.cpu().numpy()
+                                     sampler=sampler, eta=eta, ddim_spacing=ddim_spacing,
+                                     noise_rows=(C, start_row, stop_row))
+        pos, v = res.pos, res.v
+        if mesh is not None:
+            pos, v = gather_rows(pos, C, mesh), gather_rows(v, C, mesh)
+        pos_np = pos.double().cpu().numpy()
+        v_np = v.cpu().numpy()
         chunk_t = time.perf_counter() - t1
         for pi, cnt in zip(*np.unique(row_pocket[idx], return_counts=True)):
             pocket_time[pi] += chunk_t * cnt / C

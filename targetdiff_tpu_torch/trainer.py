@@ -6,6 +6,14 @@ validation at fixed timesteps with the atom-type AUROC.
 
 PyTorch runs eagerly, so a step updates the TrainState's model and optimizer
 in place; its random draws come from a `torch.Generator` or are given.
+
+With a `parallel.mesh.Mesh` the steps are data parallel (the JAX package's
+dp-sharded step): every rank passes the same global batch and a generator
+seeded alike; the draws are taken at the global shape and each rank keeps
+its rows, computes the loss on them, and the gradients are averaged over
+the ranks before the clipped Adam step, so the clip sees the global norm.
+The Lt EMA sees the gathered global timesteps and losses, and the metrics
+are global means: the step is the one-process step on the global batch.
 """
 
 from __future__ import annotations
@@ -19,6 +27,8 @@ import torch
 from .data.batch import ComplexBatch
 from .models.score_model import DiffusionModel
 from .ops import diffusion as D
+from .parallel.mesh import (Mesh, all_reduce_grads, all_reduce_sum, gather_rows, row_range,
+                            shard_rows)
 from .utils.train import ClippedOptimizer
 
 
@@ -57,8 +67,43 @@ def update_Lt_ema(state: TrainState, t: torch.Tensor, vlb_graph: torch.Tensor) -
     state.Lt_count = state.Lt_count + counts
 
 
+def global_draws(model: DiffusionModel, batch: ComplexBatch, generator, time_step=None,
+                 pos_noise=None, v_uniform=None):
+    """get_diffusion_loss's draws for the whole batch, in its order: the
+    symmetric timesteps, the position noise and the type uniforms, each
+    drawn from `generator` where not given."""
+    B, dev = batch.num_graphs, batch.device
+    if time_step is None:
+        time_step, _ = D.sample_time_symmetric(B, model.num_timesteps, generator, dev)
+    if pos_noise is None:
+        pos_noise = torch.randn(batch.ligand_pos.shape, generator=generator, device=dev)
+    if v_uniform is None:
+        v_uniform = torch.rand(batch.ligand_v.shape + (model.num_classes,), generator=generator,
+                               device=dev)
+    return time_step, pos_noise, v_uniform
+
+
+def step_inputs(model: DiffusionModel, state: TrainState, batch: ComplexBatch, generator,
+                pos_noise_std: float = 0.0, time_sampling: str = "symmetric", time_step=None,
+                pos_noise=None, v_uniform=None):
+    """A train step's draws for the whole batch, in its order: the protein
+    position noise (std `pos_noise_std`), the importance timesteps, then
+    `global_draws`. Returns (the batch with its protein noised, time_step,
+    pos_noise, v_uniform)."""
+    if pos_noise_std > 0:
+        noise = torch.randn(batch.protein_pos.shape, generator=generator,
+                            device=batch.device) * pos_noise_std
+        noise = noise * batch.protein_mask[..., None].to(noise.dtype)
+        batch = batch._replace(protein_pos=batch.protein_pos + noise)
+    if time_step is None and time_sampling == "importance":
+        time_step, _ = D.sample_time_importance(batch.num_graphs, state.Lt_history,
+                                                state.Lt_count, generator)
+    return (batch,) + global_draws(model, batch, generator, time_step, pos_noise, v_uniform)
+
+
 def make_train_step(model: DiffusionModel, pos_noise_std: float = 0.0,
-                    time_sampling: str = "symmetric", impl: Optional[str] = None):
+                    time_sampling: str = "symmetric", impl: Optional[str] = None,
+                    mesh: Optional[Mesh] = None):
     """Returns train_step(state, batch, generator, time_step=None,
     pos_noise=None, v_uniform=None) -> (state, metrics). Draws not given
     come from `generator`; metrics (loss, loss_pos, loss_v, grad_norm, the
@@ -66,7 +111,10 @@ def make_train_step(model: DiffusionModel, pos_noise_std: float = 0.0,
     as `get_diffusion_loss(impl=impl)`: 'fast' on the kernels with the
     whole-block backward, 'fast_pl' on the per-layer kernels, 'eager' on
     the plain network (targetdiff_tpu/trainer.py:81), None the model's
-    `impl`, read from its config."""
+    `impl`, read from its config. With a `mesh`, `batch` and the given
+    draws are global (every rank passes the same), their rows must split
+    equally over the ranks, and the step is data parallel (module
+    docstring)."""
     if time_sampling not in ("symmetric", "importance"):
         raise ValueError(f"time_sampling must be 'symmetric' or 'importance', "
                          f"got {time_sampling!r}")
@@ -74,42 +122,66 @@ def make_train_step(model: DiffusionModel, pos_noise_std: float = 0.0,
     def train_step(state: TrainState, batch: ComplexBatch, generator: torch.Generator,
                    time_step=None, pos_noise=None, v_uniform=None):
         model.train()
-        if pos_noise_std > 0:
-            noise = torch.randn(batch.protein_pos.shape, generator=generator,
-                                device=batch.device) * pos_noise_std
-            noise = noise * batch.protein_mask[..., None].to(noise.dtype)
-            batch = batch._replace(protein_pos=batch.protein_pos + noise)
-        if time_step is None and time_sampling == "importance":
-            time_step, _ = D.sample_time_importance(batch.num_graphs, state.Lt_history,
-                                                    state.Lt_count, generator)
+        B = batch.num_graphs
+        if mesh is not None and B % mesh.world:
+            raise ValueError(f"a batch of {B} complexes does not split over {mesh.world} ranks")
+        batch, *draws = step_inputs(model, state, batch, generator, pos_noise_std, time_sampling,
+                                    time_step, pos_noise, v_uniform)
+        if mesh is not None:
+            start, stop = row_range(B, mesh)
+            draws = [d[start:stop] for d in draws]
+            batch = shard_rows(batch, mesh)
         state.optimizer.zero_grad()
-        out = model.get_diffusion_loss(batch, time_step=time_step, pos_noise=pos_noise,
-                                       v_uniform=v_uniform, generator=generator, impl=impl)
+        out = model.get_diffusion_loss(batch, *draws, impl=impl)
         out["loss"].backward()
+        t = out["time_step"]
+        vlb = (out["loss_pos_graph"] + model.loss_v_weight * out["loss_v_graph"]).detach()
+        metrics = torch.stack([out[k].detach() for k in ("loss", "loss_pos", "loss_v")])
+        if mesh is not None:
+            all_reduce_grads(model.parameters(), mesh)
+            t, vlb = gather_rows(t, B, mesh), gather_rows(vlb, B, mesh)
+            metrics = all_reduce_sum(metrics, mesh) / mesh.world
         grad_norm = state.optimizer.step()
-        update_Lt_ema(state, out["time_step"],
-                      out["loss_pos_graph"] + model.loss_v_weight * out["loss_v_graph"])
+        update_Lt_ema(state, t, vlb)
         state.step += 1
-        metrics = {k: out[k].detach() for k in ("loss", "loss_pos", "loss_v")}
+        metrics = dict(zip(("loss", "loss_pos", "loss_v"), metrics.unbind()))
         metrics["grad_norm"] = grad_norm.detach()
         return state, metrics
 
     return train_step
 
 
-def make_eval_step(model: DiffusionModel, impl: Optional[str] = None):
+def make_eval_step(model: DiffusionModel, impl: Optional[str] = None,
+                   mesh: Optional[Mesh] = None):
     """eval_step(batch, t_scalar, generator) -> loss, loss_pos, loss_v and
     pred_v at one fixed timestep (reference: scripts/train_diffusion.py:
     160-189 loops t over linspace(0, T-1, 10)), the denoiser run as
-    `get_diffusion_loss(impl=impl)`."""
+    `get_diffusion_loss(impl=impl)`. With a `mesh`, `batch` is global and
+    may split unequally (a last batch): each rank computes its rows, the
+    losses come back as the global means and pred_v for every row, on
+    every rank."""
 
     @torch.no_grad()
     def eval_step(batch: ComplexBatch, t_scalar: int, generator: Optional[torch.Generator]):
         model.eval()
-        t = torch.full((batch.num_graphs,), int(t_scalar), dtype=torch.long, device=batch.device)
-        out = model.get_diffusion_loss(batch, time_step=t, generator=generator, impl=impl)
-        return {"loss": out["loss"], "loss_pos": out["loss_pos"], "loss_v": out["loss_v"],
-                "pred_v": out["pred_ligand_v"]}
+        B = batch.num_graphs
+        t = torch.full((B,), int(t_scalar), dtype=torch.long, device=batch.device)
+        if mesh is None:
+            out = model.get_diffusion_loss(batch, time_step=t, generator=generator, impl=impl)
+            return {"loss": out["loss"], "loss_pos": out["loss_pos"], "loss_v": out["loss_v"],
+                    "pred_v": out["pred_ligand_v"]}
+        start, stop = row_range(B, mesh)
+        draws = [d[start:stop] for d in global_draws(model, batch, generator, t)]
+        local = shard_rows(batch, mesh, even=False)
+        sums = torch.zeros(3, device=batch.device)
+        pred_v = torch.zeros(local.ligand_v.shape + (model.num_classes,), device=batch.device)
+        if stop > start:  # a last batch of fewer rows than ranks leaves some ranks none
+            out = model.get_diffusion_loss(local, *draws, impl=impl)
+            sums = torch.stack([out[k] for k in ("loss", "loss_pos", "loss_v")]) * (stop - start)
+            pred_v = out["pred_ligand_v"]
+        loss, loss_pos, loss_v = (all_reduce_sum(sums, mesh) / B).unbind()
+        return {"loss": loss, "loss_pos": loss_pos, "loss_v": loss_v,
+                "pred_v": gather_rows(pred_v, B, mesh)}
 
     return eval_step
 
