@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (targetdiff_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py profile [hybrid|knn|block|train] [BATCH]
+    python3 chip_smoke.py profile [hybrid|knn|block|train] [BATCH] [bf16]
     python3 chip_smoke.py duel [CHECKOUT]
     python3 chip_smoke.py margins [CHECKOUT]
     python3 chip_smoke.py gate [STEPS] [N_MOLS]
@@ -75,14 +75,29 @@ at full width: two ranks of one process group on this card over gloo (and,
 on a machine with two cards, one card a rank over NCCL) take [train]'s B=32
 step split 16 / 16 and 8 rows of the example pocket for 20 DDPM steps, each
 held to one process in the same call, with each rank's launches, ms per
-step and the gradient all-reduce's ms and bytes. Every phase prints one line; any failure exits non-zero. The last two lines are a
+step and the gradient all-reduce's ms and bytes.
+
+Sampling's default precision is bf16, as the JAX package's: the phases above
+that hold the kernels to float32-grade bars ([forward], [sample],
+[ddim-sample], [hybrid-sample], [embedding], the train CLI's sampling) pass
+dtype=torch.float32; [gate-short], [dp-sample] and the `gate` and `ddim`
+modes sample at the default. After [hybrid-sample], [bf16-block] holds the
+bf16 block kernels (B=4, N=608, K=32, L=9) against the bf16 plain block and
+float64 (x and ligand h within 2e-2 of scale, the JAX package's bf16 bar;
+max and median printed) and each bf16 launch alone (node, x2h edge, h2x
+edge, edge weights) the same way, timed beside its bound at the bf16
+tensor-core rate; [bf16-layers] the bf16 per-layer kernels at the hybrid
+shape (N = 640, K = 95); [bf16-sample] runs 1000 DDPM steps of B=4 at the
+default precision on the kNN and the hybrid model, with the bf16 launches
+counted exactly, no float32 launch, and ms per step beside the float32
+runs'. Each bf16 launch has its own entry in the kernels' JSON line. Every phase prints one line; any failure exits non-zero. The last two lines are a
 JSON record of the kernels (each with its time, its plain version's time and
 the least time the card could take for its work) and the contract line
 {"ok": true, "device": {...}}.
 
 `profile` traces 10 DDPM steps of hybrid (64 ligand slots: N = 640, K = 95)
-or kNN (32 slots: N = 608, K = 32) sampling of BATCH molecules (default 4)
-with torch.profiler: the device
+or kNN (32 slots: N = 608, K = 32) sampling of BATCH molecules (default 4),
+in float32 or, with a trailing `bf16`, in bf16, with torch.profiler: the device
 time of each kernel and of the step, beside the host time of the same steps
 run just before without the profiler; `profile block` the inference block
 and the train-mode block forward on the same inputs, in turns, kernel by
@@ -133,6 +148,7 @@ Needs a CUDA device and the CUDA toolkit (nvcc); there is no CPU path.
 from __future__ import annotations
 
 import copy
+import inspect
 import json
 import logging
 import pickle
@@ -247,6 +263,7 @@ GUMBEL_MARGIN = 1e-3  # types are held equal where the sampled class leads by mo
 # The card's published peaks (NVIDIA H100 SXM data sheet): TF32 on the tensor
 # cores, float32 outside them, and device memory.
 PEAK_TF32_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 495e12, 67e12, 3.35e12
+PEAK_BF16_FLOPS = 989e12  # bf16 on the tensor cores (dense): the bf16 kernels' products
 # FLOP per live edge and per real node as (dense products, the rest), counted
 # from the kernels' arithmetic at the released widths (hidden 128, 16 heads,
 # 20 RBF knots). Dense products, each counted once at the TF32 rate: the
@@ -342,11 +359,12 @@ def digest(torch, *tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def bound(flops, bytes_moved: float) -> dict:
+def bound(flops, bytes_moved: float, tc_peak: float = PEAK_TF32_FLOPS) -> dict:
     """The least time the card could take: the largest of the dense products
-    at the TF32 tensor-core rate, the other operations at the float32 rate
-    and the bytes at the memory rate. `flops` is (dense products, rest)."""
-    t_tc, t_f32 = flops[0] / PEAK_TF32_FLOPS, flops[1] / PEAK_F32_FLOPS
+    at the TF32 tensor-core rate (the bf16 kernels: tc_peak=PEAK_BF16_FLOPS),
+    the other operations at the float32 rate and the bytes at the memory
+    rate. `flops` is (dense products, rest)."""
+    t_tc, t_f32 = flops[0] / tc_peak, flops[1] / PEAK_F32_FLOPS
     t_bytes = bytes_moved / PEAK_BYTES_PER_S
     return {"bound_ms": float(1e3 * max(t_tc, t_f32, t_bytes)),
             "bound_by": "bytes" if t_bytes > max(t_tc, t_f32) else "operations"}
@@ -360,7 +378,7 @@ def tc_share(flops) -> float:
 NODE_FIELDS = ("w_node", "b_node", "q_ln", "w_q2", "b_q2")
 
 
-def pass_launcher(torch, kblock, h, x, nbh, mask_ligand, e_w, stacks, n_ligand):
+def pass_launcher(torch, kblock, h, x, nbh, mask_ligand, e_w, stacks, n_ligand, bf16=False):
     """The first layer of `stacks` launched piece by piece through the C
     entries: `.node()` the node kernel on every row (`td_block_node`, as the
     x2h pass launches it), `.node_rows()` as the h2x pass launches it (rows
@@ -369,7 +387,8 @@ def pass_launcher(torch, kblock, h, x, nbh, mask_ligand, e_w, stacks, n_ligand):
     edge launches alone (`td_block_x2h`, `td_block_h2x`) on the projections
     of the last node launch, into `.out` (h') and `.xout` (x', protein rows
     as x). `.bytes[name]` is what a launch must read and write (each input
-    once, the rows it needs)."""
+    once, the rows it needs). bf16=True launches the `*_bf16` entries
+    (stacks packed in bf16)."""
     from types import SimpleNamespace
 
     from targetdiff_tpu_torch.ops.rbf import gaussian_smearing_offsets
@@ -391,24 +410,25 @@ def pass_launcher(torch, kblock, h, x, nbh, mask_ligand, e_w, stacks, n_ligand):
              t.ni.data_ptr(), t.nj.data_ptr(), t.q.data_ptr(), offsets.data_ptr(), coeff, pp, B,
              N, K)
     node_args = (pp, t.ni.data_ptr(), t.nj.data_ptr(), t.q.data_ptr())
+    e_node, e_rows, e_x2h, e_h2x = (name + ("_bf16" if bf16 else "") for name in (
+        "td_block_node", "td_block_node_rows", "td_block_x2h", "td_block_h2x"))
 
     def node():
-        kblock.build.check(fns["td_block_node"](t.h.data_ptr(), B * N, *node_args, stream),
-                           "td_block_node")
+        kblock.build.check(fns[e_node](t.h.data_ptr(), B * N, *node_args, stream), e_node)
 
     def node_rows():
-        if "td_block_node_rows" not in fns:
+        if e_rows not in fns:
             return node()
-        kblock.build.check(fns["td_block_node_rows"](t.h.data_ptr(), B, N, row0, *node_args,
-                                                     None, stream), "td_block_node_rows")
+        kblock.build.check(fns[e_rows](t.h.data_ptr(), B, N, row0, *node_args, None, stream),
+                           e_rows)
 
     def x2h():
-        kblock.build.check(fns["td_block_x2h"](t.h.data_ptr(), t.x.data_ptr(), *graph, 0,
-                                               t.out.data_ptr(), stream), "td_block_x2h")
+        kblock.build.check(fns[e_x2h](t.h.data_ptr(), t.x.data_ptr(), *graph, 0,
+                                      t.out.data_ptr(), stream), e_x2h)
 
     def h2x():
-        kblock.build.check(fns["td_block_h2x"](t.x.data_ptr(), *graph, row0, t.xout.data_ptr(),
-                                               stream), "td_block_h2x")
+        kblock.build.check(fns[e_h2x](t.x.data_ptr(), *graph, row0, t.xout.data_ptr(), stream),
+                           e_h2x)
 
     weights = {k: v[0] for k, v in stacks.items()}
     node_w = {k: v for k, v in weights.items() if k in NODE_FIELDS}
@@ -785,7 +805,7 @@ def main(argv) -> int:
 
     # whole forward: kernel-backed against eager, same inputs
     with torch.no_grad():
-        fk = model.fast_apply(batch, lpos, lv, packed=packed)
+        fk = model.fast_apply(batch, lpos, lv, packed=packed, dtype=torch.float32)
         fp = model.apply(batch, lpos, lv)
     lm = lmask[..., None].expand(-1, -1, 3)
     fwd_pos_err = check_close("forward pos", fk["pred_ligand_pos"][lm], fp["pred_ligand_pos"][lm],
@@ -803,7 +823,7 @@ def main(argv) -> int:
     res = sample_diffusion_ligand(
         model, pocket, num_samples=B, generator=torch.Generator(device=dev).manual_seed(2),
         batch_size=B, num_steps=steps, max_protein=MAX_PROTEIN, max_ligand=MAX_LIGAND,
-        rng=np.random.default_rng(2))
+        rng=np.random.default_rng(2), dtype=torch.float32)
     wall = time.perf_counter() - t0
     knn_launches, block_launches, ew_launches = kknn.LAUNCHES, kblock.LAUNCHES, kblock.EW_LAUNCHES
     if knn_launches == 0 or block_launches == 0 or ew_launches != block_launches:
@@ -833,7 +853,13 @@ def main(argv) -> int:
 
     layers = layer_phases(torch, dev, feat, pocket, rn, h, x, plain_nbh, mask_ligand, node_mask)
     failures = []
-    hybrid_launches = hybrid_sample_phase(torch, dev, pocket, layers["model"], failures)
+    hybrid_launches, hybrid_ms = hybrid_sample_phase(torch, dev, pocket, layers["model"],
+                                                     failures)
+    bf16 = {"block": bf16_block_phase(torch, kblock, kel, rn, h, x, plain_nbh, mask_ligand,
+                                      node_mask, work),
+            "layers": bf16_layers_phase(torch, dev, kel, pocket, feat.feature_dim),
+            "launches": bf16_sample_phase(torch, dev, model, layers["model"], pocket,
+                                          1e3 * sample_s / steps, hybrid_ms, failures)}
     train = train_phases(torch, dev, model, rn, h, x, plain_nbh, mask_ligand, node_mask, batch,
                          pocket, feat, layers["model"], layers["batch"])
     cli_launches = likelihood_cli_phase(torch, train["checkpoint"])
@@ -878,6 +904,7 @@ def main(argv) -> int:
          "replaces": "targetdiff_tpu/ops/pallas/block_denoiser.py:319", "launches": ew_launches,
          **{k: pieces[f"ew_{k}"] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                             "bound_by")}, **by_path("ew"), **no_library},
+        *bf16_kernel_entries(bf16, dp),
         {"name": "block_denoiser_train", "route": "cuda",
          "source": "targetdiff_tpu_torch/csrc/block_denoiser.cu",
          "replaces": "targetdiff_tpu/ops/pallas/block_denoiser.py:154", **train["fwd"],
@@ -916,6 +943,47 @@ def main(argv) -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def bf16_kernel_entries(bf16: dict, dp: dict) -> list:
+    """The kernels line's entries of the bf16 launches: launches from
+    [bf16-sample] (block, edge weights, node: one a pass, x2h and h2x edge
+    passes from its kNN run; the per-layer kernels from its hybrid run),
+    errors, times and bounds (bf16 tensor-core rate) from [bf16-block] and
+    [bf16-layers]; no single PyTorch call computes any of them."""
+    knn, hybrid = bf16["launches"]["knn"], bf16["launches"]["hybrid"]
+    blk = "targetdiff_tpu_torch/csrc/block_denoiser.cu"
+    rows = (
+        ("block_denoiser_bf16", blk, "targetdiff_tpu/ops/pallas/block_denoiser.py:154",
+         knn["block_bf16"], bf16["block"]["block"],
+         {"launches_dp_sample_rank0": dp["block_bf16"]["sample"]}),
+        ("block_denoiser.ew_bf16", blk, "targetdiff_tpu/ops/pallas/block_denoiser.py:319",
+         knn["ew_bf16"], bf16["block"]["ew"], {}),
+        ("block_denoiser.node_bf16", "targetdiff_tpu_torch/csrc/node_proj.cuh",
+         "targetdiff_tpu/ops/pallas/block_denoiser.py:154",
+         knn["x2h_pass_bf16"] + knn["h2x_pass_bf16"], bf16["block"]["node"],
+         {"h2x_pass_" + k: v for k, v in bf16["block"]["node_h2x"].items()}),
+        ("block_denoiser.x2h_edge_bf16", "targetdiff_tpu_torch/csrc/x2h_edge.cuh",
+         "targetdiff_tpu/ops/pallas/block_denoiser.py:154", knn["x2h_pass_bf16"],
+         bf16["block"]["x2h_edge"], {}),
+        ("block_denoiser.h2x_edge_bf16", "targetdiff_tpu_torch/csrc/h2x_edge.cuh",
+         "targetdiff_tpu/ops/pallas/block_denoiser.py:154", knn["h2x_pass_bf16"],
+         bf16["block"]["h2x_edge"], {}),
+        ("x2h_layer_bf16", "targetdiff_tpu_torch/csrc/edge_layer.cu",
+         "targetdiff_tpu/ops/pallas/edge_layer.py:189", hybrid["x2h_layer_bf16"],
+         bf16["layers"]["x2h"], {}),
+        ("h2x_layer_bf16", "targetdiff_tpu_torch/csrc/edge_layer.cu",
+         "targetdiff_tpu/ops/pallas/edge_layer.py:235", hybrid["h2x_layer_bf16"],
+         bf16["layers"]["h2x"], {}),
+    )
+    return [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches, **{k: f[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                          "bound_ms", "bound_by", "device_ms")},
+             "max_over_scale": f["margins"]["vs_bf16_plain"]["max"],
+             "median_over_scale": f["margins"]["vs_bf16_plain"]["median"],
+             "max_over_scale_vs_float64": f["margins"]["vs_float64"]["max"], **extra,
+             "library_ms": None}
+            for name, source, replaces, launches, f, extra in rows]
 
 
 def eval_phase(res) -> None:
@@ -959,7 +1027,7 @@ def ddim_jump_fields(torch, model, cbatch, pos, v, packed, sampler, t, s, eta, s
     coefs = D.ddim_pos_coefficients(model.pos_sched.betas.cpu().numpy(), [t], [s], eta)
     outs = {impl: model.sample_step(cbatch, pos, v, t, noise, uniform, packed=packed, s=s,
                                     sampler=sampler, coefs=[float(c[0]) for c in coefs],
-                                    return_v_probs=True, impl=impl)
+                                    return_v_probs=True, impl=impl, dtype=torch.float32)
             for impl in ("fast", "eager")}
     torch.cuda.synchronize()
     lm = cbatch.ligand_mask
@@ -1026,7 +1094,8 @@ def ddim_sample_phase(torch, dev, model, pocket, batch, ddpm_ms_per_step) -> dic
             model, pocket, num_samples=B, generator=torch.Generator(device=dev).manual_seed(20 + i),
             batch_size=B, max_protein=MAX_PROTEIN, max_ligand=MAX_LIGAND,
             rng=np.random.default_rng(20 + i), ref_ligand=ref_ligand,
-            sample_num_atoms="ref" if kw.get("pos_only") else "prior", **kw)
+            sample_num_atoms="ref" if kw.get("pos_only") else "prior", dtype=torch.float32,
+            **kw)
         wall = time.perf_counter() - t0
         launches = path_launches()
         if launches != path_want(n_eval, n_eval):
@@ -1061,7 +1130,8 @@ def ddim_sample_phase(torch, dev, model, pocket, batch, ddpm_ms_per_step) -> dic
                              device=dev)
     same = [model.sample_diffusion(batch, init, batch.ligand_v,
                                    torch.Generator(device=dev).manual_seed(seed), num_steps=20,
-                                   sampler="ddim", eta=0.0, pos_only=True).pos
+                                   sampler="ddim", eta=0.0, pos_only=True,
+                                   dtype=torch.float32).pos
             for seed in (1, 2)]
     if not torch.equal(*same):
         raise AssertionError("ddim-sample: eta-0 positions depend on the generator")
@@ -1073,8 +1143,9 @@ def ddim_sample_phase(torch, dev, model, pocket, batch, ddpm_ms_per_step) -> dic
 def gate_short_phase(torch, dev) -> None:
     """[gate-short]: the port's quality gate at GATE_SHORT's size (1000 DDPM
     steps per model, one sampling chunk) on the kernel path, held by the
-    launch counts of its training and sampling; its report must be complete
-    and finite, its checks need not pass."""
+    launch counts of its training (float32) and sampling (bf16, the gate's
+    default, as the JAX gate's); its report must be complete and finite,
+    its checks need not pass."""
     from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
     from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
     from targetdiff_tpu_torch.ops.kernels import knn as kknn
@@ -1082,6 +1153,7 @@ def gate_short_phase(torch, dev) -> None:
     from targetdiff_tpu_torch.tools import quality_gate as qg
 
     kknn.LAUNCHES = kblock.LAUNCHES = kblock.EW_LAUNCHES = kblock.TRAIN_LAUNCHES = 0
+    kblock.BF16_LAUNCHES = kblock.BF16_EW_LAUNCHES = 0
     kvjp.LAUNCHES = kvjp.NODE_BWD_LAUNCHES = kvjp.ADJ_LAUNCHES = 0
     kwg.LAUNCHES.update(dict.fromkeys(kwg.LAUNCHES, 0))
     t0 = time.perf_counter()
@@ -1089,12 +1161,14 @@ def gate_short_phase(torch, dev) -> None:
                          n_pockets=GATE_SHORT["n_pockets"], log=lambda _: None)
     wall = time.perf_counter() - t0
     launches = {"knn": kknn.LAUNCHES, "block": kblock.LAUNCHES, "ew": kblock.EW_LAUNCHES,
+                "block_bf16": kblock.BF16_LAUNCHES, "ew_bf16": kblock.BF16_EW_LAUNCHES,
                 "train_fwd": kblock.TRAIN_LAUNCHES, "vjp": kvjp.LAUNCHES,
                 "node_bwd": kvjp.NODE_BWD_LAUNCHES, "adj": kvjp.ADJ_LAUNCHES,
                 "weight_grad": dict(kwg.LAUNCHES)}
     steps, L = GATE_SHORT["steps"], FLAGSHIP["num_layers"]
     sampling = 2 * report["chunks"] * report["num_steps"]  # two models
-    want = {"knn": steps + sampling, "block": sampling, "ew": sampling, "train_fwd": steps,
+    want = {"knn": steps + sampling, "block": 0, "ew": 0, "block_bf16": sampling,
+            "ew_bf16": sampling, "train_fwd": steps,
             "vjp": steps, "node_bwd": 2 * L * steps, "adj": 2 * steps,
             "weight_grad": {"x2h_edge": 3 * L * steps, "h2x_edge": 3 * L * steps,
                             "node": 4 * L * steps, "alone": 0}}
@@ -1231,7 +1305,7 @@ def embedding_phase(torch, dev, model, pocket, feat_dim) -> dict:
 
     def moving():
         with torch.no_grad():
-            return model.fast_apply(batch, batch.ligand_pos, batch.ligand_v)
+            return model.fast_apply(batch, batch.ligand_pos, batch.ligand_v, dtype=torch.float32)
 
     def frozen():
         return model.fetch_embedding(batch, impl="fast")
@@ -1360,12 +1434,15 @@ def ddim(torch, argv) -> int:
     t0 = time.perf_counter()
     build.load_library()
     build_s = time.perf_counter() - t0
-    kblock.LAUNCHES = kblock.TRAIN_LAUNCHES = 0
+    kblock.LAUNCHES = kblock.BF16_LAUNCHES = kblock.TRAIN_LAUNCHES = 0
     report = ddim_eval.run(steps, n_mols, torch.device("cuda:0"),
                            log=lambda line: print(line, flush=True))
     rows = [name for name, _ in ddim_eval.ROWS]
     chunks = report[rows[0]]["chunks"]
-    launches = {"block": kblock.LAUNCHES, "train_fwd": kblock.TRAIN_LAUNCHES}
+    # its rows sample at the default precision, bf16, as the JAX script's
+    launches = {"block": kblock.BF16_LAUNCHES, "train_fwd": kblock.TRAIN_LAUNCHES}
+    if kblock.LAUNCHES:
+        raise AssertionError(f"ddim: {kblock.LAUNCHES} float32 block launches in bf16 rows")
     want = {"block": chunks * sum(report[name]["nfe"] for name in rows), "train_fwd": steps}
     report["checks"] = ddim_eval.checks(report)
     report["checks"]["launches"] = launches == want
@@ -1829,8 +1906,8 @@ def layer_phases(torch, dev, feat, pocket, rn, h, x, nbh, mask_ligand, node_mask
 def hybrid_sample_phase(torch, dev, pocket, hmodel, failures):
     """[hybrid-sample]: 1000 DDPM steps of the hybrid model (64 ligand slots,
     K = 95) through `sample_diffusion_ligand`, on the per-layer kernels
-    only. Returns the forward kernels' launches; a check that fails after
-    the run is added to `failures`."""
+    only, in float32. Returns the forward kernels' launches and the ms per
+    step; a check that fails after the run is added to `failures`."""
     from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
     from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
     from targetdiff_tpu_torch.ops.kernels import knn as kknn
@@ -1842,7 +1919,7 @@ def hybrid_sample_phase(torch, dev, pocket, hmodel, failures):
     res = sample_diffusion_ligand(
         hmodel, pocket, num_samples=B, generator=torch.Generator(device=dev).manual_seed(9),
         batch_size=B, num_steps=steps, max_protein=MAX_PROTEIN, max_ligand=HYBRID_LIGAND,
-        rng=np.random.default_rng(9))
+        rng=np.random.default_rng(9), dtype=torch.float32)
     wall = time.perf_counter() - t0
     launches = {"x2h": kel.X2H_LAUNCHES, "h2x": kel.H2X_LAUNCHES, "block": kblock.LAUNCHES,
                 "knn": kknn.LAUNCHES}
@@ -1868,7 +1945,284 @@ def hybrid_sample_phase(torch, dev, pocket, hmodel, failures):
     if not near:  # raised after the remaining phases have run and printed
         failures.append(f"hybrid-sample: a molecule's centroid lies {dist} A from the "
                         f"pocket's centre, outside its {radius} A radius")
-    return launches
+    return launches, 1e3 * sample_s / steps
+
+
+# The bf16 kernels (dtype=torch.bfloat16, the sampling path's default, as the
+# JAX package's): every output held within BF16_BAR of its scale (the JAX
+# package's own bf16 bar, tools/kparity.py:91: max |a - b| / max |b|) of
+# the bf16 plain version and of float64 (the float32 semantics computed in
+# float64), with the median of each printed beside the max.
+BF16_BAR = 2e-2
+
+
+def bf16_margins(label, got, want16, want64) -> dict:
+    """Max and median |got - want| over max |want| against the bf16 plain
+    version and against float64; raises if a max reaches BF16_BAR."""
+    out = {}
+    for name, want in (("vs_bf16_plain", want16), ("vs_float64", want64)):
+        d = (got.double() - want.double()).abs() / float(want.double().abs().max())
+        out[name] = {"max": float(d.max()), "median": float(d.median())}
+        if not out[name]["max"] < BF16_BAR:
+            raise AssertionError(f"{label}: {out[name]['max']} of scale {name} "
+                                 f"(bar {BF16_BAR})")
+    return out
+
+
+def bf16_block_phase(torch, kblock, kel, rn, h, x, nbh, mask_ligand, node_mask, work) -> dict:
+    """[bf16-block]: the bf16 block kernels (`block_denoiser_cuda(dtype=
+    torch.bfloat16)`) against the bf16 plain block (`block_forward(dtype=
+    torch.bfloat16)`) and float64 at [block]'s shape (kNN B=4, N=608, K=32,
+    L=9, flagship width), x and h of the ligand rows at BF16_BAR, two calls
+    bitwise equal; then each bf16 launch alone on layer 0's inputs (node,
+    the h2x pass's node launch, x2h edge, h2x edge, edge weights), held the
+    same way (the node launch's ni and nj at NODE_REL against float64 of
+    the same bf16 operands). Each timed (CUDA events and device time)
+    beside its bound at the bf16 tensor-core rate and its plain version.
+    Returns the kernels' JSON fields."""
+    bf16 = torch.bfloat16
+    H = h.shape[-1]
+    lig = mask_ligand
+    with torch.no_grad():
+        packed = kblock.pack_block_params(rn, bf16)
+        runs = [kblock.block_denoiser_cuda(rn, h, x, nbh, mask_ligand, MAX_LIGAND, packed,
+                                           dtype=bf16) for _ in range(2)]
+        want16 = rn.block_forward(h, x, nbh, mask_ligand, dtype=bf16)
+        rn64 = copy.deepcopy(rn).double()
+        want64 = rn64.block_forward(h.double(), x.double(), nbh, mask_ligand)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("bf16-block: two calls differ")
+    h_k, x_k = runs[0]
+    block = {"x": bf16_margins("bf16-block x", x_k[lig], want16[1][lig], want64[1][lig]),
+             "h": bf16_margins("bf16-block h", h_k[lig], want16[0][lig], want64[0][lig])}
+    del want64
+    with torch.no_grad():
+        block_ms = cuda_ms(torch, lambda: kblock.block_denoiser_cuda(
+            rn, h, x, nbh, mask_ligand, MAX_LIGAND, packed, dtype=bf16), reps=10)
+        block_device_ms = device_ms(torch, lambda: kblock.block_denoiser_cuda(
+            rn, h, x, nbh, mask_ligand, MAX_LIGAND, packed, dtype=bf16), calls=5)
+        block_plain_ms = cuda_ms(torch, lambda: rn.block_forward(h, x, nbh, mask_ligand,
+                                                                 dtype=bf16), reps=10)
+    L = FLAGSHIP["num_layers"]
+    block_work = L * block_flops(*work) + work[2] * FLOP_EW_EDGE
+    worst = {ref: {stat: max(block[out][ref][stat] for out in block) for stat in ("max", "median")}
+             for ref in ("vs_bf16_plain", "vs_float64")}
+    fields = {"block": dict(max_abs_err=max(float((x_k - want16[1])[lig].abs().max()),
+                                            float((h_k - want16[0])[lig].abs().max())),
+                            margins=worst, margins_by_output=block, ms=block_ms,
+                            device_ms=block_device_ms,
+                            plain_ms=block_plain_ms, **bound(block_work, nbytes(
+                                h, x, nbh.idx, nbh.mask, mask_ligand, packed.x2h, packed.h2x,
+                                *packed.ew, h_k, x_k), PEAK_BF16_FLOPS))}
+
+    # the launches alone on layer 0's inputs
+    nodes, lig_nodes, edges, lig_edges = work
+    layer, layer64 = rn.base_block[0], rn64.base_block[0]
+    px, ph = ({k: v[:1] for k, v in st.items()} for st in (packed.x2h, packed.h2x))
+    with torch.no_grad():
+        e_w = rn.edge_weights(x, nbh, bf16)[..., 0]
+        xl = pass_launcher(torch, kblock, h, x, nbh, mask_ligand, e_w, px, MAX_LIGAND, bf16=True)
+        xl.node()
+        node = (xl.ni.clone(), xl.nj.clone(), xl.q.clone())
+        xl.x2h()
+        h16 = kel.x2h_layer_plain(layer, h, x, nbh, mask_ligand, e_w, bf16)
+        h64 = kel.x2h_layer_plain(layer64, h.double(), x.double(), nbh, mask_ligand, e_w.double())
+        hl = pass_launcher(torch, kblock, h16, x, nbh, mask_ligand, e_w, ph, MAX_LIGAND,
+                           bf16=True)
+        hl.node_rows()
+        hl.h2x()
+        x16 = kel.h2x_layer_plain(layer, h16, x, nbh, mask_ligand, e_w, bf16)
+        x64 = kel.h2x_layer_plain(layer64, h16.double(), x.double(), nbh, mask_ligand,
+                                  e_w.double())
+        node16 = kblock.node_projections_plain(h.double().reshape(-1, H), px)
+        node64 = kblock.node_projections_plain(h.double().reshape(-1, H), {
+            k: v.double() for k, v in kblock.pack_pass_params(rn)[0].items()})
+        torch.cuda.synchronize()
+        rel = max(float((g.double() - w).abs().max() / w.abs().max())
+                  for g, w in zip(node[:2], node16[:2]))
+        if not rel < NODE_REL:
+            raise AssertionError(f"bf16-block node launch: ni|nj {rel} of scale from float64 "
+                                 f"of its bf16 operands (bar {NODE_REL})")
+        rows = node_mask
+        pieces = {
+            "node": dict(max_abs_err=float((node[2].double() - node16[2]).abs().max()),
+                         ni_nj_max_rel_err=rel,
+                         margins=bf16_margins("bf16-block node launch q", node[2], node16[2],
+                                              node64[2])),
+            "x2h_edge": dict(max_abs_err=float((xl.out - h16)[rows].abs().max()),
+                             margins=bf16_margins("bf16-block x2h edge launch", xl.out[rows],
+                                                  h16[rows], h64[rows])),
+            "h2x_edge": dict(max_abs_err=float((hl.xout - x16)[lig].abs().max()),
+                             margins=bf16_margins("bf16-block h2x edge launch", hl.xout[lig],
+                                                  x16[lig], x64[lig])),
+        }
+        del h64, x64, node64
+        plain = {"node": lambda: kblock.node_projections_plain(h.reshape(-1, H), px),
+                 "x2h_edge": lambda: kel.x2h_layer_plain(layer, h, x, nbh, mask_ligand, e_w,
+                                                         bf16),
+                 "h2x_edge": lambda: kel.h2x_layer_plain(layer, h16, x, nbh, mask_ligand, e_w,
+                                                         bf16)}
+        runs = {"node": xl.node, "node_h2x": hl.node_rows, "x2h_edge": xl.x2h,
+                "h2x_edge": hl.h2x}
+        for name, fn in runs.items():
+            f = pieces.setdefault(name, {})
+            f.update(ms=cuda_ms(torch, fn), device_ms=device_ms(torch, fn))
+            if name in plain:
+                f["plain_ms"] = cuda_ms(torch, plain[name])
+    for name, flops, nb in (("x2h_edge", edges * FLOP_EDGE["x2h"], xl.bytes["x2h"]),
+                            ("h2x_edge", lig_edges * FLOP_EDGE["h2x"], hl.bytes["h2x"]),
+                            ("node", node_flops("x2h", nodes, lig_nodes), xl.bytes["node"]),
+                            ("node_h2x", node_flops("h2x", nodes, lig_nodes),
+                             hl.bytes["node_rows"])):
+        pieces[name].update(bound(flops, nb, PEAK_BF16_FLOPS))
+    fields.update(pieces)
+
+    # the edge-weight launch alone
+    with torch.no_grad():
+        got = kblock.edge_weights_cuda(x, nbh, packed)
+        again = kblock.edge_weights_cuda(x, nbh, packed)
+        ew16 = rn.edge_weights(x, nbh, bf16)[..., 0]
+        ew64 = rn64.edge_weights(x.double(), nbh)[..., 0]
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError("bf16-block edge-weight launch: two launches differ")
+        m = nbh.mask
+        fields["ew"] = dict(
+            max_abs_err=float((got - ew16)[m].abs().max()),
+            margins=bf16_margins("bf16-block edge-weight launch", got[m], ew16[m], ew64[m]),
+            ms=cuda_ms(torch, lambda: kblock.edge_weights_cuda(x, nbh, packed)),
+            device_ms=device_ms(torch, lambda: kblock.edge_weights_cuda(x, nbh, packed)),
+            plain_ms=cuda_ms(torch, lambda: rn.edge_weights(x, nbh, bf16)),
+            **bound(work[2] * FLOP_EW_EDGE, nbytes(x, nbh.idx, got, *packed.ew),
+                    PEAK_BF16_FLOPS))
+    del rn64
+    phase("bf16-block", shape=f"B={B},N={h.shape[1]},K={nbh.idx.shape[-1]},L={L},H=128,"
+          "heads=16", bar=BF16_BAR, **fields)
+    return fields
+
+
+def bf16_layers_phase(torch, dev, kel, pocket, feat_dim) -> dict:
+    """[bf16-layers]: the bf16 per-layer kernels (`x2h_layer_cuda` /
+    `h2x_layer_cuda` with dtype=torch.bfloat16) against their bf16 plain
+    layers and float64 at [layers]' hybrid shape (the example pocket with 64
+    ligand slots: N = 640, K = 95): h of the valid rows and x of the ligand
+    rows at BF16_BAR, two launches bitwise equal; each timed beside its
+    bound at the bf16 tensor-core rate and its plain version. Returns the
+    two kernels' JSON fields."""
+    bf16 = torch.bfloat16
+    hmodel, _, h, x, node_mask, mlig, nbh = hybrid_setup(torch, dev, pocket, feat_dim)
+    layer = hmodel.net.refine_net.base_block[0]
+    layer64 = copy.deepcopy(layer).double()
+    with torch.no_grad():
+        e_w = hmodel.net.refine_net.edge_weights(x, nbh)[..., 0]
+        px, ph = kel.pack_layer_params(layer, bf16)
+        h_k = [kel.x2h_layer_cuda(h, x, nbh, mlig, e_w, px, bf16) for _ in range(2)]
+        h16 = kel.x2h_layer_plain(layer, h, x, nbh, mlig, e_w, bf16)
+        h64 = kel.x2h_layer_plain(layer64, h.double(), x.double(), nbh, mlig, e_w.double())
+        x_k = [kel.h2x_layer_cuda(h16, x, nbh, mlig, e_w, HYBRID_LIGAND, ph, bf16)
+               for _ in range(2)]
+        x16 = kel.h2x_layer_plain(layer, h16, x, nbh, mlig, e_w, bf16)
+        x64 = kel.h2x_layer_plain(layer64, h16.double(), x.double(), nbh, mlig, e_w.double())
+    torch.cuda.synchronize()
+    if not (torch.equal(*h_k) and torch.equal(*x_k)):
+        raise AssertionError("bf16-layers: two launches differ")
+    nodes, lig_nodes, edges, lig_edges = layer_work(nbh, mlig, node_mask)
+    lig, _, either = h2x_rows(torch, nbh, h.shape[1] - HYBRID_LIGAND)
+    K_ = nbh.idx.shape[-1]
+    fields = {
+        "x2h": dict(max_abs_err=float((h_k[0] - h16)[node_mask].abs().max()),
+                    margins=bf16_margins("bf16-layers x2h", h_k[0][node_mask], h16[node_mask],
+                                         h64[node_mask]),
+                    **bound(node_flops("x2h", nodes, lig_nodes) + edges * FLOP_EDGE["x2h"],
+                            nbytes(h, x, nbh.idx, nbh.mask, mlig, e_w, px, h_k[0]),
+                            PEAK_BF16_FLOPS)),
+        "h2x": dict(max_abs_err=float((x_k[0] - x16)[mlig].abs().max()),
+                    margins=bf16_margins("bf16-layers h2x", x_k[0][mlig], x16[mlig], x64[mlig]),
+                    **bound(node_flops("h2x", nodes, lig_nodes) + lig_edges * FLOP_EDGE["h2x"],
+                            nbytes(ph, x_k[0]) + lig * K_ * (8 + 1 + 4)
+                            + either * (h.shape[-1] * 4 + 3 * 4 + 1), PEAK_BF16_FLOPS)),
+    }
+    del h64, x64
+    with torch.no_grad():
+        runs = {"x2h": (lambda: kel.x2h_layer_cuda(h, x, nbh, mlig, e_w, px, bf16),
+                        lambda: kel.x2h_layer_plain(layer, h, x, nbh, mlig, e_w, bf16)),
+                "h2x": (lambda: kel.h2x_layer_cuda(h16, x, nbh, mlig, e_w, HYBRID_LIGAND, ph,
+                                                   bf16),
+                        lambda: kel.h2x_layer_plain(layer, h16, x, nbh, mlig, e_w, bf16))}
+        for sub, (fn, plain) in runs.items():
+            fields[sub].update(ms=cuda_ms(torch, fn), device_ms=device_ms(torch, fn),
+                               plain_ms=cuda_ms(torch, plain))
+    phase("bf16-layers", shape=f"B={B},N={h.shape[1]},K={K_}", bar=BF16_BAR,
+          live_edges_x2h=edges, live_edges_h2x=lig_edges, **fields)
+    return fields
+
+
+def bf16_sample_phase(torch, dev, model, hmodel, pocket, f32_ms, hybrid_f32_ms,
+                      failures) -> dict:
+    """[bf16-sample]: 1000 DDPM steps of B=4 molecules through
+    `sample_diffusion_ligand` at its default precision (bf16), as [sample]
+    (kNN: the bf16 kNN-graph forward's block and edge-weight kernels, one a
+    step, and their passes, L a step each) and as [hybrid-sample] (the bf16
+    per-layer kernels, L a step each), with every float32 launch count
+    zero; molecules finite, in the vocabulary and near the pocket; ms per
+    step beside the float32 runs' of the same call. Returns the launches."""
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+    from targetdiff_tpu_torch.ops.kernels import knn as kknn
+    from targetdiff_tpu_torch.sampling import sample_diffusion_ligand
+
+    names = {"knn": (kknn, "LAUNCHES"), "block": (kblock, "LAUNCHES"),
+             "ew": (kblock, "EW_LAUNCHES"), "x2h_pass": (kblock, "X2H_PASS_LAUNCHES"),
+             "h2x_pass": (kblock, "H2X_PASS_LAUNCHES"), "x2h_layer": (kel, "X2H_LAUNCHES"),
+             "h2x_layer": (kel, "H2X_LAUNCHES"), "block_bf16": (kblock, "BF16_LAUNCHES"),
+             "ew_bf16": (kblock, "BF16_EW_LAUNCHES"),
+             "x2h_pass_bf16": (kblock, "BF16_X2H_PASS_LAUNCHES"),
+             "h2x_pass_bf16": (kblock, "BF16_H2X_PASS_LAUNCHES"),
+             "x2h_layer_bf16": (kel, "BF16_X2H_LAUNCHES"),
+             "h2x_layer_bf16": (kel, "BF16_H2X_LAUNCHES")}
+    L = FLAGSHIP["num_layers"]
+    centre = pocket["protein_pos"].mean(0)
+    radius = float(np.linalg.norm(pocket["protein_pos"] - centre, axis=1).max())
+    out = {}
+    for cutoff, m, n_ligand, seed, ref_ms in (("knn", model, MAX_LIGAND, 2, f32_ms),
+                                              ("hybrid", hmodel, HYBRID_LIGAND, 9, hybrid_f32_ms)):
+        steps = m.num_timesteps
+        for mod, attr in names.values():
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        res = sample_diffusion_ligand(
+            m, pocket, num_samples=B, generator=torch.Generator(device=dev).manual_seed(seed),
+            batch_size=B, num_steps=steps, max_protein=MAX_PROTEIN, max_ligand=n_ligand,
+            rng=np.random.default_rng(seed))
+        wall = time.perf_counter() - t0
+        launches = {k: getattr(mod, attr) for k, (mod, attr) in names.items()}
+        want = dict.fromkeys(names, 0)
+        if cutoff == "knn":
+            want.update(knn=steps, block_bf16=steps, ew_bf16=steps, x2h_pass_bf16=L * steps,
+                        h2x_pass_bf16=L * steps)
+        else:
+            want.update(x2h_layer_bf16=L * steps, h2x_layer_bf16=L * steps)
+        if launches != want:
+            raise AssertionError(f"bf16-sample {cutoff}: launches {launches}, expected {want}")
+        for pos, v in zip(res["pos"], res["v"]):
+            if pos.shape != (len(v), 3) or not np.isfinite(pos).all():
+                raise AssertionError(f"bf16-sample {cutoff}: a non-finite or misshaped molecule")
+            if not ((v >= 0) & (v < NUM_CLASSES)).all():
+                raise AssertionError(f"bf16-sample {cutoff}: an atom type outside the "
+                                     "vocabulary")
+        dist = float(max(np.linalg.norm(p.mean(0) - centre) for p in res["pos"]))
+        if not dist < radius:  # raised after the remaining phases have run and printed
+            failures.append(f"bf16-sample {cutoff}: a molecule's centroid lies {dist} A from "
+                            f"the pocket's centre, outside its {radius} A radius")
+        ms = 1e3 * res["time"][0] / steps
+        out[cutoff] = {k: v for k, v in launches.items() if v}
+        phase(f"bf16-sample {cutoff}", samples=B, steps=steps,
+              ligand_atoms=[len(v) for v in res["v"]], seconds=res["time"][0],
+              wall_seconds=wall, ms_per_step=ms, float32_ms_per_step=ref_ms,
+              float32_over_bf16=ref_ms / ms, mol_per_s=B / res["time"][0], launches=out[cutoff],
+              max_centroid_offset_A=dist, pocket_radius_A=radius)
+    return out
 
 
 def weight_grad_products():
@@ -2362,7 +2716,7 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     sres = sample_diffusion_ligand(
         reloaded, pocket, num_samples=B, generator=torch.Generator(device=dev).manual_seed(4),
         batch_size=B, num_steps=10, max_protein=MAX_PROTEIN, max_ligand=40,
-        rng=np.random.default_rng(4))
+        rng=np.random.default_rng(4), dtype=torch.float32)
     if kknn.LAUNCHES < 10 or kblock.LAUNCHES < 10:
         raise AssertionError("train-cli: sampling from the checkpoint did not launch the kernels")
     if not all(np.isfinite(p).all() for p in sres["pos"]):
@@ -2393,13 +2747,16 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
 
 def measure(torch, argv) -> int:
     """The `profile`, `duel` and `margins` modes (module docstring)."""
+    bf16 = argv[0] == "profile" and argv[-1] == "bf16"
+    if bf16:
+        argv = argv[:-1]
     what, arg = argv[0], (argv[1:] or [None])[0]
     sized = what == "profile" and arg in ("hybrid", "knn") and len(argv) == 3
     if what not in ("profile", "duel", "margins") or len(argv) > (3 if sized else 2) or (
             what == "profile" and arg not in (None, "hybrid", "knn", "block", "train")) or (
-            sized and not argv[2].isdigit()):
-        raise SystemExit("usage: chip_smoke.py [profile [hybrid|knn|block|train] [BATCH] | "
-                         "duel [CHECKOUT] | margins [CHECKOUT]]")
+            sized and not argv[2].isdigit()) or (bf16 and arg not in (None, "hybrid", "knn")):
+        raise SystemExit("usage: chip_smoke.py [profile [hybrid|knn|block|train] [BATCH] "
+                         "[bf16] | duel [CHECKOUT] | margins [CHECKOUT]]")
     batch = int(argv[2]) if sized else B
     checkout = Path(arg).resolve() if what in ("duel", "margins") and arg else REPO
     sys.path.insert(0, str(checkout))
@@ -2416,6 +2773,12 @@ def measure(torch, argv) -> int:
     data = pdb_to_pocket_data(str(POCKET_PDB), feat)
     pocket = {"protein_pos": data["protein_pos"], "protein_feat": data["protein_atom_feature"]}
 
+    # the sampling precision: float32 unless `profile ... bf16` asks for bf16;
+    # a checkout from before the bf16 path samples in float32 and takes no dtype
+    precision = {}
+    if "dtype" in inspect.signature(sample_diffusion_ligand).parameters:
+        precision["dtype"] = torch.bfloat16 if bf16 else torch.float32
+
     def setup(cutoff):
         """A flagship model of `cutoff` with seeded weights, and sample(steps,
         seed): ms per step of `batch` molecules for the pocket over `steps`
@@ -2431,7 +2794,8 @@ def measure(torch, argv) -> int:
             sample_diffusion_ligand(model, pocket, num_samples=batch,
                                     generator=torch.Generator(device=dev).manual_seed(seed),
                                     batch_size=batch, num_steps=steps, max_protein=MAX_PROTEIN,
-                                    max_ligand=n_ligand, rng=np.random.default_rng(seed))
+                                    max_ligand=n_ligand, rng=np.random.default_rng(seed),
+                                    **precision)
             torch.cuda.synchronize()
             return 1e3 * (time.perf_counter() - t0) / steps
 
@@ -2447,6 +2811,7 @@ def measure(torch, argv) -> int:
         out = profile_train(torch, dev, feat.feature_dim)
     else:
         out = profile(torch, setup(arg or "hybrid")[1], arg or "hybrid", batch)
+        out["dtype"] = str(precision.get("dtype", torch.float32))
     print(json.dumps({"card": card_name(), "checkout": str(checkout), what: out}), flush=True)
     return 0
 
@@ -2772,7 +3137,10 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
     hybrid sampling steps (host clock); the B=32 `fast` train step (host
     clock, 10 steps after 3), the device time per step of the same kernels
     over 3 more traced steps, and the `fast_pl` step on the same batch
-    (host clock, 10 steps after 3)."""
+    (host clock, 10 steps after 3). Digests (`digest`) of the float32
+    kernels' outputs on those inputs: kNN graphs, the inference block, its
+    edge weights, the train-mode checkpoints, the launches alone, the
+    per-layer forwards and the block backward."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -2831,6 +3199,13 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
             hck, xck, nbh.idx, nbh.mask, mlig, e_w, MAX_LIGAND, x2h, h2x, gh, gx)))
         out["block_bwd_digest"] = digest(torch, *kvjp.block_bwd_cuda(
             hck, xck, nbh.idx, nbh.mask, mlig, e_w, MAX_LIGAND, x2h, h2x, gh, gx))
+        # the float32 forwards' outputs: the inference block, its edge
+        # weights and the train-mode checkpoints (bitwise across trees that
+        # keep the float32 kernels)
+        out["block_digest"] = digest(torch, *kblock.block_denoiser_cuda(
+            rn, h, x, nbh, mlig, MAX_LIGAND, packed))
+        out["ew_digest"] = digest(torch, kblock.edge_weights_cuda(x, nbh, packed))
+        out["train_fwd_digest"] = digest(torch, hck, xck)
         # the launches alone at the kNN shape: td_block_node (every row), the
         # h2x pass's node launch (td_block_node_rows where the tree has it),
         # the x2h and h2x edge launches
@@ -2839,6 +3214,9 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
                   for st in (x2h, h2x))
         xl.node()
         hl.node_rows()
+        xl.x2h()
+        hl.h2x()
+        out["launches_digest"] = digest(torch, xl.ni, xl.nj, xl.q, xl.out, hl.xout)
         for name, fn in (("x2h_edge", xl.x2h), ("h2x_edge", hl.h2x), ("node", xl.node),
                          ("node_h2x", hl.node_rows)):
             out[f"{name}_knn_ms"] = cuda_ms(torch, fn)
@@ -2862,6 +3240,7 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
                                                        cot["x2h"]),
                 "h2x": lambda: kelv.h2x_layer_bwd_cuda(hh, hx, hnbh, hmlig, he_w, HYBRID_LIGAND,
                                                        ph, cot["h2x"])}
+        out["layers_digest"] = digest(torch, layers["x2h"](), layers["h2x"]())
         for sub, fn in bwds.items():
             out[f"{sub}_layer_bwd_hybrid_ms"] = cuda_ms(torch, fn, reps=10)
             out.update(bwd_device_ms(torch, f"{sub}_layer_bwd_hybrid", fn))
@@ -3393,8 +3772,9 @@ def prop_gate_short_phase(torch, dev) -> None:
 
 DP_WORLD = 2  # [dp-train], [dp-sample]: ranks of the data-parallel dry run
 # the launches of one rank: one `fast` train step, and 20 DDPM steps of its rows
-DP_TRAIN_WANT = {"knn": 1, "block": 0, "block_train": 1, "block_vjp": 1}
-DP_SAMPLE_WANT = {"knn": 20, "block": 20, "block_train": 0, "block_vjp": 0}
+# (sampling at its default precision, bf16: the bf16 block kernels)
+DP_TRAIN_WANT = {"knn": 1, "block": 0, "block_bf16": 0, "block_train": 1, "block_vjp": 1}
+DP_SAMPLE_WANT = {"knn": 20, "block": 0, "block_bf16": 20, "block_train": 0, "block_vjp": 0}
 
 
 def dp_phases(torch, pocket) -> dict:

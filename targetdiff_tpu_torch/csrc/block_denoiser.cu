@@ -2,7 +2,11 @@
 // UniTransformerO2 block (released TargetDiff widths: hidden 128, 16 heads,
 // 20 RBF knots, K <= 32 neighbours), float32 (the second layers
 // and node projections as three-term fp16 tensor-core products,
-// float32-accurate).
+// float32-accurate), or bf16 (the *_bf16 entry points: the sampling path's
+// default precision, as the JAX kernel's dtype=bf16; every product one
+// bf16 tensor-core product with float32 accumulation, weights packed as
+// bf16, activations rounded to bf16 where they enter a product, geometry,
+// LayerNorm statistics, softmax, h and x float32).
 //
 // Replaces: targetdiff_tpu/ops/pallas/block_denoiser.py:_block_kernel
 // (block_denoiser) with every tile live, in inference mode (the edge-weight
@@ -52,10 +56,10 @@
 #include "x2h_edge.cuh"
 
 struct EwParams {
-  const float* w1;  // [R][H]
+  const float* w1;  // [R][H] (bf16 in the bf16 instantiation)
   const float* b1;  // [H]
   const float* ln;  // [2][H]
-  const float* w2;  // [H]
+  const float* w2;  // [H] (bf16 in the bf16 instantiation)
   const float* b2;  // [1]
 };
 
@@ -71,6 +75,12 @@ constexpr int kEwWarps = kThreads / 32;
 constexpr int kEwNT = H / 8;              // 8-column n-tiles of the first layer's output
 constexpr int kEwFrags = kEwKSteps * kEwNT * 32;
 static_assert(R < kEwK, "the RBF knots and the bias column fill the k-steps");
+// bf16: the RBF row as bf16 pairs (kEwKBf16 / 2 words of the tile row), two
+// 16-deep k-steps, the bias added in float32
+constexpr int kEwKBf16 = 32;
+constexpr int kEwKStepsBf16 = kEwKBf16 / 16;
+static_assert(R % 2 == 0 && R <= kEwKBf16 && kEwKBf16 / 2 <= kEwLd, "bf16 RBF rows fit the tile");
+static_assert(kEwKStepsBf16 * kEwNT * 32 <= kEwFrags, "bf16 fragments fit the staged array");
 
 // A block's shared memory: the weights, staged once, and per warp its tile of
 // 32 edges' RBF rows and their e_w.
@@ -108,6 +118,12 @@ __device__ __forceinline__ float ew_w1(const EwParams& p, int k, int n) {
 // of the four lanes of its quad, which reduce the LayerNorm's statistics and
 // the w2 dot over the quad by shuffles in a fixed order; the 32 e_w are
 // stored together, coalesced. Two runs give the same bits.
+//
+// bf16 (kBf16): w1 and w2 bf16; the lane's RBF row rounded to bf16 pairs,
+// zero-padded to 32 knots, and the first layer one bf16 m16n8k16 product
+// per k-step accumulated in float32 onto the bias; the LayerNorm + ReLU
+// outputs rounded to bf16 before the float32 dot with w2 (exact products).
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 2)
 ew_kernel(const float* __restrict__ x, const int64_t* __restrict__ idx, int N, int K,
           long long E, const float* __restrict__ offsets, float coeff, EwParams p,
@@ -115,18 +131,37 @@ ew_kernel(const float* __restrict__ x, const int64_t* __restrict__ idx, int N, i
   extern __shared__ __align__(16) unsigned char ew_smem[];
   EwSmem& S = *reinterpret_cast<EwSmem*>(ew_smem);
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31, g = lane >> 2, tig = lane & 3;
-  for (int u = t; u < kEwFrags; u += kThreads) {
-    const int ks = u / (kEwNT * 32), nt = u / 32 % kEwNT, fl = u % 32;
-    const int k = 8 * ks + (fl & 3), n = 8 * nt + (fl >> 2);
-    uint32_t h0, l0, h1, l1;
-    split_tf32(ew_w1(p, k, n), h0, l0);
-    split_tf32(ew_w1(p, k + 4, n), h1, l1);
-    S.w1f[u] = make_uint4(h0, h1, l0, l1);
+  if constexpr (kBf16) {
+    // (b0, b1, 0, 0): b0 = w1[16 ks + 2 tig (+1)][n], b1 = w1[16 ks + 2 tig + 8 (+9)][n]
+    const __nv_bfloat16* w1 = weights<true>(p.w1);
+    for (int u = t; u < kEwKStepsBf16 * kEwNT * 32; u += kThreads) {
+      const int ks = u / (kEwNT * 32), nt = u / 32 % kEwNT, fl = u % 32;
+      const int k = 16 * ks + 2 * (fl & 3), n = 8 * nt + (fl >> 2);
+      float w[4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int kk = k + (f & 1) + 8 * (f >> 1);
+        w[f] = kk < R ? wload(w1 + kk * H + n) : 0.f;
+      }
+      S.w1f[u] = make_uint4(bf16_pair(w[0], w[1]), bf16_pair(w[2], w[3]), 0u, 0u);
+    }
+  } else {
+    for (int u = t; u < kEwFrags; u += kThreads) {
+      const int ks = u / (kEwNT * 32), nt = u / 32 % kEwNT, fl = u % 32;
+      const int k = 8 * ks + (fl & 3), n = 8 * nt + (fl >> 2);
+      uint32_t h0, l0, h1, l1;
+      split_tf32(ew_w1(p, k, n), h0, l0);
+      split_tf32(ew_w1(p, k + 4, n), h1, l1);
+      S.w1f[u] = make_uint4(h0, h1, l0, l1);
+    }
   }
   for (int c = t; c < H; c += kThreads) {
     S.ln_scale[c] = p.ln[c];
     S.ln_bias[c] = p.ln[H + c];
-    S.w2[c] = p.w2[c];
+    if constexpr (kBf16)
+      S.w2[c] = wload(weights<true>(p.w2) + c);
+    else
+      S.w2[c] = p.w2[c];
   }
   if (t < R) S.offsets[t] = offsets[t];
   __syncthreads();
@@ -138,51 +173,95 @@ ew_kernel(const float* __restrict__ x, const int64_t* __restrict__ idx, int N, i
     // one lane per slot: its distance and RBF row
     const long long e = tl * 32 + lane;
     float* row = tile + lane * kEwLd;
-    if (e < E) {
-      const long long bn = e / K;  // destination node b*N + i
-      const long long jn = bn / N * N + idx[e];
-      const float dx = x[3 * bn] - x[3 * jn], dy = x[3 * bn + 1] - x[3 * jn + 1],
-                  dz = x[3 * bn + 2] - x[3 * jn + 2];
-      const float dist = sqrtf(dx * dx + dy * dy + dz * dz + 1e-16f);
+    if constexpr (kBf16) {
+      // [rbf | 0] as bf16 pairs, word w = knots (2 w, 2 w + 1)
+      uint32_t* roww = reinterpret_cast<uint32_t*>(row);
+      if (e < E) {
+        const long long bn = e / K;  // destination node b*N + i
+        const long long jn = bn / N * N + idx[e];
+        const float dx = x[3 * bn] - x[3 * jn], dy = x[3 * bn + 1] - x[3 * jn + 1],
+                    dz = x[3 * bn + 2] - x[3 * jn + 2];
+        const float dist = sqrtf(dx * dx + dy * dy + dz * dz + 1e-16f);
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float d = dist - S.offsets[r];
-        row[r] = expf(coeff * d * d);
+        for (int r = 0; r < R; r += 2) {
+          const float d0 = dist - S.offsets[r], d1 = dist - S.offsets[r + 1];
+          roww[r / 2] = bf16_pair(expf(coeff * d0 * d0), expf(coeff * d1 * d1));
+        }
+      } else {
+#pragma unroll
+        for (int w = 0; w < R / 2; ++w) roww[w] = 0u;
       }
-      row[R] = 1.f;
+#pragma unroll
+      for (int w = R / 2; w < kEwKBf16 / 2; ++w) roww[w] = 0u;
     } else {
+      if (e < E) {
+        const long long bn = e / K;  // destination node b*N + i
+        const long long jn = bn / N * N + idx[e];
+        const float dx = x[3 * bn] - x[3 * jn], dy = x[3 * bn + 1] - x[3 * jn + 1],
+                    dz = x[3 * bn + 2] - x[3 * jn + 2];
+        const float dist = sqrtf(dx * dx + dy * dy + dz * dz + 1e-16f);
 #pragma unroll
-      for (int r = 0; r <= R; ++r) row[r] = 0.f;
+        for (int r = 0; r < R; ++r) {
+          const float d = dist - S.offsets[r];
+          row[r] = expf(coeff * d * d);
+        }
+        row[R] = 1.f;
+      } else {
+#pragma unroll
+        for (int r = 0; r <= R; ++r) row[r] = 0.f;
+      }
+#pragma unroll
+      for (int r = R + 1; r < kEwK; ++r) row[r] = 0.f;
     }
-#pragma unroll
-    for (int r = R + 1; r < kEwK; ++r) row[r] = 0.f;
     __syncwarp();
 
 #pragma unroll 1
     for (int mt = 0; mt < 2; ++mt) {
       float acc[kEwNT][4];
-#pragma unroll
-      for (int nt = 0; nt < kEwNT; ++nt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < kEwKSteps; ++ks) {
-        // A: (g, tig), (g + 8, tig), (g, tig + 4), (g + 8, tig + 4)
-        const float* ar = tile + (16 * mt + g) * kEwLd + 8 * ks + tig;
-        uint32_t ah[4], al[4];
-        split_tf32(ar[0], ah[0], al[0]);
-        split_tf32(ar[8 * kEwLd], ah[1], al[1]);
-        split_tf32(ar[4], ah[2], al[2]);
-        split_tf32(ar[8 * kEwLd + 4], ah[3], al[3]);
+      if constexpr (kBf16) {
+        // bias + rbf w1, one bf16 product per k-step and n-tile
 #pragma unroll
         for (int nt = 0; nt < kEwNT; ++nt) {
-          const uint4 wf = S.w1f[(ks * kEwNT + nt) * 32 + lane];
-          float d[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_tf32(d, al, wf.x, wf.y);
-          mma_tf32(d, ah, wf.z, wf.w);
-          mma_tf32(d, ah, wf.x, wf.y);
+          const float2 b = *reinterpret_cast<const float2*>(p.b1 + 8 * nt + 2 * tig);
+          acc[nt][0] = acc[nt][2] = b.x;
+          acc[nt][1] = acc[nt][3] = b.y;
+        }
+        const uint32_t* tw = reinterpret_cast<const uint32_t*>(tile);
 #pragma unroll
-          for (int c = 0; c < 4; ++c) acc[nt][c] += d[c];
+        for (int ks = 0; ks < kEwKStepsBf16; ++ks) {
+          // A: rows g, g + 8 x words 8 ks + tig (columns 2 tig, +1), + 4 (2 tig + 8, +9)
+          const uint32_t* ar = tw + (16 * mt + g) * kEwLd + 8 * ks + tig;
+          const uint32_t a[4] = {ar[0], ar[8 * kEwLd], ar[4], ar[8 * kEwLd + 4]};
+#pragma unroll
+          for (int nt = 0; nt < kEwNT; ++nt) {
+            const uint4 wf = S.w1f[(ks * kEwNT + nt) * 32 + lane];
+            mma_bf16(acc[nt], a, wf.x, wf.y);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < kEwNT; ++nt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < kEwKSteps; ++ks) {
+          // A: (g, tig), (g + 8, tig), (g, tig + 4), (g + 8, tig + 4)
+          const float* ar = tile + (16 * mt + g) * kEwLd + 8 * ks + tig;
+          uint32_t ah[4], al[4];
+          split_tf32(ar[0], ah[0], al[0]);
+          split_tf32(ar[8 * kEwLd], ah[1], al[1]);
+          split_tf32(ar[4], ah[2], al[2]);
+          split_tf32(ar[8 * kEwLd + 4], ah[3], al[3]);
+#pragma unroll
+          for (int nt = 0; nt < kEwNT; ++nt) {
+            const uint4 wf = S.w1f[(ks * kEwNT + nt) * 32 + lane];
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_tf32(d, al, wf.x, wf.y);
+            mma_tf32(d, ah, wf.z, wf.w);
+            mma_tf32(d, ah, wf.x, wf.y);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[nt][c] += d[c];
+          }
         }
       }
       // slots 16 mt + g + 8 hf (hf = 0, 1): columns 8 nt + 2 tig (+1) of
@@ -216,8 +295,16 @@ ew_kernel(const float* __restrict__ x, const int64_t* __restrict__ idx, int N, i
         const float2 w = *reinterpret_cast<const float2*>(&S.w2[c]);
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
-          part[hf] += fmaxf((acc[nt][2 * hf] - mean[hf]) * rstd[hf] * sc.x + bi.x, 0.f) * w.x;
-          part[hf] += fmaxf((acc[nt][2 * hf + 1] - mean[hf]) * rstd[hf] * sc.y + bi.y, 0.f) * w.y;
+          if constexpr (kBf16) {
+            const float z0 = fmaxf((acc[nt][2 * hf] - mean[hf]) * rstd[hf] * sc.x + bi.x, 0.f);
+            const float z1 =
+                fmaxf((acc[nt][2 * hf + 1] - mean[hf]) * rstd[hf] * sc.y + bi.y, 0.f);
+            part[hf] += round_bf16(z0) * w.x;
+            part[hf] += round_bf16(z1) * w.y;
+          } else {
+            part[hf] += fmaxf((acc[nt][2 * hf] - mean[hf]) * rstd[hf] * sc.x + bi.x, 0.f) * w.x;
+            part[hf] += fmaxf((acc[nt][2 * hf + 1] - mean[hf]) * rstd[hf] * sc.y + bi.y, 0.f) * w.y;
+          }
         }
       }
 #pragma unroll
@@ -234,25 +321,63 @@ ew_kernel(const float* __restrict__ x, const int64_t* __restrict__ idx, int N, i
   }
 }
 
+template <bool kBf16>
+int block_ew(const float* x, const int64_t* idx, int B, int N, int K, const float* offsets,
+             float coeff, const EwParams& p, float* ew, cudaStream_t s) {
+  if (B <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  static int n_sm = 0;
+  if (int err = sm_count(ew_kernel<kBf16>, (int)sizeof(EwSmem), n_sm)) return err;
+  const long long E = (long long)B * N * K;
+  const long long want = ((E + 31) / 32 + kEwWarps - 1) / kEwWarps;  // blocks of 8 tiles
+  const int grid = (int)(want < 2 * n_sm ? want : 2 * n_sm);
+  ew_kernel<kBf16><<<grid, kThreads, sizeof(EwSmem), s>>>(x, idx, N, K, E, offsets, coeff, p, ew);
+  return (int)cudaGetLastError();
+}
+
+template <bool kBf16>
+int block_x2h(const float* h, const float* x, const int64_t* idx, const bool* nmask,
+              const bool* mlig, const float* ew, const float* ni, const float* nj, const float* q,
+              const float* offsets, float coeff, const PassParams& p, int B, int N, int K,
+              int row0, float* h_out, cudaStream_t s) {
+  if (row0 != 0) return (int)cudaErrorInvalidValue;
+  const EdgeInputs in{x, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
+  return launch_x2h<kBf16>(h, in, q, p, B, N, K, h_out, s);
+}
+
+template <bool kBf16>
+int block_h2x(const float* x, const int64_t* idx, const bool* nmask, const bool* mlig,
+              const float* ew, const float* ni, const float* nj, const float* q,
+              const float* offsets, float coeff, const PassParams& p, int B, int N, int K,
+              int row0, float* x_out, cudaStream_t s) {
+  const EdgeInputs in{x, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
+  return launch_h2x<kBf16>(in, q, p, B, N, K, row0, x_out, s);
+}
+
 }  // namespace
+
+// The entry points below come in pairs: float32, and *_bf16 (bf16 products;
+// the packed product weights bf16, see tc_common.cuh).
 
 extern "C" int td_block_ew(const float* x, const int64_t* idx, int B, int N, int K,
                            const float* offsets, float coeff, EwParams p, float* ew,
                            void* stream) {
-  if (B <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  static int n_sm = 0;
-  if (int err = sm_count(ew_kernel, (int)sizeof(EwSmem), n_sm)) return err;
-  const long long E = (long long)B * N * K;
-  const long long want = ((E + 31) / 32 + kEwWarps - 1) / kEwWarps;  // blocks of 8 tiles
-  const int grid = (int)(want < 2 * n_sm ? want : 2 * n_sm);
-  ew_kernel<<<grid, kThreads, sizeof(EwSmem), (cudaStream_t)stream>>>(x, idx, N, K, E, offsets,
-                                                                       coeff, p, ew);
-  return (int)cudaGetLastError();
+  return block_ew<false>(x, idx, B, N, K, offsets, coeff, p, ew, (cudaStream_t)stream);
+}
+
+extern "C" int td_block_ew_bf16(const float* x, const int64_t* idx, int B, int N, int K,
+                                const float* offsets, float coeff, EwParams p, float* ew,
+                                void* stream) {
+  return block_ew<true>(x, idx, B, N, K, offsets, coeff, p, ew, (cudaStream_t)stream);
 }
 
 extern "C" int td_block_node(const float* h, int rows, PassParams p, float* ni, float* nj,
                              float* q, void* stream) {
   return launch_node(h, 1, rows, 0, p, ni, nj, q, nullptr, (cudaStream_t)stream);
+}
+
+extern "C" int td_block_node_bf16(const float* h, int rows, PassParams p, float* ni, float* nj,
+                                  float* q, void* stream) {
+  return launch_node<true>(h, 1, rows, 0, p, ni, nj, q, nullptr, (cudaStream_t)stream);
 }
 
 // The node projections of B complexes of N rows where the rows below row0 of
@@ -263,6 +388,11 @@ extern "C" int td_block_node_rows(const float* h, int B, int N, int row0, PassPa
   return launch_node(h, B, N, row0, p, ni, nj, q, q1, (cudaStream_t)stream);
 }
 
+extern "C" int td_block_node_rows_bf16(const float* h, int B, int N, int row0, PassParams p,
+                                       float* ni, float* nj, float* q, float* q1, void* stream) {
+  return launch_node<true>(h, B, N, row0, p, ni, nj, q, q1, (cudaStream_t)stream);
+}
+
 // The x2h edge pass alone (any K <= kMaxLayerK; the block path passes K <= 32).
 // x2h updates every row: row0 must be 0 (the argument keeps the entry's
 // signature that of td_block_h2x and of earlier builds).
@@ -271,9 +401,17 @@ extern "C" int td_block_x2h(const float* h, const float* x, const int64_t* idx,
                             const float* ni, const float* nj, const float* q,
                             const float* offsets, float coeff, PassParams p, int B, int N,
                             int K, int row0, float* h_out, void* stream) {
-  if (row0 != 0) return (int)cudaErrorInvalidValue;
-  const EdgeInputs in{x, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
-  return launch_x2h(h, in, q, p, B, N, K, h_out, (cudaStream_t)stream);
+  return block_x2h<false>(h, x, idx, nmask, mlig, ew, ni, nj, q, offsets, coeff, p, B, N, K,
+                          row0, h_out, (cudaStream_t)stream);
+}
+
+extern "C" int td_block_x2h_bf16(const float* h, const float* x, const int64_t* idx,
+                                 const bool* nmask, const bool* mlig, const float* ew,
+                                 const float* ni, const float* nj, const float* q,
+                                 const float* offsets, float coeff, PassParams p, int B, int N,
+                                 int K, int row0, float* h_out, void* stream) {
+  return block_x2h<true>(h, x, idx, nmask, mlig, ew, ni, nj, q, offsets, coeff, p, B, N, K,
+                         row0, h_out, (cudaStream_t)stream);
 }
 
 // The h2x edge pass alone on the rows [row0, N) of each complex (any
@@ -283,8 +421,17 @@ extern "C" int td_block_h2x(const float* x, const int64_t* idx, const bool* nmas
                             const bool* mlig, const float* ew, const float* ni, const float* nj,
                             const float* q, const float* offsets, float coeff, PassParams p,
                             int B, int N, int K, int row0, float* x_out, void* stream) {
-  const EdgeInputs in{x, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
-  return launch_h2x(in, q, p, B, N, K, row0, x_out, (cudaStream_t)stream);
+  return block_h2x<false>(x, idx, nmask, mlig, ew, ni, nj, q, offsets, coeff, p, B, N, K, row0,
+                          x_out, (cudaStream_t)stream);
+}
+
+extern "C" int td_block_h2x_bf16(const float* x, const int64_t* idx, const bool* nmask,
+                                 const bool* mlig, const float* ew, const float* ni,
+                                 const float* nj, const float* q, const float* offsets,
+                                 float coeff, PassParams p, int B, int N, int K, int row0,
+                                 float* x_out, void* stream) {
+  return block_h2x<true>(x, idx, nmask, mlig, ew, ni, nj, q, offsets, coeff, p, B, N, K, row0,
+                         x_out, (cudaStream_t)stream);
 }
 
 // Train-mode forward of all L layers. hck [L+1][B][N][H] and xck

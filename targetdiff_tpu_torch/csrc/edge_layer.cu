@@ -1,7 +1,10 @@
 // Per-layer attention kernels for Hopper (sm_90a): one x2h or one h2x
 // sub-layer of the UniTransformerO2 (released widths: hidden 128, 16 heads,
 // 20 RBF knots), float32 (the second layers and node projections as three-term
-// fp16 tensor-core products, float32-accurate), for any K up to kMaxLayerK (256).
+// fp16 tensor-core products, float32-accurate) or bf16 (the *_bf16 entry
+// points: the sampling path's default precision, one bf16 tensor-core product
+// each, the packed product weights bf16; see tc_common.cuh), for any K up to
+// kMaxLayerK (256).
 //
 // Replaces: targetdiff_tpu/ops/pallas/edge_layer.py:_x2h_kernel
 // (x2h_attention_layer) and :_h2x_kernel (h2x_attention_layer). They carry
@@ -33,16 +36,50 @@
 #include "node_proj.cuh"
 #include "x2h_edge.cuh"
 
+namespace {
+
+template <bool kBf16>
+int x2h_layer(const float* h, const float* x, const int64_t* idx, const bool* nmask,
+              const bool* mlig, const float* ew, const float* offsets, float coeff,
+              const PassParams& p, int B, int N, int K, float* ni, float* nj, float* q,
+              float* h_out, cudaStream_t s) {
+  const EdgeInputs in{x, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
+  int err = launch_node<kBf16>(h, B, N, 0, p, ni, nj, q, nullptr, s);
+  if (err == 0) err = launch_x2h<kBf16>(h, in, q, p, B, N, K, h_out, s);
+  return err;
+}
+
+template <bool kBf16>
+int h2x_layer(const float* h, const float* x, const int64_t* idx, const bool* nmask,
+              const bool* mlig, const float* ew, const float* offsets, float coeff,
+              const PassParams& p, int B, int N, int K, int n_ligand, float* ni, float* nj,
+              float* q, float* x_out, cudaStream_t s) {
+  if (n_ligand <= 0 || n_ligand > N) return (int)cudaErrorInvalidValue;
+  const EdgeInputs in{x, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
+  const int row0 = N - n_ligand;
+  int err = launch_node<kBf16>(h, B, N, row0, p, ni, nj, q, nullptr, s);
+  if (err == 0) err = launch_h2x<kBf16>(in, q, p, B, N, K, row0, x_out, s);
+  return err;
+}
+
+}  // namespace
+
 // h_out = x2h(h) for every row. ni, nj [B*N][2H] and q [B*N][H] are scratch.
 extern "C" int td_x2h_layer(const float* h, const float* x, const int64_t* idx,
                             const bool* nmask, const bool* mlig, const float* ew,
                             const float* offsets, float coeff, PassParams p, int B, int N,
                             int K, float* ni, float* nj, float* q, float* h_out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const EdgeInputs in{x, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
-  int err = launch_node(h, B, N, 0, p, ni, nj, q, nullptr, s);
-  if (err == 0) err = launch_x2h(h, in, q, p, B, N, K, h_out, s);
-  return err;
+  return x2h_layer<false>(h, x, idx, nmask, mlig, ew, offsets, coeff, p, B, N, K, ni, nj, q,
+                          h_out, (cudaStream_t)stream);
+}
+
+extern "C" int td_x2h_layer_bf16(const float* h, const float* x, const int64_t* idx,
+                                 const bool* nmask, const bool* mlig, const float* ew,
+                                 const float* offsets, float coeff, PassParams p, int B, int N,
+                                 int K, float* ni, float* nj, float* q, float* h_out,
+                                 void* stream) {
+  return x2h_layer<true>(h, x, idx, nmask, mlig, ew, offsets, coeff, p, B, N, K, ni, nj, q,
+                         h_out, (cudaStream_t)stream);
 }
 
 // The ligand tail (the last n_ligand rows) of x_out = h2x(h, x); x_out must
@@ -52,11 +89,15 @@ extern "C" int td_h2x_layer(const float* h, const float* x, const int64_t* idx,
                             const float* offsets, float coeff, PassParams p, int B, int N,
                             int K, int n_ligand, float* ni, float* nj, float* q, float* x_out,
                             void* stream) {
-  if (n_ligand <= 0 || n_ligand > N) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const EdgeInputs in{x, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
-  const int row0 = N - n_ligand;
-  int err = launch_node(h, B, N, row0, p, ni, nj, q, nullptr, s);
-  if (err == 0) err = launch_h2x(in, q, p, B, N, K, row0, x_out, s);
-  return err;
+  return h2x_layer<false>(h, x, idx, nmask, mlig, ew, offsets, coeff, p, B, N, K, n_ligand, ni,
+                          nj, q, x_out, (cudaStream_t)stream);
+}
+
+extern "C" int td_h2x_layer_bf16(const float* h, const float* x, const int64_t* idx,
+                                 const bool* nmask, const bool* mlig, const float* ew,
+                                 const float* offsets, float coeff, PassParams p, int B, int N,
+                                 int K, int n_ligand, float* ni, float* nj, float* q,
+                                 float* x_out, void* stream) {
+  return h2x_layer<true>(h, x, idx, nmask, mlig, ew, offsets, coeff, p, B, N, K, n_ligand, ni,
+                         nj, q, x_out, (cudaStream_t)stream);
 }

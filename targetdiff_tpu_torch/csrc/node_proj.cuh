@@ -33,6 +33,10 @@
 //    scaling but twice the mma instructions.) The q slice's block then
 //    applies LayerNorm + ReLU to its q1 tile and runs the 128 x 128 w_q2
 //    product the same way (a LayerNorm output: no scaling).
+//  * bf16 (kBf16, the sampling path's default precision): the same tiles
+//    with one bf16 product per mma (tc_common.cuh): h rows (scaled as above,
+//    exact) and the LayerNorm outputs rounded to bf16, w_node and w_q2
+//    packed as bf16; biases, LayerNorm and the outputs float32.
 //  * Source-only rows. With row0 > 0 the rows below row0 of each complex
 //    get only nj: the k_i, v_i and q slices cover rows [row0, N) of each
 //    complex, their outputs elsewhere left as they were. The h2x pass reads
@@ -64,6 +68,7 @@ __device__ __forceinline__ int row_exponent(float mx) {
 
 __device__ __forceinline__ float pow2(int e) { return __int_as_float((127 + e) << 23); }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(kNodeThreads, 2)
 node_kernel(const float* __restrict__ h, int B, int N, int row0, PassParams p,
             float* __restrict__ ni, float* __restrict__ nj, float* __restrict__ q,
@@ -108,7 +113,8 @@ node_kernel(const float* __restrict__ h, int B, int N, int row0, PassParams p,
 #pragma unroll
     for (int c = 0; c < 4; ++c) v[i][c] = n >= 0 ? h[n * H + lane + 32 * c] : 0.f;
   }
-  stage_frags(&s.w[0][0][0], p.w_node + slice * H, H5, kNTiles, t, kNodeThreads);
+  stage_frags<kBf16>(&s.w[0][0][0], weights<kBf16>(p.w_node) + slice * H, H5, kNTiles, t,
+                     kNodeThreads);
   // each row times 2^e (exact), split into fp16 (hi, lo) pairs
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -119,7 +125,7 @@ node_kernel(const float* __restrict__ h, int B, int N, int row0, PassParams p,
     const float f = pow2(e);
 #pragma unroll
     for (int c = 0; c < 4; ++c) v[i][c] *= f;
-    store_split_row(reinterpret_cast<uint32_t*>(s.a[warp + 8 * i]), v[i], lane);
+    store_split_row<kBf16>(reinterpret_cast<uint32_t*>(s.a[warp + 8 * i]), v[i], lane);
     if (lane == 0) s.unscale[warp + 8 * i] = pow2(-e - 8);
   }
   __syncthreads();
@@ -127,7 +133,7 @@ node_kernel(const float* __restrict__ h, int B, int N, int row0, PassParams p,
   // warp (mw, nw): rows 32 mw + 16 mt + g (+8), columns 32 nw + 8 nt + 2 tig (+1)
   const int mw = warp >> 2, nw = warp & 3;
   float acc[2][4][4] = {};
-  tile_mma(acc, &s.a[32 * mw][0], &s.w[0][4 * nw][0], kNTiles, lane);
+  tile_mma<4, kBf16>(acc, &s.a[32 * mw][0], &s.w[0][4 * nw][0], kNTiles, lane);
   const float* bias = p.b_node + slice * H;
   if (slice < 4) {
     float* dst = (slice < 2 ? ni : nj) + (slice & 1) * H;
@@ -169,9 +175,9 @@ node_kernel(const float* __restrict__ h, int B, int N, int row0, PassParams p,
         if (q1 != nullptr && n >= 0) *reinterpret_cast<float2*>(q1 + n * H + c) = y;
       }
     }
-  stage_frags(&s.w[0][0][0], p.w_q2, H, kNTiles, t, kNodeThreads);
+  stage_frags<kBf16>(&s.w[0][0][0], weights<kBf16>(p.w_q2), H, kNTiles, t, kNodeThreads);
   __syncthreads();
-  ln_split_rows(&s.a[0][0], warp, 8, p.q_ln, p.q_ln + H, lane);
+  ln_split_rows<kBf16>(&s.a[0][0], warp, 8, p.q_ln, p.q_ln + H, lane);
   __syncthreads();
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt) {
@@ -183,7 +189,7 @@ node_kernel(const float* __restrict__ h, int B, int N, int row0, PassParams p,
       acc[mt][nt][1] = acc[mt][nt][3] = b1;
     }
   }
-  tile_mma(acc, &s.a[32 * mw][0], &s.w[0][4 * nw][0], kNTiles, lane);
+  tile_mma<4, kBf16>(acc, &s.a[32 * mw][0], &s.w[0][4 * nw][0], kNTiles, lane);
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -201,19 +207,21 @@ node_kernel(const float* __restrict__ h, int B, int N, int row0, PassParams p,
 }
 
 // ni, nj, q (and q1, if not null) of the B x N rows of h; with row0 > 0 the
-// rows below row0 of each complex get only nj.
+// rows below row0 of each complex get only nj. kBf16: bf16 products, p's
+// w_node and w_q2 bf16.
+template <bool kBf16 = false>
 int launch_node(const float* h, int B, int N, int row0, const PassParams& p, float* ni, float* nj,
                 float* q, float* q1, cudaStream_t s) {
   if (B <= 0 || N <= 0 || row0 < 0 || row0 >= N) return (int)cudaErrorInvalidValue;
   static const int attr = (int)cudaFuncSetAttribute(
-      node_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(NodeSmem));
+      node_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(NodeSmem));
   if (attr) return attr;
   const long long tiles_dst = ((long long)B * (N - row0) + kNodeRows - 1) / kNodeRows;
   const long long tiles_all = ((long long)B * N + kNodeRows - 1) / kNodeRows;
   const long long grid = 3 * tiles_dst + 2 * tiles_all;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  node_kernel<<<(unsigned)grid, kNodeThreads, sizeof(NodeSmem), s>>>(h, B, N, row0, p, ni, nj, q,
-                                                                     q1);
+  node_kernel<kBf16><<<(unsigned)grid, kNodeThreads, sizeof(NodeSmem), s>>>(h, B, N, row0, p, ni,
+                                                                            nj, q, q1);
   return (int)cudaGetLastError();
 }
 

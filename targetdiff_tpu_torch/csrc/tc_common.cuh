@@ -3,6 +3,18 @@
 // h2x_edge.cuh) and the backward's recompute of their second layers
 // (pass_bwd.cuh).
 //
+// Precision. Each piece that differs between precisions takes kBf16 (false
+// by default, the float32-grade products below): the bf16 instantiations
+// are the sampling path's default precision (the JAX package's dtype=bf16).
+// There every product is ONE mma.sync.m16n8k16 with bf16 operands and
+// float32 accumulation: the weights arrive as bf16 (`WeightT`), activations
+// are rounded to bf16 where they are stored as the A operand (one bf16 pair
+// per column pair, both words of the pair alike), the RBF features are
+// rounded where the chunk's geometry is written; geometry, LayerNorm
+// statistics, softmax and the residual stay float32. The weights are staged
+// times kWScale in both (exact; bf16 keeps float32's exponent, so it only
+// keeps the call sites alike).
+//
 // Products. Every bar the port is held to is float32, so each dense product
 // runs as three fp16 mma.sync.m16n8k16 products, lo*hi + hi*lo + hi*hi
 // (hi = x rounded to fp16, lo = the remainder rounded again: ~2^-21
@@ -23,7 +35,10 @@
 // operand of tile_mma.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_fp16.h>
+
+#include <type_traits>
 
 #include "block_common.cuh"
 
@@ -57,6 +72,41 @@ __device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4], u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a b for one m16n8k16 tile, bf16 operands, float32 accumulation.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lower, upper) rounded to bf16 as one mma operand register, lower in the
+// low half.
+__device__ __forceinline__ uint32_t bf16_pair(float lower, float upper) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lower, upper);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The weights' element type of an instantiation. The packed weights'
+// pointers (PassParams, EwParams) are float pointers; in a bf16
+// instantiation the product weights they point at are bf16
+// (ops/kernels/block_denoiser.py packs them so), read through `weights`.
+template <bool kBf16>
+using WeightT = std::conditional_t<kBf16, __nv_bfloat16, float>;
+
+template <bool kBf16>
+__device__ __forceinline__ const WeightT<kBf16>* weights(const float* p) {
+  return reinterpret_cast<const WeightT<kBf16>*>(p);
+}
+
+__device__ __forceinline__ float wload(const float* p) { return *p; }
+__device__ __forceinline__ float wload(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
                    (unsigned)__cvta_generic_to_shared(dst)),
@@ -79,42 +129,58 @@ __device__ __forceinline__ void lane_sync(int l) {
 // pairs (b0 hi, b1 hi, b0 lo, b1 lo), b0 = W[16 ks + 2 tig (+1)][8 nt + g],
 // b1 = W[16 ks + 2 tig + 8 (+9)][8 nt + g], the lower k in the lower half.
 // W2, when given, is a second weight of the same shape, staged after W in the
-// same loop (PERF.md §6 compares one loop with two).
-__device__ __forceinline__ void stage_frags(uint4* dst, const float* __restrict__ W, int ldw,
-                                            int ntiles, int t, int nthreads,
-                                            const float* __restrict__ W2 = nullptr) {
+// same loop (PERF.md §6 compares one loop with two). bf16: (b0, b1, 0, 0),
+// bf16 pairs in the same slots.
+template <bool kBf16 = false>
+__device__ __forceinline__ void stage_frags(uint4* dst, const WeightT<kBf16>* __restrict__ W,
+                                            int ldw, int ntiles, int t, int nthreads,
+                                            const WeightT<kBf16>* __restrict__ W2 = nullptr) {
   const int per = kKSteps * ntiles * 32;
 #pragma unroll 8
   for (int u = t; u < (W2 ? 2 * per : per); u += nthreads) {
     const int v = u % per, ks = v / (ntiles * 32), nt = v / 32 % ntiles, fl = v % 32;
-    const float* w = (u < per ? W : W2) + (16 * ks + 2 * (fl & 3)) * ldw + 8 * nt + (fl >> 2);
-    __half hi[4], lo[4];  // rows 0, 1, 8, 9 of the k-step (from 2 tig)
+    const WeightT<kBf16>* w =
+        (u < per ? W : W2) + (16 * ks + 2 * (fl & 3)) * ldw + 8 * nt + (fl >> 2);
+    if constexpr (kBf16) {
+      dst[u] = make_uint4(bf16_pair(kWScale * wload(w), kWScale * wload(w + ldw)),
+                          bf16_pair(kWScale * wload(w + 8 * ldw), kWScale * wload(w + 9 * ldw)),
+                          0u, 0u);
+    } else {
+      __half hi[4], lo[4];  // rows 0, 1, 8, 9 of the k-step (from 2 tig)
 #pragma unroll
-    for (int f = 0; f < 4; ++f)
-      split_f16(kWScale * w[((f & 1) + 8 * (f >> 1)) * ldw], hi[f], lo[f]);
-    dst[u] = make_uint4(f16_pair(hi[0], hi[1]), f16_pair(hi[2], hi[3]), f16_pair(lo[0], lo[1]),
-                        f16_pair(lo[2], lo[3]));
+      for (int f = 0; f < 4; ++f)
+        split_f16(kWScale * w[((f & 1) + 8 * (f >> 1)) * ldw], hi[f], lo[f]);
+      dst[u] = make_uint4(f16_pair(hi[0], hi[1]), f16_pair(hi[2], hi[3]), f16_pair(lo[0], lo[1]),
+                          f16_pair(lo[2], lo[3]));
+    }
   }
 }
 
 // A row's four values per lane (channel lane + 32 q) stored in place as fp16
 // (hi, lo) column pairs: (hi c, hi c+1) at even c, (lo c-1, lo c) at odd c.
-// Warp-wide.
+// bf16: the pair (c, c+1) rounded to bf16 at both. Warp-wide.
+template <bool kBf16 = false>
 __device__ __forceinline__ void store_split_row(uint32_t* zrow, const float (&v)[4], int lane) {
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    __half hi, lo;
-    split_f16(v[q], hi, lo);
-    const uint32_t other = __shfl_xor_sync(0xffffffffu, f16_pair(hi, lo), 1);
-    const __half o_hi = __ushort_as_half((unsigned short)(other & 0xffffu));
-    const __half o_lo = __ushort_as_half((unsigned short)(other >> 16));
-    zrow[lane + 32 * q] = (lane & 1) ? f16_pair(o_lo, lo) : f16_pair(hi, o_hi);
+    if constexpr (kBf16) {
+      const float other = __shfl_xor_sync(0xffffffffu, v[q], 1);
+      zrow[lane + 32 * q] = (lane & 1) ? bf16_pair(other, v[q]) : bf16_pair(v[q], other);
+    } else {
+      __half hi, lo;
+      split_f16(v[q], hi, lo);
+      const uint32_t other = __shfl_xor_sync(0xffffffffu, f16_pair(hi, lo), 1);
+      const __half o_hi = __ushort_as_half((unsigned short)(other & 0xffffu));
+      const __half o_lo = __ushort_as_half((unsigned short)(other >> 16));
+      zrow[lane + 32 * q] = (lane & 1) ? f16_pair(o_lo, lo) : f16_pair(hi, o_hi);
+    }
   }
 }
 
 // LayerNorm + ReLU of rows r0 + rstep i (i < 8) of z (float, row stride kLdz)
-// in place, each stored as fp16 (hi, lo) column pairs. Warp-wide: the eight
-// rows' loads are in flight together.
+// in place, each stored as fp16 (hi, lo) column pairs (bf16: bf16 pairs).
+// Warp-wide: the eight rows' loads are in flight together.
+template <bool kBf16 = false>
 __device__ __forceinline__ void ln_split_rows(float* z, int r0, int rstep,
                                               const float* __restrict__ scale,
                                               const float* __restrict__ bias, int lane) {
@@ -135,18 +201,18 @@ __device__ __forceinline__ void ln_split_rows(float* z, int r0, int rstep,
 #pragma unroll
     for (int q = 0; q < 4; ++q)
       v[i][q] = fmaxf((v[i][q] - mean) * rstd * ln_scale[q] + ln_bias[q], 0.f);
-    store_split_row(reinterpret_cast<uint32_t*>(z + (r0 + rstep * i) * kLdz), v[i], lane);
+    store_split_row<kBf16>(reinterpret_cast<uint32_t*>(z + (r0 + rstep * i) * kLdz), v[i], lane);
   }
 }
 
 // acc += a (W kWScale) for a warp's 32 x 8 NT tile of a 128-deep product,
-// three fp16 products (small terms first). a: 32 rows of (hi, lo) column
-// pairs, row stride kLdz; w: the staged fragments of the tile's NT n-tiles
-// (in shared or global memory), w + (ks * ldn + nt) * 32 for n-tile nt of
-// k-step ks. C fragment: acc[mt][nt] holds rows 16 mt + g (0, 1) and
-// 16 mt + g + 8 (2, 3), columns 8 nt + 2 tig (+1); n-tiles from NT on are
-// left as they are.
-template <int NT = 4>
+// three fp16 products (small terms first); bf16: one bf16 product. a: 32
+// rows of (hi, lo) column pairs (bf16: bf16 pairs), row stride kLdz; w: the
+// staged fragments of the tile's NT n-tiles (in shared or global memory),
+// w + (ks * ldn + nt) * 32 for n-tile nt of k-step ks. C fragment:
+// acc[mt][nt] holds rows 16 mt + g (0, 1) and 16 mt + g + 8 (2, 3), columns
+// 8 nt + 2 tig (+1); n-tiles from NT on are left as they are.
+template <int NT = 4, bool kBf16 = false>
 __device__ __forceinline__ void tile_mma(float (&acc)[2][4][4], const float* a, const uint4* w,
                                          int ldn, int lane) {
   const int g = lane >> 2, tig = lane & 3;
@@ -157,19 +223,27 @@ __device__ __forceinline__ void tile_mma(float (&acc)[2][4][4], const float* a, 
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int f = 0; f < 4; ++f) {
-        const uint2 pr = *reinterpret_cast<const uint2*>(
-            a + (16 * mt + g + 8 * (f & 1)) * kLdz + 16 * ks + 2 * tig + 8 * (f >> 1));
-        ahi[mt][f] = pr.x;
-        alo[mt][f] = pr.y;
+        const float* af = a + (16 * mt + g + 8 * (f & 1)) * kLdz + 16 * ks + 2 * tig + 8 * (f >> 1);
+        if constexpr (kBf16) {
+          ahi[mt][f] = *reinterpret_cast<const uint32_t*>(af);
+        } else {
+          const uint2 pr = *reinterpret_cast<const uint2*>(af);
+          ahi[mt][f] = pr.x;
+          alo[mt][f] = pr.y;
+        }
       }
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const uint4 wf = w[(ks * ldn + nt) * 32 + lane];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
-        mma_f16(acc[mt][nt], alo[mt], wf.x, wf.y);
-        mma_f16(acc[mt][nt], ahi[mt], wf.z, wf.w);
-        mma_f16(acc[mt][nt], ahi[mt], wf.x, wf.y);
+        if constexpr (kBf16) {
+          mma_bf16(acc[mt][nt], ahi[mt], wf.x, wf.y);
+        } else {
+          mma_f16(acc[mt][nt], alo[mt], wf.x, wf.y);
+          mma_f16(acc[mt][nt], ahi[mt], wf.z, wf.w);
+          mma_f16(acc[mt][nt], ahi[mt], wf.x, wf.y);
+        }
       }
     }
   }
@@ -221,7 +295,9 @@ __device__ __forceinline__ EdgeSlot load_slot(const EdgeInputs& in, long long bn
 // weight and RBF features of the valid slots (e_w 0 elsewhere), the valid
 // slots of each edge type (0 l->l, 1 l->p, 2 p->l, 3 p->p by (src, dst)
 // ligand), whether the row is a ligand atom, and, when rel is given,
-// rel = x_dst - x_src (0 in invalid slots).
+// rel = x_dst - x_src (0 in invalid slots). bf16: the RBF features rounded
+// to bf16 (the first layer's product operands).
+template <bool kBf16 = false>
 __device__ __forceinline__ void chunk_geometry(EdgeLane& L, float (*rel)[3], const EdgeInputs& in,
                                                int N, long long bn, const EdgeSlot& s, int lane) {
   int et = 0;
@@ -242,7 +318,10 @@ __device__ __forceinline__ void chunk_geometry(EdgeLane& L, float (*rel)[3], con
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const float d = dist - in.offsets[r];
-      L.rbf[lane][r] = expf(in.coeff * d * d);
+      if constexpr (kBf16)
+        L.rbf[lane][r] = round_bf16(expf(in.coeff * d * d));
+      else
+        L.rbf[lane][r] = expf(in.coeff * d * d);
     }
   } else {
     L.ew[lane] = 0.f;
@@ -302,7 +381,9 @@ __device__ __forceinline__ void first_layer_slots(EdgeLane& L, unsigned todo, co
 // invalid slots) while loading the first layer's node and table columns; the
 // first layer z += ni_i + w_et[type] + sum_r rbf_r w_rbf[type][r] of the
 // valid slots; LayerNorm + ReLU of the warp's eight slots (qd + 4 i), stored
-// as fp16 (hi, lo) column pairs in place. Ends at a pipeline barrier.
+// as fp16 (hi, lo) column pairs in place (bf16: bf16 pairs; the type table
+// and the edge-type rows are bf16 weights). Ends at a pipeline barrier.
+template <bool kBf16 = false>
 __device__ __forceinline__ void chunk_half(EdgeLane& L, const EdgeInputs& in, const PassParams& p,
                                            long long bn, int kv, int tl, int qd, int lane, int l) {
   const unsigned vmask = L.valid;
@@ -316,14 +397,27 @@ __device__ __forceinline__ void chunk_half(EdgeLane& L, const EdgeInputs& in, co
       *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   const int c = kv * H + tl;  // this thread's first-layer channel
-  float wa[R], wb[R];
+  float wa[R], wb[R], base_a, base_b;
+  if constexpr (kBf16) {
+    const __nv_bfloat16* w_rbf = weights<true>(p.w_rbf);
+    const __nv_bfloat16* w_et = weights<true>(p.w_et);
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    wa[r] = p.w_rbf[(ta * R + r) * H2 + c];
-    wb[r] = p.w_rbf[((ta + 2) * R + r) * H2 + c];
+    for (int r = 0; r < R; ++r) {
+      wa[r] = wload(w_rbf + (ta * R + r) * H2 + c);
+      wb[r] = wload(w_rbf + ((ta + 2) * R + r) * H2 + c);
+    }
+    const float zi = in.ni[bn * H2 + c];
+    base_a = zi + wload(w_et + ta * H2 + c);
+    base_b = zi + wload(w_et + (ta + 2) * H2 + c);
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      wa[r] = p.w_rbf[(ta * R + r) * H2 + c];
+      wb[r] = p.w_rbf[((ta + 2) * R + r) * H2 + c];
+    }
+    const float zi = in.ni[bn * H2 + c];
+    base_a = zi + p.w_et[ta * H2 + c], base_b = zi + p.w_et[(ta + 2) * H2 + c];
   }
-  const float zi = in.ni[bn * H2 + c];
-  const float base_a = zi + p.w_et[ta * H2 + c], base_b = zi + p.w_et[(ta + 2) * H2 + c];
   cp_async_wait_all();
   lane_sync(l);
 
@@ -331,7 +425,7 @@ __device__ __forceinline__ void chunk_half(EdgeLane& L, const EdgeInputs& in, co
   first_layer_slots(L, L.tmask[ta + 2], wb, base_b, tl);
   lane_sync(l);
 
-  ln_split_rows(&L.z[0][0], qd, 4, p.kv_ln + kv * H, p.kv_ln + H2 + kv * H, lane);
+  ln_split_rows<kBf16>(&L.z[0][0], qd, 4, p.kv_ln + kv * H, p.kv_ln + H2 + kv * H, lane);
   lane_sync(l);
 }
 

@@ -13,6 +13,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import precision
+
 
 def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
     """softplus(x) - log 2 (reference: models/common.py:156-162)."""
@@ -55,8 +57,14 @@ class MLP(nn.Module):
                 layers.append(get_activation(act_fn))
         self.net = nn.Sequential(*layers)
 
-    def forward(self, x):
-        return self.net(x)
+    def forward(self, x, dtype=torch.float32):
+        """dtype=torch.bfloat16: each Linear's input and weight rounded to
+        bf16, the product in float32 (ops/precision.py)."""
+        if dtype == torch.float32:
+            return self.net(x)
+        for m in self.net:
+            x = precision.linear(x, m, dtype) if isinstance(m, nn.Linear) else m(x)
+        return x
 
 
 def outer_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,9 @@ graph is a kernel; the hybrid graph is plain PyTorch, as it is XLA in the
 JAX package. A block runs either on the whole-block kernels (K <= 32) or on
 the per-layer kernels, whose edge weights come from the eager edge-weight
 MLP. Unlike the JAX fast paths they neither sort protein rows nor skip
-tiles: every row of every layer is computed.
+tiles: every row of every layer is computed. `fast_forward` takes the
+products' precision, `dtype` (float32 by default here; the sampler's
+default is bf16, as in the JAX package); training is float32.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from ..ops.kernels.block_vjp import block_layers_trainable
 from ..ops.kernels.edge_layer import h2x_attention_layer, x2h_attention_layer
 from ..ops.kernels.edge_layer_vjp import h2x_layer_trainable, x2h_layer_trainable
 from ..ops.kernels.knn import knn_graph
+from ..ops.precision import check_dtype
 from ..ops.rbf import FIXED_OFFSETS
 
 
@@ -99,18 +102,26 @@ def _graph(rn, x, node_mask, mask_ligand):
 
 def fast_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v,
                  ligand_mask, packed: Optional[PackedBlock] = None,
-                 mode: str = "mega", fix_x: bool = False) -> Dict[str, torch.Tensor]:
+                 mode: str = "mega", fix_x: bool = False,
+                 dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """`net` is a ScorePosNet; `packed` its refine_net's kernel weights
-    (packed on the fly when None). mode 'mega' runs each block on the
+    for `dtype` (packed on the fly when None). mode 'mega' runs each block on the
     whole-block kernels, 'layers' on the per-layer kernels; a graph wider
     than the block kernels take (K > 32, as the hybrid graph at the CLI's
     64 ligand slots) runs on the per-layer kernels with a warning, as the
     JAX package does. fix_x=True freezes the coordinates (the embedding
-    export): neither route runs the h2x pass. Returns pred_ligand_pos,
-    pred_ligand_v, final_ligand_h and final_h."""
+    export): neither route runs the h2x pass. dtype: the attention layers'
+    products, torch.float32 or torch.bfloat16 (targetdiff_tpu/models/
+    fast_forward.py's dtype); in 'mega' mode the edge-weight MLP too, in
+    'layers' mode it stays the float32 eager MLP, as the JAX package's
+    layers mode. Returns pred_ligand_pos, pred_ligand_v, final_ligand_h and
+    final_h."""
     if mode not in ("mega", "layers"):
         raise ValueError(f"mode must be 'mega' or 'layers', got {mode!r}")
+    check_dtype(dtype)
     require_kernels(net.config)
+    if packed is not None and packed.dtype != dtype:
+        raise ValueError(f"packed weights are for {packed.dtype} kernels, not {dtype}")
     h, x, node_mask, mask_ligand = net.embed(
         protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v, ligand_mask)
     rn = net.refine_net
@@ -122,12 +133,12 @@ def fast_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos, ligan
         mode = "layers"
     if mode == "layers" and packed is None and h.device.type != "cpu":
         with torch.no_grad():
-            packed = pack_block_params(rn)
+            packed = pack_block_params(rn, dtype)
     for _ in range(rn.num_blocks):
         nbh = _graph(rn, x, node_mask, mask_ligand)
         if mode == "mega":
             h, x = block_denoiser(rn, h, x, nbh, mask_ligand, n_ligand=n_ligand, packed=packed,
-                                  fix_x=fix_x)
+                                  fix_x=fix_x, dtype=dtype)
             continue
         e_w = rn.edge_weights(x, nbh)[..., 0]
         for l, layer in enumerate(rn.base_block):
@@ -135,9 +146,10 @@ def fast_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos, ligan
             if packed is not None:
                 px = {f: t[l:l + 1] for f, t in packed.x2h.items()}
                 ph = {f: t[l:l + 1] for f, t in packed.h2x.items()}
-            h = x2h_attention_layer(layer, h, x, nbh, mask_ligand, e_w, params=px)
+            h = x2h_attention_layer(layer, h, x, nbh, mask_ligand, e_w, params=px, dtype=dtype)
             if not fix_x:
-                x = h2x_attention_layer(layer, h, x, nbh, mask_ligand, e_w, n_ligand, params=ph)
+                x = h2x_attention_layer(layer, h, x, nbh, mask_ligand, e_w, n_ligand, params=ph,
+                                        dtype=dtype)
     return net.head(h, x, ligand_mask, protein_pos.shape[1])
 
 

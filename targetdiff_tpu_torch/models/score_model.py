@@ -10,6 +10,12 @@ terms, `fetch_embedding` the hidden states with frozen coordinates,
 `sample_step` is one pure reverse step (ddpm, ddim or dpm2) that takes its
 noise as arguments, and `sample_diffusion` loops over the jumps of
 `sampling_schedule` drawing that noise from a `torch.Generator`.
+
+Precision, as the JAX package: `fast_apply`, `sample_step` and
+`sample_diffusion` take `dtype`, the kernels' products, torch.bfloat16 by
+default (the JAX package's sampling default) or torch.float32; impl='eager'
+ignores it. `likelihood_estimation`, `fetch_embedding` and training run in
+float32 whatever the sampler's default.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from ..data.batch import ComplexBatch
 from ..ops import diffusion as D
 from ..ops import graph as G
 from ..ops.kernels.block_denoiser import PackedBlock, pack_block_params
+from ..ops.precision import check_dtype
 from ..ops.schedules import make_categorical_schedule, make_gaussian_schedule
 from .common import ShiftedSoftplus
 from .egnn import EGNN
@@ -169,13 +176,14 @@ class DiffusionModel:
 
     def fast_apply(self, batch: ComplexBatch, ligand_pos, ligand_v,
                    packed: Optional[PackedBlock] = None, mode: str = "mega",
-                   fix_x: bool = False):
+                   fix_x: bool = False, dtype=torch.bfloat16):
         """Kernel-backed forward (the sampling path); mode 'mega' runs the
         whole-block kernels, 'layers' the per-layer ones, fix_x=True freezes
-        the coordinates (see fast_forward)."""
+        the coordinates, dtype the products' precision, bf16 by default as
+        the JAX package's fast_apply (see fast_forward)."""
         return fast_forward(self.net, batch.protein_pos, batch.protein_feat,
                             batch.protein_mask, ligand_pos, ligand_v, batch.ligand_mask,
-                            packed=packed, mode=mode, fix_x=fix_x)
+                            packed=packed, mode=mode, fix_x=fix_x, dtype=dtype)
 
     def get_diffusion_loss(self, batch: ComplexBatch, time_step=None, pos_noise=None,
                            v_uniform=None, generator: Optional[torch.Generator] = None,
@@ -285,7 +293,8 @@ class DiffusionModel:
         ligand_v_perturbed, log_ligand_vt = D.q_v_sample(
             self.v_sched, log_ligand_v0, t, self.num_classes, v_uniform)
         if impl == "fast":
-            preds = self.fast_apply(cbatch, ligand_pos_perturbed, ligand_v_perturbed)
+            preds = self.fast_apply(cbatch, ligand_pos_perturbed, ligand_v_perturbed,
+                                    dtype=torch.float32)
         else:
             preds = self.apply(cbatch, ligand_pos_perturbed, ligand_v_perturbed)
         pos_model_mean = D.q_pos_posterior(self.pos_sched, preds["pred_ligand_pos"],
@@ -309,16 +318,19 @@ class DiffusionModel:
         ScorePosNet.forward, None `self.impl`."""
         impl = impl or self.impl
         if impl == "fast":
-            return self.fast_apply(batch, batch.ligand_pos, batch.ligand_v, fix_x=True)
+            return self.fast_apply(batch, batch.ligand_pos, batch.ligand_v, fix_x=True,
+                                   dtype=torch.float32)
         if impl != "eager":
             raise ValueError(f"impl must be 'fast' or 'eager', got {impl!r}")
         return self.apply(batch, batch.ligand_pos, batch.ligand_v, fix_x=True)
 
-    def _x0_and_logits(self, cbatch: ComplexBatch, pos, v, tt, packed, impl: str):
+    def _x0_and_logits(self, cbatch: ComplexBatch, pos, v, tt, packed, impl: str,
+                       dtype=torch.bfloat16):
         """The model's x0 prediction and type logits at (pos, v, tt): on the
-        kernels (impl='fast') or through ScorePosNet.forward ('eager')."""
+        kernels of `dtype` (impl='fast') or through ScorePosNet.forward
+        ('eager', float32 whatever dtype says)."""
         if impl == "fast":
-            preds = self.fast_apply(cbatch, pos, v, packed=packed)
+            preds = self.fast_apply(cbatch, pos, v, packed=packed, dtype=dtype)
         elif impl == "eager":
             preds = self.apply(cbatch, pos, v)
         else:
@@ -335,7 +347,8 @@ class DiffusionModel:
     def sample_step(self, cbatch: ComplexBatch, ligand_pos, ligand_v, t: int, pos_noise,
                     type_uniform, packed: Optional[PackedBlock] = None, s: Optional[int] = None,
                     sampler: str = "ddpm", coefs=None, pos_only: bool = False,
-                    return_v_probs: bool = False, impl: Optional[str] = None):
+                    return_v_probs: bool = False, impl: Optional[str] = None,
+                    dtype=torch.bfloat16):
         """One reverse step from timestep t to s on the protein-centered batch
         (targetdiff_tpu/models/score_model.py:_sample_step; reference:
         molopt_score_model.py:649-693). sampler='ddpm' is the ancestral step,
@@ -349,15 +362,17 @@ class DiffusionModel:
         `type_uniform` [B,NL,C] U[0,1) (None under pos_only, which holds the
         types). Returns (ligand_pos, ligand_v) at s, and with return_v_probs
         also the recon log-probabilities and those the types were drawn from.
-        impl 'fast' or 'eager' as in sample_diffusion."""
+        impl 'fast' or 'eager' and dtype (bf16 by default; `packed` must be
+        packed for it) as in sample_diffusion."""
         impl = impl or self.impl
+        check_dtype(dtype)
         if sampler not in ("ddpm", "ddim", "dpm2"):
             raise ValueError(f"unknown sampler {sampler!r} (want 'ddpm', 'ddim' or 'dpm2')")
         s = t - 1 if s is None else s
         dev, C = ligand_pos.device, self.num_classes
         tt = torch.full((cbatch.num_graphs,), t, dtype=torch.long, device=dev)
         lmask_f = cbatch.ligand_mask.to(ligand_pos.dtype)[..., None]
-        pos0, logits = self._x0_and_logits(cbatch, ligand_pos, ligand_v, tt, packed, impl)
+        pos0, logits = self._x0_and_logits(cbatch, ligand_pos, ligand_v, tt, packed, impl, dtype)
 
         if sampler == "ddpm":
             pos_mean = D.q_pos_posterior(self.pos_sched, pos0, ligand_pos, tt)
@@ -378,7 +393,7 @@ class DiffusionModel:
                     self.v_sched, F.log_softmax(logits, dim=-1),
                     D.index_to_log_onehot(ligand_v, C), tt, ss, C)
                 pos0_2, logits_2 = self._x0_and_logits(
-                    cbatch, x_prop, torch.argmax(log_post_mid, dim=-1), ss, packed, impl)
+                    cbatch, x_prop, torch.argmax(log_post_mid, dim=-1), ss, packed, impl, dtype)
                 pos0 = pos0 + 0.5 * (pos0_2 - pos0)
                 p_avg = 0.5 * (F.softmax(logits, dim=-1) + F.softmax(logits_2, dim=-1))
                 log_avg = torch.log(p_avg.clamp(min=D.LOG_EPS))
@@ -411,7 +426,8 @@ class DiffusionModel:
                          sampler: str = "ddpm", eta: float = 0.0,
                          ddim_spacing: str = "uniform",
                          impl: Optional[str] = None,
-                         noise_rows: Optional[Tuple[int, int, int]] = None) -> SampleResult:
+                         noise_rows: Optional[Tuple[int, int, int]] = None,
+                         dtype=torch.bfloat16) -> SampleResult:
         """The reverse process (targetdiff_tpu/models/score_model.py:
         sample_diffusion; reference: molopt_score_model.py:633-703).
         sampler='ddpm' runs the last `num_steps` timesteps of the schedule
@@ -420,7 +436,9 @@ class DiffusionModel:
         position noise scaled by `eta`. impl='fast' runs each step on the
         kernels, with the block weights packed once per run; 'eager' through
         ScorePosNet.forward (the EGNN denoiser's path), None `self.impl`.
-        The jump coefficients
+        dtype: the kernels' products, torch.bfloat16 (the default, as the
+        JAX package's sample_diffusion) or torch.float32; 'eager' ignores
+        it. The jump coefficients
         are uploaded once per run; each step draws its noise from
         `generator`. return_traj keeps every step's positions
         (uncentered, padded rows at the offset) and types on the device,
@@ -440,10 +458,11 @@ class DiffusionModel:
         impl = impl or self.impl
         if impl not in ("fast", "eager"):
             raise ValueError(f"impl must be 'fast' or 'eager', got {impl!r}")
+        check_dtype(dtype)
         packed = None
         if impl == "fast":
             require_kernels(self.config)
-            packed = pack_block_params(self.net.refine_net)
+            packed = pack_block_params(self.net.refine_net, dtype)
         coefs = None
         if sampler != "ddpm":
             betas = self.pos_sched.betas.cpu().numpy()
@@ -472,7 +491,7 @@ class DiffusionModel:
             out = self.sample_step(cbatch, pos, v, t, pos_noise, type_uniform, packed=packed,
                                    s=s, sampler=sampler,
                                    coefs=None if coefs is None else coefs[i], pos_only=pos_only,
-                                   return_v_probs=return_v_probs, impl=impl)
+                                   return_v_probs=return_v_probs, impl=impl, dtype=dtype)
             pos, v = out[:2]
             if return_traj:
                 traj["pos_traj"][i] = pos + offset

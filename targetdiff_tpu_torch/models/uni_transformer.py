@@ -8,7 +8,10 @@ graph; `ScorePosNet` refuses any other config.
 `UniTransformerO2TwoUpdateGeneral.block_forward` is the plain version of the
 block-denoiser kernel (ops/kernels/block_denoiser.py); one layer's x2h and
 h2x sub-layers with the edge weights given are the plain versions of the
-per-layer kernels (ops/kernels/edge_layer.py).
+per-layer kernels (ops/kernels/edge_layer.py). Each takes `dtype`:
+torch.bfloat16 is the plain version of the bf16 kernels, every dense
+product's operands rounded to bf16 and multiplied in float32
+(ops/precision.py); torch.float32 (the default) is unchanged.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ class _EdgeAttention(nn.Module):
         setattr(self, f"{prefix}q_func", MLP(hidden_dim, hidden_dim, hidden_dim))
         self._prefix = prefix
 
-    def attention(self, h, r_feat, edge_feat, nbh, e_w):
+    def attention(self, h, r_feat, edge_feat, nbh, e_w, dtype=torch.float32):
         B, N, H = h.shape
         K = nbh.idx.shape[-1]
         dh = H // self.n_heads
@@ -65,9 +68,9 @@ class _EdgeAttention(nn.Module):
             [edge_feat, r_feat, h[:, :, None, :].expand(B, N, K, H), G.gather_nodes(h, nbh.idx)],
             dim=-1,
         )
-        k = getattr(self, f"{p}k_func")(kv_input).reshape(B, N, K, self.n_heads, dh)
-        v = getattr(self, f"{p}v_func")(kv_input) * e_w
-        q = getattr(self, f"{p}q_func")(h).reshape(B, N, self.n_heads, dh)
+        k = getattr(self, f"{p}k_func")(kv_input, dtype).reshape(B, N, K, self.n_heads, dh)
+        v = getattr(self, f"{p}v_func")(kv_input, dtype) * e_w
+        q = getattr(self, f"{p}q_func")(h, dtype).reshape(B, N, self.n_heads, dh)
         logits = (q[:, :, None] * k).sum(-1) / math.sqrt(dh)  # [B, N, K, heads]
         return masked_neighbor_softmax(logits, nbh.mask), v
 
@@ -78,9 +81,9 @@ class BaseX2HAttLayer(_EdgeAttention):
     def __init__(self, hidden_dim, n_heads, edge_feat_dim, r_feat_dim):
         super().__init__(hidden_dim, n_heads, edge_feat_dim, r_feat_dim, hidden_dim, "h")
 
-    def forward(self, h, r_feat, edge_feat, nbh, e_w):
+    def forward(self, h, r_feat, edge_feat, nbh, e_w, dtype=torch.float32):
         B, N, H = h.shape
-        alpha, v = self.attention(h, r_feat, edge_feat, nbh, e_w)
+        alpha, v = self.attention(h, r_feat, edge_feat, nbh, e_w, dtype)
         v = v.reshape(B, N, -1, self.n_heads, H // self.n_heads)
         return (alpha[..., None] * v).sum(dim=2).reshape(B, N, H) + h
 
@@ -92,8 +95,8 @@ class BaseH2XAttLayer(_EdgeAttention):
     def __init__(self, hidden_dim, n_heads, edge_feat_dim, r_feat_dim):
         super().__init__(hidden_dim, n_heads, edge_feat_dim, r_feat_dim, n_heads, "x")
 
-    def forward(self, h, rel_x, r_feat, edge_feat, nbh, e_w):
-        alpha, v = self.attention(h, r_feat, edge_feat, nbh, e_w)  # v [B, N, K, heads]
+    def forward(self, h, rel_x, r_feat, edge_feat, nbh, e_w, dtype=torch.float32):
+        alpha, v = self.attention(h, r_feat, edge_feat, nbh, e_w, dtype)  # v [B, N, K, heads]
         s = (alpha * v).mean(dim=-1)
         return torch.einsum("bnk,bnkd->bnd", s, rel_x)
 
@@ -110,14 +113,15 @@ class AttentionLayerO2TwoUpdateNodeGeneral(nn.Module):
         self.h2x_layers = nn.ModuleList(
             [BaseH2XAttLayer(hidden_dim, n_heads, edge_feat_dim, r_feat_dim)])
 
-    def forward(self, h, x, edge_attr, nbh, mask_ligand, e_w, fix_x: bool = False):
+    def forward(self, h, x, edge_attr, nbh, mask_ligand, e_w, fix_x: bool = False,
+                dtype=torch.float32):
         """fix_x=True freezes the coordinates: x comes back as given. The
         h2x output feeds x alone, so it is not computed then."""
         rel_x, r_feat = edge_geometry(x, nbh, edge_attr)
-        h = self.x2h_layers[0](h, r_feat, edge_attr, nbh, e_w)
+        h = self.x2h_layers[0](h, r_feat, edge_attr, nbh, e_w, dtype)
         if fix_x:
             return h, x
-        delta_x = self.h2x_layers[0](h, rel_x, r_feat, edge_attr, nbh, e_w)
+        delta_x = self.h2x_layers[0](h, rel_x, r_feat, edge_attr, nbh, e_w, dtype)
         return h, x + delta_x * mask_ligand[..., None].to(x.dtype)
 
 
@@ -155,26 +159,28 @@ class UniTransformerO2TwoUpdateGeneral(nn.Module):
             return G.hybrid_graph(x, node_mask, mask_ligand, self.k, self.max_ligand)
         return G.knn_graph(x, node_mask, self.k)
 
-    def edge_weights(self, x, nbh):
+    def edge_weights(self, x, nbh, dtype=torch.float32):
         """Global edge weights from block-start distances (reference: :312-318)."""
         offsets, coeff = gaussian_smearing_offsets(device=x.device)
         _, dist = G.rel_geometry(x, nbh)
-        return torch.sigmoid(self.edge_pred_layer(gaussian_smearing(dist, offsets, coeff)))
+        return torch.sigmoid(self.edge_pred_layer(gaussian_smearing(dist, offsets, coeff),
+                                                  dtype))
 
     def block_forward(self, h, x, nbh: G.Neighborhood, mask_ligand, e_w=None,
-                      fix_x: bool = False):
+                      fix_x: bool = False, dtype=torch.float32):
         """All layers of one block on a given neighborhood; the plain version
-        of the block-denoiser kernel. With e_w [B,N,K] given (train mode,
+        of the block-denoiser kernel (of its bf16 kernels with dtype=
+        torch.bfloat16). With e_w [B,N,K] given (train mode,
         computed outside by `edge_weights`), the block uses it as it is.
         fix_x=True keeps x as given (the embedding export); edge types keep
         the protein / ligand split of mask_ligand. Returns (h, x)."""
         edge_attr = G.edge_types(nbh, mask_ligand)
         if e_w is None:
-            e_w = self.edge_weights(x, nbh)
+            e_w = self.edge_weights(x, nbh, dtype)
         else:
             e_w = e_w[..., None]
         for layer in self.base_block:
-            h, x = layer(h, x, edge_attr, nbh, mask_ligand, e_w, fix_x)
+            h, x = layer(h, x, edge_attr, nbh, mask_ligand, e_w, fix_x, dtype)
         return h, x
 
     def forward(self, h, x, mask_ligand, node_mask, fix_x: bool = False):

@@ -20,6 +20,15 @@ projections, and its edge-feature part becomes one [4, R, 2H] table indexed
 by edge type (the outer product rbf x onehot(type) picks one R-row block).
 The packing is differentiable: gradients of the packed stacks reach the
 module's parameters through autograd's cat/transpose/stack backward.
+
+Precision: `dtype=torch.bfloat16` (the sampling path's default, as the JAX
+package's dtype=bf16) launches the bf16 instantiations of the same kernels
+(the `*_bf16` entry points: one bf16 tensor-core product with float32
+accumulation per product). Their product weights are packed as bf16 tensors
+(`pack_block_params(..., dtype)`; biases and LayerNorm stay float32), and
+the stacks' dtype says which kernels a pack is for. Their plain version is
+the module's `block_forward(..., dtype=torch.bfloat16)`. bf16 launches are
+counted apart (the `BF16_*` counts).
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from typing import NamedTuple
 import torch
 
 from .. import graph as G
+from ..precision import check_dtype, round_bf16
 from ..rbf import gaussian_smearing_offsets
 from . import build
 
@@ -39,19 +49,32 @@ TRAIN_LAUNCHES = 0  # block_denoiser_train_cuda launches since the last reset
 EW_LAUNCHES = 0  # edge-weight kernel launches since the last reset
 X2H_PASS_LAUNCHES = 0  # block_denoiser_cuda's x2h edge launches since the last reset
 H2X_PASS_LAUNCHES = 0  # block_denoiser_cuda's h2x edge launches since the last reset
+# the same four counts of the bf16 kernels (dtype=torch.bfloat16); the counts
+# above are float32 launches only
+BF16_LAUNCHES = BF16_EW_LAUNCHES = BF16_X2H_PASS_LAUNCHES = BF16_H2X_PASS_LAUNCHES = 0
 
 # the kernels are specialised to the released architecture's widths
 HIDDEN, HEADS, MAX_K = 128, 16, 32
 
 
 class PackedBlock(NamedTuple):
-    """Kernel weights of one refine_net, float32, contiguous.
+    """Kernel weights of one refine_net, contiguous: the product weights in
+    `dtype`, the rest float32.
     ew: (w1 [R,H], b1 [H], ln [2,H], w2 [H], b2 [1]).
     x2h / h2x: dicts of [L, ...] stacks (see `_pack_pass`)."""
 
     ew: tuple
     x2h: dict
     h2x: dict
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The precision of the kernels the pack is for."""
+        return self.x2h["w_node"].dtype
+
+
+# the stacks that are product weights: packed in the kernels' dtype
+WEIGHT_FIELDS = ("w_node", "w_q2", "w_rbf", "w_et", "w2k", "w2v")
 
 
 class _PassParams(ctypes.Structure):
@@ -68,8 +91,9 @@ class _EwParams(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in ("w1", "b1", "ln", "w2", "b2")]
 
 
-def _pack_pass(layers, prefix: str) -> dict:
-    """Stack one pass (prefix 'h' = x2h, 'x' = h2x) over layers. The first
+def _pack_pass(layers, prefix: str, dtype=torch.float32) -> dict:
+    """Stack one pass (prefix 'h' = x2h, 'x' = h2x) over layers, the
+    WEIGHT_FIELDS in `dtype` and the rest float32. The first
     Linear of each edge MLP takes [edge type (4) | rbf x type (4R) | h_i | h_j]:
       w_node [H, 5H]  columns [k.h_i | v.h_i | k.h_j | v.h_j | q first layer]
       b_node [5H]     [k bias | v bias | 0 | 0 | q bias]
@@ -78,6 +102,7 @@ def _pack_pass(layers, prefix: str) -> dict:
       q_ln [2, H], w_q2 [H, H], b_q2 [H]  rest of the query MLP
       w2k [H, H], b2k [H], w2v [H, V], b2v [V]  second layers (V = H or heads)
     """
+    check_dtype(dtype)
     out = {name: [] for name, _ in _PassParams._fields_}
     for layer in layers:
         att = layer.x2h_layers[0] if prefix == "h" else layer.h2x_layers[0]
@@ -104,25 +129,41 @@ def _pack_pass(layers, prefix: str) -> dict:
         out["b2k"].append(mk[3].bias)
         out["w2v"].append(mv[3].weight.t())
         out["b2v"].append(mv[3].bias)
-    return {k: torch.stack(v).float().contiguous() for k, v in out.items()}
+    return {k: torch.stack(v).to(dtype if k in WEIGHT_FIELDS else torch.float32).contiguous()
+            for k, v in out.items()}
 
 
-def pack_pass_params(refine_net):
+def pack_pass_params(refine_net, dtype=torch.float32):
     """(x2h, h2x) stacks of a UniTransformerO2TwoUpdateGeneral's layers, as
     `_pack_pass` lays them out; differentiable."""
-    return _pack_pass(refine_net.base_block, "h"), _pack_pass(refine_net.base_block, "x")
+    return (_pack_pass(refine_net.base_block, "h", dtype),
+            _pack_pass(refine_net.base_block, "x", dtype))
 
 
-def pack_block_params(refine_net) -> PackedBlock:
+def pack_block_params(refine_net, dtype=torch.float32) -> PackedBlock:
     """Regroup a UniTransformerO2TwoUpdateGeneral's weights for the kernels
-    (counterpart of targetdiff_tpu/models/fast_forward.py:extract_block_params);
+    of `dtype` (counterpart of targetdiff_tpu/models/fast_forward.py:
+    extract_block_params, whose product weights are in its dtype too);
     differentiable, so callers that only infer run it under no_grad."""
+    check_dtype(dtype)
     ep = refine_net.edge_pred_layer.net
-    ew = (ep[0].weight.t().float().contiguous(), ep[0].bias.float().contiguous(),
+    ew = (ep[0].weight.t().to(dtype).contiguous(), ep[0].bias.float().contiguous(),
           torch.stack([ep[1].weight, ep[1].bias]).float().contiguous(),
-          ep[3].weight.reshape(-1).float().contiguous(), ep[3].bias.float().contiguous())
-    x2h, h2x = pack_pass_params(refine_net)
+          ep[3].weight.reshape(-1).to(dtype).contiguous(), ep[3].bias.float().contiguous())
+    x2h, h2x = pack_pass_params(refine_net, dtype)
     return PackedBlock(ew=ew, x2h=x2h, h2x=h2x)
+
+
+def entry(name: str, dtype) -> str:
+    """The C entry point of `name` for kernels of `dtype`."""
+    return name + "_bf16" if check_dtype(dtype) == torch.bfloat16 else name
+
+
+def require_pack(stacks_dtype, dtype, what: str = "packed weights") -> None:
+    """Raise unless weights packed as `stacks_dtype` are for kernels of `dtype`."""
+    if stacks_dtype != check_dtype(dtype):
+        raise ValueError(f"{what} are packed for {stacks_dtype} kernels, not {dtype}: pack "
+                         f"them with dtype={dtype}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -148,6 +189,8 @@ def _entries():
                                ctypes.POINTER(_PassParams), i32, i32, i32, i32, i32, vp, vp,
                                vp, vp, vp, vp],
     }
+    sigs.update({entry(name, torch.bfloat16): sigs[name] for name in (
+        "td_block_ew", "td_block_node", "td_block_node_rows", "td_block_x2h", "td_block_h2x")})
     fns = {}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -162,15 +205,18 @@ def _pass_structs(stacks: dict, num_layers: int):
 
 
 def block_denoiser(refine_net, h, x, nbh: G.Neighborhood, mask_ligand, n_ligand: int,
-                   packed: PackedBlock = None, fix_x: bool = False):
+                   packed: PackedBlock = None, fix_x: bool = False, dtype=torch.float32):
     """All layers of one UniTransformerO2 block. h [B,N,H] f32, x [B,N,3]
     f32, nbh [B,N,K], mask_ligand [B,N] bool (ligand rows are the last
     `n_ligand` rows). fix_x=True keeps x as given and skips the h2x pass.
-    Returns (h, x) after the block. Inference only: the CUDA path records
-    no autograd graph."""
+    dtype: the products' precision, torch.float32 or torch.bfloat16 (h and x
+    stay float32). Returns (h, x) after the block. Inference only: the CUDA
+    path records no autograd graph."""
+    check_dtype(dtype)
     if h.device.type == "cpu":
-        return refine_net.block_forward(h, x, nbh, mask_ligand, fix_x=fix_x)
-    return block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed, fix_x)
+        return refine_net.block_forward(h, x, nbh, mask_ligand, fix_x=fix_x, dtype=dtype)
+    return block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed, fix_x,
+                               dtype)
 
 
 def check_block_inputs(refine_net, h, x, nbh, mask_ligand, n_ligand):
@@ -199,16 +245,19 @@ def check_block_inputs(refine_net, h, x, nbh, mask_ligand, n_ligand):
 
 
 def block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed=None,
-                        fix_x: bool = False):
+                        fix_x: bool = False, dtype=torch.float32):
     global LAUNCHES, X2H_PASS_LAUNCHES, H2X_PASS_LAUNCHES
+    global BF16_LAUNCHES, BF16_X2H_PASS_LAUNCHES, BF16_H2X_PASS_LAUNCHES
     check_block_inputs(refine_net, h, x, nbh, mask_ligand, n_ligand)
     B, N, H = h.shape
     K = nbh.idx.shape[-1]
     if packed is None:
         with torch.no_grad():
-            packed = pack_block_params(refine_net)
+            packed = pack_block_params(refine_net, dtype)
+    require_pack(packed.dtype, dtype)
     if packed.ew[0].device != h.device:
         raise ValueError(f"packed weights are on {packed.ew[0].device}, h on {h.device}")
+    bf16 = dtype == torch.bfloat16
 
     dev = h.device
     L = packed.x2h["w_node"].shape[0]
@@ -230,25 +279,34 @@ def block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed=Non
     _launch_ew(x_a, idx, packed, ew)
     common = (idx.data_ptr(), nmask.data_ptr(), mlig.data_ptr(), ew.data_ptr(),
               ni.data_ptr(), nj.data_ptr(), q.data_ptr(), offsets.data_ptr(), coeff)
+    node, node_rows, x2h, h2x = (entry(n, dtype) for n in (
+        "td_block_node", "td_block_node_rows", "td_block_x2h", "td_block_h2x"))
     for l in range(L):
-        build.check(fns["td_block_node"](h_a.data_ptr(), B * N, x2h_p[l], ni.data_ptr(),
-                                         nj.data_ptr(), q.data_ptr(), stream), "td_block_node")
-        build.check(fns["td_block_x2h"](h_a.data_ptr(), x_a.data_ptr(), *common, x2h_p[l],
-                                        B, N, K, 0, h_b.data_ptr(), stream), "td_block_x2h")
-        X2H_PASS_LAUNCHES += 1
+        build.check(fns[node](h_a.data_ptr(), B * N, x2h_p[l], ni.data_ptr(), nj.data_ptr(),
+                              q.data_ptr(), stream), node)
+        build.check(fns[x2h](h_a.data_ptr(), x_a.data_ptr(), *common, x2h_p[l],
+                             B, N, K, 0, h_b.data_ptr(), stream), x2h)
+        if bf16:
+            BF16_X2H_PASS_LAUNCHES += 1
+        else:
+            X2H_PASS_LAUNCHES += 1
         h_a, h_b = h_b, h_a
         if fix_x:
             continue
         # the h2x pass needs of the protein rows only their source projections
-        build.check(fns["td_block_node_rows"](h_a.data_ptr(), B, N, N - n_ligand, h2x_p[l],
-                                              ni.data_ptr(), nj.data_ptr(), q.data_ptr(), None,
-                                              stream), "td_block_node_rows")
-        build.check(fns["td_block_h2x"](x_a.data_ptr(), *common, h2x_p[l],
-                                        B, N, K, N - n_ligand, x_b.data_ptr(), stream),
-                    "td_block_h2x")
-        H2X_PASS_LAUNCHES += 1
+        build.check(fns[node_rows](h_a.data_ptr(), B, N, N - n_ligand, h2x_p[l], ni.data_ptr(),
+                                   nj.data_ptr(), q.data_ptr(), None, stream), node_rows)
+        build.check(fns[h2x](x_a.data_ptr(), *common, h2x_p[l],
+                             B, N, K, N - n_ligand, x_b.data_ptr(), stream), h2x)
+        if bf16:
+            BF16_H2X_PASS_LAUNCHES += 1
+        else:
+            H2X_PASS_LAUNCHES += 1
         x_a, x_b = x_b, x_a
-    LAUNCHES += 1
+    if bf16:
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return h_a, x_a
 
 
@@ -256,13 +314,19 @@ def node_projections_plain(h, stacks, layer: int = 0):
     """The per-node projections of one pass (csrc/node_proj.cuh) in plain
     PyTorch: h [..., H] -> ni [..., 2H], nj [..., 2H], q [..., H] and the
     query MLP's first-layer output q1 [..., H], from layer `layer` of
-    `pack_pass_params`-style stacks."""
+    `pack_pass_params`-style stacks; bf16 stacks: the bf16 kernel's version,
+    h and the LayerNorm output rounded to bf16, the products in h's dtype
+    (float32; float64 for a reference)."""
     p = {k: v[layer] for k, v in stacks.items()}
     H = h.shape[-1]
+    bf16 = p["w_node"].dtype == torch.bfloat16
+    if bf16:
+        h = round_bf16(h)
+        p = {k: v.to(h.dtype) for k, v in p.items()}
     proj = h @ p["w_node"] + p["b_node"]  # [k.h_i | v.h_i | k.h_j | v.h_j | q1]
     q1 = proj[..., 4 * H:]
-    qn = torch.nn.functional.layer_norm(q1, (H,), p["q_ln"][0], p["q_ln"][1], 1e-5)
-    q = torch.relu(qn) @ p["w_q2"] + p["b_q2"]
+    z = torch.relu(torch.nn.functional.layer_norm(q1, (H,), p["q_ln"][0], p["q_ln"][1], 1e-5))
+    q = (round_bf16(z) if bf16 else z) @ p["w_q2"] + p["b_q2"]
     return proj[..., :2 * H], proj[..., 2 * H:4 * H], q, q1
 
 
@@ -271,8 +335,8 @@ def node_projections_cuda(h, stacks, layer: int = 0, row0: int = 0, want_q1: boo
     [B,N,H] for layer `layer` of `pack_pass_params`-style stacks, each
     [B*N, width]. With row0 > 0 the rows below row0 of each complex get only
     nj (as the h2x pass launches it; their ni and q are left unset). q1 is
-    None unless asked for. CUDA tensors only; `node_projections_plain` is
-    its plain version."""
+    None unless asked for. bf16 stacks launch the bf16 node kernel. CUDA
+    tensors only; `node_projections_plain` is its plain version."""
     build.require_cuda(h, "h")
     B, N, H = h.shape
     if H != HIDDEN or h.dtype != torch.float32:
@@ -287,32 +351,39 @@ def node_projections_cuda(h, stacks, layer: int = 0, row0: int = 0, want_q1: boo
     nj = torch.empty_like(ni)
     q = torch.empty((B * N, H), dtype=torch.float32, device=h.device)
     q1 = torch.empty_like(q) if want_q1 else None
-    build.check(_entries()["td_block_node_rows"](
+    name = entry("td_block_node_rows", stacks["w_node"].dtype)
+    build.check(_entries()[name](
         h.data_ptr(), B, N, row0, _pass_structs(stacks, layer + 1)[layer], ni.data_ptr(),
         nj.data_ptr(), q.data_ptr(), None if q1 is None else q1.data_ptr(),
-        build.stream_ptr(h.device)), "td_block_node_rows")
+        build.stream_ptr(h.device)), name)
     return ni, nj, q, q1
 
 
 def _launch_ew(x, idx, packed: PackedBlock, out):
-    """ew_kernel on contiguous x [B,N,3] and idx [B,N,K] into out [B,N,K]."""
-    global EW_LAUNCHES
+    """ew_kernel of the pack's dtype on contiguous x [B,N,3] and idx
+    [B,N,K] into out [B,N,K]."""
+    global EW_LAUNCHES, BF16_EW_LAUNCHES
     B, N, K = idx.shape
     offsets, coeff = gaussian_smearing_offsets(device=x.device)
-    build.check(_entries()["td_block_ew"](
+    name = entry("td_block_ew", packed.dtype)
+    build.check(_entries()[name](
         x.data_ptr(), idx.data_ptr(), B, N, K, offsets.data_ptr(), coeff,
         _EwParams(*[t.data_ptr() for t in packed.ew]), out.data_ptr(),
-        build.stream_ptr(x.device)), "td_block_ew")
-    EW_LAUNCHES += 1
+        build.stream_ptr(x.device)), name)
+    if packed.dtype == torch.bfloat16:
+        BF16_EW_LAUNCHES += 1
+    else:
+        EW_LAUNCHES += 1
 
 
 def edge_weights_cuda(x, nbh: G.Neighborhood, packed: PackedBlock):
     """The edge-weight kernel alone (csrc/block_denoiser.cu ew_kernel, as
     `block_denoiser_cuda` launches it once per block call): e_w [B,N,K] =
     sigmoid(w2 . relu(LN(rbf(d) @ w1 + b1)) + b2) of every slot of the graph
-    on positions x [B,N,3], from `pack_block_params`' edge-weight weights.
-    Slots past a row's valid neighbours get a value too; callers read the
-    valid ones. CUDA tensors only; the module's `edge_weights` is its plain
+    on positions x [B,N,3], from `pack_block_params`' edge-weight weights
+    (a bf16 pack launches the bf16 kernel). Slots past a row's valid
+    neighbours get a value too; callers read the valid ones. CUDA tensors
+    only; the module's `edge_weights` (with the pack's dtype) is its plain
     version."""
     build.require_cuda(x, "x")
     B, N, _ = x.shape
@@ -354,6 +425,7 @@ def block_denoiser_train_cuda(refine_net, h, x, nbh, mask_ligand, e_w, n_ligand,
     if e_w.shape != (B, N, K) or e_w.dtype != torch.float32 or e_w.device != h.device:
         raise ValueError(f"e_w must be float32 [B,N,K] on {h.device}")
     L = x2h["w_node"].shape[0]
+    require_pack(x2h["w_node"].dtype, torch.float32, "the train-mode kernels' weights")
     if x2h["w_node"].device != h.device:
         raise ValueError(f"packed weights are on {x2h['w_node'].device}, h on {h.device}")
     dev = h.device

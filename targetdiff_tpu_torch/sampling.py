@@ -88,6 +88,7 @@ def sample_diffusion_ligand(
     sampler: str = "ddpm",
     eta: float = 0.0,
     ddim_spacing: str = "uniform",
+    dtype=torch.bfloat16,
 ) -> Dict[str, Any]:
     """Generate `num_samples` molecules for one pocket on `model.device`
     (targetdiff_tpu/sampling.py:sample_diffusion_ligand). Returns per-sample
@@ -96,8 +97,9 @@ def sample_diffusion_ligand(
     return_traj, 'pos_traj' [frames, n_atoms, 3] and 'v_traj' [frames,
     n_atoms], every `traj_stride`-th step, copied from the device once a
     batch. Mode 'ref' and pos_only take the size and the types of
-    `ref_ligand` ({'ligand_pos', 'ligand_v'}); sampler, eta and ddim_spacing
-    as in DiffusionModel.sample_diffusion."""
+    `ref_ligand` ({'ligand_pos', 'ligand_v'}); sampler, eta, ddim_spacing
+    and dtype (bf16 by default, as the JAX package samples) as in
+    DiffusionModel.sample_diffusion."""
     max_protein = max_protein or model.max_protein
     max_ligand = max_ligand or model.max_ligand
     rng = rng or np.random.default_rng(0)
@@ -139,7 +141,7 @@ def sample_diffusion_ligand(
         res = model.sample_diffusion(batch, init_pos, init_v, generator, num_steps=num_steps,
                                      center_pos_mode=center_pos_mode, pos_only=pos_only,
                                      return_traj=return_traj, sampler=sampler, eta=eta,
-                                     ddim_spacing=ddim_spacing)
+                                     ddim_spacing=ddim_spacing, dtype=dtype)
         pos_np = res.pos.double().cpu().numpy()
         v_np = res.v.cpu().numpy()
         if return_traj:
@@ -172,6 +174,7 @@ def sample_testset(
     eta: float = 0.0,
     ddim_spacing: str = "uniform",
     mesh: Optional[Mesh] = None,
+    dtype=torch.bfloat16,
 ) -> List[Dict[str, Any]]:
     """`num_samples_per_pocket` molecules for each of `pockets` on
     `model.device`: the counterpart of
@@ -180,8 +183,9 @@ def sample_testset(
     bank [P, NPpad, *]; the pocket x sample rows run `chunk_rows` at a time,
     each chunk's batch gathered on the device from the bank, so peak memory
     is set by `chunk_rows`, not by the number of pockets. Mode 'ref' takes
-    one reference ligand size per pocket in `ref_sizes`; sampler, eta and
-    ddim_spacing as in DiffusionModel.sample_diffusion.
+    one reference ligand size per pocket in `ref_sizes`; sampler, eta,
+    ddim_spacing and dtype (bf16 by default) as in
+    DiffusionModel.sample_diffusion.
 
     With a `mesh` (parallel/mesh.py), the rows of each chunk are split over
     the ranks (`chunk_rows` rounded down to a multiple of W; a last chunk
@@ -252,7 +256,7 @@ def sample_testset(
         t1 = time.perf_counter()
         res = model.sample_diffusion(batch, init_pos, init_v, generator, num_steps=num_steps,
                                      sampler=sampler, eta=eta, ddim_spacing=ddim_spacing,
-                                     noise_rows=(C, start_row, stop_row))
+                                     noise_rows=(C, start_row, stop_row), dtype=dtype)
         pos, v = res.pos, res.v
         if mesh is not None:
             pos, v = gather_rows(pos, C, mesh), gather_rows(v, C, mesh)

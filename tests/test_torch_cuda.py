@@ -104,7 +104,7 @@ def test_kernel_backed_step_matches_eager(cuda):
     model = DiffusionModel(Config(CONFIG), 27, 13, device=cuda)
     batch = _complexes(cuda, seed=1)
     with torch.no_grad():
-        fast = model.fast_apply(batch, batch.ligand_pos, batch.ligand_v)
+        fast = model.fast_apply(batch, batch.ligand_pos, batch.ligand_v, dtype=torch.float32)
         ref = model.apply(batch, batch.ligand_pos, batch.ligand_v)
     lm = batch.ligand_mask[..., None]
     torch.testing.assert_close(fast["pred_ligand_pos"] * lm, ref["pred_ligand_pos"] * lm,
@@ -668,7 +668,8 @@ def test_hybrid_sampling_runs_the_layer_kernels(cuda):
     launches, block = kel.X2H_LAUNCHES, kblock.LAUNCHES
     with pytest.warns(UserWarning, match="per-layer"):
         res = model.sample_diffusion(batch, batch.ligand_pos, batch.ligand_v,
-                                     torch.Generator(device=cuda).manual_seed(0), num_steps=3)
+                                     torch.Generator(device=cuda).manual_seed(0), num_steps=3,
+                                     dtype=torch.float32)
     assert kel.X2H_LAUNCHES - launches == 3 * 2 and kblock.LAUNCHES == block
     assert bool(res.pos.isfinite().all())
 
@@ -978,3 +979,142 @@ def test_knn_rounds_kernel_at_the_prop_shape(cuda):
     want = G.knn_graph_exact(pos, mask, 48)
     torch.cuda.synchronize()
     assert torch.equal(got.idx, want.idx) and torch.equal(got.mask, want.mask)
+
+
+# ---- the bf16 kernels (dtype=torch.bfloat16, the sampling default) ----------
+# A bf16 kernel against its bf16 plain version: both multiply the same bf16
+# operands exactly and sum in float32, but an activation that lands on the
+# other side of a bf16 rounding boundary (float32 sums in another order) moves
+# its products by a bf16 step, so a few entries sit up to a bf16 step apart
+# and the rest float32-close. Held: every entry within BF16_BAR of the
+# tensor's scale (the JAX package's bf16 bar), and the median BF16_MEDIAN
+# times closer to the bf16 plain version than to the float32 one (the
+# float32 kernel there is as far from both as bf16 rounding puts it).
+BF16_BAR = 2e-2
+BF16_MEDIAN = 4.0
+
+
+def bf16_close(name, got, want_bf16, want_f32, mask=None):
+    """Max and median |got - want| over the scale of want, against the bf16
+    and the float32 plain versions; asserts the bars above."""
+    if mask is not None:
+        got, want_bf16, want_f32 = got[mask], want_bf16[mask], want_f32[mask]
+    scale = float(want_bf16.abs().max())
+    d_bf, d_f32 = (got - want_bf16).abs() / scale, (got - want_f32).abs() / scale
+    fields = {"max": float(d_bf.max()), "median": float(d_bf.median()),
+              "median_vs_f32": float(d_f32.median())}
+    assert fields["max"] < BF16_BAR, (name, fields)
+    assert fields["median"] * BF16_MEDIAN < fields["median_vs_f32"], (name, fields)
+    return fields
+
+
+@pytest.mark.parametrize("k", [8, 32])
+def test_bf16_block_kernels_match_plain(cuda, k):
+    """The bf16 block kernels (the block_denoiser_bf16 entry points) against
+    the bf16 plain block; launches counted apart from the float32 ones."""
+    torch.manual_seed(0)
+    model = DiffusionModel(Config(CONFIG), 27, 13, device=cuda)
+    rn = model.net.refine_net
+    batch = _complexes(cuda)
+    before = (kblock.LAUNCHES, kblock.EW_LAUNCHES, kblock.BF16_LAUNCHES, kblock.BF16_EW_LAUNCHES,
+              kblock.BF16_X2H_PASS_LAUNCHES, kblock.BF16_H2X_PASS_LAUNCHES)
+    with torch.no_grad():
+        h, x, node_mask, mlig = model.net.embed(*batch)
+        nbh = G.knn_graph(x, node_mask, k)
+        want = {d: rn.block_forward(h, x, nbh, mlig, dtype=d)
+                for d in (torch.bfloat16, torch.float32)}
+        runs = [kblock.block_denoiser(rn, h, x, nbh, mlig, n_ligand=NL, dtype=torch.bfloat16)
+                for _ in range(2)]
+    torch.cuda.synchronize()
+    after = (kblock.LAUNCHES, kblock.EW_LAUNCHES, kblock.BF16_LAUNCHES, kblock.BF16_EW_LAUNCHES,
+             kblock.BF16_X2H_PASS_LAUNCHES, kblock.BF16_H2X_PASS_LAUNCHES)
+    L = len(rn.base_block)
+    assert tuple(b - a for a, b in zip(before, after)) == (0, 0, 2, 2, 2 * L, 2 * L)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    m = node_mask
+    bf16_close("h", runs[0][0], want[torch.bfloat16][0], want[torch.float32][0], m)
+    bf16_close("x", runs[0][1], want[torch.bfloat16][1], want[torch.float32][1], mlig)
+    assert torch.equal(runs[0][1][:, :NP_], x[:, :NP_])
+    with torch.no_grad(), pytest.raises(ValueError, match="packed"):
+        kblock.block_denoiser(rn, h, x, nbh, mlig, n_ligand=NL,
+                              packed=kblock.pack_block_params(rn), dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("cutoff_mode,k,max_ligand,n_protein", LAYER_CASES)
+def test_bf16_layer_kernels_match_plain(cuda, cutoff_mode, k, max_ligand, n_protein):
+    """The bf16 per-layer x2h and h2x kernels against their bf16 plain layers;
+    rows without a valid neighbour keep h, protein rows keep x, both bitwise."""
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+
+    _, _, rn, h, x, node_mask, mlig, nbh, e_w = _layer_setup(cuda, cutoff_mode, k, max_ligand,
+                                                              n_protein)
+    layer = rn.base_block[1]
+    before = (kel.X2H_LAUNCHES, kel.H2X_LAUNCHES, kel.BF16_X2H_LAUNCHES, kel.BF16_H2X_LAUNCHES)
+    with torch.no_grad():
+        px, ph = kel.pack_layer_params(layer, torch.bfloat16)
+        h_want = {d: kel.x2h_layer_plain(layer, h, x, nbh, mlig, e_w, d)
+                  for d in (torch.bfloat16, torch.float32)}
+        h_out = kel.x2h_layer_cuda(h, x, nbh, mlig, e_w, px, torch.bfloat16)
+        hb = h_want[torch.bfloat16]
+        x_want = {d: kel.h2x_layer_plain(layer, hb, x, nbh, mlig, e_w, d)
+                  for d in (torch.bfloat16, torch.float32)}
+        x_out = kel.h2x_layer_cuda(hb, x, nbh, mlig, e_w, max_ligand, ph, torch.bfloat16)
+    torch.cuda.synchronize()
+    after = (kel.X2H_LAUNCHES, kel.H2X_LAUNCHES, kel.BF16_X2H_LAUNCHES, kel.BF16_H2X_LAUNCHES)
+    assert tuple(b - a for a, b in zip(before, after)) == (0, 0, 1, 1)
+    bf16_close("h", h_out, h_want[torch.bfloat16], h_want[torch.float32], node_mask)
+    bf16_close("x", x_out, x_want[torch.bfloat16], x_want[torch.float32], mlig)
+    empty = ~nbh.mask.any(-1)
+    assert torch.equal(h_out[empty], h[empty]) and torch.equal(x_out[~mlig], x[~mlig])
+    with torch.no_grad(), pytest.raises(ValueError, match="packed"):
+        kel.x2h_layer_cuda(h, x, nbh, mlig, e_w, px, torch.float32)
+
+
+def test_bf16_node_and_edge_weight_kernels_match_plain(cuda):
+    """The bf16 node kernel against float64 of its bf16 plain version (the
+    same bf16 operands: ni and nj float32-close; q through a rounded
+    LayerNorm output) and the bf16 edge-weight kernel against its plain
+    version, the module's edge_weights at bf16."""
+    _, _, rn, h, x, node_mask, mlig, nbh, e_w = _layer_setup(cuda, "knn", 32, 8, 40)
+    with torch.no_grad():
+        stacks = kblock.pack_pass_params(rn, torch.bfloat16)
+        f32 = kblock.pack_pass_params(rn)
+        for st, st32 in zip(stacks, f32):
+            got = kblock.node_projections_cuda(h, st, layer=1)
+            want = kblock.node_projections_plain(h.double().reshape(-1, 128), st, layer=1)
+            want32 = kblock.node_projections_plain(h.reshape(-1, 128), st32, layer=1)
+            for name, g, w, w32 in zip(("ni", "nj", "q"), got, want, want32):
+                if name == "q":
+                    bf16_close(name, g.double(), w, w32.double())
+                else:
+                    assert float((g.double() - w).abs().max() / w.abs().max()) < NODE_REL, name
+        packed = kblock.pack_block_params(rn, torch.bfloat16)
+        ew = kblock.edge_weights_cuda(x, nbh, packed)
+        want = {d: rn.edge_weights(x, nbh, d)[..., 0] for d in (torch.bfloat16, torch.float32)}
+    torch.cuda.synchronize()
+    bf16_close("e_w", ew, want[torch.bfloat16], want[torch.float32], nbh.mask)
+
+
+def test_bf16_sampling_runs_the_bf16_kernels(cuda):
+    """sample_diffusion at its default dtype (bf16) launches the bf16 block
+    and edge-weight kernels (kNN) and the bf16 per-layer kernels (hybrid),
+    and no float32 one."""
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+
+    torch.manual_seed(0)
+    model = DiffusionModel(Config(CONFIG), 27, 13, device=cuda)
+    batch = _complexes(cuda, seed=1)
+    f32 = (kblock.LAUNCHES, kblock.EW_LAUNCHES, kel.X2H_LAUNCHES, kel.H2X_LAUNCHES)
+    bf16 = (kblock.BF16_LAUNCHES, kblock.BF16_EW_LAUNCHES)
+    res = model.sample_diffusion(batch, batch.ligand_pos, batch.ligand_v,
+                                 torch.Generator(device=cuda).manual_seed(0), num_steps=4)
+    assert (kblock.BF16_LAUNCHES - bf16[0], kblock.BF16_EW_LAUNCHES - bf16[1]) == (4, 4)
+    assert bool(res.pos.isfinite().all())
+    hmodel, hbatch, *_ = _layer_setup(cuda, "hybrid", 32, 64, 64, seed=3)
+    layers = (kel.BF16_X2H_LAUNCHES, kel.BF16_H2X_LAUNCHES)
+    with pytest.warns(UserWarning, match="per-layer"):
+        res = hmodel.sample_diffusion(hbatch, hbatch.ligand_pos, hbatch.ligand_v,
+                                      torch.Generator(device=cuda).manual_seed(0), num_steps=3)
+    assert (kel.BF16_X2H_LAUNCHES - layers[0], kel.BF16_H2X_LAUNCHES - layers[1]) == (6, 6)
+    assert bool(res.pos.isfinite().all())
+    assert (kblock.LAUNCHES, kblock.EW_LAUNCHES, kel.X2H_LAUNCHES, kel.H2X_LAUNCHES) == f32

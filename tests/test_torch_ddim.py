@@ -231,7 +231,7 @@ def test_fast_step_matches_eager(sampler, t, s):
     outs = {impl: model.sample_step(cbatch, lpos, batch.ligand_v, t, noise, uniform, s=s,
                                     sampler=sampler,
                                     coefs=None if coefs is None else [float(c[0]) for c in coefs],
-                                    return_v_probs=True, impl=impl)
+                                    return_v_probs=True, impl=impl, dtype=torch.float32)
             for impl in ("fast", "eager")}
     assert _gumbel_margin(uniform.numpy(), outs["eager"][3].numpy()) > MARGIN
     np.testing.assert_allclose(outs["fast"][0].numpy(), outs["eager"][0].numpy(), atol=2e-4,
@@ -282,7 +282,7 @@ def test_short_run_matches_jax_trajectories(sampler, num_steps, spacing, eta, po
     monkeypatch.setattr(torch, "randn", draws.randn)
     monkeypatch.setattr(torch, "rand", draws.rand)
     res = model.sample_diffusion(batch, torch.tensor(np.asarray(init_pos)), batch.ligand_v,
-                                 torch.Generator(), **kw)
+                                 torch.Generator(), dtype=torch.float32, **kw)
     monkeypatch.undo()
 
     if not pos_only:

@@ -218,7 +218,8 @@ def test_hybrid_forward_matches_jax_xla_and_layers(path):
         if path == "eager":
             out = model.apply(batch, batch.ligand_pos, batch.ligand_v)
         else:
-            out = model.fast_apply(batch, batch.ligand_pos, batch.ligand_v, mode=path)
+            out = model.fast_apply(batch, batch.ligand_pos, batch.ligand_v, mode=path,
+                                   dtype=torch.float32)
     lmask = np.asarray(jbatch.ligand_mask)[..., None]
     assert_ligand_close(out, ref_xla, lmask)
     assert_ligand_close(out, ref_pl, lmask)

@@ -126,7 +126,7 @@ def test_fetch_embedding_matches_jax(cutoff_mode, path):
     else:
         with torch.no_grad():
             out = model.fast_apply(batch, batch.ligand_pos, batch.ligand_v, mode=path,
-                                   fix_x=True)
+                                   fix_x=True, dtype=torch.float32)
     assert torch.equal(out["pred_ligand_pos"], batch.ligand_pos)
     lm = np.asarray(jbatch.ligand_mask)
     rows = _valid_rows(jbatch)

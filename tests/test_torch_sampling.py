@@ -66,7 +66,7 @@ def test_sample_steps_match_jax(ts):
             impl="xla", dtype=jnp.float32, pos_only=False, return_traj=False,
             return_v_probs=False)
         pos, v = model.sample_step(cbatch, pos, v, t, torch.tensor(noise),
-                                   torch.tensor(uniform))
+                                   torch.tensor(uniform), dtype=torch.float32)
         np.testing.assert_array_equal(v.numpy(), np.asarray(carry[1]))
         np.testing.assert_allclose(pos.numpy(), np.asarray(carry[0]), atol=1e-3)
 

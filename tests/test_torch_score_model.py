@@ -55,7 +55,8 @@ def test_forward_matches_jax_xla_and_pallas(path):
         if path == "eager":
             out = model.apply(batch, batch.ligand_pos, batch.ligand_v)
         else:
-            out = model.fast_apply(batch, batch.ligand_pos, batch.ligand_v)
+            out = model.fast_apply(batch, batch.ligand_pos, batch.ligand_v,
+                                   dtype=torch.float32)
     lmask = np.asarray(jbatch.ligand_mask)[..., None]
     assert_ligand_close(out, ref_xla, lmask)
     assert_ligand_close(out, ref_pl, lmask)
