@@ -90,7 +90,26 @@ tensor-core rate; [bf16-layers] the bf16 per-layer kernels at the hybrid
 shape (N = 640, K = 95); [bf16-sample] runs 1000 DDPM steps of B=4 at the
 default precision on the kNN and the hybrid model, with the bf16 launches
 counted exactly, no float32 launch, and ms per step beside the float32
-runs'. Each bf16 launch has its own entry in the kernels' JSON line. Every phase prints one line; any failure exits non-zero. The last two lines are a
+runs'. Each bf16 launch has its own entry in the kernels' JSON line.
+After [train-cli], bf16 training (`impl='fast_bf16'`, the JAX package's
+bf16 training variant): [bf16-train-block] holds the bf16 train-mode
+forward's checkpoints and the bf16 block backward (B=4, N=608, K=32, L=9)
+against the bf16 plain block (autograd through precision.Bf16Linear) and
+float64: checkpoints within 2e-2 of scale; every gradient within 1e-2 of
+scale of the replay of the kernel's rounding points
+(ops/kernels/block_vjp_replay.py) and within 2e-2 of the bf16 plain
+version unless the replay itself lies that far from it, the median within
+0.08 of float64 (`bf16_grad_margins`), with the float32 kernels timed beside;
+[bf16-train-block weight-grad] / [... node-bwd] the bf16 weight-gradient
+and node kernels alone; [bf16-layers-bwd] the bf16 per-layer backwards at
+the hybrid shape (N = 640, K = 95) and three `fast_bf16` steps of the
+hybrid model; [bf16-train] 100 `fast_bf16` and 100 `fast` B=32 steps from
+one init and one set of draws (the bf16 run's launches counted: bf16
+training kernels only; both losses fall, the tail losses agree within 5%,
+the parameters' change within a quarter of a float32 control's distance),
+ms per step of each in turns and the device time by kernel;
+[bf16-train-cli] the train CLI with --dtype bf16, its float32 checkpoint
+sampled from. Every phase prints one line; any failure exits non-zero. The last two lines are a
 JSON record of the kernels (each with its time, its plain version's time and
 the least time the card could take for its work) and the contract line
 {"ok": true, "device": {...}}.
@@ -156,6 +175,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -862,6 +882,8 @@ def main(argv) -> int:
                                           1e3 * sample_s / steps, hybrid_ms, failures)}
     train = train_phases(torch, dev, model, rn, h, x, plain_nbh, mask_ligand, node_mask, batch,
                          pocket, feat, layers["model"], layers["batch"])
+    bf16_train = bf16_train_phases(torch, dev, rn, h, x, plain_nbh, mask_ligand, node_mask,
+                                   pocket, feat.feature_dim)
     cli_launches = likelihood_cli_phase(torch, train["checkpoint"])
     gate_short_phase(torch, dev)
     egnn = egnn_phases(torch, dev, pocket, feat.feature_dim, batch)
@@ -938,6 +960,7 @@ def main(argv) -> int:
          "source": "targetdiff_tpu_torch/csrc/edge_layer_vjp.cu",
          "replaces": "targetdiff_tpu/ops/pallas/edge_layer_vjp.py:351",
          "launches": train["pl_launches"]["h2x_bwd"], **layers["h2x_bwd"], **no_library},
+        *bf16_train,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -1596,20 +1619,22 @@ def hybrid_setup(torch, dev, pocket, feat_dim):
     return model, batch, h, x, node_mask, mask_ligand, nbh
 
 
-def block_grads(torch, rn, h, x, nbh, mask_ligand, e_w, gh, gx, trainable):
+def block_grads(torch, rn, h, x, nbh, mask_ligand, e_w, gh, gx, trainable, dtype=None):
     """Every parameter gradient of the block `rn` and dh0, dx0, de_w for the
     output cotangents (gh, gx): through the block-VJP kernel (`trainable`)
     or autograd of the plain block, in the dtype of rn and the inputs (a
-    float64 copy gives the float64 reference)."""
+    float64 copy gives the float64 reference); dtype=torch.bfloat16: the
+    bf16 kernels or the bf16 plain block."""
     from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
 
+    kw = {} if dtype is None else {"dtype": dtype}
     leaves = [t.clone().requires_grad_() for t in (h, x, e_w)]
     rn.zero_grad(set_to_none=True)
     if trainable:
         ho, xo = kvjp.block_layers_trainable(rn, leaves[0], leaves[1], nbh, mask_ligand,
-                                             leaves[2], MAX_LIGAND)
+                                             leaves[2], MAX_LIGAND, **kw)
     else:
-        ho, xo = rn.block_forward(leaves[0], leaves[1], nbh, mask_ligand, e_w=leaves[2])
+        ho, xo = rn.block_forward(leaves[0], leaves[1], nbh, mask_ligand, e_w=leaves[2], **kw)
     ((ho * gh).sum() + (xo * gx).sum()).backward()
     grads = {n: p.grad for n, p in rn.named_parameters() if p.grad is not None}
     grads.update(dh0=leaves[0].grad, dx0=leaves[1].grad, de_w=leaves[2].grad)
@@ -1625,25 +1650,28 @@ def train_block_cotangents(torch, dev, rn, x, nbh, h):
             torch.randn(x.shape, generator=gen, device=dev))
 
 
-def layer_grads(torch, net, sub, trainable, h, x, nbh, mask_ligand, e_w, cot, n_ligand):
+def layer_grads(torch, net, sub, trainable, h, x, nbh, mask_ligand, e_w, cot, n_ligand,
+                dtype=None):
     """Every parameter gradient of layer 0 of `net` and dh, dx, de_w for the
     cotangent `cot` of one sub-layer (`sub`: x2h or h2x): through its
     backward kernel (`trainable`) or autograd of the plain layer, in the
-    dtype of net and the inputs."""
+    dtype of net and the inputs; dtype=torch.bfloat16: the bf16 kernels or
+    the bf16 plain layer."""
     from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
     from targetdiff_tpu_torch.ops.kernels import edge_layer_vjp as kelv
 
+    kw = {} if dtype is None else {"dtype": dtype}
     layer = net.base_block[0]
     leaves = [t.clone().requires_grad_() for t in (h, x, e_w)]
     net.zero_grad(set_to_none=True)
     if sub == "x2h":
         fn = kelv.x2h_layer_trainable if trainable else kel.x2h_layer_plain
-        o = fn(layer, leaves[0], leaves[1], nbh, mask_ligand, leaves[2])
+        o = fn(layer, leaves[0], leaves[1], nbh, mask_ligand, leaves[2], **kw)
     elif trainable:
         o = kelv.h2x_layer_trainable(layer, leaves[0], leaves[1], nbh, mask_ligand, leaves[2],
-                                     n_ligand)
+                                     n_ligand, **kw)
     else:
-        o = kel.h2x_layer_plain(layer, leaves[0], leaves[1], nbh, mask_ligand, leaves[2])
+        o = kel.h2x_layer_plain(layer, leaves[0], leaves[1], nbh, mask_ligand, leaves[2], **kw)
     (o * cot).sum().backward()
     r = {n: p.grad.clone() for n, p in net.named_parameters() if p.grad is not None}
     r.update(dh=leaves[0].grad, dx=leaves[1].grad, de_w=leaves[2].grad)
@@ -2266,51 +2294,74 @@ def weight_grad_operands(torch, dev):
         yield cls, name, M, P, Q, operand(M, ldx, ox, P), operand(M, ldy, oy, Q)
 
 
-def weight_grad_phase(torch, dev) -> dict:
+def weight_grad_phase(torch, dev, dtype=None) -> dict:
     """The weight-gradient kernel alone (`weight_grad_cuda`) at each of
-    `weight_grad_products`, on `weight_grad_operands`: within WG_BAR of float64 (the plain version's error beside it), two
-    launches bitwise equal; each timed by CUDA events and by profiler
-    device time beside its bound (2MPQ FLOP at the TF32 rate; X's P and Y's
-    Q columns read once, the output written once) and the library call
-    `torch.mm(X.T, Y)` (float32, TF32 off). Returns the products' fields and,
-    per class, the mean per launch of ms, plain_ms, bound_ms and library_ms."""
+    `weight_grad_products`, on `weight_grad_operands`: within WG_BAR of
+    float64 (the plain version's error beside it), two launches bitwise
+    equal; each timed by CUDA events and by profiler device time beside its
+    bound (2MPQ FLOP at the TF32 rate; X's P and Y's Q columns read once, the
+    output written once) and the library call `torch.mm(X.T, Y)` (float32,
+    TF32 off). dtype=torch.bfloat16: the bf16 instantiation, within WG16_BAR
+    of float64 of the bf16-rounded operands and at least ten times that from
+    float64 of the unrounded ones (the operands were rounded), its bound at
+    the bf16 rate, the library call on the rounded operands, the float32
+    kernel timed beside. Returns the products' fields and, per class, the
+    mean per launch of ms, plain_ms, bound_ms, library_ms and device_ms."""
     from targetdiff_tpu_torch.ops.kernels import weight_grad as kwg
+    from targetdiff_tpu_torch.ops.precision import round_bf16
 
+    bf16 = dtype == torch.bfloat16
+    kw, bar = ({"dtype": dtype}, WG16_BAR) if bf16 else ({}, WG_BAR)
     products = {}
     for cls, name, M, P, Q, X, Y in weight_grad_operands(torch, dev):
         with torch.no_grad():
-            got, again = kwg.weight_grad_cuda(X, Y), kwg.weight_grad_cuda(X, Y)
-            plain = kwg.weight_grad_plain(X, Y)
-            x, y = X.double(), Y.double()
+            got, again = [kwg.weight_grad_cuda(X, Y, **kw) for _ in range(2)]
+            plain = kwg.weight_grad_plain(X, Y, **kw)
+            Xr, Yr = (round_bf16(X), round_bf16(Y)) if bf16 else (X, Y)
+            x, y = Xr.double(), Yr.double()
             want, scale = x.T @ y, ((x * x).T @ (y * y)).sqrt()
+            if bf16:
+                x, y = X.double(), Y.double()
+                exact, s_exact = x.T @ y, ((x * x).T @ (y * y)).sqrt()
             del x, y
         torch.cuda.synchronize()
-        label = f"{cls} {name} M={M} P={P} Q={Q}"
+        label = f"{'bf16 ' if bf16 else ''}weight-grad {cls} {name} M={M} P={P} Q={Q}"
         if not torch.equal(got, again):
-            raise AssertionError(f"weight-grad {label}: two launches differ")
+            raise AssertionError(f"{label}: two launches differ")
         err = (got.double() - want).abs()
         over = float((err / scale).max())
-        if not over <= WG_BAR or not bool(got.isfinite().all()):
-            raise AssertionError(f"weight-grad {label}: error {over} of s (bar {WG_BAR})")
+        if not over <= bar or not bool(got.isfinite().all()):
+            raise AssertionError(f"{label}: error {over} of s (bar {bar})")
         f = {"class": cls, "M": M, "P": P, "Q": Q, "max_err_over_s": over,
              "plain_max_err_over_s": float(((plain.double() - want).abs() / scale).max()),
              "max_abs_err": float(err.max())}
+        if bf16:
+            unrounded = float(((got.double() - exact).abs() / s_exact).max())
+            if not unrounded > 10 * over:
+                raise AssertionError(f"{label}: {unrounded} of s from the unrounded operands' "
+                                     f"product, not ten times its {over}")
+            f["max_err_over_s_vs_unrounded"] = unrounded
+            del exact, s_exact
         del want, scale, err, plain
-        runs = {"": lambda: kwg.weight_grad_cuda(X, Y, got),
-                "plain_": lambda: kwg.weight_grad_plain(X, Y),
-                "library_": lambda: torch.mm(X.T, Y)}
+        runs = {"": lambda: kwg.weight_grad_cuda(X, Y, got, **kw),
+                "plain_": lambda: kwg.weight_grad_plain(X, Y, **kw),
+                "library_": lambda: torch.mm(Xr.T, Yr)}
+        if bf16:
+            runs["float32_"] = lambda: kwg.weight_grad_cuda(X, Y, got)
         for key, fn in runs.items():
             f[f"{key}ms"] = cuda_ms(torch, fn)
             f[f"{key}device_ms"] = device_ms(torch, fn)
-        f.update(bound((2 * M * P * Q, 0), 4 * (M * P + M * Q + P * Q)))
+        f.update(bound((2 * M * P * Q, 0), 4 * (M * P + M * Q + P * Q),
+                       PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS))
         products[f"{cls} {name}"] = f
-        del X, Y, got, again
+        del X, Y, Xr, Yr, got, again
         torch.cuda.empty_cache()
     classes = {}
     for cls in ("x2h_edge", "h2x_edge", "node"):
         rows = [f for f in products.values() if f["class"] == cls]
-        mean = {k: float(np.mean([f[k] for f in rows]))
-                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        keys = ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms") + (
+            ("float32_ms",) if bf16 else ())
+        mean = {k: float(np.mean([f[k] for f in rows])) for k in keys}
         classes[cls] = dict(max_abs_err=max(f["max_abs_err"] for f in rows), **mean,
                             bound_by="bytes" if all(f["bound_by"] == "bytes" for f in rows)
                             else "operations")
@@ -2354,7 +2405,7 @@ def node_bwd_errs(got, want) -> dict:
     return out
 
 
-def node_bwd_phase(torch, dev) -> dict:
+def node_bwd_phase(torch, dev, dtype=None) -> dict:
     """[train-block node-bwd]: the backward's node kernel alone
     (`node_bwd_cuda`) at the B=32 step's rows (N = 416: 13,312, 64-row tiles)
     for both passes' row buffers (x2h V = 128, h2x V = 16) and at the B=4
@@ -2366,9 +2417,18 @@ def node_bwd_phase(torch, dev) -> dict:
     and dh read and dq1, the partials, qa and dh written once, the weights
     read once; the products at the TF32 rate) and `torch.mm` of its dh
     product [rows, 5H] [5H, H] (float32, TF32 off), no single PyTorch call
-    computing the whole kernel; `node_bwd_info`."""
+    computing the whole kernel; `node_bwd_info`. dtype=torch.bfloat16
+    ([bf16-train-block node-bwd]): the bf16 instantiation against its plain
+    version (`node_bwd_plain(dtype=bf16)` on float64 copies) within
+    NODE16_BAR and more than ten times that from the unrounded float64
+    version, the products at the bf16 rate, `torch.mm` on the rounded
+    operands, the float32 kernel timed beside."""
     from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
+    from targetdiff_tpu_torch.ops.precision import round_bf16
 
+    bf16 = dtype == torch.bfloat16
+    kw, bar = ({"dtype": dtype}, NODE16_BAR) if bf16 else ({}, NODE_BWD_BAR)
+    rnd = round_bf16 if bf16 else (lambda t: t)
     train_rows = TRAIN_B * (TRAIN_PROTEIN + MAX_LIGAND)
     out = {}
     for label, rows, V in (("x2h", train_rows, HW), ("h2x", train_rows, NHEADS),
@@ -2376,38 +2436,50 @@ def node_bwd_phase(torch, dev) -> dict:
         ops = node_bwd_operands(torch, dev, rows, V)
         rowbuf, q1, dh, q_ln, w_q2T, w_nodeT = ops
         with torch.no_grad():
-            got = kvjp.node_bwd_cuda(rowbuf.clone(), q1, dh.clone(), q_ln, w_q2T, w_nodeT)
-            again = kvjp.node_bwd_cuda(rowbuf.clone(), q1, dh.clone(), q_ln, w_q2T, w_nodeT)
+            got, again = [kvjp.node_bwd_cuda(rowbuf.clone(), q1, dh.clone(), q_ln, w_q2T,
+                                             w_nodeT, **kw) for _ in range(2)]
             mask = got[1] > 0
-            want = kvjp.node_bwd_plain(*[t.double() for t in ops], relu_mask=mask)
-            plain = kvjp.node_bwd_plain(*ops, relu_mask=mask)
+            want = kvjp.node_bwd_plain(*[t.double() for t in ops], relu_mask=mask, **kw)
+            plain = kvjp.node_bwd_plain(*ops, relu_mask=mask, **kw)
             torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"node-bwd {label}: two launches differ")
         errs, plain_errs = node_bwd_errs(got, want), node_bwd_errs(plain, want)
         worst = max(v for k, v in errs.items() if k.endswith("_over_scale"))
-        if not worst < NODE_BWD_BAR or not all(bool(t.isfinite().all()) for t in got):
-            raise AssertionError(f"node-bwd {label}: error {worst} of scale (bar "
-                                 f"{NODE_BWD_BAR}): {errs}")
+        if not worst < bar or not all(bool(t.isfinite().all()) for t in got):
+            raise AssertionError(f"node-bwd {label}: error {worst} of scale (bar {bar}): "
+                                 f"{errs}")
         f = {"rows": rows, "V": V, "max_err_over_scale": worst,
              "plain_max_err_over_scale": max(v for k, v in plain_errs.items()
                                              if k.endswith("_over_scale")),
              "max_abs_err": max(v for k, v in errs.items() if k.endswith("_abs"))}
+        if bf16:  # the operands were rounded: far from the unrounded float64 version
+            with torch.no_grad():
+                exact = kvjp.node_bwd_plain(*[t.double() for t in ops], relu_mask=mask)
+            f["max_err_over_scale_vs_unrounded"] = max(
+                v for k, v in node_bwd_errs(got, exact).items() if k.endswith("_over_scale"))
+            if not f["max_err_over_scale_vs_unrounded"] > 10 * bar:
+                raise AssertionError(f"node-bwd {label}: {f} not ten times the bar {bar} from "
+                                     "the unrounded version")
+            del exact
         del want, plain, again
         rb, qa, dhc = got
-        dproj = rb[:, :5 * HW].contiguous()
-        runs = {"": lambda: kvjp.node_bwd_cuda(rb, q1, dhc, q_ln, w_q2T, w_nodeT, qa),
-                "plain_": lambda: kvjp.node_bwd_plain(*ops),
-                "dh_mm_": lambda: torch.mm(dproj, w_nodeT)}
+        dproj, wT = rnd(rb[:, :5 * HW]).contiguous(), rnd(w_nodeT)
+        runs = {"": lambda: kvjp.node_bwd_cuda(rb, q1, dhc, q_ln, w_q2T, w_nodeT, qa, **kw),
+                "plain_": lambda: kvjp.node_bwd_plain(*ops, **kw),
+                "dh_mm_": lambda: torch.mm(dproj, wT)}
+        if bf16:
+            runs["float32_"] = lambda: kvjp.node_bwd_cuda(rb, q1, dhc, q_ln, w_q2T, w_nodeT, qa)
         with torch.no_grad():
             for key, fn in runs.items():
                 f[f"{key}ms"] = cuda_ms(torch, fn)
                 f[f"{key}device_ms"] = device_ms(torch, fn)
         f.update(bound((2 * rows * 6 * HW * HW, rows * 10 * HW),
-                       4 * (rows * 12 * HW + 6 * HW * HW + 2 * HW)))
-        f.update(kvjp.node_bwd_info(rows))
+                       4 * (rows * 12 * HW + 6 * HW * HW + 2 * HW),
+                       PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS))
+        f.update(kvjp.node_bwd_info(rows, **kw))
         out[label] = f
-        del ops, rowbuf, q1, dh, got, rb, dhc, qa, dproj
+        del ops, rowbuf, q1, dh, got, rb, dhc, qa, dproj, wT
         torch.cuda.empty_cache()
     return out
 
@@ -2655,22 +2727,8 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
 
     # ---- [train-cli]: the train CLI's run on a six-entry dataset, reload, sample ----
     root = REPO / "outputs" / "chip_smoke_train"
-    shutil.rmtree(root, ignore_errors=True)
-    (root / "raw").mkdir(parents=True)
-    shutil.copyfile(POCKET_PDB, root / "raw" / "pocket.pdb")
-    for i in range(6):  # one file name per ligand: [likelihood-cli]'s pK map keys on it
-        shutil.copyfile(LIGAND_SDF, root / "raw" / f"ligand_{i}.sdf")
-    with open(root / "raw" / "index.pkl", "wb") as f:
-        pickle.dump([("pocket.pdb", f"ligand_{i}.sdf", 0.5) for i in range(6)], f)
-    torch.save({"train": [0, 1, 2, 3], "test": [4, 5]}, root / "split.pt")
-    config = Config(
-        data=dict(name="pl", path=str(root / "raw"), split=str(root / "split.pt"),
-                  transform=dict(ligand_atom_mode="add_aromatic", random_rot=False)),
-        model=FLAGSHIP,
-        train=dict(seed=1, batch_size=4, max_iters=4, val_freq=2, pos_noise_std=0.1,
-                   max_grad_norm=8.0, optimizer={k: v for k, v in OPTIMIZER.items()
-                                                 if k != "max_grad_norm"},
-                   scheduler=dict(type="plateau", factor=0.6, patience=10, min_lr=1e-6)))
+    cli_dataset(torch, root)
+    config = cli_config(root, 4)
     args = train_diffusion.parser().parse_args(
         ["in-code", "--device", "cuda", "--logdir", str(root / "logs"), "--max_protein",
          str(MAX_PROTEIN), "--max_ligand", "40", "--train_report_iter", "1"])
@@ -2743,6 +2801,632 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
                                                               "bound_by", "sort_ms")},
                           "timed_case": "x2h pass"},
             "pl_launches": pl_launches, "checkpoint": ckpt}
+
+
+BF16_F64_BAR = 0.08  # a bf16 backward's median tensor against float64, of its scale: the JAX
+# package's bf16 training bar (tests/test_fast_train.py)
+REPLAY16_BAR = 1e-2  # the bf16 block backward against replay_block_bwd(bf16=True) (its own
+# rounding points in PyTorch, ops/kernels/block_vjp_replay.py), each tensor of its scale
+NODE16_BAR = 2e-4  # the bf16 node_bwd_kernel against its plain version on float64 copies (the
+# same rounded operands), of each output's scale; ten times that from the unrounded version
+WG16_BAR = 1e-4  # the bf16 weight-gradient kernel against float64 of its rounded operands, of s
+BF16_TRAIN_STEPS, BF16_TAIL = 100, 20  # [bf16-train]: steps of each precision from one init and
+# one set of draws; the mean loss of the last BF16_TAIL below that of the first BF16_TAIL
+BF16_LOSS_REL = 0.05  # [bf16-train]: the two tail means agree within this, relative
+BF16_STEP_SHARE = 0.25  # [bf16-train]: |dp_bf16 - dp_f32| within this share of a float32
+# control's |dp_other_draws - dp_f32| (dp: the parameters' change over the steps)
+BF16_LAYER_STEPS = 3  # [bf16-layers-bwd]: fast_bf16 steps of the hybrid model, its main path
+BF16_CLI_STEPS = 2  # [bf16-train]: steps of the train CLI with --dtype bf16
+
+
+def bf16_grad_margins(label, got, want16, want64, replay=None) -> dict:
+    """A bf16 backward's margins, each tensor's largest |got - want| over its
+    scale (`tensor_errs`; the k biases, zero in exact arithmetic, over the
+    largest gradient) against the bf16 plain version `want16`, float64
+    `want64` and, given it, `replay` (`replay_block_bwd(bf16=True)`: the
+    kernel's own rounding points). Raises unless every tensor lies within
+    BF16_BAR of the bf16 plain version, the median tensor within
+    BF16_F64_BAR of float64 and the k biases within BF16_BAR; with
+    `replay`, every tensor within REPLAY16_BAR of it, and a tensor on which
+    the replay itself lies further than BF16_BAR - REPLAY16_BAR from the
+    bf16 plain version is held by the replay alone, counted in
+    `held_by_replay` with its readings (the kernel forward's checkpoints
+    differ from the plain forward's by up to ~1e-3 of scale, and gradients
+    formed by cancellation, as the h2x query MLP's, amplify that). Returns
+    max, median and the worst tensor of each comparison."""
+    vs16, vs64, p64 = (tensor_errs(got, want16), tensor_errs(got, want64),
+                       tensor_errs(want16, want64))
+    top = max(float(w.abs().max()) for w in want64.values())
+    kbias = max(float((got[n].double() - w.double()).abs().max()) / top
+                for n, w in want64.items() if n.endswith("k_func.net.3.bias"))
+
+    def summary(errs, bar=None):
+        worst = max(errs, key=errs.get)
+        out = {"max": errs[worst], "median": float(np.median(list(errs.values()))),
+               "worst_tensor": worst}
+        if bar is not None:
+            out["over_bar"] = sum(e > bar for e in errs.values())
+        return out
+
+    out = {"vs_bf16_plain": summary(vs16, BF16_BAR), "vs_float64": summary(vs64, BF16_F64_BAR),
+           "plain_vs_float64": summary(p64, BF16_F64_BAR), "k_bias_over_top": kbias,
+           "tensors": len(vs16)}
+    held = {}
+    if replay is not None:
+        vsr, r16 = tensor_errs(got, replay), tensor_errs(replay, want16)
+        held = {n: {"vs_bf16_plain": vs16[n], "replay_vs_bf16_plain": r16[n],
+                    "vs_replay": vsr[n]} for n in vs16 if r16[n] > BF16_BAR - REPLAY16_BAR}
+        out.update(vs_replay=summary(vsr), replay_vs_bf16_plain=summary(r16, BF16_BAR),
+                   replay_vs_float64=summary(tensor_errs(replay, want64), BF16_F64_BAR),
+                   held_by_replay=len(held),
+                   held_worst=dict(sorted(held.items(), key=lambda kv: -kv[1]["vs_bf16_plain"])
+                                   [:8]))
+        if not out["vs_replay"]["max"] < REPLAY16_BAR:
+            raise AssertionError(f"{label}: {out['vs_replay']} of scale from the replay of its "
+                                 f"rounding points (bar {REPLAY16_BAR})")
+    over = {n: e for n, e in vs16.items() if e >= BF16_BAR and n not in held}
+    if over or not (out["vs_float64"]["median"] < BF16_F64_BAR and kbias < BF16_BAR):
+        raise AssertionError(
+            f"{label}: tensors {over} of their scale from the bf16 plain version (bar "
+            f"{BF16_BAR}); median tensor {out['vs_float64']['median']} from float64 (bar "
+            f"{BF16_F64_BAR}); k biases {kbias} of the largest gradient")
+    return out
+
+
+def unpacked_grads(torch, rn, backward) -> dict:
+    """dh0, dx0, de_w and every parameter gradient of the block `rn` from a
+    backward on its packed stacks: `backward(x2h, h2x)` (the float32 stacks,
+    detached) returns (dh0, dx0, de_w, x2h grads, h2x grads), as
+    `block_bwd_cuda` and `replay_block_bwd` do; the packing's backward
+    carries the stacks' gradients to the parameters."""
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+    from targetdiff_tpu_torch.ops.kernels.block_vjp import FIELDS
+
+    packs = kblock.pack_pass_params(rn)
+    with torch.no_grad():
+        dh0, dx0, dew, *packed = backward(*[{f: t.detach() for f, t in p.items()}
+                                            for p in packs])
+    rn.zero_grad(set_to_none=True)
+    torch.autograd.backward([p[f] for p in packs for f in FIELDS],
+                            [g[f] for g in packed for f in FIELDS])
+    grads = {n: p.grad.detach().clone() for n, p in rn.named_parameters() if p.grad is not None}
+    grads.update(dh0=dh0, dx0=dx0, de_w=dew)
+    return grads
+
+
+def replay_grads(torch, rn, hck, xck, nbh, mask_ligand, e_w, gh, gx, n_ligand=MAX_LIGAND,
+                 n_heads=NHEADS) -> dict:
+    """`unpacked_grads` of `replay_block_bwd(bf16=True)` (the bf16 backward
+    kernel's algorithm and rounding points in PyTorch, on the device of its
+    inputs) on the checkpoints hck, xck for the output cotangents (gh, gx)."""
+    from targetdiff_tpu_torch.ops.kernels.block_vjp_replay import replay_block_bwd
+
+    return unpacked_grads(torch, rn, lambda x2h, h2x: replay_block_bwd(
+        x2h, h2x, hck, xck, nbh, mask_ligand, e_w, n_ligand, gh, gx, n_heads, bf16=True))
+
+
+def bf16_train_block_phase(torch, dev, rn, h, x, nbh, mask_ligand, node_mask) -> dict:
+    """[bf16-train-block]: the bf16 train-mode forward (td_block_train_fwd_bf16)
+    and the bf16 block backward (td_block_bwd_bf16) at [train-block]'s shape
+    and inputs (kNN B=4, N=608, K=32, L=9, flagship width): the float32
+    checkpoints against the bf16 plain train-mode forward and float64 at
+    BF16_BAR; dh0, dx0, de_w and every parameter gradient of the two
+    kernels against autograd of the bf16 plain block (BF16_BAR), of the
+    float64 block (BF16_F64_BAR) and against the replay of the backward's
+    rounding points on its own checkpoints (`replay_grads`, REPLAY16_BAR;
+    `bf16_grad_margins`), every one float32; the backward kernel alone on
+    the bf16 plain forward's checkpoints against autograd of the bf16 plain
+    block, every tensor within BF16_BAR (its `max_abs_err`: dh0, dx0, de_w);
+    two runs bitwise equal; a float32 pack
+    refused. Timed beside the plain versions, the bounds at the bf16 rate and
+    the float32 kernels in the same call, with the backward's kernels' device
+    ms (`bwd_device_ms`) and `edge_bwd_info`. Returns the kernels' fields."""
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+    from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
+
+    bf16 = torch.bfloat16
+    e_w, _, gh, gx = train_block_cotangents(torch, dev, rn, x, nbh, h)
+    rn64 = copy.deepcopy(rn).double()
+    with torch.no_grad():
+        x2h32, h2x32 = kblock.pack_pass_params(rn)
+        x2h, h2x = kblock.cast_pack(x2h32, bf16), kblock.cast_pack(h2x32, bf16)
+        runs = [kblock.block_denoiser_train_cuda(rn, h, x, nbh, mask_ligand, e_w, MAX_LIGAND,
+                                                 x2h, h2x, bf16) for _ in range(2)]
+        want16 = kblock.block_denoiser_train_plain(rn, h, x, nbh, mask_ligand, e_w, bf16)
+        want64 = kblock.block_denoiser_train_plain(rn64, h.double(), x.double(), nbh,
+                                                   mask_ligand, e_w.double())
+        try:
+            kblock.block_denoiser_train_cuda(rn, h, x, nbh, mask_ligand, e_w, MAX_LIGAND, x2h32,
+                                             h2x32, bf16)
+            raise AssertionError("bf16-train-block: the bf16 entry took a float32 pack")
+        except ValueError:
+            pass
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("bf16-train-block: two forward calls differ")
+    hck, xck = runs[0]
+    L = hck.shape[0] - 1
+    rows = node_mask[None].expand(L, -1, -1)
+    lig = mask_ligand[None].expand(L, -1, -1)
+    ck = {"hck": bf16_margins("bf16-train-block hck", hck[1:][rows], want16[0][1:][rows],
+                              want64[0][1:][rows]),
+          "xck": bf16_margins("bf16-train-block xck", xck[1:][lig], want16[1][1:][lig],
+                              want64[1][1:][lig])}
+    fwd_err = max(float((hck - want16[0])[:, node_mask].abs().max()),
+                  float((xck - want16[1])[:, node_mask].abs().max()))
+    ck16 = want16  # the bf16 plain forward's checkpoints, for the backward alone
+    del want64
+
+    def grads(trainable, net=rn, dtype=bf16, cast=lambda t: t):
+        g = block_grads(torch, net, *[cast(t) for t in (h, x)], nbh, mask_ligand,
+                        *[cast(t) for t in (e_w, gh, gx)], trainable, dtype)
+        return {n: t.detach().clone() for n, t in g.items()}
+
+    g_k, g_again = grads(True), grads(True)
+    g16 = grads(False)
+    g64 = grads(False, rn64, None, lambda t: t.double())
+    g_rep = replay_grads(torch, rn, hck, xck, nbh, mask_ligand, e_w, gh, gx)
+    torch.cuda.synchronize()
+    if sorted(g_k) != sorted(g16) or not all(torch.equal(g_k[n], g_again[n]) for n in g_k):
+        raise AssertionError("bf16-train-block: other parameters reached, or two backward "
+                             "runs differ")
+    if not all(g.dtype == torch.float32 and bool(g.isfinite().all()) for g in g_k.values()):
+        raise AssertionError("bf16-train-block: a gradient is not finite float32")
+    bwd = bf16_grad_margins("bf16-train-block backward", g_k, g16, g64, g_rep)
+    del g_again, g64, g_rep
+    # the backward kernel alone, on the bf16 plain forward's checkpoints: every
+    # tensor within BF16_BAR of autograd of the bf16 plain block
+    g_alone = unpacked_grads(torch, rn, lambda x2h, h2x: kvjp.block_bwd_cuda(
+        *ck16, nbh.idx, nbh.mask, mask_ligand, e_w, MAX_LIGAND, kblock.cast_pack(x2h, bf16),
+        kblock.cast_pack(h2x, bf16), gh, gx, bf16))
+    alone = tensor_errs(g_alone, g16)
+    worst = max(alone, key=alone.get)
+    bwd["alone_vs_bf16_plain"] = {"max": alone[worst], "median": float(np.median(
+        list(alone.values()))), "worst_tensor": worst}
+    if not alone[worst] < BF16_BAR:
+        raise AssertionError(f"bf16-train-block: the backward alone {bwd['alone_vs_bf16_plain']}"
+                             f" of scale from the bf16 plain block (bar {BF16_BAR})")
+    bwd_err = max(float((g_alone[n] - g16[n]).abs().max()) for n in ("dh0", "dx0", "de_w"))
+    del g_alone, ck16
+    with torch.no_grad():
+        try:
+            kvjp.block_bwd_cuda(hck, xck, nbh.idx, nbh.mask, mask_ligand, e_w, MAX_LIGAND,
+                                x2h32, h2x32, gh, gx, bf16)
+            raise AssertionError("bf16-train-block: the bf16 backward took a float32 pack")
+        except ValueError:
+            pass
+        hck32, xck32 = kblock.block_denoiser_train_cuda(rn, h, x, nbh, mask_ligand, e_w,
+                                                        MAX_LIGAND, x2h32, h2x32)
+        fwd = {"": (lambda: kblock.block_denoiser_train_cuda(
+                   rn, h, x, nbh, mask_ligand, e_w, MAX_LIGAND, x2h, h2x, bf16)),
+               "float32_": (lambda: kblock.block_denoiser_train_cuda(
+                   rn, h, x, nbh, mask_ligand, e_w, MAX_LIGAND, x2h32, h2x32)),
+               "plain_": (lambda: kblock.block_denoiser_train_plain(rn, h, x, nbh, mask_ligand,
+                                                                   e_w, bf16))}
+        bwd_fns = {"": (lambda: kvjp.block_bwd_cuda(hck, xck, nbh.idx, nbh.mask, mask_ligand,
+                                                     e_w, MAX_LIGAND, x2h, h2x, gh, gx, bf16)),
+                   "float32_": (lambda: kvjp.block_bwd_cuda(
+                       hck32, xck32, nbh.idx, nbh.mask, mask_ligand, e_w, MAX_LIGAND, x2h32,
+                       h2x32, gh, gx))}
+        times = {f"fwd_{k}ms": cuda_ms(torch, fn, reps=10) for k, fn in fwd.items()}
+        times.update({f"bwd_{k}ms": cuda_ms(torch, fn, reps=10) for k, fn in bwd_fns.items()})
+        times.update({f"bwd_{k}device_ms": device_ms(torch, fn, calls=5)
+                      for k, fn in bwd_fns.items()})
+    leaves = [t.clone().requires_grad_() for t in (h, x, e_w)]
+    outs = rn.block_forward(leaves[0], leaves[1], nbh, mask_ligand, e_w=leaves[2], dtype=bf16)
+    wrt = leaves + [p for n, p in rn.named_parameters() if n in g16]
+    times["bwd_plain_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+        outs, wrt, (gh, gx), retain_graph=True), reps=10)
+    del outs, wrt, leaves
+    pieces = {**bwd_device_ms(torch, "bf16", bwd_fns[""], calls=5),
+              **bwd_device_ms(torch, "float32", bwd_fns["float32_"], calls=5)}
+    work = layer_work(nbh, mask_ligand, node_mask)
+    fwd_bound = bound(L * block_flops(*work), nbytes(h, x, nbh.idx, nbh.mask, mask_ligand,
+                                                     e_w, x2h, h2x, hck, xck), PEAK_BF16_FLOPS)
+    bwd_bound = bound(L * block_flops(*work, bwd=True),
+                      nbytes(hck, xck, nbh.idx, nbh.mask, mask_ligand, e_w, x2h, h2x, gh, gx)
+                      + nbytes(h, x, e_w, x2h32, h2x32), PEAK_BF16_FLOPS)
+    info = {sub: kvjp.edge_bwd_info(K, sub == "h2x", bf16) for sub in ("x2h", "h2x")}
+    phase("bf16-train-block", shape=f"B={B},N={h.shape[1]},K={K},L={L}", bar=BF16_BAR,
+          f64_bar=BF16_F64_BAR, checkpoints=ck, backward=bwd, **times, **pieces,
+          fwd_bound_ms=fwd_bound["bound_ms"], bwd_bound_ms=bwd_bound["bound_ms"],
+          fwd_bound_by=fwd_bound["bound_by"], bwd_bound_by=bwd_bound["bound_by"],
+          edge_bwd_kernel=info)
+    del rn64
+    torch.cuda.empty_cache()
+    return {"fwd": dict(max_abs_err=fwd_err, ms=times["fwd_ms"], plain_ms=times["fwd_plain_ms"],
+                        float32_ms=times["fwd_float32_ms"], **fwd_bound,
+                        max_over_scale=max(v["vs_bf16_plain"]["max"] for v in ck.values()),
+                        max_over_scale_vs_float64=max(v["vs_float64"]["max"]
+                                                      for v in ck.values())),
+            "bwd": dict(max_abs_err=bwd_err, ms=times["bwd_ms"], plain_ms=times["bwd_plain_ms"],
+                        float32_ms=times["bwd_float32_ms"],
+                        device_ms=times["bwd_device_ms"],
+                        float32_device_ms=times["bwd_float32_device_ms"], **bwd_bound,
+                        max_over_scale=bwd["vs_bf16_plain"]["max"],
+                        median_over_scale=bwd["vs_bf16_plain"]["median"],
+                        max_over_scale_vs_float64=bwd["vs_float64"]["max"],
+                        median_over_scale_vs_float64=bwd["vs_float64"]["median"], **pieces)}
+
+
+def bf16_layers_bwd_phase(torch, dev, pocket, feat_dim) -> dict:
+    """[bf16-layers-bwd]: the bf16 per-layer backwards (td_{x2h,h2x}_layer_bwd_bf16
+    through the trainables at dtype=torch.bfloat16) at [layers]' hybrid shape
+    (the example pocket with 64 ligand slots: B=4, N=640, K=95) and inputs:
+    dh, dx, de_w and layer 0's parameter gradients against autograd of the
+    bf16 plain sub-layer (BF16_BAR) and of its float64 copy (BF16_F64_BAR),
+    two runs bitwise equal; each timed beside the plain version, the float32
+    kernel and its bound at the bf16 rate, with its kernels' device ms. Then
+    its main path: BF16_LAYER_STEPS `fast_bf16` train steps of the hybrid
+    model (K = 95 takes the per-layer route), every count set to 0 just
+    before and read just after: the bf16 per-layer forwards and backwards
+    once per layer and step, no float32 training kernel. Returns both
+    backwards' fields."""
+    from targetdiff_tpu_torch.config import Config
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+    from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+    from targetdiff_tpu_torch.ops.kernels import edge_layer_vjp as kelv
+    from targetdiff_tpu_torch.ops.kernels import knn as kknn
+    from targetdiff_tpu_torch.ops.kernels import weight_grad as kwg
+    from targetdiff_tpu_torch.trainer import create_train_state, make_train_step
+    from targetdiff_tpu_torch.utils import train as train_utils
+
+    bf16 = torch.bfloat16
+    hmodel, hbatch, hh, hx, hnode, hmlig, hnbh = hybrid_setup(torch, dev, pocket, feat_dim)
+    net = hmodel.net.refine_net
+    layer = net.base_block[0]
+    net64 = copy.deepcopy(net).double()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    with torch.no_grad():
+        e_w = net.edge_weights(hx, hnbh)[..., 0]
+        h_mid = kel.x2h_layer_plain(layer, hh, hx, hnbh, hmlig, e_w, bf16)
+        p32 = dict(zip(("x2h", "h2x"), kel.pack_layer_params(layer)))
+        p16 = {k: kblock.cast_pack(v, bf16) for k, v in p32.items()}
+    cot = {"x2h": torch.randn(hh.shape, generator=gen, device=dev) * hnode[..., None],
+           "h2x": torch.randn(hx.shape, generator=gen, device=dev)}
+    nodes, lig_nodes, edges, lig_edges = layer_work(hnbh, hmlig, hnode)
+    fields = {}
+    for sub in ("x2h", "h2x"):
+        hin = hh if sub == "x2h" else h_mid
+        args = (hin, hx, hnbh, hmlig, e_w, cot[sub], HYBRID_LIGAND)
+        got, again, want16 = (layer_grads(torch, net, sub, tr, *args, dtype=bf16)
+                              for tr in (True, True, False))
+        want64 = layer_grads(torch, net64, sub, False,
+                             *[a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+                               for a in args])
+        torch.cuda.synchronize()
+        if sorted(got) != sorted(want16) or not all(torch.equal(got[n], again[n]) for n in got):
+            raise AssertionError(f"bf16-layers-bwd {sub}: other parameters reached, or two "
+                                 "runs differ")
+        if not all(g.dtype == torch.float32 and bool(g.isfinite().all()) for g in got.values()):
+            raise AssertionError(f"bf16-layers-bwd {sub}: a gradient is not finite float32")
+        m = bf16_grad_margins(f"bf16-layers-bwd {sub}", got, want16, want64)
+        err = max(float((got[n] - want16[n]).abs().max()) for n in ("dh", "dx", "de_w"))
+        del again, want64
+        bwd_fn = kelv.x2h_layer_bwd_cuda if sub == "x2h" else kelv.h2x_layer_bwd_cuda
+        extra = () if sub == "x2h" else (HYBRID_LIGAND,)
+        runs = {"": lambda: bwd_fn(hin, hx, hnbh, hmlig, e_w, *extra, p16[sub], cot[sub], bf16),
+                "float32_": lambda: bwd_fn(hin, hx, hnbh, hmlig, e_w, *extra, p32[sub],
+                                           cot[sub])}
+        with torch.no_grad():
+            f = {f"{k}ms": cuda_ms(torch, fn, reps=10) for k, fn in runs.items()}
+            f.update({f"{k}device_ms": device_ms(torch, fn, calls=5) for k, fn in runs.items()})
+        f.update(bwd_device_ms(torch, "bf16", runs[""], calls=5))
+        leaves = [t.clone().requires_grad_() for t in (hin, hx, e_w)]
+        plain = kel.x2h_layer_plain if sub == "x2h" else kel.h2x_layer_plain
+        o = plain(layer, leaves[0], leaves[1], hnbh, hmlig, leaves[2], bf16)
+        wrt = leaves + [p for n, p in layer.named_parameters() if f"{sub}_layers" in n]
+        f["plain_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(o, wrt, cot[sub],
+                                                                   retain_graph=True), reps=10)
+        del o, wrt, leaves
+        e = edges if sub == "x2h" else lig_edges
+        flops = node_flops(sub, nodes, lig_nodes, bwd=True) + e * FLOP_EDGE_BWD[sub]
+        f.update(bound(flops, nbytes(hin, hx, hnbh.idx, hnbh.mask, hmlig, e_w, p16[sub],
+                                     cot[sub], hin, hx, e_w, p32[sub]), PEAK_BF16_FLOPS))
+        fields[f"{sub}_bwd"] = dict(max_abs_err=err, margins=m, **f,
+                                    max_over_scale=m["vs_bf16_plain"]["max"],
+                                    median_over_scale=m["vs_bf16_plain"]["median"],
+                                    max_over_scale_vs_float64=m["vs_float64"]["max"])
+    del net64
+    # the main path: fast_bf16 train steps of the hybrid model
+    state = create_train_state(hmodel, train_utils.get_optimizer(Config(OPTIMIZER),
+                                                                  hmodel.parameters()))
+    step = make_train_step(hmodel, pos_noise_std=0.1, impl="fast_bf16")
+    reset_train_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # K = 95: the per-layer route's warning
+        for _ in range(BF16_LAYER_STEPS):
+            state, metrics = step(state, hbatch, gen)
+    torch.cuda.synchronize()
+    launches = train_counts()
+    L = FLAGSHIP["num_layers"]
+    per = BF16_LAYER_STEPS * L
+    want = {"knn": 0, "x2h_bf16": per, "h2x_bf16": per, "x2h_bwd_bf16": per,
+            "h2x_bwd_bf16": per, "node_bwd_bf16": 2 * per, "adj": 2 * per}
+    if any(launches[k] != v for k, v in want.items()) or any(
+            launches[k] for k in FLOAT32_TRAIN_COUNTS) or launches["weight_grad_bf16"] != {
+            "x2h_edge": 3 * per, "h2x_edge": 3 * per, "node": 4 * per, "alone": 0}:
+        raise AssertionError(f"bf16-layers-bwd: expected the bf16 per-layer kernels once per "
+                             f"layer and step and no float32 training kernel, {launches}")
+    if not all(np.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError(f"bf16-layers-bwd: bad metrics {metrics}")
+    phase("bf16-layers-bwd", shape=f"B={B},N={hh.shape[1]},K={hnbh.idx.shape[-1]}",
+          bar=BF16_BAR, f64_bar=BF16_F64_BAR, live_edges_x2h=edges, live_edges_h2x=lig_edges,
+          **fields, steps=BF16_LAYER_STEPS, launches=launches, loss=float(metrics["loss"]))
+    fields["launches"] = launches
+    return fields
+
+
+# the training kernels' launch counts: float32 ones, which the bf16 path never
+# launches, and the bf16 ones
+FLOAT32_TRAIN_COUNTS = ("train_fwd", "vjp", "node_bwd", "x2h", "h2x", "x2h_bwd", "h2x_bwd")
+
+
+def reset_train_counts() -> None:
+    """Every launch count of the kernel wrappers to 0 (each module's
+    `*LAUNCHES`, float32 and bf16)."""
+    import importlib
+
+    for name in ("block_denoiser", "block_vjp", "edge_layer", "edge_layer_vjp", "knn",
+                 "weight_grad"):
+        mod = importlib.import_module(f"targetdiff_tpu_torch.ops.kernels.{name}")
+        for attr, count in list(vars(mod).items()):
+            if attr.endswith("LAUNCHES"):
+                if isinstance(count, dict):
+                    count.update(dict.fromkeys(count, 0))
+                else:
+                    setattr(mod, attr, 0)
+
+
+def train_counts() -> dict:
+    """The counts `reset_train_counts` zeroes."""
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+    from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+    from targetdiff_tpu_torch.ops.kernels import edge_layer_vjp as kelv
+    from targetdiff_tpu_torch.ops.kernels import knn as kknn
+    from targetdiff_tpu_torch.ops.kernels import weight_grad as kwg
+
+    return {"knn": kknn.LAUNCHES, "train_fwd": kblock.TRAIN_LAUNCHES,
+            "train_fwd_bf16": kblock.BF16_TRAIN_LAUNCHES, "vjp": kvjp.LAUNCHES,
+            "vjp_bf16": kvjp.BF16_LAUNCHES, "node_bwd": kvjp.NODE_BWD_LAUNCHES,
+            "node_bwd_bf16": kvjp.BF16_NODE_BWD_LAUNCHES, "adj": kvjp.ADJ_LAUNCHES,
+            "x2h": kel.X2H_LAUNCHES, "h2x": kel.H2X_LAUNCHES, "x2h_bf16": kel.BF16_X2H_LAUNCHES,
+            "h2x_bf16": kel.BF16_H2X_LAUNCHES, "x2h_bwd": kelv.X2H_BWD_LAUNCHES,
+            "h2x_bwd": kelv.H2X_BWD_LAUNCHES, "x2h_bwd_bf16": kelv.BF16_X2H_BWD_LAUNCHES,
+            "h2x_bwd_bf16": kelv.BF16_H2X_BWD_LAUNCHES, "weight_grad": dict(kwg.LAUNCHES),
+            "weight_grad_bf16": dict(kwg.BF16_LAUNCHES)}
+
+
+def cli_dataset(torch, root: Path) -> None:
+    """The train CLI's six-entry dataset under root (the example pocket, six
+    copies of the example ligand under their own file names: [likelihood-cli]'s
+    pK map keys on them; a 4 / 2 split)."""
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "raw").mkdir(parents=True)
+    shutil.copyfile(POCKET_PDB, root / "raw" / "pocket.pdb")
+    for i in range(6):
+        shutil.copyfile(LIGAND_SDF, root / "raw" / f"ligand_{i}.sdf")
+    with open(root / "raw" / "index.pkl", "wb") as f:
+        pickle.dump([("pocket.pdb", f"ligand_{i}.sdf", 0.5) for i in range(6)], f)
+    torch.save({"train": [0, 1, 2, 3], "test": [4, 5]}, root / "split.pt")
+
+
+def cli_config(root: Path, max_iters: int):
+    """The train CLI's config on `cli_dataset`'s root at the flagship width."""
+    from targetdiff_tpu_torch.config import Config
+
+    return Config(
+        data=dict(name="pl", path=str(root / "raw"), split=str(root / "split.pt"),
+                  transform=dict(ligand_atom_mode="add_aromatic", random_rot=False)),
+        model=FLAGSHIP,
+        train=dict(seed=1, batch_size=4, max_iters=max_iters, val_freq=2, pos_noise_std=0.1,
+                   max_grad_norm=8.0, optimizer={k: v for k, v in OPTIMIZER.items()
+                                                 if k != "max_grad_norm"},
+                   scheduler=dict(type="plateau", factor=0.6, patience=10, min_lr=1e-6)))
+
+
+def bf16_train_phase(torch, dev, pocket, feat_dim) -> dict:
+    """[bf16-train]: the `fast_bf16` train step at [train]'s shape (B=32 synthetic
+    complexes, N=416, K=32) beside `fast`. Two flagship models from one seed
+    take BF16_TRAIN_STEPS steps each (symmetric timesteps, one generator seed:
+    the same draws), bf16 first as its main path, every count set to 0 just
+    before and read just after: the bf16 train-mode forward and backward once
+    a step, their node and weight-gradient kernels per pass, no float32
+    training kernel. Both losses stay finite and fall (the mean of the last
+    BF16_TAIL steps below that of the first), the two tail means agree within
+    BF16_LOSS_REL, and the parameters' change over the steps lies within
+    BF16_STEP_SHARE of a control's distance from float32's (a third model,
+    float32 on other draws). Then host ms per step of
+    each, in turns (bf16, float32, float32, bf16), and the device time by
+    kernel (`kernel_split`) with the backward's pieces (`bwd_device_ms`).
+    Then BF16_CLI_STEPS steps of the train CLI with --dtype bf16: the bf16
+    kernels train, the checkpoint is float32 and loads into the sampler,
+    which samples 10 steps at its default bf16. Returns the kernels' launches
+    and the step's fields."""
+    from targetdiff_tpu_torch.cli import train_diffusion
+    from targetdiff_tpu_torch.config import Config
+    from targetdiff_tpu_torch.models.score_model import DiffusionModel
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+    from targetdiff_tpu_torch.sampling import sample_diffusion_ligand
+    from targetdiff_tpu_torch.trainer import create_train_state, make_train_step
+    from targetdiff_tpu_torch.utils import train as train_utils
+    from targetdiff_tpu_torch.utils.checkpoint import load_checkpoint
+
+    tb = train_batch(dev)
+    runs, init = {}, None
+    # the control: float32 from the same init on other draws
+    for impl, seed in (("fast_bf16", 12), ("fast", 12), ("control", 13)):
+        torch.manual_seed(1)
+        m = DiffusionModel(Config(FLAGSHIP), feat_dim, NUM_CLASSES, device=dev,
+                           max_protein=TRAIN_PROTEIN, max_ligand=MAX_LIGAND)
+        p0 = {n: p.detach().clone() for n, p in m.net.named_parameters()}
+        init = p0 if init is None else init
+        if not all(torch.equal(init[n], p) for n, p in p0.items()):
+            raise AssertionError("bf16-train: the runs start from other parameters")
+        state = create_train_state(m, train_utils.get_optimizer(Config(OPTIMIZER),
+                                                                 m.parameters()))
+        step = make_train_step(m, pos_noise_std=0.1, impl="fast" if impl == "control" else impl)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        losses = []
+        torch.cuda.synchronize()
+        reset_train_counts()
+        t0 = time.perf_counter()
+        for _ in range(BF16_TRAIN_STEPS):
+            state, metrics = step(state, tb, gen)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        runs[impl] = dict(model=m, state=state, step=step, gen=gen,
+                          seconds=time.perf_counter() - t0, launches=train_counts(),
+                          losses=[float(v) for v in losses],
+                          # the parameters' change, the k biases (zero gradients in exact
+                          # arithmetic, moved by Adam on rounding noise) left out
+                          delta=torch.cat([(p.detach() - init[n]).flatten()
+                                           for n, p in m.net.named_parameters()
+                                           if not n.endswith("k_func.net.3.bias")]))
+    control = runs.pop("control")
+    launches = runs["fast_bf16"]["launches"]
+    L, n = FLAGSHIP["num_layers"], BF16_TRAIN_STEPS
+    want = {"knn": n, "train_fwd_bf16": n, "vjp_bf16": n, "node_bwd_bf16": 2 * L * n,
+            "adj": 2 * n}
+    if any(launches[k] != v for k, v in want.items()) or any(
+            launches[k] for k in FLOAT32_TRAIN_COUNTS) or launches["weight_grad_bf16"] != {
+            "x2h_edge": 3 * L * n, "h2x_edge": 3 * L * n, "node": 4 * L * n, "alone": 0} or any(
+            launches["weight_grad"].values()):
+        raise AssertionError(f"bf16-train: expected the bf16 training kernels once per step "
+                             f"(and pass) and no float32 training kernel, {launches}")
+    heads = {impl: float(np.mean(r["losses"][:BF16_TAIL])) for impl, r in runs.items()}
+    tails = {impl: float(np.mean(r["losses"][-BF16_TAIL:])) for impl, r in runs.items()}
+    rel = abs(tails["fast_bf16"] - tails["fast"]) / abs(tails["fast"])
+    step_rel = np.abs(np.subtract(runs["fast_bf16"]["losses"], runs["fast"]["losses"])) / np.abs(
+        runs["fast"]["losses"])
+    d32 = runs["fast"]["delta"]
+    moved = {"bf16": float((runs["fast_bf16"]["delta"] - d32).norm() / d32.norm()),
+             "control": float((control["delta"] - d32).norm() / d32.norm())}
+    del control
+    if (not all(np.isfinite(r["losses"]).all() for r in runs.values()) or not rel < BF16_LOSS_REL
+            or not all(tails[k] < heads[k] for k in runs)
+            or not moved["bf16"] < BF16_STEP_SHARE * moved["control"]):
+        raise AssertionError(
+            f"bf16-train: mean loss of the first and the last {BF16_TAIL} steps {heads} {tails} "
+            f"(bar {BF16_LOSS_REL} relative), or a loss not finite; the parameters' change "
+            f"{moved} from float32's (bar {BF16_STEP_SHARE} of the control's)")
+    # host ms per step, in turns; device time by kernel
+    ms = {impl: [] for impl in runs}
+    for impl in ("fast_bf16", "fast", "fast", "fast_bf16"):
+        r = runs[impl]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            r["state"], _ = r["step"](r["state"], tb, r["gen"])
+        torch.cuda.synchronize()
+        ms[impl].append(1e3 * (time.perf_counter() - t0) / 10)
+    split, pieces = {}, {}
+    for impl, r in runs.items():
+        def one_step(r=r):
+            r["state"], _ = r["step"](r["state"], tb, r["gen"])
+
+        split[impl] = kernel_split(torch, one_step, calls=3, top=8)
+        pieces.update(bwd_device_ms(torch, impl, one_step, calls=3))
+    step_fields = {"bf16_ms_per_step": float(np.mean(ms["fast_bf16"])),
+                   "float32_ms_per_step": float(np.mean(ms["fast"])),
+                   "bf16_device_ms_per_step": split["fast_bf16"]["device_ms"],
+                   "float32_device_ms_per_step": split["fast"]["device_ms"]}
+    phase("bf16-train", shape=f"B={TRAIN_B},N={TRAIN_PROTEIN + MAX_LIGAND},K={K}",
+          steps=BF16_TRAIN_STEPS, launches=launches,
+          first_loss={k: r["losses"][0] for k, r in runs.items()}, head_mean_loss=heads,
+          tail_mean_loss=tails, tail_rel=rel, bar=BF16_LOSS_REL,
+          param_change_vs_float32=moved, param_change_bar=BF16_STEP_SHARE,
+          step_rel_max=float(step_rel.max()), step_rel_median=float(np.median(step_rel)),
+          step_rel_last=float(step_rel[-1]),
+          ms_per_step_in_turns=ms, **step_fields, kernel_split=split, **pieces,
+          run_seconds={k: r["seconds"] for k, r in runs.items()})
+    del runs
+    torch.cuda.empty_cache()
+
+    # the train CLI with --dtype bf16
+    root = REPO / "outputs" / "chip_smoke_train_bf16"
+    cli_dataset(torch, root)
+    config = cli_config(root, BF16_CLI_STEPS)
+    args = train_diffusion.parser().parse_args(
+        ["in-code", "--device", "cuda", "--logdir", str(root / "logs"), "--max_protein",
+         str(MAX_PROTEIN), "--max_ligand", "40", "--train_report_iter", "1", "--dtype", "bf16"])
+    reset_train_counts()
+    res = train_diffusion.run(config, args)
+    cli_launches = train_counts()
+    # training: the bf16 forward and backward once a step; validation runs the
+    # float32 forward (make_eval_step stays float32) and no backward
+    if (cli_launches["train_fwd_bf16"] != BF16_CLI_STEPS
+            or cli_launches["vjp_bf16"] != BF16_CLI_STEPS or cli_launches["vjp"]
+            or not res["checkpoints"]):
+        raise AssertionError(f"bf16 train-cli: launches {cli_launches}, checkpoints "
+                             f"{res['checkpoints']}")
+    ckpt = res["checkpoints"][-1]
+    with np.load(ckpt) as z:
+        dtypes = sorted({str(z[k].dtype) for k in z.files if z[k].dtype.kind == "f"})
+    if dtypes != ["float32"]:
+        raise AssertionError(f"bf16 train-cli: checkpoint arrays of {dtypes}")
+    sampler = DiffusionModel(Config(FLAGSHIP), feat_dim, NUM_CLASSES, device=dev,
+                             max_protein=MAX_PROTEIN, max_ligand=40)
+    sampler.net.load_state_dict(load_checkpoint(ckpt, device=dev)["state_dict"])
+    kblock.BF16_LAUNCHES = 0
+    sres = sample_diffusion_ligand(
+        sampler, pocket, num_samples=B, generator=torch.Generator(device=dev).manual_seed(4),
+        batch_size=B, num_steps=10, max_protein=MAX_PROTEIN, max_ligand=40,
+        rng=np.random.default_rng(4))
+    if kblock.BF16_LAUNCHES != 10 or not all(np.isfinite(p).all() for p in sres["pos"]):
+        raise AssertionError(f"bf16 train-cli: sampling from the checkpoint launched "
+                             f"{kblock.BF16_LAUNCHES} bf16 blocks, or gave non-finite positions")
+    phase("bf16-train-cli", steps=BF16_CLI_STEPS, checkpoint=Path(ckpt).name,
+          checkpoint_dtypes=dtypes, launches={k: v for k, v in cli_launches.items()
+                                              if not isinstance(v, dict) and v},
+          best_val=res["best_val"], sample_launches_bf16=kblock.BF16_LAUNCHES)
+    return {"launches": launches, "step": step_fields}
+
+
+def bf16_train_phases(torch, dev, rn, h, x, nbh, mask_ligand, node_mask, pocket, feat_dim):
+    """[bf16-train-block] (with its weight-grad and node-bwd parts),
+    [bf16-layers-bwd], [bf16-train] and [bf16-train-cli]: the bf16 training
+    slice. Returns the kernels' JSON entries."""
+    block = bf16_train_block_phase(torch, dev, rn, h, x, nbh, mask_ligand, node_mask)
+    wgrad = weight_grad_phase(torch, dev, torch.bfloat16)
+    phase("bf16-train-block weight-grad", bar_over_s=WG16_BAR,
+          worst_err_over_s=max(f["max_err_over_s"] for f in wgrad["products"].values()),
+          products=wgrad["products"])
+    node = node_bwd_phase(torch, dev, torch.bfloat16)
+    phase("bf16-train-block node-bwd", bar_over_scale=NODE16_BAR, **node)
+    layers = bf16_layers_bwd_phase(torch, dev, pocket, feat_dim)
+    train = bf16_train_phase(torch, dev, pocket, feat_dim)
+    launches, pl = train["launches"], layers["launches"]
+    no_library = {"library_ms": None}  # no single PyTorch call computes these functions
+    entries = [
+        ("block_denoiser_train_bf16", "targetdiff_tpu_torch/csrc/block_denoiser.cu",
+         "targetdiff_tpu/ops/pallas/block_denoiser.py:154", launches["train_fwd_bf16"],
+         block["fwd"], no_library),
+        ("block_vjp_bf16", "targetdiff_tpu_torch/csrc/block_vjp.cu",
+         "targetdiff_tpu/ops/pallas/block_vjp.py:113", launches["vjp_bf16"], block["bwd"],
+         no_library),
+        *[(f"block_vjp.weight_grad_bf16_{cls}", "targetdiff_tpu_torch/csrc/weight_grad.cuh",
+           "targetdiff_tpu/ops/pallas/block_vjp.py:113", launches["weight_grad_bf16"][cls], f,
+           {}) for cls, f in wgrad["classes"].items()],
+        ("block_vjp.node_bwd_bf16", "targetdiff_tpu_torch/csrc/node_bwd.cuh",
+         "targetdiff_tpu/ops/pallas/edge_layer_vjp.py:153", launches["node_bwd_bf16"],
+         dict(node["x2h"], max_abs_err=max(f["max_abs_err"] for f in node.values()),
+              timed_case=f"x2h, {node['x2h']['rows']} rows"), no_library),
+        ("x2h_layer_bwd_bf16", "targetdiff_tpu_torch/csrc/edge_layer_vjp.cu",
+         "targetdiff_tpu/ops/pallas/edge_layer_vjp.py:231", pl["x2h_bwd_bf16"],
+         layers["x2h_bwd"], no_library),
+        ("h2x_layer_bwd_bf16", "targetdiff_tpu_torch/csrc/edge_layer_vjp.cu",
+         "targetdiff_tpu/ops/pallas/edge_layer_vjp.py:351", pl["h2x_bwd_bf16"],
+         layers["h2x_bwd"], no_library),
+    ]
+    keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "float32_ms",
+            "device_ms", "float32_device_ms", "max_over_scale", "median_over_scale",
+            "max_over_scale_vs_float64", "dh_mm_ms", "timed_case")
+    return [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": n, **{k: v for k, v in f.items() if k in keep}, **extra}
+            for name, source, replaces, n, f, extra in entries]
 
 
 def measure(torch, argv) -> int:

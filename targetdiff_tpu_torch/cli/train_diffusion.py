@@ -3,7 +3,7 @@
 Usage: python -m targetdiff_tpu_torch.cli.train_diffusion configs/training.yml
        [--device cuda|cpu] [--logdir ./logs_diffusion] [--resume ckpt.npz]
        [--max_protein 640] [--max_ligand 64] [--train_report_iter 200]
-       [--dist_coordinator HOST:PORT --dist_num_processes W --dist_process_id R
+       [--dtype f32|bf16] [--dist_coordinator HOST:PORT --dist_num_processes W --dist_process_id R
         [--dist_backend gloo|nccl]]
 
 Counterpart of targetdiff_tpu/cli/train_diffusion.py (reference:
@@ -14,6 +14,13 @@ resume from a checkpoint. The training step runs the denoiser through the
 block kernels and their backward (`DiffusionModel.get_diffusion_loss`,
 impl='fast'), or through the plain network on a config the kernels do not
 take, such as the EGNN denoiser: the model picks the path from its config.
+--dtype bf16 trains the kernel path as the JAX package's bf16 training
+variant (impl='fast_bf16': bf16 products in both directions, float32
+parameters, optimizer and checkpoints; validation stays float32). The
+JAX CLI's --dtype bf16 sets its flax model's dtype, which reaches the
+kernels only with impl='fast_bf16'; the port has no bf16 eager network yet
+(ROADMAP A17b), so --dtype bf16 on a config that trains eagerly (EGNN)
+raises rather than train in float32.
 With the --dist_* flags, W processes train one model data parallel
 (`parallel/mesh.py`, JAX's --dist_* flags): each builds the same global
 batch from the same loader seed and computes its equal row slice, one card
@@ -69,8 +76,25 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--max_protein", type=int, default=640)
     ap.add_argument("--max_ligand", type=int, default=64)
     ap.add_argument("--train_report_iter", type=int, default=200)
+    ap.add_argument("--dtype", default="f32", choices=["f32", "bf16"],
+                    help="the denoiser's products in training (parameters stay float32): "
+                    "bf16 trains on the bf16 kernels, impl='fast_bf16'")
     add_dist_args(ap)
     return ap
+
+
+def train_impl(model: DiffusionModel, dtype: str) -> str:
+    """The training step's impl for --dtype: the model's path for 'f32';
+    for 'bf16' the kernel path's bf16 variant, 'fast_bf16', or ValueError
+    where the model trains eagerly."""
+    if dtype == "f32":
+        return model.impl
+    if model.impl != "fast":
+        raise ValueError(f"--dtype bf16 trains on the bf16 kernels (impl='fast_bf16'); this "
+                         f"config trains on the {model.impl} path (model_type="
+                         f"{model.config.model_type!r}), whose bf16 network is not ported "
+                         "(ROADMAP A17b): use --dtype f32")
+    return "fast_bf16"
 
 
 def run(config, args) -> dict:
@@ -123,6 +147,8 @@ def _train(config, args, device, log_dir, logger, mesh=None) -> dict:
     model = DiffusionModel(config.model, protein_feat.feature_dim, ligand_feat.feature_dim,
                            device=device, max_protein=args.max_protein,
                            max_ligand=args.max_ligand)
+    impl = train_impl(model, args.dtype)
+    logger.info(f"training path: {impl}")
     opt_cfg = dict(config.train.optimizer, max_grad_norm=config.train.max_grad_norm)
     optimizer = train_utils.get_optimizer(type(config)(opt_cfg), model.parameters())
     scheduler = train_utils.get_scheduler(config.train.scheduler, config.train.optimizer)
@@ -143,7 +169,7 @@ def _train(config, args, device, log_dir, logger, mesh=None) -> dict:
     if mesh is not None:
         pmesh.replicate_state(model.net, optimizer, mesh)
 
-    train_step = make_train_step(model, config.train.pos_noise_std, mesh=mesh)
+    train_step = make_train_step(model, config.train.pos_noise_std, impl=impl, mesh=mesh)
     eval_step = make_eval_step(model, mesh=mesh)
     gen = torch.Generator(device=device).manual_seed(seed)
     best_val, ckpts, metrics = float("inf"), [], {}

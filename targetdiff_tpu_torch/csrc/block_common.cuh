@@ -14,6 +14,7 @@
 // skipped chunks.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -115,7 +116,10 @@ struct EdgeGeometry {
   bool valid[KC];
 };
 
-// Threads [0, KC) of the block fill slot t; the caller synchronises.
+// Threads [0, KC) of the block fill slot t; the caller synchronises. bf16
+// (kBf16): the RBF features are stored rounded to bf16, the first layer's
+// product operands (the forward kernels round them so).
+template <bool kBf16 = false>
 __device__ __forceinline__ void load_edges(EdgeGeometry& g, const EdgeInputs& in, long long b,
                                            long long bn, int N, int K, int e0, int t) {
   if (t >= KC) return;
@@ -138,7 +142,10 @@ __device__ __forceinline__ void load_edges(EdgeGeometry& g, const EdgeInputs& in
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const float d = dist - in.offsets[r];
-      g.rbf[t][r] = expf(in.coeff * d * d);
+      if constexpr (kBf16)
+        g.rbf[t][r] = __bfloat162float(__float2bfloat16_rn(expf(in.coeff * d * d)));
+      else
+        g.rbf[t][r] = expf(in.coeff * d * d);
     }
   } else {
     g.j[t] = 0;
@@ -158,7 +165,10 @@ __device__ __forceinline__ void load_edges(EdgeGeometry& g, const EdgeInputs& in
 // (ligand source) and ta + 2 (protein source): one type at a time, the
 // thread loads its column of that type's table into registers once per
 // chunk and applies it to the slots of that type (both types' columns at
-// once, selected per slot, spilled more and ran slower: PERF.md).
+// once, selected per slot, spilled more and ran slower: PERF.md). bf16
+// (kBf16): w_rbf and w_et are bf16 weights (tc_common.cuh WeightT), g's RBF
+// features rounded to bf16 (load_edges<true>).
+template <bool kBf16 = false>
 __device__ __forceinline__ void first_layer(float (*z)[H2], const EdgeGeometry& g,
                                             const EdgeInputs& in, const PassParams& p,
                                             long long b, long long bn, int N, int n, int c) {
@@ -166,10 +176,17 @@ __device__ __forceinline__ void first_layer(float (*z)[H2], const EdgeGeometry& 
   const float zi = in.ni[bn * H2 + c];
   for (int e = n; e < KC; ++e) z[e][c] = 0.f;
   for (int ty = ta; ty < 4; ty += 2) {
-    float w[R];
+    float w[R], wet;
+    if constexpr (kBf16) {
+      const __nv_bfloat16* w_rbf = reinterpret_cast<const __nv_bfloat16*>(p.w_rbf);
 #pragma unroll
-    for (int r = 0; r < R; ++r) w[r] = p.w_rbf[(ty * R + r) * H2 + c];
-    const float wet = p.w_et[ty * H2 + c];
+      for (int r = 0; r < R; ++r) w[r] = __bfloat162float(w_rbf[(ty * R + r) * H2 + c]);
+      wet = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p.w_et)[ty * H2 + c]);
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) w[r] = p.w_rbf[(ty * R + r) * H2 + c];
+      wet = p.w_et[ty * H2 + c];
+    }
     for (int e = 0; e < n; ++e) {
       if (g.et[e] != ty) continue;
       float v = zi + in.nj[(b * N + g.j[e]) * H2 + c] + wet;
@@ -210,15 +227,17 @@ __device__ __forceinline__ void ln_relu_edges(float (*z)[H2], const float* kv_ln
 // post-LayerNorm first-layer activations into z (and zhat / rstd, if given).
 // Block-wide; returns whether the chunk holds a valid edge (the same on
 // every thread). A chunk without one is left as loaded: its attention
-// weights are zero, so it contributes nothing.
+// weights are zero, so it contributes nothing. kBf16: the bf16 forward's
+// first layer (load_edges<true>, first_layer<true>).
+template <bool kBf16 = false>
 __device__ __forceinline__ bool edge_chunk(EdgeGeometry& g, float (*z)[H2], float (*zhat)[H2],
                                            float (*rstd)[2], const EdgeInputs& in,
                                            const PassParams& p, long long b, long long bn, int N,
                                            int K, int e0, int t) {
-  load_edges(g, in, b, bn, N, K, e0, t);
+  load_edges<kBf16>(g, in, b, bn, N, K, e0, t);
   if (!__syncthreads_or(t < KC && g.valid[t])) return false;
   const int n = min(KC, K - e0);
-  first_layer(z, g, in, p, b, bn, N, n, t);
+  first_layer<kBf16>(z, g, in, p, b, bn, N, n, t);
   __syncthreads();
   ln_relu_edges(z, p.kv_ln, n, zhat, rstd, t);
   __syncthreads();

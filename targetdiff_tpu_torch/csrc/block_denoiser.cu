@@ -434,16 +434,14 @@ extern "C" int td_block_h2x_bf16(const float* x, const int64_t* idx, const bool*
                          x_out, (cudaStream_t)stream);
 }
 
-// Train-mode forward of all L layers. hck [L+1][B][N][H] and xck
-// [L+1][B][N][3] receive h and x before layer 0 (slot 0) and after each
-// layer l (slot l + 1); ew [B][N][K] is given. ni, nj [B*N][2H] and q
-// [B*N][H] are scratch. x2h / h2x hold L PassParams each (host memory).
-extern "C" int td_block_train_fwd(const float* h0, const float* x0, const int64_t* idx,
-                                  const bool* nmask, const bool* mlig, const float* ew,
-                                  const float* offsets, float coeff, const PassParams* x2h,
-                                  const PassParams* h2x, int L, int B, int N, int K,
-                                  int n_ligand, float* ni, float* nj, float* q, float* hck,
-                                  float* xck, void* stream) {
+namespace {
+
+template <bool kBf16>
+int block_train_fwd(const float* h0, const float* x0, const int64_t* idx, const bool* nmask,
+                    const bool* mlig, const float* ew, const float* offsets, float coeff,
+                    const PassParams* x2h, const PassParams* h2x, int L, int B, int N, int K,
+                    int n_ligand, float* ni, float* nj, float* q, float* hck, float* xck,
+                    void* stream) {
   if (L <= 0 || B <= 0 || N <= 0 || K <= 0 || K > kMaxBlockK || n_ligand <= 0 || n_ligand > N)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -458,10 +456,41 @@ extern "C" int td_block_train_fwd(const float* h0, const float* x0, const int64_
     const float* h_in = hck + l * hsz;
     float* h_mid = hck + (l + 1) * hsz;
     const EdgeInputs in{xck + l * xsz, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
-    err = launch_node(h_in, B, N, 0, x2h[l], ni, nj, q, nullptr, s);
-    if (err == 0) err = launch_x2h(h_in, in, q, x2h[l], B, N, K, h_mid, s);
-    if (err == 0) err = launch_node(h_mid, B, N, row0, h2x[l], ni, nj, q, nullptr, s);
-    if (err == 0) err = launch_h2x(in, q, h2x[l], B, N, K, row0, xck + (l + 1) * xsz, s);
+    err = launch_node<kBf16>(h_in, B, N, 0, x2h[l], ni, nj, q, nullptr, s);
+    if (err == 0) err = launch_x2h<kBf16>(h_in, in, q, x2h[l], B, N, K, h_mid, s);
+    if (err == 0) err = launch_node<kBf16>(h_mid, B, N, row0, h2x[l], ni, nj, q, nullptr, s);
+    if (err == 0)
+      err = launch_h2x<kBf16>(in, q, h2x[l], B, N, K, row0, xck + (l + 1) * xsz, s);
   }
   return err;
+}
+
+}  // namespace
+
+// Train-mode forward of all L layers. hck [L+1][B][N][H] and xck
+// [L+1][B][N][3] receive h and x before layer 0 (slot 0) and after each
+// layer l (slot l + 1); ew [B][N][K] is given. ni, nj [B*N][2H] and q
+// [B*N][H] are scratch. x2h / h2x hold L PassParams each (host memory).
+extern "C" int td_block_train_fwd(const float* h0, const float* x0, const int64_t* idx,
+                                  const bool* nmask, const bool* mlig, const float* ew,
+                                  const float* offsets, float coeff, const PassParams* x2h,
+                                  const PassParams* h2x, int L, int B, int N, int K,
+                                  int n_ligand, float* ni, float* nj, float* q, float* hck,
+                                  float* xck, void* stream) {
+  return block_train_fwd<false>(h0, x0, idx, nmask, mlig, ew, offsets, coeff, x2h, h2x, L, B, N,
+                                K, n_ligand, ni, nj, q, hck, xck, stream);
+}
+
+// The train-mode forward of the bf16 training variant (JAX's
+// block_layers_trainable at dtype=bf16 drives _block_kernel so): the same
+// arguments, x2h / h2x with bf16 product weights; launches the bf16 node, x2h
+// and h2x kernels. The checkpoints stay float32.
+extern "C" int td_block_train_fwd_bf16(const float* h0, const float* x0, const int64_t* idx,
+                                       const bool* nmask, const bool* mlig, const float* ew,
+                                       const float* offsets, float coeff, const PassParams* x2h,
+                                       const PassParams* h2x, int L, int B, int N, int K,
+                                       int n_ligand, float* ni, float* nj, float* q, float* hck,
+                                       float* xck, void* stream) {
+  return block_train_fwd<true>(h0, x0, idx, nmask, mlig, ew, offsets, coeff, x2h, h2x, L, B, N,
+                               K, n_ligand, ni, nj, q, hck, xck, stream);
 }

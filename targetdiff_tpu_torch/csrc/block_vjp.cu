@@ -29,6 +29,12 @@
 // one run_pass of pass_bwd.cuh (node recompute, edge backward, the
 // deterministic source gather, node backward, weight-gradient products);
 // the inverse adjacencies of both passes are built once per backward.
+//
+// bf16 (td_block_bwd_bf16): the VJP of td_block_train_fwd_bf16, the JAX
+// package's bf16 training variant (_block_bwd_kernel at cd=bf16): every
+// dense product of both directions on bf16 operands with float32
+// accumulation (run_pass<kH2X, true>), the checkpoints, cotangents and
+// every gradient float32.
 
 #include "pass_bwd.cuh"
 
@@ -39,19 +45,16 @@ extern "C" void td_block_bwd_workspace(int B, int N, int K, int n_ligand, long l
   carve(nullptr, nullptr, B, N, K, n_ligand, &ws, floats, ints);
 }
 
-// VJP of td_block_train_fwd. hck [L+1][B][N][H], xck [L+1][B][N][3] are its
-// checkpoints; gh [B][N][H], gx [B][N][3] the cotangents of its outputs.
-// Writes dh0, dx0, dew [B][N][K] and, per layer, the gradients of both
-// passes' packed weights (gx2h / gh2x: L PassGrads each, host memory, as
-// x2h / h2x / x2hT / h2xT: L entries each).
-extern "C" int td_block_bwd(const float* hck, const float* xck, const int64_t* idx,
-                            const bool* nmask, const bool* mlig, const float* ew,
-                            const float* offsets, float coeff, const PassParams* x2h,
-                            const PassParams* h2x, const PassT* x2hT, const PassT* h2xT,
-                            const PassGrads* gx2h, const PassGrads* gh2x, int L, int B, int N,
-                            int K, int n_ligand, const float* gh, const float* gx, float* dh0,
-                            float* dx0, float* dew, float* work, long long work_floats,
-                            int* iwork, long long iwork_ints, void* stream) {
+namespace {
+
+template <bool kBf16>
+int block_bwd(const float* hck, const float* xck, const int64_t* idx, const bool* nmask,
+              const bool* mlig, const float* ew, const float* offsets, float coeff,
+              const PassParams* x2h, const PassParams* h2x, const PassT* x2hT, const PassT* h2xT,
+              const PassGrads* gx2h, const PassGrads* gh2x, int L, int B, int N, int K,
+              int n_ligand, const float* gh, const float* gx, float* dh0, float* dx0, float* dew,
+              float* work, long long work_floats, int* iwork, long long iwork_ints,
+              void* stream) {
   if (L <= 0 || B <= 0 || N <= 0 || N > kAdjMaxN || K <= 0 || K > kMaxBlockK || n_ligand <= 0 ||
       n_ligand > N)
     return (int)cudaErrorInvalidValue;
@@ -70,14 +73,50 @@ extern "C" int td_block_bwd(const float* hck, const float* xck, const int64_t* i
   if ((err = build_adjacency(idx, nmask, B, N, K, row0, ws.off_h, ws.list_h, s))) return err;
   for (int l = L - 1; l >= 0; --l) {
     const EdgeInputs in{xck + l * xsz, idx, nmask, mlig, ew, nullptr, nullptr, offsets, coeff};
-    err = run_pass<true>(hck + (l + 1) * hsz, in, h2x[l], h2xT[l], gh2x[l], B, N, K, row0,
-                         ws.off_h, ws.list_h, dh0, dx0, dew, ws, s);
+    err = run_pass<true, kBf16>(hck + (l + 1) * hsz, in, h2x[l], h2xT[l], gh2x[l], B, N, K,
+                                row0, ws.off_h, ws.list_h, dh0, dx0, dew, ws, s);
     if (err) return err;
-    err = run_pass<false>(hck + l * hsz, in, x2h[l], x2hT[l], gx2h[l], B, N, K, 0, ws.off_x,
-                          ws.list_x, dh0, dx0, dew, ws, s);
+    err = run_pass<false, kBf16>(hck + l * hsz, in, x2h[l], x2hT[l], gx2h[l], B, N, K, 0,
+                                 ws.off_x, ws.list_x, dh0, dx0, dew, ws, s);
     if (err) return err;
   }
   return 0;
+}
+
+}  // namespace
+
+// VJP of td_block_train_fwd. hck [L+1][B][N][H], xck [L+1][B][N][3] are its
+// checkpoints; gh [B][N][H], gx [B][N][3] the cotangents of its outputs.
+// Writes dh0, dx0, dew [B][N][K] and, per layer, the gradients of both
+// passes' packed weights (gx2h / gh2x: L PassGrads each, host memory, as
+// x2h / h2x / x2hT / h2xT: L entries each).
+extern "C" int td_block_bwd(const float* hck, const float* xck, const int64_t* idx,
+                            const bool* nmask, const bool* mlig, const float* ew,
+                            const float* offsets, float coeff, const PassParams* x2h,
+                            const PassParams* h2x, const PassT* x2hT, const PassT* h2xT,
+                            const PassGrads* gx2h, const PassGrads* gh2x, int L, int B, int N,
+                            int K, int n_ligand, const float* gh, const float* gx, float* dh0,
+                            float* dx0, float* dew, float* work, long long work_floats,
+                            int* iwork, long long iwork_ints, void* stream) {
+  return block_bwd<false>(hck, xck, idx, nmask, mlig, ew, offsets, coeff, x2h, h2x, x2hT, h2xT,
+                          gx2h, gh2x, L, B, N, K, n_ligand, gh, gx, dh0, dx0, dew, work,
+                          work_floats, iwork, iwork_ints, stream);
+}
+
+// VJP of td_block_train_fwd_bf16: td_block_bwd's arguments, x2h / h2x with
+// bf16 product weights (the pack of the forward), x2hT / h2xT float32.
+extern "C" int td_block_bwd_bf16(const float* hck, const float* xck, const int64_t* idx,
+                                 const bool* nmask, const bool* mlig, const float* ew,
+                                 const float* offsets, float coeff, const PassParams* x2h,
+                                 const PassParams* h2x, const PassT* x2hT, const PassT* h2xT,
+                                 const PassGrads* gx2h, const PassGrads* gh2x, int L, int B,
+                                 int N, int K, int n_ligand, const float* gh, const float* gx,
+                                 float* dh0, float* dx0, float* dew, float* work,
+                                 long long work_floats, int* iwork, long long iwork_ints,
+                                 void* stream) {
+  return block_bwd<true>(hck, xck, idx, nmask, mlig, ew, offsets, coeff, x2h, h2x, x2hT, h2xT,
+                         gx2h, gh2x, L, B, N, K, n_ligand, gh, gx, dh0, dx0, dew, work,
+                         work_floats, iwork, iwork_ints, stream);
 }
 
 // build_adjacency alone: the inverse adjacency of the destination rows
@@ -109,16 +148,16 @@ extern "C" int td_stage_rbf(const float* w_rbf, void* frags, void* stream) {
 // edge_bwd_kernel as run_pass launches it for one pass of K neighbours per row:
 // info[4] = {shared memory bytes per block (dynamic and static), blocks per
 // SM, registers per thread, local (spill) bytes per thread}.
-template <bool kH2X>
+template <bool kH2X, bool kBf16>
 int edge_bwd_info(int K, int* info) {
   cudaFuncAttributes fa;
-  int err = (int)cudaFuncSetAttribute(edge_bwd_kernel<kH2X>,
+  int err = (int)cudaFuncSetAttribute(edge_bwd_kernel<kH2X, kBf16>,
                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
                                       bwd_smem(kMaxLayerK, kH2X));
-  if (!err) err = (int)cudaFuncGetAttributes(&fa, edge_bwd_kernel<kH2X>);
+  if (!err) err = (int)cudaFuncGetAttributes(&fa, edge_bwd_kernel<kH2X, kBf16>);
   if (!err)
-    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], edge_bwd_kernel<kH2X>,
-                                                             kThreads, bwd_smem(K, kH2X));
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &info[1], edge_bwd_kernel<kH2X, kBf16>, kThreads, bwd_smem(K, kH2X));
   if (err) return err;
   info[0] = bwd_smem(K, kH2X) + (int)fa.sharedSizeBytes;
   info[2] = fa.numRegs;
@@ -128,7 +167,14 @@ int edge_bwd_info(int K, int* info) {
 
 extern "C" int td_edge_bwd_info(int h2x, int K, int* info) {
   if (K <= 0 || K > kMaxLayerK) return (int)cudaErrorInvalidValue;
-  return h2x ? edge_bwd_info<true>(K, info) : edge_bwd_info<false>(K, info);
+  return h2x ? edge_bwd_info<true, false>(K, info) : edge_bwd_info<false, false>(K, info);
+}
+
+// The same of the bf16 instantiation (td_block_bwd_bf16, the per-layer
+// *_bf16 backwards).
+extern "C" int td_edge_bwd_info_bf16(int h2x, int K, int* info) {
+  if (K <= 0 || K > kMaxLayerK) return (int)cudaErrorInvalidValue;
+  return h2x ? edge_bwd_info<true, true>(K, info) : edge_bwd_info<false, true>(K, info);
 }
 
 // The weight-gradient product of run_pass alone (weight_grad.cuh): out [P][Q]
@@ -141,6 +187,13 @@ extern "C" long long td_weight_grad_partial_floats() { return kPartialCap; }
 extern "C" int td_weight_grad(const float* X, int ldx, const float* Y, int ldy, long long M,
                               int P, int Q, float* out, float* partial, void* stream) {
   return weight_grad(X, ldx, Y, ldy, M, P, Q, out, partial, (cudaStream_t)stream);
+}
+
+// The same with bf16 products (weight_grad<true>, as run_pass<kH2X, true>).
+extern "C" int td_weight_grad_bf16(const float* X, int ldx, const float* Y, int ldy,
+                                   long long M, int P, int Q, float* out, float* partial,
+                                   void* stream) {
+  return weight_grad<true>(X, ldx, Y, ldy, M, P, Q, out, partial, (cudaStream_t)stream);
 }
 
 // node_bwd_kernel as run_pass launches it, alone (node_bwd.cuh): over `rows`
@@ -157,8 +210,20 @@ extern "C" int td_node_bwd(const float* q1, const float* q_ln, const float* w_q2
                          (cudaStream_t)stream);
 }
 
+// td_node_bwd with bf16 products (launch_node_bwd<true>, as run_pass<kH2X,
+// true>); the same float32 arguments.
+extern "C" int td_node_bwd_bf16(const float* q1, const float* q_ln, const float* w_q2T,
+                                const float* w_nodeT, long long rows, int W, int off_dq,
+                                int off_qln, float* rowbuf, float* qa, float* dh, void* stream) {
+  return launch_node_bwd<true>(q1, q_ln, w_q2T, w_nodeT, rows, W, off_dq, off_qln, rowbuf, qa,
+                               dh, (cudaStream_t)stream);
+}
+
 // node_bwd_kernel launches made so far in this process, by every entry.
 extern "C" long long td_node_bwd_launches() { return node_bwd_launch_count; }
+
+// The same of its bf16 instantiation.
+extern "C" long long td_node_bwd_bf16_launches() { return node_bwd_bf16_launch_count; }
 
 // node_bwd_kernel for `rows` rows: info[5] = {rows per tile, shared memory
 // bytes per block, blocks per SM, registers per thread, local (spill) bytes
@@ -167,4 +232,11 @@ extern "C" int td_node_bwd_info(long long rows, int* info) {
   if (rows <= 0) return (int)cudaErrorInvalidValue;
   if (int err = node_bwd_tile(rows, info[0])) return err;
   return info[0] == 64 ? node_bwd_info<64>(info + 1) : node_bwd_info<32>(info + 1);
+}
+
+// The same of the bf16 instantiation.
+extern "C" int td_node_bwd_info_bf16(long long rows, int* info) {
+  if (rows <= 0) return (int)cudaErrorInvalidValue;
+  if (int err = node_bwd_tile(rows, info[0])) return err;
+  return info[0] == 64 ? node_bwd_info<64, true>(info + 1) : node_bwd_info<32, true>(info + 1);
 }

@@ -31,17 +31,12 @@ bool layer_shapes_ok(int B, int N, int K) {
   return B > 0 && N > 0 && N <= kAdjMaxN && K > 0 && K <= kMaxLayerK;
 }
 
-}  // namespace
-
-// VJP of td_x2h_layer: gh [B][N][H] the cotangent of h_out; writes dh, dx
-// [B][N][3], dew [B][N][K] and the pass's weight gradients g. work / iwork
-// hold td_block_bwd_workspace(B, N, K, 1) floats / ints.
-extern "C" int td_x2h_layer_bwd(const float* h, const float* x, const int64_t* idx,
-                                const bool* nmask, const bool* mlig, const float* ew,
-                                const float* offsets, float coeff, PassParams p, PassT pt,
-                                PassGrads g, int B, int N, int K, const float* gh, float* dh,
-                                float* dx, float* dew, float* work, long long work_floats,
-                                int* iwork, long long iwork_ints, void* stream) {
+template <bool kBf16>
+int x2h_layer_bwd(const float* h, const float* x, const int64_t* idx, const bool* nmask,
+                  const bool* mlig, const float* ew, const float* offsets, float coeff,
+                  const PassParams& p, const PassT& pt, const PassGrads& g, int B, int N, int K,
+                  const float* gh, float* dh, float* dx, float* dew, float* work,
+                  long long work_floats, int* iwork, long long iwork_ints, void* stream) {
   if (!layer_shapes_ok(B, N, K)) return (int)cudaErrorInvalidValue;
   Workspace ws;
   long long nf, ni;
@@ -55,19 +50,16 @@ extern "C" int td_x2h_layer_bwd(const float* h, const float* x, const int64_t* i
   if (!err) err = build_adjacency(idx, nmask, B, N, K, 0, ws.off_x, ws.list_x, s);
   if (err) return err;
   const EdgeInputs in{x, idx, nmask, mlig, ew, nullptr, nullptr, offsets, coeff};
-  return run_pass<false>(h, in, p, pt, g, B, N, K, 0, ws.off_x, ws.list_x, dh, dx, dew, ws, s);
+  return run_pass<false, kBf16>(h, in, p, pt, g, B, N, K, 0, ws.off_x, ws.list_x, dh, dx, dew,
+                                ws, s);
 }
 
-// VJP of td_h2x_layer on the last n_ligand rows: gx [B][N][3] the cotangent
-// of x_out; writes dh, dx, dew and g. work / iwork hold
-// td_block_bwd_workspace(B, N, K, n_ligand) floats / ints.
-extern "C" int td_h2x_layer_bwd(const float* h, const float* x, const int64_t* idx,
-                                const bool* nmask, const bool* mlig, const float* ew,
-                                const float* offsets, float coeff, PassParams p, PassT pt,
-                                PassGrads g, int B, int N, int K, int n_ligand, const float* gx,
-                                float* dh, float* dx, float* dew, float* work,
-                                long long work_floats, int* iwork, long long iwork_ints,
-                                void* stream) {
+template <bool kBf16>
+int h2x_layer_bwd(const float* h, const float* x, const int64_t* idx, const bool* nmask,
+                  const bool* mlig, const float* ew, const float* offsets, float coeff,
+                  const PassParams& p, const PassT& pt, const PassGrads& g, int B, int N, int K,
+                  int n_ligand, const float* gx, float* dh, float* dx, float* dew, float* work,
+                  long long work_floats, int* iwork, long long iwork_ints, void* stream) {
   if (!layer_shapes_ok(B, N, K) || n_ligand <= 0 || n_ligand > N)
     return (int)cudaErrorInvalidValue;
   Workspace ws;
@@ -83,6 +75,63 @@ extern "C" int td_h2x_layer_bwd(const float* h, const float* x, const int64_t* i
   if (!err) err = build_adjacency(idx, nmask, B, N, K, row0, ws.off_h, ws.list_h, s);
   if (err) return err;
   const EdgeInputs in{x, idx, nmask, mlig, ew, nullptr, nullptr, offsets, coeff};
-  return run_pass<true>(h, in, p, pt, g, B, N, K, row0, ws.off_h, ws.list_h, dh, dx, dew, ws,
-                        s);
+  return run_pass<true, kBf16>(h, in, p, pt, g, B, N, K, row0, ws.off_h, ws.list_h, dh, dx, dew,
+                               ws, s);
+}
+
+}  // namespace
+
+// The entry points come in pairs: float32, and *_bf16, the VJP of the bf16
+// forward (td_x2h_layer_bf16, td_h2x_layer_bf16): p's product weights bf16
+// (the forward's pack), pt float32, bf16 products with float32 accumulation
+// (pass_bwd.cuh run_pass<kH2X, true>), every output float32.
+
+// VJP of td_x2h_layer: gh [B][N][H] the cotangent of h_out; writes dh, dx
+// [B][N][3], dew [B][N][K] and the pass's weight gradients g. work / iwork
+// hold td_block_bwd_workspace(B, N, K, 1) floats / ints.
+extern "C" int td_x2h_layer_bwd(const float* h, const float* x, const int64_t* idx,
+                                const bool* nmask, const bool* mlig, const float* ew,
+                                const float* offsets, float coeff, PassParams p, PassT pt,
+                                PassGrads g, int B, int N, int K, const float* gh, float* dh,
+                                float* dx, float* dew, float* work, long long work_floats,
+                                int* iwork, long long iwork_ints, void* stream) {
+  return x2h_layer_bwd<false>(h, x, idx, nmask, mlig, ew, offsets, coeff, p, pt, g, B, N, K, gh,
+                              dh, dx, dew, work, work_floats, iwork, iwork_ints, stream);
+}
+
+extern "C" int td_x2h_layer_bwd_bf16(const float* h, const float* x, const int64_t* idx,
+                                     const bool* nmask, const bool* mlig, const float* ew,
+                                     const float* offsets, float coeff, PassParams p, PassT pt,
+                                     PassGrads g, int B, int N, int K, const float* gh, float* dh,
+                                     float* dx, float* dew, float* work, long long work_floats,
+                                     int* iwork, long long iwork_ints, void* stream) {
+  return x2h_layer_bwd<true>(h, x, idx, nmask, mlig, ew, offsets, coeff, p, pt, g, B, N, K, gh,
+                             dh, dx, dew, work, work_floats, iwork, iwork_ints, stream);
+}
+
+// VJP of td_h2x_layer on the last n_ligand rows: gx [B][N][3] the cotangent
+// of x_out; writes dh, dx, dew and g. work / iwork hold
+// td_block_bwd_workspace(B, N, K, n_ligand) floats / ints.
+extern "C" int td_h2x_layer_bwd(const float* h, const float* x, const int64_t* idx,
+                                const bool* nmask, const bool* mlig, const float* ew,
+                                const float* offsets, float coeff, PassParams p, PassT pt,
+                                PassGrads g, int B, int N, int K, int n_ligand, const float* gx,
+                                float* dh, float* dx, float* dew, float* work,
+                                long long work_floats, int* iwork, long long iwork_ints,
+                                void* stream) {
+  return h2x_layer_bwd<false>(h, x, idx, nmask, mlig, ew, offsets, coeff, p, pt, g, B, N, K,
+                              n_ligand, gx, dh, dx, dew, work, work_floats, iwork, iwork_ints,
+                              stream);
+}
+
+extern "C" int td_h2x_layer_bwd_bf16(const float* h, const float* x, const int64_t* idx,
+                                     const bool* nmask, const bool* mlig, const float* ew,
+                                     const float* offsets, float coeff, PassParams p, PassT pt,
+                                     PassGrads g, int B, int N, int K, int n_ligand,
+                                     const float* gx, float* dh, float* dx, float* dew,
+                                     float* work, long long work_floats, int* iwork,
+                                     long long iwork_ints, void* stream) {
+  return h2x_layer_bwd<true>(h, x, idx, nmask, mlig, ew, offsets, coeff, p, pt, g, B, N, K,
+                             n_ligand, gx, dh, dx, dew, work, work_floats, iwork, iwork_ints,
+                             stream);
 }

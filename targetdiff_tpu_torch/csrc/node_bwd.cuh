@@ -38,6 +38,12 @@
 // fp16. Each 8-deep k-step's three terms are summed from zero and added to
 // the float32 accumulator, k ascending: a fixed order, so two runs give the
 // same bits.
+//
+// bf16 (kBf16, the bf16 training variant, edge_layer_vjp.py _cdot at
+// cd=bf16): the same tiles and ring, each 16-deep k-step one bf16
+// mma.sync.m16n8k16 on operands rounded to bf16 where their fragments are
+// formed (dq, dproj, dq1; w_q2^T, w_node^T), accumulated in the mma's float32
+// accumulator; the LayerNorm backward and dh's sum stay float32.
 #pragma once
 
 #include "block_common.cuh"
@@ -48,6 +54,8 @@
 // every entry that runs it (td_node_bwd_launches reads it): the wrappers
 // count the launches made, not the passes they asked for.
 inline long long node_bwd_launch_count = 0;
+// the same of the bf16 instantiation (td_node_bwd_bf16_launches)
+inline long long node_bwd_bf16_launch_count = 0;
 
 namespace {
 
@@ -100,10 +108,36 @@ __device__ __forceinline__ void nb_stage(float* st, int s, const float* __restri
 // (row stride lda) at the slice's first column; b: the slice's first B row at
 // the warp's first column (row stride kNbLdB). One k-step at a time: unrolled,
 // the 64-row tile's loads in flight spilled (56 bytes) for no gain in time
-// (node_ew_variants.py `node_unroll2`; PERF.md).
-template <int NT>
+// (node_ew_variants.py `node_unroll2`; PERF.md). kBf16: two 16-deep k-steps,
+// one bf16 product each, the operands rounded to bf16 as pairs.
+template <int NT, bool kBf16 = false>
 __device__ __forceinline__ void nb_slice(float (&acc)[2][NT][4], const float* a, int lda,
                                          const float* b, int g, int tig) {
+  if constexpr (kBf16) {
+#pragma unroll 1
+    for (int k0 = 0; k0 < kNbK; k0 += 16) {
+      // A: rows g, g + 8 x columns (2 tig, 2 tig + 1), the same + 8, of each m-tile
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* ar = a + (16 * mt + g) * lda + k0 + 2 * tig;
+        af[mt][0] = bf16_pair(ar[0], ar[1]);
+        af[mt][1] = bf16_pair(ar[8 * lda], ar[8 * lda + 1]);
+        af[mt][2] = bf16_pair(ar[8], ar[9]);
+        af[mt][3] = bf16_pair(ar[8 * lda + 8], ar[8 * lda + 9]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        // B (k x n): rows (2 tig, 2 tig + 1) and (2 tig + 8, 2 tig + 9) of column g
+        const float* br = b + (k0 + 2 * tig) * kNbLdB + 8 * nt + g;
+        const uint32_t b0 = bf16_pair(br[0], br[kNbLdB]);
+        const uint32_t b1 = bf16_pair(br[8 * kNbLdB], br[9 * kNbLdB]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt], af[mt], b0, b1);
+      }
+    }
+    return;
+  }
 #pragma unroll 1
   for (int k0 = 0; k0 < kNbK; k0 += 8) {
     // A: (g, tig), (g + 8, tig), (g, tig + 4), (g + 8, tig + 4) of each m-tile
@@ -136,7 +170,7 @@ __device__ __forceinline__ void nb_slice(float (&acc)[2][NT][4], const float* a,
   }
 }
 
-template <int TM>
+template <int TM, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 2)
 node_bwd_kernel(const float* __restrict__ q1, const float* __restrict__ q_ln,
                 const float* __restrict__ w_q2T, const float* __restrict__ w_nodeT,
@@ -175,10 +209,10 @@ node_bwd_kernel(const float* __restrict__ q1, const float* __restrict__ q_ln,
     const float* st = smem + s % kNbStages * T::kStageFloats;
     const float* b = st + TM * kNbLdA + wc;
     if (s < kNbQSlices + kNbPSlices)
-      nb_slice<NT>(acc, st + wr * kNbLdA, kNbLdA, b, g, tig);
+      nb_slice<NT, kBf16>(acc, st + wr * kNbLdA, kNbLdA, b, g, tig);
     else  // dq1, the last H k-columns of dproj, from shared memory
-      nb_slice<NT>(acc, sq + wr * kNbLdQ + kNbK * (s - kNbQSlices - kNbPSlices), kNbLdQ, b, g,
-                   tig);
+      nb_slice<NT, kBf16>(acc, sq + wr * kNbLdQ + kNbK * (s - kNbQSlices - kNbPSlices), kNbLdQ,
+                          b, g, tig);
     if (s != kNbQSlices - 1) continue;
 
     // d qa done: to the tile, then the query MLP's LayerNorm + ReLU backward
@@ -260,23 +294,27 @@ int node_bwd_tile(long long rows, int& tile) {
   return 0;
 }
 
-template <int TM>
+template <int TM, bool kBf16 = false>
 int launch_node_bwd_tile(const float* q1, const float* q_ln, const float* w_q2T,
                          const float* w_nodeT, long long rows, int W, int off_dq, int off_qln,
                          float* rowbuf, float* qa, float* dh, cudaStream_t s) {
   // the ring's dynamic shared memory, set once per process (one device)
   static const int attr = (int)cudaFuncSetAttribute(
-      node_bwd_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, NodeBwdTile<TM>::kSmem);
+      node_bwd_kernel<TM, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      NodeBwdTile<TM>::kSmem);
   if (attr) return attr;
-  node_bwd_kernel<TM><<<(unsigned)((rows + TM - 1) / TM), kThreads, NodeBwdTile<TM>::kSmem, s>>>(
-      q1, q_ln, w_q2T, w_nodeT, rows, W, off_dq, off_qln, rowbuf, qa, dh);
+  node_bwd_kernel<TM, kBf16>
+      <<<(unsigned)((rows + TM - 1) / TM), kThreads, NodeBwdTile<TM>::kSmem, s>>>(
+          q1, q_ln, w_q2T, w_nodeT, rows, W, off_dq, off_qln, rowbuf, qa, dh);
   return (int)cudaGetLastError();
 }
 
 // node_bwd_kernel over `rows` rows of the row buffer (row stride W, dq at
 // column off_dq, the LayerNorm partials written at off_qln). The row
 // buffer's rows and the weights are read 16 bytes at a time: their bases, W
-// and off_dq must be multiples of 16 bytes.
+// and off_dq must be multiples of 16 bytes. kBf16: the bf16 instantiation,
+// counted in node_bwd_bf16_launch_count.
+template <bool kBf16 = false>
 int launch_node_bwd(const float* q1, const float* q_ln, const float* w_q2T, const float* w_nodeT,
                     long long rows, int W, int off_dq, int off_qln, float* rowbuf, float* qa,
                     float* dh, cudaStream_t s) {
@@ -287,26 +325,26 @@ int launch_node_bwd(const float* q1, const float* q_ln, const float* w_q2T, cons
   int tile = 0;
   int err = node_bwd_tile(rows, tile);
   if (err) return err;
-  err = tile == 64 ? launch_node_bwd_tile<64>(q1, q_ln, w_q2T, w_nodeT, rows, W, off_dq, off_qln,
-                                              rowbuf, qa, dh, s)
-                   : launch_node_bwd_tile<32>(q1, q_ln, w_q2T, w_nodeT, rows, W, off_dq, off_qln,
-                                              rowbuf, qa, dh, s);
-  if (!err) ++node_bwd_launch_count;
+  err = tile == 64 ? launch_node_bwd_tile<64, kBf16>(q1, q_ln, w_q2T, w_nodeT, rows, W, off_dq,
+                                                     off_qln, rowbuf, qa, dh, s)
+                   : launch_node_bwd_tile<32, kBf16>(q1, q_ln, w_q2T, w_nodeT, rows, W, off_dq,
+                                                     off_qln, rowbuf, qa, dh, s);
+  if (!err) ++(kBf16 ? node_bwd_bf16_launch_count : node_bwd_launch_count);
   return err;
 }
 
 // What the card makes of node_bwd_kernel's tile of TM rows: info[4] =
 // {shared memory bytes per block, blocks per SM, registers per thread, local
 // (spill) bytes per thread}.
-template <int TM>
+template <int TM, bool kBf16 = false>
 int node_bwd_info(int* info) {
   cudaFuncAttributes fa;
-  int err = (int)cudaFuncSetAttribute(node_bwd_kernel<TM>,
+  int err = (int)cudaFuncSetAttribute(node_bwd_kernel<TM, kBf16>,
                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
                                       NodeBwdTile<TM>::kSmem);
-  if (!err) err = (int)cudaFuncGetAttributes(&fa, node_bwd_kernel<TM>);
+  if (!err) err = (int)cudaFuncGetAttributes(&fa, node_bwd_kernel<TM, kBf16>);
   if (!err)
-    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], node_bwd_kernel<TM>,
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], node_bwd_kernel<TM, kBf16>,
                                                              kThreads, NodeBwdTile<TM>::kSmem);
   if (err) return err;
   info[0] = NodeBwdTile<TM>::kSmem + (int)fa.sharedSizeBytes;

@@ -161,12 +161,13 @@ __host__ __device__ constexpr int bwd_smem(int K, bool h2x) {
 
 // Both second layers of a pass times kWScale as mma B fragments in global
 // memory (stage_frags' layout): wk [kKSteps][kNTiles][32], wv
-// [kKSteps][V / 8][32].
+// [kKSteps][V / 8][32]. kBf16: bf16 fragments of the bf16 weights.
+template <bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads)
 stage_w2_kernel(PassParams p, int V, uint4* __restrict__ wk, uint4* __restrict__ wv) {
   const int t = blockIdx.x * kThreads + threadIdx.x, n = gridDim.x * kThreads;
-  stage_frags(wk, p.w2k, H, kNTiles, t, n);
-  stage_frags(wv, p.w2v, V, V / 8, t, n);
+  stage_frags<kBf16>(wk, weights<kBf16>(p.w2k), H, kNTiles, t, n);
+  stage_frags<kBf16>(wv, weights<kBf16>(p.w2v), V, V / 8, t, n);
 }
 
 // B fragment (b0 hi, b1 hi, b0 lo, b1 lo; TF32, split_tf32) of k-step ks,
@@ -194,6 +195,29 @@ stage_rbf_kernel(const float* __restrict__ w_rbf, uint4* __restrict__ frags) {
                       u / 32 % kDrbfNTiles, u % 32);
 }
 
+// The bf16 d rbf product (drbf_chunk<true>): 16-deep k-steps of m16n8k16.
+constexpr int kDrbfKSteps16 = H2 / 16;
+constexpr int kRbfFrags16 = 2 * kDrbfKSteps16 * kDrbfNTiles * 32;
+static_assert(kRbfFrags16 <= kRbfFrags && kDrbfKSteps16 % kWarps == 0, "bf16 d rbf tiling");
+
+// stage_rbf_kernel's bf16 form, from the bf16 w_rbf: frags[((ta *
+// kDrbfKSteps16 + ks) * kDrbfNTiles + nt) * 32 + lane] = (b0, b1, 0, 0),
+// bf16 pairs, b0 = (B[16 ks + 2 tig][8 nt + g], B[16 ks + 2 tig + 1][..]),
+// b1 the same 8 rows down, B[k][j] = w_rbf[j < R ? ta : ta + 2][j % R][k].
+__global__ void __launch_bounds__(kThreads)
+stage_rbf16_kernel(const __nv_bfloat16* __restrict__ w_rbf, uint4* __restrict__ frags) {
+  const int u = blockIdx.x * kThreads + threadIdx.x;
+  if (u >= kRbfFrags16) return;
+  const int per_kind = kDrbfKSteps16 * kDrbfNTiles * 32;
+  const int ta = u / per_kind, ks = u % per_kind / (kDrbfNTiles * 32);
+  const int nt = u / 32 % kDrbfNTiles, lane = u % 32;
+  const int j = 8 * nt + (lane >> 2);
+  const __nv_bfloat16* w =
+      w_rbf + ((j < R ? ta : ta + 2) * R + j % R) * H2 + 16 * ks + 2 * (lane & 3);
+  frags[u] = make_uint4(bf16_pair(wload(w), wload(w + 1)), bf16_pair(wload(w + 8), wload(w + 9)),
+                        0u, 0u);
+}
+
 // The d rbf product's B fragment of (ks, nt) for the row's kind ta, as staged.
 __device__ __forceinline__ uint4 drbf_frag(const uint4* frags, const float* w_rbf, int ta, int ks,
                                            int nt, int lane) {
@@ -212,6 +236,10 @@ __device__ __forceinline__ uint4 drbf_frag(const uint4* frags, const float* w_rb
 // [kWarps][KC][2R] and are summed in warp order, a fixed order. dz: the
 // third chunk buffer, row stride kLdd. Starts at a barrier (red may alias
 // what the block read before) and ends at one.
+// bf16 (kBf16): 16-deep k-steps, each one bf16 mma.sync.m16n8k16 on dz rounded
+// to bf16 and the bf16 table's fragments (stage_rbf16_kernel), accumulated in
+// the mma's float32 accumulator; the same partials and warp-order sum.
+template <bool kBf16 = false>
 __device__ __forceinline__ void drbf_chunk(float (*drbf)[R], float* red, const float (*dz)[kLdd],
                                            const uint4* frags, const float* w_rbf,
                                            const int* et, int ta, int n, int t) {
@@ -226,6 +254,30 @@ __device__ __forceinline__ void drbf_chunk(float (*drbf)[R], float* red, const f
     for (int nt = 0; nt < kDrbfNTiles; ++nt)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
+  if constexpr (kBf16) {
+    constexpr int kSteps16 = kDrbfKSteps16 / kWarps;
+#pragma unroll 1
+    for (int i = 0; i < kSteps16; ++i) {
+      const int ks = warp * kSteps16 + i;
+      uint2 b[kDrbfNTiles];
+#pragma unroll
+      for (int nt = 0; nt < kDrbfNTiles; ++nt) {
+        const uint4 f = frags[((ta * kDrbfKSteps16 + ks) * kDrbfNTiles + nt) * 32 + lane];
+        b[nt] = make_uint2(f.x, f.y);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        if (mt >= mts) continue;
+        // A: rows g, g + 8 x columns (2 tig, 2 tig + 1), the same + 8
+        const float* ar = &dz[16 * mt + g][16 * ks + 2 * tig];
+        const uint32_t a[4] = {bf16_pair(ar[0], ar[1]), bf16_pair(ar[8 * kLdd], ar[8 * kLdd + 1]),
+                               bf16_pair(ar[8], ar[9]),
+                               bf16_pair(ar[8 * kLdd + 8], ar[8 * kLdd + 9])};
+#pragma unroll
+        for (int nt = 0; nt < kDrbfNTiles; ++nt) mma_bf16(acc[mt][nt], a, b[nt].x, b[nt].y);
+      }
+    }
+  } else {
   // one k-step at a time: unrolled, the B fragments in flight spilled (PERF.md)
 #pragma unroll 1
   for (int i = 0; i < kSteps; ++i) {
@@ -253,6 +305,7 @@ __device__ __forceinline__ void drbf_chunk(float (*drbf)[R], float* red, const f
         for (int c = 0; c < 4; ++c) acc[mt][nt][c] += d[c];
       }
     }
+  }
   }
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
@@ -289,8 +342,9 @@ __device__ __forceinline__ void drbf_chunk(float (*drbf)[R], float* red, const f
 // stride kLdc) to each channel's thread (every thread's out is written: a
 // thread past the computed halves gets stale words it does not read) and stay
 // in buf, out[e] = buf[e * kLdc + t], until the block writes buf again. Every
-// sum has a fixed order.
-template <int V>
+// sum has a fixed order. kBf16: bf16 pairs and one bf16 product per term on
+// bf16 fragments (stage_w2_kernel<true>), as the bf16 forward kernels.
+template <int V, bool kBf16 = false>
 __device__ __forceinline__ void second_layers(float (&out)[KC], const float (*a)[H2], float* buf,
                                               const uint4* wk, const uint4* wv,
                                               const PassParams& p, int halves, int t) {
@@ -301,7 +355,7 @@ __device__ __forceinline__ void second_layers(float (&out)[KC], const float (*a)
     float v[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) v[q] = a[e][half * H + lane + 32 * q];
-    store_split_row(reinterpret_cast<uint32_t*>(buf + pr * kLdz), v, lane);
+    store_split_row<kBf16>(reinterpret_cast<uint32_t*>(buf + pr * kLdz), v, lane);
   }
   __syncthreads();
   const int half = warp >> 2, qd = warp & 3;
@@ -321,8 +375,8 @@ __device__ __forceinline__ void second_layers(float (&out)[KC], const float (*a)
       }
     }
     const float* as = buf + half * KC * kLdz;
-    if (half) tile_mma<kVT>(acc, as, wv + 4 * qd * 32, V / 8, lane);
-    else tile_mma(acc, as, wk + 4 * qd * 32, kNTiles, lane);
+    if (half) tile_mma<kVT, kBf16>(acc, as, wv + 4 * qd * 32, V / 8, lane);
+    else tile_mma<4, kBf16>(acc, as, wk + 4 * qd * 32, kNTiles, lane);
   }
   __syncthreads();  // every tile has read the split activations
   if (mine) {
@@ -345,7 +399,14 @@ __device__ __forceinline__ void second_layers(float (&out)[KC], const float (*a)
   __syncthreads();  // every thread has its out
 }
 
-template <bool kH2X>
+// kBf16: the VJP of the bf16 forward kernels (JAX's bf16 training variant,
+// targetdiff_tpu/ops/pallas/edge_layer_vjp.py _cdot / _cdotg): its recompute
+// is the bf16 forward (edge_chunk<true>, second_layers<V, true>), and the
+// transposed second layers and d rbf take bf16 operands (d and W2^T rounded,
+// dz and the bf16 table), summed in float32; LayerNorm, softmax, the
+// geometry and every sum over edges stay float32, d dist from the float32
+// RBF features.
+template <bool kH2X, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
   constexpr int V = kH2X ? NH : H;
   constexpr int W = row_width(V);
@@ -387,11 +448,11 @@ __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
   bool live0 = false;
   for (int c = 0; c < nchunk; ++c) {
     const int e0 = c * KC;
-    const bool live = edge_chunk(s_g, s_a, s_zh, s_rstd, a.in, p, b, bn, N, K, e0, t);
+    const bool live = edge_chunk<kBf16>(s_g, s_a, s_zh, s_rstd, a.in, p, b, bn, N, K, e0, t);
     if (c == 0) live0 = live;
     if (t < KC) s_w[e0 + t] = s_g.w[t];
     if (live) {
-      second_layers<V>(acc, s_a, s_buf, a.w2kf, a.w2vf, p, 2, t);
+      second_layers<V, kBf16>(acc, s_a, s_buf, a.w2kf, a.w2vf, p, 2, t);
       if (is_k) {
         head_logits(acc, qc, s_g.valid, s_alpha + e0, cc);
       } else if (!kH2X) {  // value channel cc, warps 4-7; heads are 8-lane groups
@@ -453,8 +514,8 @@ __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
     const long long ec = eb + e0;  // the chunk's first pass-local edge
     bool live = live0;
     if (nchunk > 1) {
-      live = edge_chunk(s_g, s_a, s_zh, s_rstd, a.in, p, b, bn, N, K, e0, t);
-      if (live) second_layers<V>(acc, s_a, s_buf, a.w2kf, a.w2vf, p, 1, t);
+      live = edge_chunk<kBf16>(s_g, s_a, s_zh, s_rstd, a.in, p, b, bn, N, K, e0, t);
+      if (live) second_layers<V, kBf16>(acc, s_a, s_buf, a.w2kf, a.w2vf, p, 1, t);
     }
     if (!live) {  // zero gradient: zero rows for the products below
       for (int u = t; u < n * H2; u += kThreads) {
@@ -503,11 +564,23 @@ __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
     __syncthreads();
 
     // second layers backward: da = d @ W2^T
+    if constexpr (kBf16) {
+      // d's bias gradient in float32, then d rounded to bf16 in place (the
+      // product's operand; its weight gradient rounds it alike)
+      if (t < H + V) {
+        float s = 0.f;
+        for (int e = 0; e < n; ++e) s += s_d[e][t];
+        rb[off_db2() + t] += s;
+#pragma unroll 4
+        for (int e = 0; e < KC; ++e) s_d[e][t] = round_bf16(s_d[e][t]);
+      }
+      __syncthreads();
+    }
     for (int u = t; u < n * (H + V); u += kThreads) {
       const int e = u / (H + V), cl = u % (H + V);
       a.dKV[(ec + e) * (H + V) + cl] = s_d[e][cl];
     }
-    if (t < H + V) {
+    if (!kBf16 && t < H + V) {
       float s = 0.f;
       for (int e = 0; e < n; ++e) s += s_d[e][t];
       rb[off_db2() + t] += s;
@@ -520,8 +593,14 @@ __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
 #pragma unroll
       for (int e = 0; e < KC; ++e) acc[e] = 0.f;
       for (int cl = 0; cl < C; cl += 4) {
-        const float w0 = WT[(cl + 0) * H + m], w1 = WT[(cl + 1) * H + m],
-                    w2 = WT[(cl + 2) * H + m], w3 = WT[(cl + 3) * H + m];
+        float w0 = WT[(cl + 0) * H + m], w1 = WT[(cl + 1) * H + m],
+              w2 = WT[(cl + 2) * H + m], w3 = WT[(cl + 3) * H + m];
+        if constexpr (kBf16) {
+          w0 = round_bf16(w0);
+          w1 = round_bf16(w1);
+          w2 = round_bf16(w2);
+          w3 = round_bf16(w3);
+        }
 #pragma unroll
         for (int e = 0; e < KC; ++e) {
           const float4 d4 = *reinterpret_cast<const float4*>(&s_d[e][doff + cl]);
@@ -585,7 +664,7 @@ __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
       a.F[(ec + e) * FE + f] = v;
     }
     // d rbf on the tensor cores; its partials take the free s_a and s_zh
-    drbf_chunk(s_drbf, &s_a[0][0], s_d, a.rbff, p.w_rbf, s_g.et, ta, n, t);
+    drbf_chunk<kBf16>(s_drbf, &s_a[0][0], s_d, a.rbff, p.w_rbf, s_g.et, ta, n, t);
 
     // geometry: d dist -> d rel (x_dst gets +, x_src gets - in gather_kernel)
     if (t < KC) {
@@ -594,8 +673,15 @@ __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
         const float dist = s_g.dist[t];
         float dd = 0.f;
 #pragma unroll
-        for (int r = 0; r < R; ++r)
-          dd += s_drbf[t][r] * 2.f * a.in.coeff * (dist - a.in.offsets[r]) * s_g.rbf[t][r];
+        for (int r = 0; r < R; ++r) {
+          if constexpr (kBf16) {
+            // s_g.rbf holds the rounded features; d dist takes the float32 ones
+            const float d = dist - a.in.offsets[r];
+            dd += s_drbf[t][r] * 2.f * a.in.coeff * d * expf(a.in.coeff * d * d);
+          } else {
+            dd += s_drbf[t][r] * 2.f * a.in.coeff * (dist - a.in.offsets[r]) * s_g.rbf[t][r];
+          }
+        }
         const float f = dd / fmaxf(dist, 1e-16f);
 #pragma unroll
         for (int k3 = 0; k3 < 3; ++k3) {
@@ -869,7 +955,10 @@ void carve(float* w, int* iw, long long B, long long N, long long K, long long n
   *ints = io;
 }
 
-template <bool kH2X>
+// kBf16: the bf16 instantiations (p's product weights bf16, pt float32 and
+// rounded where they are read); the gather, the column sums, the reductions
+// and the adjacency are shared.
+template <bool kH2X, bool kBf16 = false>
 int run_pass(const float* h, const EdgeInputs& in0, const PassParams& p, const PassT& pt,
              const PassGrads& g, int B, int N, int K, int row0, const int* off, const int* list,
              float* dh, float* dx, float* dew, const Workspace& ws, cudaStream_t s) {
@@ -879,11 +968,17 @@ int run_pass(const float* h, const EdgeInputs& in0, const PassParams& p, const P
   const long long Ep = (long long)B * (N - row0) * K;
   int err = (int)cudaMemsetAsync(ws.rowbuf, 0, BN * W * sizeof(float), s);
   if (err) return err;
-  if ((err = launch_node(h, 1, (int)BN, 0, p, ws.ni, ws.nj, ws.q, ws.q1, s))) return err;
+  if ((err = launch_node<kBf16>(h, 1, (int)BN, 0, p, ws.ni, ws.nj, ws.q, ws.q1, s))) return err;
 
-  stage_w2_kernel<<<kW2Frags / kThreads, kThreads, 0, s>>>(p, V, ws.w2f, ws.w2f + kW2Frags);
+  stage_w2_kernel<kBf16><<<kW2Frags / kThreads, kThreads, 0, s>>>(p, V, ws.w2f,
+                                                                  ws.w2f + kW2Frags);
   if ((err = (int)cudaGetLastError())) return err;
-  stage_rbf_kernel<<<(kRbfFrags + kThreads - 1) / kThreads, kThreads, 0, s>>>(p.w_rbf, ws.rbff);
+  if constexpr (kBf16)
+    stage_rbf16_kernel<<<(kRbfFrags16 + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        reinterpret_cast<const __nv_bfloat16*>(p.w_rbf), ws.rbff);
+  else
+    stage_rbf_kernel<<<(kRbfFrags + kThreads - 1) / kThreads, kThreads, 0, s>>>(p.w_rbf,
+                                                                                ws.rbff);
   if ((err = (int)cudaGetLastError())) return err;
 
   EdgeInputs in = in0;
@@ -893,15 +988,15 @@ int run_pass(const float* h, const EdgeInputs& in0, const PassParams& p, const P
                 ws.F, ws.drel, ws.w2f, ws.w2f + kW2Frags, ws.rbff};
   // the largest dynamic shared memory any K takes, set once per process (one device)
   static const int attr = (int)cudaFuncSetAttribute(
-      edge_bwd_kernel<kH2X>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      edge_bwd_kernel<kH2X, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bwd_smem(kMaxLayerK, kH2X));
   if (attr) return attr;
-  edge_bwd_kernel<kH2X><<<dim3(N - row0, B), kThreads, bwd_smem(K, kH2X), s>>>(a);
+  edge_bwd_kernel<kH2X, kBf16><<<dim3(N - row0, B), kThreads, bwd_smem(K, kH2X), s>>>(a);
   if ((err = (int)cudaGetLastError())) return err;
   gather_kernel<<<dim3(N, B), kThreads, 0, s>>>(off, list, N, K, N - row0, ws.dZ, ws.drel,
                                                 ws.rowbuf, W, dx);
   if ((err = (int)cudaGetLastError())) return err;
-  err = launch_node_bwd(ws.q1, p.q_ln, pt.w_q2T, pt.w_nodeT, BN, W, off_dq(V), off_qln(V),
+  err = launch_node_bwd<kBf16>(ws.q1, p.q_ln, pt.w_q2T, pt.w_nodeT, BN, W, off_dq(V), off_qln(V),
                         ws.rowbuf, ws.qa, dh, s);
   if (err) return err;
 
@@ -917,7 +1012,8 @@ int run_pass(const float* h, const EdgeInputs& in0, const PassParams& p, const P
                   {h, ws.rowbuf, H, W, BN, H, H5, g.w_node},
                   {ws.qa, ws.rowbuf + off_dq(V), H, W, BN, H, H, g.w_q2}};
   for (const auto& pr : products) {
-    err = weight_grad(pr.X, pr.ldx, pr.Y, pr.ldy, pr.M, pr.P, pr.Q, pr.out, ws.partial, s);
+    err = weight_grad<kBf16>(pr.X, pr.ldx, pr.Y, pr.ldy, pr.M, pr.P, pr.Q, pr.out, ws.partial,
+                             s);
     if (err) return err;
   }
   if ((err = colsum(ws.rowbuf, W, BN, W, ws.vec, ws.partial, s))) return err;

@@ -42,9 +42,17 @@
 //
 // Alignment: every operand base and leading dimension, P and Q, must be a
 // multiple of 16 bytes (4 floats); weight_grad refuses anything else.
+//
+// bf16 (kBf16, the bf16 training variant: edge_layer_vjp.py _cdotg at
+// cd=bf16): the same tiles, ring and chunks, X and Y rounded to bf16 where
+// their fragments are formed, each 16-row k-step one bf16
+// mma.sync.m16n8k16 accumulated in the mma's float32 accumulator (bf16
+// keeps float32's exponent: no range to lose), and the same fixed-order
+// reduce_kernel flush.
 #pragma once
 
 #include "block_common.cuh"
+#include "tc_common.cuh"
 
 namespace {
 
@@ -114,6 +122,35 @@ __device__ __forceinline__ void wg_stage(float* s, const float* __restrict__ X, 
   }
 }
 
+// One 16-row k-step of a warp's tiles in bf16: acc[i][j] += A B, A = X^T and
+// B = Y rounded to bf16 (rows k0 + 2 tig, + 1 and those 8 rows down).
+template <bool kFull>
+__device__ __forceinline__ void wg_kstep_bf16(float (&acc)[kWgMT][kWgNT][4], const float* sx,
+                                              const float* sy, int k0, int tig, int mt, int nt) {
+  const float* xr = sx + (k0 + 2 * tig) * kWgLd;
+  const float* yr = sy + (k0 + 2 * tig) * kWgLd;
+  uint32_t b[kWgNT][2];  // B (k x n): rows (2 tig, 2 tig + 1), (2 tig + 8, 2 tig + 9) of column gid
+#pragma unroll
+  for (int j = 0; j < kWgNT; ++j) {
+    b[j][0] = bf16_pair(yr[j * 8], yr[kWgLd + j * 8]);
+    b[j][1] = bf16_pair(yr[8 * kWgLd + j * 8], yr[9 * kWgLd + j * 8]);
+  }
+#pragma unroll
+  for (int i = 0; i < kWgMT; ++i) {
+    if (!kFull && i >= mt) break;
+    // A = X^T (m x k): rows gid, gid + 8 x columns (2 tig, 2 tig + 1), the same + 8
+    const uint32_t a[4] = {bf16_pair(xr[i * 16], xr[kWgLd + i * 16]),
+                           bf16_pair(xr[i * 16 + 8], xr[kWgLd + i * 16 + 8]),
+                           bf16_pair(xr[8 * kWgLd + i * 16], xr[9 * kWgLd + i * 16]),
+                           bf16_pair(xr[8 * kWgLd + i * 16 + 8], xr[9 * kWgLd + i * 16 + 8])};
+#pragma unroll
+    for (int j = 0; j < kWgNT; ++j) {
+      if (!kFull && j >= nt) break;
+      mma_bf16(acc[i][j], a, b[j][0], b[j][1]);
+    }
+  }
+}
+
 // One 8-row k-step of a warp's tiles: acc[i][j] += the three-term product
 // of its A = X^T and B = Y fragments, summed from zero first. kFull: every
 // m-tile and n-tile of the warp is live (no checks against mt, nt).
@@ -151,7 +188,8 @@ __device__ __forceinline__ void wg_kstep(float (&acc)[kWgMT][kWgNT][4], const fl
 }
 
 // partial[z] = X[rows of chunk z]^T Y[rows of chunk z] for the tile
-// (blockIdx.x, blockIdx.y) of the [P][Q] output.
+// (blockIdx.x, blockIdx.y) of the [P][Q] output; kBf16: bf16 products.
+template <bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 2)
 weight_grad_kernel(const float* __restrict__ X, int ldx, const float* __restrict__ Y, int ldy,
                    long long M, int P, int Q, long long chunk, float* __restrict__ partial) {
@@ -197,7 +235,16 @@ weight_grad_kernel(const float* __restrict__ X, int ldx, const float* __restrict
     const float* sx = smem + (kt % kWgStages) * kWgStageFloats + wp + gid;
     const float* sy = smem + (kt % kWgStages) * kWgStageFloats + kWgRows * kWgLd + wq +
                       gid;
-    if (mt == MT && nt == NT) {
+    if constexpr (kBf16) {
+      if (mt == MT && nt == NT) {
+#pragma unroll
+        for (int k0 = 0; k0 < kWgRows; k0 += 16) wg_kstep_bf16<true>(acc, sx, sy, k0, tig, mt, nt);
+      } else {
+#pragma unroll
+        for (int k0 = 0; k0 < kWgRows; k0 += 16)
+          wg_kstep_bf16<false>(acc, sx, sy, k0, tig, mt, nt);
+      }
+    } else if (mt == MT && nt == NT) {
 #pragma unroll
       for (int k0 = 0; k0 < kWgRows; k0 += 8) wg_kstep<true>(acc, sx, sy, k0, tig, mt, nt);
     } else {
@@ -257,7 +304,8 @@ bool aligned16(const void* p, int ld) {
   return ((uintptr_t)p & 15) == 0 && ld % 4 == 0;
 }
 
-// out [P][Q] = X^T Y; partial holds kPartialCap floats.
+// out [P][Q] = X^T Y; partial holds kPartialCap floats. kBf16: bf16 products.
+template <bool kBf16 = false>
 int weight_grad(const float* X, int ldx, const float* Y, int ldy, long long M, int P, int Q,
                 float* out, float* partial, cudaStream_t s) {
   if (M <= 0 || P <= 0 || Q <= 0 || P % 4 || Q % 4 || P > ldx || Q > ldy ||
@@ -266,12 +314,12 @@ int weight_grad(const float* X, int ldx, const float* Y, int ldy, long long M, i
     return (int)cudaErrorInvalidValue;
   // the dynamic shared memory of the ring, set once per process (one device)
   static const int attr = (int)cudaFuncSetAttribute(
-      weight_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+      weight_grad_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
   if (attr) return attr;
   const int tp = (P + kWgTile - 1) / kWgTile, tq = (Q + kWgTile - 1) / kWgTile;
   const long long chunk = wg_chunk_rows(M, (long long)tp * tq, (long long)P * Q);
   const long long S = (M + chunk - 1) / chunk;
-  weight_grad_kernel<<<dim3(tp, tq, (unsigned)S), kThreads, kWgSmem, s>>>(
+  weight_grad_kernel<kBf16><<<dim3(tp, tq, (unsigned)S), kThreads, kWgSmem, s>>>(
       X, ldx, Y, ldy, M, P, Q, chunk, partial);
   int err = (int)cudaGetLastError();
   if (err) return err;

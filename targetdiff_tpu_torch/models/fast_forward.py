@@ -8,9 +8,12 @@ graph is a kernel; the hybrid graph is plain PyTorch, as it is XLA in the
 JAX package. A block runs either on the whole-block kernels (K <= 32) or on
 the per-layer kernels, whose edge weights come from the eager edge-weight
 MLP. Unlike the JAX fast paths they neither sort protein rows nor skip
-tiles: every row of every layer is computed. `fast_forward` takes the
-products' precision, `dtype` (float32 by default here; the sampler's
-default is bf16, as in the JAX package); training is float32.
+tiles: every row of every layer is computed. Both take the products'
+precision, `dtype`, float32 by default here: the sampler's default is bf16,
+as in the JAX package, and `fast_train_forward(dtype=torch.bfloat16)` is
+its bf16 training variant (`get_diffusion_loss(impl='fast_bf16' |
+'fast_bf16_pl')`: bf16 products in both directions, the edge-weight MLP,
+the activations between layers and every gradient float32).
 """
 
 from __future__ import annotations
@@ -154,15 +157,20 @@ def fast_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos, ligan
 
 
 def fast_train_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v,
-                       ligand_mask, whole_block_bwd: bool = True) -> Dict[str, torch.Tensor]:
+                       ligand_mask, whole_block_bwd: bool = True,
+                       dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """Differentiable kernel-backed forward (training). The embeddings, the
     graph (integer indices, no gradient), the eager global edge-weight MLP
     and the v_inference head surround the attention layers.
     whole_block_bwd=True runs each block as `block_layers_trainable`, whose
     backward is the block-VJP kernel; False runs the per-layer trainables
     (forward and backward per-layer kernels), as does a graph wider than the
-    block kernels take (K > 32), with a warning. Returns pred_ligand_pos,
+    block kernels take (K > 32), with a warning. dtype: the attention
+    layers' products in both directions (targetdiff_tpu/models/
+    fast_forward.py fast_train_forward's dtype); the edge-weight MLP stays
+    float32 and autograd-differentiated in both. Returns pred_ligand_pos,
     pred_ligand_v, final_ligand_h (padded ligand rows zero) and final_h."""
+    check_dtype(dtype)
     require_kernels(net.config)
     h, x, node_mask, mask_ligand = net.embed(
         protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v, ligand_mask)
@@ -177,9 +185,10 @@ def fast_train_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos,
         nbh = _graph(rn, x.detach(), node_mask, mask_ligand)
         e_w = rn.edge_weights(x, nbh)[..., 0]
         if whole_block_bwd:
-            h, x = block_layers_trainable(rn, h, x, nbh, mask_ligand, e_w, n_ligand=n_ligand)
+            h, x = block_layers_trainable(rn, h, x, nbh, mask_ligand, e_w, n_ligand=n_ligand,
+                                          dtype=dtype)
             continue
         for layer in rn.base_block:
-            h = x2h_layer_trainable(layer, h, x, nbh, mask_ligand, e_w)
-            x = h2x_layer_trainable(layer, h, x, nbh, mask_ligand, e_w, n_ligand)
+            h = x2h_layer_trainable(layer, h, x, nbh, mask_ligand, e_w, dtype)
+            x = h2x_layer_trainable(layer, h, x, nbh, mask_ligand, e_w, n_ligand, dtype)
     return net.head(h, x, ligand_mask, protein_pos.shape[1])

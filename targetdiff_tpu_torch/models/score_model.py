@@ -14,8 +14,10 @@ noise as arguments, and `sample_diffusion` loops over the jumps of
 Precision, as the JAX package: `fast_apply`, `sample_step` and
 `sample_diffusion` take `dtype`, the kernels' products, torch.bfloat16 by
 default (the JAX package's sampling default) or torch.float32; impl='eager'
-ignores it. `likelihood_estimation`, `fetch_embedding` and training run in
-float32 whatever the sampler's default.
+ignores it. `likelihood_estimation` and `fetch_embedding` run in float32
+whatever the sampler's default; training is float32 unless
+`get_diffusion_loss` is given impl='fast_bf16' or 'fast_bf16_pl' (the JAX
+package's bf16 training variant).
 """
 
 from __future__ import annotations
@@ -39,6 +41,10 @@ from .egnn import EGNN
 from .fast_forward import (eager_supported, fast_forward, fast_train_forward, require_kernels,
                            resolve_impl)
 from .uni_transformer import UniTransformerO2TwoUpdateGeneral
+
+# get_diffusion_loss's denoiser paths: float32 ('fast', 'fast_pl', 'eager')
+# and the bf16 training variant of the first two (JAX's names)
+TRAIN_IMPLS = ("fast", "fast_pl", "eager", "fast_bf16", "fast_bf16_pl")
 
 
 def build_refine_net(config: Config, max_ligand: int) -> nn.Module:
@@ -195,10 +201,15 @@ class DiffusionModel:
         differentiable kernels with the whole-block backward
         (fast_train_forward), impl='fast_pl' through the per-layer kernels and
         their backwards, impl='eager' through ScorePosNet.forward; None
-        takes `self.impl`."""
+        takes `self.impl`. 'fast_bf16' and 'fast_bf16_pl' (the JAX names)
+        are the bf16 training variant of 'fast' and 'fast_pl': the attention
+        layers' products bf16 in both directions, float32 accumulation,
+        parameters and gradients float32 (fast_train_forward(dtype=
+        torch.bfloat16)); the other three are float32."""
         impl = impl or self.impl
-        if impl not in ("fast", "fast_pl", "eager"):
-            raise ValueError(f"impl must be 'fast', 'fast_pl' or 'eager', got {impl!r}")
+        if impl not in TRAIN_IMPLS:
+            raise ValueError(f"impl must be one of {', '.join(map(repr, TRAIN_IMPLS))}, "
+                             f"got {impl!r}")
         B, dev = batch.num_graphs, batch.device
         lmask = batch.ligand_mask
         protein_pos, ligand_pos, _ = D.center_pos_protein(
@@ -223,7 +234,9 @@ class DiffusionModel:
             preds = fast_train_forward(self.net, cbatch.protein_pos, cbatch.protein_feat,
                                        cbatch.protein_mask, ligand_pos_perturbed,
                                        ligand_v_perturbed, lmask,
-                                       whole_block_bwd=impl == "fast")
+                                       whole_block_bwd=not impl.endswith("_pl"),
+                                       dtype=torch.bfloat16 if "bf16" in impl
+                                       else torch.float32)
         pred_ligand_pos, pred_ligand_v = preds["pred_ligand_pos"], preds["pred_ligand_v"]
         pred_pos_noise = pred_ligand_pos - ligand_pos_perturbed
 

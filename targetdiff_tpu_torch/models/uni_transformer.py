@@ -11,7 +11,10 @@ h2x sub-layers with the edge weights given are the plain versions of the
 per-layer kernels (ops/kernels/edge_layer.py). Each takes `dtype`:
 torch.bfloat16 is the plain version of the bf16 kernels, every dense
 product's operands rounded to bf16 and multiplied in float32
-(ops/precision.py); torch.float32 (the default) is unchanged.
+(ops/precision.py); torch.float32 (the default) is unchanged. Under autograd
+the bf16 products are `precision.Bf16Linear` (bf16 operands backward too),
+the plain version of the bf16 backward kernels (JAX's bf16 training
+variant).
 """
 
 from __future__ import annotations
@@ -170,8 +173,9 @@ class UniTransformerO2TwoUpdateGeneral(nn.Module):
                       fix_x: bool = False, dtype=torch.float32):
         """All layers of one block on a given neighborhood; the plain version
         of the block-denoiser kernel (of its bf16 kernels with dtype=
-        torch.bfloat16). With e_w [B,N,K] given (train mode,
-        computed outside by `edge_weights`), the block uses it as it is.
+        torch.bfloat16; differentiated, of the bf16 backward kernel). With
+        e_w [B,N,K] given (train mode, computed outside by the float32
+        `edge_weights`), the block uses it as it is.
         fix_x=True keeps x as given (the embedding export); edge types keep
         the protein / ligand split of mask_ligand. Returns (h, x)."""
         edge_attr = G.edge_types(nbh, mask_ligand)

@@ -28,7 +28,9 @@ accumulation per product). Their product weights are packed as bf16 tensors
 (`pack_block_params(..., dtype)`; biases and LayerNorm stay float32), and
 the stacks' dtype says which kernels a pack is for. Their plain version is
 the module's `block_forward(..., dtype=torch.bfloat16)`. bf16 launches are
-counted apart (the `BF16_*` counts).
+counted apart (the `BF16_*` counts). The train mode has a bf16 entry too
+(`block_denoiser_train_cuda(..., dtype=torch.bfloat16)`, the forward of the
+bf16 training variant): its checkpoints stay float32.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ from ..rbf import gaussian_smearing_offsets
 from . import build
 
 LAUNCHES = 0  # block_denoiser calls that launched the kernels since the last reset
-TRAIN_LAUNCHES = 0  # block_denoiser_train_cuda launches since the last reset
+TRAIN_LAUNCHES = 0  # float32 block_denoiser_train_cuda launches since the last reset
+BF16_TRAIN_LAUNCHES = 0  # the same of the bf16 train-mode entry
 EW_LAUNCHES = 0  # edge-weight kernel launches since the last reset
 X2H_PASS_LAUNCHES = 0  # block_denoiser_cuda's x2h edge launches since the last reset
 H2X_PASS_LAUNCHES = 0  # block_denoiser_cuda's h2x edge launches since the last reset
@@ -129,8 +132,14 @@ def _pack_pass(layers, prefix: str, dtype=torch.float32) -> dict:
         out["b2k"].append(mk[3].bias)
         out["w2v"].append(mv[3].weight.t())
         out["b2v"].append(mv[3].bias)
-    return {k: torch.stack(v).to(dtype if k in WEIGHT_FIELDS else torch.float32).contiguous()
-            for k, v in out.items()}
+    return cast_pack({k: torch.stack(v).contiguous() for k, v in out.items()}, dtype)
+
+
+def cast_pack(stacks: dict, dtype) -> dict:
+    """One pass's stacks for the kernels of `dtype`: the WEIGHT_FIELDS in
+    `dtype`, the rest float32."""
+    check_dtype(dtype)
+    return {k: v.to(dtype if k in WEIGHT_FIELDS else torch.float32) for k, v in stacks.items()}
 
 
 def pack_pass_params(refine_net, dtype=torch.float32):
@@ -190,7 +199,8 @@ def _entries():
                                vp, vp, vp, vp],
     }
     sigs.update({entry(name, torch.bfloat16): sigs[name] for name in (
-        "td_block_ew", "td_block_node", "td_block_node_rows", "td_block_x2h", "td_block_h2x")})
+        "td_block_ew", "td_block_node", "td_block_node_rows", "td_block_x2h", "td_block_h2x",
+        "td_block_train_fwd")})
     fns = {}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -400,32 +410,36 @@ def edge_weights_cuda(x, nbh: G.Neighborhood, packed: PackedBlock):
 
 
 @torch.no_grad()
-def block_denoiser_train_plain(refine_net, h, x, nbh, mask_ligand, e_w):
-    """The plain version of the train-mode kernels (eager layers, any
-    device), with their outputs: the checkpoints hck [L+1,B,N,H] and xck
+def block_denoiser_train_plain(refine_net, h, x, nbh, mask_ligand, e_w, dtype=torch.float32):
+    """The plain version of the train-mode kernels of `dtype` (eager layers,
+    any device), with their outputs: the checkpoints hck [L+1,B,N,H] and xck
     [L+1,B,N,3], slot 0 the input and slot l + 1 the output of layer l."""
     edge_attr = G.edge_types(nbh, mask_ligand)
     hs, xs = [h], [x]
     for layer in refine_net.base_block:
-        h, x = layer(h, x, edge_attr, nbh, mask_ligand, e_w[..., None])
+        h, x = layer(h, x, edge_attr, nbh, mask_ligand, e_w[..., None], dtype=dtype)
         hs.append(h)
         xs.append(x)
     return torch.stack(hs), torch.stack(xs)
 
 
-def block_denoiser_train_cuda(refine_net, h, x, nbh, mask_ligand, e_w, n_ligand, x2h, h2x):
+def block_denoiser_train_cuda(refine_net, h, x, nbh, mask_ligand, e_w, n_ligand, x2h, h2x,
+                              dtype=torch.float32):
     """Train-mode forward of all layers of one block with the edge weights
-    e_w [B,N,K] given; x2h / h2x are `pack_pass_params` stacks. Returns the
-    checkpoints hck [L+1,B,N,H] and xck [L+1,B,N,3] (the block's output is
-    slot L). No autograd graph: ops/kernels/block_vjp.py differentiates it."""
-    global TRAIN_LAUNCHES
+    e_w [B,N,K] given; x2h / h2x are `pack_pass_params` stacks for the
+    kernels of `dtype` (bf16: `cast_pack` of the float32 ones). Returns the
+    float32 checkpoints hck [L+1,B,N,H] and xck [L+1,B,N,3] (the block's
+    output is slot L). No autograd graph: ops/kernels/block_vjp.py
+    differentiates it."""
+    global TRAIN_LAUNCHES, BF16_TRAIN_LAUNCHES
     check_block_inputs(refine_net, h, x, nbh, mask_ligand, n_ligand)
     B, N, H = h.shape
     K = nbh.idx.shape[-1]
     if e_w.shape != (B, N, K) or e_w.dtype != torch.float32 or e_w.device != h.device:
         raise ValueError(f"e_w must be float32 [B,N,K] on {h.device}")
     L = x2h["w_node"].shape[0]
-    require_pack(x2h["w_node"].dtype, torch.float32, "the train-mode kernels' weights")
+    require_pack(x2h["w_node"].dtype, dtype, "the train-mode kernels' weights")
+    require_pack(h2x["w_node"].dtype, dtype, "the train-mode kernels' weights")
     if x2h["w_node"].device != h.device:
         raise ValueError(f"packed weights are on {x2h['w_node'].device}, h on {h.device}")
     dev = h.device
@@ -440,10 +454,14 @@ def block_denoiser_train_cuda(refine_net, h, x, nbh, mask_ligand, e_w, n_ligand,
     q = torch.empty((B * N, H), dtype=torch.float32, device=dev)
     x2h_p = (_PassParams * L)(*_pass_structs(x2h, L))
     h2x_p = (_PassParams * L)(*_pass_structs(h2x, L))
-    build.check(_entries()["td_block_train_fwd"](
+    name = entry("td_block_train_fwd", dtype)
+    build.check(_entries()[name](
         h0.data_ptr(), x0.data_ptr(), idx.data_ptr(), nmask.data_ptr(), mlig.data_ptr(),
         ew.data_ptr(), offsets.data_ptr(), coeff, x2h_p, h2x_p, L, B, N, K, n_ligand,
         ni.data_ptr(), nj.data_ptr(), q.data_ptr(), hck.data_ptr(), xck.data_ptr(),
-        build.stream_ptr(dev)), "td_block_train_fwd")
-    TRAIN_LAUNCHES += 1
+        build.stream_ptr(dev)), name)
+    if dtype == torch.bfloat16:
+        BF16_TRAIN_LAUNCHES += 1
+    else:
+        TRAIN_LAUNCHES += 1
     return hck, xck

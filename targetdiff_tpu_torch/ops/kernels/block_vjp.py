@@ -12,6 +12,18 @@ returns the gradients of h, x, e_w and of the packed weight stacks
 the nn.Parameters. For CPU tensors the plain version runs: the eager
 `block_forward` with the given e_w under ordinary autograd.
 
+`dtype=torch.bfloat16` is the JAX package's bf16 training variant
+(`get_diffusion_loss(impl='fast_bf16')`): the bf16 train-mode forward
+(td_block_train_fwd_bf16) and the bf16 backward (td_block_bwd_bf16), every
+dense product of both directions on bf16 operands with float32
+accumulation. `_BlockLayers` takes the float32 stacks as its differentiable
+inputs and makes the bf16 pack inside its forward, so the stacks'
+gradients come back float32 (a bf16 pack outside would have autograd cast
+every weight gradient to bf16). The CPU version is `block_forward(...,
+dtype=torch.bfloat16)` under autograd (ops/precision.py Bf16Linear). The
+kernels gather h and x natively: JAX's bf16 one-hot gathers and scatters and
+its hi|lo position split are TPU encodings, so those stay float32 here.
+
 `node_bwd_cuda` launches the backward's node kernel (csrc/node_bwd.cuh
 node_bwd_kernel, once per pass in run_pass) alone on a pass's row buffer,
 beside its plain version `node_bwd_plain`. `adjacency_cuda` builds the
@@ -29,13 +41,17 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from .. import graph as G
+from ..precision import check_dtype, round_bf16
 from ..rbf import FIXED_OFFSETS, gaussian_smearing_offsets
 from . import build, weight_grad
-from .block_denoiser import _PassParams, _pass_structs, block_denoiser_train_cuda, pack_pass_params
+from .block_denoiser import (_PassParams, _pass_structs, block_denoiser_train_cuda, cast_pack,
+                             entry, pack_pass_params, require_pack)
 
-LAUNCHES = 0  # backward kernel runs since the last reset
+LAUNCHES = 0  # float32 backward kernel runs since the last reset
 NODE_BWD_LAUNCHES = 0  # node_bwd_kernel launches since the last reset (one per pass)
 ADJ_LAUNCHES = 0  # inverse-adjacency builds (build_adjacency) since the last reset
+# the bf16 backward's runs and its node_bwd_kernel's launches
+BF16_LAUNCHES = BF16_NODE_BWD_LAUNCHES = 0
 
 FIELDS = [name for name, _ in _PassParams._fields_]
 R = len(FIXED_OFFSETS)
@@ -55,20 +71,23 @@ class _PassT(ctypes.Structure):
 
 
 def library_launch_counts() -> tuple:
-    """(node_bwd_kernel launches, inverse-adjacency builds) the library has
-    made in this process, as launch_node_bwd and build_adjacency count them
-    where they launch (td_node_bwd_launches, td_adj_builds)."""
-    return _node_bwd_entries()[2](), _adjacency_entries()[2]()
+    """(node_bwd_kernel launches, inverse-adjacency builds, bf16
+    node_bwd_kernel launches) the library has made in this process, as
+    launch_node_bwd and build_adjacency count them where they launch
+    (td_node_bwd_launches, td_adj_builds, td_node_bwd_bf16_launches)."""
+    _, node, node16 = _node_bwd_entries()
+    return node(), _adjacency_entries()[2](), node16()
 
 
 def count_library_launches(since: tuple) -> None:
     """Add the node_bwd_kernel launches and the adjacency builds made since
-    `library_launch_counts` read `since` to NODE_BWD_LAUNCHES and
-    ADJ_LAUNCHES."""
-    global NODE_BWD_LAUNCHES, ADJ_LAUNCHES
-    node, adj = library_launch_counts()
+    `library_launch_counts` read `since` to NODE_BWD_LAUNCHES, ADJ_LAUNCHES
+    and BF16_NODE_BWD_LAUNCHES."""
+    global NODE_BWD_LAUNCHES, ADJ_LAUNCHES, BF16_NODE_BWD_LAUNCHES
+    node, adj, node16 = library_launch_counts()
     NODE_BWD_LAUNCHES += node - since[0]
     ADJ_LAUNCHES += adj - since[1]
+    BF16_NODE_BWD_LAUNCHES += node16 - since[2]
 
 
 def row_layout(H: int, V: int) -> dict:
@@ -79,7 +98,7 @@ def row_layout(H: int, V: int) -> dict:
     return {"dq": 10 * H + V, "qln": 11 * H + V, "width": 13 * H + V}
 
 
-def node_bwd_plain(rowbuf, q1, dh, q_ln, w_q2T, w_nodeT, relu_mask=None):
+def node_bwd_plain(rowbuf, q1, dh, q_ln, w_q2T, w_nodeT, relu_mask=None, dtype=torch.float32):
     """node_bwd_kernel's function in plain PyTorch: from a pass's row buffer
     rowbuf [BN, W] (`row_layout`: dq and dproj[:, :4H]), the query MLP's
     first-layer output q1 [BN, H], its LayerNorm q_ln [2, H] and the
@@ -87,29 +106,34 @@ def node_bwd_plain(rowbuf, q1, dh, q_ln, w_q2T, w_nodeT, relu_mask=None):
     dq1 and the LayerNorm partials written, qa = relu(LN(q1)) [BN, H],
     dh + dproj w_node^T). relu_mask, if given, stands for the ReLU's y > 0: a
     float64 reference takes the float32 version's (qa > 0), so that entries
-    with y at zero's rounding distance do not flip."""
+    with y at zero's rounding distance do not flip. dtype=torch.bfloat16: the
+    bf16 kernel's version, both products' operands rounded to bf16."""
     H = q1.shape[-1]
+    r = round_bf16 if check_dtype(dtype) == torch.bfloat16 else (lambda t: t)
     lay = row_layout(H, rowbuf.shape[1] - 13 * H)
     mean = q1.mean(-1, keepdim=True)
     rstd = torch.rsqrt(((q1 - mean) ** 2).mean(-1, keepdim=True) + 1e-5)
     zh = (q1 - mean) * rstd
     y = zh * q_ln[0] + q_ln[1]
-    dy = (rowbuf[:, lay["dq"]:lay["dq"] + H] @ w_q2T) * (y > 0 if relu_mask is None else relu_mask)
+    dy = (r(rowbuf[:, lay["dq"]:lay["dq"] + H]) @ r(w_q2T)) * (
+        y > 0 if relu_mask is None else relu_mask)
     dzh = dy * q_ln[0]
     dq1 = rstd * (dzh - dzh.mean(-1, keepdim=True) - zh * (dzh * zh).mean(-1, keepdim=True))
     out = rowbuf.clone()
     out[:, 4 * H:5 * H] = dq1
     out[:, lay["qln"]:lay["qln"] + H] = dy * zh
     out[:, lay["qln"] + H:lay["qln"] + 2 * H] = dy
-    return out, torch.relu(y), dh + out[:, :5 * H] @ w_nodeT
+    return out, torch.relu(y), dh + r(out[:, :5 * H]) @ r(w_nodeT)
 
 
-def node_bwd_cuda(rowbuf, q1, dh, q_ln, w_q2T, w_nodeT, qa=None):
+def node_bwd_cuda(rowbuf, q1, dh, q_ln, w_q2T, w_nodeT, qa=None, dtype=torch.float32):
     """node_bwd_kernel alone (td_node_bwd), as run_pass launches it, on the
     arguments of `node_bwd_plain`: writes dq1 and the LayerNorm partials into
     rowbuf and adds dproj w_node^T to dh, both in place, and returns (rowbuf,
     qa, dh), qa written into `qa` if given. Float32 contiguous CUDA tensors
-    at the kernel's width H = 128, V = 128 (x2h) or 16 (h2x)."""
+    at the kernel's width H = 128, V = 128 (x2h) or 16 (h2x).
+    dtype=torch.bfloat16 launches the bf16 instantiation (td_node_bwd_bf16,
+    counted in BF16_NODE_BWD_LAUNCHES) on the same float32 arguments."""
     for name, t in (("rowbuf", rowbuf), ("q1", q1), ("dh", dh), ("q_ln", q_ln),
                     ("w_q2T", w_q2T), ("w_nodeT", w_nodeT)):
         build.require_cuda(t, name)
@@ -125,36 +149,43 @@ def node_bwd_cuda(rowbuf, q1, dh, q_ln, w_q2T, w_nodeT, qa=None):
     if qa is None:
         qa = torch.empty_like(q1)
     since = library_launch_counts()
-    build.check(_node_bwd_entries()[0](
+    build.check(_node_bwd_entries()[0][check_dtype(dtype)][0](
         q1.data_ptr(), q_ln.data_ptr(), w_q2T.data_ptr(), w_nodeT.data_ptr(), BN, W, lay["dq"],
         lay["qln"], rowbuf.data_ptr(), qa.data_ptr(), dh.data_ptr(),
-        build.stream_ptr(rowbuf.device)), "td_node_bwd")
+        build.stream_ptr(rowbuf.device)), entry("td_node_bwd", dtype))
     count_library_launches(since)
     return rowbuf, qa, dh
 
 
-def node_bwd_info(rows: int) -> dict:
-    """What the card makes of node_bwd_kernel for `rows` rows
+def node_bwd_info(rows: int, dtype=torch.float32) -> dict:
+    """What the card makes of node_bwd_kernel of `dtype` for `rows` rows
     (td_node_bwd_info): its tile's rows, shared memory per block, blocks per
     SM, registers and local (spill) bytes per thread."""
     info = (ctypes.c_int * 5)()
-    build.check(_node_bwd_entries()[1](rows, info), "td_node_bwd_info")
+    build.check(_node_bwd_entries()[0][check_dtype(dtype)][1](rows, info),
+                entry("td_node_bwd_info", dtype))
     return dict(zip(("tile_rows", "smem", "blocks_per_sm", "registers", "local_bytes"), info))
 
 
 @functools.lru_cache(maxsize=None)
 def _node_bwd_entries():
+    """({dtype: (td_node_bwd, td_node_bwd_info) of that instantiation},
+    td_node_bwd_launches, td_node_bwd_bf16_launches)."""
     lib = build.load_library()
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn = lib.td_node_bwd
-    fn.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, vp, vp, vp, vp]
-    fn.restype = ctypes.c_int
-    info = lib.td_node_bwd_info
-    info.argtypes = [i64, vp]
-    info.restype = ctypes.c_int
-    count = lib.td_node_bwd_launches
+    fns = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        fn = getattr(lib, entry("td_node_bwd", dtype))
+        fn.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, vp, vp, vp, vp]
+        fn.restype = ctypes.c_int
+        info = getattr(lib, entry("td_node_bwd_info", dtype))
+        info.argtypes = [i64, vp]
+        info.restype = ctypes.c_int
+        fns[dtype] = (fn, info)
+    count, count16 = lib.td_node_bwd_launches, lib.td_node_bwd_bf16_launches
     count.argtypes, count.restype = [], i64
-    return fn, info, count
+    count16.argtypes, count16.restype = [], i64
+    return fns, count, count16
 
 
 def adjacency_plain(idx, nmask, row0: int):
@@ -214,20 +245,21 @@ def _adjacency_entries():
     return fn, scratch, count
 
 
-def edge_bwd_info(K: int, h2x: bool) -> dict:
-    """What the card makes of the backward's edge kernel (csrc/pass_bwd.cuh
-    edge_bwd_kernel) for one pass of K neighbours (td_edge_bwd_info): its
-    shared memory per block, blocks per SM
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
-    (spill) bytes per thread."""
+def edge_bwd_info(K: int, h2x: bool, dtype=torch.float32) -> dict:
+    """What the card makes of the backward's edge kernel of `dtype`
+    (csrc/pass_bwd.cuh edge_bwd_kernel) for one pass of K neighbours
+    (td_edge_bwd_info, td_edge_bwd_info_bf16): its shared memory per block,
+    blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers
+    and local (spill) bytes per thread."""
     info = (ctypes.c_int * 4)()
-    build.check(_info_entry()(int(h2x), K, info), "td_edge_bwd_info")
+    name = entry("td_edge_bwd_info", dtype)
+    build.check(_info_entry(name)(int(h2x), K, info), name)
     return dict(zip(("smem", "blocks_per_sm", "registers", "local_bytes"), info))
 
 
 @functools.lru_cache(maxsize=None)
-def _info_entry():
-    fn = build.load_library().td_edge_bwd_info
+def _info_entry(name: str):
+    fn = getattr(build.load_library(), name)
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -240,13 +272,16 @@ def _entries():
     ws = lib.td_block_bwd_workspace
     ws.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i64), ctypes.POINTER(i64)]
     ws.restype = None
-    bwd = lib.td_block_bwd
-    bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, f32,
-                    ctypes.POINTER(_PassParams), ctypes.POINTER(_PassParams),
-                    ctypes.POINTER(_PassT), ctypes.POINTER(_PassT),
-                    ctypes.POINTER(_PassGrads), ctypes.POINTER(_PassGrads),
-                    i32, i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, i64, vp, i64, vp]
-    bwd.restype = ctypes.c_int
+    bwd = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        fn = getattr(lib, entry("td_block_bwd", dtype))
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, f32,
+                       ctypes.POINTER(_PassParams), ctypes.POINTER(_PassParams),
+                       ctypes.POINTER(_PassT), ctypes.POINTER(_PassT),
+                       ctypes.POINTER(_PassGrads), ctypes.POINTER(_PassGrads),
+                       i32, i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, i64, vp, i64, vp]
+        fn.restype = ctypes.c_int
+        bwd[dtype] = fn
     return ws, bwd
 
 
@@ -297,26 +332,34 @@ def _stage_entry():
 
 
 def block_layers_trainable(refine_net, h, x, nbh: G.Neighborhood, mask_ligand, e_w,
-                           n_ligand: int):
+                           n_ligand: int, dtype=torch.float32):
     """All layers of one block, differentiable. h [B,N,H], x [B,N,3], e_w
     [B,N,K] (the global edge weights, computed by the caller), ligand rows
-    the last `n_ligand` of N. Returns (h, x) after the block."""
+    the last `n_ligand` of N. dtype: the products' precision in both
+    directions, torch.float32 or torch.bfloat16 (h, x and every gradient
+    stay float32). Returns (h, x) after the block."""
+    check_dtype(dtype)
     if h.device.type == "cpu":
-        return refine_net.block_forward(h, x, nbh, mask_ligand, e_w=e_w)
+        return refine_net.block_forward(h, x, nbh, mask_ligand, e_w=e_w, dtype=dtype)
     x2h, h2x = pack_pass_params(refine_net)
     return _BlockLayers.apply(h, x, e_w, nbh.idx, nbh.mask, mask_ligand, refine_net, n_ligand,
-                              *[x2h[f] for f in FIELDS], *[h2x[f] for f in FIELDS])
+                              dtype, *[x2h[f] for f in FIELDS], *[h2x[f] for f in FIELDS])
 
 
 class _BlockLayers(torch.autograd.Function):
+    """The block on the kernels of `dtype`; its differentiable inputs are the
+    float32 stacks, the kernels' pack (`cast_pack`) is made here."""
+
     @staticmethod
-    def forward(ctx, h, x, e_w, idx, nmask, mlig, refine_net, n_ligand, *flat):
+    def forward(ctx, h, x, e_w, idx, nmask, mlig, refine_net, n_ligand, dtype, *flat):
         n = len(FIELDS)
-        x2h, h2x = dict(zip(FIELDS, flat[:n])), dict(zip(FIELDS, flat[n:]))
+        x2h = cast_pack(dict(zip(FIELDS, flat[:n])), dtype)
+        h2x = cast_pack(dict(zip(FIELDS, flat[n:])), dtype)
         hck, xck = block_denoiser_train_cuda(refine_net, h, x, G.Neighborhood(idx, nmask), mlig,
-                                             e_w, n_ligand, x2h, h2x)
-        ctx.save_for_backward(hck, xck, e_w, idx, nmask, mlig, *flat)
-        ctx.n_ligand = n_ligand
+                                             e_w, n_ligand, x2h, h2x, dtype)
+        ctx.save_for_backward(hck, xck, e_w, idx, nmask, mlig, *[x2h[f] for f in FIELDS],
+                              *[h2x[f] for f in FIELDS])
+        ctx.n_ligand, ctx.dtype = n_ligand, dtype
         return hck[-1].clone(), xck[-1].clone()
 
     @staticmethod
@@ -326,16 +369,18 @@ class _BlockLayers(torch.autograd.Function):
         n = len(FIELDS)
         x2h, h2x = dict(zip(FIELDS, flat[:n])), dict(zip(FIELDS, flat[n:]))
         dh0, dx0, dew, gx2h, gh2x = block_bwd_cuda(hck, xck, idx, nmask, mlig, e_w, ctx.n_ligand,
-                                                   x2h, h2x, gh, gx)
-        return (dh0, dx0, dew, None, None, None, None, None,
+                                                   x2h, h2x, gh, gx, ctx.dtype)
+        return (dh0, dx0, dew, None, None, None, None, None, None,
                 *[gx2h[f] for f in FIELDS], *[gh2x[f] for f in FIELDS])
 
 
 def _grad_stacks(stacks: dict):
-    """Gradient tensors shaped like one pass's stacks; w_rbf and w_et are
-    views of one [L, 4R+4, 2H] table, as the kernel writes them."""
+    """Float32 gradient tensors shaped like one pass's stacks (of either
+    dtype); w_rbf and w_et are views of one [L, 4R+4, 2H] table, as the
+    kernel writes them."""
     L, H2 = stacks["w_et"].shape[0], stacks["w_et"].shape[-1]
-    g = {f: torch.empty_like(stacks[f], memory_format=torch.contiguous_format) for f in FIELDS}
+    g = {f: torch.empty_like(stacks[f], dtype=torch.float32,
+                             memory_format=torch.contiguous_format) for f in FIELDS}
     tab = torch.empty((L, 4 * R + 4, H2), dtype=torch.float32, device=stacks["w_et"].device)
     g["w_rbf"] = tab[:, :4 * R].reshape(stacks["w_rbf"].shape)
     g["w_et"] = tab[:, 4 * R:]
@@ -349,16 +394,21 @@ def _grad_structs(g: dict, L: int):
 
 
 def _transposed(stacks: dict):
-    return {name: stacks[src].detach().transpose(1, 2).contiguous()
+    """The backward products' transposed weights, float32 (a bf16 pack's
+    exactly: its kernels round them where they read them)."""
+    return {name: stacks[src].detach().transpose(1, 2).float().contiguous()
             for name, src in (("w_nodeT", "w_node"), ("w_q2T", "w_q2"), ("w2kT", "w2k"),
                               ("w2vT", "w2v"))}
 
 
-def block_bwd_cuda(hck, xck, idx, nmask, mlig, e_w, n_ligand, x2h, h2x, gh, gx):
-    """The backward kernel. hck [L+1,B,N,H] and xck [L+1,B,N,3] are the
-    train-mode checkpoints, gh [B,N,H] / gx [B,N,3] the output cotangents.
-    Returns (dh0, dx0, de_w, x2h grads, h2x grads)."""
-    global LAUNCHES
+def block_bwd_cuda(hck, xck, idx, nmask, mlig, e_w, n_ligand, x2h, h2x, gh, gx,
+                   dtype=torch.float32):
+    """The backward kernel of `dtype`. hck [L+1,B,N,H] and xck [L+1,B,N,3]
+    are the train-mode checkpoints, gh [B,N,H] / gx [B,N,3] the output
+    cotangents, x2h / h2x the stacks packed for `dtype` (as the train-mode
+    forward took them). Returns (dh0, dx0, de_w, x2h grads, h2x grads), every
+    one float32."""
+    global LAUNCHES, BF16_LAUNCHES
     L1, B, N, H = hck.shape
     L, K = L1 - 1, idx.shape[-1]
     dev = hck.device
@@ -368,6 +418,8 @@ def block_bwd_cuda(hck, xck, idx, nmask, mlig, e_w, n_ligand, x2h, h2x, gh, gx):
     hck, xck = hck.contiguous(), xck.contiguous()
     if xck.shape != (L1, B, N, 3) or e_w.shape != (B, N, K) or idx.shape != (B, N, K):
         raise ValueError("checkpoints, e_w and idx disagree on their shapes")
+    require_pack(x2h["w_node"].dtype, dtype, "the backward's weights")
+    require_pack(h2x["w_node"].dtype, dtype, "the backward's weights")
     gh, gx = gh.float().contiguous(), gx.float().contiguous()
     ws_size, bwd = _entries()
     nf, ni = ctypes.c_longlong(), ctypes.c_longlong()
@@ -383,7 +435,8 @@ def block_bwd_cuda(hck, xck, idx, nmask, mlig, e_w, n_ligand, x2h, h2x, gh, gx):
     dew = torch.empty((B, N, K), dtype=torch.float32, device=dev)
     ewc, idxc, nmc, mlc = e_w.contiguous(), idx.contiguous(), nmask.contiguous(), mlig.contiguous()
     since = library_launch_counts()
-    build.check(bwd(
+    name = entry("td_block_bwd", dtype)
+    build.check(bwd[dtype](
         hck.data_ptr(), xck.data_ptr(), idxc.data_ptr(), nmc.data_ptr(), mlc.data_ptr(),
         ewc.data_ptr(), offsets.data_ptr(), coeff,
         arr(_PassParams, _pass_structs(x2h, L)), arr(_PassParams, _pass_structs(h2x, L)),
@@ -394,9 +447,12 @@ def block_bwd_cuda(hck, xck, idx, nmask, mlig, e_w, n_ligand, x2h, h2x, gh, gx):
         arr(_PassGrads, _grad_structs(gx2h, L)), arr(_PassGrads, _grad_structs(gh2x, L)),
         L, B, N, K, n_ligand, gh.data_ptr(), gx.data_ptr(), dh0.data_ptr(), dx0.data_ptr(),
         dew.data_ptr(), work.data_ptr(), nf.value, iwork.data_ptr(), ni.value,
-        build.stream_ptr(dev)), "td_block_bwd")
-    LAUNCHES += 1
-    weight_grad.count_passes("x2h", L)
-    weight_grad.count_passes("h2x", L)
+        build.stream_ptr(dev)), name)
+    if dtype == torch.bfloat16:
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
+    weight_grad.count_passes("x2h", L, dtype)
+    weight_grad.count_passes("h2x", L, dtype)
     count_library_launches(since)
     return dh0, dx0, dew, gx2h, gh2x

@@ -10,6 +10,14 @@ edge_layer_vjp.cu. They return the gradients of the layer's packed weight
 stacks (`pack_layer_params`); autograd carries those back through the
 packing into the nn.Parameters, as for the whole block (block_vjp.py). For
 CPU tensors the plain eager sub-layers run under ordinary autograd.
+
+`dtype=torch.bfloat16` (JAX's `x2h_layer_trainable(dtype=bf16)`, the
+`fast_bf16_pl` route): the bf16 forward kernels and the bf16 backwards
+(`td_{x2h,h2x}_layer_bwd_bf16`). As `_BlockLayers`, the Functions take the
+float32 stacks and make the bf16 pack inside their forward, so the weight
+gradients come back float32; the CPU version is the eager sub-layer with
+dtype=torch.bfloat16 (precision.Bf16Linear). bf16 launches are counted
+apart (`BF16_X2H_BWD_LAUNCHES`, `BF16_H2X_BWD_LAUNCHES`).
 """
 
 from __future__ import annotations
@@ -23,7 +31,8 @@ from torch.autograd.function import once_differentiable
 from .. import graph as G
 from ..rbf import gaussian_smearing_offsets
 from . import build, weight_grad
-from .block_denoiser import _pack_pass, _pass_structs, _PassParams
+from ..precision import check_dtype
+from .block_denoiser import _pack_pass, _pass_structs, _PassParams, cast_pack, entry
 from .block_vjp import (FIELDS, _grad_stacks, _grad_structs, _PassGrads, _PassT, _transposed,
                         count_library_launches, library_launch_counts)
 from .edge_layer import (
@@ -34,62 +43,76 @@ from .edge_layer import (
     x2h_layer_plain,
 )
 
-X2H_BWD_LAUNCHES = 0  # x2h_layer_bwd_cuda launches since the last reset
-H2X_BWD_LAUNCHES = 0  # h2x_layer_bwd_cuda launches since the last reset
+X2H_BWD_LAUNCHES = 0  # float32 x2h_layer_bwd_cuda launches since the last reset
+H2X_BWD_LAUNCHES = 0  # float32 h2x_layer_bwd_cuda launches since the last reset
+BF16_X2H_BWD_LAUNCHES = BF16_H2X_BWD_LAUNCHES = 0  # the same of the bf16 backwards
 
 MAX_NODES = 4096  # nodes per complex the backwards' inverse adjacency takes (csrc kAdjMaxN)
 
 
-def x2h_layer_trainable(layer, h, x, nbh: G.Neighborhood, mask_ligand, e_w):
+def x2h_layer_trainable(layer, h, x, nbh: G.Neighborhood, mask_ligand, e_w,
+                        dtype=torch.float32):
     """The x2h sub-layer of `layer`, differentiable: h [B,N,H], x [B,N,3],
-    e_w [B,N,K]. Returns h'."""
+    e_w [B,N,K]; dtype the products' precision in both directions. Returns
+    h'."""
+    check_dtype(dtype)
     if h.device.type == "cpu":
-        return x2h_layer_plain(layer, h, x, nbh, mask_ligand, e_w)
+        return x2h_layer_plain(layer, h, x, nbh, mask_ligand, e_w, dtype)
     p = _pack_pass([layer], "h")
-    return _X2HLayer.apply(h, x, e_w, nbh.idx, nbh.mask, mask_ligand, *[p[f] for f in FIELDS])
+    return _X2HLayer.apply(h, x, e_w, nbh.idx, nbh.mask, mask_ligand, dtype,
+                           *[p[f] for f in FIELDS])
 
 
-def h2x_layer_trainable(layer, h, x, nbh: G.Neighborhood, mask_ligand, e_w, n_ligand: int):
+def h2x_layer_trainable(layer, h, x, nbh: G.Neighborhood, mask_ligand, e_w, n_ligand: int,
+                        dtype=torch.float32):
     """The h2x sub-layer of `layer`, differentiable, on the last `n_ligand`
-    rows. Returns x'."""
+    rows; dtype as `x2h_layer_trainable`. Returns x'."""
+    check_dtype(dtype)
     if h.device.type == "cpu":
-        return h2x_layer_plain(layer, h, x, nbh, mask_ligand, e_w)
+        return h2x_layer_plain(layer, h, x, nbh, mask_ligand, e_w, dtype)
     p = _pack_pass([layer], "x")
-    return _H2XLayer.apply(h, x, e_w, nbh.idx, nbh.mask, mask_ligand, n_ligand,
+    return _H2XLayer.apply(h, x, e_w, nbh.idx, nbh.mask, mask_ligand, n_ligand, dtype,
                            *[p[f] for f in FIELDS])
 
 
 class _X2HLayer(torch.autograd.Function):
+    """The x2h kernels of `dtype` on the float32 stacks (the pack made here)."""
+
     @staticmethod
-    def forward(ctx, h, x, e_w, idx, nmask, mlig, *flat):
-        params = dict(zip(FIELDS, flat))
-        ctx.save_for_backward(h, x, e_w, idx, nmask, mlig, *flat)
-        return x2h_layer_cuda(h, x, G.Neighborhood(idx, nmask), mlig, e_w, params)
+    def forward(ctx, h, x, e_w, idx, nmask, mlig, dtype, *flat):
+        params = cast_pack(dict(zip(FIELDS, flat)), dtype)
+        ctx.save_for_backward(h, x, e_w, idx, nmask, mlig, *[params[f] for f in FIELDS])
+        ctx.dtype = dtype
+        return x2h_layer_cuda(h, x, G.Neighborhood(idx, nmask), mlig, e_w, params, dtype)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         h, x, e_w, idx, nmask, mlig, *flat = ctx.saved_tensors
         dh, dx, dew, grads = x2h_layer_bwd_cuda(h, x, G.Neighborhood(idx, nmask), mlig, e_w,
-                                                dict(zip(FIELDS, flat)), g)
-        return (dh, dx, dew, None, None, None, *[grads[f] for f in FIELDS])
+                                                dict(zip(FIELDS, flat)), g, ctx.dtype)
+        return (dh, dx, dew, None, None, None, None, *[grads[f] for f in FIELDS])
 
 
 class _H2XLayer(torch.autograd.Function):
+    """The h2x kernels of `dtype` on the float32 stacks (the pack made here)."""
+
     @staticmethod
-    def forward(ctx, h, x, e_w, idx, nmask, mlig, n_ligand, *flat):
-        params = dict(zip(FIELDS, flat))
-        ctx.save_for_backward(h, x, e_w, idx, nmask, mlig, *flat)
-        ctx.n_ligand = n_ligand
-        return h2x_layer_cuda(h, x, G.Neighborhood(idx, nmask), mlig, e_w, n_ligand, params)
+    def forward(ctx, h, x, e_w, idx, nmask, mlig, n_ligand, dtype, *flat):
+        params = cast_pack(dict(zip(FIELDS, flat)), dtype)
+        ctx.save_for_backward(h, x, e_w, idx, nmask, mlig, *[params[f] for f in FIELDS])
+        ctx.n_ligand, ctx.dtype = n_ligand, dtype
+        return h2x_layer_cuda(h, x, G.Neighborhood(idx, nmask), mlig, e_w, n_ligand, params,
+                              dtype)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         h, x, e_w, idx, nmask, mlig, *flat = ctx.saved_tensors
         dh, dx, dew, grads = h2x_layer_bwd_cuda(h, x, G.Neighborhood(idx, nmask), mlig, e_w,
-                                                ctx.n_ligand, dict(zip(FIELDS, flat)), g)
-        return (dh, dx, dew, None, None, None, None, *[grads[f] for f in FIELDS])
+                                                ctx.n_ligand, dict(zip(FIELDS, flat)), g,
+                                                ctx.dtype)
+        return (dh, dx, dew, None, None, None, None, None, *[grads[f] for f in FIELDS])
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,17 +127,19 @@ def _entries():
     # [n_ligand,] g, dh, dx, dew, work, work_floats, iwork, iwork_ints, stream
     common = [vp, vp, vp, vp, vp, vp, vp, f32, _PassParams, _PassT, _PassGrads, i32, i32, i32]
     for name, extra in (("td_x2h_layer_bwd", []), ("td_h2x_layer_bwd", [i32])):
-        fn = getattr(lib, name)
-        fn.argtypes = common + extra + [vp, vp, vp, vp, vp, i64, vp, i64, vp]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+        for dtype in (torch.float32, torch.bfloat16):
+            fn = getattr(lib, entry(name, dtype))
+            fn.argtypes = common + extra + [vp, vp, vp, vp, vp, i64, vp, i64, vp]
+            fn.restype = ctypes.c_int
+            fns[entry(name, dtype)] = fn
     return fns
 
 
-def _layer_bwd(name, h, x, nbh, mlig, e_w, params, g, n_ligand):
-    """Runs one per-layer backward entry; returns (dh, dx, de_w, grads of
-    the packed stacks)."""
-    check_layer_inputs(h, x, nbh, mlig, e_w, params)
+def _layer_bwd(name, h, x, nbh, mlig, e_w, params, g, n_ligand, dtype):
+    """Runs one per-layer backward entry of `dtype` (params packed for it);
+    returns (dh, dx, de_w, float32 grads of the packed stacks)."""
+    check_layer_inputs(h, x, nbh, mlig, e_w, params, dtype)
+    name = entry(name, dtype)
     B, N, H = h.shape
     if N > MAX_NODES:
         raise ValueError(f"the per-layer backwards take N <= {MAX_NODES} nodes, got N={N}")
@@ -146,23 +171,32 @@ def _layer_bwd(name, h, x, nbh, mlig, e_w, params, g, n_ligand):
     return dh, dx, dew, grads
 
 
-def x2h_layer_bwd_cuda(h, x, nbh, mask_ligand, e_w, params, g):
-    """The x2h backward kernel: g [B,N,H] the cotangent of h'. Returns
-    (dh, dx, de_w, gradients of the packed stacks)."""
-    global X2H_BWD_LAUNCHES
-    out = _layer_bwd("td_x2h_layer_bwd", h, x, nbh, mask_ligand, e_w, params, g, None)
-    X2H_BWD_LAUNCHES += 1
-    weight_grad.count_passes("x2h", 1)
+def x2h_layer_bwd_cuda(h, x, nbh, mask_ligand, e_w, params, g, dtype=torch.float32):
+    """The x2h backward kernel of `dtype` (params packed for it): g [B,N,H]
+    the cotangent of h'. Returns (dh, dx, de_w, gradients of the packed
+    stacks), float32."""
+    global X2H_BWD_LAUNCHES, BF16_X2H_BWD_LAUNCHES
+    out = _layer_bwd("td_x2h_layer_bwd", h, x, nbh, mask_ligand, e_w, params, g, None, dtype)
+    if dtype == torch.bfloat16:
+        BF16_X2H_BWD_LAUNCHES += 1
+    else:
+        X2H_BWD_LAUNCHES += 1
+    weight_grad.count_passes("x2h", 1, dtype)
     return out
 
 
-def h2x_layer_bwd_cuda(h, x, nbh, mask_ligand, e_w, n_ligand: int, params, g):
-    """The h2x backward kernel on the last `n_ligand` rows: g [B,N,3] the
-    cotangent of x'. Returns (dh, dx, de_w, gradients of the packed stacks)."""
-    global H2X_BWD_LAUNCHES
+def h2x_layer_bwd_cuda(h, x, nbh, mask_ligand, e_w, n_ligand: int, params, g,
+                       dtype=torch.float32):
+    """The h2x backward kernel of `dtype` on the last `n_ligand` rows: g
+    [B,N,3] the cotangent of x'. Returns (dh, dx, de_w, gradients of the
+    packed stacks), float32."""
+    global H2X_BWD_LAUNCHES, BF16_H2X_BWD_LAUNCHES
     if not 0 < n_ligand <= h.shape[1]:
         raise ValueError(f"n_ligand={n_ligand} must lie in [1, N={h.shape[1]}]")
-    out = _layer_bwd("td_h2x_layer_bwd", h, x, nbh, mask_ligand, e_w, params, g, n_ligand)
-    H2X_BWD_LAUNCHES += 1
-    weight_grad.count_passes("h2x", 1)
+    out = _layer_bwd("td_h2x_layer_bwd", h, x, nbh, mask_ligand, e_w, params, g, n_ligand, dtype)
+    if dtype == torch.bfloat16:
+        BF16_H2X_BWD_LAUNCHES += 1
+    else:
+        H2X_BWD_LAUNCHES += 1
+    weight_grad.count_passes("h2x", 1, dtype)
     return out

@@ -1,6 +1,7 @@
 """The denoiser's precisions: float32, or bf16, the JAX package's default for
 sampling (targetdiff_tpu/models/score_model.py sample_diffusion(dtype=
-jnp.bfloat16)).
+jnp.bfloat16)) and its bf16 training variant (get_diffusion_loss(impl=
+'fast_bf16' | 'fast_bf16_pl')).
 
 bf16 rounds the operands of every dense product of the attention layers and
 of the edge-weight MLP to bf16 (activations and weights) and multiplies them
@@ -8,6 +9,13 @@ in float32: exact products, float32 sums, as a tensor-core product with
 float32 accumulation. Biases, LayerNorm, softmax, geometry, the residual h
 and the positions stay float32. The embeddings and the type head run in
 float32 in both, as in the JAX fast path.
+
+Training (`Bf16Linear`, JAX's targetdiff_tpu/ops/pallas/edge_layer_vjp.py
+_cdot / _cdotg at cd=bf16) rounds in both directions: the input gradient
+round(dY) round(W) and the weight gradient round(dY)^T round(X), both in
+float32 and never rounded after the product, so parameters, their
+gradients and the optimizer stay float32. Its training path keeps the
+edge-weight MLP float32, as JAX's fast_train_forward.
 """
 
 from __future__ import annotations
@@ -29,9 +37,46 @@ def round_bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(t.dtype)
 
 
+def _product(kind, a, b):
+    """a @ b, float32 operands already rounded to bf16: `Bf16Linear`'s
+    products, `kind` 'forward', 'input_grad' or 'weight_grad'."""
+    return a @ b
+
+
+class Bf16Linear(torch.autograd.Function):
+    """y = round(x) round(W)^T + b, differentiable with bf16 products in both
+    directions: dx = round(dy) round(W), dW = round(dy)^T round(x) (summed
+    over every leading axis), db = the float32 sum of dy. Every result is
+    float32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        xr, wr = round_bf16(x), round_bf16(weight)
+        ctx.save_for_backward(xr, wr)
+        ctx.has_bias = bias is not None
+        y = _product("forward", xr, wr.T)
+        return y + bias if bias is not None else y
+
+    @staticmethod
+    def backward(ctx, dy):
+        xr, wr = ctx.saved_tensors
+        dyr = round_bf16(dy)
+        dx = _product("input_grad", dyr, wr) if ctx.needs_input_grad[0] else None
+        dw = db = None
+        if ctx.needs_input_grad[1]:
+            dw = _product("weight_grad", dyr.reshape(-1, dy.shape[-1]).T,
+                          xr.reshape(-1, xr.shape[-1]))
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = dy.reshape(-1, dy.shape[-1]).sum(0)
+        return dx, dw, db
+
+
 def linear(x: torch.Tensor, layer: torch.nn.Linear, dtype=torch.float32) -> torch.Tensor:
     """`layer(x)`; bf16: x and the weight rounded to bf16, the product in
-    float32, the bias float32."""
+    float32, the bias float32; where autograd records, as `Bf16Linear`
+    (bf16 products backward too)."""
     if dtype == torch.float32:
         return layer(x)
+    if torch.is_grad_enabled() and (x.requires_grad or layer.weight.requires_grad):
+        return Bf16Linear.apply(x, layer.weight, layer.bias)
     return torch.nn.functional.linear(round_bf16(x), round_bf16(layer.weight), layer.bias)

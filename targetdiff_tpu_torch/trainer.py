@@ -110,8 +110,10 @@ def make_train_step(model: DiffusionModel, pos_noise_std: float = 0.0,
     norm before clipping) are 0-d tensors on the device. The denoiser runs
     as `get_diffusion_loss(impl=impl)`: 'fast' on the kernels with the
     whole-block backward, 'fast_pl' on the per-layer kernels, 'eager' on
-    the plain network (targetdiff_tpu/trainer.py:81), None the model's
-    `impl`, read from its config. With a `mesh`, `batch` and the given
+    the plain network (targetdiff_tpu/trainer.py:81), 'fast_bf16' and
+    'fast_bf16_pl' the bf16 training variant of the first two (bf16
+    products both ways; parameters, gradients and the optimizer float32),
+    None the model's `impl`, read from its config. With a `mesh`, `batch` and the given
     draws are global (every rank passes the same), their rows must split
     equally over the ranks, and the step is data parallel (module
     docstring)."""

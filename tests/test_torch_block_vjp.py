@@ -19,14 +19,11 @@ checkpoints against the JAX megakernel in interpret mode; and the port's
 loss and every parameter gradient against jax.value_and_grad of the JAX
 XLA loss, with the JAX draws injected."""
 
-import math
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
 from targetdiff_tpu.models.fast_forward import extract_block_params
 from targetdiff_tpu.models.score_model import DiffusionModel as JaxDiffusionModel
@@ -43,33 +40,15 @@ from targetdiff_tpu_torch.ops.kernels.block_denoiser import (
 )
 from targetdiff_tpu_torch.ops.kernels import block_vjp
 from targetdiff_tpu_torch.ops.kernels.block_vjp import FIELDS, block_layers_trainable
-from targetdiff_tpu_torch.ops.rbf import gaussian_smearing, gaussian_smearing_offsets
 from targetdiff_tpu_torch.utils.port import flax_params_to_state_dict
 from tests.test_fast_forward import NUM_CLASSES, PROTEIN_DIM, batch_mult8, small_flagship
 from tests.test_torch_block import _block_inputs
 from tests.test_torch_score_model import small_setup
 from tests.test_torch_weight_grad import split3
 from tests.test_torch_x2h_edge import W_SCALE, f16, split3_matmul
+from targetdiff_tpu_torch.ops.kernels.block_vjp_replay import drbf_einsum, replay_block_bwd
 
 torch.set_num_threads(2)
-
-
-def _ln_bwd(dy, zhat, rstd, scale):
-    """LayerNorm backward to its input, given d(output) after ReLU's mask."""
-    dzh = dy * scale
-    return rstd * (dzh - dzh.mean(-1, keepdim=True) - zhat * (dzh * zhat).mean(-1, keepdim=True))
-
-
-def _ln(z, eps=1e-5):
-    mu = z.mean(-1, keepdim=True)
-    rstd = torch.rsqrt(((z - mu) ** 2).mean(-1, keepdim=True) + eps)
-    return (z - mu) * rstd, rstd
-
-
-def drbf_einsum(dz, w_rbf, et, ta):
-    """d rbf[e][r] = dz[e] . w_rbf[et[e]][r]: dz [.., 2H], w_rbf [4, R, 2H], et
-    the edge types [..] (ta, the row's kind, unused)."""
-    return torch.einsum("...c,...rc->...r", dz, w_rbf[et])
 
 
 def _two_tables(w_rbf):
@@ -130,124 +109,6 @@ def node_tf32(a, b, terms=3):
     return acc
 
 
-def _pass_bwd(P, l, h, x, idx, nmask, mlig, e_w, row0, h2x, dh, dx, dew, grads, n_heads,
-              matmul=torch.matmul, drbf_fn=drbf_einsum, node_matmul=torch.matmul):
-    """One pass of layer l, as edge_bwd_kernel + gather_kernel +
-    node_bwd_kernel + the weight-gradient reductions compute it; the
-    recompute's k and v second layers through `matmul`, d rbf through
-    `drbf_fn(dz, w_rbf, et, ta)`, the node kernel's two products through
-    `node_matmul`."""
-    B, N, H = h.shape
-    NH, DH = n_heads, H // n_heads
-    offsets, coeff = gaussian_smearing_offsets()
-    w = {f: P[f][l] for f in FIELDS}
-    g = {f: grads[f][l] for f in FIELDS}
-    # node projections and the query MLP (node_kernel)
-    proj = h @ w["w_node"] + w["b_node"]
-    ni, nj, q1 = proj[..., :2 * H], proj[..., 2 * H:4 * H], proj[..., 4 * H:]
-    q1hat, q1rstd = _ln(q1)
-    yq = q1hat * w["q_ln"][0] + w["q_ln"][1]
-    qa = yq.relu()
-    q = qa @ w["w_q2"] + w["b_q2"]
-    # edges of the pass's destination rows (edge_bwd_kernel, forward part)
-    rows = slice(row0, N)
-    idx_r, valid, ew = idx[:, rows], nmask[:, rows], e_w[:, rows]
-    rel = x[:, rows, None] - G.gather_nodes(x, idx_r)
-    dist = torch.sqrt((rel * rel).sum(-1) + 1e-16)
-    rbf = gaussian_smearing(dist, offsets, coeff)
-    src_lig = torch.gather(mlig[:, None, :].expand(-1, N - row0, -1), 2, idx_r)
-    dst_lig = mlig[:, rows, None]
-    et = torch.where(src_lig, torch.where(dst_lig, 0, 1), torch.where(dst_lig, 2, 3))
-    z = (ni[:, rows, None] + G.gather_nodes(nj, idx_r) + w["w_et"][et]
-         + torch.einsum("bnkr,bnkrc->bnkc", rbf, w["w_rbf"][et]))
-    zh_k, rs_k = _ln(z[..., :H])
-    zh_v, rs_v = _ln(z[..., H:])
-    kvs, kvb = w["kv_ln"]
-    y_k, y_v = zh_k * kvs[:H] + kvb[:H], zh_v * kvs[H:] + kvb[H:]
-    a_k, a_v = y_k.relu(), y_v.relu()
-    k = matmul(a_k, w["w2k"]) + w["b2k"]
-    v = matmul(a_v, w["w2v"]) + w["b2v"]
-    logits = (q[:, rows, None] * k).reshape(*k.shape[:3], NH, DH).sum(-1) / math.sqrt(DH)
-    logits = torch.where(valid[..., None], logits, torch.full((), -1e30))
-    unnorm = torch.where(valid[..., None], torch.exp(logits - logits.amax(2, keepdim=True)), 0.0)
-    alpha = unnorm / unnorm.sum(2, keepdim=True).clamp(min=1e-16)
-    # output cotangent -> P (d alpha = e_w P) and dv
-    if not h2x:
-        gc = dh[:, rows, None]
-        Pm = (gc * v).reshape(*v.shape[:3], NH, DH).sum(-1)
-        dv = gc * alpha.repeat_interleave(DH, -1) * ew[..., None]
-        gd = sdir = None
-    else:
-        gd = dx[:, rows] * mlig[:, rows, None]
-        ds = (gd[:, :, None] * rel).sum(-1) / NH
-        Pm = ds[..., None] * v
-        dv = ds[..., None] * alpha * ew[..., None]
-        sdir = (alpha * ew[..., None] * v).sum(-1) / NH
-    dew[:, rows] += (alpha * Pm).sum(-1)
-    dot = (alpha * ew[..., None] * Pm).sum(2, keepdim=True)
-    dl = (alpha * (ew[..., None] * Pm - dot) / math.sqrt(DH)).repeat_interleave(DH, -1)
-    dq = torch.zeros_like(q)
-    dq[:, rows] = (dl * k).sum(2)
-    dk = dl * q[:, rows, None]
-    # second layers and LayerNorm+ReLU
-    g["w2k"] += torch.einsum("bnki,bnkj->ij", a_k, dk)
-    g["b2k"] += dk.sum((0, 1, 2))
-    g["w2v"] += torch.einsum("bnki,bnkj->ij", a_v, dv)
-    g["b2v"] += dv.sum((0, 1, 2))
-    dy_k = (dk @ w["w2k"].T) * (y_k > 0)
-    dy_v = (dv @ w["w2v"].T) * (y_v > 0)
-    dz = torch.cat([_ln_bwd(dy_k, zh_k, rs_k, kvs[:H]), _ln_bwd(dy_v, zh_v, rs_v, kvs[H:])], -1)
-    g["kv_ln"][0] += torch.cat([(dy_k * zh_k).sum((0, 1, 2)), (dy_v * zh_v).sum((0, 1, 2))])
-    g["kv_ln"][1] += torch.cat([dy_k.sum((0, 1, 2)), dy_v.sum((0, 1, 2))])
-    # edge-type tables and the geometry
-    oh = F.one_hot(et, 4).to(dz.dtype)
-    g["w_rbf"] += torch.einsum("bnke,bnkr,bnkc->erc", oh, rbf, dz)
-    g["w_et"] += torch.einsum("bnke,bnkc->ec", oh, dz)
-    drbf = drbf_fn(dz, w["w_rbf"], et, torch.where(dst_lig, 0, 1).expand_as(et))
-    ddist = (drbf * 2.0 * coeff * (dist[..., None] - offsets) * rbf).sum(-1)
-    drel = (ddist / dist.clamp(min=1e-16))[..., None] * rel
-    if h2x:
-        drel = drel + gd[:, :, None] * sdir[..., None]
-    dx[:, rows] += drel.sum(2)
-    # the source side (gather_kernel): sums per source node
-    dproj = torch.zeros_like(proj)
-    dproj[:, rows, :2 * H] = dz.sum(2)
-    flat = (idx_r + N * torch.arange(B)[:, None, None]).reshape(-1)
-    dnj = torch.zeros(B * N, 2 * H).index_add_(0, flat, dz.reshape(-1, 2 * H))
-    dproj[..., 2 * H:4 * H] = dnj.reshape(B, N, 2 * H)
-    dx -= torch.zeros(B * N, 3).index_add_(0, flat, drel.reshape(-1, 3)).reshape(B, N, 3)
-    # query MLP and node projections backward (node_bwd_kernel)
-    dyq = node_matmul(dq, w["w_q2"].T) * (yq > 0)
-    dproj[..., 4 * H:] = _ln_bwd(dyq, q1hat, q1rstd, w["q_ln"][0])
-    g["w_q2"] += torch.einsum("bni,bnj->ij", qa, dq)
-    g["b_q2"] += dq.sum((0, 1))
-    g["q_ln"][0] += (dyq * q1hat).sum((0, 1))
-    g["q_ln"][1] += dyq.sum((0, 1))
-    g["w_node"] += torch.einsum("bni,bnj->ij", h, dproj)
-    g["b_node"] += dproj.sum((0, 1))
-    dh += node_matmul(dproj, w["w_node"].T)
-
-
-@torch.no_grad()
-def replay_block_bwd(x2h, h2x, hck, xck, nbh, mlig, e_w, n_ligand, gh, gx, n_heads,
-                     matmul=torch.matmul, drbf_fn=drbf_einsum, node_matmul=torch.matmul):
-    """The backward kernel's algorithm: layers L-1..0, h2x pass on the
-    ligand tail from hck[l+1], then x2h on every row from hck[l] (hck
-    [L+1,B,N,H], xck [L+1,B,N,3]), the recompute's second layers through
-    `matmul`, d rbf through `drbf_fn`, the node kernel's products through
-    `node_matmul`. Returns (dh0, dx0, de_w, x2h grads, h2x grads)."""
-    L, N = hck.shape[0] - 1, hck.shape[2]
-    dh, dx, dew = gh.clone(), gx.clone(), torch.zeros_like(e_w)
-    gx2h = {f: torch.zeros_like(x2h[f]) for f in FIELDS}
-    gh2x = {f: torch.zeros_like(h2x[f]) for f in FIELDS}
-    for l in reversed(range(L)):
-        _pass_bwd(h2x, l, hck[l + 1], xck[l], nbh.idx, nbh.mask, mlig, e_w, N - n_ligand,
-                  True, dh, dx, dew, gh2x, n_heads, matmul, drbf_fn, node_matmul)
-        _pass_bwd(x2h, l, hck[l], xck[l], nbh.idx, nbh.mask, mlig, e_w, 0, False, dh, dx,
-                  dew, gx2h, n_heads, matmul, drbf_fn, node_matmul)
-    return dh, dx, dew, gx2h, gh2x
-
-
 def _train_inputs():
     cfg, params, model, h, x, node_mask, mlig, idx, nmask = _block_inputs()
     rn = model.net.refine_net
@@ -268,24 +129,28 @@ def _close(got, want, name, atol_scale=1e-5, rtol=1e-4):
 
 
 def _replay_and_autograd(model, rn, h, x, mlig, nbh, e_w, gh, gx, n_heads,
-                         matmul=torch.matmul, drbf_fn=drbf_einsum, node_matmul=torch.matmul):
+                         matmul=torch.matmul, drbf_fn=drbf_einsum, node_matmul=torch.matmul,
+                         dtype=torch.float32):
     """(replay, autograd): dh0, dx0, de_w and every parameter gradient of the
     block for the output cotangents (gh, gx), from `replay_block_bwd` (its
     recompute through `matmul`, d rbf through `drbf_fn`, the node kernel's
     products through `node_matmul`) on the packed weights and the
-    train-mode checkpoints, and from autograd of the plain block."""
+    train-mode checkpoints, and from autograd of the plain block; dtype=
+    torch.bfloat16: the bf16 block's (train-mode forward, replay with
+    bf16=True, autograd through precision.Bf16Linear)."""
+    bf16 = dtype == torch.bfloat16
     h_leaf, x_leaf, ew_leaf = (t.clone().requires_grad_() for t in (h, x, e_w))
     model.net.zero_grad()
-    h_out, x_out = rn.block_forward(h_leaf, x_leaf, nbh, mlig, e_w=ew_leaf)
+    h_out, x_out = rn.block_forward(h_leaf, x_leaf, nbh, mlig, e_w=ew_leaf, dtype=dtype)
     ((h_out * gh).sum() + (x_out * gx).sum()).backward()
     want = {n: p.grad.clone() for n, p in rn.named_parameters() if p.grad is not None}
     want.update(dh0=h_leaf.grad, dx0=x_leaf.grad, de_w=ew_leaf.grad)
     x2h, h2x = pack_pass_params(rn)
-    hck, xck = block_denoiser_train_plain(rn, h, x, nbh, mlig, e_w)
+    hck, xck = block_denoiser_train_plain(rn, h, x, nbh, mlig, e_w, dtype)
     dh0, dx0, dew, gx2h, gh2x = replay_block_bwd(
         {f: t.detach() for f, t in x2h.items()}, {f: t.detach() for f, t in h2x.items()},
         hck, xck, nbh, mlig, e_w, model.max_ligand, gh, gx, n_heads, matmul, drbf_fn,
-        node_matmul)
+        node_matmul, bf16)
     # every packed gradient, carried to the parameters by the packing's backward
     model.net.zero_grad()
     torch.autograd.backward([x2h[f] for f in FIELDS] + [h2x[f] for f in FIELDS],
@@ -573,7 +438,8 @@ def test_split3_backward_replay_loss_and_grads_match_jax_xla(case, monkeypatch):
     cfg, jmodel, params, jbatch, model, batch, *_ = _split_setup(*SPLIT_CASES[case])
     calls = []
 
-    def trainable(refine_net, h, x, nbh, mask_ligand, e_w, n_ligand):
+    def trainable(refine_net, h, x, nbh, mask_ligand, e_w, n_ligand, dtype=torch.float32):
+        assert dtype == torch.float32
         calls.append(nbh.idx.shape[-1])
         x2h, h2x = pack_pass_params(refine_net)
         return _SplitReplayBlock.apply(h, x, e_w, refine_net, nbh, mask_ligand, n_ligand,

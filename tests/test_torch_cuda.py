@@ -1118,3 +1118,319 @@ def test_bf16_sampling_runs_the_bf16_kernels(cuda):
     assert (kel.BF16_X2H_LAUNCHES - layers[0], kel.BF16_H2X_LAUNCHES - layers[1]) == (6, 6)
     assert bool(res.pos.isfinite().all())
     assert (kblock.LAUNCHES, kblock.EW_LAUNCHES, kel.X2H_LAUNCHES, kel.H2X_LAUNCHES) == f32
+
+
+# bf16 training (impl='fast_bf16' | 'fast_bf16_pl'): the bf16 train-mode
+# forward, the bf16 block and per-layer backwards, and their node and
+# weight-gradient kernels against their plain bf16 versions (autograd of the
+# eager layers through precision.Bf16Linear; node_bwd_plain and
+# weight_grad_plain at dtype=torch.bfloat16) at BF16_BAR of each tensor's
+# scale. The kernels round sums per node where the plain version rounds per
+# edge, so the backward's tensors sit at bf16 distance from it, not closer.
+
+
+def bf16_grads_close(name, got, want, want_f32=None):
+    """Every gradient within BF16_BAR of its scale; the k second-layer biases
+    (zero in exact arithmetic) within BF16_BAR of the largest gradient.
+    Returns the largest and the median error over scale (and, given the
+    float32 gradients, the median of the float32 ones' distance)."""
+    top = max(float(w.abs().max()) for w in want.values())
+    errs, errs32 = [], []
+    for n, w in want.items():
+        err = float((got[n] - w).abs().max())
+        if n.endswith("k_func.net.3.bias"):
+            assert err < BF16_BAR * top, (name, n, err / top)
+            continue
+        scale = max(float(w.abs().max()), 1e-30)
+        errs.append(err / scale)
+        assert err < BF16_BAR * scale, (name, n, err / scale)
+        if want_f32 is not None:
+            errs32.append(float((got[n] - want_f32[n]).abs().max()) / scale)
+    fields = {"max": max(errs), "median": float(np.median(errs))}
+    if errs32:
+        fields["median_vs_f32"] = float(np.median(errs32))
+    print(name, fields)
+    return fields
+
+
+@pytest.mark.parametrize("k", [8, 32])
+def test_bf16_train_forward_kernel_matches_plain(cuda, k):
+    """td_block_train_fwd_bf16 against the bf16 plain train-mode forward: its
+    float32 checkpoints at the bf16 bar, closer to the bf16 plain version
+    than to the float32 one; two runs bitwise equal; counted apart."""
+    rn, h, x, node_mask, mlig, nbh, e_w = _train_block_setup(cuda, k, B)
+    before = (kblock.TRAIN_LAUNCHES, kblock.BF16_TRAIN_LAUNCHES)
+    with torch.no_grad():
+        x2h, h2x = kblock.pack_pass_params(rn, torch.bfloat16)
+        want = {d: kblock.block_denoiser_train_plain(rn, h, x, nbh, mlig, e_w, d)
+                for d in (torch.bfloat16, torch.float32)}
+        runs = [kblock.block_denoiser_train_cuda(rn, h, x, nbh, mlig, e_w, NL, x2h, h2x,
+                                                 torch.bfloat16) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (kblock.TRAIN_LAUNCHES - before[0], kblock.BF16_TRAIN_LAUNCHES - before[1]) == (0, 2)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert runs[0][0].dtype == runs[0][1].dtype == torch.float32
+    m = node_mask[None, :, :, None].expand_as(runs[0][0])[1:]
+    bf16_close("hck", runs[0][0][1:], want[torch.bfloat16][0][1:], want[torch.float32][0][1:], m)
+    ml = mlig[None].expand(runs[0][1].shape[0] - 1, -1, -1)
+    bf16_close("xck", runs[0][1][1:], want[torch.bfloat16][1][1:], want[torch.float32][1][1:], ml)
+    with torch.no_grad(), pytest.raises(ValueError, match="packed"):
+        f32 = kblock.pack_pass_params(rn)
+        kblock.block_denoiser_train_cuda(rn, h, x, nbh, mlig, e_w, NL, *f32, torch.bfloat16)
+
+
+@pytest.mark.parametrize("k,batch_size", [(8, B), (32, B)])
+def test_bf16_block_vjp_kernel_matches_autograd(cuda, k, batch_size):
+    """The bf16 whole-block backward (td_block_bwd_bf16, through
+    block_layers_trainable(dtype=bf16)) against autograd of the plain bf16
+    block: dh0, dx0, de_w and every parameter gradient at the bf16 bar, every
+    one float32, and within REPLAY16_BAR of the replay of the kernel's
+    rounding points (replay_block_bwd(bf16=True) on its checkpoints); two
+    runs bitwise equal; only the bf16 entries launch; a float32 pack handed
+    to the bf16 backward raises."""
+    from chip_smoke import REPLAY16_BAR, replay_grads, tensor_errs
+    from targetdiff_tpu_torch.ops.kernels import block_vjp
+
+    rn, h, x, node_mask, mlig, nbh, e_w = _train_block_setup(cuda, k, batch_size)
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    gh = torch.randn(h.shape, generator=gen, device=cuda) * node_mask[..., None]
+    gx = torch.randn(x.shape, generator=gen, device=cuda)
+
+    def run(trainable, dtype=torch.bfloat16):
+        leaves = [t.clone().requires_grad_() for t in (h, x, e_w)]
+        rn.zero_grad()
+        if trainable:
+            ho, xo = block_vjp.block_layers_trainable(rn, *leaves[:2], nbh, mlig, leaves[2], NL,
+                                                      dtype=dtype)
+        else:
+            ho, xo = rn.block_forward(leaves[0], leaves[1], nbh, mlig, e_w=leaves[2],
+                                      dtype=dtype)
+        ((ho * gh).sum() + (xo * gx).sum()).backward()
+        grads = {n: p.grad.clone() for n, p in rn.named_parameters() if p.grad is not None}
+        grads.update(dh0=leaves[0].grad, dx0=leaves[1].grad, de_w=leaves[2].grad)
+        return grads
+
+    counts = lambda: (block_vjp.LAUNCHES, block_vjp.BF16_LAUNCHES, kblock.TRAIN_LAUNCHES,  # noqa
+                      kblock.BF16_TRAIN_LAUNCHES, block_vjp.NODE_BWD_LAUNCHES,
+                      block_vjp.BF16_NODE_BWD_LAUNCHES)
+    before = counts()
+    got, again = run(True), run(True)
+    torch.cuda.synchronize()
+    L = len(rn.base_block)
+    assert tuple(b - a for a, b in zip(before, counts())) == (0, 2, 0, 2, 0, 4 * L)
+    want, want32 = run(False), run(False, torch.float32)
+    assert all(torch.equal(got[n], again[n]) for n in got)  # fixed summation order
+    assert sorted(got) == sorted(want)
+    assert all(g.dtype == torch.float32 and bool(g.isfinite().all()) for g in got.values())
+    bf16_grads_close(f"block K={k}", got, want, want32)
+    with torch.no_grad():
+        x2h, h2x = kblock.pack_pass_params(rn)
+        packs16 = [kblock.cast_pack(p, torch.bfloat16) for p in (x2h, h2x)]
+        hck, xck = kblock.block_denoiser_train_cuda(rn, h, x, nbh, mlig, e_w, NL, *packs16,
+                                                    torch.bfloat16)
+    # the second witness: the kernel's rounding points replayed in PyTorch
+    replay = replay_grads(torch, rn, hck, xck, nbh, mlig, e_w, gh, gx, NL, CONFIG["n_heads"])
+    errs = tensor_errs(got, replay)
+    print(f"block K={k} vs replay", max(errs.values()), float(np.median(list(errs.values()))))
+    assert max(errs.values()) < REPLAY16_BAR, errs
+    with torch.no_grad():
+        hck, xck = kblock.block_denoiser_train_cuda(rn, h, x, nbh, mlig, e_w, NL, x2h, h2x)
+        with pytest.raises(ValueError, match="packed"):
+            block_vjp.block_bwd_cuda(hck, xck, nbh.idx, nbh.mask, mlig, e_w, NL, x2h, h2x, gh,
+                                     gx, torch.bfloat16)
+
+
+@pytest.mark.parametrize("cutoff_mode,k,max_ligand,n_protein", LAYER_CASES)
+def test_bf16_layer_vjp_kernels_match_autograd(cuda, cutoff_mode, k, max_ligand, n_protein):
+    """The bf16 per-layer backwards (td_{x2h,h2x}_layer_bwd_bf16, through the
+    trainables at dtype=bf16) against autograd of the plain bf16 sub-layers at
+    the bf16 bar; two runs bitwise equal; only the bf16 entries launch."""
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+    from targetdiff_tpu_torch.ops.kernels import edge_layer_vjp as kvjp
+
+    _, _, rn, h, x, node_mask, mlig, nbh, e_w = _layer_setup(cuda, cutoff_mode, k, max_ligand,
+                                                              n_protein, seed=1)
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    layer = rn.base_block[0]
+    cot = {"x2h": torch.randn(h.shape, generator=gen, device=cuda) * node_mask[..., None],
+           "h2x": torch.randn(x.shape, generator=gen, device=cuda)}
+
+    def run(sub, trainable, dtype=torch.bfloat16):
+        leaves = [t.clone().requires_grad_() for t in (h, x, e_w)]
+        rn.zero_grad()
+        if sub == "x2h":
+            fn = kvjp.x2h_layer_trainable if trainable else kvjp.x2h_layer_plain
+            out = fn(layer, leaves[0], leaves[1], nbh, mlig, leaves[2], dtype=dtype)
+        elif trainable:
+            out = kvjp.h2x_layer_trainable(layer, leaves[0], leaves[1], nbh, mlig, leaves[2],
+                                           max_ligand, dtype=dtype)
+        else:
+            out = kvjp.h2x_layer_plain(layer, leaves[0], leaves[1], nbh, mlig, leaves[2],
+                                       dtype=dtype)
+        (out * cot[sub]).sum().backward()
+        grads = {n: p.grad.clone() for n, p in rn.named_parameters() if p.grad is not None}
+        grads.update(dh=leaves[0].grad, dx=leaves[1].grad, de_w=leaves[2].grad)
+        return grads
+
+    counts = lambda: (kvjp.X2H_BWD_LAUNCHES, kvjp.H2X_BWD_LAUNCHES,  # noqa: E731
+                      kvjp.BF16_X2H_BWD_LAUNCHES, kvjp.BF16_H2X_BWD_LAUNCHES,
+                      kel.X2H_LAUNCHES, kel.H2X_LAUNCHES)
+    for sub in ("x2h", "h2x"):
+        before = counts()
+        got, again = run(sub, True), run(sub, True)
+        torch.cuda.synchronize()
+        want = (2, 0) if sub == "x2h" else (0, 2)
+        assert tuple(b - a for a, b in zip(before, counts())) == (0, 0, *want, 0, 0)
+        ref, ref32 = run(sub, False), run(sub, False, torch.float32)
+        assert all(torch.equal(got[n], again[n]) for n in got)
+        assert sorted(got) == sorted(ref)
+        assert all(g.dtype == torch.float32 and bool(g.isfinite().all()) for g in got.values())
+        bf16_grads_close(f"{sub} {cutoff_mode} K={nbh.idx.shape[-1]}", got, ref, ref32)
+        empty = ~nbh.mask.any(-1)
+        assert bool((got["de_w"][empty] == 0).all())
+
+
+@pytest.mark.parametrize("case", list(NODE_BWD_CASES))
+def test_bf16_node_bwd_kernel_matches_plain_and_repeats(cuda, case):
+    """The bf16 node kernel alone (td_node_bwd_bf16) against its plain version
+    (node_bwd_plain(dtype=bf16) on float64 copies, the kernel's own ReLU
+    mask): every output within NODE16_BAR of its scale, and more than ten
+    times that from the unrounded float64 version (the operands were
+    rounded); two runs bitwise equal; counted apart from the float32
+    kernel."""
+    from chip_smoke import NODE16_BAR, node_bwd_errs, node_bwd_operands
+    from targetdiff_tpu_torch.ops.kernels import block_vjp
+
+    rows, V = NODE_BWD_CASES[case]
+    ops = node_bwd_operands(torch, cuda, rows, V)
+    rowbuf, q1, dh, q_ln, w_q2T, w_nodeT = ops
+    before = (block_vjp.NODE_BWD_LAUNCHES, block_vjp.BF16_NODE_BWD_LAUNCHES)
+    got, again = [block_vjp.node_bwd_cuda(rowbuf.clone(), q1, dh.clone(), q_ln, w_q2T, w_nodeT,
+                                          dtype=torch.bfloat16) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (block_vjp.NODE_BWD_LAUNCHES - before[0],
+            block_vjp.BF16_NODE_BWD_LAUNCHES - before[1]) == (0, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = block_vjp.node_bwd_plain(*[t.double() for t in ops], relu_mask=got[1] > 0,
+                                    dtype=torch.bfloat16)
+    exact = block_vjp.node_bwd_plain(*[t.double() for t in ops], relu_mask=got[1] > 0)
+    errs = node_bwd_errs(got, want)
+    unrounded = max(v for n, v in node_bwd_errs(got, exact).items() if n.endswith("_over_scale"))
+    print(case, errs, unrounded)
+    assert max(v for n, v in errs.items() if n.endswith("_over_scale")) < NODE16_BAR, errs
+    assert unrounded > 10 * NODE16_BAR, unrounded
+
+
+@pytest.mark.parametrize("case", list(WG_CASES))
+def test_bf16_weight_grad_kernel_matches_plain_and_repeats(cuda, case):
+    """X^T Y on the bf16 kernel (td_weight_grad_bf16) against float64 of the
+    bf16-rounded operands (weight_grad_plain(dtype=bf16)'s products): within
+    1e-4 of s, the root-sum-square of each entry's terms (float32 sums of
+    exact products), and at least ten times that from float64 of the
+    unrounded operands (the operands were rounded); two launches bitwise
+    equal; counted apart."""
+    from targetdiff_tpu_torch.ops.kernels import weight_grad as kwg
+    from targetdiff_tpu_torch.ops.precision import round_bf16
+
+    M, P, Q, ldx, ox, ldy, oy = WG_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(M + P + Q)
+
+    def operand(ld, off, n):
+        order = torch.randperm(n, generator=gen, device=cuda)
+        rows = torch.randn((M, ld), generator=gen, device=cuda)
+        rows[:, off:off + n] *= 10.0 ** torch.linspace(-9, 5, n, device=cuda)[order]
+        return rows[:, off:off + n]
+
+    X, Y = operand(ldx, ox, P), operand(ldy, oy, Q)
+    before = (kwg.LAUNCHES["alone"], kwg.BF16_LAUNCHES["alone"])
+    got, again = [kwg.weight_grad_cuda(X, Y, dtype=torch.bfloat16) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (kwg.LAUNCHES["alone"] - before[0], kwg.BF16_LAUNCHES["alone"] - before[1]) == (0, 2)
+    assert torch.equal(got, again)
+    x, y = round_bf16(X).double(), round_bf16(Y).double()
+    want, s = x.T @ y, ((x * x).T @ (y * y)).sqrt()
+    err = float(((got.double() - want).abs() / s.clamp(min=1e-300)).max())
+    x, y = X.double(), Y.double()
+    s_exact = ((x * x).T @ (y * y)).sqrt()
+    unrounded = float(((got.double() - x.T @ y).abs() / s_exact.clamp(min=1e-300)).max())
+    print(case, {"err_over_s": err, "vs_unrounded_over_s": unrounded})
+    assert err <= 1e-4, err
+    assert unrounded > 10 * err, unrounded
+
+
+@pytest.mark.parametrize("h2x,K", [(False, 32), (True, 32), (False, 95), (True, 95)])
+def test_bf16_edge_bwd_kernel_occupancy(cuda, h2x, K):
+    """The bf16 backward's edge kernel as the card makes it: at most 128
+    registers per thread, two blocks per SM at the whole-block backward's
+    K = 32 and one at the hybrid graph's K, as the float32 one
+    (test_edge_bwd_kernel_occupancy); its spill bytes printed."""
+    from targetdiff_tpu_torch.ops.kernels import block_vjp
+
+    info = block_vjp.edge_bwd_info(K, h2x, torch.bfloat16)
+    print(h2x, K, info, block_vjp.edge_bwd_info(K, h2x))
+    assert info["registers"] <= 128
+    assert info["blocks_per_sm"] == (2 if K <= 32 else 1)
+    assert info["smem"] <= 232448
+
+
+@pytest.mark.parametrize("rows,tile", [(13312, 64), (2432, 32)])
+def test_bf16_node_bwd_kernel_occupancy(cuda, rows, tile):
+    """The bf16 node kernel: the float32 one's tiles, at most 128 registers,
+    no spills, two blocks per SM."""
+    from targetdiff_tpu_torch.ops.kernels import block_vjp
+
+    info = block_vjp.node_bwd_info(rows, torch.bfloat16)
+    print(rows, info)
+    assert info["tile_rows"] == tile
+    assert info["registers"] <= 128 and info["local_bytes"] == 0
+    assert info["blocks_per_sm"] == 2
+
+
+def test_bf16_train_loss_runs_only_the_bf16_kernels(cuda):
+    """get_diffusion_loss(impl='fast_bf16') on the card launches the bf16
+    train-mode forward and backward and no float32 training kernel; its loss
+    and gradients at the JAX package's bf16 training bar from the float32
+    'fast' step's (tests/test_fast_train.py); 'fast_bf16_pl' on a hybrid
+    graph launches the bf16 per-layer forwards and backwards."""
+    from targetdiff_tpu_torch.ops.kernels import block_vjp
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+    from targetdiff_tpu_torch.ops.kernels import edge_layer_vjp as kvjp
+
+    torch.manual_seed(0)
+    model = DiffusionModel(Config(CONFIG), 27, 13, device=cuda)
+    batch = _complexes(cuda, seed=2)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    t = torch.tensor([0, 7, 19], device=cuda)
+    eps = torch.randn(batch.ligand_pos.shape, generator=gen, device=cuda)
+    u = torch.rand(batch.ligand_v.shape + (13,), generator=gen, device=cuda)
+    f32 = lambda: (kblock.TRAIN_LAUNCHES, block_vjp.LAUNCHES, block_vjp.NODE_BWD_LAUNCHES,  # noqa
+                   kel.X2H_LAUNCHES, kel.H2X_LAUNCHES, kvjp.X2H_BWD_LAUNCHES,
+                   kvjp.H2X_BWD_LAUNCHES)
+    out = {}
+    for impl in ("fast", "fast_bf16"):
+        before = (f32(), kblock.BF16_TRAIN_LAUNCHES, block_vjp.BF16_LAUNCHES)
+        model.net.zero_grad()
+        loss = model.get_diffusion_loss(batch, time_step=t, pos_noise=eps, v_uniform=u,
+                                        impl=impl)["loss"]
+        loss.backward()
+        if impl == "fast_bf16":
+            assert f32() == before[0]
+            assert (kblock.BF16_TRAIN_LAUNCHES - before[1], block_vjp.BF16_LAUNCHES - before[2]) \
+                == (1, 1)
+        out[impl] = (float(loss), {n: p.grad.clone() for n, p in model.net.named_parameters()})
+    (l16, g16), (l32, g32) = out["fast_bf16"], out["fast"]
+    assert abs(l16 - l32) < 2e-2 * abs(l32)
+    assert all(g.dtype == torch.float32 for g in g16.values())
+    for n, g in g32.items():
+        assert float((g16[n] - g).abs().max()) < 0.08 * max(float(g.abs().max()), 1e-2), n
+    hmodel, hbatch, *_ = _layer_setup(cuda, "hybrid", 32, 64, 64, seed=3)
+    before = (f32(), kvjp.BF16_X2H_BWD_LAUNCHES, kvjp.BF16_H2X_BWD_LAUNCHES,
+              kel.BF16_X2H_LAUNCHES, kel.BF16_H2X_LAUNCHES)
+    with pytest.warns(UserWarning, match="per-layer"):
+        loss = hmodel.get_diffusion_loss(hbatch, generator=gen, impl="fast_bf16")["loss"]
+    loss.backward()
+    L = len(hmodel.net.refine_net.base_block)
+    assert f32() == before[0]
+    assert (kvjp.BF16_X2H_BWD_LAUNCHES - before[1], kvjp.BF16_H2X_BWD_LAUNCHES - before[2],
+            kel.BF16_X2H_LAUNCHES - before[3], kel.BF16_H2X_LAUNCHES - before[4]) == (L, L, L, L)
+    assert bool(torch.isfinite(loss))

@@ -33,7 +33,8 @@ NP_, NL, FEAT, CLASSES = 24, 8, 27, 13
 # (graph or denoiser, impl, time sampling): every impl the model has
 TRAIN_CASES = [(net, impl, timing) for net in ("knn", "hybrid")
                for impl in ("fast", "eager") for timing in ("symmetric", "importance")]
-TRAIN_CASES += [("knn", "fast_pl", "importance"), ("egnn", "eager", "symmetric")]
+TRAIN_CASES += [("knn", "fast_pl", "importance"), ("egnn", "eager", "symmetric"),
+                ("knn", "fast_bf16", "symmetric"), ("hybrid", "fast_bf16_pl", "importance")]
 NETS = {"knn": {}, "hybrid": dict(cutoff_mode="hybrid"), "egnn": dict(model_type="egnn")}
 SAMPLERS = ("ddpm", "ddim")
 
