@@ -75,7 +75,20 @@ at full width: two ranks of one process group on this card over gloo (and,
 on a machine with two cards, one card a rank over NCCL) take [train]'s B=32
 step split 16 / 16 and 8 rows of the example pocket for 20 DDPM steps, each
 held to one process in the same call, with each rank's launches, ms per
-step and the gradient all-reduce's ms and bytes.
+step and the gradient all-reduce's ms and bytes. After [egnn-train], the
+uni_o2 options the released model does not use, eager, at its widths, the
+graph on the kNN kernel (one launch a block call, no other kernel):
+[variant-sample] runs V1 (ew_net_type r, the x2h output MLP) and V2
+(ew_net_type m, two x2h and two h2x sub-layers, sync_twoup, swish, no norm,
+the 'sin' time embedding) on the example pocket against the CPU and
+through `sample_diffusion_ligand` (V1 1000 DDPM steps, V2 100);
+[variant-train] their eager train step (V1 at [train]'s B = 32, V2 at the
+largest of 32 / 16 / 8 that fits), the first loss against the CPU's, ms per
+step and peak GiB; [bf16-eager] the bf16 model (model_dtype=torch.bfloat16)
+of V1 and of the EGNN denoiser against the CPU (positions and final_h
+within 2e-2 of scale, logits five bf16 ulps), V1's
+bf16 train step beside float32's, and the train CLI with --dtype bf16 on V1
+(the bf16 model trained eagerly, a float32 checkpoint).
 
 Sampling's default precision is bf16, as the JAX package's: the phases above
 that hold the kernels to float32-grade bars ([forward], [sample],
@@ -887,6 +900,9 @@ def main(argv) -> int:
     cli_launches = likelihood_cli_phase(torch, train["checkpoint"])
     gate_short_phase(torch, dev)
     egnn = egnn_phases(torch, dev, pocket, feat.feature_dim, batch)
+    variant = variant_phases(torch, dev, pocket, feat.feature_dim, batch)
+    bf16_eager = bf16_eager_phase(torch, dev, pocket, feat.feature_dim, batch,
+                                  variant["train"]["V1"])
     prop = prop_phases(torch, dev, model, batch)
     prop_cli_phase(torch, dev)
     prop_gate_short_phase(torch, dev)
@@ -909,6 +925,9 @@ def main(argv) -> int:
          "max_abs_err": knn_err, "ms": knn_ms, "plain_ms": knn_plain_ms, **knn_b4_bound,
          "topk_ms": knn_shapes["B4"]["topk_ms"], **by_path("knn"),
          "launches_egnn_sample": egnn["sample"], "launches_egnn_train": egnn["train"],
+         "launches_variant_sample": variant["sample"],
+         "launches_variant_train": {k: v["knn_launches"] for k, v in variant["train"].items()},
+         "launches_bf16_eager": bf16_eager,
          "launches_prop": prop["train"], "launches_dp_train_rank0": dp["knn"]["train"],
          "launches_dp_sample_rank0": dp["knn"]["sample"], "rounds_shape": prop["rounds"]["shape"],
          **{f"rounds_{k}": prop["rounds"][k] for k in ("ms", "device_ms", "bound_ms",
@@ -3213,14 +3232,15 @@ def cli_dataset(torch, root: Path) -> None:
     torch.save({"train": [0, 1, 2, 3], "test": [4, 5]}, root / "split.pt")
 
 
-def cli_config(root: Path, max_iters: int):
-    """The train CLI's config on `cli_dataset`'s root at the flagship width."""
+def cli_config(root: Path, max_iters: int, model=FLAGSHIP):
+    """The train CLI's config on `cli_dataset`'s root for `model` (the
+    flagship by default)."""
     from targetdiff_tpu_torch.config import Config
 
     return Config(
         data=dict(name="pl", path=str(root / "raw"), split=str(root / "split.pt"),
                   transform=dict(ligand_atom_mode="add_aromatic", random_rot=False)),
-        model=FLAGSHIP,
+        model=model,
         train=dict(seed=1, batch_size=4, max_iters=max_iters, val_freq=2, pos_noise_std=0.1,
                    max_grad_norm=8.0, optimizer={k: v for k, v in OPTIMIZER.items()
                                                  if k != "max_grad_norm"},
@@ -4081,24 +4101,13 @@ def egnn_phases(torch, dev, pocket, feat_dim, batch) -> dict:
     kNN launches of the sampling run and of the timed steps."""
     from targetdiff_tpu_torch.config import Config
     from targetdiff_tpu_torch.data.batch import ComplexBatch
-    from targetdiff_tpu_torch.models.score_model import DiffusionModel
     from targetdiff_tpu_torch.ops.kernels import knn as kknn
     from targetdiff_tpu_torch.sampling import sample_diffusion_ligand
     from targetdiff_tpu_torch.trainer import create_train_state, make_train_step
     from targetdiff_tpu_torch.utils import train as train_utils
 
     L = EGNN["num_layers"]
-
-    def models(seed):
-        torch.manual_seed(seed)
-        card = DiffusionModel(Config(EGNN), feat_dim, NUM_CLASSES, device=dev,
-                              max_protein=MAX_PROTEIN, max_ligand=MAX_LIGAND)
-        cpu = DiffusionModel(Config(EGNN), feat_dim, NUM_CLASSES, device="cpu",
-                             max_protein=MAX_PROTEIN, max_ligand=MAX_LIGAND)
-        cpu.net.load_state_dict({k: v.cpu() for k, v in card.net.state_dict().items()})
-        return card, cpu
-
-    model, cpu = models(7)
+    model, cpu = eager_models(torch, dev, EGNN, feat_dim, 7)
     if model.impl != "eager":
         raise AssertionError(f"egnn-sample: the EGNN model's path is {model.impl!r}, want eager")
 
@@ -4131,15 +4140,7 @@ def egnn_phases(torch, dev, pocket, feat_dim, batch) -> dict:
     sample_launches = kknn.LAUNCHES
     if sample_launches != L * steps:
         raise AssertionError(f"egnn-sample: {sample_launches} kNN launches, want {L * steps}")
-    centre = pocket["protein_pos"].mean(0)
-    for pos, v in zip(res["pos"], res["v"]):
-        if pos.shape != (len(v), 3) or not np.isfinite(pos).all():
-            raise AssertionError("egnn-sample: a non-finite or misshaped molecule")
-        if not ((v >= 0) & (v < NUM_CLASSES)).all():
-            raise AssertionError("egnn-sample: an atom type outside the vocabulary")
-    offset = float(max(np.linalg.norm(p.mean(0) - centre) for p in res["pos"]))
-    if offset > 10.0:
-        raise AssertionError(f"egnn-sample: a centroid lies {offset} A from the pocket's")
+    offset = check_molecules("egnn-sample", res, pocket)
     phase("egnn-sample", shape=f"B={B},N={MAX_PROTEIN + MAX_LIGAND},K={K},L={L},"
           f"H={EGNN['hidden_dim']}",
           max_abs_err=errs, call_knn_launches=call_launches, call_ms=call_ms,
@@ -4150,7 +4151,7 @@ def egnn_phases(torch, dev, pocket, feat_dim, batch) -> dict:
           ligand_atoms=[len(v) for v in res["v"]], max_centroid_offset_A=offset)
     del model, cpu
 
-    tmodel, tcpu = models(8)
+    tmodel, tcpu = eager_models(torch, dev, EGNN, feat_dim, 8)
     tb = train_batch(dev)
     sub = ComplexBatch(*[t[:4] for t in tb])
     t, eps, u = loss_draws(torch, tmodel, sub, torch.Generator(device=dev).manual_seed(4))
@@ -4197,6 +4198,331 @@ def egnn_phases(torch, dev, pocket, feat_dim, batch) -> dict:
           knn_launches=train_launches, step_device_ms=step_split["device_ms"],
           step_kernel_launches=step_split["launches"], step_top_kernels=step_split["top"])
     return {"sample": sample_launches, "train": train_launches}
+
+
+# [variant-sample], [variant-train], [bf16-eager]: the uni_o2 options the
+# released model does not use, at its widths (configs/training.yml: 1 block x
+# 9 layers, hidden 128, 16 heads, kNN 32, 20 knots, 4 edge types), eager, the
+# graph on the kNN kernel. V1: the reference's class defaults for the two
+# edge options (targetdiff_tpu/models/uni_transformer.py:241-247); V2: every
+# other option at once.
+VARIANTS = {
+    "V1": dict(FLAGSHIP, ew_net_type="r", x2h_out_fc=True),
+    "V2": dict(FLAGSHIP, ew_net_type="m", num_x2h=2, num_h2x=2, sync_twoup=True,
+               act_fn="swish", norm=False, time_emb_mode="sin", time_emb_dim=8),
+}
+VARIANT_SAMPLE_STEPS = {"V1": 1000, "V2": 100}
+VARIANT_TRAIN_B = {"V1": (TRAIN_B,), "V2": (TRAIN_B, 16, 8)}  # V2: the largest that fits
+VARIANT_TRAIN_STEPS, VARIANT_TRAIN_WARMUP = 3, 1
+VARIANT_T = 500  # the time step of the single calls (V2 embeds it)
+# the bf16 model on the card against the same weights on the CPU, each output
+# relative to its scale: positions and final_h at JAX's bf16 bar on x and h
+# (tools/kparity.py:91, the CPU tests' bar against JAX's bf16 model); the
+# logits, the bf16 head's rounded output, at five bf16 ulps of their scale:
+# there the card and the CPU part as far as bf16 lies from float32 on the
+# CPU (EGNN 2.07e-2 and 1.95e-2, V1 1.32e-2 and 1.41e-2 on an H100). The
+# first loss at the CPU tests' bf16 loss bar.
+BF16_EAGER_BARS = {"pos": 2e-2, "logits": 5 * 2.0**-7, "final_h": 2e-2}
+BF16_EAGER_LOSS_REL = 1e-2
+BF16_EAGER_CLI_STEPS = 3
+
+
+def kernel_launches() -> dict:
+    """Every kernel wrapper's launch count (the counts `reset_train_counts`
+    zeroes), by module and counter, dicts summed."""
+    import importlib
+
+    out = {}
+    for name in ("block_denoiser", "block_vjp", "edge_layer", "edge_layer_vjp", "knn",
+                 "weight_grad"):
+        mod = importlib.import_module(f"targetdiff_tpu_torch.ops.kernels.{name}")
+        for attr, count in vars(mod).items():
+            if attr.endswith("LAUNCHES"):
+                out[f"{name}.{attr}"] = sum(count.values()) if isinstance(count, dict) else count
+    return out
+
+
+def knn_only(label, want_knn) -> int:
+    """The kNN launches since `reset_train_counts`; AssertionError unless
+    they are `want_knn` and no other kernel launched."""
+    counts = kernel_launches()
+    knn = counts.pop("knn.LAUNCHES")
+    others = {k: v for k, v in counts.items() if v}
+    if knn != want_knn or others:
+        raise AssertionError(f"{label}: {knn} kNN launches (want {want_knn}), other kernels "
+                             f"{others}")
+    return knn
+
+
+def eager_models(torch, dev, cfg, feat_dim, seed, max_ligand=MAX_LIGAND,
+                 model_dtype=None):
+    """A model of `cfg` with seeded random weights on the card and the same
+    weights on the CPU."""
+    from targetdiff_tpu_torch.config import Config
+    from targetdiff_tpu_torch.models.score_model import DiffusionModel
+
+    md = model_dtype or torch.float32
+    torch.manual_seed(seed)
+    card = DiffusionModel(Config(cfg), feat_dim, NUM_CLASSES, device=dev,
+                          max_protein=MAX_PROTEIN, max_ligand=max_ligand, model_dtype=md)
+    cpu = DiffusionModel(Config(cfg), feat_dim, NUM_CLASSES, device="cpu",
+                         max_protein=MAX_PROTEIN, max_ligand=max_ligand, model_dtype=md)
+    cpu.net.load_state_dict({k: v.cpu() for k, v in card.net.state_dict().items()})
+    return card, cpu
+
+
+def eager_call_fields(torch, model, cpu, batch, label, tol=None, scale_bars=None) -> dict:
+    """One eager call of `model` on `batch` (t = VARIANT_T) against the same
+    weights on the CPU: one kNN launch a graph and no other kernel; errors
+    of positions and logits within `tol` (allclose keywords of each), or
+    with `scale_bars` those and final_h's, each relative to its scale,
+    within its bar; ms by CUDA events."""
+    t = torch.full((batch.num_graphs,), VARIANT_T, dtype=torch.long, device=batch.device)
+
+    def call():
+        with torch.no_grad():
+            return model.apply(batch, batch.ligand_pos, batch.ligand_v, time_step=t)
+
+    graphs = graphs_per_call(model.config)
+    reset_train_counts()
+    got = call()
+    torch.cuda.synchronize()
+    knn_only(label, graphs)
+    with torch.no_grad():
+        want = cpu.apply(batch.to("cpu"), batch.ligand_pos.cpu(), batch.ligand_v.cpu(),
+                         time_step=t.cpu())
+    lm = batch.ligand_mask.cpu()
+    pairs = {"pos": (got["pred_ligand_pos"].cpu()[lm], want["pred_ligand_pos"][lm]),
+             "logits": (got["pred_ligand_v"].cpu()[lm], want["pred_ligand_v"][lm])}
+    if scale_bars is None:
+        errs = {k: check_close(f"{label} {k}", g, w, **tol[k]) for k, (g, w) in pairs.items()}
+    else:
+        pairs["final_h"] = (got["final_h"].cpu(), want["final_h"])
+        errs = {}
+        for k, (g, w) in pairs.items():
+            errs[k] = float((g - w).abs().max() / w.abs().max())
+            if not errs[k] <= scale_bars[k]:
+                raise AssertionError(f"{label}: {k} {errs[k]} of scale from the CPU's "
+                                     f"(bar {scale_bars[k]})")
+    return {"max_err": errs, "call_ms": cuda_ms(torch, call, reps=5, warmup=1),
+            "call_knn_launches": graphs}
+
+
+def graphs_per_call(cfg) -> int:
+    """kNN graphs a forward builds: one a block (uni_o2), one a layer (EGNN)."""
+    return cfg["num_layers"] if cfg["model_type"] == "egnn" else cfg["num_blocks"]
+
+
+def check_molecules(label, res, pocket) -> float:
+    """Molecules finite, of their sizes, in the vocabulary and near the
+    pocket; returns the largest centroid offset (A)."""
+    centre = pocket["protein_pos"].mean(0)
+    for pos, v in zip(res["pos"], res["v"]):
+        if pos.shape != (len(v), 3) or not np.isfinite(pos).all():
+            raise AssertionError(f"{label}: a non-finite or misshaped molecule")
+        if not ((v >= 0) & (v < NUM_CLASSES)).all():
+            raise AssertionError(f"{label}: an atom type outside the vocabulary")
+    offset = float(max(np.linalg.norm(p.mean(0) - centre) for p in res["pos"]))
+    if offset > 10.0:
+        raise AssertionError(f"{label}: a centroid lies {offset} A from the pocket's")
+    return offset
+
+
+def eager_train_fields(torch, dev, model, cpu, b, label, loss_rel=1e-4) -> dict:
+    """`make_train_step` (the model's eager path) on the first b complexes
+    of [train]'s batch: the first loss within loss_rel of the CPU's on the
+    first four complexes with the same draws, then VARIANT_TRAIN_STEPS timed
+    steps after VARIANT_TRAIN_WARMUP, one kNN launch each and no other
+    kernel; losses finite; peak GiB of the timed steps."""
+    from targetdiff_tpu_torch.config import Config
+    from targetdiff_tpu_torch.data.batch import ComplexBatch
+    from targetdiff_tpu_torch.trainer import create_train_state, make_train_step
+    from targetdiff_tpu_torch.utils import train as train_utils
+
+    tb = train_batch(dev)
+    sub = ComplexBatch(*[t[:4] for t in tb])
+    tb = ComplexBatch(*[t[:b] for t in tb])
+    t, eps, u = loss_draws(torch, model, sub, torch.Generator(device=dev).manual_seed(4))
+    state = create_train_state(model, train_utils.get_optimizer(Config(OPTIMIZER),
+                                                                model.parameters()))
+    _, first = make_train_step(model, pos_noise_std=0.0)(state, sub, None, time_step=t,
+                                                         pos_noise=eps, v_uniform=u)
+    with torch.no_grad():
+        ref = cpu.get_diffusion_loss(sub.to("cpu"), time_step=t.cpu(), pos_noise=eps.cpu(),
+                                     v_uniform=u.cpu())
+    loss_err = abs(float(first["loss"]) - float(ref["loss"])) / abs(float(ref["loss"]))
+    if not loss_err <= loss_rel:
+        raise AssertionError(f"{label}: first loss {float(first['loss'])} against the CPU's "
+                             f"{float(ref['loss'])} (rel {loss_err})")
+    step = make_train_step(model, pos_noise_std=0.1)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for _ in range(VARIANT_TRAIN_WARMUP):
+        state, metrics = step(state, tb, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(VARIANT_TRAIN_STEPS):
+        state, metrics = step(state, tb, gen)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / VARIANT_TRAIN_STEPS
+    launches = knn_only(label, VARIANT_TRAIN_STEPS * graphs_per_call(model.config))
+    losses = [float(x) for x in losses]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: losses {losses}")
+    return {"B": b, "first_loss": float(first["loss"]), "cpu_first_loss": float(ref["loss"]),
+            "first_loss_rel_err": loss_err, "losses": losses, "ms_per_step": ms,
+            "complexes_per_s": 1e3 * b / ms, "peak_gib": peak_gib(torch),
+            "knn_launches": launches}
+
+
+def variant_phases(torch, dev, pocket, feat_dim, batch) -> dict:
+    """[variant-sample]: V1 and V2 at the released widths on the example
+    pocket (B = 4, N = 608): one call on the card against the same weights
+    on the CPU (positions POS_TOL, logits H_TOL), exactly one kNN launch a
+    call and no other kernel, timed; then a DDPM run through
+    `sample_diffusion_ligand` (the model's eager path; V1 1000 steps, V2 the
+    last 100), one kNN launch a step, molecules finite, in the vocabulary
+    and near the pocket, ms per step. [variant-train]: `make_train_step` of
+    V1 at [train]'s B = 32 batch (N = 416) and of V2 at the largest of
+    32 / 16 / 8 that fits the card (a batch that runs out of memory is
+    recorded and the next tried): the first loss within 1e-4 of the CPU's,
+    timed steps with one kNN launch each, peak GiB. Returns the kNN
+    launches of each run and V1's train fields."""
+    from targetdiff_tpu_torch.sampling import sample_diffusion_ligand
+
+    card = card_name()
+    out = {"sample": {}, "train": {}}
+    for name, cfg in VARIANTS.items():
+        model, cpu = eager_models(torch, dev, cfg, feat_dim, 21)
+        rn = model.net.refine_net
+        if model.impl != "eager" or not rn.knn_kernel:
+            raise AssertionError(f"variant-sample {name}: path {model.impl!r}, graph on the "
+                                 f"kNN kernel {rn.knn_kernel}")
+        fields = eager_call_fields(torch, model, cpu, batch, f"variant-sample {name}",
+                                   {"pos": POS_TOL, "logits": H_TOL})
+        steps = VARIANT_SAMPLE_STEPS[name]
+        reset_train_counts()
+        t0 = time.perf_counter()
+        res = sample_diffusion_ligand(
+            model, pocket, num_samples=B, generator=torch.Generator(device=dev).manual_seed(9),
+            batch_size=B, num_steps=steps, max_protein=MAX_PROTEIN, max_ligand=MAX_LIGAND,
+            rng=np.random.default_rng(9))
+        wall = time.perf_counter() - t0
+        launches = knn_only(f"variant-sample {name}", steps)
+        offset = check_molecules(f"variant-sample {name}", res, pocket)
+        out["sample"][name] = launches
+        phase("variant-sample", card=card, config=name,
+              shape=f"B={B},N={MAX_PROTEIN + MAX_LIGAND},K={K},L={cfg['num_layers']},"
+              f"H={cfg['hidden_dim']}", **fields, steps=steps, seconds=res["time"][0],
+              wall_seconds=wall, ms_per_step=1e3 * res["time"][0] / steps,
+              knn_launches=launches, ligand_atoms=[len(v) for v in res["v"]],
+              max_centroid_offset_A=offset)
+        del model, cpu, res
+        torch.cuda.empty_cache()
+    for name, cfg in VARIANTS.items():
+        out_of_memory = []
+        for b in VARIANT_TRAIN_B[name]:
+            # fresh weights for each batch tried: a step that ran out of
+            # memory may have updated them
+            model, cpu = eager_models(torch, dev, cfg, feat_dim, 22)
+            fields = None
+            try:
+                fields = eager_train_fields(torch, dev, model, cpu, b, f"variant-train {name}")
+            except torch.cuda.OutOfMemoryError:
+                if b == VARIANT_TRAIN_B[name][-1]:
+                    raise
+                out_of_memory.append(b)
+            if fields is not None:
+                break
+            del model, cpu
+            torch.cuda.empty_cache()
+        out["train"][name] = fields
+        phase("variant-train", card=card, config=name,
+              shape=f"B={fields['B']},N={TRAIN_PROTEIN + MAX_LIGAND},K={K},"
+              f"L={cfg['num_layers']}", out_of_memory_at_B=out_of_memory, **fields)
+        del model, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def bf16_eager_phase(torch, dev, pocket, feat_dim, batch, v1_train) -> dict:
+    """[bf16-eager]: the bf16 model (`model_dtype=torch.bfloat16`, JAX's
+    dtype=bf16 model on its XLA path) of V1 and of the EGNN denoiser: one
+    call on the card against the same weights on the CPU, positions, logits
+    and final_h within BF16_EAGER_BARS of their scale, one kNN launch a graph
+    and no other kernel, timed beside the float32 model's call; V1's eager
+    train step at [variant-train]'s batch, ms and peak GiB beside float32's
+    from [variant-train]; then `train_diffusion --dtype bf16` on V1 for
+    BF16_EAGER_CLI_STEPS iterations: the bf16 model trained eagerly, losses
+    finite, one kNN launch a step and validation call and no other kernel,
+    the checkpoint float32. Returns the kNN launches."""
+    from targetdiff_tpu_torch.cli import train_diffusion
+    from targetdiff_tpu_torch.config import Config
+    from targetdiff_tpu_torch.models.score_model import DiffusionModel
+
+    card = card_name()
+    launches = {}
+    t = torch.full((B,), VARIANT_T, dtype=torch.long, device=dev)
+    for name, cfg in (("V1", VARIANTS["V1"]), ("egnn", EGNN)):
+        model, cpu = eager_models(torch, dev, cfg, feat_dim, 23, model_dtype=torch.bfloat16)
+        fields = eager_call_fields(torch, model, cpu, batch, f"bf16-eager {name}",
+                                   scale_bars=BF16_EAGER_BARS)
+        f32 = DiffusionModel(Config(cfg), feat_dim, NUM_CLASSES, device=dev,
+                             max_protein=MAX_PROTEIN, max_ligand=MAX_LIGAND)
+        f32.net.load_state_dict(model.net.state_dict())
+
+        def f32_call():
+            with torch.no_grad():
+                return f32.apply(batch, batch.ligand_pos, batch.ligand_v, time_step=t)
+
+        f32_ms = cuda_ms(torch, f32_call, reps=5, warmup=1)
+        del f32
+        train = {}
+        if name == "V1":
+            train = eager_train_fields(torch, dev, model, cpu, v1_train["B"], "bf16-eager V1",
+                                       loss_rel=BF16_EAGER_LOSS_REL)
+            train = {f"train_{k}": v for k, v in train.items()}
+            train.update(train_ms_per_step_float32=v1_train["ms_per_step"],
+                         train_peak_gib_float32=v1_train["peak_gib"])
+        launches[name] = fields["call_knn_launches"]
+        phase("bf16-eager", card=card, config=name, bars=BF16_EAGER_BARS, **fields,
+              call_ms_float32=f32_ms, **train)
+        del model, cpu
+        torch.cuda.empty_cache()
+
+    root = REPO / "outputs" / "chip_smoke_train_bf16_eager"
+    cli_dataset(torch, root)
+    config = cli_config(root, BF16_EAGER_CLI_STEPS, VARIANTS["V1"])
+    args = train_diffusion.parser().parse_args(
+        ["in-code", "--device", "cuda", "--logdir", str(root / "logs"), "--max_protein",
+         str(MAX_PROTEIN), "--max_ligand", "40", "--train_report_iter", "1", "--dtype", "bf16"])
+    reset_train_counts()
+    t0 = time.perf_counter()
+    res = train_diffusion.run(config, args)
+    seconds = time.perf_counter() - t0
+    # one graph a train step and a validation call (10 timesteps per batch of
+    # the two-entry test split, one batch, at each val_freq = 2 iterations)
+    n_val = BF16_EAGER_CLI_STEPS // 2 * 10
+    cli_knn = knn_only("bf16-eager train-cli", BF16_EAGER_CLI_STEPS + n_val)
+    log = (Path(res["log_dir"]) / "log.txt").read_text()
+    if "training path: eager; model dtype: torch.bfloat16" not in log:
+        raise AssertionError("bf16-eager train-cli: the CLI did not train the bf16 model eagerly")
+    if not res["checkpoints"] or not np.isfinite(list(res["metrics"].values())).all():
+        raise AssertionError(f"bf16-eager train-cli: checkpoints {res['checkpoints']}, "
+                             f"metrics {res['metrics']}")
+    with np.load(res["checkpoints"][-1]) as z:
+        dtypes = sorted({str(z[k].dtype) for k in z.files if z[k].dtype.kind == "f"})
+    if dtypes != ["float32"]:
+        raise AssertionError(f"bf16-eager train-cli: checkpoint arrays of {dtypes}")
+    launches["train_cli"] = cli_knn
+    phase("bf16-eager train-cli", card=card, config="V1", steps=BF16_EAGER_CLI_STEPS,
+          seconds=seconds, checkpoint=Path(res["checkpoints"][-1]).name,
+          checkpoint_dtypes=dtypes, knn_launches=cli_knn, best_val=res["best_val"],
+          last_metrics=res["metrics"])
+    return launches
 
 
 def prop_batch(torch, dev, seed=0):

@@ -12,9 +12,11 @@ with the JAX CLI's fields. Complexes go `--batch_complexes` at a time: one
 The model picks the denoiser's path from the checkpoint's config
 (`DiffusionModel.impl`): the kernels in float32 for the released uni_o2
 architecture, for both the KL terms and the embedding, whose coordinates
-stay frozen; the plain network for the EGNN denoiser. A config the port does
-not build is refused. `main` reads the YAML config (PyYAML is imported there
-only); `run` takes a Config built in code.
+stay frozen; the plain network for every other configuration (the EGNN
+denoiser, the uni_o2 options off the kernels). A config the port does not
+build is refused, and so is a time-embedding config, whose embedding export
+has no time step (`fetch_embedding`). `main` reads the YAML config (PyYAML
+is imported there only); `run` takes a Config built in code.
 """
 
 from __future__ import annotations
@@ -117,9 +119,13 @@ def run(config, args) -> str:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     logger = logging.getLogger("likelihood")
     ckpt = config.model.checkpoint
-    ok, reason = eager_supported(load_npz_config(ckpt).model)
+    model_cfg = load_npz_config(ckpt).model
+    ok, reason = eager_supported(model_cfg)
     if not ok:
         raise SystemExit(f"the port does not build this checkpoint's model ({reason})")
+    if model_cfg.get("time_emb_dim", 0) > 0:
+        raise SystemExit("this checkpoint's model embeds the time step, and the embedding "
+                         "export (fetch_embedding) passes none")
     os.makedirs(args.result_path, exist_ok=True)
     model, train_config, protein_feat = load_model_from_checkpoint(
         ckpt, args.device, args.max_protein, args.max_ligand)

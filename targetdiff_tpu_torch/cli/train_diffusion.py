@@ -16,11 +16,11 @@ impl='fast'), or through the plain network on a config the kernels do not
 take, such as the EGNN denoiser: the model picks the path from its config.
 --dtype bf16 trains the kernel path as the JAX package's bf16 training
 variant (impl='fast_bf16': bf16 products in both directions, float32
-parameters, optimizer and checkpoints; validation stays float32). The
-JAX CLI's --dtype bf16 sets its flax model's dtype, which reaches the
-kernels only with impl='fast_bf16'; the port has no bf16 eager network yet
-(ROADMAP A17b), so --dtype bf16 on a config that trains eagerly (EGNN)
-raises rather than train in float32.
+parameters, optimizer and checkpoints; validation stays float32). On a
+config that trains eagerly (EGNN, the uni_o2 options off the kernels) it
+builds the bf16 model, `DiffusionModel(model_dtype=torch.bfloat16)`, and
+trains it eagerly, as the JAX CLI's --dtype bf16 --impl xla: parameters,
+optimizer state and checkpoints float32, validation in the bf16 model.
 With the --dist_* flags, W processes train one model data parallel
 (`parallel/mesh.py`, JAX's --dist_* flags): each builds the same global
 batch from the same loader seed and computes its equal row slice, one card
@@ -49,6 +49,7 @@ from ..data.transforms import (
     FeaturizeProteinAtom,
     RandomRotation,
 )
+from ..models.fast_forward import fast_forward_supported
 from ..models.score_model import DiffusionModel
 from ..parallel import mesh as pmesh
 from ..trainer import atom_auroc, create_train_state, make_eval_step, make_train_step
@@ -77,24 +78,26 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--max_ligand", type=int, default=64)
     ap.add_argument("--train_report_iter", type=int, default=200)
     ap.add_argument("--dtype", default="f32", choices=["f32", "bf16"],
-                    help="the denoiser's products in training (parameters stay float32): "
-                    "bf16 trains on the bf16 kernels, impl='fast_bf16'")
+                    help="the denoiser's precision in training (parameters stay float32): "
+                    "bf16 trains on the bf16 kernels (impl='fast_bf16'), or the bf16 "
+                    "model eagerly where the config trains eagerly")
     add_dist_args(ap)
     return ap
 
 
+def model_dtype(model_cfg, dtype: str) -> torch.dtype:
+    """The model dtype for --dtype: bf16 where the config trains eagerly,
+    else float32 (the kernels' bf16 variant takes its precision from impl)."""
+    eager = not fast_forward_supported(model_cfg)[0]
+    return torch.bfloat16 if dtype == "bf16" and eager else torch.float32
+
+
 def train_impl(model: DiffusionModel, dtype: str) -> str:
-    """The training step's impl for --dtype: the model's path for 'f32';
-    for 'bf16' the kernel path's bf16 variant, 'fast_bf16', or ValueError
-    where the model trains eagerly."""
-    if dtype == "f32":
-        return model.impl
-    if model.impl != "fast":
-        raise ValueError(f"--dtype bf16 trains on the bf16 kernels (impl='fast_bf16'); this "
-                         f"config trains on the {model.impl} path (model_type="
-                         f"{model.config.model_type!r}), whose bf16 network is not ported "
-                         "(ROADMAP A17b): use --dtype f32")
-    return "fast_bf16"
+    """The training step's impl for --dtype: the model's path, or for
+    'bf16' on the kernel path its bf16 variant, 'fast_bf16'."""
+    if dtype == "bf16" and model.impl == "fast":
+        return "fast_bf16"
+    return model.impl
 
 
 def run(config, args) -> dict:
@@ -146,9 +149,10 @@ def _train(config, args, device, log_dir, logger, mesh=None) -> dict:
 
     model = DiffusionModel(config.model, protein_feat.feature_dim, ligand_feat.feature_dim,
                            device=device, max_protein=args.max_protein,
-                           max_ligand=args.max_ligand)
+                           max_ligand=args.max_ligand,
+                           model_dtype=model_dtype(config.model, args.dtype))
     impl = train_impl(model, args.dtype)
-    logger.info(f"training path: {impl}")
+    logger.info(f"training path: {impl}; model dtype: {model.model_dtype}")
     opt_cfg = dict(config.train.optimizer, max_grad_norm=config.train.max_grad_norm)
     optimizer = train_utils.get_optimizer(type(config)(opt_cfg), model.parameters())
     scheduler = train_utils.get_scheduler(config.train.scheduler, config.train.optimizer)

@@ -26,27 +26,48 @@ class ShiftedSoftplus(nn.Module):
         return shifted_softplus(x)
 
 
+class Swish(nn.Module):
+    """x * sigmoid(beta * x) with a learnable beta (reference:
+    models/common.py:41-47; targetdiff_tpu/models/common.py:26-32). beta is
+    float32, so under a bf16 model the result is float32, as JAX promotes
+    bf16 * float32."""
+
+    def __init__(self):
+        super().__init__()
+        self.beta = nn.Parameter(torch.tensor(1.0))
+
+    def forward(self, x):
+        x = x.to(torch.promote_types(x.dtype, self.beta.dtype))
+        return x * torch.sigmoid(self.beta * x)
+
+
 _ACTIVATIONS = {"tanh": nn.Tanh, "relu": nn.ReLU, "softplus": nn.Softplus, "elu": nn.ELU,
-                "silu": nn.SiLU}
+                "silu": nn.SiLU, "swish": Swish}
+ACTIVATIONS = tuple(sorted(_ACTIVATIONS))
 
 
 def get_activation(name: str) -> nn.Module:
-    """The activation module of `name` (targetdiff_tpu/models/common.py:35;
-    the learnable 'swish' is not ported)."""
+    """The activation module of `name` (targetdiff_tpu/models/common.py:35)."""
     if name not in _ACTIVATIONS:
-        raise NotImplementedError(f"activation {name!r} is not ported "
-                                  f"(have {sorted(_ACTIVATIONS)})")
+        raise ValueError(f"unknown activation {name!r} (have {list(ACTIVATIONS)})")
     return _ACTIVATIONS[name]()
 
 
 class MLP(nn.Module):
     """Linear -> [LayerNorm] -> act, num_layer - 1 times, then Linear, and
     with act_last a [LayerNorm] -> act after it (reference:
-    models/common.py:60-80). The defaults are the released MLP."""
+    models/common.py:60-80). The defaults are the released MLP. One
+    activation module serves every position, as flax's MLP creates one (a
+    swish MLP has one beta, `Swish_0` there). model_dtype is the model
+    dtype (ops/precision.py model_linear): torch.bfloat16 runs the MLP as
+    JAX's MLP(dtype=jnp.bfloat16)."""
 
     def __init__(self, in_dim: int, out_dim: int, hidden_dim: int, num_layer: int = 2,
-                 norm: bool = True, act_fn: str = "relu", act_last: bool = False):
+                 norm: bool = True, act_fn: str = "relu", act_last: bool = False,
+                 model_dtype=torch.float32):
         super().__init__()
+        self.model_dtype = precision.check_dtype(model_dtype)
+        act = get_activation(act_fn)
         layers = []
         for i in range(num_layer):
             width = hidden_dim if i < num_layer - 1 else out_dim
@@ -54,12 +75,15 @@ class MLP(nn.Module):
             if i < num_layer - 1 or act_last:
                 if norm:
                     layers.append(nn.LayerNorm(width))
-                layers.append(get_activation(act_fn))
+                layers.append(act)
         self.net = nn.Sequential(*layers)
 
     def forward(self, x, dtype=torch.float32):
         """dtype=torch.bfloat16: each Linear's input and weight rounded to
-        bf16, the product in float32 (ops/precision.py)."""
+        bf16, the product in float32 (ops/precision.py linear: the plain
+        version of the bf16 kernels). A bf16 model ignores dtype."""
+        if self.model_dtype != torch.float32:
+            return precision.model_sequential(self.net, x, self.model_dtype)
         if dtype == torch.float32:
             return self.net(x)
         for m in self.net:

@@ -32,6 +32,8 @@ from ..ops.kernels.edge_layer_vjp import h2x_layer_trainable, x2h_layer_trainabl
 from ..ops.kernels.knn import knn_graph
 from ..ops.precision import check_dtype
 from ..ops.rbf import FIXED_OFFSETS
+from .common import ACTIVATIONS
+from .uni_transformer import EDGE_TYPES, EW_NET_TYPES
 
 
 def fast_forward_supported(config: Config) -> tuple:
@@ -61,17 +63,43 @@ def fast_forward_supported(config: Config) -> tuple:
 
 
 def eager_supported(config: Config) -> tuple:
-    """Whether the port's eager network builds this config: the released
-    uni_o2 architecture (as `fast_forward_supported`) or the EGNN denoiser,
-    over a kNN or a hybrid graph, without a time embedding. Returns
+    """Whether the port's eager network builds this config: every uni_o2
+    and EGNN configuration the JAX package's XLA path builds
+    (targetdiff_tpu/models/uni_transformer.py, egnn.py, score_model.py),
+    over a kNN or a hybrid graph, with or without a time embedding. Refused,
+    as there: `cutoff_mode` other than knn / hybrid (JAX raises), a
+    `time_emb_mode` other than simple / sin, an unknown activation or edge-
+    weight type. Also refused: uni_o2 with `num_r_gaussian` other than 20,
+    since JAX and the reference smear distances on the 20 fixed knots
+    whatever it says (targetdiff_tpu/ops/rbf.py:21-31) and the reference's
+    MLP widths then break, and with nonzero `edge_feat_dim` other than 4,
+    the width of the edge-type one-hot that feeds the attention. Returns
     (ok, reason)."""
-    if config.model_type == "egnn":
-        if config.get("time_emb_dim", 0) != 0:
-            return False, "time_emb_dim>0"
-        if config.cutoff_mode not in ("knn", "hybrid"):
-            return False, f"cutoff_mode={config.cutoff_mode!r}"
-        return True, ""
-    return fast_forward_supported(config)
+    cfg = config
+    temb = cfg.get("time_emb_dim", 0)
+    checks = [
+        (cfg.model_type in ("uni_o2", "egnn"), f"model_type={cfg.model_type!r}"),
+        (cfg.cutoff_mode in ("knn", "hybrid"), f"cutoff_mode={cfg.cutoff_mode!r}"),
+        (temb == 0 or cfg.get("time_emb_mode", "simple") in ("simple", "sin"),
+         f"time_emb_mode={cfg.get('time_emb_mode')!r} (have 'simple', 'sin')"),
+    ]
+    if cfg.model_type == "uni_o2":
+        checks += [
+            (cfg.ew_net_type in EW_NET_TYPES,
+             f"ew_net_type={cfg.ew_net_type!r} (have {', '.join(EW_NET_TYPES)})"),
+            (cfg.act_fn in ACTIVATIONS, f"act_fn={cfg.act_fn!r} (have {', '.join(ACTIVATIONS)})"),
+            (cfg.num_x2h >= 0 and cfg.num_h2x >= 0,
+             f"num_x2h={cfg.num_x2h}/num_h2x={cfg.num_h2x}"),
+            (cfg.edge_feat_dim in (0, EDGE_TYPES),
+             f"edge_feat_dim={cfg.edge_feat_dim} (the edge features are the {EDGE_TYPES} "
+             "edge types, or none)"),
+            (cfg.num_r_gaussian == len(FIXED_OFFSETS),
+             f"num_r_gaussian={cfg.num_r_gaussian} (need {len(FIXED_OFFSETS)}, the fixed knots)"),
+        ]
+    for ok, reason in checks:
+        if not ok:
+            return False, reason
+    return True, ""
 
 
 def require_kernels(config: Config) -> None:
@@ -83,13 +111,25 @@ def require_kernels(config: Config) -> None:
                          f"this config has {reason}: use impl='eager'")
 
 
-def resolve_impl(config: Config) -> str:
+def require_float32_model(net) -> None:
+    """Raise ValueError unless `net` (a ScorePosNet) is a float32 model: the
+    kernels take their precision from `dtype`, never from the model dtype."""
+    if net.model_dtype != torch.float32:
+        raise ValueError(f"the kernel paths run float32 models (their products' precision "
+                         f"is dtype=); this model's dtype is {net.model_dtype}: use impl='eager'")
+
+
+def resolve_impl(config: Config, model_dtype=torch.float32) -> str:
     """The denoiser's path for this config, chosen once by the model (the
     port's counterpart of targetdiff_tpu/models/fast_forward.py:195 'auto'):
-    'fast' (the kernels) when the config is supported, else 'eager'. The
-    choice depends on the config alone, never on the device or on a failed
-    build; it is logged."""
+    'fast' (the kernels) when the config is supported and the model is
+    float32, else 'eager' (a bf16 model runs eagerly, as the JAX package's
+    dtype=bf16 model on its XLA path). The choice depends on the config and
+    the model dtype alone, never on the device or on a failed build; it is
+    logged with the option that sends the config to the eager path."""
     ok, reason = fast_forward_supported(config)
+    if ok and model_dtype != torch.float32:
+        ok, reason = False, f"model_dtype={model_dtype}"
     logging.getLogger(__name__).info(
         "denoiser path: %s",
         "the kernels (fast)" if ok else f"eager ({reason} is not on the kernels)")
@@ -123,6 +163,7 @@ def fast_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos, ligan
         raise ValueError(f"mode must be 'mega' or 'layers', got {mode!r}")
     check_dtype(dtype)
     require_kernels(net.config)
+    require_float32_model(net)
     if packed is not None and packed.dtype != dtype:
         raise ValueError(f"packed weights are for {packed.dtype} kernels, not {dtype}")
     h, x, node_mask, mask_ligand = net.embed(
@@ -172,6 +213,7 @@ def fast_train_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos,
     pred_ligand_v, final_ligand_h (padded ligand rows zero) and final_h."""
     check_dtype(dtype)
     require_kernels(net.config)
+    require_float32_model(net)
     h, x, node_mask, mask_ligand = net.embed(
         protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v, ligand_mask)
     rn = net.refine_net

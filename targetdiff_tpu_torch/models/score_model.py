@@ -17,11 +17,15 @@ default (the JAX package's sampling default) or torch.float32; impl='eager'
 ignores it. `likelihood_estimation` and `fetch_embedding` run in float32
 whatever the sampler's default; training is float32 unless
 `get_diffusion_loss` is given impl='fast_bf16' or 'fast_bf16_pl' (the JAX
-package's bf16 training variant).
+package's bf16 training variant). Apart from these, `DiffusionModel(
+model_dtype=torch.bfloat16)` is the JAX package's bf16 model (its
+`DiffusionModel(dtype=jnp.bfloat16)`), which runs eagerly in every entry
+point.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -33,13 +37,14 @@ from ..config import Config
 from ..data.batch import ComplexBatch
 from ..ops import diffusion as D
 from ..ops import graph as G
+from ..ops import precision
 from ..ops.kernels.block_denoiser import PackedBlock, pack_block_params
 from ..ops.precision import check_dtype
 from ..ops.schedules import make_categorical_schedule, make_gaussian_schedule
 from .common import ShiftedSoftplus
 from .egnn import EGNN
-from .fast_forward import (eager_supported, fast_forward, fast_train_forward, require_kernels,
-                           resolve_impl)
+from .fast_forward import (eager_supported, fast_forward, fast_forward_supported,
+                           fast_train_forward, require_kernels, resolve_impl)
 from .uni_transformer import UniTransformerO2TwoUpdateGeneral
 
 # get_diffusion_loss's denoiser paths: float32 ('fast', 'fast_pl', 'eager')
@@ -47,55 +52,120 @@ from .uni_transformer import UniTransformerO2TwoUpdateGeneral
 TRAIN_IMPLS = ("fast", "fast_pl", "eager", "fast_bf16", "fast_bf16_pl")
 
 
-def build_refine_net(config: Config, max_ligand: int) -> nn.Module:
+class SinusoidalPosEmb(nn.Module):
+    """Sinusoidal features of a time step [B] -> [B, dim] (reference:
+    models/molopt_score_model.py:182-194; targetdiff_tpu/models/
+    score_model.py:45-55)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x):
+        half_dim = self.dim // 2
+        emb = math.log(10000) / (half_dim - 1)
+        emb = torch.exp(torch.arange(half_dim, device=x.device, dtype=torch.float32) * -emb)
+        emb = x[:, None] * emb[None, :]
+        return torch.cat([emb.sin(), emb.cos()], dim=-1)
+
+
+def build_refine_net(config: Config, max_ligand: int, model_dtype=torch.float32) -> nn.Module:
     """The refine net of `model_type` (targetdiff_tpu/models/score_model.py:
-    58): uni_o2, or the EGNN denoiser, which takes neither the config's
-    RBF knots nor its activation and norm (one distance feature, silu, no
-    norm), as the JAX package builds it."""
+    58): uni_o2 with every option of the config, or the EGNN denoiser, which
+    takes neither the config's RBF knots nor its activation and norm (one
+    distance feature, silu, no norm), as the JAX package builds it. A uni_o2
+    net that is not the kernels' plain version (another architecture, or a
+    bf16 model) builds its kNN graph on the kNN kernel."""
     if config.model_type == "egnn":
         return EGNN(num_layers=config.num_layers, hidden_dim=config.hidden_dim,
                     edge_feat_dim=config.edge_feat_dim, k=config.knn,
-                    cutoff_mode=config.cutoff_mode, max_ligand=max_ligand)
+                    cutoff_mode=config.cutoff_mode, max_ligand=max_ligand,
+                    model_dtype=model_dtype)
+    kernels, _ = fast_forward_supported(config)
     return UniTransformerO2TwoUpdateGeneral(
         num_blocks=config.num_blocks, num_layers=config.num_layers,
         hidden_dim=config.hidden_dim, n_heads=config.n_heads, k=config.knn,
         num_r_gaussian=config.num_r_gaussian, edge_feat_dim=config.edge_feat_dim,
-        cutoff_mode=config.cutoff_mode, max_ligand=max_ligand)
+        cutoff_mode=config.cutoff_mode, max_ligand=max_ligand, act_fn=config.act_fn,
+        norm=bool(config.norm), ew_net_type=config.ew_net_type, num_x2h=config.num_x2h,
+        num_h2x=config.num_h2x, x2h_out_fc=bool(config.x2h_out_fc),
+        sync_twoup=bool(config.sync_twoup), model_dtype=model_dtype,
+        knn_kernel=not kernels or model_dtype != torch.float32)
 
 
 class ScorePosNet(nn.Module):
-    """The denoiser network (reference: models/molopt_score_model.py:272-368)."""
+    """The denoiser network (reference: models/molopt_score_model.py:272-368).
+    With `time_emb_dim` > 0 the ligand atoms' input features carry the time
+    step: 'simple' appends t / T (one feature, whatever the dim), 'sin' the
+    sinusoidal embedding through Linear(4 dim), the tanh-approximated GELU
+    (jax.nn.gelu's default) and Linear(dim) (`time_emb.1`, `time_emb.3`),
+    as the JAX package computes them. model_dtype torch.bfloat16 is the JAX
+    package's bf16 model (ScorePosNet(dtype=jnp.bfloat16)): embeddings,
+    refine net and type head in bf16, the time embedding, the position
+    update and the outputs float32."""
 
     def __init__(self, config: Config, protein_atom_feature_dim: int,
-                 ligand_atom_feature_dim: int, max_ligand: int = 0):
+                 ligand_atom_feature_dim: int, max_ligand: int = 0, model_dtype=torch.float32):
         super().__init__()
         ok, reason = eager_supported(config)
         if not ok:
-            raise NotImplementedError(f"the PyTorch port builds the released uni_o2 "
-                                      f"architecture and the EGNN denoiser ({reason})")
+            raise NotImplementedError(f"the PyTorch port builds the uni_o2 configurations and "
+                                      f"the EGNN denoiser of the JAX package ({reason})")
         self.config = config
+        self.model_dtype = check_dtype(model_dtype)
         self.node_indicator = bool(config.node_indicator)
         self.num_classes = ligand_atom_feature_dim
+        self.num_timesteps = int(config.num_diffusion_timesteps)
+        self.time_emb_dim = int(config.get("time_emb_dim", 0))
+        self.time_emb_mode = config.get("time_emb_mode", "simple")
         hidden = config.hidden_dim
         emb_dim = hidden - 1 if self.node_indicator else hidden
+        ligand_in = ligand_atom_feature_dim
+        if self.time_emb_dim > 0 and self.time_emb_mode == "sin":
+            d = self.time_emb_dim
+            self.time_emb = nn.Sequential(SinusoidalPosEmb(d), nn.Linear(d, 4 * d),
+                                          nn.GELU(approximate="tanh"), nn.Linear(4 * d, d))
+            ligand_in += d
+        elif self.time_emb_dim > 0:
+            ligand_in += 1
         self.protein_atom_emb = nn.Linear(protein_atom_feature_dim, emb_dim)
-        self.ligand_atom_emb = nn.Linear(ligand_atom_feature_dim, emb_dim)
-        self.refine_net = build_refine_net(config, max_ligand)
+        self.ligand_atom_emb = nn.Linear(ligand_in, emb_dim)
+        self.refine_net = build_refine_net(config, max_ligand, self.model_dtype)
         self.v_inference = nn.Sequential(
             nn.Linear(hidden, hidden), ShiftedSoftplus(),
             nn.Linear(hidden, ligand_atom_feature_dim),
         )
 
-    def embed(self, protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v, ligand_mask):
-        """Atom embeddings + node indicator, composed into one context.
-        Returns (h, x, node_mask, mask_ligand). Under the hybrid cutoff the
-        ligand slots must number the refine net's max_ligand."""
+    def ligand_features(self, ligand_v, time_step=None):
+        """The ligand atoms' input features [B, NL, C (+ time)]: the one-hot
+        type, and the time step's features where the config embeds it."""
+        feat = F.one_hot(ligand_v.long(), self.num_classes).float()
+        if self.time_emb_dim == 0:
+            return feat
+        if time_step is None:
+            raise ValueError(f"this config embeds the time step (time_emb_dim="
+                             f"{self.time_emb_dim}, {self.time_emb_mode!r}): pass time_step")
+        t = torch.as_tensor(time_step, device=feat.device).float()
+        if self.time_emb_mode == "simple":
+            t_feat = (t / self.num_timesteps)[:, None, None].expand(feat.shape[:2] + (1,))
+        else:
+            t_feat = self.time_emb(t)[:, None, :].expand(feat.shape[:2] + (self.time_emb_dim,))
+        return torch.cat([feat, t_feat], dim=-1)
+
+    def embed(self, protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v, ligand_mask,
+              time_step=None):
+        """Atom embeddings + node indicator, composed into one context, in
+        the model dtype. Returns (h, x, node_mask, mask_ligand). Under the
+        hybrid cutoff the ligand slots must number the refine net's
+        max_ligand."""
         rn = self.refine_net
         if rn.cutoff_mode == "hybrid" and ligand_pos.shape[1] != rn.max_ligand:
             raise ValueError(f"the hybrid graph is built for max_ligand={rn.max_ligand} ligand "
                              f"slots, got {ligand_pos.shape[1]}")
-        h_protein = self.protein_atom_emb(protein_feat)
-        h_ligand = self.ligand_atom_emb(F.one_hot(ligand_v.long(), self.num_classes).float())
+        md = self.model_dtype
+        h_protein = precision.model_linear(protein_feat, self.protein_atom_emb, md)
+        h_ligand = precision.model_linear(self.ligand_features(ligand_v, time_step),
+                                          self.ligand_atom_emb, md)
         if self.node_indicator:
             h_protein = torch.cat([h_protein, h_protein.new_zeros(h_protein.shape[:2] + (1,))], -1)
             h_ligand = torch.cat([h_ligand, h_ligand.new_ones(h_ligand.shape[:2] + (1,))], -1)
@@ -103,20 +173,25 @@ class ScorePosNet(nn.Module):
                                  protein_mask, ligand_mask)
 
     def head(self, h, x, ligand_mask, n_protein: int) -> Dict[str, torch.Tensor]:
-        """Ligand outputs; padded ligand rows of final_ligand_h are zero."""
+        """Ligand outputs, float32; padded ligand rows of final_ligand_h are
+        zero."""
         final_ligand_h = h[:, n_protein:] * ligand_mask[..., None].to(h.dtype)
+        logits = precision.model_sequential(self.v_inference, final_ligand_h, self.model_dtype)
+        if self.model_dtype != torch.float32:
+            logits, final_ligand_h, h = logits.float(), final_ligand_h.float(), h.float()
         return {
             "pred_ligand_pos": x[:, n_protein:],
-            "pred_ligand_v": self.v_inference(final_ligand_h),
+            "pred_ligand_v": logits,
             "final_ligand_h": final_ligand_h,
             "final_h": h,
         }
 
     def forward(self, protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v,
-                ligand_mask, fix_x: bool = False) -> Dict[str, torch.Tensor]:
-        """fix_x=True freezes the coordinates (the embedding export)."""
+                ligand_mask, fix_x: bool = False, time_step=None) -> Dict[str, torch.Tensor]:
+        """fix_x=True freezes the coordinates (the embedding export);
+        time_step [B] feeds the time embedding, where the config has one."""
         h, x, node_mask, mask_ligand = self.embed(
-            protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v, ligand_mask)
+            protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v, ligand_mask, time_step)
         h, x = self.refine_net(h, x, mask_ligand, node_mask, fix_x=fix_x)
         return self.head(h, x, ligand_mask, protein_pos.shape[1])
 
@@ -134,12 +209,16 @@ class DiffusionModel:
     """Owns the network and the schedules on one device: the CUDA card
     unless the caller asks for another (CPU callers pass device='cpu').
     `impl` is the denoiser's path that the entry points take when not told
-    otherwise, read from the config once (`resolve_impl`): 'fast' (the
-    kernels) for the released uni_o2 architecture, else 'eager'."""
+    otherwise, read from the config and the model dtype once
+    (`resolve_impl`): 'fast' (the kernels) for the released uni_o2
+    architecture, else 'eager'. model_dtype is the JAX DiffusionModel's
+    dtype: torch.bfloat16 builds the bf16 model, which runs eagerly
+    (parameters float32); it is not the sampler's `dtype`, the kernels'
+    product precision."""
 
     def __init__(self, config: Config, protein_atom_feature_dim: int,
                  ligand_atom_feature_dim: int, device="cuda",
-                 max_protein: int = 384, max_ligand: int = 64):
+                 max_protein: int = 384, max_ligand: int = 64, model_dtype=torch.float32):
         self.config = config
         self.device = torch.device(device)
         self.model_mean_type = config.model_mean_type
@@ -160,9 +239,10 @@ class DiffusionModel:
         )
         self.num_timesteps = self.pos_sched.num_timesteps
         self.net = ScorePosNet(config, protein_atom_feature_dim, ligand_atom_feature_dim,
-                               max_ligand=max_ligand)
+                               max_ligand=max_ligand, model_dtype=model_dtype)
         self.net.to(self.device).eval()
-        self.impl = resolve_impl(config)
+        self.model_dtype = self.net.model_dtype
+        self.impl = resolve_impl(config, self.model_dtype)
 
     def parameters(self):
         return self.net.parameters()
@@ -174,11 +254,13 @@ class DiffusionModel:
     def eval(self) -> "DiffusionModel":
         return self.train(False)
 
-    def apply(self, batch: ComplexBatch, ligand_pos, ligand_v, fix_x: bool = False):
+    def apply(self, batch: ComplexBatch, ligand_pos, ligand_v, fix_x: bool = False,
+              time_step=None):
         """Eager forward (the reference-semantics path); fix_x=True freezes
-        the coordinates."""
+        the coordinates; time_step [B] feeds a config's time embedding."""
         return self.net(batch.protein_pos, batch.protein_feat, batch.protein_mask,
-                        ligand_pos, ligand_v, batch.ligand_mask, fix_x=fix_x)
+                        ligand_pos, ligand_v, batch.ligand_mask, fix_x=fix_x,
+                        time_step=time_step)
 
     def fast_apply(self, batch: ComplexBatch, ligand_pos, ligand_v,
                    packed: Optional[PackedBlock] = None, mode: str = "mega",
@@ -229,7 +311,8 @@ class DiffusionModel:
             self.v_sched, log_ligand_v0, time_step, self.num_classes, v_uniform)
         if impl == "eager":
             preds = self.net(cbatch.protein_pos, cbatch.protein_feat, cbatch.protein_mask,
-                             ligand_pos_perturbed, ligand_v_perturbed, lmask)
+                             ligand_pos_perturbed, ligand_v_perturbed, lmask,
+                             time_step=time_step)
         else:
             preds = fast_train_forward(self.net, cbatch.protein_pos, cbatch.protein_feat,
                                        cbatch.protein_mask, ligand_pos_perturbed,
@@ -309,7 +392,7 @@ class DiffusionModel:
             preds = self.fast_apply(cbatch, ligand_pos_perturbed, ligand_v_perturbed,
                                     dtype=torch.float32)
         else:
-            preds = self.apply(cbatch, ligand_pos_perturbed, ligand_v_perturbed)
+            preds = self.apply(cbatch, ligand_pos_perturbed, ligand_v_perturbed, time_step=t)
         pos_model_mean = D.q_pos_posterior(self.pos_sched, preds["pred_ligand_pos"],
                                            ligand_pos_perturbed, t)
         log_v_recon = F.log_softmax(preds["pred_ligand_v"], dim=-1)
@@ -328,8 +411,13 @@ class DiffusionModel:
         molopt_score_model.py:619-631): pred_ligand_pos (the input ligand
         positions), pred_ligand_v, final_ligand_h and final_h. impl='fast'
         runs the kernels without their h2x pass, 'eager'
-        ScorePosNet.forward, None `self.impl`."""
+        ScorePosNet.forward, None `self.impl`. It passes no time step, as
+        the JAX package's: a config with a time embedding raises ValueError."""
         impl = impl or self.impl
+        if self.net.time_emb_dim > 0:
+            raise ValueError(f"fetch_embedding passes no time step, and this config embeds one "
+                             f"(time_emb_dim={self.net.time_emb_dim}, "
+                             f"{self.net.time_emb_mode!r})")
         if impl == "fast":
             return self.fast_apply(batch, batch.ligand_pos, batch.ligand_v, fix_x=True,
                                    dtype=torch.float32)
@@ -345,7 +433,7 @@ class DiffusionModel:
         if impl == "fast":
             preds = self.fast_apply(cbatch, pos, v, packed=packed, dtype=dtype)
         elif impl == "eager":
-            preds = self.apply(cbatch, pos, v)
+            preds = self.apply(cbatch, pos, v, time_step=tt)
         else:
             raise ValueError(f"impl must be 'fast' or 'eager', got {impl!r}")
         if self.model_mean_type == "noise":

@@ -16,11 +16,21 @@ round(dY) round(W) and the weight gradient round(dY)^T round(X), both in
 float32 and never rounded after the product, so parameters, their
 gradients and the optimizer stay float32. Its training path keeps the
 edge-weight MLP float32, as JAX's fast_train_forward.
+
+The model dtype is another thing: JAX's `DiffusionModel(dtype=jnp.bfloat16)`,
+the eager network run in bf16 (`model_linear`, `model_layer_norm`; the
+port's `DiffusionModel(model_dtype=torch.bfloat16)`). There a Linear
+returns a bf16 result, its bias added in bf16, a LayerNorm computes in
+float32 and returns bf16, and the activations, softmax and residual h
+between them are bf16 tensors, as targetdiff_tpu/models/common.py
+TorchLinear and LayerNorm with dtype=bf16. Parameters stay float32;
+autograd rounds their gradients' products to bf16 as JAX's bf16 model does.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -80,3 +90,47 @@ def linear(x: torch.Tensor, layer: torch.nn.Linear, dtype=torch.float32) -> torc
     if torch.is_grad_enabled() and (x.requires_grad or layer.weight.requires_grad):
         return Bf16Linear.apply(x, layer.weight, layer.bias)
     return torch.nn.functional.linear(round_bf16(x), round_bf16(layer.weight), layer.bias)
+
+
+def to_model(t: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """t rounded to the model dtype where it is bf16; as it is for a float32
+    model (so float64 copies of a float32 model stay float64)."""
+    return t if dtype == torch.float32 else t.to(dtype)
+
+
+def model_linear(x: torch.Tensor, layer: torch.nn.Linear, dtype=torch.float32) -> torch.Tensor:
+    """`layer(x)` in the model dtype (targetdiff_tpu/models/common.py
+    TorchLinear(dtype=...)): float32 is `layer(x)`; bf16 multiplies x and
+    the weight rounded to bf16 into a bf16 result and adds the bias rounded
+    to bf16, in bf16."""
+    if dtype == torch.float32:
+        return layer(x)
+    y = x.to(dtype) @ layer.weight.to(dtype).T
+    return y + layer.bias.to(dtype) if layer.bias is not None else y
+
+
+def model_layer_norm(x: torch.Tensor, norm: torch.nn.LayerNorm,
+                     dtype=torch.float32) -> torch.Tensor:
+    """`norm(x)` in the model dtype (targetdiff_tpu/models/common.py
+    LayerNorm(dtype=...)): computed in float32 from x, returned in dtype."""
+    if dtype == torch.float32:
+        return norm(x)
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias,
+                        norm.eps).to(dtype)
+
+
+def model_sequential(seq: torch.nn.Sequential, x: torch.Tensor,
+                     dtype=torch.float32) -> torch.Tensor:
+    """`seq(x)` in the model dtype: its Linears as `model_linear`, its
+    LayerNorms as `model_layer_norm`, every other module on what it is
+    given."""
+    if dtype == torch.float32:
+        return seq(x)
+    for m in seq:
+        if isinstance(m, torch.nn.Linear):
+            x = model_linear(x, m, dtype)
+        elif isinstance(m, torch.nn.LayerNorm):
+            x = model_layer_norm(x, m, dtype)
+        else:
+            x = m(x)
+    return x

@@ -13,7 +13,11 @@ backwards turns a flax parameter tree into the port's state_dict:
   the EGNN denoiser's refine_net.layer_{l} and a prop model's
     encoder.layer_{l} -> refine_net.net.{l}, encoder.net.{l}
   x_mlp_{0,2} (EGNN), out_{0,2}, enc_node_{0,2} (prop models) -> x_mlp.{0,2}, ...
-  ew_net, edge_inf -> ew_net.0, edge_inf.0; LayerNorm scale -> weight.
+  ew_net, edge_inf -> ew_net.0, edge_inf.0; LayerNorm scale -> weight;
+  refine_net.block_{l}.x2h_{i}.node_output.* (x2h_out_fc) -> ...x2h_layers.{i}.node_output.net.*
+  time_emb_l1 / time_emb_l2 -> time_emb.1 / time_emb.3 (the 'sin' time embedding)
+  an MLP's Swish_0.beta (act_fn swish; one a flax MLP) -> net.{its first
+    activation's index}.beta: net.2 with LayerNorms, net.1 without.
 `state_dict_to_flax_params` is the inverse, for writing checkpoints the JAX
 package reads. `load_npz_params` reads a targetdiff_tpu checkpoint
 (utils/checkpoint.py) with numpy alone.
@@ -36,6 +40,8 @@ _SEGMENT = [
     (re.compile(r"^(v_inference|x_mlp|out|enc_node)_(\d+)$"), r"\1.\2"),
     (re.compile(r"^layer_(\d+)$"), r"net.\1"),
     (re.compile(r"^(ew_net|edge_inf)$"), r"\1.0"),
+    (re.compile(r"^time_emb_l1$"), "time_emb.1"),
+    (re.compile(r"^time_emb_l2$"), "time_emb.3"),
 ]
 _MLP_LEAF = re.compile(r"^(lin|norm)_(\d+)$")
 _LAYER_LISTS = ("refine_net", "encoder")  # whose `net` is a list of layers, not an MLP
@@ -69,7 +75,9 @@ def flax_params_to_state_dict(params) -> Dict[str, torch.Tensor]:
                 out[".".join(names + [leaf])] = torch.tensor(arr)
                 continue
             m = _MLP_LEAF.match(key)
-            if m:
+            if key == "Swish_0":
+                seg = f"net.{_mlp_index('lin', 1, norm) - 1}"
+            elif m:
                 seg = f"net.{_mlp_index(m.group(1), int(m.group(2)), norm)}"
             else:
                 seg = key
@@ -87,6 +95,7 @@ _PAIR = {"base_block": "block_{}", "x2h_layers": "x2h_{}", "h2x_layers": "h2x_{}
          "v_inference": "v_inference_{}", "x_mlp": "x_mlp_{}", "out": "out_{}",
          "enc_node": "enc_node_{}"}
 _SINGLE = ("ew_net", "edge_inf")  # nn.Sequential(Linear, Sigmoid) -> one flax Linear
+_TIME_EMB = {"1": "time_emb_l1", "3": "time_emb_l2"}  # nn.Sequential(sin, Linear, GELU, Linear)
 
 
 def state_dict_to_flax_params(state_dict) -> Dict:
@@ -107,10 +116,16 @@ def state_dict_to_flax_params(state_dict) -> Dict:
             elif tok == "net" and i > 0 and toks[i - 1] in _LAYER_LISTS:
                 segs.append(f"layer_{toks[i + 1]}")
                 i += 2
+            elif tok == "net" and toks[-1] == "beta":
+                segs.append("Swish_0")
+                i += 2
             elif tok == "net":
                 step = 3 if ".".join(toks[:i]) in normed else 2
                 idx = int(toks[i + 1])
                 segs.append(f"norm_{idx // step}" if idx % step == 1 else f"lin_{idx // step}")
+                i += 2
+            elif tok == "time_emb":
+                segs.append(_TIME_EMB[toks[i + 1]])
                 i += 2
             elif tok in _SINGLE:
                 segs.append(tok)
@@ -126,7 +141,7 @@ def state_dict_to_flax_params(state_dict) -> Dict:
         node = tree
         for seg in segs:
             node = node.setdefault(seg, {})
-        node[leaf] = np.ascontiguousarray(arr)
+        node[leaf] = np.array(arr, order="C")  # keeps a 0-d array (Swish beta) 0-d
     return {"params": tree}
 
 

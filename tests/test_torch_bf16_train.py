@@ -248,12 +248,20 @@ def test_train_cli_dtype_bf16_trains_on_the_bf16_path(tmp_path, monkeypatch):
 
 
 def test_train_cli_dtype_bf16_refuses_an_eager_config(tmp_path):
-    """An EGNN config trains eagerly, whose bf16 network is not ported: --dtype
-    bf16 raises and names A17b instead of training in float32."""
+    """An EGNN config trains eagerly: --dtype bf16 builds its bf16 model (the
+    JAX CLI's --dtype bf16 --impl xla) instead of refusing, takes its steps
+    with finite losses and writes a float32 checkpoint."""
     model_cfg = dict(egnn_config(num_diffusion_timesteps=12, hidden_dim=16, knn=6))
-    with pytest.raises(ValueError, match="A17b"):
-        train_diffusion.main([_cli_config(tmp_path, model_cfg), "--logdir",
-                              str(tmp_path / "logs"), *CLI_ARGS])
+    out = train_diffusion.main([_cli_config(tmp_path, model_cfg), "--logdir",
+                                str(tmp_path / "logs"), *CLI_ARGS])
+    log = open(os.path.join(out["log_dir"], "log.txt")).read()
+    assert "training path: eager; model dtype: torch.bfloat16" in log
+    assert out["checkpoints"] and np.isfinite(list(out["metrics"].values())).all()
+    with np.load(out["checkpoints"][-1]) as z:
+        floats = {z[k].dtype for k in z.files if z[k].dtype.kind == "f"}
+    assert floats == {np.dtype(np.float32)}
+    sd = load_checkpoint(out["checkpoints"][-1])["state_dict"]
+    assert all(v.dtype == torch.float32 for v in sd.values())
 
 
 def test_other_impls_raise():

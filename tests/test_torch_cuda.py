@@ -1434,3 +1434,61 @@ def test_bf16_train_loss_runs_only_the_bf16_kernels(cuda):
     assert (kvjp.BF16_X2H_BWD_LAUNCHES - before[1], kvjp.BF16_H2X_BWD_LAUNCHES - before[2],
             kel.BF16_X2H_LAUNCHES - before[3], kel.BF16_H2X_LAUNCHES - before[4]) == (L, L, L, L)
     assert bool(torch.isfinite(loss))
+
+
+VARIANT_CASES = {"V1": dict(ew_net_type="r", x2h_out_fc=True),
+                 "V2": dict(ew_net_type="m", num_x2h=2, num_h2x=2, sync_twoup=True,
+                            act_fn="swish", norm=False, time_emb_mode="sin", time_emb_dim=8)}
+
+
+@pytest.mark.parametrize("name", list(VARIANT_CASES))
+def test_variant_builds_its_graph_on_the_knn_kernel(cuda, name):
+    """A uni_o2 option off the block kernels runs eagerly on the card with its
+    kNN graph from the kNN kernel, one launch a block call and no block
+    kernel, and agrees with the same weights on the CPU (positions 2e-4 /
+    1e-3, logits 2e-3 / 1e-2)."""
+    cfg = Config(CONFIG, num_blocks=2, **VARIANT_CASES[name])
+    torch.manual_seed(3)
+    model = DiffusionModel(cfg, 27, 13, device=cuda, max_protein=NP_, max_ligand=NL)
+    cpu = DiffusionModel(cfg, 27, 13, device="cpu", max_protein=NP_, max_ligand=NL)
+    cpu.net.load_state_dict({k: v.cpu() for k, v in model.net.state_dict().items()})
+    assert model.impl == "eager" and model.net.refine_net.knn_kernel
+    batch = _complexes(cuda)
+    t = torch.tensor([3, 9, 17], device=cuda)
+    kknn.LAUNCHES = kblock.LAUNCHES = 0
+    with torch.no_grad():
+        got = model.apply(batch, batch.ligand_pos, batch.ligand_v, time_step=t)
+        want = cpu.apply(batch.to("cpu"), batch.ligand_pos.cpu(), batch.ligand_v.cpu(),
+                         time_step=t.cpu())
+    assert kknn.LAUNCHES == 2 and kblock.LAUNCHES == 0
+    lm = batch.ligand_mask.cpu()
+    torch.testing.assert_close(got["pred_ligand_pos"].cpu()[lm], want["pred_ligand_pos"][lm],
+                               atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(got["pred_ligand_v"].cpu()[lm], want["pred_ligand_v"][lm],
+                               atol=2e-3, rtol=1e-2)
+
+
+def test_bf16_model_runs_eagerly_on_the_card(cuda):
+    """The bf16 model (model_dtype=torch.bfloat16) of V1 on the card: h in
+    bf16, outputs float32 within 2e-2 of scale of the CPU's bf16 model on
+    positions and final_h, no block kernel, the kernel paths refused."""
+    cfg = Config(CONFIG, **VARIANT_CASES["V1"])
+    torch.manual_seed(4)
+    model = DiffusionModel(cfg, 27, 13, device=cuda, max_protein=NP_, max_ligand=NL,
+                           model_dtype=torch.bfloat16)
+    cpu = DiffusionModel(cfg, 27, 13, device="cpu", max_protein=NP_, max_ligand=NL,
+                         model_dtype=torch.bfloat16)
+    cpu.net.load_state_dict({k: v.cpu() for k, v in model.net.state_dict().items()})
+    batch = _complexes(cuda)
+    kblock.LAUNCHES = 0
+    with torch.no_grad():
+        assert model.net.embed(*batch)[0].dtype == torch.bfloat16
+        got = model.apply(batch, batch.ligand_pos, batch.ligand_v)
+        want = cpu.apply(batch.to("cpu"), batch.ligand_pos.cpu(), batch.ligand_v.cpu())
+    assert kblock.LAUNCHES == 0
+    for k in ("pred_ligand_pos", "final_h"):
+        g, w = got[k].cpu(), want[k]
+        assert g.dtype == torch.float32
+        assert float((g - w).abs().max()) <= 2e-2 * float(w.abs().max()), k
+    with pytest.raises(ValueError, match="impl='eager'"):
+        model.fast_apply(batch, batch.ligand_pos, batch.ligand_v)

@@ -100,10 +100,28 @@ def test_mlp_matches_jax_with_the_reference_names(norm, act_fn, act_last):
 
 
 def test_released_mlp_keeps_its_names_and_unknown_activation_raises():
+    """The released MLP keeps net.0/1/3; an unknown activation raises with
+    its name; swish is JAX's, one learnable beta an MLP (flax's Swish_0),
+    shared by the MLP's activations, at the first activation's index."""
     assert sorted(common.MLP(4, 2, 8).state_dict()) == [
         "net.0.bias", "net.0.weight", "net.1.bias", "net.1.weight", "net.3.bias", "net.3.weight"]
-    with pytest.raises(NotImplementedError, match="swish"):
-        common.get_activation("swish")
+    with pytest.raises(ValueError, match="gelu"):
+        common.get_activation("gelu")
+    x = np.random.default_rng(4).normal(size=(3, 5, 12)).astype(np.float32)
+    for norm in (True, False):
+        jmlp = jcommon.MLP(16, 24, num_layer=2, norm=norm, act_fn="swish")
+        params = jax.device_get(jmlp.init(jax.random.PRNGKey(3), jnp.asarray(x)))
+        params["params"]["Swish_0"]["beta"] = np.float32(0.7)
+        mlp = common.MLP(12, 16, 24, num_layer=2, norm=norm, act_fn="swish")
+        _load(mlp, params)
+        assert f"net.{2 if norm else 1}.beta" in mlp.state_dict()
+        np.testing.assert_allclose(_np(mlp(torch.from_numpy(x))),
+                                   np.asarray(jmlp.apply(params, jnp.asarray(x))), atol=1e-5,
+                                   rtol=1e-5)
+        back = state_dict_to_flax_params(mlp.state_dict())["params"]
+        jax.tree_util.tree_map(np.testing.assert_array_equal, back, params["params"])
+    act = common.MLP(4, 2, 8, num_layer=3, act_fn="swish").net
+    assert act[2] is act[5] and len(list(act.parameters())) == 3 * 2 + 2 * 2 + 1
 
 
 # ---- EnBaseLayer and EGNN -----------------------------------------------------------
@@ -219,6 +237,53 @@ def test_eager_loss_matches_jax():
                                        v_uniform=u, impl="eager")
     for k in ("loss", "loss_pos", "loss_v"):
         assert abs(float(out[k]) - float(want[k])) <= 1e-4 * abs(float(want[k])), k
+
+
+@pytest.mark.parametrize("mode,dim", [("simple", 4), ("sin", 8)])
+def test_time_embedding_matches_jax(mode, dim):
+    """The EGNN denoiser with a time embedding (the JAX ScorePosNet's, for any
+    refine net): the forward at [3, 7] and the eager loss with JAX's draws."""
+    _, jmodel, params, jbatch, model, batch = egnn_setup(time_emb_dim=dim, time_emb_mode=mode)
+    assert model.impl == "eager"
+    ref = jmodel.apply(params, jbatch, jbatch.ligand_pos, jbatch.ligand_v, jnp.array([3, 7]))
+    with torch.no_grad():
+        out = model.apply(batch, batch.ligand_pos, batch.ligand_v, time_step=torch.tensor([3, 7]))
+    lmask = np.asarray(jbatch.ligand_mask)[..., None]
+    np.testing.assert_allclose(_np(out["pred_ligand_pos"]) * lmask,
+                               np.asarray(ref["pred_ligand_pos"]) * lmask, **POS_TOL)
+    np.testing.assert_allclose(_np(out["pred_ligand_v"]) * lmask,
+                               np.asarray(ref["pred_ligand_v"]) * lmask, **LOGIT_TOL)
+    key, t = jax.random.PRNGKey(5), np.array([2, 7])
+    want = jmodel.get_diffusion_loss(params, key, jbatch, time_step=jnp.asarray(t))
+    eps, u = jax_draws(key, jbatch, jmodel.num_classes)
+    with torch.no_grad():
+        got = model.get_diffusion_loss(batch, time_step=torch.from_numpy(t), pos_noise=eps,
+                                       v_uniform=u)
+    assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-4 * abs(float(want["loss"]))
+
+
+def test_bf16_model_matches_jax_bf16():
+    """`model_dtype=torch.bfloat16` against JAX's `dtype=jnp.bfloat16` EGNN on
+    its XLA path, at tests/test_torch_uni_o2_variants.py's bf16 bars:
+    outputs within 2e-2 of scale, the loss within 1e-2 relative, the
+    gradients' median tensor within 5e-2 of its scale (0.7e-2 measured)."""
+    from tests.test_torch_uni_o2_variants import (BF16_BAR, BF16_GRAD_MEDIAN, BF16_LOSS_REL,
+                                                  _bf16_margins, _forward, _loss_and_grads,
+                                                  setup)
+
+    jmodel, params, jbatch, model, batch = setup(dict(model_type="egnn"), jnp.bfloat16,
+                                                 torch.bfloat16)
+    assert model.impl == "eager" and model.net.refine_net.net[0].model_dtype == torch.bfloat16
+    out, ref = _forward(jmodel, params, jbatch, model, batch)
+    lmask = np.asarray(jbatch.ligand_mask)[..., None]
+    for k, m in (("pred_ligand_pos", lmask), ("pred_ligand_v", lmask), ("final_h", 1.0)):
+        a, b = _np(out[k]) * m, np.asarray(ref[k]).astype(np.float32) * m
+        assert np.abs(a - b).max() <= BF16_BAR * np.abs(b).max(), k
+    la, want, lout, got = _loss_and_grads(jmodel, params, jbatch, model, batch)
+    assert abs(float(lout["loss"].detach()) - la) <= BF16_LOSS_REL * abs(la)
+    margins = _bf16_margins(got, want)
+    print(f"egnn bf16 gradient median {np.median(margins):.2e}, max {margins[-1]:.2e}")
+    assert np.median(margins) <= BF16_GRAD_MEDIAN
 
 
 @pytest.mark.parametrize("sampler,t,s,eta", [("ddpm", 6, 5, 0.0), ("ddim", 9, 4, 0.5)])

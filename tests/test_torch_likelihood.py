@@ -362,8 +362,21 @@ def test_likelihood_cli_refuses_a_missing_gpu_and_an_unsupported_fast_config(tmp
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main([yml, "--device", "cuda", "--result_path", str(tmp_path / "out")])
-    bad = tmp_path / "bad"
-    bad.mkdir()
-    bad_yml = _cli_setup(bad, ew_net_type="r")
-    with pytest.raises(SystemExit, match="ew_net_type"):
-        cli.main([bad_yml, "--device", "cpu", "--result_path", str(tmp_path / "out")])
+    # a variant checkpoint (V1: ew_net_type r, the x2h output MLP) runs
+    # through the CLI on the eager path
+    var = tmp_path / "variant"
+    var.mkdir()
+    var_yml = _cli_setup(var, setup=lambda: small_setup(ew_net_type="r", x2h_out_fc=True))
+    path = cli.main([var_yml, "--split", "train", "--result_path", str(var / "out"), "--device",
+                     "cpu", "--t_stride", "5", "--max_ligand", "40", "--limit", "2"])
+    rows = pickle.loads(open(path, "rb").read())
+    assert len(rows) == 2 and all(np.isfinite(r["nll"]) for r in rows)
+    assert rows[0]["final_ligand_h"].shape[1] == 32
+    # configs it does not take: a radius cutoff, and a time embedding (the
+    # embedding export passes no time step)
+    for name, override in (("bad", dict(cutoff_mode="radius")), ("temb", dict(time_emb_dim=4))):
+        bad = tmp_path / name
+        bad.mkdir()
+        bad_yml = _cli_setup(bad, **override)
+        with pytest.raises(SystemExit, match="cutoff_mode" if name == "bad" else "time step"):
+            cli.main([bad_yml, "--device", "cpu", "--result_path", str(tmp_path / "out")])

@@ -67,7 +67,21 @@ def test_forward_matches_jax_xla_and_pallas(path):
                                       dict(x2h_out_fc=True), dict(time_emb_dim=4),
                                       dict(num_r_gaussian=16)])
 def test_unsupported_config_raises(override):
+    """A config the JAX package does not build (a radius cutoff) or whose
+    RBF width breaks the reference's MLPs raises; the options off the
+    kernels (ew_net_type r, the x2h output MLP, a time embedding) build the
+    eager network, and the kernel paths refuse them with their reason
+    (their parity with JAX: tests/test_torch_uni_o2_variants.py)."""
+    from targetdiff_tpu_torch.models.fast_forward import require_kernels
+
     cfg = small_flagship()
     cfg.update(override)
-    with pytest.raises(NotImplementedError):
-        ScorePosNet(cfg, PROTEIN_DIM, NUM_CLASSES)
+    if "cutoff_mode" in override or "num_r_gaussian" in override:
+        with pytest.raises(NotImplementedError):
+            ScorePosNet(cfg, PROTEIN_DIM, NUM_CLASSES)
+        return
+    model = DiffusionModel(cfg, PROTEIN_DIM, NUM_CLASSES, device="cpu", max_protein=16,
+                           max_ligand=8)
+    assert model.impl == "eager"
+    with pytest.raises(ValueError, match="impl='eager'"):
+        require_kernels(cfg)
