@@ -99,8 +99,11 @@ bf16 block kernels (B=4, N=608, K=32, L=9) against the bf16 plain block and
 float64 (x and ligand h within 2e-2 of scale, the JAX package's bf16 bar;
 max and median printed) and each bf16 launch alone (node, x2h edge, h2x
 edge, edge weights) the same way, timed beside its bound at the bf16
-tensor-core rate; [bf16-layers] the bf16 per-layer kernels at the hybrid
-shape (N = 640, K = 95); [bf16-sample] runs 1000 DDPM steps of B=4 at the
+tensor-core rate (the x2h edge launch, x2h_edge_mma_kernel, also at kNN
+B=100; two of its launches bitwise equal, rows without an edge keeping h
+bitwise; the node launch beside `torch.addmm` with bf16 operands);
+[bf16-layers] the bf16 per-layer kernels at the hybrid shape (N = 640,
+K = 95), the x2h edge launch alone there too; [bf16-sample] runs 1000 DDPM steps of B=4 at the
 default precision on the kNN and the hybrid model, with the bf16 launches
 counted exactly, no float32 launch, and ms per step beside the float32
 runs'. Each bf16 launch has its own entry in the kernels' JSON line.
@@ -889,7 +892,8 @@ def main(argv) -> int:
     hybrid_launches, hybrid_ms = hybrid_sample_phase(torch, dev, pocket, layers["model"],
                                                      failures)
     bf16 = {"block": bf16_block_phase(torch, kblock, kel, rn, h, x, plain_nbh, mask_ligand,
-                                      node_mask, work),
+                                      node_mask, work,
+                                      knn_b100(torch, dev, model, pocket, feat.feature_dim)),
             "layers": bf16_layers_phase(torch, dev, kel, pocket, feat.feature_dim),
             "launches": bf16_sample_phase(torch, dev, model, layers["model"], pocket,
                                           1e3 * sample_s / steps, hybrid_ms, failures)}
@@ -992,7 +996,9 @@ def bf16_kernel_entries(bf16: dict, dp: dict) -> list:
     [bf16-sample] (block, edge weights, node: one a pass, x2h and h2x edge
     passes from its kNN run; the per-layer kernels from its hybrid run),
     errors, times and bounds (bf16 tensor-core rate) from [bf16-block] and
-    [bf16-layers]; no single PyTorch call computes any of them."""
+    [bf16-layers] (the x2h edge launch, `x2h_edge_mma_kernel`, also at kNN
+    B=100 and alone at the hybrid K = 95); one PyTorch call computes only
+    the node launch's projection (`torch.addmm` with bf16 operands)."""
     knn, hybrid = bf16["launches"]["knn"], bf16["launches"]["hybrid"]
     blk = "targetdiff_tpu_torch/csrc/block_denoiser.cu"
     rows = (
@@ -1005,9 +1011,13 @@ def bf16_kernel_entries(bf16: dict, dp: dict) -> list:
          "targetdiff_tpu/ops/pallas/block_denoiser.py:154",
          knn["x2h_pass_bf16"] + knn["h2x_pass_bf16"], bf16["block"]["node"],
          {"h2x_pass_" + k: v for k, v in bf16["block"]["node_h2x"].items()}),
-        ("block_denoiser.x2h_edge_bf16", "targetdiff_tpu_torch/csrc/x2h_edge.cuh",
+        ("block_denoiser.x2h_edge_mma_bf16", "targetdiff_tpu_torch/csrc/x2h_edge_bf16.cuh",
          "targetdiff_tpu/ops/pallas/block_denoiser.py:154", knn["x2h_pass_bf16"],
-         bf16["block"]["x2h_edge"], {}),
+         bf16["block"]["x2h_edge"],
+         {"kernel": "x2h_edge_mma_kernel", "launches_hybrid_x2h_layer": hybrid["x2h_layer_bf16"],
+          "also_replaces": "targetdiff_tpu/ops/pallas/edge_layer.py:189",
+          **{f"b100_{k}": v for k, v in bf16["block"]["x2h_edge_b100"].items()},
+          **{f"hybrid_{k}": v for k, v in bf16["layers"]["x2h_edge"].items()}}),
         ("block_denoiser.h2x_edge_bf16", "targetdiff_tpu_torch/csrc/h2x_edge.cuh",
          "targetdiff_tpu/ops/pallas/block_denoiser.py:154", knn["h2x_pass_bf16"],
          bf16["block"]["h2x_edge"], {}),
@@ -1024,7 +1034,7 @@ def bf16_kernel_entries(bf16: dict, dp: dict) -> list:
              "max_over_scale": f["margins"]["vs_bf16_plain"]["max"],
              "median_over_scale": f["margins"]["vs_bf16_plain"]["median"],
              "max_over_scale_vs_float64": f["margins"]["vs_float64"]["max"], **extra,
-             "library_ms": None}
+             "library_ms": f.get("library_ms")}
             for name, source, replaces, launches, f, extra in rows]
 
 
@@ -2016,7 +2026,63 @@ def bf16_margins(label, got, want16, want64) -> dict:
     return out
 
 
-def bf16_block_phase(torch, kblock, kel, rn, h, x, nbh, mask_ligand, node_mask, work) -> dict:
+def knn_b100(torch, dev, model, pocket, feat_dim):
+    """The bench's batch of 100 at the kNN shape (the example pocket 100
+    times with ligands of LIGAND_SIZES atoms: N = 608, K = 32) embedded by
+    `model`: (h, x, node_mask, mask_ligand, plain kNN graph)."""
+    from targetdiff_tpu_torch.ops import graph as G
+
+    with torch.no_grad():
+        h, x, node_mask, mlig = model.net.embed(*pocket_batch(
+            torch, dev, pocket, feat_dim, MAX_LIGAND, LIGAND_SIZES * 25, 0))
+    return h, x, node_mask, mlig, G.knn_graph(x, node_mask, K)
+
+
+def bf16_x2h_launch(torch, run, out, h, h16, h64, nbh, rows, label) -> dict:
+    """The bf16 x2h edge launch alone (`run()` writes `out` from the node
+    launch's projections): two launches bitwise equal, rows without a valid
+    edge keep h bitwise, the real rows within BF16_BAR of the bf16 plain
+    layer (h16) and of float64 (h64). Returns its error fields."""
+    run()
+    first = out.clone()
+    run()
+    torch.cuda.synchronize()
+    if not torch.equal(first, out):
+        raise AssertionError(f"{label}: two launches differ")
+    empty = ~nbh.mask.any(-1)
+    if not torch.equal(first[empty], h[empty]):
+        raise AssertionError(f"{label}: a row without a valid edge does not keep h bitwise")
+    return dict(max_abs_err=float((first - h16)[rows].abs().max()),
+                margins=bf16_margins(label, first[rows], h16[rows], h64[rows]),
+                rows_without_edge=int(empty.sum()), live_edges=int(nbh.mask.sum()))
+
+
+def bf16_x2h_b100(torch, kblock, kel, rn, rn64, b100, px) -> dict:
+    """The bf16 x2h edge launch alone at kNN B=100 (`knn_b100`) on layer
+    0's inputs, held as `bf16_x2h_launch`, timed (CUDA events and device
+    time) beside its bound at the bf16 tensor-core rate and its plain
+    version."""
+    bf16 = torch.bfloat16
+    h, x, node_mask, mlig, nbh = b100
+    layer, layer64 = rn.base_block[0], rn64.base_block[0]
+    with torch.no_grad():
+        e_w = rn.edge_weights(x, nbh, bf16)[..., 0]
+        xl = pass_launcher(torch, kblock, h, x, nbh, mlig, e_w, px, MAX_LIGAND, bf16=True)
+        xl.node()
+        h16 = kel.x2h_layer_plain(layer, h, x, nbh, mlig, e_w, bf16)
+        h64 = kel.x2h_layer_plain(layer64, h.double(), x.double(), nbh, mlig, e_w.double())
+        f = bf16_x2h_launch(torch, xl.x2h, xl.out, h, h16, h64, nbh, node_mask,
+                            "bf16-block x2h edge launch B=100")
+        del h64
+        f.update(ms=cuda_ms(torch, xl.x2h), device_ms=device_ms(torch, xl.x2h),
+                 plain_ms=cuda_ms(torch, lambda: kel.x2h_layer_plain(layer, h, x, nbh, mlig, e_w,
+                                                                      bf16), reps=5))
+    f.update(bound(f["live_edges"] * FLOP_EDGE["x2h"], xl.bytes["x2h"], PEAK_BF16_FLOPS))
+    return f
+
+
+def bf16_block_phase(torch, kblock, kel, rn, h, x, nbh, mask_ligand, node_mask, work,
+                     b100) -> dict:
     """[bf16-block]: the bf16 block kernels (`block_denoiser_cuda(dtype=
     torch.bfloat16)`) against the bf16 plain block (`block_forward(dtype=
     torch.bfloat16)`) and float64 at [block]'s shape (kNN B=4, N=608, K=32,
@@ -2024,8 +2090,12 @@ def bf16_block_phase(torch, kblock, kel, rn, h, x, nbh, mask_ligand, node_mask, 
     bitwise equal; then each bf16 launch alone on layer 0's inputs (node,
     the h2x pass's node launch, x2h edge, h2x edge, edge weights), held the
     same way (the node launch's ni and nj at NODE_REL against float64 of
-    the same bf16 operands). Each timed (CUDA events and device time)
-    beside its bound at the bf16 tensor-core rate and its plain version.
+    the same bf16 operands; the x2h edge launch on every real row, two
+    launches bitwise equal, rows without a valid edge h bitwise:
+    `bf16_x2h_launch`), and the x2h edge launch again at kNN B=100 (`b100`:
+    `bf16_x2h_b100`). Each timed (CUDA events and device time) beside its
+    bound at the bf16 tensor-core rate and its plain version; the node
+    launch also beside `torch.addmm` of its projection with bf16 operands.
     Returns the kernels' JSON fields."""
     bf16 = torch.bfloat16
     H = h.shape[-1]
@@ -2072,9 +2142,10 @@ def bf16_block_phase(torch, kblock, kel, rn, h, x, nbh, mask_ligand, node_mask, 
         xl = pass_launcher(torch, kblock, h, x, nbh, mask_ligand, e_w, px, MAX_LIGAND, bf16=True)
         xl.node()
         node = (xl.ni.clone(), xl.nj.clone(), xl.q.clone())
-        xl.x2h()
         h16 = kel.x2h_layer_plain(layer, h, x, nbh, mask_ligand, e_w, bf16)
         h64 = kel.x2h_layer_plain(layer64, h.double(), x.double(), nbh, mask_ligand, e_w.double())
+        x2h_edge = bf16_x2h_launch(torch, xl.x2h, xl.out, h, h16, h64, nbh, node_mask,
+                                   "bf16-block x2h edge launch")
         hl = pass_launcher(torch, kblock, h16, x, nbh, mask_ligand, e_w, ph, MAX_LIGAND,
                            bf16=True)
         hl.node_rows()
@@ -2097,9 +2168,7 @@ def bf16_block_phase(torch, kblock, kel, rn, h, x, nbh, mask_ligand, node_mask, 
                          ni_nj_max_rel_err=rel,
                          margins=bf16_margins("bf16-block node launch q", node[2], node16[2],
                                               node64[2])),
-            "x2h_edge": dict(max_abs_err=float((xl.out - h16)[rows].abs().max()),
-                             margins=bf16_margins("bf16-block x2h edge launch", xl.out[rows],
-                                                  h16[rows], h64[rows])),
+            "x2h_edge": x2h_edge,
             "h2x_edge": dict(max_abs_err=float((hl.xout - x16)[lig].abs().max()),
                              margins=bf16_margins("bf16-block h2x edge launch", hl.xout[lig],
                                                   x16[lig], x64[lig])),
@@ -2110,13 +2179,18 @@ def bf16_block_phase(torch, kblock, kel, rn, h, x, nbh, mask_ligand, node_mask, 
                                                          bf16),
                  "h2x_edge": lambda: kel.h2x_layer_plain(layer, h16, x, nbh, mask_ligand, e_w,
                                                          bf16)}
+        # the library yardstick of the node launch: torch.addmm of its
+        # projection [rows, 128] @ [128, 640] with bf16 operands (a bf16 result)
+        hb, w_node, b_node = h.reshape(-1, H).to(bf16), px["w_node"][0], px["b_node"][0].to(bf16)
         runs = {"node": xl.node, "node_h2x": hl.node_rows, "x2h_edge": xl.x2h,
-                "h2x_edge": hl.h2x}
+                "h2x_edge": hl.h2x, "node_addmm_bf16": lambda: torch.addmm(b_node, hb, w_node)}
         for name, fn in runs.items():
             f = pieces.setdefault(name, {})
             f.update(ms=cuda_ms(torch, fn), device_ms=device_ms(torch, fn))
             if name in plain:
                 f["plain_ms"] = cuda_ms(torch, plain[name])
+        pieces["node"]["library_ms"] = pieces["node_addmm_bf16"]["ms"]
+        pieces["node"]["library_device_ms"] = pieces.pop("node_addmm_bf16")["device_ms"]
     for name, flops, nb in (("x2h_edge", edges * FLOP_EDGE["x2h"], xl.bytes["x2h"]),
                             ("h2x_edge", lig_edges * FLOP_EDGE["h2x"], hl.bytes["h2x"]),
                             ("node", node_flops("x2h", nodes, lig_nodes), xl.bytes["node"]),
@@ -2143,6 +2217,7 @@ def bf16_block_phase(torch, kblock, kel, rn, h, x, nbh, mask_ligand, node_mask, 
             plain_ms=cuda_ms(torch, lambda: rn.edge_weights(x, nbh, bf16)),
             **bound(work[2] * FLOP_EW_EDGE, nbytes(x, nbh.idx, got, *packed.ew),
                     PEAK_BF16_FLOPS))
+    fields["x2h_edge_b100"] = bf16_x2h_b100(torch, kblock, kel, rn, rn64, b100, px)
     del rn64
     phase("bf16-block", shape=f"B={B},N={h.shape[1]},K={nbh.idx.shape[-1]},L={L},H=128,"
           "heads=16", bar=BF16_BAR, **fields)
@@ -2155,8 +2230,11 @@ def bf16_layers_phase(torch, dev, kel, pocket, feat_dim) -> dict:
     layers and float64 at [layers]' hybrid shape (the example pocket with 64
     ligand slots: N = 640, K = 95): h of the valid rows and x of the ligand
     rows at BF16_BAR, two launches bitwise equal; each timed beside its
-    bound at the bf16 tensor-core rate and its plain version. Returns the
-    two kernels' JSON fields."""
+    bound at the bf16 tensor-core rate and its plain version; the x2h edge
+    launch alone too (`bf16_x2h_launch`, td_block_x2h_bf16 at K = 95), timed
+    beside its bound. Returns the two kernels' JSON fields."""
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+
     bf16 = torch.bfloat16
     hmodel, _, h, x, node_mask, mlig, nbh = hybrid_setup(torch, dev, pocket, feat_dim)
     layer = hmodel.net.refine_net.base_block[0]
@@ -2190,6 +2268,14 @@ def bf16_layers_phase(torch, dev, kel, pocket, feat_dim) -> dict:
                             nbytes(ph, x_k[0]) + lig * K_ * (8 + 1 + 4)
                             + either * (h.shape[-1] * 4 + 3 * 4 + 1), PEAK_BF16_FLOPS)),
     }
+    with torch.no_grad():
+        xl = pass_launcher(torch, kblock, h, x, nbh, mlig, e_w, px, HYBRID_LIGAND, bf16=True)
+        xl.node()
+        edge = bf16_x2h_launch(torch, xl.x2h, xl.out, h, h16, h64, nbh, node_mask,
+                               "bf16-layers x2h edge launch")
+        edge.update(ms=cuda_ms(torch, xl.x2h), device_ms=device_ms(torch, xl.x2h),
+                    **bound(edges * FLOP_EDGE["x2h"], xl.bytes["x2h"], PEAK_BF16_FLOPS))
+        fields["x2h_edge"] = edge
     del h64, x64
     with torch.no_grad():
         runs = {"x2h": (lambda: kel.x2h_layer_cuda(h, x, nbh, mlig, e_w, px, bf16),
@@ -3844,7 +3930,11 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
     (host clock, 10 steps after 3). Digests (`digest`) of the float32
     kernels' outputs on those inputs: kNN graphs, the inference block, its
     edge weights, the train-mode checkpoints, the launches alone, the
-    per-layer forwards and the block backward."""
+    per-layer forwards and the block backward. The bf16 kernels (`bf16_*`):
+    the whole block at the kNN shape (CUDA events, device time), the x2h
+    edge launch alone at kNN B=4 and B=100 and the per-layer x2h at the
+    hybrid shape (its edge kernel's and node_kernel's device time), each
+    with a digest of its output."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -3879,6 +3969,18 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
         out["ew_knn_b100_device_ms"] = kernel_device_ms(
             torch, lambda: kblock.block_denoiser_cuda(rn, h100, x100, nbh100, mlig100, MAX_LIGAND,
                                                       packed), "ew_kernel", calls=3)
+        # the bf16 x2h edge launch alone at B=100 (layer 0, the bf16 pack)
+        bf16 = torch.bfloat16
+        bpacked = kblock.pack_block_params(rn, bf16)
+        bpx = {k: v[:1] for k, v in bpacked.x2h.items()}
+        xl16 = pass_launcher(torch, kblock, h100, x100, nbh100, mlig100,
+                             rn.edge_weights(x100, nbh100, bf16)[..., 0], bpx, MAX_LIGAND,
+                             bf16=True)
+        xl16.node()
+        out["bf16_x2h_edge_b100_ms"] = cuda_ms(torch, xl16.x2h)
+        out["bf16_x2h_edge_b100_device_ms"] = device_ms(torch, xl16.x2h, calls=10)
+        out["bf16_x2h_edge_b100_digest"] = digest(torch, xl16.out)
+        del xl16
         # knn_kernel's device time at B=4, B=100 and the train step's shape,
         # and a digest of its outputs there
         knn_out = []
@@ -3925,6 +4027,21 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
                          ("node_h2x", hl.node_rows)):
             out[f"{name}_knn_ms"] = cuda_ms(torch, fn)
             out[f"{name}_knn_device_ms"] = device_ms(torch, fn)
+        # the bf16 kernels at the kNN shape: the whole block and the x2h edge
+        # launch alone (layer 0), with digests of their outputs
+        out["bf16_block_ms"] = cuda_ms(torch, lambda: kblock.block_denoiser_cuda(
+            rn, h, x, nbh, mlig, MAX_LIGAND, bpacked, dtype=bf16))
+        out["bf16_block_device_ms"] = device_ms(torch, lambda: kblock.block_denoiser_cuda(
+            rn, h, x, nbh, mlig, MAX_LIGAND, bpacked, dtype=bf16), calls=5)
+        out["bf16_block_digest"] = digest(torch, *kblock.block_denoiser_cuda(
+            rn, h, x, nbh, mlig, MAX_LIGAND, bpacked, dtype=bf16))
+        xl16 = pass_launcher(torch, kblock, h, x, nbh, mlig, rn.edge_weights(x, nbh, bf16)[..., 0],
+                             bpx, MAX_LIGAND, bf16=True)
+        xl16.node()
+        xl16.x2h()
+        out["bf16_x2h_edge_digest"] = digest(torch, xl16.out)
+        out["bf16_x2h_edge_knn_ms"] = cuda_ms(torch, xl16.x2h)
+        out["bf16_x2h_edge_knn_device_ms"] = device_ms(torch, xl16.x2h)
     sample(3, 1)  # warm up
     out["sample_ms_per_step"] = sample(50, 1)
 
@@ -3945,6 +4062,16 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
                 "h2x": lambda: kelv.h2x_layer_bwd_cuda(hh, hx, hnbh, hmlig, he_w, HYBRID_LIGAND,
                                                        ph, cot["h2x"])}
         out["layers_digest"] = digest(torch, layers["x2h"](), layers["h2x"]())
+        # the bf16 per-layer x2h: its call, its edge kernel's and node_kernel's device time
+        bpx_h, _ = kel.pack_layer_params(hrn.base_block[0], bf16)
+
+        def x2h16():
+            return kel.x2h_layer_cuda(hh, hx, hnbh, hmlig, he_w, bpx_h, bf16)
+
+        out["bf16_x2h_layer_hybrid_ms"] = cuda_ms(torch, x2h16)
+        out["bf16_x2h_edge_hybrid_device_ms"] = kernel_device_ms(torch, x2h16, "x2h_edge")
+        out["bf16_node_x2h_hybrid_device_ms"] = kernel_device_ms(torch, x2h16, "node_kernel")
+        out["bf16_layers_digest"] = digest(torch, x2h16())
         for sub, fn in bwds.items():
             out[f"{sub}_layer_bwd_hybrid_ms"] = cuda_ms(torch, fn, reps=10)
             out.update(bwd_device_ms(torch, f"{sub}_layer_bwd_hybrid", fn))

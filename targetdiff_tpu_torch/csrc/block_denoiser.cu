@@ -38,7 +38,9 @@
 //                second layers staged in shared memory, four pipelines per
 //                block each taking one row's chunk of 32 edges per step as
 //                the M of the tensor-core products, an online softmax over a
-//                row's chunks; writes h' for every row.
+//                row's chunks; writes h' for every row. The bf16 entries run
+//                x2h_edge_mma_kernel instead (x2h_edge_bf16.cuh: a producer
+//                warpgroup, two wgmma consumer warpgroups, 64-slot tiles).
 //   h2x_edge_kernel  per layer (h2x_edge.cuh): persistent blocks whose four
 //                pipelines take (ligand row, live chunk) units, each
 //                yielding per-head softmax partials; a warp per row merges

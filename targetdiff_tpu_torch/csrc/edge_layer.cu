@@ -24,7 +24,8 @@
 // Design: node_kernel (per-node projections, node_proj.cuh) then the edge
 // kernel of the pass, both shared with the whole-block path. x2h:
 // x2h_edge_kernel (x2h_edge.cuh), one walk over a row's live chunks of 32
-// edges with an online softmax. h2x: the projections of the ligand rows and
+// edges with an online softmax; in bf16 x2h_edge_mma_kernel
+// (x2h_edge_bf16.cuh), 64-slot tiles on wgmma. h2x: the projections of the ligand rows and
 // the source projections of the others, then h2x_edge_kernel (h2x_edge.cuh),
 // (ligand row, live chunk) units merged per row in chunk order. Chunks
 // without a valid edge are skipped, which is exact: under the hybrid graph a

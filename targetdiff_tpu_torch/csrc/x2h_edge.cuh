@@ -7,8 +7,9 @@
 //
 // Replaces: targetdiff_tpu/ops/pallas/edge_layer.py:_x2h_kernel and the x2h
 // pass of targetdiff_tpu/ops/pallas/block_denoiser.py:_block_kernel. It
-// serves every x2h caller: the inference block (td_block_x2h), the train-mode
-// block (td_block_train_fwd) and the per-layer x2h (td_x2h_layer).
+// serves every float32 x2h caller: the inference block (td_block_x2h), the
+// train-mode block (td_block_train_fwd) and the per-layer x2h (td_x2h_layer);
+// the bf16 callers take x2h_edge_bf16.cuh's kernel (launch_x2h<true>).
 //
 // What bounds it on this card: the two second layers are 65.5k of the ~76k
 // FLOP of a live edge. On the float32 FMA pipes (67 TFLOP/s) they held the
@@ -46,14 +47,11 @@
 //    fp16 products (tile_mma). Warp 0 takes
 //    the next chunk during the v products and writes its geometry (valid
 //    slots of each edge type, RBF features) after them.
-//  * bf16 (kBf16, the sampling path's default precision): the same walk
-//    with bf16 products (tc_common.cuh): one mma per tile and k-step in
-//    place of three, bf16 weights, RBF features and activations rounded to
-//    bf16; the softmax, its running sums and h stay float32.
 // Invalid slots keep a zero first layer: finite values, zero weight.
 #pragma once
 
 #include "tc_common.cuh"
+#include "x2h_edge_bf16.cuh"
 
 namespace {
 
@@ -67,7 +65,6 @@ struct X2hSmem {
   EdgeLane lane[kX2hLanes];
 };
 
-template <bool kBf16>
 __global__ void __launch_bounds__(kX2hThreads, 1)
 x2h_edge_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restrict__ qn,
                 PassParams p, int B, int N, int K, float* __restrict__ out) {
@@ -79,8 +76,7 @@ x2h_edge_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restr
   EdgeLane& L = s.lane[l];
 
   // both second layers, split into fp16 hi and lo, as B fragments, in one loop
-  stage_frags<kBf16>(&s.w[0][0][0][0], weights<kBf16>(p.w2k), H, kNTiles, t, kX2hThreads,
-                     weights<kBf16>(p.w2v));
+  stage_frags(&s.w[0][0][0][0], p.w2k, H, kNTiles, t, kX2hThreads, p.w2v);
   __syncthreads();  // the weights are read-only from here; the pipelines run on their own
 
   // warp 0 of each pipeline walks its rows: cursor, its live chunks not yet
@@ -116,7 +112,7 @@ x2h_edge_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restr
     }
   };
   auto settle = [&]() {  // the taken chunk's geometry into L
-    chunk_geometry<kBf16>(L, nullptr, in, N, nbn, slot, lane);
+    chunk_geometry(L, nullptr, in, N, nbn, slot, lane);
     if (lane == 0) {
       L.first = nfirst;
       L.last = nlast;
@@ -147,7 +143,7 @@ x2h_edge_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restr
 
     for (int kv = 0; kv < 2; ++kv) {  // the k half, then the v half of the edge MLPs
       // gather, first layer, LayerNorm + ReLU into fp16 (hi, lo) pairs
-      chunk_half<kBf16>(L, in, p, bn, kv, tl, qd, lane, l);
+      chunk_half(L, in, p, bn, kv, tl, qd, lane, l);
       // warp 0 takes the next chunk now: its loads fly during the v products
       if (kv == 1 && qd == 0) take();
 
@@ -168,7 +164,7 @@ x2h_edge_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restr
             acc[mt][nt][1] = acc[mt][nt][3] = b1;
           }
         }
-        tile_mma<4, kBf16>(acc, &L.z[0][0], &s.w[kv][0][4 * qd][0], kNTiles, lane);
+        tile_mma<4>(acc, &L.z[0][0], &s.w[kv][0][4 * qd][0], kNTiles, lane);
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -257,18 +253,22 @@ x2h_edge_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restr
   }
 }
 
-// out = x2h(h) on every row, for any K <= kMaxLayerK; kBf16: bf16 products.
+// out = x2h(h) on every row, for any K <= kMaxLayerK; kBf16: bf16 products,
+// on the wgmma kernel of x2h_edge_bf16.cuh.
 template <bool kBf16 = false>
 int launch_x2h(const float* h, const EdgeInputs& in, const float* q, const PassParams& p, int B,
                int N, int K, float* out, cudaStream_t s) {
-  if (B <= 0 || N <= 0 || K <= 0 || K > kMaxLayerK)
-    return (int)cudaErrorInvalidValue;
-  static int n_sm = 0;
-  if (int err = sm_count(x2h_edge_kernel<kBf16>, (int)sizeof(X2hSmem), n_sm)) return err;
-  const long long steps = ((long long)B * N + kX2hLanes - 1) / kX2hLanes;
-  const int grid = (int)(steps < n_sm ? steps : n_sm);
-  x2h_edge_kernel<kBf16><<<grid, kX2hThreads, sizeof(X2hSmem), s>>>(h, in, q, p, B, N, K, out);
-  return (int)cudaGetLastError();
+  if constexpr (kBf16) {
+    return launch_x2h_mma(h, in, q, p, B, N, K, out, s);
+  } else {
+    if (B <= 0 || N <= 0 || K <= 0 || K > kMaxLayerK) return (int)cudaErrorInvalidValue;
+    static int n_sm = 0;
+    if (int err = sm_count(x2h_edge_kernel, (int)sizeof(X2hSmem), n_sm)) return err;
+    const long long steps = ((long long)B * N + kX2hLanes - 1) / kX2hLanes;
+    const int grid = (int)(steps < n_sm ? steps : n_sm);
+    x2h_edge_kernel<<<grid, kX2hThreads, sizeof(X2hSmem), s>>>(h, in, q, p, B, N, K, out);
+    return (int)cudaGetLastError();
+  }
 }
 
 }  // namespace

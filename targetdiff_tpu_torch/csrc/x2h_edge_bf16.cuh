@@ -1,0 +1,751 @@
+// The bf16 x2h edge pass for Hopper (sm_90a) on warpgroup tensor-core
+// products (wgmma): for every destination row i,
+//   out[i] = h[i] + sum_k alpha_ik * e_w,ik * v_ik,
+// alpha the per-head softmax of q_i . k_ik / sqrt(8) over the row's valid
+// edges (a row without one keeps h[i] exactly), k and v the edge MLPs: the
+// first layer [edge type (4, one-hot) | type x RBF (4 x 20)] @ [w_et; w_rbf]
+// plus the node projections ni_i + nj_j (node_proj.cuh), LayerNorm + ReLU,
+// then the 128x128 second layer.
+//
+// Replaces, in their bf16 form (dtype=bf16, the sampling path's default):
+// the x2h pass of targetdiff_tpu/ops/pallas/block_denoiser.py:_block_kernel
+// and targetdiff_tpu/ops/pallas/edge_layer.py:_x2h_kernel. It serves every
+// bf16 x2h caller through launch_x2h<true> (x2h_edge.cuh): the inference
+// block (td_block_x2h_bf16), the per-layer x2h (td_x2h_layer_bf16) and the
+// bf16 train-mode forward (td_block_train_fwd_bf16).
+//
+// Precision: the bf16 plain version's rounding points and no others. The
+// product operands are bf16 (the RBF features rounded where the producer
+// writes them, the LayerNorm outputs where they become the second layer's A
+// fragments, the weights as packed); every product is exact and summed in
+// float32 on the tensor cores; ni, nj, the biases, the LayerNorms, the
+// softmax, e_w and h stay float32.
+//
+// What bounds it on this card: per live edge ~115k FLOP of dense products
+// (the two 96-deep first-layer halves and the two 128x128 second layers, at
+// the bf16 tensor-core rate), ~1 KB of float32 nj gathered from L2, and the
+// LayerNorms and softmax on the FMA pipes. The earlier bf16 instantiation
+// of x2h_edge.cuh's kernel spent 41% of its time on the first layer's 20
+// RBF terms on the FMA pipes, 16% on LayerNorms through shared memory and
+// 21% on the per-chunk softmax and its barriers. This one is bound by its consumers'
+// latency: the nj gather, the products' waits and the register work
+// between them, with two 64-slot tiles in flight per SM (PERF.md §6).
+//
+// Design:
+//  * Persistent blocks, one per SM, three warpgroups: two consumers and a
+//    producer. Both tables are staged once per block as bf16 wgmma B
+//    operands (K-major, 8x8 core matrices, no swizzle): the first layer
+//    [w_et; w_rbf] of each half (96 x 128, 24 KB) and the second layers
+//    (128 x 128, 32 KB each).
+//  * Rows are dealt round-robin to the grid's consumers; a consumer takes
+//    its rows' live chunks (32 slots with a valid edge) two at a time, a
+//    64-slot tile (two rows, or two chunks of one row at K > 32; a dead
+//    chunk costs nothing). Its two producer warps, alternating tiles, walk
+//    the same rows 32 at a time, copy h to out for a row without a live
+//    chunk, and fill a two-stage ring per consumer on mbarriers: per slot
+//    its source, e_w and validity, the tile's A operand [one-hot type | type
+//    x RBF | 0] in bf16 (64 x 96), and each chunk's ni and q rows
+//    (cp.async).
+//  * A consumer warpgroup runs each half (k, then v): the first layer as 6
+//    wgmma m64n128k16 from shared memory; meanwhile each thread loads nj of
+//    its two slots' sources (float32, straight into the accumulator's
+//    layout: no shared-memory ring for it, whose 32 KB a half-tile would not
+//    fit beside the tables and stages) and adds ni; then LayerNorm + ReLU on
+//    the accumulator registers with quad shuffles, rounded to bf16 as the A
+//    fragments of the second layer (8 wgmma m64n128k16, A from registers).
+//  * Softmax by 16-slot warp partials: the k half's logits are reduced over
+//    the quad (reduce-scatter), each warp keeps per head its slots' max,
+//    exp-sum and e_w-weighted probabilities; the v half's weighted values
+//    are reduced over the warp's slots by a reduce-scatter. One named
+//    barrier a tile; then thread c of the consumer merges the four warp
+//    partials in slot order into channel c's running row state (max,
+//    denominator, value sum: an online softmax across a row's tiles, any
+//    K <= kMaxLayerK) and writes h + sum / denominator at the row's last
+//    chunk.
+// Every sum runs in a fixed order and no atomic decides one: two launches
+// give the same bits. A barrier wait that does not end traps (the launch
+// fails) instead of hanging the card.
+#pragma once
+
+#include "tc_common.cuh"
+
+namespace {
+
+constexpr int kMmaTile = 64;                // edge slots per tile: two 32-slot chunks
+constexpr int kT1K = 96;                    // first-layer depth: 4 one-hot + 4 R RBF columns + 0
+constexpr int kT1KSteps = kT1K / 16;
+constexpr int kMmaConsumers = 2;            // consumer warpgroups per block
+constexpr int kMmaStages = 2;               // ring stages per consumer
+constexpr int kMmaThreads = 128 * (kMmaConsumers + 1);
+constexpr int kFeeders = 4 / kMmaConsumers;  // producer warps per consumer, alternating tiles
+constexpr int kSboT1 = kT1K / 8 * 128;      // bytes between 8-row groups of a 96-deep operand
+constexpr int kSboW2 = H / 8 * 128;         // ... of a 128-deep operand
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;
+static_assert(4 + 4 * R <= kT1K && kT1K % 16 == 0, "the one-hot and RBF columns fill the depth");
+static_assert(kMmaConsumers * 128 * kConsumerRegs + 128 * kProducerRegs <= 65536,
+              "the register split fits the SM");
+// each producer warp owns the stages of its tiles: an mbarrier's parity tells
+// only two consecutive phases apart
+static_assert(kMmaStages % kFeeders == 0, "a consumer's stages are dealt to its producer warps");
+
+// Byte offset of element (row, k) of a K-major wgmma operand without
+// swizzle: 8x8 core matrices of 128 contiguous bytes, the K-adjacent ones 128
+// bytes apart (the descriptor's leading byte offset), 8-row groups `sbo`
+// bytes apart (its stride byte offset).
+__host__ __device__ constexpr int kmajor_off(int row, int k, int sbo) {
+  return (row >> 3) * sbo + (k >> 3) * 128 + (row & 7) * 16 + (k & 7) * 2;
+}
+
+// One ring stage: a tile's first-layer A operand and its slots.
+struct X2hTile {
+  alignas(128) unsigned char a[kMmaTile * kT1K * 2];  // bf16, kmajor_off(slot, feature, kSboT1)
+  int src[kMmaTile];                                   // source node b*N + j; -1 invalid
+  float ew[kMmaTile];                                  // e_w; 0 invalid
+  float ni[2][H2];                                     // each chunk's row: ni (k|v) and q
+  float q[2][H];
+  long long row[2];                                    // each chunk's destination row; -1 none
+  unsigned valid[2];                                   // each chunk's valid slots
+  int first[2], last[2];                               // the chunk is its row's first / last
+};
+
+struct X2hMmaSmem {
+  alignas(128) unsigned char w2[2][H * H * 2];     // k|v second layer, B[n][k] = w2[k][n]
+  alignas(128) unsigned char t1[2][H * kT1K * 2];  // k|v first-layer table, B[n][k]
+  X2hTile tile[kMmaConsumers][kMmaStages];
+  float pw[kMmaConsumers][4][16][NH];              // e_w * exp(logit - warp max), per warp
+  float xm[kMmaConsumers][2][4][NH];               // warp partials, double-buffered by tile:
+  float xs[kMmaConsumers][2][4][NH];               //   max, exp-sum,
+  float xv[kMmaConsumers][2][4][H];                //   weighted values
+  float ln[2][H2];                                 // kv_ln: scale, bias of k|v
+  float b2[2][H];                                  // second-layer biases of k, v
+  unsigned long long full[kMmaConsumers][kMmaStages], empty[kMmaConsumers][kMmaStages];
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* b, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(b)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(b)) : "memory");
+}
+
+// Waits until the barrier's phase of parity `parity` has completed; traps
+// (the launch fails) after ~2^34 clocks, so that a broken handshake cannot
+// hang the card.
+__device__ __forceinline__ void mbar_wait(unsigned long long* b, unsigned parity) {
+  unsigned done;
+  const long long t0 = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(b)), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1ll << 34)) __trap();
+  } while (!done);
+}
+
+// Generic-proxy writes to shared memory made visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// The wgmma descriptor of a K-major, unswizzled operand at p.
+__device__ __forceinline__ uint64_t mma_desc(const void* p, int sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32);
+}
+// A descriptor moved on by k-step ks (16 columns: two core matrices, 256 bytes).
+__device__ __forceinline__ uint64_t desc_ks(uint64_t d, int ks) { return d + 16 * ks; }
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Keeps the compiler from moving the accumulator's reads and writes across
+// the asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A B for the warpgroup's 64 x 128 tile, A and B bf16 in shared
+// memory (descriptors), float32 accumulation; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d)
+      : "memory");
+}
+
+// The same with A from registers: a[0..3] the warp's 16 x 16 fragment of
+// the k-step (rows g, g + 8 x columns 2 tig (+1), 2 tig + 8 (+9), bf16 pairs).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, "
+      "1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
+      : "memory");
+}
+
+// Element (k, n) of half kv's first-layer table: k < 4 w_et[k], k < 4 + 4R
+// w_rbf[(k - 4) / R][(k - 4) % R] (type-major, as the reference's r_feat),
+// then zeros (ops/kernels/block_denoiser.py pack_first_layer_table); bf16 bits.
+__device__ __forceinline__ uint32_t table_bits(const PassParams& p, int kv, int k, int n) {
+  const unsigned short* w_et = reinterpret_cast<const unsigned short*>(p.w_et);
+  const unsigned short* w_rbf = reinterpret_cast<const unsigned short*>(p.w_rbf);
+  if (k < 4) return w_et[k * H2 + kv * H + n];
+  if (k < 4 + 4 * R) return w_rbf[(k - 4) * H2 + kv * H + n];
+  return 0u;
+}
+
+// Both halves' tables as wgmma B operands (B[n][k], K-major), the LayerNorm
+// and the biases, by the block's threads: each thread writes one core-matrix
+// row (8 consecutive k of one n) as one 16-byte store, neighbouring threads
+// on neighbouring n (coalesced 2-byte loads, stores without bank conflicts).
+__device__ __forceinline__ void stage_x2h_tables(X2hMmaSmem& s, const PassParams& p, int t) {
+  for (int u = t; u < 2 * (kT1K / 8) * H; u += kMmaThreads) {
+    const int n = u % H, kc = u / H % (kT1K / 8), kv = u / (H * (kT1K / 8));
+    uint32_t w[4];
+#pragma unroll
+    for (int pr = 0; pr < 4; ++pr)
+      w[pr] = table_bits(p, kv, 8 * kc + 2 * pr, n) | table_bits(p, kv, 8 * kc + 2 * pr + 1, n) << 16;
+    *reinterpret_cast<uint4*>(s.t1[kv] + kmajor_off(n, 8 * kc, kSboT1)) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  for (int u = t; u < 2 * (H / 8) * H; u += kMmaThreads) {
+    const int n = u % H, kc = u / H % (H / 8), kv = u / (H * (H / 8));
+    const unsigned short* w2 = reinterpret_cast<const unsigned short*>(kv ? p.w2v : p.w2k);
+    uint32_t w[4];
+#pragma unroll
+    for (int pr = 0; pr < 4; ++pr)
+      w[pr] = (uint32_t)w2[(8 * kc + 2 * pr) * H + n] | (uint32_t)w2[(8 * kc + 2 * pr + 1) * H + n]
+                                                            << 16;
+    *reinterpret_cast<uint4*>(s.w2[kv] + kmajor_off(n, 8 * kc, kSboW2)) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  for (int c = t; c < 2 * H2; c += kMmaThreads) s.ln[c / H2][c % H2] = p.kv_ln[c];
+  for (int c = t; c < 2 * H; c += kMmaThreads) s.b2[c / H][c % H] = (c < H ? p.b2k : p.b2v)[c % H];
+}
+
+// Column k of a slot's first-layer row: its one-hot edge type (et; -1 for an
+// invalid slot: a zero row), then its RBF features in its type's block.
+__device__ __forceinline__ uint32_t feature_bits(int k, int et, const unsigned short (&rb)[R]) {
+  if (k < 4) return et == k ? 0x3F80u : 0u;  // bf16 1.0
+  if (k < 4 + 4 * R) return et == (k - 4) / R ? rb[(k - 4) % R] : 0u;
+  return 0u;
+}
+
+// A slot's geometry: edge type (0 l->l, 1 l->p, 2 p->l, 3 p->p by (src,
+// dst) ligand; -1 for an invalid slot), source node b*N + j, e_w, distance.
+struct SlotGeom {
+  int et;
+  long long jn;
+  float w, dist;
+};
+
+__device__ __forceinline__ SlotGeom slot_geometry(const EdgeInputs& in, int N, long long bn,
+                                                  const EdgeSlot& s) {
+  SlotGeom g{-1, -1, 0.f, 0.f};
+  if (s.valid) {
+    g.jn = bn / N * N + s.idx;
+    const bool src_lig = in.mlig[g.jn], dst_lig = in.mlig[bn];
+    g.et = src_lig ? (dst_lig ? 0 : 1) : (dst_lig ? 2 : 3);
+    const float* x = in.x;
+    const float rx = x[3 * bn] - x[3 * g.jn], ry = x[3 * bn + 1] - x[3 * g.jn + 1],
+                rz = x[3 * bn + 2] - x[3 * g.jn + 2];
+    g.dist = sqrtf(rx * rx + ry * ry + rz * rz + 1e-16f);
+    g.w = s.w;
+  }
+  return g;
+}
+
+// Slot m of tile T: its source, e_w and A row [one-hot type | type x RBF |
+// 0], the RBF features rounded to bf16.
+__device__ __forceinline__ void write_slot(X2hTile& T, const EdgeInputs& in, const SlotGeom& g,
+                                           int m) {
+  unsigned short rb[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float d = g.dist - in.offsets[r];
+    rb[r] = g.et < 0 ? 0 : __bfloat16_as_ushort(__float2bfloat16_rn(expf(in.coeff * d * d)));
+  }
+#pragma unroll
+  for (int kc = 0; kc < kT1K / 8; ++kc) {
+    uint32_t w[4];
+#pragma unroll
+    for (int pr = 0; pr < 4; ++pr)
+      w[pr] = feature_bits(8 * kc + 2 * pr, g.et, rb) |
+              feature_bits(8 * kc + 2 * pr + 1, g.et, rb) << 16;
+    *reinterpret_cast<uint4*>(T.a + kmajor_off(m, 8 * kc, kSboT1)) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  T.src[m] = (int)g.jn;
+  T.ew[m] = g.w;
+}
+
+// Bit c set when chunk c of row bn holds a valid edge, by one thread.
+__device__ __forceinline__ unsigned row_live_chunks(const bool* nmask, long long bn, int K) {
+  const unsigned char* m = reinterpret_cast<const unsigned char*>(nmask + bn * K);
+  unsigned bits = 0;
+#pragma unroll 8
+  for (int e = 0; e < K; ++e) bits |= (m[e] ? 1u : 0u) << (e / KC);
+  return bits;
+}
+
+// A row's live chunk as its producer hands it on.
+struct LiveChunk {
+  long long row;  // -1: none left
+  int c;          // chunk index within the row
+  int first, last;
+};
+
+// Producer warp pw (0..3) of the block: it feeds consumer pw / kFeeders the
+// tiles j with j % kFeeders == pw % kFeeders, into ring stage j %
+// kMmaStages. A consumer's producer warps walk the same rows, 32 at a time
+// (lane i reads the live chunks of the window's row i); the first copies h
+// to out for rows without a live chunk. A tile's slots are loaded before its
+// stage is waited for; each chunk's ni and q rows are copied with cp.async.
+// The tile after the last is an end marker (no chunk).
+__device__ __forceinline__ void x2h_producer(X2hMmaSmem& s, const float* __restrict__ h,
+                                             const EdgeInputs& in, const float* __restrict__ qn,
+                                             int B, int N, int K, float* __restrict__ out, int pw,
+                                             int lane) {
+  const int c = pw / kFeeders, q = pw % kFeeders;
+  if (c >= kMmaConsumers) return;
+  const long long total = (long long)B * N, stride = (long long)kMmaConsumers * gridDim.x;
+  long long wbase = (long long)kMmaConsumers * blockIdx.x + c;  // row i of the window: wbase + i stride
+  unsigned wbits = 0;  // lane i: the live chunks of the window's row i
+  int wi = -1;
+  long long cur = 0;
+  unsigned todo = 0;
+  bool fresh = false;
+  auto load_window = [&]() {
+    const long long r = wbase + lane * stride;
+    wbits = r < total ? row_live_chunks(in.nmask, r, K) : 0u;
+  };
+  auto seek = [&]() {  // to the next row with a live chunk (cur = total: none left)
+    for (;;) {
+      if (++wi == 32) {
+        wbase += 32 * stride;
+        wi = 0;
+        load_window();
+      }
+      cur = wbase + wi * stride;
+      if (cur >= total) {
+        cur = total;
+        return;
+      }
+      todo = __shfl_sync(0xffffffffu, wbits, wi);
+      if (todo) {
+        fresh = true;
+        return;
+      }
+      if (q == 0)
+        reinterpret_cast<float4*>(out + cur * H)[lane] =
+            reinterpret_cast<const float4*>(h + cur * H)[lane];
+    }
+  };
+  auto next_chunk = [&]() {
+    LiveChunk ch{-1, 0, 0, 0};
+    if (cur >= total) return ch;
+    ch.row = cur;
+    ch.c = __ffs(todo) - 1;
+    ch.first = fresh;
+    todo &= todo - 1;
+    ch.last = todo == 0;
+    fresh = false;
+    if (todo == 0) seek();
+    return ch;
+  };
+  load_window();
+  seek();
+  for (int j = 0;; ++j) {
+    const LiveChunk a = next_chunk(), b = next_chunk();
+    if (j % kFeeders != q) {
+      if (a.row < 0) break;
+      continue;
+    }
+    const int st = j % kMmaStages;
+    X2hTile& T = s.tile[c][st];
+    const EdgeSlot sa = load_slot(in, a.row, K, KC * a.c + lane);
+    const EdgeSlot sb = load_slot(in, b.row, K, KC * b.c + lane);
+    const SlotGeom ga = slot_geometry(in, N, a.row, sa), gb = slot_geometry(in, N, b.row, sb);
+    const unsigned va = __ballot_sync(0xffffffffu, sa.valid);
+    const unsigned vb = __ballot_sync(0xffffffffu, sb.valid);
+    mbar_wait(&s.empty[c][st], ((j / kMmaStages) & 1) ^ 1);
+    const long long rows[2] = {a.row, b.row};
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      if (rows[p] < 0) continue;
+      for (int u = lane; u < (H2 + H) / 4; u += 32)
+        cp_async16(u < H2 / 4 ? &T.ni[p][4 * u] : &T.q[p][4 * u - H2],
+                   u < H2 / 4 ? in.ni + rows[p] * H2 + 4 * u : qn + rows[p] * H + 4 * u - H2);
+    }
+    write_slot(T, in, ga, lane);
+    write_slot(T, in, gb, KC + lane);
+    if (lane == 0) {
+      T.row[0] = a.row;
+      T.row[1] = b.row;
+      T.valid[0] = va;
+      T.valid[1] = vb;
+      T.first[0] = a.first;
+      T.first[1] = b.first;
+      T.last[0] = a.last;
+      T.last[1] = b.last;
+    }
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&s.full[c][st]);
+    if (a.row < 0) break;  // the end marker
+  }
+}
+
+// ni of the chunk's row (staged: nirow, null where the chunk is absent) +
+// nj of the thread's two slots' sources (0 where there is none) for half
+// kv, in the accumulator's layout.
+__device__ __forceinline__ void node_sums(float2 (&ns)[2][H / 8], const EdgeInputs& in,
+                                          const float* nirow, const int (&src)[2], int kv,
+                                          int tig) {
+#pragma unroll
+  for (int nt = 0; nt < H / 8; ++nt) {
+    const float2 a = nirow == nullptr
+                         ? make_float2(0.f, 0.f)
+                         : *reinterpret_cast<const float2*>(nirow + kv * H + 8 * nt + 2 * tig);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 b = src[r] < 0 ? make_float2(0.f, 0.f)
+                                  : *reinterpret_cast<const float2*>(
+                                        in.nj + (size_t)src[r] * H2 + kv * H + 8 * nt + 2 * tig);
+      ns[r][nt] = make_float2(a.x + b.x, a.y + b.y);
+    }
+  }
+}
+
+// Consumer warpgroup c (thread wt of 128): the tiles of its rows, in order.
+__device__ __forceinline__ void x2h_consumer(X2hMmaSmem& s, const float* __restrict__ h,
+                                             const EdgeInputs& in, float* __restrict__ out, int c,
+                                             int wt) {
+  const int w = wt >> 5, lane = wt & 31, g = lane >> 2, tig = lane & 3;
+  const int pos = w >> 1;      // the chunk of the warp's 16 slots
+  const int m0 = 16 * w + g;   // the thread's slots m0 and m0 + 8 (accumulator rows)
+  const int hh = wt >> 3;      // the merge's head (thread wt merges channel wt)
+  const float lscale = rsqrtf((float)DH);
+  // the merge thread's running state of its channel: max, denominator, value sum
+  float m_run = -INFINITY, d_run = 0.f, o_run = 0.f;
+  float acc[64];
+  for (int j = 0;; ++j) {
+    const int st = j % kMmaStages, buf = j & 1;
+    X2hTile& T = s.tile[c][st];
+    mbar_wait(&s.full[c][st], (j / kMmaStages) & 1);
+    const long long rows[2] = {T.row[0], T.row[1]};
+    if (rows[0] < 0) break;
+    const int first[2] = {T.first[0], T.first[1]}, last[2] = {T.last[0], T.last[1]};
+    const long long crow = rows[pos];
+    const unsigned vmask = T.valid[pos];
+    const int src[2] = {T.src[m0], T.src[m0 + 8]};
+    const float ew[2] = {T.ew[m0], T.ew[m0 + 8]};
+    const bool valid[2] = {((vmask >> (m0 & 31)) & 1u) != 0, ((vmask >> ((m0 + 8) & 31)) & 1u) != 0};
+    const uint64_t da = mma_desc(T.a, kSboT1);
+    float2 qv[NH];  // q of the chunk's row, the thread's columns 8 nt + 2 tig (+1)
+    float2 ns[2][H / 8];  // the half's ni + nj of rows m0, m0 + 8
+
+#pragma unroll
+    for (int kv = 0; kv < 2; ++kv) {
+      // first layer: [type | type x RBF] of the tile's 64 slots times the half's table
+      {
+        const uint64_t db = mma_desc(s.t1[kv], kSboT1);
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kT1KSteps; ++ks) wgmma_ss(acc, desc_ks(da, ks), desc_ks(db, ks), ks);
+        wgmma_commit();
+      }
+      // meanwhile the half's ni + nj, and q
+      node_sums(ns, in, crow < 0 ? nullptr : T.ni[pos], src, kv, tig);
+      if (kv == 0) {
+#pragma unroll
+        for (int nt = 0; nt < H / 8; ++nt)
+          qv[nt] = crow < 0 ? make_float2(0.f, 0.f)
+                            : *reinterpret_cast<const float2*>(&T.q[pos][8 * nt + 2 * tig]);
+      }
+      wgmma_wait0();
+      fence_acc(acc);
+      if (kv == 1) mbar_arrive(&s.empty[c][st]);  // the tile's A operand and slots are read
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int nt = 0; nt < H / 8; ++nt) {
+          acc[4 * nt + 2 * r] += ns[r][nt].x;
+          acc[4 * nt + 2 * r + 1] += ns[r][nt].y;
+        }
+
+      // LayerNorm + ReLU of rows m0 (r = 0) and m0 + 8 (r = 1), rounded to
+      // bf16 as the second layer's A fragments: k-step ks takes n-tiles 2 ks
+      // (registers 0, 1) and 2 ks + 1 (2, 3)
+      uint32_t fr[H / 16][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float lsum[4] = {};  // four independent partial sums: short dependency chains
+#pragma unroll
+        for (int nt = 0; nt < H / 8; ++nt)
+          lsum[nt & 3] += acc[4 * nt + 2 * r] + acc[4 * nt + 2 * r + 1];
+        float sum = (lsum[0] + lsum[1]) + (lsum[2] + lsum[3]);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        const float mean = sum * (1.f / H);
+        float sqp[4] = {};
+#pragma unroll
+        for (int i = 0; i < 2 * (H / 8); ++i) {
+          const float dlt = acc[4 * (i >> 1) + 2 * r + (i & 1)] - mean;
+          sqp[i & 3] = fmaf(dlt, dlt, sqp[i & 3]);
+        }
+        float sq = (sqp[0] + sqp[1]) + (sqp[2] + sqp[3]);
+        sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+        sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+        const float rstd = rsqrtf(sq * (1.f / H) + kLnEps);
+#pragma unroll
+        for (int nt = 0; nt < H / 8; ++nt) {
+          const int col = kv * H + 8 * nt + 2 * tig;
+          const float2 sc = *reinterpret_cast<const float2*>(&s.ln[0][col]);
+          const float2 bi = *reinterpret_cast<const float2*>(&s.ln[1][col]);
+          const float z0 = fmaxf((acc[4 * nt + 2 * r] - mean) * rstd * sc.x + bi.x, 0.f);
+          const float z1 = fmaxf((acc[4 * nt + 2 * r + 1] - mean) * rstd * sc.y + bi.y, 0.f);
+          fr[nt >> 1][(nt & 1) * 2 + r] = bf16_pair(z0, z1);
+        }
+      }
+
+      // second layer, A from registers; + bias
+      {
+        const uint64_t db = mma_desc(s.w2[kv], kSboW2);
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < H / 16; ++ks) wgmma_rs(acc, fr[ks], desc_ks(db, ks), ks);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_acc(acc);
+      }
+#pragma unroll
+      for (int nt = 0; nt < H / 8; ++nt) {
+        const float2 bias = *reinterpret_cast<const float2*>(&s.b2[kv][8 * nt + 2 * tig]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          acc[4 * nt + 2 * r] += bias.x;
+          acc[4 * nt + 2 * r + 1] += bias.y;
+        }
+      }
+
+      if (kv == 0) {
+        // logits: the quad's partial dots reduce-scattered, thread tig keeps
+        // heads 4 tig .. 4 tig + 3 of rows m0, m0 + 8
+        float lg[2][NH];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int nt = 0; nt < NH; ++nt)
+            lg[r][nt] = acc[4 * nt + 2 * r] * qv[nt].x + acc[4 * nt + 2 * r + 1] * qv[nt].y;
+        const bool hi2 = (tig & 2) != 0, hi1 = (tig & 1) != 0;
+        float l1[2][8], l2[2][4];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float keep = hi2 ? lg[r][i + 8] : lg[r][i], send = hi2 ? lg[r][i] : lg[r][i + 8];
+            l1[r][i] = keep + __shfl_xor_sync(0xffffffffu, send, 2);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float keep = hi1 ? l1[r][i + 4] : l1[r][i], send = hi1 ? l1[r][i] : l1[r][i + 4];
+            l2[r][i] = keep + __shfl_xor_sync(0xffffffffu, send, 1);
+          }
+        }
+        // per head over the warp's 16 slots: max, exp-sum; e_w * p for the v half
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float l0 = valid[0] ? l2[0][i] * lscale : -INFINITY;
+          const float l1v = valid[1] ? l2[1][i] * lscale : -INFINITY;
+          float mx = fmaxf(l0, l1v);
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+          const float p0 = mx == -INFINITY ? 0.f : expf(l0 - mx);
+          const float p1 = mx == -INFINITY ? 0.f : expf(l1v - mx);
+          float sm = p0 + p1;
+          sm += __shfl_xor_sync(0xffffffffu, sm, 4);
+          sm += __shfl_xor_sync(0xffffffffu, sm, 8);
+          sm += __shfl_xor_sync(0xffffffffu, sm, 16);
+          s.pw[c][w][g][4 * tig + i] = p0 * ew[0];
+          s.pw[c][w][g + 8][4 * tig + i] = p1 * ew[1];
+          if (g == 0) {
+            s.xm[c][buf][w][4 * tig + i] = mx;
+            s.xs[c][buf][w][4 * tig + i] = sm;
+          }
+        }
+      } else {
+        // the warp's slots' e_w * p * v summed over its 16 slots: the
+        // thread's 32 channel sums reduce-scattered over the 8 row groups
+        __syncwarp();
+        float pr[2][NH];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int i = 0; i < NH / 4; ++i) {
+            const float4 v4 = *reinterpret_cast<const float4*>(&s.pw[c][w][g + 8 * r][4 * i]);
+            pr[r][4 * i] = v4.x;
+            pr[r][4 * i + 1] = v4.y;
+            pr[r][4 * i + 2] = v4.z;
+            pr[r][4 * i + 3] = v4.w;
+          }
+        float part[NH][2];
+#pragma unroll
+        for (int nt = 0; nt < NH; ++nt)
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj)
+            part[nt][jj] = pr[0][nt] * acc[4 * nt + jj] + pr[1][nt] * acc[4 * nt + 2 + jj];
+        const bool b16 = (lane & 16) != 0, b8 = (lane & 8) != 0, b4 = (lane & 4) != 0;
+        float p1[8][2], p2[4][2], p3[2][2];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const float keep = b16 ? part[i + 8][jj] : part[i][jj];
+            const float send = b16 ? part[i][jj] : part[i + 8][jj];
+            p1[i][jj] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+          }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const float keep = b8 ? p1[i + 4][jj] : p1[i][jj];
+            const float send = b8 ? p1[i][jj] : p1[i + 4][jj];
+            p2[i][jj] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+          }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const float keep = b4 ? p2[i + 2][jj] : p2[i][jj];
+            const float send = b4 ? p2[i][jj] : p2[i + 2][jj];
+            p3[i][jj] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+          }
+        const int base = (b16 ? 8 : 0) + (b8 ? 4 : 0) + (b4 ? 2 : 0);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          *reinterpret_cast<float2*>(&s.xv[c][buf][w][8 * (base + i) + 2 * tig]) =
+              make_float2(p3[i][0], p3[i][1]);
+      }
+    }
+
+    // merge the four warp partials in slot order into the row state; a
+    // row's last chunk writes out = h + sums / denominator
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + c), "r"(128) : "memory");
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      if (rows[p] < 0) continue;
+      if (first[p]) {
+        m_run = -INFINITY;
+        d_run = 0.f;
+        o_run = 0.f;
+      }
+#pragma unroll
+      for (int ww = 2 * p; ww < 2 * p + 2; ++ww) {
+        const float mw = s.xm[c][buf][ww][hh];
+        if (mw == -INFINITY) continue;  // no valid slot among the warp's 16
+        const float mn = fmaxf(m_run, mw), a = expf(m_run - mn), b = expf(mw - mn);
+        d_run = fmaf(d_run, a, s.xs[c][buf][ww][hh] * b);
+        o_run = fmaf(o_run, a, s.xv[c][buf][ww][wt] * b);
+        m_run = mn;
+      }
+      if (last[p]) out[rows[p] * H + wt] = h[rows[p] * H + wt] + o_run / fmaxf(d_run, 1e-16f);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMmaThreads, 1)
+x2h_edge_mma_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restrict__ qn,
+                    PassParams p, int B, int N, int K, float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char x2h_mma_smem_raw[];
+  X2hMmaSmem& s = *reinterpret_cast<X2hMmaSmem*>(x2h_mma_smem_raw);
+  const int t = threadIdx.x;
+  stage_x2h_tables(s, p, t);
+  if (t == 0) {
+    for (int c = 0; c < kMmaConsumers; ++c)
+      for (int st = 0; st < kMmaStages; ++st) {
+        mbar_init(&s.full[c][st], 1);
+        mbar_init(&s.empty[c][st], 128);
+      }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  fence_proxy_async();  // the staged tables, for the products
+  __syncthreads();
+  // warpgroups 0 .. kMmaConsumers - 1 consume, the last produces; the two
+  // paths do not meet again
+  const int wg = t >> 7;
+  if (wg == kMmaConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    x2h_producer(s, h, in, qn, B, N, K, out, (t & 127) >> 5, t & 31);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    x2h_consumer(s, h, in, out, wg, t & 127);
+  }
+}
+
+// out = x2h(h) on every row with bf16 products, for any K <= kMaxLayerK.
+int launch_x2h_mma(const float* h, const EdgeInputs& in, const float* q, const PassParams& p,
+                   int B, int N, int K, float* out, cudaStream_t s) {
+  if (B <= 0 || N <= 0 || K <= 0 || K > kMaxLayerK) return (int)cudaErrorInvalidValue;
+  static int n_sm = 0;
+  if (int err = sm_count(x2h_edge_mma_kernel, (int)sizeof(X2hMmaSmem), n_sm)) return err;
+  const long long units = ((long long)B * N + kMmaConsumers - 1) / kMmaConsumers;
+  const int grid = (int)(units < n_sm ? units : n_sm);
+  x2h_edge_mma_kernel<<<grid, kMmaThreads, sizeof(X2hMmaSmem), s>>>(h, in, q, p, B, N, K, out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

@@ -142,6 +142,22 @@ def cast_pack(stacks: dict, dtype) -> dict:
     return {k: v.to(dtype if k in WEIGHT_FIELDS else torch.float32) for k, v in stacks.items()}
 
 
+FIRST_LAYER_DEPTH = 96  # [edge type (4) | type x RBF (4 R = 80)], zero rows to 16-deep k-steps
+
+
+def pack_first_layer_table(stacks, layer: int = 0):
+    """The edge-feature part of one pass's k|v first layers as one table
+    [FIRST_LAYER_DEPTH, 2H], as the bf16 x2h kernel stages it in shared
+    memory from w_et and w_rbf (csrc/x2h_edge_bf16.cuh stage_x2h_tables):
+    row k < 4 is w_et[k], row 4 + R t + r is w_rbf[t][r] (the reference's
+    r_feat order, type-major), then zero rows. A slot's row [one-hot type t |
+    type x RBF | 0] times it gives w_et[t] + sum_r rbf_r w_rbf[t][r]."""
+    w_et, w_rbf = stacks["w_et"][layer], stacks["w_rbf"][layer]
+    E, R, C = w_rbf.shape
+    pad = w_et.new_zeros((FIRST_LAYER_DEPTH - E - E * R, C))
+    return torch.cat([w_et, w_rbf.reshape(E * R, C), pad])
+
+
 def pack_pass_params(refine_net, dtype=torch.float32):
     """(x2h, h2x) stacks of a UniTransformerO2TwoUpdateGeneral's layers, as
     `_pack_pass` lays them out; differentiable."""

@@ -1070,6 +1070,31 @@ def test_bf16_layer_kernels_match_plain(cuda, cutoff_mode, k, max_ligand, n_prot
         kel.x2h_layer_cuda(h, x, nbh, mlig, e_w, px, torch.float32)
 
 
+@pytest.mark.parametrize("cutoff_mode,k,max_ligand,n_protein",
+                         LAYER_CASES + [("hybrid", 32, 225, 40)])
+def test_bf16_x2h_mma_kernel_takes_any_k_and_repeats(cuda, cutoff_mode, k, max_ligand,
+                                                     n_protein):
+    """The bf16 x2h edge kernel (csrc/x2h_edge_bf16.cuh) through the
+    per-layer entry at K = 8, 32, 95, 159 and kMaxLayerK = 256: against the
+    bf16 plain layer, two launches bitwise equal, rows without a valid
+    neighbour h bitwise."""
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+
+    _, _, rn, h, x, node_mask, mlig, nbh, e_w = _layer_setup(cuda, cutoff_mode, k, max_ligand,
+                                                              n_protein)
+    layer = rn.base_block[0]
+    with torch.no_grad():
+        px, _ = kel.pack_layer_params(layer, torch.bfloat16)
+        runs = [kel.x2h_layer_cuda(h, x, nbh, mlig, e_w, px, torch.bfloat16) for _ in range(2)]
+        want = {d: kel.x2h_layer_plain(layer, h, x, nbh, mlig, e_w, d)
+                for d in (torch.bfloat16, torch.float32)}
+    torch.cuda.synchronize()
+    assert torch.equal(*runs)
+    bf16_close("h", runs[0], want[torch.bfloat16], want[torch.float32], node_mask)
+    empty = ~nbh.mask.any(-1)
+    assert bool(empty.any()) and torch.equal(runs[0][empty], h[empty])
+
+
 def test_bf16_node_and_edge_weight_kernels_match_plain(cuda):
     """The bf16 node kernel against float64 of its bf16 plain version (the
     same bf16 operands: ni and nj float32-close; q through a rounded
