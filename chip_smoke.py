@@ -18,7 +18,9 @@ for bit against knn_graph_exact at B=4, B=100 and the train step's shape
 the node launch, the
 x2h edge launch and the h2x edge launch alone against their plain versions
 (the edge launches at float32-grade bars) and times each beside its bound
-(the node launch also beside `torch.addmm` of its projection), holds the
+(the node launch also beside `torch.addmm` of its projection and the whole
+function as a short PyTorch chain, and again alone at kNN B=100 for both
+passes: `node_b100_fields`), holds the
 edge-weight launch against float64 at B=4 and at the bench's B=100, then samples
 molecules for that pocket through the port's entry point
 `sample_diffusion_ligand` with seeded random flagship weights, and checks the
@@ -101,12 +103,14 @@ max and median printed) and each bf16 launch alone (node, x2h edge, h2x
 edge, edge weights) the same way, timed beside its bound at the bf16
 tensor-core rate (the x2h edge launch, x2h_edge_mma_kernel, also at kNN
 B=100; two of its launches bitwise equal, rows without an edge keeping h
-bitwise; the node launch beside `torch.addmm` with bf16 operands);
+bitwise; the node launch beside `torch.addmm` with bf16 operands and the
+PyTorch chain, and alone at kNN B=100 for both passes);
 [bf16-layers] the bf16 per-layer kernels at the hybrid shape (N = 640,
 K = 95), the x2h edge launch alone there too; [bf16-sample] runs 1000 DDPM steps of B=4 at the
 default precision on the kNN and the hybrid model, with the bf16 launches
-counted exactly, no float32 launch, and ms per step beside the float32
-runs'. Each bf16 launch has its own entry in the kernels' JSON line.
+counted exactly (the node kernel's in C, two a layer and step), no
+float32 launch, and ms per step beside the float32 runs'. Each bf16 launch
+has its own entry in the kernels' JSON line.
 After [train-cli], bf16 training (`impl='fast_bf16'`, the JAX package's
 bf16 training variant): [bf16-train-block] holds the bf16 train-mode
 forward's checkpoints and the bf16 block backward (B=4, N=608, K=32, L=9)
@@ -143,8 +147,11 @@ PyTorch calls that compute the same function.
 `duel` times the whole-block kernels (B=4, N=608, K=32), the node launch
 and the x2h and h2x edge launches alone at the kNN shape, one per-layer x2h
 and one h2x call at the hybrid shape with their kernels' device time, the
-backwards' kernels' device time, 50 kNN and 50 hybrid sampling steps and
-the B=32 `fast` and `fast_pl` train steps of the port found in
+backwards' kernels' device time, 50 kNN and 50 hybrid sampling steps,
+the B=32 `fast` and `fast_pl` train steps, and in bf16 the node launch
+alone at kNN B=4 and B=100 (with digests), 10 kNN B=100 sampling steps
+and the B=32 `fast_bf16` step (device time, node_kernel's share) of the
+port found in
 CHECKOUT (this checkout by default), through entry points
 every version of the port since the per-layer slice has: run it once per
 checkout, in turns, within one call,
@@ -500,6 +507,76 @@ def h2x_rows(torch, nbh, row0):
     return B * (N - row0), src, either
 
 
+def node_chain(torch, h, px, bf16=False):
+    """The node function as a short PyTorch chain on h [rows, 128] (a
+    yardstick of the whole function, timed for information): `torch.addmm`
+    of the projection, `layer_norm` and `relu` of q's first layer, `addmm`
+    of its second; bf16: bf16 operands, the LayerNorm in float32."""
+    F = torch.nn.functional
+    H = h.shape[-1]
+    dt = torch.bfloat16 if bf16 else torch.float32
+    hd, w, b = h.to(dt), px["w_node"][0].to(dt), px["b_node"][0].to(dt)
+    w2, b2, ln = px["w_q2"][0].to(dt), px["b_q2"][0].to(dt), px["q_ln"][0]
+
+    def run():
+        proj = torch.addmm(b, hd, w)
+        z = F.relu(F.layer_norm(proj[:, 4 * H:].float(), (H,), ln[0], ln[1], 1e-5))
+        return proj, torch.addmm(b2, z.to(dt), w2)
+
+    return run
+
+
+def node_b100_fields(torch, kblock, b100, px, ph, bf16=False) -> dict:
+    """The node launch alone at kNN B=100 (`knn_b100`: 60,800 rows) on
+    layer 0's weights, every row (as the x2h pass launches it) and with row0
+    = N - 32 (as the h2x pass does): ni, nj (and float32: q) within NODE_REL
+    of float64 of the same operands, bf16 q within BF16_BAR of the bf16
+    plain version in float64, two launches bitwise equal; CUDA-event and
+    device ms of both launches beside their bounds (bf16: at the bf16 rate),
+    the plain version's ms, `torch.addmm` of the projection (one call; bf16
+    operands for bf16) and the whole function as a PyTorch chain
+    (`node_chain`)."""
+    h, x, node_mask, mlig, nbh = b100
+    H = h.shape[-1]
+    h2d = h.reshape(-1, H)
+    nodes, lig_nodes, _, _ = layer_work(nbh, mlig, node_mask)
+    e_w = torch.zeros(nbh.idx.shape, device=h.device)  # the node launches read no e_w
+    xl = pass_launcher(torch, kblock, h, x, nbh, mlig, e_w, px, MAX_LIGAND, bf16=bf16)
+    hl = pass_launcher(torch, kblock, h, x, nbh, mlig, e_w, ph, MAX_LIGAND, bf16=bf16)
+    label = "bf16-block" if bf16 else "block"
+    with torch.no_grad():
+        xl.node()
+        got = (xl.ni.clone(), xl.nj.clone(), xl.q.clone())
+        xl.node()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, (xl.ni, xl.nj, xl.q))):
+            raise AssertionError(f"{label} node launch B=100: two launches differ")
+        want = kblock.node_projections_plain(
+            h2d.double(), px if bf16 else {k: v.double() for k, v in px.items()})
+        rel = [float((g.double() - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+        f = {"ni_nj_max_rel_err": max(rel[:2]), "q_max_rel_err": rel[2]}
+        if not max(rel[:2] if bf16 else rel) < NODE_REL or not rel[2] < BF16_BAR:
+            raise AssertionError(f"{label} node launch B=100: errors {rel} of scale "
+                                 f"(bars {NODE_REL}; bf16 q {BF16_BAR})")
+        del got, want
+        dt = torch.bfloat16 if bf16 else torch.float32
+        hd, w_node, b_node = h2d.to(dt), px["w_node"][0].to(dt), px["b_node"][0].to(dt)
+        runs = {"node": xl.node, "node_h2x": hl.node_rows,
+                "addmm": lambda: torch.addmm(b_node, hd, w_node),
+                "chain": node_chain(torch, h2d, px, bf16)}
+        for name, fn in runs.items():
+            f[f"{name}_ms"] = cuda_ms(torch, fn)
+            f[f"{name}_device_ms"] = device_ms(torch, fn)
+        f["plain_ms"] = cuda_ms(torch, lambda: kblock.node_projections_plain(h2d, px), reps=5)
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS
+    for name, flops, nb in (("node", node_flops("x2h", nodes, lig_nodes), xl.bytes["node"]),
+                            ("node_h2x", node_flops("h2x", nodes, lig_nodes),
+                             hl.bytes["node_rows"])):
+        f.update({f"{name}_{k}": v for k, v in bound(flops, nb, peak).items()})
+    f["rows"] = h2d.shape[0]
+    return f
+
+
 def piece_fields(torch, kblock, kel, layer, h, x, nbh, mask_ligand, e_w, px, ph, n_ligand,
                  work, label):
     """The node launch and the x2h and h2x edge launches alone on one layer's
@@ -537,7 +614,8 @@ def piece_fields(torch, kblock, kel, layer, h, x, nbh, mask_ligand, e_w, px, ph,
         h2d, w_node, b_node = h.reshape(-1, H), px["w_node"][0], px["b_node"][0]
         runs = {"x2h_edge": xl.x2h, "h2x_edge": hl.h2x, "node": xl.node,
                 "node_h2x": hl.node_rows,
-                "node_addmm": lambda: torch.addmm(b_node, h2d, w_node)}
+                "node_addmm": lambda: torch.addmm(b_node, h2d, w_node),
+                "node_chain": node_chain(torch, h2d, px)}
         for name, fn in runs.items():
             f[f"{name}_ms"] = cuda_ms(torch, fn)
             f[f"{name}_device_ms"] = device_ms(torch, fn)
@@ -833,7 +911,11 @@ def main(argv) -> int:
         pieces["x2h_edge_b100_device_ms"] = device_ms(torch, xl100.x2h, calls=5)
     b100 = bound(live100 * FLOP_EDGE["x2h"], xl100.bytes["x2h"])
     pieces.update({f"x2h_edge_b100_{k}": v for k, v in b100.items()})
-    del h100, x100, mask100, mlig100, nbh100, xl100
+    del xl100
+    # and the node launch alone there, both passes
+    pieces.update({f"node_b100_{k}": v for k, v in node_b100_fields(
+        torch, kblock, (h100, x100, mask100, mlig100, nbh100), px0, ph0).items()})
+    del h100, x100, mask100, mlig100, nbh100
     phase("block", shape=f"B={B},N={N},K={K},L={L},H=128,heads=16",
           max_abs_err_x=x_err, max_abs_err_h=h_err, max_abs_err_h_valid_rows=h_err_all,
           ms=block_ms, plain_ms=block_plain_ms, **block_bound,
@@ -1008,9 +1090,12 @@ def bf16_kernel_entries(bf16: dict, dp: dict) -> list:
         ("block_denoiser.ew_bf16", blk, "targetdiff_tpu/ops/pallas/block_denoiser.py:319",
          knn["ew_bf16"], bf16["block"]["ew"], {}),
         ("block_denoiser.node_bf16", "targetdiff_tpu_torch/csrc/node_proj.cuh",
-         "targetdiff_tpu/ops/pallas/block_denoiser.py:154",
-         knn["x2h_pass_bf16"] + knn["h2x_pass_bf16"], bf16["block"]["node"],
-         {"h2x_pass_" + k: v for k, v in bf16["block"]["node_h2x"].items()}),
+         "targetdiff_tpu/ops/pallas/block_denoiser.py:154", knn["node_bf16"],
+         bf16["block"]["node"],
+         {"kernel": "node_kernel<true>", "launches_hybrid": hybrid["node_bf16"],
+          "chain_ms": bf16["block"]["node"]["chain_ms"],
+          **{"h2x_pass_" + k: v for k, v in bf16["block"]["node_h2x"].items()},
+          **{f"b100_{k}": v for k, v in bf16["block"]["node_b100"].items()}}),
         ("block_denoiser.x2h_edge_mma_bf16", "targetdiff_tpu_torch/csrc/x2h_edge_bf16.cuh",
          "targetdiff_tpu/ops/pallas/block_denoiser.py:154", knn["x2h_pass_bf16"],
          bf16["block"]["x2h_edge"],
@@ -1208,6 +1293,7 @@ def gate_short_phase(torch, dev) -> None:
     kblock.BF16_LAUNCHES = kblock.BF16_EW_LAUNCHES = 0
     kvjp.LAUNCHES = kvjp.NODE_BWD_LAUNCHES = kvjp.ADJ_LAUNCHES = 0
     kwg.LAUNCHES.update(dict.fromkeys(kwg.LAUNCHES, 0))
+    node_since = kblock.node_launch_counts()
     t0 = time.perf_counter()
     report = qg.run_gate(GATE_SHORT["steps"], GATE_SHORT["n_mols"], dev,
                          n_pockets=GATE_SHORT["n_pockets"], log=lambda _: None)
@@ -1216,11 +1302,16 @@ def gate_short_phase(torch, dev) -> None:
                 "block_bf16": kblock.BF16_LAUNCHES, "ew_bf16": kblock.BF16_EW_LAUNCHES,
                 "train_fwd": kblock.TRAIN_LAUNCHES, "vjp": kvjp.LAUNCHES,
                 "node_bwd": kvjp.NODE_BWD_LAUNCHES, "adj": kvjp.ADJ_LAUNCHES,
-                "weight_grad": dict(kwg.LAUNCHES)}
+                "weight_grad": dict(kwg.LAUNCHES),
+                **dict(zip(("node", "node_bf16"),
+                           np.subtract(kblock.node_launch_counts(), node_since).tolist()))}
     steps, L = GATE_SHORT["steps"], FLAGSHIP["num_layers"]
     sampling = 2 * report["chunks"] * report["num_steps"]  # two models
+    # node launches: training's forward and recompute, both passes (float32);
+    # sampling's two passes a layer (bf16)
     want = {"knn": steps + sampling, "block": 0, "ew": 0, "block_bf16": sampling,
-            "ew_bf16": sampling, "train_fwd": steps,
+            "ew_bf16": sampling, "train_fwd": steps, "node": 4 * L * steps,
+            "node_bf16": 2 * L * sampling,
             "vjp": steps, "node_bwd": 2 * L * steps, "adj": 2 * steps,
             "weight_grad": {"x2h_edge": 3 * L * steps, "h2x_edge": 3 * L * steps,
                             "node": 4 * L * steps, "alone": 0}}
@@ -2183,7 +2274,8 @@ def bf16_block_phase(torch, kblock, kel, rn, h, x, nbh, mask_ligand, node_mask, 
         # projection [rows, 128] @ [128, 640] with bf16 operands (a bf16 result)
         hb, w_node, b_node = h.reshape(-1, H).to(bf16), px["w_node"][0], px["b_node"][0].to(bf16)
         runs = {"node": xl.node, "node_h2x": hl.node_rows, "x2h_edge": xl.x2h,
-                "h2x_edge": hl.h2x, "node_addmm_bf16": lambda: torch.addmm(b_node, hb, w_node)}
+                "h2x_edge": hl.h2x, "node_addmm_bf16": lambda: torch.addmm(b_node, hb, w_node),
+                "node_chain_bf16": node_chain(torch, h.reshape(-1, H), px, bf16=True)}
         for name, fn in runs.items():
             f = pieces.setdefault(name, {})
             f.update(ms=cuda_ms(torch, fn), device_ms=device_ms(torch, fn))
@@ -2191,6 +2283,8 @@ def bf16_block_phase(torch, kblock, kel, rn, h, x, nbh, mask_ligand, node_mask, 
                 f["plain_ms"] = cuda_ms(torch, plain[name])
         pieces["node"]["library_ms"] = pieces["node_addmm_bf16"]["ms"]
         pieces["node"]["library_device_ms"] = pieces.pop("node_addmm_bf16")["device_ms"]
+        chain = pieces.pop("node_chain_bf16")
+        pieces["node"].update(chain_ms=chain["ms"], chain_device_ms=chain["device_ms"])
     for name, flops, nb in (("x2h_edge", edges * FLOP_EDGE["x2h"], xl.bytes["x2h"]),
                             ("h2x_edge", lig_edges * FLOP_EDGE["h2x"], hl.bytes["h2x"]),
                             ("node", node_flops("x2h", nodes, lig_nodes), xl.bytes["node"]),
@@ -2218,6 +2312,7 @@ def bf16_block_phase(torch, kblock, kel, rn, h, x, nbh, mask_ligand, node_mask, 
             **bound(work[2] * FLOP_EW_EDGE, nbytes(x, nbh.idx, got, *packed.ew),
                     PEAK_BF16_FLOPS))
     fields["x2h_edge_b100"] = bf16_x2h_b100(torch, kblock, kel, rn, rn64, b100, px)
+    fields["node_b100"] = node_b100_fields(torch, kblock, b100, px, ph, bf16=True)
     del rn64
     phase("bf16-block", shape=f"B={B},N={h.shape[1]},K={nbh.idx.shape[-1]},L={L},H=128,"
           "heads=16", bar=BF16_BAR, **fields)
@@ -2323,6 +2418,7 @@ def bf16_sample_phase(torch, dev, model, hmodel, pocket, f32_ms, hybrid_f32_ms,
         steps = m.num_timesteps
         for mod, attr in names.values():
             setattr(mod, attr, 0)
+        node_since = kblock.node_launch_counts()
         t0 = time.perf_counter()
         res = sample_diffusion_ligand(
             m, pocket, num_samples=B, generator=torch.Generator(device=dev).manual_seed(seed),
@@ -2330,7 +2426,10 @@ def bf16_sample_phase(torch, dev, model, hmodel, pocket, f32_ms, hybrid_f32_ms,
             rng=np.random.default_rng(seed))
         wall = time.perf_counter() - t0
         launches = {k: getattr(mod, attr) for k, (mod, attr) in names.items()}
-        want = dict.fromkeys(names, 0)
+        launches.update(zip(("node", "node_bf16"),
+                            np.subtract(kblock.node_launch_counts(), node_since).tolist()))
+        want = dict.fromkeys(launches, 0)
+        want["node_bf16"] = 2 * L * steps  # one a pass: x2h and h2x, each layer
         if cutoff == "knn":
             want.update(knn=steps, block_bf16=steps, ew_bf16=steps, x2h_pass_bf16=L * steps,
                         h2x_pass_bf16=L * steps)
@@ -3248,7 +3347,8 @@ def bf16_layers_bwd_phase(torch, dev, pocket, feat_dim) -> dict:
     L = FLAGSHIP["num_layers"]
     per = BF16_LAYER_STEPS * L
     want = {"knn": 0, "x2h_bf16": per, "h2x_bf16": per, "x2h_bwd_bf16": per,
-            "h2x_bwd_bf16": per, "node_bwd_bf16": 2 * per, "adj": 2 * per}
+            "h2x_bwd_bf16": per, "node_bwd_bf16": 2 * per, "adj": 2 * per,
+            "node_bf16": 4 * per}  # both passes' forwards and the backward's recomputes
     if any(launches[k] != v for k, v in want.items()) or any(
             launches[k] for k in FLOAT32_TRAIN_COUNTS) or launches["weight_grad_bf16"] != {
             "x2h_edge": 3 * per, "h2x_edge": 3 * per, "node": 4 * per, "alone": 0}:
@@ -3265,14 +3365,22 @@ def bf16_layers_bwd_phase(torch, dev, pocket, feat_dim) -> dict:
 
 # the training kernels' launch counts: float32 ones, which the bf16 path never
 # launches, and the bf16 ones
-FLOAT32_TRAIN_COUNTS = ("train_fwd", "vjp", "node_bwd", "x2h", "h2x", "x2h_bwd", "h2x_bwd")
+FLOAT32_TRAIN_COUNTS = ("train_fwd", "vjp", "node_bwd", "x2h", "h2x", "x2h_bwd", "h2x_bwd",
+                        "node")
+
+
+_NODE_SINCE = [0, 0]  # the library's node launch counts at the last reset_train_counts
 
 
 def reset_train_counts() -> None:
     """Every launch count of the kernel wrappers to 0 (each module's
-    `*LAUNCHES`, float32 and bf16)."""
+    `*LAUNCHES`, float32 and bf16; the node kernel's, counted in C, from
+    here on)."""
     import importlib
 
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+
+    _NODE_SINCE[:] = kblock.node_launch_counts()
     for name in ("block_denoiser", "block_vjp", "edge_layer", "edge_layer_vjp", "knn",
                  "weight_grad"):
         mod = importlib.import_module(f"targetdiff_tpu_torch.ops.kernels.{name}")
@@ -3301,7 +3409,9 @@ def train_counts() -> dict:
             "h2x_bf16": kel.BF16_H2X_LAUNCHES, "x2h_bwd": kelv.X2H_BWD_LAUNCHES,
             "h2x_bwd": kelv.H2X_BWD_LAUNCHES, "x2h_bwd_bf16": kelv.BF16_X2H_BWD_LAUNCHES,
             "h2x_bwd_bf16": kelv.BF16_H2X_BWD_LAUNCHES, "weight_grad": dict(kwg.LAUNCHES),
-            "weight_grad_bf16": dict(kwg.BF16_LAUNCHES)}
+            "weight_grad_bf16": dict(kwg.BF16_LAUNCHES),
+            **dict(zip(("node", "node_bf16"), np.subtract(kblock.node_launch_counts(),
+                                                          _NODE_SINCE).tolist()))}
 
 
 def cli_dataset(torch, root: Path) -> None:
@@ -3395,7 +3505,7 @@ def bf16_train_phase(torch, dev, pocket, feat_dim) -> dict:
     launches = runs["fast_bf16"]["launches"]
     L, n = FLAGSHIP["num_layers"], BF16_TRAIN_STEPS
     want = {"knn": n, "train_fwd_bf16": n, "vjp_bf16": n, "node_bwd_bf16": 2 * L * n,
-            "adj": 2 * n}
+            "adj": 2 * n, "node_bf16": 4 * L * n}  # forward and recompute, both passes
     if any(launches[k] != v for k, v in want.items()) or any(
             launches[k] for k in FLOAT32_TRAIN_COUNTS) or launches["weight_grad_bf16"] != {
             "x2h_edge": 3 * L * n, "h2x_edge": 3 * L * n, "node": 4 * L * n, "alone": 0} or any(
@@ -3569,10 +3679,11 @@ def measure(torch, argv) -> int:
     if "dtype" in inspect.signature(sample_diffusion_ligand).parameters:
         precision["dtype"] = torch.bfloat16 if bf16 else torch.float32
 
-    def setup(cutoff):
+    def setup(cutoff, n=None, dtype=None):
         """A flagship model of `cutoff` with seeded weights, and sample(steps,
-        seed): ms per step of `batch` molecules for the pocket over `steps`
-        DDPM steps, host clock ending in a synchronise."""
+        seed): ms per step of `batch` molecules (n, if given; dtype, if given,
+        as their precision) for the pocket over `steps` DDPM steps, host clock
+        ending in a synchronise."""
         n_ligand = HYBRID_LIGAND if cutoff == "hybrid" else MAX_LIGAND
         torch.manual_seed(0)
         model = DiffusionModel(Config(dict(FLAGSHIP, cutoff_mode=cutoff)), feat.feature_dim,
@@ -3581,11 +3692,12 @@ def measure(torch, argv) -> int:
 
         def sample(steps, seed):
             t0 = time.perf_counter()
-            sample_diffusion_ligand(model, pocket, num_samples=batch,
+            sample_diffusion_ligand(model, pocket, num_samples=n or batch,
                                     generator=torch.Generator(device=dev).manual_seed(seed),
-                                    batch_size=batch, num_steps=steps, max_protein=MAX_PROTEIN,
-                                    max_ligand=n_ligand, rng=np.random.default_rng(seed),
-                                    **precision)
+                                    batch_size=n or batch, num_steps=steps,
+                                    max_protein=MAX_PROTEIN, max_ligand=n_ligand,
+                                    rng=np.random.default_rng(seed),
+                                    **(dict(precision, dtype=dtype) if dtype else precision))
             torch.cuda.synchronize()
             return 1e3 * (time.perf_counter() - t0) / steps
 
@@ -3932,9 +4044,13 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
     edge weights, the train-mode checkpoints, the launches alone, the
     per-layer forwards and the block backward. The bf16 kernels (`bf16_*`):
     the whole block at the kNN shape (CUDA events, device time), the x2h
-    edge launch alone at kNN B=4 and B=100 and the per-layer x2h at the
-    hybrid shape (its edge kernel's and node_kernel's device time), each
-    with a digest of its output."""
+    edge launch and the node launch (both passes: `bf16_node_duel`) alone at
+    kNN B=4 and B=100 and the per-layer x2h at the hybrid shape (its edge
+    kernel's and node_kernel's device time), each with a digest of its
+    output; 10 kNN B=100 sampling steps in bf16 (`profile`: host and device
+    ms per step, node_kernel's device ms) and the B=32 `fast_bf16` step
+    (host ms over 10 steps after 3, device ms and node_kernel's over 3);
+    the quality gate's float32 `fast` step at its own padding."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -3980,6 +4096,10 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
         out["bf16_x2h_edge_b100_ms"] = cuda_ms(torch, xl16.x2h)
         out["bf16_x2h_edge_b100_device_ms"] = device_ms(torch, xl16.x2h, calls=10)
         out["bf16_x2h_edge_b100_digest"] = digest(torch, xl16.out)
+        bph = {k: v[:1] for k, v in bpacked.h2x.items()}
+        out.update(bf16_node_duel(torch, kblock, xl16, pass_launcher(
+            torch, kblock, h100, x100, nbh100, mlig100, xl16.tensors[0].ew, bph, MAX_LIGAND,
+            bf16=True), "b100"))
         del xl16
         # knn_kernel's device time at B=4, B=100 and the train step's shape,
         # and a digest of its outputs there
@@ -4042,8 +4162,18 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
         out["bf16_x2h_edge_digest"] = digest(torch, xl16.out)
         out["bf16_x2h_edge_knn_ms"] = cuda_ms(torch, xl16.x2h)
         out["bf16_x2h_edge_knn_device_ms"] = device_ms(torch, xl16.x2h)
+        out.update(bf16_node_duel(torch, kblock, xl16, pass_launcher(
+            torch, kblock, h, x, nbh, mlig, xl16.tensors[0].ew, bph, MAX_LIGAND, bf16=True),
+            "b4"))
     sample(3, 1)  # warm up
     out["sample_ms_per_step"] = sample(50, 1)
+    # the kNN B=100 sampling step in bf16 (the default precision): host and
+    # device ms per step, node_kernel's device ms per step
+    step100 = profile(torch, setup("knn", 100, torch.bfloat16)[1], "knn", 100)
+    out.update(bf16_knn_b100_step_host_ms=step100["host_ms_per_step"],
+               bf16_knn_b100_step_device_ms=step100["device_ms_per_step"],
+               bf16_knn_b100_node_device_ms_per_step=sum(
+                   v["ms"] for k, v in step100["kernels_per_step"].items() if "node_kernel" in k))
 
     hmodel, hsample = setup("hybrid")
     hrn = hmodel.net.refine_net
@@ -4153,6 +4283,58 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
 
     for key, ms in bwd_device_ms(torch, "train_pl_step", three_pl_steps, calls=1).items():
         out[key.replace("_device_ms", "_device_ms_per_step")] = ms / 3
+    # the `fast_bf16` step on the same batch and model, and the quality
+    # gate's `fast` step (its model and padding, B=32 of its pool)
+    from targetdiff_tpu_torch.tools import quality_gate as qg
+
+    bf_step = make_train_step(tmodel, pos_noise_std=0.1, time_sampling="importance",
+                              impl="fast_bf16")
+    gmodel = qg.build_model(dev)
+    steps = {"train_bf16": (tmodel, bf_step, tb, 10),
+             "gate_train": (gmodel, make_train_step(gmodel, pos_noise_std=0.1),
+                            qg.ComplexBatch(*[t[:qg.BATCH] for t in qg.make_pool().to(dev)]), 20)}
+    for label, (m, step_fn, batch_, reps) in steps.items():
+        st = create_train_state(m, train_utils.get_optimizer(Config(OPTIMIZER), m.parameters()))
+        out.update({f"{label}_{k}": v for k, v in step_fields(
+            torch, step_fn, st, batch_, tgen, reps).items()})
+    return out
+
+
+def step_fields(torch, step, state, batch, gen, reps) -> dict:
+    """A train step's host ms over `reps` steps after TRAIN_WARMUP, and its
+    device ms and node_kernel's device ms per step over 3 traced steps (the
+    forward and the backward's recompute, both passes)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    for _ in range(TRAIN_WARMUP):
+        state, _ = step(state, batch, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        state, _ = step(state, batch, gen)
+    torch.cuda.synchronize()
+    out = {"step_ms": 1e3 * (time.perf_counter() - t0) / reps}
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            state, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+    times = device_times(prof, 3)
+    out.update(step_device_ms=sum(v["ms"] for v in times.values()),
+               node_device_ms_per_step=sum(v["ms"] for k, v in times.items()
+                                           if "node_kernel" in k))
+    return out
+
+
+def bf16_node_duel(torch, kblock, xl, hl, label) -> dict:
+    """The bf16 node launch alone (`pass_launcher`s xl, every row, and hl, as
+    the h2x pass launches it): CUDA-event and device ms of both, a digest of
+    the full launch's ni, nj and q (the rows below row0 of hl's are unset)."""
+    xl.node()
+    out = {f"bf16_node_{label}_digest": digest(torch, xl.ni, xl.nj, xl.q)}
+    for name, fn in (("node", xl.node), ("node_h2x", hl.node_rows)):
+        out[f"bf16_{name}_{label}_ms"] = cuda_ms(torch, fn)
+        out[f"bf16_{name}_{label}_device_ms"] = device_ms(torch, fn)
     return out
 
 

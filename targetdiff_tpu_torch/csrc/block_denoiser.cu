@@ -29,10 +29,11 @@
 //                (persistent blocks, 32 slots per warp step, the first layer
 //                on the tensor cores as three-term TF32).
 //   node_kernel  per pass (node_proj.cuh): h @ [k.h_i | v.h_i | k.h_j | v.h_j
-//                | q1] plus the query MLP's LayerNorm and second layer, a
-//                64-row tile and one 128-column slice of w_node per block,
-//                so the edge kernels never multiply h per edge. For the h2x
-//                pass the protein rows get only their source projections.
+//                | q1] plus the query MLP's LayerNorm and second layer on
+//                wgmma, persistent blocks each owning one column group (ni,
+//                nj or q) whose weights they stage once, so the edge kernels
+//                never multiply h per edge. For the h2x pass the protein
+//                rows get only their source projections.
 //   x2h_edge_kernel  per layer (x2h_edge.cuh, shared with the per-layer
 //                kernels of edge_layer.cu): persistent blocks with both
 //                second layers staged in shared memory, four pipelines per
@@ -381,6 +382,11 @@ extern "C" int td_block_node_bf16(const float* h, int rows, PassParams p, float*
                                   float* q, void* stream) {
   return launch_node<true>(h, 1, rows, 0, p, ni, nj, q, nullptr, (cudaStream_t)stream);
 }
+
+// Node-projection launches made so far in this process, by every entry (the
+// blocks, the per-layer passes, the backward's recompute): float32, bf16.
+extern "C" long long td_node_launches() { return node_launch_count; }
+extern "C" long long td_node_bf16_launches() { return node_bf16_launch_count; }
 
 // The node projections of B complexes of N rows where the rows below row0 of
 // each complex need only nj (the h2x pass: row0 = N - n_ligand); q1 may be

@@ -6,8 +6,9 @@
 // Precision. Each piece that differs between precisions takes kBf16 (false
 // by default, the float32-grade products below): the bf16 instantiations
 // are the sampling path's default precision (the JAX package's dtype=bf16).
-// There every product is ONE mma.sync.m16n8k16 with bf16 operands and
-// float32 accumulation: the weights arrive as bf16 (`WeightT`), activations
+// There every product is ONE mma.sync.m16n8k16 (the node projections and
+// the bf16 x2h pass: wgmma) with bf16 operands and float32 accumulation:
+// the weights arrive as bf16 (`WeightT`), activations
 // are rounded to bf16 where they are stored as the A operand (one bf16 pair
 // per column pair, both words of the pair alike), the RBF features are
 // rounded where the chunk's geometry is written; geometry, LayerNorm
@@ -16,7 +17,8 @@
 // keeps the call sites alike).
 //
 // Products. Every bar the port is held to is float32, so each dense product
-// runs as three fp16 mma.sync.m16n8k16 products, lo*hi + hi*lo + hi*hi
+// runs as three fp16 products (mma.sync.m16n8k16; the node projections
+// wgmma), lo*hi + hi*lo + hi*hi
 // (hi = x rounded to fp16, lo = the remainder rounded again: ~2^-21
 // relative, as a three-term TF32 split, with half its mma instructions),
 // accumulated in float32. Weights are staged times kWScale = 2^8 (exact) so
@@ -427,6 +429,107 @@ __device__ __forceinline__ void chunk_half(EdgeLane& L, const EdgeInputs& in, co
 
   ln_split_rows<kBf16>(&L.z[0][0], qd, 4, p.kv_ln + kv * H, p.kv_ln + H2 + kv * H, lane);
   lane_sync(l);
+}
+
+// Warpgroup products (wgmma, sm_90a only): operands in shared memory as
+// K-major 8x8 core matrices without swizzle, accumulators in registers
+// (x2h_edge_bf16.cuh, node_proj.cuh).
+
+// Byte offset of element (row, k) of a K-major wgmma operand without
+// swizzle: 8x8 core matrices of 128 contiguous bytes, the K-adjacent ones 128
+// bytes apart (the descriptor's leading byte offset), 8-row groups `sbo`
+// bytes apart (its stride byte offset).
+__host__ __device__ constexpr int kmajor_off(int row, int k, int sbo) {
+  return (row >> 3) * sbo + (k >> 3) * 128 + (row & 7) * 16 + (k & 7) * 2;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Generic-proxy writes to shared memory made visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// The wgmma descriptor of a K-major, unswizzled operand at p.
+__device__ __forceinline__ uint64_t mma_desc(const void* p, int sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32);
+}
+// A descriptor moved on by k-step ks (16 columns: two core matrices, 256 bytes).
+__device__ __forceinline__ uint64_t desc_ks(uint64_t d, int ks) { return d + 16 * ks; }
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Keeps the compiler from moving the accumulator's reads and writes across
+// the asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The 64 accumulator registers of a warpgroup's m64n128 tile as asm operands
+// %0 .. %63, and their list in the instruction.
+#define TD_WGMMA_ACC(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+  "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+  "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+  "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), \
+  "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), \
+  "+f"(d[63])
+#define TD_WGMMA_REGS                                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "    \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "      \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "      \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (+)= A B for the warpgroup's 64 x 128 tile, A and B bf16 in shared
+// memory (descriptors), float32 accumulation; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " TD_WGMMA_REGS
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : TD_WGMMA_ACC(d)
+      : "l"(da), "l"(db), "r"(scale_d)
+      : "memory");
+}
+
+// The same with A from registers: a[0..3] the warp's 16 x 16 fragment of
+// the k-step (rows g, g + 8 x columns 2 tig (+1), 2 tig + 8 (+9), bf16 pairs;
+// kF16: fp16 pairs).
+template <bool kF16 = false>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  if constexpr (kF16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " TD_WGMMA_REGS
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : TD_WGMMA_ACC(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
+        : "memory");
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " TD_WGMMA_REGS
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : TD_WGMMA_ACC(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
+        : "memory");
+  }
 }
 
 // The SMs of the (one) device, with the shared-memory limit of `kernel`

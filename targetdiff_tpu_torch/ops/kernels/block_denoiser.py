@@ -225,6 +225,18 @@ def _entries():
     return fns
 
 
+def node_launch_counts() -> tuple:
+    """(float32, bf16) node-kernel launches the library has made in this
+    process, counted in C where launch_node launches (td_node_launches,
+    td_node_bf16_launches): by the blocks, the train-mode forward, the
+    per-layer passes and the backward's recompute."""
+    lib = build.load_library()
+    counts = (lib.td_node_launches, lib.td_node_bf16_launches)
+    for fn in counts:
+        fn.argtypes, fn.restype = [], ctypes.c_longlong
+    return tuple(fn() for fn in counts)
+
+
 def _pass_structs(stacks: dict, num_layers: int):
     return [_PassParams(*[stacks[name][l].data_ptr() for name, _ in _PassParams._fields_])
             for l in range(num_layers)]
@@ -354,6 +366,47 @@ def node_projections_plain(h, stacks, layer: int = 0):
     z = torch.relu(torch.nn.functional.layer_norm(q1, (H,), p["q_ln"][0], p["q_ln"][1], 1e-5))
     q = (round_bf16(z) if bf16 else z) @ p["w_q2"] + p["b_q2"]
     return proj[..., :2 * H], proj[..., 2 * H:4 * H], q, q1
+
+
+NODE_TILE_ROWS = 64  # rows of a tile of the node kernel (csrc/node_proj.cuh kNodeRows)
+
+
+def node_deal(tiles_dst: int, tiles_all: int, warpgroups: int, slots: int) -> list:
+    """Blocks of the node kernel's three column groups (ni, nj, q), as
+    csrc/node_proj.cuh `node_deal` deals them: as many as give each of a
+    group's warpgroups one tile, but no more than the group's share, by
+    tiles, of the `slots` blocks the card holds at once (at least one)."""
+    total = 2 * tiles_dst + tiles_all
+    return [min(-(-t // warpgroups), max(1, slots * t // total))
+            for t in (tiles_dst, tiles_all, tiles_dst)]
+
+
+def node_walk(B: int, N: int, row0: int, slots: int, warpgroups: int) -> list:
+    """The node kernel's tile walk (csrc/node_proj.cuh node_kernel) replayed:
+    one (column group, [row arrays]) per block, the arrays the node rows
+    (b*N + i) of the tiles each of its warpgroups takes, in its order. The
+    ni and q groups walk rows [row0, N) of each complex, nj every row; a
+    group's warpgroups take its tiles with the stride of their number."""
+    import numpy as np
+
+    nd = N - row0
+    nrows = (B * nd, B * N, B * nd)
+    tiles = [-(-n // NODE_TILE_ROWS) for n in nrows]
+    nb = node_deal(tiles[0], tiles[1], warpgroups, slots)
+    blocks = []
+    for grp in range(3):
+        stride = nb[grp] * warpgroups
+        for j in range(nb[grp]):
+            walks = []
+            for wg in range(warpgroups):
+                rows = []
+                for tile in range(j * warpgroups + wg, tiles[grp], stride):
+                    u = np.arange(tile * NODE_TILE_ROWS,
+                                  min((tile + 1) * NODE_TILE_ROWS, nrows[grp]))
+                    rows.append(u if grp == 1 else u // nd * N + row0 + u % nd)
+                walks.append(rows)
+            blocks.append((grp, walks))
+    return blocks
 
 
 def node_projections_cuda(h, stacks, layer: int = 0, row0: int = 0, want_q1: bool = False):

@@ -3,7 +3,8 @@ reconstruction, bond orders, the ligand-size prior and their data files)
 against the JAX package's modules they were copied from, and the rule that
 no module of the port, nor chip_smoke.py or the kernel-variant tools
 (weight_grad_variants.py, edge_bwd_variants.py, node_ew_variants.py,
-x2h_bf16_variants.py and their variant_harness.py), imports the JAX package, and that no module of
+x2h_bf16_variants.py, node_proj_variants.py and their variant_harness.py),
+imports the JAX package, and that no module of
 the port (the evaluation modules and tools/quality_gate.py included) names
 a path under targetdiff_tpu/ or reads a file there."""
 
@@ -232,7 +233,7 @@ def test_edge_bwd_variants_imports_neither_jax_nor_the_jax_package():
 
 
 @pytest.mark.parametrize("script", ["node_ew_variants.py", "x2h_bf16_variants.py",
-                                    "variant_harness.py"])
+                                    "node_proj_variants.py", "variant_harness.py"])
 def test_variant_tools_import_neither_jax_nor_the_jax_package(script):
     roots = _imported_roots(script)
     assert "targetdiff_tpu_torch" in roots

@@ -491,40 +491,64 @@ def test_h2x_kernel_callers_match_plain_and_repeat(cuda, cutoff_mode, k, max_lig
     torch.testing.assert_close(trains[0][1] * mk, want[1] * mk, **H2X_TOL)
 
 
-@pytest.mark.parametrize("magnitude", [1.0, 1e5, 1e-5])
-def test_node_kernel_matches_plain(cuda, magnitude):
-    """The node kernel against float64 on rows of largest |h| near
-    `magnitude` (1e5 lies above fp16's range, 1e-5 in its subnormals; a row
-    of zeros too), for both passes' weights; a launch with q1 gives q1 at the
-    same bar and ni, nj, q bitwise those of a launch without; with
-    row0 > 0 every row's nj and the rows >= row0's ni and q are the full
-    launch's, bitwise."""
-    torch.manual_seed(0)
-    model = DiffusionModel(Config(CONFIG), 27, 13, device=cuda)
-    stacks = kblock.pack_pass_params(model.net.refine_net)
+# (complexes, rows, ligand rows) of the node kernel's cases: 225 rows (not a
+# multiple of 64), and 18,240 (285 tiles of 64 a column group: more than the
+# card holds at once, so every group's persistent walk wraps)
+NODE_SHAPES = [(3, 75, 11), (30, 608, 32)]
+
+
+def _node_rows(cuda, magnitude, nb, n):
+    """h [nb, n, 128] with each row's largest |h| near `magnitude` (1e5 lies
+    above fp16's range, 1e-5 in its subnormals), entries spread over three
+    decades, and a row of zeros."""
     rng = np.random.default_rng(1)
-    nb, n, nl = 3, 75, 11
     hv = rng.normal(size=(nb, n, 128)) * 10.0 ** rng.uniform(-3, 0, size=(nb, n, 128))
     hv = hv / np.abs(hv).max(-1, keepdims=True) * magnitude * rng.uniform(0.6, 1.0, (nb, n, 1))
     hv[0, 3] = 0.0
-    h = torch.tensor(hv, dtype=torch.float32, device=cuda)
+    return torch.tensor(hv, dtype=torch.float32, device=cuda)
+
+
+def _node_launches(h, st, nl):
+    """The node kernel on layer 1 of `st`: (with q1, without q1, with row0 =
+    N - nl, with q1 again); asserts what must be bitwise: ni, nj, q alike
+    with and without q1, two launches alike, and with row0 > 0 every row's nj
+    and the rows >= row0's ni and q those of the full launch."""
+    nb, n, _ = h.shape
+    with torch.no_grad():
+        full = kblock.node_projections_cuda(h, st, layer=1, want_q1=True)
+        plain_launch = kblock.node_projections_cuda(h, st, layer=1)
+        part = kblock.node_projections_cuda(h, st, layer=1, row0=n - nl)
+        again = kblock.node_projections_cuda(h, st, layer=1, want_q1=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(full[:3], plain_launch[:3]))
+    assert plain_launch[3] is None
+    assert all(torch.equal(a, b) for a, b in zip(full, again))
+    dst = (torch.arange(nb * n, device=h.device) % n) >= n - nl
+    assert torch.equal(part[1], full[1])
+    assert torch.equal(part[0][dst], full[0][dst]) and torch.equal(part[2][dst], full[2][dst])
+    return full
+
+
+@pytest.mark.parametrize("nb,n,nl", NODE_SHAPES)
+@pytest.mark.parametrize("magnitude", [1.0, 1e5, 1e-5])
+def test_node_kernel_matches_plain(cuda, magnitude, nb, n, nl):
+    """The node kernel against float64 on rows of largest |h| near
+    `magnitude` (and a row of zeros), for both passes' weights; a launch
+    with q1 gives q1 at the same bar (`_node_launches` holds what is
+    bitwise)."""
+    torch.manual_seed(0)
+    model = DiffusionModel(Config(CONFIG), 27, 13, device=cuda)
+    stacks = kblock.pack_pass_params(model.net.refine_net)
+    h = _node_rows(cuda, magnitude, nb, n)
     for st in stacks:
+        full = _node_launches(h, st, nl)
         with torch.no_grad():
-            full = kblock.node_projections_cuda(h, st, layer=1, want_q1=True)
-            plain_launch = kblock.node_projections_cuda(h, st, layer=1)
-            part = kblock.node_projections_cuda(h, st, layer=1, row0=n - nl)
             want = kblock.node_projections_plain(
                 h.double().reshape(-1, 128), {k: v.double() for k, v in st.items()}, layer=1)
-        torch.cuda.synchronize()
         for name, got, w in zip(("ni", "nj", "q", "q1"), full, want):
             assert bool(got.isfinite().all()), name
             rel = float((got.double() - w).abs().max() / w.abs().max())
             assert rel < NODE_REL, (name, rel)
-        assert all(torch.equal(a, b) for a, b in zip(full[:3], plain_launch[:3]))
-        assert plain_launch[3] is None
-        dst = (torch.arange(nb * n, device=cuda) % n) >= n - nl
-        assert torch.equal(part[1], full[1])
-        assert torch.equal(part[0][dst], full[0][dst]) and torch.equal(part[2][dst], full[2][dst])
 
 
 # The weight-gradient kernel (three-term TF32) against float64: |got - want|
@@ -1118,6 +1142,32 @@ def test_bf16_node_and_edge_weight_kernels_match_plain(cuda):
         want = {d: rn.edge_weights(x, nbh, d)[..., 0] for d in (torch.bfloat16, torch.float32)}
     torch.cuda.synchronize()
     bf16_close("e_w", ew, want[torch.bfloat16], want[torch.float32], nbh.mask)
+
+
+@pytest.mark.parametrize("nb,n,nl", NODE_SHAPES)
+@pytest.mark.parametrize("magnitude", [1.0, 1e5, 1e-5])
+def test_bf16_node_kernel_matches_plain(cuda, magnitude, nb, n, nl):
+    """The bf16 node kernel (wgmma) on rows of largest |h| near `magnitude`
+    (and a row of zeros), for both passes' weights: ni, nj and q1 at
+    NODE_REL against float64 of the bf16 plain version (the same bf16
+    operands), q within the bf16 bars of it and closer to it than to the
+    float32 plain version; `_node_launches` holds what is bitwise."""
+    torch.manual_seed(0)
+    model = DiffusionModel(Config(CONFIG), 27, 13, device=cuda)
+    rn = model.net.refine_net
+    h = _node_rows(cuda, magnitude, nb, n)
+    for st, st32 in zip(kblock.pack_pass_params(rn, torch.bfloat16), kblock.pack_pass_params(rn)):
+        full = _node_launches(h, st, nl)
+        with torch.no_grad():
+            want = kblock.node_projections_plain(h.double().reshape(-1, 128), st, layer=1)
+            want32 = kblock.node_projections_plain(h.reshape(-1, 128), st32, layer=1)
+        for name, got, w, w32 in zip(("ni", "nj", "q", "q1"), full, want, want32):
+            assert bool(got.isfinite().all()), name
+            if name == "q":
+                bf16_close(name, got.double(), w, w32.double())
+            else:
+                rel = float((got.double() - w).abs().max() / w.abs().max())
+                assert rel < NODE_REL, (name, rel)
 
 
 def test_bf16_sampling_runs_the_bf16_kernels(cuda):
