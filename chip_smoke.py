@@ -43,7 +43,10 @@ bound and `torch.mm`), the backward's node kernel alone against float64 at
 the B=32 step's rows for both passes (timed beside its bound and `torch.mm`
 of its dh product), the backward's inverse adjacency alone bit for bit
 against its plain version for both passes at the B=32 step's graph (timed
-beside its bound and the plain version's stable torch.sort), the whole
+beside its bound and the plain version's stable torch.sort), the
+backward's transposed second layers alone against float64 at the B=32
+step's edges for both passes ([train-block tprod]: timed beside its bound
+and `torch.mm` of the same product), the whole
 loss and its gradients on the kernel path
 against the eager path, `make_train_step` at the bench's train shape (B=32,
 384-slot synthetic pockets), a short fit, and the train CLI's `run` on a
@@ -120,8 +123,9 @@ scale of the replay of the kernel's rounding points
 (ops/kernels/block_vjp_replay.py) and within 2e-2 of the bf16 plain
 version unless the replay itself lies that far from it, the median within
 0.08 of float64 (`bf16_grad_margins`), with the float32 kernels timed beside;
-[bf16-train-block weight-grad] / [... node-bwd] the bf16 weight-gradient
-and node kernels alone; [bf16-layers-bwd] the bf16 per-layer backwards at
+[bf16-train-block weight-grad] / [... node-bwd] / [... tprod] the bf16
+weight-gradient and node kernels and the transposed product alone;
+[bf16-layers-bwd] the bf16 per-layer backwards at
 the hybrid shape (N = 640, K = 95) and three `fast_bf16` steps of the
 hybrid model; [bf16-train] 100 `fast_bf16` and 100 `fast` B=32 steps from
 one init and one set of draws (the bf16 run's launches counted: bf16
@@ -2498,6 +2502,76 @@ def weight_grad_operands(torch, dev):
         yield cls, name, M, P, Q, operand(M, ldx, ox, P), operand(M, ldy, oy, Q)
 
 
+# edge_bwd_kernel's transposed second layers alone (transposed_layers in
+# tprod_kernel) against the float64 product of their operands: every entry
+# within TPROD_BAR of the root-sum-square of its terms (three-term TF32, and
+# bf16 against its rounded operands, sit ~1e-6 from it;
+# tests/test_torch_edge_bwd_tc.py holds the arithmetic, one TF32 term misses).
+TPROD_BAR = 1e-5
+
+
+def tprod_phase(torch, dev, dtype=None) -> dict:
+    """[train-block tprod] ([bf16-train-block tprod]): the backward's
+    transposed second layers alone (block_vjp.transposed_product_cuda) at
+    the B=32 step's edges (Ep = 32 x 416 x 32), both passes' shapes (x2h:
+    d [Ep, 256], h2x: d [Ep, 144]), on seeded d rows of 1e-3 .. 1e3 and
+    weights of the flagship's scale: its error against float64 over the
+    terms' root-sum-square, two launches bitwise equal, its device ms beside
+    its bound (the product at the TF32 or bf16 tensor-core rate, d read and
+    da written once) and `torch.mm` of the same product per half ([Ep, C] x
+    [C, 128], bf16 operands for bf16: this part's library call)."""
+    from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
+    from targetdiff_tpu_torch.ops.precision import round_bf16
+
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    H, E = FLAGSHIP["hidden_dim"], TRAIN_B * (TRAIN_PROTEIN + MAX_LIGAND) * K
+    out = {}
+    for sub, V in (("x2h", H), ("h2x", FLAGSHIP["n_heads"])):
+        gen = torch.Generator(device=dev).manual_seed(V)
+        d = torch.randn((E, H + V), generator=gen, device=dev)
+        d *= 10.0 ** (torch.rand((E, 1), generator=gen, device=dev) * 6 - 3)
+        w2k = torch.randn((H, H), generator=gen, device=dev) * H ** -0.5
+        w2v = torch.randn((H, V), generator=gen, device=dev) * H ** -0.5
+        w2k, w2v = w2k.to(dtype), w2v.to(dtype)
+        got = kvjp.transposed_product_cuda(d, w2k, w2v, dtype)
+        again = kvjp.transposed_product_cuda(d, w2k, w2v, dtype)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"tprod {sub}: two launches differ")
+        dr = (round_bf16(d) if bf16 else d).double()
+        err = 0.0
+        for half, (c0, c1, w) in enumerate(((0, H, w2k), (H, H + V, w2v))):
+            dh, w64 = dr[:, c0:c1], w.double()
+            exact, rss = dh @ w64.T, ((dh * dh) @ (w64 * w64).T).sqrt()
+            gh = got[:, half * H:(half + 1) * H].double()
+            err = max(err, float(((gh - exact).abs() / rss.clamp(min=1e-300)).max()))
+            del exact, rss, gh
+        if not err < TPROD_BAR:
+            raise AssertionError(f"tprod {sub}: {err} of the terms' root-sum-square "
+                                 f"(bar {TPROD_BAR})")
+        ms = kernel_device_ms(torch, lambda: kvjp.transposed_product_cuda(d, w2k, w2v, dtype),
+                              "tprod_kernel", calls=5)
+        dm = d.to(dtype)
+        wkT, wvT = w2k.T.contiguous(), w2v.T.contiguous()
+        mm_ms = device_ms(torch, lambda: (torch.mm(dm[:, :H], wkT), torch.mm(dm[:, H:], wvT)),
+                          calls=5)
+        b = bound((2 * E * (H + V) * H, 0), E * (H + V) * 4 + E * 2 * H * 4 + nbytes(w2k, w2v),
+                  PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS)
+        out[sub] = {"edges": E, "max_err_over_rss": err, "device_ms": ms, **b,
+                    "mm_device_ms": mm_ms}
+        del d, dr, got, again, dm
+        torch.cuda.empty_cache()
+    return out
+
+
+def tprod_entry(tprod: dict) -> dict:
+    """The kernels line's fields of the transposed product alone (tprod_phase)
+    in the backward's entry: x2h's, and h2x's under tprod_h2x_."""
+    return {f"tprod{'' if sub == 'x2h' else '_h2x'}_{k}": f[k] for sub, f in tprod.items()
+            for k in ("device_ms", "bound_ms", "bound_by", "mm_device_ms", "max_err_over_rss")}
+
+
 def weight_grad_phase(torch, dev, dtype=None) -> dict:
     """The weight-gradient kernel alone (`weight_grad_cuda`) at each of
     `weight_grad_products`, on `weight_grad_operands`: within WG_BAR of
@@ -2800,6 +2874,8 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     adjacency = adjacency_phase(torch, dev)
     phase("train-block adj", shape=f"B={TRAIN_B},N={TRAIN_PROTEIN + MAX_LIGAND},K={K}",
           **adjacency)
+    tprod = tprod_phase(torch, dev)
+    phase("train-block tprod", bar_over_rss=TPROD_BAR, **tprod)
 
     # ---- [train-loss]: the whole loss, kernel path vs eager path, injected draws ----
     # (the per-layer path's parity on the same draws is reported in [train-pl])
@@ -2991,7 +3067,7 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     return {"fwd": {"launches": train_launches["train_fwd"], "max_abs_err": fwd_err,
                     "ms": fwd_ms, "plain_ms": fwd_plain_ms, **fwd_bound},
             "bwd": {"launches": train_launches["vjp"], "max_abs_err": bwd_err, "ms": bwd_ms,
-                    "plain_ms": bwd_plain_ms, **bwd_bound},
+                    "plain_ms": bwd_plain_ms, **bwd_bound, **tprod_entry(tprod)},
             "weight_grad": {cls: {"launches": train_launches["weight_grad"][cls], **fields}
                             for cls, fields in wgrad["classes"].items()},
             "node_bwd": {"launches": train_launches["node_bwd"],
@@ -3612,6 +3688,8 @@ def bf16_train_phases(torch, dev, rn, h, x, nbh, mask_ligand, node_mask, pocket,
           products=wgrad["products"])
     node = node_bwd_phase(torch, dev, torch.bfloat16)
     phase("bf16-train-block node-bwd", bar_over_scale=NODE16_BAR, **node)
+    tprod = tprod_phase(torch, dev, torch.bfloat16)
+    phase("bf16-train-block tprod", bar_over_rss=TPROD_BAR, **tprod)
     layers = bf16_layers_bwd_phase(torch, dev, pocket, feat_dim)
     train = bf16_train_phase(torch, dev, pocket, feat_dim)
     launches, pl = train["launches"], layers["launches"]
@@ -3622,7 +3700,7 @@ def bf16_train_phases(torch, dev, rn, h, x, nbh, mask_ligand, node_mask, pocket,
          block["fwd"], no_library),
         ("block_vjp_bf16", "targetdiff_tpu_torch/csrc/block_vjp.cu",
          "targetdiff_tpu/ops/pallas/block_vjp.py:113", launches["vjp_bf16"], block["bwd"],
-         no_library),
+         {**no_library, **tprod_entry(tprod)}),
         *[(f"block_vjp.weight_grad_bf16_{cls}", "targetdiff_tpu_torch/csrc/weight_grad.cuh",
            "targetdiff_tpu/ops/pallas/block_vjp.py:113", launches["weight_grad_bf16"][cls], f,
            {}) for cls, f in wgrad["classes"].items()],
@@ -4048,9 +4126,10 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
     kNN B=4 and B=100 and the per-layer x2h at the hybrid shape (its edge
     kernel's and node_kernel's device time), each with a digest of its
     output; 10 kNN B=100 sampling steps in bf16 (`profile`: host and device
-    ms per step, node_kernel's device ms) and the B=32 `fast_bf16` step
-    (host ms over 10 steps after 3, device ms and node_kernel's over 3);
-    the quality gate's float32 `fast` step at its own padding."""
+    ms per step, node_kernel's device ms) and the B=32 `fast_bf16` and
+    `fast` steps (`step_fields`: host ms over 10 steps after 3; device ms,
+    node_kernel's and edge_bwd_kernel's over 3); the quality gate's float32
+    `fast` step at its own padding."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -4290,7 +4369,7 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
     bf_step = make_train_step(tmodel, pos_noise_std=0.1, time_sampling="importance",
                               impl="fast_bf16")
     gmodel = qg.build_model(dev)
-    steps = {"train_bf16": (tmodel, bf_step, tb, 10),
+    steps = {"train_fast": (tmodel, step, tb, 10), "train_bf16": (tmodel, bf_step, tb, 10),
              "gate_train": (gmodel, make_train_step(gmodel, pos_noise_std=0.1),
                             qg.ComplexBatch(*[t[:qg.BATCH] for t in qg.make_pool().to(dev)]), 20)}
     for label, (m, step_fn, batch_, reps) in steps.items():
@@ -4302,8 +4381,9 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
 
 def step_fields(torch, step, state, batch, gen, reps) -> dict:
     """A train step's host ms over `reps` steps after TRAIN_WARMUP, and its
-    device ms and node_kernel's device ms per step over 3 traced steps (the
-    forward and the backward's recompute, both passes)."""
+    device ms, node_kernel's (the forward and the backward's recompute, both
+    passes) and the x2h and h2x edge_bwd_kernel's device ms per step over 3
+    traced steps."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -4322,7 +4402,10 @@ def step_fields(torch, step, state, batch, gen, reps) -> dict:
     times = device_times(prof, 3)
     out.update(step_device_ms=sum(v["ms"] for v in times.values()),
                node_device_ms_per_step=sum(v["ms"] for k, v in times.items()
-                                           if "node_kernel" in k))
+                                           if "node_kernel" in k),
+               **{f"edge_bwd_{sub}_device_ms_per_step": sum(
+                   v["ms"] for k, v in times.items() if f"edge_bwd_kernel<{h2x}" in k)
+                  for sub, h2x in (("x2h", "false"), ("h2x", "true"))})
     return out
 
 

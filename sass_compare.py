@@ -35,7 +35,8 @@ def library(checkout: Path) -> str:
 
 
 def bodies(lib: str) -> dict:
-    """Function name -> its SASS lines (address comments and encodings)."""
+    """Function name -> its SASS lines (address comments, instructions and
+    encodings, whitespace collapsed)."""
     sass = subprocess.run([CUOBJDUMP, "-sass", lib], capture_output=True, text=True,
                           check=True).stdout
     funcs, name = {}, None
@@ -45,7 +46,9 @@ def bodies(lib: str) -> dict:
             name = m.group(1)
             funcs[name] = []
         elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
-            funcs[name].append(line.strip())
+            # cuobjdump pads the columns to the widest instruction of the
+            # object file: compare the words, not the padding
+            funcs[name].append(" ".join(line.split()))
     return {n: "\n".join(lines) for n, lines in funcs.items()}
 
 

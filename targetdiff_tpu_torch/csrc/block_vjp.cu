@@ -15,11 +15,12 @@
 // 128x128 second layers per edge, multiplies their output gradients back
 // through them, and forms the weight gradients A^T dY over all edges: about
 // N*K*128k multiply-adds, ~1 TFLOP per step at B=32, N=416, K=32, L=9. The
-// recompute's second layers, d rbf and the weight gradients run on the
-// tensor cores, the transposed second layers and the rest on the float32
-// pipes; with one block per destination row the second layers read their
-// weights from L2, 128 KB per 32-edge chunk (staged in shared memory instead,
-// they leave fewer rows in flight per SM or go through the slower distributed
+// recompute's second layers, the transposed second layers, d rbf and the
+// weight gradients run on the tensor cores, the rest on the float32 pipes;
+// with one block per destination row the second layers read their weights
+// from L2 in every 32-edge chunk, 128 KB for the recompute and 128 KB for the
+// transposed product (bf16: 64 KB each; staged in shared memory instead, they
+// leave fewer rows in flight per SM or go through the slower distributed
 // shared memory: PERF.md). The RBF table is read once per chunk: 80 KB of
 // staged fragments for d rbf, and each thread's column of the row's two type
 // tables for the recompute's first layer.
@@ -143,6 +144,49 @@ extern "C" int td_stage_rbf(const float* w_rbf, void* frags, void* stream) {
   stage_rbf_kernel<<<(kRbfFrags + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
       w_rbf, reinterpret_cast<uint4*>(frags));
   return (int)cudaGetLastError();
+}
+
+// The transposed second layers of one pass alone (tprod_kernel), as
+// edge_bwd_kernel runs them: da [E][2H] from d [E][H + V] (V = NH if h2x,
+// else H), after stage_w2_kernel has staged w2k [H][H] and w2v [H][V] (bf16
+// tensors for the _bf16 entry) into frags (td_tprod_frag_bytes, 16-byte
+// aligned).
+template <bool kBf16>
+int tprod(const float* d, long long E, int h2x, const void* w2k, const void* w2v, float* da,
+          void* frags, void* stream) {
+  if (E <= 0 || ((uintptr_t)frags & 15)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  PassParams p{};
+  p.w2k = static_cast<const float*>(w2k);
+  p.w2v = static_cast<const float*>(w2v);
+  uint4* f = static_cast<uint4*>(frags);
+  const int V = h2x ? NH : H;
+  stage_w2_kernel<kBf16><<<kW2Frags / kThreads, kThreads, 0, s>>>(p, V, f);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const unsigned grid = (unsigned)((E + KC - 1) / KC);
+  auto launch = [&](auto kernel) {
+    int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      kTprodSmem);
+    if (!e) {
+      kernel<<<grid, kThreads, kTprodSmem, s>>>(d, E, f, da);
+      e = (int)cudaGetLastError();
+    }
+    return e;
+  };
+  return h2x ? launch(tprod_kernel<NH, kBf16>) : launch(tprod_kernel<H, kBf16>);
+}
+
+extern "C" long long td_tprod_frag_bytes() { return kW2Staged * (long long)sizeof(uint4); }
+
+extern "C" int td_tprod(const float* d, long long E, int h2x, const void* w2k, const void* w2v,
+                        float* da, void* frags, void* stream) {
+  return tprod<false>(d, E, h2x, w2k, w2v, da, frags, stream);
+}
+
+extern "C" int td_tprod_bf16(const float* d, long long E, int h2x, const void* w2k,
+                             const void* w2v, float* da, void* frags, void* stream) {
+  return tprod<true>(d, E, h2x, w2k, w2v, da, frags, stream);
 }
 
 // edge_bwd_kernel as run_pass launches it for one pass of K neighbours per row:

@@ -9,8 +9,11 @@
 //                   every row.
 //   stage_w2_kernel stages the pass's second layers w2k, w2v times 2^8 as
 //                   fp16 (hi, lo) mma B fragments in the workspace
-//                   (tc_common.cuh: stage_frags), 64 KB each, read by every
-//                   edge_bwd_kernel block from L2.
+//                   (tc_common.cuh: stage_frags), 64 KB each, and their
+//                   float32 transposes, 64 KB each, read by every
+//                   edge_bwd_kernel block from L2; bf16: w2k, w2v and their
+//                   transposes as 8-byte bf16 fragments (stage_frags16), 32
+//                   KB each.
 //   stage_rbf_kernel stages the RBF table w_rbf as TF32 (hi, lo) B fragments
 //                   of the d rbf product, one layout per destination kind
 //                   (types 0|2 and 1|3), 80 KB each.
@@ -20,14 +23,16 @@
 //                   and P = d alpha / e_w of every edge, kept in shared
 //                   memory; after the row softmax, pass 2 walks the chunks
 //                   again backward: softmax, second layers (transposed
-//                   weights), LayerNorm+ReLU, the RBF table and the
-//                   geometry. With one chunk (K <= 32) pass 2 reuses pass 1's
+//                   weights: transposed_layers, on the tensor cores),
+//                   LayerNorm+ReLU, the RBF table and the geometry. With
+//                   one chunk (K <= 32) pass 2 reuses pass 1's
 //                   activations; with more it recomputes the chunk and its
 //                   k. The recompute's first layer applies each thread's
 //                   columns of the row's two RBF type tables, loaded once
 //                   per chunk; its second layers run on the tensor cores
 //                   (second_layers: three fp16 products per term,
-//                   float32-grade, as in the forward kernels), and so does d
+//                   float32-grade, as in the forward kernels), and so do
+//                   the transposed second layers (three-term TF32) and d
 //                   rbf (drbf_chunk: one three-term TF32 product per chunk
 //                   over the row's two type tables); the rest runs on the
 //                   float32 pipes. It writes per-row sums (the
@@ -78,12 +83,11 @@ struct PassGrads {
   float* b2v;
 };
 
-// Transposed copies of one layer's pass weights for the backward products.
+// Transposed copies of one layer's pass weights for the node kernel's
+// backward products (node_bwd.cuh).
 struct PassT {
   const float* w_nodeT;  // [5H][H]
   const float* w_q2T;    // [H][H]
-  const float* w2kT;     // [H][H]
-  const float* w2vT;     // [V][H]
 };
 
 // build_adjacency calls that launched, by every entry of the library.
@@ -104,7 +108,10 @@ long long adj_scratch_ints(long long B, long long N, long long E) {
   const long long T = adj_tile_edges((int)N);
   return B * ((E + T - 1) / T) * N;
 }
-constexpr int kW2Frags = kKSteps * kNTiles * 32;  // uint4 B fragments of a staged 128x128 weight
+constexpr int kW2Frags = kKSteps * kNTiles * 32;  // B fragments of a staged 128x128 weight
+// uint4 of stage_w2_kernel's output (Workspace::w2f): float32 w2k, w2v
+// fragments and their float32 transposes ([H][H] + [V][H] floats)
+constexpr int kW2Staged = 4 * kW2Frags;
 constexpr int kLdc = H2 + 8;    // padded row of the products' k|v output: conflict-free C stores
 constexpr int kLdd = H2 + 4;    // padded row of dk|dv and dz: conflict-free TF32 A fragments
 // floats of edge_bwd_kernel's third chunk buffer: dk|dv then dz [KC][kLdd], or
@@ -145,8 +152,7 @@ struct EdgeBwdArgs {
   float* dZ;        // [Ep][2H] gradients of the first layer's output
   float* F;         // [Ep][FE] edge-feature rows
   float* drel;      // [Ep][3]
-  const uint4* w2kf;  // w2k, w2v as staged by stage_w2_kernel
-  const uint4* w2vf;
+  const uint4* w2f;   // stage_w2_kernel's fragments
   const uint4* rbff;  // w_rbf as staged by stage_rbf_kernel
 };
 
@@ -159,15 +165,51 @@ __host__ __device__ constexpr int bwd_smem(int K, bool h2x) {
          (int)sizeof(float);
 }
 
-// Both second layers of a pass times kWScale as mma B fragments in global
-// memory (stage_frags' layout): wk [kKSteps][kNTiles][32], wv
-// [kKSteps][V / 8][32]. kBf16: bf16 fragments of the bf16 weights.
+// Stages B [16 ksteps][8 ntiles], B[k][n] = W[k sk + n sn] (bf16 weights),
+// times scale as 8-byte m16n8k16 B fragments by threads t of nthreads:
+// dst[(ks * ntiles + nt) * 32 + lane] = (b0, b1), bf16 pairs, b0 = (B[16 ks +
+// 2 tig][8 nt + g], B[16 ks + 2 tig + 1][..]), b1 the same 8 rows down, the
+// lower k in the lower half: stage_frags<true>'s words without its two zero
+// words.
+__device__ __forceinline__ void stage_frags16(uint2* dst, const __nv_bfloat16* __restrict__ W,
+                                              int sk, int sn, int ksteps, int ntiles, float scale,
+                                              int t, int nthreads) {
+  const int per = ksteps * ntiles * 32;
+  for (int u = t; u < per; u += nthreads) {
+    const int ks = u / (ntiles * 32), nt = u / 32 % ntiles, fl = u % 32;
+    const __nv_bfloat16* w = W + (16 * ks + 2 * (fl & 3)) * sk + (8 * nt + (fl >> 2)) * sn;
+    dst[u] = make_uint2(bf16_pair(scale * wload(w), scale * wload(w + sk)),
+                        bf16_pair(scale * wload(w + 8 * sk), scale * wload(w + 9 * sk)));
+  }
+}
+
+// The second layers of a pass as mma B fragments in global memory, f. Float32:
+// w2k, w2v times kWScale as stage_frags lays them out, [kKSteps][kNTiles][32]
+// and [kKSteps][V / 8][32] uint4 at f and f + kW2Frags, then their float32
+// transposes w2k^T [H][H] and w2v^T [V][H] from f + 2 kW2Frags (the
+// transposed product splits them into TF32 (hi, lo) where it reads them).
+// kBf16, from the bf16 weights, four regions of kW2Frags uint2
+// (stage_frags16): w2k, w2v times kWScale as B (B[k][n] = W[k][n]), then their
+// transposes, [H / 16][kNTiles][32] and [V / 16][kNTiles][32].
 template <bool kBf16 = false>
-__global__ void __launch_bounds__(kThreads)
-stage_w2_kernel(PassParams p, int V, uint4* __restrict__ wk, uint4* __restrict__ wv) {
+__global__ void __launch_bounds__(kThreads) stage_w2_kernel(PassParams p, int V, uint4* f) {
   const int t = blockIdx.x * kThreads + threadIdx.x, n = gridDim.x * kThreads;
-  stage_frags<kBf16>(wk, weights<kBf16>(p.w2k), H, kNTiles, t, n);
-  stage_frags<kBf16>(wv, weights<kBf16>(p.w2v), V, V / 8, t, n);
+  if constexpr (kBf16) {
+    uint2* f16 = reinterpret_cast<uint2*>(f);
+    const __nv_bfloat16 *wk = weights<true>(p.w2k), *wv = weights<true>(p.w2v);
+    stage_frags16(f16, wk, H, 1, kKSteps, kNTiles, kWScale, t, n);
+    stage_frags16(f16 + kW2Frags, wv, V, 1, kKSteps, V / 8, kWScale, t, n);
+    stage_frags16(f16 + 2 * kW2Frags, wk, 1, H, H / 16, kNTiles, 1.f, t, n);
+    stage_frags16(f16 + 3 * kW2Frags, wv, 1, V, V / 16, kNTiles, 1.f, t, n);
+  } else {
+    stage_frags(f, p.w2k, H, kNTiles, t, n);
+    stage_frags(f + kW2Frags, p.w2v, V, V / 8, t, n);
+    float* wt = reinterpret_cast<float*>(f + 2 * kW2Frags);
+    for (int u = t; u < (H + V) * H; u += n) {  // wt[c][m] = W2[m][c], k then v
+      const int c = u / H, m = u % H;
+      wt[u] = c < H ? p.w2k[m * H + c] : p.w2v[m * V + c - H];
+    }
+  }
 }
 
 // B fragment (b0 hi, b1 hi, b0 lo, b1 lo; TF32, split_tf32) of k-step ks,
@@ -343,11 +385,12 @@ __device__ __forceinline__ void drbf_chunk(float (*drbf)[R], float* red, const f
 // thread past the computed halves gets stale words it does not read) and stay
 // in buf, out[e] = buf[e * kLdc + t], until the block writes buf again. Every
 // sum has a fixed order. kBf16: bf16 pairs and one bf16 product per term on
-// bf16 fragments (stage_w2_kernel<true>), as the bf16 forward kernels.
+// the 8-byte bf16 fragments (stage_w2_kernel<true>), as the bf16 forward
+// kernels. f: stage_w2_kernel's fragments.
 template <int V, bool kBf16 = false>
 __device__ __forceinline__ void second_layers(float (&out)[KC], const float (*a)[H2], float* buf,
-                                              const uint4* wk, const uint4* wv,
-                                              const PassParams& p, int halves, int t) {
+                                              const uint4* f, const PassParams& p, int halves,
+                                              int t) {
   constexpr int kVT = V < 32 ? V / 8 : 4;  // n-tiles of a v warp's tile
   const int warp = t >> 5, lane = t & 31, g = lane >> 2, tig = lane & 3;
   for (int pr = warp; pr < halves * KC; pr += kThreads / 32) {  // (half, slot) rows
@@ -375,8 +418,14 @@ __device__ __forceinline__ void second_layers(float (&out)[KC], const float (*a)
       }
     }
     const float* as = buf + half * KC * kLdz;
-    if (half) tile_mma<kVT, kBf16>(acc, as, wv + 4 * qd * 32, V / 8, lane);
-    else tile_mma<4, kBf16>(acc, as, wk + 4 * qd * 32, kNTiles, lane);
+    if constexpr (kBf16) {
+      const uint2* w = reinterpret_cast<const uint2*>(f) + half * kW2Frags + 4 * qd * 32;
+      if (half) tile_mma<kVT, true>(acc, as, w, V / 8, lane);
+      else tile_mma<4, true>(acc, as, w, kNTiles, lane);
+    } else {
+      if (half) tile_mma<kVT>(acc, as, f + kW2Frags + 4 * qd * 32, V / 8, lane);
+      else tile_mma<4>(acc, as, f + 4 * qd * 32, kNTiles, lane);
+    }
   }
   __syncthreads();  // every tile has read the split activations
   if (mine) {
@@ -399,13 +448,120 @@ __device__ __forceinline__ void second_layers(float (&out)[KC], const float (*a)
   __syncthreads();  // every thread has its out
 }
 
+// One warp's 32 x 32 tile of a transposed second layer of depth C (C = H,
+// or V for h2x's v half): acc[mt][nt] = sum_c d[16 mt + .][c] W2[n0 + 8 nt +
+// .][c] in tile_mma's C-fragment layout, d the half's columns (row stride
+// kLdd). Float32: w the staged W2^T [C][H] from the tile's first column,
+// three TF32 m16n8k8 products per term (small terms first; d and W2^T split
+// on the fly), each k-step's three summed from zero and added in float32,
+// k-steps ascending (as drbf_chunk, weight_grad.cuh). kBf16: w the staged
+// fragments of the tile's n-tiles (stage_w2_kernel<true>: n-tile stride 32,
+// k-step stride kNTiles * 32), one bf16 m16n8k16 product per k-step on d as
+// rounded in place, accumulated in the mma. One k-step's operands at a time
+// (unrolled, they spilled more).
+template <int C, bool kBf16>
+__device__ __forceinline__ void transposed_tile(float (&acc)[2][4][4], const float* d,
+                                                const std::conditional_t<kBf16, uint2, float>* w,
+                                                int lane) {
+  const int g = lane >> 2, tig = lane & 3;
+  if constexpr (kBf16) {
+#pragma unroll 1
+    for (int ks = 0; ks < C / 16; ++ks) {
+      uint2 b[4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) b[nt] = w[(ks * kNTiles + nt) * 32 + lane];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        // A: rows g, g + 8 x columns (2 tig, 2 tig + 1), the same + 8
+        const float* ar = d + (16 * mt + g) * kLdd + 16 * ks + 2 * tig;
+        const uint32_t a[4] = {bf16_pair(ar[0], ar[1]), bf16_pair(ar[8 * kLdd], ar[8 * kLdd + 1]),
+                               bf16_pair(ar[8], ar[9]),
+                               bf16_pair(ar[8 * kLdd + 8], ar[8 * kLdd + 9])};
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a, b[nt].x, b[nt].y);
+      }
+    }
+  } else {
+    const float* wt = w + tig * H + g;  // b0 = W2^T[8 ks + tig][8 nt + g], b1 4 rows down
+#pragma unroll 1
+    for (int ks = 0; ks < C / 8; ++ks) {
+      uint4 b[4];  // (b0 hi, b1 hi, b0 lo, b1 lo)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        split_tf32(wt[8 * ks * H + 8 * nt], b[nt].x, b[nt].z);
+        split_tf32(wt[(8 * ks + 4) * H + 8 * nt], b[nt].y, b[nt].w);
+      }
+      // A: (g, tig), (g + 8, tig), (g, tig + 4), (g + 8, tig + 4)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        uint32_t ah[4], al[4];
+        const float* ar = d + (16 * mt + g) * kLdd + 8 * ks + tig;
+        split_tf32(ar[0], ah[0], al[0]);
+        split_tf32(ar[8 * kLdd], ah[1], al[1]);
+        split_tf32(ar[4], ah[2], al[2]);
+        split_tf32(ar[8 * kLdd + 4], ah[3], al[3]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          float p[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(p, al, b[nt].x, b[nt].y);
+          mma_tf32(p, ah, b[nt].z, b[nt].w);
+          mma_tf32(p, ah, b[nt].x, b[nt].y);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[mt][nt][c] += p[c];
+        }
+      }
+    }
+  }
+}
+
+// The chunk's second layers backward on the tensor cores, block-wide with no
+// barrier: da[e][half H + m] = sum_c d[e][half H + c] W2[m][c] for every slot
+// e, half 0 (k: W2 = w2k, c < H) and half 1 (v: W2 = w2v, c < V); the JAX
+// kernel's da = _cdot(dout, w2.T) (edge_layer_vjp.py:130). d: dk|dv in the
+// third chunk buffer (row stride kLdd; bf16: rounded in place). Warp w runs
+// the 32 x 32 tile of half w / 4, channels m in 32 (w % 4) .. (h2x's v half:
+// 16 deep), and writes it to da straight from its C fragments (through the
+// third buffer at a padded stride was slower: PERF.md). f:
+// stage_w2_kernel's fragments.
+template <int V, bool kBf16>
+__device__ __forceinline__ void transposed_layers(float (*da)[H2], const float (*d)[kLdd],
+                                                  const uint4* f, int t) {
+  const int warp = t >> 5, lane = t & 31, g = lane >> 2, tig = lane & 3;
+  const int half = warp >> 2, n0 = 32 * (warp & 3);
+  const float* dhalf = &d[0][half * H];
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
+  if constexpr (kBf16) {
+    const uint2* w = reinterpret_cast<const uint2*>(f) + (2 + half) * kW2Frags + n0 / 8 * 32;
+    if (half) transposed_tile<V, true>(acc, dhalf, w, lane);
+    else transposed_tile<H, true>(acc, dhalf, w, lane);
+  } else {
+    const float* w = reinterpret_cast<const float*>(f + 2 * kW2Frags) + half * H * H + n0;
+    if (half) transposed_tile<V, false>(acc, dhalf, w, lane);
+    else transposed_tile<H, false>(acc, dhalf, w, lane);
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float2*>(&da[16 * mt + 8 * hf + g][half * H + n0 + 8 * nt + 2 * tig]) =
+            make_float2(acc[mt][nt][2 * hf], acc[mt][nt][2 * hf + 1]);
+}
+
 // kBf16: the VJP of the bf16 forward kernels (JAX's bf16 training variant,
 // targetdiff_tpu/ops/pallas/edge_layer_vjp.py _cdot / _cdotg): its recompute
 // is the bf16 forward (edge_chunk<true>, second_layers<V, true>), and the
-// transposed second layers and d rbf take bf16 operands (d and W2^T rounded,
-// dz and the bf16 table), summed in float32; LayerNorm, softmax, the
-// geometry and every sum over edges stay float32, d dist from the float32
-// RBF features.
+// transposed second layers and d rbf take bf16 operands (d rounded in
+// place, W2^T as staged, dz and the bf16 table), summed in float32;
+// LayerNorm, softmax, the geometry and every sum over edges stay float32, d
+// dist from the float32 RBF features.
 template <bool kH2X, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
   constexpr int V = kH2X ? NH : H;
@@ -452,7 +608,7 @@ __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
     if (c == 0) live0 = live;
     if (t < KC) s_w[e0 + t] = s_g.w[t];
     if (live) {
-      second_layers<V, kBf16>(acc, s_a, s_buf, a.w2kf, a.w2vf, p, 2, t);
+      second_layers<V, kBf16>(acc, s_a, s_buf, a.w2f, p, 2, t);
       if (is_k) {
         head_logits(acc, qc, s_g.valid, s_alpha + e0, cc);
       } else if (!kH2X) {  // value channel cc, warps 4-7; heads are 8-lane groups
@@ -507,7 +663,6 @@ __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
 
   // ---- pass 2: each chunk backward ----
   const float scale = rsqrtf((float)DH);
-  float dq = 0.f;
   for (int c = 0; c < nchunk; ++c) {
     const int e0 = c * KC;
     const int n = min(KC, K - e0);
@@ -515,7 +670,7 @@ __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
     bool live = live0;
     if (nchunk > 1) {
       live = edge_chunk<kBf16>(s_g, s_a, s_zh, s_rstd, a.in, p, b, bn, N, K, e0, t);
-      if (live) second_layers<V, kBf16>(acc, s_a, s_buf, a.w2kf, a.w2vf, p, 1, t);
+      if (live) second_layers<V, kBf16>(acc, s_a, s_buf, a.w2f, p, 1, t);
     }
     if (!live) {  // zero gradient: zero rows for the products below
       for (int u = t; u < n * H2; u += kThreads) {
@@ -532,15 +687,18 @@ __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
     // softmax backward -> dk (and dq); dv. k is second_layers' output, still
     // in the third chunk buffer (pass 1's when the row has one chunk): read
     // there, not kept in registers across the passes, so that no register
-    // array stays live through the recompute's first layer and d rbf.
+    // array stays live through the recompute's first layer and d rbf; dq
+    // goes to the row buffer chunk by chunk, for the same reason.
     const int head = cc / DH;
     if (is_k) {
+      float dq = 0.f;
 #pragma unroll
       for (int e = 0; e < KC; ++e) {
         const float al = s_alpha[e0 + e][head];
         const float dl = al * (s_w[e0 + e] * s_P[e0 + e][head] - s_dot[head]) * scale;
         dq += dl * s_buf[e * kLdc + cc];
       }
+      rb[off_dq(V) + cc] += dq;
     }
     __syncthreads();  // k is read: dk|dv overwrite it
     if (is_k) {
@@ -585,31 +743,7 @@ __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
       for (int e = 0; e < n; ++e) s += s_d[e][t];
       rb[off_db2() + t] += s;
     }
-    {
-      const int m = cc;  // output row of W2 (an input channel of the second layer)
-      const float* WT = is_k ? a.pt.w2kT : a.pt.w2vT;  // [C][H]
-      const int C = is_k ? H : V;
-      const int doff = is_k ? 0 : H;
-#pragma unroll
-      for (int e = 0; e < KC; ++e) acc[e] = 0.f;
-      for (int cl = 0; cl < C; cl += 4) {
-        float w0 = WT[(cl + 0) * H + m], w1 = WT[(cl + 1) * H + m],
-              w2 = WT[(cl + 2) * H + m], w3 = WT[(cl + 3) * H + m];
-        if constexpr (kBf16) {
-          w0 = round_bf16(w0);
-          w1 = round_bf16(w1);
-          w2 = round_bf16(w2);
-          w3 = round_bf16(w3);
-        }
-#pragma unroll
-        for (int e = 0; e < KC; ++e) {
-          const float4 d4 = *reinterpret_cast<const float4*>(&s_d[e][doff + cl]);
-          acc[e] += d4.x * w0 + d4.y * w1 + d4.z * w2 + d4.w * w3;
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < KC; ++e) s_a[e][t] = acc[e];
-    }
+    transposed_layers<V, kBf16>(s_a, s_d, a.w2f, t);
     __syncthreads();
 
     // LayerNorm + ReLU backward per (edge, half): dy -> s_a, dz -> s_d
@@ -700,7 +834,34 @@ __global__ void __launch_bounds__(kThreads, 2) edge_bwd_kernel(EdgeBwdArgs a) {
     }
     __syncthreads();  // the next chunk overwrites the chunk buffers
   }
-  if (is_k) rb[off_dq(V) + cc] = dq;
+}
+
+// transposed_layers alone, for its time and its check against float64: over
+// E edges in chunks of KC, one block a chunk, da [E][2H] = [d_k w2k^T | d_v
+// w2v^T] for d [E][H + V] (kBf16: d rounded to bf16 as edge_bwd_kernel rounds
+// it), with d and da staged through shared memory as edge_bwd_kernel holds
+// them (kTprodSmem bytes). Not a path of the program: its wrapper is
+// block_vjp.transposed_product_cuda.
+constexpr int kTprodSmem = (KC * H2 + kChunkBuf) * (int)sizeof(float);
+
+template <int V, bool kBf16>
+__global__ void __launch_bounds__(kThreads, 2)
+tprod_kernel(const float* __restrict__ d, long long E, const uint4* f, float* __restrict__ da) {
+  extern __shared__ __align__(16) float smem[];
+  float(*s_da)[H2] = reinterpret_cast<float(*)[H2]>(smem);
+  float(*s_d)[kLdd] = reinterpret_cast<float(*)[kLdd]>(smem + KC * H2);
+  const int t = threadIdx.x;
+  const long long e0 = (long long)blockIdx.x * KC;
+  const int n = (int)(E - e0 < KC ? E - e0 : KC);
+  for (int u = t; u < KC * (H + V); u += kThreads) {
+    const int e = u / (H + V), c = u % (H + V);
+    const float v = e < n ? d[(e0 + e) * (H + V) + c] : 0.f;
+    s_d[e][c] = kBf16 ? round_bf16(v) : v;
+  }
+  __syncthreads();
+  transposed_layers<V, kBf16>(s_da, s_d, f, t);
+  __syncthreads();
+  for (int u = t; u < n * H2; u += kThreads) da[e0 * H2 + u] = s_da[u / H2][u % H2];
 }
 
 // Inverse adjacency of one pass: off [N+1] and list [(N - row0) * K] of
@@ -912,7 +1073,7 @@ int colsum(const float* Y, int ldy, long long M, int Q, float* out, float* parti
 
 struct Workspace {
   float *ni, *nj, *q, *q1, *qa, *rowbuf, *A, *dKV, *dZ, *F, *drel, *vec, *partial;
-  uint4* w2f;  // stage_w2_kernel's fragments: w2k, then w2v
+  uint4* w2f;  // stage_w2_kernel's fragments (kW2Frags uint4 a weight)
   uint4* rbff;  // stage_rbf_kernel's fragments
   int *off_x, *list_x, *off_h, *list_h;
 };
@@ -939,7 +1100,7 @@ void carve(float* w, int* iw, long long B, long long N, long long K, long long n
   ws->drel = take(Ep * 3);
   ws->vec = take(row_width(H));
   ws->partial = take(kPartialCap);
-  ws->w2f = reinterpret_cast<uint4*>(take(2 * kW2Frags * 4));
+  ws->w2f = reinterpret_cast<uint4*>(take(kW2Staged * 4));
   ws->rbff = reinterpret_cast<uint4*>(take(kRbfFrags * 4));
   *floats = o;
   long long io = 0;
@@ -970,8 +1131,7 @@ int run_pass(const float* h, const EdgeInputs& in0, const PassParams& p, const P
   if (err) return err;
   if ((err = launch_node<kBf16>(h, 1, (int)BN, 0, p, ws.ni, ws.nj, ws.q, ws.q1, s))) return err;
 
-  stage_w2_kernel<kBf16><<<kW2Frags / kThreads, kThreads, 0, s>>>(p, V, ws.w2f,
-                                                                  ws.w2f + kW2Frags);
+  stage_w2_kernel<kBf16><<<kW2Frags / kThreads, kThreads, 0, s>>>(p, V, ws.w2f);
   if ((err = (int)cudaGetLastError())) return err;
   if constexpr (kBf16)
     stage_rbf16_kernel<<<(kRbfFrags16 + kThreads - 1) / kThreads, kThreads, 0, s>>>(
@@ -985,7 +1145,7 @@ int run_pass(const float* h, const EdgeInputs& in0, const PassParams& p, const P
   in.ni = ws.ni;
   in.nj = ws.nj;
   EdgeBwdArgs a{h, in, ws.q, p, pt, N, K, row0, dh, dx, dew, ws.rowbuf, ws.A, ws.dKV, ws.dZ,
-                ws.F, ws.drel, ws.w2f, ws.w2f + kW2Frags, ws.rbff};
+                ws.F, ws.drel, ws.w2f, ws.rbff};
   // the largest dynamic shared memory any K takes, set once per process (one device)
   static const int attr = (int)cudaFuncSetAttribute(
       edge_bwd_kernel<kH2X, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,

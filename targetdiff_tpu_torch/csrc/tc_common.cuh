@@ -213,10 +213,13 @@ __device__ __forceinline__ void ln_split_rows(float* z, int r0, int rstep,
 // staged fragments of the tile's NT n-tiles (in shared or global memory),
 // w + (ks * ldn + nt) * 32 for n-tile nt of k-step ks. C fragment:
 // acc[mt][nt] holds rows 16 mt + g (0, 1) and 16 mt + g + 8 (2, 3), columns
-// 8 nt + 2 tig (+1); n-tiles from NT on are left as they are.
-template <int NT = 4, bool kBf16 = false>
-__device__ __forceinline__ void tile_mma(float (&acc)[2][4][4], const float* a, const uint4* w,
+// 8 nt + 2 tig (+1); n-tiles from NT on are left as they are. Frag: uint4
+// (stage_frags), or for bf16 uint2, the 8-byte (b0, b1) fragments without
+// stage_frags' two zero words (pass_bwd.cuh: stage_frags16).
+template <int NT = 4, bool kBf16 = false, typename Frag = uint4>
+__device__ __forceinline__ void tile_mma(float (&acc)[2][4][4], const float* a, const Frag* w,
                                          int ldn, int lane) {
+  static_assert(std::is_same_v<Frag, uint4> || kBf16, "8-byte fragments hold bf16 pairs only");
   const int g = lane >> 2, tig = lane & 3;
 #pragma unroll 2
   for (int ks = 0; ks < kKSteps; ++ks) {
@@ -236,7 +239,7 @@ __device__ __forceinline__ void tile_mma(float (&acc)[2][4][4], const float* a, 
       }
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      const uint4 wf = w[(ks * ldn + nt) * 32 + lane];
+      const Frag wf = w[(ks * ldn + nt) * 32 + lane];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
         if constexpr (kBf16) {

@@ -29,7 +29,9 @@ node_bwd_kernel, once per pass in run_pass) alone on a pass's row buffer,
 beside its plain version `node_bwd_plain`. `adjacency_cuda` builds the
 backward's inverse adjacency (csrc/pass_bwd.cuh build_adjacency, a stable
 counting sort in three kernels, once per pass and backward) alone, beside
-its plain version `adjacency_plain`.
+its plain version `adjacency_plain`. `transposed_product_cuda` runs the
+backward edge kernel's transposed second layers (da = d W2^T) alone, for
+their time and their check against float64.
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ class _PassGrads(ctypes.Structure):
 class _PassT(ctypes.Structure):
     """Mirror of `PassT` in csrc/pass_bwd.cuh (transposed weights)."""
 
-    _fields_ = [(name, ctypes.c_void_p) for name in ("w_nodeT", "w_q2T", "w2kT", "w2vT")]
+    _fields_ = [(name, ctypes.c_void_p) for name in ("w_nodeT", "w_q2T")]
 
 
 def library_launch_counts() -> tuple:
@@ -331,6 +333,80 @@ def _stage_entry():
     return fn
 
 
+def frags16(B, scale=1.0):
+    """A [16 ks, 8 nt] B operand (rows k, columns n; float32 holding bf16
+    values) as csrc/pass_bwd.cuh stage_frags16 stages it: int32 [ks, nt, 32,
+    2] by k-step, n-tile, lane 4 g + tig and (b0, b1), each word the bf16
+    pair (B[16 ks + 2 tig][8 nt + g], B[16 ks + 2 tig + 1][..]) times scale,
+    the lower k in the low half; b1 the same 8 rows down."""
+    K, N = B.shape
+    # ks, b0|b1, tig, k % 2, nt, g
+    b = round_bf16(B.float() * scale).reshape(K // 16, 2, 4, 2, N // 8, 8)
+    bits = b.contiguous().view(torch.int32) >> 16 & 0xFFFF  # the bf16 bit patterns
+    words = bits[:, :, :, 0] | bits[:, :, :, 1] << 16  # ks, b0|b1, tig, nt, g
+    return words.permute(0, 3, 4, 2, 1).reshape(K // 16, N // 8, 32, 2).contiguous()
+
+
+def stage_w2_frags16(w2k, w2v):
+    """The fragments run_pass<kH2X, true> stages for edge_bwd_kernel
+    (stage_w2_kernel<true>) from one pass's bf16 second layers w2k [H][H]
+    and w2v [H][V]: int32 (b0, b1) words of, in order, w2k and w2v times 2^8
+    (the recompute's second layers, B = W) and their transposes (the
+    transposed product, B[c][m] = W[m][c]), each flattened as `frags16`.
+    CPU tensors only: the layout the kernel reads, for the tests."""
+    w2k, w2v = w2k.float(), w2v.float()
+    return [frags16(w, s).reshape(-1, 2) for w, s in ((w2k, 256.0), (w2v, 256.0),
+                                                       (w2k.T, 1.0), (w2v.T, 1.0))]
+
+
+def transposed_product_cuda(d, w2k, w2v, dtype=torch.float32, frags=None):
+    """The backward's transposed second layers alone on the card: tprod_kernel
+    (csrc/pass_bwd.cuh), one block a 32-edge chunk running transposed_layers
+    as edge_bwd_kernel runs it, after stage_w2_kernel (td_tprod,
+    td_tprod_bf16). d [E, H + V] float32, w2k [H, H] and w2v [H, V] of a
+    pack of `dtype` (H = 128, V = 128 or 16). frags, if given, a CUDA
+    buffer of td_tprod_frag_bytes() bytes that receives the staged
+    fragments. Not a path of the program: its time and its check against
+    float64 (chip_smoke.py, tests/test_torch_cuda.py). Returns [E, 2H]
+    float32."""
+    H, V = w2v.shape
+    for name, t in (("d", d), ("w2k", w2k), ("w2v", w2v)):
+        build.require_cuda(t, name)
+    require_pack(w2k.dtype, dtype, "the second layers")
+    if d.dtype != torch.float32 or d.dim() != 2 or d.shape[1] != H + V or H != 128 \
+            or V not in (128, 16) or w2k.shape != (H, H) or w2v.dtype != w2k.dtype:
+        raise ValueError(f"d must be float32 [E, {H} + V] and w2k [128, 128], w2v [128, 128|16] "
+                         f"of one dtype, got {tuple(d.shape)}, {tuple(w2k.shape)}, "
+                         f"{tuple(w2v.shape)}")
+    fn, size = _tprod_entries()
+    if frags is None:
+        frags = torch.empty(size() // 4, dtype=torch.int32, device=d.device)
+    elif frags.numel() * frags.element_size() < size() or frags.data_ptr() % 16:
+        raise ValueError("frags must be a 16-byte aligned buffer of td_tprod_frag_bytes() bytes")
+    d, w2k, w2v = d.contiguous(), w2k.contiguous(), w2v.contiguous()
+    da = torch.empty((d.shape[0], 2 * H), dtype=torch.float32, device=d.device)
+    name = entry("td_tprod", dtype)
+    build.check(fn[check_dtype(dtype)](
+        d.data_ptr(), d.shape[0], int(V != H), w2k.data_ptr(), w2v.data_ptr(), da.data_ptr(),
+        frags.data_ptr(), build.stream_ptr(d.device)), name)
+    return da
+
+
+@functools.lru_cache(maxsize=None)
+def _tprod_entries():
+    lib = build.load_library()
+    vp = ctypes.c_void_p
+    fns = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        fn = getattr(lib, entry("td_tprod", dtype))
+        fn.argtypes = [vp, ctypes.c_longlong, ctypes.c_int, vp, vp, vp, vp, vp]
+        fn.restype = ctypes.c_int
+        fns[dtype] = fn
+    size = lib.td_tprod_frag_bytes
+    size.argtypes, size.restype = [], ctypes.c_longlong
+    return fns, size
+
+
 def block_layers_trainable(refine_net, h, x, nbh: G.Neighborhood, mask_ligand, e_w,
                            n_ligand: int, dtype=torch.float32):
     """All layers of one block, differentiable. h [B,N,H], x [B,N,3], e_w
@@ -394,11 +470,10 @@ def _grad_structs(g: dict, L: int):
 
 
 def _transposed(stacks: dict):
-    """The backward products' transposed weights, float32 (a bf16 pack's
-    exactly: its kernels round them where they read them)."""
+    """The node kernel's backward products' transposed weights, float32 (a
+    bf16 pack's exactly: its kernel rounds them where it reads them)."""
     return {name: stacks[src].detach().transpose(1, 2).float().contiguous()
-            for name, src in (("w_nodeT", "w_node"), ("w_q2T", "w_q2"), ("w2kT", "w2k"),
-                              ("w2vT", "w2v"))}
+            for name, src in (("w_nodeT", "w_node"), ("w_q2T", "w_q2"))}
 
 
 def block_bwd_cuda(hck, xck, idx, nmask, mlig, e_w, n_ligand, x2h, h2x, gh, gx,

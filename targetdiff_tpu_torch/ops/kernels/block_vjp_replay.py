@@ -39,10 +39,12 @@ def drbf_einsum(dz, w_rbf, et, ta):
 
 
 def _pass_bwd(P, l, h, x, idx, nmask, mlig, e_w, row0, h2x, dh, dx, dew, grads, n_heads,
-              matmul=torch.matmul, drbf_fn=drbf_einsum, node_matmul=torch.matmul, bf16=False):
+              matmul=torch.matmul, drbf_fn=drbf_einsum, node_matmul=torch.matmul, bf16=False,
+              tmatmul=torch.matmul):
     """One pass of layer l, as edge_bwd_kernel + gather_kernel +
     node_bwd_kernel + the weight-gradient reductions compute it; the
-    recompute's k and v second layers through `matmul`, d rbf through
+    recompute's k and v second layers through `matmul`, the transposed
+    second layers (da = d W2^T) through `tmatmul(d, W2^T)`, d rbf through
     `drbf_fn(dz, w_rbf, et, ta)`, the node kernel's two products through
     `node_matmul`. bf16=True: as the bf16 kernels (run_pass<kH2X, true>)
     round, every product's operands rounded to bf16 (the recompute's node
@@ -107,8 +109,8 @@ def _pass_bwd(P, l, h, x, idx, nmask, mlig, e_w, row0, h2x, dh, dx, dew, grads, 
     g["b2k"] += dk.sum((0, 1, 2))
     g["w2v"] += torch.einsum("bnki,bnkj->ij", r(a_v), r(dv))
     g["b2v"] += dv.sum((0, 1, 2))
-    dy_k = (r(dk) @ w["w2k"].T) * (y_k > 0)
-    dy_v = (r(dv) @ w["w2v"].T) * (y_v > 0)
+    dy_k = tmatmul(r(dk), w["w2k"].T) * (y_k > 0)
+    dy_v = tmatmul(r(dv), w["w2v"].T) * (y_v > 0)
     dz = torch.cat([_ln_bwd(dy_k, zh_k, rs_k, kvs[:H]), _ln_bwd(dy_v, zh_v, rs_v, kvs[H:])], -1)
     g["kv_ln"][0] += torch.cat([(dy_k * zh_k).sum((0, 1, 2)), (dy_v * zh_v).sum((0, 1, 2))])
     g["kv_ln"][1] += torch.cat([dy_k.sum((0, 1, 2)), dy_v.sum((0, 1, 2))])
@@ -145,21 +147,22 @@ def _pass_bwd(P, l, h, x, idx, nmask, mlig, e_w, row0, h2x, dh, dx, dew, grads, 
 @torch.no_grad()
 def replay_block_bwd(x2h, h2x, hck, xck, nbh, mlig, e_w, n_ligand, gh, gx, n_heads,
                      matmul=torch.matmul, drbf_fn=drbf_einsum, node_matmul=torch.matmul,
-                     bf16=False):
+                     bf16=False, tmatmul=torch.matmul):
     """The backward kernel's algorithm: layers L-1..0, h2x pass on the
     ligand tail from hck[l+1], then x2h on every row from hck[l] (hck
     [L+1,B,N,H], xck [L+1,B,N,3]), the recompute's second layers through
-    `matmul`, d rbf through `drbf_fn`, the node kernel's products through
-    `node_matmul`; bf16=True: the bf16 kernel's (td_block_bwd_bf16)
-    roundings (`_pass_bwd`). Returns (dh0, dx0, de_w, x2h grads, h2x
-    grads)."""
+    `matmul`, the transposed second layers through `tmatmul`, d rbf through
+    `drbf_fn`, the node kernel's products through `node_matmul`; bf16=True:
+    the bf16 kernel's (td_block_bwd_bf16) roundings (`_pass_bwd`). Returns
+    (dh0, dx0, de_w, x2h grads, h2x grads)."""
     L, N = hck.shape[0] - 1, hck.shape[2]
     dh, dx, dew = gh.clone(), gx.clone(), torch.zeros_like(e_w)
     gx2h = {f: torch.zeros_like(x2h[f]) for f in FIELDS}
     gh2x = {f: torch.zeros_like(h2x[f]) for f in FIELDS}
     for l in reversed(range(L)):
         _pass_bwd(h2x, l, hck[l + 1], xck[l], nbh.idx, nbh.mask, mlig, e_w, N - n_ligand,
-                  True, dh, dx, dew, gh2x, n_heads, matmul, drbf_fn, node_matmul, bf16)
+                  True, dh, dx, dew, gh2x, n_heads, matmul, drbf_fn, node_matmul, bf16,
+                  tmatmul)
         _pass_bwd(x2h, l, hck[l], xck[l], nbh.idx, nbh.mask, mlig, e_w, 0, False, dh, dx,
-                  dew, gx2h, n_heads, matmul, drbf_fn, node_matmul, bf16)
+                  dew, gx2h, n_heads, matmul, drbf_fn, node_matmul, bf16, tmatmul)
     return dh, dx, dew, gx2h, gh2x

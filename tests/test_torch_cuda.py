@@ -279,13 +279,14 @@ def test_edge_bwd_kernel_occupancy(cuda, h2x, K):
     per thread, two blocks per SM at the whole-block backward's K = 32 (two
     destination rows in flight) and one at the per-layer K of the hybrid
     graph and above, within the 232,448 bytes of shared memory one block may
-    take."""
+    take; no local memory (spills)."""
     from targetdiff_tpu_torch.ops.kernels import block_vjp
 
     info = block_vjp.edge_bwd_info(K, h2x)
     assert info["registers"] <= 128
     assert info["blocks_per_sm"] == (2 if K <= 32 else 1)
     assert info["smem"] <= 232448
+    assert info["local_bytes"] == 0, info
 
 
 def test_staged_rbf_fragments_are_the_tf32_split_of_the_table(cuda):
@@ -307,6 +308,53 @@ def test_staged_rbf_fragments_are_the_tf32_split_of_the_table(cuda):
     assert got.shape == want.shape == (2, 32, 5, 32, 4)
     assert torch.equal(got.cpu(), want) and torch.equal(got, again)
     assert bool(((want & 0x1FFF) == 0).all())  # every word a TF32 number
+
+
+# edge_bwd_kernel's transposed second layers alone (tprod_kernel): value width
+# and precision. E = 4,115 edges: 128 full chunks and a partial one.
+TPROD_CASES = {"x2h": (128, torch.float32), "h2x": (16, torch.float32),
+               "x2h_bf16": (128, torch.bfloat16), "h2x_bf16": (16, torch.bfloat16)}
+TPROD_BAR = 1e-5  # of each entry's terms' root-sum-square (tests/test_torch_edge_bwd_tc.py)
+
+
+@pytest.mark.parametrize("case", list(TPROD_CASES))
+def test_transposed_product_holds_the_float64_bar_and_repeats(cuda, case):
+    """The backward's transposed second layers as edge_bwd_kernel runs them
+    (transposed_layers, alone in tprod_kernel) against the float64 product
+    of their operands (float32: d and the weights as given, three-term TF32;
+    bf16: both rounded to bf16, one bf16 product), every entry within
+    TPROD_BAR of the root-sum-square of its terms, on rows of d and weights
+    spanning 1e-3 .. 1e3; two launches bitwise equal; the bf16 fragments the
+    kernel staged are word for word `stage_w2_frags16`'s."""
+    from targetdiff_tpu_torch.ops.kernels import block_vjp
+    from targetdiff_tpu_torch.ops.precision import round_bf16
+
+    V, dtype = TPROD_CASES[case]
+    H, E = 128, 4115
+    rng = np.random.default_rng(V)
+    d = rng.normal(size=(E, H + V)) * 10.0 ** rng.uniform(-3, 3, (E, 1))
+    w2k = rng.normal(size=(H, H)) * 10.0 ** rng.uniform(-3, 1, (H, 1))
+    w2v = rng.normal(size=(H, V)) * 10.0 ** rng.uniform(-3, 1, (H, 1))
+    d, w2k, w2v = (torch.tensor(a, dtype=torch.float32, device=cuda) for a in (d, w2k, w2v))
+    w2k, w2v = w2k.to(dtype), w2v.to(dtype)
+    frags = torch.empty(block_vjp._tprod_entries()[1]() // 4, dtype=torch.int32, device=cuda)
+    got = block_vjp.transposed_product_cuda(d, w2k, w2v, dtype, frags)
+    again = block_vjp.transposed_product_cuda(d, w2k, w2v, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    dr = (round_bf16(d) if dtype == torch.bfloat16 else d).double()
+    exact, rss = [], []
+    for dh, w in ((dr[:, :H], w2k.double()), (dr[:, H:], w2v.double())):
+        exact.append(dh @ w.T)
+        rss.append(((dh ** 2) @ (w ** 2).T).sqrt())
+    exact, rss = torch.cat(exact, 1), torch.cat(rss, 1)
+    err = float(((got.double() - exact).abs() / rss.clamp(min=1e-300)).max())
+    print(case, "max err over rss", err)
+    assert err < TPROD_BAR, err
+    if dtype == torch.bfloat16:  # four regions of kW2Frags (b0, b1) words
+        words = frags.view(-1, 2).cpu()
+        for i, want in enumerate(block_vjp.stage_w2_frags16(w2k.cpu(), w2v.cpu())):
+            assert torch.equal(words[i * 4096:i * 4096 + len(want)], want), i
 
 
 def test_train_loss_kernel_path_matches_eager(cuda):
@@ -1438,7 +1486,7 @@ def test_bf16_edge_bwd_kernel_occupancy(cuda, h2x, K):
     """The bf16 backward's edge kernel as the card makes it: at most 128
     registers per thread, two blocks per SM at the whole-block backward's
     K = 32 and one at the hybrid graph's K, as the float32 one
-    (test_edge_bwd_kernel_occupancy); its spill bytes printed."""
+    (test_edge_bwd_kernel_occupancy), and no local memory (spills)."""
     from targetdiff_tpu_torch.ops.kernels import block_vjp
 
     info = block_vjp.edge_bwd_info(K, h2x, torch.bfloat16)
@@ -1446,6 +1494,7 @@ def test_bf16_edge_bwd_kernel_occupancy(cuda, h2x, K):
     assert info["registers"] <= 128
     assert info["blocks_per_sm"] == (2 if K <= 32 else 1)
     assert info["smem"] <= 232448
+    assert info["local_bytes"] == 0, info
 
 
 @pytest.mark.parametrize("rows,tile", [(13312, 64), (2432, 32)])
