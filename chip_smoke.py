@@ -104,12 +104,13 @@ bf16 block kernels (B=4, N=608, K=32, L=9) against the bf16 plain block and
 float64 (x and ligand h within 2e-2 of scale, the JAX package's bf16 bar;
 max and median printed) and each bf16 launch alone (node, x2h edge, h2x
 edge, edge weights) the same way, timed beside its bound at the bf16
-tensor-core rate (the x2h edge launch, x2h_edge_mma_kernel, also at kNN
-B=100; two of its launches bitwise equal, rows without an edge keeping h
-bitwise; the node launch beside `torch.addmm` with bf16 operands and the
-PyTorch chain, and alone at kNN B=100 for both passes);
-[bf16-layers] the bf16 per-layer kernels at the hybrid shape (N = 640,
-K = 95), the x2h edge launch alone there too; [bf16-sample] runs 1000 DDPM steps of B=4 at the
+tensor-core rate (the x2h and h2x edge launches, x2h_edge_mma_kernel and
+h2x_edge_mma_kernel, also at kNN B=100; two of each one's launches bitwise
+equal, rows without an edge keeping h, or x, bitwise; the node launch
+beside `torch.addmm` with bf16 operands and the PyTorch chain, and alone at
+kNN B=100 for both passes); [bf16-layers] the bf16 per-layer kernels at the
+hybrid shape (N = 640, K = 95), the x2h and h2x edge launches alone there
+too; [bf16-sample] runs 1000 DDPM steps of B=4 at the
 default precision on the kNN and the hybrid model, with the bf16 launches
 counted exactly (the node kernel's in C, two a layer and step), no
 float32 launch, and ms per step beside the float32 runs'. Each bf16 launch
@@ -153,7 +154,9 @@ and the x2h and h2x edge launches alone at the kNN shape, one per-layer x2h
 and one h2x call at the hybrid shape with their kernels' device time, the
 backwards' kernels' device time, 50 kNN and 50 hybrid sampling steps,
 the B=32 `fast` and `fast_pl` train steps, and in bf16 the node launch
-alone at kNN B=4 and B=100 (with digests), 10 kNN B=100 sampling steps
+and the x2h and h2x edge launches alone at kNN B=4 and B=100 (with
+digests), the per-layer x2h and h2x at the hybrid shape, 10 kNN B=100
+sampling steps (device time, node_kernel's and the edge kernels' shares)
 and the B=32 `fast_bf16` step (device time, node_kernel's share) of the
 port found in
 CHECKOUT (this checkout by default), through entry points
@@ -1082,8 +1085,9 @@ def bf16_kernel_entries(bf16: dict, dp: dict) -> list:
     [bf16-sample] (block, edge weights, node: one a pass, x2h and h2x edge
     passes from its kNN run; the per-layer kernels from its hybrid run),
     errors, times and bounds (bf16 tensor-core rate) from [bf16-block] and
-    [bf16-layers] (the x2h edge launch, `x2h_edge_mma_kernel`, also at kNN
-    B=100 and alone at the hybrid K = 95); one PyTorch call computes only
+    [bf16-layers] (the x2h and h2x edge launches, `x2h_edge_mma_kernel` and
+    `h2x_edge_mma_kernel`, also at kNN B=100 and alone at the hybrid K = 95);
+    one PyTorch call computes only
     the node launch's projection (`torch.addmm` with bf16 operands)."""
     knn, hybrid = bf16["launches"]["knn"], bf16["launches"]["hybrid"]
     blk = "targetdiff_tpu_torch/csrc/block_denoiser.cu"
@@ -1107,9 +1111,13 @@ def bf16_kernel_entries(bf16: dict, dp: dict) -> list:
           "also_replaces": "targetdiff_tpu/ops/pallas/edge_layer.py:189",
           **{f"b100_{k}": v for k, v in bf16["block"]["x2h_edge_b100"].items()},
           **{f"hybrid_{k}": v for k, v in bf16["layers"]["x2h_edge"].items()}}),
-        ("block_denoiser.h2x_edge_bf16", "targetdiff_tpu_torch/csrc/h2x_edge.cuh",
+        ("block_denoiser.h2x_edge_bf16", "targetdiff_tpu_torch/csrc/h2x_edge_bf16.cuh",
          "targetdiff_tpu/ops/pallas/block_denoiser.py:154", knn["h2x_pass_bf16"],
-         bf16["block"]["h2x_edge"], {}),
+         bf16["block"]["h2x_edge"],
+         {"kernel": "h2x_edge_mma_kernel", "launches_hybrid_h2x_layer": hybrid["h2x_layer_bf16"],
+          "also_replaces": "targetdiff_tpu/ops/pallas/edge_layer.py:235",
+          **{f"b100_{k}": v for k, v in bf16["block"]["h2x_edge_b100"].items()},
+          **{f"hybrid_{k}": v for k, v in bf16["layers"]["h2x_edge"].items()}}),
         ("x2h_layer_bf16", "targetdiff_tpu_torch/csrc/edge_layer.cu",
          "targetdiff_tpu/ops/pallas/edge_layer.py:189", hybrid["x2h_layer_bf16"],
          bf16["layers"]["x2h"], {}),
@@ -2176,6 +2184,52 @@ def bf16_x2h_b100(torch, kblock, kel, rn, rn64, b100, px) -> dict:
     return f
 
 
+def bf16_h2x_launch(torch, run, out, x, x16, x64, nbh, mask_ligand, n_ligand, label) -> dict:
+    """The bf16 h2x edge launch alone (`run()` writes `out`, the rows [N -
+    n_ligand, N), from the node launch's projections): two launches bitwise
+    equal, rows of the ligand tail without a valid edge keep x bitwise, the
+    ligand rows within BF16_BAR of the bf16 plain layer (x16) and of float64
+    (x64). Returns its error fields."""
+    run()
+    first = out.clone()
+    run()
+    torch.cuda.synchronize()
+    if not torch.equal(first, out):
+        raise AssertionError(f"{label}: two launches differ")
+    N = x.shape[1]
+    empty = (torch.arange(N, device=x.device) >= N - n_ligand) & ~nbh.mask.any(-1)
+    if not (bool(empty.any()) and torch.equal(first[empty], x[empty])):
+        raise AssertionError(f"{label}: a row without a valid edge does not keep x bitwise")
+    lig = mask_ligand
+    return dict(max_abs_err=float((first - x16)[lig].abs().max()),
+                margins=bf16_margins(label, first[lig], x16[lig], x64[lig]),
+                rows_without_edge=int(empty.sum()), live_edges=int(nbh.mask[lig].sum()))
+
+
+def bf16_h2x_b100(torch, kblock, kel, rn, rn64, b100, ph) -> dict:
+    """The bf16 h2x edge launch alone at kNN B=100 (`knn_b100`) on layer
+    0's inputs, held as `bf16_h2x_launch`, timed (CUDA events and device
+    time) beside its bound at the bf16 tensor-core rate and its plain
+    version."""
+    bf16 = torch.bfloat16
+    h, x, node_mask, mlig, nbh = b100
+    layer, layer64 = rn.base_block[0], rn64.base_block[0]
+    with torch.no_grad():
+        e_w = rn.edge_weights(x, nbh, bf16)[..., 0]
+        hl = pass_launcher(torch, kblock, h, x, nbh, mlig, e_w, ph, MAX_LIGAND, bf16=True)
+        hl.node_rows()
+        x16 = kel.h2x_layer_plain(layer, h, x, nbh, mlig, e_w, bf16)
+        x64 = kel.h2x_layer_plain(layer64, h.double(), x.double(), nbh, mlig, e_w.double())
+        f = bf16_h2x_launch(torch, hl.h2x, hl.xout, x, x16, x64, nbh, mlig, MAX_LIGAND,
+                            "bf16-block h2x edge launch B=100")
+        del x64
+        f.update(ms=cuda_ms(torch, hl.h2x), device_ms=device_ms(torch, hl.h2x),
+                 plain_ms=cuda_ms(torch, lambda: kel.h2x_layer_plain(layer, h, x, nbh, mlig, e_w,
+                                                                      bf16), reps=5))
+    f.update(bound(f["live_edges"] * FLOP_EDGE["h2x"], hl.bytes["h2x"], PEAK_BF16_FLOPS))
+    return f
+
+
 def bf16_block_phase(torch, kblock, kel, rn, h, x, nbh, mask_ligand, node_mask, work,
                      b100) -> dict:
     """[bf16-block]: the bf16 block kernels (`block_denoiser_cuda(dtype=
@@ -2187,8 +2241,9 @@ def bf16_block_phase(torch, kblock, kel, rn, h, x, nbh, mask_ligand, node_mask, 
     same way (the node launch's ni and nj at NODE_REL against float64 of
     the same bf16 operands; the x2h edge launch on every real row, two
     launches bitwise equal, rows without a valid edge h bitwise:
-    `bf16_x2h_launch`), and the x2h edge launch again at kNN B=100 (`b100`:
-    `bf16_x2h_b100`). Each timed (CUDA events and device time) beside its
+    `bf16_x2h_launch`; the h2x edge launch on the ligand rows, the same with
+    x: `bf16_h2x_launch`), and the x2h and h2x edge launches again at kNN
+    B=100 (`b100`: `bf16_x2h_b100`, `bf16_h2x_b100`). Each timed (CUDA events and device time) beside its
     bound at the bf16 tensor-core rate and its plain version; the node
     launch also beside `torch.addmm` of its projection with bf16 operands.
     Returns the kernels' JSON fields."""
@@ -2244,7 +2299,6 @@ def bf16_block_phase(torch, kblock, kel, rn, h, x, nbh, mask_ligand, node_mask, 
         hl = pass_launcher(torch, kblock, h16, x, nbh, mask_ligand, e_w, ph, MAX_LIGAND,
                            bf16=True)
         hl.node_rows()
-        hl.h2x()
         x16 = kel.h2x_layer_plain(layer, h16, x, nbh, mask_ligand, e_w, bf16)
         x64 = kel.h2x_layer_plain(layer64, h16.double(), x.double(), nbh, mask_ligand,
                                   e_w.double())
@@ -2264,9 +2318,8 @@ def bf16_block_phase(torch, kblock, kel, rn, h, x, nbh, mask_ligand, node_mask, 
                          margins=bf16_margins("bf16-block node launch q", node[2], node16[2],
                                               node64[2])),
             "x2h_edge": x2h_edge,
-            "h2x_edge": dict(max_abs_err=float((hl.xout - x16)[lig].abs().max()),
-                             margins=bf16_margins("bf16-block h2x edge launch", hl.xout[lig],
-                                                  x16[lig], x64[lig])),
+            "h2x_edge": bf16_h2x_launch(torch, hl.h2x, hl.xout, x, x16, x64, nbh, mask_ligand,
+                                        MAX_LIGAND, "bf16-block h2x edge launch"),
         }
         del h64, x64, node64
         plain = {"node": lambda: kblock.node_projections_plain(h.reshape(-1, H), px),
@@ -2316,6 +2369,7 @@ def bf16_block_phase(torch, kblock, kel, rn, h, x, nbh, mask_ligand, node_mask, 
             **bound(work[2] * FLOP_EW_EDGE, nbytes(x, nbh.idx, got, *packed.ew),
                     PEAK_BF16_FLOPS))
     fields["x2h_edge_b100"] = bf16_x2h_b100(torch, kblock, kel, rn, rn64, b100, px)
+    fields["h2x_edge_b100"] = bf16_h2x_b100(torch, kblock, kel, rn, rn64, b100, ph)
     fields["node_b100"] = node_b100_fields(torch, kblock, b100, px, ph, bf16=True)
     del rn64
     phase("bf16-block", shape=f"B={B},N={h.shape[1]},K={nbh.idx.shape[-1]},L={L},H=128,"
@@ -2330,8 +2384,9 @@ def bf16_layers_phase(torch, dev, kel, pocket, feat_dim) -> dict:
     ligand slots: N = 640, K = 95): h of the valid rows and x of the ligand
     rows at BF16_BAR, two launches bitwise equal; each timed beside its
     bound at the bf16 tensor-core rate and its plain version; the x2h edge
-    launch alone too (`bf16_x2h_launch`, td_block_x2h_bf16 at K = 95), timed
-    beside its bound. Returns the two kernels' JSON fields."""
+    and h2x edge launches alone too (`bf16_x2h_launch`, `bf16_h2x_launch`:
+    td_block_x2h_bf16, td_block_h2x_bf16 at K = 95), timed beside their
+    bounds. Returns the two kernels' JSON fields."""
     from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
 
     bf16 = torch.bfloat16
@@ -2375,6 +2430,13 @@ def bf16_layers_phase(torch, dev, kel, pocket, feat_dim) -> dict:
         edge.update(ms=cuda_ms(torch, xl.x2h), device_ms=device_ms(torch, xl.x2h),
                     **bound(edges * FLOP_EDGE["x2h"], xl.bytes["x2h"], PEAK_BF16_FLOPS))
         fields["x2h_edge"] = edge
+        hl = pass_launcher(torch, kblock, h16, x, nbh, mlig, e_w, ph, HYBRID_LIGAND, bf16=True)
+        hl.node_rows()
+        edge = bf16_h2x_launch(torch, hl.h2x, hl.xout, x, x16, x64, nbh, mlig, HYBRID_LIGAND,
+                               "bf16-layers h2x edge launch")
+        edge.update(ms=cuda_ms(torch, hl.h2x), device_ms=device_ms(torch, hl.h2x),
+                    **bound(lig_edges * FLOP_EDGE["h2x"], hl.bytes["h2x"], PEAK_BF16_FLOPS))
+        fields["h2x_edge"] = edge
     del h64, x64
     with torch.no_grad():
         runs = {"x2h": (lambda: kel.x2h_layer_cuda(h, x, nbh, mlig, e_w, px, bf16),
@@ -3957,8 +4019,9 @@ def bwd_kernel_rows(torch, tb, tmodel, rows) -> dict:
             "colsum": bound((0, bn * row_w), f4 * (bn * row_w + row_w)),
             # the pass's idx and nmask read, off and the live edges' list entries written
             "adj": bound((0, 0), adj_edges[sub] * 9 + live[sub] * f4 + nb * (n + 1) * f4),
-            # w2k [H, H] and w2v [H, V] read, their fp16 (hi, lo) fragments written
-            "stage_w2": bound((0, 0), 2 * f4 * HW * (HW + v)),
+            # w2k [H, H] and w2v [H, V] read, their fp16 (hi, lo) fragments and
+            # their float32 transposes (the transposed product's) written
+            "stage_w2": bound((0, 0), 3 * f4 * HW * (HW + v)),
             # w_rbf [4, R, 2H] read, its TF32 (hi, lo) fragments (two layouts) written
             "stage_rbf": bound((0, 0), f4 * 4 * RK * 2 * HW + 16 * 2 * (2 * HW // 8)
                                * (2 * RK // 8) * 32),
@@ -4122,11 +4185,12 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
     edge weights, the train-mode checkpoints, the launches alone, the
     per-layer forwards and the block backward. The bf16 kernels (`bf16_*`):
     the whole block at the kNN shape (CUDA events, device time), the x2h
-    edge launch and the node launch (both passes: `bf16_node_duel`) alone at
-    kNN B=4 and B=100 and the per-layer x2h at the hybrid shape (its edge
-    kernel's and node_kernel's device time), each with a digest of its
-    output; 10 kNN B=100 sampling steps in bf16 (`profile`: host and device
-    ms per step, node_kernel's device ms) and the B=32 `fast_bf16` and
+    and h2x edge launches and the node launch (both passes:
+    `bf16_node_duel`, `bf16_h2x_duel`) alone at kNN B=4 and B=100 and the
+    per-layer x2h and h2x at the hybrid shape (their edge kernel's and
+    node_kernel's device time), each with a digest of its output; 10 kNN
+    B=100 sampling steps in bf16 (`profile`: host and device ms per step,
+    node_kernel's and the x2h and h2x edge kernels' device ms) and the B=32 `fast_bf16` and
     `fast` steps (`step_fields`: host ms over 10 steps after 3; device ms,
     node_kernel's and edge_bwd_kernel's over 3); the quality gate's float32
     `fast` step at its own padding."""
@@ -4177,6 +4241,10 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
         out["bf16_x2h_edge_b100_digest"] = digest(torch, xl16.out)
         bph = {k: v[:1] for k, v in bpacked.h2x.items()}
         out.update(bf16_node_duel(torch, kblock, xl16, pass_launcher(
+            torch, kblock, h100, x100, nbh100, mlig100, xl16.tensors[0].ew, bph, MAX_LIGAND,
+            bf16=True), "b100"))
+        # the bf16 h2x edge launch alone at B=100 (td_block_h2x_bf16 in every tree)
+        out.update(bf16_h2x_duel(torch, kblock, pass_launcher(
             torch, kblock, h100, x100, nbh100, mlig100, xl16.tensors[0].ew, bph, MAX_LIGAND,
             bf16=True), "b100"))
         del xl16
@@ -4244,6 +4312,9 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
         out.update(bf16_node_duel(torch, kblock, xl16, pass_launcher(
             torch, kblock, h, x, nbh, mlig, xl16.tensors[0].ew, bph, MAX_LIGAND, bf16=True),
             "b4"))
+        out.update(bf16_h2x_duel(torch, kblock, pass_launcher(
+            torch, kblock, h, x, nbh, mlig, xl16.tensors[0].ew, bph, MAX_LIGAND, bf16=True),
+            "b4"))
     sample(3, 1)  # warm up
     out["sample_ms_per_step"] = sample(50, 1)
     # the kNN B=100 sampling step in bf16 (the default precision): host and
@@ -4251,8 +4322,10 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
     step100 = profile(torch, setup("knn", 100, torch.bfloat16)[1], "knn", 100)
     out.update(bf16_knn_b100_step_host_ms=step100["host_ms_per_step"],
                bf16_knn_b100_step_device_ms=step100["device_ms_per_step"],
-               bf16_knn_b100_node_device_ms_per_step=sum(
-                   v["ms"] for k, v in step100["kernels_per_step"].items() if "node_kernel" in k))
+               **{f"bf16_knn_b100_{name}_device_ms_per_step": sum(
+                   v["ms"] for k, v in step100["kernels_per_step"].items() if piece in k)
+                  for name, piece in (("node", "node_kernel"), ("x2h_edge", "x2h_edge"),
+                                      ("h2x_edge", "h2x_edge"))})
 
     hmodel, hsample = setup("hybrid")
     hrn = hmodel.net.refine_net
@@ -4271,8 +4344,9 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
                 "h2x": lambda: kelv.h2x_layer_bwd_cuda(hh, hx, hnbh, hmlig, he_w, HYBRID_LIGAND,
                                                        ph, cot["h2x"])}
         out["layers_digest"] = digest(torch, layers["x2h"](), layers["h2x"]())
-        # the bf16 per-layer x2h: its call, its edge kernel's and node_kernel's device time
-        bpx_h, _ = kel.pack_layer_params(hrn.base_block[0], bf16)
+        # the bf16 per-layer x2h and h2x: each call, its edge kernel's and
+        # node_kernel's device time
+        bpx_h, bph_h = kel.pack_layer_params(hrn.base_block[0], bf16)
 
         def x2h16():
             return kel.x2h_layer_cuda(hh, hx, hnbh, hmlig, he_w, bpx_h, bf16)
@@ -4281,6 +4355,14 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
         out["bf16_x2h_edge_hybrid_device_ms"] = kernel_device_ms(torch, x2h16, "x2h_edge")
         out["bf16_node_x2h_hybrid_device_ms"] = kernel_device_ms(torch, x2h16, "node_kernel")
         out["bf16_layers_digest"] = digest(torch, x2h16())
+
+        def h2x16():
+            return kel.h2x_layer_cuda(hh, hx, hnbh, hmlig, he_w, HYBRID_LIGAND, bph_h, bf16)
+
+        out["bf16_h2x_layer_hybrid_ms"] = cuda_ms(torch, h2x16)
+        out["bf16_h2x_edge_hybrid_device_ms"] = kernel_device_ms(torch, h2x16, "h2x_edge")
+        out["bf16_node_h2x_hybrid_device_ms"] = kernel_device_ms(torch, h2x16, "node_kernel")
+        out["bf16_h2x_layers_digest"] = digest(torch, h2x16())
         for sub, fn in bwds.items():
             out[f"{sub}_layer_bwd_hybrid_ms"] = cuda_ms(torch, fn, reps=10)
             out.update(bwd_device_ms(torch, f"{sub}_layer_bwd_hybrid", fn))
@@ -4407,6 +4489,17 @@ def step_fields(torch, step, state, batch, gen, reps) -> dict:
                    v["ms"] for k, v in times.items() if f"edge_bwd_kernel<{h2x}" in k)
                   for sub, h2x in (("x2h", "false"), ("h2x", "true"))})
     return out
+
+
+def bf16_h2x_duel(torch, kblock, hl, label) -> dict:
+    """The bf16 h2x edge launch alone (`pass_launcher` hl of bf16 h2x
+    weights, after its node launch): CUDA-event and device ms, and a digest
+    of x'."""
+    hl.node_rows()
+    hl.h2x()
+    return {f"bf16_h2x_edge_{label}_digest": digest(torch, hl.xout),
+            f"bf16_h2x_edge_{label}_ms": cuda_ms(torch, hl.h2x),
+            f"bf16_h2x_edge_{label}_device_ms": device_ms(torch, hl.h2x, calls=10)}
 
 
 def bf16_node_duel(torch, kblock, xl, hl, label) -> dict:

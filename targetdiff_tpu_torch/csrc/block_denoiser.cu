@@ -45,7 +45,9 @@
 //   h2x_edge_kernel  per layer (h2x_edge.cuh): persistent blocks whose four
 //                pipelines take (ligand row, live chunk) units, each
 //                yielding per-head softmax partials; a warp per row merges
-//                them in chunk order and writes x' on the ligand tail.
+//                them in chunk order and writes x' on the ligand tail. The
+//                bf16 entries run h2x_edge_mma_kernel instead
+//                (h2x_edge_bf16.cuh: the x2h one's design on the ligand rows).
 // All intermediates of an edge stay in shared memory or registers; only the
 // [B, N, K] edge weights and the per-node projections reach device memory.
 // Train mode (td_block_train_fwd) drives the same node and edge kernels over

@@ -27,7 +27,9 @@
 // edges with an online softmax; in bf16 x2h_edge_mma_kernel
 // (x2h_edge_bf16.cuh), 64-slot tiles on wgmma. h2x: the projections of the ligand rows and
 // the source projections of the others, then h2x_edge_kernel (h2x_edge.cuh),
-// (ligand row, live chunk) units merged per row in chunk order. Chunks
+// (ligand row, live chunk) units merged per row in chunk order; in bf16
+// h2x_edge_mma_kernel (h2x_edge_bf16.cuh), the x2h one's tiles on the ligand
+// rows. Chunks
 // without a valid edge are skipped, which is exact: under the hybrid graph a
 // protein row's 32 valid slots come first, so two of its three chunks at
 // K = 95 cost nothing.

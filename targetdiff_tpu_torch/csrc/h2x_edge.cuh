@@ -9,8 +9,9 @@
 //
 // Replaces: targetdiff_tpu/ops/pallas/edge_layer.py:_h2x_kernel and the h2x
 // pass of targetdiff_tpu/ops/pallas/block_denoiser.py:_block_kernel. It
-// serves every h2x caller: the inference block (td_block_h2x), the train-mode
-// block (td_block_train_fwd) and the per-layer h2x (td_h2x_layer).
+// serves every float32 h2x caller: the inference block (td_block_h2x), the
+// train-mode block (td_block_train_fwd) and the per-layer h2x (td_h2x_layer);
+// the bf16 callers take h2x_edge_bf16.cuh's kernel (launch_h2x<true>).
 //
 // What bounds it on this card: the k second layer is 32.8k of the ~50k FLOP
 // of a live edge, the v second layer 4.1k; both run on the tensor cores as
@@ -43,12 +44,9 @@
 //    per warp: 24 mma per warp, against 512 FMA per thread on the FMA
 //    pipes, and the fragment staging and the A operand are the k half's),
 //    and each warp's weighted sums of its two heads' values times rel.
-//  * bf16 (kBf16, the sampling path's default precision): the same units
-//    with bf16 products (tc_common.cuh): one mma per tile and k-step in
-//    place of three, bf16 weights, RBF features and activations rounded to
-//    bf16; logits, partials, rel and x stay float32.
 #pragma once
 
+#include "h2x_edge_bf16.cuh"
 #include "tc_common.cuh"
 
 namespace {
@@ -83,7 +81,6 @@ struct H2xSmem {
   int first_unit[kBatchRows + 1];             // the row's first unit; the batch's count last
 };
 
-template <bool kBf16>
 __global__ void __launch_bounds__(kH2xThreads, 1)
 h2x_edge_kernel(EdgeInputs in, const float* __restrict__ qn, PassParams p, int B, int N, int K,
                 int row0, float* __restrict__ out) {
@@ -96,8 +93,8 @@ h2x_edge_kernel(EdgeInputs in, const float* __restrict__ qn, PassParams p, int B
 
   // both second layers, split into fp16 hi and lo, as B fragments (the
   // first batch's barriers order them before their use)
-  stage_frags<kBf16>(&s.wk[0][0][0], weights<kBf16>(p.w2k), H, kNTiles, t, kH2xThreads);
-  stage_frags<kBf16>(&s.wv[0][0][0], weights<kBf16>(p.w2v), NH, kVTiles, t, kH2xThreads);
+  stage_frags(&s.wk[0][0][0], p.w2k, H, kNTiles, t, kH2xThreads);
+  stage_frags(&s.wv[0][0][0], p.w2v, NH, kVTiles, t, kH2xThreads);
 
   const int nd = N - row0;
   const long long rows = (long long)B * nd;
@@ -133,7 +130,7 @@ h2x_edge_kernel(EdgeInputs in, const float* __restrict__ qn, PassParams p, int B
         unsigned bits = s.bits[r];
         for (int k = j - s.first_unit[r]; k > 0; --k) bits &= bits - 1;
         const long long bn = s.row[r];
-        chunk_geometry<kBf16>(L.e, L.rel, in, N, bn,
+        chunk_geometry(L.e, L.rel, in, N, bn,
                               load_slot(in, bn, K, (__ffs(bits) - 1) * KC + lane), lane);
       }
       lane_sync(l);  // the chunk's geometry is in L
@@ -142,7 +139,7 @@ h2x_edge_kernel(EdgeInputs in, const float* __restrict__ qn, PassParams p, int B
       H2xPartial& P = s.part[j];
 
       // the k half: warp qd's 32 x 32 tile, channels 32 qd .. (heads 4 qd .. 4 qd + 3)
-      chunk_half<kBf16>(L.e, in, p, bn, 0, tl, qd, lane, l);
+      chunk_half(L.e, in, p, bn, 0, tl, qd, lane, l);
       {
         float acc[2][4][4];
 #pragma unroll
@@ -155,7 +152,7 @@ h2x_edge_kernel(EdgeInputs in, const float* __restrict__ qn, PassParams p, int B
             acc[mt][nt][1] = acc[mt][nt][3] = b1;
           }
         }
-        tile_mma<4, kBf16>(acc, &L.e.z[0][0], &s.wk[0][4 * qd][0], kNTiles, lane);
+        tile_mma<4>(acc, &L.e.z[0][0], &s.wk[0][4 * qd][0], kNTiles, lane);
         // the chunk's logits of the warp's four heads: their max, denominator
         // and L.e.pw = e_w exp(logit - max) for the v half
         const float* qrow = qn + bn * H + 32 * qd + 2 * tig;
@@ -200,7 +197,7 @@ h2x_edge_kernel(EdgeInputs in, const float* __restrict__ qn, PassParams p, int B
       lane_sync(l);  // every warp is done with the k activations before the v gather
 
       // the v half: warp qd's 16 x 8 tile, slots 16 mt .., heads 8 nt ..
-      chunk_half<kBf16>(L.e, in, p, bn, 1, tl, qd, lane, l);
+      chunk_half(L.e, in, p, bn, 1, tl, qd, lane, l);
       {
         const int mt = qd >> 1, nt = qd & 1;
         const float b0 = kWScale * p.b2v[8 * nt + 2 * tig];
@@ -213,22 +210,14 @@ h2x_edge_kernel(EdgeInputs in, const float* __restrict__ qn, PassParams p, int B
 #pragma unroll
           for (int f = 0; f < 4; ++f) {
             const float* af = a + (g + 8 * (f & 1)) * kLdz + 16 * ks + 2 * tig + 8 * (f >> 1);
-            if constexpr (kBf16) {
-              ahi[f] = *reinterpret_cast<const uint32_t*>(af);
-            } else {
-              const uint2 pr = *reinterpret_cast<const uint2*>(af);
-              ahi[f] = pr.x;
-              alo[f] = pr.y;
-            }
+            const uint2 pr = *reinterpret_cast<const uint2*>(af);
+            ahi[f] = pr.x;
+            alo[f] = pr.y;
           }
           const uint4 wf = s.wv[ks][nt][lane];
-          if constexpr (kBf16) {
-            mma_bf16(acc, ahi, wf.x, wf.y);
-          } else {
-            mma_f16(acc, alo, wf.x, wf.y);
-            mma_f16(acc, ahi, wf.z, wf.w);
-            mma_f16(acc, ahi, wf.x, wf.y);
-          }
+          mma_f16(acc, alo, wf.x, wf.y);
+          mma_f16(acc, ahi, wf.z, wf.w);
+          mma_f16(acc, ahi, wf.x, wf.y);
         }
         // sum over the tile's 16 slots of e_w exp(l - m) v rel, per head
         const int i0 = 16 * mt + g, i1 = i0 + 8;
@@ -290,19 +279,22 @@ h2x_edge_kernel(EdgeInputs in, const float* __restrict__ qn, PassParams p, int B
 }
 
 // The rows [row0, N) of each complex of out = h2x(x), for any K <= kMaxLayerK;
-// kBf16: bf16 products.
+// kBf16: bf16 products, on the wgmma kernel of h2x_edge_bf16.cuh.
 template <bool kBf16 = false>
 int launch_h2x(const EdgeInputs& in, const float* q, const PassParams& p, int B, int N, int K,
                int row0, float* out, cudaStream_t s) {
-  if (B <= 0 || N <= 0 || K <= 0 || K > kMaxLayerK || row0 < 0 || row0 >= N)
-    return (int)cudaErrorInvalidValue;
-  static int n_sm = 0;
-  if (int err = sm_count(h2x_edge_kernel<kBf16>, (int)sizeof(H2xSmem), n_sm)) return err;
-  const long long rows = (long long)B * (N - row0);
-  const int grid = (int)(rows < n_sm ? rows : n_sm);
-  h2x_edge_kernel<kBf16><<<grid, kH2xThreads, sizeof(H2xSmem), s>>>(in, q, p, B, N, K, row0,
-                                                                     out);
-  return (int)cudaGetLastError();
+  if constexpr (kBf16) {
+    return launch_h2x_mma(in, q, p, B, N, K, row0, out, s);
+  } else {
+    if (B <= 0 || N <= 0 || K <= 0 || K > kMaxLayerK || row0 < 0 || row0 >= N)
+      return (int)cudaErrorInvalidValue;
+    static int n_sm = 0;
+    if (int err = sm_count(h2x_edge_kernel, (int)sizeof(H2xSmem), n_sm)) return err;
+    const long long rows = (long long)B * (N - row0);
+    const int grid = (int)(rows < n_sm ? rows : n_sm);
+    h2x_edge_kernel<<<grid, kH2xThreads, sizeof(H2xSmem), s>>>(in, q, p, B, N, K, row0, out);
+    return (int)cudaGetLastError();
+  }
 }
 
 }  // namespace

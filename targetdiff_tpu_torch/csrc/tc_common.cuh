@@ -1,6 +1,6 @@
 // Tensor-core pieces shared by the Hopper (sm_90a) kernels: the node
 // projections (node_proj.cuh), the x2h and h2x edge passes (x2h_edge.cuh,
-// h2x_edge.cuh) and the backward's recompute of their second layers
+// h2x_edge.cuh; in bf16 x2h_edge_bf16.cuh, h2x_edge_bf16.cuh) and the backward's recompute of their second layers
 // (pass_bwd.cuh).
 //
 // Precision. Each piece that differs between precisions takes kBf16 (false
@@ -436,7 +436,7 @@ __device__ __forceinline__ void chunk_half(EdgeLane& L, const EdgeInputs& in, co
 
 // Warpgroup products (wgmma, sm_90a only): operands in shared memory as
 // K-major 8x8 core matrices without swizzle, accumulators in registers
-// (x2h_edge_bf16.cuh, node_proj.cuh).
+// (edge_mma.cuh, node_proj.cuh).
 
 // Byte offset of element (row, k) of a K-major wgmma operand without
 // swizzle: 8x8 core matrices of 128 contiguous bytes, the K-adjacent ones 128
@@ -474,9 +474,10 @@ __device__ __forceinline__ void wgmma_wait0() {
 }
 // Keeps the compiler from moving the accumulator's reads and writes across
 // the asynchronous products.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int kN>
+__device__ __forceinline__ void fence_acc(float (&d)[kN]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // The 64 accumulator registers of a warpgroup's m64n128 tile as asm operands
@@ -533,6 +534,21 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
         : "memory");
   }
+}
+
+// d (+)= A B for the warpgroup's 64 x 16 tile, A from registers as in
+// wgmma_rs (bf16 pairs), B bf16 in shared memory (16 x K, K-major): d[4 nt +
+// 2 r + i] holds row g + 8 r of the warp's 16, column 8 nt + 2 tig + i.
+__device__ __forceinline__ void wgmma_rs16(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
+      : "memory");
 }
 
 // The SMs of the (one) device, with the shared-memory limit of `kernel`

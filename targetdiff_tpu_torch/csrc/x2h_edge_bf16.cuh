@@ -31,7 +31,7 @@
 // latency: the nj gather, the products' waits and the register work
 // between them, with two 64-slot tiles in flight per SM (PERF.md §6).
 //
-// Design:
+// Design (its pieces shared with the bf16 h2x pass in edge_mma.cuh):
 //  * Persistent blocks, one per SM, three warpgroups: two consumers and a
 //    producer. Both tables are staged once per block as bf16 wgmma B
 //    operands (K-major, 8x8 core matrices, no swizzle): the first layer
@@ -67,21 +67,15 @@
 // fails) instead of hanging the card.
 #pragma once
 
-#include "tc_common.cuh"
+#include "edge_mma.cuh"
 
 namespace {
 
-constexpr int kMmaTile = 64;                // edge slots per tile: two 32-slot chunks
-constexpr int kT1K = 96;                    // first-layer depth: 4 one-hot + 4 R RBF columns + 0
-constexpr int kT1KSteps = kT1K / 16;
 constexpr int kMmaConsumers = 2;            // consumer warpgroups per block
 constexpr int kMmaStages = 2;               // ring stages per consumer
 constexpr int kMmaThreads = 128 * (kMmaConsumers + 1);
 constexpr int kFeeders = 4 / kMmaConsumers;  // producer warps per consumer, alternating tiles
-constexpr int kSboT1 = kT1K / 8 * 128;      // bytes between 8-row groups of a 96-deep operand
-constexpr int kSboW2 = H / 8 * 128;         // ... of a 128-deep operand
 constexpr int kProducerRegs = 56, kConsumerRegs = 224;
-static_assert(4 + 4 * R <= kT1K && kT1K % 16 == 0, "the one-hot and RBF columns fill the depth");
 static_assert(kMmaConsumers * 128 * kConsumerRegs + 128 * kProducerRegs <= 65536,
               "the register split fits the SM");
 // each producer warp owns the stages of its tiles: an mbarrier's parity tells
@@ -90,6 +84,7 @@ static_assert(kMmaStages % kFeeders == 0, "a consumer's stages are dealt to its 
 
 // One ring stage: a tile's first-layer A operand and its slots.
 struct X2hTile {
+  static constexpr bool kRel = false;
   alignas(128) unsigned char a[kMmaTile * kT1K * 2];  // bf16, kmajor_off(slot, feature, kSboT1)
   int src[kMmaTile];                                   // source node b*N + j; -1 invalid
   float ew[kMmaTile];                                  // e_w; 0 invalid
@@ -113,143 +108,13 @@ struct X2hMmaSmem {
   unsigned long long full[kMmaConsumers][kMmaStages], empty[kMmaConsumers][kMmaStages];
 };
 
-__device__ __forceinline__ void mbar_init(unsigned long long* b, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(b)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned long long* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(b)) : "memory");
-}
-
-// Waits until the barrier's phase of parity `parity` has completed; traps
-// (the launch fails) after ~2^34 clocks, so that a broken handshake cannot
-// hang the card.
-__device__ __forceinline__ void mbar_wait(unsigned long long* b, unsigned parity) {
-  unsigned done;
-  const long long t0 = clock64();
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(b)), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > (1ll << 34)) __trap();
-  } while (!done);
-}
-
-// Element (k, n) of half kv's first-layer table: k < 4 w_et[k], k < 4 + 4R
-// w_rbf[(k - 4) / R][(k - 4) % R] (type-major, as the reference's r_feat),
-// then zeros (ops/kernels/block_denoiser.py pack_first_layer_table); bf16 bits.
-__device__ __forceinline__ uint32_t table_bits(const PassParams& p, int kv, int k, int n) {
-  const unsigned short* w_et = reinterpret_cast<const unsigned short*>(p.w_et);
-  const unsigned short* w_rbf = reinterpret_cast<const unsigned short*>(p.w_rbf);
-  if (k < 4) return w_et[k * H2 + kv * H + n];
-  if (k < 4 + 4 * R) return w_rbf[(k - 4) * H2 + kv * H + n];
-  return 0u;
-}
-
-// Both halves' tables as wgmma B operands (B[n][k], K-major), the LayerNorm
-// and the biases, by the block's threads: each thread writes one core-matrix
-// row (8 consecutive k of one n) as one 16-byte store, neighbouring threads
-// on neighbouring n (coalesced 2-byte loads, stores without bank conflicts).
+// Both halves' tables as wgmma B operands (edge_mma.cuh), the LayerNorm and
+// the biases, by the block's threads.
 __device__ __forceinline__ void stage_x2h_tables(X2hMmaSmem& s, const PassParams& p, int t) {
-  for (int u = t; u < 2 * (kT1K / 8) * H; u += kMmaThreads) {
-    const int n = u % H, kc = u / H % (kT1K / 8), kv = u / (H * (kT1K / 8));
-    uint32_t w[4];
-#pragma unroll
-    for (int pr = 0; pr < 4; ++pr)
-      w[pr] = table_bits(p, kv, 8 * kc + 2 * pr, n) | table_bits(p, kv, 8 * kc + 2 * pr + 1, n) << 16;
-    *reinterpret_cast<uint4*>(s.t1[kv] + kmajor_off(n, 8 * kc, kSboT1)) =
-        make_uint4(w[0], w[1], w[2], w[3]);
-  }
-  for (int u = t; u < 2 * (H / 8) * H; u += kMmaThreads) {
-    const int n = u % H, kc = u / H % (H / 8), kv = u / (H * (H / 8));
-    const unsigned short* w2 = reinterpret_cast<const unsigned short*>(kv ? p.w2v : p.w2k);
-    uint32_t w[4];
-#pragma unroll
-    for (int pr = 0; pr < 4; ++pr)
-      w[pr] = (uint32_t)w2[(8 * kc + 2 * pr) * H + n] | (uint32_t)w2[(8 * kc + 2 * pr + 1) * H + n]
-                                                            << 16;
-    *reinterpret_cast<uint4*>(s.w2[kv] + kmajor_off(n, 8 * kc, kSboW2)) =
-        make_uint4(w[0], w[1], w[2], w[3]);
-  }
+  stage_edge_tables(s.t1, s.w2[0], s.w2[1], H, p, t, kMmaThreads);
   for (int c = t; c < 2 * H2; c += kMmaThreads) s.ln[c / H2][c % H2] = p.kv_ln[c];
   for (int c = t; c < 2 * H; c += kMmaThreads) s.b2[c / H][c % H] = (c < H ? p.b2k : p.b2v)[c % H];
 }
-
-// Column k of a slot's first-layer row: its one-hot edge type (et; -1 for an
-// invalid slot: a zero row), then its RBF features in its type's block.
-__device__ __forceinline__ uint32_t feature_bits(int k, int et, const unsigned short (&rb)[R]) {
-  if (k < 4) return et == k ? 0x3F80u : 0u;  // bf16 1.0
-  if (k < 4 + 4 * R) return et == (k - 4) / R ? rb[(k - 4) % R] : 0u;
-  return 0u;
-}
-
-// A slot's geometry: edge type (0 l->l, 1 l->p, 2 p->l, 3 p->p by (src,
-// dst) ligand; -1 for an invalid slot), source node b*N + j, e_w, distance.
-struct SlotGeom {
-  int et;
-  long long jn;
-  float w, dist;
-};
-
-__device__ __forceinline__ SlotGeom slot_geometry(const EdgeInputs& in, int N, long long bn,
-                                                  const EdgeSlot& s) {
-  SlotGeom g{-1, -1, 0.f, 0.f};
-  if (s.valid) {
-    g.jn = bn / N * N + s.idx;
-    const bool src_lig = in.mlig[g.jn], dst_lig = in.mlig[bn];
-    g.et = src_lig ? (dst_lig ? 0 : 1) : (dst_lig ? 2 : 3);
-    const float* x = in.x;
-    const float rx = x[3 * bn] - x[3 * g.jn], ry = x[3 * bn + 1] - x[3 * g.jn + 1],
-                rz = x[3 * bn + 2] - x[3 * g.jn + 2];
-    g.dist = sqrtf(rx * rx + ry * ry + rz * rz + 1e-16f);
-    g.w = s.w;
-  }
-  return g;
-}
-
-// Slot m of tile T: its source, e_w and A row [one-hot type | type x RBF |
-// 0], the RBF features rounded to bf16.
-__device__ __forceinline__ void write_slot(X2hTile& T, const EdgeInputs& in, const SlotGeom& g,
-                                           int m) {
-  unsigned short rb[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const float d = g.dist - in.offsets[r];
-    rb[r] = g.et < 0 ? 0 : __bfloat16_as_ushort(__float2bfloat16_rn(expf(in.coeff * d * d)));
-  }
-#pragma unroll
-  for (int kc = 0; kc < kT1K / 8; ++kc) {
-    uint32_t w[4];
-#pragma unroll
-    for (int pr = 0; pr < 4; ++pr)
-      w[pr] = feature_bits(8 * kc + 2 * pr, g.et, rb) |
-              feature_bits(8 * kc + 2 * pr + 1, g.et, rb) << 16;
-    *reinterpret_cast<uint4*>(T.a + kmajor_off(m, 8 * kc, kSboT1)) =
-        make_uint4(w[0], w[1], w[2], w[3]);
-  }
-  T.src[m] = (int)g.jn;
-  T.ew[m] = g.w;
-}
-
-// Bit c set when chunk c of row bn holds a valid edge, by one thread.
-__device__ __forceinline__ unsigned row_live_chunks(const bool* nmask, long long bn, int K) {
-  const unsigned char* m = reinterpret_cast<const unsigned char*>(nmask + bn * K);
-  unsigned bits = 0;
-#pragma unroll 8
-  for (int e = 0; e < K; ++e) bits |= (m[e] ? 1u : 0u) << (e / KC);
-  return bits;
-}
-
-// A row's live chunk as its producer hands it on.
-struct LiveChunk {
-  long long row;  // -1: none left
-  int c;          // chunk index within the row
-  int first, last;
-};
 
 // Producer warp pw (0..3) of the block: it feeds consumer pw / kFeeders the
 // tiles j with j % kFeeders == pw % kFeeders, into ring stage j %
@@ -264,113 +129,26 @@ __device__ __forceinline__ void x2h_producer(X2hMmaSmem& s, const float* __restr
                                              int lane) {
   const int c = pw / kFeeders, q = pw % kFeeders;
   if (c >= kMmaConsumers) return;
-  const long long total = (long long)B * N, stride = (long long)kMmaConsumers * gridDim.x;
-  long long wbase = (long long)kMmaConsumers * blockIdx.x + c;  // row i of the window: wbase + i stride
-  unsigned wbits = 0;  // lane i: the live chunks of the window's row i
-  int wi = -1;
-  long long cur = 0;
-  unsigned todo = 0;
-  bool fresh = false;
-  auto load_window = [&]() {
-    const long long r = wbase + lane * stride;
-    wbits = r < total ? row_live_chunks(in.nmask, r, K) : 0u;
+  const auto node = [](long long u) { return u; };
+  const auto dead = [&](long long bn) {  // h to out for a row without a live chunk
+    if (q == 0)
+      reinterpret_cast<float4*>(out + bn * H)[lane] =
+          reinterpret_cast<const float4*>(h + bn * H)[lane];
   };
-  auto seek = [&]() {  // to the next row with a live chunk (cur = total: none left)
-    for (;;) {
-      if (++wi == 32) {
-        wbase += 32 * stride;
-        wi = 0;
-        load_window();
-      }
-      cur = wbase + wi * stride;
-      if (cur >= total) {
-        cur = total;
-        return;
-      }
-      todo = __shfl_sync(0xffffffffu, wbits, wi);
-      if (todo) {
-        fresh = true;
-        return;
-      }
-      if (q == 0)
-        reinterpret_cast<float4*>(out + cur * H)[lane] =
-            reinterpret_cast<const float4*>(h + cur * H)[lane];
-    }
-  };
-  auto next_chunk = [&]() {
-    LiveChunk ch{-1, 0, 0, 0};
-    if (cur >= total) return ch;
-    ch.row = cur;
-    ch.c = __ffs(todo) - 1;
-    ch.first = fresh;
-    todo &= todo - 1;
-    ch.last = todo == 0;
-    fresh = false;
-    if (todo == 0) seek();
-    return ch;
-  };
-  load_window();
-  seek();
+  ChunkWalk<decltype(node)> walk{in.nmask, node, (long long)B * N,
+                                 (long long)kMmaConsumers * gridDim.x,
+                                 (long long)kMmaConsumers * blockIdx.x + c, K, lane};
+  walk.start(dead);
   for (int j = 0;; ++j) {
-    const LiveChunk a = next_chunk(), b = next_chunk();
+    const LiveChunk a = walk.next(dead), b = walk.next(dead);
     if (j % kFeeders != q) {
       if (a.row < 0) break;
       continue;
     }
     const int st = j % kMmaStages;
-    X2hTile& T = s.tile[c][st];
-    const EdgeSlot sa = load_slot(in, a.row, K, KC * a.c + lane);
-    const EdgeSlot sb = load_slot(in, b.row, K, KC * b.c + lane);
-    const SlotGeom ga = slot_geometry(in, N, a.row, sa), gb = slot_geometry(in, N, b.row, sb);
-    const unsigned va = __ballot_sync(0xffffffffu, sa.valid);
-    const unsigned vb = __ballot_sync(0xffffffffu, sb.valid);
-    mbar_wait(&s.empty[c][st], ((j / kMmaStages) & 1) ^ 1);
-    const long long rows[2] = {a.row, b.row};
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      if (rows[p] < 0) continue;
-      for (int u = lane; u < (H2 + H) / 4; u += 32)
-        cp_async16(u < H2 / 4 ? &T.ni[p][4 * u] : &T.q[p][4 * u - H2],
-                   u < H2 / 4 ? in.ni + rows[p] * H2 + 4 * u : qn + rows[p] * H + 4 * u - H2);
-    }
-    write_slot(T, in, ga, lane);
-    write_slot(T, in, gb, KC + lane);
-    if (lane == 0) {
-      T.row[0] = a.row;
-      T.row[1] = b.row;
-      T.valid[0] = va;
-      T.valid[1] = vb;
-      T.first[0] = a.first;
-      T.first[1] = b.first;
-      T.last[0] = a.last;
-      T.last[1] = b.last;
-    }
-    cp_async_wait_all();
-    fence_proxy_async();
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&s.full[c][st]);
+    fill_tile(s.tile[c][st], in, qn, N, K, a, b, &s.empty[c][st], ((j / kMmaStages) & 1) ^ 1,
+              &s.full[c][st], lane);
     if (a.row < 0) break;  // the end marker
-  }
-}
-
-// ni of the chunk's row (staged: nirow, null where the chunk is absent) +
-// nj of the thread's two slots' sources (0 where there is none) for half
-// kv, in the accumulator's layout.
-__device__ __forceinline__ void node_sums(float2 (&ns)[2][H / 8], const EdgeInputs& in,
-                                          const float* nirow, const int (&src)[2], int kv,
-                                          int tig) {
-#pragma unroll
-  for (int nt = 0; nt < H / 8; ++nt) {
-    const float2 a = nirow == nullptr
-                         ? make_float2(0.f, 0.f)
-                         : *reinterpret_cast<const float2*>(nirow + kv * H + 8 * nt + 2 * tig);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float2 b = src[r] < 0 ? make_float2(0.f, 0.f)
-                                  : *reinterpret_cast<const float2*>(
-                                        in.nj + (size_t)src[r] * H2 + kv * H + 8 * nt + 2 * tig);
-      ns[r][nt] = make_float2(a.x + b.x, a.y + b.y);
-    }
   }
 }
 
@@ -382,7 +160,6 @@ __device__ __forceinline__ void x2h_consumer(X2hMmaSmem& s, const float* __restr
   const int pos = w >> 1;      // the chunk of the warp's 16 slots
   const int m0 = 16 * w + g;   // the thread's slots m0 and m0 + 8 (accumulator rows)
   const int hh = wt >> 3;      // the merge's head (thread wt merges channel wt)
-  const float lscale = rsqrtf((float)DH);
   // the merge thread's running state of its channel: max, denominator, value sum
   float m_run = -INFINITY, d_run = 0.f, o_run = 0.f;
   float acc[64];
@@ -405,14 +182,7 @@ __device__ __forceinline__ void x2h_consumer(X2hMmaSmem& s, const float* __restr
 #pragma unroll
     for (int kv = 0; kv < 2; ++kv) {
       // first layer: [type | type x RBF] of the tile's 64 slots times the half's table
-      {
-        const uint64_t db = mma_desc(s.t1[kv], kSboT1);
-        fence_acc(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < kT1KSteps; ++ks) wgmma_ss(acc, desc_ks(da, ks), desc_ks(db, ks), ks);
-        wgmma_commit();
-      }
+      first_layer_mma(acc, da, s.t1[kv]);
       // meanwhile the half's ni + nj, and q
       node_sums(ns, in, crow < 0 ? nullptr : T.ni[pos], src, kv, tig);
       if (kv == 0) {
@@ -424,48 +194,9 @@ __device__ __forceinline__ void x2h_consumer(X2hMmaSmem& s, const float* __restr
       wgmma_wait0();
       fence_acc(acc);
       if (kv == 1) mbar_arrive(&s.empty[c][st]);  // the tile's A operand and slots are read
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int nt = 0; nt < H / 8; ++nt) {
-          acc[4 * nt + 2 * r] += ns[r][nt].x;
-          acc[4 * nt + 2 * r + 1] += ns[r][nt].y;
-        }
-
-      // LayerNorm + ReLU of rows m0 (r = 0) and m0 + 8 (r = 1), rounded to
-      // bf16 as the second layer's A fragments: k-step ks takes n-tiles 2 ks
-      // (registers 0, 1) and 2 ks + 1 (2, 3)
+      add_node_sums(acc, ns);
       uint32_t fr[H / 16][4];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float lsum[4] = {};  // four independent partial sums: short dependency chains
-#pragma unroll
-        for (int nt = 0; nt < H / 8; ++nt)
-          lsum[nt & 3] += acc[4 * nt + 2 * r] + acc[4 * nt + 2 * r + 1];
-        float sum = (lsum[0] + lsum[1]) + (lsum[2] + lsum[3]);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        const float mean = sum * (1.f / H);
-        float sqp[4] = {};
-#pragma unroll
-        for (int i = 0; i < 2 * (H / 8); ++i) {
-          const float dlt = acc[4 * (i >> 1) + 2 * r + (i & 1)] - mean;
-          sqp[i & 3] = fmaf(dlt, dlt, sqp[i & 3]);
-        }
-        float sq = (sqp[0] + sqp[1]) + (sqp[2] + sqp[3]);
-        sq += __shfl_xor_sync(0xffffffffu, sq, 1);
-        sq += __shfl_xor_sync(0xffffffffu, sq, 2);
-        const float rstd = rsqrtf(sq * (1.f / H) + kLnEps);
-#pragma unroll
-        for (int nt = 0; nt < H / 8; ++nt) {
-          const int col = kv * H + 8 * nt + 2 * tig;
-          const float2 sc = *reinterpret_cast<const float2*>(&s.ln[0][col]);
-          const float2 bi = *reinterpret_cast<const float2*>(&s.ln[1][col]);
-          const float z0 = fmaxf((acc[4 * nt + 2 * r] - mean) * rstd * sc.x + bi.x, 0.f);
-          const float z1 = fmaxf((acc[4 * nt + 2 * r + 1] - mean) * rstd * sc.y + bi.y, 0.f);
-          fr[nt >> 1][(nt & 1) * 2 + r] = bf16_pair(z0, z1);
-        }
-      }
+      ln_relu_frags(fr, acc, s.ln, kv, tig);
 
       // second layer, A from registers; + bias
       {
@@ -489,51 +220,8 @@ __device__ __forceinline__ void x2h_consumer(X2hMmaSmem& s, const float* __restr
       }
 
       if (kv == 0) {
-        // logits: the quad's partial dots reduce-scattered, thread tig keeps
-        // heads 4 tig .. 4 tig + 3 of rows m0, m0 + 8
-        float lg[2][NH];
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int nt = 0; nt < NH; ++nt)
-            lg[r][nt] = acc[4 * nt + 2 * r] * qv[nt].x + acc[4 * nt + 2 * r + 1] * qv[nt].y;
-        const bool hi2 = (tig & 2) != 0, hi1 = (tig & 1) != 0;
-        float l1[2][8], l2[2][4];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const float keep = hi2 ? lg[r][i + 8] : lg[r][i], send = hi2 ? lg[r][i] : lg[r][i + 8];
-            l1[r][i] = keep + __shfl_xor_sync(0xffffffffu, send, 2);
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float keep = hi1 ? l1[r][i + 4] : l1[r][i], send = hi1 ? l1[r][i] : l1[r][i + 4];
-            l2[r][i] = keep + __shfl_xor_sync(0xffffffffu, send, 1);
-          }
-        }
-        // per head over the warp's 16 slots: max, exp-sum; e_w * p for the v half
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float l0 = valid[0] ? l2[0][i] * lscale : -INFINITY;
-          const float l1v = valid[1] ? l2[1][i] * lscale : -INFINITY;
-          float mx = fmaxf(l0, l1v);
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
-          const float p0 = mx == -INFINITY ? 0.f : expf(l0 - mx);
-          const float p1 = mx == -INFINITY ? 0.f : expf(l1v - mx);
-          float sm = p0 + p1;
-          sm += __shfl_xor_sync(0xffffffffu, sm, 4);
-          sm += __shfl_xor_sync(0xffffffffu, sm, 8);
-          sm += __shfl_xor_sync(0xffffffffu, sm, 16);
-          s.pw[c][w][g][4 * tig + i] = p0 * ew[0];
-          s.pw[c][w][g + 8][4 * tig + i] = p1 * ew[1];
-          if (g == 0) {
-            s.xm[c][buf][w][4 * tig + i] = mx;
-            s.xs[c][buf][w][4 * tig + i] = sm;
-          }
-        }
+        softmax_partials(acc, qv, valid, ew, s.pw[c][w], s.xm[c][buf][w], s.xs[c][buf][w], g,
+                         tig);
       } else {
         // the warp's slots' e_w * p * v summed over its 16 slots: the
         // thread's 32 channel sums reduce-scattered over the 8 row groups

@@ -376,22 +376,22 @@ def test_train_loss_kernel_path_matches_eager(cuda):
     grads_close(out["fast"][1], out["eager"][1])
 
 
-def _layer_setup(cuda, cutoff_mode, k, max_ligand, n_protein, seed=0):
+def _layer_setup(cuda, cutoff_mode, k, max_ligand, n_protein, seed=0, nb=B):
     """A two-layer model at the released widths on a graph of K = k (knn) or
     max_ligand - 1 + k (hybrid), with padded protein rows (no valid
     neighbour), padded ligand slots and a one-atom ligand; one layer's
-    inputs (h, x, graph, e_w)."""
+    inputs (h, x, graph, e_w) for nb complexes (ligand sizes repeating)."""
     torch.manual_seed(seed)
     cfg = Config(dict(CONFIG, cutoff_mode=cutoff_mode, knn=k))
     model = DiffusionModel(cfg, 27, 13, device=cuda, max_protein=n_protein, max_ligand=max_ligand)
     rng = np.random.default_rng(seed)
-    pmask = np.ones((B, n_protein), bool)
+    pmask = np.ones((nb, n_protein), bool)
     pmask[0, n_protein - 6:] = False
-    sizes = np.array([max_ligand, max_ligand // 2 + 3, 1])
-    batch = from_numpy(rng.normal(size=(B, n_protein, 3)) * 4,
-                       rng.random((B, n_protein, 27)) > 0.7, pmask,
-                       rng.normal(size=(B, max_ligand, 3)) * 1.5,
-                       rng.integers(0, 13, (B, max_ligand)),
+    sizes = np.resize([max_ligand, max_ligand // 2 + 3, 1], nb)
+    batch = from_numpy(rng.normal(size=(nb, n_protein, 3)) * 4,
+                       rng.random((nb, n_protein, 27)) > 0.7, pmask,
+                       rng.normal(size=(nb, max_ligand, 3)) * 1.5,
+                       rng.integers(0, 13, (nb, max_ligand)),
                        np.arange(max_ligand)[None] < sizes[:, None], device=cuda)
     rn = model.net.refine_net
     with torch.no_grad():
@@ -474,9 +474,9 @@ def test_x2h_kernel_callers_match_plain_and_repeat(cuda, cutoff_mode, k, max_lig
 
 
 def _h2x_edge_alone(rn, h, x, nbh, mlig, e_w, n_ligand, stacks):
-    """The h2x edge launch alone (td_block_h2x) with the first layer of
-    `stacks`, on node projections from the node kernel (row0 = N - n_ligand);
-    x' with the protein rows of x."""
+    """The h2x edge launch alone (td_block_h2x, or td_block_h2x_bf16 for bf16
+    stacks) with the first layer of `stacks`, on node projections from the
+    node kernel (row0 = N - n_ligand); x' with the protein rows of x."""
     from targetdiff_tpu_torch.ops.rbf import gaussian_smearing_offsets
 
     B_, N = h.shape[:2]
@@ -486,11 +486,12 @@ def _h2x_edge_alone(rn, h, x, nbh, mlig, e_w, n_ligand, stacks):
     x, ew = x.contiguous(), e_w.contiguous()
     idx, nmask, ml = nbh.idx.contiguous(), nbh.mask.contiguous(), mlig.contiguous()
     out = x.clone()
-    kblock.build.check(kblock._entries()["td_block_h2x"](
+    name = kblock.entry("td_block_h2x", stacks["w_node"].dtype)
+    kblock.build.check(kblock._entries()[name](
         x.data_ptr(), idx.data_ptr(), nmask.data_ptr(), ml.data_ptr(), ew.data_ptr(),
         ni.data_ptr(), nj.data_ptr(), q.data_ptr(), offsets.data_ptr(), coeff,
         kblock._pass_structs(stacks, 1)[0], B_, N, K, N - n_ligand, out.data_ptr(),
-        kblock.build.stream_ptr(h.device)), "td_block_h2x")
+        kblock.build.stream_ptr(h.device)), name)
     return out
 
 
@@ -1165,6 +1166,92 @@ def test_bf16_x2h_mma_kernel_takes_any_k_and_repeats(cuda, cutoff_mode, k, max_l
     bf16_close("h", runs[0], want[torch.bfloat16], want[torch.float32], node_mask)
     empty = ~nbh.mask.any(-1)
     assert bool(empty.any()) and torch.equal(runs[0][empty], h[empty])
+
+
+@pytest.mark.parametrize("cutoff_mode,k,max_ligand,n_protein",
+                         LAYER_CASES + [("hybrid", 32, 225, 40)])
+def test_bf16_h2x_mma_kernel_takes_any_k_and_repeats(cuda, cutoff_mode, k, max_ligand,
+                                                     n_protein):
+    """The bf16 h2x edge kernel (csrc/h2x_edge_bf16.cuh) through the
+    per-layer entry at K = 8, 32, 95, 159 and kMaxLayerK = 256: against the
+    bf16 plain layer, two launches bitwise equal, ligand-tail rows without a
+    valid neighbour and every row outside the ligands x bitwise."""
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+
+    _, _, rn, h, x, node_mask, mlig, nbh, e_w = _layer_setup(cuda, cutoff_mode, k, max_ligand,
+                                                              n_protein, seed=5)
+    layer = rn.base_block[0]
+    with torch.no_grad():
+        _, ph = kel.pack_layer_params(layer, torch.bfloat16)
+        runs = [kel.h2x_layer_cuda(h, x, nbh, mlig, e_w, max_ligand, ph, torch.bfloat16)
+                for _ in range(2)]
+        want = {d: kel.h2x_layer_plain(layer, h, x, nbh, mlig, e_w, d)
+                for d in (torch.bfloat16, torch.float32)}
+    torch.cuda.synchronize()
+    assert torch.equal(*runs)
+    bf16_close("x", runs[0], want[torch.bfloat16], want[torch.float32], mlig)
+    tail = torch.arange(h.shape[1], device=cuda) >= h.shape[1] - max_ligand
+    empty = tail & ~nbh.mask.any(-1)
+    assert bool(empty.any()) and torch.equal(runs[0][empty], x[empty])
+    assert torch.equal(runs[0][~mlig], x[~mlig])
+
+
+# (cutoff mode, k, ligand slots, protein slots, complexes) of the sampling
+# path's h2x launches at the example pocket's size: kNN B=4 and B=100 (N =
+# 608, K = 32) and the hybrid graph (N = 640, K = 95)
+H2X_SAMPLING_CASES = {"knn_B4": ("knn", 32, 32, 576, 4), "knn_B100": ("knn", 32, 32, 576, 100),
+                      "hybrid_K95": ("hybrid", 32, 64, 576, 4)}
+
+
+@pytest.mark.parametrize("case", list(H2X_SAMPLING_CASES))
+def test_bf16_h2x_mma_kernel_at_the_sampling_shapes(cuda, case):
+    """The bf16 h2x edge launch alone (td_block_h2x_bf16) at the sampling
+    path's shapes against the bf16 plain layer: two launches bitwise equal
+    and equal to the per-layer entry's, ligand-tail rows without a valid
+    neighbour x bitwise."""
+    from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
+
+    cutoff_mode, k, max_ligand, n_protein, nb = H2X_SAMPLING_CASES[case]
+    _, _, rn, h, x, node_mask, mlig, nbh, e_w = _layer_setup(cuda, cutoff_mode, k, max_ligand,
+                                                              n_protein, seed=6, nb=nb)
+    layer = rn.base_block[0]
+    with torch.no_grad():
+        _, ph = kel.pack_layer_params(layer, torch.bfloat16)
+        runs = [_h2x_edge_alone(rn, h, x, nbh, mlig, e_w, max_ligand, ph) for _ in range(2)]
+        layer_run = kel.h2x_layer_cuda(h, x, nbh, mlig, e_w, max_ligand, ph, torch.bfloat16)
+        want = {d: kel.h2x_layer_plain(layer, h, x, nbh, mlig, e_w, d)
+                for d in (torch.bfloat16, torch.float32)}
+    torch.cuda.synchronize()
+    assert torch.equal(*runs) and torch.equal(runs[0], layer_run)
+    bf16_close("x", runs[0], want[torch.bfloat16], want[torch.float32], mlig)
+    tail = torch.arange(h.shape[1], device=cuda) >= h.shape[1] - max_ligand
+    empty = tail & ~nbh.mask.any(-1)
+    assert bool(empty.any()) and torch.equal(runs[0][empty], x[empty])
+    assert torch.equal(runs[0][~mlig], x[~mlig])
+
+
+@pytest.mark.parametrize("k", [8, 32])
+def test_bf16_h2x_kernel_callers_repeat(cuda, k):
+    """The bf16 h2x edge kernel through its block callers at K <= 32: the
+    inference block and the train-mode block forward, each run twice
+    bitwise equal, against their bf16 plain versions on x."""
+    _, _, rn, h, x, node_mask, mlig, nbh, e_w = _layer_setup(cuda, "knn", k, NL, NP_, seed=5)
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        blocks = [kblock.block_denoiser(rn, h, x, nbh, mlig, n_ligand=NL, dtype=bf16)
+                  for _ in range(2)]
+        want = {d: rn.block_forward(h, x, nbh, mlig, dtype=d) for d in (bf16, torch.float32)}
+        x2h, h2x = kblock.pack_pass_params(rn, bf16)
+        trains = [kblock.block_denoiser_train_cuda(rn, h, x, nbh, mlig, e_w, NL, x2h, h2x, bf16)
+                  for _ in range(2)]
+        twant = {d: kblock.block_denoiser_train_plain(rn, h, x, nbh, mlig, e_w, d)
+                 for d in (bf16, torch.float32)}
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*blocks))
+    bf16_close("x", blocks[0][1], want[bf16][1], want[torch.float32][1], mlig)
+    assert all(torch.equal(a, b) for a, b in zip(*trains))
+    ml = mlig[None].expand(trains[0][1].shape[0] - 1, -1, -1)
+    bf16_close("xck", trains[0][1][1:], twant[bf16][1][1:], twant[torch.float32][1][1:], ml)
 
 
 def test_bf16_node_and_edge_weight_kernels_match_plain(cuda):

@@ -12,7 +12,8 @@ the unchanged kernel first and last. A stage is taken out by skipping its
 loop or its instruction, so that its cost goes and nothing else changes
 much; the results of those copies are wrong and only their times are read.
 The `mma_*` variants patch the tensor-core x2h kernel of csrc/x2h_edge_bf16
-.cuh; the others the bf16 instantiation of csrc/x2h_edge.cuh's
+.cuh and the pieces it shares with the bf16 h2x pass in csrc/edge_mma.cuh;
+the others the bf16 instantiation of csrc/x2h_edge.cuh's
 x2h_edge_kernel (the bf16 kernel before it: give --base a checkout that has
 it). Each prints one JSON line: the device ms per launch of the bf16 x2h
 edge launch alone (`chip_smoke.pass_launcher`, td_block_x2h_bf16, layer 0
@@ -31,7 +32,7 @@ from pathlib import Path
 import variant_harness as vh
 from variant_harness import patch
 
-OLD, COMMON, NEW = "x2h_edge.cuh", "tc_common.cuh", "x2h_edge_bf16.cuh"
+OLD, COMMON, NEW, MMA = "x2h_edge.cuh", "tc_common.cuh", "x2h_edge_bf16.cuh", "edge_mma.cuh"
 
 # the old kernel's stages (tc_common.cuh: chunk_geometry, chunk_half; x2h_edge.cuh)
 GATHER = """    if ((vmask >> slot) & 1u)
@@ -51,10 +52,10 @@ def old(target, old_text, new_text):
     return (target, lambda s: patch(s, old_text, new_text))
 
 
-# the wgmma kernel's stages (x2h_edge_bf16.cuh)
+# the wgmma kernel's stages (x2h_edge_bf16.cuh, edge_mma.cuh)
 END = "    if (rows[0] < 0) break;\n"
 NJ = "      const float2 b = src[r] < 0 ? make_float2(0.f, 0.f)\n"
-FIRST_MMA = ("        for (int ks = 0; ks < kT1KSteps; ++ks) wgmma_ss(acc, desc_ks(da, ks), "
+FIRST_MMA = ("  for (int ks = 0; ks < kT1KSteps; ++ks) wgmma_ss(acc, desc_ks(da, ks), "
              "desc_ks(db, ks), ks);\n")
 SECOND_MMA = "        for (int ks = 0; ks < H / 16; ++ks) wgmma_rs(acc, fr[ks], desc_ks(db, ks), ks);\n"
 MMA_RBF = ("    rb[r] = g.et < 0 ? 0 : __bfloat16_as_ushort(__float2bfloat16_rn(expf(in.coeff * d * "
@@ -71,9 +72,7 @@ PREFETCH_L2 = """  if (g.jn >= 0)
       asm volatile("prefetch.global.L2 [%0];" ::"l"(in.nj + g.jn * H2 + 32 * l));
 """
 NS_LOAD = "      node_sums(ns, in, crow < 0 ? nullptr : T.ni[pos], src, kv, tig);\n"
-NS_ADDED = """          acc[4 * nt + 2 * r + 1] += ns[r][nt].y;
-        }
-"""
+NS_ADDED = "      add_node_sums(acc, ns);\n"
 
 
 def _prefetch_v(s: str) -> str:
@@ -90,17 +89,21 @@ VARIANTS = {
     # no first-layer or second-layer products (the LayerNorm kept alive),
     # no RBF expf in the producer
     "mma_producer_only": old(NEW, END, END + "    mbar_arrive(&s.empty[c][st]);\n    continue;\n"),
-    "mma_no_nj": old(NEW, NJ, "      const float2 b = true ? make_float2(0.f, 0.f)\n"),
-    "mma_no_first_layer": old(NEW, FIRST_MMA, ""),
+    "mma_no_nj": old(MMA, NJ, "      const float2 b = true ? make_float2(0.f, 0.f)\n"),
+    "mma_no_first_layer": old(MMA, FIRST_MMA, ""),
     "mma_no_second_layer": old(NEW, SECOND_MMA, "        for (int ks = 0; ks < H / 16; ++ks)\n"
                                "          for (int i = 0; i < 4; ++i) acc[4 * ks + i] += "
                                "__uint_as_float(fr[ks][i]);\n"),
-    "mma_no_rbf": old(NEW, MMA_RBF, "    rb[r] = (unsigned short)r;\n"),
+    "mma_no_rbf": old(MMA, MMA_RBF, "    rb[r] = (unsigned short)r;\n"),
     # alternatives: the register split 40 / 232 (producer / consumers); the
     # producer prefetching each valid slot's nj row into L2; the v half's
     # ni + nj loaded during the k half (with the 40 / 232 split)
     "mma_regs_232": old(NEW, REGS, REGS_232),
-    "mma_prefetch_l2": old(NEW, SRC_STORE, PREFETCH_L2 + SRC_STORE),
+    # the register splits that took the bf16 h2x pass's producer out of spill
+    # (h2x_bf16_variants.py): 96 / 200 and 128 / 184
+    "mma_regs_96_200": old(NEW, REGS, "constexpr int kProducerRegs = 96, kConsumerRegs = 200;"),
+    "mma_regs_128_184": old(NEW, REGS, "constexpr int kProducerRegs = 128, kConsumerRegs = 184;"),
+    "mma_prefetch_l2": old(MMA, SRC_STORE, PREFETCH_L2 + SRC_STORE),
     "mma_prefetch_v_232": (None, None),
     # three consumer warpgroups (152 registers each), one ring stage and one
     # producer warp each (the shared memory of two stages does not fit)
