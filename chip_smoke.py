@@ -5,6 +5,8 @@
     python3 chip_smoke.py profile [hybrid|knn|block|train] [BATCH] [bf16]
     python3 chip_smoke.py duel [CHECKOUT]
     python3 chip_smoke.py margins [CHECKOUT]
+    python3 chip_smoke.py cone
+    python3 chip_smoke.py host [CHECKOUT] [STEPS]
     python3 chip_smoke.py gate [STEPS] [N_MOLS]
     python3 chip_smoke.py ddim [STEPS] [N_MOLS]
     python3 chip_smoke.py prop-gate [EPOCHS] [DIFF_STEPS]
@@ -95,6 +97,15 @@ within 2e-2 of scale, logits five bf16 ulps), V1's
 bf16 train step beside float32's, and the train CLI with --dtype bf16 on V1
 (the bf16 model trained eagerly, a float32 checkpoint).
 
+[cone], after [forward], holds the sampler's dependency cone
+(need_full_h=False, the last block computing only the rows a ligand output
+reads) at kNN B=4 and B=100: `cone_kernel` bit for bit against its plain
+version, the block kernels on the cone's row lists against the all-live
+block kernels (x and ligand h bit for bit, float32 and bf16), timed layer
+by layer, and one sampling step under torch.cuda.set_sync_debug_mode(
+"error") with one cone call; [sample] and the other sampling and
+likelihood paths count one cone call a forward.
+
 Sampling's default precision is bf16, as the JAX package's: the phases above
 that hold the kernels to float32-grade bars ([forward], [sample],
 [ddim-sample], [hybrid-sample], [embedding], the train CLI's sampling) pass
@@ -155,10 +166,13 @@ and one h2x call at the hybrid shape with their kernels' device time, the
 backwards' kernels' device time, 50 kNN and 50 hybrid sampling steps,
 the B=32 `fast` and `fast_pl` train steps, and in bf16 the node launch
 and the x2h and h2x edge launches alone at kNN B=4 and B=100 (with
-digests), the per-layer x2h and h2x at the hybrid shape, 10 kNN B=100
-sampling steps (device time, node_kernel's and the edge kernels' shares)
-and the B=32 `fast_bf16` step (device time, node_kernel's share) of the
-port found in
+digests), the per-layer x2h and h2x at the hybrid shape, the sampler's
+forward's ligand outputs and of the embedding export (digests, both
+precisions, kNN B=4 and B=100),
+1000 kNN B=4 bf16 sampling steps, 10 kNN B=100 sampling steps in bf16 and
+float32 (device time, node_kernel's, the edge kernels' and cone_kernel's
+shares, the x2h edge and node launches one by one) and the B=32
+`fast_bf16` step (device time, node_kernel's share) of the port found in
 CHECKOUT (this checkout by default), through entry points
 every version of the port since the per-layer slice has: run it once per
 checkout, in turns, within one call,
@@ -166,7 +180,15 @@ to compare two versions on one card. `margins` gives the gradient margins
 of [train-block] and of [layers]' hybrid backwards (against the plain
 float32 versions and against float64, worst tensor of each) of CHECKOUT on
 those phases' inputs. Each prints one JSON line that starts with the card's
-name and power limit.
+name and power limit. `cone` runs [cone] alone (below). `host` times STEPS
+(default 1000) kNN DDPM steps of B=4 molecules in bf16, the default
+sampling precision, of CHECKOUT's port by the host clock, and the forward
+alone with every row and on the dependency cone in turns within the
+process (`forward_host_ms`), and, for a checkout with the cone, STEPS
+steps with and without it in turns (`cone_step_rounds`; one JSON line, as
+`duel`): run it for two
+checkouts in turns, several times, within one call; the host-bound step
+moves more between processes than between versions.
 
 `gate` runs the port's quality gate in full (default 12000 `fast` train
 steps of the flagship on the synthetic corpus, then 256 molecules of 32
@@ -802,6 +824,7 @@ def main(argv) -> int:
     from targetdiff_tpu_torch.ops import graph as G
     from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
     from targetdiff_tpu_torch.ops.kernels import build
+    from targetdiff_tpu_torch.ops.kernels import cone as kcone
     from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
     from targetdiff_tpu_torch.ops.kernels import knn as kknn
     from targetdiff_tpu_torch.sampling import sample_diffusion_ligand
@@ -939,10 +962,11 @@ def main(argv) -> int:
     fwd_v_err = check_close("forward logits", fk["pred_ligand_v"][lmv], fp["pred_ligand_v"][lmv],
                             **H_TOL)
     phase("forward", max_abs_err_pos=fwd_pos_err, max_abs_err_logits=fwd_v_err)
+    cone = cone_phase(torch, dev, model, pocket, feat.feature_dim)
 
     # 5. sample through the port's entry point
     steps = model.num_timesteps
-    kknn.LAUNCHES = 0
+    kknn.LAUNCHES = kcone.LAUNCHES = 0
     kblock.LAUNCHES = kblock.EW_LAUNCHES = 0
     t0 = time.perf_counter()
     res = sample_diffusion_ligand(
@@ -951,9 +975,12 @@ def main(argv) -> int:
         rng=np.random.default_rng(2), dtype=torch.float32)
     wall = time.perf_counter() - t0
     knn_launches, block_launches, ew_launches = kknn.LAUNCHES, kblock.LAUNCHES, kblock.EW_LAUNCHES
-    if knn_launches == 0 or block_launches == 0 or ew_launches != block_launches:
+    cone_launches = kcone.LAUNCHES
+    if (knn_launches == 0 or block_launches == 0 or ew_launches != block_launches
+            or cone_launches != block_launches):
         raise AssertionError(f"sampling did not launch the kernels (knn {knn_launches}, "
-                             f"block {block_launches}, edge weights {ew_launches})")
+                             f"block {block_launches}, edge weights {ew_launches}, "
+                             f"cone {cone_launches})")
     for pos, v in zip(res["pos"], res["v"]):
         if pos.shape != (len(v), 3) or not np.isfinite(pos).all():
             raise AssertionError("sampling produced a non-finite or misshaped molecule")
@@ -970,7 +997,7 @@ def main(argv) -> int:
     phase("sample", samples=B, steps=steps, ligand_atoms=sizes, seconds=sample_s,
           wall_seconds=wall, ms_per_step=1e3 * sample_s / steps, mol_per_s=B / sample_s,
           knn_launches=knn_launches, block_launches=block_launches, ew_launches=ew_launches,
-          max_centroid_offset_A=dist, reconstructed=f"{len(rebuilt)}/{B}")
+          cone_launches=cone_launches, max_centroid_offset_A=dist, reconstructed=f"{len(rebuilt)}/{B}")
     eval_phase(res)
     ddim_launches = ddim_sample_phase(torch, dev, model, pocket, batch, 1e3 * sample_s / steps)
     like_launches = likelihood_phase(torch, dev, model)
@@ -1033,6 +1060,12 @@ def main(argv) -> int:
          "plain_ms": block_plain_ms, **block_bound, **by_path("block"),
          "launches_dp_sample_rank0": dp["block"]["sample"],
          "h2x_passes_embedding": embed_launches["h2x_pass"], **no_library},
+        {"name": "cone_kernel", "route": "cuda", "source": "targetdiff_tpu_torch/csrc/cone.cu",
+         "replaces": "targetdiff_tpu/ops/pallas/block_denoiser.py:154",
+         "flags_of": "targetdiff_tpu/ops/pallas/block_denoiser.py:711",
+         "launches": cone_launches, **by_path("cone"),
+         "launches_bf16_sample": bf16["launches"]["knn"]["cone"],
+         "launches_dp_sample_rank0": dp["cone"]["sample"], **cone, **no_library},
         {"name": "block_denoiser.ew", "route": "cuda",
          "source": "targetdiff_tpu_torch/csrc/block_denoiser.cu",
          "replaces": "targetdiff_tpu/ops/pallas/block_denoiser.py:319", "launches": ew_launches,
@@ -1078,6 +1111,180 @@ def main(argv) -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def launch_device_ms(torch, fn, piece, calls=3) -> list:
+    """Device ms of each launch of the kernels whose name holds `piece` in
+    one call of fn, in launch order, the mean over `calls` traced calls after
+    one warm-up call."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return per_launch_ms(prof, piece, calls)
+
+
+def per_launch_ms(prof, piece, calls) -> list:
+    """From a trace of `calls` equal calls: the device ms of each launch of
+    the kernels whose name holds `piece` within a call, in launch order,
+    averaged over the calls; None where the trace lost a launch (its count
+    not a multiple of `calls`)."""
+    from torch.autograd import DeviceType
+
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and piece in e.name),
+                 key=lambda e: e.time_range.start)
+    if len(evs) % calls:
+        return None
+    n = len(evs) // calls
+    return [float(np.mean([evs[c * n + i].time_range.elapsed_us() for c in range(calls)])) / 1e3
+            for i in range(n)]
+
+
+CONE_B = (4, 100)  # [cone]: the example pocket 4 and 100 times (kNN, N = 608, K = 32)
+
+
+def cone_phase(torch, dev, model, pocket, feat_dim) -> dict:
+    """[cone]: the sampler's dependency cone (need_full_h=False) at kNN B=4
+    and B=100. `cone_kernel` against its plain version (hop, order, counts)
+    bit for bit, two calls equal, timed beside its bytes bound, the plain
+    version and the stable torch.argsort of the hops; the live rows of each
+    layer (x2h: hop <= L - l; node: hop <= L - l + 1; the h2x pass's
+    sources: hop <= 1). In float32 and bf16: the block kernels on the
+    cone's row lists against the all-live block kernels, x and the ligand
+    rows of h bitwise equal, two launches bitwise equal, both timed (CUDA
+    events and device ms, the x2h edge launches and node launches layer by
+    layer); the forward's ligand outputs (need_full_h=False against True)
+    bitwise equal; one `sample_step` under torch.cuda.set_sync_debug_mode(
+    "error") (no host synchronisation) with one cone call, L x2h and L h2x
+    pass launches and 2L node launches. Returns the kernels line's fields
+    of `cone_kernel` (B=4; B=100 under b100_)."""
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+    from targetdiff_tpu_torch.ops.kernels import cone as kcone
+    from targetdiff_tpu_torch.ops.kernels import knn as kknn
+
+    rn = model.net.refine_net
+    L = FLAGSHIP["num_layers"]
+    fields = {}
+    for nb in CONE_B:
+        batch = pocket_batch(torch, dev, pocket, feat_dim, MAX_LIGAND,
+                             LIGAND_SIZES * (nb // len(LIGAND_SIZES)), 0)
+        with torch.no_grad():
+            h, x, node_mask, mlig = model.net.embed(*batch)
+        nbh = kknn.knn_graph_cuda(x, node_mask, K)
+        rows = h.shape[0] * h.shape[1]
+        calls = kcone.LAUNCHES
+        got = [kcone.cone_cuda(nbh.idx, nbh.mask, MAX_LIGAND, L) for _ in range(2)]
+        want = kcone.cone_plain(nbh.idx, nbh.mask, MAX_LIGAND, L)
+        torch.cuda.synchronize()
+        if kcone.LAUNCHES - calls != 2:
+            raise AssertionError(f"cone B={nb}: {kcone.LAUNCHES - calls} counted calls, want 2")
+        err = max(float((a.long() - w.long()).abs().max()) for a, w in zip(got[0], want))
+        if err != 0 or not all(torch.equal(a, b) for a, b in zip(*got)):
+            raise AssertionError(f"cone B={nb}: cone_kernel differs from its plain version "
+                                 f"(max abs err {err}) or between two calls")
+        cone = got[0]
+        counts = cone.counts.tolist()
+        if counts[0] != nb * MAX_LIGAND:
+            raise AssertionError(f"cone B={nb}: {counts[0]} rows of hop 0, want "
+                                 f"{nb * MAX_LIGAND}")
+        f = {"max_abs_err": err,
+             "ms": cuda_ms(torch, lambda: kcone.cone_cuda(nbh.idx, nbh.mask, MAX_LIGAND, L)),
+             "device_ms": device_ms(torch, lambda: kcone.cone_cuda(nbh.idx, nbh.mask,
+                                                                   MAX_LIGAND, L)),
+             "plain_ms": cuda_ms(torch, lambda: kcone.cone_plain(nbh.idx, nbh.mask, MAX_LIGAND,
+                                                                 L)),
+             "argsort_ms": cuda_ms(torch, lambda: torch.argsort(cone.hop.reshape(-1),
+                                                                stable=True)),
+             # one comparison a slot; the neighbour lists read, hop, order and
+             # counts written once
+             **bound(np.array([0, nbh.idx.numel()]),
+                     nbytes(nbh.idx, nbh.mask, cone.hop, cone.order, cone.counts)),
+             "rows": rows,
+             "live_x2h": [counts[L - l] / rows for l in range(L)],
+             "live_node": [counts[L - l + 1] / rows for l in range(L)],
+             "live_h2x_sources": counts[1] / rows}
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            packed = kblock.pack_block_params(rn, dtype)
+
+            def block(c=None):
+                return kblock.block_denoiser_cuda(rn, h, x, nbh, mlig, MAX_LIGAND, packed,
+                                                  dtype=dtype, cone=c)
+
+            with torch.no_grad():
+                h_all, x_all = block()
+                runs = [block(cone) for _ in range(2)]
+                full = model.fast_apply(batch, batch.ligand_pos, batch.ligand_v, packed=packed,
+                                        dtype=dtype)
+                part = model.fast_apply(batch, batch.ligand_pos, batch.ligand_v, packed=packed,
+                                        dtype=dtype, need_full_h=False)
+            torch.cuda.synchronize()
+            lig = slice(MAX_PROTEIN, None)
+            if not (all(torch.equal(a, b) for a, b in zip(*runs))
+                    and torch.equal(runs[0][1], x_all)
+                    and torch.equal(runs[0][0][:, lig], h_all[:, lig])):
+                raise AssertionError(f"cone B={nb} {tag}: the cone block's x or ligand h differ "
+                                     "from the all-live block's, or two launches differ")
+            keys = ("pred_ligand_pos", "pred_ligand_v", "final_ligand_h")
+            if not all(torch.equal(part[k], full[k]) for k in keys):
+                raise AssertionError(f"cone B={nb} {tag}: the forward's ligand outputs differ "
+                                     "with need_full_h=False")
+            with torch.no_grad():
+                f[f"{tag}_block_ms"] = cuda_ms(torch, lambda: block(cone), reps=10)
+                f[f"{tag}_block_all_live_ms"] = cuda_ms(torch, block, reps=10)
+                f[f"{tag}_block_device_ms"] = device_ms(torch, lambda: block(cone), calls=5)
+                f[f"{tag}_block_all_live_device_ms"] = device_ms(torch, block, calls=5)
+                for label, fn in (("", lambda: block(cone)), ("_all_live", block)):
+                    f[f"{tag}_x2h_edge_per_layer{label}"] = launch_device_ms(torch, fn,
+                                                                             "x2h_edge")
+                    node = launch_device_ms(torch, fn, "node_kernel") or [None, None]
+                    f[f"{tag}_node_x2h_pass_per_layer{label}"] = node[0::2]
+                    f[f"{tag}_node_h2x_pass_per_layer{label}"] = node[1::2]
+            f[f"{tag}_ligand_digest"] = digest(torch, *(part[k] for k in keys))
+        fields["b4" if nb == B else "b100"] = f
+        phase(f"cone B={nb}", shape=f"B={nb},N={h.shape[1]},K={K},L={L}", bitwise=True,
+              **{k: v for k, v in f.items()})
+    # a sampling step (bf16, the default precision, and float32) with no host
+    # synchronisation: one cone call, the passes and node launches unchanged
+    batch = pocket_batch(torch, dev, pocket, feat_dim, MAX_LIGAND, LIGAND_SIZES, 3)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    noise = torch.randn(batch.ligand_pos.shape, generator=gen, device=dev)
+    uniform = torch.rand(batch.ligand_v.shape + (NUM_CLASSES,), generator=gen, device=dev)
+    steps = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        packed = kblock.pack_block_params(rn, dtype)
+        with torch.no_grad():
+            model.sample_step(batch, batch.ligand_pos, batch.ligand_v, 500, noise, uniform,
+                              packed=packed, dtype=dtype)  # warm: the kernels' library loaded
+        torch.cuda.synchronize()
+        passes = (("BF16_X2H_PASS_LAUNCHES", "BF16_H2X_PASS_LAUNCHES") if tag == "bf16"
+                  else ("X2H_PASS_LAUNCHES", "H2X_PASS_LAUNCHES"))
+        before = (kcone.LAUNCHES, *(getattr(kblock, a) for a in passes),
+                  sum(kblock.node_launch_counts()))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.no_grad():
+                pos, v = model.sample_step(batch, batch.ligand_pos, batch.ligand_v, 500, noise,
+                                           uniform, packed=packed, dtype=dtype)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        after = (kcone.LAUNCHES, *(getattr(kblock, a) for a in passes),
+                 sum(kblock.node_launch_counts()))
+        counted = [b - a for a, b in zip(before, after)]
+        if counted != [1, L, L, 2 * L] or not bool(pos.isfinite().all()):
+            raise AssertionError(f"cone step {tag}: launches (cone, x2h, h2x, node) {counted}, "
+                                 f"want [1, {L}, {L}, {2 * L}], or non-finite positions")
+        steps[tag] = counted
+    phase("cone step", sync_debug_mode="error", launches_cone_x2h_h2x_node=steps)
+    return {**fields["b4"], **{f"b100_{k}": v for k, v in fields["b100"].items()}}
 
 
 def bf16_kernel_entries(bf16: dict, dp: dict) -> list:
@@ -1297,12 +1504,13 @@ def gate_short_phase(torch, dev) -> None:
     its checks need not pass."""
     from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
     from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
+    from targetdiff_tpu_torch.ops.kernels import cone as kcone
     from targetdiff_tpu_torch.ops.kernels import knn as kknn
     from targetdiff_tpu_torch.ops.kernels import weight_grad as kwg
     from targetdiff_tpu_torch.tools import quality_gate as qg
 
     kknn.LAUNCHES = kblock.LAUNCHES = kblock.EW_LAUNCHES = kblock.TRAIN_LAUNCHES = 0
-    kblock.BF16_LAUNCHES = kblock.BF16_EW_LAUNCHES = 0
+    kblock.BF16_LAUNCHES = kblock.BF16_EW_LAUNCHES = kcone.LAUNCHES = 0
     kvjp.LAUNCHES = kvjp.NODE_BWD_LAUNCHES = kvjp.ADJ_LAUNCHES = 0
     kwg.LAUNCHES.update(dict.fromkeys(kwg.LAUNCHES, 0))
     node_since = kblock.node_launch_counts()
@@ -1312,7 +1520,7 @@ def gate_short_phase(torch, dev) -> None:
     wall = time.perf_counter() - t0
     launches = {"knn": kknn.LAUNCHES, "block": kblock.LAUNCHES, "ew": kblock.EW_LAUNCHES,
                 "block_bf16": kblock.BF16_LAUNCHES, "ew_bf16": kblock.BF16_EW_LAUNCHES,
-                "train_fwd": kblock.TRAIN_LAUNCHES, "vjp": kvjp.LAUNCHES,
+                "cone": kcone.LAUNCHES, "train_fwd": kblock.TRAIN_LAUNCHES, "vjp": kvjp.LAUNCHES,
                 "node_bwd": kvjp.NODE_BWD_LAUNCHES, "adj": kvjp.ADJ_LAUNCHES,
                 "weight_grad": dict(kwg.LAUNCHES),
                 **dict(zip(("node", "node_bf16"),
@@ -1322,7 +1530,7 @@ def gate_short_phase(torch, dev) -> None:
     # node launches: training's forward and recompute, both passes (float32);
     # sampling's two passes a layer (bf16)
     want = {"knn": steps + sampling, "block": 0, "ew": 0, "block_bf16": sampling,
-            "ew_bf16": sampling, "train_fwd": steps, "node": 4 * L * steps,
+            "ew_bf16": sampling, "cone": sampling, "train_fwd": steps, "node": 4 * L * steps,
             "node_bf16": 2 * L * sampling,
             "vjp": steps, "node_bwd": 2 * L * steps, "adj": 2 * steps,
             "weight_grad": {"x2h_edge": 3 * L * steps, "h2x_edge": 3 * L * steps,
@@ -1354,26 +1562,30 @@ def gate_short_phase(torch, dev) -> None:
 def path_launches() -> dict:
     """The counts of the kernels of the likelihood and embedding paths."""
     from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+    from targetdiff_tpu_torch.ops.kernels import cone as kcone
     from targetdiff_tpu_torch.ops.kernels import knn as kknn
 
     return {"knn": kknn.LAUNCHES, "block": kblock.LAUNCHES, "ew": kblock.EW_LAUNCHES,
-            "x2h_pass": kblock.X2H_PASS_LAUNCHES, "h2x_pass": kblock.H2X_PASS_LAUNCHES}
+            "x2h_pass": kblock.X2H_PASS_LAUNCHES, "h2x_pass": kblock.H2X_PASS_LAUNCHES,
+            "cone": kcone.LAUNCHES}
 
 
 def reset_path_launches() -> None:
     from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+    from targetdiff_tpu_torch.ops.kernels import cone as kcone
     from targetdiff_tpu_torch.ops.kernels import knn as kknn
 
-    kknn.LAUNCHES = kblock.LAUNCHES = kblock.EW_LAUNCHES = 0
+    kknn.LAUNCHES = kblock.LAUNCHES = kblock.EW_LAUNCHES = kcone.LAUNCHES = 0
     kblock.X2H_PASS_LAUNCHES = kblock.H2X_PASS_LAUNCHES = 0
 
 
 def path_want(calls: int, h2x_calls: int) -> dict:
     """The launches of `calls` kNN-graph forwards on the whole-block kernels
-    (one block of L layers), `h2x_calls` of them with positions updated."""
+    (one block of L layers), `h2x_calls` of them with positions updated:
+    those (sampling, likelihood: need_full_h=False) each run one cone."""
     L = FLAGSHIP["num_layers"]
     return {"knn": calls, "block": calls, "ew": calls, "x2h_pass": L * calls,
-            "h2x_pass": L * h2x_calls}
+            "h2x_pass": L * h2x_calls, "cone": h2x_calls}
 
 
 def likelihood_phase(torch, dev, model) -> dict:
@@ -2462,11 +2674,13 @@ def bf16_sample_phase(torch, dev, model, hmodel, pocket, f32_ms, hybrid_f32_ms,
     zero; molecules finite, in the vocabulary and near the pocket; ms per
     step beside the float32 runs' of the same call. Returns the launches."""
     from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+    from targetdiff_tpu_torch.ops.kernels import cone as kcone
     from targetdiff_tpu_torch.ops.kernels import edge_layer as kel
     from targetdiff_tpu_torch.ops.kernels import knn as kknn
     from targetdiff_tpu_torch.sampling import sample_diffusion_ligand
 
-    names = {"knn": (kknn, "LAUNCHES"), "block": (kblock, "LAUNCHES"),
+    names = {"knn": (kknn, "LAUNCHES"), "cone": (kcone, "LAUNCHES"),
+             "block": (kblock, "LAUNCHES"),
              "ew": (kblock, "EW_LAUNCHES"), "x2h_pass": (kblock, "X2H_PASS_LAUNCHES"),
              "h2x_pass": (kblock, "H2X_PASS_LAUNCHES"), "x2h_layer": (kel, "X2H_LAUNCHES"),
              "h2x_layer": (kel, "H2X_LAUNCHES"), "block_bf16": (kblock, "BF16_LAUNCHES"),
@@ -2497,8 +2711,8 @@ def bf16_sample_phase(torch, dev, model, hmodel, pocket, f32_ms, hybrid_f32_ms,
         want = dict.fromkeys(launches, 0)
         want["node_bf16"] = 2 * L * steps  # one a pass: x2h and h2x, each layer
         if cutoff == "knn":
-            want.update(knn=steps, block_bf16=steps, ew_bf16=steps, x2h_pass_bf16=L * steps,
-                        h2x_pass_bf16=L * steps)
+            want.update(knn=steps, cone=steps, block_bf16=steps, ew_bf16=steps,
+                        x2h_pass_bf16=L * steps, h2x_pass_bf16=L * steps)
         else:
             want.update(x2h_layer_bf16=L * steps, h2x_layer_bf16=L * steps)
         if launches != want:
@@ -3786,19 +4000,22 @@ def bf16_train_phases(torch, dev, rn, h, x, nbh, mask_ligand, node_mask, pocket,
 
 
 def measure(torch, argv) -> int:
-    """The `profile`, `duel` and `margins` modes (module docstring)."""
+    """The `profile`, `duel`, `margins`, `cone` and `host` modes (module docstring)."""
     bf16 = argv[0] == "profile" and argv[-1] == "bf16"
     if bf16:
         argv = argv[:-1]
     what, arg = argv[0], (argv[1:] or [None])[0]
     sized = what == "profile" and arg in ("hybrid", "knn") and len(argv) == 3
-    if what not in ("profile", "duel", "margins") or len(argv) > (3 if sized else 2) or (
+    if what not in ("profile", "duel", "margins", "cone", "host") or len(argv) > (
+            3 if sized or what == "host" else 2) or (what == "cone" and len(argv) > 1) or (
+            what == "host" and len(argv) == 3 and not argv[2].isdigit()) or (
             what == "profile" and arg not in (None, "hybrid", "knn", "block", "train")) or (
             sized and not argv[2].isdigit()) or (bf16 and arg not in (None, "hybrid", "knn")):
         raise SystemExit("usage: chip_smoke.py [profile [hybrid|knn|block|train] [BATCH] "
-                         "[bf16] | duel [CHECKOUT] | margins [CHECKOUT]]")
+                         "[bf16] | duel [CHECKOUT] | margins [CHECKOUT] | cone | "
+                         "host [CHECKOUT] [STEPS]]")
     batch = int(argv[2]) if sized else B
-    checkout = Path(arg).resolve() if what in ("duel", "margins") and arg else REPO
+    checkout = Path(arg).resolve() if what in ("duel", "margins", "host") and arg else REPO
     sys.path.insert(0, str(checkout))
     from targetdiff_tpu_torch.cli.sample_for_pocket import pdb_to_pocket_data
     from targetdiff_tpu_torch.config import Config
@@ -3845,6 +4062,15 @@ def measure(torch, argv) -> int:
 
     if what == "duel":
         out = duel(torch, dev, setup, pocket, feat.feature_dim)
+    elif what == "cone":
+        out = cone_phase(torch, dev, setup("knn")[0], pocket, feat.feature_dim)
+    elif what == "host":
+        steps = int(argv[2]) if len(argv) == 3 else 1000
+        model, sample16 = setup("knn", B, torch.bfloat16)
+        sample16(3, 1)  # warm up
+        out = {"batch": B, "steps": steps, "bf16_ms_per_step": sample16(steps, 1),
+               **forward_host_ms(torch, dev, model, pocket, feat.feature_dim),
+               **cone_step_rounds(torch, sample16, steps)}
     elif what == "margins":
         out = margins(torch, dev, pocket, feat.feature_dim, check=False)
     elif arg == "block":
@@ -3856,6 +4082,83 @@ def measure(torch, argv) -> int:
         out["dtype"] = str(precision.get("dtype", torch.float32))
     print(json.dumps({"card": card_name(), "checkout": str(checkout), what: out}), flush=True)
     return 0
+
+
+def forward_host_ms(torch, dev, model, pocket, feat_dim, calls=200, rounds=5) -> dict:
+    """ms per call of the bf16 kNN B=4 forward (`fast_apply`, as sampling
+    calls it) with every row (need_full_h=True, the default) and, where the
+    checkout has the option, on the dependency cone, in turns within this
+    process: `rounds` rounds of `calls` calls each, a synchronisation after
+    each round; the median round of each. At B=4 the forward is host-bound,
+    so this is its host cost."""
+    from targetdiff_tpu_torch.ops.kernels import block_denoiser as kblock
+
+    batch = pocket_batch(torch, dev, pocket, feat_dim, MAX_LIGAND, LIGAND_SIZES, 0)
+    packed = kblock.pack_block_params(model.net.refine_net, torch.bfloat16)
+    variants = {"every_row": {}}
+    if "need_full_h" in inspect.signature(model.fast_apply).parameters:
+        variants["cone"] = {"need_full_h": False}
+    rounds_ms = {k: [] for k in variants}
+    with torch.no_grad():
+        for _ in range(rounds):
+            for name, kw in variants.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    model.fast_apply(batch, batch.ligand_pos, batch.ligand_v, packed=packed,
+                                     dtype=torch.bfloat16, **kw)
+                torch.cuda.synchronize()
+                rounds_ms[name].append(1e3 * (time.perf_counter() - t0) / calls)
+    return {**{f"forward_{k}_ms": float(np.median(v)) for k, v in rounds_ms.items()},
+            "forward_rounds_ms": rounds_ms}
+
+
+def cone_step_rounds(torch, sample, steps, rounds=3) -> dict:
+    """ms per DDPM step (`sample(steps, seed)`, host clock) with the sampler's
+    dependency cone and with every row (the checkout's `block_cone` replaced
+    by one that returns no cone), in turns within this process, and the
+    garbage collector's full collections in each run; {} for a checkout
+    without the cone."""
+    import gc
+
+    from targetdiff_tpu_torch.models import fast_forward as ff
+
+    if not hasattr(ff, "block_cone"):
+        return {}
+    real = ff.block_cone
+    runs = {"cone": [], "every_row": []}
+    full = {"cone": [], "every_row": []}
+    traced = {}
+    try:
+        for _ in range(rounds):
+            for name in runs:
+                ff.block_cone = real if name == "cone" else (lambda *a, **k: None)
+                gen2 = gc.get_stats()[2]["collections"]
+                runs[name].append(sample(steps, 1))
+                full[name].append(gc.get_stats()[2]["collections"] - gen2)
+        for name in runs:
+            ff.block_cone = real if name == "cone" else (lambda *a, **k: None)
+            traced[name] = traced_steps(torch, sample)
+    finally:
+        ff.block_cone = real
+    return {**{f"step_{k}_ms": float(np.median(v)) for k, v in runs.items()},
+            "step_rounds_ms": runs, "step_rounds_full_gc": full, "step_traced": traced}
+
+
+def traced_steps(torch, sample, steps=20) -> dict:
+    """`steps` sampling steps under torch.profiler: device ms a step, and the
+    host operators with the most self time a step (ms, calls a step)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        host_ms = sample(steps, 1)
+    ops = sorted(((ev.key, ev.self_cpu_time_total / 1e3 / steps, ev.count / steps)
+                  for ev in prof.key_averages() if ev.self_cpu_time_total > 0),
+                 key=lambda o: -o[1])
+    return {"host_ms": host_ms,
+            "device_ms": sum(k["ms"] for k in device_times(prof, steps).values()),
+            "host_self_ms": sum(o[1] for o in ops), "top_host_ops": ops[:12]}
 
 
 def device_times(prof, calls) -> dict:
@@ -3873,9 +4176,11 @@ def device_times(prof, calls) -> dict:
     return dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"]))
 
 
-def profile(torch, sample, cutoff, batch) -> dict:
+def profile(torch, sample, cutoff, batch, per_launch=()) -> dict:
     """Device time by kernel over 10 traced sampling steps, beside the host
-    time of the same 10 steps run just before without the profiler."""
+    time of the same 10 steps run just before without the profiler; for
+    each name piece in `per_launch`, the device ms of each launch of its
+    kernels within a step, in launch order (`per_launch_ms`)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -3889,7 +4194,11 @@ def profile(torch, sample, cutoff, batch) -> dict:
     return {"cutoff": cutoff, "batch": batch, "steps": steps, "host_ms_per_step": host_ms,
             "traced_host_ms_per_step": traced_host_ms, "device_ms_per_step": device_ms,
             "idle_share_estimate": 1 - device_ms / host_ms,
-            "kernels_per_step": dict(list(kernels.items())[:25])}
+            "kernels_per_step": dict(list(kernels.items())[:25]),
+            "cone_kernel_ms_per_step": sum(k["ms"] for name, k in kernels.items()
+                                           if "cone_kernel" in name),
+            **{f"{piece}_per_launch_ms": per_launch_ms(prof, piece, steps)
+               for piece in per_launch}}
 
 
 # kernels of the `fast` train step by name: (row, pieces of the profiler's
@@ -4188,9 +4497,14 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
     and h2x edge launches and the node launch (both passes:
     `bf16_node_duel`, `bf16_h2x_duel`) alone at kNN B=4 and B=100 and the
     per-layer x2h and h2x at the hybrid shape (their edge kernel's and
-    node_kernel's device time), each with a digest of its output; 10 kNN
-    B=100 sampling steps in bf16 (`profile`: host and device ms per step,
-    node_kernel's and the x2h and h2x edge kernels' device ms) and the B=32 `fast_bf16` and
+    node_kernel's device time), each with a digest of its output; digests of
+    the sampler's forward's ligand outputs (`fast_apply(need_full_h=False)`
+    where the checkout has it: the dependency cone) at kNN B=4 and B=100 in
+    both precisions and of `fetch_embedding` (every output); 1000 kNN B=4
+    sampling steps in bf16 (host clock); 10 kNN
+    B=100 sampling steps in bf16 and in float32 (`profile`: host and device
+    ms per step, node_kernel's, the x2h and h2x edge kernels' and
+    cone_kernel's device ms, the x2h edge and node launches one by one) and the B=32 `fast_bf16` and
     `fast` steps (`step_fields`: host ms over 10 steps after 3; device ms,
     node_kernel's and edge_bwd_kernel's over 3); the quality gate's float32
     `fast` step at its own padding."""
@@ -4315,17 +4629,43 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
         out.update(bf16_h2x_duel(torch, kblock, pass_launcher(
             torch, kblock, h, x, nbh, mlig, xl16.tensors[0].ew, bph, MAX_LIGAND, bf16=True),
             "b4"))
+        # the sampler's forward (need_full_h=False where the tree has it: the
+        # dependency cone) at kNN B=4 and B=100: digests of its ligand outputs
+        cone_kw = ({"need_full_h": False}
+                   if "need_full_h" in inspect.signature(model.fast_apply).parameters else {})
+        for label, sizes in (("b4", [MAX_LIGAND] * B), ("b100", LIGAND_SIZES * 25)):
+            fb = pocket_batch(torch, dev, pocket, feat_dim, MAX_LIGAND, sizes, 0)
+            for tag, pk, dt in (("f32", packed, torch.float32), ("bf16", bpacked, bf16)):
+                pred = model.fast_apply(fb, fb.ligand_pos, fb.ligand_v, packed=pk, dtype=dt,
+                                        **cone_kw)
+                out[f"sampler_forward_{tag}_{label}_ligand_digest"] = digest(
+                    torch, pred["pred_ligand_pos"], pred["pred_ligand_v"],
+                    pred["final_ligand_h"])
+            # the embedding export (every row: final_h too)
+            out[f"embedding_{label}_digest"] = digest(torch, model.fetch_embedding(fb, impl="fast"))
     sample(3, 1)  # warm up
     out["sample_ms_per_step"] = sample(50, 1)
-    # the kNN B=100 sampling step in bf16 (the default precision): host and
-    # device ms per step, node_kernel's device ms per step
-    step100 = profile(torch, setup("knn", 100, torch.bfloat16)[1], "knn", 100)
-    out.update(bf16_knn_b100_step_host_ms=step100["host_ms_per_step"],
-               bf16_knn_b100_step_device_ms=step100["device_ms_per_step"],
-               **{f"bf16_knn_b100_{name}_device_ms_per_step": sum(
-                   v["ms"] for k, v in step100["kernels_per_step"].items() if piece in k)
-                  for name, piece in (("node", "node_kernel"), ("x2h_edge", "x2h_edge"),
-                                      ("h2x_edge", "h2x_edge"))})
+    # the kNN B=4 sampling step in bf16 (the default precision) over 1000
+    # steps, host clock
+    sample16 = setup("knn", B, torch.bfloat16)[1]
+    sample16(3, 1)
+    out["bf16_sample_ms_per_step_1000"] = sample16(1000, 1)
+    # the kNN B=100 sampling step in bf16 and in float32: host and device ms
+    # per step, node_kernel's, the edge kernels' and cone_kernel's device ms
+    # per step, and the x2h edge and node launches one by one (layer order;
+    # node: the x2h pass's, then the h2x pass's, each layer)
+    for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        step100 = profile(torch, setup("knn", 100, dt)[1], "knn", 100,
+                          per_launch=("x2h_edge", "node_kernel"))
+        out.update({f"{tag}_knn_b100_step_host_ms": step100["host_ms_per_step"],
+                    f"{tag}_knn_b100_step_device_ms": step100["device_ms_per_step"],
+                    f"{tag}_knn_b100_cone_device_ms_per_step": step100["cone_kernel_ms_per_step"],
+                    f"{tag}_knn_b100_x2h_edge_per_launch_ms": step100["x2h_edge_per_launch_ms"],
+                    f"{tag}_knn_b100_node_per_launch_ms": step100["node_kernel_per_launch_ms"],
+                    **{f"{tag}_knn_b100_{name}_device_ms_per_step": sum(
+                        v["ms"] for k, v in step100["kernels_per_step"].items() if piece in k)
+                       for name, piece in (("node", "node_kernel"), ("x2h_edge", "x2h_edge"),
+                                           ("h2x_edge", "h2x_edge"))}})
 
     hmodel, hsample = setup("hybrid")
     hrn = hmodel.net.refine_net
@@ -5268,8 +5608,10 @@ def prop_gate_short_phase(torch, dev) -> None:
 DP_WORLD = 2  # [dp-train], [dp-sample]: ranks of the data-parallel dry run
 # the launches of one rank: one `fast` train step, and 20 DDPM steps of its rows
 # (sampling at its default precision, bf16: the bf16 block kernels)
-DP_TRAIN_WANT = {"knn": 1, "block": 0, "block_bf16": 0, "block_train": 1, "block_vjp": 1}
-DP_SAMPLE_WANT = {"knn": 20, "block": 0, "block_bf16": 20, "block_train": 0, "block_vjp": 0}
+DP_TRAIN_WANT = {"knn": 1, "block": 0, "block_bf16": 0, "cone": 0, "block_train": 1,
+                 "block_vjp": 1}
+DP_SAMPLE_WANT = {"knn": 20, "block": 0, "block_bf16": 20, "cone": 20, "block_train": 0,
+                  "block_vjp": 0}
 
 
 def dp_phases(torch, pocket) -> dict:

@@ -9,9 +9,12 @@
 // LayerNorm statistics, softmax, h and x float32).
 //
 // Replaces: targetdiff_tpu/ops/pallas/block_denoiser.py:_block_kernel
-// (block_denoiser) with every tile live, in inference mode (the edge-weight
-// MLP in the kernel) and in train mode (edge weights given, per-layer
-// checkpoints of h and x written for the backward, block_vjp.cu). It computes what
+// (block_denoiser) in inference mode (the edge-weight MLP in the kernel;
+// every row live, or through the *_list entries the rows of the sampler's
+// dependency cone, cone.cu: JAX's need_full_h=False with per-layer tile
+// flags, at row granularity) and in train mode (edge weights given,
+// per-layer checkpoints of h and x written for the backward, block_vjp.cu,
+// every row live). It computes what
 // that kernel computes, not its TPU encodings: neighbours are read with
 // native gathers instead of one-hot matmuls, and the softmax over K is
 // max-shifted instead of clipped.
@@ -39,7 +42,10 @@
 //                second layers staged in shared memory, four pipelines per
 //                block each taking one row's chunk of 32 edges per step as
 //                the M of the tensor-core products, an online softmax over a
-//                row's chunks; writes h' for every row. The bf16 entries run
+//                row's chunks; writes h' for every row, or for a row list
+//                (the cone's rows of the layer: the node launch before it
+//                then covers their sources, the h2x pass's node launch the
+//                ligand rows and their sources). The bf16 entries run
 //                x2h_edge_mma_kernel instead (x2h_edge_bf16.cuh: a producer
 //                warpgroup, two wgmma consumer warpgroups, 64-slot tiles).
 //   h2x_edge_kernel  per layer (h2x_edge.cuh): persistent blocks whose four
@@ -350,6 +356,17 @@ int block_x2h(const float* h, const float* x, const int64_t* idx, const bool* nm
 }
 
 template <bool kBf16>
+int block_x2h_list(const float* h, const float* x, const int64_t* idx, const bool* nmask,
+                   const bool* mlig, const float* ew, const float* ni, const float* nj,
+                   const float* q, const float* offsets, float coeff, const PassParams& p, int B,
+                   int N, int K, const int* order, const int* count, float* h_out,
+                   cudaStream_t s) {
+  if (order == nullptr || count == nullptr) return (int)cudaErrorInvalidValue;
+  const EdgeInputs in{x, idx, nmask, mlig, ew, ni, nj, offsets, coeff};
+  return launch_x2h<kBf16>(h, in, q, p, B, N, K, h_out, s, order, count);
+}
+
+template <bool kBf16>
 int block_h2x(const float* x, const int64_t* idx, const bool* nmask, const bool* mlig,
               const float* ew, const float* ni, const float* nj, const float* q,
               const float* offsets, float coeff, const PassParams& p, int B, int N, int K,
@@ -403,6 +420,21 @@ extern "C" int td_block_node_rows_bf16(const float* h, int B, int N, int row0, P
   return launch_node<true>(h, B, N, row0, p, ni, nj, q, q1, (cudaStream_t)stream);
 }
 
+// The node projections of a row list (the sampler's dependency cone): ni and
+// q of rows order[0, *dst), nj of rows order[0, *src), row numbers b*N + i of
+// h's `rows` rows, the counts read on the device; the rest left as they were.
+extern "C" int td_block_node_list(const float* h, int rows, const int* order, const int* dst,
+                                  const int* src, PassParams p, float* ni, float* nj, float* q,
+                                  void* stream) {
+  return launch_node_list(h, rows, order, dst, src, p, ni, nj, q, (cudaStream_t)stream);
+}
+
+extern "C" int td_block_node_list_bf16(const float* h, int rows, const int* order,
+                                       const int* dst, const int* src, PassParams p, float* ni,
+                                       float* nj, float* q, void* stream) {
+  return launch_node_list<true>(h, rows, order, dst, src, p, ni, nj, q, (cudaStream_t)stream);
+}
+
 // The x2h edge pass alone (any K <= kMaxLayerK; the block path passes K <= 32).
 // x2h updates every row: row0 must be 0 (the argument keeps the entry's
 // signature that of td_block_h2x and of earlier builds).
@@ -422,6 +454,28 @@ extern "C" int td_block_x2h_bf16(const float* h, const float* x, const int64_t* 
                                  int K, int row0, float* h_out, void* stream) {
   return block_x2h<true>(h, x, idx, nmask, mlig, ew, ni, nj, q, offsets, coeff, p, B, N, K,
                          row0, h_out, (cudaStream_t)stream);
+}
+
+// The x2h edge pass on a row list, rows order[0, *count) (row numbers b*N +
+// i; the count read on the device): the rows off the list are not written.
+extern "C" int td_block_x2h_list(const float* h, const float* x, const int64_t* idx,
+                                 const bool* nmask, const bool* mlig, const float* ew,
+                                 const float* ni, const float* nj, const float* q,
+                                 const float* offsets, float coeff, PassParams p, int B, int N,
+                                 int K, const int* order, const int* count, float* h_out,
+                                 void* stream) {
+  return block_x2h_list<false>(h, x, idx, nmask, mlig, ew, ni, nj, q, offsets, coeff, p, B, N, K,
+                               order, count, h_out, (cudaStream_t)stream);
+}
+
+extern "C" int td_block_x2h_list_bf16(const float* h, const float* x, const int64_t* idx,
+                                      const bool* nmask, const bool* mlig, const float* ew,
+                                      const float* ni, const float* nj, const float* q,
+                                      const float* offsets, float coeff, PassParams p, int B,
+                                      int N, int K, const int* order, const int* count,
+                                      float* h_out, void* stream) {
+  return block_x2h_list<true>(h, x, idx, nmask, mlig, ew, ni, nj, q, offsets, coeff, p, B, N, K,
+                              order, count, h_out, (cudaStream_t)stream);
 }
 
 // The h2x edge pass alone on the rows [row0, N) of each complex (any

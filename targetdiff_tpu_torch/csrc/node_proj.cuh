@@ -53,6 +53,13 @@
 //    get only nj: the ni and q groups walk rows [row0, N) of each complex,
 //    their outputs elsewhere left as they were. The h2x pass reads ni and q
 //    only on its destination (ligand) rows, nj on every row.
+//  * Row lists (NodeRows, the sampler's dependency cone, cone.cu): the ni
+//    and q groups walk rows order[0, *dst), nj rows order[0, *src), the
+//    counts read on the device; each block deals the card's slots (the
+//    blocks it holds at once) to the groups from the counts as node_deal
+//    does, on a grid of slots + 3 (a deal's most: each group gets at least
+//    one block), the blocks past the deal leaving at once. A row's
+//    arithmetic is the same whichever tile or block takes it.
 //  * Every output is computed by one warpgroup in a fixed order, without
 //    atomics: two launches give the same bits.
 #pragma once
@@ -246,11 +253,36 @@ __device__ __forceinline__ void node_store(const float (&acc)[64], const long lo
 // group's two 128-column weights once, then each of its warpgroups walks the
 // group's 64-row tiles (ni and q: rows [row0, N) of each complex; nj: every
 // row) with the stride of the group's warpgroups.
+// A row list: the ni and q groups take rows order[0, *dst), the nj group
+// rows order[0, *src) (device counts), slots blocks dealt to them; order
+// null: the rows of (B, N, row0).
+struct NodeRows {
+  const int* order;
+  const int* dst;
+  const int* src;
+  long long slots;
+};
+
+// Blocks for each group: as many as give each of a group's warpgroups one
+// tile, but no more than the group's share, by tiles, of the blocks the card
+// holds at once (`slots`; at least one a group).
+__host__ __device__ inline void node_deal(long long tiles_dst, long long tiles_all,
+                                          int warpgroups, long long slots, int (&nb)[3]) {
+  const long long tiles[3] = {tiles_dst, tiles_all, tiles_dst};
+  const long long total = 2 * tiles_dst + tiles_all;
+  for (int gi = 0; gi < 3; ++gi) {
+    const long long want = (tiles[gi] + warpgroups - 1) / warpgroups;
+    long long share = total > 0 ? slots * tiles[gi] / total : 0;
+    if (share < 1) share = 1;
+    nb[gi] = (int)(want < share ? want : share);
+  }
+}
+
 template <bool kBf16>
 __global__ void __launch_bounds__(NodeMma<kBf16>::kThreads, NodeMma<kBf16>::kBlocksPerSm)
 node_kernel(const float* __restrict__ h, int B, int N, int row0, PassParams p,
             float* __restrict__ ni, float* __restrict__ nj, float* __restrict__ q,
-            float* __restrict__ q1, int nb0, int nb1) {
+            float* __restrict__ q1, int nb0, int nb1, NodeRows list) {
   using M = NodeMma<kBf16>;
   constexpr int kT = M::kTerms;
   extern __shared__ __align__(128) unsigned char node_wg_smem_raw[];
@@ -258,24 +290,33 @@ node_kernel(const float* __restrict__ h, int B, int N, int row0, PassParams p,
   const int t = threadIdx.x, wg = t >> 7, w = (t >> 5) & 3, lane = t & 31;
   const int g = lane >> 2, tig = lane & 3;
 
-  int grp, j = blockIdx.x, nbg;
-  if (j < nb0) {
-    grp = 0;
-    nbg = nb0;
-  } else if ((j -= nb0) < nb1) {
-    grp = 1;
-    nbg = nb1;
-  } else {
-    j -= nb1;
-    grp = 2;
-    nbg = gridDim.x - nb0 - nb1;
-  }
+  // the rows of each group: a list's counts, or the complexes' rows
   const int nd = N - row0;
-  const long long nrows = grp == 1 ? (long long)B * N : (long long)B * nd;
+  const long long ndst = list.order ? (long long)*list.dst : (long long)B * nd;
+  const long long nsrc = list.order ? (long long)*list.src : (long long)B * N;
+  int nb[3] = {nb0, nb1, (int)gridDim.x - nb0 - nb1};
+  if (list.order)
+    node_deal((ndst + kNodeRows - 1) / kNodeRows, (nsrc + kNodeRows - 1) / kNodeRows,
+              M::kWarpgroups, list.slots, nb);
+  int grp, j = blockIdx.x, nbg;  // constant indices keep nb in registers
+  if (j < nb[0]) {
+    grp = 0;
+    nbg = nb[0];
+  } else if ((j -= nb[0]) < nb[1]) {
+    grp = 1;
+    nbg = nb[1];
+  } else if ((j -= nb[1]) < nb[2]) {
+    grp = 2;
+    nbg = nb[2];
+  } else {
+    return;  // past the deal (row lists)
+  }
+  const long long nrows = grp == 1 ? nsrc : ndst;
   const int tiles = (int)((nrows + kNodeRows - 1) / kNodeRows);
   auto node_of = [&](int tile, int r) -> long long {  // node b*N + i of the tile's row r; -1 past the end
     const long long u = (long long)tile * kNodeRows + r;
     if (u >= nrows) return -1;
+    if (list.order) return list.order[u];
     return grp == 1 ? u : u / nd * N + row0 + u % nd;
   };
   // the thread's rows 16 w + g (+ 8) of a tile: columns 16 ks + 4 tig .. + 3
@@ -412,19 +453,22 @@ node_kernel(const float* __restrict__ h, int B, int N, int row0, PassParams p,
   }
 }
 
-// Blocks for each group: as many as give each of a group's warpgroups one
-// tile, but no more than the group's share, by tiles, of the blocks the card
-// holds at once (`slots`; at least one a group).
-inline void node_deal(long long tiles_dst, long long tiles_all, int warpgroups, long long slots,
-                      int (&nb)[3]) {
-  const long long tiles[3] = {tiles_dst, tiles_all, tiles_dst};
-  const long long total = 2 * tiles_dst + tiles_all;
-  for (int gi = 0; gi < 3; ++gi) {
-    const long long want = (tiles[gi] + warpgroups - 1) / warpgroups;
-    long long share = slots * tiles[gi] / total;
-    if (share < 1) share = 1;
-    nb[gi] = (int)(want < share ? want : share);
+// The blocks of node_kernel<kBf16> the card holds at once (0: an error,
+// in err).
+template <bool kBf16>
+long long node_slots(int& err) {
+  using M = NodeMma<kBf16>;
+  static long long slots = 0;
+  err = 0;
+  if (slots == 0) {
+    int n_sm = 0, per_sm = 0;
+    if ((err = sm_count(node_kernel<kBf16>, (int)sizeof(typename M::Smem), n_sm))) return 0;
+    if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, node_kernel<kBf16>, M::kThreads, sizeof(typename M::Smem))))
+      return 0;
+    slots = (long long)n_sm * (per_sm > 0 ? per_sm : 1);
   }
+  return slots;
 }
 
 // ni, nj, q (and q1, if not null) of the B x N rows of h; with row0 > 0 the
@@ -437,21 +481,37 @@ int launch_node(const float* h, int B, int N, int row0, const PassParams& p, flo
   if (B <= 0 || N <= 0 || row0 < 0 || row0 >= N) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)h | (uintptr_t)p.w_node | (uintptr_t)p.w_q2) & 15)
     return (int)cudaErrorMisalignedAddress;
-  static long long slots = 0;  // blocks the card holds at once
-  if (slots == 0) {
-    int n_sm = 0, per_sm = 0;
-    if (int err = sm_count(node_kernel<kBf16>, (int)sizeof(typename M::Smem), n_sm)) return err;
-    if (int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, node_kernel<kBf16>, M::kThreads, sizeof(typename M::Smem)))
-      return err;
-    slots = (long long)n_sm * (per_sm > 0 ? per_sm : 1);
-  }
+  int err = 0;
+  const long long slots = node_slots<kBf16>(err);
+  if (err) return err;
   int nb[3];
   node_deal(((long long)B * (N - row0) + kNodeRows - 1) / kNodeRows,
             ((long long)B * N + kNodeRows - 1) / kNodeRows, M::kWarpgroups, slots, nb);
   node_kernel<kBf16><<<nb[0] + nb[1] + nb[2], M::kThreads, sizeof(typename M::Smem), s>>>(
-      h, B, N, row0, p, ni, nj, q, q1, nb[0], nb[1]);
-  const int err = (int)cudaGetLastError();
+      h, B, N, row0, p, ni, nj, q, q1, nb[0], nb[1], NodeRows{nullptr, nullptr, nullptr, 0});
+  err = (int)cudaGetLastError();
+  if (!err) ++(kBf16 ? node_bf16_launch_count : node_launch_count);
+  return err;
+}
+
+// ni and q of the rows order[0, *dst), nj of the rows order[0, *src) (row
+// numbers b*N + i of h's `rows` rows; device counts, *dst <= *src <= rows),
+// the rest left as they were.
+template <bool kBf16 = false>
+int launch_node_list(const float* h, long long rows, const int* order, const int* dst,
+                     const int* src, const PassParams& p, float* ni, float* nj, float* q,
+                     cudaStream_t s) {
+  using M = NodeMma<kBf16>;
+  if (rows <= 0 || rows >= (1ll << 31) || !order || !dst || !src)
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)h | (uintptr_t)p.w_node | (uintptr_t)p.w_q2) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  int err = 0;
+  const long long slots = node_slots<kBf16>(err);
+  if (err) return err;
+  node_kernel<kBf16><<<(int)slots + 3, M::kThreads, sizeof(typename M::Smem), s>>>(
+      h, 1, (int)rows, 0, p, ni, nj, q, nullptr, 0, 0, NodeRows{order, dst, src, slots});
+  err = (int)cudaGetLastError();
   if (!err) ++(kBf16 ? node_bf16_launch_count : node_launch_count);
   return err;
 }

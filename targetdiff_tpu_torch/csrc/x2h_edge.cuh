@@ -28,9 +28,12 @@
 //    each walking one row at a time, one 32-slot chunk per step: while one
 //    runs its products on the tensor cores the others' gathers, first
 //    layers and LayerNorms run. Rows are dealt round-robin to the grid's
-//    pipelines. A pipeline takes its row's live chunks (those with a valid
-//    edge) one per step; a row without one is copied (out = h) and costs no
-//    step. Skipping a dead chunk is exact: its attention weights are zero.
+//    pipelines: all B x N rows, or a row list (rows order[0, *count), the
+//    sampler's dependency cone, cone.cu, the count read on the device; the
+//    rows off the list are not written). A pipeline takes its row's live
+//    chunks (those with a valid edge) one per step; a row without one is
+//    copied (out = h) and costs no step. Skipping a dead chunk is exact:
+//    its attention weights are zero.
 //  * One walk with an online softmax: a chunk's k half, then its v half,
 //    each from one gather, first-layer and LayerNorm pass into a 17 KB
 //    activation buffer. Warp qd owns heads 4 qd .. 4 qd + 3 in both halves,
@@ -67,7 +70,8 @@ struct X2hSmem {
 
 __global__ void __launch_bounds__(kX2hThreads, 1)
 x2h_edge_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restrict__ qn,
-                PassParams p, int B, int N, int K, float* __restrict__ out) {
+                PassParams p, int B, int N, int K, const int* __restrict__ order,
+                const int* __restrict__ count, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char x2h_smem_raw[];
   X2hSmem& s = *reinterpret_cast<X2hSmem*>(x2h_smem_raw);
   const int t = threadIdx.x, lane = t & 31;
@@ -81,8 +85,10 @@ x2h_edge_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restr
 
   // warp 0 of each pipeline walks its rows: cursor, its live chunks not yet
   // taken; the next chunk's slot loads (take) and geometry (settle).
-  // Row r is destination node r = b*N + i.
-  const long long total = (long long)B * N;
+  // Walk position u is destination node u = b*N + i, or order[u] with a
+  // row list.
+  const long long total = count ? (long long)*count : (long long)B * N;
+  const auto node = [order](long long u) { return order ? (long long)order[u] : u; };
   const long long stride = (long long)gridDim.x * kX2hLanes;
   long long cur = (long long)blockIdx.x * kX2hLanes + l;
   unsigned todo = 0;
@@ -92,16 +98,17 @@ x2h_edge_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restr
   EdgeSlot slot{false, 0, 0.f};
   auto next_row = [&]() {
     cur += stride;
-    todo = cur < total ? live_chunks(in.nmask, cur, K, lane) : 0;
+    todo = cur < total ? live_chunks(in.nmask, node(cur), K, lane) : 0;
     fresh = true;
   };
   auto take = [&]() {  // the next live chunk; a row without a valid edge keeps h
     while (cur < total && todo == 0) {
-      reinterpret_cast<float4*>(out + cur * H)[lane] =
-          reinterpret_cast<const float4*>(h + cur * H)[lane];
+      const long long bn = node(cur);
+      reinterpret_cast<float4*>(out + bn * H)[lane] =
+          reinterpret_cast<const float4*>(h + bn * H)[lane];
       next_row();
     }
-    nbn = cur < total ? cur : -1;
+    nbn = cur < total ? node(cur) : -1;
     slot = load_slot(in, nbn, K, (cur < total ? (__ffs(todo) - 1) * KC : K) + lane);
     nfirst = fresh;
     nlast = (todo & (todo - 1)) == 0;
@@ -123,7 +130,7 @@ x2h_edge_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restr
     }
   };
   if (qd == 0) {
-    if (cur < total) todo = live_chunks(in.nmask, cur, K, lane);
+    if (cur < total) todo = live_chunks(in.nmask, node(cur), K, lane);
     take();
     settle();
   }
@@ -253,20 +260,24 @@ x2h_edge_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restr
   }
 }
 
-// out = x2h(h) on every row, for any K <= kMaxLayerK; kBf16: bf16 products,
-// on the wgmma kernel of x2h_edge_bf16.cuh.
+// out = x2h(h) for any K <= kMaxLayerK, on every row or (order non-null)
+// on the rows order[0, *count); kBf16: bf16 products, on the wgmma kernel
+// of x2h_edge_bf16.cuh.
 template <bool kBf16 = false>
 int launch_x2h(const float* h, const EdgeInputs& in, const float* q, const PassParams& p, int B,
-               int N, int K, float* out, cudaStream_t s) {
+               int N, int K, float* out, cudaStream_t s, const int* order = nullptr,
+               const int* count = nullptr) {
+  if ((order == nullptr) != (count == nullptr)) return (int)cudaErrorInvalidValue;
   if constexpr (kBf16) {
-    return launch_x2h_mma(h, in, q, p, B, N, K, out, s);
+    return launch_x2h_mma(h, in, q, p, B, N, K, order, count, out, s);
   } else {
     if (B <= 0 || N <= 0 || K <= 0 || K > kMaxLayerK) return (int)cudaErrorInvalidValue;
     static int n_sm = 0;
     if (int err = sm_count(x2h_edge_kernel, (int)sizeof(X2hSmem), n_sm)) return err;
     const long long steps = ((long long)B * N + kX2hLanes - 1) / kX2hLanes;
     const int grid = (int)(steps < n_sm ? steps : n_sm);
-    x2h_edge_kernel<<<grid, kX2hThreads, sizeof(X2hSmem), s>>>(h, in, q, p, B, N, K, out);
+    x2h_edge_kernel<<<grid, kX2hThreads, sizeof(X2hSmem), s>>>(h, in, q, p, B, N, K, order,
+                                                                count, out);
     return (int)cudaGetLastError();
   }
 }

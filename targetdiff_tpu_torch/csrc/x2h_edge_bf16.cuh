@@ -37,10 +37,12 @@
 //    operands (K-major, 8x8 core matrices, no swizzle): the first layer
 //    [w_et; w_rbf] of each half (96 x 128, 24 KB) and the second layers
 //    (128 x 128, 32 KB each).
-//  * Rows are dealt round-robin to the grid's consumers; a consumer takes
-//    its rows' live chunks (32 slots with a valid edge) two at a time, a
-//    64-slot tile (two rows, or two chunks of one row at K > 32; a dead
-//    chunk costs nothing). Its two producer warps, alternating tiles, walk
+//  * Rows are dealt round-robin to the grid's consumers (all B x N rows,
+//    or a row list: rows order[0, *count), the sampler's dependency cone,
+//    cone.cu, the count read on the device; the rows off the list are not
+//    written); a consumer takes its rows' live chunks (32 slots with a
+//    valid edge) two at a time, a 64-slot tile (two rows, or two chunks of
+//    one row at K > 32; a dead chunk costs nothing). Its two producer warps, alternating tiles, walk
 //    the same rows 32 at a time, copy h to out for a row without a live
 //    chunk, and fill a two-stage ring per consumer on mbarriers: per slot
 //    its source, e_w and validity, the tile's A operand [one-hot type | type
@@ -118,24 +120,26 @@ __device__ __forceinline__ void stage_x2h_tables(X2hMmaSmem& s, const PassParams
 
 // Producer warp pw (0..3) of the block: it feeds consumer pw / kFeeders the
 // tiles j with j % kFeeders == pw % kFeeders, into ring stage j %
-// kMmaStages. A consumer's producer warps walk the same rows, 32 at a time
+// kMmaStages. Walk position u is row u, or order[u] for u < *count with a
+// row list. A consumer's producer warps walk the same rows, 32 at a time
 // (lane i reads the live chunks of the window's row i); the first copies h
 // to out for rows without a live chunk. A tile's slots are loaded before its
 // stage is waited for; each chunk's ni and q rows are copied with cp.async.
 // The tile after the last is an end marker (no chunk).
 __device__ __forceinline__ void x2h_producer(X2hMmaSmem& s, const float* __restrict__ h,
                                              const EdgeInputs& in, const float* __restrict__ qn,
-                                             int B, int N, int K, float* __restrict__ out, int pw,
-                                             int lane) {
+                                             int B, int N, int K, const int* __restrict__ order,
+                                             const int* __restrict__ count,
+                                             float* __restrict__ out, int pw, int lane) {
   const int c = pw / kFeeders, q = pw % kFeeders;
   if (c >= kMmaConsumers) return;
-  const auto node = [](long long u) { return u; };
+  const auto node = [order](long long u) { return order ? (long long)order[u] : u; };
   const auto dead = [&](long long bn) {  // h to out for a row without a live chunk
     if (q == 0)
       reinterpret_cast<float4*>(out + bn * H)[lane] =
           reinterpret_cast<const float4*>(h + bn * H)[lane];
   };
-  ChunkWalk<decltype(node)> walk{in.nmask, node, (long long)B * N,
+  ChunkWalk<decltype(node)> walk{in.nmask, node, count ? (long long)*count : (long long)B * N,
                                  (long long)kMmaConsumers * gridDim.x,
                                  (long long)kMmaConsumers * blockIdx.x + c, K, lane};
   walk.start(dead);
@@ -304,7 +308,8 @@ __device__ __forceinline__ void x2h_consumer(X2hMmaSmem& s, const float* __restr
 
 __global__ void __launch_bounds__(kMmaThreads, 1)
 x2h_edge_mma_kernel(const float* __restrict__ h, EdgeInputs in, const float* __restrict__ qn,
-                    PassParams p, int B, int N, int K, float* __restrict__ out) {
+                    PassParams p, int B, int N, int K, const int* __restrict__ order,
+                    const int* __restrict__ count, float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char x2h_mma_smem_raw[];
   X2hMmaSmem& s = *reinterpret_cast<X2hMmaSmem*>(x2h_mma_smem_raw);
   const int t = threadIdx.x;
@@ -324,22 +329,25 @@ x2h_edge_mma_kernel(const float* __restrict__ h, EdgeInputs in, const float* __r
   const int wg = t >> 7;
   if (wg == kMmaConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
-    x2h_producer(s, h, in, qn, B, N, K, out, (t & 127) >> 5, t & 31);
+    x2h_producer(s, h, in, qn, B, N, K, order, count, out, (t & 127) >> 5, t & 31);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
     x2h_consumer(s, h, in, out, wg, t & 127);
   }
 }
 
-// out = x2h(h) on every row with bf16 products, for any K <= kMaxLayerK.
+// out = x2h(h) with bf16 products, for any K <= kMaxLayerK, on every row or
+// (order non-null) on the rows order[0, *count).
 int launch_x2h_mma(const float* h, const EdgeInputs& in, const float* q, const PassParams& p,
-                   int B, int N, int K, float* out, cudaStream_t s) {
+                   int B, int N, int K, const int* order, const int* count, float* out,
+                   cudaStream_t s) {
   if (B <= 0 || N <= 0 || K <= 0 || K > kMaxLayerK) return (int)cudaErrorInvalidValue;
   static int n_sm = 0;
   if (int err = sm_count(x2h_edge_mma_kernel, (int)sizeof(X2hMmaSmem), n_sm)) return err;
   const long long units = ((long long)B * N + kMmaConsumers - 1) / kMmaConsumers;
   const int grid = (int)(units < n_sm ? units : n_sm);
-  x2h_edge_mma_kernel<<<grid, kMmaThreads, sizeof(X2hMmaSmem), s>>>(h, in, q, p, B, N, K, out);
+  x2h_edge_mma_kernel<<<grid, kMmaThreads, sizeof(X2hMmaSmem), s>>>(h, in, q, p, B, N, K, order,
+                                                                    count, out);
   return (int)cudaGetLastError();
 }
 

@@ -7,8 +7,14 @@ layers running on the hand-written CUDA kernels for CUDA tensors
 graph is a kernel; the hybrid graph is plain PyTorch, as it is XLA in the
 JAX package. A block runs either on the whole-block kernels (K <= 32) or on
 the per-layer kernels, whose edge weights come from the eager edge-weight
-MLP. Unlike the JAX fast paths they neither sort protein rows nor skip
-tiles: every row of every layer is computed. Both take the products'
+MLP. With need_full_h=False (the sampler's, as in the JAX package) the last
+block runs on the dependency cone of the ligand outputs (ops/kernels/
+cone.py): each layer computes only the rows a ligand output can still
+reach, so `final_h` comes back stale on the other (protein) rows and the
+ligand outputs as with every row live, bit for bit. The cone is the JAX
+package's per-layer tile flags at the granularity of rows; the port neither
+sorts protein rows nor keeps tiles, which exist there to make TPU tiles
+skippable. Both take the products'
 precision, `dtype`, float32 by default here: the sampler's default is bf16,
 as in the JAX package, and `fast_train_forward(dtype=torch.bfloat16)` is
 its bf16 training variant (`get_diffusion_loss(impl='fast_bf16' |
@@ -27,6 +33,7 @@ import torch
 from ..config import Config
 from ..ops.kernels.block_denoiser import MAX_K, PackedBlock, block_denoiser, pack_block_params
 from ..ops.kernels.block_vjp import block_layers_trainable
+from ..ops.kernels.cone import block_cone
 from ..ops.kernels.edge_layer import h2x_attention_layer, x2h_attention_layer
 from ..ops.kernels.edge_layer_vjp import h2x_layer_trainable, x2h_layer_trainable
 from ..ops.kernels.knn import knn_graph
@@ -146,7 +153,7 @@ def _graph(rn, x, node_mask, mask_ligand):
 def fast_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v,
                  ligand_mask, packed: Optional[PackedBlock] = None,
                  mode: str = "mega", fix_x: bool = False,
-                 dtype=torch.float32) -> Dict[str, torch.Tensor]:
+                 dtype=torch.float32, need_full_h: bool = True) -> Dict[str, torch.Tensor]:
     """`net` is a ScorePosNet; `packed` its refine_net's kernel weights
     for `dtype` (packed on the fly when None). mode 'mega' runs each block on the
     whole-block kernels, 'layers' on the per-layer kernels; a graph wider
@@ -157,8 +164,12 @@ def fast_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos, ligan
     products, torch.float32 or torch.bfloat16 (targetdiff_tpu/models/
     fast_forward.py's dtype); in 'mega' mode the edge-weight MLP too, in
     'layers' mode it stays the float32 eager MLP, as the JAX package's
-    layers mode. Returns pred_ligand_pos, pred_ligand_v, final_ligand_h and
-    final_h."""
+    layers mode. need_full_h=False (sampling, likelihood): the last block in
+    'mega' mode, unless fix_x, computes each layer on its dependency cone
+    (one `cone_kernel` call, then row lists), as the JAX package's
+    need_full_h=False: only the ligand outputs are valid, the protein rows
+    of `final_h` are STALE. Returns pred_ligand_pos, pred_ligand_v,
+    final_ligand_h and final_h."""
     if mode not in ("mega", "layers"):
         raise ValueError(f"mode must be 'mega' or 'layers', got {mode!r}")
     check_dtype(dtype)
@@ -178,11 +189,16 @@ def fast_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos, ligan
     if mode == "layers" and packed is None and h.device.type != "cpu":
         with torch.no_grad():
             packed = pack_block_params(rn, dtype)
-    for _ in range(rn.num_blocks):
+    for b in range(rn.num_blocks):
         nbh = _graph(rn, x, node_mask, mask_ligand)
         if mode == "mega":
+            # h between blocks feeds the next block in full: the cone is the
+            # last block's
+            cone = None
+            if not need_full_h and not fix_x and b == rn.num_blocks - 1:
+                cone = block_cone(nbh.idx, nbh.mask, n_ligand, len(rn.base_block))
             h, x = block_denoiser(rn, h, x, nbh, mask_ligand, n_ligand=n_ligand, packed=packed,
-                                  fix_x=fix_x, dtype=dtype)
+                                  fix_x=fix_x, dtype=dtype, cone=cone)
             continue
         e_w = rn.edge_weights(x, nbh)[..., 0]
         for l, layer in enumerate(rn.base_block):

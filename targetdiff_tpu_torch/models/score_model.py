@@ -264,14 +264,17 @@ class DiffusionModel:
 
     def fast_apply(self, batch: ComplexBatch, ligand_pos, ligand_v,
                    packed: Optional[PackedBlock] = None, mode: str = "mega",
-                   fix_x: bool = False, dtype=torch.bfloat16):
+                   fix_x: bool = False, dtype=torch.bfloat16, need_full_h: bool = True):
         """Kernel-backed forward (the sampling path); mode 'mega' runs the
         whole-block kernels, 'layers' the per-layer ones, fix_x=True freezes
         the coordinates, dtype the products' precision, bf16 by default as
-        the JAX package's fast_apply (see fast_forward)."""
+        the JAX package's fast_apply; need_full_h=False computes the last
+        block on the ligand outputs' dependency cone, `final_h`'s protein
+        rows then stale (see fast_forward)."""
         return fast_forward(self.net, batch.protein_pos, batch.protein_feat,
                             batch.protein_mask, ligand_pos, ligand_v, batch.ligand_mask,
-                            packed=packed, mode=mode, fix_x=fix_x, dtype=dtype)
+                            packed=packed, mode=mode, fix_x=fix_x, dtype=dtype,
+                            need_full_h=need_full_h)
 
     def get_diffusion_loss(self, batch: ComplexBatch, time_step=None, pos_noise=None,
                            v_uniform=None, generator: Optional[torch.Generator] = None,
@@ -390,7 +393,7 @@ class DiffusionModel:
             self.v_sched, log_ligand_v0, t, self.num_classes, v_uniform)
         if impl == "fast":
             preds = self.fast_apply(cbatch, ligand_pos_perturbed, ligand_v_perturbed,
-                                    dtype=torch.float32)
+                                    dtype=torch.float32, need_full_h=False)
         else:
             preds = self.apply(cbatch, ligand_pos_perturbed, ligand_v_perturbed, time_step=t)
         pos_model_mean = D.q_pos_posterior(self.pos_sched, preds["pred_ligand_pos"],
@@ -431,7 +434,8 @@ class DiffusionModel:
         kernels of `dtype` (impl='fast') or through ScorePosNet.forward
         ('eager', float32 whatever dtype says)."""
         if impl == "fast":
-            preds = self.fast_apply(cbatch, pos, v, packed=packed, dtype=dtype)
+            preds = self.fast_apply(cbatch, pos, v, packed=packed, dtype=dtype,
+                                    need_full_h=False)
         elif impl == "eager":
             preds = self.apply(cbatch, pos, v, time_step=tt)
         else:

@@ -99,12 +99,15 @@ class _EdgeAttention(nn.Module):
             return torch.sigmoid(precision.model_linear(feat, self.ew_net[0], self.model_dtype))
         return e_w if self.ew_net_type == "global" else None
 
-    def attention(self, h, r_feat, edge_feat, nbh, e_w, dtype=torch.float32):
+    def attention(self, h, r_feat, edge_feat, nbh, e_w, dtype=torch.float32, h_src=None):
+        """h_src: the rows nbh.idx names, where they are not h's own (a row
+        set's sources)."""
         B, N, H = h.shape
         K = nbh.idx.shape[-1]
         dh = H // self.n_heads
         p = self._prefix
-        parts = [r_feat, h[:, :, None, :].expand(B, N, K, H), G.gather_nodes(h, nbh.idx)]
+        parts = [r_feat, h[:, :, None, :].expand(B, N, K, H),
+                 G.gather_nodes(h if h_src is None else h_src, nbh.idx)]
         if self.edge_feat_dim > 0:
             parts.insert(0, edge_feat)
         kv_input = torch.cat(parts, dim=-1)
@@ -131,9 +134,9 @@ class BaseX2HAttLayer(_EdgeAttention):
             self.node_output = MLP(2 * hidden_dim, hidden_dim, hidden_dim, norm=norm,
                                    act_fn=act_fn, model_dtype=model_dtype)
 
-    def forward(self, h, r_feat, edge_feat, nbh, e_w, dtype=torch.float32):
+    def forward(self, h, r_feat, edge_feat, nbh, e_w, dtype=torch.float32, h_src=None):
         B, N, H = h.shape
-        alpha, v = self.attention(h, r_feat, edge_feat, nbh, e_w, dtype)
+        alpha, v = self.attention(h, r_feat, edge_feat, nbh, e_w, dtype, h_src)
         v = v.reshape(B, N, -1, self.n_heads, H // self.n_heads)
         out = (alpha[..., None] * v).sum(dim=2).reshape(B, N, H)
         if self.out_fc:
@@ -151,8 +154,8 @@ class BaseH2XAttLayer(_EdgeAttention):
         super().__init__(hidden_dim, n_heads, edge_feat_dim, r_feat_dim, n_heads, "x",
                          act_fn, norm, ew_net_type, model_dtype)
 
-    def forward(self, h, rel_x, r_feat, edge_feat, nbh, e_w, dtype=torch.float32):
-        alpha, v = self.attention(h, r_feat, edge_feat, nbh, e_w, dtype)  # v [B, N, K, heads]
+    def forward(self, h, rel_x, r_feat, edge_feat, nbh, e_w, dtype=torch.float32, h_src=None):
+        alpha, v = self.attention(h, r_feat, edge_feat, nbh, e_w, dtype, h_src)  # v [B, N, K, heads]
         s = (alpha * v).mean(dim=-1)
         return torch.einsum("bnk,bnkd->bnd", s.to(rel_x.dtype), rel_x)
 
@@ -194,6 +197,43 @@ class AttentionLayerO2TwoUpdateNodeGeneral(nn.Module):
             delta_x = layer(new_h, rel_x, r_feat, edge_attr, nbh, e_w, dtype)
             x = x + delta_x * mask_ligand[..., None].to(x.dtype)
         return h_in, x
+
+    def forward_rows(self, h, x, edge_attr, nbh, mask_ligand, e_w, rows, lig_rows,
+                     dtype=torch.float32):
+        """The layer on row sets (the plain version of the block kernels
+        with a dependency cone, ops/kernels/cone.py): the x2h output on the
+        rows `rows` and the h2x update on the ligand rows `lig_rows` (int64
+        row numbers b*N + i), each row from its own inputs and the sources
+        its valid edges name; a slot without a valid edge names its own row,
+        as the kernels read no source there. Every other row of h and x
+        keeps its value. One x2h and one h2x sub-layer, the kernels'
+        architecture."""
+        if len(self.x2h_layers) != 1 or len(self.h2x_layers) != 1 or self.sync_twoup:
+            raise ValueError("row sets take one x2h and one h2x sub-layer without sync_twoup")
+        B, N, H = h.shape
+        rel_x, r_feat = edge_geometry(x, nbh, edge_attr, self.model_dtype)
+        base = (torch.arange(B, device=h.device) * N).view(B, 1, 1)
+        own = torch.arange(B * N, device=h.device).view(B, N, 1)
+        src = torch.where(nbh.mask, nbh.idx + base, own)
+
+        def flat(t):
+            return t.reshape((B * N,) + t.shape[2:])
+
+        def pick(t, r):  # the rows r of t [B, N, ...] as one complex [1, len(r), ...]
+            return None if t is None else flat(t).index_select(0, r)[None]
+
+        def edges(r):
+            return G.Neighborhood(idx=pick(src, r), mask=pick(nbh.mask, r))
+
+        out = self.x2h_layers[0](pick(h, rows), pick(r_feat, rows), pick(edge_attr, rows),
+                                 edges(rows), pick(e_w, rows), dtype, h_src=flat(h)[None])
+        h = flat(h).index_copy(0, rows, out[0]).view(B, N, H)
+        delta_x = self.h2x_layers[0](pick(h, lig_rows), pick(rel_x, lig_rows),
+                                     pick(r_feat, lig_rows), pick(edge_attr, lig_rows),
+                                     edges(lig_rows), pick(e_w, lig_rows), dtype,
+                                     h_src=flat(h)[None])
+        x_lig = pick(x, lig_rows) + delta_x * pick(mask_ligand, lig_rows)[..., None].to(x.dtype)
+        return h, flat(x).index_copy(0, lig_rows, x_lig[0]).view(B, N, 3)
 
 
 class UniTransformerO2TwoUpdateGeneral(nn.Module):
@@ -252,7 +292,7 @@ class UniTransformerO2TwoUpdateGeneral(nn.Module):
                                                   dtype))
 
     def block_forward(self, h, x, nbh: G.Neighborhood, mask_ligand, e_w=None,
-                      fix_x: bool = False, dtype=torch.float32):
+                      fix_x: bool = False, dtype=torch.float32, cone=None):
         """All layers of one block on a given neighborhood; for the released
         architecture the plain version of the block-denoiser kernel (of its
         bf16 kernels with dtype=torch.bfloat16; differentiated, of the bf16
@@ -260,14 +300,28 @@ class UniTransformerO2TwoUpdateGeneral(nn.Module):
         outside by the float32 `edge_weights`), the block uses it as it is;
         other edge-weight types take none.
         fix_x=True keeps x as given (the embedding export); edge types keep
-        the protein / ligand split of mask_ligand. Returns (h, x)."""
+        the protein / ligand split of mask_ligand. cone: a `cone.Cone` of
+        nbh's graph (the sampler's need_full_h=False; not with fix_x): layer
+        l computes x2h on its rows of hop <= L - l and h2x on the ligand
+        rows (`forward_rows`), the plain version of the block kernels'
+        cone path; the other rows of h keep stale values. Returns (h, x)."""
+        if cone is not None and fix_x:
+            raise ValueError("the cone skips rows the h2x pass would not read; with fix_x every "
+                             "row of h is an output")
+        if cone is not None and cone.num_layers != len(self.base_block):
+            raise ValueError(f"the cone is for {cone.num_layers} layers, the block has "
+                             f"{len(self.base_block)}")
         edge_attr = precision.to_model(G.edge_types(nbh, mask_ligand), self.model_dtype)
         if e_w is not None:
             e_w = e_w[..., None]
         elif self.ew_net_type == "global":
             e_w = self.edge_weights(x, nbh, dtype)
-        for layer in self.base_block:
-            h, x = layer(h, x, edge_attr, nbh, mask_ligand, e_w, fix_x, dtype)
+        for l, layer in enumerate(self.base_block):
+            if cone is None:
+                h, x = layer(h, x, edge_attr, nbh, mask_ligand, e_w, fix_x, dtype)
+            else:
+                h, x = layer.forward_rows(h, x, edge_attr, nbh, mask_ligand, e_w,
+                                          cone.x2h_rows(l).long(), cone.rows(0).long(), dtype)
         return h, x
 
     def forward(self, h, x, mask_ligand, node_mask, fix_x: bool = False):

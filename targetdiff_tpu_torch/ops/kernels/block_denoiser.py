@@ -1,7 +1,9 @@
 """Whole-block denoiser: the CUDA kernels of csrc/block_denoiser.cu for CUDA
 tensors, the eager `UniTransformerO2TwoUpdateGeneral.block_forward` for CPU
 tensors. Replaces targetdiff_tpu/ops/pallas/block_denoiser.py
-(`block_denoiser`, every tile live) in inference mode (`block_denoiser`) and
+(`block_denoiser`) in inference mode (`block_denoiser`: every row live, or
+with a `cone.Cone` the rows of the sampler's dependency cone, JAX's
+need_full_h=False with per-layer tile flags at row granularity) and
 in train mode (`block_denoiser_train_cuda`: edge weights given, per-layer
 checkpoints of h and x returned for the backward of ops/kernels/block_vjp.py;
 its plain version is `block_denoiser_train_plain`).
@@ -11,6 +13,15 @@ kernel + x2h edge kernel, then a node kernel (the protein rows' source
 projections only) + h2x edge kernel on the ligand rows. With fix_x (the
 embedding export) the positions stay as given, so the h2x pass, whose only
 output is x, is not launched at all.
+With a cone (ops/kernels/cone.py) layer l's node launch covers the rows of
+hop <= L - l + 1 (nj; ni and q on hop <= L - l), its x2h launch the rows of
+hop <= L - l, and the h2x pass's node launch the ligand rows (ni, q) and
+hop <= 1 (nj), each through the row list `cone.order` and the device
+counts `cone.counts` (the `*_list` entry points); the rows outside a
+layer's set are not written, so the protein rows of the returned h are
+stale. Both ping-pong buffers start as copies of h: nothing uninitialised
+leaves the block. The plain version (`block_forward(..., cone=...)`)
+computes the same rows.
 `node_projections_cuda` launches the node kernel alone (the card tests'
 launcher), beside its plain version; `edge_weights_cuda` the edge-weight
 kernel alone, whose plain version is the module's `edge_weights`. Its weights come from `pack_block_params`, which regroups the
@@ -208,6 +219,11 @@ def _entries():
                          i32, i32, i32, i32, vp, vp],
         "td_block_h2x": [vp, vp, vp, vp, vp, vp, vp, vp, vp, f32, _PassParams,
                          i32, i32, i32, i32, vp, vp],
+        # as td_block_x2h with (order, count) in place of row0
+        "td_block_x2h_list": [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, f32, _PassParams,
+                              i32, i32, i32, vp, vp, vp, vp],
+        # h, rows, order, dst count, src count, PassParams, ni, nj, q, stream
+        "td_block_node_list": [vp, i32, vp, vp, vp, _PassParams, vp, vp, vp, vp],
         # h0, x0, idx, nmask, mlig, ew, offsets, coeff, x2h[L], h2x[L], L, B, N, K,
         # n_ligand, ni, nj, q, hck, xck, stream
         "td_block_train_fwd": [vp, vp, vp, vp, vp, vp, vp, f32, ctypes.POINTER(_PassParams),
@@ -216,7 +232,7 @@ def _entries():
     }
     sigs.update({entry(name, torch.bfloat16): sigs[name] for name in (
         "td_block_ew", "td_block_node", "td_block_node_rows", "td_block_x2h", "td_block_h2x",
-        "td_block_train_fwd")})
+        "td_block_train_fwd", "td_block_x2h_list", "td_block_node_list")})
     fns = {}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -243,18 +259,23 @@ def _pass_structs(stacks: dict, num_layers: int):
 
 
 def block_denoiser(refine_net, h, x, nbh: G.Neighborhood, mask_ligand, n_ligand: int,
-                   packed: PackedBlock = None, fix_x: bool = False, dtype=torch.float32):
+                   packed: PackedBlock = None, fix_x: bool = False, dtype=torch.float32,
+                   cone=None):
     """All layers of one UniTransformerO2 block. h [B,N,H] f32, x [B,N,3]
     f32, nbh [B,N,K], mask_ligand [B,N] bool (ligand rows are the last
     `n_ligand` rows). fix_x=True keeps x as given and skips the h2x pass.
     dtype: the products' precision, torch.float32 or torch.bfloat16 (h and x
-    stay float32). Returns (h, x) after the block. Inference only: the CUDA
-    path records no autograd graph."""
+    stay float32). cone: a `cone.Cone` of nbh's graph (not with fix_x): each
+    layer computes only the rows of its cone; x and the ligand rows of h
+    come out as without it, bit for bit, the protein rows of h stale.
+    Returns (h, x) after the block. Inference only: the CUDA path records
+    no autograd graph."""
     check_dtype(dtype)
     if h.device.type == "cpu":
-        return refine_net.block_forward(h, x, nbh, mask_ligand, fix_x=fix_x, dtype=dtype)
+        return refine_net.block_forward(h, x, nbh, mask_ligand, fix_x=fix_x, dtype=dtype,
+                                        cone=cone)
     return block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed, fix_x,
-                               dtype)
+                               dtype, cone)
 
 
 def check_block_inputs(refine_net, h, x, nbh, mask_ligand, n_ligand):
@@ -282,8 +303,20 @@ def check_block_inputs(refine_net, h, x, nbh, mask_ligand, n_ligand):
         raise ValueError("nbr_mask and mask_ligand must be bool")
 
 
+def check_cone(cone, B: int, N: int, L: int, device) -> None:
+    """Raise unless `cone` is the cone of a graph of B complexes of N rows
+    for L layers, on `device`."""
+    if cone.num_layers != L or cone.order.shape != (B * N,) or cone.hop.shape != (B, N):
+        raise ValueError(f"the cone is for {cone.num_layers} layers over "
+                         f"{tuple(cone.hop.shape)} rows, the block has {L} layers over "
+                         f"({B}, {N})")
+    for t in cone:
+        if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"the cone's tensors must be contiguous int32 on {device}")
+
+
 def block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed=None,
-                        fix_x: bool = False, dtype=torch.float32):
+                        fix_x: bool = False, dtype=torch.float32, cone=None):
     global LAUNCHES, X2H_PASS_LAUNCHES, H2X_PASS_LAUNCHES
     global BF16_LAUNCHES, BF16_X2H_PASS_LAUNCHES, BF16_H2X_PASS_LAUNCHES
     check_block_inputs(refine_net, h, x, nbh, mask_ligand, n_ligand)
@@ -299,11 +332,18 @@ def block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed=Non
 
     dev = h.device
     L = packed.x2h["w_node"].shape[0]
+    if cone is not None:
+        if fix_x:
+            raise ValueError("the cone skips rows the h2x pass would not read; with fix_x every "
+                             "row of h is an output")
+        check_cone(cone, B, N, L, dev)
     fns = _entries()
     stream = build.stream_ptr(dev)
     offsets, coeff = gaussian_smearing_offsets(device=dev)
     idx, nmask, mlig = nbh.idx.contiguous(), nbh.mask.contiguous(), mask_ligand.contiguous()
-    h_a, h_b = h.contiguous().clone(), torch.empty_like(h)
+    h_a = h.contiguous().clone()
+    # with a cone the rows a layer skips keep what its output buffer held
+    h_b = torch.empty_like(h) if cone is None else h_a.clone()
     if fix_x:
         x_a = x_b = x.contiguous()  # read only: no h2x pass writes it
     else:
@@ -317,13 +357,28 @@ def block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed=Non
     _launch_ew(x_a, idx, packed, ew)
     common = (idx.data_ptr(), nmask.data_ptr(), mlig.data_ptr(), ew.data_ptr(),
               ni.data_ptr(), nj.data_ptr(), q.data_ptr(), offsets.data_ptr(), coeff)
-    node, node_rows, x2h, h2x = (entry(n, dtype) for n in (
-        "td_block_node", "td_block_node_rows", "td_block_x2h", "td_block_h2x"))
+    node, node_rows, x2h, h2x, node_list, x2h_list = (entry(n, dtype) for n in (
+        "td_block_node", "td_block_node_rows", "td_block_x2h", "td_block_h2x",
+        "td_block_node_list", "td_block_x2h_list"))
+    if cone is not None:
+        order, counts = cone.order.data_ptr(), cone.counts.data_ptr()
+
+        def count(k):  # the device address of counts[k], the rows of hop <= k
+            return counts + 4 * k
+
     for l in range(L):
-        build.check(fns[node](h_a.data_ptr(), B * N, x2h_p[l], ni.data_ptr(), nj.data_ptr(),
-                              q.data_ptr(), stream), node)
-        build.check(fns[x2h](h_a.data_ptr(), x_a.data_ptr(), *common, x2h_p[l],
-                             B, N, K, 0, h_b.data_ptr(), stream), x2h)
+        if cone is None:
+            build.check(fns[node](h_a.data_ptr(), B * N, x2h_p[l], ni.data_ptr(),
+                                  nj.data_ptr(), q.data_ptr(), stream), node)
+            build.check(fns[x2h](h_a.data_ptr(), x_a.data_ptr(), *common, x2h_p[l],
+                                 B, N, K, 0, h_b.data_ptr(), stream), x2h)
+        else:
+            build.check(fns[node_list](h_a.data_ptr(), B * N, order, count(L - l),
+                                       count(L - l + 1), x2h_p[l], ni.data_ptr(),
+                                       nj.data_ptr(), q.data_ptr(), stream), node_list)
+            build.check(fns[x2h_list](h_a.data_ptr(), x_a.data_ptr(), *common, x2h_p[l],
+                                      B, N, K, order, count(L - l), h_b.data_ptr(), stream),
+                        x2h_list)
         if bf16:
             BF16_X2H_PASS_LAUNCHES += 1
         else:
@@ -332,8 +387,15 @@ def block_denoiser_cuda(refine_net, h, x, nbh, mask_ligand, n_ligand, packed=Non
         if fix_x:
             continue
         # the h2x pass needs of the protein rows only their source projections
-        build.check(fns[node_rows](h_a.data_ptr(), B, N, N - n_ligand, h2x_p[l], ni.data_ptr(),
-                                   nj.data_ptr(), q.data_ptr(), None, stream), node_rows)
+        # (with a cone, of the ligand rows' sources: hop <= 1)
+        if cone is None:
+            build.check(fns[node_rows](h_a.data_ptr(), B, N, N - n_ligand, h2x_p[l],
+                                       ni.data_ptr(), nj.data_ptr(), q.data_ptr(), None,
+                                       stream), node_rows)
+        else:
+            build.check(fns[node_list](h_a.data_ptr(), B * N, order, count(0), count(1),
+                                       h2x_p[l], ni.data_ptr(), nj.data_ptr(), q.data_ptr(),
+                                       stream), node_list)
         build.check(fns[h2x](x_a.data_ptr(), *common, h2x_p[l],
                              B, N, K, N - n_ligand, x_b.data_ptr(), stream), h2x)
         if bf16:
@@ -377,20 +439,25 @@ def node_deal(tiles_dst: int, tiles_all: int, warpgroups: int, slots: int) -> li
     group's warpgroups one tile, but no more than the group's share, by
     tiles, of the `slots` blocks the card holds at once (at least one)."""
     total = 2 * tiles_dst + tiles_all
-    return [min(-(-t // warpgroups), max(1, slots * t // total))
+    return [min(-(-t // warpgroups), max(1, slots * t // total if total else 0))
             for t in (tiles_dst, tiles_all, tiles_dst)]
 
 
-def node_walk(B: int, N: int, row0: int, slots: int, warpgroups: int) -> list:
+def node_walk(B: int, N: int, row0: int, slots: int, warpgroups: int, lists=None) -> list:
     """The node kernel's tile walk (csrc/node_proj.cuh node_kernel) replayed:
     one (column group, [row arrays]) per block, the arrays the node rows
     (b*N + i) of the tiles each of its warpgroups takes, in its order. The
     ni and q groups walk rows [row0, N) of each complex, nj every row; a
-    group's warpgroups take its tiles with the stride of their number."""
+    group's warpgroups take its tiles with the stride of their number.
+    lists=(n_dst, n_src), a row list's counts (`td_block_node_list`): the
+    arrays hold positions u in the list (row order[u]), ni and q walk u <
+    n_dst, nj u < n_src, and the blocks deal the `slots` to the groups from
+    those counts on a grid of slots + 3, the blocks past the deal taking
+    none (left out)."""
     import numpy as np
 
     nd = N - row0
-    nrows = (B * nd, B * N, B * nd)
+    nrows = (B * nd, B * N, B * nd) if lists is None else (lists[0], lists[1], lists[0])
     tiles = [-(-n // NODE_TILE_ROWS) for n in nrows]
     nb = node_deal(tiles[0], tiles[1], warpgroups, slots)
     blocks = []
@@ -403,7 +470,7 @@ def node_walk(B: int, N: int, row0: int, slots: int, warpgroups: int) -> list:
                 for tile in range(j * warpgroups + wg, tiles[grp], stride):
                     u = np.arange(tile * NODE_TILE_ROWS,
                                   min((tile + 1) * NODE_TILE_ROWS, nrows[grp]))
-                    rows.append(u if grp == 1 else u // nd * N + row0 + u % nd)
+                    rows.append(u if grp == 1 or lists else u // nd * N + row0 + u % nd)
                 walks.append(rows)
             blocks.append((grp, walks))
     return blocks

@@ -13,11 +13,21 @@ FIXED_OFFSETS = np.array(
 )
 
 
+_OFFSETS = {}  # the knots' tensor on each device, copied there once
+
+
 def gaussian_smearing_offsets(device="cpu"):
     """The fixed knots as a tensor and coeff = -0.5/(o[1]-o[0])^2; like the
-    reference, the released model uses these whatever its r_max."""
+    reference, the released model uses these whatever its r_max. The tensor
+    is made once per device and shared (read only): a copy to the card per
+    call would wait for the host each time."""
     coeff = -0.5 / float(FIXED_OFFSETS[1] - FIXED_OFFSETS[0]) ** 2
-    return torch.as_tensor(FIXED_OFFSETS, device=device), coeff
+    key = torch.device(device)
+    if key.type == "cuda" and key.index is None:
+        key = torch.device("cuda", torch.cuda.current_device())
+    if key not in _OFFSETS:
+        _OFFSETS[key] = torch.as_tensor(FIXED_OFFSETS, device=key)
+    return _OFFSETS[key], coeff
 
 
 def gaussian_smearing(dist: torch.Tensor, offsets: torch.Tensor, coeff: float) -> torch.Tensor:

@@ -99,22 +99,26 @@ def default_pocket(size: dict) -> dict:
 
 def launches() -> Dict[str, int]:
     """The kernel counts of this process (kNN, inference block in float32
-    and in bf16, the sampling default, train-mode block, block backward)."""
+    and in bf16, the sampling default, the sampler's dependency cone,
+    train-mode block, block backward)."""
     from ..ops.kernels import block_denoiser as kblock
     from ..ops.kernels import block_vjp
+    from ..ops.kernels import cone as kcone
     from ..ops.kernels import knn as kknn
 
     return {"knn": kknn.LAUNCHES, "block": kblock.LAUNCHES, "block_bf16": kblock.BF16_LAUNCHES,
-            "block_train": kblock.TRAIN_LAUNCHES, "block_vjp": block_vjp.LAUNCHES}
+            "cone": kcone.LAUNCHES, "block_train": kblock.TRAIN_LAUNCHES,
+            "block_vjp": block_vjp.LAUNCHES}
 
 
 def reset_launches() -> None:
     from ..ops.kernels import block_denoiser as kblock
     from ..ops.kernels import block_vjp
+    from ..ops.kernels import cone as kcone
     from ..ops.kernels import knn as kknn
 
     kknn.LAUNCHES = kblock.LAUNCHES = kblock.TRAIN_LAUNCHES = block_vjp.LAUNCHES = 0
-    kblock.BF16_LAUNCHES = 0
+    kblock.BF16_LAUNCHES = kcone.LAUNCHES = 0
 
 
 def sync(device) -> None:

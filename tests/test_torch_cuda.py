@@ -1703,3 +1703,103 @@ def test_bf16_model_runs_eagerly_on_the_card(cuda):
         assert float((g - w).abs().max()) <= 2e-2 * float(w.abs().max()), k
     with pytest.raises(ValueError, match="impl='eager'"):
         model.fast_apply(batch, batch.ligand_pos, batch.ligand_v)
+
+
+def _cone_graph(device, kind, B_, N, K, n_ligand, seed=0):
+    """A graph for the cone kernel: 'knn' of atoms scattered over a 24 A cube
+    with the ligand tail at the centre (a padded stretch, a one-atom
+    ligand), or 'random' neighbour lists with random masks."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        idx = torch.tensor(rng.integers(0, N, (B_, N, K)), device=device)
+        mask = torch.tensor(rng.random((B_, N, K)) < 0.7, device=device)
+        return G.Neighborhood(idx, mask)
+    pos = rng.uniform(-12, 12, (B_, N, 3))
+    pos[:, N - n_ligand:] = rng.normal(size=(B_, n_ligand, 3))
+    mask = np.ones((B_, N), bool)
+    mask[0, N - n_ligand - 9:N - n_ligand] = False
+    mask[-1, N - n_ligand + 1:] = False
+    return G.knn_graph(torch.tensor(pos, dtype=torch.float32, device=device),
+                       torch.tensor(mask, device=device), K)
+
+
+@pytest.mark.parametrize("kind,B_,N,K,L", [("knn", 3, 608, 32, 9), ("knn", 5, 130, 8, 2),
+                                           ("random", 2, 1100, 16, 4), ("random", 7, 45, 3, 1),
+                                           ("random", 2, 300, 40, 3), ("random", 1, 4000, 32, 5)])
+def test_cone_kernel_matches_plain_bitwise(cuda, kind, B_, N, K, L):
+    """cone_kernel's hop, order and counts equal the plain version's (the
+    stable sort) bit for bit, N past one block's 512 rows included, with the
+    neighbour lists in shared memory and (K > 32, or lists too long for it)
+    read from device memory; two calls equal; one counted call each."""
+    from targetdiff_tpu_torch.ops.kernels import cone as kcone
+
+    n_ligand = 32 if N > 100 else 8
+    nbh = _cone_graph(cuda, kind, B_, N, K, n_ligand)
+    before = kcone.LAUNCHES
+    got = [kcone.cone_cuda(nbh.idx, nbh.mask, n_ligand, L) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kcone.LAUNCHES - before == 2
+    want = kcone.cone_plain(nbh.idx.cpu(), nbh.mask.cpu(), n_ligand, L)
+    for a, b in zip(got[0], got[1]):
+        assert torch.equal(a, b)
+    for name, a, w in zip(want._fields, got[0], want):
+        assert torch.equal(a.cpu(), w), name
+    assert int(got[0].counts[0]) == B_ * n_ligand
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [8, 32])
+def test_block_kernels_on_the_cone_keep_the_ligand_outputs(cuda, dtype, k):
+    """The block kernels on the cone's row lists against the all-live block
+    kernels: x and the ligand rows of h bitwise equal (and every row of the
+    last layer's set), the cone's launches bitwise repeatable, the pass
+    launches unchanged; the sampler's forward (need_full_h=False) gives the
+    ligand outputs of need_full_h=True bitwise, with one cone call."""
+    from targetdiff_tpu_torch.ops.kernels import cone as kcone
+
+    torch.manual_seed(0)
+    n_protein = 220
+    model = DiffusionModel(Config(CONFIG), 27, 13, device=cuda, max_protein=n_protein,
+                           max_ligand=NL)
+    rn = model.net.refine_net
+    rng = np.random.default_rng(5)
+    pmask = np.ones((B, n_protein), bool)
+    pmask[0, 200:] = False
+    lmask = np.ones((B, NL), bool)
+    lmask[2, 1:] = False
+    batch = from_numpy(rng.uniform(-12, 12, (B, n_protein, 3)),
+                       rng.random((B, n_protein, 27)) > 0.7, pmask, rng.normal(size=(B, NL, 3)),
+                       rng.integers(0, 13, (B, NL)), lmask, device=cuda)
+    L = len(rn.base_block)
+    bf16 = dtype == torch.bfloat16
+    pass_counts = (lambda: (kblock.BF16_X2H_PASS_LAUNCHES, kblock.BF16_H2X_PASS_LAUNCHES)
+                   if bf16 else (kblock.X2H_PASS_LAUNCHES, kblock.H2X_PASS_LAUNCHES))
+    with torch.no_grad():
+        h, x, node_mask, mlig = model.net.embed(*batch)
+        nbh = G.knn_graph(x, node_mask, k)
+        cone = kcone.cone_cuda(nbh.idx, nbh.mask, NL, L)
+        packed = kblock.pack_block_params(rn, dtype)
+        h_all, x_all = kblock.block_denoiser(rn, h, x, nbh, mlig, NL, packed, dtype=dtype)
+        before = pass_counts()
+        runs = [kblock.block_denoiser(rn, h, x, nbh, mlig, NL, packed, dtype=dtype, cone=cone)
+                for _ in range(2)]
+        after = pass_counts()
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(before, after)) == (2 * L, 2 * L)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    h_c, x_c = runs[0]
+    assert torch.equal(x_c, x_all)
+    last = cone.x2h_rows(L - 1).long()
+    assert torch.equal(h_c.reshape(-1, 128)[last], h_all.reshape(-1, 128)[last])
+    assert torch.equal(h_c[:, n_protein:], h_all[:, n_protein:])
+    assert int(cone.counts[L]) < B * (n_protein + NL)  # the cone skipped rows
+    calls = kcone.LAUNCHES
+    with torch.no_grad():
+        full = model.fast_apply(batch, batch.ligand_pos, batch.ligand_v, dtype=dtype)
+        part = model.fast_apply(batch, batch.ligand_pos, batch.ligand_v, dtype=dtype,
+                                need_full_h=False)
+    torch.cuda.synchronize()
+    assert kcone.LAUNCHES - calls == 1
+    for key in ("pred_ligand_pos", "pred_ligand_v", "final_ligand_h"):
+        assert torch.equal(part[key], full[key]), key
+    assert bool(part["final_h"].isfinite().all())  # stale rows, never uninitialised
