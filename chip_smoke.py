@@ -100,7 +100,10 @@ bf16 train step beside float32's, and the train CLI with --dtype bf16 on V1
 [cone], after [forward], holds the sampler's dependency cone
 (need_full_h=False, the last block computing only the rows a ligand output
 reads) at kNN B=4 and B=100: `cone_kernel` bit for bit against its plain
-version, the block kernels on the cone's row lists against the all-live
+version, one launch a call (torch.profiler), its grid and its phases'
+clock64 cycles (cone.PHASES, and complex 0's levels: the stamped
+instantiation, `cone.cone_phase_cycles`), the block kernels on the cone's
+row lists against the all-live
 block kernels (x and ligand h bit for bit, float32 and bf16), timed layer
 by layer, and one sampling step under torch.cuda.set_sync_debug_mode(
 "error") with one cone call; [sample] and the other sampling and
@@ -182,13 +185,14 @@ float32 versions and against float64, worst tensor of each) of CHECKOUT on
 those phases' inputs. Each prints one JSON line that starts with the card's
 name and power limit. `cone` runs [cone] alone (below). `host` times STEPS
 (default 1000) kNN DDPM steps of B=4 molecules in bf16, the default
-sampling precision, of CHECKOUT's port by the host clock, and the forward
-alone with every row and on the dependency cone in turns within the
-process (`forward_host_ms`), and, for a checkout with the cone, STEPS
-steps with and without it in turns (`cone_step_rounds`; one JSON line, as
-`duel`): run it for two
-checkouts in turns, several times, within one call; the host-bound step
-moves more between processes than between versions.
+sampling precision, of this checkout's port by the host clock, and the
+forward alone with every row and on the dependency cone in turns within
+the process (`forward_host_ms`), then STEPS steps in ten rounds, the
+order rotating, of this port with the cone, with the cone switched off
+and, given CHECKOUT (a parent), CHECKOUT's port imported beside it in the
+same process (`host_rounds`), and 20 traced steps of each with the host
+operators whose time differs (one JSON line, as `duel`): the host-bound
+step moves more between processes than between versions.
 
 `gate` runs the port's quality gate in full (default 12000 `fast` train
 steps of the flagship on the synthetic corpus, then 256 molecules of 32
@@ -219,6 +223,7 @@ Needs a CUDA device and the CUDA toolkit (nvcc); there is no CPU path.
 from __future__ import annotations
 
 import copy
+import functools
 import inspect
 import json
 import logging
@@ -1113,6 +1118,30 @@ def main(argv) -> int:
     return 0
 
 
+def launches_per_call(torch, fn, piece, calls=3) -> float:
+    """Launches of the kernels whose name holds `piece` per call of fn, as
+    torch.profiler sees them over `calls` traced calls after a warm-up."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(v["launches"] for k, v in device_times(prof, calls).items() if piece in k)
+
+
+@functools.lru_cache(maxsize=None)
+def max_sm_clock_mhz() -> float:
+    """The card's top SM clock (MHz), as nvidia-smi gives it."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True)
+    return float(smi.stdout.strip().splitlines()[0])
+
+
 def launch_device_ms(torch, fn, piece, calls=3) -> list:
     """Device ms of each launch of the kernels whose name holds `piece` in
     one call of fn, in launch order, the mean over `calls` traced calls after
@@ -1152,8 +1181,10 @@ CONE_B = (4, 100)  # [cone]: the example pocket 4 and 100 times (kNN, N = 608, K
 def cone_phase(torch, dev, model, pocket, feat_dim) -> dict:
     """[cone]: the sampler's dependency cone (need_full_h=False) at kNN B=4
     and B=100. `cone_kernel` against its plain version (hop, order, counts)
-    bit for bit, two calls equal, timed beside its bytes bound, the plain
-    version and the stable torch.argsort of the hops; the live rows of each
+    bit for bit, two calls and the stamped launch equal, one launch a call,
+    timed beside its bytes bound (the lists of the rows of hop <= L), the
+    plain version and the stable torch.argsort of the hops, with its grid
+    and each phase's cycles (the largest over the blocks); the live rows of each
     layer (x2h: hop <= L - l; node: hop <= L - l + 1; the h2x pass's
     sources: hop <= 1). In float32 and bf16: the block kernels on the
     cone's row lists against the all-live block kernels, x and the ligand
@@ -1181,18 +1212,25 @@ def cone_phase(torch, dev, model, pocket, feat_dim) -> dict:
         calls = kcone.LAUNCHES
         got = [kcone.cone_cuda(nbh.idx, nbh.mask, MAX_LIGAND, L) for _ in range(2)]
         want = kcone.cone_plain(nbh.idx, nbh.mask, MAX_LIGAND, L)
+        stamped = kcone.cone_phase_cycles(nbh.idx, nbh.mask, MAX_LIGAND, L)
         torch.cuda.synchronize()
         if kcone.LAUNCHES - calls != 2:
             raise AssertionError(f"cone B={nb}: {kcone.LAUNCHES - calls} counted calls, want 2")
         err = max(float((a.long() - w.long()).abs().max()) for a, w in zip(got[0], want))
-        if err != 0 or not all(torch.equal(a, b) for a, b in zip(*got)):
+        if err != 0 or not all(torch.equal(a, b) for a, b in zip(*got)) or not all(
+                torch.equal(a, b) for a, b in zip(stamped["cone"], got[0])):
             raise AssertionError(f"cone B={nb}: cone_kernel differs from its plain version "
-                                 f"(max abs err {err}) or between two calls")
+                                 f"(max abs err {err}), between two calls or stamped")
         cone = got[0]
         counts = cone.counts.tolist()
         if counts[0] != nb * MAX_LIGAND:
             raise AssertionError(f"cone B={nb}: {counts[0]} rows of hop 0, want "
                                  f"{nb * MAX_LIGAND}")
+        per_call = launches_per_call(torch, lambda: kcone.cone_cuda(nbh.idx, nbh.mask,
+                                                                    MAX_LIGAND, L), "cone_kernel")
+        if per_call != 1:
+            raise AssertionError(f"cone B={nb}: {per_call} cone_kernel launches a call, want 1")
+        K_ = nbh.idx.shape[-1]
         f = {"max_abs_err": err,
              "ms": cuda_ms(torch, lambda: kcone.cone_cuda(nbh.idx, nbh.mask, MAX_LIGAND, L)),
              "device_ms": device_ms(torch, lambda: kcone.cone_cuda(nbh.idx, nbh.mask,
@@ -1201,10 +1239,21 @@ def cone_phase(torch, dev, model, pocket, feat_dim) -> dict:
                                                                  L)),
              "argsort_ms": cuda_ms(torch, lambda: torch.argsort(cone.hop.reshape(-1),
                                                                 stable=True)),
-             # one comparison a slot; the neighbour lists read, hop, order and
-             # counts written once
-             **bound(np.array([0, nbh.idx.numel()]),
-                     nbytes(nbh.idx, nbh.mask, cone.hop, cone.order, cone.counts)),
+             # one comparison a slot; the lists of the rows a sweep expands
+             # (hop <= L: this run's data) read once, hop, order and counts
+             # written once
+             **bound(np.array([0, counts[L] * K_]),
+                     counts[L] * K_ * (nbh.idx.element_size() + nbh.mask.element_size())
+                     + nbytes(cone.hop, cone.order, cone.counts)),
+             "launches_per_call": per_call,
+             **kcone.cone_grid(*nbh.idx.shape[:2]),
+             # each block's clock64 cycles by phase (stamped instantiation),
+             # the largest over the grid, and as us at the card's top SM clock
+             "phase_max_cycles": stamped["max_cycles"],
+             "phase_mean_cycles": stamped["mean_cycles"],
+             "sweeps_of_complex0": stamped["sweeps"],
+             "phase_max_us_at_max_clock": {k: v / max_sm_clock_mhz()
+                                           for k, v in stamped["max_cycles"].items()},
              "rows": rows,
              "live_x2h": [counts[L - l] / rows for l in range(L)],
              "live_node": [counts[L - l + 1] / rows for l in range(L)],
@@ -4015,7 +4064,7 @@ def measure(torch, argv) -> int:
                          "[bf16] | duel [CHECKOUT] | margins [CHECKOUT] | cone | "
                          "host [CHECKOUT] [STEPS]]")
     batch = int(argv[2]) if sized else B
-    checkout = Path(arg).resolve() if what in ("duel", "margins", "host") and arg else REPO
+    checkout = Path(arg).resolve() if what in ("duel", "margins") and arg else REPO
     sys.path.insert(0, str(checkout))
     from targetdiff_tpu_torch.cli.sample_for_pocket import pdb_to_pocket_data
     from targetdiff_tpu_torch.config import Config
@@ -4068,9 +4117,14 @@ def measure(torch, argv) -> int:
         steps = int(argv[2]) if len(argv) == 3 else 1000
         model, sample16 = setup("knn", B, torch.bfloat16)
         sample16(3, 1)  # warm up
+        variants = {"cone": sample16, "cone_off": without_cone(sample16)}
+        if arg:  # the parent's port beside this one, in this process
+            variants["parent"] = port_sampler(torch, dev, import_port(Path(arg).resolve()),
+                                              pocket)
+            variants["parent"](3, 1)
         out = {"batch": B, "steps": steps, "bf16_ms_per_step": sample16(steps, 1),
                **forward_host_ms(torch, dev, model, pocket, feat.feature_dim),
-               **cone_step_rounds(torch, sample16, steps)}
+               **host_rounds(torch, variants, steps)}
     elif what == "margins":
         out = margins(torch, dev, pocket, feat.feature_dim, check=False)
     elif arg == "block":
@@ -4113,36 +4167,93 @@ def forward_host_ms(torch, dev, model, pocket, feat_dim, calls=200, rounds=5) ->
             "forward_rounds_ms": rounds_ms}
 
 
-def cone_step_rounds(torch, sample, steps, rounds=3) -> dict:
-    """ms per DDPM step (`sample(steps, seed)`, host clock) with the sampler's
-    dependency cone and with every row (the checkout's `block_cone` replaced
-    by one that returns no cone), in turns within this process, and the
-    garbage collector's full collections in each run; {} for a checkout
-    without the cone."""
-    import gc
-
+def without_cone(sample):
+    """`sample` with this checkout's `block_cone` replaced by one that
+    returns no cone: every forward computes every row."""
     from targetdiff_tpu_torch.models import fast_forward as ff
 
-    if not hasattr(ff, "block_cone"):
-        return {}
-    real = ff.block_cone
-    runs = {"cone": [], "every_row": []}
-    full = {"cone": [], "every_row": []}
-    traced = {}
-    try:
-        for _ in range(rounds):
-            for name in runs:
-                ff.block_cone = real if name == "cone" else (lambda *a, **k: None)
-                gen2 = gc.get_stats()[2]["collections"]
-                runs[name].append(sample(steps, 1))
-                full[name].append(gc.get_stats()[2]["collections"] - gen2)
-        for name in runs:
-            ff.block_cone = real if name == "cone" else (lambda *a, **k: None)
-            traced[name] = traced_steps(torch, sample)
-    finally:
-        ff.block_cone = real
-    return {**{f"step_{k}_ms": float(np.median(v)) for k, v in runs.items()},
-            "step_rounds_ms": runs, "step_rounds_full_gc": full, "step_traced": traced}
+    def run(steps, seed):
+        real = ff.block_cone
+        ff.block_cone = lambda *a, **k: None
+        try:
+            return sample(steps, seed)
+        finally:
+            ff.block_cone = real
+
+    return run
+
+
+def import_port(checkout: Path, alias: str = "parent_port"):
+    """The port of another checkout imported as package `alias`, beside this
+    checkout's (its relative imports resolve within it; it builds its own
+    kernels from its own sources)."""
+    import importlib
+    import importlib.util
+
+    pkg = checkout / "targetdiff_tpu_torch"
+    spec = importlib.util.spec_from_file_location(alias, pkg / "__init__.py",
+                                                  submodule_search_locations=[str(pkg)])
+    root = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = root
+    spec.loader.exec_module(root)
+    return {name: importlib.import_module(f"{alias}.{name}")
+            for name in ("config", "models.score_model", "sampling")}
+
+
+def port_sampler(torch, dev, mods, pocket):
+    """sample(steps, seed) of the port in `mods` (import_port): ms per step of
+    B kNN molecules for the pocket in bf16 (host clock ending in a
+    synchronise), the flagship with seed-0 weights, as `setup` builds it."""
+    torch.manual_seed(0)
+    feat_dim = pocket["protein_feat"].shape[-1]
+    model = mods["models.score_model"].DiffusionModel(
+        mods["config"].Config(dict(FLAGSHIP, cutoff_mode="knn")), feat_dim, NUM_CLASSES,
+        device=dev, max_protein=MAX_PROTEIN, max_ligand=MAX_LIGAND)
+
+    def sample(steps, seed):
+        t0 = time.perf_counter()
+        mods["sampling"].sample_diffusion_ligand(
+            model, pocket, num_samples=B, generator=torch.Generator(device=dev).manual_seed(seed),
+            batch_size=B, num_steps=steps, max_protein=MAX_PROTEIN, max_ligand=MAX_LIGAND,
+            rng=np.random.default_rng(seed), dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / steps
+
+    return sample
+
+
+def host_rounds(torch, variants, steps, rounds=10) -> dict:
+    """ms per DDPM step (host clock) of each of `variants` (name: sample(steps,
+    seed)) in `rounds` rounds within this process, the order rotating each
+    round; the median, each round's times, the rounds each variant was
+    faster than each other, the garbage collector's full collections in
+    each run, and 20 steps of each under torch.profiler (`traced_steps`:
+    host operators' self time a step) with the operators whose time a step
+    differs most from the first variant's."""
+    import gc
+
+    names = list(variants)
+    runs = {n: [] for n in names}
+    full = {n: [] for n in names}
+    for r in range(rounds):
+        for name in names[r % len(names):] + names[:r % len(names)]:
+            gen2 = gc.get_stats()[2]["collections"]
+            runs[name].append(variants[name](steps, 1))
+            full[name].append(gc.get_stats()[2]["collections"] - gen2)
+    traced = {n: traced_steps(torch, variants[n]) for n in names}
+    faster = {f"{a}_faster_than_{b}": sum(x < y for x, y in zip(runs[a], runs[b]))
+              for a in names for b in names if a != b}
+    base = dict((op, ms) for op, ms, _ in traced[names[0]]["host_ops"])
+    diffs = {}
+    for n in names[1:]:
+        other = dict((op, ms) for op, ms, _ in traced[n]["host_ops"])
+        d = {op: base.get(op, 0.0) - other.get(op, 0.0) for op in set(base) | set(other)}
+        diffs[f"{names[0]}_minus_{n}_ms"] = sorted(d.items(), key=lambda kv: -abs(kv[1]))[:10]
+    for t in traced.values():
+        del t["host_ops"]
+    return {**{f"step_{n}_ms": float(np.median(v)) for n, v in runs.items()}, "rounds": rounds,
+            "step_rounds_ms": runs, "step_rounds_full_gc": full, **faster,
+            "step_traced": traced, "host_op_differences": diffs}
 
 
 def traced_steps(torch, sample, steps=20) -> dict:
@@ -4158,7 +4269,7 @@ def traced_steps(torch, sample, steps=20) -> dict:
                  key=lambda o: -o[1])
     return {"host_ms": host_ms,
             "device_ms": sum(k["ms"] for k in device_times(prof, steps).values()),
-            "host_self_ms": sum(o[1] for o in ops), "top_host_ops": ops[:12]}
+            "host_self_ms": sum(o[1] for o in ops), "top_host_ops": ops[:12], "host_ops": ops}
 
 
 def device_times(prof, calls) -> dict:
@@ -4266,19 +4377,25 @@ def profile_train(torch, dev, feat_dim) -> dict:
             "bwd_kernels": bwd_kernel_rows(torch, tb, tmodel, rows)}
 
 
-def reduce_bytes(products, colsum_m, colsum_q) -> float:
-    """Bytes reduce_kernel moves in one pass (csrc/weight_grad.cuh
-    weight_grad and csrc/pass_bwd.cuh colsum, their chunk rules): for each
-    weight-gradient product (M, P, Q) and the column sums of the row buffer
-    [colsum_m, colsum_q], its partials read once and its output written."""
-    cap, total = 1 << 22, 0
+def reduce_shapes(products, colsum_m, colsum_q) -> list:
+    """The partials reduce_kernel sums in one pass (csrc/weight_grad.cuh
+    weight_grad and csrc/pass_bwd.cuh colsum, their chunk rules), as (S, n):
+    S partials of n floats for each weight-gradient product (M, P, Q) and
+    for the column sums of the row buffer [colsum_m, colsum_q]."""
+    cap, out = 1 << 22, []
     for m, p, q in products:
         tiles = -(-p // 128) * -(-q // 128)
         s = min(-(-2 * 132 // tiles), cap // (p * q))
         chunk = -(-max(-(-m // s), 256) // 32) * 32
-        total += (-(-m // chunk) + 1) * p * q * 4
+        out.append((-(-m // chunk), p * q))
     s = max(min(-(-colsum_m // 256), -(-528 // -(-colsum_q // 256)), cap // colsum_q), 1)
-    return total + (s + 1) * colsum_q * 4
+    return out + [(s, colsum_q)]
+
+
+def reduce_bytes(products, colsum_m, colsum_q) -> float:
+    """Bytes reduce_kernel moves in one pass: its partials read once and its
+    outputs written (`reduce_shapes`)."""
+    return sum((s + 1) * n * 4 for s, n in reduce_shapes(products, colsum_m, colsum_q))
 
 
 def bwd_kernel_rows(torch, tb, tmodel, rows) -> dict:
@@ -4288,7 +4405,8 @@ def bwd_kernel_rows(torch, tb, tmodel, rows) -> dict:
     rows and their sources; each input read once, each output written once)
     and, where one PyTorch call computes the same function, its device time:
     index_add_ of the dz rows by source for gather_kernel's d nj,
-    torch.sum(rowbuf, 0) for colsum_kernel and its reduce_kernel launch; for
+    torch.sum(rowbuf, 0) for colsum_kernel and its reduce_kernel launch,
+    torch.sum(partials, 0) of each reduce_kernel launch's partials; for
     the adjacency (per build: build_adjacency's three kernels), the stable
     torch.sort by source of adjacency_plain (not the same function).
     node_bwd_kernel, gather_kernel, colsum_kernel, the adjacency,
@@ -4319,6 +4437,8 @@ def bwd_kernel_rows(torch, tb, tmodel, rows) -> dict:
         writes = (slots * (2 * HW + HW + v + 2 * HW + fe + 3 + 1)
                   + dst[sub] * (8 * HW + v + 3)) * f4
         row_w = 13 * HW + v  # run_pass's row buffer
+        reduce_args = ([(adj_edges[sub], HW, HW), (adj_edges[sub], HW, v),
+                        (adj_edges[sub], fe, 2 * HW), (bn, HW, 5 * HW), (bn, HW, HW)], bn, row_w)
         per_pass[sub] = {
             "edge": bound(live[sub] * FLOP_EDGE_KERNEL_BWD[sub], reads + writes),
             "node": bound(bn * np.array([12 * HW * HW, 10 * HW]),
@@ -4335,9 +4455,7 @@ def bwd_kernel_rows(torch, tb, tmodel, rows) -> dict:
             "stage_rbf": bound((0, 0), f4 * 4 * RK * 2 * HW + 16 * 2 * (2 * HW // 8)
                                * (2 * RK // 8) * 32),
             # per launch: five products' and the column sums' partials (six a pass)
-            "reduce": bound((0, 0), reduce_bytes(
-                [(adj_edges[sub], HW, HW), (adj_edges[sub], HW, v), (adj_edges[sub], fe, 2 * HW),
-                 (bn, HW, 5 * HW), (bn, HW, HW)], bn, row_w) / 6),
+            "reduce": bound((0, 0), reduce_bytes(*reduce_args) / 6),
         }
         # the library calls on operands of these shapes
         offs = (torch.arange(nb, device=x.device) * n)[:, None, None]
@@ -4349,6 +4467,12 @@ def bwd_kernel_rows(torch, tb, tmodel, rows) -> dict:
         per_pass[sub]["gather_library_ms"] = device_ms(
             torch, lambda: dnj.zero_().index_add_(0, srcs, dz))
         per_pass[sub]["colsum_library_ms"] = device_ms(torch, lambda: torch.sum(rowbuf, 0))
+        # reduce_kernel's function: torch.sum of each of its six launches'
+        # partials [S, n] over their first dimension, the mean a launch
+        partials = [torch.randn((S, n_), device=x.device) for S, n_ in reduce_shapes(*reduce_args)]
+        per_pass[sub]["reduce_library_ms"] = float(np.mean(
+            [device_ms(torch, lambda p=p: torch.sum(p, 0)) for p in partials]))
+        del partials
         first = row0 if sub == "h2x" else 0
         key = torch.where(nbh.mask[:, first:].reshape(nb, -1), nbh.idx[:, first:].reshape(nb, -1),
                           n)
@@ -4370,7 +4494,7 @@ def bwd_kernel_rows(torch, tb, tmodel, rows) -> dict:
             ("adjacency", "adj", None, "adj_library_ms"),
             ("stage_w2_kernel", "stage_w2", None, None),
             ("stage_rbf_kernel", "stage_rbf", None, None),
-            ("reduce_kernel", "reduce", None, None)):
+            ("reduce_kernel", "reduce", None, "reduce_library_ms")):
         r = rows[name]
         b = per_pass[sub][key] if sub else {"bound_ms": mean(key, "bound_ms"),
                                             "bound_by": per_pass["x2h"][key]["bound_by"]}
@@ -4474,6 +4598,32 @@ def kernel_device_ms(torch, fn, piece, calls=10) -> float:
     return sum(v["ms"] for k, v in device_times(prof, calls).items() if piece in k)
 
 
+def cone_duel(torch, model, batch, label) -> dict:
+    """The sampler's dependency cone of `batch`'s kNN graph (the flagship's L
+    layers, MAX_LIGAND ligand rows), where the checkout has it: a digest of
+    its Cone (hop, order, counts), cone_kernel's device ms and launches per
+    call (torch.profiler) and CUDA-event ms per call."""
+    import importlib.util
+
+    if importlib.util.find_spec("targetdiff_tpu_torch.ops.kernels.cone") is None:
+        return {}
+    from targetdiff_tpu_torch.ops import graph as G
+    from targetdiff_tpu_torch.ops.kernels import cone as kcone
+
+    L = FLAGSHIP["num_layers"]
+    with torch.no_grad():
+        _, x, node_mask, _ = model.net.embed(*batch)
+        nbh = G.knn_graph(x, node_mask, K)
+
+    def call():
+        return kcone.cone_cuda(nbh.idx, nbh.mask, MAX_LIGAND, L)
+
+    return {f"cone_{label}_digest": digest(torch, *call()),
+            f"cone_{label}_device_ms": kernel_device_ms(torch, call, "cone_kernel", calls=20),
+            f"cone_{label}_launches_per_call": launches_per_call(torch, call, "cone_kernel"),
+            f"cone_{label}_ms": cuda_ms(torch, call)}
+
+
 def duel(torch, dev, setup, pocket, feat_dim) -> dict:
     """CUDA-event times of the whole-block kernels, and ew_kernel's device
     time in the inference block at B=4 and B=100; CUDA-event and device
@@ -4500,7 +4650,9 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
     node_kernel's device time), each with a digest of its output; digests of
     the sampler's forward's ligand outputs (`fast_apply(need_full_h=False)`
     where the checkout has it: the dependency cone) at kNN B=4 and B=100 in
-    both precisions and of `fetch_embedding` (every output); 1000 kNN B=4
+    both precisions and of `fetch_embedding` (every output); the dependency
+    cone alone at kNN B=4 and B=100 (`cone_duel`: a digest of its Cone,
+    cone_kernel's device ms); 1000 kNN B=4
     sampling steps in bf16 (host clock); 10 kNN
     B=100 sampling steps in bf16 and in float32 (`profile`: host and device
     ms per step, node_kernel's, the x2h and h2x edge kernels' and
@@ -4643,6 +4795,7 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
                     pred["final_ligand_h"])
             # the embedding export (every row: final_h too)
             out[f"embedding_{label}_digest"] = digest(torch, model.fetch_embedding(fb, impl="fast"))
+            out.update(cone_duel(torch, model, fb, label))
     sample(3, 1)  # warm up
     out["sample_ms_per_step"] = sample(50, 1)
     # the kNN B=4 sampling step in bf16 (the default precision) over 1000

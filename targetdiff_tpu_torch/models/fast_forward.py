@@ -33,7 +33,7 @@ import torch
 from ..config import Config
 from ..ops.kernels.block_denoiser import MAX_K, PackedBlock, block_denoiser, pack_block_params
 from ..ops.kernels.block_vjp import block_layers_trainable
-from ..ops.kernels.cone import block_cone
+from ..ops.kernels.cone import ConeWorkspace, block_cone
 from ..ops.kernels.edge_layer import h2x_attention_layer, x2h_attention_layer
 from ..ops.kernels.edge_layer_vjp import h2x_layer_trainable, x2h_layer_trainable
 from ..ops.kernels.knn import knn_graph
@@ -153,7 +153,8 @@ def _graph(rn, x, node_mask, mask_ligand):
 def fast_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos, ligand_v,
                  ligand_mask, packed: Optional[PackedBlock] = None,
                  mode: str = "mega", fix_x: bool = False,
-                 dtype=torch.float32, need_full_h: bool = True) -> Dict[str, torch.Tensor]:
+                 dtype=torch.float32, need_full_h: bool = True,
+                 cone_workspace: Optional[ConeWorkspace] = None) -> Dict[str, torch.Tensor]:
     """`net` is a ScorePosNet; `packed` its refine_net's kernel weights
     for `dtype` (packed on the fly when None). mode 'mega' runs each block on the
     whole-block kernels, 'layers' on the per-layer kernels; a graph wider
@@ -168,7 +169,8 @@ def fast_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos, ligan
     'mega' mode, unless fix_x, computes each layer on its dependency cone
     (one `cone_kernel` call, then row lists), as the JAX package's
     need_full_h=False: only the ligand outputs are valid, the protein rows
-    of `final_h` are STALE. Returns pred_ligand_pos, pred_ligand_v,
+    of `final_h` are STALE; `cone_workspace` (a run's `ConeWorkspace`) holds
+    the cone, else it is allocated. Returns pred_ligand_pos, pred_ligand_v,
     final_ligand_h and final_h."""
     if mode not in ("mega", "layers"):
         raise ValueError(f"mode must be 'mega' or 'layers', got {mode!r}")
@@ -196,7 +198,8 @@ def fast_forward(net, protein_pos, protein_feat, protein_mask, ligand_pos, ligan
             # last block's
             cone = None
             if not need_full_h and not fix_x and b == rn.num_blocks - 1:
-                cone = block_cone(nbh.idx, nbh.mask, n_ligand, len(rn.base_block))
+                cone = block_cone(nbh.idx, nbh.mask, n_ligand, len(rn.base_block),
+                                  cone_workspace)
             h, x = block_denoiser(rn, h, x, nbh, mask_ligand, n_ligand=n_ligand, packed=packed,
                                   fix_x=fix_x, dtype=dtype, cone=cone)
             continue

@@ -39,6 +39,7 @@ from ..ops import diffusion as D
 from ..ops import graph as G
 from ..ops import precision
 from ..ops.kernels.block_denoiser import PackedBlock, pack_block_params
+from ..ops.kernels.cone import ConeWorkspace
 from ..ops.precision import check_dtype
 from ..ops.schedules import make_categorical_schedule, make_gaussian_schedule
 from .common import ShiftedSoftplus
@@ -264,17 +265,18 @@ class DiffusionModel:
 
     def fast_apply(self, batch: ComplexBatch, ligand_pos, ligand_v,
                    packed: Optional[PackedBlock] = None, mode: str = "mega",
-                   fix_x: bool = False, dtype=torch.bfloat16, need_full_h: bool = True):
+                   fix_x: bool = False, dtype=torch.bfloat16, need_full_h: bool = True,
+                   cone_workspace: Optional[ConeWorkspace] = None):
         """Kernel-backed forward (the sampling path); mode 'mega' runs the
         whole-block kernels, 'layers' the per-layer ones, fix_x=True freezes
         the coordinates, dtype the products' precision, bf16 by default as
         the JAX package's fast_apply; need_full_h=False computes the last
-        block on the ligand outputs' dependency cone, `final_h`'s protein
-        rows then stale (see fast_forward)."""
+        block on the ligand outputs' dependency cone (in `cone_workspace`
+        when given), `final_h`'s protein rows then stale (see fast_forward)."""
         return fast_forward(self.net, batch.protein_pos, batch.protein_feat,
                             batch.protein_mask, ligand_pos, ligand_v, batch.ligand_mask,
                             packed=packed, mode=mode, fix_x=fix_x, dtype=dtype,
-                            need_full_h=need_full_h)
+                            need_full_h=need_full_h, cone_workspace=cone_workspace)
 
     def get_diffusion_loss(self, batch: ComplexBatch, time_step=None, pos_noise=None,
                            v_uniform=None, generator: Optional[torch.Generator] = None,
@@ -429,13 +431,14 @@ class DiffusionModel:
         return self.apply(batch, batch.ligand_pos, batch.ligand_v, fix_x=True)
 
     def _x0_and_logits(self, cbatch: ComplexBatch, pos, v, tt, packed, impl: str,
-                       dtype=torch.bfloat16):
+                       dtype=torch.bfloat16, cone_workspace=None):
         """The model's x0 prediction and type logits at (pos, v, tt): on the
-        kernels of `dtype` (impl='fast') or through ScorePosNet.forward
-        ('eager', float32 whatever dtype says)."""
+        kernels of `dtype` (impl='fast', the cone in `cone_workspace` when
+        given) or through ScorePosNet.forward ('eager', float32 whatever
+        dtype says)."""
         if impl == "fast":
             preds = self.fast_apply(cbatch, pos, v, packed=packed, dtype=dtype,
-                                    need_full_h=False)
+                                    need_full_h=False, cone_workspace=cone_workspace)
         elif impl == "eager":
             preds = self.apply(cbatch, pos, v, time_step=tt)
         else:
@@ -453,7 +456,7 @@ class DiffusionModel:
                     type_uniform, packed: Optional[PackedBlock] = None, s: Optional[int] = None,
                     sampler: str = "ddpm", coefs=None, pos_only: bool = False,
                     return_v_probs: bool = False, impl: Optional[str] = None,
-                    dtype=torch.bfloat16):
+                    dtype=torch.bfloat16, cone_workspace: Optional[ConeWorkspace] = None):
         """One reverse step from timestep t to s on the protein-centered batch
         (targetdiff_tpu/models/score_model.py:_sample_step; reference:
         molopt_score_model.py:649-693). sampler='ddpm' is the ancestral step,
@@ -468,7 +471,8 @@ class DiffusionModel:
         types). Returns (ligand_pos, ligand_v) at s, and with return_v_probs
         also the recon log-probabilities and those the types were drawn from.
         impl 'fast' or 'eager' and dtype (bf16 by default; `packed` must be
-        packed for it) as in sample_diffusion."""
+        packed for it) as in sample_diffusion; `cone_workspace` holds the
+        dependency cones of impl='fast' (allocated each call when None)."""
         impl = impl or self.impl
         check_dtype(dtype)
         if sampler not in ("ddpm", "ddim", "dpm2"):
@@ -477,7 +481,8 @@ class DiffusionModel:
         dev, C = ligand_pos.device, self.num_classes
         tt = torch.full((cbatch.num_graphs,), t, dtype=torch.long, device=dev)
         lmask_f = cbatch.ligand_mask.to(ligand_pos.dtype)[..., None]
-        pos0, logits = self._x0_and_logits(cbatch, ligand_pos, ligand_v, tt, packed, impl, dtype)
+        pos0, logits = self._x0_and_logits(cbatch, ligand_pos, ligand_v, tt, packed, impl, dtype,
+                                           cone_workspace)
 
         if sampler == "ddpm":
             pos_mean = D.q_pos_posterior(self.pos_sched, pos0, ligand_pos, tt)
@@ -498,7 +503,8 @@ class DiffusionModel:
                     self.v_sched, F.log_softmax(logits, dim=-1),
                     D.index_to_log_onehot(ligand_v, C), tt, ss, C)
                 pos0_2, logits_2 = self._x0_and_logits(
-                    cbatch, x_prop, torch.argmax(log_post_mid, dim=-1), ss, packed, impl, dtype)
+                    cbatch, x_prop, torch.argmax(log_post_mid, dim=-1), ss, packed, impl, dtype,
+                    cone_workspace)
                 pos0 = pos0 + 0.5 * (pos0_2 - pos0)
                 p_avg = 0.5 * (F.softmax(logits, dim=-1) + F.softmax(logits_2, dim=-1))
                 log_avg = torch.log(p_avg.clamp(min=D.LOG_EPS))
@@ -539,7 +545,8 @@ class DiffusionModel:
         (the reference's truncation at :649); 'ddim' and 'dpm2' stride the
         whole schedule over `num_steps` jumps (`sampling_schedule`), with
         position noise scaled by `eta`. impl='fast' runs each step on the
-        kernels, with the block weights packed once per run; 'eager' through
+        kernels, with the block weights packed and a `ConeWorkspace` for the
+        dependency cones made once per run; 'eager' through
         ScorePosNet.forward (the EGNN denoiser's path), None `self.impl`.
         dtype: the kernels' products, torch.bfloat16 (the default, as the
         JAX package's sample_diffusion) or torch.float32; 'eager' ignores
@@ -564,10 +571,11 @@ class DiffusionModel:
         if impl not in ("fast", "eager"):
             raise ValueError(f"impl must be 'fast' or 'eager', got {impl!r}")
         check_dtype(dtype)
-        packed = None
+        packed = cone_workspace = None
         if impl == "fast":
             require_kernels(self.config)
             packed = pack_block_params(self.net.refine_net, dtype)
+            cone_workspace = ConeWorkspace()
         coefs = None
         if sampler != "ddpm":
             betas = self.pos_sched.betas.cpu().numpy()
@@ -596,7 +604,8 @@ class DiffusionModel:
             out = self.sample_step(cbatch, pos, v, t, pos_noise, type_uniform, packed=packed,
                                    s=s, sampler=sampler,
                                    coefs=None if coefs is None else coefs[i], pos_only=pos_only,
-                                   return_v_probs=return_v_probs, impl=impl, dtype=dtype)
+                                   return_v_probs=return_v_probs, impl=impl, dtype=dtype,
+                                   cone_workspace=cone_workspace)
             pos, v = out[:2]
             if return_traj:
                 traj["pos_traj"][i] = pos + offset

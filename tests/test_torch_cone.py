@@ -4,7 +4,9 @@ and the block that computes only its rows, on the CPU.
 The cone's hops against a brute-force breadth-first search; its live rows
 inside the tiles JAX's `compute_tile_flags(..., num_layers=L)` marks live
 (TI = 8, 32), and equal to them at tiles of one row, where JAX's last-layer
-v9 rule is the rule of hop <= 1. The plain block with the cone
+v9 rule is the rule of hop <= 1; both also at the kernel's edge shapes (K =
+1, n_ligand = N, a fully masked complex; L = 1 and 29). A `ConeWorkspace`
+reused at three batch sizes gives a fresh call's Cone. The plain block with the cone
 (`block_forward(..., cone=...)`, the plain version of the block kernels'
 row lists) with every row outside a layer's set poisoned to NaN after the
 layer: its ligand outputs stay finite and equal to the all-live block's,
@@ -94,6 +96,21 @@ def graph(kind, seed, B=3, NP=56, NL=8, K=8):
 GRAPHS = [("knn", 0), ("knn", 1), ("random", 2), ("random", 3)]
 
 
+def edge_graph(case, seed=7):
+    """The kernel's edge shapes as random graphs: 'k1' one slot a row,
+    'ligand_only' n_ligand = N (every row hop 0), 'dead' a complex whose
+    slots are all masked (only its ligand tail is reached). Returns (idx,
+    mask, n_ligand)."""
+    K, NP, NL = (1, 56, 8) if case == "k1" else (8, 0, 24) if case == "ligand_only" else (8, 56, 8)
+    idx, mask, _ = graph("random", seed, NP=NP, NL=NL, K=K)
+    if case == "dead":
+        mask[1] = False
+    return idx, mask, NL
+
+
+EDGE_CASES = ["k1", "ligand_only", "dead"]
+
+
 @pytest.mark.parametrize("L", [1, 3, 9])
 @pytest.mark.parametrize("kind,seed", GRAPHS)
 def test_cone_hops_match_breadth_first_search(kind, seed, L):
@@ -103,9 +120,22 @@ def test_cone_hops_match_breadth_first_search(kind, seed, L):
     np.testing.assert_array_equal(got.numpy(), bfs_hops(idx, mask, NL, L))
 
 
-@pytest.mark.parametrize("kind,seed", GRAPHS)
+@pytest.mark.parametrize("L", [1, 29])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_cone_hops_match_breadth_first_search_at_edge_shapes(case, L):
+    idx, mask, NL = edge_graph(case)
+    got = kcone.cone_hops_plain(torch.tensor(idx), torch.tensor(mask), NL, L).numpy()
+    want = bfs_hops(idx, mask, NL, L)
+    np.testing.assert_array_equal(got, want)
+    if case == "ligand_only":
+        assert (got == 0).all()
+    if case == "dead":
+        assert (got[1, :-NL] == L + 2).all() and (got[1, -NL:] == 0).all()
+
+
+@pytest.mark.parametrize("kind,seed", GRAPHS + [(case, None) for case in EDGE_CASES])
 def test_cone_order_is_a_stable_sort_with_counts(kind, seed):
-    idx, mask, NL = graph(kind, seed)
+    idx, mask, NL = graph(kind, seed) if seed is not None else edge_graph(kind)
     cone = kcone.block_cone(torch.tensor(idx), torch.tensor(mask), NL, L_CONE)
     hop = cone.hop.numpy().reshape(-1)
     np.testing.assert_array_equal(cone.order.numpy(), np.argsort(hop, kind="stable"))
@@ -157,6 +187,38 @@ def test_cone_equals_jax_flags_at_one_row_tiles(kind, seed):
     v9 = np.asarray(compute_tile_flags(jnp.asarray(idx), jnp.asarray(mask), NL, tile=1,
                                        rtile=1))[:, -N:].astype(bool)
     np.testing.assert_array_equal(v9, hop <= 1)
+
+
+@pytest.mark.parametrize("L", [1, 29])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_cone_equals_jax_flags_at_one_row_tiles_at_edge_shapes(case, L):
+    """At the edge shapes JAX's per-layer flags at one-row tiles equal hop <=
+    L - l, layer by layer, up to L = 29 (MAX_LAYERS)."""
+    idx, mask, NL = edge_graph(case)
+    hop = kcone.cone_hops_plain(torch.tensor(idx), torch.tensor(mask), NL, L).numpy()
+    live, TI = jax_live_tiles(idx, mask, NL, L, 1)
+    assert TI == 1
+    for l in range(L):
+        np.testing.assert_array_equal(live[:, l], hop <= L - l)
+
+
+@pytest.mark.parametrize("kind,seed", GRAPHS)
+def test_cone_workspace_gives_a_fresh_calls_cone(kind, seed):
+    """Three calls in a row at different B through one ConeWorkspace: each
+    Cone equals a fresh call's and lives in the workspace's buffer, which
+    the first (largest) call allocated and the others reuse."""
+    idx, mask, NL = graph(kind, seed)
+    ws = kcone.ConeWorkspace()
+    buffer = None
+    for b in (3, 1, 2):
+        args = (torch.tensor(idx[:b]), torch.tensor(mask[:b]), NL, L_CONE)
+        got, want = kcone.block_cone(*args, workspace=ws), kcone.block_cone(*args)
+        buffer = ws.buffer if buffer is None else buffer
+        assert ws.buffer is buffer
+        for name, g, w in zip(want._fields, got, want):
+            assert torch.equal(g, w), (b, name)
+            assert g.untyped_storage().data_ptr() == buffer.untyped_storage().data_ptr()
+    assert kcone.block_cone(*args, workspace=ws).hop.data_ptr() == got.hop.data_ptr()
 
 
 def cone_batch(seed=0):

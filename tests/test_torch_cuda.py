@@ -1708,11 +1708,15 @@ def test_bf16_model_runs_eagerly_on_the_card(cuda):
 def _cone_graph(device, kind, B_, N, K, n_ligand, seed=0):
     """A graph for the cone kernel: 'knn' of atoms scattered over a 24 A cube
     with the ligand tail at the centre (a padded stretch, a one-atom
-    ligand), or 'random' neighbour lists with random masks."""
+    ligand), or 'random' neighbour lists with random masks; 'ligand_only'
+    random with every row in the ligand tail, 'dead' random with complex 1's
+    slots all masked."""
     rng = np.random.default_rng(seed)
-    if kind == "random":
+    if kind != "knn":
         idx = torch.tensor(rng.integers(0, N, (B_, N, K)), device=device)
         mask = torch.tensor(rng.random((B_, N, K)) < 0.7, device=device)
+        if kind == "dead":
+            mask[1] = False
         return G.Neighborhood(idx, mask)
     pos = rng.uniform(-12, 12, (B_, N, 3))
     pos[:, N - n_ligand:] = rng.normal(size=(B_, n_ligand, 3))
@@ -1723,28 +1727,61 @@ def _cone_graph(device, kind, B_, N, K, n_ligand, seed=0):
                        torch.tensor(mask, device=device), K)
 
 
-@pytest.mark.parametrize("kind,B_,N,K,L", [("knn", 3, 608, 32, 9), ("knn", 5, 130, 8, 2),
-                                           ("random", 2, 1100, 16, 4), ("random", 7, 45, 3, 1),
-                                           ("random", 2, 300, 40, 3), ("random", 1, 4000, 32, 5)])
+@pytest.mark.parametrize("kind,B_,N,K,L", [
+    ("knn", 3, 608, 32, 9), ("knn", 5, 130, 8, 2), ("random", 2, 1100, 16, 4),
+    ("random", 7, 45, 3, 1), ("random", 2, 300, 40, 3), ("random", 1, 4000, 32, 5),
+    # B = 1, the sampler's B = 100, L = 1 and 29 (MAX_LAYERS), K = 1, more
+    # complexes than one wave of co-resident blocks (the persistent blocks
+    # loop), n_ligand = N, a complex whose slots are all masked, K > 32 with
+    # lists too long for shared memory
+    ("knn", 1, 608, 32, 9), ("knn", 100, 608, 32, 9), ("knn", 4, 608, 32, 1),
+    ("knn", 4, 608, 32, 29), ("random", 3, 100, 1, 5), ("random", 1200, 64, 8, 3),
+    ("ligand_only", 3, 40, 8, 4), ("dead", 5, 300, 16, 4), ("random", 1, 3000, 40, 4)])
 def test_cone_kernel_matches_plain_bitwise(cuda, kind, B_, N, K, L):
     """cone_kernel's hop, order and counts equal the plain version's (the
     stable sort) bit for bit, N past one block's 512 rows included, with the
     neighbour lists in shared memory and (K > 32, or lists too long for it)
-    read from device memory; two calls equal; one counted call each."""
+    read from device memory; two calls equal; one counted call each, and
+    torch.profiler sees one cone_kernel launch a call; three calls in a row
+    at different B through one ConeWorkspace equal the plain version's, the
+    workspace allocated once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from targetdiff_tpu_torch.ops.kernels import cone as kcone
 
-    n_ligand = 32 if N > 100 else 8
+    n_ligand = N if kind == "ligand_only" else 32 if N > 100 else 8
     nbh = _cone_graph(cuda, kind, B_, N, K, n_ligand)
-    before = kcone.LAUNCHES
-    got = [kcone.cone_cuda(nbh.idx, nbh.mask, n_ligand, L) for _ in range(2)]
+    grid = kcone.cone_grid(B_, N)
+    resident = grid["blocks_per_sm"] * torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+    assert min(B_, resident) <= grid["grid"] <= resident
+    assert grid["adj_words"] == kcone._adj_words(N)
+    if B_ == 1200:
+        assert grid["grid"] < B_  # the blocks loop over complexes
+    kcone.cone_cuda(nbh.idx, nbh.mask, n_ligand, L)  # warm-up: the library loaded
     torch.cuda.synchronize()
+    before = kcone.LAUNCHES
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = [kcone.cone_cuda(nbh.idx, nbh.mask, n_ligand, L) for _ in range(2)]
+        torch.cuda.synchronize()
     assert kcone.LAUNCHES - before == 2
+    assert sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "cone_kernel" in e.key) == 2
     want = kcone.cone_plain(nbh.idx.cpu(), nbh.mask.cpu(), n_ligand, L)
     for a, b in zip(got[0], got[1]):
         assert torch.equal(a, b)
     for name, a, w in zip(want._fields, got[0], want):
         assert torch.equal(a.cpu(), w), name
     assert int(got[0].counts[0]) == B_ * n_ligand
+    ws, buffers = kcone.ConeWorkspace(), set()
+    for b in (B_, max(1, B_ // 2), B_):
+        cone = kcone.cone_cuda(nbh.idx[:b], nbh.mask[:b], n_ligand, L, ws)
+        buffers.add(ws.buffer.data_ptr())
+        want = kcone.cone_plain(nbh.idx[:b].cpu(), nbh.mask[:b].cpu(), n_ligand, L)
+        for name, a, w in zip(want._fields, cone, want):
+            assert torch.equal(a.cpu(), w), (b, name)
+    assert len(buffers) == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
