@@ -1088,6 +1088,10 @@ def main(argv) -> int:
            "source": "targetdiff_tpu_torch/csrc/weight_grad.cuh",
            "replaces": "targetdiff_tpu/ops/pallas/block_vjp.py:113", **fields}
           for cls, fields in train["weight_grad"].items()],
+        {"name": "block_vjp.stage_w2", "route": "cuda",
+         "source": "targetdiff_tpu_torch/csrc/pass_bwd.cuh",
+         "replaces": "targetdiff_tpu/ops/pallas/block_vjp.py:113", **train["stage_w2"],
+         **no_library},
         {"name": "block_vjp.adjacency", "route": "cuda",
          "source": "targetdiff_tpu_torch/csrc/pass_bwd.cuh",
          "replaces": "targetdiff_tpu/ops/pallas/block_vjp.py:113", **train["adjacency"],
@@ -1560,7 +1564,7 @@ def gate_short_phase(torch, dev) -> None:
 
     kknn.LAUNCHES = kblock.LAUNCHES = kblock.EW_LAUNCHES = kblock.TRAIN_LAUNCHES = 0
     kblock.BF16_LAUNCHES = kblock.BF16_EW_LAUNCHES = kcone.LAUNCHES = 0
-    kvjp.LAUNCHES = kvjp.NODE_BWD_LAUNCHES = kvjp.ADJ_LAUNCHES = 0
+    kvjp.LAUNCHES = kvjp.NODE_BWD_LAUNCHES = kvjp.ADJ_LAUNCHES = kvjp.STAGE_W2_LAUNCHES = 0
     kwg.LAUNCHES.update(dict.fromkeys(kwg.LAUNCHES, 0))
     node_since = kblock.node_launch_counts()
     t0 = time.perf_counter()
@@ -1571,7 +1575,7 @@ def gate_short_phase(torch, dev) -> None:
                 "block_bf16": kblock.BF16_LAUNCHES, "ew_bf16": kblock.BF16_EW_LAUNCHES,
                 "cone": kcone.LAUNCHES, "train_fwd": kblock.TRAIN_LAUNCHES, "vjp": kvjp.LAUNCHES,
                 "node_bwd": kvjp.NODE_BWD_LAUNCHES, "adj": kvjp.ADJ_LAUNCHES,
-                "weight_grad": dict(kwg.LAUNCHES),
+                "stage_w2": kvjp.STAGE_W2_LAUNCHES, "weight_grad": dict(kwg.LAUNCHES),
                 **dict(zip(("node", "node_bf16"),
                            np.subtract(kblock.node_launch_counts(), node_since).tolist()))}
     steps, L = GATE_SHORT["steps"], FLAGSHIP["num_layers"]
@@ -1581,7 +1585,7 @@ def gate_short_phase(torch, dev) -> None:
     want = {"knn": steps + sampling, "block": 0, "ew": 0, "block_bf16": sampling,
             "ew_bf16": sampling, "cone": sampling, "train_fwd": steps, "node": 4 * L * steps,
             "node_bf16": 2 * L * sampling,
-            "vjp": steps, "node_bwd": 2 * L * steps, "adj": 2 * steps,
+            "vjp": steps, "node_bwd": 2 * L * steps, "adj": 2 * steps, "stage_w2": steps,
             "weight_grad": {"x2h_edge": 3 * L * steps, "h2x_edge": 3 * L * steps,
                             "node": 4 * L * steps, "alone": 0}}
     if launches != want:
@@ -2890,6 +2894,58 @@ def tprod_phase(torch, dev, dtype=None) -> dict:
     return out
 
 
+def stage_w2_phase(torch, dev, dtype=None) -> dict:
+    """[train-block stage-w2] ([bf16-train-block stage-w2]): the second-layer
+    staging alone (block_vjp.stage_w2) as a whole-block backward runs it, one
+    launch for the flagship's 2L passes (x2h V = H and h2x V = heads
+    alternating, seeded weights of the flagship's scale, a pack of `dtype`):
+    bitwise equal to its plain version (`block_vjp.pass_words`, run on the
+    same card tensors) and to one launch a pass, two launches bitwise equal;
+    its CUDA-event and device ms beside its bound (`stage_w2_bytes`: bytes)
+    and the plain version's ms."""
+    from targetdiff_tpu_torch.ops.kernels import block_vjp as kvjp
+
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    H, L, heads = FLAGSHIP["hidden_dim"], FLAGSHIP["num_layers"], FLAGSHIP["n_heads"]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    widths = [heads if i % 2 else H for i in range(2 * L)]
+    w2k = [(torch.randn((H, H), generator=gen, device=dev) * H ** -0.5).to(dtype)
+           for _ in widths]
+    w2v = [(torch.randn((H, V), generator=gen, device=dev) * H ** -0.5).to(dtype)
+           for V in widths]
+    counter = "BF16_STAGE_W2_LAUNCHES" if bf16 else "STAGE_W2_LAUNCHES"
+    before = getattr(kvjp, counter)
+    got = kvjp.stage_w2(w2k, w2v, dtype)
+    again = kvjp.stage_w2(w2k, w2v, dtype)
+    torch.cuda.synchronize()
+    if getattr(kvjp, counter) - before != 2:
+        raise AssertionError(f"stage-w2: {getattr(kvjp, counter) - before} launches for two "
+                             f"stagings of {len(widths)} passes (want 2)")
+
+    def plain():
+        return torch.stack([kvjp.pass_words(k, v, dtype) for k, v in zip(w2k, w2v)])
+
+    want = plain()
+    one = torch.cat([kvjp.stage_w2([k], [v], dtype) for k, v in zip(w2k, w2v)])
+    label = "bf16 stage-w2" if bf16 else "stage-w2"
+    for name, other in (("a second launch", again), ("the plain layouts", want),
+                        ("one launch a pass", one)):
+        if not torch.equal(got, other):
+            raise AssertionError(f"{label}: the staged words differ from {name}")
+    frags = torch.zeros_like(got)
+    b = bound((0, 0), sum(stage_w2_bytes(V, 2 if bf16 else 4) for V in widths))
+    out = {"passes": len(widths), "launches_per_staging": 1, "max_abs_err": 0.0,
+           "bitwise_equal_plain": True, "bitwise_equal_one_launch_a_pass": True,
+           "ms": cuda_ms(torch, lambda: kvjp.stage_w2(w2k, w2v, dtype, frags)),
+           "device_ms": kernel_device_ms(torch, lambda: kvjp.stage_w2(w2k, w2v, dtype, frags),
+                                         "stage_w2_kernel", calls=20),
+           "plain_ms": cuda_ms(torch, plain, reps=5), **b}
+    del got, again, want, one, frags
+    torch.cuda.empty_cache()
+    return out
+
+
 def tprod_entry(tprod: dict) -> dict:
     """The kernels line's fields of the transposed product alone (tprod_phase)
     in the backward's entry: x2h's, and h2x's under tprod_h2x_."""
@@ -2954,6 +3010,12 @@ def weight_grad_phase(torch, dev, dtype=None) -> dict:
         for key, fn in runs.items():
             f[f"{key}ms"] = cuda_ms(torch, fn)
             f[f"{key}device_ms"] = device_ms(torch, fn)
+        # the call's two kernels apart (the profiler counts the reduction's
+        # wait for the product, a programmatic dependent, as its time) and the
+        # split: row chunks, clusters, the partials reduce_kernel sums
+        for part, piece in (("weight_grad", "weight_grad_kernel"), ("reduce", "::reduce_kernel")):
+            f[f"{part}_device_ms"] = kernel_device_ms(torch, runs[""], piece)
+        f.update({f"split_{k}": v for k, v in kwg.plan(M, P, Q, **kw).items()})
         f.update(bound((2 * M * P * Q, 0), 4 * (M * P + M * Q + P * Q),
                        PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS))
         products[f"{cls} {name}"] = f
@@ -2962,8 +3024,8 @@ def weight_grad_phase(torch, dev, dtype=None) -> dict:
     classes = {}
     for cls in ("x2h_edge", "h2x_edge", "node"):
         rows = [f for f in products.values() if f["class"] == cls]
-        keys = ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms") + (
-            ("float32_ms",) if bf16 else ())
+        keys = ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms", "weight_grad_device_ms",
+                "reduce_device_ms") + (("float32_ms",) if bf16 else ())
         mean = {k: float(np.mean([f[k] for f in rows])) for k in keys}
         classes[cls] = dict(max_abs_err=max(f["max_abs_err"] for f in rows), **mean,
                             bound_by="bytes" if all(f["bound_by"] == "bytes" for f in rows)
@@ -3201,6 +3263,8 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
           **adjacency)
     tprod = tprod_phase(torch, dev)
     phase("train-block tprod", bar_over_rss=TPROD_BAR, **tprod)
+    stage = stage_w2_phase(torch, dev)
+    phase("train-block stage-w2", **stage)
 
     # ---- [train-loss]: the whole loss, kernel path vs eager path, injected draws ----
     # (the per-layer path's parity on the same draws is reported in [train-pl])
@@ -3220,7 +3284,7 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     torch.cuda.empty_cache()
     before = [p.detach().clone() for p in tmodel.parameters()]
     kknn.LAUNCHES = kblock.LAUNCHES = kblock.TRAIN_LAUNCHES = kvjp.LAUNCHES = 0
-    kvjp.NODE_BWD_LAUNCHES = kvjp.ADJ_LAUNCHES = 0
+    kvjp.NODE_BWD_LAUNCHES = kvjp.ADJ_LAUNCHES = kvjp.STAGE_W2_LAUNCHES = 0
     kwg.LAUNCHES.update(dict.fromkeys(kwg.LAUNCHES, 0))
     for _ in range(TRAIN_WARMUP):
         state, metrics = step(state, tb, tgen)
@@ -3233,7 +3297,7 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     train_s = time.perf_counter() - t0
     launches = {"knn": kknn.LAUNCHES, "train_fwd": kblock.TRAIN_LAUNCHES, "vjp": kvjp.LAUNCHES,
                 "node_bwd": kvjp.NODE_BWD_LAUNCHES, "adj": kvjp.ADJ_LAUNCHES,
-                "weight_grad": dict(kwg.LAUNCHES)}
+                "stage_w2": kvjp.STAGE_W2_LAUNCHES, "weight_grad": dict(kwg.LAUNCHES)}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     m = {k: float(v) for k, v in metrics.items()}
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
@@ -3245,6 +3309,9 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
         raise AssertionError(f"train: expected a node_bwd_kernel launch per pass, {launches}")
     if launches["adj"] != 2 * n_steps:
         raise AssertionError(f"train: expected two adjacency builds per step, {launches}")
+    if launches["stage_w2"] != n_steps:
+        raise AssertionError(f"train: expected one second-layer staging launch per step (all "
+                             f"2L passes), {launches}")
     # per step and layer: three edge products in each pass, two node products in each
     if launches["weight_grad"] != {"x2h_edge": 3 * L * n_steps, "h2x_edge": 3 * L * n_steps,
                                    "node": 4 * L * n_steps, "alone": 0}:
@@ -3287,7 +3354,7 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kknn.LAUNCHES = kblock.TRAIN_LAUNCHES = kvjp.LAUNCHES = kvjp.NODE_BWD_LAUNCHES = 0
-    kvjp.ADJ_LAUNCHES = 0
+    kvjp.ADJ_LAUNCHES = kvjp.STAGE_W2_LAUNCHES = 0
     kel.X2H_LAUNCHES = kel.H2X_LAUNCHES = kelv.X2H_BWD_LAUNCHES = kelv.H2X_BWD_LAUNCHES = 0
     kwg.LAUNCHES.update(dict.fromkeys(kwg.LAUNCHES, 0))
     t0 = time.perf_counter()
@@ -3299,13 +3366,13 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
                    "x2h_bwd": kelv.X2H_BWD_LAUNCHES, "h2x_bwd": kelv.H2X_BWD_LAUNCHES,
                    "block_fwd": kblock.TRAIN_LAUNCHES, "block_vjp": kvjp.LAUNCHES,
                    "node_bwd": kvjp.NODE_BWD_LAUNCHES, "adj": kvjp.ADJ_LAUNCHES,
-                   "weight_grad": dict(kwg.LAUNCHES)}
+                   "stage_w2": kvjp.STAGE_W2_LAUNCHES, "weight_grad": dict(kwg.LAUNCHES)}
     pl_peak = torch.cuda.max_memory_allocated() / 2**30
     per_step = TRAIN_PL_STEPS * FLAGSHIP["num_layers"]
     if (any(pl_launches[k] != per_step for k in ("x2h", "h2x", "x2h_bwd", "h2x_bwd"))
             or pl_launches["block_fwd"] or pl_launches["block_vjp"]
             or pl_launches["knn"] != TRAIN_PL_STEPS or pl_launches["node_bwd"] != 2 * per_step
-            or pl_launches["adj"] != 2 * per_step
+            or pl_launches["adj"] != 2 * per_step or pl_launches["stage_w2"] != 2 * per_step
             or pl_launches["weight_grad"] != {"x2h_edge": 3 * per_step, "h2x_edge": 3 * per_step,
                                               "node": 4 * per_step, "alone": 0}):
         raise AssertionError(f"train-pl: expected each per-layer kernel once per layer and "
@@ -3395,6 +3462,9 @@ def train_phases(torch, dev, model, rn, h, x, nbh, mask_ligand, node_mask, batch
                     "plain_ms": bwd_plain_ms, **bwd_bound, **tprod_entry(tprod)},
             "weight_grad": {cls: {"launches": train_launches["weight_grad"][cls], **fields}
                             for cls, fields in wgrad["classes"].items()},
+            "stage_w2": {"launches": train_launches["stage_w2"], **{
+                k: stage[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                      "device_ms", "passes")}},
             "node_bwd": {"launches": train_launches["node_bwd"],
                          "max_abs_err": max(f["max_abs_err"] for f in node_bwd.values()),
                          **{k: node_bwd["x2h"][k]
@@ -3749,6 +3819,7 @@ def bf16_layers_bwd_phase(torch, dev, pocket, feat_dim) -> dict:
     per = BF16_LAYER_STEPS * L
     want = {"knn": 0, "x2h_bf16": per, "h2x_bf16": per, "x2h_bwd_bf16": per,
             "h2x_bwd_bf16": per, "node_bwd_bf16": 2 * per, "adj": 2 * per,
+            "stage_w2_bf16": 2 * per,  # one staging launch a per-layer backward
             "node_bf16": 4 * per}  # both passes' forwards and the backward's recomputes
     if any(launches[k] != v for k, v in want.items()) or any(
             launches[k] for k in FLOAT32_TRAIN_COUNTS) or launches["weight_grad_bf16"] != {
@@ -3767,7 +3838,7 @@ def bf16_layers_bwd_phase(torch, dev, pocket, feat_dim) -> dict:
 # the training kernels' launch counts: float32 ones, which the bf16 path never
 # launches, and the bf16 ones
 FLOAT32_TRAIN_COUNTS = ("train_fwd", "vjp", "node_bwd", "x2h", "h2x", "x2h_bwd", "h2x_bwd",
-                        "node")
+                        "node", "stage_w2")
 
 
 _NODE_SINCE = [0, 0]  # the library's node launch counts at the last reset_train_counts
@@ -3806,6 +3877,7 @@ def train_counts() -> dict:
             "train_fwd_bf16": kblock.BF16_TRAIN_LAUNCHES, "vjp": kvjp.LAUNCHES,
             "vjp_bf16": kvjp.BF16_LAUNCHES, "node_bwd": kvjp.NODE_BWD_LAUNCHES,
             "node_bwd_bf16": kvjp.BF16_NODE_BWD_LAUNCHES, "adj": kvjp.ADJ_LAUNCHES,
+            "stage_w2": kvjp.STAGE_W2_LAUNCHES, "stage_w2_bf16": kvjp.BF16_STAGE_W2_LAUNCHES,
             "x2h": kel.X2H_LAUNCHES, "h2x": kel.H2X_LAUNCHES, "x2h_bf16": kel.BF16_X2H_LAUNCHES,
             "h2x_bf16": kel.BF16_H2X_LAUNCHES, "x2h_bwd": kelv.X2H_BWD_LAUNCHES,
             "h2x_bwd": kelv.H2X_BWD_LAUNCHES, "x2h_bwd_bf16": kelv.BF16_X2H_BWD_LAUNCHES,
@@ -3906,7 +3978,8 @@ def bf16_train_phase(torch, dev, pocket, feat_dim) -> dict:
     launches = runs["fast_bf16"]["launches"]
     L, n = FLAGSHIP["num_layers"], BF16_TRAIN_STEPS
     want = {"knn": n, "train_fwd_bf16": n, "vjp_bf16": n, "node_bwd_bf16": 2 * L * n,
-            "adj": 2 * n, "node_bf16": 4 * L * n}  # forward and recompute, both passes
+            "adj": 2 * n, "stage_w2_bf16": n,  # one staging launch a backward
+            "node_bf16": 4 * L * n}  # forward and recompute, both passes
     if any(launches[k] != v for k, v in want.items()) or any(
             launches[k] for k in FLOAT32_TRAIN_COUNTS) or launches["weight_grad_bf16"] != {
             "x2h_edge": 3 * L * n, "h2x_edge": 3 * L * n, "node": 4 * L * n, "alone": 0} or any(
@@ -4015,6 +4088,8 @@ def bf16_train_phases(torch, dev, rn, h, x, nbh, mask_ligand, node_mask, pocket,
     phase("bf16-train-block node-bwd", bar_over_scale=NODE16_BAR, **node)
     tprod = tprod_phase(torch, dev, torch.bfloat16)
     phase("bf16-train-block tprod", bar_over_rss=TPROD_BAR, **tprod)
+    stage = stage_w2_phase(torch, dev, torch.bfloat16)
+    phase("bf16-train-block stage-w2", **stage)
     layers = bf16_layers_bwd_phase(torch, dev, pocket, feat_dim)
     train = bf16_train_phase(torch, dev, pocket, feat_dim)
     launches, pl = train["launches"], layers["launches"]
@@ -4029,6 +4104,9 @@ def bf16_train_phases(torch, dev, rn, h, x, nbh, mask_ligand, node_mask, pocket,
         *[(f"block_vjp.weight_grad_bf16_{cls}", "targetdiff_tpu_torch/csrc/weight_grad.cuh",
            "targetdiff_tpu/ops/pallas/block_vjp.py:113", launches["weight_grad_bf16"][cls], f,
            {}) for cls, f in wgrad["classes"].items()],
+        ("block_vjp.stage_w2_bf16", "targetdiff_tpu_torch/csrc/pass_bwd.cuh",
+         "targetdiff_tpu/ops/pallas/block_vjp.py:113", launches["stage_w2_bf16"], stage,
+         no_library),
         ("block_vjp.node_bwd_bf16", "targetdiff_tpu_torch/csrc/node_bwd.cuh",
          "targetdiff_tpu/ops/pallas/edge_layer_vjp.py:153", launches["node_bwd_bf16"],
          dict(node["x2h"], max_abs_err=max(f["max_abs_err"] for f in node.values()),
@@ -4041,7 +4119,8 @@ def bf16_train_phases(torch, dev, rn, h, x, nbh, mask_ligand, node_mask, pocket,
          layers["h2x_bwd"], no_library),
     ]
     keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "float32_ms",
-            "device_ms", "float32_device_ms", "max_over_scale", "median_over_scale",
+            "device_ms", "float32_device_ms", "weight_grad_device_ms", "reduce_device_ms",
+            "passes", "max_over_scale", "median_over_scale",
             "max_over_scale_vs_float64", "dh_mm_ms", "timed_case")
     return [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": n, **{k: v for k, v in f.items() if k in keep}, **extra}
@@ -4378,18 +4457,16 @@ def profile_train(torch, dev, feat_dim) -> dict:
 
 
 def reduce_shapes(products, colsum_m, colsum_q) -> list:
-    """The partials reduce_kernel sums in one pass (csrc/weight_grad.cuh
-    weight_grad and csrc/pass_bwd.cuh colsum, their chunk rules), as (S, n):
-    S partials of n floats for each weight-gradient product (M, P, Q) and
-    for the column sums of the row buffer [colsum_m, colsum_q]."""
-    cap, out = 1 << 22, []
-    for m, p, q in products:
-        tiles = -(-p // 128) * -(-q // 128)
-        s = min(-(-2 * 132 // tiles), cap // (p * q))
-        chunk = -(-max(-(-m // s), 256) // 32) * 32
-        out.append((-(-m // chunk), p * q))
-    s = max(min(-(-colsum_m // 256), -(-528 // -(-colsum_q // 256)), cap // colsum_q), 1)
-    return out + [(s, colsum_q)]
+    """The partials reduce_kernel sums in one pass of the float32 backward,
+    as (S, n): S partials of n floats for each weight-gradient product (M, P,
+    Q), one a cluster of its row chunks (csrc/weight_grad.cuh wg_plan, read
+    from the library: `weight_grad.plan`), and for the column sums of the
+    row buffer [colsum_m, colsum_q] (csrc/pass_bwd.cuh colsum:
+    `colsum_partials`)."""
+    from targetdiff_tpu_torch.ops.kernels import weight_grad as kwg
+
+    return [(kwg.plan(m, p, q)["partials"], p * q) for m, p, q in products] + [
+        (kwg.colsum_partials(colsum_m, colsum_q), colsum_q)]
 
 
 def reduce_bytes(products, colsum_m, colsum_q) -> float:
@@ -4410,15 +4487,21 @@ def bwd_kernel_rows(torch, tb, tmodel, rows) -> dict:
     the adjacency (per build: build_adjacency's three kernels), the stable
     torch.sort by source of adjacency_plain (not the same function).
     node_bwd_kernel, gather_kernel, colsum_kernel, the adjacency,
-    stage_w2_kernel, stage_rbf_kernel and reduce_kernel (six a pass) run
-    per pass: their bound and library time are the mean of an x2h and an
-    h2x pass."""
+    stage_rbf_kernel and reduce_kernel (six a pass) run per pass: their
+    bound and library time are the mean of an x2h and an h2x pass;
+    stage_w2_kernel runs once a backward, for its 2L passes. Also
+    `weight_grad_and_reduce`: the products' and their reductions' device ms
+    a step together, and reduce_kernel's partials (from the library's plan,
+    by pass, the column sums' last) and its device ms a launch alone on them
+    (`weight_grad.reduce_partials`: no wait for a product)."""
     from targetdiff_tpu_torch.ops import graph as G
+    from targetdiff_tpu_torch.ops.kernels import weight_grad as kwg
 
     with torch.no_grad():
         _, x, node_mask, _ = tmodel.net.embed(*tb)
         nbh = G.knn_graph(x, node_mask, K)
     nb, n = x.shape[:2]
+    L = FLAGSHIP["num_layers"]
     bn, row0, fe, f4 = nb * n, n - MAX_LIGAND, 4 * RK + 4, 4
     lig_rows, src, _ = h2x_rows(torch, nbh, row0)
     live = {"x2h": int(nbh.mask.sum()), "h2x": int(nbh.mask[:, row0:].sum())}
@@ -4448,9 +4531,10 @@ def bwd_kernel_rows(torch, tb, tmodel, rows) -> dict:
             "colsum": bound((0, bn * row_w), f4 * (bn * row_w + row_w)),
             # the pass's idx and nmask read, off and the live edges' list entries written
             "adj": bound((0, 0), adj_edges[sub] * 9 + live[sub] * f4 + nb * (n + 1) * f4),
-            # w2k [H, H] and w2v [H, V] read, their fp16 (hi, lo) fragments and
-            # their float32 transposes (the transposed product's) written
-            "stage_w2": bound((0, 0), 3 * f4 * HW * (HW + v)),
+            # one launch a backward: every pass's w2k [H, H] and w2v [H, V] read,
+            # its fragments and transposes written (`stage_w2_bytes`), both kinds
+            # of pass L times each
+            "stage_w2": bound((0, 0), L * sum(stage_w2_bytes(V) for V in width.values())),
             # w_rbf [4, R, 2H] read, its TF32 (hi, lo) fragments (two layouts) written
             "stage_rbf": bound((0, 0), f4 * 4 * RK * 2 * HW + 16 * 2 * (2 * HW // 8)
                                * (2 * RK // 8) * 32),
@@ -4469,9 +4553,16 @@ def bwd_kernel_rows(torch, tb, tmodel, rows) -> dict:
         per_pass[sub]["colsum_library_ms"] = device_ms(torch, lambda: torch.sum(rowbuf, 0))
         # reduce_kernel's function: torch.sum of each of its six launches'
         # partials [S, n] over their first dimension, the mean a launch
-        partials = [torch.randn((S, n_), device=x.device) for S, n_ in reduce_shapes(*reduce_args)]
+        shapes = reduce_shapes(*reduce_args)
+        per_pass[sub]["reduce_partials"] = [S for S, _ in shapes]
+        partials = [torch.randn((S, n_), device=x.device) for S, n_ in shapes]
         per_pass[sub]["reduce_library_ms"] = float(np.mean(
-            [device_ms(torch, lambda p=p: torch.sum(p, 0)) for p in partials]))
+            [device_ms(torch, lambda p=p: torch.sum(p, 0)) for p in partials])) if shapes else None
+        # reduce_kernel alone on the same partials (no product before it to
+        # wait for), the mean a launch
+        per_pass[sub]["reduce_alone_ms"] = float(np.mean(
+            [kernel_device_ms(torch, lambda p=p: kwg.reduce_partials(p), "::reduce_kernel",
+                              calls=20) for p in partials])) if shapes else None
         del partials
         first = row0 if sub == "h2x" else 0
         key = torch.where(nbh.mask[:, first:].reshape(nb, -1), nbh.idx[:, first:].reshape(nb, -1),
@@ -4502,9 +4593,30 @@ def bwd_kernel_rows(torch, tb, tmodel, rows) -> dict:
         launches = 2 if name == "adjacency" else r["launches"]
         out[name] = {"ms_per_launch": r["ms"] / max(launches, 1), "launches_per_step": launches,
                      "kernel_launches_per_step": r["launches"], **b,
-                     "library_ms": mean(library, None) if library else None}
+                     "library_ms": (mean(library, None) if library and all(
+                         per_pass[sub_][library] is not None for sub_ in width) else None)}
+    # the products and their reductions together (under programmatic
+    # dependent launch the profiler counts the reduction's wait as its time)
+    out["reduce_kernel"]["partials_x2h_h2x"] = [per_pass[sub]["reduce_partials"] for sub in width]
+    out["reduce_kernel"]["alone_ms"] = (mean("reduce_alone_ms", None) if all(
+        per_pass[sub]["reduce_alone_ms"] is not None for sub in width) else None)
+    out["weight_grad_and_reduce"] = {
+        "ms_per_step": rows["weight_grad_kernel"]["ms"] + rows["reduce_kernel"]["ms"],
+        "weight_grad_ms_per_step": rows["weight_grad_kernel"]["ms"],
+        "reduce_ms_per_step": rows["reduce_kernel"]["ms"],
+        "launches_per_step": rows["weight_grad_kernel"]["launches"] + rows["reduce_kernel"][
+            "launches"]}
     out["live_edges"], out["h2x_rows"], out["h2x_sources"] = live, lig_rows, src
     return out
+
+
+def stage_w2_bytes(V: int, elem: int = 4) -> int:
+    """Bytes stage_w2_kernel moves for one pass of value width V: w2k [H, H]
+    and w2v [H, V] of `elem` bytes read once; float32 (elem 4): their fp16
+    (hi, lo) fragments (512 bytes a column) and float32 transposes written,
+    bf16 (elem 2): their 8-byte fragments and their transposes' (256 bytes a
+    column each), 3 elem H (H + V) in both."""
+    return 3 * elem * HW * (HW + V)
 
 
 def profile_block(torch, dev, model, pocket, feat_dim) -> list:
@@ -4556,6 +4668,11 @@ def profile_block(torch, dev, model, pocket, feat_dim) -> list:
 # profiler's kernel names)
 BWD_PIECES = (("wgrad", ("weight_grad_kernel", "atb_kernel")),
               ("reduce", ("(anonymous namespace)::reduce_kernel",)),
+              # the products and their reductions together: under programmatic
+              # dependent launch the profiler counts a reduction's wait as its time
+              ("wgrad_reduce", ("weight_grad_kernel", "atb_kernel",
+                                "(anonymous namespace)::reduce_kernel")),
+              ("stage_w2", ("stage_w2_kernel",)),
               ("edge_bwd_x2h", ("edge_bwd_kernel<false",)),
               ("edge_bwd_h2x", ("edge_bwd_kernel<true",)), ("node_bwd", ("node_bwd_kernel",)),
               ("adj", ("adj_",)))
@@ -4564,10 +4681,10 @@ BWD_PIECES = (("wgrad", ("weight_grad_kernel", "atb_kernel")),
 def bwd_device_ms(torch, label, fn, calls=10) -> dict:
     """Device ms per call of fn spent in the weight-gradient products
     (weight_grad_kernel, or atb_kernel before it), in reduce_kernel (which
-    also sums the bias and LayerNorm column sums), in the x2h and h2x
-    edge_bwd_kernel, in node_bwd_kernel and in the inverse adjacency's
-    kernels (adj_*, or adj_kernel before them), over `calls` traced calls
-    after one warm-up call."""
+    also sums the bias and LayerNorm column sums), in both together, in
+    stage_w2_kernel, in the x2h and h2x edge_bwd_kernel, in node_bwd_kernel
+    and in the inverse adjacency's kernels (adj_*, or adj_kernel before
+    them), over `calls` traced calls after one warm-up call."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -4656,10 +4773,11 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
     sampling steps in bf16 (host clock); 10 kNN
     B=100 sampling steps in bf16 and in float32 (`profile`: host and device
     ms per step, node_kernel's, the x2h and h2x edge kernels' and
-    cone_kernel's device ms, the x2h edge and node launches one by one) and the B=32 `fast_bf16` and
-    `fast` steps (`step_fields`: host ms over 10 steps after 3; device ms,
-    node_kernel's and edge_bwd_kernel's over 3); the quality gate's float32
-    `fast` step at its own padding."""
+    cone_kernel's device ms, the x2h edge and node launches one by one) and the B=32 `fast_bf16`,
+    `fast` and `fast_pl` steps (`step_fields`: host ms over 10 steps after 3;
+    device ms, node_kernel's, edge_bwd_kernel's, the weight-gradient
+    products' and reductions' and stage_w2_kernel's over 3); the quality
+    gate's float32 `fast` step at its own padding."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -4945,6 +5063,7 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
                               impl="fast_bf16")
     gmodel = qg.build_model(dev)
     steps = {"train_fast": (tmodel, step, tb, 10), "train_bf16": (tmodel, bf_step, tb, 10),
+             "train_pl": (tmodel, pl_step, tb, 10),
              "gate_train": (gmodel, make_train_step(gmodel, pos_noise_std=0.1),
                             qg.ComplexBatch(*[t[:qg.BATCH] for t in qg.make_pool().to(dev)]), 20)}
     for label, (m, step_fn, batch_, reps) in steps.items():
@@ -4957,8 +5076,9 @@ def duel(torch, dev, setup, pocket, feat_dim) -> dict:
 def step_fields(torch, step, state, batch, gen, reps) -> dict:
     """A train step's host ms over `reps` steps after TRAIN_WARMUP, and its
     device ms, node_kernel's (the forward and the backward's recompute, both
-    passes) and the x2h and h2x edge_bwd_kernel's device ms per step over 3
-    traced steps."""
+    passes), the x2h and h2x edge_bwd_kernel's, the weight-gradient
+    products', reduce_kernel's, both together and stage_w2_kernel's device
+    ms per step (and the last two's launches) over 3 traced steps."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -4980,7 +5100,14 @@ def step_fields(torch, step, state, batch, gen, reps) -> dict:
                                            if "node_kernel" in k),
                **{f"edge_bwd_{sub}_device_ms_per_step": sum(
                    v["ms"] for k, v in times.items() if f"edge_bwd_kernel<{h2x}" in k)
-                  for sub, h2x in (("x2h", "false"), ("h2x", "true"))})
+                  for sub, h2x in (("x2h", "false"), ("h2x", "true"))},
+               **{f"{key}_device_ms_per_step": sum(v["ms"] for k, v in times.items()
+                                                   if any(pc in k for pc in pieces))
+                  for key, pieces in BWD_PIECES if key in ("wgrad", "reduce", "wgrad_reduce",
+                                                           "stage_w2")},
+               **{f"{key}_launches_per_step": sum(v["launches"] for k, v in times.items()
+                                                  if any(pc in k for pc in pieces))
+                  for key, pieces in BWD_PIECES if key in ("reduce", "stage_w2")})
     return out
 
 

@@ -44,19 +44,19 @@ NODE_CASES = {"x2h_B32": (13312, 128), "h2x_B32": (13312, 16), "block_x2h": (243
 NODE_TERMS = """        mma_tf32(d, al[mt], bh0, bh1);
         mma_tf32(d, ah[mt], bl0, bl1);
 """
-EW_TERMS = """          mma_tf32(d, al, wf.x, wf.y);
-          mma_tf32(d, ah, wf.z, wf.w);
+EW_TERMS = """            mma_tf32(d, al, wf.x, wf.y);
+            mma_tf32(d, ah, wf.z, wf.w);
 """
-EW_SUM = """          float d[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_tf32(d, al, wf.x, wf.y);
-          mma_tf32(d, ah, wf.z, wf.w);
-          mma_tf32(d, ah, wf.x, wf.y);
+EW_SUM = """            float d[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_tf32(d, al, wf.x, wf.y);
+            mma_tf32(d, ah, wf.z, wf.w);
+            mma_tf32(d, ah, wf.x, wf.y);
 #pragma unroll
-          for (int c = 0; c < 4; ++c) acc[nt][c] += d[c];
+            for (int c = 0; c < 4; ++c) acc[nt][c] += d[c];
 """
-EW_MMA_SUM = """          mma_tf32(acc[nt], al, wf.x, wf.y);
-          mma_tf32(acc[nt], ah, wf.z, wf.w);
-          mma_tf32(acc[nt], ah, wf.x, wf.y);
+EW_MMA_SUM = """            mma_tf32(acc[nt], al, wf.x, wf.y);
+            mma_tf32(acc[nt], ah, wf.z, wf.w);
+            mma_tf32(acc[nt], ah, wf.x, wf.y);
 """
 # the operands' TF32 splits taken out (lo = hi; wrong results, timing only)
 NO_SPLIT = """__device__ __forceinline__ void nb_no_split(float x, uint32_t& hi, uint32_t& lo) {
@@ -68,34 +68,34 @@ NODE_KSTEPS = "#pragma unroll 1\n  for (int k0 = 0; k0 < kNbK; k0 += 8) {"
 # the first layer with n-tiles outside and the three k-steps' A fragments
 # held in registers
 EW_KS_OUTER = """#pragma unroll
-      for (int ks = 0; ks < kEwKSteps; ++ks) {
-        // A: (g, tig), (g + 8, tig), (g, tig + 4), (g + 8, tig + 4)
-        const float* ar = tile + (16 * mt + g) * kEwLd + 8 * ks + tig;
-        uint32_t ah[4], al[4];
-        split_tf32(ar[0], ah[0], al[0]);
-        split_tf32(ar[8 * kEwLd], ah[1], al[1]);
-        split_tf32(ar[4], ah[2], al[2]);
-        split_tf32(ar[8 * kEwLd + 4], ah[3], al[3]);
+        for (int ks = 0; ks < kEwKSteps; ++ks) {
+          // A: (g, tig), (g + 8, tig), (g, tig + 4), (g + 8, tig + 4)
+          const float* ar = tile + (16 * mt + g) * kEwLd + 8 * ks + tig;
+          uint32_t ah[4], al[4];
+          split_tf32(ar[0], ah[0], al[0]);
+          split_tf32(ar[8 * kEwLd], ah[1], al[1]);
+          split_tf32(ar[4], ah[2], al[2]);
+          split_tf32(ar[8 * kEwLd + 4], ah[3], al[3]);
 #pragma unroll
-        for (int nt = 0; nt < kEwNT; ++nt) {
-          const uint4 wf = S.w1f[(ks * kEwNT + nt) * 32 + lane];
+          for (int nt = 0; nt < kEwNT; ++nt) {
+            const uint4 wf = S.w1f[(ks * kEwNT + nt) * 32 + lane];
 """
-EW_NT_OUTER = """      uint32_t ahs[kEwKSteps][4], als[kEwKSteps][4];
-#pragma unroll
-      for (int ks = 0; ks < kEwKSteps; ++ks) {
-        const float* ar = tile + (16 * mt + g) * kEwLd + 8 * ks + tig;
-        split_tf32(ar[0], ahs[ks][0], als[ks][0]);
-        split_tf32(ar[8 * kEwLd], ahs[ks][1], als[ks][1]);
-        split_tf32(ar[4], ahs[ks][2], als[ks][2]);
-        split_tf32(ar[8 * kEwLd + 4], ahs[ks][3], als[ks][3]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < kEwNT; ++nt) {
+EW_NT_OUTER = """        uint32_t ahs[kEwKSteps][4], als[kEwKSteps][4];
 #pragma unroll
         for (int ks = 0; ks < kEwKSteps; ++ks) {
-          const uint32_t(&ah)[4] = ahs[ks];
-          const uint32_t(&al)[4] = als[ks];
-          const uint4 wf = S.w1f[(ks * kEwNT + nt) * 32 + lane];
+          const float* ar = tile + (16 * mt + g) * kEwLd + 8 * ks + tig;
+          split_tf32(ar[0], ahs[ks][0], als[ks][0]);
+          split_tf32(ar[8 * kEwLd], ahs[ks][1], als[ks][1]);
+          split_tf32(ar[4], ahs[ks][2], als[ks][2]);
+          split_tf32(ar[8 * kEwLd + 4], ahs[ks][3], als[ks][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < kEwNT; ++nt) {
+#pragma unroll
+          for (int ks = 0; ks < kEwKSteps; ++ks) {
+            const uint32_t(&ah)[4] = ahs[ks];
+            const uint32_t(&al)[4] = als[ks];
+            const uint4 wf = S.w1f[(ks * kEwNT + nt) * 32 + lane];
 """
 
 
@@ -123,7 +123,7 @@ VARIANTS = {
     # ablations of ew_kernel's design
     "ew_nt_outer": (EW, lambda s: patch(s, EW_KS_OUTER, EW_NT_OUTER)),
     "ew_ks_unroll1": (EW, lambda s: patch(s, EW_KS_OUTER, EW_KS_OUTER.replace(
-        "#pragma unroll\n      for (int ks", "#pragma unroll 1\n      for (int ks"))),
+        "#pragma unroll\n        for (int ks", "#pragma unroll 1\n        for (int ks"))),
     # the three k-steps' terms accumulated in the mma, no float32 adds
     "ew_mma_accumulator": (EW, lambda s: patch(s, EW_SUM, EW_MMA_SUM)),
     "ew_one_block_per_sm": (EW, lambda s: patch(

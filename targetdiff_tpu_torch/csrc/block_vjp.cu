@@ -29,7 +29,9 @@
 // h = hck[l+1], x = xck[l]) then the x2h pass (all rows, h = hck[l]), each
 // one run_pass of pass_bwd.cuh (node recompute, edge backward, the
 // deterministic source gather, node backward, weight-gradient products);
-// the inverse adjacencies of both passes are built once per backward.
+// the inverse adjacencies of both passes are built once per backward, and
+// the 2L passes' second layers are staged by one stage_w2_kernel launch
+// before the first pass.
 //
 // bf16 (td_block_bwd_bf16): the VJP of td_block_train_fwd_bf16, the JAX
 // package's bf16 training variant (_block_bwd_kernel at cd=bf16): every
@@ -37,13 +39,17 @@
 // accumulation (run_pass<kH2X, true>), the checkpoints, cotangents and
 // every gradient float32.
 
+#include <vector>
+
 #include "pass_bwd.cuh"
 
-// Workspace sizes (floats, ints) for td_block_bwd at these shapes.
-extern "C" void td_block_bwd_workspace(int B, int N, int K, int n_ligand, long long* floats,
-                                       long long* ints) {
+// Workspace sizes (floats, ints) of a backward at these shapes that stages
+// `passes` passes' second layers: 2L for td_block_bwd, 1 for a per-layer
+// backward (edge_layer_vjp.cu).
+extern "C" void td_block_bwd_workspace(int B, int N, int K, int n_ligand, int passes,
+                                       long long* floats, long long* ints) {
   Workspace ws;
-  carve(nullptr, nullptr, B, N, K, n_ligand, &ws, floats, ints);
+  carve(nullptr, nullptr, B, N, K, n_ligand, passes, &ws, floats, ints);
 }
 
 namespace {
@@ -61,7 +67,7 @@ int block_bwd(const float* hck, const float* xck, const int64_t* idx, const bool
     return (int)cudaErrorInvalidValue;
   Workspace ws;
   long long nf, ni;
-  carve(work, iwork, B, N, K, n_ligand, &ws, &nf, &ni);
+  carve(work, iwork, B, N, K, n_ligand, 2 * L, &ws, &nf, &ni);
   if (nf > work_floats || ni > iwork_ints) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t hsz = (size_t)B * N * H, xsz = (size_t)B * N * 3;
@@ -70,15 +76,29 @@ int block_bwd(const float* hck, const float* xck, const int64_t* idx, const bool
   if (!err) err = (int)cudaMemcpyAsync(dx0, gx, xsz * sizeof(float), cudaMemcpyDeviceToDevice, s);
   if (!err) err = (int)cudaMemsetAsync(dew, 0, (size_t)B * N * K * sizeof(float), s);
   if (err) return err;
+  // every pass's second layers, one launch: x2h[l] at region 2l, h2x[l] at 2l + 1
+  std::vector<const float*> w2k(2 * L), w2v(2 * L);
+  std::vector<int> V(2 * L);
+  for (int l = 0; l < L; ++l) {
+    for (int k = 0; k < 2; ++k) {
+      const PassParams& p = k ? h2x[l] : x2h[l];
+      w2k[2 * l + k] = p.w2k;
+      w2v[2 * l + k] = p.w2v;
+      V[2 * l + k] = k ? NH : H;
+    }
+  }
+  if ((err = stage_w2<kBf16>(2 * L, w2k.data(), w2v.data(), V.data(), ws.w2f, s))) return err;
   if ((err = build_adjacency(idx, nmask, B, N, K, 0, ws.off_x, ws.list_x, s))) return err;
   if ((err = build_adjacency(idx, nmask, B, N, K, row0, ws.off_h, ws.list_h, s))) return err;
   for (int l = L - 1; l >= 0; --l) {
     const EdgeInputs in{xck + l * xsz, idx, nmask, mlig, ew, nullptr, nullptr, offsets, coeff};
     err = run_pass<true, kBf16>(hck + (l + 1) * hsz, in, h2x[l], h2xT[l], gh2x[l], B, N, K,
-                                row0, ws.off_h, ws.list_h, dh0, dx0, dew, ws, s);
+                                row0, ws.off_h, ws.list_h, dh0, dx0, dew,
+                                ws.w2f + (size_t)(2 * l + 1) * kW2Staged, ws, s);
     if (err) return err;
     err = run_pass<false, kBf16>(hck + l * hsz, in, x2h[l], x2hT[l], gx2h[l], B, N, K, 0,
-                                 ws.off_x, ws.list_x, dh0, dx0, dew, ws, s);
+                                 ws.off_x, ws.list_x, dh0, dx0, dew,
+                                 ws.w2f + (size_t)(2 * l) * kW2Staged, ws, s);
     if (err) return err;
   }
   return 0;
@@ -156,13 +176,10 @@ int tprod(const float* d, long long E, int h2x, const void* w2k, const void* w2v
           void* frags, void* stream) {
   if (E <= 0 || ((uintptr_t)frags & 15)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  PassParams p{};
-  p.w2k = static_cast<const float*>(w2k);
-  p.w2v = static_cast<const float*>(w2v);
+  const float *k = static_cast<const float*>(w2k), *v = static_cast<const float*>(w2v);
   uint4* f = static_cast<uint4*>(frags);
   const int V = h2x ? NH : H;
-  stage_w2_kernel<kBf16><<<kW2Frags / kThreads, kThreads, 0, s>>>(p, V, f);
-  int err = (int)cudaGetLastError();
+  int err = stage_w2<kBf16>(1, &k, &v, &V, f, s);
   if (err) return err;
   const unsigned grid = (unsigned)((E + KC - 1) / KC);
   auto launch = [&](auto kernel) {
@@ -178,6 +195,25 @@ int tprod(const float* d, long long E, int h2x, const void* w2k, const void* w2v
 }
 
 extern "C" long long td_tprod_frag_bytes() { return kW2Staged * (long long)sizeof(uint4); }
+
+// stage_w2_kernel alone: the second layers of `passes` passes, w2k[i] [H][H]
+// and w2v[i] [H][V[i]] (V[i] = H or NH; bf16 tensors if bf16, 16-byte
+// aligned; host arrays of device pointers), staged as run_pass reads them
+// into frags + i td_tprod_frag_bytes() bytes (16-byte aligned), as
+// td_block_bwd stages its 2L passes. Counted in td_stage_w2_launches.
+extern "C" int td_stage_w2(const void* const* w2k, const void* const* w2v, const int* V,
+                           int passes, int bf16, void* frags, void* stream) {
+  if (passes <= 0 || ((uintptr_t)frags & 15)) return (int)cudaErrorInvalidValue;
+  const float* const* k = reinterpret_cast<const float* const*>(w2k);
+  const float* const* v = reinterpret_cast<const float* const*>(w2v);
+  uint4* f = static_cast<uint4*>(frags);
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? stage_w2<true>(passes, k, v, V, f, s) : stage_w2<false>(passes, k, v, V, f, s);
+}
+
+// stage_w2_kernel launches made so far in this process by every entry, of the
+// bf16 instantiation if bf16, else of the float32 one.
+extern "C" long long td_stage_w2_launches(int bf16) { return stage_w2_launch_count[bf16 != 0]; }
 
 extern "C" int td_tprod(const float* d, long long E, int h2x, const void* w2k, const void* w2v,
                         float* da, void* frags, void* stream) {
@@ -224,13 +260,51 @@ extern "C" int td_edge_bwd_info_bf16(int h2x, int K, int* info) {
 // The weight-gradient product of run_pass alone (weight_grad.cuh): out [P][Q]
 // = X^T Y over M rows of X [M][ldx] (first P columns) and Y [M][ldy] (first
 // Q columns); partial holds td_weight_grad_partial_floats() floats. Refuses
-// (cudaErrorInvalidValue) bases, leading dimensions, P or Q that are not
-// multiples of 16 bytes.
+// (cudaErrorInvalidValue) bases (out and partial too), leading dimensions,
+// P or Q that are not multiples of 16 bytes.
 extern "C" long long td_weight_grad_partial_floats() { return kPartialCap; }
 
 extern "C" int td_weight_grad(const float* X, int ldx, const float* Y, int ldy, long long M,
                               int P, int Q, float* out, float* partial, void* stream) {
   return weight_grad(X, ldx, Y, ldy, M, P, Q, out, partial, (cudaStream_t)stream);
+}
+
+// The split of the product out [P][Q] = X^T Y over M rows that weight_grad
+// takes on this card (weight_grad.cuh wg_plan; bf16: weight_grad<true>):
+// info[6] = {partials reduce_kernel sums (S / C), row chunks S, rows a
+// chunk, the cluster size C, clusters of weight_grad_kernel the card holds
+// at once, kRedGroups}. Refuses the shapes td_weight_grad refuses.
+template <bool kBf16>
+int weight_grad_partials(long long M, int P, int Q, long long* info) {
+  WgPlan plan;
+  if (int err = wg_plan_for<kBf16>(M, P, Q, plan)) return err;
+  int wave = 0;
+  if (int err = wg_cluster_wave<kBf16>(wave)) return err;
+  constexpr int C = kWgClusterOf<kBf16>;
+  const long long v[6] = {plan.S / C, plan.S, plan.chunk, C, wave, kRedGroups};
+  for (int i = 0; i < 6; ++i) info[i] = v[i];
+  return 0;
+}
+
+extern "C" int td_weight_grad_partials(long long M, int P, int Q, int bf16, long long* info) {
+  return bf16 ? weight_grad_partials<true>(M, P, Q, info)
+              : weight_grad_partials<false>(M, P, Q, info);
+}
+
+// The partials of Q floats that run_pass's column sums of M rows leave to
+// reduce_kernel (pass_bwd.cuh colsum).
+extern "C" long long td_colsum_partials(long long M, int Q) {
+  return chunks_for(M, (Q + kThreads - 1) / kThreads, Q);
+}
+
+// reduce_kernel alone: out [n] = the sum of partial [S][n] in its fixed order
+// (weight_grad.cuh reduce_partials; no kernel before it to wait for). n a
+// multiple of 4, partial and out 16-byte aligned.
+extern "C" int td_reduce_partials(const float* partial, int S, long long n, float* out,
+                                  void* stream) {
+  if (S <= 0 || n <= 0 || ((uintptr_t)partial | (uintptr_t)out) & 15)
+    return (int)cudaErrorInvalidValue;
+  return reduce_partials(partial, S, n, out, (cudaStream_t)stream);
 }
 
 // The same with bf16 products (weight_grad<true>, as run_pass<kH2X, true>).

@@ -18,7 +18,8 @@
 // per-edge rows between the edge kernel and the weight-gradient products.
 //
 // Design: one run_pass of pass_bwd.cuh, shared with the whole-block
-// backward, after the pass's inverse adjacency. x2h: dh starts as the
+// backward, after the staging of the pass's second layers (one
+// stage_w2_kernel launch) and its inverse adjacency. x2h: dh starts as the
 // output cotangent g (the residual), dx and d e_w at zero. h2x: only the
 // ligand tail rows have edges; dx starts as g (protein rows keep exactly
 // g), dh and d e_w at zero (d e_w stays zero on protein rows).
@@ -40,18 +41,19 @@ int x2h_layer_bwd(const float* h, const float* x, const int64_t* idx, const bool
   if (!layer_shapes_ok(B, N, K)) return (int)cudaErrorInvalidValue;
   Workspace ws;
   long long nf, ni;
-  carve(work, iwork, B, N, K, 1, &ws, &nf, &ni);
+  carve(work, iwork, B, N, K, 1, 1, &ws, &nf, &ni);
   if (nf > work_floats || ni > iwork_ints) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t hsz = (size_t)B * N * H;
   int err = (int)cudaMemcpyAsync(dh, gh, hsz * sizeof(float), cudaMemcpyDeviceToDevice, s);
   if (!err) err = (int)cudaMemsetAsync(dx, 0, (size_t)B * N * 3 * sizeof(float), s);
   if (!err) err = (int)cudaMemsetAsync(dew, 0, (size_t)B * N * K * sizeof(float), s);
+  if (!err) err = stage_w2<kBf16>(1, &p.w2k, &p.w2v, &H, ws.w2f, s);
   if (!err) err = build_adjacency(idx, nmask, B, N, K, 0, ws.off_x, ws.list_x, s);
   if (err) return err;
   const EdgeInputs in{x, idx, nmask, mlig, ew, nullptr, nullptr, offsets, coeff};
   return run_pass<false, kBf16>(h, in, p, pt, g, B, N, K, 0, ws.off_x, ws.list_x, dh, dx, dew,
-                                ws, s);
+                                ws.w2f, ws, s);
 }
 
 template <bool kBf16>
@@ -64,7 +66,7 @@ int h2x_layer_bwd(const float* h, const float* x, const int64_t* idx, const bool
     return (int)cudaErrorInvalidValue;
   Workspace ws;
   long long nf, ni;
-  carve(work, iwork, B, N, K, n_ligand, &ws, &nf, &ni);
+  carve(work, iwork, B, N, K, n_ligand, 1, &ws, &nf, &ni);
   if (nf > work_floats || ni > iwork_ints) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t xsz = (size_t)B * N * 3;
@@ -72,11 +74,12 @@ int h2x_layer_bwd(const float* h, const float* x, const int64_t* idx, const bool
   int err = (int)cudaMemsetAsync(dh, 0, (size_t)B * N * H * sizeof(float), s);
   if (!err) err = (int)cudaMemcpyAsync(dx, gx, xsz * sizeof(float), cudaMemcpyDeviceToDevice, s);
   if (!err) err = (int)cudaMemsetAsync(dew, 0, (size_t)B * N * K * sizeof(float), s);
+  if (!err) err = stage_w2<kBf16>(1, &p.w2k, &p.w2v, &NH, ws.w2f, s);
   if (!err) err = build_adjacency(idx, nmask, B, N, K, row0, ws.off_h, ws.list_h, s);
   if (err) return err;
   const EdgeInputs in{x, idx, nmask, mlig, ew, nullptr, nullptr, offsets, coeff};
   return run_pass<true, kBf16>(h, in, p, pt, g, B, N, K, row0, ws.off_h, ws.list_h, dh, dx, dew,
-                               ws, s);
+                               ws.w2f, ws, s);
 }
 
 }  // namespace
@@ -88,7 +91,7 @@ int h2x_layer_bwd(const float* h, const float* x, const int64_t* idx, const bool
 
 // VJP of td_x2h_layer: gh [B][N][H] the cotangent of h_out; writes dh, dx
 // [B][N][3], dew [B][N][K] and the pass's weight gradients g. work / iwork
-// hold td_block_bwd_workspace(B, N, K, 1) floats / ints.
+// hold td_block_bwd_workspace(B, N, K, 1, 1) floats / ints.
 extern "C" int td_x2h_layer_bwd(const float* h, const float* x, const int64_t* idx,
                                 const bool* nmask, const bool* mlig, const float* ew,
                                 const float* offsets, float coeff, PassParams p, PassT pt,
@@ -111,7 +114,7 @@ extern "C" int td_x2h_layer_bwd_bf16(const float* h, const float* x, const int64
 
 // VJP of td_h2x_layer on the last n_ligand rows: gx [B][N][3] the cotangent
 // of x_out; writes dh, dx, dew and g. work / iwork hold
-// td_block_bwd_workspace(B, N, K, n_ligand) floats / ints.
+// td_block_bwd_workspace(B, N, K, n_ligand, 1) floats / ints.
 extern "C" int td_h2x_layer_bwd(const float* h, const float* x, const int64_t* idx,
                                 const bool* nmask, const bool* mlig, const float* ew,
                                 const float* offsets, float coeff, PassParams p, PassT pt,

@@ -3,17 +3,18 @@
 // VJP of the x2h and h2x edge passes (x2h_edge.cuh, h2x_edge.cuh) for
 // any K up to kMaxLayerK, float32.
 //
+// Once per backward, before its passes (the caller's):
+//   stage_w2_kernel stages every pass's second layers w2k, w2v times 2^8 as
+//                   fp16 (hi, lo) mma B fragments (tc_common.cuh:
+//                   stage_frags), 64 KB each, and their float32 transposes,
+//                   64 KB each, one region a pass, read by every
+//                   edge_bwd_kernel block from L2; bf16: w2k, w2v and their
+//                   transposes as 8-byte bf16 fragments (stage_frags16), 32
+//                   KB each. One launch for all the passes.
 // Per pass (run_pass):
 //   node_kernel     (node_proj.cuh) recomputes the per-node projections ni,
 //                   nj, q (and q's first-layer output q1) of the pass on
 //                   every row.
-//   stage_w2_kernel stages the pass's second layers w2k, w2v times 2^8 as
-//                   fp16 (hi, lo) mma B fragments in the workspace
-//                   (tc_common.cuh: stage_frags), 64 KB each, and their
-//                   float32 transposes, 64 KB each, read by every
-//                   edge_bwd_kernel block from L2; bf16: w2k, w2v and their
-//                   transposes as 8-byte bf16 fragments (stage_frags16), 32
-//                   KB each.
 //   stage_rbf_kernel stages the RBF table w_rbf as TF32 (hi, lo) B fragments
 //                   of the d rbf product, one layout per destination kind
 //                   (types 0|2 and 1|3), 80 KB each.
@@ -93,6 +94,10 @@ struct PassT {
 // build_adjacency calls that launched, by every entry of the library.
 inline long long adj_build_count = 0;
 
+// stage_w2_kernel launches so far in this process, by instantiation (float32,
+// bf16), by every entry of the library.
+inline long long stage_w2_launch_count[2] = {0, 0};
+
 namespace {
 
 constexpr int FE = 4 * R + 4;   // edge-feature row: rbf x type | type
@@ -152,7 +157,7 @@ struct EdgeBwdArgs {
   float* dZ;        // [Ep][2H] gradients of the first layer's output
   float* F;         // [Ep][FE] edge-feature rows
   float* drel;      // [Ep][3]
-  const uint4* w2f;   // stage_w2_kernel's fragments
+  const uint4* w2f;   // the pass's region of stage_w2_kernel's fragments
   const uint4* rbff;  // w_rbf as staged by stage_rbf_kernel
 };
 
@@ -183,33 +188,125 @@ __device__ __forceinline__ void stage_frags16(uint2* dst, const __nv_bfloat16* _
   }
 }
 
-// The second layers of a pass as mma B fragments in global memory, f. Float32:
-// w2k, w2v times kWScale as stage_frags lays them out, [kKSteps][kNTiles][32]
-// and [kKSteps][V / 8][32] uint4 at f and f + kW2Frags, then their float32
-// transposes w2k^T [H][H] and w2v^T [V][H] from f + 2 kW2Frags (the
-// transposed product splits them into TF32 (hi, lo) where it reads them).
-// kBf16, from the bf16 weights, four regions of kW2Frags uint2
-// (stage_frags16): w2k, w2v times kWScale as B (B[k][n] = W[k][n]), then their
-// transposes, [H / 16][kNTiles][32] and [V / 16][kNTiles][32].
+// The second layers of a pass as mma B fragments in global memory, f (one
+// region of kW2Staged uint4 a pass). Float32: w2k, w2v times kWScale as
+// stage_frags lays them out, [kKSteps][kNTiles][32] and [kKSteps][V / 8][32]
+// uint4 at f and f + kW2Frags, then their float32 transposes w2k^T [H][H] and
+// w2v^T [V][H] from f + 2 kW2Frags (the transposed product splits them into
+// TF32 (hi, lo) where it reads them). kBf16, from the bf16 weights, four
+// regions of kW2Frags uint2 (stage_frags16): w2k, w2v times kWScale as B
+// (B[k][n] = W[k][n]), then their transposes, [H / 16][kNTiles][32] and
+// [V / 16][kNTiles][32].
+//
+// stage_w2_kernel stages every pass of a backward in one launch (block_bwd
+// stages all 2L passes before its layer loop; a per-layer backward and
+// tprod stage their one pass with the same kernel). Block (slice, weight,
+// pass) takes rows [32 slice, 32 slice + 32) of w2k (weight 0) or w2v (1):
+// it reads them once, 16 bytes a thread along the rows, into shared memory
+// (rows padded to H + 1 floats), and writes from there the fragments of
+// those rows' two k-steps and their columns of the transposes, consecutive
+// threads on consecutive words. The words are those of stage_frags /
+// stage_frags16 at the same weights.
+constexpr int kMaxStagePasses = 64;  // passes of one stage_w2_kernel launch
+constexpr int kStageRows = 32;       // rows of a weight a block stages
+
+// The second layers of up to kMaxStagePasses passes, a kernel parameter (1.25
+// KB): w2k [H][H] and w2v [H][V] (bf16 in the bf16 instantiation, 16-byte
+// aligned), V = H (x2h) or NH (h2x).
+struct W2Batch {
+  const float* w2k[kMaxStagePasses];
+  const float* w2v[kMaxStagePasses];
+  int V[kMaxStagePasses];
+};
+
 template <bool kBf16 = false>
-__global__ void __launch_bounds__(kThreads) stage_w2_kernel(PassParams p, int V, uint4* f) {
-  const int t = blockIdx.x * kThreads + threadIdx.x, n = gridDim.x * kThreads;
+__global__ void __launch_bounds__(kThreads) stage_w2_kernel(W2Batch b, uint4* __restrict__ f) {
+  constexpr int ld = H + 1;  // transposed reads of consecutive rows hit consecutive banks
+  __shared__ float w[kStageRows][ld];
+  const int t = threadIdx.x, wi = blockIdx.y, pass = blockIdx.z;
+  const int r0 = blockIdx.x * kStageRows, cols = wi ? b.V[pass] : H;
+  const float* src = wi ? b.w2v[pass] : b.w2k[pass];
+  f += (size_t)pass * kW2Staged;
   if constexpr (kBf16) {
-    uint2* f16 = reinterpret_cast<uint2*>(f);
-    const __nv_bfloat16 *wk = weights<true>(p.w2k), *wv = weights<true>(p.w2v);
-    stage_frags16(f16, wk, H, 1, kKSteps, kNTiles, kWScale, t, n);
-    stage_frags16(f16 + kW2Frags, wv, V, 1, kKSteps, V / 8, kWScale, t, n);
-    stage_frags16(f16 + 2 * kW2Frags, wk, 1, H, H / 16, kNTiles, 1.f, t, n);
-    stage_frags16(f16 + 3 * kW2Frags, wv, 1, V, V / 16, kNTiles, 1.f, t, n);
+    const __nv_bfloat16* W = reinterpret_cast<const __nv_bfloat16*>(src) + (size_t)r0 * cols;
+    for (int u = t; u < kStageRows * cols / 8; u += kThreads) {
+      const int r = u / (cols / 8), c = u % (cols / 8) * 8;
+      const uint4 q = *reinterpret_cast<const uint4*>(W + r * cols + c);
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&q);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) w[r][c + i] = __bfloat162float(e[i]);
+    }
   } else {
-    stage_frags(f, p.w2k, H, kNTiles, t, n);
-    stage_frags(f + kW2Frags, p.w2v, V, V / 8, t, n);
-    float* wt = reinterpret_cast<float*>(f + 2 * kW2Frags);
-    for (int u = t; u < (H + V) * H; u += n) {  // wt[c][m] = W2[m][c], k then v
-      const int c = u / H, m = u % H;
-      wt[u] = c < H ? p.w2k[m * H + c] : p.w2v[m * V + c - H];
+    const float* W = src + (size_t)r0 * cols;
+    for (int u = t; u < kStageRows * cols / 4; u += kThreads) {
+      const int r = u / (cols / 4), c = u % (cols / 4) * 4;
+      const float4 q = *reinterpret_cast<const float4*>(W + r * cols + c);
+      w[r][c] = q.x;
+      w[r][c + 1] = q.y;
+      w[r][c + 2] = q.z;
+      w[r][c + 3] = q.w;
     }
   }
+  __syncthreads();
+  // B = W kWScale: the k-steps r0 / 16 and r0 / 16 + 1 of region wi
+  const int nt_w = cols / 8, base = r0 / 16 * nt_w * 32;
+  for (int u = t; u < 2 * nt_w * 32; u += kThreads) {
+    const int ks = u / (nt_w * 32), nt = u / 32 % nt_w, lane = u % 32;
+    const float* s = &w[16 * ks + 2 * (lane & 3)][8 * nt + (lane >> 2)];
+    if constexpr (kBf16) {
+      reinterpret_cast<uint2*>(f)[wi * kW2Frags + base + u] =
+          make_uint2(bf16_pair(kWScale * s[0], kWScale * s[ld]),
+                     bf16_pair(kWScale * s[8 * ld], kWScale * s[9 * ld]));
+    } else {
+      __half hi[4], lo[4];  // rows 0, 1, 8, 9 of the k-step (from 2 tig)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        split_f16(kWScale * s[((q & 1) + 8 * (q >> 1)) * ld], hi[q], lo[q]);
+      f[wi * kW2Frags + base + u] = make_uint4(f16_pair(hi[0], hi[1]), f16_pair(hi[2], hi[3]),
+                                               f16_pair(lo[0], lo[1]), f16_pair(lo[2], lo[3]));
+    }
+  }
+  if constexpr (kBf16) {
+    // region 2 + wi, B[k][n] = W[n][k]: every k-step, the n-tiles r0 / 8 .. + 4
+    uint2* dst = reinterpret_cast<uint2*>(f) + (2 + wi) * kW2Frags;
+    for (int u = t; u < cols / 16 * 4 * 32; u += kThreads) {
+      const int ks = u / 128, nt = u / 32 % 4, lane = u % 32;
+      const float* s = &w[8 * nt + (lane >> 2)][16 * ks + 2 * (lane & 3)];
+      dst[(ks * kNTiles + r0 / 8 + nt) * 32 + lane] =
+          make_uint2(bf16_pair(s[0], s[1]), bf16_pair(s[8], s[9]));
+    }
+  } else {
+    // wt[c][m] = W[m][c] for the slice's rows m, k then v
+    float* wt = reinterpret_cast<float*>(f + 2 * kW2Frags) + wi * H * H;
+    for (int u = t; u < cols * kStageRows; u += kThreads) {
+      const int c = u / kStageRows, m = u % kStageRows;
+      wt[c * H + r0 + m] = w[m][c];
+    }
+  }
+}
+
+// Stages `passes` passes' second layers (w2k[i], w2v[i], V[i]) into f + i
+// kW2Staged, kMaxStagePasses passes a launch; counted in
+// stage_w2_launch_count. Refuses weights that are not 16-byte aligned.
+template <bool kBf16 = false>
+int stage_w2(int passes, const float* const* w2k, const float* const* w2v, const int* V, uint4* f,
+             cudaStream_t s) {
+  for (int p0 = 0; p0 < passes; p0 += kMaxStagePasses) {
+    const int n = passes - p0 < kMaxStagePasses ? passes - p0 : kMaxStagePasses;
+    W2Batch b{};
+    for (int i = 0; i < n; ++i) {
+      b.w2k[i] = w2k[p0 + i];
+      b.w2v[i] = w2v[p0 + i];
+      b.V[i] = V[p0 + i];
+      if (((uintptr_t)b.w2k[i] | (uintptr_t)b.w2v[i]) & 15 || (b.V[i] != H && b.V[i] != NH))
+        return (int)cudaErrorInvalidValue;
+    }
+    stage_w2_kernel<kBf16><<<dim3(H / kStageRows, 2, n), kThreads, 0, s>>>(
+        b, f + (size_t)p0 * kW2Staged);
+    if (int err = (int)cudaGetLastError()) return err;
+    ++stage_w2_launch_count[kBf16];
+  }
+  return 0;
 }
 
 // B fragment (b0 hi, b1 hi, b0 lo, b1 lo; TF32, split_tf32) of k-step ks,
@@ -1067,19 +1164,20 @@ int colsum(const float* Y, int ldy, long long M, int Q, float* out, float* parti
   colsum_kernel<<<dim3(tq, (unsigned)S), kThreads, 0, s>>>(Y, ldy, M, Q, chunk, partial);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  reduce_kernel<<<grid_for(Q), kThreads, 0, s>>>(partial, (int)S, Q, out);
-  return (int)cudaGetLastError();
+  return reduce_partials(partial, (int)S, Q, out, s);
 }
 
 struct Workspace {
   float *ni, *nj, *q, *q1, *qa, *rowbuf, *A, *dKV, *dZ, *F, *drel, *vec, *partial;
-  uint4* w2f;  // stage_w2_kernel's fragments (kW2Frags uint4 a weight)
+  uint4* w2f;  // stage_w2_kernel's fragments, kW2Staged uint4 a staged pass
   uint4* rbff;  // stage_rbf_kernel's fragments
   int *off_x, *list_x, *off_h, *list_h;
 };
 
-void carve(float* w, int* iw, long long B, long long N, long long K, long long nl, Workspace* ws,
-           long long* floats, long long* ints) {
+// The workspace of a backward over B complexes of N nodes, K neighbours and nl
+// ligand rows that stages `passes` passes' second layers.
+void carve(float* w, int* iw, long long B, long long N, long long K, long long nl, int passes,
+           Workspace* ws, long long* floats, long long* ints) {
   const long long BN = B * N, Ep = B * N * K;
   long long o = 0;
   auto take = [&](long long n) {
@@ -1100,7 +1198,7 @@ void carve(float* w, int* iw, long long B, long long N, long long K, long long n
   ws->drel = take(Ep * 3);
   ws->vec = take(row_width(H));
   ws->partial = take(kPartialCap);
-  ws->w2f = reinterpret_cast<uint4*>(take(kW2Staged * 4));
+  ws->w2f = reinterpret_cast<uint4*>(take((long long)passes * kW2Staged * 4));
   ws->rbff = reinterpret_cast<uint4*>(take(kRbfFrags * 4));
   *floats = o;
   long long io = 0;
@@ -1116,13 +1214,15 @@ void carve(float* w, int* iw, long long B, long long N, long long K, long long n
   *ints = io;
 }
 
-// kBf16: the bf16 instantiations (p's product weights bf16, pt float32 and
-// rounded where they are read); the gather, the column sums, the reductions
-// and the adjacency are shared.
+// w2f: the pass's second layers as stage_w2<kBf16> staged them. kBf16: the
+// bf16 instantiations (p's product weights bf16, pt float32 and rounded where
+// they are read); the gather, the column sums, the reductions and the
+// adjacency are shared.
 template <bool kH2X, bool kBf16 = false>
 int run_pass(const float* h, const EdgeInputs& in0, const PassParams& p, const PassT& pt,
              const PassGrads& g, int B, int N, int K, int row0, const int* off, const int* list,
-             float* dh, float* dx, float* dew, const Workspace& ws, cudaStream_t s) {
+             float* dh, float* dx, float* dew, const uint4* w2f, const Workspace& ws,
+             cudaStream_t s) {
   constexpr int V = kH2X ? NH : H;
   constexpr int W = row_width(V);
   const long long BN = (long long)B * N;
@@ -1131,8 +1231,6 @@ int run_pass(const float* h, const EdgeInputs& in0, const PassParams& p, const P
   if (err) return err;
   if ((err = launch_node<kBf16>(h, 1, (int)BN, 0, p, ws.ni, ws.nj, ws.q, ws.q1, s))) return err;
 
-  stage_w2_kernel<kBf16><<<kW2Frags / kThreads, kThreads, 0, s>>>(p, V, ws.w2f);
-  if ((err = (int)cudaGetLastError())) return err;
   if constexpr (kBf16)
     stage_rbf16_kernel<<<(kRbfFrags16 + kThreads - 1) / kThreads, kThreads, 0, s>>>(
         reinterpret_cast<const __nv_bfloat16*>(p.w_rbf), ws.rbff);
@@ -1145,7 +1243,7 @@ int run_pass(const float* h, const EdgeInputs& in0, const PassParams& p, const P
   in.ni = ws.ni;
   in.nj = ws.nj;
   EdgeBwdArgs a{h, in, ws.q, p, pt, N, K, row0, dh, dx, dew, ws.rowbuf, ws.A, ws.dKV, ws.dZ,
-                ws.F, ws.drel, ws.w2f, ws.rbff};
+                ws.F, ws.drel, w2f, ws.rbff};
   // the largest dynamic shared memory any K takes, set once per process (one device)
   static const int attr = (int)cudaFuncSetAttribute(
       edge_bwd_kernel<kH2X, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -17,7 +17,7 @@
 // three mma per product), ~2x from that bound (PERF.md).
 //
 // Design. A block computes one 128x128 output tile of one row chunk's
-// partial product with 8 warps of 64x32. Tiles of 32 rows of X and Y come
+// product with 8 warps of 64x32. Tiles of 32 rows of X and Y come
 // by cp.async (16-byte copies; rows past the chunk and columns past P or Q
 // are zero-filled) into a ring of three stages, so the loads of the next
 // rows overlap the products on the current ones. Shared rows are padded to
@@ -36,9 +36,48 @@
 // past P or Q (P = 84 for the table, Q = 16 for h2x's w2v); a warp whose
 // pieces are all live runs its k-steps without those checks.
 //
-// Determinism: the chunks depend on (M, P, Q) only (wg_chunk_rows), each
-// block's order is fixed, and reduce_kernel sums the partials in ascending
-// chunk order, so two runs give the same bits.
+// The split-K sum. The blocks of a tile's consecutive chunks form clusters
+// of kWgCluster along z (chunks padded with empty ones to a multiple of
+// kWgCluster). Block rank r sums rows [r 128 / C, (r + 1) 128 / C) of the
+// cluster's tiles: after its k-loop and a cluster.sync() (every ring is
+// free) each block stores the accumulator pieces of other ranks' rows into
+// those ranks' shared memory (distributed shared memory, one slot a
+// sender); after a second cluster.sync() rank r adds, for each of its
+// rows' pieces, the C ranks' values in ascending rank order (its own from
+// registers, the others from its slots) and writes them as the cluster's
+// partial. Each block moves (C - 1) / C of a tile through shared memory
+// once. Storing whole tiles and reading each rank's rows from every peer
+// (weight_grad_variants.py pull_fold) moves a whole tile twice; its float32
+// instantiation spilled 44 bytes and ran ~4% slower, its bf16 one ~1.5%
+// faster (PERF.md). So kWgCluster times fewer partials go through device
+// memory (a `fast` B=32 step wrote and read ~0.96 GB of them unfolded).
+// kWgCluster is 2: clusters of 4 and 8 lost more in
+// the product than they saved in the reduction (weight_grad_variants.py,
+// PERF.md): the card holds 62 clusters of 4 and 30 of 8 where 66 and 33
+// would fill its 264 block slots, so each chunk grows 6-10%, and the h2x
+// products' 128 blocks, one an SM without clusters, ran ~1.6x slower. The
+// bf16 instantiation, whose products are about twice as fast, lost more to
+// the cluster launch (~2 us a launch on the short products) than its fold
+// saved: it launches without clusters (kWgClusterBf16 = 1), each chunk's
+// partial stored straight to device memory as before clusters.
+//
+// reduce_kernel then sums the clusters' partials over the whole card:
+// block b takes float4 columns [b cw, (b + 1) cw), its thread group g (of
+// kRedGroups) the partials [g S' / G, (g + 1) S' / G), ascending from zero,
+// 16 bytes a load, and the group sums are added in group order; cw is
+// chosen so that every SM gets a block. It is launched as a
+// programmatic dependent of the product (griddepcontrol.wait before its first
+// read), so its launch overlaps the product's tail; the product after it is
+// launched in plain stream order, since all of a pass's reductions share one
+// scratch.
+//
+// Determinism: the chunks depend on (M, P, Q) and the clusters the card
+// holds at once (wg_plan; cudaOccupancyMaxActiveClusters, one value for a
+// card model), each block's order, each cluster's rank order and the
+// reduction's ranges are fixed, and no atomic decides an order, so two runs
+// give the same bits. With a cluster of 1 and kRedGroups = 1 the order is the one
+// of the design before clusters (each chunk's partial through device memory,
+// summed in ascending chunk order from zero).
 //
 // Alignment: every operand base and leading dimension, P and Q, must be a
 // multiple of 16 bytes (4 floats); weight_grad refuses anything else.
@@ -47,9 +86,11 @@
 // cd=bf16): the same tiles, ring and chunks, X and Y rounded to bf16 where
 // their fragments are formed, each 16-row k-step one bf16
 // mma.sync.m16n8k16 accumulated in the mma's float32 accumulator (bf16
-// keeps float32's exponent: no range to lose), and the same fixed-order
-// reduce_kernel flush.
+// keeps float32's exponent: no range to lose), one partial a chunk (no
+// cluster) and the same fixed-order reduce_kernel flush.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "block_common.cuh"
 #include "tc_common.cuh"
@@ -64,8 +105,15 @@ constexpr int kWgLd = kWgTile + 8;          // padded shared row
 constexpr int kWgStageFloats = 2 * kWgRows * kWgLd;
 constexpr int kWgSmem = kWgStages * kWgStageFloats * (int)sizeof(float);
 constexpr int kWgMT = 4, kWgNT = 4;         // a warp's 16-row m-tiles, 8-column n-tiles
-constexpr long long kWgBlocks = 2 * 132;    // two blocks on each of the card's 132 SMs
 constexpr long long kWgMinRows = 256;       // rows per chunk at least
+constexpr int kWgCluster = 2;      // float32: blocks (consecutive chunks) folded in a cluster
+constexpr int kWgClusterBf16 = 1;  // bf16: no cluster
+template <bool kBf16>
+constexpr int kWgClusterOf = kBf16 ? kWgClusterBf16 : kWgCluster;
+constexpr int kWgFoldLd = kWgTile + 8;  // padded row of the fold's slots: conflict-free float2
+static_assert(kWgTile * kWgFoldLd * (int)sizeof(float) <= kWgSmem, "the tile must fit the ring");
+static_assert(kWgTile / kWgCluster % 8 == 0, "a fragment piece's 8 rows belong to one rank");
+constexpr int kRedGroups = 8;               // reduce_kernel's ranges of the partials a column
 
 __device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
@@ -187,6 +235,87 @@ __device__ __forceinline__ void wg_kstep(float (&acc)[kWgMT][kWgNT][4], const fl
   }
 }
 
+// The chunk's partial of the block's tile, stored straight to partial[z]
+// (no cluster). C fragment: (gid, 2 tig .. 2 tig + 1) and (gid + 8, the
+// same); Q is even.
+__device__ __forceinline__ void wg_store(const float (&acc)[kWgMT][kWgNT][4], float* partial,
+                                         int P, int Q, int p0, int q0, int wp, int wq, int gid,
+                                         int tig) {
+  float* out = partial + (size_t)blockIdx.z * P * Q;
+#pragma unroll
+  for (int i = 0; i < kWgMT; ++i) {
+#pragma unroll
+    for (int j = 0; j < kWgNT; ++j) {
+      const int p = p0 + wp + i * 16 + gid, q = q0 + wq + j * 8 + 2 * tig;
+      if (q >= Q) continue;
+      if (p < P)
+        *reinterpret_cast<float2*>(out + (size_t)p * Q + q) = make_float2(acc[i][j][0],
+                                                                          acc[i][j][1]);
+      if (p + 8 < P)
+        *reinterpret_cast<float2*>(out + (size_t)(p + 8) * Q + q) =
+            make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+  }
+}
+
+// The fold of a cluster of C blocks (C consecutive chunks of the tile) into
+// one partial, partial[z / C]. C fragment pieces: rows (gid, gid + 8) of
+// m-tile i, columns 2 tig .. 2 tig + 1 of n-tile j; a piece of row r is
+// summed by rank r / R, which receives it in slot [this rank] of its shared
+// memory ([C][R][kWgFoldLd], in the ring).
+template <int C>
+__device__ __forceinline__ void wg_fold(const float (&acc)[kWgMT][kWgNT][4], float* smem,
+                                        float* partial, int P, int Q, int p0, int q0, int wp,
+                                        int wq, int gid, int tig) {
+  namespace cg = cooperative_groups;
+  constexpr int R = kWgTile / C;  // rows of the tile a rank sums
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  cluster.sync();  // every block of the cluster is done with its ring
+#pragma unroll
+  for (int i = 0; i < kWgMT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wp + i * 16 + gid + 8 * h, owner = r / R;
+      if (owner == rank) continue;
+      float* row = smem + (rank * R + r - owner * R) * kWgFoldLd + wq + 2 * tig;
+#pragma unroll
+      for (int j = 0; j < kWgNT; ++j)
+        *cluster.map_shared_rank(reinterpret_cast<float2*>(row + j * 8), owner) =
+            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+    }
+  }
+  cluster.sync();  // every piece landed; no shared memory of a peer is touched after this
+  // this rank's rows: the ranks' pieces summed in ascending rank order (its
+  // own from registers), written as the cluster's partial; pieces past P or Q
+  // are dropped
+  float* out = partial + (size_t)(blockIdx.z / C) * P * Q;
+#pragma unroll
+  for (int i = 0; i < kWgMT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wp + i * 16 + gid + 8 * h;
+      if (r / R != rank) continue;
+      const float* slot = smem + (r - rank * R) * kWgFoldLd + wq + 2 * tig;
+      const int p = p0 + r;
+#pragma unroll
+      for (int j = 0; j < kWgNT; ++j) {
+        const float2 own = make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        float2 sum = rank == 0 ? own : *reinterpret_cast<const float2*>(slot + j * 8);
+#pragma unroll
+        for (int k = 1; k < C; ++k) {
+          const float2 v = k == rank ? own : *reinterpret_cast<const float2*>(
+              slot + k * R * kWgFoldLd + j * 8);
+          sum.x += v.x;
+          sum.y += v.y;
+        }
+        const int q = q0 + wq + j * 8 + 2 * tig;
+        if (p < P && q < Q) *reinterpret_cast<float2*>(out + (size_t)p * Q + q) = sum;
+      }
+    }
+  }
+}
+
 // partial[z] = X[rows of chunk z]^T Y[rows of chunk z] for the tile
 // (blockIdx.x, blockIdx.y) of the [P][Q] output; kBf16: bf16 products.
 template <bool kBf16 = false>
@@ -200,7 +329,7 @@ weight_grad_kernel(const float* __restrict__ X, int ldx, const float* __restrict
   const int p0 = blockIdx.x * kWgTile, q0 = blockIdx.y * kWgTile;
   const long long mb = blockIdx.z * chunk;
   const long long me = mb + chunk < M ? mb + chunk : M;
-  const int nk = (int)((me - mb + kWgRows - 1) / kWgRows);
+  const int nk = me > mb ? (int)((me - mb + kWgRows - 1) / kWgRows) : 0;  // 0: a padding chunk
   const int xcols = P - p0, ycols = Q - q0;
   X += p0;
   Y += q0;
@@ -253,79 +382,177 @@ weight_grad_kernel(const float* __restrict__ X, int ldx, const float* __restrict
     }
   }
   cp_async_wait<0>();
-
-  // C fragment: (gid, 2 tig .. 2 tig + 1) and (gid + 8, the same); Q is even
-  float* out = partial + (size_t)blockIdx.z * P * Q;
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int p = p0 + wp + i * 16 + gid, q = q0 + wq + j * 8 + 2 * tig;
-      if (q >= Q) continue;
-      if (p < P)
-        *reinterpret_cast<float2*>(out + (size_t)p * Q + q) = make_float2(acc[i][j][0],
-                                                                          acc[i][j][1]);
-      if (p + 8 < P)
-        *reinterpret_cast<float2*>(out + (size_t)(p + 8) * Q + q) =
-            make_float2(acc[i][j][2], acc[i][j][3]);
-    }
-  }
+  // the reduction (a programmatic dependent) may start launching
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  if constexpr (kWgClusterOf<kBf16> == 1)
+    wg_store(acc, partial, P, Q, p0, q0, wp, wq, gid, tig);
+  else
+    wg_fold<kWgClusterOf<kBf16>>(acc, smem, partial, P, Q, p0, q0, wp, wq, gid, tig);
 }
 
-// out[i] = sum over z of partial[z][i], z ascending.
+// out[i] = sum over z of partial[z][i] (n floats, n a multiple of 4): block
+// b sums float4 columns [b cw, (b + 1) cw), cw = blockDim.x / kRedGroups;
+// thread group g = t / cw the partials [g S / G, (g + 1) S / G) ascending
+// from zero (G = kRedGroups), then the group sums in group order. Launched
+// as a programmatic dependent: it waits for the grid before it (the
+// partials' writer) before it reads.
 __global__ void __launch_bounds__(kThreads)
 reduce_kernel(const float* __restrict__ partial, int S, long long n, float* __restrict__ out) {
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += (long long)gridDim.x * kThreads) {
-    float s = 0.f;
-    for (int z = 0; z < S; ++z) s += partial[(size_t)z * n + i];
-    out[i] = s;
+  __shared__ float4 sums[kThreads];
+  const int t = threadIdx.x, cw = blockDim.x / kRedGroups, g = t / cw;
+  const long long n4 = n / 4, c = (long long)blockIdx.x * cw + t % cw;
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (c < n4) {
+    const float4* p = reinterpret_cast<const float4*>(partial) + c;
+    const int z1 = (int)((long long)(g + 1) * S / kRedGroups);
+#pragma unroll 4
+    for (int z = (int)((long long)g * S / kRedGroups); z < z1; ++z) {
+      const float4 v = p[(size_t)z * n4];
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+  }
+  sums[t] = s;
+  __syncthreads();
+  if (t < cw && c < n4) {
+#pragma unroll
+    for (int k = 1; k < kRedGroups; ++k) {
+      const float4 v = sums[k * cw + t];
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    reinterpret_cast<float4*>(out)[c] = s;
   }
 }
 
-int grid_for(long long n) {
-  const long long g = (n + kThreads - 1) / kThreads;
-  return (int)(g < 4096 ? g : 4096);
+// out [n] = the sum of S partials [S][n] (reduce_kernel), launched as a
+// programmatic dependent of the kernel before it on s; columns a block (cw
+// float4) halved from 256 / kRedGroups until every SM gets a block. The
+// order of the sum does not depend on cw. n a multiple of 4, partial and out
+// 16-byte aligned (its loads and stores are float4): refused otherwise.
+int reduce_partials(const float* partial, int S, long long n, float* out, cudaStream_t s) {
+  if (n % 4 || ((uintptr_t)partial | (uintptr_t)out) & 15) return (int)cudaErrorInvalidValue;
+  static int n_sm = 0;
+  if (!n_sm) {
+    int dev = 0;
+    int err = (int)cudaGetDevice(&dev);
+    if (!err) err = (int)cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err) return err;
+  }
+  const long long n4 = n / 4;
+  int cw = kThreads / kRedGroups;
+  while (cw > 1 && (n4 + cw - 1) / cw < n_sm) cw /= 2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((n4 + cw - 1) / cw));
+  cfg.blockDim = dim3(cw * kRedGroups);
+  cfg.stream = s;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  at[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, reduce_kernel, partial, S, n, out);
 }
 
-// Rows per chunk of a weight-gradient product over M rows of `tiles` output
-// tiles of n floats: about kWgBlocks blocks in all (one wave), at least
-// kWgMinRows rows, a multiple of kWgRows, and the partials within
-// kPartialCap.
-long long wg_chunk_rows(long long M, long long tiles, long long n) {
-  long long s = (kWgBlocks + tiles - 1) / tiles;
-  if (s > kPartialCap / n) s = kPartialCap / n;
+// Clusters of C = kWgClusterOf<kBf16> weight_grad_kernel<kBf16> blocks the
+// card holds at once (cudaOccupancyMaxActiveClusters; at C = 1, blocks),
+// asked once per process (one device) and instantiation; also sets the
+// kernel's dynamic shared memory.
+template <bool kBf16>
+int wg_cluster_wave(int& wave) {
+  static int cached = 0, err = 0;
+  if (!cached && !err) {
+    err = (int)cudaFuncSetAttribute(weight_grad_kernel<kBf16>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(1, 1, kWgClusterOf<kBf16>);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = kWgSmem;
+    cudaLaunchAttribute at[1];
+    at[0].id = cudaLaunchAttributeClusterDimension;
+    at[0].val.clusterDim.x = 1;
+    at[0].val.clusterDim.y = 1;
+    at[0].val.clusterDim.z = kWgClusterOf<kBf16>;
+    cfg.attrs = at;
+    cfg.numAttrs = 1;
+    if (!err) err = (int)cudaOccupancyMaxActiveClusters(&cached, weight_grad_kernel<kBf16>, &cfg);
+    if (!err && cached <= 0) err = (int)cudaErrorInvalidConfiguration;
+  }
+  wave = cached;
+  return err;
+}
+
+// The split of a weight-gradient product over M rows of `tiles` output
+// tiles of n floats: chunk rows a chunk (at least kWgMinRows, a multiple of
+// kWgRows) and S chunks, a multiple of the cluster size C (the last cluster
+// padded with empty chunks), about one wave of `wave` clusters in all, the
+// S / C partials within kPartialCap.
+struct WgPlan {
+  long long chunk, S;
+};
+
+template <int C>
+WgPlan wg_plan(long long M, long long tiles, long long n, long long wave) {
+  long long s = wave / tiles * C;
+  if (s < C) s = C;
+  if (s > kPartialCap / n * C) s = kPartialCap / n * C;
   long long rows = (M + s - 1) / s;
   if (rows < kWgMinRows) rows = kWgMinRows;
-  return (rows + kWgRows - 1) / kWgRows * kWgRows;
+  rows = (rows + kWgRows - 1) / kWgRows * kWgRows;
+  const long long S = (M + rows - 1) / rows;
+  return {rows, (S + C - 1) / C * C};
 }
 
 bool aligned16(const void* p, int ld) {
   return ((uintptr_t)p & 15) == 0 && ld % 4 == 0;
 }
 
-// out [P][Q] = X^T Y; partial holds kPartialCap floats. kBf16: bf16 products.
+// The split of the product out [P][Q] = X^T Y over M rows (wg_plan) that
+// weight_grad<kBf16> takes on this card: plan. Refuses shapes weight_grad
+// refuses.
+template <bool kBf16>
+int wg_plan_for(long long M, int P, int Q, WgPlan& plan) {
+  if (M <= 0 || P <= 0 || Q <= 0 || P % 4 || Q % 4 || (long long)P * Q > kPartialCap)
+    return (int)cudaErrorInvalidValue;
+  int wave = 0;
+  if (int err = wg_cluster_wave<kBf16>(wave)) return err;
+  const long long tiles = (long long)((P + kWgTile - 1) / kWgTile) * ((Q + kWgTile - 1) / kWgTile);
+  plan = wg_plan<kWgClusterOf<kBf16>>(M, tiles, (long long)P * Q, wave);
+  return 0;
+}
+
+// out [P][Q] = X^T Y; partial holds kPartialCap floats; out and partial
+// 16-byte aligned (reduce_kernel's float4). kBf16: bf16 products.
 template <bool kBf16 = false>
 int weight_grad(const float* X, int ldx, const float* Y, int ldy, long long M, int P, int Q,
                 float* out, float* partial, cudaStream_t s) {
-  if (M <= 0 || P <= 0 || Q <= 0 || P % 4 || Q % 4 || P > ldx || Q > ldy ||
-      (long long)P * Q > kPartialCap ||
-      !aligned16(X, ldx) || !aligned16(Y, ldy))
+  if (P > ldx || Q > ldy || !aligned16(X, ldx) || !aligned16(Y, ldy) ||
+      ((uintptr_t)out | (uintptr_t)partial) & 15)
     return (int)cudaErrorInvalidValue;
-  // the dynamic shared memory of the ring, set once per process (one device)
-  static const int attr = (int)cudaFuncSetAttribute(
-      weight_grad_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
-  if (attr) return attr;
-  const int tp = (P + kWgTile - 1) / kWgTile, tq = (Q + kWgTile - 1) / kWgTile;
-  const long long chunk = wg_chunk_rows(M, (long long)tp * tq, (long long)P * Q);
-  const long long S = (M + chunk - 1) / chunk;
-  weight_grad_kernel<kBf16><<<dim3(tp, tq, (unsigned)S), kThreads, kWgSmem, s>>>(
-      X, ldx, Y, ldy, M, P, Q, chunk, partial);
-  int err = (int)cudaGetLastError();
+  constexpr int C = kWgClusterOf<kBf16>;
+  WgPlan plan;
+  if (int err = wg_plan_for<kBf16>(M, P, Q, plan)) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((P + kWgTile - 1) / kWgTile, (Q + kWgTile - 1) / kWgTile, (unsigned)plan.S);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kWgSmem;
+  cfg.stream = s;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = 1;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = C;
+  cfg.attrs = at;
+  cfg.numAttrs = C > 1;  // no cluster launch at C = 1
+  int err = (int)cudaLaunchKernelEx(&cfg, weight_grad_kernel<kBf16>, X, ldx, Y, ldy, M, P, Q,
+                                    plan.chunk, partial);
   if (err) return err;
-  reduce_kernel<<<grid_for((long long)P * Q), kThreads, 0, s>>>(partial, (int)S,
-                                                                (long long)P * Q, out);
-  return (int)cudaGetLastError();
+  return reduce_partials(partial, (int)(plan.S / C), (long long)P * Q, out, s);
 }
 
 }  // namespace

@@ -31,7 +31,10 @@ backward's inverse adjacency (csrc/pass_bwd.cuh build_adjacency, a stable
 counting sort in three kernels, once per pass and backward) alone, beside
 its plain version `adjacency_plain`. `transposed_product_cuda` runs the
 backward edge kernel's transposed second layers (da = d W2^T) alone, for
-their time and their check against float64.
+their time and their check against float64. `stage_w2` stages passes'
+second layers as the backwards do (csrc/pass_bwd.cuh stage_w2_kernel, one
+launch for every pass of a backward), beside their plain layouts
+`stage_w2_frags` (float32) and `stage_w2_frags16` (bf16).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -54,6 +58,9 @@ NODE_BWD_LAUNCHES = 0  # node_bwd_kernel launches since the last reset (one per 
 ADJ_LAUNCHES = 0  # inverse-adjacency builds (build_adjacency) since the last reset
 # the bf16 backward's runs and its node_bwd_kernel's launches
 BF16_LAUNCHES = BF16_NODE_BWD_LAUNCHES = 0
+# stage_w2_kernel launches (float32, bf16) since the last reset: one a whole-block
+# or per-layer backward
+STAGE_W2_LAUNCHES = BF16_STAGE_W2_LAUNCHES = 0
 
 FIELDS = [name for name, _ in _PassParams._fields_]
 R = len(FIXED_OFFSETS)
@@ -74,22 +81,27 @@ class _PassT(ctypes.Structure):
 
 def library_launch_counts() -> tuple:
     """(node_bwd_kernel launches, inverse-adjacency builds, bf16
-    node_bwd_kernel launches) the library has made in this process, as
-    launch_node_bwd and build_adjacency count them where they launch
-    (td_node_bwd_launches, td_adj_builds, td_node_bwd_bf16_launches)."""
+    node_bwd_kernel launches, stage_w2_kernel launches, bf16 ones) the
+    library has made in this process, as launch_node_bwd, build_adjacency
+    and stage_w2 count them where they launch (td_node_bwd_launches,
+    td_adj_builds, td_node_bwd_bf16_launches, td_stage_w2_launches)."""
     _, node, node16 = _node_bwd_entries()
-    return node(), _adjacency_entries()[2](), node16()
+    stage = _stage_w2_entries()[1]
+    return node(), _adjacency_entries()[2](), node16(), stage(0), stage(1)
 
 
 def count_library_launches(since: tuple) -> None:
-    """Add the node_bwd_kernel launches and the adjacency builds made since
-    `library_launch_counts` read `since` to NODE_BWD_LAUNCHES, ADJ_LAUNCHES
-    and BF16_NODE_BWD_LAUNCHES."""
+    """Add the launches made since `library_launch_counts` read `since` to
+    NODE_BWD_LAUNCHES, ADJ_LAUNCHES, BF16_NODE_BWD_LAUNCHES,
+    STAGE_W2_LAUNCHES and BF16_STAGE_W2_LAUNCHES."""
     global NODE_BWD_LAUNCHES, ADJ_LAUNCHES, BF16_NODE_BWD_LAUNCHES
-    node, adj, node16 = library_launch_counts()
-    NODE_BWD_LAUNCHES += node - since[0]
-    ADJ_LAUNCHES += adj - since[1]
-    BF16_NODE_BWD_LAUNCHES += node16 - since[2]
+    global STAGE_W2_LAUNCHES, BF16_STAGE_W2_LAUNCHES
+    node, adj, node16, stage, stage16 = np.subtract(library_launch_counts(), since).tolist()
+    NODE_BWD_LAUNCHES += node
+    ADJ_LAUNCHES += adj
+    BF16_NODE_BWD_LAUNCHES += node16
+    STAGE_W2_LAUNCHES += stage
+    BF16_STAGE_W2_LAUNCHES += stage16
 
 
 def row_layout(H: int, V: int) -> dict:
@@ -272,7 +284,7 @@ def _entries():
     lib = build.load_library()
     vp, i32, f32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     ws = lib.td_block_bwd_workspace
-    ws.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i64), ctypes.POINTER(i64)]
+    ws.argtypes = [i32, i32, i32, i32, i32, ctypes.POINTER(i64), ctypes.POINTER(i64)]
     ws.restype = None
     bwd = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -348,15 +360,125 @@ def frags16(B, scale=1.0):
 
 
 def stage_w2_frags16(w2k, w2v):
-    """The fragments run_pass<kH2X, true> stages for edge_bwd_kernel
-    (stage_w2_kernel<true>) from one pass's bf16 second layers w2k [H][H]
-    and w2v [H][V]: int32 (b0, b1) words of, in order, w2k and w2v times 2^8
-    (the recompute's second layers, B = W) and their transposes (the
-    transposed product, B[c][m] = W[m][c]), each flattened as `frags16`.
-    CPU tensors only: the layout the kernel reads, for the tests."""
+    """The fragments stage_w2_kernel<true> stages for edge_bwd_kernel from
+    one pass's bf16 second layers w2k [H][H] and w2v [H][V]: int32 (b0, b1)
+    words of, in order, w2k and w2v times 2^8 (the recompute's second layers,
+    B = W) and their transposes (the transposed product, B[c][m] = W[m][c]),
+    each flattened as `frags16`, each at the start of its region of
+    `W2_REGION_WORDS` // 2 words (4096 (b0, b1) pairs). CPU tensors only: the
+    layout the kernel reads, for the tests."""
     w2k, w2v = w2k.float(), w2v.float()
     return [frags16(w, s).reshape(-1, 2) for w, s in ((w2k, 256.0), (w2v, 256.0),
                                                        (w2k.T, 1.0), (w2v.T, 1.0))]
+
+
+# int32 words of one staged pass (csrc/pass_bwd.cuh kW2Staged uint4) and of
+# each of its four regions (kW2Frags uint4)
+W2_STAGED_WORDS = 4 * 4 * 4096
+W2_REGION_WORDS = 4 * 4096
+
+
+def split_f16(x):
+    """x = hi + lo, each rounded to fp16 to nearest even (tc_common.cuh
+    split_f16): int32 bit patterns (hi, lo) of the halves."""
+    hi = x.half()
+    lo = (x - hi.float()).half()
+    return (hi.view(torch.int16).int() & 0xFFFF), (lo.view(torch.int16).int() & 0xFFFF)
+
+
+def stage_w2_frags(w2k, w2v):
+    """The words stage_w2_kernel<false> stages for edge_bwd_kernel from one
+    pass's float32 second layers w2k [H][H] and w2v [H][V], as one int32
+    tensor of `W2_STAGED_WORDS`: at word 0 and at W2_REGION_WORDS, w2k and w2v
+    times 2^8 as (b0 hi, b1 hi, b0 lo, b1 lo) words [H/16 ks, n/8 nt, 32 lane,
+    4] (tc_common.cuh stage_frags: b0 the fp16 pair of rows 16 ks + 2 tig and
+    + 1 of column 8 nt + g, b1 those 8 rows down, hi and lo its split_f16
+    halves); from 2 W2_REGION_WORDS the float32 bits of w2k^T [H][H], then
+    w2v^T [V][H]. Words the kernel does not write (after w2v's fragments when
+    V < H) are 0. The plain version of the staging (tests, chip_smoke.py),
+    on the weights' device."""
+    H, V = w2v.shape
+    out = torch.zeros(W2_STAGED_WORDS, dtype=torch.int32, device=w2k.device)
+    for i, w in enumerate((w2k.float(), w2v.float())):
+        n = w.shape[1]
+        hi, lo = split_f16(256.0 * w)
+        pairs = []
+        for half in (hi, lo):
+            # ks, b0|b1, tig, k % 2, nt, g -> the pair's lower k in the low half
+            b = half.reshape(H // 16, 2, 4, 2, n // 8, 8)
+            pairs.append(b[:, :, :, 0] | b[:, :, :, 1] << 16)  # ks, b0|b1, tig, nt, g
+        words = torch.stack(pairs, 1).reshape(H // 16, 4, 4, n // 8, 8)  # ks, (hi|lo, b0|b1)
+        words = words.permute(0, 3, 4, 2, 1)  # ks, nt, g, tig, (hi b0, hi b1, lo b0, lo b1)
+        words = words.reshape(H // 16, n // 8, 32, 4)
+        out[i * W2_REGION_WORDS:i * W2_REGION_WORDS + words.numel()] = words.reshape(-1)
+    wt = torch.cat([w2k.float().T, w2v.float().T]).contiguous().view(torch.int32).reshape(-1)
+    out[2 * W2_REGION_WORDS:2 * W2_REGION_WORDS + wt.numel()] = wt
+    return out
+
+
+def pass_words(w2k, w2v, dtype=torch.float32):
+    """One pass's staged words (int32 [W2_STAGED_WORDS], on the weights'
+    device) for a pack of `dtype`: `stage_w2_frags`, or `stage_w2_frags16`'s
+    four regions at word i W2_REGION_WORDS // 2, zeros where the kernel
+    writes nothing."""
+    if check_dtype(dtype) == torch.float32:
+        return stage_w2_frags(w2k, w2v)
+    out = torch.zeros(W2_STAGED_WORDS, dtype=torch.int32, device=w2k.device)
+    for i, words in enumerate(stage_w2_frags16(w2k, w2v)):
+        out[i * W2_REGION_WORDS // 2:i * W2_REGION_WORDS // 2 + words.numel()] = words.reshape(-1)
+    return out
+
+
+def stage_w2(w2k, w2v, dtype=torch.float32, frags=None):
+    """Stages the second layers of len(w2k) passes, w2k[i] [H, H] and w2v[i]
+    [H, V] (V = 128 or 16) of a pack of `dtype`, as a backward stages its
+    passes: CUDA tensors in one stage_w2_kernel launch (td_stage_w2;
+    kMaxStagePasses = 64 passes a launch), CPU tensors through the plain
+    layouts (`pass_words`). Returns int32 [passes, W2_STAGED_WORDS], pass i
+    at row i; frags, if given (CUDA), receives them (zero it where words the
+    kernel does not write matter). Not a path of the program: the staging's
+    check and its time (tests, chip_smoke.py)."""
+    if len(w2k) != len(w2v) or not w2k:
+        raise ValueError("give one w2k and one w2v a pass")
+    for i, (k, v) in enumerate(zip(w2k, w2v)):
+        require_pack(k.dtype, dtype, "the second layers")
+        if (k.shape != (128, 128) or v.shape[0] != 128 or v.shape[1] not in (128, 16)
+                or v.dtype != k.dtype or k.device != v.device):
+            raise ValueError(f"pass {i}: w2k must be [128, 128] and w2v [128, 128|16], of one "
+                             "dtype and device")
+    dev, n = w2k[0].device, len(w2k)
+    if dev.type == "cpu":
+        return torch.stack([pass_words(k, v, dtype) for k, v in zip(w2k, w2v)])
+    for k, v in zip(w2k, w2v):
+        build.require_cuda(k, "w2k")
+        build.require_cuda(v, "w2v")
+        if not (k.is_contiguous() and v.is_contiguous()) or (k.data_ptr() | v.data_ptr()) % 16:
+            raise ValueError("the second layers must be contiguous and 16-byte aligned")
+    if frags is None:
+        frags = torch.zeros((n, W2_STAGED_WORDS), dtype=torch.int32, device=dev)
+    elif frags.shape != (n, W2_STAGED_WORDS) or frags.dtype != torch.int32 \
+            or not frags.is_contiguous() or frags.data_ptr() % 16:
+        raise ValueError(f"frags must be a contiguous int32 [{n}, {W2_STAGED_WORDS}] tensor")
+    arr = ctypes.c_void_p * n
+    since = library_launch_counts()
+    build.check(_stage_w2_entries()[0](
+        arr(*[k.data_ptr() for k in w2k]), arr(*[v.data_ptr() for v in w2v]),
+        (ctypes.c_int * n)(*[v.shape[1] for v in w2v]), n, int(dtype == torch.bfloat16),
+        frags.data_ptr(), build.stream_ptr(dev)), "td_stage_w2")
+    count_library_launches(since)
+    return frags
+
+
+@functools.lru_cache(maxsize=None)
+def _stage_w2_entries():
+    lib = build.load_library()
+    vp = ctypes.c_void_p
+    fn = lib.td_stage_w2
+    fn.argtypes = [vp, vp, vp, ctypes.c_int, ctypes.c_int, vp, vp]
+    fn.restype = ctypes.c_int
+    count = lib.td_stage_w2_launches
+    count.argtypes, count.restype = [ctypes.c_int], ctypes.c_longlong
+    return fn, count
 
 
 def transposed_product_cuda(d, w2k, w2v, dtype=torch.float32, frags=None):
@@ -498,7 +620,7 @@ def block_bwd_cuda(hck, xck, idx, nmask, mlig, e_w, n_ligand, x2h, h2x, gh, gx,
     gh, gx = gh.float().contiguous(), gx.float().contiguous()
     ws_size, bwd = _entries()
     nf, ni = ctypes.c_longlong(), ctypes.c_longlong()
-    ws_size(B, N, K, n_ligand, ctypes.byref(nf), ctypes.byref(ni))
+    ws_size(B, N, K, n_ligand, 2 * L, ctypes.byref(nf), ctypes.byref(ni))
     work = torch.empty(nf.value, dtype=torch.float32, device=dev)
     iwork = torch.empty(ni.value, dtype=torch.int32, device=dev)
     offsets, coeff = gaussian_smearing_offsets(device=dev)

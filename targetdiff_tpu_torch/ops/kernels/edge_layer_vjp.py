@@ -120,7 +120,7 @@ def _entries():
     lib = build.load_library()
     vp, i32, f32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     ws = lib.td_block_bwd_workspace
-    ws.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i64), ctypes.POINTER(i64)]
+    ws.argtypes = [i32, i32, i32, i32, i32, ctypes.POINTER(i64), ctypes.POINTER(i64)]
     ws.restype = None
     fns = {"workspace": ws}
     # h, x, idx, nmask, mlig, ew, offsets, coeff, PassParams, PassT, PassGrads, B, N, K,
@@ -147,7 +147,7 @@ def _layer_bwd(name, h, x, nbh, mlig, e_w, params, g, n_ligand, dtype):
     dev = h.device
     fns = _entries()
     nf, ni = ctypes.c_longlong(), ctypes.c_longlong()
-    fns["workspace"](B, N, K, n_ligand or 1, ctypes.byref(nf), ctypes.byref(ni))
+    fns["workspace"](B, N, K, n_ligand or 1, 1, ctypes.byref(nf), ctypes.byref(ni))
     work = torch.empty(nf.value, dtype=torch.float32, device=dev)
     iwork = torch.empty(ni.value, dtype=torch.int32, device=dev)
     offsets, coeff = gaussian_smearing_offsets(device=dev)

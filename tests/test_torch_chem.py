@@ -234,7 +234,8 @@ def test_edge_bwd_variants_imports_neither_jax_nor_the_jax_package():
 
 @pytest.mark.parametrize("script", ["node_ew_variants.py", "x2h_bf16_variants.py",
                                     "node_proj_variants.py", "variant_harness.py",
-                                    "cone_variants.py"])
+                                    "cone_variants.py", "h2x_bf16_variants.py",
+                                    "graph_variants.py"])
 def test_variant_tools_import_neither_jax_nor_the_jax_package(script):
     roots = _imported_roots(script)
     assert "targetdiff_tpu_torch" in roots

@@ -614,6 +614,8 @@ WG_CASES = {
     "w_node": (2048, 128, 640, 128, 0, 1680, 0),
     "w_q2": (2048, 128, 128, 128, 0, 1792, 1408),
     "odd_rows": (4096 + 7, 128, 128, 256, 128, 256, 128),
+    # an odd M at Q = 16: 37 chunks, the last cluster padded with an empty one
+    "odd_q16": (9 * 1024 + 13, 128, 16, 256, 128, 144, 128),
 }
 
 
@@ -643,6 +645,111 @@ def test_weight_grad_kernel_matches_float64_and_repeats(cuda, case):
     assert torch.equal(got, again)
     err = float(((got.double() - want).abs() / s).max())
     assert err <= WG_BAR, err
+
+
+@pytest.mark.parametrize("dtype,cluster", [(torch.float32, 2), (torch.bfloat16, 1)],
+                         ids=["float32", "bf16"])
+@pytest.mark.parametrize("case", list(WG_CASES))
+def test_weight_grad_split_is_whole_clusters_in_one_wave(cuda, case, dtype, cluster):
+    """The split the card takes (td_weight_grad_partials): row chunks of at
+    least 256 rows, a whole number of 32-row stages, in clusters of 2 for
+    float32 (the last padded with an empty chunk where their count is odd)
+    and of 1 (no cluster) for bf16, one partial a cluster for reduce_kernel,
+    no more clusters than the card holds at once."""
+    import math
+
+    from targetdiff_tpu_torch.ops.kernels import weight_grad as kwg
+
+    M, P, Q = WG_CASES[case][:3]
+    plan = kwg.plan(M, P, Q, dtype)
+    rows, S, C = plan["chunk_rows"], plan["chunks"], plan["cluster"]
+    tiles = math.ceil(P / 128) * math.ceil(Q / 128)
+    assert C == cluster and plan["groups"] == 8 and plan["cluster_wave"] >= 64, plan
+    assert rows % 32 == 0 and rows >= 256, plan
+    assert S % C == 0 and 0 <= S - math.ceil(M / rows) < C and plan["partials"] == S // C, plan
+    assert plan["partials"] * tiles <= plan["cluster_wave"], plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bf16"])
+def test_weight_grad_refuses_unaligned_out_and_scratch(cuda, dtype):
+    """reduce_kernel stores (and reads its partials) 16 bytes at a time: an
+    out or a partial scratch off a 16-byte boundary is refused, by
+    weight_grad_cuda before the launch and by the C entries themselves
+    (td_weight_grad(_bf16), td_reduce_partials), with no launch counted,
+    and the context is still usable afterwards."""
+    from targetdiff_tpu_torch.ops.kernels import build
+    from targetdiff_tpu_torch.ops.kernels import weight_grad as kwg
+
+    X = torch.randn((512, 128), device=cuda)
+    Y = torch.randn((512, 16), device=cuda)
+    base = torch.empty(128 * 16 + 4, device=cuda)
+    odd = base[1:1 + 128 * 16].view(128, 16)  # 4 bytes past a 16-byte boundary
+    counts = kwg.BF16_LAUNCHES if dtype == torch.bfloat16 else kwg.LAUNCHES
+    before = dict(counts)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kwg.weight_grad_cuda(X, Y, odd, dtype=dtype)
+    size, fns = kwg._entries()
+    partial = torch.empty(size() + 4, device=cuda)
+    stream = build.stream_ptr(cuda)
+    for out, scratch in ((odd, partial), (base[:128 * 16], partial[1:])):
+        assert fns[dtype](X.data_ptr(), 128, Y.data_ptr(), 16, 512, 128, 16, out.data_ptr(),
+                          scratch.data_ptr(), stream) != 0
+    partials = torch.randn((3, 68), device=cuda)
+    assert fns["reduce"](partials.data_ptr(), 3, 64, base[1:].data_ptr(), stream) != 0
+    assert fns["reduce"](partials[:, 1:].data_ptr(), 3, 64, base.data_ptr(), stream) != 0
+    assert counts == before
+    got = kwg.weight_grad_cuda(X, Y, dtype=dtype)
+    torch.cuda.synchronize()
+    assert bool(got.isfinite().all())
+
+
+@pytest.mark.parametrize("S,n", [(131, 128 * 128), (66, 84 * 256), (7, 1792), (3, 16)])
+def test_reduce_kernel_alone_is_its_plain_order_bitwise(cuda, S, n):
+    """reduce_kernel alone (`weight_grad.reduce_partials`) at the partials
+    of the B=32 step's x2h w2k and table products, of the column sums, and a
+    narrow one: bitwise `reduce_plain` on the same card tensors (its ranges
+    in the same order), and two launches bitwise equal."""
+    from targetdiff_tpu_torch.ops.kernels import weight_grad as kwg
+
+    gen = torch.Generator(device=cuda).manual_seed(S + n)
+    partials = torch.randn((S, n), generator=gen, device=cuda) * 10.0 ** torch.empty(
+        (S, 1), device=cuda).uniform_(-6, 6, generator=gen)
+    got, again = kwg.reduce_partials(partials), kwg.reduce_partials(partials)
+    want = kwg.reduce_plain(partials)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("passes", [18, 70])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bf16"])
+def test_batched_staging_equals_per_pass_staging(cuda, dtype, passes):
+    """stage_w2_kernel for every pass of a backward at once (18: the block's
+    2L at L = 9, x2h V = 128 and h2x V = 16 alternating as td_block_bwd
+    stages them; 70: two launches of at most 64 passes) gives, word for
+    word, its launch at a pass count of 1 for each pass and the plain
+    layouts (`block_vjp.pass_words`: stage_frags / stage_frags16's words);
+    one launch counted per 64 passes, in the instantiation's own counter."""
+    from targetdiff_tpu_torch.ops.kernels import block_vjp
+
+    gen = torch.Generator(device=cuda).manual_seed(passes)
+    widths = [16 if i % 2 else 128 for i in range(passes)]
+    w2k = [(torch.randn((128, 128), generator=gen, device=cuda)
+            * 10.0 ** torch.empty((128, 1), device=cuda).uniform_(-3, 1, generator=gen)).to(dtype)
+           for _ in widths]
+    w2v = [(torch.randn((128, V), generator=gen, device=cuda)
+            * 10.0 ** torch.empty((128, 1), device=cuda).uniform_(-3, 1, generator=gen)).to(dtype)
+           for V in widths]
+    bf16 = dtype == torch.bfloat16
+    counters = ("BF16_STAGE_W2_LAUNCHES", "STAGE_W2_LAUNCHES")[::1 if bf16 else -1]
+    before = [getattr(block_vjp, c) for c in counters]
+    batch = block_vjp.stage_w2(w2k, w2v, dtype)
+    torch.cuda.synchronize()
+    assert [getattr(block_vjp, c) - b for c, b in zip(counters, before)] == [
+        -(-passes // 64), 0]
+    for i, (k, v) in enumerate(zip(w2k, w2v)):
+        one = block_vjp.stage_w2([k], [v], dtype)
+        assert torch.equal(batch[i], one[0]), i
+        assert torch.equal(batch[i].cpu(), block_vjp.pass_words(k.cpu(), v.cpu(), dtype)), i
 
 
 def test_weight_grad_kernel_refuses_unaligned_operands(cuda):

@@ -227,6 +227,72 @@ def test_recompute_fragments_keep_the_words_of_the_16_byte_staging(V):
         assert np.array_equal(got.numpy().view(np.uint32), new)
 
 
+def stage_frags_f16(W, ldw, ntiles, scale):
+    """tc_common.cuh stage_frags<false>, its loop replayed thread by thread:
+    B = W [128][ldw] times scale as (b0 hi, b1 hi, b0 lo, b1 lo) fp16-pair
+    words [kKSteps ntiles 32, 4], each value split as split_f16 splits it
+    (hi and lo rounded to fp16, to nearest even)."""
+    W = np.asarray(W, np.float32).reshape(-1)
+    per = KSTEPS * ntiles * 32
+    out = np.zeros((per, 4), np.uint32)
+    for u in range(per):
+        ks, nt, fl = u // (ntiles * 32), u // 32 % ntiles, u % 32
+        w = (16 * ks + 2 * (fl & 3)) * ldw + 8 * nt + (fl >> 2)
+        x = np.float32(scale) * W[[w, w + ldw, w + 8 * ldw, w + 9 * ldw]]
+        hi = x.astype(np.float16)
+        lo = (x - hi.astype(np.float32)).astype(np.float16)
+        h, lw = hi.view(np.uint16).astype(np.uint32), lo.view(np.uint16).astype(np.uint32)
+        out[u] = (h[0] | h[1] << 16, h[2] | h[3] << 16, lw[0] | lw[1] << 16, lw[2] | lw[3] << 16)
+    return out
+
+
+@pytest.mark.parametrize("V", [128, 16])
+def test_float32_staged_words_replay_stage_frags(V):
+    """`block_vjp.stage_w2_frags`, the float32 layout the card tests compare
+    stage_w2_kernel<false>'s words with: w2k and w2v times 2^8 as
+    stage_frags<false> stages them (replayed thread by thread) at words 0
+    and W2_REGION_WORDS, the float32 bits of w2k^T and w2v^T from 2
+    W2_REGION_WORDS, zeros elsewhere."""
+    w2k, w2v = _weights(np.random.default_rng(11 + V), V)
+    got = block_vjp.stage_w2_frags(torch.from_numpy(w2k), torch.from_numpy(w2v)).numpy()
+    words = got.view(np.uint32)
+    region = block_vjp.W2_REGION_WORDS
+    assert got.shape == (block_vjp.W2_STAGED_WORDS,) == (4 * region,)
+    for i, (w, ntiles) in enumerate(((w2k, NTILES), (w2v, V // 8))):
+        want = stage_frags_f16(w, w.shape[1], ntiles, W_SCALE).reshape(-1)
+        assert np.array_equal(words[i * region:i * region + len(want)], want)
+        assert not words[i * region + len(want):(i + 1) * region].any()
+    wt = np.concatenate([w2k.T, w2v.T]).astype(np.float32).reshape(-1)
+    assert np.array_equal(got[2 * region:2 * region + len(wt)].view(np.float32), wt)
+    assert not words[2 * region + len(wt):].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bf16"])
+def test_batched_staging_is_the_per_pass_layouts_concatenated(dtype):
+    """`block_vjp.stage_w2` on CPU tensors (the plain version of one
+    stage_w2_kernel launch for a backward's passes) at the block's 2L = 18
+    passes, x2h (V = 128) and h2x (V = 16) alternating as td_block_bwd
+    stages them: pass i's row is `pass_words` of pass i, which holds
+    `stage_w2_frags` (float32) or `stage_w2_frags16`'s four regions at
+    W2_REGION_WORDS // 2 words apart (bf16)."""
+    rng = np.random.default_rng(5)
+    ws = [_weights(rng, 16 if i % 2 else 128) for i in range(18)]
+    w2k = [torch.from_numpy(k).to(dtype) for k, _ in ws]
+    w2v = [torch.from_numpy(v).to(dtype) for _, v in ws]
+    got = block_vjp.stage_w2(w2k, w2v, dtype)
+    assert got.shape == (18, block_vjp.W2_STAGED_WORDS) and got.dtype == torch.int32
+    half = block_vjp.W2_REGION_WORDS // 2
+    for i, (k, v) in enumerate(zip(w2k, w2v)):
+        assert torch.equal(got[i], block_vjp.pass_words(k, v, dtype))
+        if dtype == torch.float32:
+            assert torch.equal(got[i], block_vjp.stage_w2_frags(k, v))
+            continue
+        for r, want in enumerate(block_vjp.stage_w2_frags16(k, v)):
+            assert torch.equal(got[i, r * half:r * half + want.numel()], want.reshape(-1))
+    with pytest.raises(ValueError, match="pack"):
+        block_vjp.stage_w2(w2k, w2v, torch.bfloat16 if dtype == torch.float32 else torch.float32)
+
+
 def transposed_tf32(a, b, terms=3):
     """a [.., C] @ b [C, N] as transposed_tile's float32 branch computes it:
     TF32 operands (split3: hi, lo), each 8-deep k-step's lo*hi + hi*lo +

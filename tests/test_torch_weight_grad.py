@@ -3,12 +3,18 @@ weight_grad.cuh) replayed in plain PyTorch on the CPU: X^T Y over row chunks
 of the kernel's length, each chunk walked in 8-row k-steps whose three TF32
 products (lo*hi + hi*lo + hi*hi, operands rounded to TF32 by bit masks as
 `cvt.rna` rounds) are summed into a zeroed tile and then added to the
-float32 accumulator, the chunks' partials summed in ascending order. The
-replay is held against float64 at the shapes of the backwards' five
+float32 accumulator; then the split-K sum in the kernels' fixed order: the
+chunks in clusters of C (padded with empty chunks), each cluster's partials
+summed in rank order, then reduce_kernel's G ranges of the clusters'
+partials, each summed in ascending order from zero, added in range order.
+The replay is held against float64 at the shapes of the backwards' five
 products per pass (M cut to a few thousand rows), with columns from 1e-9 to
-1e5, to the bar the kernel is held to on the card; a one-term TF32 product
-and a three-term fp16 product without scaling miss it on the same inputs.
-The plain version is held against the JAX package's `_cdotg`."""
+1e5, to the bar the kernel is held to on the card, at the cluster sizes the
+kernels use (2 in float32; 1, no cluster, in bf16, with the same ranges),
+at 8 (the variant of weight_grad_variants.py) and at 1 with one range (the
+order before clusters); a one-term TF32 product and a three-term fp16
+product without scaling miss it on the same inputs. The plain version is
+held against the JAX package's `_cdotg`."""
 
 import math
 
@@ -26,9 +32,21 @@ torch.set_num_threads(2)
 # Y[m][q]^2) in float64 (chip_smoke.py [train-block], tests/test_torch_cuda.py)
 WG_BAR = 1e-5
 # csrc/weight_grad.cuh: output tile, rows per stage, rows per chunk at least,
-# blocks aimed at, floats of partial scratch
-TILE, STAGE_ROWS, MIN_ROWS, BLOCKS, PARTIAL_CAP = 128, 32, 256, 2 * 132, 1 << 22
+# floats of partial scratch, blocks a cluster (kWgCluster), reduce_kernel's
+# ranges (kRedGroups)
+TILE, STAGE_ROWS, MIN_ROWS, PARTIAL_CAP, CLUSTER, GROUPS = 128, 32, 256, 1 << 22, 2, 8
+CLUSTER_BF16 = 1  # the bf16 instantiation's (kWgClusterBf16): no cluster
+# clusters of C weight_grad_kernel blocks an NVIDIA H100 80GB HBM3 holds at
+# once, by C (cudaOccupancyMaxActiveClusters as td_weight_grad_partials
+# reads it on the card; weight_grad_variants.py prints it for each variant,
+# tests/test_torch_cuda.py holds `plan` to the kernel's there)
+WAVES = {1: 264, 2: 132, 4: 62, 8: 30, 16: 14}
+WAVE = WAVES[CLUSTER]
 KSTEP = 8  # rows per m16n8k8 product
+# (cluster, groups): the float32 kernel's, the cluster8 variant's, the order
+# before clusters, and the bf16 kernel's
+ORDERS = [(CLUSTER, GROUPS), (8, GROUPS), (1, 1), (CLUSTER_BF16, GROUPS)]
+ORDER_IDS = ["kernel", "cluster8", "cluster1", "bf16_order"]
 
 # the five products of one pass (csrc/pass_bwd.cuh run_pass): name, M, P, Q;
 # M cut to a few thousand rows, one not a multiple of a stage
@@ -63,12 +81,14 @@ def f16(a):
     return a.half().float()
 
 
-def chunk_rows(M, P, Q):
-    """Rows per chunk (csrc/weight_grad.cuh wg_chunk_rows)."""
+def plan(M, P, Q, cluster=CLUSTER, wave=WAVE):
+    """(rows per chunk, chunks S) of csrc/weight_grad.cuh wg_plan: about one
+    wave of `wave` clusters, S a multiple of the cluster size."""
     tiles = math.ceil(P / TILE) * math.ceil(Q / TILE)
-    s = min(math.ceil(BLOCKS / tiles), PARTIAL_CAP // (P * Q))
+    s = min(max(wave // tiles * cluster, cluster), PARTIAL_CAP // (P * Q) * cluster)
     rows = max(math.ceil(M / s), MIN_ROWS)
-    return math.ceil(rows / STAGE_ROWS) * STAGE_ROWS
+    rows = math.ceil(rows / STAGE_ROWS) * STAGE_ROWS
+    return rows, math.ceil(math.ceil(M / rows) / cluster) * cluster
 
 
 def three_tf32(x, y):
@@ -94,25 +114,47 @@ def three_f16(x, y):
     return t + torch.bmm(xh.transpose(1, 2), yh)
 
 
-def replay(X, Y, kstep=three_tf32):
-    """X^T Y as the kernel computes it: per chunk, 8-row k-steps (rows past
+def fixed_order_sum(chunks, cluster=CLUSTER, groups=GROUPS):
+    """The kernels' sum of the chunks' partials (a list, a multiple of
+    `cluster` long): each cluster's in rank order (weight_grad_kernel's
+    fold), then reduce_kernel's: range g of `groups` takes the clusters'
+    partials [g S / G, (g + 1) S / G) ascending from zero, the range sums
+    added in range order."""
+    folds = []
+    for c in range(0, len(chunks), cluster):
+        f = chunks[c]
+        for k in range(1, cluster):
+            f = f + chunks[c + k]
+        folds.append(f)
+    S, out = len(folds), None
+    for g in range(groups):
+        r = torch.zeros_like(folds[0])
+        for z in range(g * S // groups, (g + 1) * S // groups):
+            r = r + folds[z]
+        out = r if out is None else out + r
+    return out
+
+
+def replay(X, Y, kstep=three_tf32, cluster=CLUSTER, groups=GROUPS):
+    """X^T Y as the kernels compute it: per chunk, 8-row k-steps (rows past
     the chunk zero) whose `kstep` tile is added to a float32 accumulator in
-    order; the partials summed in ascending chunk order."""
+    order; the chunks' partials (empty chunks zero) summed in
+    `fixed_order_sum`'s order."""
     M, P = X.shape
     Q = Y.shape[1]
-    rows = chunk_rows(M, P, Q)
-    out = torch.zeros((P, Q))
-    for m0 in range(0, M, rows):
+    rows, S = plan(M, P, Q, cluster, WAVES[cluster])
+    chunks = []
+    for m0 in range(0, S * rows, rows):
         xc, yc = X[m0:m0 + rows], Y[m0:m0 + rows]
-        pad = -len(xc) % KSTEP
-        xc = torch.cat([xc, xc.new_zeros((pad, P))]).reshape(-1, KSTEP, P)
-        yc = torch.cat([yc, yc.new_zeros((pad, Q))]).reshape(-1, KSTEP, Q)
-        tiles = kstep(xc, yc)
         acc = torch.zeros((P, Q))
-        for t in tiles:
-            acc = acc + t
-        out = out + acc
-    return out
+        if len(xc):
+            pad = -len(xc) % KSTEP
+            xc = torch.cat([xc, xc.new_zeros((pad, P))]).reshape(-1, KSTEP, P)
+            yc = torch.cat([yc, yc.new_zeros((pad, Q))]).reshape(-1, KSTEP, Q)
+            for t in kstep(xc, yc):
+                acc = acc + t
+        chunks.append(acc)
+    return fixed_order_sum(chunks, cluster, groups)
 
 
 def inputs(M, P, Q, seed):
@@ -159,13 +201,62 @@ def test_tf32_rounding_is_nearest_ties_away_from_zero():
     assert (resid <= 2.0 ** -22 * np.abs(a.astype(np.float64))).all()
 
 
-@pytest.mark.parametrize("name,M,P,Q", SHAPES, ids=[s[0] for s in SHAPES])
-def test_three_term_tf32_replay_holds_the_bar(name, M, P, Q):
+def replay_error(name, M, P, Q, cluster, groups):
+    """The replay's largest error over s at one of SHAPES in one order."""
     X, Y = inputs(M, P, Q, seed=len(name) + M)
     want, s = exact_and_scale(X, Y)
-    got = replay(torch.from_numpy(X), torch.from_numpy(Y))
-    err = rel_err(got, want, s)
+    got = replay(torch.from_numpy(X), torch.from_numpy(Y), cluster=cluster, groups=groups)
+    return rel_err(got, want, s)
+
+
+@pytest.mark.parametrize("name,M,P,Q", SHAPES, ids=[s[0] for s in SHAPES])
+def test_three_term_tf32_replay_holds_the_bar(name, M, P, Q):
+    """In the kernels' order (clusters of CLUSTER, GROUPS ranges)."""
+    err = replay_error(name, M, P, Q, CLUSTER, GROUPS)
     assert err <= WG_BAR / 4, f"{name}: {err} of scale"  # float32-grade: ~2e-7 typical
+
+
+@pytest.mark.parametrize("cluster,groups", ORDERS[1:], ids=ORDER_IDS[1:])
+@pytest.mark.parametrize("name,M,P,Q", SHAPES, ids=[s[0] for s in SHAPES])
+def test_three_term_tf32_replay_holds_the_bar_in_other_orders(name, M, P, Q, cluster, groups):
+    """In the cluster8 variant's order, in the order before clusters and in
+    the bf16 instantiation's order (no cluster, GROUPS ranges)."""
+    err = replay_error(name, M, P, Q, cluster, groups)
+    assert err <= WG_BAR / 4, f"{name}: {err} of scale"
+
+
+def test_fixed_order_sum_is_the_stated_order():
+    """The split-K order on partials whose sums round differently in each
+    order: clusters of C in rank order, then G ranges of the cluster sums,
+    each from zero, added in range order. C = G = 1 is the plain ascending
+    sum from zero."""
+    rng = np.random.default_rng(3)
+    chunks = [torch.tensor(v) for v in (rng.standard_normal((40, 6))
+                                        * 10.0 ** rng.uniform(-8, 8, (40, 1))).astype(np.float32)]
+    folds = [chunks[c] + chunks[c + 1] + chunks[c + 2] + chunks[c + 3] + chunks[c + 4]
+             + chunks[c + 5] + chunks[c + 6] + chunks[c + 7] for c in range(0, 40, 8)]
+    # five folds in eight ranges: ranges 1, 3, 4, 6, 7 hold one fold each
+    want = (((0 + folds[0]) + (0 + folds[1])) + (0 + folds[2])) + (0 + folds[3]) + (0 + folds[4])
+    assert torch.equal(fixed_order_sum(chunks, 8, 8), want)
+    flat = torch.zeros(6)
+    for c in chunks:
+        flat = flat + c
+    assert torch.equal(fixed_order_sum(chunks, 1, 1), flat)
+    assert not torch.equal(fixed_order_sum(chunks, 8, 8), flat)
+
+
+@pytest.mark.parametrize("S", [1, 7, 131])
+def test_reduce_partials_on_the_cpu_is_the_fixed_order_sum(S):
+    """`weight_grad.reduce_partials` on CPU partials (reduce_kernel's plain
+    version) is bitwise the second half of `fixed_order_sum`: the partials'
+    GROUPS ranges, each ascending from zero, added in range order."""
+    rng = np.random.default_rng(S)
+    partials = torch.from_numpy((rng.standard_normal((S, 64))
+                                 * 10.0 ** rng.uniform(-8, 8, (S, 1))).astype(np.float32))
+    assert kwg.REDUCE_GROUPS == GROUPS
+    assert torch.equal(kwg.reduce_partials(partials), fixed_order_sum(list(partials), 1, GROUPS))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        kwg.reduce_partials(partials[:, :6])
 
 
 @pytest.mark.parametrize("name,M,P,Q", SHAPES[:3], ids=[s[0] for s in SHAPES[:3]])
@@ -206,15 +297,29 @@ def test_weight_grad_cuda_refuses_cpu_tensors():
 
 
 def test_chunks_follow_the_shape_only():
-    """The chunking is a function of (M, P, Q): enough blocks for the card at
-    the train step's edge counts, at least MIN_ROWS rows and a whole number of
-    stages per chunk, the partials inside the scratch."""
+    """The chunking is a function of (M, P, Q) and the card's cluster wave, at
+    the kernel's cluster size (`check_chunks`)."""
+    check_chunks(CLUSTER)
+
+
+@pytest.mark.parametrize("cluster", [8, 1])
+def test_chunks_follow_the_shape_only_at_other_cluster_sizes(cluster):
+    check_chunks(cluster)
+
+
+def check_chunks(cluster):
+    """Whole clusters (S a multiple of C, the last padded with empty chunks, no
+    cluster of empty chunks only), one wave of clusters at the train step's
+    edge counts, at least MIN_ROWS rows and a whole number of stages per
+    chunk, the clusters' partials inside the scratch."""
+    wave = WAVES[cluster]
     for M, P, Q in ((425_984, 128, 128), (425_984, 84, 256), (32_768, 128, 16),
-                    (13_312, 128, 640), (425_991, 128, 128)):
-        rows = chunk_rows(M, P, Q)
-        S = math.ceil(M / rows)
+                    (13_312, 128, 640), (425_991, 128, 128), (13_312, 128, 128), (4103, 128, 128)):
+        rows, S = plan(M, P, Q, cluster, wave)
         tiles = math.ceil(P / TILE) * math.ceil(Q / TILE)
+        assert S % cluster == 0 and S - math.ceil(M / rows) < cluster
         assert rows % STAGE_ROWS == 0 and rows >= MIN_ROWS
-        assert S * P * Q <= PARTIAL_CAP
-        if M >= BLOCKS * MIN_ROWS:
-            assert BLOCKS * 0.9 <= S * tiles <= BLOCKS
+        assert S // cluster * P * Q <= PARTIAL_CAP
+        assert S // cluster * tiles <= wave
+        if M >= wave * cluster * MIN_ROWS:
+            assert S // cluster * tiles >= wave * 0.9
